@@ -1,0 +1,351 @@
+"""TTSEngine: the top-level synthesis API of the PyTorch port.
+
+Port of ``leaxer_qwen3_tts_tpu/api/engine.py`` at B=1: ``synthesize``,
+``synthesize_stream`` and ``synthesize_tokens``, the KV bucket ladder with
+cache growth between chunks, the small first chunk for time-to-first-audio,
+and the streamed vocoder with causal left context.
+
+On a CUDA device the engine runs only the kernel path: it requires
+``quantize="int8"`` and the fused talker and MTP implementations, packs both
+for kernels K1 and K2, and raises ``EngineError`` for a configuration the
+kernels do not take.  On the CPU the same code runs the kernels' plain
+versions.  A decode chunk enqueues its frames on the device and the engine
+syncs once per chunk, when it copies the chunk's codes to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import (
+    IM_END,
+    IM_START,
+    MAX_NEW_TOKENS,
+    SAMPLE_RATE,
+    TTS_BOS,
+    TTS_EOS,
+    TTSModelConfig,
+    language_to_codec_id,
+)
+from ..frontend.tokenizer import Tokenizer
+from ..models.code_predictor import prepare_fused_step
+from ..models.codec12hz import vocode_chunk
+from ..models.talker import prepare_fused_talker
+from ..ops.fused_step import supports
+from ..ops.quant import fuse_params, quantize_params
+from ..runtime.generate import GenerateFns, GenerateState, make_generate_fns
+from ..runtime.prompt import prompt_length
+from ..runtime.sampling import SamplingParams
+from ..utils.metrics import StageTimer, SynthesisMetrics
+
+
+class EngineError(RuntimeError):
+    """Typed engine failure."""
+
+
+class SynthesisResult(NamedTuple):
+    audio: np.ndarray  # [T] float32 mono 24 kHz
+    codes: np.ndarray  # [frames, 16] int32
+    metrics: SynthesisMetrics
+
+
+def _round_up(n: int, multiple: int) -> int:
+    return ((max(n, 1) + multiple - 1) // multiple) * multiple
+
+
+def _to_device(node, device):
+    if isinstance(node, torch.Tensor):
+        return node.to(device)
+    if isinstance(node, dict):
+        return {k: _to_device(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_device(v, device) for v in node]
+    return node
+
+
+def _first_device(node) -> Optional[torch.device]:
+    if isinstance(node, torch.Tensor):
+        return node.device
+    items = node.values() if isinstance(node, dict) else node if isinstance(node, list) else ()
+    for v in items:
+        d = _first_device(v)
+        if d is not None:
+            return d
+    return None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class TTSEngine:
+    """Qwen3-TTS synthesis engine on PyTorch (B=1)."""
+
+    def __init__(
+        self,
+        *,
+        config: TTSModelConfig,
+        params: dict,
+        tokenizer: Optional[Tokenizer] = None,
+        device=None,
+        max_frames: int = MAX_NEW_TOKENS,
+        chunk_len: int = 32,
+        first_chunk_len: int = 8,
+        text_bucket: int = 16,
+        quantize: Optional[str] = None,
+        kv_buckets: Tuple[int, ...] = (256, 512, 1024),
+    ):
+        self.cfg = config
+        self.tokenizer = tokenizer
+        self.device = torch.device(device) if device is not None else _first_device(params)
+        self.max_frames = int(max_frames)
+        self.chunk_len = max(1, min(int(chunk_len), self.max_frames))
+        self.first_chunk_len = max(1, min(int(first_chunk_len), self.chunk_len))
+        self.text_bucket = int(text_bucket)
+        full = self.max_frames + 32
+        if full > 1024:
+            full = _round_up(full, 512)
+        # KV-cache bucket ladder: attention reads scale with the current
+        # bucket; the cache is zero-padded up a rung as the position nears it
+        self.kv_ladder = tuple(sorted({b for b in kv_buckets if b < full} | {full}))
+
+        if quantize not in (None, "int8"):
+            raise EngineError(
+                f"quantize={quantize!r}: only int8 is ported (int4: ROADMAP item K1v)"
+            )
+        cfg = self.cfg
+        if cfg.talker.transformer.kv_cache_quant:
+            raise EngineError("the int8 KV cache is not ported yet (ROADMAP item K1v)")
+        talker_fused = cfg.talker.decode_impl == "fused"
+        mtp_fused = cfg.code_predictor.impl == "fused"
+        if self.device.type == "cuda":
+            problems = []
+            if quantize != "int8":
+                problems.append("the kernels take int8 weights (quantize='int8')")
+            if not (talker_fused and mtp_fused):
+                problems.append("decode_impl and the MTP impl must be 'fused'")
+            if not supports(cfg.talker.transformer) or not supports(
+                cfg.code_predictor.transformer
+            ):
+                problems.append("the kernels do not take this architecture")
+            if cfg.code_predictor.head_mode != "per_step":
+                problems.append("the chain kernel takes per-step heads only")
+            if problems:
+                raise EngineError("CUDA kernel path unavailable: " + "; ".join(problems))
+
+        params = fuse_params(_to_device(params, self.device))
+        if quantize == "int8":
+            # quantize first: the packs reuse the QuantizedLinear values
+            params = quantize_params(params)
+            if mtp_fused:
+                params["code_predictor"] = prepare_fused_step(
+                    cfg.code_predictor, params["code_predictor"]
+                )
+            if talker_fused:
+                params["talker"] = prepare_fused_talker(cfg.talker, params["talker"])
+        self.params = params
+
+    # ------------------------------------------------------------------
+    # Public synthesis API
+    # ------------------------------------------------------------------
+
+    def synthesize(
+        self,
+        text: str,
+        language: str = "auto",
+        temperature: float = 0.8,
+        top_k: int = 50,
+        top_p: float = 0.95,
+        max_tokens: Optional[int] = None,
+        seed: int = 0,
+    ) -> SynthesisResult:
+        """Text -> 24 kHz waveform."""
+        return self._last(self.synthesize_stream(
+            text, language, temperature, top_k, top_p, max_tokens, seed
+        ))
+
+    def synthesize_stream(
+        self,
+        text: str,
+        language: str = "auto",
+        temperature: float = 0.8,
+        top_k: int = 50,
+        top_p: float = 0.95,
+        max_tokens: Optional[int] = None,
+        seed: int = 0,
+    ) -> Iterator:
+        """Yields audio chunks (np float32 @ 24 kHz) as they decode; the final
+        item is the SynthesisResult."""
+        timer = StageTimer(SynthesisMetrics())
+        with timer.stage("tokenize"):
+            ids = self._tokenize(text)
+        yield from self._ids_stream(
+            ids, language, temperature, top_k, top_p, max_tokens, seed, timer
+        )
+
+    def synthesize_tokens(
+        self,
+        token_ids: Sequence[int],
+        language: str = "auto",
+        temperature: float = 0.8,
+        top_k: int = 50,
+        top_p: float = 0.95,
+        max_tokens: Optional[int] = None,
+        seed: int = 0,
+    ) -> SynthesisResult:
+        """Synthesis from a chat-wrapped sequence
+        [IM_START, ASSISTANT, TTS_BOS, *text, TTS_EOS, IM_END] (or bare text ids)."""
+        ids = [int(i) for i in token_ids]
+        if len(ids) >= 6 and ids[0] == IM_START and ids[-1] == IM_END:
+            text_ids = ids[3:-2]
+        else:
+            text_ids = [i for i in ids if i not in (IM_START, IM_END, TTS_BOS, TTS_EOS)]
+        if not text_ids:
+            raise EngineError("no text tokens in sequence")
+        timer = StageTimer(SynthesisMetrics())
+        return self._last(self._ids_stream(
+            text_ids, language, temperature, top_k, top_p, max_tokens, seed, timer
+        ))
+
+    # ------------------------------------------------------------------
+    # Internals
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _last(stream) -> SynthesisResult:
+        result = None
+        for item in stream:
+            result = item
+        return result
+
+    def _tokenize(self, text: str) -> List[int]:
+        if self.tokenizer is None:
+            raise EngineError("tokenizer not loaded (missing vocab.json/merges.txt)")
+        ids = self.tokenizer.encode(text)
+        if not ids:
+            raise EngineError("empty text")
+        return ids
+
+    def _get_fns(self, lang_id, kv_bucket: int, chunk_len: int) -> GenerateFns:
+        return make_generate_fns(
+            self.cfg, batch=1, max_len=kv_bucket, chunk_len=chunk_len, lang_id=lang_id
+        )
+
+    @staticmethod
+    def _grow_state(state: GenerateState, new_len: int) -> GenerateState:
+        """Zero-pad the KV cache (head-major time axis) and the validity mask
+        up to the next bucket; padded slots are invalid until written."""
+        pad = new_len - state.cache.k.shape[3]
+        cache = state.cache._replace(
+            k=F.pad(state.cache.k, (0, 0, 0, pad)),
+            v=F.pad(state.cache.v, (0, 0, 0, pad)),
+        )
+        vm = state.valid_mask
+        valid = torch.cat([vm, torch.zeros((vm.shape[0], pad), dtype=vm.dtype, device=vm.device)], 1)
+        return state._replace(cache=cache, valid_mask=valid)
+
+    def _ids_stream(
+        self, ids, language, temperature, top_k, top_p, max_tokens, seed, timer,
+    ):
+        cfg = self.cfg
+        vocab = cfg.talker.text_vocab_size
+        bad = [i for i in ids if not 0 <= int(i) < vocab]
+        if bad:
+            raise EngineError(f"token id(s) out of range [0, {vocab}): {bad[:8]}")
+        lang_id = language_to_codec_id(language if language != "auto" else None)
+        max_tokens = self.max_frames if max_tokens is None else min(max_tokens, self.max_frames)
+
+        t_bucket = _round_up(len(ids), self.text_bucket)
+        ids_padded = np.zeros((1, t_bucket), np.int64)
+        ids_padded[0, : len(ids)] = ids
+        P = prompt_length(lang_id)
+        # the last chunk may overshoot max_tokens by up to chunk_len - 1
+        # frames, so the budget keeps a full chunk below the top bucket
+        top = self.kv_ladder[-1]
+        budget = top - P - self.chunk_len
+        if budget < 1:
+            raise EngineError(
+                f"prompt ({P} positions) too long for the KV cache "
+                f"(top bucket {top}, chunk {self.chunk_len})"
+            )
+        max_tokens = min(max_tokens, budget)
+        bidx = next(
+            (i for i, b in enumerate(self.kv_ladder) if b >= P + self.chunk_len + 1),
+            len(self.kv_ladder) - 1,
+        )
+        sp = SamplingParams.create(temperature, top_k, top_p)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        dev = self.device
+
+        with timer.stage("prefill"):
+            fns = self._get_fns(lang_id, self.kv_ladder[bidx], self.first_chunk_len)
+            state, bundle = fns.prefill(
+                self.params,
+                torch.from_numpy(ids_padded).to(dev),
+                torch.tensor([len(ids)], dtype=torch.long, device=dev),
+                gen,
+            )
+            _sync(dev)
+
+        voc_cfg = cfg.vocoder
+        spf = voc_cfg.samples_per_frame
+        frames_chunks, valid_chunks, audio_chunks = [], [], []
+        tail: Optional[torch.Tensor] = None  # rolling [1, ctx, 16] vocoder context
+        steps = 0
+        first = True
+        while steps < max_tokens:
+            cur_chunk = self.first_chunk_len if first else self.chunk_len
+            while (
+                P + steps + cur_chunk + 1 > self.kv_ladder[bidx]
+                and bidx + 1 < len(self.kv_ladder)
+            ):
+                bidx += 1
+                state = self._grow_state(state, self.kv_ladder[bidx])
+            fns = self._get_fns(lang_id, self.kv_ladder[bidx], cur_chunk)
+            with timer.stage("decode"):
+                state, frames, valid = fns.decode(
+                    self.params, state, bundle.trailing, bundle.trailing_len,
+                    bundle.tts_pad_embed, sp,
+                )
+                frames_np = frames.cpu().numpy()  # the one sync of the chunk
+            valid_np = valid.cpu().numpy()
+            done = bool(state.done.all().cpu())
+            frames_chunks.append(frames_np)
+            valid_chunks.append(valid_np)
+            steps += cur_chunk
+
+            with timer.stage("vocode"):
+                n_ctx = 0 if tail is None else int(tail.shape[1])
+                window = frames if tail is None else torch.cat([tail, frames], dim=1)
+                audio = vocode_chunk(voc_cfg, self.params["vocoder"], window, n_ctx)
+                audio = audio.cpu().numpy().astype(np.float32)
+                ctx = min(voc_cfg.left_context_frames, int(window.shape[1]))
+                tail = window[:, window.shape[1] - ctx :]
+            audio = audio * np.repeat(valid_np, spf, axis=1)  # post-EOS samples -> 0
+            audio_chunks.append(audio)
+            timer.mark_first_audio()
+            first = False
+            keep = min(cur_chunk, max_tokens - (steps - cur_chunk)) * spf
+            yield audio[0, :keep]
+            if done:
+                break
+
+        all_frames = np.concatenate(frames_chunks, axis=1)[:, :max_tokens]
+        all_valid = np.concatenate(valid_chunks, axis=1)[:, :max_tokens]
+        n_valid = int(all_valid[0].sum())
+        full_audio = np.concatenate(audio_chunks, axis=1)
+        metrics = timer.finish()
+        metrics.frames = n_valid
+        metrics.decoded_frames = steps
+        metrics.audio_seconds = n_valid * spf / SAMPLE_RATE
+        yield SynthesisResult(
+            audio=full_audio[0, : n_valid * spf],
+            codes=all_frames[0][all_valid[0]],
+            metrics=metrics,
+        )

@@ -1,0 +1,117 @@
+"""Code predictor: the MTP head emitting sub-codebooks 1..15 per frame.
+
+Port of ``leaxer_qwen3_tts_tpu/models/code_predictor.py``.  Contract: the
+input sequence starts [talker_last_hidden, codec_embed(code0)]; step j emits
+logits from its step-indexed head; the token sampled at step j is embedded
+with the step-j table and appended for step j+1; the sum of all sub-embeddings
+feeds the next talker input.
+
+Two paths, as in the JAX package: the cached path (plain layers, a
+``sample_fn`` per step) and, for B=1 with a packed ``fused_step``, the whole
+chain as kernel K2 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`).
+There is no VMEM gate on the card: the chain takes every B=1 int8 pack.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..config import CodePredictorConfig
+from ..ops.fused_mtp import fused_mtp_chain, pack_heads
+from ..ops.fused_step import pack_fused_weights, supports
+from ..ops.quant import QuantizedLinear, dense
+from ..runtime.sampling import SamplingParams
+from .layers import _normal, init_kv_cache, init_transformer_params, transformer_forward
+
+
+def init_code_predictor_params(cfg: CodePredictorConfig, gen: torch.Generator, device) -> dict:
+    if cfg.head_mode != "per_step":
+        raise NotImplementedError("the shared-head topology is not ported yet (ROADMAP M6)")
+    t = cfg.transformer
+    h = t.hidden_size
+    return {
+        "transformer": init_transformer_params(t, gen, device),
+        "heads": _normal(gen, (cfg.num_steps, h, cfg.subcode_vocab_size), h ** -0.5,
+                         t.torch_dtype, device),
+    }
+
+
+def _head(heads, j: int):
+    if isinstance(heads, QuantizedLinear):
+        return QuantizedLinear(heads.q[j], heads.scale[j])
+    return heads[j]
+
+
+def prepare_fused_step(cfg: CodePredictorConfig, cp_params: dict, bits: int = 8) -> dict:
+    """Attach the packed trunk (``fused_step``) and heads (``fused_heads``)
+    for the chain kernel when the architecture qualifies."""
+    if not supports(cfg.transformer) or cfg.head_mode != "per_step":
+        return cp_params
+    out = dict(cp_params)
+    out["fused_step"] = pack_fused_weights(
+        cfg.transformer, cp_params["transformer"]["layers"], bits=bits
+    )
+    out["fused_heads"] = pack_heads(cp_params["heads"])
+    return out
+
+
+def predict_subcodes(
+    cfg: CodePredictorConfig,
+    params: dict,
+    pred_embed_tables: torch.Tensor,  # [num_steps, subcode_vocab, H]
+    last_hidden: torch.Tensor,  # [B, H]
+    code0_embed: torch.Tensor,  # [B, H]
+    sample_fn: Callable[[torch.Tensor, int], torch.Tensor],  # (logits [B, V], j) -> [B]
+    sp: Optional[SamplingParams] = None,  # enables the chain kernel (B=1)
+    noise_fn: Optional[Callable[[tuple], Optional[torch.Tensor]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Runs the MTP loop for one frame.
+
+    ``noise_fn(shape)`` draws the chain's Gumbel noise ([n, 1, V]; None
+    under greedy decoding).  Returns (subcodes [B, n] int, sub_embed_sum
+    [B, H] in last_hidden's dtype)."""
+    t = cfg.transformer
+    B, H = last_hidden.shape
+    if (
+        cfg.impl == "fused"
+        and sp is not None
+        and "fused_step" in params
+        and B == 1
+        and cfg.head_mode == "per_step"
+    ):
+        noise = None if sp.greedy else noise_fn((cfg.num_steps, 1, cfg.subcode_vocab_size))
+        subcodes, sub_sum = fused_mtp_chain(
+            t, params["fused_step"], params["transformer"]["final_norm"],
+            params["fused_heads"], pred_embed_tables, last_hidden, code0_embed,
+            noise, sp.temperature, sp.top_k, sp.top_p, cache_dtype=t.torch_dtype,
+        )
+        return subcodes, sub_sum.to(last_hidden.dtype)
+
+    n = cfg.num_steps
+    device = last_hidden.device
+    cache = init_kv_cache(t, B, cfg.max_seq_len, device)
+    valid = torch.zeros((B, cfg.max_seq_len), dtype=torch.bool, device=device)
+    prefix = torch.stack([last_hidden.to(t.torch_dtype), code0_embed.to(t.torch_dtype)], dim=1)
+    positions = torch.arange(2, device=device)[None, :].expand(B, 2)
+    hidden, cache, valid = transformer_forward(
+        t, params["transformer"], prefix, positions, cache, valid
+    )
+    h = hidden[:, 1]
+    subcodes, embs = [], []
+    for j in range(n):
+        logits = dense(h, _head(params["heads"], j))
+        sub = sample_fn(logits, j)
+        emb = pred_embed_tables[j][sub]  # [B, H]
+        subcodes.append(sub)
+        embs.append(emb)
+        if j < n - 1:
+            pos = torch.full((B, 1), 2 + j, dtype=torch.long, device=device)
+            hidden, cache, valid = transformer_forward(
+                t, params["transformer"], emb[:, None, :].to(t.torch_dtype), pos, cache, valid,
+            )
+            h = hidden[:, 0]
+    # the reference sums the first n-1 embeddings, then adds the last
+    sub_sum = torch.stack(embs[:-1]).sum(dim=0) + embs[-1]
+    return torch.stack(subcodes, dim=1), sub_sum.to(last_hidden.dtype)

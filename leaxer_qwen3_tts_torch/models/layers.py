@@ -1,0 +1,253 @@
+"""Core transformer building blocks on torch tensors (parameter dicts).
+
+Port of ``leaxer_qwen3_tts_tpu/models/layers.py``.  One code path serves
+prefill and the unpacked decode step: every forward writes the new K/V into a
+preallocated head-major cache at ``cache.length`` and attends over the whole
+(masked) cache.  Unlike the JAX reference, which returns new arrays, the
+cache tensors are updated IN PLACE.  Only the uniform fill (every sequence
+at the same slot, the engine path) is ported; int8 KV caches are a later
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import TransformerConfig
+from ..ops.attention import attend
+from ..ops.quant import QuantizedLinear, dense
+
+
+class KVCache(NamedTuple):
+    """Static per-model KV cache, HEAD-MAJOR layout.
+
+    k, v: [num_layers, batch, num_kv_heads, max_len, head_dim]
+    length: filled slots (uniform across the batch).
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+def init_kv_cache(
+    cfg: TransformerConfig, batch: int, max_len: int, device: torch.device
+) -> KVCache:
+    if cfg.kv_cache_quant:
+        raise NotImplementedError(
+            "int8 KV cache is not ported yet (ROADMAP item K1v)"
+        )
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        length=0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Primitive ops
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in float32, result cast back to the input dtype (Qwen3 style)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Rotary inverse frequencies [head_dim/2] float32."""
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exponent)
+
+
+def rope_angles(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for rotary embedding.  positions: [...]; returns [..., head_dim/2]."""
+    freqs = rope_inv_freq(head_dim, theta, positions.device)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding, rotate-half convention.  x: [B, S, N, D]; cos/sin: [B, S, D/2]."""
+    xf = x.float()
+    half = x.shape[-1] // 2
+    x1, x2 = xf[..., :half], xf[..., half:]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    rotated = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def _qkv(cfg: TransformerConfig, p: dict, h: torch.Tensor, dtype: torch.dtype):
+    """q/k/v projections; uses the fused wqkv weight when present."""
+    if "wqkv" in p:
+        qkv = dense(h, p["wqkv"]).to(dtype)
+        q = qkv[..., : cfg.q_dim]
+        k = qkv[..., cfg.q_dim : cfg.q_dim + cfg.kv_dim]
+        v = qkv[..., cfg.q_dim + cfg.kv_dim :]
+        return q, k, v
+    return (
+        dense(h, p["wq"]).to(dtype),
+        dense(h, p["wk"]).to(dtype),
+        dense(h, p["wv"]).to(dtype),
+    )
+
+
+def _mlp(cfg: TransformerConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP; uses the fused wgu weight when present."""
+    if "wgu" in p:
+        gu = dense(h, p["wgu"])
+        gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
+        act = (F.silu(gate) * up).to(h.dtype)
+        return dense(act, p["wd"]).to(h.dtype)
+    gate = F.silu(dense(h, p["wg"]))
+    up = dense(h, p["wu"])
+    return dense((gate * up).to(h.dtype), p["wd"]).to(h.dtype)
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Parameters of layer ``i`` from the stacked (leading [L]) layer dict."""
+    out = {}
+    for k, v in layers.items():
+        out[k] = QuantizedLinear(v.q[i], v.scale[i]) if isinstance(v, QuantizedLinear) else v[i]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * std).to(dtype)
+
+
+def init_transformer_params(
+    cfg: TransformerConfig, gen: torch.Generator, device
+) -> dict:
+    """Stacked-layer params: every layer leaf has a leading [num_layers] axis."""
+    L, h, qd, kvd, I = (
+        cfg.num_layers, cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size,
+    )
+    dt = cfg.torch_dtype
+
+    def dense_init(fan_in, shape):
+        return _normal(gen, (L,) + shape, fan_in ** -0.5, dt, device)
+
+    layers = {
+        "attn_norm": torch.ones((L, h), dtype=dt, device=device),
+        "wq": dense_init(h, (h, qd)),
+        "wk": dense_init(h, (h, kvd)),
+        "wv": dense_init(h, (h, kvd)),
+        "wo": dense_init(qd, (qd, h)),
+        "mlp_norm": torch.ones((L, h), dtype=dt, device=device),
+        "wg": dense_init(h, (h, I)),
+        "wu": dense_init(h, (h, I)),
+        "wd": dense_init(I, (I, h)),
+    }
+    if cfg.use_qk_norm:
+        layers["q_norm"] = torch.ones((L, cfg.head_dim), dtype=dt, device=device)
+        layers["k_norm"] = torch.ones((L, cfg.head_dim), dtype=dt, device=device)
+    return {"layers": layers, "final_norm": torch.ones((h,), dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _block(
+    cfg: TransformerConfig,
+    p: dict,
+    x: torch.Tensor,  # [B, S, H]
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    k_cache: torch.Tensor,  # [B, Nk, T, D] (one layer's view; written in place)
+    v_cache: torch.Tensor,
+    cache_len: int,
+    attn_mask: torch.Tensor,  # [B, S, T] bool
+) -> torch.Tensor:
+    B, S, H = x.shape
+    nq, nk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+    q, k, v = _qkv(cfg, p, h, x.dtype)
+    q = q.reshape(B, S, nq, d)
+    k = k.reshape(B, S, nk, d)
+    v = v.reshape(B, S, nk, d)
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    k_cache[:, :, cache_len : cache_len + S] = k.transpose(1, 2).to(k_cache.dtype)
+    v_cache[:, :, cache_len : cache_len + S] = v.transpose(1, 2).to(v_cache.dtype)
+
+    out = attend(q, k_cache, v_cache, attn_mask).reshape(B, S, nq * d)
+    x = x + dense(out, p["wo"]).to(x.dtype)
+    h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+    return x + _mlp(cfg, p, h)
+
+
+def transformer_forward(
+    cfg: TransformerConfig,
+    params: dict,
+    embeds: torch.Tensor,  # [B, S, H]
+    positions: torch.Tensor,  # [B, S] int — RoPE positions per sequence
+    cache: KVCache,
+    valid_mask: torch.Tensor,  # [B, T] bool — cache slots that hold real tokens
+    query_valid: Optional[torch.Tensor] = None,  # [B, S] bool — real (non-pad) queries
+) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
+    """Unified prefill/decode forward at uniform fill.
+
+    Writes S new tokens at cache slots [length, length+S) (in place) and lets
+    query i attend to slot t iff ``valid_mask[b, t]`` and t <= length+i.
+    Returns post-final-norm hidden states [B, S, H], the cache with its
+    length advanced by S, and the updated validity mask.
+    """
+    B, S, H = embeds.shape
+    T = cache.max_len
+    length = cache.length
+    device = embeds.device
+    if length + S > T:
+        raise ValueError(f"cache overflow: {length} + {S} > {T} slots")
+
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+    slot_ids = torch.arange(T, device=device)
+    if query_valid is None:
+        query_valid = torch.ones((B, S), dtype=torch.bool, device=device)
+    new_slots = (slot_ids >= length) & (slot_ids < length + S)  # [T]
+    write_idx = torch.clamp(slot_ids - length, 0, S - 1)  # [T]
+    written_valid = query_valid[:, write_idx]  # [B, T]
+    valid_mask = torch.where(new_slots[None, :], written_valid, valid_mask)
+
+    global_q = length + torch.arange(S, device=device)  # [S]
+    causal = slot_ids[None, None, :] <= global_q[None, :, None]  # [1, S, T]
+    attn_mask = causal & valid_mask[:, None, :]
+
+    x = embeds
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        x = _block(
+            cfg, layer_params(layers, i), x, cos, sin,
+            cache.k[i], cache.v[i], length, attn_mask,
+        )
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return x, cache._replace(length=length + S), valid_mask

@@ -1,0 +1,99 @@
+"""The talker: 28-layer GQA codec-token LM (prefill + single-step decode).
+
+Port of ``leaxer_qwen3_tts_tpu/models/talker.py``.  The dispatch keeps the
+JAX shape: with a packed ``fused_step`` and B=1 the decode step is kernel K1
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step`); otherwise
+the plain layers path.  The final norm and the ``lm_head`` stay outside the
+kernel, in plain PyTorch, as the JAX package left them to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import TalkerConfig
+from ..ops.fused_step import fused_decode_step, pack_fused_weights, supports
+from ..ops.quant import dense
+from .layers import KVCache, _normal, init_kv_cache, init_transformer_params, rms_norm, transformer_forward
+
+
+def init_talker_params(cfg: TalkerConfig, gen: torch.Generator, device) -> dict:
+    h = cfg.hidden_size
+    return {
+        "transformer": init_transformer_params(cfg.transformer, gen, device),
+        "lm_head": _normal(
+            gen, (h, cfg.codec_vocab_size), h ** -0.5, cfg.transformer.torch_dtype, device
+        ),
+    }
+
+
+def talker_init_cache(cfg: TalkerConfig, batch: int, max_len: int, device) -> KVCache:
+    return init_kv_cache(cfg.transformer, batch, max_len, device)
+
+
+def prepare_fused_talker(cfg: TalkerConfig, talker_params: dict, bits: int = 8) -> dict:
+    """Attach the packed K1 weights when the architecture qualifies."""
+    if not supports(cfg.transformer):
+        return talker_params
+    out = dict(talker_params)
+    out["fused_step"] = pack_fused_weights(
+        cfg.transformer, talker_params["transformer"]["layers"], bits=bits
+    )
+    return out
+
+
+def talker_prefill(
+    cfg: TalkerConfig,
+    params: dict,
+    prompt_embeds: torch.Tensor,  # [B, P, H]
+    prompt_len: torch.Tensor,  # [B] int true lengths
+    cache: KVCache,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache, torch.Tensor]:
+    """Prompt pass.  Returns (last_logits [B, V] f32, last_hidden [B, H],
+    cache, valid_mask [B, T])."""
+    B, P, H = prompt_embeds.shape
+    device = prompt_embeds.device
+    positions = torch.arange(P, device=device)[None, :].expand(B, P)
+    query_valid = positions < prompt_len.to(device)[:, None]
+    valid_mask = torch.zeros((B, cache.max_len), dtype=torch.bool, device=device)
+    hidden, cache, valid_mask = transformer_forward(
+        cfg.transformer, params["transformer"], prompt_embeds, positions, cache,
+        valid_mask, query_valid=query_valid,
+    )
+    idx = torch.clamp(prompt_len.to(device) - 1, 0, P - 1)
+    last_hidden = hidden[torch.arange(B, device=device), idx]
+    last_logits = dense(last_hidden, params["lm_head"])
+    return last_logits, last_hidden, cache, valid_mask
+
+
+def talker_decode_step(
+    cfg: TalkerConfig,
+    params: dict,
+    embed: torch.Tensor,  # [B, H] — the summed next-input embedding
+    position: int,  # RoPE position (and cache slot) of this token
+    cache: KVCache,
+    valid_mask: torch.Tensor,  # [B, T] bool
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache, torch.Tensor]:
+    """One decode step.  Returns (logits [B, V] f32, hidden [B, H], cache,
+    valid_mask).  The cache is updated in place."""
+    B, H = embed.shape
+    t = cfg.transformer
+    if cfg.decode_impl == "fused" and "fused_step" in params and B == 1:
+        x_out, _, _ = fused_decode_step(
+            t, params["fused_step"], embed, position, cache.k, cache.v
+        )
+        hidden = rms_norm(
+            x_out, params["transformer"]["final_norm"], t.rms_norm_eps
+        ).to(embed.dtype)
+        logits = dense(hidden, params["lm_head"])
+        valid_mask = valid_mask.clone()
+        valid_mask[:, min(position, cache.max_len - 1)] = True
+        return logits, hidden, cache._replace(length=cache.length + 1), valid_mask
+    positions = torch.full((B, 1), position, dtype=torch.long, device=embed.device)
+    hidden, cache, valid_mask = transformer_forward(
+        t, params["transformer"], embed[:, None, :], positions, cache, valid_mask,
+    )
+    hidden = hidden[:, 0]
+    return dense(hidden, params["lm_head"]), hidden, cache, valid_mask

@@ -1,0 +1,155 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, at first use, into ``build/torch_kernels/`` at the
+repository root; the file name carries a hash of the sources and flags, so a
+changed source rebuilds.  The library is loaded with ``ctypes``.  A missing
+``nvcc`` or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+SOURCES = ("fused_step.cu", "fused_mtp.cu")
+HEADERS = ("qtts_kernels.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class StepWeights(ctypes.Structure):
+    """Mirror of ``QttsStepWeights`` (csrc/qtts_kernels.cuh)."""
+
+    _fields_ = [
+        ("wqkv", ctypes.c_void_p), ("sqkv", ctypes.c_void_p),
+        ("wo", ctypes.c_void_p), ("so", ctypes.c_void_p),
+        ("wgu", ctypes.c_void_p), ("sgu", ctypes.c_void_p),
+        ("wd", ctypes.c_void_p), ("sd", ctypes.c_void_p),
+        ("attn_norm", ctypes.c_void_p), ("mlp_norm", ctypes.c_void_p),
+        ("q_norm", ctypes.c_void_p), ("k_norm", ctypes.c_void_p),
+        ("inv_freq", ctypes.c_void_p),
+        ("L", ctypes.c_int32), ("H", ctypes.c_int32), ("nq", ctypes.c_int32),
+        ("nk", ctypes.c_int32), ("D", ctypes.c_int32), ("I", ctypes.c_int32),
+        ("eps", ctypes.c_float), ("attn_scale", ctypes.c_float),
+    ]
+
+
+class StepScratch(ctypes.Structure):
+    """Mirror of ``QttsStepScratch``."""
+
+    _fields_ = [
+        ("qkv", ctypes.c_void_p), ("attn", ctypes.c_void_p),
+        ("gu", ctypes.c_void_p), ("part", ctypes.c_void_p),
+        ("max_splits", ctypes.c_int32),
+    ]
+
+
+class ChainArgs(ctypes.Structure):
+    """Mirror of ``QttsChainArgs``."""
+
+    _fields_ = [
+        ("final_norm", ctypes.c_void_p), ("heads", ctypes.c_void_p),
+        ("head_scales", ctypes.c_void_p), ("tables", ctypes.c_void_p),
+        ("gumbel", ctypes.c_void_p), ("last_hidden", ctypes.c_void_p),
+        ("code0_embed", ctypes.c_void_p), ("subcodes", ctypes.c_void_p),
+        ("sub_sum", ctypes.c_void_p), ("x", ctypes.c_void_p),
+        ("x_in", ctypes.c_void_p), ("logits", ctypes.c_void_p),
+        ("counter", ctypes.c_void_p), ("k_cache", ctypes.c_void_p),
+        ("v_cache", ctypes.c_void_p),
+        ("cache_bf16", ctypes.c_int32), ("n", ctypes.c_int32), ("V", ctypes.c_int32),
+        ("Vt", ctypes.c_int32),
+        ("temperature", ctypes.c_float), ("top_k", ctypes.c_int32),
+        ("top_p", ctypes.c_float), ("greedy", ctypes.c_int32),
+    ]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode())
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libqtts_kernels_{_digest()}.so")
+
+
+def build() -> str:
+    """Compile the kernels if the library for the current sources is missing.
+    Returns its path; the compiler's resource report is in ``<path>.log``."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(path + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, path)
+    return path
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.qtts_attn_chunk.restype = i32
+            lib.qtts_attn_chunk.argtypes = []
+            lib.qtts_error_string.restype = ctypes.c_char_p
+            lib.qtts_error_string.argtypes = [i32]
+            lib.qtts_decode_step.restype = i32
+            lib.qtts_decode_step.argtypes = [
+                ctypes.POINTER(StepWeights), ctypes.POINTER(StepScratch), vp, vp, vp, vp,
+                i32, i32, i32, vp,
+            ]
+            lib.qtts_mtp_chain.restype = i32
+            lib.qtts_mtp_chain.argtypes = [
+                ctypes.POINTER(StepWeights), ctypes.POINTER(StepScratch),
+                ctypes.POINTER(ChainArgs), vp,
+            ]
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry returned a CUDA error code."""
+    if err != 0:
+        msg = load_kernels().qtts_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,220 @@
+"""Kernel K2: the whole B=1 MTP sub-code chain of one frame.
+
+Port of ``leaxer_qwen3_tts_tpu/ops/fused_mtp.py::fused_mtp_chain``: the
+2-token prefix (talker hidden at position 0, codec_embed(code0) at 1) and the
+15-step chain, each step a step-indexed int8 head, the in-chain sampler
+(:func:`gumbel_topk_topp_sample`) on caller-supplied Gumbel noise, and the
+embedding-row gather whose value feeds the next trunk pass and ``sub_sum``.
+
+A Hopper SM cannot hold the 82 MB int8 trunk the TPU kept resident in VMEM,
+so the CUDA chain (``csrc/fused_mtp.cu``) streams it: its trunk passes reuse
+kernel K1's layer kernels on the MTP pack, and one hand-written kernel per
+step does the head product, the scale, the sampler and the gather.  The
+sampled index stays in device memory; there is no host sync in the chain.
+On a CPU tensor :func:`fused_mtp_chain` runs :func:`fused_mtp_chain_reference`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import TransformerConfig
+from .fused_step import (
+    FusedStepWeights,
+    _check_cuda_inputs,
+    _gemv,
+    _rms,
+    fused_decode_step_reference,
+    step_structs,
+)
+from ..runtime.sampling import clamp_temperature, scale_by_temperature
+from .quant import QuantizedLinear
+
+NEG_INF = -1e30
+_BISECT_ITERS = 40
+
+
+class HeadPack(NamedTuple):
+    """Step-indexed int8 heads in kernel layout."""
+
+    q: torch.Tensor  # int8 [n, V, H] (one output row per V, H contiguous)
+    scale: torch.Tensor  # f32 [n, V]
+
+
+def pack_heads(heads: QuantizedLinear) -> HeadPack:
+    """QuantizedLinear [n, H, V] / [n, 1, V] -> HeadPack."""
+    if not isinstance(heads, QuantizedLinear):
+        raise NotImplementedError("only int8 heads run in the chain kernel")
+    return HeadPack(
+        q=heads.q.transpose(1, 2).contiguous(),
+        scale=heads.scale[:, 0, :].float().contiguous(),
+    )
+
+
+def _bisect_topk_mask(scaled: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Keep entries >= the top_k-th largest per row (ties kept), found by
+    bisection.  Inactive when top_k <= 0 or top_k >= V."""
+    V = scaled.shape[-1]
+    lo = scaled.amin(dim=-1, keepdim=True)
+    hi = scaled.amax(dim=-1, keepdim=True)
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        ge = (scaled >= mid).sum(dim=-1, keepdim=True)
+        sel = ge >= top_k
+        lo = torch.where(sel, mid, lo)
+        hi = torch.where(sel, hi, mid)
+    if not 0 < top_k < V:
+        return torch.ones_like(scaled, dtype=torch.bool)
+    return scaled >= lo
+
+
+def _bisect_topp_mask(probs: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Keep token i iff the row's mass of strictly larger probs is < top_p."""
+    lo = torch.zeros(probs.shape[:-1] + (1,), dtype=torch.float32, device=probs.device)
+    hi = torch.ones_like(lo)
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        s = torch.where(probs > mid, probs, 0.0).sum(dim=-1, keepdim=True)
+        sel = s < top_p
+        lo = torch.where(sel, lo, mid)
+        hi = torch.where(sel, mid, hi)
+    if top_p >= 1.0:
+        return torch.ones_like(probs, dtype=torch.bool)
+    return probs > lo
+
+
+def gumbel_topk_topp_sample(
+    logits: torch.Tensor,  # [B, V] f32
+    gumbel: Optional[torch.Tensor],  # [B, V] f32 Gumbel(0, 1) noise (unused when greedy)
+    temperature: float,
+    top_k: int,
+    top_p: float,
+) -> torch.Tensor:
+    """One temperature / top-k / top-p draw per row as vector math (no sort):
+    greedy first-index argmax when temperature <= 0, else argmax of the
+    masked scaled logits plus the noise.  Returns [B] int64."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    scaled = scale_by_temperature(logits, temperature)
+    keep_k = _bisect_topk_mask(scaled, top_k)
+    masked = torch.where(keep_k, scaled, NEG_INF)
+    e = torch.exp(masked - masked.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    keep_p = _bisect_topp_mask(probs, top_p)
+    final = torch.where(keep_p, masked, NEG_INF)
+    return torch.argmax(final + gumbel, dim=-1)
+
+
+def fused_mtp_chain_reference(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    final_norm: torch.Tensor,  # [H]
+    heads: HeadPack,
+    tables: torch.Tensor,  # [n, Vt, H]
+    last_hidden: torch.Tensor,  # [1, H]
+    code0_embed: torch.Tensor,  # [1, H]
+    gumbel: Optional[torch.Tensor],  # [n, 1, V] f32
+    temperature: float,
+    top_k: int,
+    top_p: float,
+    cache_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the chain kernel; same contract."""
+    n = heads.q.shape[0]
+    L, nk, d = fw.wqkv.shape[0], cfg.num_kv_heads, cfg.head_dim
+    device = last_hidden.device
+    kc = torch.zeros((L, 1, nk, n + 2, d), dtype=cache_dtype, device=device)
+    vc = torch.zeros_like(kc)
+    x, _, _ = fused_decode_step_reference(cfg, fw, last_hidden.float(), 0, kc, vc)
+    x, _, _ = fused_decode_step_reference(cfg, fw, code0_embed.float(), 1, kc, vc)
+    fn = final_norm.float()
+    subs = []
+    ssum = torch.zeros((1, cfg.hidden_size), dtype=torch.float32, device=device)
+    for j in range(n):
+        hp = _rms(x, fn, cfg.rms_norm_eps)
+        logits = _gemv(hp, heads.q[j], heads.scale[j])  # [1, V]
+        sub = gumbel_topk_topp_sample(
+            logits, None if gumbel is None else gumbel[j], temperature, top_k, top_p
+        )
+        subs.append(sub)
+        emb = tables[j][sub].float()  # [1, H]
+        ssum = ssum + emb
+        if j < n - 1:
+            x, _, _ = fused_decode_step_reference(cfg, fw, emb, 2 + j, kc, vc)
+    return torch.stack(subs, dim=1).to(torch.int32), ssum
+
+
+def fused_mtp_chain(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    final_norm: torch.Tensor,
+    heads: HeadPack,
+    tables: torch.Tensor,
+    last_hidden: torch.Tensor,
+    code0_embed: torch.Tensor,
+    gumbel: Optional[torch.Tensor],
+    temperature: float,
+    top_k: int,
+    top_p: float,
+    cache_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the whole sub-code chain, prefix included.
+
+    Returns (subcodes [1, n] int32, sub_sum [1, H] float32).  ``gumbel`` may
+    be None under greedy decoding (temperature <= 0)."""
+    if last_hidden.device.type == "cpu":
+        return fused_mtp_chain_reference(
+            cfg, fw, final_norm, heads, tables, last_hidden, code0_embed, gumbel,
+            temperature, top_k, top_p, cache_dtype,
+        )
+    if last_hidden.device.type != "cuda":
+        raise ValueError(f"fused_mtp_chain: unsupported device {last_hidden.device}")
+    from ._build import ChainArgs, check, load_kernels
+
+    n, V, H = heads.q.shape
+    Vt = tables.shape[1]
+    greedy = temperature <= 0.0
+    if gumbel is None and not greedy:
+        raise ValueError("sampled chain needs Gumbel noise [n, 1, V]")
+    if tables.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"embedding tables of dtype {tables.dtype}: only bf16 tables run on the card "
+            "(other dtypes: ROADMAP item K2v)"
+        )
+    device = last_hidden.device
+    T = n + 2
+    kc = torch.empty((fw.wqkv.shape[0], 1, cfg.num_kv_heads, T, cfg.head_dim),
+                     dtype=cache_dtype, device=device)
+    vc = torch.empty_like(kc)
+    _check_cuda_inputs(fw, kc, vc)
+    for t in (heads.q, heads.scale, tables, final_norm) + (() if greedy else (gumbel,)):
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError("fused_mtp_chain: every tensor must be contiguous and on CUDA")
+    lib = load_kernels()
+    w, s, scratch = step_structs(cfg, fw, T, device)
+    buf = torch.empty(3 * H + V, dtype=torch.float32, device=device)
+    x, x_in, sub_sum, logits = torch.split(buf, [H, H, H, V])
+    ints = torch.zeros(n + 1, dtype=torch.int32, device=device)  # subcodes | ticket counter
+    fn = final_norm.float().contiguous()
+    lh = last_hidden.float().reshape(-1).contiguous()
+    c0 = code0_embed.float().reshape(-1).contiguous()
+    noise = logits if greedy else gumbel.float()
+    args = ChainArgs(
+        fn.data_ptr(), heads.q.data_ptr(), heads.scale.data_ptr(), tables.data_ptr(),
+        noise.data_ptr(), lh.data_ptr(), c0.data_ptr(), ints.data_ptr(),
+        sub_sum.data_ptr(), x.data_ptr(), x_in.data_ptr(), logits.data_ptr(),
+        ints[n:].data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        int(cache_dtype == torch.bfloat16), n, V, Vt,
+        clamp_temperature(temperature), int(top_k), float(top_p), int(greedy),
+    )
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fused_mtp_chain.launches += 1
+    err = lib.qtts_mtp_chain(w, s, args, stream)
+    check(err, "fused_mtp_chain")
+    del scratch, kc, vc  # enqueued; the caching allocator orders reuse on the stream
+    return ints[:n].reshape(1, n), sub_sum.reshape(1, H)
+
+
+fused_mtp_chain.launches = 0  # chain launches, for chip_smoke.py's path check

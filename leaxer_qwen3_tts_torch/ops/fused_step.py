@@ -1,0 +1,263 @@
+"""Kernel K1: the fused B=1 single-token transformer step.
+
+Port of ``leaxer_qwen3_tts_tpu/ops/fused_step.py::fused_decode_step``.  One
+call runs one token through all L layers: RMSNorm, the int8 qkv product,
+per-head QK-norm, rotate-half RoPE at ``pos``, the K/V write at ``pos``, GQA
+attention over slots 0..pos, wo plus the residual, RMSNorm, gate/up,
+silu(gate)*up and down plus the residual.  The residual stream stays float32
+across layers and the result is the PRE-final-norm hidden state.
+
+Unlike the JAX kernel, which returns new arrays, the caches are updated IN
+PLACE (and returned for the same call shape).
+
+On a CUDA tensor :func:`fused_decode_step` launches the hand-written kernel
+(``csrc/fused_step.cu``); on a CPU tensor it runs
+:func:`fused_decode_step_reference`, the plain PyTorch version of the same
+function (bf16-rounded operands upcast to float32 before each product, which
+equals a bf16 dot with float32 accumulation).
+
+The pack is Hopper's own layout: every matrix stored [N, K] (one output row
+with its K bytes contiguous) so the kernel streams 16-byte loads along K.  The
+dequantized values equal ``ops.quant.quantize_weight``'s, and so the JAX
+package's unit pack's.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..config import TransformerConfig
+from ..models.layers import rope_inv_freq
+from .quant import QuantizedLinear, quantize_weight
+
+
+class FusedStepWeights(NamedTuple):
+    """Per-layer-stacked int8 weights of one transformer, Hopper layout."""
+
+    wqkv: torch.Tensor  # int8 [L, A, H], A = q_dim + 2 * kv_dim
+    sqkv: torch.Tensor  # f32 [L, A] per-output-column scale
+    wo: torch.Tensor  # int8 [L, H, q_dim]
+    so: torch.Tensor  # f32 [L, H]
+    wgu: torch.Tensor  # int8 [L, 2I, H]
+    sgu: torch.Tensor  # f32 [L, 2I]
+    wd: torch.Tensor  # int8 [L, H, I]
+    sd: torch.Tensor  # f32 [L, H]
+    attn_norm: torch.Tensor  # f32 [L, H]
+    mlp_norm: torch.Tensor  # f32 [L, H]
+    q_norm: torch.Tensor  # f32 [L, d]
+    k_norm: torch.Tensor  # f32 [L, d]
+    inv_freq: torch.Tensor  # f32 [d/2] rotary inverse frequencies
+
+
+def supports(cfg: TransformerConfig) -> bool:
+    """Architectures the packed path takes: the JAX package's unit gate
+    (hidden size a multiple of 1024, ...) plus what the CUDA attention
+    kernel needs (head_dim 128, at most 8 q heads per kv head, QK-norm)."""
+    H = cfg.hidden_size
+    A = cfg.q_dim + 2 * cfg.kv_dim
+    return (
+        H % 1024 == 0
+        and A % 1024 == 0
+        and cfg.q_dim % H == 0
+        and (2 * cfg.intermediate_size) % 1024 == 0
+        and cfg.intermediate_size % H == 0
+        and cfg.head_dim == 128
+        and cfg.num_heads % cfg.num_kv_heads == 0
+        and cfg.num_heads // cfg.num_kv_heads <= 8
+        and cfg.use_qk_norm
+    )
+
+
+def _rows(w: QuantizedLinear) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[L, K, N] int8 + [L, 1, N] scale -> [L, N, K] rows + [L, N]."""
+    return w.q.transpose(1, 2).contiguous(), w.scale[:, 0, :].float().contiguous()
+
+
+def pack_fused_weights(
+    cfg: TransformerConfig, layer_params: dict, bits: int = 8
+) -> FusedStepWeights:
+    """Pack stacked layer params (fused/quantized by ``ops.quant`` or raw
+    arrays, quantized here on the same grid) into the kernel layout."""
+    if bits != 8:
+        raise NotImplementedError(
+            f"bits={bits}: int4 and bf16-unit packs are ROADMAP item K1v"
+        )
+    if not supports(cfg):
+        raise ValueError("the fused step kernel does not take this architecture")
+
+    def as_quant(w):
+        return w if isinstance(w, QuantizedLinear) else quantize_weight(w)
+
+    p = layer_params
+    wqkv = as_quant(p["wqkv"] if "wqkv" in p else torch.cat([p["wq"], p["wk"], p["wv"]], -1))
+    wgu = as_quant(p["wgu"] if "wgu" in p else torch.cat([p["wg"], p["wu"]], -1))
+    wqkv_r, sqkv = _rows(wqkv)
+    wo_r, so = _rows(as_quant(p["wo"]))
+    wgu_r, sgu = _rows(wgu)
+    wd_r, sd = _rows(as_quant(p["wd"]))
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, wqkv_r.device)
+    return FusedStepWeights(
+        wqkv=wqkv_r, sqkv=sqkv, wo=wo_r, so=so, wgu=wgu_r, sgu=sgu, wd=wd_r, sd=sd,
+        attn_norm=p["attn_norm"].float().contiguous(),
+        mlp_norm=p["mlp_norm"].float().contiguous(),
+        q_norm=p["q_norm"].float().contiguous(),
+        k_norm=p["k_norm"].float().contiguous(),
+        inv_freq=inv_freq,
+    )
+
+
+def attn_scale(head_dim: int) -> float:
+    """1/sqrt(head_dim) as the reference kernel rounds it (float64, then float32)."""
+    return float(torch.tensor(1.0 / math.sqrt(head_dim), dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _gemv(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """[1, K] f32 @ rows [N, K] int8 -> [1, N] f32: bf16 lhs, scale after the dot."""
+    return torch.matmul(_bf16(h), w.float().t()) * s
+
+
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    x1, x2 = x[:, :half], x[:, half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def fused_decode_step_reference(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    x: torch.Tensor,  # [1, H]
+    pos: int,
+    k_cache: torch.Tensor,  # [L, 1, nk, T, d], updated in place
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel; same contract."""
+    nq, nk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = nq // nk
+    qd, kvd, I = cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
+    eps = cfg.rms_norm_eps
+    scale = attn_scale(d)
+    angles = torch.tensor(float(pos), dtype=torch.float32, device=x.device) * fw.inv_freq
+    cos, sin = torch.cos(angles)[None, :], torch.sin(angles)[None, :]
+    x = x.float()
+    for l in range(fw.wqkv.shape[0]):
+        h = _rms(x, fw.attn_norm[l], eps)
+        qkv = _gemv(h, fw.wqkv[l], fw.sqkv[l])[0]
+        q = _rms(qkv[:qd].reshape(nq, d), fw.q_norm[l], eps)
+        k = _rms(qkv[qd : qd + kvd].reshape(nk, d), fw.k_norm[l], eps)
+        v = qkv[qd + kvd :].reshape(nk, d)
+        q = _rope(q, cos, sin)
+        k = _rope(k, cos, sin)
+        k_cache[l, 0, :, pos] = k.to(k_cache.dtype)
+        v_cache[l, 0, :, pos] = v.to(v_cache.dtype)
+        K = k_cache[l, 0, :, : pos + 1].float()  # [nk, pos+1, d]
+        V = v_cache[l, 0, :, : pos + 1].float()
+        scores = torch.einsum("ngd,ntd->ngt", q.reshape(nk, g, d), K) * scale
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        w = e / e.sum(dim=-1, keepdim=True)
+        attn = torch.einsum("ngt,ntd->ngd", w, V).reshape(1, qd)
+        x = x + _gemv(attn, fw.wo[l], fw.so[l])
+        h = _rms(x, fw.mlp_norm[l], eps)
+        gu = _gemv(h, fw.wgu[l], fw.sgu[l])
+        gate, up = gu[:, :I], gu[:, I:]
+        act = gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+        x = x + _gemv(act, fw.wd[l], fw.sd[l])
+    return x, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache) -> None:
+    if k_cache.dtype not in (torch.bfloat16, torch.float32) or v_cache.dtype != k_cache.dtype:
+        raise NotImplementedError(
+            f"KV cache dtype {k_cache.dtype}: the int8-KV kernel is ROADMAP item K1v"
+        )
+    if fw.wqkv.dtype != torch.int8:
+        raise NotImplementedError(
+            "only int8 packs run on the card (int4 / bf16 units: ROADMAP item K1v)"
+        )
+    for t in (*fw, k_cache, v_cache):
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError("fused_decode_step: every tensor must be contiguous and on CUDA")
+
+
+def step_structs(cfg: TransformerConfig, fw: FusedStepWeights, T: int, device):
+    """ctypes argument structs of one decode step, with the scratch tensors
+    they point to (kept alive by the caller for the launch)."""
+    from ._build import StepScratch, StepWeights, load_kernels
+
+    nq, nk, d, I = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.intermediate_size
+    chunk = load_kernels().qtts_attn_chunk()
+    max_splits = (T + chunk - 1) // chunk
+    A = cfg.q_dim + 2 * cfg.kv_dim
+    scratch = torch.empty(A + cfg.q_dim + 2 * I + nq * max_splits * (d + 2),
+                          dtype=torch.float32, device=device)
+    qkv, attn, gu, part = torch.split(scratch, [A, cfg.q_dim, 2 * I, nq * max_splits * (d + 2)])
+    w = StepWeights(
+        fw.wqkv.data_ptr(), fw.sqkv.data_ptr(), fw.wo.data_ptr(), fw.so.data_ptr(),
+        fw.wgu.data_ptr(), fw.sgu.data_ptr(), fw.wd.data_ptr(), fw.sd.data_ptr(),
+        fw.attn_norm.data_ptr(), fw.mlp_norm.data_ptr(), fw.q_norm.data_ptr(),
+        fw.k_norm.data_ptr(), fw.inv_freq.data_ptr(),
+        fw.wqkv.shape[0], cfg.hidden_size, nq, nk, d, I,
+        cfg.rms_norm_eps, attn_scale(d),
+    )
+    s = StepScratch(qkv.data_ptr(), attn.data_ptr(), gu.data_ptr(), part.data_ptr(), max_splits)
+    return w, s, scratch
+
+
+def fused_decode_step(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    x: torch.Tensor,  # [1, H]
+    pos: int,
+    k_cache: torch.Tensor,  # [L, 1, nk, T, d]
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused decode step over all layers.
+
+    Returns (x_out [1, H] float32 pre-final-norm, k_cache, v_cache); the
+    caches are updated in place.  ``pos`` is clamped to the last slot like
+    the reference."""
+    T = k_cache.shape[3]
+    pos = min(int(pos), T - 1)
+    if x.device.type == "cpu":
+        return fused_decode_step_reference(cfg, fw, x, pos, k_cache, v_cache)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_decode_step: unsupported device {x.device}")
+    _check_cuda_inputs(fw, k_cache, v_cache)
+    from ._build import check, load_kernels
+
+    lib = load_kernels()
+    w, s, scratch = step_structs(cfg, fw, T, x.device)
+    x_in = x.float().reshape(-1).contiguous()
+    x_out = torch.empty((1, cfg.hidden_size), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fused_decode_step.launches += 1
+    err = lib.qtts_decode_step(
+        w, s, x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        int(k_cache.dtype == torch.bfloat16), T, pos, stream,
+    )
+    check(err, "fused_decode_step")
+    del scratch  # the launch is enqueued; the caching allocator orders reuse on the stream
+    return x_out, k_cache, v_cache
+
+
+fused_decode_step.launches = 0  # kernel launches, for chip_smoke.py's path check

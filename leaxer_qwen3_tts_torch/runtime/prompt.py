@@ -1,0 +1,107 @@
+"""Prompt-embedding assembly with the Qwen3-TTS text-drip schedule.
+
+Port of ``leaxer_qwen3_tts_tpu/runtime/prompt.py``:
+
+  prompt = role(3) ⊕ [pad-block + TTS_BOS  added elementwise to  codec-prefill
+  embeds](pad_count+1) ⊕ [first-text-token + CODEC_BOS embed](1)
+
+The remaining text drips in one token per decode step through the
+``trailing`` buffer (TTS_EOS terminated), then falls back to TTS_PAD.
+Voice-clone speaker embeddings and instruct segments are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import (
+    ASSISTANT,
+    CODEC_BOS,
+    CODEC_NOTHINK,
+    CODEC_PAD,
+    CODEC_THINK,
+    CODEC_THINK_BOS,
+    CODEC_THINK_EOS,
+    IM_START,
+    TTS_BOS,
+    TTS_EOS,
+    TTS_PAD,
+)
+from ..models.embeddings import codec_embed, text_project
+
+
+class PromptBundle(NamedTuple):
+    """Everything the decode loop needs for one request batch."""
+
+    prompt_embeds: torch.Tensor  # [B, P, H]
+    prompt_len: int  # P (static: every row has the same prompt length)
+    trailing: torch.Tensor  # [B, T, H] — token i+1 at row i, TTS_EOS at len-1
+    trailing_len: torch.Tensor  # [B] int — rows of `trailing` that are real
+    tts_pad_embed: torch.Tensor  # [H] — drip fallback after the text runs out
+
+
+def codec_prefill_ids(lang_id: Optional[int]) -> list:
+    if lang_id is None:
+        ids = [CODEC_NOTHINK, CODEC_THINK_BOS, CODEC_THINK_EOS]
+    else:
+        ids = [CODEC_THINK, CODEC_THINK_BOS, int(lang_id), CODEC_THINK_EOS]
+    return ids + [CODEC_PAD, CODEC_BOS]
+
+
+def prompt_length(lang_id: Optional[int]) -> int:
+    """Static prompt length: 3 role + (pad_count + 1) talker + 1 first-text."""
+    n = len(codec_prefill_ids(lang_id))
+    return 3 + (n - 2) + 2
+
+
+def build_prompt(
+    emb_params: dict,
+    text_ids: torch.Tensor,  # [B, T] int — BPE text tokens only, right-padded
+    text_len: torch.Tensor,  # [B] int — true token counts (>= 1)
+    lang_id: Optional[int],  # codec language token or None for auto
+) -> PromptBundle:
+    B, T = text_ids.shape
+    device = text_ids.device
+
+    def ids(values):
+        return torch.tensor(values, dtype=torch.long, device=device)
+
+    tts = text_project(emb_params, ids([TTS_BOS, TTS_EOS, TTS_PAD]))
+    tts_bos, tts_eos, tts_pad = tts[0], tts[1], tts[2]
+    H = tts_bos.shape[-1]
+
+    codec_ids = codec_prefill_ids(lang_id)
+    ce = codec_embed(emb_params, ids(codec_ids))  # [n, H]
+    ce = ce[None].expand(B, len(codec_ids), H)
+    pad_count = ce.shape[1] - 2
+
+    role = text_project(emb_params, ids([IM_START, ASSISTANT, TTS_BOS]))
+    role = role[None].expand(B, 3, H)
+
+    # pad-block ⊕ TTS_BOS, elementwise-added to the codec prefill
+    text_part = torch.cat([tts_pad[None].expand(pad_count, H), tts_bos[None]], dim=0)
+    talker_part = text_part[None] + ce[:, : pad_count + 1]
+
+    # first text token + CODEC_BOS embedding
+    first_text = text_project(emb_params, text_ids[:, 0].long())  # [B, H]
+    first_combined = (first_text + ce[:, pad_count + 1])[:, None, :]
+
+    prompt = torch.cat([role, talker_part, first_combined], dim=1)  # [B, P, H]
+
+    # trailing text-drip buffer: row i = text token i+1; row (text_len-1) = TTS_EOS
+    all_text = text_project(emb_params, text_ids.long())  # [B, T, H]
+    shifted = torch.cat(
+        [all_text[:, 1:], torch.zeros((B, 1, H), dtype=all_text.dtype, device=device)], dim=1
+    )
+    is_eos_row = torch.arange(T, device=device)[None, :] == (text_len.to(device) - 1)[:, None]
+    trailing = torch.where(is_eos_row[..., None], tts_eos[None, None, :], shifted)
+
+    return PromptBundle(
+        prompt_embeds=prompt,
+        prompt_len=prompt.shape[1],
+        trailing=trailing,
+        trailing_len=text_len.to(device),
+        tts_pad_embed=tts_pad,
+    )

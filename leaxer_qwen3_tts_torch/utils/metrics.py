@@ -1,0 +1,64 @@
+"""Per-stage timing and TTS metrics (RTF, TTFA).
+
+Port of ``leaxer_qwen3_tts_tpu/utils/metrics.py`` without the speculative
+decoding fields.  Stage times are host wall-clock; the engine ends each
+device stage with a copy to the host, so they include the device's work.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+
+@dataclass
+class SynthesisMetrics:
+    stage_seconds: Dict[str, float] = field(default_factory=dict)
+    audio_seconds: float = 0.0
+    frames: int = 0
+    # frames the decode loop ran, post-EOS and past-max_tokens tail included
+    # (each is one talker step and one MTP chain)
+    decoded_frames: int = 0
+    ttfa_seconds: Optional[float] = None  # time to first audio chunk
+    total_seconds: float = 0.0
+
+    @property
+    def rtf(self) -> float:
+        """Real-time factor: audio seconds generated per wall-clock second."""
+        return self.audio_seconds / self.total_seconds if self.total_seconds > 0 else 0.0
+
+
+class StageTimer:
+    """Accumulates wall-clock per named stage into a SynthesisMetrics."""
+
+    def __init__(self, metrics: SynthesisMetrics):
+        self.metrics = metrics
+        self._start = time.perf_counter()
+
+    def stage(self, name: str) -> "_StageCtx":
+        return _StageCtx(self, name)
+
+    def mark_first_audio(self) -> None:
+        if self.metrics.ttfa_seconds is None:
+            self.metrics.ttfa_seconds = time.perf_counter() - self._start
+
+    def finish(self) -> SynthesisMetrics:
+        self.metrics.total_seconds = time.perf_counter() - self._start
+        return self.metrics
+
+
+class _StageCtx:
+    def __init__(self, timer: StageTimer, name: str):
+        self.timer = timer
+        self.name = name
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        m = self.timer.metrics.stage_seconds
+        m[self.name] = m.get(self.name, 0.0) + dt
+        return False
