@@ -13,15 +13,32 @@ prints the final line:
    at the MTP trunk shapes (6 layers, T=17), and on 1 talker layer, where
    rounding cannot cascade, with a float32 and a bf16 cache at every bucket
    and at the attention's split edges: 24 seeded inputs per case, each within
-   flip-tolerant limits and at least 8 of them agreeing to 1e-5.
+   flip-tolerant limits and at least 8 of them agreeing to 1e-5.  Beside it,
+   K4 (``fused_decode_step_batched``) on the same packs: the talker at B=8
+   and B=32 (T=512, per-row positions on both sides of a split edge, one past
+   the bucket, the last slot), the MTP trunk shape at B=8, and one layer at
+   B=2, 8 and 32 with both caches (24 seeded batches, the K1 limits, a third
+   of the rows tight); every row of K4 must equal K1 on it bit for bit.
 4. K2 (``fused_mtp_chain``) against its plain version at the 0.6B MTP shapes,
-   greedy and sampled, on the same noise.
+   greedy and sampled, on the same noise; then K5 (``fused_mtp_chain_batched``)
+   at B=8 and B=32 with mixed per-row knobs (K2's margin rule for a
+   mismatch), every row equal to K2 on that row's noise, bit for bit.
 5. Slice: ``TTSEngine.synthesize`` (0.6B preset, random weights from a seed,
    int8) on three requests, then a fixed 300-frame run through the generate
    callables and the engine's cache growth (256 -> 512 slots), with any host
    sync inside a decode chunk raising.  Launch counters, reset just before,
    must show one K1 step and one K2 chain per decoded frame.
-6. The kernel report and the device line.
+6. Batched slice: ``synthesize_batch`` on 8 texts with per-stream seeds, then
+   fixed 300-frame batched runs at B=8 and B=32 (EOS forbidden, cache growth,
+   a host sync inside a chunk raising): ms per batched frame, aggregate RTF.
+   One K4 step and one K5 chain per decoded frame, no K1 or K2.
+7. Pool: a ``ContinuousBatcher`` of 8 slots serves 12 requests (mixed
+   languages and lengths, one streamed): TTFA and aggregate RTF; greedy pool
+   output equals B=1 ``synthesize``; a seeded request gives the same codes
+   alone and among co-tenants; two requests through ``make_http_server``; a
+   second pool runs every chunk with host syncs raising.  One K4 and one K5
+   per pooled frame; K1 and K2 only for the streamed request's bootstrap.
+8. The kernel report and the device line.
 """
 
 from __future__ import annotations
@@ -32,7 +49,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -58,6 +77,7 @@ from leaxer_qwen3_tts_torch.runtime.sampling import (
     scale_by_temperature,
 )
 from leaxer_qwen3_tts_torch.runtime.weights import init_params
+from leaxer_qwen3_tts_torch.serve import ContinuousBatcher, make_http_server
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -88,6 +108,29 @@ K1_TIGHT_REL = 1e-5
 K1_TIGHT_INPUTS, K1_TIGHT_MIN = 24, 8
 K2_MARGIN_REL = 1e-5  # a sub-code mismatch passes only below this score margin
 K2_SUM_ABS = 1e-5  # sub_sum when every sub-code matches (same table rows)
+# K4 per-row positions: the first slot, both sides of a 64-slot split edge,
+# one past a 512-slot bucket (clamped to the last slot), the last slot, others
+K4_POSITIONS = (0, 63, 64, 700, 511, 5, 200, 130)
+K4_SHALLOW_BATCHES = (2, 8, 32)
+# K5 per-row knobs: greedy; the engine defaults; top-k and top-p off; top_k = 1
+K5_KNOBS = ((0.0, 50, 0.9), (0.8, 50, 0.95), (1.0, 0, 1.0), (0.7, 1, 0.9))
+# K5 against its plain version: every row of K5 equals K2 on it bit for bit
+# (checked), so what remains is K2's rounding against the plain chain.  Each
+# trunk pass runs 6 layers with a bf16 cache, where rounding flips move the
+# kernel's x from the plain version's by up to ~4e-3 relative (the K4
+# MTP-trunk check above; 3.7e-3 on an H100), so over 8-32 rows x 15 steps a
+# sub-code may flip where two scores lie that close, or where a token sits
+# that close to the top-k or top-p cut (then its score margin is not small).
+# So a row's first mismatch passes if the plain sampler picks the kernel's
+# token on the same noise from the plain logits scaled elementwise by
+# (1 + eps * N(0, 1)) for some eps in K5_FLIP_EPS (16 draws each), and at
+# least K5_MIN_EQUAL of the rows must match in full.  A wrong row, knob or
+# noise row picks an unrelated token in most rows.
+K5_FLIP_EPS = (1e-5, 1e-4, 1e-3, 3e-3, 1e-2)
+K5_MIN_EQUAL = 0.5
+
+
+CARD = "card not read yet"  # the nvidia-smi line, printed beside every measured number
 
 
 def log(msg: str) -> None:
@@ -183,7 +226,7 @@ def check_k1_deep(name, t, fw, T, pos, gen, iters):
         f"{r.err:.3e} rel={r.rel:.3e} (tol {K1_DEEP_X_REL}; plain_sensitivity "
         f"{sensitivity:.3e}) slot max_abs_err={r.slot_err:.3e} (tol {K1_DEEP_SLOT_ABS}) "
         f"untouched_slots_equal={r.untouched} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"-> {'ok' if ok else 'FAIL'}")
+        f"-> {'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
         raise RuntimeError(f"K1 {name} disagrees with its plain version")
     return r.err, ms, plain_ms
@@ -207,7 +250,7 @@ def check_k1_shallow(name, t, fw, T, pos, cache_dtype, gen, iters):
         f"max_abs_err={slot_err:.3e} (tol {K1_SHALLOW_SLOT_ABS}) tight (x and slot rel <= "
         f"{K1_TIGHT_REL}) {tight}/{len(runs)} (need {K1_TIGHT_MIN}) "
         f"untouched_slots_equal={untouched} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"-> {'ok' if ok else 'FAIL'}")
+        f"-> {'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
         raise RuntimeError(f"K1 {name} T={T} pos={pos} disagrees with its plain version")
     return max(r.err for r in runs), ms, plain_ms
@@ -262,10 +305,191 @@ def check_k2(knobs, cp, fw, heads, tables, fnorm, gen, iters):
         plain_ms = time_ms(lambda: run(K2.fused_mtp_chain_reference), 2, 1)
     log(f"K2 {mode}: subcodes kernel {kern} plain {plain} equal={not diff} sub_sum "
         f"max_abs_err={err:.3e} (tol {K2_SUM_ABS}) kernel {ms:.4f} ms/chain plain "
-        f"{plain_ms:.4f} ms/chain -> {'ok' if ok else 'FAIL'}")
+        f"{plain_ms:.4f} ms/chain -> {'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
         raise RuntimeError(f"K2 {mode} disagrees with its plain version")
     return 0.0 if diff else err, ms, plain_ms
+
+
+def k4_inputs(t, B, T, cache_dtype, gen):
+    """A seeded batch: x [B, H], caches with each row's slots past its
+    position zeroed, and the per-row positions (unclamped) on the device."""
+    L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
+    pos = [K4_POSITIONS[b % len(K4_POSITIONS)] for b in range(B)]
+    x = torch.randn((B, t.hidden_size), generator=gen, device=DEV) * 0.3
+    kc = (torch.randn((L, B, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+    vc = (torch.randn((L, B, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+    for b, p in enumerate(pos):
+        kc[:, b, :, min(p, T - 1):] = 0
+        vc[:, b, :, min(p, T - 1):] = 0
+    return x, kc, vc, pos
+
+
+@dataclasses.dataclass
+class K4Run:
+    """One seeded batch through K4 and its plain version."""
+
+    err: float  # max |x_kernel - x_plain|
+    rel: torch.Tensor  # [B] per-row max |dx| / max |x_plain|
+    slot_err: float  # max abs error of the k and v written at the rows' positions
+    slot_rel: torch.Tensor  # [B]
+    untouched: bool  # the kernel left every other slot as it was
+    rows_equal_k1: bool  # every row equals K1 on it, bit for bit (when checked)
+
+
+def k4_run(t, fw, B, T, cache_dtype, gen, against_k1=False) -> K4Run:
+    x, kc, vc, pos = k4_inputs(t, B, T, cache_dtype, gen)
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    pos_dev = torch.tensor(pos, device=DEV)
+    xk, _, _ = K1.fused_decode_step_batched(t, fw, x, pos_dev, kk, vk)
+    xp, _, _ = K1.fused_decode_step_batched_reference(t, fw, x, pos_dev, kp, vp)
+    torch.cuda.synchronize()
+    rows = torch.arange(B, device=DEV)
+    slots = torch.clamp(pos_dev, max=T - 1)
+    written = torch.zeros((B, T), dtype=torch.bool, device=DEV)
+    written[rows, slots] = True
+    slot_k = torch.stack((kk[:, rows, :, slots], vk[:, rows, :, slots])).float()  # [2, B, L, nk, d]
+    slot_p = torch.stack((kp[:, rows, :, slots], vp[:, rows, :, slots])).float()
+    slot_abs = (slot_k - slot_p).abs().flatten(2).amax(dim=(0, 2))  # [B]
+    dx = (xk - xp).abs().amax(dim=1)
+    keep = ~written[None, :, None, :]
+    untouched = bool(torch.equal(kk.masked_select(keep[..., None]), kc.masked_select(keep[..., None])))
+    untouched &= bool(torch.equal(vk.masked_select(keep[..., None]), vc.masked_select(keep[..., None])))
+    equal_k1 = True
+    if against_k1:
+        for b, p in enumerate(pos):
+            k1, v1 = kc[:, b : b + 1].clone(), vc[:, b : b + 1].clone()
+            x1, _, _ = K1.fused_decode_step(t, fw, x[b : b + 1], p, k1, v1)
+            equal_k1 &= bool(torch.equal(x1[0], xk[b])) and bool(
+                torch.equal(k1[:, 0], kk[:, b])) and bool(torch.equal(v1[:, 0], vk[:, b]))
+    return K4Run(float(dx.max()), (dx / xp.abs().amax(dim=1)).cpu(), float(slot_abs.max()),
+                 (slot_abs / slot_p.abs().flatten(2).amax(dim=(0, 2))).cpu(), untouched, equal_k1)
+
+
+def time_k4(t, fw, B, T, cache_dtype, gen, iters):
+    """Kernel and plain ms per step on one batch."""
+    x, kc, vc, pos = k4_inputs(t, B, T, cache_dtype, gen)
+    pos_dev = torch.tensor(pos, device=DEV)
+    kp, vp = kc.clone(), vc.clone()
+    ms = time_ms(lambda: K1.fused_decode_step_batched(t, fw, x, pos_dev, kc, vc), iters)
+    plain_ms = time_ms(
+        lambda: K1.fused_decode_step_batched_reference(t, fw, x, pos_dev, kp, vp), 2, 1)
+    return ms, plain_ms
+
+
+def check_k4_deep(name, t, fw, B, T, gen, iters):
+    """One batch at full depth with a bf16 cache: the deep limits, untouched
+    slots, and every row equal to K1 on it."""
+    r = k4_run(t, fw, B, T, torch.bfloat16, gen, against_k1=True)
+    rel = float(r.rel.max())
+    ms, plain_ms = time_k4(t, fw, B, T, torch.bfloat16, gen, iters)
+    ok = rel < K1_DEEP_X_REL and r.slot_err < K1_DEEP_SLOT_ABS and r.untouched and r.rows_equal_k1
+    log(f"K4 {name}: L={t.num_layers} B={B} T={T} cache=bfloat16 x max_abs_err={r.err:.3e} "
+        f"max row rel={rel:.3e} (tol {K1_DEEP_X_REL}) slot max_abs_err={r.slot_err:.3e} (tol "
+        f"{K1_DEEP_SLOT_ABS}) untouched_slots_equal={r.untouched} rows_equal_K1="
+        f"{r.rows_equal_k1} kernel {ms:.4f} ms plain {plain_ms:.4f} ms -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K4 {name} B={B} disagrees with its plain version or with K1")
+    return r.err, ms, plain_ms
+
+
+def check_k4_shallow(t, fw, B, T, cache_dtype, gen):
+    """K1_TIGHT_INPUTS seeded batches on one layer: every row within the
+    flip-tolerant limits, and at least the K1 share of rows tight (a flip
+    hits some rows; a systematic fault hits every row)."""
+    runs = [k4_run(t, fw, B, T, cache_dtype, gen, against_k1=i == 0) for i in range(K1_TIGHT_INPUTS)]
+    rel = max(float(r.rel.max()) for r in runs)
+    slot_err = max(r.slot_err for r in runs)
+    tight = sum(int(((r.rel <= K1_TIGHT_REL) & (r.slot_rel <= K1_TIGHT_REL)).sum()) for r in runs)
+    need = K1_TIGHT_MIN * B
+    ok = (rel < K1_SHALLOW_X_REL and slot_err < K1_SHALLOW_SLOT_ABS and tight >= need
+          and all(r.untouched for r in runs) and runs[0].rows_equal_k1)
+    log(f"K4 talker-1-layer: B={B} T={T} cache={str(cache_dtype)[6:]} {len(runs)} batches: x max "
+        f"row rel {rel:.3e} (tol {K1_SHALLOW_X_REL}) slot max_abs_err={slot_err:.3e} (tol "
+        f"{K1_SHALLOW_SLOT_ABS}) tight rows {tight}/{len(runs) * B} (need {need}) "
+        f"untouched_slots_equal={all(r.untouched for r in runs)} rows_equal_K1="
+        f"{runs[0].rows_equal_k1} -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K4 1-layer B={B} disagrees with its plain version or with K1")
+    return max(r.err for r in runs)
+
+
+def flip_eps(logits, g, knobs, token, gen):
+    """The smallest eps in K5_FLIP_EPS at which the plain sampler, on logits
+    scaled elementwise by (1 + eps * N(0, 1)) and the same noise, picks
+    ``token``; None if none does."""
+    t, k, p = knobs
+    for eps in K5_FLIP_EPS:
+        for _ in range(16):
+            wiggle = 1 + eps * torch.randn(logits.shape, generator=gen, device=DEV)
+            if int(K2.gumbel_topk_topp_sample(logits * wiggle, g, t, k, p)[0]) == token:
+                return eps
+    return None
+
+
+def check_k5(B, cp, fw, heads, tables, fnorm, gen, iters):
+    """K5 against its plain version on mixed per-row knobs and the same noise
+    (a row's first mismatch passes when a logit perturbation within
+    K5_FLIP_EPS reaches it), and every row against K2 on that row's inputs
+    and noise, bit for bit."""
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
+    t = cp.transformer
+    knobs = [K5_KNOBS[b % len(K5_KNOBS)] for b in range(B)]
+    temps, ks, ps = zip(*knobs)
+    lh = (torch.randn((B, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    c0 = (torch.randn((B, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    noise = gumbel_noise((n, B, V), gen, DEV)
+
+    def run(fn):
+        return fn(t, fw, fnorm, heads, tables, lh, c0, noise, temps, ks, ps,
+                  cache_dtype=torch.bfloat16)
+
+    sk, sum_k = run(K2.fused_mtp_chain_batched)
+    seen = []  # the plain run's sampler inputs, step-major, row-minor
+    real = K2.gumbel_topk_topp_sample
+
+    def record(logits, g, *a):
+        seen.append((logits.clone(), None if g is None else g.clone()))
+        return real(logits, g, *a)
+
+    K2.gumbel_topk_topp_sample = record
+    try:
+        sp_, sum_p = run(K2.fused_mtp_chain_batched_reference)
+    finally:
+        K2.gumbel_topk_topp_sample = real
+    rows_k2 = True
+    for b, (tb, kb, pb) in enumerate(knobs):
+        s1, sum1 = K2.fused_mtp_chain(t, fw, fnorm, heads, tables, lh[b : b + 1], c0[b : b + 1],
+                                      noise[:, b : b + 1].contiguous(), tb, kb, pb,
+                                      cache_dtype=torch.bfloat16)
+        rows_k2 &= bool(torch.equal(s1[0], sk[b])) and bool(torch.equal(sum1[0], sum_k[b]))
+    torch.cuda.synchronize()
+    kern, plain = sk.tolist(), sp_.tolist()
+    ok, flips, equal_rows = True, [], []
+    for b in range(B):
+        diff = [j for j in range(n) if kern[b][j] != plain[b][j]]
+        if not diff:
+            equal_rows.append(b)
+            continue
+        j = diff[0]
+        logits, g = seen[j * B + b]
+        eps = flip_eps(logits, g, knobs[b], kern[b][j], gen)
+        flips.append((b, j, eps))
+        ok &= eps is not None
+    err = float((sum_k[equal_rows] - sum_p[equal_rows]).abs().max()) if equal_rows else 0.0
+    ok = ok and err < K2_SUM_ABS and rows_k2 and len(equal_rows) >= K5_MIN_EQUAL * B
+    ms = time_ms(lambda: run(K2.fused_mtp_chain_batched), iters)
+    plain_ms = time_ms(lambda: run(K2.fused_mtp_chain_batched_reference), 1, 0)
+    log(f"K5 B={B} mixed knobs {K5_KNOBS}: rows equal {len(equal_rows)}/{B} (need "
+        f"{K5_MIN_EQUAL:.0%}), first mismatches (row, step, flip eps) {flips} (tol "
+        f"{K5_FLIP_EPS[-1]}); sub_sum "
+        f"max_abs_err over equal rows={err:.3e} (tol {K2_SUM_ABS}); rows_equal_K2={rows_k2} "
+        f"kernel {ms:.4f} ms/chain plain {plain_ms:.4f} ms/chain -> {'ok' if ok else 'FAIL'} "
+        f"[{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K5 B={B} disagrees with its plain version or with K2")
+    return err, ms, plain_ms
 
 
 def byte_level_tokenizer(workdir: str) -> Tokenizer:
@@ -287,24 +511,29 @@ def byte_level_tokenizer(workdir: str) -> Tokenizer:
     return Tokenizer(vocab_path, merges_path)
 
 
-def fixed_length_run(eng, frames_total: int):
-    """``frames_total`` frames with EOS forbidden, through the generate
-    callables and the engine's cache growth, as the engine loop drives them."""
+def fixed_length_run(eng, frames_total: int, texts):
+    """``frames_total`` frames of len(texts) streams with EOS forbidden,
+    through the generate callables and the engine's cache growth, as the
+    engine loop drives them, with any host sync inside a chunk raising."""
+    B = len(texts)
     sp = SamplingParams.create(0.8, 50, 0.95, forbid_eos=True)
-    ids = eng._tokenize("hello world, this is a fixed length run")
+    id_lists = [eng._tokenize(text) for text in texts]
     lang_id = LANG_ENGLISH
     P = prompt_length(lang_id)
     ladder = eng.kv_ladder
     bidx = next(i for i, b in enumerate(ladder) if b >= P + eng.chunk_len + 1)
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(SEED)
-    ids_t = torch.tensor([ids], device=DEV)
-    lens = torch.tensor([len(ids)], device=DEV)
+    gens = []
+    for b in range(B):  # one noise stream per stream
+        gens.append(torch.Generator(device=DEV))
+        gens[-1].manual_seed(SEED + b)
+    width = max(len(ids) for ids in id_lists)
+    ids_t = torch.tensor([ids + [0] * (width - len(ids)) for ids in id_lists], device=DEV)
+    lens = torch.tensor([len(ids) for ids in id_lists], device=DEV)
     t0 = time.perf_counter()
-    state, bundle = eng._get_fns(lang_id, ladder[bidx], eng.first_chunk_len).prefill(
-        eng.params, ids_t, lens, gen)
-    if state.pos != P:
-        raise RuntimeError(f"prompt length {state.pos} != {P}")
+    state, bundle = eng._get_fns(lang_id, ladder[bidx], eng.first_chunk_len, B).prefill(
+        eng.params, ids_t, lens, gens)
+    if state.pos.tolist() != [P] * B:
+        raise RuntimeError(f"prompt positions {state.pos.tolist()} != {P}")
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     frames, valid, buckets = [], [], []
@@ -315,7 +544,7 @@ def fixed_length_run(eng, frames_total: int):
             bidx += 1
             state = eng._grow_state(state, ladder[bidx])
         buckets.append(state.cache.max_len)
-        fns = eng._get_fns(lang_id, ladder[bidx], cur)
+        fns = eng._get_fns(lang_id, ladder[bidx], cur, B)
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")  # a host sync inside the chunk raises
         try:
@@ -332,12 +561,197 @@ def fixed_length_run(eng, frames_total: int):
     return codes, torch.cat(valid, dim=1), audio, buckets, prefill_s, decode_s
 
 
+def check_fixed_run(eng, n_frames, texts, card_line):
+    """A fixed-length run: every frame valid, finite audio, the cache grown
+    256 -> 512.  Returns ms per (batched) frame."""
+    B = len(texts)
+    codes, valid, audio, buckets, prefill_s, decode_s = fixed_length_run(eng, n_frames, texts)
+    if codes.shape != (B, n_frames, 16) or not bool(valid.all()):
+        raise RuntimeError(f"fixed-length run B={B}: wrong frame count or an invalid frame")
+    if audio.shape != (B, n_frames * SAMPLES_PER_FRAME) or not bool(torch.isfinite(audio).all()):
+        raise RuntimeError(f"fixed-length run B={B}: bad audio")
+    if buckets[0] != 256 or 512 not in buckets:
+        raise RuntimeError(f"fixed-length run B={B} did not grow the cache 256 -> 512: {buckets}")
+    ms_frame = decode_s * 1e3 / n_frames
+    log(f"fixed run B={B}: {n_frames} frames, buckets {sorted(set(buckets))}, prefill "
+        f"{prefill_s * 1e3:.1f} ms, {ms_frame:.3f} ms per {'batched ' if B > 1 else ''}frame, "
+        f"{'aggregate ' if B > 1 else ''}RTF {B * (n_frames / 12) / (prefill_s + decode_s):.2f}x "
+        f"[{card_line}]")
+    return ms_frame
+
+
+def reset_launches():
+    for fn in (K1.fused_decode_step, K2.fused_mtp_chain, K1.fused_decode_step_batched,
+               K2.fused_mtp_chain_batched):
+        fn.launches = 0
+
+
+def launches():
+    """(K1, K2, K4, K5) launch counts."""
+    return (K1.fused_decode_step.launches, K2.fused_mtp_chain.launches,
+            K1.fused_decode_step_batched.launches, K2.fused_mtp_chain_batched.launches)
+
+
+def check_launches(phase, want):
+    got = launches()
+    if got != want:
+        raise RuntimeError(f"{phase}: launches (K1, K2, K4, K5) {got}, expected {want}")
+    log(f"launches on the main path, {phase}: K1 {got[0]}, K2 {got[1]}, K4 {got[2]}, K5 {got[3]}")
+    return got
+
+
+BATCH_TEXTS = [
+    "hello world", "hello", "hello world, hello world", "a quick test of the batch",
+    "hello world, this is a longer request for the batched decoder",
+    "world", "hello hello hello", "the last of eight",
+]
+
+
+def batched_phase(eng, card_line):
+    """synthesize_batch on 8 texts with per-stream seeds, then fixed-length
+    batched runs at B=8 and B=32."""
+    reset_launches()
+    t0 = time.perf_counter()
+    results = eng.synthesize_batch(BATCH_TEXTS, language="en", temperature=0.8, top_k=50,
+                                   top_p=0.95, max_tokens=48, seed=list(range(len(BATCH_TEXTS))))
+    wall = time.perf_counter() - t0
+    decoded = results[0].metrics.decoded_frames
+    for r in results:
+        if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                r.audio).all() or r.codes.shape[1:] != (16,):
+            raise RuntimeError("bad synthesize_batch output")
+    audio_s = sum(r.metrics.audio_seconds for r in results)
+    log(f"synthesize_batch B={len(results)}: frames {[r.metrics.frames for r in results]} "
+        f"({decoded} decoded), {results[0].metrics.stage_seconds['decode'] * 1e3 / decoded:.3f} "
+        f"ms per batched frame decode, aggregate RTF {audio_s / wall:.2f}x, TTFA "
+        f"{results[0].metrics.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+    counts = [check_launches("synthesize_batch", (0, 0, decoded, decoded))]
+    ms = {}
+    for B in (8, 32):
+        reset_launches()
+        texts = [BATCH_TEXTS[b % len(BATCH_TEXTS)] for b in range(B)]
+        ms[B] = check_fixed_run(eng, 300, texts, card_line)
+        counts.append(check_launches(f"fixed run B={B}", (0, 0, 300, 300)))
+    return [sum(c) for c in zip(*counts)], ms
+
+
+POOL_REQUESTS = [  # (text, language, knobs, max_tokens)
+    ("hello world", "en", (0.8, 50, 0.95), 40),
+    ("你好，世界", "zh", (0.8, 50, 0.95), 32),
+    ("hello", "auto", (0.0, 50, 0.95), 24),
+    ("hello world, this is a longer pooled request", "en", (0.9, 30, 0.9), 64),
+    ("こんにちは世界", "ja", (0.8, 50, 0.95), 48),
+    ("hello hello", "en", (1.0, 0, 1.0), 24),
+    ("世界", "zh", (0.7, 1, 0.9), 40),
+    ("a short one", "en", (0.8, 50, 0.95), 16),
+    ("hello world again", "auto", (0.0, 50, 0.95), 56),
+    ("the tenth request", "en", (0.8, 50, 0.95), 32),
+    ("one more for the queue", "en", (0.6, 40, 0.8), 48),
+]
+STREAMED_REQUEST = ("hello world, streamed through the pool", "en", (0.8, 50, 0.95), 48)
+
+
+def pool_phase(eng, card_line):
+    """12 requests (one streamed) through an 8-slot pool; then the greedy and
+    seeded checks, and two requests over HTTP."""
+    pool = ContinuousBatcher(eng, pool_size=8, chunk_len=16, kv_bucket=eng.kv_ladder[0])
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        handle = pool.submit_stream(STREAMED_REQUEST[0], language=STREAMED_REQUEST[1],
+                                    temperature=STREAMED_REQUEST[2][0],
+                                    top_k=STREAMED_REQUEST[2][1], top_p=STREAMED_REQUEST[2][2],
+                                    max_tokens=STREAMED_REQUEST[3], seed=SEED)
+        futs = [pool.submit(text, language=lang, temperature=k[0], top_k=k[1], top_p=k[2],
+                            max_tokens=mt, seed=SEED + i)
+                for i, (text, lang, k, mt) in enumerate(POOL_REQUESTS)]
+        items = list(handle)
+        results = [f.result(timeout=600) for f in futs] + [items[-1]]
+        wall = time.perf_counter() - t0
+        streamed = np.concatenate(items[:-1]) if len(items) > 1 else np.zeros(0, np.float32)
+        if not np.array_equal(streamed, items[-1].audio):
+            raise RuntimeError("pool: streamed chunks differ from the retired audio")
+        for (text, lang, _, mt), r in zip(POOL_REQUESTS + [STREAMED_REQUEST], results):
+            if (r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,)
+                    or not np.isfinite(r.audio).all() or not 0 < len(r.codes) <= mt):
+                raise RuntimeError(f"pool: bad result for {text!r}")
+            first = r.metrics.ttfa_seconds
+            log(f"  pool {lang} {len(r.codes)} frames: "
+                + (f"TTFA {first * 1e3:.1f} ms (streamed)" if first is not None else
+                   f"result after {r.metrics.total_seconds * 1e3:.1f} ms (first audio = result)")
+                + f" [{card_line}]")
+        chunks = pool.stats["chunks"]
+        audio_s = sum(r.metrics.audio_seconds for r in results)
+        log(f"pool: 12 requests through 8 slots in {wall:.2f} s, {chunks} chunks of 16 frames, "
+            f"aggregate RTF {audio_s / wall:.2f}x [{card_line}]")
+        counts = [check_launches("pool", (1, 1, chunks * 16, chunks * 16))]
+
+        reset_launches()
+        chunks0 = pool.stats["chunks"]
+        text = "hello world, greedy through the pool"
+        got = pool.synthesize(text, language="en", temperature=0.0, max_tokens=48)
+        counts.append(check_launches("pool greedy", (0, 0, 16 * (pool.stats["chunks"] - chunks0),
+                                                     16 * (pool.stats["chunks"] - chunks0))))
+        want = eng.synthesize(text, language="en", temperature=0.0, max_tokens=48)
+        equal = np.array_equal(got.codes, want.codes)
+        log(f"pool greedy vs synthesize at B=1: {len(got.codes)} frames, codes equal={equal}")
+        if not equal:
+            raise RuntimeError("pool greedy output differs from synthesize at B=1")
+
+        kw = dict(language="en", temperature=0.8, top_k=50, top_p=0.95, max_tokens=32, seed=123)
+        alone = pool.synthesize("hello world, seeded", **kw)
+        mates = [pool.submit(t, language=lang, temperature=0.9, max_tokens=32)
+                 for t, lang, _, _ in POOL_REQUESTS[:6]]
+        among = pool.submit("hello world, seeded", **kw)
+        for f in mates:
+            f.result(timeout=600)
+        equal = np.array_equal(among.result(timeout=600).codes, alone.codes)
+        log(f"pool seeded request alone vs among 6 co-tenants: codes equal={equal}")
+        if not equal:
+            raise RuntimeError("a seeded pool request depends on its co-tenants")
+
+        httpd = make_http_server(pool, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            for body in ({"text": "hello world", "language": "en", "max_tokens": 24, "seed": 1},
+                         {"text": "hello", "temperature": 0.0, "max_tokens": 12}):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{httpd.server_address[1]}/synthesize",
+                    data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    wav = r.read()
+                    if r.headers["Content-Type"] != "audio/wav" or wav[:4] != b"RIFF":
+                        raise RuntimeError("HTTP facade returned no WAV")
+                log(f"http /synthesize {body['text']!r}: {len(wav)} WAV bytes, X-RTF "
+                    f"{r.headers['X-RTF']} [{card_line}]")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    finally:
+        pool.shutdown()
+
+    # every pooled chunk with host syncs raising (serializes admission behind decoding)
+    pool = ContinuousBatcher(eng, pool_size=8, chunk_len=16, kv_bucket=eng.kv_ladder[0],
+                             sync_check=True)
+    try:
+        handle = pool.submit_stream("hello world", language="en", max_tokens=32, seed=5)
+        futs = [pool.submit(t, language=lang, max_tokens=32) for t, lang, _, _ in POOL_REQUESTS[:4]]
+        list(handle)
+        for f in futs:
+            f.result(timeout=600)
+        log(f"pool with sync_check: {pool.stats['chunks']} chunks, no host sync inside a chunk")
+    finally:
+        pool.shutdown()
+    return [sum(c) for c in zip(*counts)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
               file=sys.stderr)
         return 2
-    card_line = card()
+    global CARD
+    CARD = card_line = card()
     log(f"card: {card_line}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -347,7 +761,7 @@ def main() -> int:
     t0 = time.perf_counter()
     path = _build.build()
     _build.load_kernels()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(path)}")
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(path)} [{CARD}]")
     with open(path + ".log") as f:
         for line in f:
             if "registers" in line or "spill" in line:
@@ -363,6 +777,11 @@ def main() -> int:
         check_k1_deep("talker", talker_t, talker_fw, 2560, 1800, gen, 20),
         check_k1_deep("mtp-trunk", mtp_t, mtp_fw, 17, 9, gen, 50),
     ]
+    k4 = [
+        check_k4_deep("talker", talker_t, talker_fw, 8, 512, gen, 10),
+        check_k4_deep("talker", talker_t, talker_fw, 32, 512, gen, 5),
+        check_k4_deep("mtp-trunk", mtp_t, mtp_fw, 8, 17, gen, 20),
+    ]
     del talker_fw
     ts = dataclasses.replace(talker_t, num_layers=K1_SHALLOW_LAYERS)
     fws = packed_trunk(ts, gen)
@@ -371,6 +790,10 @@ def main() -> int:
             timed = cache_dtype == torch.float32 and pos == 1800
             k1.append(check_k1_shallow(f"talker-{K1_SHALLOW_LAYERS}-layer", ts, fws, T, pos,
                                        cache_dtype, gen, 20 if timed else 0))
+        for B in K4_SHALLOW_BATCHES:
+            k4_shallow = check_k4_shallow(ts, fws, B, 512, cache_dtype, gen)
+            k4[0] = (max(k4[0][0], k4_shallow),) + k4[0][1:]
+    del fws
 
     cp = cfg.code_predictor
     H, V, n = mtp_t.hidden_size, cp.subcode_vocab_size, cp.num_steps
@@ -382,6 +805,7 @@ def main() -> int:
     # and top_k = 1
     k2 = [check_k2(knobs, cp, mtp_fw, heads, tables, fnorm, gen, iters) for knobs, iters in (
         ((0.0,), 10), ((0.8, 50, 0.95), 10), ((1.0, 0, 1.0), 0), ((0.7, 1, 0.9), 0))]
+    k5 = [check_k5(B, cp, mtp_fw, heads, tables, fnorm, gen, iters) for B, iters in ((8, 5), (32, 3))]
     del mtp_fw, heads, tables
     torch.cuda.empty_cache()
 
@@ -393,10 +817,9 @@ def main() -> int:
     del params
     torch.cuda.synchronize()
     log(f"engine: 0.6B preset, random weights (seed {SEED}), int8, built in "
-        f"{time.perf_counter() - t0:.1f} s; KV ladder {eng.kv_ladder}")
+        f"{time.perf_counter() - t0:.1f} s; KV ladder {eng.kv_ladder} [{CARD}]")
 
-    K1.fused_decode_step.launches = 0
-    K2.fused_mtp_chain.launches = 0
+    reset_launches()
     requests = [
         dict(text="hello world", language="en", temperature=0.0),
         dict(text="hello world, hello world", language="en", temperature=0.8, top_k=50,
@@ -416,38 +839,37 @@ def main() -> int:
             f"({m.decoded_frames} decoded), {decode_ms:.3f} ms/frame decode, RTF "
             f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms, total "
             f"{m.total_seconds * 1e3:.1f} ms [{card_line}]")
-
-    n_fixed = 300
-    codes, valid, audio, buckets, prefill_s, decode_s = fixed_length_run(eng, n_fixed)
-    decoded += n_fixed
-    launches = (K1.fused_decode_step.launches, K2.fused_mtp_chain.launches)
-    if codes.shape != (1, n_fixed, 16) or not bool(valid.all()):
-        raise RuntimeError("fixed-length run: wrong frame count or an invalid frame")
-    if audio.shape != (1, n_fixed * SAMPLES_PER_FRAME) or not bool(torch.isfinite(audio).all()):
-        raise RuntimeError("fixed-length run: bad audio")
-    if buckets[0] != 256 or 512 not in buckets:
-        raise RuntimeError(f"fixed-length run did not grow the cache 256 -> 512: {buckets}")
-    ms_frame = decode_s * 1e3 / n_fixed
-    log(f"fixed run: {n_fixed} frames, buckets {sorted(set(buckets))}, prefill "
-        f"{prefill_s * 1e3:.1f} ms, {ms_frame:.3f} ms/frame, RTF "
-        f"{(n_fixed / 12) / (prefill_s + decode_s):.2f}x [{card_line}]")
-    if launches != (decoded, decoded):
-        raise RuntimeError(f"launch counts {launches}, expected one K1 and one K2 per "
-                           f"decoded frame ({decoded})")
-    log(f"launches on the main path: K1 {launches[0]}, K2 {launches[1]} "
-        f"= one each per decoded frame ({decoded})")
+    check_fixed_run(eng, 300, ["hello world, this is a fixed length run"], card_line)
+    decoded += 300
+    b1 = check_launches("B=1 slice (one K1 and one K2 per decoded frame)",
+                        (decoded, decoded, 0, 0))
+    batched, _ = batched_phase(eng, card_line)
+    pooled = pool_phase(eng, card_line)
+    total = [sum(c) for c in zip(b1, batched, pooled)]
+    log(f"launches on the main paths in all: K1 {total[0]}, K2 {total[1]}, K4 {total[2]}, "
+        f"K5 {total[3]}")
 
     report = {"kernels": [
         {"name": "fused_decode_step", "route": "cuda",
          "source": "leaxer_qwen3_tts_torch/csrc/fused_step.cu",
          "replaces": "leaxer_qwen3_tts_tpu/ops/fused_step.py:1290",
-         "launches": launches[0], "max_abs_err": max(e for e, _, _ in k1),
+         "launches": total[0], "max_abs_err": max(e for e, _, _ in k1),
          "ms": k1[0][1], "plain_ms": k1[0][2]},
         {"name": "fused_mtp_chain", "route": "cuda",
          "source": "leaxer_qwen3_tts_torch/csrc/fused_mtp.cu",
          "replaces": "leaxer_qwen3_tts_tpu/ops/fused_mtp.py:835",
-         "launches": launches[1], "max_abs_err": max(e for e, _, _ in k2),
+         "launches": total[1], "max_abs_err": max(e for e, _, _ in k2),
          "ms": k2[1][1], "plain_ms": k2[1][2]},
+        {"name": "fused_decode_step_batched", "route": "cuda",
+         "source": "leaxer_qwen3_tts_torch/csrc/fused_step_batched.cu",
+         "replaces": "leaxer_qwen3_tts_tpu/ops/fused_step.py:2083",
+         "launches": total[2], "max_abs_err": max(e for e, _, _ in k4),
+         "ms": k4[0][1], "plain_ms": k4[0][2]},
+        {"name": "fused_mtp_chain_batched", "route": "cuda",
+         "source": "leaxer_qwen3_tts_torch/csrc/fused_mtp_batched.cu",
+         "replaces": "leaxer_qwen3_tts_tpu/ops/fused_mtp.py:703",
+         "launches": total[3], "max_abs_err": max(e for e, _, _ in k5),
+         "ms": k5[0][1], "plain_ms": k5[0][2]},
     ]}
     print(json.dumps(report))
     print(card_line)

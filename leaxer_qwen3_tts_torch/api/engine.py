@@ -1,16 +1,18 @@
 """TTSEngine: the top-level synthesis API of the PyTorch port.
 
-Port of ``leaxer_qwen3_tts_tpu/api/engine.py`` at B=1: ``synthesize``,
-``synthesize_stream`` and ``synthesize_tokens``, the KV bucket ladder with
-cache growth between chunks, the small first chunk for time-to-first-audio,
-and the streamed vocoder with causal left context.
+Port of ``leaxer_qwen3_tts_tpu/api/engine.py``: ``synthesize``,
+``synthesize_stream``, ``synthesize_tokens`` and ``synthesize_batch`` (B
+streams in one decode, EOS latched per stream, per-stream seeds), the KV
+bucket ladder with cache growth between chunks, the small first chunk for
+time-to-first-audio, and the streamed vocoder with causal left context.
 
 On a CUDA device the engine runs only the kernel path: it requires
 ``quantize="int8"`` and the fused talker and MTP implementations, packs both
-for kernels K1 and K2, and raises ``EngineError`` for a configuration the
-kernels do not take.  On the CPU the same code runs the kernels' plain
-versions.  A decode chunk enqueues its frames on the device and the engine
-syncs once per chunk, when it copies the chunk's codes to the host.
+for kernels K1 and K2 (B=1) and K4 and K5 (B=2..32), and raises
+``EngineError`` for a configuration or a batch the kernels do not take.  On
+the CPU the same code runs the kernels' plain versions.  A decode chunk
+enqueues its frames on the device and the engine syncs once per chunk, when
+it copies the chunk's codes to the host.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ..frontend.tokenizer import Tokenizer
 from ..models.code_predictor import prepare_fused_step
 from ..models.codec12hz import vocode_chunk
 from ..models.talker import prepare_fused_talker
-from ..ops.fused_step import supports
+from ..ops.fused_step import MAX_BATCH, supports
 from ..ops.quant import fuse_params, quantize_params
 from ..runtime.generate import GenerateFns, GenerateState, make_generate_fns
 from ..runtime.prompt import prompt_length
@@ -48,7 +50,7 @@ class EngineError(RuntimeError):
 
 
 class SynthesisResult(NamedTuple):
-    audio: np.ndarray  # [T] float32 mono 24 kHz
+    audio: np.ndarray  # [T] float32 mono 24 kHz (a list per stream inside a batched run)
     codes: np.ndarray  # [frames, 16] int32
     metrics: SynthesisMetrics
 
@@ -84,7 +86,7 @@ def _sync(device: torch.device) -> None:
 
 
 class TTSEngine:
-    """Qwen3-TTS synthesis engine on PyTorch (B=1)."""
+    """Qwen3-TTS synthesis engine on PyTorch."""
 
     def __init__(
         self,
@@ -99,7 +101,10 @@ class TTSEngine:
         text_bucket: int = 16,
         quantize: Optional[str] = None,
         kv_buckets: Tuple[int, ...] = (256, 512, 1024),
+        mesh=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError("a device mesh is not ported yet (ROADMAP M15)")
         self.cfg = config
         self.tokenizer = tokenizer
         self.device = torch.device(device) if device is not None else _first_device(params)
@@ -185,8 +190,37 @@ class TTSEngine:
         with timer.stage("tokenize"):
             ids = self._tokenize(text)
         yield from self._ids_stream(
-            ids, language, temperature, top_k, top_p, max_tokens, seed, timer
+            [ids], language, temperature, top_k, top_p, max_tokens, seed, timer
         )
+
+    def synthesize_batch(
+        self,
+        texts: Sequence[str],
+        language: str = "auto",
+        temperature=0.8,
+        top_k=50,
+        top_p=0.95,
+        max_tokens: Optional[int] = None,
+        seed=0,
+    ) -> List[SynthesisResult]:
+        """Batched multi-stream synthesis: all texts decode in one batch of B
+        streams; each stream's EOS latches on its own.  The knobs may be
+        scalars or per-stream sequences.  ``seed`` is an int (one noise
+        generator for the batch) or a length-B sequence (one generator per
+        stream: each stream's samples then depend on its own seed only).
+        On a CUDA device B is at most 32 (kernels K4 and K5)."""
+        timer = StageTimer(SynthesisMetrics())
+        with timer.stage("tokenize"):
+            id_lists = [self._tokenize(t) for t in texts]
+        result = self._last(self._ids_stream(
+            id_lists, language, temperature, top_k, top_p, max_tokens, seed, timer
+        ))
+        if len(texts) == 1:
+            return [result]
+        return [
+            SynthesisResult(audio=result.audio[b], codes=result.codes[b], metrics=result.metrics[b])
+            for b in range(len(texts))
+        ]
 
     def synthesize_tokens(
         self,
@@ -209,7 +243,7 @@ class TTSEngine:
             raise EngineError("no text tokens in sequence")
         timer = StageTimer(SynthesisMetrics())
         return self._last(self._ids_stream(
-            text_ids, language, temperature, top_k, top_p, max_tokens, seed, timer
+            [text_ids], language, temperature, top_k, top_p, max_tokens, seed, timer
         ))
 
     # ------------------------------------------------------------------
@@ -231,9 +265,9 @@ class TTSEngine:
             raise EngineError("empty text")
         return ids
 
-    def _get_fns(self, lang_id, kv_bucket: int, chunk_len: int) -> GenerateFns:
+    def _get_fns(self, lang_id, kv_bucket: int, chunk_len: int, batch: int = 1) -> GenerateFns:
         return make_generate_fns(
-            self.cfg, batch=1, max_len=kv_bucket, chunk_len=chunk_len, lang_id=lang_id
+            self.cfg, batch=batch, max_len=kv_bucket, chunk_len=chunk_len, lang_id=lang_id
         )
 
     @staticmethod
@@ -250,19 +284,27 @@ class TTSEngine:
         return state._replace(cache=cache, valid_mask=valid)
 
     def _ids_stream(
-        self, ids, language, temperature, top_k, top_p, max_tokens, seed, timer,
+        self, id_lists, language, temperature, top_k, top_p, max_tokens, seed, timer,
     ):
         cfg = self.cfg
+        B = len(id_lists)
+        if B < 1:
+            raise EngineError("no texts")
+        if self.device.type == "cuda" and B > MAX_BATCH:
+            raise EngineError(f"batch of {B}: the batched kernels take at most {MAX_BATCH} streams")
         vocab = cfg.talker.text_vocab_size
-        bad = [i for i in ids if not 0 <= int(i) < vocab]
-        if bad:
-            raise EngineError(f"token id(s) out of range [0, {vocab}): {bad[:8]}")
+        for ids in id_lists:
+            bad = [i for i in ids if not 0 <= int(i) < vocab]
+            if bad:
+                raise EngineError(f"token id(s) out of range [0, {vocab}): {bad[:8]}")
         lang_id = language_to_codec_id(language if language != "auto" else None)
         max_tokens = self.max_frames if max_tokens is None else min(max_tokens, self.max_frames)
 
-        t_bucket = _round_up(len(ids), self.text_bucket)
-        ids_padded = np.zeros((1, t_bucket), np.int64)
-        ids_padded[0, : len(ids)] = ids
+        t_bucket = _round_up(max(len(ids) for ids in id_lists), self.text_bucket)
+        ids_padded = np.zeros((B, t_bucket), np.int64)
+        for b, ids in enumerate(id_lists):
+            ids_padded[b, : len(ids)] = ids
+        lens = np.array([len(ids) for ids in id_lists], np.int64)
         P = prompt_length(lang_id)
         # the last chunk may overshoot max_tokens by up to chunk_len - 1
         # frames, so the budget keeps a full chunk below the top bucket
@@ -278,25 +320,38 @@ class TTSEngine:
             (i for i, b in enumerate(self.kv_ladder) if b >= P + self.chunk_len + 1),
             len(self.kv_ladder) - 1,
         )
-        sp = SamplingParams.create(temperature, top_k, top_p)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
+        try:
+            sp = SamplingParams.create(temperature, top_k, top_p)
+            if sp.per_row:
+                sp.rows(B)
+        except ValueError as e:
+            raise EngineError(str(e)) from None
+        if isinstance(seed, (list, tuple, np.ndarray)):
+            seeds = list(seed)
+            if len(seeds) != B:
+                raise EngineError(f"seed sequence length {len(seeds)} != batch {B}")
+        else:
+            seeds = [seed]
+        gens = []
+        for s in seeds:
+            gens.append(torch.Generator(device=self.device))
+            gens[-1].manual_seed(int(s))
         dev = self.device
 
         with timer.stage("prefill"):
-            fns = self._get_fns(lang_id, self.kv_ladder[bidx], self.first_chunk_len)
+            fns = self._get_fns(lang_id, self.kv_ladder[bidx], self.first_chunk_len, B)
             state, bundle = fns.prefill(
                 self.params,
                 torch.from_numpy(ids_padded).to(dev),
-                torch.tensor([len(ids)], dtype=torch.long, device=dev),
-                gen,
+                torch.from_numpy(lens).to(dev),
+                gens,
             )
             _sync(dev)
 
         voc_cfg = cfg.vocoder
         spf = voc_cfg.samples_per_frame
         frames_chunks, valid_chunks, audio_chunks = [], [], []
-        tail: Optional[torch.Tensor] = None  # rolling [1, ctx, 16] vocoder context
+        tail: Optional[torch.Tensor] = None  # rolling [B, ctx, 16] vocoder context
         steps = 0
         first = True
         while steps < max_tokens:
@@ -307,7 +362,7 @@ class TTSEngine:
             ):
                 bidx += 1
                 state = self._grow_state(state, self.kv_ladder[bidx])
-            fns = self._get_fns(lang_id, self.kv_ladder[bidx], cur_chunk)
+            fns = self._get_fns(lang_id, self.kv_ladder[bidx], cur_chunk, B)
             with timer.stage("decode"):
                 state, frames, valid = fns.decode(
                     self.params, state, bundle.trailing, bundle.trailing_len,
@@ -332,20 +387,40 @@ class TTSEngine:
             timer.mark_first_audio()
             first = False
             keep = min(cur_chunk, max_tokens - (steps - cur_chunk)) * spf
-            yield audio[0, :keep]
+            yield audio[0, :keep] if B == 1 else audio[:, :keep]
             if done:
                 break
 
         all_frames = np.concatenate(frames_chunks, axis=1)[:, :max_tokens]
         all_valid = np.concatenate(valid_chunks, axis=1)[:, :max_tokens]
-        n_valid = int(all_valid[0].sum())
+        n_valid = all_valid.sum(axis=1)  # frames before EOS, per stream
         full_audio = np.concatenate(audio_chunks, axis=1)
         metrics = timer.finish()
-        metrics.frames = n_valid
         metrics.decoded_frames = steps
-        metrics.audio_seconds = n_valid * spf / SAMPLE_RATE
+        if B == 1:
+            metrics.frames = int(n_valid[0])
+            metrics.audio_seconds = metrics.frames * spf / SAMPLE_RATE
+            yield SynthesisResult(
+                audio=full_audio[0, : metrics.frames * spf],
+                codes=all_frames[0][all_valid[0]],
+                metrics=metrics,
+            )
+            return
+        # per-stream counts; the stage times are the batch's (one decode for
+        # every stream), so a stream's RTF is its audio over the batch's wall
+        per_stream = [
+            SynthesisMetrics(
+                stage_seconds=dict(metrics.stage_seconds),
+                audio_seconds=float(n_valid[b]) * spf / SAMPLE_RATE,
+                frames=int(n_valid[b]),
+                decoded_frames=steps,
+                ttfa_seconds=metrics.ttfa_seconds,
+                total_seconds=metrics.total_seconds,
+            )
+            for b in range(B)
+        ]
         yield SynthesisResult(
-            audio=full_audio[0, : n_valid * spf],
-            codes=all_frames[0][all_valid[0]],
-            metrics=metrics,
+            audio=[full_audio[b, : int(n_valid[b]) * spf] for b in range(B)],
+            codes=[all_frames[b][all_valid[b]] for b in range(B)],
+            metrics=per_stream,
         )

@@ -51,65 +51,6 @@ struct HeadStep {
   int greedy;
 };
 
-// Samples one index from logits lg[0..V) (in shared memory, overwritten), the
-// float32 op sequence of gumbel_topk_topp_sample.  pr: [V] shared scratch.
-__device__ int sample_index(float* lg, float* pr, const HeadStep& p) {
-  const int V = p.V, tid = threadIdx.x;
-  if (p.greedy) return qtts_block_argmax_first(lg, V);
-  for (int v = tid; v < V; v += blockDim.x) lg[v] = lg[v] / p.temperature;
-  __syncthreads();
-  // top-k: threshold = the top_k-th largest, by bisection (ties kept)
-  float lmin = QttsMinF::identity(), lmax = QttsMaxF::identity();
-  for (int v = tid; v < V; v += blockDim.x) {
-    lmin = fminf(lmin, lg[v]);
-    lmax = fmaxf(lmax, lg[v]);
-  }
-  float lo = qtts_block_reduce(lmin, QttsMinF());
-  float hi = qtts_block_reduce(lmax, QttsMaxF());
-  for (int it = 0; it < 40; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    int cnt = 0;
-    for (int v = tid; v < V; v += blockDim.x) cnt += lg[v] >= mid ? 1 : 0;
-    cnt = qtts_block_reduce(cnt, QttsSumI());
-    if (cnt >= p.top_k) lo = mid; else hi = mid;
-  }
-  const bool k_active = p.top_k > 0 && p.top_k < V;
-  for (int v = tid; v < V; v += blockDim.x) {
-    const float s = lg[v];
-    lg[v] = (s >= lo || !k_active) ? s : QTTS_NEG_INF;
-  }
-  __syncthreads();
-  // softmax of the masked logits
-  float mloc = QttsMaxF::identity();
-  for (int v = tid; v < V; v += blockDim.x) mloc = fmaxf(mloc, lg[v]);
-  const float mm = qtts_block_reduce(mloc, QttsMaxF());
-  float sloc = 0.f;
-  for (int v = tid; v < V; v += blockDim.x) {
-    const float e = expf(lg[v] - mm);
-    pr[v] = e;
-    sloc += e;
-  }
-  const float se = qtts_block_reduce(sloc, QttsSumF());
-  for (int v = tid; v < V; v += blockDim.x) pr[v] = pr[v] / se;
-  __syncthreads();
-  // top-p: keep i iff the mass of strictly larger probs is < top_p
-  float plo = 0.f, phi = 1.f;
-  for (int it = 0; it < 40; ++it) {
-    const float mid = 0.5f * (plo + phi);
-    float s = 0.f;
-    for (int v = tid; v < V; v += blockDim.x) s += pr[v] > mid ? pr[v] : 0.f;
-    s = qtts_block_reduce(s, QttsSumF());
-    if (s < p.top_p) phi = mid; else plo = mid;
-  }
-  const bool p_off = p.top_p >= 1.f;
-  for (int v = tid; v < V; v += blockDim.x) {
-    const float fin = (pr[v] > plo || p_off) ? lg[v] : QTTS_NEG_INF;
-    lg[v] = fin + p.gumbel[v];
-  }
-  __syncthreads();
-  return qtts_block_argmax_first(lg, V);
-}
-
 __global__ void __launch_bounds__(QTTS_GEMV_THREADS) head_sample_kernel(HeadStep p) {
   extern __shared__ float sh[];  // max(H, 2V) floats
   __shared__ int is_last;
@@ -122,7 +63,7 @@ __global__ void __launch_bounds__(QTTS_GEMV_THREADS) head_sample_kernel(HeadStep
 #pragma unroll
     for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
       const int n = n0 + r;
-      if (n < p.V) p.logits[n] = acc[r] * p.scale[n];
+      if (n < p.V) qtts_gemv_store<false>(p.logits + n, acc[r], p.scale[n]);
     }
   }
   __threadfence();
@@ -136,7 +77,8 @@ __global__ void __launch_bounds__(QTTS_GEMV_THREADS) head_sample_kernel(HeadStep
   float* pr = sh + p.V;
   for (int v = threadIdx.x; v < p.V; v += blockDim.x) lg[v] = __ldcg(p.logits + v);
   __syncthreads();
-  const int sub = sample_index(lg, pr, p);
+  const int sub = qtts_sample_index(lg, pr, p.V, p.gumbel, p.temperature, p.top_k,
+                                    p.top_p, p.greedy);
   if (threadIdx.x == 0) {
     p.subcodes[p.j] = sub;
     *p.counter = 0u;

@@ -1,0 +1,124 @@
+// Kernel K5: the MTP sub-code chain of one 12 Hz frame for B = 1..32 streams.
+//
+// Replaces leaxer_qwen3_tts_tpu/ops/fused_mtp.py::fused_mtp_chain_batched
+// (_make_chain_kernel_batched, sampler gumbel_topk_topp_sample with per-row
+// knobs).  Same function: two prefix trunk passes at positions 0 and 1 (talker
+// hidden, then codec_embed(code0)) into a 17-slot cache per row, then for
+// j = 0..n-1, every row b:
+//   logits_j[b] = bf16(RMSNorm(x[b]) * final_norm) @ bf16(head_j) * scale_j;
+//   sub_j[b]    = gumbel_topk_topp_sample(logits_j[b], noise_j[b], knobs[b]);
+//   emb = pred_embed[j][sub_j[b]] (f32); sub_sum[b] += emb;
+//   one trunk pass on emb at position 2 + j (not after the last step).
+// The trunk passes are kernel K4's layer kernels (fused_step_batched.cu) at
+// T = n + 2, as K2 reuses K1's.  The head product is K4's batched GEMV (each
+// head row read once for all B rows), and the sampler runs one block per row
+// (grid B) with that row's knobs: greedy rows take the first-index argmax,
+// the others K2's 40-step bisections for the top-k and top-p thresholds and
+// the argmax of masked + noise.  Row b's operations are K2's on that row, so
+// a row of K5 equals K2 on the row's inputs and noise.  The sampled indices
+// stay on the device, and the knobs travel by value in the launch arguments:
+// the chain syncs nothing and copies nothing to the device.
+//
+// What bounds it on the H100: 16 trunk passes x 82 MB of int8 plus 15 x 2 MB
+// of heads per frame, about 1.34 GB, now shared by B rows (0.40 ms at the
+// 3.35 TB/s of an H100 SXM, NVIDIA data sheet).  What this simple design
+// leaves on the table: the trunk streams from device memory every pass (no
+// L2-persistence window), ~900 launches per frame, and K4's GEMV limits.
+
+#include "qtts_kernels.cuh"
+
+namespace {
+
+struct RowSample {
+  const float* logits;         // [B, V]
+  const float* noise;          // step j's noise; row b at b * noise_row_stride
+  int64_t noise_row_stride;
+  const __nv_bfloat16* table;  // [Vt, H] step j's embedding table
+  int32_t* subcodes;           // [B, n]
+  float* sub_sum;              // [B, H]
+  float* x_next;               // [B, H]
+  int j, n, V, H;
+  float temperature[QTTS_MAX_BATCH];
+  int32_t top_k[QTTS_MAX_BATCH];
+  float top_p[QTTS_MAX_BATCH];
+  int32_t greedy[QTTS_MAX_BATCH];
+};
+
+// Grid B, QTTS_GEMV_THREADS threads (K2's sampler block size): block b samples
+// row b's sub-code and gathers its embedding row.
+__global__ void __launch_bounds__(QTTS_GEMV_THREADS) sample_rows_kernel(RowSample p) {
+  extern __shared__ float sh[];  // 2V floats
+  const int b = blockIdx.x;
+  float* lg = sh;
+  float* pr = sh + p.V;
+  for (int v = threadIdx.x; v < p.V; v += blockDim.x) lg[v] = p.logits[(size_t)b * p.V + v];
+  __syncthreads();
+  const int sub = qtts_sample_index(lg, pr, p.V, p.noise + b * p.noise_row_stride,
+                                    p.temperature[b], p.top_k[b], p.top_p[b], p.greedy[b]);
+  if (threadIdx.x == 0) p.subcodes[b * p.n + p.j] = sub;
+  const size_t row = (size_t)sub * p.H;
+  float* sum = p.sub_sum + (size_t)b * p.H;
+  float* x_next = p.x_next + (size_t)b * p.H;
+  for (int k = threadIdx.x; k < p.H; k += blockDim.x) {
+    const float e = __bfloat162float(p.table[row + k]);
+    sum[k] = p.j == 0 ? e : sum[k] + e;
+    x_next[k] = e;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel K5 entry: subcodes [B, n] and sub_sum [B, H] of one frame's chain.
+int qtts_mtp_chain_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
+                           const QttsChainBatchArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int T = a->n + 2, H = w->H, V = a->V, B = a->B;
+  if (H % 16 != 0 || V > a->Vt || B < 1 || B > QTTS_MAX_BATCH) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * V * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+
+  int err = qtts_launch_decode_step_batched(*w, *s, a->last_hidden, a->x, a->k_cache, a->v_cache,
+                                            a->cache_bf16, B, T, nullptr, 0, st);
+  if (err) return err;
+  err = qtts_launch_decode_step_batched(*w, *s, a->code0_embed, a->x, a->k_cache, a->v_cache,
+                                        a->cache_bf16, B, T, nullptr, 1, st);
+  if (err) return err;
+  RowSample p;
+  p.logits = a->logits;
+  p.noise_row_stride = a->noise_row_stride;
+  p.subcodes = a->subcodes;
+  p.sub_sum = a->sub_sum;
+  p.x_next = a->x_in;
+  p.n = a->n;
+  p.V = V;
+  p.H = H;
+  for (int b = 0; b < QTTS_MAX_BATCH; ++b) {
+    p.temperature[b] = a->temperature[b];
+    p.top_k[b] = a->top_k[b];
+    p.top_p[b] = a->top_p[b];
+    p.greedy[b] = a->greedy[b];
+  }
+  for (int j = 0; j < a->n; ++j) {
+    err = qtts_launch_prep_rows(QTTS_IN_NORM, a->x, H, a->final_norm, w->eps, H, s->hb, B, st);
+    if (err) return err;
+    err = qtts_launch_gemv_rows(s->hb, a->heads + (size_t)j * V * H, a->head_scales + (size_t)j * V,
+                                a->logits, V, B, V, H, 0, st);
+    if (err) return err;
+    p.noise = a->noise + j * a->noise_step_stride;
+    p.table = a->tables + (size_t)j * a->Vt * H;
+    p.j = j;
+    sample_rows_kernel<<<B, QTTS_GEMV_THREADS, smem, st>>>(p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    if (j + 1 < a->n) {
+      err = qtts_launch_decode_step_batched(*w, *s, a->x_in, a->x, a->k_cache, a->v_cache,
+                                            a->cache_bf16, B, T, nullptr, 2 + j, st);
+      if (err) return err;
+    }
+  }
+  return (int)cudaSuccess;
+}
+
+}  // extern "C"

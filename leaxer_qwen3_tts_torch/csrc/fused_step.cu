@@ -47,191 +47,9 @@ gemv_i8_kernel(const float* __restrict__ in, const float* __restrict__ norm_w, f
 #pragma unroll
     for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
       const int n = n0 + r;
-      if (n < N) {
-        const float v = acc[r] * scale[n];
-        out[n] = ACCUM ? out[n] + v : v;
-      }
+      if (n < N) qtts_gemv_store<ACCUM>(out + n, acc[r], scale[n]);
     }
   }
-}
-
-template <typename CT>
-__device__ __forceinline__ CT to_cache(float x);
-template <>
-__device__ __forceinline__ float to_cache<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_cache<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float from_cache(float x) { return x; }
-__device__ __forceinline__ float from_cache(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(p);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p + 2);
-  const float2 fa = __bfloat1622float2(a);
-  const float2 fb = __bfloat1622float2(b);
-  o[0] = fa.x; o[1] = fa.y; o[2] = fb.x; o[3] = fb.y;
-}
-
-// Grid (nk, n_splits), QTTS_ATTN_D threads.  Block (h, s) normalises and
-// rotates kv head h's q heads and k, takes slots
-// [s*CHUNK, min((s+1)*CHUNK, pos+1)) and writes the split's softmax partials.
-// The new slot's k/v come from registers (rounded to the cache dtype, so they
-// equal what the cache holds); split 0 alone writes them to the cache, and no
-// block reads slot pos from memory, so the write never races a read.
-template <typename CT>
-__global__ void __launch_bounds__(QTTS_ATTN_D)
-attn_split_kernel(const float* __restrict__ qkv, const float* __restrict__ q_norm,
-                  const float* __restrict__ k_norm, const float* __restrict__ inv_freq,
-                  CT* __restrict__ kc, CT* __restrict__ vc, float* __restrict__ part,
-                  int nq, int nk, int T, int pos, int max_splits, float eps, float scale) {
-  constexpr int D = QTTS_ATTN_D;
-  constexpr int G = QTTS_ATTN_MAX_G;
-  __shared__ float q_s[G][D];
-  __shared__ float k_s[D];
-  __shared__ float v_s[D];
-  __shared__ float wm[4][G];
-  __shared__ float wl[4][G];
-  __shared__ float wacc[4][G][D];
-
-  const int h = blockIdx.x, split = blockIdx.y, t = threadIdx.x;
-  const int g = nq / nk;
-  const int qd = nq * D, kvd = nk * D;
-
-  for (int gi = 0; gi < g; ++gi) {
-    const float v = qkv[(h * g + gi) * D + t];
-    const float ss = qtts_block_reduce(v * v, QttsSumF());
-    const float r = rsqrtf(ss / (float)D + eps);
-    q_s[gi][t] = (v * r) * q_norm[t];
-  }
-  {
-    const float kv = qkv[qd + h * D + t];
-    const float ss = qtts_block_reduce(kv * kv, QttsSumF());
-    const float r = rsqrtf(ss / (float)D + eps);
-    k_s[t] = (kv * r) * k_norm[t];
-    v_s[t] = qkv[qd + kvd + h * D + t];
-  }
-  __syncthreads();
-  if (t < D / 2) {
-    const float ang = (float)pos * inv_freq[t];
-    const float c = cosf(ang), s = sinf(ang);
-    for (int gi = 0; gi < g; ++gi) {
-      const float x1 = q_s[gi][t], x2 = q_s[gi][t + D / 2];
-      q_s[gi][t] = x1 * c - x2 * s;
-      q_s[gi][t + D / 2] = x2 * c + x1 * s;
-    }
-    const float x1 = k_s[t], x2 = k_s[t + D / 2];
-    k_s[t] = x1 * c - x2 * s;
-    k_s[t + D / 2] = x2 * c + x1 * s;
-  }
-  __syncthreads();
-  {
-    const CT kq = to_cache<CT>(k_s[t]);
-    const CT vq = to_cache<CT>(v_s[t]);
-    k_s[t] = from_cache(kq);
-    v_s[t] = from_cache(vq);
-    if (split == 0) {
-      kc[((size_t)h * T + pos) * D + t] = kq;
-      vc[((size_t)h * T + pos) * D + t] = vq;
-    }
-  }
-  __syncthreads();
-
-  const int warp = t >> 5, lane = t & 31;
-  float qr[G][4];
-  float m[G], l[G], acc[G][4];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    m[gi] = QTTS_NEG_INF;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[gi][e] = 0.f;
-      qr[gi][e] = gi < g ? q_s[gi][lane * 4 + e] : 0.f;
-    }
-  }
-  const int start = split * QTTS_ATTN_CHUNK;
-  const int end = min(start + QTTS_ATTN_CHUNK, pos + 1);
-  for (int j = start + warp; j < end; j += 4) {
-    float kf[4], vf[4];
-    if (j == pos) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        kf[e] = k_s[lane * 4 + e];
-        vf[e] = v_s[lane * 4 + e];
-      }
-    } else {
-      load4(kc + ((size_t)h * T + j) * D + lane * 4, kf);
-      load4(vc + ((size_t)h * T + j) * D + lane * 4, vf);
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      if (gi < g) {
-        float d = qr[gi][0] * kf[0] + qr[gi][1] * kf[1] + qr[gi][2] * kf[2] + qr[gi][3] * kf[3];
-        d = qtts_warp_reduce(d, QttsSumF());
-        const float sc = d * scale;
-        const float mn = fmaxf(m[gi], sc);
-        const float alpha = expf(m[gi] - mn);
-        const float p = expf(sc - mn);
-        l[gi] = l[gi] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[gi][e] = acc[gi][e] * alpha + p * vf[e];
-        m[gi] = mn;
-      }
-    }
-  }
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    if (gi < g) {
-      if (lane == 0) {
-        wm[warp][gi] = m[gi];
-        wl[warp][gi] = l[gi];
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) wacc[warp][gi][lane * 4 + e] = acc[gi][e];
-    }
-  }
-  __syncthreads();
-  for (int gi = 0; gi < g; ++gi) {
-    float M = wm[0][gi];
-    for (int w = 1; w < 4; ++w) M = fmaxf(M, wm[w][gi]);
-    float L = 0.f, o = 0.f;
-    for (int w = 0; w < 4; ++w) {
-      const float f = expf(wm[w][gi] - M);
-      L += wl[w][gi] * f;
-      o += wacc[w][gi][t] * f;
-    }
-    float* dst = part + ((size_t)(h * g + gi) * max_splits + split) * (D + 2);
-    if (t == 0) {
-      dst[0] = M;
-      dst[1] = L;
-    }
-    dst[2 + t] = o;
-  }
-}
-
-// Grid nq, QTTS_ATTN_D threads: merges the n_splits partials of q head hq.
-__global__ void __launch_bounds__(QTTS_ATTN_D)
-attn_combine_kernel(const float* __restrict__ part, float* __restrict__ attn,
-                    int max_splits, int n_splits) {
-  constexpr int D = QTTS_ATTN_D;
-  const int hq = blockIdx.x, t = threadIdx.x;
-  const float* base = part + (size_t)hq * max_splits * (D + 2);
-  float M = QTTS_NEG_INF;
-  for (int s = 0; s < n_splits; ++s) M = fmaxf(M, base[s * (D + 2)]);
-  float L = 0.f, o = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float f = expf(base[s * (D + 2)] - M);
-    L += base[s * (D + 2) + 1] * f;
-    o += base[s * (D + 2) + 2 + t] * f;
-  }
-  attn[hq * D + t] = o / L;
 }
 
 template <int IN_MODE, bool ACCUM>
@@ -246,27 +64,7 @@ cudaError_t launch_gemv(const float* in, const float* norm_w, float eps, const i
   return cudaGetLastError();
 }
 
-template <typename CT>
-cudaError_t launch_attention(const QttsStepWeights& w, const QttsStepScratch& s, int l,
-                             CT* kc, CT* vc, int T, int pos, int n_splits, cudaStream_t st) {
-  const size_t layer = (size_t)w.nk * T * w.D;
-  attn_split_kernel<CT><<<dim3(w.nk, n_splits), QTTS_ATTN_D, 0, st>>>(
-      s.qkv, w.q_norm + (size_t)l * w.D, w.k_norm + (size_t)l * w.D, w.inv_freq,
-      kc + l * layer, vc + l * layer, s.part, w.nq, w.nk, T, pos, s.max_splits, w.eps,
-      w.attn_scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  attn_combine_kernel<<<w.nq, QTTS_ATTN_D, 0, st>>>(s.part, s.attn, s.max_splits, n_splits);
-  return cudaGetLastError();
-}
-
 }  // namespace
-
-#define QTTS_TRY(expr)                 \
-  do {                                 \
-    const cudaError_t e_ = (expr);     \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
 
 int qtts_launch_decode_step(const QttsStepWeights& w, const QttsStepScratch& s,
                             const float* x_in, float* x, void* k_cache, void* v_cache,
@@ -286,11 +84,14 @@ int qtts_launch_decode_step(const QttsStepWeights& w, const QttsStepScratch& s,
                                                w.wqkv + (size_t)l * A * H,
                                                w.sqkv + (size_t)l * A, s.qkv, A, H, st)));
     if (cache_bf16) {
-      QTTS_TRY(launch_attention(w, s, l, static_cast<__nv_bfloat16*>(k_cache),
-                                static_cast<__nv_bfloat16*>(v_cache), T, pos, n_splits, st));
+      QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.attn,
+                                     static_cast<__nv_bfloat16*>(k_cache),
+                                     static_cast<__nv_bfloat16*>(v_cache), 1, T, nullptr, pos,
+                                     n_splits, st));
     } else {
-      QTTS_TRY(launch_attention(w, s, l, static_cast<float*>(k_cache),
-                                static_cast<float*>(v_cache), T, pos, n_splits, st));
+      QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.attn,
+                                     static_cast<float*>(k_cache), static_cast<float*>(v_cache),
+                                     1, T, nullptr, pos, n_splits, st));
     }
     QTTS_TRY((launch_gemv<QTTS_IN_PLAIN, true>(s.attn, nullptr, 0.f,
                                                w.wo + (size_t)l * H * qd,

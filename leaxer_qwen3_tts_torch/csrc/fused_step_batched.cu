@@ -1,0 +1,240 @@
+// Kernel K4: one decode step of B = 1..32 streams through every layer of a
+// GQA transformer, each stream at its own position (the continuous pool's
+// slots fill at different rates), with each weight row read once for all B.
+//
+// Replaces leaxer_qwen3_tts_tpu/ops/fused_step.py::fused_decode_step_batched
+// (_make_kernel_batched, modes "bvmem" and "bwin").  Row b computes exactly
+// what kernel K1 computes for it, op for op and in the same order, so a row
+// of K4 equals K1 on that row bit for bit:
+//   h = RMSNorm(x) * attn_norm;  qkv = (bf16(h) @ bf16(W)) * scale  (f32)
+//   per-head QK-norm, RoPE at pos[b], K/V written at slot pos[b] of row b,
+//   attention over slots 0..pos[b]; x += bf16(attn) @ Wo * scale;
+//   h = RMSNorm(x) * mlp_norm; x += bf16(silu(gate) * up) @ Wd * scale.
+// Positions come from a device array (clamped to T-1, as the JAX wrapper
+// clamps them: an idle slot keeps stepping), so a pool chunk needs no host
+// sync; the attention grid covers every split of the bucket and a split past
+// a row's position exits at once.  The TPU's window alignment gate is not
+// carried over: the split attention takes any bucket.
+//
+// Per layer: a row kernel turns the GEMV input into bf16 once per row (the
+// values K1's in-block prologue computes), and the batched GEMV stages it in
+// shared memory 512 columns at a time -- B x 512 bf16, 32 KB at B = 32, where
+// K1's whole-vector float32 staging would need B x 3072 x 4 = 384 KB for the
+// down projection, beyond the 227 KB a Hopper block can have.  Each lane
+// keeps 2 x B float32 accumulators (B rounded up to 4, 8, 16 or 32).
+//
+// What bounds it on the H100: still the int8 weight bytes, 440 MB per step
+// of the 0.6B talker, now shared by B streams (0.13 ms at the 3.35 TB/s of an
+// H100 SXM, NVIDIA data sheet), plus the staged activations, B x K x 2 bytes
+// per 16 output rows, read from L2.  What this simple design leaves on the
+// table: nine launches per layer with the activation round-tripping through
+// global memory, no cp.async / TMA pipeline for the weight stream, the
+// per-lane accumulators of a B = 32 tile held whatever B is within it, and no
+// persistent kernel or CUDA graph.
+
+#include "qtts_kernels.cuh"
+
+namespace {
+
+constexpr int QTTS_BGEMV_KT = 512;  // input columns staged per tile: 32 lanes x 16
+
+// Grid B, QTTS_GEMV_THREADS threads: out[b, :K] = bf16(transform(in[b])).
+// The same block size and reduction as K1's prologue, hence the same values.
+template <int IN_MODE>
+__global__ void __launch_bounds__(QTTS_GEMV_THREADS)
+prep_rows_kernel(const float* __restrict__ in, int ld_in, const float* __restrict__ norm_w,
+                 float eps, int K, __nv_bfloat16* __restrict__ out) {
+  in += (size_t)blockIdx.x * ld_in;
+  out += (size_t)blockIdx.x * K;
+  const float r = qtts_prep_scale<IN_MODE>(in, eps, K);
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    out[k] = __float2bfloat16_rn(qtts_prep_value<IN_MODE>(in, norm_w, r, K, k));
+  }
+}
+
+__device__ __forceinline__ void unpack_bf16x8(const int4 v, float* o) {
+  const uint32_t words[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z, (uint32_t)v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    o[2 * q] = __uint_as_float(words[q] << 16);
+    o[2 * q + 1] = __uint_as_float(words[q] & 0xffff0000u);
+  }
+}
+
+// Grid ceil(N / QTTS_GEMV_ROWS), QTTS_GEMV_THREADS threads.  Warp w of block
+// x owns output rows n0 = x*ROWS + w*RPW .. n0+RPW-1 for all B inputs; lane i
+// takes columns k0 = i*16 + t*512 of tile t, in the order K1's
+// qtts_gemv_rows takes them, so each (n, b) sum is K1's sum.
+template <int BM, bool ACCUM>
+__global__ void __launch_bounds__(QTTS_GEMV_THREADS)
+gemv_rows_kernel(const __nv_bfloat16* __restrict__ in, const int8_t* __restrict__ W,
+                 const float* __restrict__ scale, float* __restrict__ out, int ldo, int B,
+                 int N, int K) {
+  __shared__ __align__(16) __nv_bfloat16 sh[BM * QTTS_BGEMV_KT];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * QTTS_GEMV_ROWS + warp * QTTS_GEMV_RPW;
+  float acc[QTTS_GEMV_RPW][BM];
+#pragma unroll
+  for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
+#pragma unroll
+    for (int b = 0; b < BM; ++b) acc[r][b] = 0.f;
+  }
+  for (int kt = 0; kt < K; kt += QTTS_BGEMV_KT) {
+    const int k0 = kt + lane * 16;
+    // the weight loads go out before the tile is staged
+    int4 wv[QTTS_GEMV_RPW];
+#pragma unroll
+    for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
+      const int n = n0 + r;
+      wv[r] = (n < N && k0 < K) ? __ldg(reinterpret_cast<const int4*>(W + (size_t)n * K + k0))
+                                : make_int4(0, 0, 0, 0);
+    }
+    const int chunks = min(QTTS_BGEMV_KT, K - kt) / 8;  // int4 = 8 bf16
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < B * chunks; i += blockDim.x) {
+      const int b = i / chunks, c = i - b * chunks;
+      *reinterpret_cast<int4*>(sh + b * QTTS_BGEMV_KT + c * 8) =
+          *reinterpret_cast<const int4*>(in + (size_t)b * K + kt + c * 8);
+    }
+    __syncthreads();
+    if (k0 >= K) continue;
+#pragma unroll
+    for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
+      if (n0 + r >= N) continue;
+      const uint32_t words[4] = {(uint32_t)wv[r].x, (uint32_t)wv[r].y, (uint32_t)wv[r].z,
+                                 (uint32_t)wv[r].w};
+      float wf[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wf[q * 4 + e] = (float)(int8_t)(uint8_t)(words[q] >> (8 * e));
+      }
+#pragma unroll
+      for (int b = 0; b < BM; ++b) {
+        if (b < B) {
+          const int4* hp = reinterpret_cast<const int4*>(sh + b * QTTS_BGEMV_KT + lane * 16);
+          float hv[16];
+          unpack_bf16x8(hp[0], hv);
+          unpack_bf16x8(hp[1], hv + 8);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[r][b] = fmaf(hv[e], wf[e], acc[r][b]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
+    const int n = n0 + r;
+#pragma unroll
+    for (int b = 0; b < BM; ++b) {
+      if (b < B) {
+        const float v = qtts_warp_reduce(acc[r][b], QttsSumF());
+        if (lane == b && n < N) qtts_gemv_store<ACCUM>(out + (size_t)b * ldo + n, v, scale[n]);
+      }
+    }
+  }
+}
+
+template <bool ACCUM>
+cudaError_t launch_gemv_rows(const __nv_bfloat16* in, const int8_t* W, const float* scale,
+                             float* out, int ldo, int B, int N, int K, cudaStream_t st) {
+  const int grid = (N + QTTS_GEMV_ROWS - 1) / QTTS_GEMV_ROWS;
+  if (B <= 4) {
+    gemv_rows_kernel<4, ACCUM><<<grid, QTTS_GEMV_THREADS, 0, st>>>(in, W, scale, out, ldo, B, N, K);
+  } else if (B <= 8) {
+    gemv_rows_kernel<8, ACCUM><<<grid, QTTS_GEMV_THREADS, 0, st>>>(in, W, scale, out, ldo, B, N, K);
+  } else if (B <= 16) {
+    gemv_rows_kernel<16, ACCUM><<<grid, QTTS_GEMV_THREADS, 0, st>>>(in, W, scale, out, ldo, B, N,
+                                                                    K);
+  } else {
+    gemv_rows_kernel<32, ACCUM><<<grid, QTTS_GEMV_THREADS, 0, st>>>(in, W, scale, out, ldo, B, N,
+                                                                    K);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+int qtts_launch_prep_rows(int in_mode, const float* in, int ld_in, const float* norm_w,
+                          float eps, int K, __nv_bfloat16* out, int B, cudaStream_t st) {
+  if (B < 1 || B > QTTS_MAX_BATCH) return (int)cudaErrorInvalidValue;
+  if (in_mode == QTTS_IN_NORM) {
+    prep_rows_kernel<QTTS_IN_NORM><<<B, QTTS_GEMV_THREADS, 0, st>>>(in, ld_in, norm_w, eps, K, out);
+  } else if (in_mode == QTTS_IN_PLAIN) {
+    prep_rows_kernel<QTTS_IN_PLAIN><<<B, QTTS_GEMV_THREADS, 0, st>>>(in, ld_in, norm_w, eps, K,
+                                                                     out);
+  } else {
+    prep_rows_kernel<QTTS_IN_SILU><<<B, QTTS_GEMV_THREADS, 0, st>>>(in, ld_in, norm_w, eps, K, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int qtts_launch_gemv_rows(const __nv_bfloat16* in, const int8_t* W, const float* scale,
+                          float* out, int ldo, int B, int N, int K, int accum, cudaStream_t st) {
+  if (K % 16 != 0 || B < 1 || B > QTTS_MAX_BATCH) return (int)cudaErrorInvalidValue;
+  return (int)(accum ? launch_gemv_rows<true>(in, W, scale, out, ldo, B, N, K, st)
+                     : launch_gemv_rows<false>(in, W, scale, out, ldo, B, N, K, st));
+}
+
+int qtts_launch_decode_step_batched(const QttsStepWeights& w, const QttsBatchScratch& s,
+                                    const float* x_in, float* x, void* k_cache, void* v_cache,
+                                    int cache_bf16, int B, int T, const int64_t* pos_dev,
+                                    int pos_host, cudaStream_t st) {
+  if (w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B < 1 || B > QTTS_MAX_BATCH || T < 1) return (int)cudaErrorInvalidValue;
+  if (pos_dev == nullptr && (pos_host < 0 || pos_host >= T)) return (int)cudaErrorInvalidValue;
+  // device positions: every split of the bucket; a host position: its own
+  const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
+                               : pos_host / QTTS_ATTN_CHUNK + 1;
+  if (n_splits > s.max_splits) return (int)cudaErrorInvalidValue;
+  const int H = w.H, I = w.I, qd = w.nq * w.D, A = qd + 2 * w.nk * w.D;
+  if (x_in != x) {
+    QTTS_TRY(cudaMemcpyAsync(x, x_in, (size_t)B * H * sizeof(float), cudaMemcpyDeviceToDevice,
+                             st));
+  }
+  for (int l = 0; l < w.L; ++l) {
+    QTTS_TRY((cudaError_t)qtts_launch_prep_rows(QTTS_IN_NORM, x, H, w.attn_norm + (size_t)l * H,
+                                                w.eps, H, s.hb, B, st));
+    QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wqkv + (size_t)l * A * H,
+                                                w.sqkv + (size_t)l * A, s.qkv, A, B, A, H, 0,
+                                                st));
+    if (cache_bf16) {
+      QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.hb,
+                                     static_cast<__nv_bfloat16*>(k_cache),
+                                     static_cast<__nv_bfloat16*>(v_cache), B, T, pos_dev,
+                                     pos_host, n_splits, st));
+    } else {
+      QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.hb,
+                                     static_cast<float*>(k_cache), static_cast<float*>(v_cache),
+                                     B, T, pos_dev, pos_host, n_splits, st));
+    }
+    QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wo + (size_t)l * H * qd,
+                                                w.so + (size_t)l * H, x, H, B, H, qd, 1, st));
+    QTTS_TRY((cudaError_t)qtts_launch_prep_rows(QTTS_IN_NORM, x, H, w.mlp_norm + (size_t)l * H,
+                                                w.eps, H, s.hb, B, st));
+    QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wgu + (size_t)l * 2 * I * H,
+                                                w.sgu + (size_t)l * 2 * I, s.gu, 2 * I, B,
+                                                2 * I, H, 0, st));
+    QTTS_TRY((cudaError_t)qtts_launch_prep_rows(QTTS_IN_SILU, s.gu, 2 * I, nullptr, 0.f, I,
+                                                s.hb, B, st));
+    QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wd + (size_t)l * H * I,
+                                                w.sd + (size_t)l * H, x, H, B, H, I, 1, st));
+  }
+  return (int)cudaSuccess;
+}
+
+extern "C" {
+
+// Kernel K4 entry: x_out [B, H] = decode_step(x_in) with the caches updated in
+// place; pos_dev [B] int64 on the device, or null for every row at pos_host.
+int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
+                             const float* x_in, float* x_out, void* k_cache, void* v_cache,
+                             int cache_bf16, int B, int T, const int64_t* pos_dev, int pos_host,
+                             void* stream) {
+  return qtts_launch_decode_step_batched(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, B, T,
+                                         pos_dev, pos_host, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -63,10 +63,54 @@ struct QttsChainArgs {
   int32_t greedy;
 };
 
+// Device scratch of one batched decode step (kernel K4, fused_step_batched.cu).
+struct QttsBatchScratch {
+  float* qkv;          // [B, A]
+  float* gu;           // [B, 2I]
+  float* part;         // [B, nq, max_splits, D + 2]: split-softmax partials
+  __nv_bfloat16* hb;   // [B, max(H, nq*D, I)]: the bf16 input of the next GEMV
+  int32_t max_splits;
+};
+
+constexpr int QTTS_MAX_BATCH = 32;  // rows K4 and K5 take
+
+// Arguments of the batched chain entry (kernel K5, fused_mtp_batched.cu).
+// The per-row knobs travel by value, so a call copies nothing to the device.
+struct QttsChainBatchArgs {
+  const float* final_norm;      // [H]
+  const int8_t* heads;          // [n, V, H]
+  const float* head_scales;     // [n, V]
+  const __nv_bfloat16* tables;  // [n, Vt, H]
+  const float* noise;           // Gumbel noise, step j row b at j*step + b*row
+  int64_t noise_step_stride;
+  int64_t noise_row_stride;
+  const float* last_hidden;     // [B, H] prefix token 0
+  const float* code0_embed;     // [B, H] prefix token 1
+  int32_t* subcodes;            // [B, n] out
+  float* sub_sum;               // [B, H] out
+  float* x;                     // [B, H] trunk residual stream
+  float* x_in;                  // [B, H] next trunk input (sampled embeddings)
+  float* logits;                // [B, V] head logits
+  void* k_cache;                // [L, B, nk, n + 2, D] cache dtype
+  void* v_cache;
+  int32_t cache_bf16, B, n, V, Vt;
+  float temperature[QTTS_MAX_BATCH];  // max(temperature, 1e-6) per row
+  int32_t top_k[QTTS_MAX_BATCH];
+  float top_p[QTTS_MAX_BATCH];
+  int32_t greedy[QTTS_MAX_BATCH];
+};
+
 constexpr int QTTS_ATTN_D = 128;      // head_dim the attention kernel takes
 constexpr int QTTS_ATTN_CHUNK = 64;   // cache slots per attention split
 constexpr int QTTS_ATTN_MAX_G = 8;    // max q heads per kv head
 constexpr float QTTS_NEG_INF = -1e30f;
+
+// Returns the CUDA error code of expr from the enclosing function if it failed.
+#define QTTS_TRY(expr)                     \
+  do {                                     \
+    const cudaError_t e_ = (expr);         \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
 
 // One decode step through all L layers (fused_step.cu).  x_in is copied to
 // x first; x then carries the float32 residual stream and ends pre-final-norm.
@@ -74,6 +118,26 @@ int qtts_launch_decode_step(const QttsStepWeights& w, const QttsStepScratch& s,
                             const float* x_in, float* x, void* k_cache,
                             void* v_cache, int cache_bf16, int T, int pos,
                             cudaStream_t stream);
+
+// One decode step of B rows (fused_step_batched.cu), the cache [L, B, nk, T, D].
+// Row b sits at position min(pos_dev[b], T - 1) when pos_dev is given (a device
+// array), else every row at pos_host.  Row b's arithmetic is K1's, op for op.
+int qtts_launch_decode_step_batched(const QttsStepWeights& w, const QttsBatchScratch& s,
+                                    const float* x_in, float* x, void* k_cache,
+                                    void* v_cache, int cache_bf16, int B, int T,
+                                    const int64_t* pos_dev, int pos_host,
+                                    cudaStream_t stream);
+
+// out[b, :K] = bf16(transform(in[b])) for b < B (fused_step_batched.cu); the
+// transform IN_MODE as in qtts_gemv_prologue, in rows of ld_in floats.
+int qtts_launch_prep_rows(int in_mode, const float* in, int ld_in, const float* norm_w,
+                          float eps, int K, __nv_bfloat16* out, int B, cudaStream_t stream);
+
+// out[b, n] (+)= scale[n] * sum_k in[b, k] * W[n, k] for b < B, n < N: the
+// batched GEMV (fused_step_batched.cu); in [B, K] bf16, out rows ldo apart.
+int qtts_launch_gemv_rows(const __nv_bfloat16* in, const int8_t* W, const float* scale,
+                          float* out, int ldo, int B, int N, int K, int accum,
+                          cudaStream_t stream);
 
 // ---------------------------------------------------------------------------
 // Device helpers
@@ -168,35 +232,55 @@ static __device__ __forceinline__ int qtts_block_argmax_first(const float* x, in
 
 enum { QTTS_IN_NORM = 0, QTTS_IN_PLAIN = 1, QTTS_IN_SILU = 2 };
 
-// Loads a GEMV input vector into shared memory as bf16-rounded float32 (the
-// lhs rounding of the reference's bf16 x bf16 -> f32 unit product):
+// The GEMV input transform, in two parts so that K1's in-block prologue and
+// K4's row kernel compute the same values op for op:
 //   IN_NORM:  RMSNorm(in) * norm_w          (in: [K])
 //   IN_PLAIN: in                            (in: [K])
 //   IN_SILU:  silu(in[:K]) * in[K:2K]       (in: [2K], gate | up)
+// qtts_prep_scale is block-wide (every thread calls it): the RMS factor.
+template <int IN_MODE>
+static __device__ __forceinline__ float qtts_prep_scale(const float* __restrict__ in,
+                                                        float eps, int K) {
+  if (IN_MODE != QTTS_IN_NORM) return 0.f;
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const float v = in[k];
+    ss += v * v;
+  }
+  ss = qtts_block_reduce(ss, QttsSumF());
+  return rsqrtf(ss / (float)K + eps);
+}
+
+template <int IN_MODE>
+static __device__ __forceinline__ float qtts_prep_value(const float* __restrict__ in,
+                                                        const float* __restrict__ norm_w,
+                                                        float r, int K, int k) {
+  if (IN_MODE == QTTS_IN_NORM) return (in[k] * r) * norm_w[k];
+  if (IN_MODE == QTTS_IN_PLAIN) return in[k];
+  const float g = in[k];
+  const float u = in[K + k];
+  return g * (1.f / (1.f + expf(-g))) * u;
+}
+
+// Loads a GEMV input vector into shared memory as bf16-rounded float32 (the
+// lhs rounding of the reference's bf16 x bf16 -> f32 unit product).
 template <int IN_MODE>
 static __device__ __forceinline__ void qtts_gemv_prologue(
     const float* __restrict__ in, const float* __restrict__ norm_w, float eps,
     int K, float* sh) {
-  const int tid = threadIdx.x;
-  if (IN_MODE == QTTS_IN_NORM) {
-    float ss = 0.f;
-    for (int k = tid; k < K; k += blockDim.x) {
-      const float v = in[k];
-      ss += v * v;
-    }
-    ss = qtts_block_reduce(ss, QttsSumF());
-    const float r = rsqrtf(ss / (float)K + eps);
-    for (int k = tid; k < K; k += blockDim.x) sh[k] = qtts_bf16_round((in[k] * r) * norm_w[k]);
-  } else if (IN_MODE == QTTS_IN_PLAIN) {
-    for (int k = tid; k < K; k += blockDim.x) sh[k] = qtts_bf16_round(in[k]);
-  } else {
-    for (int k = tid; k < K; k += blockDim.x) {
-      const float g = in[k];
-      const float u = in[K + k];
-      sh[k] = qtts_bf16_round(g * (1.f / (1.f + expf(-g))) * u);
-    }
+  const float r = qtts_prep_scale<IN_MODE>(in, eps, K);
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    sh[k] = qtts_bf16_round(qtts_prep_value<IN_MODE>(in, norm_w, r, K, k));
   }
   __syncthreads();
+}
+
+// The GEMV epilogue: out (+)= acc * scale, rounded as the plain version's
+// separate product and sum (no fused multiply-add).
+template <bool ACCUM>
+static __device__ __forceinline__ void qtts_gemv_store(float* out, float acc, float scale) {
+  const float v = __fmul_rn(acc, scale);
+  *out = ACCUM ? __fadd_rn(*out, v) : v;
 }
 
 constexpr int QTTS_GEMV_THREADS = 256;
@@ -242,4 +326,305 @@ static __device__ __forceinline__ void qtts_gemv_rows(
   }
 #pragma unroll
   for (int r = 0; r < QTTS_GEMV_RPW; ++r) acc[r] = qtts_warp_reduce(acc[r], QttsSumF());
+}
+
+// ---------------------------------------------------------------------------
+// Split attention of one decode step, shared by K1 (one row, host position)
+// and K4 (B rows, per-row device positions).  Internal linkage: each
+// translation unit that launches them keeps its own copy.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <typename CT>
+__device__ __forceinline__ CT qtts_to_cache(float x);
+template <>
+__device__ __forceinline__ float qtts_to_cache<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 qtts_to_cache<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float qtts_from_cache(float x) { return x; }
+__device__ __forceinline__ float qtts_from_cache(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void qtts_load4(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void qtts_load4(const __nv_bfloat16* p, float (&o)[4]) {
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(p);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p + 2);
+  const float2 fa = __bfloat1622float2(a);
+  const float2 fb = __bfloat1622float2(b);
+  o[0] = fa.x; o[1] = fa.y; o[2] = fb.x; o[3] = fb.y;
+}
+
+// Position of row b: the device array's entry clamped into [0, T) (an idle
+// pool slot keeps stepping past the end; the JAX wrapper clamps likewise),
+// else the host position.
+__device__ __forceinline__ int qtts_row_pos(const int64_t* pos_dev, int pos_host, int b, int T) {
+  if (pos_dev == nullptr) return pos_host;
+  const int64_t p = pos_dev[b];
+  return p < 0 ? 0 : (p >= T ? T - 1 : (int)p);
+}
+
+// Grid (nk, n_splits, B), QTTS_ATTN_D threads.  Block (h, s, b) normalises and
+// rotates kv head h's q heads and k of row b, takes slots
+// [s*CHUNK, min((s+1)*CHUNK, pos+1)) and writes the split's softmax partials.
+// The new slot's k/v come from registers (rounded to the cache dtype, so they
+// equal what the cache holds); split 0 alone writes them to the cache, and no
+// block reads slot pos from memory, so the write never races a read.  A split
+// past the row's position returns at once (the combine never reads it).
+template <typename CT>
+__global__ void __launch_bounds__(QTTS_ATTN_D)
+qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
+                       const float* __restrict__ q_norm, const float* __restrict__ k_norm,
+                       const float* __restrict__ inv_freq, CT* __restrict__ kc,
+                       CT* __restrict__ vc, size_t cache_row, float* __restrict__ part,
+                       int nq, int nk, int T, const int64_t* __restrict__ pos_dev,
+                       int pos_host, int max_splits, float eps, float scale) {
+  constexpr int D = QTTS_ATTN_D;
+  constexpr int G = QTTS_ATTN_MAX_G;
+  __shared__ float q_s[G][D];
+  __shared__ float k_s[D];
+  __shared__ float v_s[D];
+  __shared__ float wm[4][G];
+  __shared__ float wl[4][G];
+  __shared__ float wacc[4][G][D];
+
+  const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
+  const int pos = qtts_row_pos(pos_dev, pos_host, b, T);
+  if (split * QTTS_ATTN_CHUNK > pos) return;
+  qkv += (size_t)b * qkv_ld;
+  kc += (size_t)b * cache_row;
+  vc += (size_t)b * cache_row;
+  part += (size_t)b * nq * max_splits * (D + 2);
+  const int g = nq / nk;
+  const int qd = nq * D, kvd = nk * D;
+
+  for (int gi = 0; gi < g; ++gi) {
+    const float v = qkv[(h * g + gi) * D + t];
+    const float ss = qtts_block_reduce(v * v, QttsSumF());
+    const float r = rsqrtf(ss / (float)D + eps);
+    q_s[gi][t] = (v * r) * q_norm[t];
+  }
+  {
+    const float kv = qkv[qd + h * D + t];
+    const float ss = qtts_block_reduce(kv * kv, QttsSumF());
+    const float r = rsqrtf(ss / (float)D + eps);
+    k_s[t] = (kv * r) * k_norm[t];
+    v_s[t] = qkv[qd + kvd + h * D + t];
+  }
+  __syncthreads();
+  if (t < D / 2) {
+    const float ang = (float)pos * inv_freq[t];
+    const float c = cosf(ang), s = sinf(ang);
+    for (int gi = 0; gi < g; ++gi) {
+      const float x1 = q_s[gi][t], x2 = q_s[gi][t + D / 2];
+      q_s[gi][t] = x1 * c - x2 * s;
+      q_s[gi][t + D / 2] = x2 * c + x1 * s;
+    }
+    const float x1 = k_s[t], x2 = k_s[t + D / 2];
+    k_s[t] = x1 * c - x2 * s;
+    k_s[t + D / 2] = x2 * c + x1 * s;
+  }
+  __syncthreads();
+  {
+    const CT kq = qtts_to_cache<CT>(k_s[t]);
+    const CT vq = qtts_to_cache<CT>(v_s[t]);
+    k_s[t] = qtts_from_cache(kq);
+    v_s[t] = qtts_from_cache(vq);
+    if (split == 0) {
+      kc[((size_t)h * T + pos) * D + t] = kq;
+      vc[((size_t)h * T + pos) * D + t] = vq;
+    }
+  }
+  __syncthreads();
+
+  const int warp = t >> 5, lane = t & 31;
+  float qr[G][4];
+  float m[G], l[G], acc[G][4];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    m[gi] = QTTS_NEG_INF;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[gi][e] = 0.f;
+      qr[gi][e] = gi < g ? q_s[gi][lane * 4 + e] : 0.f;
+    }
+  }
+  const int start = split * QTTS_ATTN_CHUNK;
+  const int end = min(start + QTTS_ATTN_CHUNK, pos + 1);
+  for (int j = start + warp; j < end; j += 4) {
+    float kf[4], vf[4];
+    if (j == pos) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        kf[e] = k_s[lane * 4 + e];
+        vf[e] = v_s[lane * 4 + e];
+      }
+    } else {
+      qtts_load4(kc + ((size_t)h * T + j) * D + lane * 4, kf);
+      qtts_load4(vc + ((size_t)h * T + j) * D + lane * 4, vf);
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi < g) {
+        float d = qr[gi][0] * kf[0] + qr[gi][1] * kf[1] + qr[gi][2] * kf[2] + qr[gi][3] * kf[3];
+        d = qtts_warp_reduce(d, QttsSumF());
+        const float sc = d * scale;
+        const float mn = fmaxf(m[gi], sc);
+        const float alpha = expf(m[gi] - mn);
+        const float p = expf(sc - mn);
+        l[gi] = l[gi] * alpha + p;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[gi][e] = acc[gi][e] * alpha + p * vf[e];
+        m[gi] = mn;
+      }
+    }
+  }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi < g) {
+      if (lane == 0) {
+        wm[warp][gi] = m[gi];
+        wl[warp][gi] = l[gi];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) wacc[warp][gi][lane * 4 + e] = acc[gi][e];
+    }
+  }
+  __syncthreads();
+  for (int gi = 0; gi < g; ++gi) {
+    float M = wm[0][gi];
+    for (int w = 1; w < 4; ++w) M = fmaxf(M, wm[w][gi]);
+    float L = 0.f, o = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      const float f = expf(wm[w][gi] - M);
+      L += wl[w][gi] * f;
+      o += wacc[w][gi][t] * f;
+    }
+    float* dst = part + ((size_t)(h * g + gi) * max_splits + split) * (D + 2);
+    if (t == 0) {
+      dst[0] = M;
+      dst[1] = L;
+    }
+    dst[2 + t] = o;
+  }
+}
+
+__device__ __forceinline__ void qtts_store_attn(float* p, float v) { *p = v; }
+__device__ __forceinline__ void qtts_store_attn(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Grid (nq, B), QTTS_ATTN_D threads: merges row b's partials of q head hq
+// into attn[b, hq*D:(hq+1)*D] (float32 for K1's prologue, bf16 for K4's GEMV).
+template <typename OT>
+__global__ void __launch_bounds__(QTTS_ATTN_D)
+qtts_attn_combine_kernel(const float* __restrict__ part, OT* __restrict__ attn, int nq,
+                         int max_splits, int T, const int64_t* __restrict__ pos_dev,
+                         int pos_host) {
+  constexpr int D = QTTS_ATTN_D;
+  const int hq = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const int n_splits = qtts_row_pos(pos_dev, pos_host, b, T) / QTTS_ATTN_CHUNK + 1;
+  const float* base = part + ((size_t)b * nq + hq) * max_splits * (D + 2);
+  float M = QTTS_NEG_INF;
+  for (int s = 0; s < n_splits; ++s) M = fmaxf(M, base[s * (D + 2)]);
+  float L = 0.f, o = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const float f = expf(base[s * (D + 2)] - M);
+    L += base[s * (D + 2) + 1] * f;
+    o += base[s * (D + 2) + 2 + t] * f;
+  }
+  qtts_store_attn(attn + ((size_t)b * nq + hq) * D + t, o / L);
+}
+
+// Launches the split attention and the combine of layer l for B rows.
+template <typename CT, typename OT>
+cudaError_t qtts_launch_attention(const QttsStepWeights& w, int l, const float* qkv,
+                                  float* part, int max_splits, OT* attn, CT* kc, CT* vc,
+                                  int B, int T, const int64_t* pos_dev, int pos_host,
+                                  int n_splits, cudaStream_t st) {
+  const size_t row = (size_t)w.nk * T * w.D;
+  const int A = (w.nq + 2 * w.nk) * w.D;
+  qtts_attn_split_kernel<CT><<<dim3(w.nk, n_splits, B), QTTS_ATTN_D, 0, st>>>(
+      qkv, A, w.q_norm + (size_t)l * w.D, w.k_norm + (size_t)l * w.D, w.inv_freq,
+      kc + (size_t)l * B * row, vc + (size_t)l * B * row, row, part, w.nq, w.nk, T, pos_dev,
+      pos_host, max_splits, w.eps, w.attn_scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  qtts_attn_combine_kernel<OT><<<dim3(w.nq, B), QTTS_ATTN_D, 0, st>>>(
+      part, attn, w.nq, max_splits, T, pos_dev, pos_host);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The in-chain sampler (K2 and K5): one block draws one index from its row.
+// ---------------------------------------------------------------------------
+
+// Samples one index from logits lg[0..V) (in shared memory, overwritten), the
+// float32 op sequence of gumbel_topk_topp_sample.  pr: [V] shared scratch;
+// gumbel: the row's [V] noise (unread when greedy).  Block-wide.
+static __device__ int qtts_sample_index(float* lg, float* pr, int V, const float* gumbel,
+                                        float temperature, int top_k, float top_p,
+                                        int greedy) {
+  const int tid = threadIdx.x;
+  if (greedy) return qtts_block_argmax_first(lg, V);
+  for (int v = tid; v < V; v += blockDim.x) lg[v] = lg[v] / temperature;
+  __syncthreads();
+  // top-k: threshold = the top_k-th largest, by bisection (ties kept)
+  float lmin = QttsMinF::identity(), lmax = QttsMaxF::identity();
+  for (int v = tid; v < V; v += blockDim.x) {
+    lmin = fminf(lmin, lg[v]);
+    lmax = fmaxf(lmax, lg[v]);
+  }
+  float lo = qtts_block_reduce(lmin, QttsMinF());
+  float hi = qtts_block_reduce(lmax, QttsMaxF());
+  for (int it = 0; it < 40; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    int cnt = 0;
+    for (int v = tid; v < V; v += blockDim.x) cnt += lg[v] >= mid ? 1 : 0;
+    cnt = qtts_block_reduce(cnt, QttsSumI());
+    if (cnt >= top_k) lo = mid; else hi = mid;
+  }
+  const bool k_active = top_k > 0 && top_k < V;
+  for (int v = tid; v < V; v += blockDim.x) {
+    const float s = lg[v];
+    lg[v] = (s >= lo || !k_active) ? s : QTTS_NEG_INF;
+  }
+  __syncthreads();
+  // softmax of the masked logits
+  float mloc = QttsMaxF::identity();
+  for (int v = tid; v < V; v += blockDim.x) mloc = fmaxf(mloc, lg[v]);
+  const float mm = qtts_block_reduce(mloc, QttsMaxF());
+  float sloc = 0.f;
+  for (int v = tid; v < V; v += blockDim.x) {
+    const float e = expf(lg[v] - mm);
+    pr[v] = e;
+    sloc += e;
+  }
+  const float se = qtts_block_reduce(sloc, QttsSumF());
+  for (int v = tid; v < V; v += blockDim.x) pr[v] = pr[v] / se;
+  __syncthreads();
+  // top-p: keep i iff the mass of strictly larger probs is < top_p
+  float plo = 0.f, phi = 1.f;
+  for (int it = 0; it < 40; ++it) {
+    const float mid = 0.5f * (plo + phi);
+    float s = 0.f;
+    for (int v = tid; v < V; v += blockDim.x) s += pr[v] > mid ? pr[v] : 0.f;
+    s = qtts_block_reduce(s, QttsSumF());
+    if (s < top_p) phi = mid; else plo = mid;
+  }
+  const bool p_off = top_p >= 1.f;
+  for (int v = tid; v < V; v += blockDim.x) {
+    const float fin = (pr[v] > plo || p_off) ? lg[v] : QTTS_NEG_INF;
+    lg[v] = fin + gumbel[v];
+  }
+  __syncthreads();
+  return qtts_block_argmax_first(lg, V);
 }

@@ -6,10 +6,13 @@ logits from its step-indexed head; the token sampled at step j is embedded
 with the step-j table and appended for step j+1; the sum of all sub-embeddings
 feeds the next talker input.
 
-Two paths, as in the JAX package: the cached path (plain layers, a
-``sample_fn`` per step) and, for B=1 with a packed ``fused_step``, the whole
-chain as kernel K2 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`).
-There is no VMEM gate on the card: the chain takes every B=1 int8 pack.
+Three paths: the cached path (plain layers, a ``sample_fn`` per step) and,
+with a packed ``fused_step``, the whole chain as kernel K2 at B=1
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`) or as kernel
+K5 at B=2..32 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain_batched`).
+There is no VMEM gate on the card: the chains take every int8 pack.  On a
+CUDA device a chain the kernels cannot take raises; only the CPU runs the
+cached path.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..config import CodePredictorConfig
-from ..ops.fused_mtp import fused_mtp_chain, pack_heads
-from ..ops.fused_step import pack_fused_weights, supports
+from ..ops.fused_mtp import fused_mtp_chain, fused_mtp_chain_batched, pack_heads
+from ..ops.fused_step import MAX_BATCH, pack_fused_weights, supports
 from ..ops.quant import QuantizedLinear, dense
 from ..runtime.sampling import SamplingParams
 from .layers import _normal, init_kv_cache, init_transformer_params, transformer_forward
@@ -64,30 +67,37 @@ def predict_subcodes(
     last_hidden: torch.Tensor,  # [B, H]
     code0_embed: torch.Tensor,  # [B, H]
     sample_fn: Callable[[torch.Tensor, int], torch.Tensor],  # (logits [B, V], j) -> [B]
-    sp: Optional[SamplingParams] = None,  # enables the chain kernel (B=1)
-    noise_fn: Optional[Callable[[tuple], Optional[torch.Tensor]]] = None,
+    sp: Optional[SamplingParams] = None,  # enables the chain kernels
+    noise_fn: Optional[Callable[[], Optional[torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Runs the MTP loop for one frame.
 
-    ``noise_fn(shape)`` draws the chain's Gumbel noise ([n, 1, V]; None
-    under greedy decoding).  Returns (subcodes [B, n] int, sub_embed_sum
-    [B, H] in last_hidden's dtype)."""
+    ``noise_fn()`` draws the chain's Gumbel noise ([n, B, V]; None when every
+    row is greedy).  Returns (subcodes [B, n] int, sub_embed_sum [B, H] in
+    last_hidden's dtype)."""
     t = cfg.transformer
     B, H = last_hidden.shape
     if (
         cfg.impl == "fused"
         and sp is not None
         and "fused_step" in params
-        and B == 1
+        and B <= MAX_BATCH
         and cfg.head_mode == "per_step"
     ):
-        noise = None if sp.greedy else noise_fn((cfg.num_steps, 1, cfg.subcode_vocab_size))
-        subcodes, sub_sum = fused_mtp_chain(
+        noise = None if sp.greedy else noise_fn()
+        chain = fused_mtp_chain if B == 1 else fused_mtp_chain_batched
+        knobs = sp.rows(1)[0] if B == 1 else sp
+        subcodes, sub_sum = chain(
             t, params["fused_step"], params["transformer"]["final_norm"],
             params["fused_heads"], pred_embed_tables, last_hidden, code0_embed,
-            noise, sp.temperature, sp.top_k, sp.top_p, cache_dtype=t.torch_dtype,
+            noise, knobs.temperature, knobs.top_k, knobs.top_p, cache_dtype=t.torch_dtype,
         )
         return subcodes, sub_sum.to(last_hidden.dtype)
+    if last_hidden.device.type == "cuda":
+        raise RuntimeError(
+            f"MTP chain at B={B}: the chain kernels take a packed int8 trunk with per-step "
+            f"heads and 1..{MAX_BATCH} rows; the plain path does not run on the card"
+        )
 
     n = cfg.num_steps
     device = last_hidden.device

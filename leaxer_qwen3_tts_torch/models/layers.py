@@ -4,14 +4,16 @@ Port of ``leaxer_qwen3_tts_tpu/models/layers.py``.  One code path serves
 prefill and the unpacked decode step: every forward writes the new K/V into a
 preallocated head-major cache at ``cache.length`` and attends over the whole
 (masked) cache.  Unlike the JAX reference, which returns new arrays, the
-cache tensors are updated IN PLACE.  Only the uniform fill (every sequence
-at the same slot, the engine path) is ported; int8 KV caches are a later
-ROADMAP item.
+cache tensors are updated IN PLACE.  The uniform fill (every sequence at the
+same slot: the engine path) keeps one host integer as the fill level;
+``uniform_fill=False`` (the continuous pool, whose slots fill at different
+rates) keeps a [B] device tensor and writes each row at its own offset.
+int8 KV caches are a later ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -25,12 +27,13 @@ class KVCache(NamedTuple):
     """Static per-model KV cache, HEAD-MAJOR layout.
 
     k, v: [num_layers, batch, num_kv_heads, max_len, head_dim]
-    length: filled slots (uniform across the batch).
+    length: filled slots -- one host int when the fill is uniform across the
+    batch, else a [batch] int64 tensor on the cache's device.
     """
 
     k: torch.Tensor
     v: torch.Tensor
-    length: int
+    length: Union[int, torch.Tensor]
 
     @property
     def max_len(self) -> int:
@@ -50,6 +53,16 @@ def init_kv_cache(
         v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
         length=0,
     )
+
+
+def splice_kv_cache(cache: KVCache, c1: KVCache, slot: int) -> KVCache:
+    """Write the 1-stream cache ``c1`` into batch row ``slot`` of ``cache``
+    (continuous-pool admission), in place.  ``cache.length`` is the pool's
+    [B] tensor; its row takes ``c1``'s fill level."""
+    cache.k[:, slot].copy_(c1.k[:, 0])
+    cache.v[:, slot].copy_(c1.v[:, 0])
+    cache.length[slot] = c1.length  # a host int: filled on the device
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +192,7 @@ def _block(
     sin: torch.Tensor,
     k_cache: torch.Tensor,  # [B, Nk, T, D] (one layer's view; written in place)
     v_cache: torch.Tensor,
-    cache_len: int,
+    cache_len,  # host int (uniform fill) or [B, S] slot indices (per-row fill)
     attn_mask: torch.Tensor,  # [B, S, T] bool
 ) -> torch.Tensor:
     B, S, H = x.shape
@@ -196,8 +209,13 @@ def _block(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    k_cache[:, :, cache_len : cache_len + S] = k.transpose(1, 2).to(k_cache.dtype)
-    v_cache[:, :, cache_len : cache_len + S] = v.transpose(1, 2).to(v_cache.dtype)
+    if isinstance(cache_len, int):
+        k_cache[:, :, cache_len : cache_len + S] = k.transpose(1, 2).to(k_cache.dtype)
+        v_cache[:, :, cache_len : cache_len + S] = v.transpose(1, 2).to(v_cache.dtype)
+    else:
+        rows = torch.arange(B, device=x.device)[:, None]
+        k_cache[rows, :, cache_len] = k.to(k_cache.dtype)  # [B, S, nk, d]
+        v_cache[rows, :, cache_len] = v.to(v_cache.dtype)
 
     out = attend(q, k_cache, v_cache, attn_mask).reshape(B, S, nq * d)
     x = x + dense(out, p["wo"]).to(x.dtype)
@@ -213,41 +231,50 @@ def transformer_forward(
     cache: KVCache,
     valid_mask: torch.Tensor,  # [B, T] bool — cache slots that hold real tokens
     query_valid: Optional[torch.Tensor] = None,  # [B, S] bool — real (non-pad) queries
+    uniform_fill: bool = True,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
-    """Unified prefill/decode forward at uniform fill.
+    """Unified prefill/decode forward.
 
-    Writes S new tokens at cache slots [length, length+S) (in place) and lets
-    query i attend to slot t iff ``valid_mask[b, t]`` and t <= length+i.
-    Returns post-final-norm hidden states [B, S, H], the cache with its
-    length advanced by S, and the updated validity mask.
+    Writes S new tokens at cache slots [length[b], length[b]+S) (in place)
+    and lets query i attend to slot t iff ``valid_mask[b, t]`` and
+    t <= length[b]+i.  ``uniform_fill=True`` (engine paths: every row in
+    lockstep) takes ``cache.length`` as one host int; ``uniform_fill=False``
+    (the continuous pool) as a [B] device tensor, and clamps each row's write
+    into the cache as the JAX package's dynamic_update_slice does (an idle
+    slot keeps stepping).  Returns post-final-norm hidden states [B, S, H],
+    the cache with its length advanced by S, and the updated validity mask.
     """
     B, S, H = embeds.shape
     T = cache.max_len
     length = cache.length
     device = embeds.device
-    if length + S > T:
+    if uniform_fill and length + S > T:
         raise ValueError(f"cache overflow: {length} + {S} > {T} slots")
 
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
     slot_ids = torch.arange(T, device=device)
+    steps = torch.arange(S, device=device)
     if query_valid is None:
         query_valid = torch.ones((B, S), dtype=torch.bool, device=device)
-    new_slots = (slot_ids >= length) & (slot_ids < length + S)  # [T]
-    write_idx = torch.clamp(slot_ids - length, 0, S - 1)  # [T]
-    written_valid = query_valid[:, write_idx]  # [B, T]
-    valid_mask = torch.where(new_slots[None, :], written_valid, valid_mask)
+    len_col = length if uniform_fill else length.to(device)[:, None]  # int | [B, 1]
+    new_slots = (slot_ids >= len_col) & (slot_ids < len_col + S)  # [T] | [B, T]
+    write_idx = torch.clamp(slot_ids - len_col, 0, S - 1)  # [T] | [B, T]
+    written_valid = torch.gather(query_valid, 1, torch.broadcast_to(write_idx, (B, T)))
+    valid_mask = torch.where(new_slots, written_valid, valid_mask)
 
-    global_q = length + torch.arange(S, device=device)  # [S]
-    causal = slot_ids[None, None, :] <= global_q[None, :, None]  # [1, S, T]
+    global_q = len_col + steps  # [S] | [B, S]
+    causal = slot_ids <= global_q[..., None]  # [S, T] | [B, S, T]
     attn_mask = causal & valid_mask[:, None, :]
+    # where each row writes: slots [start, start + S), start clamped into the cache
+    write_at = length if uniform_fill else torch.clamp(len_col, 0, T - S) + steps
 
     x = embeds
     layers = params["layers"]
     for i in range(cfg.num_layers):
         x = _block(
             cfg, layer_params(layers, i), x, cos, sin,
-            cache.k[i], cache.v[i], length, attn_mask,
+            cache.k[i], cache.v[i], write_at, attn_mask,
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, cache._replace(length=length + S), valid_mask

@@ -1,10 +1,13 @@
 """The talker: 28-layer GQA codec-token LM (prefill + single-step decode).
 
 Port of ``leaxer_qwen3_tts_tpu/models/talker.py``.  The dispatch keeps the
-JAX shape: with a packed ``fused_step`` and B=1 the decode step is kernel K1
-(:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step`); otherwise
-the plain layers path.  The final norm and the ``lm_head`` stay outside the
-kernel, in plain PyTorch, as the JAX package left them to XLA.
+JAX shape: with a packed ``fused_step`` the decode step is kernel K1 at B=1
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step`) and kernel
+K4 at B=2..32 (:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step_batched`,
+per-row positions); otherwise the plain layers path, which runs only on the
+CPU: on a CUDA device a step the kernels cannot take raises.  The final norm
+and the ``lm_head`` stay outside the kernels, in plain PyTorch, as the JAX
+package left them to XLA.
 """
 
 from __future__ import annotations
@@ -14,7 +17,13 @@ from typing import Tuple
 import torch
 
 from ..config import TalkerConfig
-from ..ops.fused_step import fused_decode_step, pack_fused_weights, supports
+from ..ops.fused_step import (
+    MAX_BATCH,
+    fused_decode_step,
+    fused_decode_step_batched,
+    pack_fused_weights,
+    supports,
+)
 from ..ops.quant import dense
 from .layers import KVCache, _normal, init_kv_cache, init_transformer_params, rms_norm, transformer_forward
 
@@ -72,28 +81,51 @@ def talker_decode_step(
     cfg: TalkerConfig,
     params: dict,
     embed: torch.Tensor,  # [B, H] — the summed next-input embedding
-    position: int,  # RoPE position (and cache slot) of this token
+    position: torch.Tensor,  # [B] int RoPE position (and cache slot) of this token
     cache: KVCache,
     valid_mask: torch.Tensor,  # [B, T] bool
+    uniform_fill: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache, torch.Tensor]:
     """One decode step.  Returns (logits [B, V] f32, hidden [B, H], cache,
-    valid_mask).  The cache is updated in place."""
+    valid_mask).  The cache is updated in place.
+
+    ``uniform_fill`` (every row at one fill level, the engine paths): the
+    position is the cache's host fill level ``cache.length``, which the
+    kernels take as a host int.  ``uniform_fill=False`` (the continuous
+    pool): the rows' positions are the [B] device tensor ``position``, which
+    the batched kernel reads on the device."""
     B, H = embed.shape
     t = cfg.transformer
-    if cfg.decode_impl == "fused" and "fused_step" in params and B == 1:
-        x_out, _, _ = fused_decode_step(
-            t, params["fused_step"], embed, position, cache.k, cache.v
-        )
+    if cfg.decode_impl == "fused" and "fused_step" in params and B <= MAX_BATCH:
+        T = cache.max_len
+        if uniform_fill:
+            pos = min(int(cache.length), T - 1)
+        if B == 1 and uniform_fill:
+            x_out, _, _ = fused_decode_step(t, params["fused_step"], embed, pos, cache.k, cache.v)
+        else:
+            x_out, _, _ = fused_decode_step_batched(
+                t, params["fused_step"], embed, pos if uniform_fill else position,
+                cache.k, cache.v,
+            )
         hidden = rms_norm(
             x_out, params["transformer"]["final_norm"], t.rms_norm_eps
         ).to(embed.dtype)
         logits = dense(hidden, params["lm_head"])
-        valid_mask = valid_mask.clone()
-        valid_mask[:, min(position, cache.max_len - 1)] = True
+        if uniform_fill:
+            valid_mask = valid_mask.clone()
+            valid_mask[:, pos] = True
+        else:
+            slots = torch.arange(T, device=embed.device)
+            valid_mask = valid_mask | (slots[None, :] == position[:, None])
         return logits, hidden, cache._replace(length=cache.length + 1), valid_mask
-    positions = torch.full((B, 1), position, dtype=torch.long, device=embed.device)
+    if embed.device.type == "cuda":
+        raise RuntimeError(
+            f"talker decode step at B={B}: the step kernels take a packed int8 talker and "
+            f"1..{MAX_BATCH} rows; the plain layers do not run on the card"
+        )
     hidden, cache, valid_mask = transformer_forward(
-        t, params["transformer"], embed[:, None, :], positions, cache, valid_mask,
+        t, params["transformer"], embed[:, None, :], position[:, None], cache, valid_mask,
+        uniform_fill=uniform_fill,
     )
     hidden = hidden[:, 0]
     return dense(hidden, params["lm_head"]), hidden, cache, valid_mask

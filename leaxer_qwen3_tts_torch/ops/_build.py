@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, at first use, into ``build/torch_kernels/`` at the
-repository root; the file name carries a hash of the sources and flags, so a
-changed source rebuilds.  The library is loaded with ``ctypes``.  A missing
-``nvcc`` or a failed build raises: there is no fallback.
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source
+started together, and linked into one shared library with a plain C
+interface, at first use, into ``build/torch_kernels/`` at the repository
+root; the file name carries a hash of the sources and flags, so a changed
+source rebuilds.  The library is loaded with ``ctypes``.  A missing ``nvcc``
+or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("fused_step.cu", "fused_mtp.cu")
+SOURCES = ("fused_step.cu", "fused_step_batched.cu", "fused_mtp.cu", "fused_mtp_batched.cu")
 HEADERS = ("qtts_kernels.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
     "-Xptxas", "-v",
 )
 
@@ -79,6 +80,37 @@ class ChainArgs(ctypes.Structure):
     ]
 
 
+MAX_BATCH = 32  # QTTS_MAX_BATCH: the rows kernels K4 and K5 take
+
+
+class BatchScratch(ctypes.Structure):
+    """Mirror of ``QttsBatchScratch``."""
+
+    _fields_ = [
+        ("qkv", ctypes.c_void_p), ("gu", ctypes.c_void_p), ("part", ctypes.c_void_p),
+        ("hb", ctypes.c_void_p), ("max_splits", ctypes.c_int32),
+    ]
+
+
+class ChainBatchArgs(ctypes.Structure):
+    """Mirror of ``QttsChainBatchArgs``."""
+
+    _fields_ = [
+        ("final_norm", ctypes.c_void_p), ("heads", ctypes.c_void_p),
+        ("head_scales", ctypes.c_void_p), ("tables", ctypes.c_void_p),
+        ("noise", ctypes.c_void_p), ("noise_step_stride", ctypes.c_int64),
+        ("noise_row_stride", ctypes.c_int64),
+        ("last_hidden", ctypes.c_void_p), ("code0_embed", ctypes.c_void_p),
+        ("subcodes", ctypes.c_void_p), ("sub_sum", ctypes.c_void_p),
+        ("x", ctypes.c_void_p), ("x_in", ctypes.c_void_p), ("logits", ctypes.c_void_p),
+        ("k_cache", ctypes.c_void_p), ("v_cache", ctypes.c_void_p),
+        ("cache_bf16", ctypes.c_int32), ("B", ctypes.c_int32), ("n", ctypes.c_int32),
+        ("V", ctypes.c_int32), ("Vt", ctypes.c_int32),
+        ("temperature", ctypes.c_float * MAX_BATCH), ("top_k", ctypes.c_int32 * MAX_BATCH),
+        ("top_p", ctypes.c_float * MAX_BATCH), ("greedy", ctypes.c_int32 * MAX_BATCH),
+    ]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -110,16 +142,26 @@ def build() -> str:
         return path
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(path + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, path)
+    tmp = tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR)
+    try:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC_DIR, s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in runs):
+            link = [nvcc, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            runs.append((link, proc.stdout, proc.returncode))
+        with open(path + ".log", "w") as f:
+            f.write("\n".join(" ".join(c) + "\n" + out for c, out, _ in runs))
+        for c, out, rc in runs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}) on {c[-1]}:\n{out[-4000:]}")
+        os.replace(os.path.join(tmp, "lib.so"), path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return path
 
 
@@ -143,6 +185,16 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_mtp_chain.argtypes = [
                 ctypes.POINTER(StepWeights), ctypes.POINTER(StepScratch),
                 ctypes.POINTER(ChainArgs), vp,
+            ]
+            lib.qtts_decode_step_batched.restype = i32
+            lib.qtts_decode_step_batched.argtypes = [
+                ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch), vp, vp, vp, vp,
+                i32, i32, i32, vp, i32, vp,
+            ]
+            lib.qtts_mtp_chain_batched.restype = i32
+            lib.qtts_mtp_chain_batched.argtypes = [
+                ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch),
+                ctypes.POINTER(ChainBatchArgs), vp,
             ]
             _lib = lib
         return _lib

@@ -1,31 +1,43 @@
-"""Kernel K2: the whole B=1 MTP sub-code chain of one frame.
+"""Kernels K2 and K5: the whole MTP sub-code chain of one frame, for one
+stream (K2) and for a batch of 2..32 streams with per-row knobs (K5).
 
-Port of ``leaxer_qwen3_tts_tpu/ops/fused_mtp.py::fused_mtp_chain``: the
-2-token prefix (talker hidden at position 0, codec_embed(code0) at 1) and the
-15-step chain, each step a step-indexed int8 head, the in-chain sampler
-(:func:`gumbel_topk_topp_sample`) on caller-supplied Gumbel noise, and the
-embedding-row gather whose value feeds the next trunk pass and ``sub_sum``.
+Port of ``leaxer_qwen3_tts_tpu/ops/fused_mtp.py::fused_mtp_chain`` and
+``fused_mtp_chain_batched``: the 2-token prefix (talker hidden at position 0,
+codec_embed(code0) at 1) and the 15-step chain, each step a step-indexed
+int8 head, the in-chain sampler (:func:`gumbel_topk_topp_sample`) on
+caller-supplied Gumbel noise, and the embedding-row gather whose value feeds
+the next trunk pass and ``sub_sum``.
 
 A Hopper SM cannot hold the 82 MB int8 trunk the TPU kept resident in VMEM,
 so the CUDA chain (``csrc/fused_mtp.cu``) streams it: its trunk passes reuse
 kernel K1's layer kernels on the MTP pack, and one hand-written kernel per
 step does the head product, the scale, the sampler and the gather.  The
 sampled index stays in device memory; there is no host sync in the chain.
-On a CPU tensor :func:`fused_mtp_chain` runs :func:`fused_mtp_chain_reference`.
+The batched chain (``csrc/fused_mtp_batched.cu``) streams its trunk through
+kernel K4's layer kernels, reads each head row once for the batch and
+samples each row in its own block with that row's knobs.  On a CPU tensor
+:func:`fused_mtp_chain` and :func:`fused_mtp_chain_batched` run their plain
+versions, :func:`fused_mtp_chain_reference` and
+:func:`fused_mtp_chain_batched_reference`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import ctypes
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..config import TransformerConfig
 from .fused_step import (
+    MAX_BATCH,
     FusedStepWeights,
     _check_cuda_inputs,
     _gemv,
+    _gemv_rows,
     _rms,
+    batch_structs,
+    fused_decode_step_batched_reference,
     fused_decode_step_reference,
     step_structs,
 )
@@ -218,3 +230,158 @@ def fused_mtp_chain(
 
 
 fused_mtp_chain.launches = 0  # chain launches, for chip_smoke.py's path check
+
+
+# ---------------------------------------------------------------------------
+# Kernel K5: the batched chain
+# ---------------------------------------------------------------------------
+
+Knob = Union[float, int, Sequence]
+
+
+def row_knobs(temperature: Knob, top_k: Knob, top_p: Knob, B: int) -> List[Tuple[float, int, float]]:
+    """Per-row (temperature, top_k, top_p) from scalars or length-B sequences."""
+
+    def rows(v, cast):
+        if isinstance(v, (list, tuple)):
+            vals = [cast(x) for x in v]
+            if len(vals) != B:
+                raise ValueError(f"per-row knob of length {len(vals)} for {B} rows")
+            return vals
+        return [cast(v)] * B
+
+    return list(zip(rows(temperature, float), rows(top_k, int), rows(top_p, float)))
+
+
+def fused_mtp_chain_batched_reference(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    final_norm: torch.Tensor,  # [H]
+    heads: HeadPack,
+    tables: torch.Tensor,  # [n, Vt, H]
+    last_hidden: torch.Tensor,  # [B, H]
+    code0_embed: torch.Tensor,  # [B, H]
+    gumbel: Optional[torch.Tensor],  # [n, B, V] f32 (None when every row is greedy)
+    temperature: Knob,  # scalar or [B]
+    top_k: Knob,
+    top_p: Knob,
+    cache_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel K5; same contract.  Row b samples with
+    row b's knobs and noise, exactly as the B=1 chain samples."""
+    n = heads.q.shape[0]
+    B = last_hidden.shape[0]
+    knobs = row_knobs(temperature, top_k, top_p, B)
+    L, nk, d = fw.wqkv.shape[0], cfg.num_kv_heads, cfg.head_dim
+    device = last_hidden.device
+    kc = torch.zeros((L, B, nk, n + 2, d), dtype=cache_dtype, device=device)
+    vc = torch.zeros_like(kc)
+    x, _, _ = fused_decode_step_batched_reference(cfg, fw, last_hidden.float(), 0, kc, vc)
+    x, _, _ = fused_decode_step_batched_reference(cfg, fw, code0_embed.float(), 1, kc, vc)
+    fn = final_norm.float()
+    subs = []
+    ssum = torch.zeros((B, cfg.hidden_size), dtype=torch.float32, device=device)
+    for j in range(n):
+        hp = _rms(x, fn, cfg.rms_norm_eps)
+        logits = _gemv_rows(hp, heads.q[j], heads.scale[j])  # [B, V]
+        sub = torch.cat([
+            gumbel_topk_topp_sample(
+                logits[b : b + 1], None if t <= 0.0 else gumbel[j, b : b + 1], t, k, p
+            )
+            for b, (t, k, p) in enumerate(knobs)
+        ])
+        subs.append(sub)
+        emb = tables[j][sub].float()  # [B, H]
+        ssum = ssum + emb
+        if j < n - 1:
+            x, _, _ = fused_decode_step_batched_reference(cfg, fw, emb, 2 + j, kc, vc)
+    return torch.stack(subs, dim=1).to(torch.int32), ssum
+
+
+def fused_mtp_chain_batched(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    final_norm: torch.Tensor,
+    heads: HeadPack,
+    tables: torch.Tensor,
+    last_hidden: torch.Tensor,
+    code0_embed: torch.Tensor,
+    gumbel: Optional[torch.Tensor],
+    temperature: Knob,
+    top_k: Knob,
+    top_p: Knob,
+    cache_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the whole sub-code chain of B rows, prefix included.
+
+    Returns (subcodes [B, n] int32, sub_sum [B, H] float32).  The knobs are
+    host scalars or length-B sequences; ``gumbel`` ([n, B, V], any strides
+    with a contiguous last axis) may be None when every row is greedy."""
+    if last_hidden.device.type == "cpu":
+        return fused_mtp_chain_batched_reference(
+            cfg, fw, final_norm, heads, tables, last_hidden, code0_embed, gumbel,
+            temperature, top_k, top_p, cache_dtype,
+        )
+    if last_hidden.device.type != "cuda":
+        raise ValueError(f"fused_mtp_chain_batched: unsupported device {last_hidden.device}")
+    from ._build import ChainBatchArgs, check, load_kernels
+
+    n, V, H = heads.q.shape
+    B = last_hidden.shape[0]
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"fused_mtp_chain_batched takes 1..{MAX_BATCH} rows, got {B}")
+    knobs = row_knobs(temperature, top_k, top_p, B)
+    greedy = [t <= 0.0 for t, _, _ in knobs]
+    if gumbel is None and not all(greedy):
+        raise ValueError("sampled rows need Gumbel noise [n, B, V]")
+    if tables.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"embedding tables of dtype {tables.dtype}: only bf16 tables run on the card "
+            "(other dtypes: ROADMAP item K2v)"
+        )
+    device = last_hidden.device
+    T = n + 2
+    kc = torch.empty((fw.wqkv.shape[0], B, cfg.num_kv_heads, T, cfg.head_dim),
+                     dtype=cache_dtype, device=device)
+    vc = torch.empty_like(kc)
+    _check_cuda_inputs(fw, kc, vc)
+    for t in (heads.q, heads.scale, tables, final_norm):
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError("fused_mtp_chain_batched: every tensor must be contiguous and on CUDA")
+    lib = load_kernels()
+    w, s, scratch = batch_structs(cfg, fw, B, T, device)
+    buf = torch.empty(B * (3 * H + V), dtype=torch.float32, device=device)
+    x, x_in, sub_sum, logits = torch.split(buf, [B * H, B * H, B * H, B * V])
+    subs = torch.empty((B, n), dtype=torch.int32, device=device)
+    fn = final_norm.float().contiguous()
+    lh = last_hidden.float().contiguous()
+    c0 = code0_embed.float().contiguous()
+    if all(greedy):
+        noise, strides = logits, (0, 0)
+    else:
+        noise = gumbel if gumbel.dtype == torch.float32 else gumbel.float()
+        if noise.shape != (n, B, V) or noise.stride(2) != 1 or not noise.is_cuda:
+            raise ValueError("fused_mtp_chain_batched: noise must be [n, B, V] on CUDA with a "
+                             "contiguous last axis")
+        strides = (noise.stride(0), noise.stride(1))
+    pad = [0] * (MAX_BATCH - B)
+    args = ChainBatchArgs(
+        fn.data_ptr(), heads.q.data_ptr(), heads.scale.data_ptr(), tables.data_ptr(),
+        noise.data_ptr(), strides[0], strides[1], lh.data_ptr(), c0.data_ptr(),
+        subs.data_ptr(), sub_sum.data_ptr(), x.data_ptr(), x_in.data_ptr(), logits.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(), int(cache_dtype == torch.bfloat16), B, n, V,
+        tables.shape[1],
+        (ctypes.c_float * MAX_BATCH)(*[clamp_temperature(t) for t, _, _ in knobs], *pad),
+        (ctypes.c_int32 * MAX_BATCH)(*[k for _, k, _ in knobs], *pad),
+        (ctypes.c_float * MAX_BATCH)(*[p for _, _, p in knobs], *pad),
+        (ctypes.c_int32 * MAX_BATCH)(*[int(g) for g in greedy], *pad),
+    )
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fused_mtp_chain_batched.launches += 1
+    err = lib.qtts_mtp_chain_batched(w, s, args, stream)
+    check(err, "fused_mtp_chain_batched")
+    del scratch, kc, vc  # enqueued; the caching allocator orders reuse on the stream
+    return subs, sub_sum.reshape(B, H)
+
+
+fused_mtp_chain_batched.launches = 0  # chain launches, for chip_smoke.py's path check

@@ -1,20 +1,25 @@
-"""Kernel K1: the fused B=1 single-token transformer step.
+"""Kernels K1 and K4: the fused single-token transformer step, for one
+stream (K1) and for a batch of 2..32 streams at their own positions (K4).
 
-Port of ``leaxer_qwen3_tts_tpu/ops/fused_step.py::fused_decode_step``.  One
-call runs one token through all L layers: RMSNorm, the int8 qkv product,
-per-head QK-norm, rotate-half RoPE at ``pos``, the K/V write at ``pos``, GQA
-attention over slots 0..pos, wo plus the residual, RMSNorm, gate/up,
-silu(gate)*up and down plus the residual.  The residual stream stays float32
-across layers and the result is the PRE-final-norm hidden state.
+Port of ``leaxer_qwen3_tts_tpu/ops/fused_step.py::fused_decode_step`` and
+``fused_decode_step_batched``.  One call runs one token per stream through
+all L layers: RMSNorm, the int8 qkv product, per-head QK-norm, rotate-half
+RoPE at the stream's position, the K/V write there, GQA attention over slots
+0..pos, wo plus the residual, RMSNorm, gate/up, silu(gate)*up and down plus
+the residual.  The residual stream stays float32 across layers and the
+result is the PRE-final-norm hidden state.  K4 reads each weight row once
+for the whole batch, and its row b is K1's arithmetic on that row.
 
 Unlike the JAX kernel, which returns new arrays, the caches are updated IN
 PLACE (and returned for the same call shape).
 
 On a CUDA tensor :func:`fused_decode_step` launches the hand-written kernel
-(``csrc/fused_step.cu``); on a CPU tensor it runs
-:func:`fused_decode_step_reference`, the plain PyTorch version of the same
-function (bf16-rounded operands upcast to float32 before each product, which
-equals a bf16 dot with float32 accumulation).
+(``csrc/fused_step.cu``) and :func:`fused_decode_step_batched` its batched
+twin (``csrc/fused_step_batched.cu``); on a CPU tensor they run
+:func:`fused_decode_step_reference` / :func:`fused_decode_step_batched_reference`,
+the plain PyTorch versions of the same functions (bf16-rounded operands
+upcast to float32 before each product, which equals a bf16 dot with float32
+accumulation).
 
 The pack is Hopper's own layout: every matrix stored [N, K] (one output row
 with its K bytes contiguous) so the kernel streams 16-byte loads along K.  The
@@ -31,6 +36,7 @@ import torch
 
 from ..config import TransformerConfig
 from ..models.layers import rope_inv_freq
+from ._build import MAX_BATCH
 from .quant import QuantizedLinear, quantize_weight
 
 
@@ -132,9 +138,16 @@ def _gemv(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.matmul(_bf16(h), w.float().t()) * s
 
 
+def _gemv_rows(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """[B, K] -> [B, N], one :func:`_gemv` per row: the B=1 product's exact
+    values (a [B, K] matmul may take another summation order per batch size,
+    and a last-bit difference flips the bf16 rounding of the next input)."""
+    return torch.cat([_gemv(h[b : b + 1], w, s) for b in range(h.shape[0])])
+
+
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     half = x.shape[-1] // 2
-    x1, x2 = x[:, :half], x[:, half:]
+    x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
@@ -199,28 +212,33 @@ def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache) -> None:
             raise ValueError("fused_decode_step: every tensor must be contiguous and on CUDA")
 
 
+def _weights_struct(cfg: TransformerConfig, fw: FusedStepWeights):
+    from ._build import StepWeights
+
+    return StepWeights(
+        fw.wqkv.data_ptr(), fw.sqkv.data_ptr(), fw.wo.data_ptr(), fw.so.data_ptr(),
+        fw.wgu.data_ptr(), fw.sgu.data_ptr(), fw.wd.data_ptr(), fw.sd.data_ptr(),
+        fw.attn_norm.data_ptr(), fw.mlp_norm.data_ptr(), fw.q_norm.data_ptr(),
+        fw.k_norm.data_ptr(), fw.inv_freq.data_ptr(),
+        fw.wqkv.shape[0], cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        cfg.intermediate_size, cfg.rms_norm_eps, attn_scale(cfg.head_dim),
+    )
+
+
 def step_structs(cfg: TransformerConfig, fw: FusedStepWeights, T: int, device):
     """ctypes argument structs of one decode step, with the scratch tensors
     they point to (kept alive by the caller for the launch)."""
-    from ._build import StepScratch, StepWeights, load_kernels
+    from ._build import StepScratch, load_kernels
 
-    nq, nk, d, I = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.intermediate_size
+    nq, d, I = cfg.num_heads, cfg.head_dim, cfg.intermediate_size
     chunk = load_kernels().qtts_attn_chunk()
     max_splits = (T + chunk - 1) // chunk
     A = cfg.q_dim + 2 * cfg.kv_dim
     scratch = torch.empty(A + cfg.q_dim + 2 * I + nq * max_splits * (d + 2),
                           dtype=torch.float32, device=device)
     qkv, attn, gu, part = torch.split(scratch, [A, cfg.q_dim, 2 * I, nq * max_splits * (d + 2)])
-    w = StepWeights(
-        fw.wqkv.data_ptr(), fw.sqkv.data_ptr(), fw.wo.data_ptr(), fw.so.data_ptr(),
-        fw.wgu.data_ptr(), fw.sgu.data_ptr(), fw.wd.data_ptr(), fw.sd.data_ptr(),
-        fw.attn_norm.data_ptr(), fw.mlp_norm.data_ptr(), fw.q_norm.data_ptr(),
-        fw.k_norm.data_ptr(), fw.inv_freq.data_ptr(),
-        fw.wqkv.shape[0], cfg.hidden_size, nq, nk, d, I,
-        cfg.rms_norm_eps, attn_scale(d),
-    )
     s = StepScratch(qkv.data_ptr(), attn.data_ptr(), gu.data_ptr(), part.data_ptr(), max_splits)
-    return w, s, scratch
+    return _weights_struct(cfg, fw), s, scratch
 
 
 def fused_decode_step(
@@ -261,3 +279,132 @@ def fused_decode_step(
 
 
 fused_decode_step.launches = 0  # kernel launches, for chip_smoke.py's path check
+
+
+# ---------------------------------------------------------------------------
+# Kernel K4: the batched step
+# ---------------------------------------------------------------------------
+
+
+def _row_positions(pos, B: int, T: int, device) -> torch.Tensor:
+    """[B] int64 positions, clamped to the last slot like the JAX wrapper."""
+    if isinstance(pos, torch.Tensor):
+        return torch.clamp(pos.to(device=device, dtype=torch.long).reshape(B), 0, T - 1)
+    return torch.full((B,), min(int(pos), T - 1), dtype=torch.long, device=device)
+
+
+def fused_decode_step_batched_reference(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    x: torch.Tensor,  # [B, H]
+    pos,  # [B] int tensor, or one int for every row
+    k_cache: torch.Tensor,  # [L, B, nk, T, d], updated in place
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel K4; same contract.  Row b is the B=1
+    plain step on row b (its products and its attention row by row)."""
+    B = x.shape[0]
+    nq, nk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = nq // nk
+    qd, kvd, I = cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
+    eps = cfg.rms_norm_eps
+    scale = attn_scale(d)
+    T = k_cache.shape[3]
+    device = x.device
+    pos = _row_positions(pos, B, T, device)
+    angles = pos.float()[:, None] * fw.inv_freq[None, :]  # [B, d/2]
+    cos, sin = torch.cos(angles)[:, None, :], torch.sin(angles)[:, None, :]
+    rows = torch.arange(B, device=device)
+    ends = [p + 1 for p in pos.tolist()]  # each row attends over its slots 0..pos
+    x = x.float()
+    for l in range(fw.wqkv.shape[0]):
+        h = _rms(x, fw.attn_norm[l], eps)
+        qkv = _gemv_rows(h, fw.wqkv[l], fw.sqkv[l])
+        q = _rms(qkv[:, :qd].reshape(B, nq, d), fw.q_norm[l], eps)
+        k = _rms(qkv[:, qd : qd + kvd].reshape(B, nk, d), fw.k_norm[l], eps)
+        v = qkv[:, qd + kvd :].reshape(B, nk, d)
+        q = _rope(q, cos, sin)
+        k = _rope(k, cos, sin)
+        k_cache[l, rows, :, pos] = k.to(k_cache.dtype)
+        v_cache[l, rows, :, pos] = v.to(v_cache.dtype)
+        attn = []
+        for b, end in enumerate(ends):  # B=1's attention, row by row
+            K = k_cache[l, b, :, :end].float()  # [nk, end, d]
+            V = v_cache[l, b, :, :end].float()
+            scores = torch.einsum("ngd,ntd->ngt", q[b].reshape(nk, g, d), K) * scale
+            e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+            w = e / e.sum(dim=-1, keepdim=True)
+            attn.append(torch.einsum("ngt,ntd->ngd", w, V).reshape(qd))
+        x = x + _gemv_rows(torch.stack(attn), fw.wo[l], fw.so[l])
+        h = _rms(x, fw.mlp_norm[l], eps)
+        gu = _gemv_rows(h, fw.wgu[l], fw.sgu[l])
+        gate, up = gu[:, :I], gu[:, I:]
+        act = gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+        x = x + _gemv_rows(act, fw.wd[l], fw.sd[l])
+    return x, k_cache, v_cache
+
+
+def batch_structs(cfg: TransformerConfig, fw: FusedStepWeights, B: int, T: int, device):
+    """ctypes argument structs of one batched step, with the scratch tensors
+    they point to (kept alive by the caller for the launch)."""
+    from ._build import BatchScratch, load_kernels
+
+    nq, d, I, H = cfg.num_heads, cfg.head_dim, cfg.intermediate_size, cfg.hidden_size
+    chunk = load_kernels().qtts_attn_chunk()
+    max_splits = (T + chunk - 1) // chunk
+    A = cfg.q_dim + 2 * cfg.kv_dim
+    scratch = torch.empty(B * (A + 2 * I + nq * max_splits * (d + 2)),
+                          dtype=torch.float32, device=device)
+    qkv, gu, part = torch.split(scratch, [B * A, B * 2 * I, B * nq * max_splits * (d + 2)])
+    hb = torch.empty(B * max(H, cfg.q_dim, I), dtype=torch.bfloat16, device=device)
+    s = BatchScratch(qkv.data_ptr(), gu.data_ptr(), part.data_ptr(), hb.data_ptr(), max_splits)
+    return _weights_struct(cfg, fw), s, (scratch, hb)
+
+
+def fused_decode_step_batched(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    x: torch.Tensor,  # [B, H]
+    pos,  # [B] int tensor on x's device (per-row), or one int (every row)
+    k_cache: torch.Tensor,  # [L, B, nk, T, d]
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused decode step of B streams over all layers.
+
+    Returns (x_out [B, H] float32 pre-final-norm, k_cache, v_cache); the
+    caches are updated in place.  Positions past the last slot are clamped
+    to it.  A position tensor stays on the device: the kernel reads it, so
+    the step needs no host sync."""
+    B, T = x.shape[0], k_cache.shape[3]
+    if x.device.type == "cpu":
+        return fused_decode_step_batched_reference(cfg, fw, x, pos, k_cache, v_cache)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_decode_step_batched: unsupported device {x.device}")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"fused_decode_step_batched takes 1..{MAX_BATCH} rows, got {B}")
+    _check_cuda_inputs(fw, k_cache, v_cache)
+    from ._build import check, load_kernels
+
+    lib = load_kernels()
+    w, s, scratch = batch_structs(cfg, fw, B, T, x.device)
+    x_in = x.float().contiguous()
+    x_out = torch.empty((B, cfg.hidden_size), dtype=torch.float32, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        pos_dev = pos.to(dtype=torch.long).reshape(B).contiguous()
+        if pos_dev.device != x.device:
+            raise ValueError("fused_decode_step_batched: positions must be on the device")
+        pos_ptr, pos_host = pos_dev.data_ptr(), 0
+    else:
+        pos_ptr, pos_host = None, min(int(pos), T - 1)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fused_decode_step_batched.launches += 1
+    err = lib.qtts_decode_step_batched(
+        w, s, x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        int(k_cache.dtype == torch.bfloat16), B, T, pos_ptr, pos_host, stream,
+    )
+    check(err, "fused_decode_step_batched")
+    del scratch  # enqueued; the caching allocator orders reuse on the stream
+    return x_out, k_cache, v_cache
+
+
+fused_decode_step_batched.launches = 0  # kernel launches, for chip_smoke.py's path check

@@ -1,20 +1,23 @@
 """The generation loop: prefill once, then chunked decode.
 
-Port of ``leaxer_qwen3_tts_tpu/runtime/generate.py`` at B=1 (the loop is
-written for a batch, but the packed kernels take B=1).  One frame:
+Port of ``leaxer_qwen3_tts_tpu/runtime/generate.py``.  One frame:
 
     sample code0 -> MTP chain -> embed sum (+ text drip) -> talker step
 
 JAX scans ``chunk_len`` frames inside one jitted program; here a chunk is a
-Python loop that only enqueues device work: the sampled codes, the EOS latch
-and the validity flags stay on the device, and the caller syncs once per
-chunk.  Positions and step counts are host integers (the fill is uniform).
-Gumbel noise is drawn from the request's ``torch.Generator`` on the device.
+Python loop that only enqueues device work: the sampled codes, the EOS
+latch, the per-stream positions and step counts and the validity flags stay
+on the device, and the caller syncs once per chunk.  The positions ``pos``
+and steps ``step`` are [B] device tensors, as in the JAX package, so the
+continuous pool's slots can sit at different positions (``uniform_fill=
+False``) and a pool chunk needs no host sync either.  Gumbel noise is drawn
+on the device from the streams' ``torch.Generator``s: one for the batch, or
+one per stream (:class:`~leaxer_qwen3_tts_torch.runtime.sampling.NoiseSource`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -25,12 +28,15 @@ from ..models.layers import KVCache
 from ..models.talker import talker_decode_step, talker_init_cache, talker_prefill
 from .prompt import PromptBundle, build_prompt
 from .sampling import (
+    NoiseSource,
+    RowKnobs,
     SamplingParams,
-    gumbel_noise,
     make_codec_suppress_mask,
     noise_width,
     sample_token,
 )
+
+Generators = Union[None, torch.Generator, Sequence[Optional[torch.Generator]]]
 
 
 class GenerateState(NamedTuple):
@@ -38,10 +44,16 @@ class GenerateState(NamedTuple):
     valid_mask: torch.Tensor  # [B, T] bool
     last_logits: torch.Tensor  # [B, V] f32
     last_hidden: torch.Tensor  # [B, H]
-    pos: int  # RoPE position (and cache slot) of the next token
-    step: int  # frames generated so far
+    pos: torch.Tensor  # [B] int64 — RoPE position (and cache slot) of the next token
+    step: torch.Tensor  # [B] int64 — frames generated so far, PER STREAM
     done: torch.Tensor  # [B] bool — EOS latched
-    generator: Optional[torch.Generator]  # the request's noise stream
+    generators: Tuple[Optional[torch.Generator], ...]  # one for the batch, or one per row
+
+
+def _as_generators(generator: Generators) -> Tuple[Optional[torch.Generator], ...]:
+    if generator is None or isinstance(generator, torch.Generator):
+        return (generator,)
+    return tuple(generator)
 
 
 def prefill(
@@ -51,7 +63,7 @@ def prefill(
     text_len: torch.Tensor,  # [B] int
     lang_id: Optional[int],
     max_len: int,
-    generator: Optional[torch.Generator],
+    generator: Generators,  # one generator, or one per row
 ) -> Tuple[GenerateState, PromptBundle]:
     bundle = build_prompt(params["embeddings"], text_ids, text_len, lang_id)
     B, P, _ = bundle.prompt_embeds.shape
@@ -66,19 +78,19 @@ def prefill(
         valid_mask=valid,
         last_logits=last_logits,
         last_hidden=last_hidden,
-        pos=P,
-        step=0,
+        pos=torch.full((B,), P, dtype=torch.long, device=device),
+        step=torch.zeros((B,), dtype=torch.long, device=device),
         done=torch.zeros((B,), dtype=torch.bool, device=device),
-        generator=generator,
+        generators=_as_generators(generator),
     )
     return state, bundle
 
 
-def _compute_drip(step: int, trailing, trailing_len, tts_pad_embed) -> torch.Tensor:
-    """This frame's text-drip embedding [B, H]: trailing row ``step`` while
-    the text lasts, then the TTS_PAD embedding."""
-    T = trailing.shape[1]
-    drip = trailing[:, min(step, T - 1)]
+def _compute_drip(step: torch.Tensor, trailing, trailing_len, tts_pad_embed) -> torch.Tensor:
+    """This frame's text-drip embedding [B, H]: row ``step[b]`` of stream b's
+    trailing buffer while its text lasts, then the TTS_PAD embedding."""
+    B, T = trailing.shape[:2]
+    drip = trailing[torch.arange(B, device=trailing.device), torch.clamp(step, max=T - 1)]
     use_text = step < trailing_len  # [B]
     return torch.where(use_text[:, None], drip, tts_pad_embed[None, :].to(drip.dtype))
 
@@ -91,39 +103,40 @@ def _frame_step(
     trailing_len: torch.Tensor,
     tts_pad_embed: torch.Tensor,
     sp: SamplingParams,
+    knobs: RowKnobs,
     state: GenerateState,
+    uniform_fill: bool = True,
 ) -> Tuple[GenerateState, Tuple[torch.Tensor, torch.Tensor]]:
     """One 12 Hz frame.  Returns (state', (frame_codes [B, 16] int32, frame_valid [B]))."""
     emb = params["embeddings"]
     cp = cfg.code_predictor
-    B = state.last_logits.shape[0]
-    device = state.last_logits.device
-    gen = state.generator
-
-    def noise(shape):
-        return None if sp.greedy else gumbel_noise(shape, gen, device)
+    B, V = state.last_logits.shape
+    noise = NoiseSource(state.generators, state.last_logits.device)
+    rows = sp.rows(B)
 
     # --- codebook 0: suppress control tokens except EOS, sample ---
     logits = state.last_logits + suppress[None, :]
-    if sp.forbid_eos:
-        logits[:, CODEC_EOS] += -1e30
-    code0 = sample_token(logits, sp, noise((B, noise_width(logits.shape[-1], sp))))
+    if any(r.forbid_eos for r in rows):
+        logits[:, CODEC_EOS] += knobs.eos_add if sp.per_row else -1e30
+    code0 = sample_token(logits, sp, noise.draw([0 if r.greedy else noise_width(V, r)
+                                                 for r in rows]), knobs)
     is_eos = code0 == CODEC_EOS
     frame_valid = ~state.done & ~is_eos
     done = state.done | is_eos
 
     # --- codebooks 1..15 ---
     code0_embed = codec_embed(emb, code0)  # [B, H]
-    width = noise_width(cp.subcode_vocab_size, sp)
+    Vs = cp.subcode_vocab_size
+    sub_widths = [0 if r.greedy else noise_width(Vs, r) for r in rows]
     subcodes, sub_sum = predict_subcodes(
         cp,
         params["code_predictor"],
         emb["pred_embed"],
         state.last_hidden,
         code0_embed,
-        lambda lg, j: sample_token(lg, sp, noise((B, width))),
+        lambda lg, j: sample_token(lg, sp, noise.draw(sub_widths)),
         sp=sp,
-        noise_fn=noise,
+        noise_fn=lambda: noise.draw_chain(cp.num_steps, Vs, [not r.greedy for r in rows]),
     )
     frame = torch.cat([code0[:, None].to(torch.int32), subcodes.to(torch.int32)], dim=1)
     frame = torch.where(frame_valid[:, None], frame, 0)
@@ -134,6 +147,7 @@ def _frame_step(
 
     logits2, hidden2, cache, valid_mask = talker_decode_step(
         cfg.talker, params["talker"], next_embed, state.pos, state.cache, state.valid_mask,
+        uniform_fill=uniform_fill,
     )
     new_state = GenerateState(
         cache=cache,
@@ -143,7 +157,7 @@ def _frame_step(
         pos=state.pos + 1,
         step=state.step + 1,
         done=done,
-        generator=gen,
+        generators=state.generators,
     )
     return new_state, (frame, frame_valid)
 
@@ -157,14 +171,19 @@ def decode_frames(
     tts_pad_embed: torch.Tensor,
     sp: SamplingParams,
     num_frames: int,
+    uniform_fill: bool = True,
 ) -> Tuple[GenerateState, torch.Tensor, torch.Tensor]:
     """Run ``num_frames`` frames.  Returns (state, frames [B, F, 16] int32,
     valid [B, F] bool), all on the device; nothing here waits for it."""
-    suppress = make_codec_suppress_mask(cfg.talker.codec_vocab_size, state.last_logits.device)
+    device = state.last_logits.device
+    B, V = state.last_logits.shape
+    suppress = make_codec_suppress_mask(cfg.talker.codec_vocab_size, device)
+    knobs = RowKnobs.build(sp, B, V, device)  # once per chunk
     frames, valid = [], []
     for _ in range(num_frames):
         state, (frame, fv) = _frame_step(
-            cfg, params, suppress, trailing, trailing_len, tts_pad_embed, sp, state
+            cfg, params, suppress, trailing, trailing_len, tts_pad_embed, sp, knobs, state,
+            uniform_fill,
         )
         frames.append(frame)
         valid.append(fv)
@@ -184,9 +203,12 @@ def make_generate_fns(
     max_len: int,
     chunk_len: int = 32,
     lang_id: Optional[int] = None,
+    uniform_fill: bool = True,
 ) -> GenerateFns:
     """Prefill / decode-chunk callables, the shape of the JAX package's
-    ``make_generate_fns``.  ``max_len`` is the first KV-cache bucket."""
+    ``make_generate_fns``.  ``max_len`` is the first KV-cache bucket;
+    ``uniform_fill=False`` decodes a pool state whose rows sit at their own
+    positions (``cache.length`` a [B] device tensor)."""
 
     def prefill_fn(params, text_ids, text_len, generator=None):
         if text_ids.shape[0] != batch:
@@ -195,7 +217,8 @@ def make_generate_fns(
 
     def decode_fn(params, state, trailing, trailing_len, tts_pad_embed, sp):
         return decode_frames(
-            cfg, params, state, trailing, trailing_len, tts_pad_embed, sp, chunk_len
+            cfg, params, state, trailing, trailing_len, tts_pad_embed, sp, chunk_len,
+            uniform_fill,
         )
 
     return GenerateFns(prefill=prefill_fn, decode=decode_fn)

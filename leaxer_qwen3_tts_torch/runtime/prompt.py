@@ -56,6 +56,14 @@ def prompt_length(lang_id: Optional[int]) -> int:
     return 3 + (n - 2) + 2
 
 
+def tts_embeds(emb_params: dict, device) -> torch.Tensor:
+    """[3, H] text embeddings of TTS_BOS, TTS_EOS and TTS_PAD, from one
+    product: every caller (the prompt, the pool's drip fallback) then gets
+    the same values (a product's rounding may depend on its shape)."""
+    ids = torch.tensor([TTS_BOS, TTS_EOS, TTS_PAD], dtype=torch.long, device=device)
+    return text_project(emb_params, ids)
+
+
 def build_prompt(
     emb_params: dict,
     text_ids: torch.Tensor,  # [B, T] int — BPE text tokens only, right-padded
@@ -68,8 +76,7 @@ def build_prompt(
     def ids(values):
         return torch.tensor(values, dtype=torch.long, device=device)
 
-    tts = text_project(emb_params, ids([TTS_BOS, TTS_EOS, TTS_PAD]))
-    tts_bos, tts_eos, tts_pad = tts[0], tts[1], tts[2]
+    tts_bos, tts_eos, tts_pad = tts_embeds(emb_params, device)
     H = tts_bos.shape[-1]
 
     codec_ids = codec_prefill_ids(lang_id)

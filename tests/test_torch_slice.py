@@ -197,7 +197,8 @@ def test_engine_synthesize_tiny(tiny_model, tiny_vocab_files):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with neither JAX nor the JAX package."""
+    """Every module of the port, the serving layer included, imports with
+    neither JAX nor the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import leaxer_qwen3_tts_torch as p\n"
@@ -205,12 +206,17 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'leaxer_qwen3_tts_tpu'))]\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('leaxer_qwen3_tts_torch')]))\n"
+        "print(' '.join(k for k in sys.modules if k.startswith('leaxer_qwen3_tts_torch')))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
-    assert fused_step.fused_decode_step.launches == 0  # no kernel ran on the CPU
+    modules = set(out.stdout.split())
+    assert len(modules) >= 20
+    assert {"leaxer_qwen3_tts_torch.serve.pool", "leaxer_qwen3_tts_torch.serve.server"} <= modules
+    # no kernel ran on the CPU
+    assert fused_step.fused_decode_step.launches == 0
     assert fused_mtp.fused_mtp_chain.launches == 0
+    assert fused_step.fused_decode_step_batched.launches == 0
+    assert fused_mtp.fused_mtp_chain_batched.launches == 0
