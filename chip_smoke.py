@@ -18,7 +18,12 @@ prints the final line:
    and B=32 (T=512, per-row positions on both sides of a split edge, one past
    the bucket, the last slot), the MTP trunk shape at B=8, and one layer at
    B=2, 8 and 32 with both caches (24 seeded batches, the K1 limits, a third
-   of the rows tight); every row of K4 must equal K1 on it bit for bit.
+   of the rows tight); every row of K4 must equal K1 on it bit for bit.  Then
+   K6 (``fused_verify_step``): S=4 at B=1 (T=256 and 512), 8 x 3 and 4 x 8
+   rows at full depth, and S in {2, 4, 8} at B in {1, 4} on one layer with
+   both caches, starts at 0, across a split edge, at T - S and past it; the
+   K1 limits and tight share, and every row equal bit for bit to the S
+   successive K1 (B=1) or K4 steps it stands for.
 4. K2 (``fused_mtp_chain``) against its plain version at the 0.6B MTP shapes,
    greedy and sampled, on the same noise; then K5 (``fused_mtp_chain_batched``)
    at B=8 and B=32 with mixed per-row knobs (K2's margin rule for a
@@ -38,7 +43,23 @@ prints the final line:
    alone and among co-tenants; two requests through ``make_http_server``; a
    second pool runs every chunk with host syncs raising.  One K4 and one K5
    per pooled frame; K1 and K2 only for the streamed request's bootstrap.
-8. The kernel report and the device line.
+8. Speculative decoding (spec_k=4, 4 iterations per dispatch; K5 is
+   also checked and timed at the 4 rows of a B=1 iteration): greedy
+   ``synthesize`` with the repeat draft, through the adaptive fallback, and
+   with a trained-draft head (random weights) equals sequential
+   ``synthesize``; the replay draft of the greedy trajectory commits 4
+   frames every iteration with the codes equal; ms per committed frame at
+   full acceptance (``force_accept``) and with the repeat draft, beside the
+   sequential ms/frame, and a profile of one dispatch (device busy and idle
+   share, top kernels); ``synthesize_batch`` at B=4 equals sequential per
+   stream; a spec pool (8 slots x 3 candidates, 2 iterations per chunk)
+   serves 12 requests, its greedy output equals B=1 ``synthesize``, a seeded
+   request is the same alone and among co-tenants, and a second spec pool
+   runs every chunk with host syncs raising while its fallback fires.  One
+   K6 and one K5 per verify iteration; K2 for each frame 0 at B=1.
+9. The kernel report (each kernel's launches on the main paths, error
+   against its plain version, time, plain time and least-time bound) and
+   the device line.
 """
 
 from __future__ import annotations
@@ -61,20 +82,28 @@ from leaxer_qwen3_tts_torch.config import (
     LANG_ENGLISH,
     QWEN3_TTS_06B,
     SAMPLES_PER_FRAME,
+    DraftConfig,
 )
 from leaxer_qwen3_tts_torch.frontend import Tokenizer
 from leaxer_qwen3_tts_torch.frontend._bpe_py import byte_to_proxy
 from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
+from leaxer_qwen3_tts_torch.models.draft import init_draft_params
 from leaxer_qwen3_tts_torch.models.layers import init_transformer_params
 from leaxer_qwen3_tts_torch.ops import _build
 from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
 from leaxer_qwen3_tts_torch.ops import fused_step as K1
+from leaxer_qwen3_tts_torch.ops import fused_verify as K6
 from leaxer_qwen3_tts_torch.ops.quant import fuse_params, quantize_params, quantize_weight
 from leaxer_qwen3_tts_torch.runtime.prompt import prompt_length
 from leaxer_qwen3_tts_torch.runtime.sampling import (
     SamplingParams,
     gumbel_noise,
     scale_by_temperature,
+)
+from leaxer_qwen3_tts_torch.runtime.speculative import (
+    make_replay_draft,
+    make_spec_generate_fns,
+    repeat_draft,
 )
 from leaxer_qwen3_tts_torch.runtime.weights import init_params
 from leaxer_qwen3_tts_torch.serve import ContinuousBatcher, make_http_server
@@ -128,6 +157,17 @@ K5_KNOBS = ((0.0, 50, 0.9), (0.8, 50, 0.95), (1.0, 0, 1.0), (0.7, 1, 0.9))
 # noise row picks an unrelated token in most rows.
 K5_FLIP_EPS = (1e-5, 1e-4, 1e-3, 3e-3, 1e-2)
 K5_MIN_EQUAL = 0.5
+# K6 (B, S, T, starts, timing iterations) at full depth: S=4 at B=1 in two
+# buckets, 8 streams x 3 candidates (the timed shape of a spec pool), and 4 x 8
+# rows with starts across a 64-slot split edge and at T - S of the bucket
+K6_DEEP_CASES = ((1, 4, 256, [200], 20), (1, 4, 512, [300], 20),
+                 (8, 3, 512, [0, 62, 63, 64, 509, 700, 130, 5], 10),
+                 (4, 8, 512, [60, 5, 504, 200], 5))
+# K6 (B, S, starts) on one layer at T=512, under the K1 limits and tight share:
+# the first slot, rows across a split edge, the last start of the bucket,
+# and one start past it (clamped to T - S)
+K6_SHALLOW_CASES = ((1, 2, [0]), (1, 4, [62]), (1, 8, [504]), (4, 4, [0, 61, 200, 600]),
+                    (4, 8, [62, 5, 504, 130]))
 
 
 CARD = "card not read yet"  # the nvidia-smi line, printed beside every measured number
@@ -143,6 +183,47 @@ def card() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# Least-time bounds: the bytes a call must move (each input read once, each
+# output written once) over the memory rate, and its operations over the
+# bf16 tensor rate, of an H100 SXM at 700 W (NVIDIA data sheet, dense).
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms, "bytes" or "operations")."""
+    ms_bytes, ms_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
+
+
+def nbytes(tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def step_bound(t, fw, rows: int, ctx, S: int, cache_dtype):
+    """Bound of one step (S = 1: K1, K4) or verify pass (K6) of ``rows`` rows,
+    S per stream, stream b reading its ``ctx[b]`` cached slots: the packed
+    weights, those slots, the S new slots per stream and x in and out; the
+    GEMV products and each row's attention over its slots."""
+    L, nk, nq, d, H = t.num_layers, t.num_kv_heads, t.num_heads, t.head_dim, t.hidden_size
+    slot = L * 2 * nk * d * torch.finfo(cache_dtype).bits // 8
+    moved = nbytes(fw) + slot * (sum(ctx) + rows) + 2 * rows * H * 4
+    macs = sum(w.numel() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd))
+    attn = sum(c + s + 1 for c in ctx for s in range(S))  # slots each row attends to
+    return bound(moved, 2 * rows * macs + 4 * L * nq * d * attn)
+
+
+def chain_bound(t, fw, heads, rows: int):
+    """Bound of one MTP chain of ``rows`` rows (K2, K5): the trunk and the
+    heads read once, each row's 15 table rows, sub-codes and sum written; 16
+    trunk passes and 15 head products per row."""
+    n, V, H = heads.q.shape
+    moved = nbytes(fw) + nbytes(heads) + rows * (n * H * 2 + 2 * H * 4 + H * 4 + n * 4)
+    macs = sum(w.numel() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd))
+    attn = t.num_layers * 4 * t.num_heads * t.head_dim * sum(range(1, n + 2))
+    return bound(moved, 2 * rows * ((n + 1) * macs + n * V * H) + rows * attn)
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -415,6 +496,114 @@ def check_k4_shallow(t, fw, B, T, cache_dtype, gen):
     return max(r.err for r in runs)
 
 
+def k6_inputs(t, B, S, T, starts, cache_dtype, gen):
+    """A seeded verify batch: x [B, S, H], caches with each stream's slots
+    from its (clamped) start on zeroed, and the starts on the device."""
+    L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
+    x = torch.randn((B, S, t.hidden_size), generator=gen, device=DEV) * 0.3
+    kc = (torch.randn((L, B, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+    vc = (torch.randn((L, B, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+    for b, p in enumerate(starts):
+        kc[:, b, :, min(p, T - S):] = 0
+        vc[:, b, :, min(p, T - S):] = 0
+    return x, kc, vc, torch.tensor(starts, device=DEV)
+
+
+@dataclasses.dataclass
+class K6Run:
+    """One seeded verify batch through K6 and its plain version."""
+
+    err: float  # max |x_kernel - x_plain|
+    rel: torch.Tensor  # [B * S] per-row max |dx| / max |x_plain|
+    slot_err: float  # max abs error of the k and v written at the new slots
+    slot_rel: torch.Tensor  # [B * S]
+    untouched: bool  # the kernel left every other slot as it was
+    rows_equal_steps: bool  # equal to S successive K1 (B=1) / K4 steps, bit for bit
+
+
+def k6_run(t, fw, B, S, T, starts, cache_dtype, gen, against_steps=False) -> K6Run:
+    x, kc, vc, pos_dev = k6_inputs(t, B, S, T, starts, cache_dtype, gen)
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    xk, _, _ = K6.fused_verify_step(t, fw, x, pos_dev, kk, vk)
+    xp, _, _ = K6.fused_verify_step_reference(t, fw, x, pos_dev, kp, vp)
+    torch.cuda.synchronize()
+    first = torch.clamp(pos_dev, 0, T - S)
+    slots = first[:, None] + torch.arange(S, device=DEV)  # [B, S]
+    rows = torch.arange(B, device=DEV)[:, None].expand(B, S)
+    written = torch.zeros((B, T), dtype=torch.bool, device=DEV)
+    written[rows, slots] = True
+    slot_k = torch.stack((kk[:, rows, :, slots], vk[:, rows, :, slots])).float()  # [2, B, S, L, nk, d]
+    slot_p = torch.stack((kp[:, rows, :, slots], vp[:, rows, :, slots])).float()
+    slot_abs = (slot_k - slot_p).abs().flatten(3).amax(dim=(0, 3))  # [B, S]
+    slot_ref = slot_p.abs().flatten(3).amax(dim=(0, 3))
+    dx = (xk - xp).abs().amax(dim=2)  # [B, S]
+    keep = ~written[None, :, None, :, None]
+    untouched = bool(torch.equal(kk.masked_select(keep), kc.masked_select(keep)))
+    untouched &= bool(torch.equal(vk.masked_select(keep), vc.masked_select(keep)))
+    equal = True
+    if against_steps:
+        k1, v1 = kc.clone(), vc.clone()
+        for s in range(S):
+            if B == 1:
+                x1, _, _ = K1.fused_decode_step(t, fw, x[:, s], int(first[0]) + s, k1, v1)
+            else:
+                x1, _, _ = K1.fused_decode_step_batched(t, fw, x[:, s], first + s, k1, v1)
+            equal &= bool(torch.equal(x1, xk[:, s]))
+        equal &= bool(torch.equal(k1, kk)) and bool(torch.equal(v1, vk))
+    return K6Run(float(dx.max()), (dx / xp.abs().amax(dim=2)).flatten().cpu(),
+                 float(slot_abs.max()), (slot_abs / slot_ref).flatten().cpu(), untouched, equal)
+
+
+def time_k6(t, fw, B, S, T, starts, gen, iters):
+    """Kernel, plain and bound ms of one verify pass (bf16 cache)."""
+    x, kc, vc, pos_dev = k6_inputs(t, B, S, T, starts, torch.bfloat16, gen)
+    kp, vp = kc.clone(), vc.clone()
+    ms = time_ms(lambda: K6.fused_verify_step(t, fw, x, pos_dev, kc, vc), iters)
+    plain_ms = time_ms(lambda: K6.fused_verify_step_reference(t, fw, x, pos_dev, kp, vp), 1, 1)
+    ctx = [min(p, T - S) for p in starts]  # cache slots read before the new ones
+    return ms, plain_ms, step_bound(t, fw, B * S, ctx, S, torch.bfloat16)
+
+
+def check_k6_deep(name, t, fw, B, S, T, starts, gen, iters):
+    """One verify batch at full depth with a bf16 cache: the deep K1 limits,
+    untouched slots, and every row equal to the K1 / K4 steps it replaces."""
+    r = k6_run(t, fw, B, S, T, starts, torch.bfloat16, gen, against_steps=True)
+    rel = float(r.rel.max())
+    ms, plain_ms, bound = time_k6(t, fw, B, S, T, starts, gen, iters)
+    ok = rel < K1_DEEP_X_REL and r.slot_err < K1_DEEP_SLOT_ABS and r.untouched and r.rows_equal_steps
+    log(f"K6 {name}: L={t.num_layers} B={B} S={S} T={T} starts={starts} cache=bfloat16 x "
+        f"max_abs_err={r.err:.3e} max row rel={rel:.3e} (tol {K1_DEEP_X_REL}) slot "
+        f"max_abs_err={r.slot_err:.3e} (tol {K1_DEEP_SLOT_ABS}) untouched_slots_equal="
+        f"{r.untouched} rows_equal_{'K1' if B == 1 else 'K4'}_steps={r.rows_equal_steps} kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}) -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K6 {name} B={B} S={S} disagrees with its plain version or the steps")
+    return r.err, ms, plain_ms, bound
+
+
+def check_k6_shallow(t, fw, B, S, T, starts, cache_dtype, gen):
+    """K1_TIGHT_INPUTS seeded verify batches on one layer: every row within
+    the flip-tolerant limits and at least the K1 share of rows tight."""
+    runs = [k6_run(t, fw, B, S, T, starts, cache_dtype, gen, against_steps=i == 0)
+            for i in range(K1_TIGHT_INPUTS)]
+    rel = max(float(r.rel.max()) for r in runs)
+    slot_err = max(r.slot_err for r in runs)
+    tight = sum(int(((r.rel <= K1_TIGHT_REL) & (r.slot_rel <= K1_TIGHT_REL)).sum()) for r in runs)
+    need = K1_TIGHT_MIN * B * S
+    ok = (rel < K1_SHALLOW_X_REL and slot_err < K1_SHALLOW_SLOT_ABS and tight >= need
+          and all(r.untouched for r in runs) and runs[0].rows_equal_steps)
+    log(f"K6 talker-1-layer: B={B} S={S} T={T} starts={starts} cache={str(cache_dtype)[6:]} "
+        f"{len(runs)} batches: x max row rel {rel:.3e} (tol {K1_SHALLOW_X_REL}) slot "
+        f"max_abs_err={slot_err:.3e} (tol {K1_SHALLOW_SLOT_ABS}) tight rows {tight}/"
+        f"{len(runs) * B * S} (need {need}) untouched_slots_equal="
+        f"{all(r.untouched for r in runs)} rows_equal_steps={runs[0].rows_equal_steps} -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K6 1-layer B={B} S={S} disagrees with its plain version or the steps")
+    return max(r.err for r in runs)
+
+
 def flip_eps(logits, g, knobs, token, gen):
     """The smallest eps in K5_FLIP_EPS at which the plain sampler, on logits
     scaled elementwise by (1 + eps * N(0, 1)) and the same noise, picks
@@ -580,23 +769,26 @@ def check_fixed_run(eng, n_frames, texts, card_line):
     return ms_frame
 
 
+KERNELS = (K1.fused_decode_step, K2.fused_mtp_chain, K1.fused_decode_step_batched,
+           K2.fused_mtp_chain_batched, K6.fused_verify_step)
+
+
 def reset_launches():
-    for fn in (K1.fused_decode_step, K2.fused_mtp_chain, K1.fused_decode_step_batched,
-               K2.fused_mtp_chain_batched):
+    for fn in KERNELS:
         fn.launches = 0
 
 
 def launches():
-    """(K1, K2, K4, K5) launch counts."""
-    return (K1.fused_decode_step.launches, K2.fused_mtp_chain.launches,
-            K1.fused_decode_step_batched.launches, K2.fused_mtp_chain_batched.launches)
+    """(K1, K2, K4, K5, K6) launch counts."""
+    return tuple(fn.launches for fn in KERNELS)
 
 
 def check_launches(phase, want):
     got = launches()
     if got != want:
-        raise RuntimeError(f"{phase}: launches (K1, K2, K4, K5) {got}, expected {want}")
-    log(f"launches on the main path, {phase}: K1 {got[0]}, K2 {got[1]}, K4 {got[2]}, K5 {got[3]}")
+        raise RuntimeError(f"{phase}: launches (K1, K2, K4, K5, K6) {got}, expected {want}")
+    log(f"launches on the main path, {phase}: K1 {got[0]}, K2 {got[1]}, K4 {got[2]}, K5 {got[3]}, "
+        f"K6 {got[4]}")
     return got
 
 
@@ -625,13 +817,13 @@ def batched_phase(eng, card_line):
         f"({decoded} decoded), {results[0].metrics.stage_seconds['decode'] * 1e3 / decoded:.3f} "
         f"ms per batched frame decode, aggregate RTF {audio_s / wall:.2f}x, TTFA "
         f"{results[0].metrics.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
-    counts = [check_launches("synthesize_batch", (0, 0, decoded, decoded))]
+    counts = [check_launches("synthesize_batch", (0, 0, decoded, decoded, 0))]
     ms = {}
     for B in (8, 32):
         reset_launches()
         texts = [BATCH_TEXTS[b % len(BATCH_TEXTS)] for b in range(B)]
         ms[B] = check_fixed_run(eng, 300, texts, card_line)
-        counts.append(check_launches(f"fixed run B={B}", (0, 0, 300, 300)))
+        counts.append(check_launches(f"fixed run B={B}", (0, 0, 300, 300, 0)))
     return [sum(c) for c in zip(*counts)], ms
 
 
@@ -684,14 +876,14 @@ def pool_phase(eng, card_line):
         audio_s = sum(r.metrics.audio_seconds for r in results)
         log(f"pool: 12 requests through 8 slots in {wall:.2f} s, {chunks} chunks of 16 frames, "
             f"aggregate RTF {audio_s / wall:.2f}x [{card_line}]")
-        counts = [check_launches("pool", (1, 1, chunks * 16, chunks * 16))]
+        counts = [check_launches("pool", (1, 1, chunks * 16, chunks * 16, 0))]
 
         reset_launches()
         chunks0 = pool.stats["chunks"]
         text = "hello world, greedy through the pool"
         got = pool.synthesize(text, language="en", temperature=0.0, max_tokens=48)
         counts.append(check_launches("pool greedy", (0, 0, 16 * (pool.stats["chunks"] - chunks0),
-                                                     16 * (pool.stats["chunks"] - chunks0))))
+                                                     16 * (pool.stats["chunks"] - chunks0), 0)))
         want = eng.synthesize(text, language="en", temperature=0.0, max_tokens=48)
         equal = np.array_equal(got.codes, want.codes)
         log(f"pool greedy vs synthesize at B=1: {len(got.codes)} frames, codes equal={equal}")
@@ -745,6 +937,271 @@ def pool_phase(eng, card_line):
     return [sum(c) for c in zip(*counts)]
 
 
+SPEC_K, SPEC_ITERS = 4, 4  # the engine's spec phase (B=1 and synthesize_batch at B=4)
+POOL_SPEC_K, POOL_SPEC_ITERS = 3, 2  # the spec pool: 8 slots x 3 candidates = 24 verify rows
+SPEC_TEXT = "hello world, this is a speculative request"
+
+
+def greedy_trajectory(eng, text, n_frames):
+    """``n_frames`` greedy frames of one stream, EOS forbidden, through the
+    sequential generate callables (K1, K2): the replay draft's trajectory."""
+    sp = SamplingParams.create(0.0, forbid_eos=True)
+    ids = eng._tokenize(text)
+    P = prompt_length(LANG_ENGLISH)
+    bucket = next(b for b in eng.kv_ladder if b >= P + n_frames + 1)
+    fns = eng._get_fns(LANG_ENGLISH, bucket, n_frames, 1)
+    state, bundle = fns.prefill(eng.params, torch.tensor([ids], device=DEV),
+                                torch.tensor([len(ids)], device=DEV), None)
+    _, frames, _ = fns.decode(eng.params, state, bundle.trailing, bundle.trailing_len,
+                              bundle.tts_pad_embed, sp)
+    return frames[0].cpu()
+
+
+def spec_fixed_run(eng, n_frames, sp, texts, draft_fn, force_accept=False, k=SPEC_K,
+                   iters=SPEC_ITERS):
+    """Speculative decode of len(texts) streams until each has committed at
+    least ``n_frames`` frames, through the spec callables and the engine's
+    cache growth, with any host sync inside a dispatch raising.  Returns
+    (committed frames per stream, iterations run, decode seconds, frames the
+    dispatches committed)."""
+    B = len(texts)
+    id_lists = [eng._tokenize(t) for t in texts]
+    width = max(len(ids) for ids in id_lists)
+    ids_t = torch.tensor([ids + [0] * (width - len(ids)) for ids in id_lists], device=DEV)
+    lens = torch.tensor([len(ids) for ids in id_lists], device=DEV)
+    P = prompt_length(LANG_ENGLISH)
+    ladder = eng.kv_ladder
+    bidx = next(i for i, b in enumerate(ladder) if b >= P + k * iters + 1)
+    gens = []
+    for b in range(B):
+        gens.append(torch.Generator(device=DEV))
+        gens[-1].manual_seed(SEED + b)
+
+    def fns():
+        return make_spec_generate_fns(eng.cfg, max_len=ladder[bidx], k=k, num_iters=iters,
+                                      batch=B, lang_id=LANG_ENGLISH, draft_fn=draft_fn,
+                                      force_accept=force_accept)
+
+    state, bundle, f0, v0 = fns().prefill(eng.params, ids_t, lens, gens, sp)
+    committed = [[f] for f in f0.cpu()]
+    iterations, decode_s, decoded = 0, 0.0, 0
+    while min(len(c) for c in committed) < n_frames:
+        slots = int(state.step.max())
+        while P + slots - 1 + k * iters + 1 > ladder[bidx] and bidx + 1 < len(ladder):
+            bidx += 1
+            state = eng._grow_state(state, ladder[bidx])
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync inside the dispatch raises
+        try:
+            state, fr, vd = fns().decode(eng.params, state, bundle.trailing, bundle.trailing_len,
+                                         bundle.tts_pad_embed, sp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        fr, vd = fr.cpu(), vd.cpu()
+        decode_s += time.perf_counter() - t0
+        for b in range(B):
+            committed[b].extend(fr[b][vd[b]])
+        decoded += int(vd.sum())
+        iterations += iters
+    return [torch.stack(c) for c in committed], iterations, decode_s, decoded
+
+
+def profile_spec_dispatch(eng, sp, card_line):
+    """Device time by kernel over one B=1 spec dispatch (k=4, 4 iterations,
+    repeat draft, after a warm one), from ``torch.profiler``: the device
+    busy time per iteration against the wall time, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = make_spec_generate_fns(eng.cfg, max_len=512, k=SPEC_K, num_iters=SPEC_ITERS, batch=1,
+                                 lang_id=LANG_ENGLISH)
+    ids = eng._tokenize(SPEC_TEXT)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    state, bundle, _, _ = fns.prefill(eng.params, torch.tensor([ids], device=DEV),
+                                      torch.tensor([len(ids)], device=DEV), gen, sp)
+
+    def dispatch(st):
+        return fns.decode(eng.params, st, bundle.trailing, bundle.trailing_len,
+                          bundle.tts_pad_embed, sp)[0]
+
+    state = dispatch(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dispatch(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"spec dispatch profile B=1 k={SPEC_K}, {SPEC_ITERS} iterations: wall {wall_ms:.2f} ms "
+        f"({wall_ms / SPEC_ITERS:.2f} per iteration, profiler on), device busy {busy_ms:.2f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in kernels)} device ops; "
+        f"top: " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                             for e in top) + f" [{card_line}]")
+
+
+def check_spec_engine(name, seq_eng, spec_eng, card_line, want_fallback=False):
+    """Greedy ``synthesize`` of the spec engine against the sequential one:
+    codes equal; launches one K6 and one K5 per verify iteration, K2 for
+    frame 0, and K1 / K2 per frame after a fallback."""
+    kw = dict(language="en", temperature=0.0, max_tokens=64)
+    want = seq_eng.synthesize(SPEC_TEXT, **kw)
+    reset_launches()
+    got = spec_eng.synthesize(SPEC_TEXT, **kw)
+    m = got.metrics
+    n_it, k = m.spec_iterations, spec_eng.spec_k
+    seq_frames = m.decoded_frames - 1 - n_it * k  # decoded after a fallback
+    counts = check_launches(f"spec {name}", (seq_frames + m.spec_fallback, 1 + seq_frames, 0,
+                                             n_it, n_it))
+    equal = np.array_equal(got.codes, want.codes)
+    log(f"spec {name}: {len(got.codes)} frames, codes equal to sequential={equal}, "
+        f"{n_it} iterations, acceptance {m.spec_accepted / max(n_it * (k - 1), 1):.3f}, "
+        f"fallback={m.spec_fallback}, "
+        f"{m.stage_seconds['decode'] * 1e3 / max(len(got.codes), 1):.3f} ms per committed "
+        f"frame decode, RTF {m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+    if not equal or m.spec_fallback != want_fallback or n_it < 1:
+        raise RuntimeError(f"spec {name}: codes differ from sequential or the fallback misfired")
+    return counts
+
+
+def spec_phase(eng, spec_eng, draft_eng, seq_ms, card_line):
+    """The speculative paths at the 0.6B preset: B=1 greedy with the repeat
+    draft, the adaptive fallback and the trained draft against sequential;
+    the replay draft at full acceptance; ms per committed frame at full and
+    at zero acceptance; synthesize_batch at B=4; the spec pool."""
+    counts = [check_spec_engine("B=1 repeat draft", eng, spec_eng, card_line)]
+    spec_eng.spec_accept_floor, spec_eng.spec_adapt_window = 1.01, 1
+    try:
+        counts.append(check_spec_engine("B=1 adaptive fallback", eng, spec_eng, card_line, True))
+    finally:
+        spec_eng.spec_accept_floor, spec_eng.spec_adapt_window = 0.0, 24
+    counts.append(check_spec_engine("B=1 trained draft", eng, draft_eng, card_line))
+
+    # replay draft: full acceptance by construction, codes equal the trajectory
+    traj = greedy_trajectory(eng, SPEC_TEXT, 1 + 3 * SPEC_ITERS * SPEC_K + SPEC_K)
+    reset_launches()
+    greedy = SamplingParams.create(0.0, forbid_eos=True)
+    frames, it, _, decoded = spec_fixed_run(eng, 1 + 3 * SPEC_ITERS * SPEC_K, greedy, [SPEC_TEXT],
+                                            make_replay_draft(traj.to(DEV)))
+    counts.append(check_launches("spec replay draft", (0, 1, 0, it, it)))
+    equal = torch.equal(frames[0], traj[: len(frames[0])])
+    log(f"spec replay draft: {it} iterations committed {decoded} frames ({SPEC_K} per "
+        f"iteration: {decoded == it * SPEC_K}), codes equal to the sequential trajectory={equal}")
+    if not equal or decoded != it * SPEC_K:
+        raise RuntimeError("spec replay draft: not full acceptance, or codes differ")
+
+    # ms per committed frame, sampled, EOS forbidden: full and zero acceptance
+    sampled = SamplingParams.create(0.8, 50, 0.95, forbid_eos=True)
+    ms = {}
+    for label, draft_fn, force in (("full acceptance (force_accept)", repeat_draft, True),
+                                   ("repeat draft", repeat_draft, False)):
+        reset_launches()
+        _, it, decode_s, decoded = spec_fixed_run(eng, 300, sampled, [SPEC_TEXT], draft_fn, force)
+        counts.append(check_launches(f"spec fixed run, {label}", (0, 1, 0, it, it)))
+        ms[label] = decode_s * 1e3 / decoded
+        log(f"spec fixed run B=1 k={SPEC_K}, {label}: {decoded} frames in {it} iterations "
+            f"(acceptance {(decoded - it) / (it * (SPEC_K - 1)):.3f}), {ms[label]:.3f} ms per "
+            f"committed frame, {decode_s * 1e3 / it:.3f} ms per iteration; sequential "
+            f"{seq_ms:.3f} ms/frame [{card_line}]")
+
+    profile_spec_dispatch(eng, sampled, card_line)
+
+    # synthesize_batch at B=4
+    texts = BATCH_TEXTS[:4]
+    kw = dict(language="en", temperature=0.0, max_tokens=48)
+    want = eng.synthesize_batch(texts, **kw)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = spec_eng.synthesize_batch(texts, **kw)
+    wall = time.perf_counter() - t0
+    n_it = got[0].metrics.spec_iterations
+    counts.append(check_launches("spec synthesize_batch B=4", (0, 0, 0, 1 + n_it, n_it)))
+    equal = all(np.array_equal(g.codes, w.codes) for g, w in zip(got, want))
+    log(f"spec synthesize_batch B=4 k={SPEC_K}: frames {[len(g.codes) for g in got]}, per-stream "
+        f"codes equal to sequential synthesize_batch={equal}, {n_it} iterations, aggregate RTF "
+        f"{sum(g.metrics.audio_seconds for g in got) / wall:.2f}x [{card_line}]")
+    if not equal:
+        raise RuntimeError("spec synthesize_batch differs from sequential synthesize_batch")
+    counts += spec_pool_phase(eng, spec_eng, card_line)
+    return [sum(c) for c in zip(*counts)], ms
+
+
+def spec_pool_phase(eng, spec_eng, card_line):
+    """12 requests through an 8-slot spec pool; greedy output against B=1
+    synthesize, a seeded request alone and among co-tenants; then a spec
+    pool with host syncs raising inside every chunk, whose fallback fires."""
+    pool = ContinuousBatcher(spec_eng, pool_size=8, kv_bucket=eng.kv_ladder[0],
+                             spec_k=POOL_SPEC_K, spec_iters=POOL_SPEC_ITERS)
+    per_chunk = POOL_SPEC_ITERS
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        handle = pool.submit_stream(STREAMED_REQUEST[0], language=STREAMED_REQUEST[1],
+                                    temperature=STREAMED_REQUEST[2][0], max_tokens=48, seed=SEED)
+        futs = [pool.submit(text, language=lang, temperature=k[0], top_k=k[1], top_p=k[2],
+                            max_tokens=mt, seed=SEED + i)
+                for i, (text, lang, k, mt) in enumerate(POOL_REQUESTS)]
+        items = list(handle)
+        results = [f.result(timeout=600) for f in futs] + [items[-1]]
+        wall = time.perf_counter() - t0
+        for r in results:
+            if (r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,)
+                    or not np.isfinite(r.audio).all() or len(r.codes) == 0):
+                raise RuntimeError("spec pool: bad result")
+        chunks = pool.stats["chunks"]
+        audio_s = sum(r.metrics.audio_seconds for r in results)
+        log(f"spec pool k={POOL_SPEC_K}: 12 requests through 8 slots in {wall:.2f} s, {chunks} "
+            f"chunks of {POOL_SPEC_ITERS} iterations, aggregate RTF {audio_s / wall:.2f}x, "
+            f"streamed TTFA {items[-1].metrics.ttfa_seconds * 1e3:.1f} ms, spec_fallback="
+            f"{pool.stats['spec_fallback']} [{card_line}]")
+        counts = [check_launches("spec pool", (0, 12, 0, chunks * per_chunk, chunks * per_chunk))]
+
+        reset_launches()
+        chunks0 = pool.stats["chunks"]
+        text = "hello world, greedy through the spec pool"
+        got = pool.synthesize(text, language="en", temperature=0.0, max_tokens=48)
+        n = (pool.stats["chunks"] - chunks0) * per_chunk
+        counts.append(check_launches("spec pool greedy", (0, 1, 0, n, n)))
+        want = eng.synthesize(text, language="en", temperature=0.0, max_tokens=48)
+        equal = np.array_equal(got.codes, want.codes)
+        log(f"spec pool greedy vs synthesize at B=1: {len(got.codes)} frames, codes equal={equal}")
+        if not equal:
+            raise RuntimeError("spec pool greedy output differs from synthesize at B=1")
+        kw = dict(language="en", temperature=0.8, top_k=50, top_p=0.95, max_tokens=32, seed=123)
+        alone = pool.synthesize("hello world, seeded", **kw)
+        mates = [pool.submit(t, language=lang, temperature=0.9, max_tokens=32)
+                 for t, lang, _, _ in POOL_REQUESTS[:6]]
+        among = pool.submit("hello world, seeded", **kw)
+        for f in mates:
+            f.result(timeout=600)
+        equal = np.array_equal(among.result(timeout=600).codes, alone.codes)
+        log(f"spec pool seeded request alone vs among 6 co-tenants: codes equal={equal}")
+        if not equal:
+            raise RuntimeError("a seeded spec-pool request depends on its co-tenants")
+    finally:
+        pool.shutdown()
+
+    spec_eng.spec_accept_floor, spec_eng.spec_adapt_window = 1.01, 1
+    pool = ContinuousBatcher(spec_eng, pool_size=8, kv_bucket=eng.kv_ladder[0],
+                             spec_k=POOL_SPEC_K, spec_iters=POOL_SPEC_ITERS, sync_check=True)
+    try:
+        handle = pool.submit_stream("hello world", language="en", max_tokens=32, seed=5)
+        futs = [pool.submit(t, language=lang, max_tokens=32) for t, lang, _, _ in POOL_REQUESTS[:4]]
+        list(handle)
+        for f in futs:
+            f.result(timeout=600)
+        fell_back = pool.stats["spec_fallback"]
+        log(f"spec pool with sync_check: {pool.stats['chunks']} chunks, no host sync inside a "
+            f"chunk, spec_fallback={fell_back} (floor 1.01)")
+        if not fell_back:
+            raise RuntimeError("the spec pool's adaptive fallback did not fire")
+    finally:
+        pool.shutdown()
+        spec_eng.spec_accept_floor, spec_eng.spec_adapt_window = 0.0, 24
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
@@ -782,6 +1239,13 @@ def main() -> int:
         check_k4_deep("talker", talker_t, talker_fw, 32, 512, gen, 5),
         check_k4_deep("mtp-trunk", mtp_t, mtp_fw, 8, 17, gen, 20),
     ]
+    bounds = {
+        "K1": step_bound(talker_t, talker_fw, 1, [200], 1, torch.bfloat16),
+        "K4": step_bound(talker_t, talker_fw, 8, [min(p, 511) for p in K4_POSITIONS], 1,
+                         torch.bfloat16),
+    }
+    k6 = [check_k6_deep("talker", talker_t, talker_fw, B, S, T, starts, gen, iters)
+          for B, S, T, starts, iters in K6_DEEP_CASES]
     del talker_fw
     ts = dataclasses.replace(talker_t, num_layers=K1_SHALLOW_LAYERS)
     fws = packed_trunk(ts, gen)
@@ -793,6 +1257,9 @@ def main() -> int:
         for B in K4_SHALLOW_BATCHES:
             k4_shallow = check_k4_shallow(ts, fws, B, 512, cache_dtype, gen)
             k4[0] = (max(k4[0][0], k4_shallow),) + k4[0][1:]
+        for B, S, starts in K6_SHALLOW_CASES:
+            k6_shallow = check_k6_shallow(ts, fws, B, S, 512, starts, cache_dtype, gen)
+            k6[0] = (max(k6[0][0], k6_shallow),) + k6[0][1:]
     del fws
 
     cp = cfg.code_predictor
@@ -805,7 +1272,11 @@ def main() -> int:
     # and top_k = 1
     k2 = [check_k2(knobs, cp, mtp_fw, heads, tables, fnorm, gen, iters) for knobs, iters in (
         ((0.0,), 10), ((0.8, 50, 0.95), 10), ((1.0, 0, 1.0), 0), ((0.7, 1, 0.9), 0))]
-    k5 = [check_k5(B, cp, mtp_fw, heads, tables, fnorm, gen, iters) for B, iters in ((8, 5), (32, 3))]
+    # B=8 and 32 (the batched paths), and 4 rows (a B=1 verify iteration at k=4)
+    k5 = [check_k5(B, cp, mtp_fw, heads, tables, fnorm, gen, iters)
+          for B, iters in ((8, 5), (32, 3), (4, 5))]
+    bounds["K2"] = chain_bound(mtp_t, mtp_fw, heads, 1)
+    bounds["K5"] = chain_bound(mtp_t, mtp_fw, heads, 8)
     del mtp_fw, heads, tables
     torch.cuda.empty_cache()
 
@@ -814,10 +1285,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         tok = byte_level_tokenizer(workdir)
     eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
+    # the same weights with speculative decoding (the fallback off unless a
+    # check turns it on), and with a trained-draft head of random weights
+    spec_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
+                         spec_k=SPEC_K, spec_iters=SPEC_ITERS, spec_accept_floor=0.0)
+    draft_eng = TTSEngine(config=dataclasses.replace(cfg, draft=DraftConfig()),
+                          params=dict(params, draft=init_draft_params(DraftConfig(), gen, DEV)),
+                          tokenizer=tok, quantize="int8", spec_k=SPEC_K, spec_iters=SPEC_ITERS,
+                          spec_accept_floor=0.0)
     del params
     torch.cuda.synchronize()
-    log(f"engine: 0.6B preset, random weights (seed {SEED}), int8, built in "
-        f"{time.perf_counter() - t0:.1f} s; KV ladder {eng.kv_ladder} [{CARD}]")
+    log(f"engines: 0.6B preset, random weights (seed {SEED}), int8, sequential, spec_k={SPEC_K} "
+        f"and spec_k={SPEC_K} with a draft head, built in {time.perf_counter() - t0:.1f} s; KV "
+        f"ladder {eng.kv_ladder} [{CARD}]")
 
     reset_launches()
     requests = [
@@ -839,37 +1319,35 @@ def main() -> int:
             f"({m.decoded_frames} decoded), {decode_ms:.3f} ms/frame decode, RTF "
             f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms, total "
             f"{m.total_seconds * 1e3:.1f} ms [{card_line}]")
-    check_fixed_run(eng, 300, ["hello world, this is a fixed length run"], card_line)
+    seq_ms = check_fixed_run(eng, 300, ["hello world, this is a fixed length run"], card_line)
     decoded += 300
     b1 = check_launches("B=1 slice (one K1 and one K2 per decoded frame)",
-                        (decoded, decoded, 0, 0))
+                        (decoded, decoded, 0, 0, 0))
     batched, _ = batched_phase(eng, card_line)
     pooled = pool_phase(eng, card_line)
-    total = [sum(c) for c in zip(b1, batched, pooled)]
+    spec, _ = spec_phase(eng, spec_eng, draft_eng, seq_ms, card_line)
+    total = [sum(c) for c in zip(b1, batched, pooled, spec)]
     log(f"launches on the main paths in all: K1 {total[0]}, K2 {total[1]}, K4 {total[2]}, "
-        f"K5 {total[3]}")
+        f"K5 {total[3]}, K6 {total[4]}")
 
+    def entry(name, source, replaces, launched, checks, bound_key):
+        ms_bound, bound_by = bounds[bound_key]
+        return {"name": name, "route": "cuda", "source": f"leaxer_qwen3_tts_torch/csrc/{source}",
+                "replaces": f"leaxer_qwen3_tts_tpu/ops/{replaces}", "launches": launched,
+                "max_abs_err": max(c[0] for c in checks), "ms": checks[0][1],
+                "plain_ms": checks[0][2], "bound_ms": ms_bound, "bound_by": bound_by,
+                "library_ms": None}  # no single PyTorch call computes a fused step or chain
+
+    bounds["K6"] = k6[0][3]
     report = {"kernels": [
-        {"name": "fused_decode_step", "route": "cuda",
-         "source": "leaxer_qwen3_tts_torch/csrc/fused_step.cu",
-         "replaces": "leaxer_qwen3_tts_tpu/ops/fused_step.py:1290",
-         "launches": total[0], "max_abs_err": max(e for e, _, _ in k1),
-         "ms": k1[0][1], "plain_ms": k1[0][2]},
-        {"name": "fused_mtp_chain", "route": "cuda",
-         "source": "leaxer_qwen3_tts_torch/csrc/fused_mtp.cu",
-         "replaces": "leaxer_qwen3_tts_tpu/ops/fused_mtp.py:835",
-         "launches": total[1], "max_abs_err": max(e for e, _, _ in k2),
-         "ms": k2[1][1], "plain_ms": k2[1][2]},
-        {"name": "fused_decode_step_batched", "route": "cuda",
-         "source": "leaxer_qwen3_tts_torch/csrc/fused_step_batched.cu",
-         "replaces": "leaxer_qwen3_tts_tpu/ops/fused_step.py:2083",
-         "launches": total[2], "max_abs_err": max(e for e, _, _ in k4),
-         "ms": k4[0][1], "plain_ms": k4[0][2]},
-        {"name": "fused_mtp_chain_batched", "route": "cuda",
-         "source": "leaxer_qwen3_tts_torch/csrc/fused_mtp_batched.cu",
-         "replaces": "leaxer_qwen3_tts_tpu/ops/fused_mtp.py:703",
-         "launches": total[3], "max_abs_err": max(e for e, _, _ in k5),
-         "ms": k5[0][1], "plain_ms": k5[0][2]},
+        entry("fused_decode_step", "fused_step.cu", "fused_step.py:1290", total[0], k1, "K1"),
+        entry("fused_mtp_chain", "fused_mtp.cu", "fused_mtp.py:835", total[1], k2[1:] + k2[:1],
+              "K2"),
+        entry("fused_decode_step_batched", "fused_step_batched.cu", "fused_step.py:2083",
+              total[2], k4, "K4"),
+        entry("fused_mtp_chain_batched", "fused_mtp_batched.cu", "fused_mtp.py:703", total[3], k5,
+              "K5"),
+        entry("fused_verify_step", "fused_verify.cu", "fused_verify.py:473", total[4], k6, "K6"),
     ]}
     print(json.dumps(report))
     print(card_line)

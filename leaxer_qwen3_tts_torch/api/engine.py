@@ -6,13 +6,22 @@ streams in one decode, EOS latched per stream, per-stream seeds), the KV
 bucket ladder with cache growth between chunks, the small first chunk for
 time-to-first-audio, and the streamed vocoder with causal left context.
 
-On a CUDA device the engine runs only the kernel path: it requires
-``quantize="int8"`` and the fused talker and MTP implementations, packs both
-for kernels K1 and K2 (B=1) and K4 and K5 (B=2..32), and raises
+With ``spec_k`` the engine decodes speculatively
+(``runtime/speculative.py``): ``synthesize`` and ``synthesize_stream`` at B=1
+and ``synthesize_batch`` at B>1 verify ``spec_k`` candidate frames per talker
+pass, with the trained draft head when the parameters carry one and the
+repeat draft otherwise, and fall back to sequential decode when a request's
+trailing acceptance stays below ``spec_accept_floor``.
+
+The engine runs on the CUDA device unless the caller passes
+``device="cpu"``; with no device and no CUDA device it raises.  On the card
+it runs only the kernel path: it requires ``quantize="int8"`` and the fused
+talker and MTP implementations, packs both for kernels K1 and K2 (B=1), K4
+and K5 (B=2..32) and K6 (the verify pass, B x spec_k <= 32 rows), and raises
 ``EngineError`` for a configuration or a batch the kernels do not take.  On
-the CPU the same code runs the kernels' plain versions.  A decode chunk
-enqueues its frames on the device and the engine syncs once per chunk, when
-it copies the chunk's codes to the host.
+the CPU the same code runs the kernels' plain versions.  A decode chunk (a
+dispatch of verify iterations) enqueues its frames on the device and the
+engine syncs once per chunk, when it copies the chunk's codes to the host.
 """
 
 from __future__ import annotations
@@ -35,13 +44,19 @@ from ..config import (
 )
 from ..frontend.tokenizer import Tokenizer
 from ..models.code_predictor import prepare_fused_step
-from ..models.codec12hz import vocode_chunk
+from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.talker import prepare_fused_talker
 from ..ops.fused_step import MAX_BATCH, supports
 from ..ops.quant import fuse_params, quantize_params
 from ..runtime.generate import GenerateFns, GenerateState, make_generate_fns
 from ..runtime.prompt import prompt_length
 from ..runtime.sampling import SamplingParams
+from ..runtime.speculative import (
+    SpecGenerateFns,
+    default_draft,
+    make_spec_generate_fns,
+    spec_to_seq,
+)
 from ..utils.metrics import StageTimer, SynthesisMetrics
 
 
@@ -69,17 +84,6 @@ def _to_device(node, device):
     return node
 
 
-def _first_device(node) -> Optional[torch.device]:
-    if isinstance(node, torch.Tensor):
-        return node.device
-    items = node.values() if isinstance(node, dict) else node if isinstance(node, list) else ()
-    for v in items:
-        d = _first_device(v)
-        if d is not None:
-            return d
-    return None
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -102,12 +106,25 @@ class TTSEngine:
         quantize: Optional[str] = None,
         kv_buckets: Tuple[int, ...] = (256, 512, 1024),
         mesh=None,
+        spec_k: Optional[int] = None,
+        spec_iters: int = 8,
+        spec_accept_floor: float = 0.3,
+        spec_adapt_window: int = 24,
     ):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet (ROADMAP M15)")
         self.cfg = config
         self.tokenizer = tokenizer
-        self.device = torch.device(device) if device is not None else _first_device(params)
+        # speculative decoding: spec_k candidate frames per talker pass,
+        # spec_iters verify iterations per dispatch.  Adaptive fallback: once
+        # spec_adapt_window iterations have run with trailing acceptance below
+        # spec_accept_floor, the request goes on sequentially (0 disables it)
+        if spec_k is not None and not 2 <= int(spec_k) <= 8:
+            raise ValueError("spec_k must be in [2, 8]")
+        self.spec_k = int(spec_k) if spec_k is not None else None
+        self.spec_iters = max(1, int(spec_iters))
+        self.spec_accept_floor = float(spec_accept_floor)
+        self.spec_adapt_window = max(1, int(spec_adapt_window))
         self.max_frames = int(max_frames)
         self.chunk_len = max(1, min(int(chunk_len), self.max_frames))
         self.first_chunk_len = max(1, min(int(first_chunk_len), self.chunk_len))
@@ -128,6 +145,14 @@ class TTSEngine:
             raise EngineError("the int8 KV cache is not ported yet (ROADMAP item K1v)")
         talker_fused = cfg.talker.decode_impl == "fused"
         mtp_fused = cfg.code_predictor.impl == "fused"
+        if device is None:
+            if not torch.cuda.is_available():
+                raise EngineError(
+                    "no CUDA device: the engine runs on the card; pass device='cpu' to run "
+                    "the kernels' plain versions on the CPU"
+                )
+            device = "cuda"
+        self.device = torch.device(device)
         if self.device.type == "cuda":
             problems = []
             if quantize != "int8":
@@ -337,15 +362,21 @@ class TTSEngine:
             gens.append(torch.Generator(device=self.device))
             gens[-1].manual_seed(int(s))
         dev = self.device
+        ids_t = torch.from_numpy(ids_padded).to(dev)
+        lens_t = torch.from_numpy(lens).to(dev)
+        if self.spec_k is not None:
+            if dev.type == "cuda" and B * self.spec_k > MAX_BATCH:
+                raise EngineError(
+                    f"batch of {B} with spec_k={self.spec_k}: the verify kernel takes at most "
+                    f"{MAX_BATCH} rows (B x spec_k; ROADMAP M12b)"
+                )
+            spec = self._spec_stream if B == 1 else self._spec_stream_batched
+            yield from spec(timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp)
+            return
 
         with timer.stage("prefill"):
             fns = self._get_fns(lang_id, self.kv_ladder[bidx], self.first_chunk_len, B)
-            state, bundle = fns.prefill(
-                self.params,
-                torch.from_numpy(ids_padded).to(dev),
-                torch.from_numpy(lens).to(dev),
-                gens,
-            )
+            state, bundle = fns.prefill(self.params, ids_t, lens_t, gens)
             _sync(dev)
 
         voc_cfg = cfg.vocoder
@@ -424,3 +455,240 @@ class TTSEngine:
             codes=[all_frames[b][all_valid[b]] for b in range(B)],
             metrics=per_stream,
         )
+
+    # ------------------------------------------------------------------
+    # Speculative decoding
+    # ------------------------------------------------------------------
+
+    def _get_spec_fns(self, lang_id, max_len: int, num_iters: int,
+                      batch: int = 1) -> SpecGenerateFns:
+        return make_spec_generate_fns(self.cfg, max_len=max_len, k=self.spec_k,
+                                      num_iters=num_iters, batch=batch, lang_id=lang_id,
+                                      draft_fn=default_draft(self.cfg, self.params))
+
+    def _spec_prologue(self, P: int, max_tokens: int):
+        """Iterations per dispatch shrunk to fit short requests and small
+        caches (a dispatch may consume spec_k * iters slots), max_tokens
+        clamped to the cache, and the first ladder rung.  Returns (iters,
+        spec_chunk, max_tokens, bidx)."""
+        top = self.kv_ladder[-1]
+        iters = min(self.spec_iters, max(1, -(-max_tokens // self.spec_k)))
+        while self.spec_k * iters > top - P - 1 and iters > 1:
+            iters -= 1
+        spec_chunk = self.spec_k * iters
+        budget = top - P - spec_chunk
+        if budget < 1:
+            raise EngineError(
+                f"prompt ({P} positions) too long for the KV cache "
+                f"(top bucket {top}, spec chunk {spec_chunk})"
+            )
+        bidx = next(
+            (i for i, b in enumerate(self.kv_ladder) if b >= P + spec_chunk + 1),
+            len(self.kv_ladder) - 1,
+        )
+        return iters, spec_chunk, min(max_tokens, budget), bidx
+
+    def _spec_stream(self, timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp):
+        """Speculative decode of one stream.  Commits per dispatch are data-
+        dependent (between iters and iters * spec_k frames), so committed
+        frames are compacted on the host and vocoded in the sequential
+        path's windows (a small first one for time to first audio)."""
+        iters, spec_chunk, max_tokens, bidx = self._spec_prologue(P, max_tokens)
+        # the first dispatch runs one iteration, so first audio follows it
+        cur_iters = 1
+        with timer.stage("prefill"):
+            fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], cur_iters)
+            state, bundle, frame0, valid0 = fns.prefill(self.params, ids_t, lens_t, gens, sp)
+            frame0, valid0 = frame0.cpu().numpy(), valid0.cpu().numpy()
+        out = _FrameEmitter(self, timer, max_tokens)
+        if valid0[0]:
+            out.committed.append(frame0[0])
+        done = not bool(valid0[0])
+        slots = 1  # inputs consumed so far: the host copy of state.step
+        n_iterations = 0
+        while True:
+            yield from out.drain()
+            if done or len(out.committed) >= max_tokens:
+                break
+            while (P + slots - 1 + spec_chunk + 1 > self.kv_ladder[bidx]
+                   and bidx + 1 < len(self.kv_ladder)):
+                bidx += 1
+                state = self._grow_state(state, self.kv_ladder[bidx])
+            if P + slots - 1 + spec_chunk + 1 > self.kv_ladder[bidx]:
+                break  # the cache is full (the max_tokens clamp makes this rare)
+            fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], cur_iters)
+            with timer.stage("decode"):
+                state, frames, valid = fns.decode(self.params, state, bundle.trailing,
+                                                  bundle.trailing_len, bundle.tts_pad_embed, sp)
+                frames_np = frames[0].cpu().numpy()  # the one sync of the dispatch
+            out.committed.extend(frames_np[valid[0].cpu().numpy()])
+            done = bool(state.done.all().cpu())
+            slots = int(state.step[0].cpu())
+            n_iterations += cur_iters
+            cur_iters = iters
+            if (not done and self.spec_accept_floor > 0
+                    and n_iterations >= self.spec_adapt_window):
+                accept = (slots - 1 - n_iterations) / max(n_iterations * (self.spec_k - 1), 1)
+                if accept < self.spec_accept_floor:
+                    yield from self._spec_seq_continue(
+                        state, bundle, out, sp, lang_id, P, bidx, n_iterations, slots,
+                    )
+                    return
+        yield from out.drain(final=True)
+        yield self._spec_result(out, n_iterations, slots, 1 + n_iterations * self.spec_k)
+
+    def _spec_result(self, out: "_FrameEmitter", n_iterations, slots, decoded,
+                     fallback=False) -> SynthesisResult:
+        metrics = out.timer.finish()
+        metrics.frames = out.emitted
+        metrics.audio_seconds = out.emitted * self.cfg.vocoder.samples_per_frame / SAMPLE_RATE
+        metrics.decoded_frames = decoded
+        metrics.spec_iterations = n_iterations
+        # each iteration commits 1 + its accepted drafts; slots counts frame 0
+        metrics.spec_accepted = max(0, slots - 1 - n_iterations)
+        metrics.spec_fallback = fallback
+        return SynthesisResult(
+            audio=np.concatenate(out.audio) if out.audio else np.zeros((0,), np.float32),
+            codes=np.stack(out.committed[: out.emitted]).astype(np.int32) if out.emitted
+            else np.zeros((0, 16), np.int32),
+            metrics=metrics,
+        )
+
+    def _spec_seq_continue(self, spec_state, bundle, out: "_FrameEmitter", sp, lang_id, P, bidx,
+                           n_iterations, slots):
+        """The adaptive fallback: one talker step consumes the pending input
+        (``spec_to_seq``), then the sequential chunked loop runs to the end."""
+        pos = P + slots - 1  # the pending input's position: the host fill level
+        spec_state = spec_state._replace(cache=spec_state.cache._replace(length=pos))
+        with out.timer.stage("decode"):
+            state = spec_to_seq(self.cfg, self.params, spec_state, bundle.trailing,
+                                bundle.trailing_len, bundle.tts_pad_embed)
+        pos += 1
+        decoded = 1 + n_iterations * self.spec_k
+        while len(out.committed) < out.max_tokens:
+            cur = self.chunk_len
+            while pos + cur + 1 > self.kv_ladder[bidx] and bidx + 1 < len(self.kv_ladder):
+                bidx += 1
+                state = self._grow_state(state, self.kv_ladder[bidx])
+            if pos + cur + 1 > self.kv_ladder[bidx]:
+                break
+            fns = self._get_fns(lang_id, self.kv_ladder[bidx], cur)
+            with out.timer.stage("decode"):
+                state, frames, valid = fns.decode(self.params, state, bundle.trailing,
+                                                  bundle.trailing_len, bundle.tts_pad_embed, sp)
+                frames_np = frames[0].cpu().numpy()
+            out.committed.extend(frames_np[valid[0].cpu().numpy()])
+            pos += cur
+            decoded += cur
+            yield from out.drain()
+            if bool(state.done.all().cpu()):
+                break
+        yield from out.drain(final=True)
+        yield self._spec_result(out, n_iterations, slots, decoded, fallback=True)
+
+    def _spec_stream_batched(self, timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp):
+        """Speculative decode of B > 1 streams (``synthesize_batch``): one
+        verify pass covers B x spec_k candidate rows with per-stream
+        acceptance; frames compact per stream on the host and the vocoder
+        runs once at the end on the padded batch."""
+        B = int(ids_t.shape[0])
+        spf = self.cfg.vocoder.samples_per_frame
+        iters, spec_chunk, max_tokens, bidx = self._spec_prologue(P, max_tokens)
+        with timer.stage("prefill"):
+            fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], iters, B)
+            state, bundle, frame0, valid0 = fns.prefill(self.params, ids_t, lens_t, gens, sp)
+            f0, v0 = frame0.cpu().numpy(), valid0.cpu().numpy()
+        buffers = [[f0[b]] if v0[b] else [] for b in range(B)]
+        done = ~v0
+        steps = np.ones((B,), np.int64)
+        n_iterations = 0
+        while not done.all() and not all(len(buf) >= max_tokens for buf in buffers):
+            slots = int(steps.max())
+            while (P + slots - 1 + spec_chunk + 1 > self.kv_ladder[bidx]
+                   and bidx + 1 < len(self.kv_ladder)):
+                bidx += 1
+                state = self._grow_state(state, self.kv_ladder[bidx])
+            if P + slots - 1 + spec_chunk + 1 > self.kv_ladder[bidx]:
+                break
+            fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], iters, B)
+            with timer.stage("decode"):
+                state, frames, valid = fns.decode(self.params, state, bundle.trailing,
+                                                  bundle.trailing_len, bundle.tts_pad_embed, sp)
+                frames_np = frames.cpu().numpy()  # the one sync of the dispatch
+            valid_np = valid.cpu().numpy()
+            for b in range(B):
+                buffers[b].extend(frames_np[b][valid_np[b]])
+            done = state.done.cpu().numpy()
+            steps = state.step.cpu().numpy()
+            n_iterations += iters
+        n_valid = [min(len(buf), max_tokens) for buf in buffers]
+        F_pad = _round_up(max(max(n_valid), 1), self.chunk_len)  # few vocoder shapes
+        codes = np.zeros((B, F_pad, 16), np.int32)
+        for b in range(B):
+            if n_valid[b]:
+                codes[b, : n_valid[b]] = np.stack(buffers[b][: n_valid[b]])
+        with timer.stage("vocode"):
+            c = torch.from_numpy(codes.astype(np.int64)).to(self.device)
+            audio = vocoder_forward(self.cfg.vocoder, self.params["vocoder"], c)
+            audio = audio.cpu().numpy().astype(np.float32)
+        timer.mark_first_audio()
+        metrics = timer.finish()
+        per_stream = [
+            SynthesisMetrics(
+                stage_seconds=dict(metrics.stage_seconds),
+                audio_seconds=n_valid[b] * spf / SAMPLE_RATE,
+                frames=n_valid[b],
+                decoded_frames=1 + n_iterations * self.spec_k,
+                ttfa_seconds=metrics.ttfa_seconds,
+                total_seconds=metrics.total_seconds,
+                spec_iterations=n_iterations,
+                spec_accepted=max(0, int(steps[b]) - 1 - n_iterations),
+            )
+            for b in range(B)
+        ]
+        yield SynthesisResult(
+            audio=[audio[b, : n_valid[b] * spf] for b in range(B)],
+            codes=[codes[b, : n_valid[b]] for b in range(B)],
+            metrics=per_stream,
+        )
+
+
+class _FrameEmitter:
+    """The committed frames of one speculative stream, vocoded in windows
+    (``first_chunk_len`` frames first, then ``chunk_len``) with a rolling
+    causal left context, as the sequential stream vocodes its chunks."""
+
+    def __init__(self, engine: TTSEngine, timer: StageTimer, max_tokens: int):
+        self.engine = engine
+        self.timer = timer
+        self.max_tokens = max_tokens
+        self.committed: List[np.ndarray] = []  # [16] rows, in order
+        self.emitted = 0  # frames vocoded and yielded
+        self.audio: List[np.ndarray] = []
+        self.want = engine.first_chunk_len
+        self.tail: Optional[torch.Tensor] = None  # [1, ctx, 16] on the device
+
+    def _vocode(self, frames_np: np.ndarray) -> np.ndarray:
+        eng = self.engine
+        voc_cfg = eng.cfg.vocoder
+        frames = torch.from_numpy(np.ascontiguousarray(frames_np, np.int64))[None].to(eng.device)
+        n_ctx = 0 if self.tail is None else int(self.tail.shape[1])
+        window = frames if self.tail is None else torch.cat([self.tail, frames], dim=1)
+        audio = vocode_chunk(voc_cfg, eng.params["vocoder"], window, n_ctx)
+        ctx = min(voc_cfg.left_context_frames, int(window.shape[1]))
+        self.tail = window[:, window.shape[1] - ctx :]
+        return audio[0].cpu().numpy().astype(np.float32)
+
+    def drain(self, final: bool = False):
+        """Yield the audio of every full window of committed frames up to
+        ``max_tokens`` (and, when ``final``, of the frames left over)."""
+        limit = min(len(self.committed), self.max_tokens)
+        while limit - self.emitted >= self.want or (final and limit > self.emitted):
+            n = min(self.want, limit - self.emitted)
+            with self.timer.stage("vocode"):
+                audio = self._vocode(np.stack(self.committed[self.emitted : self.emitted + n]))
+            self.audio.append(audio)
+            self.emitted += n
+            self.timer.mark_first_audio()
+            self.want = self.engine.chunk_len
+            yield audio

@@ -232,14 +232,21 @@ class MelConfig:
 
 @dataclass(frozen=True)
 class DraftConfig:
-    """Speculative-decoding draft head (not ported yet; kept for JSON round-trips)."""
+    """Trained draft head for speculative decoding (``models/draft.py``).
 
-    hidden_size: int = 1024
+    Optional: when a checkpoint carries draft parameters, the engine's and
+    the pool's ``spec_k`` paths draft with it instead of the repeat draft."""
+
+    hidden_size: int = 1024  # talker hidden size it conditions on
     d_model: int = 512
     codec_vocab_size: int = 3072
     subcode_vocab_size: int = 2048
     num_codebooks: int = 16
     dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
 
 
 _SUBCONFIGS = {

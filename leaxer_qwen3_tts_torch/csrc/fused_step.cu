@@ -86,12 +86,12 @@ int qtts_launch_decode_step(const QttsStepWeights& w, const QttsStepScratch& s,
     if (cache_bf16) {
       QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.attn,
                                      static_cast<__nv_bfloat16*>(k_cache),
-                                     static_cast<__nv_bfloat16*>(v_cache), 1, T, nullptr, pos,
-                                     n_splits, st));
+                                     static_cast<__nv_bfloat16*>(v_cache), 1, 1, T, nullptr,
+                                     pos, n_splits, st));
     } else {
       QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.attn,
                                      static_cast<float*>(k_cache), static_cast<float*>(v_cache),
-                                     1, T, nullptr, pos, n_splits, st));
+                                     1, 1, T, nullptr, pos, n_splits, st));
     }
     QTTS_TRY((launch_gemv<QTTS_IN_PLAIN, true>(s.attn, nullptr, 0.f,
                                                w.wo + (size_t)l * H * qd,

@@ -203,12 +203,12 @@ int qtts_launch_decode_step_batched(const QttsStepWeights& w, const QttsBatchScr
     if (cache_bf16) {
       QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.hb,
                                      static_cast<__nv_bfloat16*>(k_cache),
-                                     static_cast<__nv_bfloat16*>(v_cache), B, T, pos_dev,
+                                     static_cast<__nv_bfloat16*>(v_cache), B, 1, T, pos_dev,
                                      pos_host, n_splits, st));
     } else {
       QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.hb,
                                      static_cast<float*>(k_cache), static_cast<float*>(v_cache),
-                                     B, T, pos_dev, pos_host, n_splits, st));
+                                     B, 1, T, pos_dev, pos_host, n_splits, st));
     }
     QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wo + (size_t)l * H * qd,
                                                 w.so + (size_t)l * H, x, H, B, H, qd, 1, st));

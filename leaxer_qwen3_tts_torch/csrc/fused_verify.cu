@@ -1,0 +1,105 @@
+// Kernel K6: the speculative verify step.  S = 2..8 candidate inputs of each
+// of B streams (R = B * S <= 32 rows) run through every layer of a GQA
+// transformer in one pass, candidate s of stream b at position pos[b] + s,
+// with each weight row read once for all R rows.
+//
+// Replaces leaxer_qwen3_tts_tpu/ops/fused_verify.py::fused_verify_step
+// (_make_verify_kernel, modes "vmem" and "win"; B = 1 there, and the JAX
+// package's B > 1 verify runs plain XLA layers, which this kernel's R rows
+// take over on the card).  Per layer, for every row (b, s), the same math as
+// one K4 step of stream b at position pos[b] + s, op for op:
+//   h = RMSNorm(x) * attn_norm;  qkv = (bf16(h) @ bf16(W)) * scale  (f32)
+//   per-head QK-norm, RoPE at pos[b] + s, K/V written at that slot of cache
+//   row b, attention over slots 0..pos[b] + s (an intra-block causal tail:
+//   candidate s sees the new slots of candidates 0..s);
+//   x += bf16(attn) @ Wo * scale; h = RMSNorm(x) * mlp_norm;
+//   x += bf16(silu(gate) * up) @ Wd * scale.
+// So row (b, s) equals what K1 / K4 give after stepping candidates 0..s-1 one
+// at a time, bit for bit, which keeps greedy speculative output equal to
+// greedy sequential output on the card.
+//
+// The race the Pallas kernel does not have: its S new slots sat in VMEM
+// registers for the whole block.  Here candidate s reads slots pos..pos+s-1,
+// which blocks of other rows write, in any order.  So every new slot is
+// written to the cache by qtts_kv_write_kernel in its own launch first, and
+// the split attention then reads every slot, the new ones included, from
+// memory, rounded to the cache dtype (the JAX "win" mode's tail used the
+// unrounded register values; one rounding rule for every bucket here).  The
+// starts come from a device array (the pool) or a host int (the engine) and
+// are clamped into [0, T - S] in the kernel, as the JAX wrapper clamps them.
+//
+// What bounds it on the H100: the int8 weight bytes, 440 MB per pass of the
+// 0.6B talker whatever R is (0.13 ms at the 3.35 TB/s of an H100 SXM, NVIDIA
+// data sheet), plus the cache each row reads.  The GEMVs are K4's row
+// kernels at R rows (qtts_launch_prep_rows / qtts_launch_gemv_rows), so they
+// share K4's limits: ten launches per layer, no cp.async / TMA weight
+// pipeline, and per-lane accumulators sized for the next power of two of R.
+
+#include "qtts_kernels.cuh"
+
+namespace {
+
+int launch_verify_step(const QttsStepWeights& w, const QttsBatchScratch& s, const float* x_in,
+                       float* x, void* k_cache, void* v_cache, int cache_bf16, int B, int S, int T,
+                       const int64_t* pos_dev, int pos_host, cudaStream_t st) {
+  if (w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int R = B * S;
+  if (S < 2 || S > 8 || B < 1 || R > QTTS_MAX_BATCH || T < S) return (int)cudaErrorInvalidValue;
+  if (pos_dev == nullptr && (pos_host < 0 || pos_host > T - S)) return (int)cudaErrorInvalidValue;
+  // device starts: every split of the bucket; a host start: its last row's
+  const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
+                               : (pos_host + S - 1) / QTTS_ATTN_CHUNK + 1;
+  if (n_splits > s.max_splits) return (int)cudaErrorInvalidValue;
+  const int H = w.H, I = w.I, qd = w.nq * w.D, A = qd + 2 * w.nk * w.D;
+  if (x_in != x) {
+    QTTS_TRY(cudaMemcpyAsync(x, x_in, (size_t)R * H * sizeof(float), cudaMemcpyDeviceToDevice,
+                             st));
+  }
+  for (int l = 0; l < w.L; ++l) {
+    QTTS_TRY((cudaError_t)qtts_launch_prep_rows(QTTS_IN_NORM, x, H, w.attn_norm + (size_t)l * H,
+                                                w.eps, H, s.hb, R, st));
+    QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wqkv + (size_t)l * A * H,
+                                                w.sqkv + (size_t)l * A, s.qkv, A, R, A, H, 0,
+                                                st));
+    if (cache_bf16) {
+      QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.hb,
+                                     static_cast<__nv_bfloat16*>(k_cache),
+                                     static_cast<__nv_bfloat16*>(v_cache), R, S, T, pos_dev,
+                                     pos_host, n_splits, st));
+    } else {
+      QTTS_TRY(qtts_launch_attention(w, l, s.qkv, s.part, s.max_splits, s.hb,
+                                     static_cast<float*>(k_cache), static_cast<float*>(v_cache),
+                                     R, S, T, pos_dev, pos_host, n_splits, st));
+    }
+    QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wo + (size_t)l * H * qd,
+                                                w.so + (size_t)l * H, x, H, R, H, qd, 1, st));
+    QTTS_TRY((cudaError_t)qtts_launch_prep_rows(QTTS_IN_NORM, x, H, w.mlp_norm + (size_t)l * H,
+                                                w.eps, H, s.hb, R, st));
+    QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wgu + (size_t)l * 2 * I * H,
+                                                w.sgu + (size_t)l * 2 * I, s.gu, 2 * I, R,
+                                                2 * I, H, 0, st));
+    QTTS_TRY((cudaError_t)qtts_launch_prep_rows(QTTS_IN_SILU, s.gu, 2 * I, nullptr, 0.f, I,
+                                                s.hb, R, st));
+    QTTS_TRY((cudaError_t)qtts_launch_gemv_rows(s.hb, w.wd + (size_t)l * H * I,
+                                                w.sd + (size_t)l * H, x, H, R, H, I, 1, st));
+  }
+  return (int)cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel K6 entry: x_out [B * S, H] (row b * S + s) = the verify pass of
+// x_in with the caches [L, B, nk, T, D] updated in place; pos_dev [B] int64
+// starts on the device, or null for every stream at pos_host.
+int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const float* x_in,
+                     float* x_out, void* k_cache, void* v_cache, int cache_bf16, int B, int S,
+                     int T, const int64_t* pos_dev, int pos_host, void* stream) {
+  return launch_verify_step(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, B, S, T, pos_dev,
+                            pos_host, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -360,30 +360,59 @@ __device__ __forceinline__ void qtts_load4(const __nv_bfloat16* p, float (&o)[4]
   o[0] = fa.x; o[1] = fa.y; o[2] = fb.x; o[3] = fb.y;
 }
 
-// Position of row b: the device array's entry clamped into [0, T) (an idle
-// pool slot keeps stepping past the end; the JAX wrapper clamps likewise),
-// else the host position.
-__device__ __forceinline__ int qtts_row_pos(const int64_t* pos_dev, int pos_host, int b, int T) {
-  if (pos_dev == nullptr) return pos_host;
-  const int64_t p = pos_dev[b];
-  return p < 0 ? 0 : (p >= T ? T - 1 : (int)p);
+// Position of launch row r.  S rows share one cache row (K1 and K4: S = 1;
+// K6's verify: row r is candidate s = r % S of cache row b = r / S): the
+// cache row's start from the device array, clamped into [0, T - S] (an idle
+// pool slot keeps stepping past the end; the JAX wrappers clamp likewise),
+// else the host start, plus s.
+__device__ __forceinline__ int qtts_row_pos(const int64_t* pos_dev, int pos_host, int r, int T,
+                                            int S) {
+  const int s = r % S;
+  if (pos_dev == nullptr) return pos_host + s;
+  const int64_t p = pos_dev[r / S];
+  const int hi = T - S;
+  return (p < 0 ? 0 : (p >= hi ? hi : (int)p)) + s;
 }
 
-// Grid (nk, n_splits, B), QTTS_ATTN_D threads.  Block (h, s, b) normalises and
-// rotates kv head h's q heads and k of row b, takes slots
-// [s*CHUNK, min((s+1)*CHUNK, pos+1)) and writes the split's softmax partials.
-// The new slot's k/v come from registers (rounded to the cache dtype, so they
-// equal what the cache holds); split 0 alone writes them to the cache, and no
-// block reads slot pos from memory, so the write never races a read.  A split
-// past the row's position returns at once (the combine never reads it).
-template <typename CT>
+// RMSNorm of one head vector, element t of the block's D threads: (v * r) * w.
+// Block-wide.
+__device__ __forceinline__ float qtts_head_norm(float v, float w, float eps) {
+  const float ss = qtts_block_reduce(v * v, QttsSumF());
+  const float r = rsqrtf(ss / (float)QTTS_ATTN_D + eps);
+  return (v * r) * w;
+}
+
+// Rotate-half RoPE of the pair (x1, x2) by the angle with cosine c and sine
+// s, each product and sum rounded on its own (no fused multiply-add), so that
+// every kernel that rotates a head does it with the same bits.
+__device__ __forceinline__ void qtts_rope_pair(float& x1, float& x2, float c, float s) {
+  const float a = x1, b = x2;
+  x1 = __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, s));
+  x2 = __fadd_rn(__fmul_rn(b, c), __fmul_rn(a, s));
+}
+
+// Grid (nk, n_splits, R), QTTS_ATTN_D threads.  Block (h, split, r)
+// normalises and rotates kv head h's q heads of launch row r (cache row
+// r / S, position pos = qtts_row_pos), takes slots
+// [split*CHUNK, min((split+1)*CHUNK, pos+1)) and writes the split's softmax
+// partials.  A split past the row's position returns at once (the combine
+// never reads it).
+//
+// TAIL_IN_CACHE = false (K1, K4; S = 1): the block also normalises and
+// rotates k, and the new slot's k/v come from registers, rounded to the cache
+// dtype so they equal what the cache holds; split 0 alone writes them, and no
+// block reads slot pos from memory, so the write never races a read.
+// TAIL_IN_CACHE = true (K6): row r reads slots pos - s .. pos, which rows of
+// other blocks write, so qtts_kv_write_kernel stores every new slot in an
+// earlier launch and every slot comes from memory here.
+template <typename CT, bool TAIL_IN_CACHE>
 __global__ void __launch_bounds__(QTTS_ATTN_D)
 qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
                        const float* __restrict__ q_norm, const float* __restrict__ k_norm,
                        const float* __restrict__ inv_freq, CT* __restrict__ kc,
                        CT* __restrict__ vc, size_t cache_row, float* __restrict__ part,
                        int nq, int nk, int T, const int64_t* __restrict__ pos_dev,
-                       int pos_host, int max_splits, float eps, float scale) {
+                       int pos_host, int S, int max_splits, float eps, float scale) {
   constexpr int D = QTTS_ATTN_D;
   constexpr int G = QTTS_ATTN_MAX_G;
   __shared__ float q_s[G][D];
@@ -393,44 +422,32 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
   __shared__ float wl[4][G];
   __shared__ float wacc[4][G][D];
 
-  const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
-  const int pos = qtts_row_pos(pos_dev, pos_host, b, T);
+  const int h = blockIdx.x, split = blockIdx.y, r = blockIdx.z, t = threadIdx.x;
+  const int pos = qtts_row_pos(pos_dev, pos_host, r, T, S);
   if (split * QTTS_ATTN_CHUNK > pos) return;
-  qkv += (size_t)b * qkv_ld;
-  kc += (size_t)b * cache_row;
-  vc += (size_t)b * cache_row;
-  part += (size_t)b * nq * max_splits * (D + 2);
+  qkv += (size_t)r * qkv_ld;
+  kc += (size_t)(r / S) * cache_row;
+  vc += (size_t)(r / S) * cache_row;
+  part += (size_t)r * nq * max_splits * (D + 2);
   const int g = nq / nk;
   const int qd = nq * D, kvd = nk * D;
 
   for (int gi = 0; gi < g; ++gi) {
-    const float v = qkv[(h * g + gi) * D + t];
-    const float ss = qtts_block_reduce(v * v, QttsSumF());
-    const float r = rsqrtf(ss / (float)D + eps);
-    q_s[gi][t] = (v * r) * q_norm[t];
+    q_s[gi][t] = qtts_head_norm(qkv[(h * g + gi) * D + t], q_norm[t], eps);
   }
-  {
-    const float kv = qkv[qd + h * D + t];
-    const float ss = qtts_block_reduce(kv * kv, QttsSumF());
-    const float r = rsqrtf(ss / (float)D + eps);
-    k_s[t] = (kv * r) * k_norm[t];
+  if (!TAIL_IN_CACHE) {
+    k_s[t] = qtts_head_norm(qkv[qd + h * D + t], k_norm[t], eps);
     v_s[t] = qkv[qd + kvd + h * D + t];
   }
   __syncthreads();
   if (t < D / 2) {
     const float ang = (float)pos * inv_freq[t];
     const float c = cosf(ang), s = sinf(ang);
-    for (int gi = 0; gi < g; ++gi) {
-      const float x1 = q_s[gi][t], x2 = q_s[gi][t + D / 2];
-      q_s[gi][t] = x1 * c - x2 * s;
-      q_s[gi][t + D / 2] = x2 * c + x1 * s;
-    }
-    const float x1 = k_s[t], x2 = k_s[t + D / 2];
-    k_s[t] = x1 * c - x2 * s;
-    k_s[t + D / 2] = x2 * c + x1 * s;
+    for (int gi = 0; gi < g; ++gi) qtts_rope_pair(q_s[gi][t], q_s[gi][t + D / 2], c, s);
+    if (!TAIL_IN_CACHE) qtts_rope_pair(k_s[t], k_s[t + D / 2], c, s);
   }
   __syncthreads();
-  {
+  if (!TAIL_IN_CACHE) {
     const CT kq = qtts_to_cache<CT>(k_s[t]);
     const CT vq = qtts_to_cache<CT>(v_s[t]);
     k_s[t] = qtts_from_cache(kq);
@@ -439,8 +456,8 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
       kc[((size_t)h * T + pos) * D + t] = kq;
       vc[((size_t)h * T + pos) * D + t] = vq;
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int warp = t >> 5, lane = t & 31;
   float qr[G][4];
@@ -459,7 +476,7 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
   const int end = min(start + QTTS_ATTN_CHUNK, pos + 1);
   for (int j = start + warp; j < end; j += 4) {
     float kf[4], vf[4];
-    if (j == pos) {
+    if (!TAIL_IN_CACHE && j == pos) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         kf[e] = k_s[lane * 4 + e];
@@ -515,22 +532,53 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
   }
 }
 
+// Grid (nk, R), QTTS_ATTN_D threads (K6): block (h, r) normalises and
+// rotates kv head h's k of launch row r at its position, with the split
+// kernel's helpers and so its bits, and stores k and v there, rounded to the
+// cache dtype.
+template <typename CT>
+__global__ void __launch_bounds__(QTTS_ATTN_D)
+qtts_kv_write_kernel(const float* __restrict__ qkv, int qkv_ld,
+                     const float* __restrict__ k_norm, const float* __restrict__ inv_freq,
+                     CT* __restrict__ kc, CT* __restrict__ vc, size_t cache_row, int nq, int nk,
+                     int T, const int64_t* __restrict__ pos_dev, int pos_host, int S,
+                     float eps) {
+  constexpr int D = QTTS_ATTN_D;
+  __shared__ float k_s[D];
+  const int h = blockIdx.x, r = blockIdx.y, t = threadIdx.x;
+  const int pos = qtts_row_pos(pos_dev, pos_host, r, T, S);
+  qkv += (size_t)r * qkv_ld;
+  const int qd = nq * D, kvd = nk * D;
+  k_s[t] = qtts_head_norm(qkv[qd + h * D + t], k_norm[t], eps);
+  const float v = qkv[qd + kvd + h * D + t];
+  __syncthreads();
+  if (t < D / 2) {
+    const float ang = (float)pos * inv_freq[t];
+    qtts_rope_pair(k_s[t], k_s[t + D / 2], cosf(ang), sinf(ang));
+  }
+  __syncthreads();
+  const size_t at = (size_t)(r / S) * cache_row + ((size_t)h * T + pos) * D + t;
+  kc[at] = qtts_to_cache<CT>(k_s[t]);
+  vc[at] = qtts_to_cache<CT>(v);
+}
+
 __device__ __forceinline__ void qtts_store_attn(float* p, float v) { *p = v; }
 __device__ __forceinline__ void qtts_store_attn(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Grid (nq, B), QTTS_ATTN_D threads: merges row b's partials of q head hq
-// into attn[b, hq*D:(hq+1)*D] (float32 for K1's prologue, bf16 for K4's GEMV).
+// Grid (nq, R), QTTS_ATTN_D threads: merges launch row r's partials of q head
+// hq into attn[r, hq*D:(hq+1)*D] (float32 for K1's prologue, bf16 for the
+// batched GEMV).
 template <typename OT>
 __global__ void __launch_bounds__(QTTS_ATTN_D)
 qtts_attn_combine_kernel(const float* __restrict__ part, OT* __restrict__ attn, int nq,
                          int max_splits, int T, const int64_t* __restrict__ pos_dev,
-                         int pos_host) {
+                         int pos_host, int S) {
   constexpr int D = QTTS_ATTN_D;
-  const int hq = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int n_splits = qtts_row_pos(pos_dev, pos_host, b, T) / QTTS_ATTN_CHUNK + 1;
-  const float* base = part + ((size_t)b * nq + hq) * max_splits * (D + 2);
+  const int hq = blockIdx.x, r = blockIdx.y, t = threadIdx.x;
+  const int n_splits = qtts_row_pos(pos_dev, pos_host, r, T, S) / QTTS_ATTN_CHUNK + 1;
+  const float* base = part + ((size_t)r * nq + hq) * max_splits * (D + 2);
   float M = QTTS_NEG_INF;
   for (int s = 0; s < n_splits; ++s) M = fmaxf(M, base[s * (D + 2)]);
   float L = 0.f, o = 0.f;
@@ -539,25 +587,41 @@ qtts_attn_combine_kernel(const float* __restrict__ part, OT* __restrict__ attn, 
     L += base[s * (D + 2) + 1] * f;
     o += base[s * (D + 2) + 2 + t] * f;
   }
-  qtts_store_attn(attn + ((size_t)b * nq + hq) * D + t, o / L);
+  qtts_store_attn(attn + ((size_t)r * nq + hq) * D + t, o / L);
 }
 
-// Launches the split attention and the combine of layer l for B rows.
+// Launches the attention of layer l for R launch rows, S of them per cache
+// row: for S = 1 the split attention (new slot from registers) and the
+// combine; for S > 1 first the write of every row's new slot, then the split
+// attention reading them from the cache, then the combine.
 template <typename CT, typename OT>
 cudaError_t qtts_launch_attention(const QttsStepWeights& w, int l, const float* qkv,
                                   float* part, int max_splits, OT* attn, CT* kc, CT* vc,
-                                  int B, int T, const int64_t* pos_dev, int pos_host,
+                                  int R, int S, int T, const int64_t* pos_dev, int pos_host,
                                   int n_splits, cudaStream_t st) {
   const size_t row = (size_t)w.nk * T * w.D;
   const int A = (w.nq + 2 * w.nk) * w.D;
-  qtts_attn_split_kernel<CT><<<dim3(w.nk, n_splits, B), QTTS_ATTN_D, 0, st>>>(
-      qkv, A, w.q_norm + (size_t)l * w.D, w.k_norm + (size_t)l * w.D, w.inv_freq,
-      kc + (size_t)l * B * row, vc + (size_t)l * B * row, row, part, w.nq, w.nk, T, pos_dev,
-      pos_host, max_splits, w.eps, w.attn_scale);
+  const float* q_norm = w.q_norm + (size_t)l * w.D;
+  const float* k_norm = w.k_norm + (size_t)l * w.D;
+  const size_t layer = (size_t)l * (R / S) * row;
+  if (S == 1) {
+    qtts_attn_split_kernel<CT, false><<<dim3(w.nk, n_splits, R), QTTS_ATTN_D, 0, st>>>(
+        qkv, A, q_norm, k_norm, w.inv_freq, kc + layer, vc + layer, row, part, w.nq, w.nk, T,
+        pos_dev, pos_host, 1, max_splits, w.eps, w.attn_scale);
+  } else {
+    qtts_kv_write_kernel<CT><<<dim3(w.nk, R), QTTS_ATTN_D, 0, st>>>(
+        qkv, A, k_norm, w.inv_freq, kc + layer, vc + layer, row, w.nq, w.nk, T, pos_dev,
+        pos_host, S, w.eps);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    qtts_attn_split_kernel<CT, true><<<dim3(w.nk, n_splits, R), QTTS_ATTN_D, 0, st>>>(
+        qkv, A, q_norm, k_norm, w.inv_freq, kc + layer, vc + layer, row, part, w.nq, w.nk, T,
+        pos_dev, pos_host, S, max_splits, w.eps, w.attn_scale);
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  qtts_attn_combine_kernel<OT><<<dim3(w.nq, B), QTTS_ATTN_D, 0, st>>>(
-      part, attn, w.nq, max_splits, T, pos_dev, pos_host);
+  qtts_attn_combine_kernel<OT><<<dim3(w.nq, R), QTTS_ATTN_D, 0, st>>>(
+      part, attn, w.nq, max_splits, T, pos_dev, pos_host, S);
   return cudaGetLastError();
 }
 

@@ -60,6 +60,40 @@ def prepare_fused_step(cfg: CodePredictorConfig, cp_params: dict, bits: int = 8)
     return out
 
 
+def takes_chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int) -> bool:
+    """Whether a chain of ``rows`` rows runs kernel K2 / K5 (or their plain
+    versions on the CPU) rather than the cached plain path."""
+    return (
+        cfg.impl == "fused"
+        and "fused_step" in params
+        and rows <= MAX_BATCH
+        and cfg.head_mode == "per_step"
+    )
+
+
+def subcode_embed_sum(
+    cfg: CodePredictorConfig,
+    params: dict,
+    pred_embed_tables: torch.Tensor,  # [num_steps, subcode_vocab, H]
+    subcodes: torch.Tensor,  # [..., num_steps] int
+    rows: int,  # the rows of the chain these codes stand in for
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """The ``sub_embed_sum`` :func:`predict_subcodes` returns for these
+    sub-codes, bit for bit: the chain kernels' float32 running sum
+    (``sum = e_0``, then ``sum + e_j`` in step order, as ``csrc/fused_mtp*.cu``
+    and their plain versions add), or the cached path's grouping (the first
+    n-1 embeddings summed, then the last added), cast to ``dtype``."""
+    embs = [pred_embed_tables[j][subcodes[..., j]] for j in range(subcodes.shape[-1])]
+    if takes_chain_kernel(cfg, params, rows):
+        total = embs[0].float()
+        for e in embs[1:]:
+            total = total + e.float()
+    else:
+        total = torch.stack(embs[:-1]).sum(dim=0) + embs[-1]
+    return total.to(dtype)
+
+
 def predict_subcodes(
     cfg: CodePredictorConfig,
     params: dict,
@@ -77,13 +111,7 @@ def predict_subcodes(
     last_hidden's dtype)."""
     t = cfg.transformer
     B, H = last_hidden.shape
-    if (
-        cfg.impl == "fused"
-        and sp is not None
-        and "fused_step" in params
-        and B <= MAX_BATCH
-        and cfg.head_mode == "per_step"
-    ):
+    if sp is not None and takes_chain_kernel(cfg, params, B):
         noise = None if sp.greedy else noise_fn()
         chain = fused_mtp_chain if B == 1 else fused_mtp_chain_batched
         knobs = sp.rows(1)[0] if B == 1 else sp

@@ -4,8 +4,10 @@ Port of ``leaxer_qwen3_tts_tpu/models/talker.py``.  The dispatch keeps the
 JAX shape: with a packed ``fused_step`` the decode step is kernel K1 at B=1
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step`) and kernel
 K4 at B=2..32 (:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step_batched`,
-per-row positions); otherwise the plain layers path, which runs only on the
-CPU: on a CUDA device a step the kernels cannot take raises.  The final norm
+per-row positions), and the speculative verify pass of K candidates per
+stream is kernel K6 (:func:`~leaxer_qwen3_tts_torch.ops.fused_verify.fused_verify_step`,
+B x K <= 32 rows); otherwise the plain layers path, which runs only on the
+CPU: on a CUDA device a step or a verify pass the kernels cannot take raises.  The final norm
 and the ``lm_head`` stay outside the kernels, in plain PyTorch, as the JAX
 package left them to XLA.
 """
@@ -24,6 +26,7 @@ from ..ops.fused_step import (
     pack_fused_weights,
     supports,
 )
+from ..ops.fused_verify import MAX_S, MIN_S, fused_verify_step
 from ..ops.quant import dense
 from .layers import KVCache, _normal, init_kv_cache, init_transformer_params, rms_norm, transformer_forward
 
@@ -129,3 +132,50 @@ def talker_decode_step(
     )
     hidden = hidden[:, 0]
     return dense(hidden, params["lm_head"]), hidden, cache, valid_mask
+
+
+def talker_verify_step(
+    cfg: TalkerConfig,
+    params: dict,
+    embeds: torch.Tensor,  # [B, K, H] -- K candidate inputs per stream
+    start: torch.Tensor,  # [B] int device tensor: RoPE position and cache slot of candidate 0
+    cache: KVCache,
+    valid_mask: torch.Tensor,  # [B, T] bool
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache, torch.Tensor]:
+    """The speculative verify pass: candidate s of stream b at position
+    ``start[b] + s``, attending over the cache before ``start[b]`` and the
+    new slots of candidates 0..s.  Returns (logits [B, K, V] f32, hidden
+    [B, K, H], cache, valid_mask); the cache is updated in place and its
+    fill level becomes ``start + K``.
+
+    The final norm and the ``lm_head`` run once per candidate slot on [B, H],
+    the shape a sequential step of the same streams gives them, so that each
+    row's logits carry the sequential step's bits (a product over more rows
+    may round differently)."""
+    B, K, H = embeds.shape
+    t = cfg.transformer
+    T = cache.max_len
+    slots = torch.arange(T, device=embeds.device)
+    new = (slots[None, :] >= start[:, None]) & (slots[None, :] < start[:, None] + K)
+    if (cfg.decode_impl == "fused" and "fused_step" in params and B * K <= MAX_BATCH
+            and MIN_S <= K <= MAX_S):
+        x_out, _, _ = fused_verify_step(t, params["fused_step"], embeds, start, cache.k, cache.v)
+        fn = params["transformer"]["final_norm"]
+        hidden = [rms_norm(x_out[:, s].contiguous(), fn, t.rms_norm_eps).to(embeds.dtype)
+                  for s in range(K)]
+        valid_mask = valid_mask | new
+    elif embeds.device.type == "cuda":
+        raise RuntimeError(
+            f"verify pass of {B} x {K} rows: the verify kernel takes a packed int8 talker, "
+            f"{MIN_S}..{MAX_S} candidates and at most {MAX_BATCH} rows (ROADMAP M12b); the "
+            f"plain layers do not run on the card"
+        )
+    else:
+        positions = start[:, None] + torch.arange(K, device=embeds.device)[None, :]
+        h, cache, valid_mask = transformer_forward(
+            t, params["transformer"], embeds, positions, cache._replace(length=start), valid_mask,
+            uniform_fill=False,
+        )
+        hidden = [h[:, s] for s in range(K)]
+    logits = torch.stack([dense(h, params["lm_head"]) for h in hidden], dim=1)
+    return logits, torch.stack(hidden, dim=1), cache._replace(length=start + K), valid_mask

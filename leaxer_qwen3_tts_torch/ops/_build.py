@@ -22,7 +22,10 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("fused_step.cu", "fused_step_batched.cu", "fused_mtp.cu", "fused_mtp_batched.cu")
+SOURCES = (
+    "fused_step.cu", "fused_step_batched.cu", "fused_mtp.cu", "fused_mtp_batched.cu",
+    "fused_verify.cu",
+)
 HEADERS = ("qtts_kernels.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -80,7 +83,7 @@ class ChainArgs(ctypes.Structure):
     ]
 
 
-MAX_BATCH = 32  # QTTS_MAX_BATCH: the rows kernels K4 and K5 take
+MAX_BATCH = 32  # QTTS_MAX_BATCH: the rows kernels K4, K5 and K6 take
 
 
 class BatchScratch(ctypes.Structure):
@@ -195,6 +198,11 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_mtp_chain_batched.argtypes = [
                 ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch),
                 ctypes.POINTER(ChainBatchArgs), vp,
+            ]
+            lib.qtts_verify_step.restype = i32
+            lib.qtts_verify_step.argtypes = [
+                ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch), vp, vp, vp, vp,
+                i32, i32, i32, i32, vp, i32, vp,
             ]
             _lib = lib
         return _lib

@@ -1,0 +1,123 @@
+"""Kernel K6: the speculative verify step, S candidate inputs per stream
+through every layer in one pass.
+
+Port of ``leaxer_qwen3_tts_tpu/ops/fused_verify.py::fused_verify_step``,
+generalised from one stream to B streams: candidate s of stream b runs at
+position ``pos[b] + s`` and writes that slot of cache row b, and attends over
+slots 0..pos[b] + s (the cache before ``pos[b]`` plus the new slots of
+candidates 0..s).  That is the JAX package's S=K verify at B=1 and its
+per-row-fill ``transformer_forward`` at B>1.  The result is the
+PRE-final-norm hidden state, float32; the caches are updated IN PLACE.
+
+Row (b, s) is the function one decode step of stream b at ``pos[b] + s``
+computes after candidates 0..s-1 have been stepped, so the plain version,
+:func:`fused_verify_step_reference`, is exactly those S steps of kernel K4's
+plain version, and the CUDA kernel (``csrc/fused_verify.cu``) does K4's
+arithmetic for every row, op for op.  On a CUDA tensor
+:func:`fused_verify_step` launches the kernel or raises; on a CPU tensor it
+runs the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import TransformerConfig
+from ._build import MAX_BATCH
+from .fused_step import (
+    FusedStepWeights,
+    _check_cuda_inputs,
+    batch_structs,
+    fused_decode_step_batched_reference,
+)
+
+MIN_S, MAX_S = 2, 8  # candidates per stream, as the JAX kernel takes them
+
+
+def verify_starts(pos, B: int, S: int, T: int, device) -> torch.Tensor:
+    """[B] int64 first write slots, clamped into [0, T - S] like the JAX
+    wrapper (positions pos..pos+S-1 must fit in the bucket)."""
+    if isinstance(pos, torch.Tensor):
+        return torch.clamp(pos.to(device=device, dtype=torch.long).reshape(B), 0, T - S)
+    return torch.full((B,), min(max(int(pos), 0), T - S), dtype=torch.long, device=device)
+
+
+def _check_shapes(x: torch.Tensor, k_cache: torch.Tensor) -> Tuple[int, int, int]:
+    B, S, _ = x.shape
+    T = k_cache.shape[3]
+    if not MIN_S <= S <= MAX_S:
+        raise ValueError(f"fused_verify_step takes {MIN_S}..{MAX_S} candidates, got {S}")
+    if k_cache.shape[1] != B or T < S:
+        raise ValueError(f"fused_verify_step: cache {tuple(k_cache.shape)} for {B} x {S} rows")
+    return B, S, T
+
+
+def fused_verify_step_reference(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    x: torch.Tensor,  # [B, S, H]
+    pos,  # [B] int tensor, or one int for every stream
+    k_cache: torch.Tensor,  # [L, B, nk, T, d], updated in place
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel K6; same contract: the S candidates
+    stepped one after another through K4's plain version."""
+    B, S, T = _check_shapes(x, k_cache)
+    start = verify_starts(pos, B, S, T, x.device)
+    rows = [
+        fused_decode_step_batched_reference(cfg, fw, x[:, s], start + s, k_cache, v_cache)[0]
+        for s in range(S)
+    ]
+    return torch.stack(rows, dim=1), k_cache, v_cache
+
+
+def fused_verify_step(
+    cfg: TransformerConfig,
+    fw: FusedStepWeights,
+    x: torch.Tensor,  # [B, S, H]
+    pos,  # [B] int tensor on x's device (per stream), or one int (every stream)
+    k_cache: torch.Tensor,  # [L, B, nk, T, d]
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One verify pass of S candidates per stream over all layers.
+
+    Returns (x_out [B, S, H] float32 pre-final-norm, k_cache, v_cache); the
+    caches are updated in place.  Each stream's start is clamped into
+    [0, T - S].  A start tensor stays on the device: the kernel reads it, so
+    the pass needs no host sync."""
+    B, S, T = _check_shapes(x, k_cache)
+    if x.device.type == "cpu":
+        return fused_verify_step_reference(cfg, fw, x, pos, k_cache, v_cache)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_verify_step: unsupported device {x.device}")
+    if B * S > MAX_BATCH:
+        raise ValueError(f"fused_verify_step takes at most {MAX_BATCH} rows, got {B} x {S}")
+    _check_cuda_inputs(fw, k_cache, v_cache)
+    from ._build import check, load_kernels
+
+    lib = load_kernels()
+    H = cfg.hidden_size
+    w, s, scratch = batch_structs(cfg, fw, B * S, T, x.device)
+    x_in = x.float().reshape(B * S, H).contiguous()
+    x_out = torch.empty((B * S, H), dtype=torch.float32, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        pos_dev = pos.to(dtype=torch.long).reshape(B).contiguous()
+        if pos_dev.device != x.device:
+            raise ValueError("fused_verify_step: starts must be on the device")
+        pos_ptr, pos_host = pos_dev.data_ptr(), 0
+    else:
+        pos_ptr, pos_host = None, min(max(int(pos), 0), T - S)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fused_verify_step.launches += 1
+    err = lib.qtts_verify_step(
+        w, s, x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        int(k_cache.dtype == torch.bfloat16), B, S, T, pos_ptr, pos_host, stream,
+    )
+    check(err, "fused_verify_step")
+    del scratch  # enqueued; the caching allocator orders reuse on the stream
+    return x_out.reshape(B, S, H), k_cache, v_cache
+
+
+fused_verify_step.launches = 0  # kernel launches, for chip_smoke.py's path check

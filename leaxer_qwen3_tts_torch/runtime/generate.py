@@ -86,13 +86,65 @@ def prefill(
     return state, bundle
 
 
-def _compute_drip(step: torch.Tensor, trailing, trailing_len, tts_pad_embed) -> torch.Tensor:
-    """This frame's text-drip embedding [B, H]: row ``step[b]`` of stream b's
-    trailing buffer while its text lasts, then the TTS_PAD embedding."""
+def sample_code0(
+    logits: torch.Tensor,  # [B, V] f32, the talker's logits of B streams
+    suppress: torch.Tensor,
+    sp: SamplingParams,
+    knobs: RowKnobs,
+    noise: NoiseSource,
+) -> torch.Tensor:
+    """Codebook 0 of B streams: control tokens suppressed except EOS (and EOS
+    too where forbidden), then each stream's draw.  Returns [B] int64."""
+    B, V = logits.shape
+    rows = sp.rows(B)
+    logits = logits + suppress[None, :]
+    if any(r.forbid_eos for r in rows):
+        logits[:, CODEC_EOS] += knobs.eos_add if sp.per_row else -1e30
+    return sample_token(logits, sp, noise.draw([0 if r.greedy else noise_width(V, r)
+                                                for r in rows]), knobs)
+
+
+def sample_subcodes(
+    cfg: TTSModelConfig,
+    params: dict,
+    last_hidden: torch.Tensor,  # [B * slots, H]
+    code0: torch.Tensor,  # [B * slots]
+    sp: SamplingParams,  # the B streams' knobs
+    noise: NoiseSource,
+    slots: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Codebooks 1..15 of B streams with ``slots`` candidate rows each (row
+    b * slots + j: stream b's candidate j, sampled with stream b's knobs and
+    noise).  Returns (code0_embed, subcodes, sub_sum), one row per input row."""
+    emb = params["embeddings"]
+    cp = cfg.code_predictor
+    code0_embed = codec_embed(emb, code0)
+    rows = sp.rows(last_hidden.shape[0] // slots)
+    flat = sp.repeat(slots)
+    Vs = cp.subcode_vocab_size
+    sub_widths = [0 if r.greedy else noise_width(Vs, r) for r in rows]
+    subcodes, sub_sum = predict_subcodes(
+        cp,
+        params["code_predictor"],
+        emb["pred_embed"],
+        last_hidden,
+        code0_embed,
+        lambda lg, j: sample_token(lg, flat, noise.draw(sub_widths, slots)),
+        sp=flat,
+        noise_fn=lambda: noise.draw_chain(cp.num_steps, Vs, [not r.greedy for r in rows], slots),
+    )
+    return code0_embed, subcodes, sub_sum
+
+
+def compute_drip(step: torch.Tensor, trailing, trailing_len, tts_pad_embed) -> torch.Tensor:
+    """The text-drip embedding of frame index ``step`` ([B] or [B, k]): row
+    ``step[b]`` of stream b's trailing buffer while its text lasts, then the
+    TTS_PAD embedding.  Returns [B, H] or [B, k, H]."""
     B, T = trailing.shape[:2]
-    drip = trailing[torch.arange(B, device=trailing.device), torch.clamp(step, max=T - 1)]
-    use_text = step < trailing_len  # [B]
-    return torch.where(use_text[:, None], drip, tts_pad_embed[None, :].to(drip.dtype))
+    rows = torch.arange(B, device=trailing.device).reshape((B,) + (1,) * (step.dim() - 1))
+    drip = trailing[rows, torch.clamp(step, max=T - 1)]
+    use_text = step < trailing_len.reshape(rows.shape)
+    return torch.where(use_text[..., None], drip, tts_pad_embed.to(drip.dtype))
 
 
 def _frame_step(
@@ -108,41 +160,18 @@ def _frame_step(
     uniform_fill: bool = True,
 ) -> Tuple[GenerateState, Tuple[torch.Tensor, torch.Tensor]]:
     """One 12 Hz frame.  Returns (state', (frame_codes [B, 16] int32, frame_valid [B]))."""
-    emb = params["embeddings"]
-    cp = cfg.code_predictor
-    B, V = state.last_logits.shape
     noise = NoiseSource(state.generators, state.last_logits.device)
-    rows = sp.rows(B)
-
-    # --- codebook 0: suppress control tokens except EOS, sample ---
-    logits = state.last_logits + suppress[None, :]
-    if any(r.forbid_eos for r in rows):
-        logits[:, CODEC_EOS] += knobs.eos_add if sp.per_row else -1e30
-    code0 = sample_token(logits, sp, noise.draw([0 if r.greedy else noise_width(V, r)
-                                                 for r in rows]), knobs)
+    code0 = sample_code0(state.last_logits, suppress, sp, knobs, noise)
     is_eos = code0 == CODEC_EOS
     frame_valid = ~state.done & ~is_eos
     done = state.done | is_eos
-
-    # --- codebooks 1..15 ---
-    code0_embed = codec_embed(emb, code0)  # [B, H]
-    Vs = cp.subcode_vocab_size
-    sub_widths = [0 if r.greedy else noise_width(Vs, r) for r in rows]
-    subcodes, sub_sum = predict_subcodes(
-        cp,
-        params["code_predictor"],
-        emb["pred_embed"],
-        state.last_hidden,
-        code0_embed,
-        lambda lg, j: sample_token(lg, sp, noise.draw(sub_widths)),
-        sp=sp,
-        noise_fn=lambda: noise.draw_chain(cp.num_steps, Vs, [not r.greedy for r in rows]),
-    )
+    code0_embed, subcodes, sub_sum = sample_subcodes(cfg, params, state.last_hidden, code0, sp,
+                                                     noise)
     frame = torch.cat([code0[:, None].to(torch.int32), subcodes.to(torch.int32)], dim=1)
     frame = torch.where(frame_valid[:, None], frame, 0)
 
     # --- next talker input: codec sum + text drip ---
-    drip = _compute_drip(state.step, trailing, trailing_len, tts_pad_embed)
+    drip = compute_drip(state.step, trailing, trailing_len, tts_pad_embed)
     next_embed = (code0_embed + sub_sum + drip).to(code0_embed.dtype)
 
     logits2, hidden2, cache, valid_mask = talker_decode_step(

@@ -74,6 +74,15 @@ class SamplingParams(NamedTuple):
                 cols.append((v,) * B)
         return [SamplingParams(*r) for r in zip(*cols)]
 
+    def repeat(self, slots: int) -> "SamplingParams":
+        """Per-row knobs with each row repeated ``slots`` times (the K
+        candidate rows of a stream in a verify pass); scalars as they are."""
+        if slots == 1 or not self.per_row:
+            return self
+        return SamplingParams(*(
+            tuple(x for x in v for _ in range(slots)) if isinstance(v, tuple) else v for v in self
+        ))
+
     @property
     def greedy(self) -> bool:
         """True when every row decodes greedily."""
@@ -126,31 +135,38 @@ class NoiseSource:
         self.generators = tuple(generators)
         self.device = device
 
-    def draw(self, widths: Sequence[int]) -> Optional[torch.Tensor]:
-        """[B, max(widths)] noise; row b reads its first widths[b] columns
-        (0: a greedy row, which draws nothing)."""
+    def draw(self, widths: Sequence[int], slots: int = 1) -> Optional[torch.Tensor]:
+        """[B * slots, max(widths)] noise of B streams with ``slots`` rows
+        each; stream b's rows b * slots .. b * slots + slots - 1 read their
+        first widths[b] columns (0: a greedy stream, which draws nothing)."""
         W = max(widths)
         if W == 0:
             return None
         if len(self.generators) == 1:
-            return gumbel_noise((len(widths), W), self.generators[0], self.device)
-        u = torch.zeros((len(widths), W), dtype=torch.float32, device=self.device)
+            return gumbel_noise((len(widths) * slots, W), self.generators[0], self.device)
+        u = torch.zeros((len(widths) * slots, W), dtype=torch.float32, device=self.device)
         for b, w in enumerate(widths):
             if w:
-                u[b, :w].uniform_(generator=self.generators[b])
+                u[b * slots : (b + 1) * slots, :w].uniform_(generator=self.generators[b])
         return _gumbel(u)
 
-    def draw_chain(self, n: int, V: int, sampled: Sequence[bool]) -> Optional[torch.Tensor]:
-        """[n, B, V] noise of the MTP chain (None when no row samples)."""
+    def draw_chain(
+        self, n: int, V: int, sampled: Sequence[bool], slots: int = 1
+    ) -> Optional[torch.Tensor]:
+        """[n, B * slots, V] noise of the MTP chain of B streams with
+        ``slots`` candidate rows each (speculative verify: row b * slots + j
+        is stream b's candidate j, drawn from stream b's generator); None
+        when no stream samples."""
         if not any(sampled):
             return None
+        B = len(sampled)
         if len(self.generators) == 1:
-            return gumbel_noise((n, len(sampled), V), self.generators[0], self.device)
-        u = torch.zeros((len(sampled), n, V), dtype=torch.float32, device=self.device)
+            return gumbel_noise((n, B * slots, V), self.generators[0], self.device)
+        u = torch.zeros((B, slots, n, V), dtype=torch.float32, device=self.device)
         for b, s in enumerate(sampled):
             if s:
                 u[b].uniform_(generator=self.generators[b])
-        return _gumbel(u).permute(1, 0, 2)
+        return _gumbel(u).reshape(B * slots, n, V).permute(1, 0, 2)
 
 
 class RowKnobs(NamedTuple):

@@ -1,7 +1,7 @@
 """Continuous batching: a persistent decode pool with per-slot admit/retire.
 
-Port of ``leaxer_qwen3_tts_tpu/serve/pool.py`` without the speculative mode
-(ROADMAP M12) and without a device mesh (ROADMAP M15):
+Port of ``leaxer_qwen3_tts_tpu/serve/pool.py`` without a device mesh
+(ROADMAP M15):
 
   * B decode SLOTS run one shared chunked decode forever; requests are
     ADMITTED into free slots at chunk boundaries and RETIRED independently on
@@ -22,11 +22,22 @@ text-drip buffer and noise generator.  Pool chunks decode with
 the device, so a chunk needs no host sync.  Retirement vocodes the stream's
 codes off the decode loop and resolves its future.
 
+Speculative mode (``spec_k``): each pool decode runs ``spec_iters`` verify
+iterations over ``pool_size`` x ``spec_k`` candidate rows (kernels K6 and K5
+on the card) with per-slot acceptance, fill levels and EOS latches, all on
+the device.  The admission prefill also samples frame 0 (the spec state's
+pending frame), so every request's first frame is committed at the splice.
+When the pool-wide trailing acceptance stays below the engine's
+``spec_accept_floor``, the whole pool converts to sequential decode
+(``spec_to_seq``) and stays there; ``stats["spec_fallback"]`` reports it.
+
 Determinism: each slot has its own ``torch.Generator``, seeded at admission
 from (pool seed, request seed) -- never from the slot or the admission order
 -- so a seeded request's codes are a function of (text, language, knobs,
-seed), whichever slot it lands in and whatever else is in flight.  Requests
-without a seed fold in an admission counter for a fresh stream each time.
+seed), whichever slot it lands in and whatever else is in flight (in spec
+mode, as long as the pool does not fall back mid-request: the fallback is
+pool-wide).  Requests without a seed fold in an admission counter for a
+fresh stream each time.
 """
 
 from __future__ import annotations
@@ -52,6 +63,13 @@ from ..ops.fused_step import MAX_BATCH
 from ..runtime.generate import GenerateState, make_generate_fns
 from ..runtime.prompt import prompt_length, tts_embeds
 from ..runtime.sampling import SamplingParams
+from ..runtime.speculative import (
+    SpecState,
+    decode_frames_spec,
+    default_draft,
+    make_spec_generate_fns,
+    spec_to_seq,
+)
 from ..utils.metrics import SynthesisMetrics
 
 log = logging.getLogger(__name__)
@@ -136,16 +154,22 @@ class ContinuousBatcher:
         text_bucket_max: Optional[int] = None,
         seed: int = 0,
         spec_k: Optional[int] = None,
+        spec_iters: int = 2,
         sync_check: bool = False,
     ):
-        if spec_k is not None:
-            raise NotImplementedError(
-                "the speculative pool decode is not ported yet (ROADMAP M12)"
-            )
+        if spec_k is not None and not 2 <= int(spec_k) <= 8:
+            raise ValueError("spec_k must be in [2, 8]")
+        self.spec_k = int(spec_k) if spec_k else None
+        self.spec_iters = max(1, int(spec_iters))
         self.device = engine.device
         if self.device.type == "cuda" and not 2 <= int(pool_size) <= MAX_BATCH:
             raise EngineError(
                 f"pool_size {pool_size}: the batched kernels take 2..{MAX_BATCH} slots"
+            )
+        if self.device.type == "cuda" and self.spec_k and int(pool_size) * self.spec_k > MAX_BATCH:
+            raise EngineError(
+                f"pool_size {pool_size} with spec_k={self.spec_k}: the verify kernel takes at "
+                f"most {MAX_BATCH} rows (pool_size x spec_k; ROADMAP M12b)"
             )
         if sync_check and self.device.type != "cuda":
             raise ValueError("sync_check needs a CUDA engine")
@@ -165,9 +189,11 @@ class ContinuousBatcher:
 
         cfg = self.cfg
         B = self.pool_size
-        # uniform_fill=False: pool slots run at DIFFERENT fill levels
-        self._fns = make_generate_fns(cfg, batch=B, max_len=self.kv_bucket,
-                                      chunk_len=self.chunk_len, uniform_fill=False)
+        if self.spec_k:
+            self._draft_fn = default_draft(cfg, engine.params)
+            self._decode = self._spec_decode
+        else:
+            self._use_sequential_decode()
         self._state = self._make_idle_state()
         H = cfg.talker.hidden_size
         dt = cfg.talker.transformer.torch_dtype
@@ -187,6 +213,11 @@ class ContinuousBatcher:
         self._requests_done = 0
         self._chunks_run = 0
         self._admits = 0  # unseeded requests' noise derivation counter
+        # adaptive spec, pool-wide: trailing committed slots and iterations of
+        # live streams since the last window
+        self._acc_slots = 0
+        self._acc_iters = 0
+        self._spec_fallback = False
         # device work of other threads waits for a sync-checked chunk
         self._device_lock = threading.Lock()
         # admission prefills run on worker threads; the decode loop only
@@ -252,6 +283,7 @@ class ContinuousBatcher:
             "requests": self._requests_done,
             "queued": self._queue.qsize(),
             "active": sum(s is not None for s in self._slots),
+            "spec_fallback": self._spec_fallback,
         }
 
     def shutdown(self, wait: bool = True) -> None:
@@ -289,20 +321,43 @@ class ContinuousBatcher:
         gen.manual_seed(seed)
         return gen
 
-    def _make_idle_state(self) -> GenerateState:
+    def _use_sequential_decode(self) -> None:
+        # uniform_fill=False: pool slots run at DIFFERENT fill levels
+        self._fns = make_generate_fns(self.cfg, batch=self.pool_size, max_len=self.kv_bucket,
+                                      chunk_len=self.chunk_len, uniform_fill=False)
+        self._decode = self._fns.decode
+
+    def _spec_decode(self, params, state, trailing, trailing_len, tts_pad, sp):
+        return decode_frames_spec(self.cfg, params, state, trailing, trailing_len, tts_pad, sp,
+                                  self.spec_k, self.spec_iters, self._draft_fn)
+
+    def _make_idle_state(self):
         """Fresh all-slots-idle pool state: at construction and to recover
         after a failed chunk (in-flight requests were failed by the caller)."""
         cfg = self.cfg
         B, T = self.pool_size, self.kv_bucket
         H, V = cfg.talker.hidden_size, cfg.talker.codec_vocab_size
+        dt = cfg.talker.transformer.torch_dtype
         dev = self.device
         cache = talker_init_cache(cfg.talker, B, T, dev)
         zeros = torch.zeros((B,), dtype=torch.long, device=dev)
+        if self.spec_k:
+            return SpecState(
+                cache=cache._replace(length=zeros),
+                valid_mask=torch.zeros((B, T), dtype=torch.bool, device=dev),
+                pending=torch.zeros((B, 16), dtype=torch.int32, device=dev),
+                pending_nodrip=torch.zeros((B, H), dtype=dt, device=dev),
+                pending_hidden=torch.zeros((B, H), dtype=dt, device=dev),
+                rope_pos=zeros,
+                step=torch.ones((B,), dtype=torch.long, device=dev),
+                done=torch.ones((B,), dtype=torch.bool, device=dev),  # empty slots idle as done
+                generators=tuple(self._generator(self._seed) for _ in range(B)),
+            )
         return GenerateState(
             cache=cache._replace(length=zeros.clone()),
             valid_mask=torch.zeros((B, T), dtype=torch.bool, device=dev),
             last_logits=torch.zeros((B, V), dtype=torch.float32, device=dev),
-            last_hidden=torch.zeros((B, H), dtype=cfg.talker.transformer.torch_dtype, device=dev),
+            last_hidden=torch.zeros((B, H), dtype=dt, device=dev),
             pos=zeros.clone(),
             step=zeros.clone(),
             done=torch.ones((B,), dtype=torch.bool, device=dev),  # empty slots idle as done
@@ -310,14 +365,22 @@ class ContinuousBatcher:
             generators=tuple(self._generator(self._seed) for _ in range(B)),
         )
 
-    def _get_prefill(self, lang_id):
-        """B=1 generate callables of the pool's bucket for one language; the
+    def _get_prefill(self, lang_id, spec: bool):
+        """B=1 callables of the pool's bucket for one language: the spec
+        prefill (which samples frame 0), or the generate callables whose
         one-frame decode bootstraps a streaming request's frame 0."""
-        if lang_id not in self._prefill_cache:
-            self._prefill_cache[lang_id] = make_generate_fns(
-                self.cfg, batch=1, max_len=self.kv_bucket, chunk_len=1, lang_id=lang_id,
-            )
-        return self._prefill_cache[lang_id]
+        key = (lang_id, spec)
+        if key not in self._prefill_cache:
+            if spec:
+                self._prefill_cache[key] = make_spec_generate_fns(
+                    self.cfg, max_len=self.kv_bucket, k=self.spec_k, num_iters=self.spec_iters,
+                    lang_id=lang_id,
+                )
+            else:
+                self._prefill_cache[key] = make_generate_fns(
+                    self.cfg, batch=1, max_len=self.kv_bucket, chunk_len=1, lang_id=lang_id,
+                )
+        return self._prefill_cache[key]
 
     def _vocode(self, codes: np.ndarray) -> np.ndarray:
         """Whole-utterance vocode at retirement."""
@@ -443,49 +506,61 @@ class ContinuousBatcher:
                     f"{self.text_bucket_max} bucket)"
                 )
             lang_id = language_to_codec_id(req.language if req.language != "auto" else None)
-            budget = self.kv_bucket - prompt_length(lang_id) - self.chunk_len
+            spec = self.spec_k is not None  # snapshot: the pool may fall back meanwhile
+            per_dispatch = self.spec_k * self.spec_iters if spec else self.chunk_len
+            budget = self.kv_bucket - prompt_length(lang_id) - per_dispatch
             if budget < 1:
                 raise EngineError("pool kv_bucket too small for the prompt")
             if req.max_tokens is not None:
                 budget = min(budget, int(req.max_tokens))
             ids_arr = np.zeros((1, t_bucket), np.int64)
             ids_arr[0, : len(ids)] = ids
-            fns = self._get_prefill(lang_id)
+            fns = self._get_prefill(lang_id, spec)
             frame0, valid0 = None, False
+            sp1 = SamplingParams.create(req.temperature, req.top_k, req.top_p,
+                                        forbid_eos=req.forbid_eos)
+            ids_t = torch.from_numpy(ids_arr).to(self.device)
+            lens_t = torch.tensor([len(ids)], device=self.device)
             with self._device_work():
-                s1, bundle = fns.prefill(
-                    eng.params, torch.from_numpy(ids_arr).to(self.device),
-                    torch.tensor([len(ids)], device=self.device), self._generator(seed),
-                )
-                if req.stream:
+                if spec:
+                    # the spec prefill samples frame 0: it is committed at the splice
+                    s1, bundle, f0, v0 = fns.prefill(eng.params, ids_t, lens_t,
+                                                     self._generator(seed), sp1)
+                    frame0, valid0 = f0[0].cpu().numpy(), bool(v0[0].cpu())
+                else:
+                    s1, bundle = fns.prefill(eng.params, ids_t, lens_t, self._generator(seed))
+                if req.stream and not spec:
                     # bootstrap frame 0 here: first audio leaves at the
                     # splice, not after the next pooled chunk.  The state
                     # then carries step=1 (drip index) and the EOS latch.
-                    sp1 = SamplingParams.create(req.temperature, req.top_k, req.top_p,
-                                                forbid_eos=req.forbid_eos)
                     s1, f0, v0 = fns.decode(eng.params, s1, bundle.trailing,
                                             bundle.trailing_len, bundle.tts_pad_embed, sp1)
                     frame0 = f0[0, 0].cpu().numpy()
                     valid0 = bool(v0[0, 0].cpu())
-            self._ready.put((slot, req, (t_bucket, budget, s1, bundle, frame0, valid0)))
+            self._ready.put((slot, req, seed, (spec, t_bucket, budget, s1, bundle, frame0, valid0)))
         except Exception as e:
             log.exception("admission prefill failed")
-            self._ready.put((slot, req, e))
+            self._ready.put((slot, req, seed, e))
 
     def _splice_ready(self) -> None:
         """Decode thread: splice every finished admission prefill into the
         pool state."""
         while True:
             try:
-                slot, req, payload = self._ready.get_nowait()
+                slot, req, seed, payload = self._ready.get_nowait()
             except queue.Empty:
                 return
+            if not isinstance(payload, Exception) and payload[0] != (self.spec_k is not None):
+                # the pool fell back to sequential decode while this prefill
+                # was in flight: redo it in the current mode
+                self._admit_exec.submit(self._prefill_request, slot, req, seed)
+                continue
             self._reserved[slot] = False
             if isinstance(payload, Exception):
                 self._fail_request(req, payload)
                 continue
             try:
-                self._splice_one(slot, req, *payload)
+                self._splice_one(slot, req, *payload[1:])
             except Exception as e:
                 # the pool state may be half written: rebuild it and fail
                 # every in-flight request; the loop itself survives
@@ -497,13 +572,20 @@ class ContinuousBatcher:
         st = self._state
         splice_kv_cache(st.cache, s1.cache, slot)
         st.valid_mask[slot].copy_(s1.valid_mask[0])
-        st.last_logits[slot].copy_(s1.last_logits[0])
-        st.last_hidden[slot].copy_(s1.last_hidden[0])
-        # pos/step/done from the admission state: after a bootstrap, frame 0
-        # is decoded (step=1; done latched if it hit EOS)
-        st.pos[slot].copy_(s1.pos[0])
-        st.step[slot].copy_(s1.step[0])
-        st.done[slot].copy_(s1.done[0])
+        if self.spec_k:
+            # the spec state after frame 0: pending frame, its embed sum and
+            # hidden, RoPE position (= fill level), step 1, the EOS latch
+            for name in ("pending", "pending_nodrip", "pending_hidden", "rope_pos", "step",
+                         "done"):
+                getattr(st, name)[slot].copy_(getattr(s1, name)[0])
+        else:
+            st.last_logits[slot].copy_(s1.last_logits[0])
+            st.last_hidden[slot].copy_(s1.last_hidden[0])
+            # pos/step/done from the admission state: after a bootstrap, frame
+            # 0 is decoded (step=1; done latched if it hit EOS)
+            st.pos[slot].copy_(s1.pos[0])
+            st.step[slot].copy_(s1.step[0])
+            st.done[slot].copy_(s1.done[0])
         gens = list(st.generators)
         gens[slot] = s1.generators[0]  # the request's own noise stream
         self._state = st._replace(generators=tuple(gens))
@@ -599,6 +681,37 @@ class ContinuousBatcher:
             self._forbid[slot] = False
         self._state = self._make_idle_state()
 
+    def _check_acceptance(self, valid_np, done_np) -> None:
+        """Pool-wide adaptive spec: one decode covers every slot, so the pool
+        tracks the trailing acceptance of its live streams and, once a window
+        of them stays below the engine's spec_accept_floor, converts the
+        whole state to sequential decode."""
+        live = [i for i in range(self.pool_size)
+                if self._slots[i] is not None and not bool(done_np[i])]
+        if live:
+            self._acc_iters += self.spec_iters * len(live)
+            self._acc_slots += int(valid_np[live].sum())
+        if self._acc_iters < max(self.engine.spec_adapt_window, 2 * self.spec_iters):
+            return
+        accept = max(0, self._acc_slots - self._acc_iters) / max(
+            self._acc_iters * (self.spec_k - 1), 1)
+        self._acc_slots = self._acc_iters = 0  # a rolling window
+        if accept < self.engine.spec_accept_floor:
+            log.info("pool spec acceptance %.2f < floor %.2f; switching the pool to "
+                     "sequential decode", accept, self.engine.spec_accept_floor)
+            self._switch_to_sequential()
+
+    def _switch_to_sequential(self) -> None:
+        """The fallback: every slot's pending input is consumed by one talker
+        step (``spec_to_seq``; idle slots convert harmlessly, their rows are
+        overwritten at the next splice) and the sequential decode takes over."""
+        with self._chunk_section():
+            self._state = spec_to_seq(self.cfg, self.engine.params, self._state, self._trailing,
+                                      self._trailing_len, self._tts_pad, uniform_fill=False)
+        self.spec_k = None
+        self._use_sequential_decode()
+        self._spec_fallback = True
+
     def _loop(self) -> None:
         params = self.engine.params
         while not self._stop.is_set():
@@ -611,7 +724,7 @@ class ContinuousBatcher:
                                        tuple(self._top_ps), forbid_eos=tuple(self._forbid))
             try:
                 with self._chunk_section():
-                    self._state, frames, valid = self._fns.decode(
+                    self._state, frames, valid = self._decode(
                         params, self._state, self._trailing, self._trailing_len,
                         self._tts_pad, sp,
                     )
@@ -623,6 +736,8 @@ class ContinuousBatcher:
                 self._reset(e)
                 continue
             self._chunks_run += 1
+            if self.spec_k and self.engine.spec_accept_floor > 0:
+                self._check_acceptance(valid_np, done_np)
             for slot, active in enumerate(self._slots):
                 if active is None:
                     continue

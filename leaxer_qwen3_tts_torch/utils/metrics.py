@@ -1,7 +1,6 @@
 """Per-stage timing and TTS metrics (RTF, TTFA).
 
-Port of ``leaxer_qwen3_tts_tpu/utils/metrics.py`` without the speculative
-decoding fields.  Stage times are host wall-clock; the engine ends each
+Port of ``leaxer_qwen3_tts_tpu/utils/metrics.py``.  Stage times are host wall-clock; the engine ends each
 device stage with a copy to the host, so they include the device's work.
 """
 
@@ -22,6 +21,15 @@ class SynthesisMetrics:
     decoded_frames: int = 0
     ttfa_seconds: Optional[float] = None  # time to first audio chunk
     total_seconds: float = 0.0
+    # speculative decoding (spec_k): verify iterations run and drafted frames
+    # accepted; acceptance = spec_accepted / (spec_iterations * (spec_k - 1)).
+    # Iterations after a stream latched EOS count too, so the rate is a mild
+    # underestimate for short utterances.
+    spec_iterations: int = 0
+    spec_accepted: int = 0
+    # True when trailing acceptance fell below the engine's spec_accept_floor
+    # and the request went on with sequential decode
+    spec_fallback: bool = False
 
     @property
     def rtf(self) -> float:

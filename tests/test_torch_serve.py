@@ -46,7 +46,7 @@ def engine(tiny_model, tiny_vocab_files):
     cfg, params = _port(tiny_model)
     vocab_path, merges_path, _ = tiny_vocab_files
     return TTSEngine(config=cfg, params=params, tokenizer=Tokenizer(vocab_path, merges_path),
-                     max_frames=8, chunk_len=4)
+                     max_frames=8, chunk_len=4, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -276,10 +276,77 @@ def test_wav_bytes_roundtrip(tmp_path):
 
 
 def test_unported_modes_raise(engine, tiny_model):
-    """The speculative pool and a device mesh are later ROADMAP items; they
-    raise instead of running something else."""
-    with pytest.raises(NotImplementedError, match="M12"):
-        ContinuousBatcher(engine, pool_size=2, spec_k=3)
+    """A device mesh is a later ROADMAP item and raises instead of running
+    something else; a spec_k the verify pass does not take raises too."""
+    with pytest.raises(ValueError, match="spec_k"):
+        ContinuousBatcher(engine, pool_size=2, spec_k=9)
     cfg, params = _port(tiny_model)
     with pytest.raises(NotImplementedError, match="M15"):
-        TTSEngine(config=cfg, params=params, mesh=object())
+        TTSEngine(config=cfg, params=params, mesh=object(), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def spec_pool(engine):
+    """A spec pool (3 candidates, 2 iterations per decode) with the adaptive
+    fallback off, so sampled requests do not depend on pool-wide acceptance."""
+    floor = engine.spec_accept_floor
+    engine.spec_accept_floor = 0.0
+    p = ContinuousBatcher(engine, pool_size=4, kv_bucket=64, text_bucket_max=16, spec_k=3,
+                          spec_iters=2)
+    yield p
+    p.shutdown()
+    engine.spec_accept_floor = floor
+
+
+def test_spec_pool_matches_engine_and_jax(spec_pool, engine, tiny_model, tiny_vocab_files):
+    """Greedy spec-pool output equals B=1 ``synthesize`` of the port and of
+    the JAX package, alone and among co-tenants; streamed chunks concatenate
+    to the retired audio; the pool never fell back."""
+    cfg, params = tiny_model
+    vocab_path, merges_path, _ = tiny_vocab_files
+    jeng = JEngine(config=cfg, params=params, tokenizer=JTokenizer(vocab_path, merges_path),
+                   max_frames=8, chunk_len=4)
+    futs = [spec_pool.submit(t, temperature=0.0, max_tokens=6) for t in TEXTS]
+    stream = spec_pool.submit_stream(TEXTS[0], temperature=0.0, max_tokens=6)
+    items = list(stream)
+    for text, f in zip(TEXTS, futs):
+        got = f.result(timeout=300)
+        want = jeng.synthesize(text, temperature=0.0, max_tokens=6)
+        np.testing.assert_array_equal(got.codes, np.asarray(want.codes))
+        np.testing.assert_array_equal(got.codes, engine.synthesize(text, temperature=0.0,
+                                                                   max_tokens=6).codes)
+        np.testing.assert_allclose(got.audio, np.asarray(want.audio), atol=ATOL)
+    np.testing.assert_array_equal(items[-1].codes, futs[0].result().codes)
+    np.testing.assert_array_equal(np.concatenate(items[:-1]), items[-1].audio)
+    assert spec_pool.stats["spec_fallback"] is False
+
+
+def test_spec_pool_seeded_request_independent_of_mates(spec_pool):
+    """A seeded sampled request gives the same codes alone and among three
+    co-tenants in the spec pool."""
+    alone = spec_pool.synthesize("hello world", temperature=0.8, seed=5, max_tokens=6)
+    mates = [spec_pool.submit(t, temperature=0.9, seed=i, max_tokens=6)
+             for i, t in enumerate(TEXTS)]
+    among = spec_pool.submit("hello world", temperature=0.8, seed=5, max_tokens=6)
+    for f in mates:
+        f.result(timeout=300)
+    np.testing.assert_array_equal(among.result(timeout=300).codes, alone.codes)
+
+
+def test_spec_pool_fallback(engine):
+    """A floor no acceptance reaches switches the whole pool to sequential
+    decode after its window; greedy output still equals B=1 synthesize."""
+    floor, window = engine.spec_accept_floor, engine.spec_adapt_window
+    engine.spec_accept_floor, engine.spec_adapt_window = 1.01, 1
+    pool = ContinuousBatcher(engine, pool_size=2, kv_bucket=64, text_bucket_max=16, spec_k=3,
+                             spec_iters=1)
+    try:
+        results = [f.result(timeout=300) for f in
+                   [pool.submit(t, temperature=0.0, max_tokens=8) for t in TEXTS]]
+        assert pool.stats["spec_fallback"] is True
+    finally:
+        pool.shutdown()
+        engine.spec_accept_floor, engine.spec_adapt_window = floor, window
+    for text, r in zip(TEXTS, results):
+        np.testing.assert_array_equal(r.codes, engine.synthesize(text, temperature=0.0,
+                                                                 max_tokens=8).codes)

@@ -24,7 +24,7 @@ from leaxer_qwen3_tts_torch.frontend import Tokenizer
 from leaxer_qwen3_tts_torch.models.code_predictor import prepare_fused_step
 from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
 from leaxer_qwen3_tts_torch.models.talker import prepare_fused_talker
-from leaxer_qwen3_tts_torch.ops import fused_mtp, fused_step
+from leaxer_qwen3_tts_torch.ops import fused_mtp, fused_step, fused_verify
 from leaxer_qwen3_tts_torch.ops.quant import fuse_params, quantize_params
 from leaxer_qwen3_tts_torch.runtime.generate import make_generate_fns
 from leaxer_qwen3_tts_torch.runtime.prompt import build_prompt
@@ -159,7 +159,7 @@ def test_engine_synthesize_tiny(tiny_model, tiny_vocab_files):
     vocab_path, merges_path, _ = tiny_vocab_files
     eng = TTSEngine(
         config=cfg, params=params, tokenizer=Tokenizer(vocab_path, merges_path),
-        max_frames=24, chunk_len=4, first_chunk_len=2, kv_buckets=(24,),
+        max_frames=24, chunk_len=4, first_chunk_len=2, kv_buckets=(24,), device="cpu",
     )
     assert eng.kv_ladder == (24, 56)
     runs = [eng.synthesize("hello world", temperature=0.8, seed=3, max_tokens=20)
@@ -182,18 +182,28 @@ def test_engine_synthesize_tiny(tiny_model, tiny_vocab_files):
     grown = eng.synthesize("hello world", temperature=0.0, max_tokens=20)
     flat = TTSEngine(
         config=cfg, params=params, tokenizer=eng.tokenizer, max_frames=24, chunk_len=4,
-        first_chunk_len=2, kv_buckets=(),
+        first_chunk_len=2, kv_buckets=(), device="cpu",
     )
     assert flat.kv_ladder == (56,)
     np.testing.assert_array_equal(
         flat.synthesize("hello world", temperature=0.0, max_tokens=20).codes, grown.codes
     )
     with pytest.raises(EngineError, match="int8"):
-        TTSEngine(config=cfg, params=params, quantize="int4")
+        TTSEngine(config=cfg, params=params, quantize="int4", device="cpu")
     # on a CUDA device a config the kernels do not take raises; it does not
     # run the plain path (checked before anything touches the device)
     with pytest.raises(EngineError, match="do not take this architecture"):
         TTSEngine(config=cfg, params=params, quantize="int8", device="cuda")
+
+
+def test_engine_without_device_needs_cuda(tiny_model):
+    """With no device the engine runs on the card: where there is none it
+    raises instead of running on the CPU (device="cpu" asks for that)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the engine would run there")
+    cfg, params = _port(tiny_model)
+    with pytest.raises(EngineError, match="device='cpu'"):
+        TTSEngine(config=cfg, params=params)
 
 
 def test_port_imports_no_jax():
@@ -214,9 +224,12 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     modules = set(out.stdout.split())
     assert len(modules) >= 20
-    assert {"leaxer_qwen3_tts_torch.serve.pool", "leaxer_qwen3_tts_torch.serve.server"} <= modules
+    assert {"leaxer_qwen3_tts_torch.serve.pool", "leaxer_qwen3_tts_torch.serve.server",
+            "leaxer_qwen3_tts_torch.runtime.speculative", "leaxer_qwen3_tts_torch.ops.fused_verify",
+            "leaxer_qwen3_tts_torch.models.draft"} <= modules
     # no kernel ran on the CPU
     assert fused_step.fused_decode_step.launches == 0
     assert fused_mtp.fused_mtp_chain.launches == 0
     assert fused_step.fused_decode_step_batched.launches == 0
     assert fused_mtp.fused_mtp_chain_batched.launches == 0
+    assert fused_verify.fused_verify_step.launches == 0
