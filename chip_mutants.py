@@ -1,12 +1,14 @@
-"""Mutation check of ``chip_smoke.py``'s K6 checks on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s K6, K3 and K8 checks on one NVIDIA GPU.
 
     python3 chip_mutants.py
 
 Builds faulty copies of the kernel sources in a temporary directory (the
-checkout is never touched), each with one fault in the verify path, and runs
-``chip_smoke.check_k6_shallow`` against each on one talker layer, float32 and
-bf16 caches.  A mutant is caught when at least one case fails.  Exits
-non-zero if a mutant that should be caught is not, or without CUDA.
+checkout is never touched), each with one fault, and runs the checks of the
+kernel it breaks against it: ``chip_smoke.check_k6_shallow`` on one talker
+layer with float32 and bf16 caches (K6), ``chip_smoke.check_k3_equals_k2`` on
+the 1.7B MTP trunk (K3), ``chip_smoke.check_k8`` at the 1.7B prefill shape
+and on the random GQA shapes (K8).  A mutant is caught when at least one
+case fails.  Exits non-zero if a mutant is not caught, or without CUDA.
 """
 
 from __future__ import annotations
@@ -20,16 +22,19 @@ import tempfile
 import torch
 
 import chip_smoke as cs
-from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B
+from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B, QWEN3_TTS_17B
 from leaxer_qwen3_tts_torch.ops import _build
+from leaxer_qwen3_tts_torch.ops.fused_mtp import pack_heads
+from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
 
-# name -> (source file, original text, faulty text)
+# name -> (source file, original text, faulty text, kernel whose checks must catch it)
 MUTANTS = {
     # the verify rows leave their own new slot out of the attention
     "own slot dropped": (
         "qtts_kernels.cuh",
         "const int end = min(start + QTTS_ATTN_CHUNK, pos + 1);",
         "const int end = min(start + QTTS_ATTN_CHUNK, pos + (TAIL_IN_CACHE ? 0 : 1));",
+        "K6",
     ),
     # the write kernel rotates every candidate's k at its stream's start
     "k written at the start's angle": (
@@ -37,6 +42,7 @@ MUTANTS = {
         "    const float ang = (float)pos * inv_freq[t];\n    qtts_rope_pair(k_s[t], k_s[t + D / 2]",
         "    const float ang = (float)(pos - r % S) * inv_freq[t];\n"
         "    qtts_rope_pair(k_s[t], k_s[t + D / 2]",
+        "K6",
     ),
     # the write kernel rounds k to bf16 whatever the cache dtype (a small
     # systematic fault: only a float32 cache can show it)
@@ -44,9 +50,47 @@ MUTANTS = {
         "qtts_kernels.cuh",
         "  kc[at] = qtts_to_cache<CT>(k_s[t]);",
         "  kc[at] = qtts_to_cache<CT>(qtts_bf16_round(k_s[t]));",
+        "K6",
+    ),
+    # the streamed chain writes its KV scratch in bf16 (K2 at the config
+    # dtype, not the JAX kernel's float32 scratch)
+    "K3 scratch in bf16": (
+        "fused_mtp_stream.cu",
+        "  f32.cache_bf16 = 0;",
+        "  f32.cache_bf16 = 1;",
+        "K3",
+    ),
+    # flash attention skips the last key tile
+    "K8 last key tile skipped": (
+        "flash_attention.cu",
+        "for (int t0 = 0; t0 < Tp; t0 += FA_BT) {",
+        "for (int t0 = 0; t0 + FA_BT < Tp; t0 += FA_BT) {",
+        "K8",
     ),
 }
-CASES = ((1, 4, [62]), (4, 8, [62, 5, 504, 130]))  # (B, S, starts) at T=512
+K6_CASES = ((1, 4, [62]), (4, 8, [62, 5, 504, 130]))  # (B, S, starts) at T=512
+
+
+def checks(gen):
+    """kernel -> list of check callables (each raises RuntimeError on a fault)."""
+    t1 = dataclasses.replace(QWEN3_TTS_06B.talker.transformer, num_layers=1)
+    fw = cs.packed_trunk(t1, gen)
+    k6 = [lambda B=B, S=S, starts=starts, dt=dt: cs.check_k6_shallow(t1, fw, B, S, 512, starts,
+                                                                    dt, gen)
+          for dt in (torch.float32, torch.bfloat16) for B, S, starts in K6_CASES]
+    cp = QWEN3_TTS_17B.code_predictor
+    H, V, n = cp.transformer.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    chain = (cp, cs.packed_trunk(cp.transformer, gen), pack_heads(quantize_weight(
+        (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16))),
+        (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16),
+        torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV))
+    k3 = [lambda: cs.check_k3_equals_k2(*chain, gen, 1)]
+    t = QWEN3_TTS_17B.talker.transformer
+    k8 = [lambda: cs.check_k8("1.7B prefill", 1, 57, 256, t.num_heads, t.num_kv_heads,
+                              "prefill", gen)]
+    k8 += [lambda shape=shape: cs.check_k8("random GQA", *shape, "random", gen)
+           for shape in cs.K8_RANDOM_SHAPES]
+    return {"K6": k6, "K3": k3, "K8": k8}
 
 
 def main() -> int:
@@ -56,11 +100,10 @@ def main() -> int:
     cs.CARD = cs.card()
     gen = torch.Generator(device=cs.DEV)
     gen.manual_seed(cs.SEED)
-    t1 = dataclasses.replace(QWEN3_TTS_06B.talker.transformer, num_layers=1)
-    fw = cs.packed_trunk(t1, gen)
+    by_kernel = checks(gen)
     source = _build.CSRC_DIR
     caught = {}
-    for name, (fname, old, new) in MUTANTS.items():
+    for name, (fname, old, new, kernel) in MUTANTS.items():
         with tempfile.TemporaryDirectory() as tmp:
             csrc = os.path.join(tmp, "csrc")
             shutil.copytree(source, csrc)
@@ -74,16 +117,17 @@ def main() -> int:
             _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = csrc, os.path.join(tmp, "build"), None
             cs.log(f"=== mutant: {name}")
             failed = 0
-            for cache_dtype in (torch.float32, torch.bfloat16):
-                for B, S, starts in CASES:
-                    try:
-                        cs.check_k6_shallow(t1, fw, B, S, 512, starts, cache_dtype, gen)
-                    except RuntimeError:
-                        failed += 1
-            caught[name] = failed
+            for check in by_kernel[kernel]:
+                try:
+                    check()
+                except RuntimeError:
+                    failed += 1
+            caught[name] = f"{failed}/{len(by_kernel[kernel])}"
+            if not failed:
+                caught[name] = "0 (NOT CAUGHT)"
     _build.CSRC_DIR, _build._lib = source, None
-    cs.log(f"mutants caught (failed cases of {2 * len(CASES)}): {caught} [{cs.CARD}]")
-    return 0 if all(caught.values()) else 1
+    cs.log(f"mutants caught (failed cases of the kernel's checks): {caught} [{cs.CARD}]")
+    return 0 if not any("NOT" in v for v in caught.values()) else 1
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 """TTSEngine: the top-level synthesis API of the PyTorch port.
 
-Port of ``leaxer_qwen3_tts_tpu/api/engine.py``: ``synthesize``,
-``synthesize_stream``, ``synthesize_tokens`` and ``synthesize_batch`` (B
-streams in one decode, EOS latched per stream, per-stream seeds), the KV
+Port of ``leaxer_qwen3_tts_tpu/api/engine.py``: ``synthesize`` and
+``synthesize_stream`` (with an optional voice-design ``instruct`` segment),
+``synthesize_speaker`` (a CustomVoice preset speaker spliced from the
+checkpoint's ``speaker_table``), ``synthesize_tokens`` and
+``synthesize_batch`` (B streams in one decode, EOS latched per stream,
+per-stream seeds), the KV
 bucket ladder with cache growth between chunks, the small first chunk for
 time-to-first-audio, and the streamed vocoder with causal left context.
 
@@ -16,8 +19,10 @@ trailing acceptance stays below ``spec_accept_floor``.
 The engine runs on the CUDA device unless the caller passes
 ``device="cpu"``; with no device and no CUDA device it raises.  On the card
 it runs only the kernel path: it requires ``quantize="int8"`` and the fused
-talker and MTP implementations, packs both for kernels K1 and K2 (B=1), K4
-and K5 (B=2..32) and K6 (the verify pass, B x spec_k <= 32 rows), and raises
+talker and MTP implementations, packs both for kernels K1 and K2 or K3
+(B=1; K3 for an MTP trunk past the residency gate, the 1.7B family), K4 and
+K5 (B=2..32) and K6 (the verify pass, B x spec_k <= 32 rows); a talker with
+``attn_impl="pallas"`` runs its prefill attention as kernel K8.  It raises
 ``EngineError`` for a configuration or a batch the kernels do not take.  On
 the CPU the same code runs the kernels' plain versions.  A decode chunk (a
 dispatch of verify iterations) enqueues its frames on the device and the
@@ -26,6 +31,7 @@ engine syncs once per chunk, when it copies the chunk's codes to the host.
 
 from __future__ import annotations
 
+import logging
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +42,7 @@ from ..config import (
     IM_END,
     IM_START,
     MAX_NEW_TOKENS,
+    PRESET_SPEAKERS,
     SAMPLE_RATE,
     TTS_BOS,
     TTS_EOS,
@@ -58,6 +65,8 @@ from ..runtime.speculative import (
     spec_to_seq,
 )
 from ..utils.metrics import StageTimer, SynthesisMetrics
+
+log = logging.getLogger(__name__)
 
 
 class EngineError(RuntimeError):
@@ -143,6 +152,11 @@ class TTSEngine:
         cfg = self.cfg
         if cfg.talker.transformer.kv_cache_quant:
             raise EngineError("the int8 KV cache is not ported yet (ROADMAP item K1v)")
+        if cfg.frame_fused:
+            raise EngineError(
+                "frame_fused=True selects the whole-frame kernel, which is not ported yet "
+                "(ROADMAP item K7)"
+            )
         talker_fused = cfg.talker.decode_impl == "fused"
         mtp_fused = cfg.code_predictor.impl == "fused"
         if device is None:
@@ -165,6 +179,9 @@ class TTSEngine:
                 problems.append("the kernels do not take this architecture")
             if cfg.code_predictor.head_mode != "per_step":
                 problems.append("the chain kernel takes per-step heads only")
+            if cfg.code_predictor.resident is False:
+                problems.append("code_predictor.resident=False selects the per-step MTP path, "
+                                "which is not ported to the card (the chains K2 and K3 are)")
             if problems:
                 raise EngineError("CUDA kernel path unavailable: " + "; ".join(problems))
 
@@ -193,10 +210,12 @@ class TTSEngine:
         top_p: float = 0.95,
         max_tokens: Optional[int] = None,
         seed: int = 0,
+        instruct: Optional[str] = None,
     ) -> SynthesisResult:
-        """Text -> 24 kHz waveform."""
+        """Text -> 24 kHz waveform.  ``instruct``: an optional voice-design
+        instruction (VoiceDesign models), a prompt segment of its own."""
         return self._last(self.synthesize_stream(
-            text, language, temperature, top_k, top_p, max_tokens, seed
+            text, language, temperature, top_k, top_p, max_tokens, seed, instruct
         ))
 
     def synthesize_stream(
@@ -208,15 +227,39 @@ class TTSEngine:
         top_p: float = 0.95,
         max_tokens: Optional[int] = None,
         seed: int = 0,
+        instruct: Optional[str] = None,
     ) -> Iterator:
         """Yields audio chunks (np float32 @ 24 kHz) as they decode; the final
         item is the SynthesisResult."""
-        timer = StageTimer(SynthesisMetrics())
-        with timer.stage("tokenize"):
-            ids = self._tokenize(text)
-        yield from self._ids_stream(
-            [ids], language, temperature, top_k, top_p, max_tokens, seed, timer
-        )
+        return self._text_stream(text, language, temperature, top_k, top_p, max_tokens, seed,
+                                 instruct=instruct)
+
+    def synthesize_speaker(
+        self,
+        text: str,
+        speaker: str,
+        language: str = "auto",
+        **kw,
+    ) -> SynthesisResult:
+        """Preset-speaker synthesis (CustomVoice models): the speaker's row of
+        the checkpoint's ``speaker_table`` ([num_speakers, hidden]) is spliced
+        into the prompt.  ``kw``: ``synthesize``'s sampling knobs, ``seed``,
+        ``max_tokens`` and ``instruct``.  Without a table it warns and falls
+        back to ``synthesize``; an unknown name raises ``EngineError``."""
+        name = speaker.lower()
+        table = self.params.get("speaker_table")
+        if table is None:
+            log.warning(
+                "model has no speaker_table (CustomVoice weights); "
+                "falling back to the default voice"
+            )
+            return self.synthesize(text, language, **kw)
+        if name not in PRESET_SPEAKERS:
+            raise EngineError(
+                f"unknown speaker {speaker!r}; expected one of {sorted(PRESET_SPEAKERS)}"
+            )
+        spk = table[PRESET_SPEAKERS[name]].float()[None]
+        return self._last(self._text_stream(text, language, speaker=spk, **kw))
 
     def synthesize_batch(
         self,
@@ -282,6 +325,17 @@ class TTSEngine:
             result = item
         return result
 
+    def _text_stream(self, text, language="auto", temperature=0.8, top_k=50, top_p=0.95,
+                     max_tokens=None, seed=0, speaker=None, instruct=None):
+        timer = StageTimer(SynthesisMetrics())
+        with timer.stage("tokenize"):
+            ids = self._tokenize(text)
+            instruct_ids = self._tokenize(instruct) if instruct else None
+        yield from self._ids_stream(
+            [ids], language, temperature, top_k, top_p, max_tokens, seed, timer,
+            speaker=speaker, instruct_ids=instruct_ids,
+        )
+
     def _tokenize(self, text: str) -> List[int]:
         if self.tokenizer is None:
             raise EngineError("tokenizer not loaded (missing vocab.json/merges.txt)")
@@ -310,6 +364,8 @@ class TTSEngine:
 
     def _ids_stream(
         self, id_lists, language, temperature, top_k, top_p, max_tokens, seed, timer,
+        speaker: Optional[torch.Tensor] = None,  # [B, H] preset speaker embedding
+        instruct_ids: Optional[List[int]] = None,  # the instruction's token ids
     ):
         cfg = self.cfg
         B = len(id_lists)
@@ -318,7 +374,7 @@ class TTSEngine:
         if self.device.type == "cuda" and B > MAX_BATCH:
             raise EngineError(f"batch of {B}: the batched kernels take at most {MAX_BATCH} streams")
         vocab = cfg.talker.text_vocab_size
-        for ids in id_lists:
+        for ids in list(id_lists) + ([instruct_ids] if instruct_ids else []):
             bad = [i for i in ids if not 0 <= int(i) < vocab]
             if bad:
                 raise EngineError(f"token id(s) out of range [0, {vocab}): {bad[:8]}")
@@ -330,7 +386,20 @@ class TTSEngine:
         for b, ids in enumerate(id_lists):
             ids_padded[b, : len(ids)] = ids
         lens = np.array([len(ids) for ids in id_lists], np.int64)
-        P = prompt_length(lang_id)
+        dev = self.device
+        # the optional prompt segments, as the prefill functions take them
+        segments = {}
+        if speaker is not None:
+            segments["speaker_embed"] = speaker.to(dev)
+        i_bucket = 0
+        if instruct_ids:
+            i_bucket = _round_up(len(instruct_ids), self.text_bucket)
+            instr = np.zeros((B, i_bucket), np.int64)
+            instr[:, : len(instruct_ids)] = instruct_ids
+            segments["instruct_ids"] = torch.from_numpy(instr).to(dev)
+            segments["instruct_len"] = torch.full((B,), len(instruct_ids), dtype=torch.long,
+                                                  device=dev)
+        P = prompt_length(lang_id, speaker is not None, i_bucket)
         # the last chunk may overshoot max_tokens by up to chunk_len - 1
         # frames, so the budget keeps a full chunk below the top bucket
         top = self.kv_ladder[-1]
@@ -361,7 +430,6 @@ class TTSEngine:
         for s in seeds:
             gens.append(torch.Generator(device=self.device))
             gens[-1].manual_seed(int(s))
-        dev = self.device
         ids_t = torch.from_numpy(ids_padded).to(dev)
         lens_t = torch.from_numpy(lens).to(dev)
         if self.spec_k is not None:
@@ -371,12 +439,12 @@ class TTSEngine:
                     f"{MAX_BATCH} rows (B x spec_k; ROADMAP M12b)"
                 )
             spec = self._spec_stream if B == 1 else self._spec_stream_batched
-            yield from spec(timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp)
+            yield from spec(timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp, segments)
             return
 
         with timer.stage("prefill"):
             fns = self._get_fns(lang_id, self.kv_ladder[bidx], self.first_chunk_len, B)
-            state, bundle = fns.prefill(self.params, ids_t, lens_t, gens)
+            state, bundle = fns.prefill(self.params, ids_t, lens_t, gens, **segments)
             _sync(dev)
 
         voc_cfg = cfg.vocoder
@@ -488,7 +556,7 @@ class TTSEngine:
         )
         return iters, spec_chunk, min(max_tokens, budget), bidx
 
-    def _spec_stream(self, timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp):
+    def _spec_stream(self, timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp, segments):
         """Speculative decode of one stream.  Commits per dispatch are data-
         dependent (between iters and iters * spec_k frames), so committed
         frames are compacted on the host and vocoded in the sequential
@@ -498,7 +566,8 @@ class TTSEngine:
         cur_iters = 1
         with timer.stage("prefill"):
             fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], cur_iters)
-            state, bundle, frame0, valid0 = fns.prefill(self.params, ids_t, lens_t, gens, sp)
+            state, bundle, frame0, valid0 = fns.prefill(self.params, ids_t, lens_t, gens, sp,
+                                                        **segments)
             frame0, valid0 = frame0.cpu().numpy(), valid0.cpu().numpy()
         out = _FrameEmitter(self, timer, max_tokens)
         if valid0[0]:
@@ -586,7 +655,8 @@ class TTSEngine:
         yield from out.drain(final=True)
         yield self._spec_result(out, n_iterations, slots, decoded, fallback=True)
 
-    def _spec_stream_batched(self, timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp):
+    def _spec_stream_batched(self, timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp,
+                             segments):
         """Speculative decode of B > 1 streams (``synthesize_batch``): one
         verify pass covers B x spec_k candidate rows with per-stream
         acceptance; frames compact per stream on the host and the vocoder
@@ -596,7 +666,8 @@ class TTSEngine:
         iters, spec_chunk, max_tokens, bidx = self._spec_prologue(P, max_tokens)
         with timer.stage("prefill"):
             fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], iters, B)
-            state, bundle, frame0, valid0 = fns.prefill(self.params, ids_t, lens_t, gens, sp)
+            state, bundle, frame0, valid0 = fns.prefill(self.params, ids_t, lens_t, gens, sp,
+                                                        **segments)
             f0, v0 = frame0.cpu().numpy(), valid0.cpu().numpy()
         buffers = [[f0[b]] if v0[b] else [] for b in range(B)]
         done = ~v0

@@ -304,6 +304,9 @@ QWEN3_TTS_06B = TTSModelConfig(
     code_predictor=CodePredictorConfig(impl="fused"),
 )
 
+# The 1.7B family (VoiceDesign / CustomVoice): talker and MTP at H=2048.  On
+# the card the B=1 chain runs kernel K3: the int8 MTP trunk (302 MB) is past
+# the residency gate that keeps the 0.6B trunk (78 MB) on kernel K2.
 QWEN3_TTS_17B = TTSModelConfig(
     name="qwen3-tts-12hz-1.7b",
     talker=TalkerConfig(
@@ -334,4 +337,18 @@ QWEN3_TTS_17B = TTSModelConfig(
 PRESETS = {
     QWEN3_TTS_06B.name: QWEN3_TTS_06B,
     QWEN3_TTS_17B.name: QWEN3_TTS_17B,
+}
+
+# Preset speakers of the CustomVoice models: speaker name -> row of the
+# checkpoint's ``speaker_table`` ([num_speakers, hidden]).
+PRESET_SPEAKERS = {
+    "serena": 0,
+    "vivian": 1,
+    "uncle_fu": 2,
+    "dylan": 3,
+    "eric": 4,
+    "ryan": 5,
+    "aiden": 6,
+    "ono_anna": 7,
+    "sohee": 8,
 }

@@ -692,3 +692,134 @@ static __device__ int qtts_sample_index(float* lg, float* pr, int V, const float
   __syncthreads();
   return qtts_block_argmax_first(lg, V);
 }
+
+// ---------------------------------------------------------------------------
+// The B=1 chain (K2, fused_mtp.cu; K3, fused_mtp_stream.cu): one head kernel
+// per step between the trunk passes.  Each translation unit launches its own
+// head kernel, built from the two halves below.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct QttsHeadStep {
+  const float* x;              // [H] trunk output, pre-final-norm
+  const float* final_norm;     // [H]
+  float eps;
+  const int8_t* W;             // [V, H] this step's head
+  const float* scale;          // [V]
+  const float* gumbel;         // [V]
+  const __nv_bfloat16* table;  // [Vt, H] this step's embedding table
+  float* logits;               // [V]
+  uint32_t* counter;
+  int32_t* subcodes;
+  float* sub_sum;              // [H]
+  float* x_next;               // [H]
+  int j, V, H;
+  float temperature;
+  int top_k;
+  float top_p;
+  int greedy;
+};
+
+// First half, every block: QTTS_GEMV_ROWS head rows of
+// bf16(RMSNorm(x) * final_norm) @ bf16(W) * scale into p.logits, then an
+// atomic ticket.  Returns the block's ticket (gridDim.x - 1 for the last
+// block to finish).  sh: max(H, 2V) floats of dynamic shared memory.
+__device__ __forceinline__ unsigned qtts_head_rows(const QttsHeadStep& p, float* sh) {
+  __shared__ unsigned ticket;
+  qtts_gemv_prologue<QTTS_IN_NORM>(p.x, p.final_norm, p.eps, p.H, sh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * QTTS_GEMV_ROWS + warp * QTTS_GEMV_RPW;
+  float acc[QTTS_GEMV_RPW];
+  qtts_gemv_rows(p.W, sh, p.V, p.H, n0, acc);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
+      const int n = n0 + r;
+      if (n < p.V) qtts_gemv_store<false>(p.logits + n, acc[r], p.scale[n]);
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) ticket = atomicAdd(p.counter, 1u);
+  __syncthreads();
+  return ticket;
+}
+
+// Second half, the last block only: the sampler on the whole logits row, the
+// sub-code written, the ticket counter reset, and the embedding row gathered
+// into sub_sum and the next trunk input.
+__device__ __forceinline__ void qtts_head_sample(const QttsHeadStep& p, float* sh) {
+  __threadfence();
+  float* lg = sh;
+  float* pr = sh + p.V;
+  for (int v = threadIdx.x; v < p.V; v += blockDim.x) lg[v] = __ldcg(p.logits + v);
+  __syncthreads();
+  const int sub = qtts_sample_index(lg, pr, p.V, p.gumbel, p.temperature, p.top_k,
+                                    p.top_p, p.greedy);
+  if (threadIdx.x == 0) {
+    p.subcodes[p.j] = sub;
+    *p.counter = 0u;
+  }
+  const size_t row = (size_t)sub * p.H;
+  for (int k = threadIdx.x; k < p.H; k += blockDim.x) {
+    const float e = __bfloat162float(p.table[row + k]);
+    p.sub_sum[k] = p.j == 0 ? e : p.sub_sum[k] + e;
+    p.x_next[k] = e;
+  }
+}
+
+// The whole chain: two prefix trunk passes at positions 0 and 1 (talker
+// hidden, then codec_embed(code0)) into the 17-slot cache, then per step j a
+// head kernel, launched by launch_head(step, next_pass, grid, smem, stream)
+// (next_pass: a trunk pass follows this step), and a trunk pass on the
+// sampled embedding at position 2 + j (not after the last step).
+template <typename LaunchHead>
+int qtts_run_mtp_chain(const QttsStepWeights& w, const QttsStepScratch& s,
+                       const QttsChainArgs& a, cudaStream_t st, LaunchHead launch_head) {
+  const int T = a.n + 2, H = w.H, V = a.V;
+  if (H % 16 != 0 || V > a.Vt) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(H > 2 * V ? H : 2 * V) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int grid = (V + QTTS_GEMV_ROWS - 1) / QTTS_GEMV_ROWS;
+
+  int err = qtts_launch_decode_step(w, s, a.last_hidden, a.x, a.k_cache, a.v_cache,
+                                    a.cache_bf16, T, 0, st);
+  if (err) return err;
+  err = qtts_launch_decode_step(w, s, a.code0_embed, a.x, a.k_cache, a.v_cache,
+                                a.cache_bf16, T, 1, st);
+  if (err) return err;
+  for (int j = 0; j < a.n; ++j) {
+    QttsHeadStep p;
+    p.x = a.x;
+    p.final_norm = a.final_norm;
+    p.eps = w.eps;
+    p.W = a.heads + (size_t)j * V * H;
+    p.scale = a.head_scales + (size_t)j * V;
+    p.gumbel = a.gumbel + (size_t)j * V;
+    p.table = a.tables + (size_t)j * a.Vt * H;
+    p.logits = a.logits;
+    p.counter = a.counter;
+    p.subcodes = a.subcodes;
+    p.sub_sum = a.sub_sum;
+    p.x_next = a.x_in;
+    p.j = j;
+    p.V = V;
+    p.H = H;
+    p.temperature = a.temperature;
+    p.top_k = a.top_k;
+    p.top_p = a.top_p;
+    p.greedy = a.greedy;
+    launch_head(p, j + 1 < a.n, grid, smem, st);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    if (j + 1 < a.n) {
+      err = qtts_launch_decode_step(w, s, a.x_in, a.x, a.k_cache, a.v_cache,
+                                    a.cache_bf16, T, 2 + j, st);
+      if (err) return err;
+    }
+  }
+  return (int)cudaSuccess;
+}
+
+}  // namespace

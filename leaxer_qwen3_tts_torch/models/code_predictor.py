@@ -6,13 +6,18 @@ logits from its step-indexed head; the token sampled at step j is embedded
 with the step-j table and appended for step j+1; the sum of all sub-embeddings
 feeds the next talker input.
 
-Three paths: the cached path (plain layers, a ``sample_fn`` per step) and,
-with a packed ``fused_step``, the whole chain as kernel K2 at B=1
-(:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`) or as kernel
-K5 at B=2..32 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain_batched`).
-There is no VMEM gate on the card: the chains take every int8 pack.  On a
-CUDA device a chain the kernels cannot take raises; only the CPU runs the
-cached path.
+Paths: the cached path (plain layers, a ``sample_fn`` per step) and, with
+a packed ``fused_step`` and the resident chain on (``cfg.resident``, on
+unless set False), the whole chain as one kernel.  At B=1 the route is the
+JAX package's with its TPU defaults: kernel K2
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`) when the
+trunk passes the residency gate (the 0.6B trunk), else kernel K3
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp_stream.fused_mtp_chain_streamed`,
+float32 KV scratch) when the stream gate passes (the 1.7B trunk).  At
+B=2..32 it is kernel K5
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain_batched`),
+which takes every int8 pack.  On a CUDA device a chain the kernels cannot
+take raises; only the CPU runs the cached path.
 """
 
 from __future__ import annotations
@@ -22,7 +27,13 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..config import CodePredictorConfig
-from ..ops.fused_mtp import fused_mtp_chain, fused_mtp_chain_batched, pack_heads
+from ..ops.fused_mtp import (
+    fused_mtp_chain,
+    fused_mtp_chain_batched,
+    pack_heads,
+    supports_resident,
+)
+from ..ops.fused_mtp_stream import fused_mtp_chain_streamed, supports_stream
 from ..ops.fused_step import MAX_BATCH, pack_fused_weights, supports
 from ..ops.quant import QuantizedLinear, dense
 from ..runtime.sampling import SamplingParams
@@ -60,15 +71,22 @@ def prepare_fused_step(cfg: CodePredictorConfig, cp_params: dict, bits: int = 8)
     return out
 
 
-def takes_chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int) -> bool:
-    """Whether a chain of ``rows`` rows runs kernel K2 / K5 (or their plain
-    versions on the CPU) rather than the cached plain path."""
-    return (
-        cfg.impl == "fused"
-        and "fused_step" in params
-        and rows <= MAX_BATCH
-        and cfg.head_mode == "per_step"
-    )
+def chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int):
+    """The wrapper of the kernel that runs a chain of ``rows`` rows (K2, K3
+    or K5; on the CPU its plain version), or None for the cached plain path.
+    At B=1: K2 when the trunk passes the residency gate, else K3 when it
+    passes the stream gate."""
+    if not (cfg.impl == "fused" and cfg.resident is not False and "fused_step" in params
+            and rows <= MAX_BATCH and cfg.head_mode == "per_step"):
+        return None
+    if rows > 1:
+        return fused_mtp_chain_batched
+    fw = params["fused_step"]
+    if supports_resident(fw):
+        return fused_mtp_chain
+    if supports_stream(fw, cfg.subcode_vocab_size):
+        return fused_mtp_chain_streamed
+    return None
 
 
 def subcode_embed_sum(
@@ -85,7 +103,7 @@ def subcode_embed_sum(
     and their plain versions add), or the cached path's grouping (the first
     n-1 embeddings summed, then the last added), cast to ``dtype``."""
     embs = [pred_embed_tables[j][subcodes[..., j]] for j in range(subcodes.shape[-1])]
-    if takes_chain_kernel(cfg, params, rows):
+    if chain_kernel(cfg, params, rows) is not None:
         total = embs[0].float()
         for e in embs[1:]:
             total = total + e.float()
@@ -111,14 +129,16 @@ def predict_subcodes(
     last_hidden's dtype)."""
     t = cfg.transformer
     B, H = last_hidden.shape
-    if sp is not None and takes_chain_kernel(cfg, params, B):
+    chain = None if sp is None else chain_kernel(cfg, params, B)
+    if chain is not None:
         noise = None if sp.greedy else noise_fn()
-        chain = fused_mtp_chain if B == 1 else fused_mtp_chain_batched
         knobs = sp.rows(1)[0] if B == 1 else sp
+        # K3 keeps its float32 scratch whatever the model dtype
+        dtype = {} if chain is fused_mtp_chain_streamed else {"cache_dtype": t.torch_dtype}
         subcodes, sub_sum = chain(
             t, params["fused_step"], params["transformer"]["final_norm"],
             params["fused_heads"], pred_embed_tables, last_hidden, code0_embed,
-            noise, knobs.temperature, knobs.top_k, knobs.top_p, cache_dtype=t.torch_dtype,
+            noise, knobs.temperature, knobs.top_k, knobs.top_p, **dtype,
         )
         return subcodes, sub_sum.to(last_hidden.dtype)
     if last_hidden.device.type == "cuda":

@@ -217,7 +217,7 @@ def _block(
         k_cache[rows, :, cache_len] = k.to(k_cache.dtype)  # [B, S, nk, d]
         v_cache[rows, :, cache_len] = v.to(v_cache.dtype)
 
-    out = attend(q, k_cache, v_cache, attn_mask).reshape(B, S, nq * d)
+    out = attend(q, k_cache, v_cache, attn_mask, impl=cfg.attn_impl).reshape(B, S, nq * d)
     x = x + dense(out, p["wo"]).to(x.dtype)
     h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
     return x + _mlp(cfg, p, h)

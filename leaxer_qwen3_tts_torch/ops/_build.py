@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
     "fused_step.cu", "fused_step_batched.cu", "fused_mtp.cu", "fused_mtp_batched.cu",
-    "fused_verify.cu",
+    "fused_verify.cu", "fused_mtp_stream.cu", "flash_attention.cu",
 )
 HEADERS = ("qtts_kernels.cuh",)
 NVCC_FLAGS = (
@@ -199,6 +199,10 @@ def load_kernels() -> ctypes.CDLL:
                 ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch),
                 ctypes.POINTER(ChainBatchArgs), vp,
             ]
+            lib.qtts_mtp_chain_streamed.restype = i32
+            lib.qtts_mtp_chain_streamed.argtypes = lib.qtts_mtp_chain.argtypes
+            lib.qtts_flash_attend.restype = i32
+            lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
             lib.qtts_verify_step.restype = i32
             lib.qtts_verify_step.argtypes = [
                 ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch), vp, vp, vp, vp,

@@ -1,9 +1,13 @@
-"""Grouped-query attention over a head-major cache, in plain tensor ops.
+"""Grouped-query attention over a head-major cache: the dispatch and the
+plain-tensor path.
 
-Port of ``leaxer_qwen3_tts_tpu/ops/attention.py::attend_xla`` (the prefill
-and unpacked-decode path).  It is written with explicit products and a
-softmax rather than ``scaled_dot_product_attention`` so its numerics stay
-comparable with the reference.  int8-KV scales are not ported yet.
+Port of ``leaxer_qwen3_tts_tpu/ops/attention.py``.  :func:`attend` takes the
+config's ``attn_impl``: ``"xla"`` runs :func:`attend_xla` (the prefill and
+unpacked-decode path, written with explicit products and a softmax rather
+than ``scaled_dot_product_attention`` so its numerics stay comparable with
+the reference), ``"pallas"`` runs kernel K8
+(:func:`~leaxer_qwen3_tts_torch.ops.flash_attention.flash_attend`), and any
+other value raises.  int8-KV scales are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ def _inv_sqrt(d: int) -> float:
     return float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
 
 
-def attend(
+def attend_xla(
     q: torch.Tensor,  # [B, S, Nq, D]
     k: torch.Tensor,  # [B, Nk, T, D] head-major
     v: torch.Tensor,  # [B, Nk, T, D]
@@ -42,3 +46,20 @@ def attend(
     out = torch.matmul(weights.to(k.dtype).float(), v.float())  # [B, Nk, g*S, D]
     out = out.reshape(B, nk, g, S, d).permute(0, 3, 1, 2, 4).reshape(B, S, nq, d)
     return out.to(q.dtype)
+
+
+def attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    impl: str = "xla",
+) -> torch.Tensor:
+    """Attention by ``impl`` ("xla" or "pallas", the config's ``attn_impl``)."""
+    if impl == "xla":
+        return attend_xla(q, k, v, mask)
+    if impl == "pallas":
+        from .flash_attention import flash_attend
+
+        return flash_attend(q, k, v, mask)
+    raise ValueError(f"unknown attention impl {impl!r}")

@@ -47,6 +47,28 @@ from .quant import QuantizedLinear
 NEG_INF = -1e30
 _BISECT_ITERS = 40
 
+# The JAX package's residency gate (ops/fused_mtp.py::supports_resident), kept
+# as the port's routing rule: the trunk sizes that the TPU chain K2 holds in
+# VMEM go to K2 here too, larger ones (the 1.7B trunk) to K3.  Hopper streams
+# both from device memory; the byte arithmetic is the TPU's.
+RESIDENT_MAX_BYTES = 112 * 1024 * 1024
+_FIXED_B1 = 5 * 1024 * 1024  # B=1: heads double buffer, norms, scales, rope
+_PER_ROW = 1_100_000  # one row's KV scratch, noise and activations
+
+
+def trunk_bytes(fw: FusedStepWeights) -> int:
+    """Bytes of the packed int8 trunk matrices."""
+    return sum(w.numel() * w.element_size() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd))
+
+
+def supports_resident(fw: FusedStepWeights) -> bool:
+    """True when the int8 trunk plus the B=1 chain's buffers fit the TPU's
+    resident-VMEM budget: the 0.6B MTP trunk (78 MB) does, the 1.7B one
+    (302 MB) does not."""
+    if fw.wqkv.dtype != torch.int8:
+        return False
+    return trunk_bytes(fw) + _FIXED_B1 + _PER_ROW <= RESIDENT_MAX_BYTES
+
 
 class HeadPack(NamedTuple):
     """Step-indexed int8 heads in kernel layout."""
@@ -181,8 +203,19 @@ def fused_mtp_chain(
             cfg, fw, final_norm, heads, tables, last_hidden, code0_embed, gumbel,
             temperature, top_k, top_p, cache_dtype,
         )
+    return _launch_chain(
+        fused_mtp_chain, "qtts_mtp_chain", cfg, fw, final_norm, heads, tables, last_hidden,
+        code0_embed, gumbel, temperature, top_k, top_p, cache_dtype,
+    )
+
+
+def _launch_chain(wrapper, entry: str, cfg, fw, final_norm, heads, tables, last_hidden,
+                  code0_embed, gumbel, temperature, top_k, top_p, cache_dtype):
+    """Launch a B=1 chain entry (``qtts_mtp_chain``: K2; ``qtts_mtp_chain_streamed``:
+    K3) on CUDA tensors, counting the launch on ``wrapper``."""
+    what = wrapper.__name__
     if last_hidden.device.type != "cuda":
-        raise ValueError(f"fused_mtp_chain: unsupported device {last_hidden.device}")
+        raise ValueError(f"{what}: unsupported device {last_hidden.device}")
     from ._build import ChainArgs, check, load_kernels
 
     n, V, H = heads.q.shape
@@ -203,7 +236,7 @@ def fused_mtp_chain(
     _check_cuda_inputs(fw, kc, vc)
     for t in (heads.q, heads.scale, tables, final_norm) + (() if greedy else (gumbel,)):
         if not t.is_cuda or not t.is_contiguous():
-            raise ValueError("fused_mtp_chain: every tensor must be contiguous and on CUDA")
+            raise ValueError(f"{what}: every tensor must be contiguous and on CUDA")
     lib = load_kernels()
     w, s, scratch = step_structs(cfg, fw, T, device)
     buf = torch.empty(3 * H + V, dtype=torch.float32, device=device)
@@ -222,9 +255,9 @@ def fused_mtp_chain(
         clamp_temperature(temperature), int(top_k), float(top_p), int(greedy),
     )
     stream = torch.cuda.current_stream(device).cuda_stream
-    fused_mtp_chain.launches += 1
-    err = lib.qtts_mtp_chain(w, s, args, stream)
-    check(err, "fused_mtp_chain")
+    wrapper.launches += 1
+    err = getattr(lib, entry)(w, s, args, stream)
+    check(err, what)
     del scratch, kc, vc  # enqueued; the caching allocator orders reuse on the stream
     return ints[:n].reshape(1, n), sub_sum.reshape(1, H)
 

@@ -64,8 +64,12 @@ def prefill(
     lang_id: Optional[int],
     max_len: int,
     generator: Generators,  # one generator, or one per row
+    speaker_embed: Optional[torch.Tensor] = None,  # [B, H]: a preset speaker's embedding
+    instruct_ids: Optional[torch.Tensor] = None,  # [B, I] int: a voice-design instruction
+    instruct_len: Optional[torch.Tensor] = None,  # [B] int
 ) -> Tuple[GenerateState, PromptBundle]:
-    bundle = build_prompt(params["embeddings"], text_ids, text_len, lang_id)
+    bundle = build_prompt(params["embeddings"], text_ids, text_len, lang_id, speaker_embed,
+                          instruct_ids, instruct_len)
     B, P, _ = bundle.prompt_embeds.shape
     device = bundle.prompt_embeds.device
     cache = talker_init_cache(cfg.talker, B, max_len, device)
@@ -222,7 +226,7 @@ def decode_frames(
 class GenerateFns(NamedTuple):
     """Entry points bound to one (model config, batch, cache bucket, chunk)."""
 
-    prefill: callable  # (params, text_ids, text_len, generator) -> (state, bundle)
+    prefill: callable  # (params, text_ids, text_len, generator, **segments) -> (state, bundle)
     decode: callable  # (params, state, trailing, trailing_len, tts_pad_embed, sp) -> (state, frames, valid)
 
 
@@ -239,10 +243,12 @@ def make_generate_fns(
     ``uniform_fill=False`` decodes a pool state whose rows sit at their own
     positions (``cache.length`` a [B] device tensor)."""
 
-    def prefill_fn(params, text_ids, text_len, generator=None):
+    def prefill_fn(params, text_ids, text_len, generator=None, **segments):
+        """``segments``: the optional prompt segments of :func:`prefill`
+        (``speaker_embed``, ``instruct_ids``, ``instruct_len``)."""
         if text_ids.shape[0] != batch:
             raise ValueError(f"batch {text_ids.shape[0]} != {batch}")
-        return prefill(cfg, params, text_ids, text_len, lang_id, max_len, generator)
+        return prefill(cfg, params, text_ids, text_len, lang_id, max_len, generator, **segments)
 
     def decode_fn(params, state, trailing, trailing_len, tts_pad_embed, sp):
         return decode_frames(

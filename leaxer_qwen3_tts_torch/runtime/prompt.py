@@ -6,8 +6,11 @@ Port of ``leaxer_qwen3_tts_tpu/runtime/prompt.py``:
   embeds](pad_count+1) ⊕ [first-text-token + CODEC_BOS embed](1)
 
 The remaining text drips in one token per decode step through the
-``trailing`` buffer (TTS_EOS terminated), then falls back to TTS_PAD.
-Voice-clone speaker embeddings and instruct segments are not ported yet.
+``trailing`` buffer (TTS_EOS terminated), then falls back to TTS_PAD.  A
+speaker embedding (a CustomVoice preset's row of ``speaker_table``) is
+spliced immediately before CODEC_BOS and widens the pad block by one; a
+voice-design instruction segment sits between the role block and the codec
+prefill, its slots past ``instruct_len`` carrying the TTS_PAD embedding.
 """
 
 from __future__ import annotations
@@ -50,10 +53,14 @@ def codec_prefill_ids(lang_id: Optional[int]) -> list:
     return ids + [CODEC_PAD, CODEC_BOS]
 
 
-def prompt_length(lang_id: Optional[int]) -> int:
-    """Static prompt length: 3 role + (pad_count + 1) talker + 1 first-text."""
+def prompt_length(
+    lang_id: Optional[int], has_speaker: bool = False, instruct_bucket: int = 0
+) -> int:
+    """Static prompt length: 3 role + instruct segment + (pad_count + 1)
+    talker + 1 first-text."""
     n = len(codec_prefill_ids(lang_id))
-    return 3 + (n - 2) + 2
+    pad_count = n - 2 + (1 if has_speaker else 0)
+    return 3 + instruct_bucket + pad_count + 2
 
 
 def tts_embeds(emb_params: dict, device) -> torch.Tensor:
@@ -69,6 +76,9 @@ def build_prompt(
     text_ids: torch.Tensor,  # [B, T] int — BPE text tokens only, right-padded
     text_len: torch.Tensor,  # [B] int — true token counts (>= 1)
     lang_id: Optional[int],  # codec language token or None for auto
+    speaker_embed: Optional[torch.Tensor] = None,  # [B, H]
+    instruct_ids: Optional[torch.Tensor] = None,  # [B, I] int
+    instruct_len: Optional[torch.Tensor] = None,  # [B] int (default: I)
 ) -> PromptBundle:
     B, T = text_ids.shape
     device = text_ids.device
@@ -82,10 +92,21 @@ def build_prompt(
     codec_ids = codec_prefill_ids(lang_id)
     ce = codec_embed(emb_params, ids(codec_ids))  # [n, H]
     ce = ce[None].expand(B, len(codec_ids), H)
+    if speaker_embed is not None:
+        spk = speaker_embed.to(device=device, dtype=ce.dtype)[:, None, :]
+        ce = torch.cat([ce[:, :-1], spk, ce[:, -1:]], dim=1)
     pad_count = ce.shape[1] - 2
 
     role = text_project(emb_params, ids([IM_START, ASSISTANT, TTS_BOS]))
     role = role[None].expand(B, 3, H)
+    if instruct_ids is not None:
+        n_instr = instruct_ids.shape[1]
+        if instruct_len is None:
+            instruct_len = torch.full((B,), n_instr, dtype=torch.long, device=device)
+        ie = text_project(emb_params, instruct_ids.long())  # [B, I, H]
+        pad_slot = torch.arange(n_instr, device=device)[None, :] >= instruct_len.to(device)[:, None]
+        ie = torch.where(pad_slot[..., None], tts_pad[None, None, :], ie)
+        role = torch.cat([role, ie], dim=1)
 
     # pad-block ⊕ TTS_BOS, elementwise-added to the codec prefill
     text_part = torch.cat([tts_pad[None].expand(pad_count, H), tts_bos[None]], dim=0)

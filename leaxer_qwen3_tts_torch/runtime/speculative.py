@@ -94,12 +94,16 @@ def init_spec_state(
     max_len: int,
     generator: Generators,
     sp: SamplingParams,
+    **segments,
 ) -> Tuple[SpecState, PromptBundle, torch.Tensor, torch.Tensor]:
     """Prefill and frame 0 (code0 from the prefill logits and its MTP chain,
     the sampling half of the sequential frame, with the same draws).
+    ``segments``: the prompt's optional speaker and instruct segments, as
+    :func:`~leaxer_qwen3_tts_torch.runtime.generate.prefill` takes them.
 
     Returns (state, bundle, frame0 [B, 16] int32, valid0 [B])."""
-    gs, bundle = prefill(cfg, params, text_ids, text_len, lang_id, max_len, generator)
+    gs, bundle = prefill(cfg, params, text_ids, text_len, lang_id, max_len, generator,
+                         **segments)
     B, V = gs.last_logits.shape
     device = gs.last_logits.device
     P = bundle.prompt_embeds.shape[1]
@@ -355,10 +359,11 @@ def make_spec_generate_fns(
     ``num_iters * k`` frames per stream.  ``force_accept`` is the
     measurement probe of :func:`_spec_iteration`."""
 
-    def prefill_fn(params, text_ids, text_len, generator, sp):
+    def prefill_fn(params, text_ids, text_len, generator, sp, **segments):
         if text_ids.shape[0] != batch:
             raise ValueError(f"batch {text_ids.shape[0]} != {batch}")
-        return init_spec_state(cfg, params, text_ids, text_len, lang_id, max_len, generator, sp)
+        return init_spec_state(cfg, params, text_ids, text_len, lang_id, max_len, generator, sp,
+                               **segments)
 
     def decode_fn(params, state, trailing, trailing_len, tts_pad_embed, sp):
         return decode_frames_spec(cfg, params, state, trailing, trailing_len, tts_pad_embed, sp,

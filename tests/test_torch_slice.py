@@ -24,7 +24,13 @@ from leaxer_qwen3_tts_torch.frontend import Tokenizer
 from leaxer_qwen3_tts_torch.models.code_predictor import prepare_fused_step
 from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
 from leaxer_qwen3_tts_torch.models.talker import prepare_fused_talker
-from leaxer_qwen3_tts_torch.ops import fused_mtp, fused_step, fused_verify
+from leaxer_qwen3_tts_torch.ops import (
+    flash_attention,
+    fused_mtp,
+    fused_mtp_stream,
+    fused_step,
+    fused_verify,
+)
 from leaxer_qwen3_tts_torch.ops.quant import fuse_params, quantize_params
 from leaxer_qwen3_tts_torch.runtime.generate import make_generate_fns
 from leaxer_qwen3_tts_torch.runtime.prompt import build_prompt
@@ -226,10 +232,13 @@ def test_port_imports_no_jax():
     assert len(modules) >= 20
     assert {"leaxer_qwen3_tts_torch.serve.pool", "leaxer_qwen3_tts_torch.serve.server",
             "leaxer_qwen3_tts_torch.runtime.speculative", "leaxer_qwen3_tts_torch.ops.fused_verify",
-            "leaxer_qwen3_tts_torch.models.draft"} <= modules
+            "leaxer_qwen3_tts_torch.models.draft", "leaxer_qwen3_tts_torch.ops.fused_mtp_stream",
+            "leaxer_qwen3_tts_torch.ops.flash_attention"} <= modules
     # no kernel ran on the CPU
     assert fused_step.fused_decode_step.launches == 0
     assert fused_mtp.fused_mtp_chain.launches == 0
     assert fused_step.fused_decode_step_batched.launches == 0
     assert fused_mtp.fused_mtp_chain_batched.launches == 0
     assert fused_verify.fused_verify_step.launches == 0
+    assert fused_mtp_stream.fused_mtp_chain_streamed.launches == 0
+    assert flash_attention.flash_attend.launches == 0
