@@ -1,4 +1,4 @@
-"""Mutation check of ``chip_smoke.py``'s K6, K3 and K8 checks on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s K6, K3, K8 and K7 checks on one NVIDIA GPU.
 
     python3 chip_mutants.py
 
@@ -7,7 +7,8 @@ checkout is never touched), each with one fault, and runs the checks of the
 kernel it breaks against it: ``chip_smoke.check_k6_shallow`` on one talker
 layer with float32 and bf16 caches (K6), ``chip_smoke.check_k3_equals_k2`` on
 the 1.7B MTP trunk (K3), ``chip_smoke.check_k8`` at the 1.7B prefill shape
-and on the random GQA shapes (K8).  A mutant is caught when at least one
+and on the random GQA shapes (K8), ``chip_smoke.check_k7_composition`` and
+``chip_smoke.check_k7_plain`` at the 0.6B widths (K7).  A mutant is caught when at least one
 case fails.  Exits non-zero if a mutant is not caught, or without CUDA.
 """
 
@@ -67,6 +68,23 @@ MUTANTS = {
         "for (int t0 = 0; t0 + FA_BT < Tp; t0 += FA_BT) {",
         "K8",
     ),
+    # the whole frame rounds the next talker input to bf16 (the multi-dispatch
+    # path's numerics, not the JAX kernel's float32 sum)
+    "K7 next input in bf16": (
+        "fused_frame.cu",
+        "a.x[k] = __fadd_rn(__fadd_rn(a.c0e[k], a.sub_sum[k]), load_in(a.drip, a.drip_bf16, k));",
+        "a.x[k] = qtts_bf16_round(\n"
+        "              __fadd_rn(__fadd_rn(a.c0e[k], a.sub_sum[k]), load_in(a.drip, a.drip_bf16, k)));",
+        "K7",
+    ),
+    # the grid barrier between the chain's last gather and the talker's first
+    # layer dropped: the talker may read x before the last gather writes it
+    "K7 barrier before the talker dropped": (
+        "fused_frame.cu",
+        "  qtts_grid_sync();  // the talker's first layer reads x\n",
+        "",
+        "K7",
+    ),
 }
 K6_CASES = ((1, 4, [62]), (4, 8, [62, 5, 504, 130]))  # (B, S, starts) at T=512
 
@@ -90,7 +108,13 @@ def checks(gen):
                               "prefill", gen)]
     k8 += [lambda shape=shape: cs.check_k8("random GQA", *shape, "random", gen)
            for shape in cs.K8_RANDOM_SHAPES]
-    return {"K6": k6, "K3": k3, "K8": k8}
+    packs = cs.frame_packs(QWEN3_TTS_06B, gen)
+    k7 = [lambda T=T, pos=pos: cs.check_k7_composition(packs, T, pos, torch.bfloat16, gen,
+                                                       inputs=4)
+          for T, pos in ((256, 64), (2560, 2559))]
+    k7 += [lambda knobs=knobs: cs.check_k7_plain(packs, 256, 255, knobs, gen)
+           for knobs in cs.K7_KNOBS]
+    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7}
 
 
 def main() -> int:

@@ -28,22 +28,38 @@ prints the final line:
    greedy and sampled, on the same noise; then K5 (``fused_mtp_chain_batched``)
    at B=8 and B=32 with mixed per-row knobs (K2's margin rule for a
    mismatch), every row equal to K2 on that row's noise, bit for bit.
-5. Slice: ``TTSEngine.synthesize`` (0.6B preset, random weights from a seed,
+5. K7 (``fused_frame_step``, one cooperative launch per frame) at the 0.6B
+   widths, T=256 and 2560, at a split edge and the last slot, greedy and two
+   sampled knob sets, 16 seeded inputs each (and a float32 cache case): its
+   code0 is the plain sampler's pick on the same logits and noise, and its
+   sub-codes, c0e, sub_sum, x, talker caches, hidden and logits equal the
+   composition K2 -> float32 next input -> K1 -> K1's GEMV body on the final
+   norm (``qtts_norm_head``) bit for bit; against its plain version, K1's
+   deep limits and K5's flip rule; timed beside the composition.  Then the
+   probes P1 and P2 (``tools/a8_probe.py``, ``tools/w8a8_probe.py``) through
+   their ``run`` entries: every arm against its plain version and timed
+   beside one PyTorch call of the unit product.
+6. Slice: ``TTSEngine.synthesize`` (0.6B preset, random weights from a seed,
    int8) on three requests, then a fixed 300-frame run through the generate
    callables and the engine's cache growth (256 -> 512 slots), with any host
    sync inside a decode chunk raising.  Launch counters, reset just before,
-   must show one K1 step and one K2 chain per decoded frame.
-6. Batched slice: ``synthesize_batch`` on 8 texts with per-stream seeds, then
+   must show one K1 step and one K2 chain per decoded frame.  Then
+   ``TTSEngine(frame_fused=True)``: the same three requests and a streamed
+   one, one K7 launch per decoded frame and no K1 or K2; fixed 300-frame
+   runs in turns with the multi-dispatch engine (multi, K7, K7, multi);
+   greedy agreement with it printed as data; a ``torch.profiler`` trace of
+   single frames of both (device busy, idle share).
+7. Batched slice: ``synthesize_batch`` on 8 texts with per-stream seeds, then
    fixed 300-frame batched runs at B=8 and B=32 (EOS forbidden, cache growth,
    a host sync inside a chunk raising): ms per batched frame, aggregate RTF.
    One K4 step and one K5 chain per decoded frame, no K1 or K2.
-7. Pool: a ``ContinuousBatcher`` of 8 slots serves 12 requests (mixed
+8. Pool: a ``ContinuousBatcher`` of 8 slots serves 12 requests (mixed
    languages and lengths, one streamed): TTFA and aggregate RTF; greedy pool
    output equals B=1 ``synthesize``; a seeded request gives the same codes
    alone and among co-tenants; two requests through ``make_http_server``; a
    second pool runs every chunk with host syncs raising.  One K4 and one K5
    per pooled frame; K1 and K2 only for the streamed request's bootstrap.
-8. Speculative decoding (spec_k=4, 4 iterations per dispatch; K5 is
+9. Speculative decoding (spec_k=4, 4 iterations per dispatch; K5 is
    also checked and timed at the 4 rows of a B=1 iteration): greedy
    ``synthesize`` with the repeat draft, through the adaptive fallback, and
    with a trained-draft head (random weights) equals sequential
@@ -57,7 +73,7 @@ prints the final line:
    request is the same alone and among co-tenants, and a second spec pool
    runs every chunk with host syncs raising while its fallback fires.  One
    K6 and one K5 per verify iteration; K2 for each frame 0 at B=1.
-9. The 1.7B voice slice (``QWEN3_TTS_17B`` with the talker's
+10. The 1.7B voice slice (``QWEN3_TTS_17B`` with the talker's
    ``attn_impl="pallas"``, random weights made on the card from a seed, int8,
    bf16 KV cache, a random [9, 2048] speaker table): K1 at the 1.7B widths
    (28 layers, and one layer with 24 seeded inputs per float32 / bf16 case
@@ -70,7 +86,7 @@ prints the final line:
    ``synthesize(instruct=...)`` and ``synthesize_speaker("serena")`` through
    the engine and a fixed 300-frame instruct run: one K1 and one K3 per
    decoded frame, no K2, and 28 K8 launches per prefill.
-10. The kernel report (each kernel's launches on the main paths, error
+11. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time) and the device line.
 """
@@ -92,6 +108,7 @@ import torch
 
 from leaxer_qwen3_tts_torch.api.engine import TTSEngine
 from leaxer_qwen3_tts_torch.config import (
+    CODEC_EOS,
     LANG_ENGLISH,
     PRESET_SPEAKERS,
     QWEN3_TTS_06B,
@@ -107,6 +124,7 @@ from leaxer_qwen3_tts_torch.models.draft import init_draft_params
 from leaxer_qwen3_tts_torch.models.layers import init_transformer_params
 from leaxer_qwen3_tts_torch.ops import _build
 from leaxer_qwen3_tts_torch.ops import flash_attention as K8
+from leaxer_qwen3_tts_torch.ops import fused_frame as K7
 from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
 from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as K3
 from leaxer_qwen3_tts_torch.ops import fused_step as K1
@@ -116,6 +134,7 @@ from leaxer_qwen3_tts_torch.runtime.prompt import prompt_length
 from leaxer_qwen3_tts_torch.runtime.sampling import (
     SamplingParams,
     gumbel_noise,
+    make_codec_suppress_mask,
     scale_by_temperature,
 )
 from leaxer_qwen3_tts_torch.runtime.speculative import (
@@ -125,6 +144,8 @@ from leaxer_qwen3_tts_torch.runtime.speculative import (
 )
 from leaxer_qwen3_tts_torch.runtime.weights import init_params
 from leaxer_qwen3_tts_torch.serve import ContinuousBatcher, make_http_server
+from leaxer_qwen3_tts_torch.tools import a8_probe as P1
+from leaxer_qwen3_tts_torch.tools import w8a8_probe as P2
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -208,6 +229,18 @@ K8_BF16_REL = 2 ** -7
 # (B, S, T, nq, nk) with queries at T-S..T-1, per-batch invalid keys and
 # batch 0's first row masked everywhere: ragged S and T, GQA 2:1 to 8:1
 K8_RANDOM_SHAPES = ((2, 37, 301, 16, 8), (1, 5, 23, 8, 2), (3, 17, 130, 16, 2), (2, 1, 200, 4, 4))
+# K7 (the whole frame) at the 0.6B widths, (T, pos): the first slot past a
+# 64-slot split edge and the last slot, in the first bucket and in the 2560
+# bucket; greedy and two sampled knob sets; K7_INPUTS seeded inputs each (EOS
+# forbidden in every other one, and on top of the logits in half of them).
+# K7 runs K2's chain, K1's step and K1's GEMV body on the final norm with the
+# same thread counts and reduction orders, so on the same inputs it equals
+# the composition K2 -> float32 next input -> K1 -> qtts_norm_head bit for
+# bit; against its plain version it takes K1's deep limits and K5's flip rule.
+K7_CASES = ((256, 64), (256, 255), (2560, 1792), (2560, 2559))
+K7_KNOBS = ((0.0, 50, 0.9), (0.8, 50, 0.95), (1.0, 0, 1.0))
+K7_INPUTS = 16
+FIXED_TEXT = "hello world, this is a fixed length run"
 
 
 CARD = "card not read yet"  # the nvidia-smi line, printed beside every measured number
@@ -833,8 +866,8 @@ def check_fixed_run(eng, n_frames, texts, card_line, instruct=None):
 
 KERNELS = (K1.fused_decode_step, K2.fused_mtp_chain, K1.fused_decode_step_batched,
            K2.fused_mtp_chain_batched, K6.fused_verify_step, K3.fused_mtp_chain_streamed,
-           K8.flash_attend)
-KERNEL_IDS = ("K1", "K2", "K4", "K5", "K6", "K3", "K8")
+           K8.flash_attend, K7.fused_frame_step, P1.chain, P2.chain)
+KERNEL_IDS = ("K1", "K2", "K4", "K5", "K6", "K3", "K8", "K7", "P1", "P2")
 
 
 def reset_launches():
@@ -1385,7 +1418,7 @@ def voice_config():
 
 
 def voice_phase(tok, gen, card_line):
-    """The 1.7B voice slice at B=1 (phase 9).  Returns (launch counts, K1
+    """The 1.7B voice slice at B=1 (phase 10).  Returns (launch counts, K1
     checks, K3 checks, K8 checks, bounds)."""
     cfg = voice_config()
     t0 = time.perf_counter()
@@ -1472,6 +1505,367 @@ def voice_phase(tok, gen, card_line):
     return [sum(c) for c in zip(*counts)], k1, k3, k8, bounds
 
 
+def frame_packs(cfg, gen):
+    """K7's first ten arguments at the preset's widths: random int8 talker
+    and trunk packs, lm_head and heads, bf16 codec and step tables, and
+    final norms near 1."""
+    tt, cp = cfg.talker.transformer, cfg.code_predictor
+    mt = cp.transformer
+    H, Vc, V, n = tt.hidden_size, cfg.talker.codec_vocab_size, cp.subcode_vocab_size, cp.num_steps
+
+    def head(*shape):
+        w = torch.randn(shape, generator=gen, device=DEV) * H ** -0.5
+        return K2.pack_heads(quantize_weight(w.to(torch.bfloat16)))
+
+    def norm():
+        return (1 + 0.1 * torch.randn((H,), generator=gen, device=DEV)).to(torch.bfloat16)
+
+    def table(*shape):
+        return (torch.randn(shape, generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+
+    return (tt, mt, packed_trunk(tt, gen), norm(), head(H, Vc), table(Vc, H),
+            packed_trunk(mt, gen), norm(), head(n, H, V), table(n, V, H))
+
+
+def k7_caches(tt, T, pos, cache_dtype, gen):
+    L, nk, d = tt.num_layers, tt.num_kv_heads, tt.head_dim
+    kc = (torch.randn((L, 1, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+    vc = (torch.randn((L, 1, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+    kc[:, :, :, pos:] = 0
+    vc[:, :, :, pos:] = 0
+    return kc, vc
+
+
+def k7_inputs(packs, pos, i, gen):
+    """Seeded inputs of one frame (input i): last logits (CODEC_EOS on top
+    when i % 4 < 2), the real control-token mask, bf16 hidden and drip as
+    the engine's state holds them, the noise, and forbid_eos on even i."""
+    H, Vc = packs[0].hidden_size, packs[4].q.shape[0]
+    n, V, _ = packs[8].q.shape
+    ll = torch.randn((1, Vc), generator=gen, device=DEV) * 2.0
+    if i % 4 < 2:
+        ll[0, CODEC_EOS] = 30.0
+    return dict(
+        last_logits=ll, last_hidden=(torch.randn((1, H), generator=gen, device=DEV) * 0.5).to(
+            torch.bfloat16),
+        suppress=make_codec_suppress_mask(Vc, DEV),
+        drip=(torch.randn((1, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16),
+        pos=pos, g0=gumbel_noise((1, Vc), gen, DEV), gumbel=gumbel_noise((n, 1, V), gen, DEV),
+        forbid_eos=i % 2 == 0)
+
+
+def k7_call(fn, packs, inp, knobs, kc, vc):
+    """K7 (or its plain version) on one input; the noise only when sampled."""
+    temp, top_k, top_p = knobs
+    sampled = temp > 0
+    return fn(*packs, inp["last_logits"], inp["last_hidden"], inp["suppress"], inp["drip"],
+              inp["pos"], kc, vc, inp["g0"] if sampled else None,
+              inp["gumbel"] if sampled else None, temp, top_k, top_p, inp["forbid_eos"],
+              mtp_cache_dtype=kc.dtype)
+
+
+def k7_composition(packs, inp, knobs, code0, kc, vc):
+    """The frame from checked kernels on K7's code0: K2 on its codec row, the
+    float32 next input c0e + sub_sum + drip, K1 (kc, vc updated in place),
+    then K1's GEMV body on the final norm (qtts_norm_head).  Returns c0e,
+    sub-codes, sub_sum, x, hidden and logits."""
+    tt, mt, tfw, tfnorm, lm, codec, mfw, mfnorm, heads, tables = packs
+    temp, top_k, top_p = knobs
+    c0e = codec[code0.long()].float()
+    subs, ssum = K2.fused_mtp_chain(mt, mfw, mfnorm, heads, tables, inp["last_hidden"], c0e,
+                                    inp["gumbel"] if temp > 0 else None, temp, top_k, top_p,
+                                    cache_dtype=kc.dtype)
+    x = c0e + ssum + inp["drip"].float()
+    x, _, _ = K1.fused_decode_step(tt, tfw, x, inp["pos"], kc, vc)
+    H, Vc = tt.hidden_size, lm.q.shape[0]
+    hidden = torch.empty((1, H), dtype=torch.float32, device=DEV)
+    logits = torch.empty((1, Vc), dtype=torch.float32, device=DEV)
+    fn = tfnorm.float().contiguous()
+    err = _build.load_kernels().qtts_norm_head(
+        x.data_ptr(), fn.data_ptr(), tt.rms_norm_eps, lm.q.data_ptr(), lm.scale.data_ptr(),
+        hidden.data_ptr(), logits.data_ptr(), Vc, H, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "qtts_norm_head")
+    return c0e, subs, ssum, x, hidden, logits
+
+
+def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
+    """K7 against the composition of checked kernels on ``inputs`` seeded
+    inputs per knob set: code0 the plain sampler's pick on the same logits
+    and noise (a near tie passes by K5's flip rule, counted), and the
+    sub-codes, c0e, sub_sum, x, the talker caches, hidden and logits equal
+    bit for bit.  Returns the number of frames compared."""
+    tt = packs[0]
+    kc0, vc0 = k7_caches(tt, T, pos, cache_dtype, gen)
+    equal = flips = eos = frames = 0
+    for knobs in K7_KNOBS:
+        for i in range(inputs):
+            inp = k7_inputs(packs, pos, i, gen)
+            kk, vk = kc0.clone(), vc0.clone()
+            code0, subs, logits, hidden, _, _ = k7_call(K7.fused_frame_step, packs, inp, knobs,
+                                                         kk, vk)
+            work = {k: v.clone() for k, v in K7.frame_work(*packs, T, cache_dtype).items()}
+            logits0 = K7._eos_gate(inp["last_logits"], inp["suppress"], inp["forbid_eos"])
+            g0 = inp["g0"] if knobs[0] > 0 else None
+            pick = int(K2.gumbel_topk_topp_sample(logits0, g0, *knobs)[0])
+            c0 = int(code0[0])
+            if c0 != pick:
+                if flip_eps(logits0, g0, knobs, c0, gen) is None:
+                    raise RuntimeError(f"K7 T={T} pos={pos} knobs {knobs} input {i}: code0 {c0} "
+                                       f"is not the plain sampler's pick {pick}")
+                flips += 1
+            eos += c0 == CODEC_EOS
+            kc, vc = kc0.clone(), vc0.clone()
+            c0e, s2, sum2, x, h, lg = k7_composition(packs, inp, knobs, code0, kc, vc)
+            same = [torch.equal(c0e, work["c0e"][None]), torch.equal(s2, subs),
+                    torch.equal(sum2, work["sub_sum"][None]), torch.equal(x, work["x"][None]),
+                    torch.equal(kc, kk), torch.equal(vc, vk), torch.equal(h, hidden),
+                    torch.equal(lg, logits)]
+            equal += all(same)
+            frames += 1
+            if not all(same):
+                names = ("c0e", "subcodes", "sub_sum", "x", "k_cache", "v_cache", "hidden",
+                         "logits")
+                log(f"K7 T={T} pos={pos} knobs {knobs} input {i}: differs from the composition in "
+                    f"{[nm for nm, ok in zip(names, same) if not ok]}")
+    ok = equal == frames
+    log(f"K7 vs K2 -> float32 x -> K1 -> norm+lm_head: T={T} pos={pos} cache="
+        f"{str(cache_dtype)[6:]} knobs {K7_KNOBS}: {equal}/{frames} frames equal bit for bit "
+        f"(c0e, sub-codes, sub_sum, x, caches, hidden, logits); code0 = plain pick on "
+        f"{frames - flips}/{frames} (near-tie flips {flips}), EOS drawn {eos} -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K7 T={T} pos={pos} differs from the composition of K2 and K1")
+    return frames
+
+
+def check_k7_plain(packs, T, pos, knobs, gen, iters=0):
+    """K7 against its plain version on one seeded input: code0 and the
+    sub-codes equal, or the first mismatch within K5's flip rule (then
+    nothing after it is compared); else hidden and logits within K1's deep
+    relative limit, the written slot within its absolute limit and every
+    other slot untouched.  With ``iters``, both timed beside the
+    composition.  Returns (hidden max_abs_err, ms, plain ms, composition ms)."""
+    tt = packs[0]
+    kc0, vc0 = k7_caches(tt, T, pos, torch.bfloat16, gen)
+    inp = k7_inputs(packs, pos, 1, gen)
+    kk, vk, kp, vp = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
+    got = k7_call(K7.fused_frame_step, packs, inp, knobs, kk, vk)
+    seen = []
+    real = K2.gumbel_topk_topp_sample
+
+    def record(logits, g, *a):
+        seen.append((logits.clone(), None if g is None else g.clone()))
+        return real(logits, g, *a)
+
+    K2.gumbel_topk_topp_sample = K7.gumbel_topk_topp_sample = record
+    try:
+        want = k7_call(K7.fused_frame_step_reference, packs, inp, knobs, kp, vp)
+    finally:
+        K2.gumbel_topk_topp_sample = K7.gumbel_topk_topp_sample = real
+    torch.cuda.synchronize()
+    codes_k = got[0].tolist() + got[1][0].tolist()
+    codes_p = [int(c) for c in want[0].tolist()] + want[1][0].tolist()
+    diff = [j for j in range(len(codes_k)) if codes_k[j] != codes_p[j]]
+    err = 0.0
+    if diff:
+        j = diff[0]
+        logits, g = seen[j]
+        eps = flip_eps(logits, g, knobs, codes_k[j], gen)
+        ok = eps is not None
+        detail = (f"first code mismatch at {'code0' if j == 0 else f'sub-code {j - 1}'}: kernel "
+                  f"{codes_k[j]} plain {codes_p[j]}, flip eps {eps} (tol {K5_FLIP_EPS[-1]})")
+    else:
+        err = float((got[3] - want[3]).abs().max())
+        rel = err / float(want[3].abs().max())
+        lrel = float((got[2] - want[2]).abs().max()) / float(want[2].abs().max())
+        slot_k = torch.stack((kk[:, :, :, pos], vk[:, :, :, pos])).float()
+        slot_p = torch.stack((kp[:, :, :, pos], vp[:, :, :, pos])).float()
+        slot_err = float((slot_k - slot_p).abs().max())
+        others = torch.ones(T, dtype=torch.bool, device=DEV)
+        others[pos] = False
+        untouched = bool(torch.equal(kk[:, :, :, others], kc0[:, :, :, others])) and bool(
+            torch.equal(vk[:, :, :, others], vc0[:, :, :, others]))
+        ok = (rel < K1_DEEP_X_REL and lrel < K1_DEEP_X_REL and slot_err < K1_DEEP_SLOT_ABS
+              and untouched and bool(torch.isfinite(got[2]).all()))
+        detail = (f"codes equal; hidden max_abs_err={err:.3e} rel={rel:.3e} logits rel={lrel:.3e} "
+                  f"(tol {K1_DEEP_X_REL}) slot max_abs_err={slot_err:.3e} (tol "
+                  f"{K1_DEEP_SLOT_ABS}) untouched_slots_equal={untouched}")
+    ms = plain_ms = comp_ms = float("nan")
+    if iters:
+        ms = time_ms(lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, kk, vk), iters)
+        code0 = got[0]
+        comp_ms = time_ms(lambda: k7_composition(packs, inp, knobs, code0, kp, vp), iters)
+        plain_ms = time_ms(lambda: k7_call(K7.fused_frame_step_reference, packs, inp, knobs, kp,
+                                           vp), 2, 1)
+    log(f"K7 vs plain: T={T} pos={pos} knobs {knobs}: {detail}; kernel {ms:.4f} ms/frame, "
+        f"K2 + K1 + norm_head {comp_ms:.4f} ms, plain {plain_ms:.4f} ms -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K7 T={T} pos={pos} knobs {knobs} disagrees with its plain version")
+    return err, ms, plain_ms, comp_ms
+
+
+def frame_bound(packs, pos, cache_dtype, trunk_reads=1):
+    """Bound of one K7 frame: the talker pack, the trunk pack ``trunk_reads``
+    times, the heads and the lm_head, the talker's slots 0..pos and the new
+    slot, the codec and table rows, the logits, mask and noise in and the
+    logits out; the GEMV products of one talker step, 16 trunk passes, 15
+    heads and the lm_head, and the attention of both."""
+    tt, mt, tfw, _, lm, _, mfw, _, heads, _ = packs
+    n, V, H = heads.q.shape
+    Vc = lm.q.shape[0]
+    L, nk, nq, d = tt.num_layers, tt.num_kv_heads, tt.num_heads, tt.head_dim
+    slot = L * 2 * nk * d * torch.finfo(cache_dtype).bits // 8
+    moved = (nbytes(tfw) + trunk_reads * nbytes(mfw) + nbytes(heads) + nbytes(lm)
+             + slot * (pos + 2) + (n + 1) * H * 2 + 4 * Vc * 4 + n * V * 4 + 4 * H * 4)
+    macs = [sum(w.numel() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd)) for fw in (tfw, mfw)]
+    chain_attn = mt.num_layers * 4 * mt.num_heads * mt.head_dim * sum(range(1, n + 2))
+    ops = 2 * (macs[0] + (n + 1) * macs[1] + n * V * H + Vc * H) + 4 * L * nq * d * (pos + 1)
+    return bound(moved, ops + chain_attn)
+
+
+def frame_checks(cfg, gen):
+    """K7 at the preset's widths: against the composition on every case
+    (bf16 caches, and a float32 talker and chain cache at the first), against
+    its plain version per case and knob set, timed at the first bucket's
+    last slot.  Returns (report checks, bound, frames compared)."""
+    packs = frame_packs(cfg, gen)
+    grid = K7.frame_grid(*packs, 256, torch.bfloat16)
+    log(f"K7 grid: {grid} blocks of 256 threads on {torch.cuda.get_device_properties(0).multi_processor_count} "
+        f"SMs, one cooperative launch per frame [{CARD}]")
+    frames = check_k7_composition(packs, 256, 64, torch.float32, gen, inputs=4)
+    for T, pos in K7_CASES:
+        frames += check_k7_composition(packs, T, pos, torch.bfloat16, gen)
+    timed, checks = None, []
+    for T, pos in K7_CASES:
+        for knobs in K7_KNOBS:
+            if (T, pos) == (256, 255) and knobs == K7_KNOBS[1]:
+                timed = check_k7_plain(packs, T, pos, knobs, gen, 20)
+            else:
+                checks.append(check_k7_plain(packs, T, pos, knobs, gen))
+    checks.insert(0, timed)  # the report reads ms and plain ms from the first
+    b_ms, b_by = frame_bound(packs, 255, torch.bfloat16)
+    b16_ms, _ = frame_bound(packs, 255, torch.bfloat16, trunk_reads=cfg.code_predictor.num_steps + 1)
+    log(f"K7 bound at pos 255: {b_ms:.4f} ms ({b_by}) with each input read once "
+        f"({nbytes(packs[2]) / 1e6:.1f} MB talker, {nbytes(packs[6]) / 1e6:.1f} MB trunk); "
+        f"{b16_ms:.4f} ms with the trunk streamed once per pass "
+        f"({cfg.code_predictor.num_steps + 1} passes, past the 50 MB L2) [{CARD}]")
+    del packs
+    torch.cuda.empty_cache()
+    return checks, (b_ms, b_by), frames
+
+
+def probe_phase():
+    """Probes P1 and P2 through their entry points: every arm against its
+    plain version and timed beside one PyTorch call of the unit product.
+    Returns (launch counts, P1 results, P2 results)."""
+    reset_launches()
+    p1, p2 = P1.run(), P2.run()
+    counts = launches()
+    for r in p1 + p2:
+        if not (r["ok"] and r["finite"]):
+            raise RuntimeError(f"probe arm {r['arm']} disagrees with its plain version")
+    log("launches on the probes' entry points: "
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, counts) if n))
+    return counts, p1, p2
+
+
+def profile_frames(eng, label, card_line, frames=8):
+    """Device time over ``frames`` single-frame decodes of one stream at the
+    256 bucket (after three warm ones), from ``torch.profiler``: device busy
+    and idle share per frame, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = eng._get_fns(LANG_ENGLISH, 256, 1, 1)
+    ids = eng._tokenize(FIXED_TEXT)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    sp = SamplingParams.create(0.8, 50, 0.95, forbid_eos=True)
+    state, bundle = fns.prefill(eng.params, torch.tensor([ids], device=DEV),
+                                torch.tensor([len(ids)], device=DEV), gen)
+
+    def frame(st):
+        return fns.decode(eng.params, st, bundle.trailing, bundle.trailing_len,
+                          bundle.tts_pad_embed, sp)[0]
+
+    for _ in range(3):
+        state = frame(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            state = frame(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"frame profile, {label}: {frames} frames, wall {wall_ms / frames:.3f} ms/frame "
+        f"(profiler on), device busy {busy_ms / frames:.3f} ms/frame, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in kernels) / frames:.1f} device ops "
+        f"per frame; top: " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / frames:.3f}"
+                                        f" ms x{e.count / frames:g}" for e in top)
+        + f" [{card_line}]")
+    return busy_ms / frames, 1 - busy_ms / wall_ms
+
+
+def frame_fused_phase(eng, ff_eng, requests, card_line):
+    """TTSEngine(frame_fused=True) at the 0.6B preset: ``requests`` through
+    ``synthesize`` and one through ``synthesize_stream``, one K7 launch per
+    decoded frame and no K1 or K2; fixed 300-frame runs in turns with the
+    multi-dispatch engine (multi, K7, K7, multi); greedy agreement with it,
+    printed as data; a profile of single frames on both.  Returns (launch
+    counts, ms/frame by engine)."""
+    reset_launches()
+    decoded = 0
+    for req in requests:
+        r = ff_eng.synthesize(max_tokens=48, seed=SEED, **req)
+        m = r.metrics
+        decoded += m.decoded_frames
+        if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                r.audio).all() or r.codes.shape[1:] != (16,) or (
+                m.frame_fused_frames != m.decoded_frames):
+            raise RuntimeError(f"bad frame_fused synthesis output for {req}")
+        log(f"frame_fused synthesize {req['language']} T={req['temperature']}: {m.frames} frames "
+            f"({m.decoded_frames} decoded, {m.frame_fused_frames} by K7), "
+            f"{m.stage_seconds['decode'] * 1e3 / max(m.decoded_frames, 1):.3f} ms/frame decode, "
+            f"RTF {m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+    items = list(ff_eng.synthesize_stream("hello world, streamed frame by frame", language="en",
+                                          temperature=0.8, max_tokens=48, seed=SEED))
+    res, m = items[-1], items[-1].metrics
+    streamed = np.concatenate(items[:-1])[: res.audio.shape[0]]
+    if not np.array_equal(streamed, res.audio) or m.frame_fused_frames != m.decoded_frames:
+        raise RuntimeError("frame_fused synthesize_stream: chunks differ from the result")
+    decoded += m.decoded_frames
+    log(f"frame_fused synthesize_stream: {len(items) - 1} chunks, {m.frames} frames, TTFA "
+        f"{m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+    k7_only = (0,) * KERNEL_IDS.index("K7")
+    counts = [check_launches("frame_fused synthesize + synthesize_stream (one K7 per decoded "
+                             "frame, no K1 or K2)", k7_only + (decoded,))]
+    ms = {"multi-dispatch": [], "frame_fused": []}
+    for label, e in (("multi-dispatch", eng), ("frame_fused", ff_eng), ("frame_fused", ff_eng),
+                     ("multi-dispatch", eng)):
+        reset_launches()
+        ms[label].append(check_fixed_run(e, 300, [FIXED_TEXT], card_line))
+        counts.append(check_launches(f"fixed run, {label}",
+                                     (300, 300) if e is eng else k7_only + (300,)))
+    means = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"fixed run B=1 in turns (multi, K7, K7, multi): multi-dispatch {ms['multi-dispatch']} "
+        f"frame_fused {ms['frame_fused']} ms/frame; means {means['multi-dispatch']:.3f} vs "
+        f"{means['frame_fused']:.3f} (RTF {1e3 / 12 / means['multi-dispatch']:.2f}x vs "
+        f"{1e3 / 12 / means['frame_fused']:.2f}x) [{card_line}]")
+    kw = dict(language="en", temperature=0.0, max_tokens=64)
+    a = eng.synthesize("hello world, greedy through both paths", **kw).codes
+    b = ff_eng.synthesize("hello world, greedy through both paths", **kw).codes
+    same = next((i for i in range(min(len(a), len(b))) if not np.array_equal(a[i], b[i])),
+                min(len(a), len(b)))
+    log(f"greedy frame_fused vs multi-dispatch (data, not required): {len(b)} vs {len(a)} frames, "
+        f"first {same} frames equal (K7's next input is float32, the multi-dispatch one bf16)")
+    prof = {label: profile_frames(e, label, card_line)
+            for label, e in (("multi-dispatch", eng), ("frame_fused", ff_eng))}
+    return [sum(c) for c in zip(*counts)], means, prof
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
@@ -1551,6 +1945,8 @@ def main() -> int:
     bounds["K5"] = chain_bound(mtp_t, mtp_fw, heads, 8)
     del mtp_fw, heads, tables
     torch.cuda.empty_cache()
+    k7, bounds["K7"], _ = frame_checks(cfg, gen)
+    probed, p1, p2 = probe_phase()
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=DEV)
@@ -1565,10 +1961,12 @@ def main() -> int:
                           params=dict(params, draft=init_draft_params(DraftConfig(), gen, DEV)),
                           tokenizer=tok, quantize="int8", spec_k=SPEC_K, spec_iters=SPEC_ITERS,
                           spec_accept_floor=0.0)
+    ff_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
+                       frame_fused=True)
     del params
     torch.cuda.synchronize()
-    log(f"engines: 0.6B preset, random weights (seed {SEED}), int8, sequential, spec_k={SPEC_K} "
-        f"and spec_k={SPEC_K} with a draft head, built in {time.perf_counter() - t0:.1f} s; KV "
+    log(f"engines: 0.6B preset, random weights (seed {SEED}), int8, sequential, spec_k={SPEC_K}, "
+        f"spec_k={SPEC_K} with a draft head and frame_fused, built in {time.perf_counter() - t0:.1f} s; KV "
         f"ladder {eng.kv_ladder} [{CARD}]")
 
     reset_launches()
@@ -1591,10 +1989,12 @@ def main() -> int:
             f"({m.decoded_frames} decoded), {decode_ms:.3f} ms/frame decode, RTF "
             f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms, total "
             f"{m.total_seconds * 1e3:.1f} ms [{card_line}]")
-    seq_ms = check_fixed_run(eng, 300, ["hello world, this is a fixed length run"], card_line)
+    seq_ms = check_fixed_run(eng, 300, [FIXED_TEXT], card_line)
     decoded += 300
     b1 = check_launches("B=1 slice (one K1 and one K2 per decoded frame)",
                         (decoded, decoded, 0, 0, 0))
+    framed, _, _ = frame_fused_phase(eng, ff_eng, requests, card_line)
+    del ff_eng
     batched, _ = batched_phase(eng, card_line)
     pooled = pool_phase(eng, card_line)
     spec, _ = spec_phase(eng, spec_eng, draft_eng, seq_ms, card_line)
@@ -1603,21 +2003,29 @@ def main() -> int:
     voice, k1_17b, k3, k8, voice_bounds = voice_phase(tok, gen, card_line)
     k1 += k1_17b
     bounds.update(voice_bounds)
-    total = [sum(c) for c in zip(b1, batched, pooled, spec, voice)]
+    total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, voice, probed)]
     log("launches on the main paths in all: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)))
 
     def entry(name, source, replaces, launched, checks, bound_key, library_ms=None):
         # library_ms: one PyTorch call computing the same function, where one
-        # exists (none computes a fused step or chain)
+        # exists (none computes a fused step, chain, frame or probe chain)
         ms_bound, bound_by = bounds[bound_key]
+        if not replaces.startswith("tools/"):
+            replaces = f"leaxer_qwen3_tts_tpu/ops/{replaces}"
         return {"name": name, "route": "cuda", "source": f"leaxer_qwen3_tts_torch/csrc/{source}",
-                "replaces": f"leaxer_qwen3_tts_tpu/ops/{replaces}", "launches": launched,
+                "replaces": replaces, "launches": launched,
                 "max_abs_err": max(c[0] for c in checks), "ms": checks[0][1],
                 "plain_ms": checks[0][2], "bound_ms": ms_bound, "bound_by": bound_by,
                 "library_ms": library_ms}
 
     bounds["K6"] = k6[0][3]
+    # the probes: error over every arm; time, plain time and bound of the
+    # convert arm (P1 conv, P2 bf16), one call of the whole chain
+    for key, results in (("P1", p1), ("P2", p2)):
+        bounds[key] = (results[0]["bound_ms"], results[0]["bound_by"])
+    probe_checks = {key: [(max(r["err"] for r in results), results[0]["ms"],
+                           results[0]["plain_ms"])] for key, results in (("P1", p1), ("P2", p2))}
     report = {"kernels": [
         entry("fused_decode_step", "fused_step.cu", "fused_step.py:1290", total[0], k1, "K1"),
         entry("fused_mtp_chain", "fused_mtp.cu", "fused_mtp.py:835", total[1], k2[1:] + k2[:1],
@@ -1631,6 +2039,11 @@ def main() -> int:
               total[5], k3, "K3"),
         entry("flash_attend", "flash_attention.cu", "flash_attention.py:81", total[6], k8, "K8",
               library_ms=k8[0][3]),
+        entry("fused_frame_step", "fused_frame.cu", "fused_frame.py:245", total[7], k7, "K7"),
+        entry("a8_probe", "unit_probe.cu", "tools/a8_probe.py:93", total[8], probe_checks["P1"],
+              "P1"),
+        entry("w8a8_probe", "unit_probe.cu", "tools/w8a8_probe.py:33", total[9],
+              probe_checks["P2"], "P2"),
     ]}
     print(json.dumps(report))
     print(card_line)

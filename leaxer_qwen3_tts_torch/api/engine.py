@@ -31,6 +31,7 @@ engine syncs once per chunk, when it copies the chunk's codes to the host.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -55,7 +56,12 @@ from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.talker import prepare_fused_talker
 from ..ops.fused_step import MAX_BATCH, supports
 from ..ops.quant import fuse_params, quantize_params
-from ..runtime.generate import GenerateFns, GenerateState, make_generate_fns
+from ..runtime.generate import (
+    GenerateFns,
+    GenerateState,
+    frame_fused_eligible,
+    make_generate_fns,
+)
 from ..runtime.prompt import prompt_length
 from ..runtime.sampling import SamplingParams
 from ..runtime.speculative import (
@@ -119,9 +125,14 @@ class TTSEngine:
         spec_iters: int = 8,
         spec_accept_floor: float = 0.3,
         spec_adapt_window: int = 24,
+        frame_fused: Optional[bool] = None,
     ):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet (ROADMAP M15)")
+        if frame_fused is not None:
+            # pin the whole-frame kernel K7 on or off (None keeps the config's
+            # frame_fused); B=1 sequential decode only, as in the JAX engine
+            config = dataclasses.replace(config, frame_fused=bool(frame_fused))
         self.cfg = config
         self.tokenizer = tokenizer
         # speculative decoding: spec_k candidate frames per talker pass,
@@ -131,6 +142,8 @@ class TTSEngine:
         if spec_k is not None and not 2 <= int(spec_k) <= 8:
             raise ValueError("spec_k must be in [2, 8]")
         self.spec_k = int(spec_k) if spec_k is not None else None
+        if config.frame_fused and self.spec_k is not None:
+            raise EngineError("frame_fused is sequential-only: unset spec_k")
         self.spec_iters = max(1, int(spec_iters))
         self.spec_accept_floor = float(spec_accept_floor)
         self.spec_adapt_window = max(1, int(spec_adapt_window))
@@ -152,11 +165,6 @@ class TTSEngine:
         cfg = self.cfg
         if cfg.talker.transformer.kv_cache_quant:
             raise EngineError("the int8 KV cache is not ported yet (ROADMAP item K1v)")
-        if cfg.frame_fused:
-            raise EngineError(
-                "frame_fused=True selects the whole-frame kernel, which is not ported yet "
-                "(ROADMAP item K7)"
-            )
         talker_fused = cfg.talker.decode_impl == "fused"
         mtp_fused = cfg.code_predictor.impl == "fused"
         if device is None:
@@ -451,7 +459,7 @@ class TTSEngine:
         spf = voc_cfg.samples_per_frame
         frames_chunks, valid_chunks, audio_chunks = [], [], []
         tail: Optional[torch.Tensor] = None  # rolling [B, ctx, 16] vocoder context
-        steps = 0
+        steps = fused_frames = 0
         first = True
         while steps < max_tokens:
             cur_chunk = self.first_chunk_len if first else self.chunk_len
@@ -462,6 +470,8 @@ class TTSEngine:
                 bidx += 1
                 state = self._grow_state(state, self.kv_ladder[bidx])
             fns = self._get_fns(lang_id, self.kv_ladder[bidx], cur_chunk, B)
+            if frame_fused_eligible(cfg, self.params, state, sp):
+                fused_frames += cur_chunk
             with timer.stage("decode"):
                 state, frames, valid = fns.decode(
                     self.params, state, bundle.trailing, bundle.trailing_len,
@@ -496,6 +506,7 @@ class TTSEngine:
         full_audio = np.concatenate(audio_chunks, axis=1)
         metrics = timer.finish()
         metrics.decoded_frames = steps
+        metrics.frame_fused_frames = fused_frames
         if B == 1:
             metrics.frames = int(n_valid[0])
             metrics.audio_seconds = metrics.frames * spf / SAMPLE_RATE

@@ -38,18 +38,17 @@ gemv_i8_kernel(const float* __restrict__ in, const float* __restrict__ norm_w, f
                const int8_t* __restrict__ W, const float* __restrict__ scale,
                float* __restrict__ out, int N, int K) {
   extern __shared__ float sh[];
-  qtts_gemv_prologue<IN_MODE>(in, norm_w, eps, K, sh);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * QTTS_GEMV_ROWS + warp * QTTS_GEMV_RPW;
-  float acc[QTTS_GEMV_RPW];
-  qtts_gemv_rows(W, sh, N, K, n0, acc);
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
-      const int n = n0 + r;
-      if (n < N) qtts_gemv_store<ACCUM>(out + n, acc[r], scale[n]);
-    }
-  }
+  qtts_gemv_i8_body<IN_MODE, ACCUM>(in, norm_w, eps, W, scale, out, N, K, blockIdx.x, sh);
+}
+
+// The normed GEMV with the float32 normed input written out (raw, by block 0).
+__global__ void __launch_bounds__(QTTS_GEMV_THREADS)
+gemv_norm_raw_kernel(const float* __restrict__ in, const float* __restrict__ norm_w, float eps,
+                     const int8_t* __restrict__ W, const float* __restrict__ scale,
+                     float* __restrict__ out, int N, int K, float* __restrict__ raw) {
+  extern __shared__ float sh[];
+  qtts_gemv_i8_body<QTTS_IN_NORM, false>(in, norm_w, eps, W, scale, out, N, K, blockIdx.x, sh,
+                                         raw);
 }
 
 template <int IN_MODE, bool ACCUM>
@@ -118,6 +117,20 @@ int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const f
                      int pos, void* stream) {
   return qtts_launch_decode_step(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, T, pos,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// The final norm and an int8 head on K1's GEMV: hidden = RMSNorm(x) * norm_w
+// (float32) and out[n] = scale[n] * bf16(hidden) . W[n] for n < N.  Kernel
+// K7's epilogue runs the same body; chip_smoke.py composes K2, K1 and this
+// launch to hold K7 to them bit for bit.
+int qtts_norm_head(const float* x, const float* norm_w, float eps, const int8_t* W,
+                   const float* scale, float* hidden, float* out, int N, int K, void* stream) {
+  const size_t smem = (size_t)K * sizeof(float);
+  if (K % 16 != 0 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int grid = (N + QTTS_GEMV_ROWS - 1) / QTTS_GEMV_ROWS;
+  gemv_norm_raw_kernel<<<grid, QTTS_GEMV_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, norm_w, eps, W, scale, out, N, K, hidden);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -4,6 +4,7 @@
 // in leaxer_qwen3_tts_torch/ops/_build.py; keep the two in the same order.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +101,50 @@ struct QttsChainBatchArgs {
   int32_t greedy[QTTS_MAX_BATCH];
 };
 
+// Arguments of the whole-frame entry (kernel K7, fused_frame.cu).  The
+// wrapper builds the pointer fields once per (pack, cache bucket, cache
+// dtype) and sets the outputs and the per-frame scalars before each launch;
+// the struct travels by value as the kernel's one parameter.
+struct QttsFrameArgs {
+  QttsStepWeights tw;           // talker
+  QttsStepScratch ts;           // talker step scratch (max_splits for T)
+  QttsStepWeights mw;           // MTP trunk
+  QttsStepScratch ms;           // chain step scratch (T = n + 2)
+  const float* talker_norm;     // [H] talker final norm
+  const int8_t* lm;             // [Vc, H] lm_head rows
+  const float* lm_scale;        // [Vc]
+  const __nv_bfloat16* codec;   // [codec vocab, H] codec_embed table
+  const float* mtp_norm;        // [H] MTP final norm
+  const int8_t* heads;          // [n, V, H]
+  const float* head_scales;     // [n, V]
+  const __nv_bfloat16* tables;  // [n, Vt, H]
+  const float* last_logits;     // [Vc]
+  const float* suppress;        // [Vc]
+  const float* g0;              // [Vc] code0 Gumbel noise (unread when greedy)
+  const float* gumbel;          // [n, V] chain Gumbel noise (unread when greedy)
+  const void* last_hidden;      // [H] float32 or bf16 (lh_bf16)
+  const void* drip;             // [H] float32 or bf16 (drip_bf16)
+  void* k_cache;                // talker [L, nk, T, D] cache dtype, updated in place
+  void* v_cache;
+  void* mk_cache;               // chain [Lm, nk, n + 2, D] cache dtype (scratch)
+  void* mv_cache;
+  float* x;                     // [H] talker residual: the next input, then pre-final-norm
+  float* mx;                    // [H] trunk residual
+  float* mx_in;                 // [H] sampled embedding (the next trunk input)
+  float* sub_sum;               // [H]
+  float* c0e;                   // [H] codec_embed(code0) as float32
+  float* head_logits;           // [V]
+  int32_t* codes;               // [1 + n] out: code0, then the sub-codes
+  float* logits;                // [Vc] out
+  float* hidden;                // [H] out: final-normed, float32
+  int32_t cache_bf16, lh_bf16, drip_bf16;
+  int32_t T, pos, Vc, n, V, Vt, eos, forbid_eos;
+  float temperature;  // max(temperature, 1e-6) as float32 (sampled mode)
+  int32_t top_k;
+  float top_p;
+  int32_t greedy;
+};
+
 constexpr int QTTS_ATTN_D = 128;      // head_dim the attention kernel takes
 constexpr int QTTS_ATTN_CHUNK = 64;   // cache slots per attention split
 constexpr int QTTS_ATTN_MAX_G = 8;    // max q heads per kv head
@@ -145,6 +190,27 @@ int qtts_launch_gemv_rows(const __nv_bfloat16* in, const int8_t* W, const float*
 
 static __device__ __forceinline__ float qtts_bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The barriers a layer body waits on.  Every body below takes one of these,
+// so the same code runs as a whole block of its own launch (K1-K6: the
+// block barrier) or as one 128-thread half of a persistent block (K7: a
+// named barrier per half, ids 1 and 2; id 0 is __syncthreads's).
+struct QttsBlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct QttsNamedSync {
+  int id;  // 1 or 2
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+  }
+};
+
+// Grid-wide barrier of a persistent kernel launched with
+// cudaLaunchCooperativeKernel (K7, P1, P2): every block waits until every
+// block has arrived, and the writes before it are visible to the reads after.
+static __device__ __forceinline__ void qtts_grid_sync() {
+  cooperative_groups::this_grid().sync();
 }
 
 struct QttsSumF {
@@ -239,7 +305,7 @@ enum { QTTS_IN_NORM = 0, QTTS_IN_PLAIN = 1, QTTS_IN_SILU = 2 };
 //   IN_SILU:  silu(in[:K]) * in[K:2K]       (in: [2K], gate | up)
 // qtts_prep_scale is block-wide (every thread calls it): the RMS factor.
 template <int IN_MODE>
-static __device__ __forceinline__ float qtts_prep_scale(const float* __restrict__ in,
+static __device__ __forceinline__ float qtts_prep_scale(const float* in,
                                                         float eps, int K) {
   if (IN_MODE != QTTS_IN_NORM) return 0.f;
   float ss = 0.f;
@@ -252,7 +318,7 @@ static __device__ __forceinline__ float qtts_prep_scale(const float* __restrict_
 }
 
 template <int IN_MODE>
-static __device__ __forceinline__ float qtts_prep_value(const float* __restrict__ in,
+static __device__ __forceinline__ float qtts_prep_value(const float* in,
                                                         const float* __restrict__ norm_w,
                                                         float r, int K, int k) {
   if (IN_MODE == QTTS_IN_NORM) return (in[k] * r) * norm_w[k];
@@ -263,14 +329,19 @@ static __device__ __forceinline__ float qtts_prep_value(const float* __restrict_
 }
 
 // Loads a GEMV input vector into shared memory as bf16-rounded float32 (the
-// lhs rounding of the reference's bf16 x bf16 -> f32 unit product).
+// lhs rounding of the reference's bf16 x bf16 -> f32 unit product); raw, if
+// given, gets the float32 values before the rounding.  The activation
+// pointers of this and the bodies below carry no __restrict__: K7 rewrites
+// them inside its one launch, where a read-only-cache load would be stale.
 template <int IN_MODE>
 static __device__ __forceinline__ void qtts_gemv_prologue(
-    const float* __restrict__ in, const float* __restrict__ norm_w, float eps,
-    int K, float* sh) {
+    const float* in, const float* __restrict__ norm_w, float eps, int K, float* sh,
+    float* raw = nullptr) {
   const float r = qtts_prep_scale<IN_MODE>(in, eps, K);
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    sh[k] = qtts_bf16_round(qtts_prep_value<IN_MODE>(in, norm_w, r, K, k));
+    const float v = qtts_prep_value<IN_MODE>(in, norm_w, r, K, k);
+    if (raw != nullptr) raw[k] = v;
+    sh[k] = qtts_bf16_round(v);
   }
   __syncthreads();
 }
@@ -328,6 +399,32 @@ static __device__ __forceinline__ void qtts_gemv_rows(
   for (int r = 0; r < QTTS_GEMV_RPW; ++r) acc[r] = qtts_warp_reduce(acc[r], QttsSumF());
 }
 
+// Row group `group` (QTTS_GEMV_ROWS output rows) of the B=1 GEMV, run by a
+// whole block of QTTS_GEMV_THREADS threads:
+//   out[n] (+)= scale[n] * sum_k bf16(in'[k]) * W[n, k]
+// for the input transform IN_MODE (see qtts_gemv_prologue); ACCUM adds into
+// out (the residual).  sh: K floats of shared memory; raw: see
+// qtts_gemv_prologue (written by group 0).  K1's GEMV kernel is this body at
+// group = blockIdx.x; K7 walks the groups in a persistent block.
+template <int IN_MODE, bool ACCUM>
+static __device__ __forceinline__ void qtts_gemv_i8_body(
+    const float* in, const float* __restrict__ norm_w, float eps,
+    const int8_t* __restrict__ W, const float* __restrict__ scale, float* out, int N, int K,
+    int group, float* sh, float* raw = nullptr) {
+  qtts_gemv_prologue<IN_MODE>(in, norm_w, eps, K, sh, group == 0 ? raw : nullptr);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = group * QTTS_GEMV_ROWS + warp * QTTS_GEMV_RPW;
+  float acc[QTTS_GEMV_RPW];
+  qtts_gemv_rows(W, sh, N, K, n0, acc);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
+      const int n = n0 + r;
+      if (n < N) qtts_gemv_store<ACCUM>(out + n, acc[r], scale[n]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Split attention of one decode step, shared by K1 (one row, host position)
 // and K4 (B rows, per-row device positions).  Internal linkage: each
@@ -374,10 +471,43 @@ __device__ __forceinline__ int qtts_row_pos(const int64_t* pos_dev, int pos_host
   return (p < 0 ? 0 : (p >= hi ? hi : (int)p)) + s;
 }
 
-// RMSNorm of one head vector, element t of the block's D threads: (v * r) * w.
-// Block-wide.
-__device__ __forceinline__ float qtts_head_norm(float v, float w, float eps) {
-  const float ss = qtts_block_reduce(v * v, QttsSumF());
+// Shared memory of one attention work item (one block of K1-K6's attention
+// launches, one half of a K7 block).
+struct QttsAttnSmem {
+  float q_s[QTTS_ATTN_MAX_G][QTTS_ATTN_D];
+  float k_s[QTTS_ATTN_D];
+  float v_s[QTTS_ATTN_D];
+  float wm[4][QTTS_ATTN_MAX_G];
+  float wl[4][QTTS_ATTN_MAX_G];
+  float wacc[4][QTTS_ATTN_MAX_G][QTTS_ATTN_D];
+  float red[33];
+};
+
+// Sum over the item's QTTS_ATTN_D threads (t: the thread's index among
+// them), in qtts_block_reduce's order for a 128-thread block.
+template <typename Sync>
+__device__ __forceinline__ float qtts_group_sum(float v, float* red, Sync sync, int t) {
+  constexpr int nw = QTTS_ATTN_D / 32;
+  const int lane = t & 31, warp = t >> 5;
+  v = qtts_warp_reduce(v, QttsSumF());
+  if (lane == 0) red[warp] = v;
+  sync();
+  if (warp == 0) {
+    float r = lane < nw ? red[lane] : QttsSumF::identity();
+    r = qtts_warp_reduce(r, QttsSumF());
+    if (lane == 0) red[32] = r;
+  }
+  sync();
+  const float out = red[32];
+  sync();
+  return out;
+}
+
+// RMSNorm of one head vector, element t of the item's D threads: (v * r) * w.
+template <typename Sync>
+__device__ __forceinline__ float qtts_head_norm(float v, float w, float eps, float* red, Sync sync,
+                                                int t) {
+  const float ss = qtts_group_sum(v * v, red, sync, t);
   const float r = rsqrtf(ss / (float)QTTS_ATTN_D + eps);
   return (v * r) * w;
 }
@@ -391,12 +521,14 @@ __device__ __forceinline__ void qtts_rope_pair(float& x1, float& x2, float c, fl
   x2 = __fadd_rn(__fmul_rn(b, c), __fmul_rn(a, s));
 }
 
-// Grid (nk, n_splits, R), QTTS_ATTN_D threads.  Block (h, split, r)
-// normalises and rotates kv head h's q heads of launch row r (cache row
-// r / S, position pos = qtts_row_pos), takes slots
+// Work item (h, split, r) of the split attention, on QTTS_ATTN_D threads (t:
+// the thread's index among them, sync: their barrier, sm: their shared
+// memory): normalises and rotates kv head h's q heads of launch row r (cache
+// row r / S, position pos = qtts_row_pos), takes slots
 // [split*CHUNK, min((split+1)*CHUNK, pos+1)) and writes the split's softmax
 // partials.  A split past the row's position returns at once (the combine
-// never reads it).
+// never reads it).  qtts_attn_split_kernel runs item (blockIdx.x,
+// blockIdx.y, blockIdx.z) on a block of its own.
 //
 // TAIL_IN_CACHE = false (K1, K4; S = 1): the block also normalises and
 // rotates k, and the new slot's k/v come from registers, rounded to the cache
@@ -405,24 +537,23 @@ __device__ __forceinline__ void qtts_rope_pair(float& x1, float& x2, float c, fl
 // TAIL_IN_CACHE = true (K6): row r reads slots pos - s .. pos, which rows of
 // other blocks write, so qtts_kv_write_kernel stores every new slot in an
 // earlier launch and every slot comes from memory here.
-template <typename CT, bool TAIL_IN_CACHE>
-__global__ void __launch_bounds__(QTTS_ATTN_D)
-qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
-                       const float* __restrict__ q_norm, const float* __restrict__ k_norm,
-                       const float* __restrict__ inv_freq, CT* __restrict__ kc,
-                       CT* __restrict__ vc, size_t cache_row, float* __restrict__ part,
-                       int nq, int nk, int T, const int64_t* __restrict__ pos_dev,
-                       int pos_host, int S, int max_splits, float eps, float scale) {
+template <typename CT, bool TAIL_IN_CACHE, typename Sync>
+__device__ __forceinline__ void qtts_attn_split_body(
+    QttsAttnSmem& sm, Sync sync, int t, int h, int split, int r,
+    const float* qkv, int qkv_ld, const float* __restrict__ q_norm,
+    const float* __restrict__ k_norm, const float* __restrict__ inv_freq, CT* __restrict__ kc,
+    CT* __restrict__ vc, size_t cache_row, float* __restrict__ part, int nq, int nk, int T,
+    const int64_t* __restrict__ pos_dev, int pos_host, int S, int max_splits, float eps,
+    float scale) {
   constexpr int D = QTTS_ATTN_D;
   constexpr int G = QTTS_ATTN_MAX_G;
-  __shared__ float q_s[G][D];
-  __shared__ float k_s[D];
-  __shared__ float v_s[D];
-  __shared__ float wm[4][G];
-  __shared__ float wl[4][G];
-  __shared__ float wacc[4][G][D];
+  auto& q_s = sm.q_s;
+  auto& k_s = sm.k_s;
+  auto& v_s = sm.v_s;
+  auto& wm = sm.wm;
+  auto& wl = sm.wl;
+  auto& wacc = sm.wacc;
 
-  const int h = blockIdx.x, split = blockIdx.y, r = blockIdx.z, t = threadIdx.x;
   const int pos = qtts_row_pos(pos_dev, pos_host, r, T, S);
   if (split * QTTS_ATTN_CHUNK > pos) return;
   qkv += (size_t)r * qkv_ld;
@@ -433,20 +564,20 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
   const int qd = nq * D, kvd = nk * D;
 
   for (int gi = 0; gi < g; ++gi) {
-    q_s[gi][t] = qtts_head_norm(qkv[(h * g + gi) * D + t], q_norm[t], eps);
+    q_s[gi][t] = qtts_head_norm(qkv[(h * g + gi) * D + t], q_norm[t], eps, sm.red, sync, t);
   }
   if (!TAIL_IN_CACHE) {
-    k_s[t] = qtts_head_norm(qkv[qd + h * D + t], k_norm[t], eps);
+    k_s[t] = qtts_head_norm(qkv[qd + h * D + t], k_norm[t], eps, sm.red, sync, t);
     v_s[t] = qkv[qd + kvd + h * D + t];
   }
-  __syncthreads();
+  sync();
   if (t < D / 2) {
     const float ang = (float)pos * inv_freq[t];
     const float c = cosf(ang), s = sinf(ang);
     for (int gi = 0; gi < g; ++gi) qtts_rope_pair(q_s[gi][t], q_s[gi][t + D / 2], c, s);
     if (!TAIL_IN_CACHE) qtts_rope_pair(k_s[t], k_s[t + D / 2], c, s);
   }
-  __syncthreads();
+  sync();
   if (!TAIL_IN_CACHE) {
     const CT kq = qtts_to_cache<CT>(k_s[t]);
     const CT vq = qtts_to_cache<CT>(v_s[t]);
@@ -456,7 +587,7 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
       kc[((size_t)h * T + pos) * D + t] = kq;
       vc[((size_t)h * T + pos) * D + t] = vq;
     }
-    __syncthreads();
+    sync();
   }
 
   const int warp = t >> 5, lane = t & 31;
@@ -513,7 +644,7 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
       for (int e = 0; e < 4; ++e) wacc[warp][gi][lane * 4 + e] = acc[gi][e];
     }
   }
-  __syncthreads();
+  sync();
   for (int gi = 0; gi < g; ++gi) {
     float M = wm[0][gi];
     for (int w = 1; w < 4; ++w) M = fmaxf(M, wm[w][gi]);
@@ -532,10 +663,49 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
   }
 }
 
-// Grid (nk, R), QTTS_ATTN_D threads (K6): block (h, r) normalises and
-// rotates kv head h's k of launch row r at its position, with the split
-// kernel's helpers and so its bits, and stores k and v there, rounded to the
-// cache dtype.
+template <typename CT, bool TAIL_IN_CACHE>
+__global__ void __launch_bounds__(QTTS_ATTN_D)
+qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
+                       const float* __restrict__ q_norm, const float* __restrict__ k_norm,
+                       const float* __restrict__ inv_freq, CT* __restrict__ kc,
+                       CT* __restrict__ vc, size_t cache_row, float* __restrict__ part,
+                       int nq, int nk, int T, const int64_t* __restrict__ pos_dev,
+                       int pos_host, int S, int max_splits, float eps, float scale) {
+  __shared__ QttsAttnSmem sm;
+  qtts_attn_split_body<CT, TAIL_IN_CACHE>(sm, QttsBlockSync(), threadIdx.x, blockIdx.x,
+                                          blockIdx.y, blockIdx.z, qkv, qkv_ld, q_norm, k_norm,
+                                          inv_freq, kc, vc, cache_row, part, nq, nk, T, pos_dev,
+                                          pos_host, S, max_splits, eps, scale);
+}
+
+// Work item (h, r) of the K6 slot write, on QTTS_ATTN_D threads: normalises
+// and rotates kv head h's k of launch row r at its position, with the split
+// body's helpers and so its bits, and stores k and v there, rounded to the
+// cache dtype.  qtts_kv_write_kernel: grid (nk, R), one item per block.
+template <typename CT, typename Sync>
+__device__ __forceinline__ void qtts_kv_write_body(
+    QttsAttnSmem& sm, Sync sync, int t, int h, int r, const float* qkv, int qkv_ld,
+    const float* __restrict__ k_norm, const float* __restrict__ inv_freq, CT* __restrict__ kc,
+    CT* __restrict__ vc, size_t cache_row, int nq, int nk, int T,
+    const int64_t* __restrict__ pos_dev, int pos_host, int S, float eps) {
+  constexpr int D = QTTS_ATTN_D;
+  float* k_s = sm.k_s;
+  const int pos = qtts_row_pos(pos_dev, pos_host, r, T, S);
+  qkv += (size_t)r * qkv_ld;
+  const int qd = nq * D, kvd = nk * D;
+  k_s[t] = qtts_head_norm(qkv[qd + h * D + t], k_norm[t], eps, sm.red, sync, t);
+  const float v = qkv[qd + kvd + h * D + t];
+  sync();
+  if (t < D / 2) {
+    const float ang = (float)pos * inv_freq[t];
+    qtts_rope_pair(k_s[t], k_s[t + D / 2], cosf(ang), sinf(ang));
+  }
+  sync();
+  const size_t at = (size_t)(r / S) * cache_row + ((size_t)h * T + pos) * D + t;
+  kc[at] = qtts_to_cache<CT>(k_s[t]);
+  vc[at] = qtts_to_cache<CT>(v);
+}
+
 template <typename CT>
 __global__ void __launch_bounds__(QTTS_ATTN_D)
 qtts_kv_write_kernel(const float* __restrict__ qkv, int qkv_ld,
@@ -543,23 +713,10 @@ qtts_kv_write_kernel(const float* __restrict__ qkv, int qkv_ld,
                      CT* __restrict__ kc, CT* __restrict__ vc, size_t cache_row, int nq, int nk,
                      int T, const int64_t* __restrict__ pos_dev, int pos_host, int S,
                      float eps) {
-  constexpr int D = QTTS_ATTN_D;
-  __shared__ float k_s[D];
-  const int h = blockIdx.x, r = blockIdx.y, t = threadIdx.x;
-  const int pos = qtts_row_pos(pos_dev, pos_host, r, T, S);
-  qkv += (size_t)r * qkv_ld;
-  const int qd = nq * D, kvd = nk * D;
-  k_s[t] = qtts_head_norm(qkv[qd + h * D + t], k_norm[t], eps);
-  const float v = qkv[qd + kvd + h * D + t];
-  __syncthreads();
-  if (t < D / 2) {
-    const float ang = (float)pos * inv_freq[t];
-    qtts_rope_pair(k_s[t], k_s[t + D / 2], cosf(ang), sinf(ang));
-  }
-  __syncthreads();
-  const size_t at = (size_t)(r / S) * cache_row + ((size_t)h * T + pos) * D + t;
-  kc[at] = qtts_to_cache<CT>(k_s[t]);
-  vc[at] = qtts_to_cache<CT>(v);
+  __shared__ QttsAttnSmem sm;
+  qtts_kv_write_body<CT>(sm, QttsBlockSync(), threadIdx.x, blockIdx.x, blockIdx.y, qkv, qkv_ld,
+                         k_norm, inv_freq, kc, vc, cache_row, nq, nk, T, pos_dev, pos_host, S,
+                         eps);
 }
 
 __device__ __forceinline__ void qtts_store_attn(float* p, float v) { *p = v; }
@@ -567,16 +724,15 @@ __device__ __forceinline__ void qtts_store_attn(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Grid (nq, R), QTTS_ATTN_D threads: merges launch row r's partials of q head
-// hq into attn[r, hq*D:(hq+1)*D] (float32 for K1's prologue, bf16 for the
-// batched GEMV).
+// Work item (hq, r) of the combine, thread t of QTTS_ATTN_D (no barrier):
+// merges launch row r's partials of q head hq into attn[r, hq*D:(hq+1)*D]
+// (float32 for K1's prologue, bf16 for the batched GEMV).
+// qtts_attn_combine_kernel: grid (nq, R), one item per block.
 template <typename OT>
-__global__ void __launch_bounds__(QTTS_ATTN_D)
-qtts_attn_combine_kernel(const float* __restrict__ part, OT* __restrict__ attn, int nq,
-                         int max_splits, int T, const int64_t* __restrict__ pos_dev,
-                         int pos_host, int S) {
+__device__ __forceinline__ void qtts_attn_combine_body(
+    int t, int hq, int r, const float* part, OT* __restrict__ attn, int nq,
+    int max_splits, int T, const int64_t* __restrict__ pos_dev, int pos_host, int S) {
   constexpr int D = QTTS_ATTN_D;
-  const int hq = blockIdx.x, r = blockIdx.y, t = threadIdx.x;
   const int n_splits = qtts_row_pos(pos_dev, pos_host, r, T, S) / QTTS_ATTN_CHUNK + 1;
   const float* base = part + ((size_t)r * nq + hq) * max_splits * (D + 2);
   float M = QTTS_NEG_INF;
@@ -588,6 +744,15 @@ qtts_attn_combine_kernel(const float* __restrict__ part, OT* __restrict__ attn, 
     o += base[s * (D + 2) + 2 + t] * f;
   }
   qtts_store_attn(attn + ((size_t)r * nq + hq) * D + t, o / L);
+}
+
+template <typename OT>
+__global__ void __launch_bounds__(QTTS_ATTN_D)
+qtts_attn_combine_kernel(const float* __restrict__ part, OT* __restrict__ attn, int nq,
+                         int max_splits, int T, const int64_t* __restrict__ pos_dev,
+                         int pos_host, int S) {
+  qtts_attn_combine_body<OT>(threadIdx.x, blockIdx.x, blockIdx.y, part, attn, nq, max_splits, T,
+                             pos_dev, pos_host, S);
 }
 
 // Launches the attention of layer l for R launch rows, S of them per cache
@@ -727,18 +892,8 @@ struct QttsHeadStep {
 // block to finish).  sh: max(H, 2V) floats of dynamic shared memory.
 __device__ __forceinline__ unsigned qtts_head_rows(const QttsHeadStep& p, float* sh) {
   __shared__ unsigned ticket;
-  qtts_gemv_prologue<QTTS_IN_NORM>(p.x, p.final_norm, p.eps, p.H, sh);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * QTTS_GEMV_ROWS + warp * QTTS_GEMV_RPW;
-  float acc[QTTS_GEMV_RPW];
-  qtts_gemv_rows(p.W, sh, p.V, p.H, n0, acc);
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
-      const int n = n0 + r;
-      if (n < p.V) qtts_gemv_store<false>(p.logits + n, acc[r], p.scale[n]);
-    }
-  }
+  qtts_gemv_i8_body<QTTS_IN_NORM, false>(p.x, p.final_norm, p.eps, p.W, p.scale, p.logits, p.V,
+                                         p.H, blockIdx.x, sh);
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) ticket = atomicAdd(p.counter, 1u);
@@ -746,27 +901,31 @@ __device__ __forceinline__ unsigned qtts_head_rows(const QttsHeadStep& p, float*
   return ticket;
 }
 
-// Second half, the last block only: the sampler on the whole logits row, the
-// sub-code written, the ticket counter reset, and the embedding row gathered
-// into sub_sum and the next trunk input.
-__device__ __forceinline__ void qtts_head_sample(const QttsHeadStep& p, float* sh) {
-  __threadfence();
+// The sampler on the whole logits row (read from L2), the sub-code written,
+// and the embedding row gathered into sub_sum and the next trunk input; one
+// block (K7 runs it after a grid barrier).
+__device__ __forceinline__ void qtts_head_pick(const QttsHeadStep& p, float* sh) {
   float* lg = sh;
   float* pr = sh + p.V;
   for (int v = threadIdx.x; v < p.V; v += blockDim.x) lg[v] = __ldcg(p.logits + v);
   __syncthreads();
   const int sub = qtts_sample_index(lg, pr, p.V, p.gumbel, p.temperature, p.top_k,
                                     p.top_p, p.greedy);
-  if (threadIdx.x == 0) {
-    p.subcodes[p.j] = sub;
-    *p.counter = 0u;
-  }
+  if (threadIdx.x == 0) p.subcodes[p.j] = sub;
   const size_t row = (size_t)sub * p.H;
   for (int k = threadIdx.x; k < p.H; k += blockDim.x) {
     const float e = __bfloat162float(p.table[row + k]);
     p.sub_sum[k] = p.j == 0 ? e : p.sub_sum[k] + e;
     p.x_next[k] = e;
   }
+}
+
+// Second half, the last block only: qtts_head_pick and the ticket counter
+// reset.
+__device__ __forceinline__ void qtts_head_sample(const QttsHeadStep& p, float* sh) {
+  __threadfence();
+  qtts_head_pick(p, sh);
+  if (threadIdx.x == 0) *p.counter = 0u;
 }
 
 // The whole chain: two prefix trunk passes at positions 0 and 1 (talker

@@ -26,8 +26,9 @@ from ..ops.fused_step import (
     pack_fused_weights,
     supports,
 )
+from ..ops.fused_mtp import pack_heads
 from ..ops.fused_verify import MAX_S, MIN_S, fused_verify_step
-from ..ops.quant import dense
+from ..ops.quant import QuantizedLinear, dense
 from .layers import KVCache, _normal, init_kv_cache, init_transformer_params, rms_norm, transformer_forward
 
 
@@ -46,13 +47,17 @@ def talker_init_cache(cfg: TalkerConfig, batch: int, max_len: int, device) -> KV
 
 
 def prepare_fused_talker(cfg: TalkerConfig, talker_params: dict, bits: int = 8) -> dict:
-    """Attach the packed K1 weights when the architecture qualifies."""
+    """Attach the packed K1 weights when the architecture qualifies, and an
+    int8 lm_head as [Vc, H] rows + [Vc] scales (``fused_lm_head``: the
+    layout kernel K7's epilogue reads)."""
     if not supports(cfg.transformer):
         return talker_params
     out = dict(talker_params)
     out["fused_step"] = pack_fused_weights(
         cfg.transformer, talker_params["transformer"]["layers"], bits=bits
     )
+    if isinstance(talker_params["lm_head"], QuantizedLinear):
+        out["fused_lm_head"] = pack_heads(talker_params["lm_head"])
     return out
 
 

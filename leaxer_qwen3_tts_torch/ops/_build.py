@@ -24,7 +24,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
     "fused_step.cu", "fused_step_batched.cu", "fused_mtp.cu", "fused_mtp_batched.cu",
-    "fused_verify.cu", "fused_mtp_stream.cu", "flash_attention.cu",
+    "fused_verify.cu", "fused_mtp_stream.cu", "flash_attention.cu", "fused_frame.cu",
+    "unit_probe.cu",
 )
 HEADERS = ("qtts_kernels.cuh",)
 NVCC_FLAGS = (
@@ -111,6 +112,24 @@ class ChainBatchArgs(ctypes.Structure):
         ("V", ctypes.c_int32), ("Vt", ctypes.c_int32),
         ("temperature", ctypes.c_float * MAX_BATCH), ("top_k", ctypes.c_int32 * MAX_BATCH),
         ("top_p", ctypes.c_float * MAX_BATCH), ("greedy", ctypes.c_int32 * MAX_BATCH),
+    ]
+
+
+class FrameArgs(ctypes.Structure):
+    """Mirror of ``QttsFrameArgs``."""
+
+    _fields_ = [
+        ("tw", StepWeights), ("ts", StepScratch), ("mw", StepWeights), ("ms", StepScratch),
+        *[(name, ctypes.c_void_p) for name in (
+            "talker_norm", "lm", "lm_scale", "codec", "mtp_norm", "heads", "head_scales",
+            "tables", "last_logits", "suppress", "g0", "gumbel", "last_hidden", "drip",
+            "k_cache", "v_cache", "mk_cache", "mv_cache", "x", "mx", "mx_in", "sub_sum", "c0e",
+            "head_logits", "codes", "logits", "hidden")],
+        *[(name, ctypes.c_int32) for name in (
+            "cache_bf16", "lh_bf16", "drip_bf16", "T", "pos", "Vc", "n", "V", "Vt", "eos",
+            "forbid_eos")],
+        ("temperature", ctypes.c_float), ("top_k", ctypes.c_int32),
+        ("top_p", ctypes.c_float), ("greedy", ctypes.c_int32),
     ]
 
 
@@ -203,6 +222,18 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_mtp_chain_streamed.argtypes = lib.qtts_mtp_chain.argtypes
             lib.qtts_flash_attend.restype = i32
             lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
+            lib.qtts_norm_head.restype = i32
+            lib.qtts_norm_head.argtypes = [vp, vp, ctypes.c_float, vp, vp, vp, vp, i32, i32, vp]
+            lib.qtts_frame_step.restype = i32
+            lib.qtts_frame_step.argtypes = [ctypes.POINTER(FrameArgs), vp]
+            lib.qtts_frame_args_size.restype = i32
+            lib.qtts_frame_args_size.argtypes = []
+            if lib.qtts_frame_args_size() != ctypes.sizeof(FrameArgs):
+                raise RuntimeError("FrameArgs does not mirror QttsFrameArgs")
+            lib.qtts_frame_grid.restype = i32
+            lib.qtts_frame_grid.argtypes = [ctypes.POINTER(FrameArgs)]
+            lib.qtts_unit_probe.restype = i32
+            lib.qtts_unit_probe.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
             lib.qtts_verify_step.restype = i32
             lib.qtts_verify_step.argtypes = [
                 ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch), vp, vp, vp, vp,

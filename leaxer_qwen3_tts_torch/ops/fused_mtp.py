@@ -73,17 +73,18 @@ def supports_resident(fw: FusedStepWeights) -> bool:
 class HeadPack(NamedTuple):
     """Step-indexed int8 heads in kernel layout."""
 
-    q: torch.Tensor  # int8 [n, V, H] (one output row per V, H contiguous)
-    scale: torch.Tensor  # f32 [n, V]
+    q: torch.Tensor  # int8 [n, V, H] (one output row per V, H contiguous); [V, H] for one head
+    scale: torch.Tensor  # f32 [n, V]; [V]
 
 
 def pack_heads(heads: QuantizedLinear) -> HeadPack:
-    """QuantizedLinear [n, H, V] / [n, 1, V] -> HeadPack."""
+    """QuantizedLinear [..., H, V] / [..., 1, V] -> HeadPack [..., V, H] / [..., V]
+    (the step-indexed heads [n, H, V], or one head such as the lm_head)."""
     if not isinstance(heads, QuantizedLinear):
         raise NotImplementedError("only int8 heads run in the chain kernel")
     return HeadPack(
-        q=heads.q.transpose(1, 2).contiguous(),
-        scale=heads.scale[:, 0, :].float().contiguous(),
+        q=heads.q.transpose(-1, -2).contiguous(),
+        scale=heads.scale[..., 0, :].float().contiguous(),
     )
 
 

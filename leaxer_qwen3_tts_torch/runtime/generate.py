@@ -4,6 +4,11 @@ Port of ``leaxer_qwen3_tts_tpu/runtime/generate.py``.  One frame:
 
     sample code0 -> MTP chain -> embed sum (+ text drip) -> talker step
 
+With ``cfg.frame_fused`` a B=1 frame that passes the JAX package's gate
+(:func:`frame_fused_eligible`) runs as ONE launch of kernel K7
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_frame.fused_frame_step`); only the
+noise draw, the drip gather and the EOS bookkeeping stay outside it.
+
 JAX scans ``chunk_len`` frames inside one jitted program; here a chunk is a
 Python loop that only enqueues device work: the sampled codes, the EOS
 latch, the per-stream positions and step counts and the validity flags stay
@@ -26,6 +31,7 @@ from ..models.code_predictor import predict_subcodes
 from ..models.embeddings import codec_embed
 from ..models.layers import KVCache
 from ..models.talker import talker_decode_step, talker_init_cache, talker_prefill
+from ..ops.fused_frame import fused_frame_step, supports_frame
 from .prompt import PromptBundle, build_prompt
 from .sampling import (
     NoiseSource,
@@ -151,6 +157,80 @@ def compute_drip(step: torch.Tensor, trailing, trailing_len, tts_pad_embed) -> t
     return torch.where(use_text[..., None], drip, tts_pad_embed.to(drip.dtype))
 
 
+def frame_fused_eligible(cfg: TTSModelConfig, params: dict, state: GenerateState,
+                         sp: Optional[SamplingParams], uniform_fill: bool = True) -> bool:
+    """The JAX package's gate for the whole-frame kernel (its
+    ``_frame_fused_eligible``, no mesh or tensor-parallel terms): frame_fused
+    on, B=1 sequential decode, the fused talker and MTP packs, per-step heads,
+    and :func:`~leaxer_qwen3_tts_torch.ops.fused_frame.supports_frame` at this
+    cache bucket.  Shapes and config only: no device data."""
+    if not cfg.frame_fused or sp is None or not uniform_fill:
+        return False
+    if state.last_hidden.shape[0] != 1:
+        return False
+    tp = params.get("talker", {})
+    cp = params.get("code_predictor", {})
+    if cfg.talker.decode_impl != "fused" or "fused_step" not in tp or "fused_lm_head" not in tp:
+        return False
+    if "fused_step" not in cp or "fused_heads" not in cp:
+        return False
+    if cfg.code_predictor.head_mode != "per_step":
+        return False
+    return supports_frame(cp["fused_step"], state.cache.max_len, cfg.talker.transformer)
+
+
+def _frame_step_fused(
+    cfg: TTSModelConfig,
+    params: dict,
+    suppress: torch.Tensor,
+    trailing: torch.Tensor,
+    trailing_len: torch.Tensor,
+    tts_pad_embed: torch.Tensor,
+    sp: SamplingParams,
+    state: GenerateState,
+) -> Tuple[GenerateState, Tuple[torch.Tensor, torch.Tensor]]:
+    """One frame through kernel K7: the code0 draw, the chain, the next-input
+    sum, the talker step and the lm_head in one launch.  The noise comes from
+    the stream's generator in the JAX order, code0's [Vc] first and then the
+    chain's [n, V], in one draw (none when greedy)."""
+    emb, tp, cp = params["embeddings"], params["talker"], params["code_predictor"]
+    knobs = sp.rows(1)[0]
+    Vc = cfg.talker.codec_vocab_size
+    n, V = cfg.code_predictor.num_steps, cfg.code_predictor.subcode_vocab_size
+    g0 = gm = None
+    if not knobs.greedy:
+        noise = NoiseSource(state.generators, state.last_logits.device).draw([Vc + n * V])
+        g0, gm = noise[:, :Vc], noise[0, Vc:].reshape(n, 1, V)
+    drip = compute_drip(state.step, trailing, trailing_len, tts_pad_embed)
+    cache = state.cache
+    pos = min(int(cache.length), cache.max_len - 1)
+    code0, subcodes, logits2, hidden2, _, _ = fused_frame_step(
+        cfg.talker.transformer, cfg.code_predictor.transformer, tp["fused_step"],
+        tp["transformer"]["final_norm"], tp["fused_lm_head"], emb["codec_embed"],
+        cp["fused_step"], cp["transformer"]["final_norm"], cp["fused_heads"], emb["pred_embed"],
+        state.last_logits, state.last_hidden, suppress, drip, pos, cache.k, cache.v, g0, gm,
+        knobs.temperature, knobs.top_k, knobs.top_p, knobs.forbid_eos,
+        mtp_cache_dtype=cfg.code_predictor.transformer.torch_dtype,
+    )
+    is_eos = code0 == CODEC_EOS
+    frame_valid = ~state.done & ~is_eos
+    frame = torch.cat([code0[:, None], subcodes], dim=1)
+    frame = torch.where(frame_valid[:, None], frame, 0)
+    valid_mask = state.valid_mask.clone()
+    valid_mask[:, pos] = True
+    new_state = GenerateState(
+        cache=cache._replace(length=cache.length + 1),
+        valid_mask=valid_mask,
+        last_logits=logits2,
+        last_hidden=hidden2.to(state.last_hidden.dtype),
+        pos=state.pos + 1,
+        step=state.step + 1,
+        done=state.done | is_eos,
+        generators=state.generators,
+    )
+    return new_state, (frame, frame_valid)
+
+
 def _frame_step(
     cfg: TTSModelConfig,
     params: dict,
@@ -162,8 +242,13 @@ def _frame_step(
     knobs: RowKnobs,
     state: GenerateState,
     uniform_fill: bool = True,
+    frame_fused: bool = False,
 ) -> Tuple[GenerateState, Tuple[torch.Tensor, torch.Tensor]]:
-    """One 12 Hz frame.  Returns (state', (frame_codes [B, 16] int32, frame_valid [B]))."""
+    """One 12 Hz frame.  Returns (state', (frame_codes [B, 16] int32, frame_valid [B])).
+    ``frame_fused``: :func:`frame_fused_eligible` for this chunk."""
+    if frame_fused:
+        return _frame_step_fused(cfg, params, suppress, trailing, trailing_len, tts_pad_embed,
+                                 sp, state)
     noise = NoiseSource(state.generators, state.last_logits.device)
     code0 = sample_code0(state.last_logits, suppress, sp, knobs, noise)
     is_eos = code0 == CODEC_EOS
@@ -212,11 +297,12 @@ def decode_frames(
     B, V = state.last_logits.shape
     suppress = make_codec_suppress_mask(cfg.talker.codec_vocab_size, device)
     knobs = RowKnobs.build(sp, B, V, device)  # once per chunk
+    fused = frame_fused_eligible(cfg, params, state, sp, uniform_fill)  # shapes: once per chunk
     frames, valid = [], []
     for _ in range(num_frames):
         state, (frame, fv) = _frame_step(
             cfg, params, suppress, trailing, trailing_len, tts_pad_embed, sp, knobs, state,
-            uniform_fill,
+            uniform_fill, fused,
         )
         frames.append(frame)
         valid.append(fv)

@@ -19,6 +19,8 @@ class SynthesisMetrics:
     # frames the decode loop ran, post-EOS and past-max_tokens tail included
     # (each is one talker step and one MTP chain)
     decoded_frames: int = 0
+    # of those, the frames the whole-frame kernel K7 decoded (frame_fused)
+    frame_fused_frames: int = 0
     ttfa_seconds: Optional[float] = None  # time to first audio chunk
     total_seconds: float = 0.0
     # speculative decoding (spec_k): verify iterations run and drafted frames

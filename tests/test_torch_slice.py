@@ -26,6 +26,7 @@ from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
 from leaxer_qwen3_tts_torch.models.talker import prepare_fused_talker
 from leaxer_qwen3_tts_torch.ops import (
     flash_attention,
+    fused_frame,
     fused_mtp,
     fused_mtp_stream,
     fused_step,
@@ -36,6 +37,7 @@ from leaxer_qwen3_tts_torch.runtime.generate import make_generate_fns
 from leaxer_qwen3_tts_torch.runtime.prompt import build_prompt
 from leaxer_qwen3_tts_torch.runtime.sampling import SamplingParams
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
+from leaxer_qwen3_tts_torch.tools import a8_probe, w8a8_probe
 
 torch.set_num_threads(2)
 
@@ -233,7 +235,8 @@ def test_port_imports_no_jax():
     assert {"leaxer_qwen3_tts_torch.serve.pool", "leaxer_qwen3_tts_torch.serve.server",
             "leaxer_qwen3_tts_torch.runtime.speculative", "leaxer_qwen3_tts_torch.ops.fused_verify",
             "leaxer_qwen3_tts_torch.models.draft", "leaxer_qwen3_tts_torch.ops.fused_mtp_stream",
-            "leaxer_qwen3_tts_torch.ops.flash_attention"} <= modules
+            "leaxer_qwen3_tts_torch.ops.flash_attention", "leaxer_qwen3_tts_torch.ops.fused_frame",
+            "leaxer_qwen3_tts_torch.tools.a8_probe", "leaxer_qwen3_tts_torch.tools.w8a8_probe"} <= modules
     # no kernel ran on the CPU
     assert fused_step.fused_decode_step.launches == 0
     assert fused_mtp.fused_mtp_chain.launches == 0
@@ -242,3 +245,5 @@ def test_port_imports_no_jax():
     assert fused_verify.fused_verify_step.launches == 0
     assert fused_mtp_stream.fused_mtp_chain_streamed.launches == 0
     assert flash_attention.flash_attend.launches == 0
+    assert fused_frame.fused_frame_step.launches == 0
+    assert a8_probe.chain.launches == w8a8_probe.chain.launches == 0
