@@ -1,6 +1,8 @@
-"""Mutation check of ``chip_smoke.py``'s K6, K3, K8 and K7 checks on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7 and persistent K1 / K2 checks on one NVIDIA GPU.
 
-    python3 chip_mutants.py
+    python3 chip_mutants.py [WORD ...]
+
+With words, only the mutants whose name contains one of them run.
 
 Builds faulty copies of the kernel sources in a temporary directory (the
 checkout is never touched), each with one fault, and runs the checks of the
@@ -8,8 +10,13 @@ kernel it breaks against it: ``chip_smoke.check_k6_shallow`` on one talker
 layer with float32 and bf16 caches (K6), ``chip_smoke.check_k3_equals_k2`` on
 the 1.7B MTP trunk (K3), ``chip_smoke.check_k8`` at the 1.7B prefill shape
 and on the random GQA shapes (K8), ``chip_smoke.check_k7_composition`` and
-``chip_smoke.check_k7_plain`` at the 0.6B widths (K7).  A mutant is caught when at least one
-case fails.  Exits non-zero if a mutant is not caught, or without CUDA.
+``chip_smoke.check_k7_plain`` at the 0.6B widths (K7),
+``chip_smoke.check_k1_equal`` on the 0.6B talker and MTP trunk and
+``chip_smoke.check_k2_equal`` on the 0.6B chain (the persistent K1 and K2
+against the launch sequences they replaced, bit for bit), each also with a
+one-slot weight ring.  A mutant is
+caught when at least one case fails.  Exits non-zero if a mutant is not
+caught, or without CUDA.
 """
 
 from __future__ import annotations
@@ -85,6 +92,25 @@ MUTANTS = {
         "",
         "K7",
     ),
+    # the persistent kernels' consumer reads a launch's fourth ring stage
+    # (layer 0's second gate|up stage) without waiting on its mbarrier for
+    # the bulk copies to land (caught by the one-slot ring checks below:
+    # with the default ring that copy was issued at the start and lands in
+    # time)
+    "K1/K2 ring stage read before its copy lands": (
+        "qtts_stream.cuh",
+        "    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);",
+        "    if (stage != 3) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);",
+        "K1K2",
+    ),
+    # the grid barrier between the o projection (which adds into x) and the
+    # gate|up prologue (which reads all of x) dropped
+    "K1/K2 grid barrier after the o projection dropped": (
+        "qtts_stream.cuh",
+        "    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_O, stage, sh, x);\n    qtts_phase_barrier(p);\n",
+        "    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_O, stage, sh, x);\n",
+        "K1K2",
+    ),
 }
 K6_CASES = ((1, 4, [62]), (4, 8, [62, 5, 504, 130]))  # (B, S, starts) at T=512
 
@@ -114,7 +140,23 @@ def checks(gen):
           for T, pos in ((256, 64), (2560, 2559))]
     k7 += [lambda knobs=knobs: cs.check_k7_plain(packs, 256, 255, knobs, gen)
            for knobs in cs.K7_KNOBS]
-    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7}
+    tt, mt = QWEN3_TTS_06B.talker.transformer, QWEN3_TTS_06B.code_predictor.transformer
+    cp6 = QWEN3_TTS_06B.code_predictor
+    H6, V6, n6 = mt.hidden_size, cp6.subcode_vocab_size, cp6.num_steps
+    tfw, mfw = packs[2], packs[6]
+    chain6 = (cp6, mfw, pack_heads(quantize_weight(
+        (torch.randn((n6, H6, V6), generator=gen, device=cs.DEV) * H6 ** -0.5).to(torch.bfloat16))),
+        (torch.randn((n6, V6, H6), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16),
+        torch.ones((H6,), dtype=torch.bfloat16, device=cs.DEV))
+    k1k2 = [lambda: cs.check_k1_equal("0.6B talker", tt, tfw, ((256, 0), (256, 200), (2560, 1800)),
+                                      gen),
+            lambda: cs.check_k1_equal("0.6B MTP trunk", mt, mfw, ((17, 0), (17, 16)), gen),
+            lambda: cs.check_k2_equal("0.6B MTP trunk", *chain6, gen, inputs=4)]
+    # the same checks with every persistent plan at one ring slot: each
+    # stage is then issued right after the one before it is consumed, so a
+    # consumer that does not wait reads a copy still in flight
+    k1k2 += [lambda run=run: cs.one_slot_ring(run) for run in list(k1k2)]
+    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2}
 
 
 def main() -> int:
@@ -127,7 +169,10 @@ def main() -> int:
     by_kernel = checks(gen)
     source = _build.CSRC_DIR
     caught = {}
+    words = sys.argv[1:]
     for name, (fname, old, new, kernel) in MUTANTS.items():
+        if words and not any(w in name for w in words):
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             csrc = os.path.join(tmp, "csrc")
             shutil.copytree(source, csrc)

@@ -1,0 +1,105 @@
+"""Quick chip check of the persistent kernels K1 and K2 on one NVIDIA GPU.
+
+    python3 chip_persistent.py
+
+Builds the kernels and prints ptxas's report of the persistent kernels
+(registers, stack, spills).  Holds K1 and K2 to the launch-per-op sequences
+they replaced, bit for bit (``chip_smoke.check_k1_equal`` at the 0.6B talker
+and MTP trunk, ``chip_smoke.check_k2_equal`` at the 0.6B chain), with the
+default weight ring and again with one ring slot
+(``chip_smoke.one_slot_ring``).  Then times each against its sequence in
+turns and traces one launch per case (``chip_smoke.in_turns``,
+``chip_smoke.trace_phases``): K1 at the 0.6B talker, T=256 pos 200 and
+T=2560 pos 1800; K2 at the 0.6B MTP trunk with a bf16 cache, greedy and four
+sampled knob sets (the engine's defaults, top-k and top-p off, top-k alone,
+top-p alone), whose sampler phases give the sampler's cost per knob.  A
+check that fails raises, and the exit code is then not 0; so it is without
+CUDA.  It is the short first call after a change to ``csrc/qtts_stream.cuh``;
+``chip_smoke.py`` runs the same checks among all the others.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import torch
+
+import chip_smoke as cs
+from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B
+from leaxer_qwen3_tts_torch.ops import _build
+from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
+from leaxer_qwen3_tts_torch.ops import fused_step as K1
+from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
+from leaxer_qwen3_tts_torch.runtime.sampling import gumbel_noise
+
+TRACE_KNOBS = ((0.0, 50, 0.9), (0.8, 50, 0.95), (1.0, 0, 1.0), (1.0, 50, 1.0), (1.0, 0, 0.95))
+
+
+def ptxas_report(path):
+    """ptxas's lines for the persistent kernels' entries."""
+    with open(path + ".log") as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and ("step_kernel" in line or "chain_kernel" in line):
+            cs.log(line.strip()[:160])
+            for nxt in lines[i + 1:]:
+                if "Compiling entry" in nxt:
+                    break
+                if "Used" in nxt or "spill" in nxt:
+                    cs.log("    " + nxt.strip())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_persistent: CUDA is not available", file=sys.stderr)
+        return 2
+    cs.CARD = cs.card()
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.load_kernels()
+    cs.log(f"build: {time.perf_counter() - t0:.1f} s [{cs.CARD}]")
+    ptxas_report(path)
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED)
+    cfg = QWEN3_TTS_06B
+    tt, mt, cp = cfg.talker.transformer, cfg.code_predictor.transformer, cfg.code_predictor
+    tfw, mfw = cs.packed_trunk(tt, gen), cs.packed_trunk(mt, gen)
+    H, V, n = mt.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    heads = K2.pack_heads(quantize_weight(
+        (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16)))
+    tables = (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV)
+
+    def equal_checks():
+        cs.check_k1_equal("0.6B talker", tt, tfw, ((256, 0), (256, 200), (2560, 1800)), gen)
+        cs.check_k1_equal("0.6B MTP trunk", mt, mfw, ((17, 0), (17, 9), (17, 16)), gen)
+        cs.check_k2_equal("0.6B MTP trunk", cp, mfw, heads, tables, fnorm, gen, inputs=4)
+
+    equal_checks()
+    cs.one_slot_ring(equal_checks)
+
+    for T, pos in ((256, 200), (2560, 1800)):
+        x, kc, vc = cs.k1_inputs(tt, T, pos, torch.bfloat16, gen)
+        cs.in_turns(f"K1 0.6B talker T={T} pos {pos}", lambda: cs.k1_multi(tt, tfw, x, pos, kc, vc),
+                    lambda: K1.fused_decode_step(tt, tfw, x, pos, kc, vc), 20)
+        cs.trace_phases(f"K1 0.6B talker T={T} pos {pos}", K1._step_entry(tt, tfw, T, x.device).plan,
+                        cs.step_phase_names(tt.num_layers),
+                        lambda: K1.fused_decode_step(tt, tfw, x, pos, kc, vc))
+    lh = (torch.randn((1, H), generator=gen, device=cs.DEV) * 0.5).to(torch.bfloat16)
+    c0 = (torch.randn((1, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+    noise = gumbel_noise((n, 1, V), gen, cs.DEV)
+    plan = K2._chain_entry("qtts_mtp_chain", mt, mfw, heads, tables, torch.bfloat16,
+                           lh.device).plan
+    for knobs in TRACE_KNOBS:
+        args = (mt, mfw, fnorm, heads, tables, lh, c0, noise, *knobs)
+        cs.in_turns(f"K2 0.6B {knobs} bf16 cache",
+                    lambda: cs.k2_multi(*args, cache_dtype=torch.bfloat16),
+                    lambda: K2.fused_mtp_chain(*args, cache_dtype=torch.bfloat16), 10)
+        cs.trace_phases(f"K2 0.6B {knobs}", plan, cs.chain_phase_names(mt.num_layers, n),
+                        lambda: K2.fused_mtp_chain(*args, cache_dtype=torch.bfloat16))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,9 +23,23 @@ prints the final line:
    rows at full depth, and S in {2, 4, 8} at B in {1, 4} on one layer with
    both caches, starts at 0, across a split edge, at T - S and past it; the
    K1 limits and tight share, and every row equal bit for bit to the S
-   successive K1 (B=1) or K4 steps it stands for.
+   successive K1 (B=1) or K4 steps it stands for.  K1 is one persistent
+   cooperative launch per step: it is held bit for bit (x and both caches)
+   to the launch-per-op sequence it replaced (``qtts_decode_step_multi``) at
+   the 0.6B talker (T=256 and 2560, the first slot, split edges, the last
+   slot) and MTP trunk (T=17) widths with bf16 and float32 caches, timed
+   against it in turns (sequence, persistent, persistent, sequence), and
+   traced once (per-barrier ``%globaltimer`` marks: each phase's input,
+   weight wait, dot products and refill, and the grid barrier's latency).
 4. K2 (``fused_mtp_chain``) against its plain version at the 0.6B MTP shapes,
-   greedy and sampled, on the same noise; then K5 (``fused_mtp_chain_batched``)
+   greedy and sampled, on the same noise; the persistent K2 against the
+   launch-per-op chain it replaced (``qtts_mtp_chain_multi``) bit for bit on
+   16 seeded inputs per knob set of K5_KNOBS and cache dtype, timed in turns
+   and traced.  K1 and K2 are held to the launch sequences once more on a
+   few inputs with a one-slot weight ring (``one_slot_ring``), where each
+   stage's copy is issued just before it is read, so that a consumer that
+   does not wait on its stage's mbarrier reads bytes still in flight (with
+   the default ring the copy has landed).  Then K5 (``fused_mtp_chain_batched``)
    at B=8 and B=32 with mixed per-row knobs (K2's margin rule for a
    mismatch), every row equal to K2 on that row's noise, bit for bit.
 5. K7 (``fused_frame_step``, one cooperative launch per frame) at the 0.6B
@@ -77,7 +91,9 @@ prints the final line:
    ``attn_impl="pallas"``, random weights made on the card from a seed, int8,
    bf16 KV cache, a random [9, 2048] speaker table): K1 at the 1.7B widths
    (28 layers, and one layer with 24 seeded inputs per float32 / bf16 case
-   under the tight-input count); K3 (``fused_mtp_chain_streamed``) against
+   under the tight-input count), the persistent K1 against its launch
+   sequence at T=256 and the persistent K2 against its launch-per-op chain
+   on the 1.7B trunk (bf16 cache) bit for bit; K3 (``fused_mtp_chain_streamed``) against
    its plain version, greedy and two sampled knob sets, and against K2 with a
    float32 cache on 16 seeded inputs, bit for bit, timed in turns with it;
    K8 (``flash_attend``) against its plain version at the 1.7B prefill shape
@@ -129,6 +145,7 @@ from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
 from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as K3
 from leaxer_qwen3_tts_torch.ops import fused_step as K1
 from leaxer_qwen3_tts_torch.ops import fused_verify as K6
+from leaxer_qwen3_tts_torch.ops import persistent
 from leaxer_qwen3_tts_torch.ops.quant import fuse_params, quantize_params, quantize_weight
 from leaxer_qwen3_tts_torch.runtime.prompt import prompt_length
 from leaxer_qwen3_tts_torch.runtime.sampling import (
@@ -241,6 +258,15 @@ K7_CASES = ((256, 64), (256, 255), (2560, 1792), (2560, 2559))
 K7_KNOBS = ((0.0, 50, 0.9), (0.8, 50, 0.95), (1.0, 0, 1.0))
 K7_INPUTS = 16
 FIXED_TEXT = "hello world, this is a fixed length run"
+# The persistent K1 and K2 against the launch-per-op sequences they replaced
+# (qtts_decode_step_multi, qtts_mtp_chain_multi): the same operations in the
+# same order, so x, both caches, the sub-codes and sub_sum equal bit for bit.
+# K1 at the first slot, a 64-slot split edge and inside and at the end of
+# the 256 and 2560 buckets, both cache dtypes; K2 on K5_KNOBS (greedy and
+# three sampled knob sets), both cache dtypes.
+K1_EQUAL_CASES = ((256, 0), (256, 63), (256, 200), (2560, 64), (2560, 1800), (2560, 2559))
+K1_EQUAL_INPUTS = 2
+K2_EQUAL_INPUTS = 16
 
 
 CARD = "card not read yet"  # the nvidia-smi line, printed beside every measured number
@@ -334,6 +360,35 @@ class K1Run:
     untouched: bool  # the kernel left every other slot as it was
 
 
+def k1_multi(t, fw, x, pos, kc, vc):
+    """K1's launch-per-op sequence (``qtts_decode_step_multi``, six launches
+    per layer) on the same inputs: the reference the persistent K1 is held
+    to bit for bit.  Returns x_out [1, H]; the caches are updated in place."""
+    T = kc.shape[3]
+    w, s, scratch = K1.step_structs(t, fw, T, DEV)
+    x_in = x.float().reshape(-1).contiguous()
+    out = torch.empty((1, t.hidden_size), dtype=torch.float32, device=DEV)
+    err = _build.load_kernels().qtts_decode_step_multi(
+        w, s, x_in.data_ptr(), out.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        int(kc.dtype == torch.bfloat16), T, min(int(pos), T - 1),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "qtts_decode_step_multi")
+    del scratch  # enqueued; the caching allocator orders reuse on the stream
+    return out
+
+
+def k2_multi(t, fw, fnorm, heads, tables, lh, c0, noise, temperature, top_k, top_p,
+             cache_dtype=torch.float32):
+    """K2's launch-per-op chain (``qtts_mtp_chain_multi``: K1's layer launches
+    per trunk pass, one head + sampler kernel per step) on the same inputs:
+    the reference the persistent K2 is held to bit for bit."""
+    return K2._launch_chain(k2_multi, "qtts_mtp_chain_multi", t, fw, fnorm, heads, tables, lh,
+                            c0, noise, temperature, top_k, top_p, cache_dtype)
+
+
+k2_multi.launches = 0  # not a kernel of the path: compare-only launches
+
+
 def k1_run(t, fw, T, pos, cache_dtype, gen) -> K1Run:
     L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
     x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
@@ -408,6 +463,175 @@ def check_k1_shallow(name, t, fw, T, pos, cache_dtype, gen, iters):
     if not ok:
         raise RuntimeError(f"K1 {name} T={T} pos={pos} disagrees with its plain version")
     return max(r.err for r in runs), ms, plain_ms
+
+
+def k1_inputs(t, T, pos, cache_dtype, gen):
+    """A seeded step input: x [1, H] and caches with the slots from pos on zeroed."""
+    L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
+    x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+    kc = (torch.randn((L, 1, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+    vc = (torch.randn((L, 1, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+    kc[:, :, :, pos:] = 0
+    vc[:, :, :, pos:] = 0
+    return x, kc, vc
+
+
+def check_k1_equal(name, t, fw, cases, gen, inputs=K1_EQUAL_INPUTS):
+    """The persistent K1 against K1's launch-per-op sequence on ``inputs``
+    seeded inputs per (T, pos) of ``cases`` and cache dtype: x and both
+    caches equal bit for bit.  Returns the number of steps compared."""
+    equal = total = 0
+    for T, pos in cases:
+        for cache_dtype in (torch.bfloat16, torch.float32):
+            for _ in range(inputs):
+                x, kc, vc = k1_inputs(t, T, pos, cache_dtype, gen)
+                kn, vn, ko, vo = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                xn, _, _ = K1.fused_decode_step(t, fw, x, pos, kn, vn)
+                xo = k1_multi(t, fw, x, pos, ko, vo)
+                same = bool(torch.equal(xn, xo)) and bool(torch.equal(kn, ko)) and bool(
+                    torch.equal(vn, vo))
+                if not same:
+                    log(f"K1 {name} T={T} pos={pos} cache={str(cache_dtype)[6:]}: the persistent "
+                        f"step differs from the launch sequence (x max diff "
+                        f"{float((xn - xo).abs().max()):.3e})")
+                equal += same
+                total += 1
+    ok = equal == total
+    log(f"K1 persistent vs launch sequence, {name}: L={t.num_layers} (T, pos) {list(cases)} x "
+        f"bf16/f32 caches x {inputs} inputs: {equal}/{total} steps equal bit for bit (x, k and v "
+        f"caches) -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"the persistent K1 differs from the launch sequence ({name})")
+    return total
+
+
+def check_k2_equal(label, cp, fw, heads, tables, fnorm, gen, inputs=K2_EQUAL_INPUTS,
+                   cache_dtypes=(torch.bfloat16, torch.float32)):
+    """The persistent K2 against K2's launch-per-op chain on ``inputs``
+    seeded inputs per knob set of K5_KNOBS and cache dtype: sub-codes and
+    sub_sum equal bit for bit.  Returns the number of chains compared."""
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
+    t = cp.transformer
+    equal = total = 0
+    for cache_dtype in cache_dtypes:
+        for knobs in K5_KNOBS:
+            sp = SamplingParams.create(*knobs)
+            for i in range(inputs):
+                lh = (torch.randn((1, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+                c0 = (torch.randn((1, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+                noise = None if sp.greedy else gumbel_noise((n, 1, V), gen, DEV)
+                args = (t, fw, fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k,
+                        sp.top_p)
+                sn, sum_n = K2.fused_mtp_chain(*args, cache_dtype=cache_dtype)
+                so, sum_o = k2_multi(*args, cache_dtype=cache_dtype)
+                same = bool(torch.equal(sn, so)) and bool(torch.equal(sum_n, sum_o))
+                if not same:
+                    log(f"{label} knobs {knobs} cache={str(cache_dtype)[6:]} input {i}: persistent "
+                        f"{sn[0].tolist()} vs launch sequence {so[0].tolist()}")
+                equal += same
+                total += 1
+    ok = equal == total
+    log(f"K2 persistent vs launch-per-op chain, {label}: knobs {K5_KNOBS} x caches "
+        f"{[str(d)[6:] for d in cache_dtypes]} x {inputs} inputs: {equal}/{total} chains equal "
+        f"bit for bit (sub-codes, sub_sum) -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"the persistent K2 differs from the launch-per-op chain ({label})")
+    return total
+
+
+def in_turns(label, old, new, iters):
+    """ms per call of ``old`` and ``new`` timed in turns (old, new, new,
+    old); returns (new mean, old mean)."""
+    o1 = time_ms(old, iters)
+    n1 = time_ms(new, iters)
+    n2 = time_ms(new, iters)
+    o2 = time_ms(old, iters)
+    log(f"{label} in turns (launch sequence, persistent, persistent, launch sequence): "
+        f"{o1:.4f} {n1:.4f} {n2:.4f} {o2:.4f} ms; persistent {(n1 + n2) / 2:.4f} vs "
+        f"{(o1 + o2) / 2:.4f} ms [{CARD}]")
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def one_slot_ring(run):
+    """``run()`` with the persistent kernels' plans cut to one ring slot;
+    the wrappers' cached entries are dropped before and after."""
+    real = persistent.device_plan
+
+    def one_slot(cfg, device, head_rows=0):
+        device = torch.device(device)
+        plan = persistent.make_plan(cfg, persistent.grid_size(device), head_rows)
+        smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.union_bytes)
+        return persistent.DevicePlan(plan._replace(n_slots=1, smem_bytes=smem["total"]), device)
+
+    K1._STEP_ENTRIES.clear()
+    K2._CHAIN_ENTRIES.clear()
+    persistent.device_plan = one_slot
+    try:
+        return run()
+    finally:
+        persistent.device_plan = real
+        K1._STEP_ENTRIES.clear()
+        K2._CHAIN_ENTRIES.clear()
+
+
+def trace_phases(label, plan, names, run):
+    """One traced launch of a persistent kernel (``run``), its plan's trace
+    on: per phase kind of ``names`` (one per grid barrier, in order), the
+    slowest block's work (for a GEMV phase split into its input and its
+    dot products), the mean block's, and the barrier's latency from the last
+    arrival to the first departure.  Returns (us per launch, us per
+    barrier, barriers)."""
+    tr = plan.enable_trace(len(names))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        plan.disable_trace()
+    tr = tr.cpu().to(torch.float64)
+    nb = len(names)
+    start, end = tr[1], tr[5 * nb + 2]
+    mid, ready, dots = tr[2:5 * nb + 2:5], tr[3:5 * nb + 3:5], tr[4:5 * nb + 4:5]
+    arrive, depart = tr[5:5 * nb + 5:5], tr[6:5 * nb + 6:5]
+    prev = torch.cat([start[None], depart[:-1]])
+    work = (arrive - prev) / 1e3
+    gemv = ((mid > 0) & (ready > 0) & (dots > 0)).all(dim=1)
+    parts = [(mid - prev) / 1e3, (ready - mid) / 1e3, (dots - ready) / 1e3, (arrive - dots) / 1e3]
+    latency = (depart.min(dim=1).values - arrive.max(dim=1).values) / 1e3
+    total = float(end.max() - start.min()) / 1e3
+    kinds = {}
+    for i, kind in enumerate(names):
+        k = kinds.setdefault(kind, [0, 0.0, 0.0, 0.0, [0.0] * 4])
+        k[0] += 1
+        k[1] += float(work[i].max())
+        k[2] += float(work[i].mean())
+        k[3] += float(latency[i])
+        if bool(gemv[i]):
+            for j, part in enumerate(parts):
+                k[4][j] += float(part[i].mean())
+    bar_us = float(latency.mean())
+    log(f"trace {label}: {total:.1f} us per launch, {nb} grid barriers at {bar_us:.2f} us each "
+        f"({nb * bar_us:.1f} us, {nb * bar_us / total:.1%}); per phase (count: slowest block's "
+        f"work, mean block's [GEMV phases, mean block: input, wait for the first weight stage, "
+        f"dot products, last refill], barrier us): "
+        + "; ".join(f"{kind} x{c}: {w / c:.2f}, {m / c:.2f} [" + ", ".join(
+            f"{v / c:.2f}" for v in sub) + f"], {lat / c:.2f}"
+            for kind, (c, w, m, lat, sub) in kinds.items())
+        + f" [{CARD}]")
+    return total, bar_us, nb
+
+
+def step_phase_names(layers, last_barrier=False):
+    """The phase ending at each grid barrier of one persistent trunk pass."""
+    names = ["qkv", "attn", "o", "gu", "down"] * layers
+    return names if last_barrier else names[:-1]
+
+
+def chain_phase_names(layers, n):
+    """The phase ending at each grid barrier of one persistent chain."""
+    names = step_phase_names(layers, True) * 2
+    for j in range(n):
+        names += ["head"] + (["sample"] + step_phase_names(layers, True) if j + 1 < n else [])
+    return names
 
 
 def check_chain(label, kernel_fn, plain_fn, knobs, cp, fw, heads, tables, fnorm, gen, iters,
@@ -1436,6 +1660,7 @@ def voice_phase(tok, gen, card_line):
     talker_t, cp = cfg.talker.transformer, cfg.code_predictor
     fw_t = eng.params["talker"]["fused_step"]
     k1 = [check_k1_deep("talker-1.7B", talker_t, fw_t, 256, 60, gen, 20)]
+    check_k1_equal("1.7B talker", talker_t, fw_t, ((256, 0), (256, 63), (256, 255)), gen)
     k1_ms, k1_by = step_bound(talker_t, fw_t, 1, [60], 1, torch.bfloat16)
     log(f"K1 talker-1.7B bound {k1_ms:.4f} ms ({k1_by}): {nbytes(fw_t) / 1e9:.3f} GB of packed "
         f"weights per step [{CARD}]")
@@ -1459,6 +1684,7 @@ def voice_phase(tok, gen, card_line):
     k3 = [check_chain("K3", K3.fused_mtp_chain_streamed, K3.fused_mtp_chain_streamed_reference,
                       knobs, *chain, gen, iters, flip_rule=True)
           for knobs, iters in (((0.8, 50, 0.95), 10), ((0.0,), 0), ((1.0, 0, 1.0), 0))]
+    check_k2_equal("1.7B MTP trunk", *chain, gen, inputs=4, cache_dtypes=(torch.bfloat16,))
     k3_ms, k2_f32_ms = check_k3_equals_k2(*chain, gen, 10)
     k3[0] = (k3[0][0], k3_ms, k3[0][2])
     bounds = {"K3": chain_bound(cp.transformer, cpp["fused_step"], cpp["fused_heads"], 1)}
@@ -1898,6 +2124,17 @@ def main() -> int:
         check_k1_deep("talker", talker_t, talker_fw, 2560, 1800, gen, 20),
         check_k1_deep("mtp-trunk", mtp_t, mtp_fw, 17, 9, gen, 50),
     ]
+    check_k1_equal("0.6B talker", talker_t, talker_fw, K1_EQUAL_CASES, gen)
+    check_k1_equal("0.6B MTP trunk", mtp_t, mtp_fw, ((17, 0), (17, 9), (17, 16)), gen)
+    x, kc, vc = k1_inputs(talker_t, 256, 200, torch.bfloat16, gen)
+    in_turns("K1 0.6B talker T=256 pos 200",
+             lambda: k1_multi(talker_t, talker_fw, x, 200, kc, vc),
+             lambda: K1.fused_decode_step(talker_t, talker_fw, x, 200, kc, vc), 20)
+    trace_phases("K1 0.6B talker T=256 pos 200", K1._step_entry(talker_t, talker_fw, 256,
+                                                                 x.device).plan,
+                 step_phase_names(talker_t.num_layers),
+                 lambda: K1.fused_decode_step(talker_t, talker_fw, x, 200, kc, vc))
+    del x, kc, vc
     k4 = [
         check_k4_deep("talker", talker_t, talker_fw, 8, 512, gen, 10),
         check_k4_deep("talker", talker_t, talker_fw, 32, 512, gen, 5),
@@ -1938,6 +2175,26 @@ def main() -> int:
                       heads, tables, fnorm, gen, iters, cache_dtype=torch.bfloat16)
           for knobs, iters in (
         ((0.0,), 10), ((0.8, 50, 0.95), 10), ((1.0, 0, 1.0), 0), ((0.7, 1, 0.9), 0))]
+    check_k2_equal("0.6B MTP trunk", cp, mtp_fw, heads, tables, fnorm, gen)
+    lh = (torch.randn((1, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    c0 = (torch.randn((1, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    chain_args = (mtp_t, mtp_fw, fnorm, heads, tables, lh, c0, gumbel_noise((n, 1, V), gen, DEV),
+                  *K5_KNOBS[1])
+    in_turns(f"K2 0.6B sampled {K5_KNOBS[1]} bf16 cache",
+             lambda: k2_multi(*chain_args, cache_dtype=torch.bfloat16),
+             lambda: K2.fused_mtp_chain(*chain_args, cache_dtype=torch.bfloat16), 10)
+    trace_phases(f"K2 0.6B sampled {K5_KNOBS[1]}",
+                 K2._chain_entry("qtts_mtp_chain", mtp_t, mtp_fw, heads, tables,
+                                 torch.bfloat16, lh.device).plan,
+                 chain_phase_names(mtp_t.num_layers, n),
+                 lambda: K2.fused_mtp_chain(*chain_args, cache_dtype=torch.bfloat16))
+    del chain_args
+    # a ring-wait fault shows only where a stage's copy is issued just before
+    # it is read: every persistent plan at one slot
+    one_slot_ring(lambda: (
+        check_k1_equal("0.6B MTP trunk, one ring slot", mtp_t, mtp_fw, ((17, 16),), gen, inputs=1),
+        check_k2_equal("0.6B MTP trunk, one ring slot", cp, mtp_fw, heads, tables, fnorm, gen,
+                       inputs=1)))
     # B=8 and 32 (the batched paths), and 4 rows (a B=1 verify iteration at k=4)
     k5 = [check_k5(B, cp, mtp_fw, heads, tables, fnorm, gen, iters)
           for B, iters in ((8, 5), (32, 3), (4, 5))]

@@ -17,13 +17,18 @@ repeat draft otherwise, and fall back to sequential decode when a request's
 trailing acceptance stays below ``spec_accept_floor``.
 
 The engine runs on the CUDA device unless the caller passes
-``device="cpu"``; with no device and no CUDA device it raises.  On the card
+``device="cpu"``.  As in the JAX engine, construction records an error
+instead of raising (no device and no CUDA device, a configuration the kernels
+do not take, ...): ``is_ready()`` and ``get_error()`` report it, and every
+synthesis call then raises ``EngineError("engine not ready: ...")``; only a
+``spec_k`` outside [2, 8] raises at once.  On the card
 it runs only the kernel path: it requires ``quantize="int8"`` and the fused
 talker and MTP implementations, packs both for kernels K1 and K2 or K3
 (B=1; K3 for an MTP trunk past the residency gate, the 1.7B family), K4 and
 K5 (B=2..32) and K6 (the verify pass, B x spec_k <= 32 rows); a talker with
-``attn_impl="pallas"`` runs its prefill attention as kernel K8.  It raises
-``EngineError`` for a configuration or a batch the kernels do not take.  On
+``attn_impl="pallas"`` runs its prefill attention as kernel K8.  A
+configuration the kernels do not take leaves the engine not ready; a batch
+they do not take raises ``EngineError``.  On
 the CPU the same code runs the kernels' plain versions.  A decode chunk (a
 dispatch of verify iterations) enqueues its frames on the device and the
 engine syncs once per chunk, when it copies the chunk's codes to the host.
@@ -51,7 +56,7 @@ from ..config import (
     language_to_codec_id,
 )
 from ..frontend.tokenizer import Tokenizer
-from ..models.code_predictor import prepare_fused_step
+from ..models.code_predictor import prepare_fused_step, resident_enabled
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.talker import prepare_fused_talker
 from ..ops.fused_step import MAX_BATCH, supports
@@ -127,14 +132,12 @@ class TTSEngine:
         spec_adapt_window: int = 24,
         frame_fused: Optional[bool] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP M15)")
-        if frame_fused is not None:
-            # pin the whole-frame kernel K7 on or off (None keeps the config's
-            # frame_fused); B=1 sequential decode only, as in the JAX engine
-            config = dataclasses.replace(config, frame_fused=bool(frame_fused))
+        self._ready = False
+        self._error = ""
         self.cfg = config
+        self.params: Optional[dict] = None
         self.tokenizer = tokenizer
+        self.device = torch.device("cpu")
         # speculative decoding: spec_k candidate frames per talker pass,
         # spec_iters verify iterations per dispatch.  Adaptive fallback: once
         # spec_adapt_window iterations have run with trailing acceptance below
@@ -142,8 +145,6 @@ class TTSEngine:
         if spec_k is not None and not 2 <= int(spec_k) <= 8:
             raise ValueError("spec_k must be in [2, 8]")
         self.spec_k = int(spec_k) if spec_k is not None else None
-        if config.frame_fused and self.spec_k is not None:
-            raise EngineError("frame_fused is sequential-only: unset spec_k")
         self.spec_iters = max(1, int(spec_iters))
         self.spec_accept_floor = float(spec_accept_floor)
         self.spec_adapt_window = max(1, int(spec_adapt_window))
@@ -157,7 +158,28 @@ class TTSEngine:
         # KV-cache bucket ladder: attention reads scale with the current
         # bucket; the cache is zero-padded up a rung as the position nears it
         self.kv_ladder = tuple(sorted({b for b in kv_buckets if b < full} | {full}))
+        # as in the JAX engine, construction records its error instead of
+        # raising: check is_ready() / get_error(); synthesis raises then
+        try:
+            self._build(config, params, device, quantize, mesh, frame_fused)
+            self._ready = True
+        except Exception as e:  # record, don't raise (the JAX engine's contract)
+            self._error = str(e)
+            log.error("engine init failed: %s", e)
 
+    def _build(self, config: TTSModelConfig, params: dict, device, quantize, mesh,
+               frame_fused: Optional[bool]) -> None:
+        if mesh is not None:
+            raise NotImplementedError("a device mesh is not ported yet (ROADMAP M15)")
+        if frame_fused is not None:
+            # pin the whole-frame kernel K7 on or off (None keeps the config's
+            # frame_fused); B=1 sequential decode only: the argument refuses
+            # spec_k, as in the JAX engine (a config with frame_fused set
+            # decodes spec iterations and runs K7 on sequential frames only)
+            if frame_fused and self.spec_k is not None:
+                raise EngineError("frame_fused is sequential-only: unset spec_k")
+            config = dataclasses.replace(config, frame_fused=bool(frame_fused))
+        self.cfg = config
         if quantize not in (None, "int8"):
             raise EngineError(
                 f"quantize={quantize!r}: only int8 is ported (int4: ROADMAP item K1v)"
@@ -187,9 +209,10 @@ class TTSEngine:
                 problems.append("the kernels do not take this architecture")
             if cfg.code_predictor.head_mode != "per_step":
                 problems.append("the chain kernel takes per-step heads only")
-            if cfg.code_predictor.resident is False:
-                problems.append("code_predictor.resident=False selects the per-step MTP path, "
-                                "which is not ported to the card (the chains K2 and K3 are)")
+            if not resident_enabled(cfg.code_predictor):
+                problems.append("code_predictor.resident=False (or QTTS_MTP_RESIDENT=0) selects "
+                                "the per-step MTP path, which is not ported to the card (the "
+                                "chains K2 and K3 are)")
             if problems:
                 raise EngineError("CUDA kernel path unavailable: " + "; ".join(problems))
 
@@ -204,6 +227,23 @@ class TTSEngine:
             if talker_fused:
                 params["talker"] = prepare_fused_talker(cfg.talker, params["talker"])
         self.params = params
+
+    # ------------------------------------------------------------------
+    # Status (the JAX engine's is_ready / get_error / has_speaker_encoder)
+    # ------------------------------------------------------------------
+
+    def is_ready(self) -> bool:
+        return self._ready
+
+    def get_error(self) -> str:
+        return self._error
+
+    def has_speaker_encoder(self) -> bool:
+        return bool(self._ready and "speaker_encoder" in (self.params or {}))
+
+    def _require_ready(self) -> None:
+        if not self._ready:
+            raise EngineError(f"engine not ready: {self._error}")
 
     # ------------------------------------------------------------------
     # Public synthesis API
@@ -254,6 +294,7 @@ class TTSEngine:
         into the prompt.  ``kw``: ``synthesize``'s sampling knobs, ``seed``,
         ``max_tokens`` and ``instruct``.  Without a table it warns and falls
         back to ``synthesize``; an unknown name raises ``EngineError``."""
+        self._require_ready()
         name = speaker.lower()
         table = self.params.get("speaker_table")
         if table is None:
@@ -285,6 +326,7 @@ class TTSEngine:
         generator for the batch) or a length-B sequence (one generator per
         stream: each stream's samples then depend on its own seed only).
         On a CUDA device B is at most 32 (kernels K4 and K5)."""
+        self._require_ready()
         timer = StageTimer(SynthesisMetrics())
         with timer.stage("tokenize"):
             id_lists = [self._tokenize(t) for t in texts]
@@ -310,6 +352,7 @@ class TTSEngine:
     ) -> SynthesisResult:
         """Synthesis from a chat-wrapped sequence
         [IM_START, ASSISTANT, TTS_BOS, *text, TTS_EOS, IM_END] (or bare text ids)."""
+        self._require_ready()
         ids = [int(i) for i in token_ids]
         if len(ids) >= 6 and ids[0] == IM_START and ids[-1] == IM_END:
             text_ids = ids[3:-2]
@@ -335,6 +378,7 @@ class TTSEngine:
 
     def _text_stream(self, text, language="auto", temperature=0.8, top_k=50, top_p=0.95,
                      max_tokens=None, seed=0, speaker=None, instruct=None):
+        self._require_ready()
         timer = StageTimer(SynthesisMetrics())
         with timer.stage("tokenize"):
             ids = self._tokenize(text)
@@ -375,6 +419,7 @@ class TTSEngine:
         speaker: Optional[torch.Tensor] = None,  # [B, H] preset speaker embedding
         instruct_ids: Optional[List[int]] = None,  # the instruction's token ids
     ):
+        self._require_ready()
         cfg = self.cfg
         B = len(id_lists)
         if B < 1:

@@ -1,4 +1,5 @@
-// Kernel K2: the whole B=1 MTP sub-code chain of one 12 Hz frame.
+// Kernel K2: the whole B=1 MTP sub-code chain of one 12 Hz frame, as ONE
+// persistent cooperative launch.
 //
 // Replaces leaxer_qwen3_tts_tpu/ops/fused_mtp.py::fused_mtp_chain
 // (_make_chain_kernel / _chain_core, sampler gumbel_topk_topp_sample).  Same
@@ -9,12 +10,8 @@
 //   sub_j    = gumbel_topk_topp_sample(logits_j, noise_j, ...);
 //   emb      = pred_embed[j][sub_j] (f32); sub_sum += emb;
 //   one trunk pass on emb at position 2 + j (not after the last step).
-// The trunk passes reuse kernel K1's layer kernels (fused_step.cu); the loop
-// is qtts_run_mtp_chain (qtts_kernels.cuh), shared with K3.  Each step runs
-// ONE head kernel here: every block computes 16 head rows, and the last
-// block to finish (atomic ticket) runs the sampler -- temperature, the
-// 40-iteration float32 bisections for the top-k and top-p thresholds, the
-// first-index argmax of masked + noise -- then gathers the embedding row.  The
+// The sampler: temperature, the 40-round float32 bisections for the top-k
+// and top-p thresholds, the first-index argmax of masked + noise.  The
 // sampled index stays on the device: no host sync inside the chain.
 //
 // What bounds it on the H100: weight bytes per frame, 16 trunk passes x 82 MB
@@ -22,13 +19,19 @@
 // 228 KB of shared memory, so Hopper streams it every pass) plus 15 x 2 MB of
 // int8 heads, about 1.34 GB per frame, 0.40 ms at the 3.35 TB/s of an H100 SXM
 // (NVIDIA data sheet); the card measured and its power limit are in PERF.md.
-// What this simple design leaves on the table: the trunk stays in device
-// memory (no L2-persistence window or cluster-resident split of it), K1's
-// GEMVs run far below the bandwidth bound (see fused_step.cu), ~600 launches
-// per frame leave the card idle between kernels, and the sampler's 80
-// bisection rounds run on one block while the rest of the card idles.
+// At one token the chain is latency-bound: the launch-per-op chain below
+// (qtts_mtp_chain_multi: K1's six launches per layer for each of the 16
+// passes, one head + sampler kernel per step, ~590 dependent launches) ran at
+// 0.6% of the bound.  The persistent chain (chain_kernel, on qtts_stream.cuh)
+// runs every pass as K1's five grid phases per layer and every head as one
+// more GEMV phase, all fed by one TMA weight ring whose stages run ahead of
+// the data dependency (the next pass's first weights load while one block
+// samples), and samples with the register sampler (qtts_sample_fast).  Its
+// sub-codes and sub_sum equal the launch-per-op chain's bit for bit
+// (chip_smoke.py checks).  What it leaves: ~510 grid barriers per chain, and
+// the trunk streamed from device memory 16 times (no cluster-resident split).
 
-#include "qtts_kernels.cuh"
+#include "qtts_stream.cuh"
 
 namespace {
 
@@ -38,13 +41,86 @@ __global__ void __launch_bounds__(QTTS_GEMV_THREADS) head_sample_kernel(QttsHead
   qtts_head_sample(p, sh);
 }
 
+// The persistent chain's one argument (travels by value).
+struct ChainLaunch {
+  QttsStepWeights w;
+  QttsStepScratch s;
+  QttsPlan p;
+  QttsChainArgs c;
+};
+
+template <typename CT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+chain_kernel(const __grid_constant__ ChainLaunch a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  const QttsChainArgs& c = a.c;
+  const int H = a.w.H, V = c.V, n = c.n, T = n + 2;
+  qtts_ring_start(ring, seq, smem, a.p, a.w, c.heads, c.head_scales, n, V);
+  int stage = 0;
+  CT* kc = static_cast<CT*>(c.k_cache);
+  CT* vc = static_cast<CT*>(c.v_cache);
+  float* sh = reinterpret_cast<float*>(smem);
+  qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.last_hidden, c.x, kc, vc, T, 0, smem,
+                       true);
+  qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.code0_embed, c.x, kc, vc, T, 1, smem,
+                       true);
+  for (int j = 0; j < n; ++j) {
+    // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j
+    qtts_prologue<QTTS_IN_NORM>(c.x, c.final_norm, a.w.eps, H, sh);
+    qtts_ring_gemv<false>(a.p, ring, seq, QTTS_KIND_HEAD, stage, sh, c.logits);
+    qtts_phase_barrier(a.p);
+    if (blockIdx.x == 0) {
+      // the draw, then the embedding row into sub_sum and the next trunk input
+      const int sub = qtts_sample_fast(c.logits, V, c.gumbel + (size_t)j * V, c.temperature,
+                                       c.top_k, c.top_p, c.greedy,
+                                       *reinterpret_cast<QttsSampleSmem*>(smem));
+      if (threadIdx.x == 0) c.subcodes[j] = sub;
+      const __nv_bfloat16* table = c.tables + (size_t)j * c.Vt * H + (size_t)sub * H;
+      for (int k = threadIdx.x; k < H; k += blockDim.x) {
+        const float e = __bfloat162float(table[k]);
+        c.sub_sum[k] = j == 0 ? e : c.sub_sum[k] + e;
+        c.x_in[k] = e;
+      }
+    }
+    if (j + 1 < n) {
+      qtts_phase_barrier(a.p);  // the next trunk pass reads the sampled embedding
+      qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.x_in, c.x, kc, vc, T, 2 + j, smem,
+                           true);
+    }
+  }
+  qtts_trace_end(a.p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Kernel K2 entry: subcodes [n] and sub_sum [H] of one frame's chain.
-int qtts_mtp_chain(const QttsStepWeights* w, const QttsStepScratch* s, const QttsChainArgs* a,
-                   void* stream) {
+// Kernel K2 entry: subcodes [n] and sub_sum [H] of one frame's chain, in one
+// cooperative launch on the plan's grid.
+int qtts_mtp_chain(const QttsStepWeights* w, const QttsStepScratch* s, const QttsPlan* p,
+                   const QttsChainArgs* a, void* stream) {
+  const int T = a->n + 2, qd = w->nq * w->D;
+  if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
+      w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || a->n < 1 || a->V > a->Vt ||
+      a->V > QTTS_P_THREADS * QTTS_SAMPLE_VPT || (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits ||
+      !qtts_plan_ok(*p, *w, a->V)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ChainLaunch launch{*w, *s, *p, *a};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a->cache_bf16 ? qtts_launch_persistent(chain_kernel<__nv_bfloat16>, launch, *p, st)
+                       : qtts_launch_persistent(chain_kernel<float>, launch, *p, st);
+}
+
+// The launch-per-op chain K2 ran before it was persistent: K1's layer
+// launches for each trunk pass and one head kernel per step, in which every
+// block computes 16 head rows and the last block to finish (atomic ticket)
+// runs the sampler and the gather.  The reference chip_smoke.py holds the
+// persistent chain to, bit for bit; no wrapper calls it.
+int qtts_mtp_chain_multi(const QttsStepWeights* w, const QttsStepScratch* s,
+                         const QttsChainArgs* a, void* stream) {
   return qtts_run_mtp_chain(
       *w, *s, *a, static_cast<cudaStream_t>(stream),
       [](const QttsHeadStep& p, bool, int grid, size_t smem, cudaStream_t st) {

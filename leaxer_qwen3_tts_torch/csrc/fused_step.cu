@@ -1,5 +1,6 @@
 // Kernel K1: one B=1 decode step through every layer of a GQA transformer
-// (the 28-layer talker, and the 6-layer MTP trunk that fused_mtp.cu reuses).
+// (the 28-layer talker; kernel K2 runs the same phases on the 6-layer MTP
+// trunk), as ONE persistent cooperative launch.
 //
 // Replaces leaxer_qwen3_tts_tpu/ops/fused_step.py::fused_decode_step
 // (_make_kernel_manual / _manual_layer_core for T <= 512, _make_kernel's
@@ -12,21 +13,26 @@
 //   h = RMSNorm(x) * mlp_norm; x += bf16(silu(gate) * up) @ Wd * scale.
 // The residual x stays float32 across all layers; the cache is updated in
 // place.  The three Pallas cache modes collapse into one split attention
-// kernel (online softmax over QTTS_ATTN_CHUNK-slot splits, then a combine),
-// which takes every bucket of the KV ladder with no shared-memory bound.
+// (online softmax over QTTS_ATTN_CHUNK-slot splits, then a combine), which
+// takes every bucket of the KV ladder with no shared-memory bound.
 //
 // What bounds it on the H100: the int8 weight bytes of one step, about
-// 440 MB for the 0.6B talker (28 x 15.7 MB) and 82 MB per MTP trunk pass,
-// against 3.35 TB/s device-memory bandwidth on an H100 SXM (NVIDIA data
-// sheet) -- 0.13 ms per talker step at that roofline; the card measured and
-// its power limit are in PERF.md.  What this simple design leaves on the
-// table: a GEMV with one block per 16 output rows (64 blocks for a 1024-row
-// output, under half the SMs), every block recomputing the input prologue,
-// and 16-byte loads per lane with no TMA or cp.async pipeline; six launches
-// per layer with the activation round-tripping through global memory and
-// the card idle between them; no persistent kernel or CUDA graph.
+// 440 MB for the 0.6B talker (28 x 15.7 MB) and 1.41 GB at 1.7B, against
+// 3.35 TB/s device-memory bandwidth on an H100 SXM (NVIDIA data sheet) --
+// 0.13 ms (0.42 ms) per step at that roofline; the card measured and its
+// power limit are in PERF.md.  At one token the step is latency-bound, not
+// bytes-bound: the launch-per-op sequence below (qtts_decode_step_multi, six
+// launches per layer, each a launch, a per-16-row prologue and a cold DRAM
+// round trip in series) ran at 8% of the bound.  The persistent kernel
+// (step_kernel, on qtts_stream.cuh's transport) runs the layer as five grid
+// phases on SM-count blocks, each block owning fixed row ranges whose int8
+// rows stream through a TMA ring ahead of the barriers their inputs wait on;
+// its values equal the launch sequence's bit for bit (chip_smoke.py checks).
+// What it leaves: the grid barriers themselves (five per layer), the
+// attention's items on two 128-thread halves per block, and no CUDA graph
+// around the host's per-frame work.
 
-#include "qtts_kernels.cuh"
+#include "qtts_stream.cuh"
 
 namespace {
 
@@ -61,6 +67,38 @@ cudaError_t launch_gemv(const float* in, const float* norm_w, float eps, const i
   gemv_i8_kernel<IN_MODE, ACCUM><<<grid, QTTS_GEMV_THREADS, smem, st>>>(in, norm_w, eps, W,
                                                                        scale, out, N, K);
   return cudaGetLastError();
+}
+
+// The persistent step's one argument (travels by value).
+struct StepLaunch {
+  QttsStepWeights w;
+  QttsStepScratch s;
+  QttsPlan p;
+  const float* x_in;
+  float* x;
+  void* k_cache;
+  void* v_cache;
+  int32_t T, pos;
+};
+
+template <typename CT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+step_kernel(const __grid_constant__ StepLaunch a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
+  int stage = 0;
+  qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x, static_cast<CT*>(a.k_cache),
+                       static_cast<CT*>(a.v_cache), a.T, a.pos, smem, false);
+  qtts_trace_end(a.p);
+}
+
+bool step_args_ok(const QttsStepWeights& w, const QttsStepScratch& s, int T, int pos) {
+  const int qd = w.nq * w.D;
+  return w.D == QTTS_ATTN_D && w.nq % w.nk == 0 && w.nq / w.nk <= QTTS_ATTN_MAX_G &&
+         w.H % 16 == 0 && qd % 16 == 0 && w.I % 16 == 0 && pos >= 0 && pos < T &&
+         pos / QTTS_ATTN_CHUNK + 1 <= s.max_splits;
 }
 
 }  // namespace
@@ -111,12 +149,41 @@ int qtts_attn_chunk() { return QTTS_ATTN_CHUNK; }
 
 const char* qtts_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Kernel K1 entry: x_out = decode_step(x_in) with the caches updated in place.
-int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const float* x_in,
-                     float* x_out, void* k_cache, void* v_cache, int cache_bf16, int T,
-                     int pos, void* stream) {
+// Kernel K1 entry: x_out = decode_step(x_in) with the caches updated in
+// place, in one cooperative launch on the plan's grid.
+int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const QttsPlan* p,
+                     const float* x_in, float* x_out, void* k_cache, void* v_cache,
+                     int cache_bf16, int T, int pos, void* stream) {
+  if (!step_args_ok(*w, *s, T, pos) || !qtts_plan_ok(*p, *w, 0) || x_in == x_out) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const StepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, T, pos};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return cache_bf16 ? qtts_launch_persistent(step_kernel<__nv_bfloat16>, a, *p, st)
+                    : qtts_launch_persistent(step_kernel<float>, a, *p, st);
+}
+
+// The launch-per-op sequence K1 ran before it was persistent (six launches
+// per layer): the reference chip_smoke.py holds the persistent step to, bit
+// for bit.  No wrapper calls it; K3's chain runs the same layer kernels
+// through qtts_launch_decode_step.
+int qtts_decode_step_multi(const QttsStepWeights* w, const QttsStepScratch* s, const float* x_in,
+                           float* x_out, void* k_cache, void* v_cache, int cache_bf16, int T,
+                           int pos, void* stream) {
   return qtts_launch_decode_step(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, T, pos,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// The sizes and limits ops/persistent.py plans with: sizeof(QttsAttnSmem),
+// sizeof(QttsSampleSmem), the most rows a stage may hold, the threads of a
+// block, the widest GEMV input, the kv heads the attention tickets take.
+void qtts_persistent_sizes(int* out) {
+  out[0] = (int)sizeof(QttsAttnSmem);
+  out[1] = (int)sizeof(QttsSampleSmem);
+  out[2] = QTTS_P_MAX_STAGE_ROWS;
+  out[3] = QTTS_P_THREADS;
+  out[4] = QTTS_P_MAX_K;
+  out[5] = QTTS_P_MAX_KV_HEADS;
 }
 
 // The final norm and an int8 head on K1's GEMV: hidden = RMSNorm(x) * norm_w

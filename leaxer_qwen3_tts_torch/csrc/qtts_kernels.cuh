@@ -207,7 +207,7 @@ struct QttsNamedSync {
 };
 
 // Grid-wide barrier of a persistent kernel launched with
-// cudaLaunchCooperativeKernel (K7, P1, P2): every block waits until every
+// cudaLaunchCooperativeKernel (K1, K2, K7, P1, P2): every block waits until every
 // block has arrived, and the writes before it are visible to the reads after.
 static __device__ __forceinline__ void qtts_grid_sync() {
   cooperative_groups::this_grid().sync();

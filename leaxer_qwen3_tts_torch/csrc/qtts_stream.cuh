@@ -1,0 +1,1207 @@
+// The persistent transport of kernels K1 and K2: one cooperative launch per
+// decode step (K1) or per sub-code chain (K2), whose weights stream through a
+// shared-memory ring ahead of the data dependency.
+//
+// What it keeps from the launch-per-op sequences (qtts_decode_step_multi,
+// qtts_mtp_chain_multi): every value, bit for bit.  Each output row is one
+// warp's dot product in K1's lane order (lane l takes the 16-byte chunks at
+// l*16 + i*512, fmaf in element order, then the xor butterfly, the separate
+// scale product and residual sum); the GEMV input is qtts_gemv_prologue's,
+// op for op, on a 256-thread block (qtts_prep_scale's partition and
+// qtts_block_reduce's tree); attention runs qtts_attn_split_body's
+// arithmetic and qtts_attn_combine_body's merge, op for op; the sampler
+// keeps qtts_sample_index's op sequence and reduction trees.
+//
+// What it changes is how the bytes get there and how long each step waits:
+//   * Work plan.  Each block owns a fixed contiguous range of output rows in
+//     every GEMV (qkv, o, gate|up, down, and the chain's heads), balanced over
+//     the grid in multiples of four rows.  The wrapper computes the ranges,
+//     the ring's geometry and the shared-memory size (ops/persistent.py) and
+//     passes them in a QttsPlan.
+//   * Weight ring.  A block's rows of one GEMV are cut into stages of at most
+//     slot_bytes, and the stages of the whole launch form one sequence (layer
+//     by layer, phase by phase; in the chain, the trunk passes and the heads
+//     in chain order).  Thread 0 keeps the next n_slots stages in flight:
+//     each stage is a 1-D TMA bulk copy (cp.async.bulk) of the rows' int8
+//     bytes plus one of their float32 scales, completed on the slot's
+//     mbarrier.  A slot is refilled the moment its stage has been consumed,
+//     so the copies of a phase are issued long before the grid barrier its
+//     input waits on, across layer boundaries and, in the chain, while one
+//     block samples.  The rows' weights are then read from shared memory.
+//   * Latency.  At one token every phase is a chain of dependent round trips
+//     to L2, so each input is loaded into registers at once before any of
+//     its arithmetic: the GEMV prologue once per block per phase (the
+//     launch-per-op GEMV recomputes it per 16-row group, one round trip per
+//     loop iteration), the attention combine folded into the o-projection's
+//     prologue (per-head factors once, then every block merges the partials
+//     itself, deterministically), and the attention item with its next
+//     cache slot loaded ahead.  A layer costs five grid barriers (qkv |
+//     attention | o | gate-up | down), cooperative groups' grid sync.
+//   * The sampler holds its row in registers and evaluates the midpoints of
+//     two bisection rounds in one pass (the 3 candidates of the round tree,
+//     each the float 0.5f * (lo + hi) the sequential loop would form), one
+//     block barrier per pass with the partials double buffered, instead of
+//     three barriers per round.  (Four rounds per pass, 15 candidates, and
+//     one warp per candidate walking the whole row both measured slower:
+//     on one block the candidates' work costs more than the barriers.)
+//
+// Tensor cores do not help: at one token the products have M = 1.
+
+#pragma once
+
+#include "qtts_kernels.cuh"
+
+#include <mutex>
+
+enum {
+  QTTS_KIND_QKV = 0,
+  QTTS_KIND_O = 1,
+  QTTS_KIND_GU = 2,
+  QTTS_KIND_DOWN = 3,
+  QTTS_KIND_HEAD = 4,
+  QTTS_KINDS = 5
+};
+
+constexpr int QTTS_P_THREADS = QTTS_GEMV_THREADS;  // 256: qtts_prep_scale's partition
+constexpr int QTTS_P_WARPS = QTTS_P_THREADS / 32;
+constexpr int QTTS_P_RPW = 8;  // rows a warp holds per stage
+constexpr int QTTS_P_MAX_STAGE_ROWS = QTTS_P_WARPS * QTTS_P_RPW;  // 64
+constexpr int QTTS_P_MAX_K = 24 * QTTS_P_THREADS;  // 6144: the widest GEMV input in registers
+constexpr int QTTS_P_MAX_KV_HEADS = 64;  // the plan's attention tickets
+constexpr int QTTS_SPEC_DEPTH = 2;  // bisection rounds per sampler pass: 3 candidates
+constexpr int QTTS_BISECT_ROUNDS = 40;
+constexpr int QTTS_SAMPLE_VPT = 8;  // logits per thread: V <= 2048
+
+// The per-launch work plan (mirrored by ctypes in ops/_build.py, built by
+// ops/persistent.py::make_plan).  Shared memory, in order: the union region
+// (GEMV input and the combine's factors, two attention items, or the
+// sampler's scratch), n_slots mbarriers, n_slots scale areas of slot_rows
+// floats, n_slots weight slots.
+struct QttsPlan {
+  const int32_t* bounds;  // [QTTS_KINDS, grid + 1]: block b's rows of kind k start at [k][b]
+  int32_t grid;           // blocks: all co-resident
+  int32_t n_slots;        // ring slots
+  int32_t slot_bytes;     // weight bytes per slot (a multiple of 16)
+  int32_t slot_rows;      // scale floats per slot (a multiple of 4)
+  int32_t stage_rows[QTTS_KINDS];  // rows per stage of each kind (multiples of 4, <= 64)
+  int32_t smem_bytes;     // dynamic shared memory
+  int32_t union_bytes;    // bytes of the union region (a multiple of 128)
+  uint32_t* tickets;      // [QTTS_P_MAX_KV_HEADS] attention tickets per kv head (zeroed once)
+  int32_t trace_rows;     // rows of trace (0: no trace)
+  uint64_t* trace;        // [trace_rows, grid] %globaltimer ns: see qtts_phase_barrier
+};
+
+// The sampler's shared scratch (inside the union region): per-warp partials
+// of the pass's candidates, double buffered.
+struct QttsSampleSmem {
+  int cnt[2][QTTS_P_WARPS][4];     // a pass's per-warp candidate counts (top-k)
+  float part[2][QTTS_P_WARPS][4];  // a pass's per-warp candidate sums (top-p)
+  float lim[2][QTTS_P_WARPS];      // per-warp min and max of the scaled row
+};
+
+// Byte offsets of the plan's shared-memory areas.
+struct QttsSmemLayout {
+  size_t bars, scales, slots, total;
+};
+static __host__ __device__ __forceinline__ size_t qtts_align(size_t v, size_t a) {
+  return (v + a - 1) / a * a;
+}
+static __host__ __device__ __forceinline__ QttsSmemLayout qtts_plan_layout(const QttsPlan& p) {
+  QttsSmemLayout o;
+  o.bars = (size_t)p.union_bytes;
+  o.scales = o.bars + qtts_align((size_t)8 * p.n_slots, 16);
+  o.slots = qtts_align(o.scales + (size_t)4 * p.slot_rows * p.n_slots, 128);
+  o.total = o.slots + (size_t)p.slot_bytes * p.n_slots;
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers, bulk copies and the grid barrier
+// ---------------------------------------------------------------------------
+
+static __device__ __forceinline__ uint32_t qtts_smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+static __device__ __forceinline__ void qtts_mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(qtts_smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+static __device__ __forceinline__ void qtts_mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   qtts_smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+static __device__ __forceinline__ void qtts_mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "QTTS_MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra QTTS_MBAR_WAIT;\n"
+      "}\n" ::"r"(qtts_smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One 1-D TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completed on `bar`.
+static __device__ __forceinline__ void qtts_bulk_load(void* dst, const void* src, uint32_t bytes,
+                                                      uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(qtts_smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(qtts_smem_addr(bar))
+      : "memory");
+}
+
+static __device__ __forceinline__ uint64_t qtts_globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The index of the block's next grid barrier, for the trace.
+static __device__ __forceinline__ int& qtts_barrier_index() {
+  __shared__ int index;
+  return index;
+}
+
+// Thread 0 of block b, with a trace: row 1 holds the block's start; rows
+// 5i + 2 .. 5i + 6 the end of the phase's input, the moment its first weight
+// stage was in shared memory and the end of its last stage's dot products
+// before that slot's refill (GEMV phases; 0 elsewhere), the arrival at grid
+// barrier i and the departure from it; row 5n + 2 after n barriers the
+// block's end (qtts_trace_end).
+static __device__ __forceinline__ void qtts_trace_at(const QttsPlan& p, int row) {
+  if (row < p.trace_rows) p.trace[(size_t)row * p.grid + blockIdx.x] = qtts_globaltimer();
+}
+
+static __device__ __forceinline__ void qtts_trace_mark(const QttsPlan& p, int offset) {
+  if (p.trace != nullptr && threadIdx.x == 0) {
+    qtts_trace_at(p, 5 * qtts_barrier_index() + 2 + offset);
+  }
+}
+
+// The grid barrier between two phases (cooperative groups' grid sync; an
+// arrive/spin barrier on a generation counter measured twice as slow, and
+// the same one-atomic barrier written out with the phase's last ring refill
+// issued between arrival and wait gained nothing).
+static __device__ __forceinline__ void qtts_phase_barrier(const QttsPlan& p) {
+  const bool traced = p.trace != nullptr && threadIdx.x == 0;
+  if (traced) qtts_trace_at(p, 5 * qtts_barrier_index() + 5);
+  qtts_grid_sync();
+  if (traced) qtts_trace_at(p, 5 * qtts_barrier_index()++ + 6);
+}
+
+static __device__ __forceinline__ void qtts_trace_end(const QttsPlan& p) {
+  if (p.trace != nullptr && threadIdx.x == 0) qtts_trace_at(p, 5 * qtts_barrier_index() + 2);
+}
+
+// ---------------------------------------------------------------------------
+// The stage sequence and the ring
+// ---------------------------------------------------------------------------
+
+// One block's rows of one kind and where its matrices live.
+struct QttsKindRows {
+  const int8_t* W;    // unit 0's [N, K] rows
+  const float* S;     // unit 0's [N] scales
+  size_t w_unit;      // elements between units (layers or heads)
+  size_t s_unit;
+  int r0, rows, stage_rows, chunks, K;
+};
+
+// The block's stage sequence: `passes` trunk passes of L layers and `heads`
+// head products, in chain order (pass 0, pass 1, then head j and pass j + 2
+// for j < heads - 1, then the last head), or one pass when heads == 0.
+struct QttsSeq {
+  QttsKindRows kind[QTTS_KINDS];
+  int L, per_layer, per_pass, head_chunks, heads, total;
+  // thread 0's cursor: the next stage to issue, as (segment, layer or head,
+  // kind, chunk); segments: one pass without heads, else pass, pass, then
+  // head j and (j < heads - 1) a pass
+  int next, seg, unit, cur_kind, chunk;
+};
+
+struct QttsRing {
+  unsigned char* slots;
+  float* scales;
+  uint64_t* full;
+  int n_slots, slot_bytes, slot_rows;
+};
+
+// Thread 0 of every block, once: the block's rows of each kind from the
+// plan, and the stage count.
+static __device__ void qtts_seq_build(QttsSeq& q, const QttsPlan& p, const QttsStepWeights& w,
+                                      const int8_t* heads, const float* head_scales, int n_heads,
+                                      int V) {
+  const int H = w.H, qd = w.nq * w.D, A = qd + 2 * w.nk * w.D, I = w.I;
+  const int N[QTTS_KINDS] = {A, H, 2 * I, H, V};
+  const int K[QTTS_KINDS] = {H, qd, H, I, H};
+  const int8_t* W[QTTS_KINDS] = {w.wqkv, w.wo, w.wgu, w.wd, heads};
+  const float* S[QTTS_KINDS] = {w.sqkv, w.so, w.sgu, w.sd, head_scales};
+  for (int k = 0; k < QTTS_KINDS; ++k) {
+    QttsKindRows& r = q.kind[k];
+    const bool used = k != QTTS_KIND_HEAD || n_heads > 0;
+    r.W = W[k];
+    r.S = S[k];
+    r.w_unit = (size_t)N[k] * K[k];
+    r.s_unit = (size_t)N[k];
+    r.K = K[k];
+    r.stage_rows = p.stage_rows[k];
+    r.r0 = used ? p.bounds[k * (p.grid + 1) + blockIdx.x] : 0;
+    r.rows = used ? p.bounds[k * (p.grid + 1) + blockIdx.x + 1] - r.r0 : 0;
+    r.chunks = r.rows > 0 ? (r.rows + r.stage_rows - 1) / r.stage_rows : 0;
+  }
+  q.L = w.L;
+  q.per_layer = q.kind[0].chunks + q.kind[1].chunks + q.kind[2].chunks + q.kind[3].chunks;
+  q.per_pass = q.L * q.per_layer;
+  q.head_chunks = q.kind[QTTS_KIND_HEAD].chunks;
+  q.heads = n_heads;
+  q.total = n_heads > 0 ? (n_heads + 1) * q.per_pass + n_heads * q.head_chunks : q.per_pass;
+  q.next = q.seg = q.unit = q.cur_kind = q.chunk = 0;
+}
+
+// Thread 0: the copies of the cursor's stage into slot next % n_slots
+// (nothing past the end), then the cursor one stage on.
+static __device__ void qtts_ring_issue(const QttsRing& ring, QttsSeq& q) {
+  if (q.next >= q.total) return;
+  const QttsKindRows& r = q.kind[q.cur_kind];
+  const int n0 = r.r0 + q.chunk * r.stage_rows;
+  const int rows = min(r.stage_rows, r.rows - q.chunk * r.stage_rows);
+  const int slot = q.next % ring.n_slots;
+  uint64_t* bar = ring.full + slot;
+  const uint32_t wbytes = (uint32_t)rows * r.K;
+  qtts_mbar_expect_tx(bar, wbytes + 4u * rows);
+  qtts_bulk_load(ring.slots + (size_t)slot * ring.slot_bytes,
+                 r.W + (size_t)q.unit * r.w_unit + (size_t)n0 * r.K, wbytes, bar);
+  qtts_bulk_load(ring.scales + (size_t)slot * ring.slot_rows,
+                 r.S + (size_t)q.unit * r.s_unit + n0, 4u * rows, bar);
+  // advance: chunks of a kind, kinds of a layer, layers of a pass; the
+  // chunks of a head; then the next segment
+  ++q.next;
+  bool seg_done = false;
+  if (q.cur_kind == QTTS_KIND_HEAD) {
+    seg_done = ++q.chunk == r.chunks;
+  } else if (++q.chunk == r.chunks) {
+    q.chunk = 0;
+    if (++q.cur_kind == QTTS_KIND_HEAD) {
+      q.cur_kind = 0;
+      seg_done = ++q.unit == q.L;
+    }
+  }
+  if (seg_done) {
+    ++q.seg;
+    q.chunk = 0;
+    const bool head = q.heads > 0 && q.seg >= 2 && (q.seg - 2) % 2 == 0;
+    q.cur_kind = head ? QTTS_KIND_HEAD : 0;
+    q.unit = head ? (q.seg - 2) / 2 : 0;
+  }
+}
+
+// Every thread: the ring's areas in dynamic shared memory; thread 0 builds
+// the sequence, initialises the slots' barriers and issues the first
+// n_slots stages.  Ends with a block barrier.
+static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char* smem,
+                                       const QttsPlan& p, const QttsStepWeights& w,
+                                       const int8_t* heads, const float* head_scales, int n_heads,
+                                       int V) {
+  const QttsSmemLayout lay = qtts_plan_layout(p);
+  ring.full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  ring.scales = reinterpret_cast<float*>(smem + lay.scales);
+  ring.slots = smem + lay.slots;
+  ring.n_slots = p.n_slots;
+  ring.slot_bytes = p.slot_bytes;
+  ring.slot_rows = p.slot_rows;
+  if (threadIdx.x == 0) {
+    qtts_barrier_index() = 0;
+    if (p.trace != nullptr) qtts_trace_at(p, 1);
+    qtts_seq_build(q, p, w, heads, head_scales, n_heads, V);
+    for (int s = 0; s < ring.n_slots; ++s) qtts_mbar_init(ring.full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < ring.n_slots; ++s) qtts_ring_issue(ring, q);
+  }
+  __syncthreads();
+}
+
+// Byte b of `word` as a signed int8, as float: the byte biased by 128 forms
+// the low mantissa byte of 2^23 (the float 8388608 + u, exact), minus
+// 8388736 -- exactly (float)(int8_t)byte, in a byte permute and a float add
+// instead of a quarter-rate integer-to-float conversion.
+static __device__ __forceinline__ float qtts_i8_to_float(uint32_t word, int b) {
+  const uint32_t biased = word ^ 0x80808080u;
+  const uint32_t bits = __byte_perm(biased, 0x4B000000u, (uint32_t)b | 0x7650u);
+  return __fadd_rn(__uint_as_float(bits), -8388736.f);
+}
+
+// A warp's M rows (warp, warp + 8, ...) of one stage: each a dot product in
+// K1's lane order, then the xor butterfly and qtts_gemv_store's epilogue
+// (the residual, with ACCUM, loaded before the dot products).  M is a
+// template argument so that the rows' FFMA chains interleave.
+template <bool ACCUM, int M>
+static __device__ __forceinline__ void qtts_stage_rows(const int8_t* ws, const float* ss,
+                                                       const float* sh, float* out, int n0, int K,
+                                                       int warp, int lane) {
+  float res[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    res[j] = 0.f;
+    if (ACCUM && lane == 0) res[j] = out[n0 + warp + j * QTTS_P_WARPS];
+  }
+  float acc[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) acc[j] = 0.f;
+  for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
+    float hv[16];
+#pragma unroll
+    for (int i = 0; i < 16; i += 4) {
+      const float4 t4 = *reinterpret_cast<const float4*>(sh + k0 + i);
+      hv[i] = t4.x;
+      hv[i + 1] = t4.y;
+      hv[i + 2] = t4.z;
+      hv[i + 3] = t4.w;
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const int4 wv =
+          *reinterpret_cast<const int4*>(ws + (size_t)(warp + j * QTTS_P_WARPS) * K + k0);
+      const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          acc[j] = fmaf(hv[qq * 4 + b], qtts_i8_to_float(words[qq], b), acc[j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j) acc[j] = qtts_warp_reduce(acc[j], QttsSumF());
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const int row = warp + j * QTTS_P_WARPS;
+      const float v = __fmul_rn(acc[j], ss[row]);
+      out[n0 + row] = ACCUM ? __fadd_rn(res[j], v) : v;
+    }
+  }
+}
+
+// Consumes the block's stages of one GEMV kind in order (`stage` counts the
+// launch's stages): out[n] (+)= scale[n] * sum_k sh[k] * W[n, k] for the
+// block's rows n, sh the bf16-rounded input (K floats, from
+// qtts_prologue).  Warp w takes the stage's rows w, w + 8, ...; after a
+// stage thread 0 refills its slot with the stage n_slots ahead.
+template <bool ACCUM>
+static __device__ __forceinline__ void qtts_ring_gemv(const QttsPlan& p, const QttsRing& ring,
+                                                      QttsSeq& q, int kind, int& stage,
+                                                      const float* sh, float* out) {
+  qtts_trace_mark(p, 0);
+  const QttsKindRows& r = q.kind[kind];
+  const int K = r.K, chunks = r.chunks, stage_rows = r.stage_rows, r0 = r.r0, nrows = r.rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = 0; c < chunks; ++c) {
+    const int slot = stage % ring.n_slots;
+    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);
+    if (c == 0) qtts_trace_mark(p, 1);
+    const int rows = min(stage_rows, nrows - c * stage_rows);
+    const int n0 = r0 + c * stage_rows;
+    const int8_t* ws = reinterpret_cast<const int8_t*>(ring.slots + (size_t)slot * ring.slot_bytes);
+    const float* ss = ring.scales + (size_t)slot * ring.slot_rows;
+    const int mine = rows > warp ? (rows - warp + QTTS_P_WARPS - 1) / QTTS_P_WARPS : 0;
+    switch (mine) {
+      case 1: qtts_stage_rows<ACCUM, 1>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 2: qtts_stage_rows<ACCUM, 2>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 3: qtts_stage_rows<ACCUM, 3>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 4: qtts_stage_rows<ACCUM, 4>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 5: qtts_stage_rows<ACCUM, 5>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 6: qtts_stage_rows<ACCUM, 6>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 7: qtts_stage_rows<ACCUM, 7>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 8: qtts_stage_rows<ACCUM, 8>(ws, ss, sh, out, n0, K, warp, lane); break;
+      default: break;
+    }
+    __syncthreads();  // every warp is done with the slot
+    if (c + 1 == chunks) qtts_trace_mark(p, 2);
+    if (threadIdx.x == 0) qtts_ring_issue(ring, q);
+    ++stage;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Phase inputs with every load issued before its arithmetic
+// ---------------------------------------------------------------------------
+
+// qtts_gemv_prologue's values for K <= VPT * 256 (the same expressions in
+// the same order), with the thread's inputs loaded into registers first.
+template <int IN_MODE, int VPT>
+static __device__ __forceinline__ void qtts_prologue_vpt(const float* in,
+                                                         const float* __restrict__ norm_w,
+                                                         float eps, int K, float* sh) {
+  const int tid = threadIdx.x;
+  float a[VPT], b[VPT];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int k = tid + i * QTTS_P_THREADS;
+    a[i] = 0.f;
+    b[i] = 0.f;
+    if (k < K) {
+      a[i] = in[k];
+      if (IN_MODE == QTTS_IN_NORM) b[i] = norm_w[k];
+      if (IN_MODE == QTTS_IN_SILU) b[i] = in[K + k];
+    }
+  }
+  float r = 0.f;
+  if (IN_MODE == QTTS_IN_NORM) {
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      if (tid + i * QTTS_P_THREADS < K) {
+        const float v = a[i];
+        ss += v * v;
+      }
+    }
+    ss = qtts_block_reduce(ss, QttsSumF());
+    r = rsqrtf(ss / (float)K + eps);
+  }
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int k = tid + i * QTTS_P_THREADS;
+    if (k < K) {
+      float v;
+      if (IN_MODE == QTTS_IN_NORM) {
+        v = (a[i] * r) * b[i];
+      } else if (IN_MODE == QTTS_IN_PLAIN) {
+        v = a[i];
+      } else {
+        const float g = a[i];
+        const float u = b[i];
+        v = g * (1.f / (1.f + expf(-g))) * u;
+      }
+      sh[k] = qtts_bf16_round(v);
+    }
+  }
+  __syncthreads();
+}
+
+// The GEMV input (IN_MODE as in qtts_gemv_prologue) of K <= QTTS_P_MAX_K.
+template <int IN_MODE>
+static __device__ __forceinline__ void qtts_prologue(const float* in,
+                                                     const float* __restrict__ norm_w, float eps,
+                                                     int K, float* sh) {
+  if (K <= 4 * QTTS_P_THREADS) {
+    qtts_prologue_vpt<IN_MODE, 4>(in, norm_w, eps, K, sh);
+  } else if (K <= 8 * QTTS_P_THREADS) {
+    qtts_prologue_vpt<IN_MODE, 8>(in, norm_w, eps, K, sh);
+  } else if (K <= 12 * QTTS_P_THREADS) {
+    qtts_prologue_vpt<IN_MODE, 12>(in, norm_w, eps, K, sh);
+  } else {
+    qtts_prologue_vpt<IN_MODE, 24>(in, norm_w, eps, K, sh);
+  }
+}
+
+// Run by the attention item that finishes a kv head's splits last (an
+// atomic ticket per head): qtts_attn_combine_body's merge, op for op, of the
+// head's q heads into attn, with the partials read past L1 (other blocks
+// wrote them in this launch).  Thread t of the item's QTTS_ATTN_D threads.
+static __device__ __forceinline__ void qtts_attn_combine_l2(int t, int hq, const float* part,
+                                                            float* attn, int max_splits,
+                                                            int pos) {
+  constexpr int D = QTTS_ATTN_D;
+  const int n_splits = pos / QTTS_ATTN_CHUNK + 1;
+  constexpr int U = 8;  // splits loaded at once
+  const float* base = part + (size_t)hq * max_splits * (D + 2);
+  float M = QTTS_NEG_INF;
+  for (int s0 = 0; s0 < n_splits; s0 += U) {
+    float mv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) mv[u] = s0 + u < n_splits ? __ldcg(base + (s0 + u) * (D + 2)) : 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s0 + u < n_splits) M = fmaxf(M, mv[u]);
+    }
+  }
+  float L = 0.f, o = 0.f;
+  for (int s0 = 0; s0 < n_splits; s0 += U) {
+    float mv[U], lv[U], av[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float* b = base + (s0 + u) * (D + 2);
+      const bool in = s0 + u < n_splits;
+      mv[u] = in ? __ldcg(b) : 0.f;
+      lv[u] = in ? __ldcg(b + 1) : 0.f;
+      av[u] = in ? __ldcg(b + 2 + t) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s0 + u < n_splits) {
+        const float f = expf(mv[u] - M);
+        L += lv[u] * f;
+        o += av[u] * f;
+      }
+    }
+  }
+  attn[(size_t)hq * D + t] = o / L;
+}
+
+// Prefetches into L2 the cached k and v rows item (h, split) will read
+// (slots [split * CHUNK, min((split + 1) * CHUNK, pos)), the new slot pos
+// excluded), one 128-byte line per thread and step, t: the thread's index
+// among the item's QTTS_ATTN_D threads.
+template <typename CT>
+static __device__ __forceinline__ void qtts_attn_prefetch(const CT* kc, const CT* vc, int h,
+                                                          int split, int T, int pos, int t) {
+  constexpr int D = QTTS_ATTN_D;
+  constexpr int LINES = D * (int)sizeof(CT) / 128;  // lines per cache row
+  const int start = split * QTTS_ATTN_CHUNK;
+  const int end = min(start + QTTS_ATTN_CHUNK, pos);
+  for (int i = t; i < (end - start) * LINES * 2; i += D) {
+    const int j = start + (i >> 1) / LINES, line = (i >> 1) % LINES;
+    const CT* base = (i & 1) ? vc : kc;
+    const void* ptr = base + ((size_t)h * T + j) * D + line * (128 / (int)sizeof(CT));
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(ptr));
+  }
+}
+
+// RMSNorm of N head vectors at once, element t of the item's D threads:
+// qtts_head_norm's value for each, with qtts_group_sum's reduction tree (the
+// warp butterfly, then warp 0's butterfly over the four warp partials), the
+// N trees run side by side on one set of barriers.  scratch: 5 * N floats.
+template <int N>
+static __device__ __forceinline__ void qtts_head_norms(float (&v)[N], const float (&w)[N],
+                                                       float eps, float* scratch,
+                                                       QttsNamedSync sync, int t) {
+  constexpr int D = QTTS_ATTN_D;
+  constexpr int nw = D / 32;
+  const int lane = t & 31, warp = t >> 5;
+  float ss[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) ss[i] = qtts_warp_reduce(v[i] * v[i], QttsSumF());
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) scratch[i * nw + warp] = ss[i];
+  }
+  sync();
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float r = lane < nw ? scratch[i * nw + lane] : QttsSumF::identity();
+      r = qtts_warp_reduce(r, QttsSumF());
+      if (lane == 0) scratch[N * nw + i] = r;
+    }
+  }
+  sync();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float r = rsqrtf(scratch[N * nw + i] / (float)D + eps);
+    v[i] = (v[i] * r) * w[i];
+  }
+  sync();
+}
+
+// Work item (h, split) of the B=1 split attention on one 128-thread half,
+// GG = nq / nk q heads per kv head: qtts_attn_split_body<CT, false> with
+// S = 1 and row 0, op for op.  Reordered where no value depends on it: the
+// item's qkv, norm and angle operands load at once, its GG + 1 head norms
+// share their barriers, each warp keeps four cache slots in flight, and
+// the dot products of a block of four slots run before that block's
+// (serial) online-softmax updates.  With attn given (the position's only
+// split), the item also merges its heads into attn itself, as the combine
+// would.
+template <typename CT, int GG>
+static __device__ __forceinline__ void qtts_attn_item(
+    QttsAttnSmem& sm, QttsNamedSync sync, int t, int h, int split, const float* qkv,
+    const float* __restrict__ q_norm, const float* __restrict__ k_norm,
+    const float* __restrict__ inv_freq, CT* __restrict__ kc, CT* __restrict__ vc,
+    float* __restrict__ part, float* attn, int nq, int nk, int T, int pos, int max_splits,
+    float eps, float scale) {
+  constexpr int D = QTTS_ATTN_D;
+  if (split * QTTS_ATTN_CHUNK > pos) return;
+  auto& q_s = sm.q_s;
+  auto& k_s = sm.k_s;
+  auto& v_s = sm.v_s;
+  const int qd = nq * D, kvd = nk * D;
+  // q heads 0..GG-1, then k
+  float hv[GG + 1], hw[GG + 1];
+#pragma unroll
+  for (int gi = 0; gi < GG; ++gi) {
+    hv[gi] = qkv[(h * GG + gi) * D + t];
+    hw[gi] = q_norm[t];
+  }
+  hv[GG] = qkv[qd + h * D + t];
+  hw[GG] = k_norm[t];
+  const float vin = qkv[qd + kvd + h * D + t];
+  float c = 0.f, s = 0.f;
+  if (t < D / 2) {
+    const float ang = (float)pos * inv_freq[t];
+    c = cosf(ang);
+    s = sinf(ang);
+  }
+  qtts_head_norms<GG + 1>(hv, hw, eps, &sm.wacc[0][0][0], sync, t);
+#pragma unroll
+  for (int gi = 0; gi < GG; ++gi) q_s[gi][t] = hv[gi];
+  k_s[t] = hv[GG];
+  v_s[t] = vin;
+  sync();
+  if (t < D / 2) {
+#pragma unroll
+    for (int gi = 0; gi < GG; ++gi) qtts_rope_pair(q_s[gi][t], q_s[gi][t + D / 2], c, s);
+    qtts_rope_pair(k_s[t], k_s[t + D / 2], c, s);
+  }
+  sync();
+  {
+    const CT kq = qtts_to_cache<CT>(k_s[t]);
+    const CT vq = qtts_to_cache<CT>(v_s[t]);
+    k_s[t] = qtts_from_cache(kq);
+    v_s[t] = qtts_from_cache(vq);
+    if (split == 0) {
+      kc[((size_t)h * T + pos) * D + t] = kq;
+      vc[((size_t)h * T + pos) * D + t] = vq;
+    }
+  }
+  sync();
+
+  const int warp = t >> 5, lane = t & 31;
+  float qr[GG][4];
+  float m[GG], l[GG], acc[GG][4];
+#pragma unroll
+  for (int gi = 0; gi < GG; ++gi) {
+    m[gi] = QTTS_NEG_INF;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[gi][e] = 0.f;
+      qr[gi][e] = q_s[gi][lane * 4 + e];
+    }
+  }
+  const int start = split * QTTS_ATTN_CHUNK;
+  const int end = min(start + QTTS_ATTN_CHUNK, pos + 1);
+  auto fetch = [&](int j, float (&kf)[4], float (&vf)[4]) {
+    if (j == pos) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        kf[e] = k_s[lane * 4 + e];
+        vf[e] = v_s[lane * 4 + e];
+      }
+    } else {
+      qtts_load4(kc + ((size_t)h * T + j) * D + lane * 4, kf);
+      qtts_load4(vc + ((size_t)h * T + j) * D + lane * 4, vf);
+    }
+  };
+  // the warp's slots j0, j0 + 4, ... in order, DEPTH in flight
+  constexpr int DEPTH = 4;
+  const int j0 = start + warp;
+  float kb[DEPTH][4], vb[DEPTH][4];
+#pragma unroll
+  for (int u = 0; u < DEPTH; ++u) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) kb[u][e] = vb[u][e] = 0.f;
+    if (j0 + 4 * u < end) fetch(j0 + 4 * u, kb[u], vb[u]);
+  }
+  for (int jb = j0; jb < end; jb += 4 * DEPTH) {
+    float dots[DEPTH][GG];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+#pragma unroll
+      for (int gi = 0; gi < GG; ++gi) {
+        const float (&kf)[4] = kb[u];
+        float d = qr[gi][0] * kf[0] + qr[gi][1] * kf[1] + qr[gi][2] * kf[2] + qr[gi][3] * kf[3];
+        dots[u][gi] = qtts_warp_reduce(d, QttsSumF());
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      const int j = jb + 4 * u;
+      if (j < end) {
+#pragma unroll
+        for (int gi = 0; gi < GG; ++gi) {
+          const float sc = dots[u][gi] * scale;
+          const float mn = fmaxf(m[gi], sc);
+          const float alpha = expf(m[gi] - mn);
+          const float p = expf(sc - mn);
+          l[gi] = l[gi] * alpha + p;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[gi][e] = acc[gi][e] * alpha + p * vb[u][e];
+          m[gi] = mn;
+        }
+        if (j + 4 * DEPTH < end) fetch(j + 4 * DEPTH, kb[u], vb[u]);
+      }
+    }
+  }
+  auto& wm = sm.wm;
+  auto& wl = sm.wl;
+  auto& wacc = sm.wacc;
+#pragma unroll
+  for (int gi = 0; gi < GG; ++gi) {
+    if (lane == 0) {
+      wm[warp][gi] = m[gi];
+      wl[warp][gi] = l[gi];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) wacc[warp][gi][lane * 4 + e] = acc[gi][e];
+  }
+  sync();
+  for (int gi = 0; gi < GG; ++gi) {
+    float M = wm[0][gi];
+    for (int w = 1; w < 4; ++w) M = fmaxf(M, wm[w][gi]);
+    float L = 0.f, o = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      const float f = expf(wm[w][gi] - M);
+      L += wl[w][gi] * f;
+      o += wacc[w][gi][t] * f;
+    }
+    if (attn != nullptr) {
+      // the only split: qtts_attn_combine_body's merge of one partial, op
+      // for op, without the round trip through part
+      const float Mc = fmaxf(QTTS_NEG_INF, M);
+      const float f = expf(M - Mc);
+      float Lc = 0.f, oc = 0.f;
+      Lc += L * f;
+      oc += o * f;
+      attn[(size_t)(h * GG + gi) * D + t] = oc / Lc;
+      continue;
+    }
+    float* dst = part + ((size_t)(h * GG + gi) * max_splits + split) * (D + 2);
+    if (t == 0) {
+      dst[0] = M;
+      dst[1] = L;
+    }
+    dst[2 + t] = o;
+  }
+}
+
+// The item dispatched on the group size nq / nk (1, 2, 4 or 8).
+template <typename CT>
+static __device__ __forceinline__ void qtts_attn_item_any(
+    QttsAttnSmem& sm, QttsNamedSync sync, int t, int h, int split, const float* qkv,
+    const float* __restrict__ q_norm, const float* __restrict__ k_norm,
+    const float* __restrict__ inv_freq, CT* __restrict__ kc, CT* __restrict__ vc,
+    float* __restrict__ part, float* attn, int nq, int nk, int T, int pos, int max_splits,
+    float eps, float scale) {
+#define QTTS_ITEM(GG)                                                                         \
+  qtts_attn_item<CT, GG>(sm, sync, t, h, split, qkv, q_norm, k_norm, inv_freq, kc, vc, part, \
+                         attn, nq, nk, T, pos, max_splits, eps, scale)
+  switch (nq / nk) {
+    case 1: QTTS_ITEM(1); break;
+    case 2: QTTS_ITEM(2); break;
+    case 4: QTTS_ITEM(4); break;
+    default: QTTS_ITEM(8); break;
+  }
+#undef QTTS_ITEM
+}
+
+// ---------------------------------------------------------------------------
+// One decode step through every layer, as grid phases
+// ---------------------------------------------------------------------------
+
+// x_in is read by layer 0's qkv prologue and copied to x there.  `un`: the
+// union region.  last_barrier: end with a grid barrier (a phase follows).
+template <typename CT>
+static __device__ void qtts_step_phases(const QttsStepWeights& w, const QttsStepScratch& s,
+                                        const QttsPlan& p, const QttsRing& ring,
+                                        QttsSeq& q, int& stage, const float* x_in, float* x,
+                                        CT* kc, CT* vc, int T, int pos, unsigned char* un,
+                                        bool last_barrier) {
+  const int H = w.H, I = w.I, D = w.D;
+  const int n_splits = pos / QTTS_ATTN_CHUNK + 1;
+  const int tid = threadIdx.x;
+  const int half = tid / QTTS_ATTN_D, t = tid % QTTS_ATTN_D;
+  const QttsNamedSync hsync{1 + half};
+  const int lane0 = 2 * blockIdx.x + half, lanes = 2 * gridDim.x;  // attention item dealing
+  const size_t row = (size_t)w.nk * T * D;
+  float* sh = reinterpret_cast<float*>(un);
+  QttsAttnSmem* am = reinterpret_cast<QttsAttnSmem*>(un);
+  for (int l = 0; l < w.L; ++l) {
+    // this layer's cached k / v rows of the half's attention items, into L2
+    // now: the item loop would otherwise wait on device memory slot by slot
+    for (int it = lane0; it < w.nk * n_splits; it += lanes) {
+      qtts_attn_prefetch(kc + l * row, vc + l * row, it % w.nk, it / w.nk, T, pos, t);
+    }
+    // qkv = bf16(RMSNorm(x) * attn_norm) @ Wqkv * scale
+    qtts_prologue<QTTS_IN_NORM>(l == 0 ? x_in : x, w.attn_norm + (size_t)l * H, w.eps, H, sh);
+    if (l == 0 && x_in != x) {
+      for (int k = blockIdx.x * blockDim.x + tid; k < H; k += gridDim.x * blockDim.x) {
+        x[k] = x_in[k];
+      }
+    }
+    qtts_ring_gemv<false>(p, ring, q, QTTS_KIND_QKV, stage, sh, s.qkv);
+    qtts_phase_barrier(p);
+    // the split attention: K1's items, two per block at once; the last item
+    // of each kv head to finish merges the head's splits into s.attn
+    for (int it = lane0; it < w.nk * n_splits; it += lanes) {
+      const int h = it % w.nk;
+      hsync();  // the half's previous item is done with its shared memory
+      qtts_attn_item_any<CT>(am[half], hsync, t, h, it / w.nk, s.qkv, w.q_norm + (size_t)l * D,
+                         w.k_norm + (size_t)l * D, w.inv_freq, kc + l * row, vc + l * row,
+                         s.part, n_splits == 1 ? s.attn : nullptr, w.nq, w.nk, T, pos,
+                         s.max_splits, w.eps, w.attn_scale);
+      if (n_splits == 1) continue;
+      __threadfence();  // the item's partials, before its ticket
+      hsync();
+      int* ticket = reinterpret_cast<int*>(am[half].red);  // free once the item is done
+      if (t == 0) *ticket = (int)atomicAdd(p.tickets + h, 1u);
+      hsync();
+      if (*ticket == n_splits - 1) {
+        __threadfence();
+        const int g = w.nq / w.nk;
+        for (int gi = 0; gi < g; ++gi) {
+          qtts_attn_combine_l2(t, h * g + gi, s.part, s.attn, s.max_splits, pos);
+        }
+        if (t == 0) p.tickets[h] = 0u;  // every split has taken its ticket
+      }
+    }
+    qtts_phase_barrier(p);
+    // x += bf16(attn) @ Wo * scale
+    qtts_prologue<QTTS_IN_PLAIN>(s.attn, nullptr, 0.f, w.nq * D, sh);
+    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_O, stage, sh, x);
+    qtts_phase_barrier(p);
+    // gu = bf16(RMSNorm(x) * mlp_norm) @ Wgu * scale
+    qtts_prologue<QTTS_IN_NORM>(x, w.mlp_norm + (size_t)l * H, w.eps, H, sh);
+    qtts_ring_gemv<false>(p, ring, q, QTTS_KIND_GU, stage, sh, s.gu);
+    qtts_phase_barrier(p);
+    // x += bf16(silu(gate) * up) @ Wd * scale
+    qtts_prologue<QTTS_IN_SILU>(s.gu, nullptr, 0.f, I, sh);
+    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_DOWN, stage, sh, x);
+    if (l + 1 < w.L || last_barrier) qtts_phase_barrier(p);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The sampler on registers (K2)
+// ---------------------------------------------------------------------------
+
+// First index of the maximum of the block's values (thread tid holds index
+// tid + i * blockDim.x in val[i]); qtts_block_argmax_first's comparisons.
+static __device__ __forceinline__ int qtts_argmax_regs(const float (&val)[QTTS_SAMPLE_VPT], int n) {
+  __shared__ float rv[32];
+  __shared__ int ri[32];
+  __shared__ int result;
+  float bv = -CUDART_INF_F;
+  int bi = n;
+#pragma unroll
+  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+    const int v = threadIdx.x + i * blockDim.x;
+    if (v < n && val[i] > bv) {
+      bv = val[i];
+      bi = v;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (ov > bv || (ov == bv && oi < bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  if (lane == 0) {
+    rv[warp] = bv;
+    ri[warp] = bi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    bv = lane < nw ? rv[lane] : -CUDART_INF_F;
+    bi = lane < nw ? ri[lane] : n;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (ov > bv || (ov == bv && oi < bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) result = bi;
+  }
+  __syncthreads();
+  const int out = result;
+  __syncthreads();
+  return out;
+}
+
+// The midpoints of the round tree below (lo, hi): node c's interval is the
+// (lo, hi) the sequential bisection holds when its path leads there; the
+// left child (2c + 1) takes hi = mid, the right child (2c + 2) lo = mid.
+template <int N>
+static __device__ __forceinline__ void qtts_round_tree(float lo, float hi, float (&mid)[N]) {
+  float nlo[N], nhi[N];
+  nlo[0] = lo;
+  nhi[0] = hi;
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    mid[c] = 0.5f * (nlo[c] + nhi[c]);
+    if (2 * c + 2 < N) {
+      nlo[2 * c + 1] = nlo[c];
+      nhi[2 * c + 1] = mid[c];
+      nlo[2 * c + 2] = mid[c];
+      nhi[2 * c + 2] = nhi[c];
+    }
+  }
+}
+
+// Follows the round tree from the root for `rounds` (<= depth) rounds: at
+// node c `right[c]` sends the search right (lo = mid[c]), else left
+// (hi = mid[c]).
+template <int N>
+static __device__ __forceinline__ void qtts_round_walk(const float (&mid)[N],
+                                                       const bool (&right)[N], int rounds,
+                                                       float& lo, float& hi) {
+  int node = 0;
+#pragma unroll
+  for (int d = 0; (1 << d) - 1 < N; ++d) {
+    if (d < rounds) {
+      float m = 0.f;
+      bool r = false;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        if (c == node) {
+          m = mid[c];
+          r = right[c];
+        }
+      }
+      if (r) {
+        lo = m;
+        node = 2 * node + 2;
+      } else {
+        hi = m;
+        node = 2 * node + 1;
+      }
+    }
+  }
+}
+
+// qtts_sample_index's function on logits [V] in device memory (V <= 256 *
+// QTTS_SAMPLE_VPT), every value in registers at v = tid + i * 256.  Same op
+// sequence: temperature, the top-k threshold by 40 rounds of bisection on
+// integer counts, the masked softmax with qtts_block_reduce's trees, the
+// top-p threshold by 40 rounds on float sums in each thread's order and the
+// same block tree (every warp runs the second level itself), the
+// first-index argmax of masked + noise.  The min and max of the scaled row
+// share one reduction (both are exact in any order), the rounds run
+// QTTS_SPEC_DEPTH at a time, and a bisection whose mask is off (top-k
+// outside (0, V), top-p >= 1) is skipped, since its threshold is then unread.
+static __device__ int qtts_sample_fast(const float* logits, int V, const float* gumbel,
+                                       float temperature, int top_k, float top_p, int greedy,
+                                       QttsSampleSmem& sm) {
+  constexpr int N = (1 << QTTS_SPEC_DEPTH) - 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float lg[QTTS_SAMPLE_VPT], gm[QTTS_SAMPLE_VPT];
+#pragma unroll
+  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+    const int v = tid + i * QTTS_P_THREADS;
+    lg[i] = v < V ? __ldcg(logits + v) : 0.f;
+    gm[i] = v < V && !greedy ? __ldcg(gumbel + v) : 0.f;
+  }
+  if (greedy) return qtts_argmax_regs(lg, V);
+  float lmin = QttsMinF::identity(), lmax = QttsMaxF::identity();
+#pragma unroll
+  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+    if (tid + i * QTTS_P_THREADS < V) {
+      lg[i] = lg[i] / temperature;
+      lmin = fminf(lmin, lg[i]);
+      lmax = fmaxf(lmax, lg[i]);
+    }
+  }
+  lmin = qtts_warp_reduce(lmin, QttsMinF());
+  lmax = qtts_warp_reduce(lmax, QttsMaxF());
+  if (lane == 0) {
+    sm.lim[0][warp] = lmin;
+    sm.lim[1][warp] = lmax;
+  }
+  __syncthreads();
+  float lo = QttsMinF::identity(), hi = QttsMaxF::identity();
+#pragma unroll
+  for (int w = 0; w < QTTS_P_WARPS; ++w) {
+    lo = fminf(lo, sm.lim[0][w]);
+    hi = fmaxf(hi, sm.lim[1][w]);
+  }
+  const bool k_active = top_k > 0 && top_k < V;
+  int buf = 0;
+  if (k_active) {
+    for (int done = 0; done < QTTS_BISECT_ROUNDS; done += QTTS_SPEC_DEPTH, buf ^= 1) {
+      float mid[N];
+      qtts_round_tree(lo, hi, mid);
+      int cnt[N];
+#pragma unroll
+      for (int c = 0; c < N; ++c) cnt[c] = 0;
+#pragma unroll
+      for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+        if (tid + i * QTTS_P_THREADS < V) {
+#pragma unroll
+          for (int c = 0; c < N; ++c) cnt[c] += lg[i] >= mid[c] ? 1 : 0;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const int wsum = __reduce_add_sync(0xffffffffu, cnt[c]);
+        if (lane == 0) sm.cnt[buf][warp][c] = wsum;
+      }
+      __syncthreads();
+      bool right[N];
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        int total = 0;  // integers: any order
+#pragma unroll
+        for (int w = 0; w < QTTS_P_WARPS; ++w) total += sm.cnt[buf][w][c];
+        right[c] = total >= top_k;
+      }
+      qtts_round_walk(mid, right, QTTS_BISECT_ROUNDS - done, lo, hi);
+    }
+  }
+  float mloc = QttsMaxF::identity();
+#pragma unroll
+  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+    if (tid + i * QTTS_P_THREADS < V) {
+      const float s = lg[i];
+      lg[i] = (s >= lo || !k_active) ? s : QTTS_NEG_INF;
+      mloc = fmaxf(mloc, lg[i]);
+    }
+  }
+  const float mm = qtts_block_reduce(mloc, QttsMaxF());
+  float pr[QTTS_SAMPLE_VPT];
+  float sloc = 0.f;
+#pragma unroll
+  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+    pr[i] = 0.f;
+    if (tid + i * QTTS_P_THREADS < V) {
+      const float e = expf(lg[i] - mm);
+      pr[i] = e;
+      sloc += e;
+    }
+  }
+  const float se = qtts_block_reduce(sloc, QttsSumF());
+#pragma unroll
+  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) pr[i] = pr[i] / se;
+  const bool p_off = top_p >= 1.f;
+  float plo = 0.f, phi = 1.f;
+  if (!p_off) {
+    for (int done = 0; done < QTTS_BISECT_ROUNDS; done += QTTS_SPEC_DEPTH, buf ^= 1) {
+      float mid[N];
+      qtts_round_tree(plo, phi, mid);
+      float s[N];
+#pragma unroll
+      for (int c = 0; c < N; ++c) s[c] = 0.f;
+#pragma unroll
+      for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+        if (tid + i * QTTS_P_THREADS < V) {
+#pragma unroll
+          for (int c = 0; c < N; ++c) s[c] += pr[i] > mid[c] ? pr[i] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const float wsum = qtts_warp_reduce(s[c], QttsSumF());
+        if (lane == 0) sm.part[buf][warp][c] = wsum;
+      }
+      __syncthreads();
+      bool right[N];
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        float r = lane < QTTS_P_WARPS ? sm.part[buf][lane][c] : QttsSumF::identity();
+        r = qtts_warp_reduce(r, QttsSumF());
+        right[c] = !(r < top_p);  // s < top_p keeps the lower half (phi = mid)
+      }
+      qtts_round_walk(mid, right, QTTS_BISECT_ROUNDS - done, plo, phi);
+    }
+  }
+  float val[QTTS_SAMPLE_VPT];
+#pragma unroll
+  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+    const float fin = (pr[i] > plo || p_off) ? lg[i] : QTTS_NEG_INF;
+    val[i] = fin + gm[i];
+  }
+  return qtts_argmax_regs(val, V);
+}
+
+// ---------------------------------------------------------------------------
+// The cooperative launch
+// ---------------------------------------------------------------------------
+
+// The plan's scalar constraints against the transformer it drives (V: the
+// head rows, 0 without heads).
+static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int V) {
+  const int qd = w.nq * w.D;
+  const int K[QTTS_KINDS] = {w.H, qd, w.H, w.I, w.H};
+  if (p.grid < 1 || p.n_slots < 1 || p.slot_bytes % 16 || p.slot_rows % 4 || p.union_bytes % 128) {
+    return false;
+  }
+  const int g = w.nq / w.nk;
+  if (g != 1 && g != 2 && g != 4 && g != 8) return false;
+  if (w.H > QTTS_P_MAX_K || w.I > QTTS_P_MAX_K || qd > QTTS_P_MAX_K ||
+      w.nk > QTTS_P_MAX_KV_HEADS || p.tickets == nullptr) {
+    return false;
+  }
+  for (int k = 0; k < QTTS_KINDS; ++k) {
+    if (k == QTTS_KIND_HEAD && V == 0) continue;
+    const int r = p.stage_rows[k];
+    if (K[k] % 16 || r < 4 || r % 4 || r > QTTS_P_MAX_STAGE_ROWS || r > p.slot_rows ||
+        (size_t)r * K[k] > (size_t)p.slot_bytes) {
+      return false;
+    }
+  }
+  // the union region: the GEMV input, two attention items, or the
+  // sampler's scratch
+  size_t need = 4 * (size_t)QTTS_P_MAX_K;
+  need = 2 * sizeof(QttsAttnSmem) > need ? 2 * sizeof(QttsAttnSmem) : need;
+  need = sizeof(QttsSampleSmem) > need ? sizeof(QttsSampleSmem) : need;
+  return (size_t)p.union_bytes >= need && qtts_plan_layout(p).total == (size_t)p.smem_bytes;
+}
+
+// Launches `kernel` on the plan's grid with one argument struct, after
+// checking once per (kernel, shared memory size) that the grid can be
+// co-resident: a grid that cannot fails with cudaErrorCooperativeLaunchTooLarge.
+// A kernel's dynamic shared-memory attribute is set again whenever a plan
+// asks for another size than the last (the 0.6B and 1.7B plans differ, and
+// a launch past the attribute fails); the lock is held through the launch,
+// so that no other thread's plan changes the attribute in between.
+template <typename Args>
+static int qtts_launch_persistent(void (*kernel)(Args), const Args& a, const QttsPlan& p,
+                                  cudaStream_t st) {
+  struct Seen {
+    const void* fn;
+    int smem, max_grid;
+  };
+  static std::mutex mu;
+  static Seen seen[16];
+  static int n_seen = 0;
+  static Seen allowed[8];  // the size each kernel's attribute allows now
+  static int n_allowed = 0;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  int at = 0;
+  while (at < n_allowed && allowed[at].fn != fn) ++at;
+  if (at == n_allowed || allowed[at].smem != p.smem_bytes) {
+    QTTS_TRY(cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes));
+    if (at < 8) {
+      allowed[at] = Seen{fn, p.smem_bytes, 0};
+      if (at == n_allowed) ++n_allowed;
+    }
+  }
+  int max_grid = 0;
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].fn == fn && seen[i].smem == p.smem_bytes) max_grid = seen[i].max_grid;
+  }
+  if (max_grid == 0) {
+    int dev = 0, coop = 0, sms = 0, per_sm = 0;
+    QTTS_TRY(cudaGetDevice(&dev));
+    QTTS_TRY(cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
+    if (!coop) return (int)cudaErrorNotSupported;
+    QTTS_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    QTTS_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, QTTS_P_THREADS,
+                                                           p.smem_bytes));
+    max_grid = sms * per_sm;
+    if (max_grid == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (n_seen < 16) seen[n_seen++] = Seen{fn, p.smem_bytes, max_grid};
+  }
+  if (p.grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {const_cast<Args*>(&a)};
+  QTTS_TRY(cudaLaunchCooperativeKernel(fn, dim3(p.grid), dim3(QTTS_P_THREADS), params,
+                                       (size_t)p.smem_bytes, st));
+  return (int)cudaGetLastError();
+}

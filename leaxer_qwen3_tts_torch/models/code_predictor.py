@@ -7,8 +7,9 @@ with the step-j table and appended for step j+1; the sum of all sub-embeddings
 feeds the next talker input.
 
 Paths: the cached path (plain layers, a ``sample_fn`` per step) and, with
-a packed ``fused_step`` and the resident chain on (``cfg.resident``, on
-unless set False), the whole chain as one kernel.  At B=1 the route is the
+a packed ``fused_step`` and the resident chain on (:func:`resident_enabled`:
+``cfg.resident``, else ``QTTS_MTP_RESIDENT`` as the JAX package reads it, else
+on), the whole chain as one kernel.  At B=1 the route is the
 JAX package's with its TPU defaults: kernel K2
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`) when the
 trunk passes the residency gate (the 0.6B trunk), else kernel K3
@@ -22,6 +23,7 @@ take raises; only the CPU runs the cached path.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -71,12 +73,23 @@ def prepare_fused_step(cfg: CodePredictorConfig, cp_params: dict, bits: int = 8)
     return out
 
 
+def resident_enabled(cfg: CodePredictorConfig) -> bool:
+    """The resident chain's switch, as the JAX package resolves it
+    (``models/code_predictor.py::_resident_enabled``): ``cfg.resident`` when
+    set, else ``QTTS_MTP_RESIDENT`` (on unless "0"), else on, the JAX
+    package's default on its accelerator."""
+    if cfg.resident is not None:
+        return bool(cfg.resident)
+    env = os.environ.get("QTTS_MTP_RESIDENT")
+    return True if env is None else env != "0"
+
+
 def chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int):
     """The wrapper of the kernel that runs a chain of ``rows`` rows (K2, K3
     or K5; on the CPU its plain version), or None for the cached plain path.
     At B=1: K2 when the trunk passes the residency gate, else K3 when it
     passes the stream gate."""
-    if not (cfg.impl == "fused" and cfg.resident is not False and "fused_step" in params
+    if not (cfg.impl == "fused" and resident_enabled(cfg) and "fused_step" in params
             and rows <= MAX_BATCH and cfg.head_mode == "per_step"):
         return None
     if rows > 1:

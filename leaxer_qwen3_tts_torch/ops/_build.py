@@ -27,7 +27,7 @@ SOURCES = (
     "fused_verify.cu", "fused_mtp_stream.cu", "flash_attention.cu", "fused_frame.cu",
     "unit_probe.cu",
 )
-HEADERS = ("qtts_kernels.cuh",)
+HEADERS = ("qtts_kernels.cuh", "qtts_stream.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -81,6 +81,19 @@ class ChainArgs(ctypes.Structure):
         ("Vt", ctypes.c_int32),
         ("temperature", ctypes.c_float), ("top_k", ctypes.c_int32),
         ("top_p", ctypes.c_float), ("greedy", ctypes.c_int32),
+    ]
+
+
+class Plan(ctypes.Structure):
+    """Mirror of ``QttsPlan`` (csrc/qtts_stream.cuh); built by ``ops/persistent.py``."""
+
+    _fields_ = [
+        ("bounds", ctypes.c_void_p),
+        ("grid", ctypes.c_int32), ("n_slots", ctypes.c_int32),
+        ("slot_bytes", ctypes.c_int32), ("slot_rows", ctypes.c_int32),
+        ("stage_rows", ctypes.c_int32 * 5), ("smem_bytes", ctypes.c_int32),
+        ("union_bytes", ctypes.c_int32), ("tickets", ctypes.c_void_p),
+        ("trace_rows", ctypes.c_int32), ("trace", ctypes.c_void_p),
     ]
 
 
@@ -198,16 +211,18 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_attn_chunk.argtypes = []
             lib.qtts_error_string.restype = ctypes.c_char_p
             lib.qtts_error_string.argtypes = [i32]
+            W, S, P = (ctypes.POINTER(t) for t in (StepWeights, StepScratch, Plan))
             lib.qtts_decode_step.restype = i32
-            lib.qtts_decode_step.argtypes = [
-                ctypes.POINTER(StepWeights), ctypes.POINTER(StepScratch), vp, vp, vp, vp,
-                i32, i32, i32, vp,
-            ]
+            lib.qtts_decode_step.argtypes = [W, S, P, vp, vp, vp, vp, i32, i32, i32, vp]
+            lib.qtts_decode_step_multi.restype = i32
+            lib.qtts_decode_step_multi.argtypes = [W, S, vp, vp, vp, vp, i32, i32, i32, vp]
             lib.qtts_mtp_chain.restype = i32
-            lib.qtts_mtp_chain.argtypes = [
-                ctypes.POINTER(StepWeights), ctypes.POINTER(StepScratch),
-                ctypes.POINTER(ChainArgs), vp,
-            ]
+            lib.qtts_mtp_chain.argtypes = [W, S, P, ctypes.POINTER(ChainArgs), vp]
+            lib.qtts_mtp_chain_multi.restype = i32
+            lib.qtts_mtp_chain_multi.argtypes = [W, S, ctypes.POINTER(ChainArgs), vp]
+            lib.qtts_persistent_sizes.restype = None
+            lib.qtts_persistent_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            _check_persistent_sizes(lib)
             lib.qtts_decode_step_batched.restype = i32
             lib.qtts_decode_step_batched.argtypes = [
                 ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch), vp, vp, vp, vp,
@@ -219,7 +234,7 @@ def load_kernels() -> ctypes.CDLL:
                 ctypes.POINTER(ChainBatchArgs), vp,
             ]
             lib.qtts_mtp_chain_streamed.restype = i32
-            lib.qtts_mtp_chain_streamed.argtypes = lib.qtts_mtp_chain.argtypes
+            lib.qtts_mtp_chain_streamed.argtypes = lib.qtts_mtp_chain_multi.argtypes
             lib.qtts_flash_attend.restype = i32
             lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
             lib.qtts_norm_head.restype = i32
@@ -241,6 +256,18 @@ def load_kernels() -> ctypes.CDLL:
             ]
             _lib = lib
         return _lib
+
+
+def _check_persistent_sizes(lib) -> None:
+    """ops/persistent.py plans with the library's struct sizes and limits."""
+    from . import persistent
+
+    got = (ctypes.c_int * 6)()
+    lib.qtts_persistent_sizes(got)
+    want = (persistent.ATTN_SMEM_BYTES, persistent.SAMPLE_SMEM_BYTES, persistent.MAX_STAGE_ROWS,
+            persistent.THREADS, persistent.MAX_K, persistent.MAX_KV_HEADS)
+    if tuple(got) != want:
+        raise RuntimeError(f"ops/persistent.py plans with {want}, the kernels have {tuple(got)}")
 
 
 def check(err: int, what: str) -> None:

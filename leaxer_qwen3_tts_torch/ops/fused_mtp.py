@@ -9,10 +9,12 @@ caller-supplied Gumbel noise, and the embedding-row gather whose value feeds
 the next trunk pass and ``sub_sum``.
 
 A Hopper SM cannot hold the 82 MB int8 trunk the TPU kept resident in VMEM,
-so the CUDA chain (``csrc/fused_mtp.cu``) streams it: its trunk passes reuse
-kernel K1's layer kernels on the MTP pack, and one hand-written kernel per
-step does the head product, the scale, the sampler and the gather.  The
-sampled index stays in device memory; there is no host sync in the chain.
+so the CUDA chain (``csrc/fused_mtp.cu``) streams it: the whole chain is one
+persistent cooperative launch whose trunk passes run kernel K1's phases on
+the MTP pack and whose heads are one more GEMV phase each, every weight row
+streamed through one TMA ring (the plan of ``ops/persistent.py``), with the
+sampler and the gather on one block between them.  The sampled index stays
+in device memory; there is no host sync in the chain.
 The batched chain (``csrc/fused_mtp_batched.cu``) streams its trunk through
 kernel K4's layer kernels, reads each head row once for the batch and
 samples each row in its own block with that row's knobs.  On a CPU tensor
@@ -24,6 +26,8 @@ versions, :func:`fused_mtp_chain_reference` and
 from __future__ import annotations
 
 import ctypes
+import threading
+from collections import OrderedDict
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -42,6 +46,7 @@ from .fused_step import (
     step_structs,
 )
 from ..runtime.sampling import clamp_temperature, scale_by_temperature
+from . import persistent
 from .quant import QuantizedLinear
 
 NEG_INF = -1e30
@@ -210,17 +215,66 @@ def fused_mtp_chain(
     )
 
 
+class _ChainEntry:
+    """The argument structs, scratch and 17-slot caches of one (packs, cache
+    dtype) for a B=1 chain entry on one stream of one thread: built once,
+    then a call sets its inputs, outputs and knobs (two threads, such as a
+    pool's admissions, never share one).  ``plan``: the persistent chain's
+    (K2), else None."""
+
+    def __init__(self, cfg, fw, heads, tables, cache_dtype, device, planned):
+        from ._build import ChainArgs
+
+        n, V, H = heads.q.shape
+        T = n + 2
+        self.kc = torch.empty((fw.wqkv.shape[0], 1, cfg.num_kv_heads, T, cfg.head_dim),
+                              dtype=cache_dtype, device=device)
+        self.vc = torch.empty_like(self.kc)
+        self.w, self.s, self.scratch = step_structs(cfg, fw, T, device)
+        self.buf = torch.empty(2 * H + V, dtype=torch.float32, device=device)
+        x, x_in, logits = torch.split(self.buf, [H, H, V])
+        self.logits = logits
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)  # K3's head tickets
+        a = ChainArgs()
+        a.heads, a.head_scales = heads.q.data_ptr(), heads.scale.data_ptr()
+        a.tables, a.x, a.x_in, a.logits = tables.data_ptr(), x.data_ptr(), x_in.data_ptr(), logits.data_ptr()
+        a.counter, a.k_cache, a.v_cache = self.counter.data_ptr(), self.kc.data_ptr(), self.vc.data_ptr()
+        a.cache_bf16, a.n, a.V, a.Vt = int(cache_dtype == torch.bfloat16), n, V, tables.shape[1]
+        self.args = a
+        self.plan = persistent.device_plan(cfg, device, head_rows=V) if planned else None
+
+
+_CHAIN_ENTRIES: "OrderedDict[tuple, _ChainEntry]" = OrderedDict()
+_MAX_ENTRIES = 16
+
+
+def _chain_entry(entry: str, cfg, fw, heads, tables, cache_dtype, device) -> _ChainEntry:
+    """The cached entry of these tensors, keyed by every pointer it holds."""
+    tensors = (*fw, *heads, tables)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (entry, cfg, cache_dtype, device, stream, threading.get_ident(),
+           *(t.data_ptr() for t in tensors))
+    hit = _CHAIN_ENTRIES.get(key)
+    if hit is None:
+        hit = _ChainEntry(cfg, fw, heads, tables, cache_dtype, device,
+                          planned=entry == "qtts_mtp_chain")
+        _CHAIN_ENTRIES[key] = hit
+        while len(_CHAIN_ENTRIES) > _MAX_ENTRIES:
+            _CHAIN_ENTRIES.popitem(last=False)
+    return hit
+
+
 def _launch_chain(wrapper, entry: str, cfg, fw, final_norm, heads, tables, last_hidden,
                   code0_embed, gumbel, temperature, top_k, top_p, cache_dtype):
-    """Launch a B=1 chain entry (``qtts_mtp_chain``: K2; ``qtts_mtp_chain_streamed``:
-    K3) on CUDA tensors, counting the launch on ``wrapper``."""
+    """Launch a B=1 chain entry (``qtts_mtp_chain``: K2, persistent, with its
+    plan; ``qtts_mtp_chain_streamed``: K3) on CUDA tensors, counting the
+    launch on ``wrapper``."""
     what = wrapper.__name__
     if last_hidden.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {last_hidden.device}")
-    from ._build import ChainArgs, check, load_kernels
+    from ._build import check, load_kernels
 
     n, V, H = heads.q.shape
-    Vt = tables.shape[1]
     greedy = temperature <= 0.0
     if gumbel is None and not greedy:
         raise ValueError("sampled chain needs Gumbel noise [n, 1, V]")
@@ -230,37 +284,36 @@ def _launch_chain(wrapper, entry: str, cfg, fw, final_norm, heads, tables, last_
             "(other dtypes: ROADMAP item K2v)"
         )
     device = last_hidden.device
-    T = n + 2
-    kc = torch.empty((fw.wqkv.shape[0], 1, cfg.num_kv_heads, T, cfg.head_dim),
-                     dtype=cache_dtype, device=device)
-    vc = torch.empty_like(kc)
-    _check_cuda_inputs(fw, kc, vc)
+    e = _chain_entry(entry, cfg, fw, heads, tables, cache_dtype, device)
+    _check_cuda_inputs(fw, e.kc, e.vc)
     for t in (heads.q, heads.scale, tables, final_norm) + (() if greedy else (gumbel,)):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{what}: every tensor must be contiguous and on CUDA")
+    if any(t.data_ptr() % 16 for t in heads):
+        raise ValueError(f"{what}: the heads must be 16-byte aligned")
     lib = load_kernels()
-    w, s, scratch = step_structs(cfg, fw, T, device)
-    buf = torch.empty(3 * H + V, dtype=torch.float32, device=device)
-    x, x_in, sub_sum, logits = torch.split(buf, [H, H, H, V])
-    ints = torch.zeros(n + 1, dtype=torch.int32, device=device)  # subcodes | ticket counter
-    fn = final_norm.float().contiguous()
+    subcodes = torch.empty(n, dtype=torch.int32, device=device)
+    sub_sum = torch.empty(H, dtype=torch.float32, device=device)
     lh = last_hidden.float().reshape(-1).contiguous()
     c0 = code0_embed.float().reshape(-1).contiguous()
-    noise = logits if greedy else gumbel.float()
-    args = ChainArgs(
-        fn.data_ptr(), heads.q.data_ptr(), heads.scale.data_ptr(), tables.data_ptr(),
-        noise.data_ptr(), lh.data_ptr(), c0.data_ptr(), ints.data_ptr(),
-        sub_sum.data_ptr(), x.data_ptr(), x_in.data_ptr(), logits.data_ptr(),
-        ints[n:].data_ptr(), kc.data_ptr(), vc.data_ptr(),
-        int(cache_dtype == torch.bfloat16), n, V, Vt,
-        clamp_temperature(temperature), int(top_k), float(top_p), int(greedy),
-    )
+    # converted on every call: the entry is keyed by pointers only, and a
+    # later model's norm may come to lie at the same address
+    fn = final_norm.float().contiguous()
+    noise = e.logits if greedy else gumbel.float().contiguous()
+    a = e.args
+    a.gumbel, a.last_hidden, a.code0_embed = noise.data_ptr(), lh.data_ptr(), c0.data_ptr()
+    a.final_norm = fn.data_ptr()
+    a.subcodes, a.sub_sum = subcodes.data_ptr(), sub_sum.data_ptr()
+    a.temperature, a.top_k, a.top_p = clamp_temperature(temperature), int(top_k), float(top_p)
+    a.greedy = int(greedy)
     stream = torch.cuda.current_stream(device).cuda_stream
     wrapper.launches += 1
-    err = getattr(lib, entry)(w, s, args, stream)
+    if e.plan is None:
+        err = getattr(lib, entry)(e.w, e.s, a, stream)
+    else:
+        err = getattr(lib, entry)(e.w, e.s, e.plan.struct, a, stream)
     check(err, what)
-    del scratch, kc, vc  # enqueued; the caching allocator orders reuse on the stream
-    return ints[:n].reshape(1, n), sub_sum.reshape(1, H)
+    return subcodes.reshape(1, n), sub_sum.reshape(1, H)
 
 
 fused_mtp_chain.launches = 0  # chain launches, for chip_smoke.py's path check

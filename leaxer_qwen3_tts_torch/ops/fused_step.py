@@ -14,8 +14,10 @@ Unlike the JAX kernel, which returns new arrays, the caches are updated IN
 PLACE (and returned for the same call shape).
 
 On a CUDA tensor :func:`fused_decode_step` launches the hand-written kernel
-(``csrc/fused_step.cu``) and :func:`fused_decode_step_batched` its batched
-twin (``csrc/fused_step_batched.cu``); on a CPU tensor they run
+(``csrc/fused_step.cu``: the whole step in one persistent cooperative launch,
+its weights streamed through a TMA ring by the plan of ``ops/persistent.py``)
+and :func:`fused_decode_step_batched` its batched twin
+(``csrc/fused_step_batched.cu``); on a CPU tensor they run
 :func:`fused_decode_step_reference` / :func:`fused_decode_step_batched_reference`,
 the plain PyTorch versions of the same functions (bf16-rounded operands
 upcast to float32 before each product, which equals a bf16 dot with float32
@@ -30,12 +32,15 @@ package's unit pack's.
 from __future__ import annotations
 
 import math
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Tuple
 
 import torch
 
 from ..config import TransformerConfig
 from ..models.layers import rope_inv_freq
+from . import persistent
 from ._build import MAX_BATCH
 from .quant import QuantizedLinear, quantize_weight
 
@@ -210,6 +215,10 @@ def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache) -> None:
     for t in (*fw, k_cache, v_cache):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("fused_decode_step: every tensor must be contiguous and on CUDA")
+    # the persistent kernels' bulk copies move 16-byte-aligned runs of rows
+    # and scales out of every pack tensor
+    if any(t.data_ptr() % 16 for t in fw):
+        raise ValueError("fused_decode_step: the pack's tensors must be 16-byte aligned")
 
 
 def _weights_struct(cfg: TransformerConfig, fw: FusedStepWeights):
@@ -241,6 +250,34 @@ def step_structs(cfg: TransformerConfig, fw: FusedStepWeights, T: int, device):
     return _weights_struct(cfg, fw), s, scratch
 
 
+class _StepEntry:
+    """The argument structs, scratch and plan of one (pack, cache bucket) on
+    one stream of one thread: built once, reused by every step there (two
+    threads, such as a pool's admissions, never share one)."""
+
+    def __init__(self, cfg: TransformerConfig, fw: FusedStepWeights, T: int, device):
+        self.w, self.s, self.scratch = step_structs(cfg, fw, T, device)
+        self.plan = persistent.device_plan(cfg, device)
+
+
+_STEP_ENTRIES: "OrderedDict[tuple, _StepEntry]" = OrderedDict()
+_MAX_ENTRIES = 16
+
+
+def _step_entry(cfg: TransformerConfig, fw: FusedStepWeights, T: int, device) -> _StepEntry:
+    """The cached entry of this pack: keyed by every pointer the structs
+    hold, so a hit is the struct these tensors would build."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (cfg, T, device, stream, threading.get_ident(), *(t.data_ptr() for t in fw))
+    entry = _STEP_ENTRIES.get(key)
+    if entry is None:
+        entry = _StepEntry(cfg, fw, T, device)
+        _STEP_ENTRIES[key] = entry
+        while len(_STEP_ENTRIES) > _MAX_ENTRIES:
+            _STEP_ENTRIES.popitem(last=False)
+    return entry
+
+
 def fused_decode_step(
     cfg: TransformerConfig,
     fw: FusedStepWeights,
@@ -264,17 +301,17 @@ def fused_decode_step(
     from ._build import check, load_kernels
 
     lib = load_kernels()
-    w, s, scratch = step_structs(cfg, fw, T, x.device)
+    entry = _step_entry(cfg, fw, T, x.device)
     x_in = x.float().reshape(-1).contiguous()
     x_out = torch.empty((1, cfg.hidden_size), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fused_decode_step.launches += 1
     err = lib.qtts_decode_step(
-        w, s, x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        int(k_cache.dtype == torch.bfloat16), T, pos, stream,
+        entry.w, entry.s, entry.plan.struct, x_in.data_ptr(), x_out.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), int(k_cache.dtype == torch.bfloat16), T, pos,
+        stream,
     )
     check(err, "fused_decode_step")
-    del scratch  # the launch is enqueued; the caching allocator orders reuse on the stream
     return x_out, k_cache, v_cache
 
 

@@ -1,0 +1,177 @@
+"""The work plan of the persistent kernels K1 and K2 (``csrc/qtts_stream.cuh``).
+
+One cooperative launch runs a whole decode step (K1) or a whole sub-code
+chain (K2) on a grid of one block per SM.  Each block owns a fixed,
+contiguous range of output rows in every GEMV of the transformer (qkv, o,
+gate|up, down) and of the chain's heads, balanced over the grid in multiples
+of four rows (the scale copies move 16 bytes at a time).  A block's rows of
+one GEMV are cut into stages of at most SLOT_BYTES int8 bytes, and the
+stages stream through a ring of ``n_slots`` shared-memory slots by TMA bulk
+copies.  This module computes that plan on the host, so that it can be held
+on the CPU: which rows each block owns, how many rows a stage takes, how many
+slots fit, and the dynamic shared memory of the launch.  The layout mirrors
+``qtts_plan_layout``; the C entries check the plan's scalars again and raise
+on one they do not take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from ..config import TransformerConfig
+
+SMEM_PER_BLOCK = 232_448  # shared memory a Hopper block may use (227 KB)
+STATIC_SMEM = 1_024  # reserved for the kernels' static shared memory
+ATTN_SMEM_BYTES = 21_892  # sizeof(QttsAttnSmem): one attention item
+SAMPLE_SMEM_BYTES = 576  # sizeof(QttsSampleSmem)
+MAX_STAGE_ROWS = 64  # 8 warps x QTTS_P_RPW rows
+THREADS = 256
+MAX_K = 6144  # the widest GEMV input a block holds in registers
+MAX_KV_HEADS = 64  # the attention tickets a plan holds
+ROW_QUANTUM = 4  # rows per 16 bytes of float32 scales
+SLOT_BYTES = 32 * 1024
+KINDS = ("qkv", "o", "gu", "down", "head")
+
+
+class Plan(NamedTuple):
+    grid: int
+    shapes: Tuple[Tuple[int, int], ...]  # (N, K) of each kind; N = 0 for an unused kind
+    bounds: Tuple[Tuple[int, ...], ...]  # [kind][block]: block b's rows are [b], [b + 1])
+    stage_rows: Tuple[int, ...]  # rows per stage of each kind
+    slot_bytes: int
+    slot_rows: int  # scale floats per slot
+    n_slots: int
+    union_bytes: int  # GEMV input / attention items / sampler scratch
+    smem_bytes: int  # dynamic shared memory of the launch
+
+
+def _align(v: int, a: int) -> int:
+    return (v + a - 1) // a * a
+
+
+def kind_shapes(cfg: TransformerConfig, head_rows: int = 0) -> Tuple[Tuple[int, int], ...]:
+    """(N, K) of the qkv, o, gate|up and down products and of the heads
+    (``head_rows`` rows of K = H; none when 0)."""
+    H, qd, I = cfg.hidden_size, cfg.q_dim, cfg.intermediate_size
+    A = qd + 2 * cfg.kv_dim
+    return ((A, H), (H, qd), (2 * I, H), (H, I), (head_rows, H))
+
+
+def split_rows(N: int, grid: int) -> Tuple[int, ...]:
+    """Row starts of ``grid`` blocks over N rows (N a multiple of
+    ROW_QUANTUM), contiguous, balanced to within one quantum, ending at N."""
+    q = N // ROW_QUANTUM
+    return tuple(ROW_QUANTUM * (b * q // grid) for b in range(grid + 1))
+
+
+def smem_layout(n_slots: int, slot_bytes: int, slot_rows: int, union_bytes: int) -> dict:
+    """Byte offsets of the shared-memory areas (``qtts_plan_layout``)."""
+    bars = union_bytes
+    scales = bars + _align(8 * n_slots, 16)
+    slots = _align(scales + 4 * slot_rows * n_slots, 128)
+    return {"bars": bars, "scales": scales, "slots": slots, "total": slots + slot_bytes * n_slots}
+
+
+def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0) -> Plan:
+    """The plan of a launch on ``grid`` blocks over the transformer ``cfg``
+    (and ``head_rows`` head rows for the chain), with as many ring slots of
+    SLOT_BYTES as fit.  Raises ValueError where a block would own no rows of
+    some product, or nothing fits."""
+    shapes = kind_shapes(cfg, head_rows)
+    bounds, stage_rows = [], []
+    for N, K in shapes:
+        if N == 0:
+            bounds.append((0,) * (grid + 1))
+            stage_rows.append(ROW_QUANTUM)
+            continue
+        if N % ROW_QUANTUM or K % 16:
+            raise ValueError(f"a [{N}, {K}] product does not split into 16-byte rows of 4")
+        if N // ROW_QUANTUM < grid:
+            raise ValueError(f"{grid} blocks over {N} rows: a block would own none")
+        rows = min(MAX_STAGE_ROWS, SLOT_BYTES // K) // ROW_QUANTUM * ROW_QUANTUM
+        if rows < ROW_QUANTUM:
+            raise ValueError(f"a {SLOT_BYTES}-byte slot holds fewer than 4 rows of {K} bytes")
+        bounds.append(split_rows(N, grid))
+        stage_rows.append(rows)
+    slot_rows = max(stage_rows)
+    widths = [K for N, K in shapes if N]
+    if max(widths) > MAX_K or cfg.num_kv_heads > MAX_KV_HEADS:
+        raise ValueError(f"GEMV inputs past {MAX_K} wide or past {MAX_KV_HEADS} kv heads")
+    # the GEMV input (MAX_K floats), two attention items, or the sampler's scratch
+    union_bytes = _align(max(2 * ATTN_SMEM_BYTES, 4 * MAX_K, SAMPLE_SMEM_BYTES), 128)
+    budget = SMEM_PER_BLOCK - STATIC_SMEM
+    n_slots = 0
+    while smem_layout(n_slots + 1, SLOT_BYTES, slot_rows, union_bytes)["total"] <= budget:
+        n_slots += 1
+    if n_slots < 1:
+        raise ValueError(f"no {SLOT_BYTES}-byte slot fits beside {union_bytes} bytes")
+    smem = smem_layout(n_slots, SLOT_BYTES, slot_rows, union_bytes)["total"]
+    return Plan(grid, shapes, tuple(bounds), tuple(stage_rows), SLOT_BYTES, slot_rows, n_slots,
+                union_bytes, smem)
+
+
+def stages(plan: Plan, kind: int, block: int) -> Sequence[Tuple[int, int]]:
+    """(first row, rows) of each stage of ``block``'s rows of ``kind``."""
+    r0, r1 = plan.bounds[kind][block], plan.bounds[kind][block + 1]
+    step = plan.stage_rows[kind]
+    return [(n, min(step, r1 - n)) for n in range(r0, r1, step)]
+
+
+# ---------------------------------------------------------------------------
+# The plan on the device
+# ---------------------------------------------------------------------------
+
+
+class DevicePlan:
+    """A plan's ctypes struct (``QttsPlan``) with the tensors it points to:
+    the row bounds and the attention tickets (one per kv head; the item that
+    takes a head's last ticket merges its splits and resets it)."""
+
+    def __init__(self, plan: Plan, device):
+        from ._build import Plan as PlanStruct
+
+        self.plan = plan
+        # staged through pinned memory and copied without a host sync: a new
+        # cache bucket builds its plan inside a decode chunk
+        self._host_bounds = torch.tensor(plan.bounds, dtype=torch.int32).pin_memory()
+        self.bounds = self._host_bounds.to(device, non_blocking=True)
+        self.tickets = torch.zeros(MAX_KV_HEADS, dtype=torch.int32, device=device)
+        self.struct = PlanStruct(
+            self.bounds.data_ptr(), plan.grid, plan.n_slots, plan.slot_bytes, plan.slot_rows,
+            (ctypes.c_int32 * len(KINDS))(*plan.stage_rows), plan.smem_bytes, plan.union_bytes,
+            self.tickets.data_ptr(), 0, None,
+        )
+        self.trace = None
+
+    def enable_trace(self, barriers: int) -> torch.Tensor:
+        """Record each block's start; for each of the first ``barriers`` grid
+        barriers the end of the phase's input, the moment its first weight
+        stage was in shared memory and the end of its last stage's dot
+        products (GEMV phases), the arrival and the departure; and its end
+        (``%globaltimer`` ns) in later launches.  Returns the [5 * barriers
+        + 3, grid] int64 buffer they overwrite (row 1 the start, rows
+        5i + 2..6 barrier i, row 5n + 2 the end).  ``disable_trace`` turns
+        it off."""
+        rows = 5 * barriers + 3
+        self.trace = torch.zeros((rows, self.plan.grid), dtype=torch.int64,
+                                 device=self.bounds.device)
+        self.struct.trace_rows, self.struct.trace = rows, self.trace.data_ptr()
+        return self.trace
+
+    def disable_trace(self) -> None:
+        self.struct.trace_rows, self.struct.trace, self.trace = 0, None, None
+
+
+def grid_size(device) -> int:
+    """One block per SM of the device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def device_plan(cfg: TransformerConfig, device, head_rows: int = 0) -> DevicePlan:
+    """The device plan of ``cfg`` (and ``head_rows`` heads) on this device;
+    each caller keeps its own (the attention tickets are per launch stream)."""
+    device = torch.device(device)
+    return DevicePlan(make_plan(cfg, grid_size(device), head_rows), device)

@@ -4,7 +4,9 @@ Port of ``leaxer_qwen3_tts_tpu/runtime/generate.py``.  One frame:
 
     sample code0 -> MTP chain -> embed sum (+ text drip) -> talker step
 
-With ``cfg.frame_fused`` a B=1 frame that passes the JAX package's gate
+With ``cfg.frame_fused`` (or, with the field None, ``QTTS_FRAME_FUSED`` as
+the JAX package reads it: :func:`frame_fused_enabled`) a B=1 frame that
+passes the JAX package's gate
 (:func:`frame_fused_eligible`) runs as ONE launch of kernel K7
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_frame.fused_frame_step`); only the
 noise draw, the drip gather and the EOS bookkeeping stay outside it.
@@ -22,6 +24,7 @@ one per stream (:class:`~leaxer_qwen3_tts_torch.runtime.sampling.NoiseSource`).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -157,14 +160,23 @@ def compute_drip(step: torch.Tensor, trailing, trailing_len, tts_pad_embed) -> t
     return torch.where(use_text[..., None], drip, tts_pad_embed.to(drip.dtype))
 
 
+def frame_fused_enabled(cfg: TTSModelConfig) -> bool:
+    """The whole-frame kernel's switch, as the JAX package resolves it
+    (``runtime/generate.py::_frame_fused_eligible``): ``cfg.frame_fused``
+    when set, else ``QTTS_FRAME_FUSED`` (off unless set to other than "0")."""
+    if cfg.frame_fused is not None:
+        return bool(cfg.frame_fused)
+    return os.environ.get("QTTS_FRAME_FUSED", "0") != "0"
+
+
 def frame_fused_eligible(cfg: TTSModelConfig, params: dict, state: GenerateState,
                          sp: Optional[SamplingParams], uniform_fill: bool = True) -> bool:
     """The JAX package's gate for the whole-frame kernel (its
-    ``_frame_fused_eligible``, no mesh or tensor-parallel terms): frame_fused
-    on, B=1 sequential decode, the fused talker and MTP packs, per-step heads,
+    ``_frame_fused_eligible``, no mesh or tensor-parallel terms):
+    :func:`frame_fused_enabled`, B=1 sequential decode, the fused talker and MTP packs, per-step heads,
     and :func:`~leaxer_qwen3_tts_torch.ops.fused_frame.supports_frame` at this
     cache bucket.  Shapes and config only: no device data."""
-    if not cfg.frame_fused or sp is None or not uniform_fill:
+    if not frame_fused_enabled(cfg) or sp is None or not uniform_fill:
         return False
     if state.last_hidden.shape[0] != 1:
         return False

@@ -159,6 +159,8 @@ class ContinuousBatcher:
     ):
         if spec_k is not None and not 2 <= int(spec_k) <= 8:
             raise ValueError("spec_k must be in [2, 8]")
+        if not engine.is_ready():
+            raise EngineError(f"engine not ready: {engine.get_error()}")
         self.spec_k = int(spec_k) if spec_k else None
         self.spec_iters = max(1, int(spec_iters))
         self.device = engine.device
@@ -519,9 +521,10 @@ class ContinuousBatcher:
             frame0, valid0 = None, False
             sp1 = SamplingParams.create(req.temperature, req.top_k, req.top_p,
                                         forbid_eos=req.forbid_eos)
-            ids_t = torch.from_numpy(ids_arr).to(self.device)
-            lens_t = torch.tensor([len(ids)], device=self.device)
             with self._device_work():
+                # host-to-device copies: never inside a sync-checked chunk
+                ids_t = torch.from_numpy(ids_arr).to(self.device)
+                lens_t = torch.tensor([len(ids)], device=self.device)
                 if spec:
                     # the spec prefill samples frame 0: it is committed at the splice
                     s1, bundle, f0, v0 = fns.prefill(eng.params, ids_t, lens_t,

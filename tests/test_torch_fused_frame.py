@@ -336,15 +336,19 @@ def test_engine_frame_fused_routes_like_jax(tiny_vocab_files, monkeypatch):
 
 
 def test_engine_frame_fused_refusals(tiny_vocab_files):
-    """frame_fused is sequential-only: with spec_k the engine raises (the JAX
-    engine's message); with no device and no card it raises as ever."""
+    """The argument frame_fused=True is sequential-only: with spec_k the
+    engine is not ready (the JAX engine's message); a config with
+    frame_fused set and spec_k builds a ready engine, as in the JAX engine;
+    with no device and no card the engine is not ready as ever."""
     tc, params, tok = _kernel_width(tiny_vocab_files)
-    with pytest.raises(EngineError, match="sequential-only"):
-        TTSEngine(config=tc, params=params, quantize="int8", device="cpu", frame_fused=True,
-                  spec_k=4)
-    with pytest.raises(EngineError, match="sequential-only"):
-        TTSEngine(config=dataclasses.replace(tc, frame_fused=True), params=params,
-                  quantize="int8", device="cpu", spec_k=4)
+    eng = TTSEngine(config=tc, params=params, quantize="int8", device="cpu", frame_fused=True,
+                    spec_k=4)
+    assert not eng.is_ready() and "sequential-only" in eng.get_error()
+    with pytest.raises(EngineError, match="engine not ready: frame_fused is sequential-only"):
+        eng.synthesize("hello", temperature=0.0)
+    eng = TTSEngine(config=dataclasses.replace(tc, frame_fused=True), params=params,
+                    quantize="int8", device="cpu", spec_k=4)
+    assert eng.is_ready(), eng.get_error()
     if not torch.cuda.is_available():
-        with pytest.raises(EngineError, match="device='cpu'"):
-            TTSEngine(config=tc, params=params, quantize="int8", frame_fused=True)
+        eng = TTSEngine(config=tc, params=params, quantize="int8", frame_fused=True)
+        assert not eng.is_ready() and "device='cpu'" in eng.get_error()

@@ -276,13 +276,16 @@ def test_wav_bytes_roundtrip(tmp_path):
 
 
 def test_unported_modes_raise(engine, tiny_model):
-    """A device mesh is a later ROADMAP item and raises instead of running
+    """A device mesh is a later ROADMAP item: the engine is not ready (its
+    error names the item) and a pool refuses it, instead of running
     something else; a spec_k the verify pass does not take raises too."""
     with pytest.raises(ValueError, match="spec_k"):
         ContinuousBatcher(engine, pool_size=2, spec_k=9)
     cfg, params = _port(tiny_model)
-    with pytest.raises(NotImplementedError, match="M15"):
-        TTSEngine(config=cfg, params=params, mesh=object(), device="cpu")
+    meshed = TTSEngine(config=cfg, params=params, mesh=object(), device="cpu")
+    assert not meshed.is_ready() and "M15" in meshed.get_error()
+    with pytest.raises(EngineError, match="engine not ready: .*M15"):
+        ContinuousBatcher(meshed, pool_size=2)
 
 
 @pytest.fixture(scope="module")

@@ -196,22 +196,29 @@ def test_engine_synthesize_tiny(tiny_model, tiny_vocab_files):
     np.testing.assert_array_equal(
         flat.synthesize("hello world", temperature=0.0, max_tokens=20).codes, grown.codes
     )
-    with pytest.raises(EngineError, match="int8"):
-        TTSEngine(config=cfg, params=params, quantize="int4", device="cpu")
-    # on a CUDA device a config the kernels do not take raises; it does not
-    # run the plain path (checked before anything touches the device)
-    with pytest.raises(EngineError, match="do not take this architecture"):
-        TTSEngine(config=cfg, params=params, quantize="int8", device="cuda")
+    # construction records its error (the JAX engine's contract) and every
+    # synthesis call then raises it
+    bad = TTSEngine(config=cfg, params=params, quantize="int4", device="cpu")
+    assert not bad.is_ready() and "int8" in bad.get_error()
+    with pytest.raises(EngineError, match="engine not ready: .*int8"):
+        bad.synthesize("hello world", temperature=0.0)
+    # on a CUDA device a config the kernels do not take is refused; it does
+    # not run the plain path (checked before anything touches the device)
+    bad = TTSEngine(config=cfg, params=params, quantize="int8", device="cuda")
+    assert not bad.is_ready() and "do not take this architecture" in bad.get_error()
 
 
 def test_engine_without_device_needs_cuda(tiny_model):
-    """With no device the engine runs on the card: where there is none it
-    raises instead of running on the CPU (device="cpu" asks for that)."""
+    """With no device the engine runs on the card: where there is none it is
+    not ready, and synthesis raises, instead of running on the CPU
+    (device="cpu" asks for that)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the engine would run there")
     cfg, params = _port(tiny_model)
-    with pytest.raises(EngineError, match="device='cpu'"):
-        TTSEngine(config=cfg, params=params)
+    eng = TTSEngine(config=cfg, params=params)
+    assert not eng.is_ready() and "device='cpu'" in eng.get_error()
+    with pytest.raises(EngineError, match="engine not ready: .*device='cpu'"):
+        eng.synthesize("hello world")
 
 
 def test_port_imports_no_jax():

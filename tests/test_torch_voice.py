@@ -232,14 +232,16 @@ def test_k3_route_matches_k2_at_float32(tiny_vocab_files, monkeypatch):
 
 
 def test_untaken_knobs_raise(voiced, tiny_vocab_files):
-    """frame_fused=True (the whole-frame kernel K7) is sequential-only: with
-    spec_k it raises, as the JAX engine does; on the card,
-    code_predictor.resident=False (the per-step MTP path) raises rather than
-    running a chain (checked before any tensor moves)."""
+    """The argument frame_fused=True (the whole-frame kernel K7) is
+    sequential-only: with spec_k the engine is not ready, as the JAX engine
+    is; on the card, code_predictor.resident=False (the per-step MTP path)
+    is refused rather than running a chain (checked before any tensor
+    moves)."""
     _, _, tc, tp = voiced
+    eng = TTSEngine(config=tc, params=tp, device="cpu", frame_fused=True, spec_k=4)
+    assert not eng.is_ready() and "sequential-only" in eng.get_error()
     with pytest.raises(EngineError, match="sequential-only"):
-        TTSEngine(config=dataclasses.replace(tc, frame_fused=True), params=tp, device="cpu",
-                  spec_k=4)
+        eng.synthesize("hello", temperature=0.0)
     kc, params, tok = _kernel_width(tiny_vocab_files, resident=False)
-    with pytest.raises(EngineError, match="resident=False"):
-        TTSEngine(config=kc, params=params, quantize="int8", device="cuda")
+    eng = TTSEngine(config=kc, params=params, quantize="int8", device="cuda")
+    assert not eng.is_ready() and "resident=False" in eng.get_error()
