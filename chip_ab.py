@@ -1,6 +1,6 @@
 """A/B of the B=1 fixed 300-frame run between two checkouts, on one GPU.
 
-    python3 chip_ab.py OLD NEW [--spec]
+    python3 chip_ab.py OLD NEW [--spec] [--batched]
 
 OLD and NEW are checkout roots (unpack a commit with ``git archive`` into a
 directory that ``.gitignore`` lists).  Each run is its own process, in the
@@ -10,8 +10,13 @@ int8), warms it up and times ``chip_smoke.check_fixed_run`` three times.
 With ``--spec`` a run also times the speculative B=1 fixed run at k=4
 (``chip_smoke.spec_fixed_run``, sampled, 300 frames, as the smoke's spec
 phase does) at full acceptance and with the repeat draft, twice each, in ms
-per committed frame.  Prints one ``AB`` line per run with the card's name
-and power limit.
+per committed frame.  With ``--batched`` a run also times the batched fixed
+300-frame runs at B=8 and B=32 (ms per batched frame and aggregate RTF, as
+the smoke's batched phase) and, by CUDA events on seeded inputs, the kernels
+of the batched frame (K4 at T=512 with the smoke's per-row positions, K5 with
+its mixed knobs, B=8 and 32) and of the B=1 frame (K1 at T=256 pos 200, K2
+sampled).  Prints one ``AB`` line per run with the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -39,7 +44,54 @@ def spec_ms(cs, eng):
     return out
 
 
-def run_one(root: str, spec: bool) -> None:
+def batched_ms(cs, eng):
+    """The batched fixed runs and the kernels' ms, B=1 and batched:
+    {label: ms}."""
+    import torch
+
+    from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B
+    from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
+    from leaxer_qwen3_tts_torch.ops import fused_step as K1
+    from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
+    from leaxer_qwen3_tts_torch.runtime.sampling import gumbel_noise
+
+    out = {}
+    for B in (8, 32):
+        texts = [cs.BATCH_TEXTS[b % len(cs.BATCH_TEXTS)] for b in range(B)]
+        out[f"fixed B={B} ms per batched frame"] = cs.check_fixed_run(eng, 300, texts, cs.CARD)
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED)
+    tt, cp = QWEN3_TTS_06B.talker.transformer, QWEN3_TTS_06B.code_predictor
+    mt = cp.transformer
+    tfw, mfw = cs.packed_trunk(tt, gen), cs.packed_trunk(mt, gen)
+    H, V, n = mt.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    heads = K2.pack_heads(quantize_weight(
+        (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16)))
+    tables = (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV)
+    x, kc, vc = cs.k1_inputs(tt, 256, 200, torch.bfloat16, gen)
+    out["K1 T=256 pos 200"] = cs.time_ms(lambda: K1.fused_decode_step(tt, tfw, x, 200, kc, vc), 20)
+    for B in (1, 8, 32):
+        lh = (torch.randn((B, H), generator=gen, device=cs.DEV) * 0.5).to(torch.bfloat16)
+        c0 = (torch.randn((B, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+        noise = gumbel_noise((n, B, V), gen, cs.DEV)
+        if B == 1:
+            args = (mt, mfw, fnorm, heads, tables, lh, c0, noise, *cs.K5_KNOBS[1])
+            out["K2 sampled"] = cs.time_ms(
+                lambda: K2.fused_mtp_chain(*args, cache_dtype=torch.bfloat16), 10)
+            continue
+        x, kc, vc, pos = cs.k4_inputs(tt, B, 512, torch.bfloat16, gen)
+        pos_dev = torch.tensor(pos, device=cs.DEV)
+        out[f"K4 B={B} T=512"] = cs.time_ms(
+            lambda: K1.fused_decode_step_batched(tt, tfw, x, pos_dev, kc, vc), 10)
+        knobs = [cs.K5_KNOBS[b % len(cs.K5_KNOBS)] for b in range(B)]
+        args = (mt, mfw, fnorm, heads, tables, lh, c0, noise, *zip(*knobs))
+        out[f"K5 B={B} mixed knobs"] = cs.time_ms(
+            lambda: K2.fused_mtp_chain_batched(*args, cache_dtype=torch.bfloat16), 5)
+    return out
+
+
+def run_one(root: str, spec: bool, batched: bool) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -62,23 +114,26 @@ def run_one(root: str, spec: bool) -> None:
     if spec:
         print(f"AB {root}: spec k=4 ms per committed frame {spec_ms(cs, eng)} [{cs.CARD}]",
               flush=True)
+    if batched:
+        print(f"AB {root}: batched {batched_ms(cs, eng)} [{cs.CARD}]", flush=True)
 
 
 def main() -> int:
     args = sys.argv[1:]
-    spec = "--spec" in args
-    args = [a for a in args if a != "--spec"]
+    flags = [a for a in args if a in ("--spec", "--batched")]
+    spec, batched = "--spec" in flags, "--batched" in flags
+    args = [a for a in args if a not in flags]
     if args[:1] == ["--one"]:
-        run_one(os.path.abspath(args[1]), spec)
+        run_one(os.path.abspath(args[1]), spec, batched)
         return 0
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     old, new = args
     for root in (old, new, new, old):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
-                             + (["--spec"] if spec else []), capture_output=True, text=True)
-        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("AB ")]
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root] + flags,
+                             capture_output=True, text=True)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith(("AB ", "fixed run"))]
         print("\n".join(lines) if lines else out.stdout[-2000:] + out.stderr[-2000:], flush=True)
         if out.returncode != 0:
             return out.returncode

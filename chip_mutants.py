@@ -1,4 +1,4 @@
-"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7 and persistent K1 / K2 checks on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7 and persistent K1 / K2 / K4 / K5 checks on one NVIDIA GPU.
 
     python3 chip_mutants.py [WORD ...]
 
@@ -14,7 +14,9 @@ and on the random GQA shapes (K8), ``chip_smoke.check_k7_composition`` and
 ``chip_smoke.check_k1_equal`` on the 0.6B talker and MTP trunk and
 ``chip_smoke.check_k2_equal`` on the 0.6B chain (the persistent K1 and K2
 against the launch sequences they replaced, bit for bit), each also with a
-one-slot weight ring.  A mutant is
+one-slot weight ring, and ``chip_smoke.check_k4_equal`` /
+``chip_smoke.check_k5_equal`` (the persistent K4 and K5 against K1 / K2 rows
+and their launch sequences) for the batched attention's faults.  A mutant is
 caught when at least one case fails.  Exits non-zero if a mutant is not
 caught, or without CUDA.
 """
@@ -111,6 +113,22 @@ MUTANTS = {
         "    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_O, stage, sh, x);\n",
         "K1K2",
     ),
+    # the batched attention merges a row's splits by row 0's split count:
+    # rows past row 0's splits merge early (or each split alone)
+    "K4 merge counts row 0's splits": (
+        "qtts_stream.cuh",
+        "      const int n_splits = pos / QTTS_ATTN_CHUNK + 1;  // the row's own splits",
+        "      const int n_splits = qtts_row_pos(pos_dev, pos_host, 0, T, 1) / QTTS_ATTN_CHUNK + 1;",
+        "K4K5",
+    ),
+    # every row of a kv head takes tickets from one counter: a row's merge
+    # fires when the rows together, not its own splits, reach its count
+    "K4 one ticket per kv head for all rows": (
+        "qtts_stream.cuh",
+        "      uint32_t* tk = p.tickets + (size_t)b * nk + h;  // one ticket per (row, kv head)",
+        "      uint32_t* tk = p.tickets + h;",
+        "K4K5",
+    ),
 }
 K6_CASES = ((1, 4, [62]), (4, 8, [62, 5, 504, 130]))  # (B, S, starts) at T=512
 
@@ -156,7 +174,12 @@ def checks(gen):
     # stage is then issued right after the one before it is consumed, so a
     # consumer that does not wait reads a copy still in flight
     k1k2 += [lambda run=run: cs.one_slot_ring(run) for run in list(k1k2)]
-    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2}
+    k4k5 = [lambda dt=dt: cs.check_k4_equal("0.6B talker", tt, tfw, ((5, 256), (8, 2560)), gen,
+                                            cache_dtypes=(dt,))
+            for dt in (torch.bfloat16, torch.float32)]
+    k4k5 += [lambda: cs.check_k5_equal("0.6B MTP trunk", *chain6, gen, batches=(8,),
+                                       cache_dtypes=(torch.bfloat16,))]
+    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5}
 
 
 def main() -> int:

@@ -1,9 +1,14 @@
-"""Quick chip check of the persistent kernels K1 and K2 on one NVIDIA GPU.
+"""Quick chip check of the persistent kernels K1, K2, K4 and K5 on one NVIDIA GPU.
 
     python3 chip_persistent.py
 
 Builds the kernels and prints ptxas's report of the persistent kernels
-(registers, stack, spills).  Holds K1 and K2 to the launch-per-op sequences
+(registers, stack, spills).  First the batched kernels: K4 and K5 against K1
+and K2 row by row and against the launch-per-op sequences they replaced, bit
+for bit (``chip_smoke.check_k4_equal`` at the 0.6B talker, B = 2, 5, 8 and 32,
+T = 256 and 2560, ``chip_smoke.check_k5_equal`` at the 0.6B chain, B = 2, 8
+and 32), again with one ring slot, then each timed against its sequence in
+turns (B = 8 and 32) and traced once.  Then K1 and K2 against the launch-per-op sequences
 they replaced, bit for bit (``chip_smoke.check_k1_equal`` at the 0.6B talker
 and MTP trunk, ``chip_smoke.check_k2_equal`` at the 0.6B chain), with the
 default weight ring and again with one ring slot
@@ -41,7 +46,7 @@ def ptxas_report(path):
     with open(path + ".log") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and ("step_kernel" in line or "chain_kernel" in line):
+        if "Compiling entry" in line and any(k in line for k in ("step_kernel", "chain_kernel")):
             cs.log(line.strip()[:160])
             for nxt in lines[i + 1:]:
                 if "Compiling entry" in nxt:
@@ -70,6 +75,37 @@ def main() -> int:
         (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16)))
     tables = (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
     fnorm = torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV)
+
+    cs.check_k4_equal("0.6B talker", tt, tfw, cs.K4_EQUAL_CASES, gen)
+    cs.check_k5_equal("0.6B MTP trunk", cp, mfw, heads, tables, fnorm, gen)
+    cs.one_slot_ring(lambda: (
+        cs.check_k4_equal("0.6B talker, one ring slot", tt, tfw, ((5, 256), (32, 256)), gen,
+                          cache_dtypes=(torch.float32,)),
+        cs.check_k5_equal("0.6B MTP trunk, one ring slot", cp, mfw, heads, tables, fnorm, gen,
+                          batches=(8, 32), cache_dtypes=(torch.bfloat16,))))
+    for B in (8, 32):
+        x, kc, vc, pos = cs.k4_inputs(tt, B, 512, torch.bfloat16, gen)
+        pos_dev = torch.tensor(pos, device=cs.DEV)
+        cs.in_turns(f"K4 0.6B talker B={B} T=512", lambda: cs.k4_multi(tt, tfw, x, pos_dev, kc, vc),
+                    lambda: K1.fused_decode_step_batched(tt, tfw, x, pos_dev, kc, vc), 10)
+        cs.trace_phases(f"K4 0.6B talker B={B} T=512",
+                        K1._batch_entry(tt, tfw, B, 512, x.device).plan,
+                        cs.step_phase_names(tt.num_layers, batched=True),
+                        lambda: K1.fused_decode_step_batched(tt, tfw, x, pos_dev, kc, vc))
+        del x, kc, vc
+        knobs = [cs.K5_KNOBS[b % len(cs.K5_KNOBS)] for b in range(B)]
+        lhb = (torch.randn((B, H), generator=gen, device=cs.DEV) * 0.5).to(torch.bfloat16)
+        c0b = (torch.randn((B, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+        args = (mt, mfw, fnorm, heads, tables, lhb, c0b, gumbel_noise((n, B, V), gen, cs.DEV),
+                *zip(*knobs))
+        cs.in_turns(f"K5 0.6B B={B} mixed knobs bf16 cache",
+                    lambda: cs.k5_multi(*args, cache_dtype=torch.bfloat16),
+                    lambda: K2.fused_mtp_chain_batched(*args, cache_dtype=torch.bfloat16), 5)
+        cs.trace_phases(f"K5 0.6B B={B} mixed knobs",
+                        K2._batch_chain_entry("qtts_mtp_chain_batched", mt, mfw, heads, tables, B,
+                                              torch.bfloat16, lhb.device).plan,
+                        cs.chain_phase_names(mt.num_layers, n, batched=True),
+                        lambda: K2.fused_mtp_chain_batched(*args, cache_dtype=torch.bfloat16))
 
     def equal_checks():
         cs.check_k1_equal("0.6B talker", tt, tfw, ((256, 0), (256, 200), (2560, 1800)), gen)

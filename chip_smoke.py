@@ -267,6 +267,15 @@ FIXED_TEXT = "hello world, this is a fixed length run"
 K1_EQUAL_CASES = ((256, 0), (256, 63), (256, 200), (2560, 64), (2560, 1800), (2560, 2559))
 K1_EQUAL_INPUTS = 2
 K2_EQUAL_INPUTS = 16
+# The persistent K4 and K5 against K1 / K2 row by row and against the
+# launch-per-op sequences they replaced (qtts_decode_step_batched_multi,
+# qtts_mtp_chain_batched_multi), bit for bit.  K4 (B, T) at the 0.6B talker,
+# both cache dtypes, rows at the first slot, both sides of a split edge, the
+# last slot, one past the bucket (clamped) and inside; K5 at B rows on
+# K5_KNOBS cycled over the rows, both cache dtypes.
+K4_EQUAL_CASES = ((2, 256), (5, 256), (8, 256), (32, 256), (2, 2560), (5, 2560), (8, 2560),
+                  (32, 2560))
+K5_EQUAL_BATCHES = (2, 8, 32)
 
 
 CARD = "card not read yet"  # the nvidia-smi line, printed beside every measured number
@@ -289,6 +298,17 @@ def card() -> str:
 # bf16 tensor rate, of an H100 SXM at 700 W (NVIDIA data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+
+
+# float32 multiply-adds on CUDA cores: 67 TFLOPS (H100 SXM data sheet) /
+# 2.  K4 and K5 keep K1's and K2's summation order, which a tensor-core mma
+# would not, so at B=32 this floor, not the bytes, is theirs.
+FP32_FMA_PER_S = 67e12 / 2
+
+
+def fma_floor_ms(macs: float, rows: int) -> float:
+    """Least ms of ``rows`` x ``macs`` float32 multiply-adds on CUDA cores."""
+    return rows * macs / FP32_FMA_PER_S * 1e3
 
 
 def bound(nbytes: float, ops: float):
@@ -539,6 +559,130 @@ def check_k2_equal(label, cp, fw, heads, tables, fnorm, gen, inputs=K2_EQUAL_INP
     return total
 
 
+def k4_equal_positions(B, T):
+    """Per-row positions of the K4 equality checks (unclamped)."""
+    base = (0, 63, 64, T - 1, T + 100, 5, 200 % T, 130 % T)
+    return [base[b % len(base)] for b in range(B)]
+
+
+def k4_multi(t, fw, x, pos, kc, vc):
+    """K4's launch-per-op sequence (``qtts_decode_step_batched_multi``, nine
+    launches per layer) on the same inputs: the reference the persistent K4
+    is held to bit for bit.  Returns x_out [B, H]; the caches are updated in
+    place."""
+    return K1._launch_step_batched(k4_multi, "qtts_decode_step_batched_multi", t, fw, x, pos, kc,
+                                   vc)[0]
+
+
+k4_multi.launches = 0  # not a kernel of the path: compare-only launches
+
+
+def k5_multi(t, fw, fnorm, heads, tables, lh, c0, noise, temperature, top_k, top_p,
+             cache_dtype=torch.float32):
+    """K5's launch-per-op chain (``qtts_mtp_chain_batched_multi``) on the
+    same inputs: the reference the persistent K5 is held to bit for bit."""
+    return K2._launch_chain_batched(k5_multi, "qtts_mtp_chain_batched_multi", t, fw, fnorm, heads,
+                                    tables, lh, c0, noise, temperature, top_k, top_p, cache_dtype)
+
+
+k5_multi.launches = 0  # not a kernel of the path: compare-only launches
+
+
+def check_k4_equal(name, t, fw, cases, gen, inputs=1, cache_dtypes=(torch.bfloat16, torch.float32)):
+    """The persistent K4 on ``inputs`` seeded batches per (B, T) of ``cases``
+    and cache dtype (per-row device positions of k4_equal_positions, and one
+    batch at a host position per case): x and both caches equal the
+    launch-per-op sequence's bit for bit, and every row equals K1 on that
+    row (x and the row's caches).  Returns the number of steps compared."""
+    equal = total = 0
+    for B, T in cases:
+        for cache_dtype in cache_dtypes:
+            L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
+            for i in range(inputs + 1):
+                pos = k4_equal_positions(B, T)
+                host = i == inputs  # every row at one host position
+                if host:
+                    pos = [min(64, T - 1)] * B
+                x = torch.randn((B, t.hidden_size), generator=gen, device=DEV) * 0.3
+                # made in the cache dtype and compared in place: four caches
+                # of [28, 32, 8, 2560, 128] float32 are 38 GB
+                kc = torch.randn((L, B, nk, T, d), generator=gen, device=DEV, dtype=cache_dtype)
+                vc = torch.randn((L, B, nk, T, d), generator=gen, device=DEV, dtype=cache_dtype)
+                for b, p in enumerate(pos):
+                    kc[:, b, :, min(p, T - 1):] = 0
+                    vc[:, b, :, min(p, T - 1):] = 0
+                kn, vn = kc.clone(), vc.clone()
+                arg = pos[0] if host else torch.tensor(pos, device=DEV)
+                xn, _, _ = K1.fused_decode_step_batched(t, fw, x, arg, kn, vn)
+                rows_k1 = True
+                for b, p in enumerate(pos):
+                    k1, v1 = kc[:, b : b + 1].clone(), vc[:, b : b + 1].clone()
+                    x1, _, _ = K1.fused_decode_step(t, fw, x[b : b + 1], p, k1, v1)
+                    rows_k1 &= bool(torch.equal(x1[0], xn[b])) and bool(
+                        torch.equal(k1[:, 0], kn[:, b])) and bool(torch.equal(v1[:, 0], vn[:, b]))
+                xo = k4_multi(t, fw, x, arg, kc, vc)  # the sequence on the original caches
+                same = bool(torch.equal(xn, xo)) and bool(torch.equal(kn, kc)) and bool(
+                    torch.equal(vn, vc))
+                if not (same and rows_k1):
+                    log(f"K4 {name} B={B} T={T} cache={str(cache_dtype)[6:]} positions {pos}: "
+                        f"equal to the launch sequence {same}, rows equal to K1 {rows_k1} (x max "
+                        f"diff to the sequence {float((xn - xo).abs().max()):.3e})")
+                equal += same and rows_k1
+                total += 1
+                del kc, vc, kn, vn
+    ok = equal == total
+    log(f"K4 persistent vs K1 rows and the launch sequence, {name}: L={t.num_layers} (B, T) "
+        f"{list(cases)} x caches {[str(d)[6:] for d in cache_dtypes]} x {inputs} batches at "
+        f"device positions + 1 at a host position: {equal}/{total} steps equal bit for bit (x, k "
+        f"and v caches) -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"the persistent K4 differs from K1 or the launch sequence ({name})")
+    return total
+
+
+def check_k5_equal(label, cp, fw, heads, tables, fnorm, gen, batches=K5_EQUAL_BATCHES, inputs=1,
+                   cache_dtypes=(torch.bfloat16, torch.float32)):
+    """The persistent K5 on ``inputs`` seeded chains per B of ``batches`` and
+    cache dtype, the rows' knobs cycling through K5_KNOBS: sub-codes and
+    sub_sum equal the launch-per-op chain's bit for bit, and every row
+    equals K2 on that row's inputs and noise.  Returns the chains compared."""
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
+    t = cp.transformer
+    equal = total = 0
+    for cache_dtype in cache_dtypes:
+        for B in batches:
+            for i in range(inputs):
+                knobs = [K5_KNOBS[(b + i) % len(K5_KNOBS)] for b in range(B)]
+                temps, ks, ps = zip(*knobs)
+                lh = (torch.randn((B, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+                c0 = (torch.randn((B, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+                noise = gumbel_noise((n, B, V), gen, DEV)
+                args = (t, fw, fnorm, heads, tables, lh, c0, noise, temps, ks, ps)
+                sn, sum_n = K2.fused_mtp_chain_batched(*args, cache_dtype=cache_dtype)
+                so, sum_o = k5_multi(*args, cache_dtype=cache_dtype)
+                same = bool(torch.equal(sn, so)) and bool(torch.equal(sum_n, sum_o))
+                rows_k2 = True
+                for b, (tb, kb, pb) in enumerate(knobs):
+                    s1, sum1 = K2.fused_mtp_chain(t, fw, fnorm, heads, tables, lh[b : b + 1],
+                                                  c0[b : b + 1], noise[:, b : b + 1].contiguous(),
+                                                  tb, kb, pb, cache_dtype=cache_dtype)
+                    rows_k2 &= bool(torch.equal(s1[0], sn[b])) and bool(torch.equal(sum1[0],
+                                                                                   sum_n[b]))
+                if not (same and rows_k2):
+                    log(f"K5 {label} B={B} cache={str(cache_dtype)[6:]} input {i}: equal to the "
+                        f"launch-per-op chain {same}, rows equal to K2 {rows_k2}")
+                equal += same and rows_k2
+                total += 1
+    ok = equal == total
+    log(f"K5 persistent vs K2 rows and the launch-per-op chain, {label}: B {list(batches)} x "
+        f"caches {[str(d)[6:] for d in cache_dtypes]} x {inputs} inputs, knobs {K5_KNOBS} cycled "
+        f"over the rows: {equal}/{total} chains equal bit for bit (sub-codes, sub_sum) -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"the persistent K5 differs from K2 or the launch-per-op chain ({label})")
+    return total
+
+
 def in_turns(label, old, new, iters):
     """ms per call of ``old`` and ``new`` timed in turns (old, new, new,
     old); returns (new mean, old mean)."""
@@ -557,21 +701,24 @@ def one_slot_ring(run):
     the wrappers' cached entries are dropped before and after."""
     real = persistent.device_plan
 
-    def one_slot(cfg, device, head_rows=0):
+    def one_slot(cfg, device, head_rows=0, batch=1):
         device = torch.device(device)
-        plan = persistent.make_plan(cfg, persistent.grid_size(device), head_rows)
+        plan = persistent.make_plan(cfg, persistent.grid_size(device), head_rows, batch)
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.union_bytes)
         return persistent.DevicePlan(plan._replace(n_slots=1, smem_bytes=smem["total"]), device)
 
-    K1._STEP_ENTRIES.clear()
-    K2._CHAIN_ENTRIES.clear()
+    def clear():
+        K1._STEP_ENTRIES.clear()
+        K1._BATCH_ENTRIES.clear()
+        K2._CHAIN_ENTRIES.clear()
+
+    clear()
     persistent.device_plan = one_slot
     try:
         return run()
     finally:
         persistent.device_plan = real
-        K1._STEP_ENTRIES.clear()
-        K2._CHAIN_ENTRIES.clear()
+        clear()
 
 
 def trace_phases(label, plan, names, run):
@@ -620,17 +767,20 @@ def trace_phases(label, plan, names, run):
     return total, bar_us, nb
 
 
-def step_phase_names(layers, last_barrier=False):
-    """The phase ending at each grid barrier of one persistent trunk pass."""
-    names = ["qkv", "attn", "o", "gu", "down"] * layers
+def step_phase_names(layers, last_barrier=False, batched=False):
+    """The phase ending at each grid barrier of one persistent trunk pass
+    (batched: K4's, whose down projection's input is one more phase)."""
+    names = ["qkv", "attn", "o", "gu"] + (["silu"] if batched else []) + ["down"]
+    names = names * layers
     return names if last_barrier else names[:-1]
 
 
-def chain_phase_names(layers, n):
-    """The phase ending at each grid barrier of one persistent chain."""
-    names = step_phase_names(layers, True) * 2
+def chain_phase_names(layers, n, batched=False):
+    """The phase ending at each grid barrier of one persistent chain (K2, K5)."""
+    names = step_phase_names(layers, True, batched) * 2
     for j in range(n):
-        names += ["head"] + (["sample"] + step_phase_names(layers, True) if j + 1 < n else [])
+        names += ["head"] + (["sample"] + step_phase_names(layers, True, batched)
+                             if j + 1 < n else [])
     return names
 
 
@@ -1149,6 +1299,10 @@ def batched_phase(eng, card_line):
         texts = [BATCH_TEXTS[b % len(BATCH_TEXTS)] for b in range(B)]
         ms[B] = check_fixed_run(eng, 300, texts, card_line)
         counts.append(check_launches(f"fixed run B={B}", (0, 0, 300, 300, 0)))
+    # one K4 and one K5 launch per batched frame: the device ops per frame
+    # are the plain ops plus two
+    for B in (8, 32):
+        profile_frames(eng, f"batched B={B}", card_line, B=B)
     return [sum(c) for c in zip(*counts)], ms
 
 
@@ -1661,6 +1815,9 @@ def voice_phase(tok, gen, card_line):
     fw_t = eng.params["talker"]["fused_step"]
     k1 = [check_k1_deep("talker-1.7B", talker_t, fw_t, 256, 60, gen, 20)]
     check_k1_equal("1.7B talker", talker_t, fw_t, ((256, 0), (256, 63), (256, 255)), gen)
+    gen45 = torch.Generator(device=DEV)  # as in main: the other checks keep their inputs
+    gen45.manual_seed(SEED + 17)
+    check_k4_equal("1.7B talker", talker_t, fw_t, ((4, 256),), gen45)
     k1_ms, k1_by = step_bound(talker_t, fw_t, 1, [60], 1, torch.bfloat16)
     log(f"K1 talker-1.7B bound {k1_ms:.4f} ms ({k1_by}): {nbytes(fw_t) / 1e9:.3f} GB of packed "
         f"weights per step [{CARD}]")
@@ -1685,6 +1842,8 @@ def voice_phase(tok, gen, card_line):
                       knobs, *chain, gen, iters, flip_rule=True)
           for knobs, iters in (((0.8, 50, 0.95), 10), ((0.0,), 0), ((1.0, 0, 1.0), 0))]
     check_k2_equal("1.7B MTP trunk", *chain, gen, inputs=4, cache_dtypes=(torch.bfloat16,))
+    check_k5_equal("1.7B MTP trunk", *chain, gen45, batches=(4,), inputs=2,
+                   cache_dtypes=(torch.bfloat16,))
     k3_ms, k2_f32_ms = check_k3_equals_k2(*chain, gen, 10)
     k3[0] = (k3[0][0], k3_ms, k3[0][2])
     bounds = {"K3": chain_bound(cp.transformer, cpp["fused_step"], cpp["fused_heads"], 1)}
@@ -1996,19 +2155,22 @@ def probe_phase():
     return counts, p1, p2
 
 
-def profile_frames(eng, label, card_line, frames=8):
-    """Device time over ``frames`` single-frame decodes of one stream at the
+def profile_frames(eng, label, card_line, frames=8, B=1):
+    """Device time over ``frames`` single-frame decodes of B streams at the
     256 bucket (after three warm ones), from ``torch.profiler``: device busy
-    and idle share per frame, and the top kernels."""
+    and idle share per (batched) frame, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    fns = eng._get_fns(LANG_ENGLISH, 256, 1, 1)
+    fns = eng._get_fns(LANG_ENGLISH, 256, 1, B)
     ids = eng._tokenize(FIXED_TEXT)
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(SEED)
+    gens = []
+    for b in range(B):
+        gens.append(torch.Generator(device=DEV))
+        gens[-1].manual_seed(SEED + b)
     sp = SamplingParams.create(0.8, 50, 0.95, forbid_eos=True)
-    state, bundle = fns.prefill(eng.params, torch.tensor([ids], device=DEV),
-                                torch.tensor([len(ids)], device=DEV), gen)
+    state, bundle = fns.prefill(eng.params, torch.tensor([ids] * B, device=DEV),
+                                torch.tensor([len(ids)] * B, device=DEV),
+                                gens[0] if B == 1 else gens)
 
     def frame(st):
         return fns.decode(eng.params, st, bundle.trailing, bundle.trailing_len,
@@ -2140,6 +2302,25 @@ def main() -> int:
         check_k4_deep("talker", talker_t, talker_fw, 32, 512, gen, 5),
         check_k4_deep("mtp-trunk", mtp_t, mtp_fw, 8, 17, gen, 20),
     ]
+    # the persistent K4 / K5 checks draw from a generator of their own, so
+    # that every other check keeps the inputs it had without them
+    gen45 = torch.Generator(device=DEV)
+    gen45.manual_seed(SEED + 45)
+    check_k4_equal("0.6B talker", talker_t, talker_fw, K4_EQUAL_CASES, gen45)
+    macs = sum(w.numel() for w in (talker_fw.wqkv, talker_fw.wo, talker_fw.wgu, talker_fw.wd))
+    log(f"K4 0.6B talker CUDA-core FMA floor at B=32: {fma_floor_ms(macs, 32):.4f} ms "
+        f"({32 * macs / 1e9:.2f} G multiply-adds at {FP32_FMA_PER_S / 1e12:.1f} T/s) [{CARD}]")
+    for B in (8, 32):
+        x, kc, vc, pos = k4_inputs(talker_t, B, 512, torch.bfloat16, gen45)
+        pos_dev = torch.tensor(pos, device=DEV)
+        in_turns(f"K4 0.6B talker B={B} T=512",
+                 lambda: k4_multi(talker_t, talker_fw, x, pos_dev, kc, vc),
+                 lambda: K1.fused_decode_step_batched(talker_t, talker_fw, x, pos_dev, kc, vc), 10)
+        trace_phases(f"K4 0.6B talker B={B} T=512",
+                     K1._batch_entry(talker_t, talker_fw, B, 512, x.device).plan,
+                     step_phase_names(talker_t.num_layers, batched=True),
+                     lambda: K1.fused_decode_step_batched(talker_t, talker_fw, x, pos_dev, kc, vc))
+        del x, kc, vc
     bounds = {
         "K1": step_bound(talker_t, talker_fw, 1, [200], 1, torch.bfloat16),
         "K4": step_bound(talker_t, talker_fw, 8, [min(p, 511) for p in K4_POSITIONS], 1,
@@ -2194,10 +2375,34 @@ def main() -> int:
     one_slot_ring(lambda: (
         check_k1_equal("0.6B MTP trunk, one ring slot", mtp_t, mtp_fw, ((17, 16),), gen, inputs=1),
         check_k2_equal("0.6B MTP trunk, one ring slot", cp, mtp_fw, heads, tables, fnorm, gen,
-                       inputs=1)))
+                       inputs=1),
+        check_k4_equal("0.6B MTP trunk, one ring slot", mtp_t, mtp_fw, ((5, 17), (32, 17)),
+                       gen45),
+        check_k5_equal("0.6B MTP trunk, one ring slot", cp, mtp_fw, heads, tables, fnorm, gen45,
+                       batches=(8, 32), cache_dtypes=(torch.bfloat16,))))
     # B=8 and 32 (the batched paths), and 4 rows (a B=1 verify iteration at k=4)
     k5 = [check_k5(B, cp, mtp_fw, heads, tables, fnorm, gen, iters)
           for B, iters in ((8, 5), (32, 3), (4, 5))]
+    check_k5_equal("0.6B MTP trunk", cp, mtp_fw, heads, tables, fnorm, gen45)
+    macs = (n + 1) * sum(w.numel() for w in (mtp_fw.wqkv, mtp_fw.wo, mtp_fw.wgu, mtp_fw.wd)) + (
+        heads.q.numel())
+    log(f"K5 0.6B chain CUDA-core FMA floor at B=32: {fma_floor_ms(macs, 32):.4f} ms "
+        f"({32 * macs / 1e9:.2f} G multiply-adds: {n + 1} trunk passes and {n} heads) [{CARD}]")
+    for B in (8, 32):
+        knobs = [K5_KNOBS[b % len(K5_KNOBS)] for b in range(B)]
+        lhb = (torch.randn((B, H), generator=gen45, device=DEV) * 0.5).to(torch.bfloat16)
+        c0b = (torch.randn((B, H), generator=gen45, device=DEV) * 0.02).to(torch.bfloat16)
+        batch_args = (mtp_t, mtp_fw, fnorm, heads, tables, lhb, c0b,
+                      gumbel_noise((n, B, V), gen45, DEV), *zip(*knobs))
+        in_turns(f"K5 0.6B B={B} mixed knobs {K5_KNOBS} bf16 cache",
+                 lambda: k5_multi(*batch_args, cache_dtype=torch.bfloat16),
+                 lambda: K2.fused_mtp_chain_batched(*batch_args, cache_dtype=torch.bfloat16), 5)
+        trace_phases(f"K5 0.6B B={B} mixed knobs",
+                     K2._batch_chain_entry("qtts_mtp_chain_batched", mtp_t, mtp_fw, heads, tables,
+                                           B, torch.bfloat16, lhb.device).plan,
+                     chain_phase_names(mtp_t.num_layers, n, batched=True),
+                     lambda: K2.fused_mtp_chain_batched(*batch_args, cache_dtype=torch.bfloat16))
+    del batch_args
     bounds["K2"] = chain_bound(mtp_t, mtp_fw, heads, 1)
     bounds["K5"] = chain_bound(mtp_t, mtp_fw, heads, 8)
     del mtp_fw, heads, tables

@@ -9,23 +9,28 @@
 //   sub_j[b]    = gumbel_topk_topp_sample(logits_j[b], noise_j[b], knobs[b]);
 //   emb = pred_embed[j][sub_j[b]] (f32); sub_sum[b] += emb;
 //   one trunk pass on emb at position 2 + j (not after the last step).
-// The trunk passes are kernel K4's layer kernels (fused_step_batched.cu) at
-// T = n + 2, as K2 reuses K1's.  The head product is K4's batched GEMV (each
-// head row read once for all B rows), and the sampler runs one block per row
-// (grid B) with that row's knobs: greedy rows take the first-index argmax,
-// the others K2's 40-step bisections for the top-k and top-p thresholds and
-// the argmax of masked + noise.  Row b's operations are K2's on that row, so
-// a row of K5 equals K2 on the row's inputs and noise.  The sampled indices
-// stay on the device, and the knobs travel by value in the launch arguments:
-// the chain syncs nothing and copies nothing to the device.
+// The whole chain is ONE persistent cooperative launch (bchain_kernel), as
+// K2 is for one row: the two prefix passes and the 14 trunk passes run the
+// persistent K4's phases (csrc/qtts_stream.cuh) at T = n + 2 with every row
+// at the same slot, the 15 heads run as B-row GEMV phases on the same TMA
+// weight ring in chain order (each head row read once for all B rows), and
+// block b samples row b with K2's register sampler (qtts_sample_fast) and
+// that row's knobs and noise, then gathers the row's embedding into
+// sub_sum[b] in K2's order, while the next pass's first weights load.  Row
+// b's operations are K2's on that row, so a row of K5 equals K2 on the row's
+// inputs and noise bit for bit, and the launch-per-op chain below
+// (qtts_mtp_chain_batched_multi) bit for bit.  The sampled indices stay on
+// the device, and the knobs travel by value in the launch arguments: the
+// chain syncs nothing and copies nothing to the device.
 //
 // What bounds it on the H100: 16 trunk passes x 82 MB of int8 plus 15 x 2 MB
-// of heads per frame, about 1.34 GB, now shared by B rows (0.40 ms at the
-// 3.35 TB/s of an H100 SXM, NVIDIA data sheet).  What this simple design
-// leaves on the table: the trunk streams from device memory every pass (no
-// L2-persistence window), ~900 launches per frame, and K4's GEMV limits.
+// of heads per frame, about 1.34 GB, shared by B rows (0.40 ms at the 3.35
+// TB/s of an H100 SXM, NVIDIA data sheet); at B = 32 the 16 x 81.8 M x 32
+// multiply-adds on CUDA cores (41.9 G FMA, ~1.25 ms at 67 TFLOPS float32).
+// What the design leaves: ~510 grid barriers per chain, the trunk streamed
+// from device memory every pass, and the sampler on one block per row.
 
-#include "qtts_kernels.cuh"
+#include "qtts_stream.cuh"
 
 namespace {
 
@@ -66,13 +71,93 @@ __global__ void __launch_bounds__(QTTS_GEMV_THREADS) sample_rows_kernel(RowSampl
   }
 }
 
+// The persistent batched chain's one argument (travels by value).
+struct BChainLaunch {
+  QttsStepWeights w;
+  QttsBatchScratch s;
+  QttsPlan p;
+  QttsChainBatchArgs c;
+};
+
+template <typename CT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+bchain_kernel(const __grid_constant__ BChainLaunch a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  const QttsChainBatchArgs& c = a.c;
+  const int H = a.w.H, V = c.V, n = c.n, T = n + 2, B = c.B;
+  qtts_ring_start(ring, seq, smem, a.p, a.w, c.heads, c.head_scales, n, V);
+  int stage = 0;
+  int gb0, nb;
+  qtts_group_rows(a.p, gb0, nb);
+  CT* kc = static_cast<CT*>(c.k_cache);
+  CT* vc = static_cast<CT*>(c.v_cache);
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
+  qtts_bstep_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.last_hidden, c.x, kc, vc, B, T,
+                        nullptr, 0, smem, true);
+  qtts_bstep_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.code0_embed, c.x, kc, vc, B, T,
+                        nullptr, 1, smem, true);
+  for (int j = 0; j < n; ++j) {
+    // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j, every row
+    qtts_bprologue<QTTS_IN_NORM>(c.x + (size_t)gb0 * H, H, c.final_norm, a.w.eps, H, nb, act);
+    qtts_ring_bgemv<false>(a.p, ring, seq, QTTS_KIND_HEAD, stage, act, nb,
+                           c.logits + (size_t)gb0 * V, V);
+    qtts_phase_barrier(a.p);
+    if ((int)blockIdx.x < B) {
+      // row b's draw on block b, then its embedding row into sub_sum and
+      // the next trunk input
+      const int b = blockIdx.x;
+      const int sub = qtts_sample_fast(c.logits + (size_t)b * V, V,
+                                       c.noise + j * c.noise_step_stride + b * c.noise_row_stride,
+                                       c.temperature[b], c.top_k[b], c.top_p[b], c.greedy[b],
+                                       *reinterpret_cast<QttsSampleSmem*>(smem));
+      if (threadIdx.x == 0) c.subcodes[b * n + j] = sub;
+      const __nv_bfloat16* table = c.tables + (size_t)j * c.Vt * H + (size_t)sub * H;
+      float* sum = c.sub_sum + (size_t)b * H;
+      float* x_next = c.x_in + (size_t)b * H;
+      for (int k = threadIdx.x; k < H; k += blockDim.x) {
+        const float e = __bfloat162float(table[k]);
+        sum[k] = j == 0 ? e : sum[k] + e;
+        x_next[k] = e;
+      }
+    }
+    if (j + 1 < n) {
+      qtts_phase_barrier(a.p);  // the next trunk pass reads the sampled embeddings
+      qtts_bstep_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.x_in, c.x, kc, vc, B, T, nullptr,
+                            2 + j, smem, true);
+    }
+  }
+  qtts_trace_end(a.p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Kernel K5 entry: subcodes [B, n] and sub_sum [B, H] of one frame's chain.
+// Kernel K5 entry: subcodes [B, n] and sub_sum [B, H] of one frame's chain,
+// in one cooperative launch on the plan's grid.
 int qtts_mtp_chain_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
-                           const QttsChainBatchArgs* a, void* stream) {
+                           const QttsPlan* p, const QttsChainBatchArgs* a, void* stream) {
+  const int T = a->n + 2, qd = w->nq * w->D, B = a->B;
+  if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
+      w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || a->n < 1 || a->V > a->Vt ||
+      a->V > QTTS_P_THREADS * QTTS_SAMPLE_VPT || B < 1 || B > QTTS_MAX_BATCH || B > p->grid ||
+      (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits || !qtts_plan_ok(*p, *w, a->V, B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const BChainLaunch launch{*w, *s, *p, *a};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a->cache_bf16 ? qtts_launch_persistent(bchain_kernel<__nv_bfloat16>, launch, *p, st)
+                       : qtts_launch_persistent(bchain_kernel<float>, launch, *p, st);
+}
+
+// The launch-per-op chain K5 ran before it was persistent: K4's layer
+// launches for each trunk pass, the batched head GEMV and one sampler block
+// per row for each step.  The reference chip_smoke.py holds the persistent
+// chain to, bit for bit; no wrapper calls it.
+int qtts_mtp_chain_batched_multi(const QttsStepWeights* w, const QttsBatchScratch* s,
+                                 const QttsChainBatchArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = a->n + 2, H = w->H, V = a->V, B = a->B;
   if (H % 16 != 0 || V > a->Vt || B < 1 || B > QTTS_MAX_BATCH) return (int)cudaErrorInvalidValue;

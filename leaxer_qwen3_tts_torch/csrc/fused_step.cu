@@ -176,7 +176,8 @@ int qtts_decode_step_multi(const QttsStepWeights* w, const QttsStepScratch* s, c
 
 // The sizes and limits ops/persistent.py plans with: sizeof(QttsAttnSmem),
 // sizeof(QttsSampleSmem), the most rows a stage may hold, the threads of a
-// block, the widest GEMV input, the kv heads the attention tickets take.
+// block, the widest GEMV input, the kv heads a plan takes, the attention
+// tickets of a batched launch, the rows a batched launch takes.
 void qtts_persistent_sizes(int* out) {
   out[0] = (int)sizeof(QttsAttnSmem);
   out[1] = (int)sizeof(QttsSampleSmem);
@@ -184,6 +185,8 @@ void qtts_persistent_sizes(int* out) {
   out[3] = QTTS_P_THREADS;
   out[4] = QTTS_P_MAX_K;
   out[5] = QTTS_P_MAX_KV_HEADS;
+  out[6] = QTTS_P_MAX_TICKETS;
+  out[7] = QTTS_MAX_BATCH;
 }
 
 // The final norm and an int8 head on K1's GEMV: hidden = RMSNorm(x) * norm_w

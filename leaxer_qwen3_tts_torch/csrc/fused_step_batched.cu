@@ -1,6 +1,7 @@
 // Kernel K4: one decode step of B = 1..32 streams through every layer of a
 // GQA transformer, each stream at its own position (the continuous pool's
-// slots fill at different rates), with each weight row read once for all B.
+// slots fill at different rates), with each weight row read once for all B,
+// as ONE persistent cooperative launch (bstep_kernel).
 //
 // Replaces leaxer_qwen3_tts_tpu/ops/fused_step.py::fused_decode_step_batched
 // (_make_kernel_batched, modes "bvmem" and "bwin").  Row b computes exactly
@@ -16,23 +17,34 @@
 // a row's position exits at once.  The TPU's window alignment gate is not
 // carried over: the split attention takes any bucket.
 //
-// Per layer: a row kernel turns the GEMV input into bf16 once per row (the
-// values K1's in-block prologue computes), and the batched GEMV stages it in
-// shared memory 512 columns at a time -- B x 512 bf16, 32 KB at B = 32, where
-// K1's whole-vector float32 staging would need B x 3072 x 4 = 384 KB for the
-// down projection, beyond the 227 KB a Hopper block can have.  Each lane
-// keeps 2 x B float32 accumulators (B rounded up to 4, 8, 16 or 32).
+// The persistent step runs K1's transport (csrc/qtts_stream.cuh): the same
+// plan rows per block, the same TMA weight ring and stage sequence, five
+// grid barriers per layer.  What the batch changes: every block computes
+// its rows' products for a group of batch rows, whose bf16 GEMV inputs it
+// holds in shared memory (K1's prologue values, B rows' block reductions on
+// one pair of barriers); a stage is cut into units of <= 4 weight rows x <= 8
+// batch rows, so a lane holds at most 32 accumulators; attention items run
+// over (row, kv head, split) with a ticket per (row, kv head) and each row's
+// own split count.  Where B rows' inputs do not fit beside the ring (B x
+// max(H, I) x 2 bytes: 192 KB at B = 32 and 0.6B, 384 KB at 1.7B) the plan
+// splits the grid into groups, each taking every weight row for its share
+// of the batch (ops/persistent.py).  Every (row, output) value is K1's
+// arithmetic in K1's order, so row b equals K1 on row b bit for bit, and the
+// launch-per-op sequence below (qtts_decode_step_batched_multi) bit for bit.
 //
-// What bounds it on the H100: still the int8 weight bytes, 440 MB per step
-// of the 0.6B talker, now shared by B streams (0.13 ms at the 3.35 TB/s of an
-// H100 SXM, NVIDIA data sheet), plus the staged activations, B x K x 2 bytes
-// per 16 output rows, read from L2.  What this simple design leaves on the
-// table: nine launches per layer with the activation round-tripping through
-// global memory, no cp.async / TMA pipeline for the weight stream, the
-// per-lane accumulators of a B = 32 tile held whatever B is within it, and no
-// persistent kernel or CUDA graph.
+// What bounds it on the H100: the int8 weight bytes, 440 MB per step of the
+// 0.6B talker, shared by B streams (0.13 ms at the 3.35 TB/s of an H100 SXM,
+// NVIDIA data sheet); at B = 32 the B x 440 M multiply-adds on CUDA cores
+// (14.1 G FMA, ~0.42 ms at the data sheet's 67 TFLOPS float32), since
+// tensor cores would sum in another order than K1.  What the design leaves:
+// every block reads its group's inputs from L2 in every phase (the silu
+// input is B x 2I floats), the grid barriers, and no CUDA graph.
+//
+// The launch-per-op sequence (nine launches per layer, kept for the checks
+// and for K6's GEMV): a row kernel turns the GEMV input into bf16 once per
+// row, and the batched GEMV stages it in shared memory 512 columns at a time.
 
-#include "qtts_kernels.cuh"
+#include "qtts_stream.cuh"
 
 namespace {
 
@@ -153,6 +165,33 @@ cudaError_t launch_gemv_rows(const __nv_bfloat16* in, const int8_t* W, const flo
   return cudaGetLastError();
 }
 
+// The persistent batched step's one argument (travels by value).
+struct BStepLaunch {
+  QttsStepWeights w;
+  QttsBatchScratch s;
+  QttsPlan p;
+  const float* x_in;
+  float* x;
+  void* k_cache;
+  void* v_cache;
+  const int64_t* pos_dev;
+  int32_t B, T, pos_host;
+};
+
+template <typename CT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+bstep_kernel(const __grid_constant__ BStepLaunch a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
+  int stage = 0;
+  qtts_bstep_phases<CT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
+                        static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.B, a.T,
+                        a.pos_dev, a.pos_host, smem, false);
+  qtts_trace_end(a.p);
+}
+
 }  // namespace
 
 int qtts_launch_prep_rows(int in_mode, const float* in, int ld_in, const float* norm_w,
@@ -229,10 +268,33 @@ extern "C" {
 
 // Kernel K4 entry: x_out [B, H] = decode_step(x_in) with the caches updated in
 // place; pos_dev [B] int64 on the device, or null for every row at pos_host.
+// One cooperative launch on the plan's grid.
 int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
-                             const float* x_in, float* x_out, void* k_cache, void* v_cache,
-                             int cache_bf16, int B, int T, const int64_t* pos_dev, int pos_host,
-                             void* stream) {
+                             const QttsPlan* p, const float* x_in, float* x_out, void* k_cache,
+                             void* v_cache, int cache_bf16, int B, int T, const int64_t* pos_dev,
+                             int pos_host, void* stream) {
+  const int qd = w->nq * w->D;
+  const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
+                               : pos_host / QTTS_ATTN_CHUNK + 1;
+  if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
+      w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || B < 1 || B > QTTS_MAX_BATCH ||
+      T < 1 || (pos_dev == nullptr && (pos_host < 0 || pos_host >= T)) ||
+      n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const BStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, pos_dev, B, T, pos_host};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return cache_bf16 ? qtts_launch_persistent(bstep_kernel<__nv_bfloat16>, a, *p, st)
+                    : qtts_launch_persistent(bstep_kernel<float>, a, *p, st);
+}
+
+// The launch-per-op sequence K4 ran before it was persistent (nine launches
+// per layer): the reference chip_smoke.py holds the persistent step to, bit
+// for bit.  No wrapper calls it.
+int qtts_decode_step_batched_multi(const QttsStepWeights* w, const QttsBatchScratch* s,
+                                   const float* x_in, float* x_out, void* k_cache, void* v_cache,
+                                   int cache_bf16, int B, int T, const int64_t* pos_dev,
+                                   int pos_host, void* stream) {
   return qtts_launch_decode_step_batched(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, B, T,
                                          pos_dev, pos_host, static_cast<cudaStream_t>(stream));
 }

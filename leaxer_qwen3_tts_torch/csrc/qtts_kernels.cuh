@@ -71,6 +71,7 @@ struct QttsBatchScratch {
   float* part;         // [B, nq, max_splits, D + 2]: split-softmax partials
   __nv_bfloat16* hb;   // [B, max(H, nq*D, I)]: the bf16 input of the next GEMV
   int32_t max_splits;
+  float* attn;         // [B, nq*D]: the merged attention (the persistent K4 and K5)
 };
 
 constexpr int QTTS_MAX_BATCH = 32;  // rows K4 and K5 take

@@ -1,6 +1,8 @@
 // The persistent transport of kernels K1 and K2: one cooperative launch per
 // decode step (K1) or per sub-code chain (K2), whose weights stream through a
-// shared-memory ring ahead of the data dependency.
+// shared-memory ring ahead of the data dependency.  Kernels K4 and K5 run the
+// same transport for B rows (the batched section below), each row K1's or
+// K2's arithmetic in K1's or K2's order.
 //
 // What it keeps from the launch-per-op sequences (qtts_decode_step_multi,
 // qtts_mtp_chain_multi): every value, bit for bit.  Each output row is one
@@ -67,18 +69,28 @@ constexpr int QTTS_P_WARPS = QTTS_P_THREADS / 32;
 constexpr int QTTS_P_RPW = 8;  // rows a warp holds per stage
 constexpr int QTTS_P_MAX_STAGE_ROWS = QTTS_P_WARPS * QTTS_P_RPW;  // 64
 constexpr int QTTS_P_MAX_K = 24 * QTTS_P_THREADS;  // 6144: the widest GEMV input in registers
-constexpr int QTTS_P_MAX_KV_HEADS = 64;  // the plan's attention tickets
+constexpr int QTTS_P_MAX_KV_HEADS = 64;  // the kv heads a plan takes
+// the plan's attention tickets: one per (row, kv head) of a batched launch
+constexpr int QTTS_P_MAX_TICKETS = QTTS_MAX_BATCH * QTTS_P_MAX_KV_HEADS;
 constexpr int QTTS_SPEC_DEPTH = 2;  // bisection rounds per sampler pass: 3 candidates
 constexpr int QTTS_BISECT_ROUNDS = 40;
 constexpr int QTTS_SAMPLE_VPT = 8;  // logits per thread: V <= 2048
 
 // The per-launch work plan (mirrored by ctypes in ops/_build.py, built by
 // ops/persistent.py::make_plan).  Shared memory, in order: the union region
-// (GEMV input and the combine's factors, two attention items, or the
-// sampler's scratch), n_slots mbarriers, n_slots scale areas of slot_rows
-// floats, n_slots weight slots.
+// (the GEMV input: MAX_K floats at one row, or the bf16 inputs of a block's
+// batch rows; two attention items; or the sampler's scratch), n_slots
+// mbarriers, n_slots scale areas of slot_rows floats, n_slots weight slots.
+//
+// A batched launch (K4, K5) may split its grid into `groups` groups of
+// consecutive blocks, group g taking batch rows [g * batch / groups,
+// (g + 1) * batch / groups) through every product: each group holds every
+// weight row once, each block its group's rows' inputs in shared memory.
 struct QttsPlan {
-  const int32_t* bounds;  // [QTTS_KINDS, grid + 1]: block b's rows of kind k start at [k][b]
+  // [QTTS_KINDS, grid + groups]: group by group, the row starts of the
+  // group's blocks and then its end; block b of group g owns rows
+  // [k][b + g] .. [k][b + g + 1] of kind k
+  const int32_t* bounds;
   int32_t grid;           // blocks: all co-resident
   int32_t n_slots;        // ring slots
   int32_t slot_bytes;     // weight bytes per slot (a multiple of 16)
@@ -86,10 +98,18 @@ struct QttsPlan {
   int32_t stage_rows[QTTS_KINDS];  // rows per stage of each kind (multiples of 4, <= 64)
   int32_t smem_bytes;     // dynamic shared memory
   int32_t union_bytes;    // bytes of the union region (a multiple of 128)
-  uint32_t* tickets;      // [QTTS_P_MAX_KV_HEADS] attention tickets per kv head (zeroed once)
+  uint32_t* tickets;      // [n_tickets] attention tickets per (row, kv head) (zeroed once)
   int32_t trace_rows;     // rows of trace (0: no trace)
   uint64_t* trace;        // [trace_rows, grid] %globaltimer ns: see qtts_phase_barrier
+  int32_t batch;          // rows of the launch (1: K1, K2)
+  int32_t groups;         // batch groups (1 unless batched)
+  int32_t n_tickets;
 };
+
+// The group of this block (groups of floor-divided block ranges).
+static __host__ __device__ __forceinline__ int qtts_group_of(const QttsPlan& p, int block) {
+  return ((block + 1) * p.groups - 1) / p.grid;
+}
 
 // The sampler's shared scratch (inside the union region): per-warp partials
 // of the pass's candidates, double buffered.
@@ -240,6 +260,7 @@ static __device__ void qtts_seq_build(QttsSeq& q, const QttsPlan& p, const QttsS
                                       const int8_t* heads, const float* head_scales, int n_heads,
                                       int V) {
   const int H = w.H, qd = w.nq * w.D, A = qd + 2 * w.nk * w.D, I = w.I;
+  const int at = blockIdx.x + qtts_group_of(p, blockIdx.x);  // the block's bounds entry
   const int N[QTTS_KINDS] = {A, H, 2 * I, H, V};
   const int K[QTTS_KINDS] = {H, qd, H, I, H};
   const int8_t* W[QTTS_KINDS] = {w.wqkv, w.wo, w.wgu, w.wd, heads};
@@ -253,8 +274,8 @@ static __device__ void qtts_seq_build(QttsSeq& q, const QttsPlan& p, const QttsS
     r.s_unit = (size_t)N[k];
     r.K = K[k];
     r.stage_rows = p.stage_rows[k];
-    r.r0 = used ? p.bounds[k * (p.grid + 1) + blockIdx.x] : 0;
-    r.rows = used ? p.bounds[k * (p.grid + 1) + blockIdx.x + 1] - r.r0 : 0;
+    r.r0 = used ? p.bounds[k * (p.grid + p.groups) + at] : 0;
+    r.rows = used ? p.bounds[k * (p.grid + p.groups) + at + 1] - r.r0 : 0;
     r.chunks = r.rows > 0 ? (r.rows + r.stage_rows - 1) / r.stage_rows : 0;
   }
   q.L = w.L;
@@ -1120,15 +1141,473 @@ static __device__ int qtts_sample_fast(const float* logits, int V, const float* 
 }
 
 // ---------------------------------------------------------------------------
+// B rows against one weight stream (K4, K5)
+// ---------------------------------------------------------------------------
+//
+// A batched launch streams exactly the stages K1 (K2) streams on its plan;
+// the batch adds arithmetic per byte.  Each block holds its group's rows'
+// GEMV inputs in the union region as bf16 (exactly the values
+// qtts_prologue_vpt rounds to), row by row, K values each.  A stage is cut
+// into units of R stage rows x BT batch rows, dealt to the warps in turn; a
+// unit walks the whole input in K1's lane order (lane l takes the 16
+// columns at l * 16 + t * 512 in pass t, fmaf in element order), converting
+// each weight once for its BT rows and each input value once for its R rows,
+// then runs K1's xor butterfly, scale product and residual sum per (row,
+// batch row).  So every (n, b) output is K1's on row b, bit for bit, and a
+// lane holds R x BT <= 32 accumulators whatever B is.
+
+// The group rows [b0, b0 + nb) of this block (all B rows with one group).
+static __device__ __forceinline__ void qtts_group_rows(const QttsPlan& p, int& b0, int& nb) {
+  const int g = qtts_group_of(p, blockIdx.x);
+  b0 = g * p.batch / p.groups;
+  nb = (g + 1) * p.batch / p.groups - b0;
+}
+
+// The column of act's swizzled row layout that holds input column k: each
+// 512-column pass stores lane l's second 8 columns 256 after its first, so
+// that the 32 lanes' 16-byte loads of one half fall on distinct banks.
+// Rows are kp = K rounded up to 512 apart.
+static __device__ __forceinline__ int qtts_act_col(int k) {
+  return (k & ~511) | (((k >> 3) & 1) << 8) | (((k >> 4) & 31) << 3) | (k & 7);
+}
+
+// Unit (stage rows [r0, r0 + R), group rows [b0, b0 + BT) of nb) of a stage
+// whose first row is n0: `out` rows are `ldo` floats apart, row 0 the
+// group's first.  Batch rows past nb compute on row nb - 1 and store nothing.
+// Every array index below is a compile-time constant once the loops unroll.
+template <bool ACCUM, int R, int BT>
+static __device__ __forceinline__ void qtts_bstage_unit(const int8_t* ws, const float* ss,
+                                                        const __nv_bfloat16* act, int K,
+                                                        float* out, int ldo, int n0, int r0,
+                                                        int b0, int nb, int lane) {
+  // lane l stores pair l = (stage row r0 + l / BT, batch row b0 + l % BT)
+  const int pr = lane / BT, pb = lane % BT;
+  const bool stores = lane < R * BT && b0 + pb < nb;
+  float* dst = out + (size_t)(b0 + pb) * ldo + n0 + r0 + pr;
+  float res = 0.f;
+  if (ACCUM && stores) res = *dst;
+  const int kp = (K + 511) & ~511;
+  const int8_t* wrow = ws + (size_t)r0 * K + lane * 16;
+  const __nv_bfloat16* arow = act + lane * 8;
+  float acc[R][BT];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int b = 0; b < BT; ++b) acc[r][b] = 0.f;
+  }
+  for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
+    const int t0 = k0 - lane * 16;  // the pass's first column
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t wv[R][2];  // the rows' 8 int8 of this half
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int2 v = *reinterpret_cast<const int2*>(wrow + (size_t)r * K + t0 + 8 * h);
+        wv[r][0] = (uint32_t)v.x;
+        wv[r][1] = (uint32_t)v.y;
+      }
+      uint32_t av[BT][4];  // the batch rows' 8 bf16 of this half
+#pragma unroll
+      for (int b = 0; b < BT; ++b) {
+        const int row = min(b0 + b, nb - 1);
+        const int4 v =
+            *reinterpret_cast<const int4*>(arow + (size_t)row * kp + t0 + 256 * h);
+        av[b][0] = (uint32_t)v.x;
+        av[b][1] = (uint32_t)v.y;
+        av[b][2] = (uint32_t)v.z;
+        av[b][3] = (uint32_t)v.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float wf[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) wf[r] = qtts_i8_to_float(wv[r][e >> 2], e & 3);
+#pragma unroll
+        for (int b = 0; b < BT; ++b) {
+          const uint32_t word = av[b][e >> 1];
+          const float hv = __uint_as_float((e & 1) ? (word & 0xffff0000u) : (word << 16));
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r][b] = fmaf(hv, wf[r], acc[r][b]);
+        }
+      }
+    }
+  }
+  float v = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      const float s = qtts_warp_reduce(acc[r][b], QttsSumF());
+      if (lane == r * BT + b) v = s;  // the butterfly leaves the sum on every lane
+    }
+  }
+  if (stores) {
+    const float sv = __fmul_rn(v, ss[r0 + pr]);
+    *dst = ACCUM ? __fadd_rn(res, sv) : sv;
+  }
+}
+
+// The cost of a stage cut into units of R rows x BT batch rows: the slowest
+// warp's units, each R * BT multiply-adds, 2R weight and BT input
+// conversions per column.
+static __device__ __forceinline__ int qtts_unit_cost(int rows, int nb, int R, int BT) {
+  const int units = (rows / R) * ((nb + BT - 1) / BT);
+  return (units + QTTS_P_WARPS - 1) / QTTS_P_WARPS * (R * BT + 2 * R + BT);
+}
+
+// A stage's units dealt to the warps: (R, BT) of {1, 2, 4} x {2, 4, 8} of
+// the least qtts_unit_cost (the larger R on a tie).
+template <bool ACCUM>
+static __device__ __forceinline__ void qtts_bstage(const int8_t* ws, const float* ss,
+                                                   const __nv_bfloat16* act, int K, float* out,
+                                                   int ldo, int n0, int rows, int nb, int warp,
+                                                   int lane) {
+  int R = 4, bt = 8, best = qtts_unit_cost(rows, nb, 4, 8);
+#pragma unroll
+  for (int c = 1; c < 9; ++c) {
+    const int r = 4 >> (c / 3), b = 8 >> (c % 3);
+    const int cost = qtts_unit_cost(rows, nb, r, b);
+    if (cost < best) {
+      best = cost;
+      R = r;
+      bt = b;
+    }
+  }
+  const int tiles = (nb + bt - 1) / bt;
+  const int units = (rows / R) * tiles;
+  for (int u = warp; u < units; u += QTTS_P_WARPS) {
+    const int r0 = (u / tiles) * R, b0 = (u % tiles) * bt;
+#define QTTS_UNIT(RR, BB) \
+  qtts_bstage_unit<ACCUM, RR, BB>(ws, ss, act, K, out, ldo, n0, r0, b0, nb, lane)
+    if (bt == 8) {
+      if (R == 4) QTTS_UNIT(4, 8); else if (R == 2) QTTS_UNIT(2, 8); else QTTS_UNIT(1, 8);
+    } else if (bt == 4) {
+      if (R == 4) QTTS_UNIT(4, 4); else if (R == 2) QTTS_UNIT(2, 4); else QTTS_UNIT(1, 4);
+    } else {
+      if (R == 4) QTTS_UNIT(4, 2); else if (R == 2) QTTS_UNIT(2, 2); else QTTS_UNIT(1, 2);
+    }
+#undef QTTS_UNIT
+  }
+}
+
+// Consumes the block's stages of one GEMV kind for its nb group rows, as
+// qtts_ring_gemv does for one row: out[b, n] (+)= scale[n] * sum_k act[b, k]
+// * W[n, k], out's rows ldo floats apart from the group's first.
+template <bool ACCUM>
+static __device__ __forceinline__ void qtts_ring_bgemv(const QttsPlan& p, const QttsRing& ring,
+                                                       QttsSeq& q, int kind, int& stage,
+                                                       const __nv_bfloat16* act, int nb,
+                                                       float* out, int ldo) {
+  qtts_trace_mark(p, 0);
+  const QttsKindRows& r = q.kind[kind];
+  const int K = r.K, chunks = r.chunks, stage_rows = r.stage_rows, r0 = r.r0, nrows = r.rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = 0; c < chunks; ++c) {
+    const int slot = stage % ring.n_slots;
+    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);
+    if (c == 0) qtts_trace_mark(p, 1);
+    const int rows = min(stage_rows, nrows - c * stage_rows);
+    const int8_t* ws = reinterpret_cast<const int8_t*>(ring.slots + (size_t)slot * ring.slot_bytes);
+    const float* ss = ring.scales + (size_t)slot * ring.slot_rows;
+    qtts_bstage<ACCUM>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);
+    __syncthreads();  // every warp is done with the slot
+    if (c + 1 == chunks) qtts_trace_mark(p, 2);
+    if (threadIdx.x == 0) qtts_ring_issue(ring, q);
+    ++stage;
+  }
+}
+
+// The batched prologue's block-reduction scratch: per-warp partials and each
+// row's RMS factor for up to 8 rows, by chunk parity.  One instance per
+// kernel (a __shared__ array per template instance would not fit the
+// plan's static reserve).
+struct QttsBRed {
+  float part[2][8][QTTS_P_WARPS];
+  float rs[2][8];
+};
+static __device__ __forceinline__ QttsBRed& qtts_bred() {
+  __shared__ QttsBRed red;
+  return red;
+}
+
+// The GEMV inputs of nb rows (`ld` floats apart in `in`) into act [nb, kp]
+// bf16 (qtts_act_col's layout), IN_MODE NORM or PLAIN: row b's values are
+// qtts_prologue_vpt's on row b (the same partition of K over the 256
+// threads, the same expressions, qtts_block_reduce's tree), CB rows at a
+// time with every load issued before its arithmetic and the CB rows'
+// reductions sharing one pair of block barriers.
+template <int IN_MODE, int VPT>
+static __device__ __forceinline__ void qtts_bprologue_vpt(const float* in, int ld,
+                                                          const float* __restrict__ norm_w,
+                                                          float eps, int K, int nb,
+                                                          __nv_bfloat16* act) {
+  static_assert(IN_MODE != QTTS_IN_SILU, "the silu input is qtts_silu_rows'");
+  constexpr int CB0 = 48 / VPT;
+  constexpr int CB = CB0 < 1 ? 1 : (CB0 > 8 ? 8 : CB0);  // rows per chunk: 24 to 48 loads in flight
+  QttsBRed& red = qtts_bred();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kp = (K + 511) & ~511;  // act's row stride
+  float nw[VPT];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int k = tid + i * QTTS_P_THREADS;
+    nw[i] = IN_MODE == QTTS_IN_NORM && k < K ? norm_w[k] : 0.f;
+  }
+  for (int c0 = 0, par = 0; c0 < nb; c0 += CB, par ^= 1) {
+    float a[CB][VPT];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+#pragma unroll
+      for (int i = 0; i < VPT; ++i) {
+        const int k = tid + i * QTTS_P_THREADS;
+        a[c][i] = c0 + c < nb && k < K ? in[(size_t)(c0 + c) * ld + k] : 0.f;
+      }
+    }
+    float r[CB];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) r[c] = 0.f;
+    if (IN_MODE == QTTS_IN_NORM) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        float ss = 0.f;
+#pragma unroll
+        for (int i = 0; i < VPT; ++i) {
+          if (tid + i * QTTS_P_THREADS < K) {
+            const float v = a[c][i];
+            ss += v * v;
+          }
+        }
+        ss = qtts_warp_reduce(ss, QttsSumF());
+        if (lane == 0) red.part[par][c][warp] = ss;
+      }
+      __syncthreads();
+      // qtts_block_reduce's second level, one warp per row
+      for (int c = warp; c < CB; c += QTTS_P_WARPS) {
+        float t = lane < QTTS_P_WARPS ? red.part[par][c][lane] : QttsSumF::identity();
+        t = qtts_warp_reduce(t, QttsSumF());
+        if (lane == 0) red.rs[par][c] = rsqrtf(t / (float)K + eps);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < CB; ++c) r[c] = red.rs[par][c];
+    }
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      if (c0 + c < nb) {
+#pragma unroll
+        for (int i = 0; i < VPT; ++i) {
+          const int k = tid + i * QTTS_P_THREADS;
+          if (k < K) {
+            const float v = IN_MODE == QTTS_IN_NORM ? (a[c][i] * r[c]) * nw[i] : a[c][i];
+            act[(size_t)(c0 + c) * kp + qtts_act_col(k)] = __float2bfloat16_rn(v);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The batched GEMV input (NORM or PLAIN) of K <= QTTS_P_MAX_K, dispatched as
+// qtts_prologue.
+template <int IN_MODE>
+static __device__ __forceinline__ void qtts_bprologue(const float* in, int ld,
+                                                      const float* __restrict__ norm_w, float eps,
+                                                      int K, int nb, __nv_bfloat16* act) {
+  if (K <= 4 * QTTS_P_THREADS) {
+    qtts_bprologue_vpt<IN_MODE, 4>(in, ld, norm_w, eps, K, nb, act);
+  } else if (K <= 8 * QTTS_P_THREADS) {
+    qtts_bprologue_vpt<IN_MODE, 8>(in, ld, norm_w, eps, K, nb, act);
+  } else if (K <= 12 * QTTS_P_THREADS) {
+    qtts_bprologue_vpt<IN_MODE, 12>(in, ld, norm_w, eps, K, nb, act);
+  } else {
+    qtts_bprologue_vpt<IN_MODE, 24>(in, ld, norm_w, eps, K, nb, act);
+  }
+}
+
+// The rows' positions of a batched step, read once per launch.
+static __device__ __forceinline__ int* qtts_brow_pos() {
+  __shared__ int pos[QTTS_MAX_BATCH];
+  return pos;
+}
+
+// The down projection's input, silu(gate) * up of every row, computed once
+// over the grid (qtts_prologue_vpt's expression) into hb [B, kp] bf16 in
+// act's layout, where each block's rows are then one bulk copy; the proxy
+// fence orders these stores before the copies that read them.
+static __device__ __forceinline__ void qtts_silu_rows(const float* gu, int I, int B,
+                                                      __nv_bfloat16* hb) {
+  const int kp = (I + 511) & ~511;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * I; e += gridDim.x * blockDim.x) {
+    const int b = e / I, k = e - b * I;
+    const float g = gu[(size_t)b * 2 * I + k];
+    const float up = gu[(size_t)b * 2 * I + I + k];
+    const float v = g * (1.f / (1.f + expf(-g))) * up;
+    hb[(size_t)b * kp + qtts_act_col(k)] = __float2bfloat16_rn(v);
+  }
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// The mbarrier of the batched inputs' bulk copies (one per kernel).
+static __device__ __forceinline__ uint64_t* qtts_act_bar() {
+  __shared__ __align__(8) uint64_t bar;
+  return &bar;
+}
+
+// `bytes` (a multiple of 16) of device memory into act by one bulk copy of
+// thread 0; every thread returns once it has landed.  `loads` counts the
+// copies since the barrier's init (its phase parity).
+static __device__ __forceinline__ void qtts_act_load(const void* src, uint32_t bytes, void* act,
+                                                     int& loads) {
+  uint64_t* bar = qtts_act_bar();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    qtts_mbar_expect_tx(bar, bytes);
+    qtts_bulk_load(act, src, bytes, bar);
+  }
+  qtts_mbar_wait(bar, (uint32_t)(loads++ & 1));
+}
+
+// Attention work item `it` of a batched layer: the rows' items in row order,
+// row b's nk x (pos_b / CHUNK + 1) items (kv head fastest, then split), so
+// that only items with slots to attend are dealt.  False past the last.
+// ops/persistent.py's attention_items models this dealing.
+struct QttsBItem {
+  int b, h, split, pos;
+};
+static __device__ __forceinline__ bool qtts_bitem(int it, int B, int nk, QttsBItem& item) {
+  const int* rows = qtts_brow_pos();
+  for (int b = 0; b < B; ++b) {
+    const int pos = rows[b];
+    const int n = nk * (pos / QTTS_ATTN_CHUNK + 1);
+    if (it < n) {
+      item = QttsBItem{b, it % nk, it / nk, pos};
+      return true;
+    }
+    it -= n;
+  }
+  return false;
+}
+
+// One decode step of B rows through every layer, as qtts_step_phases' grid
+// phases: row b at position min(pos_dev[b], T - 1), or every row at
+// pos_host without pos_dev.  The cache is [L, B, nk, T, D]; x_in [B, H] is
+// read by layer 0's qkv prologue and copied to x there.  Attention items run
+// over each row's (kv head, split) up to the row's position; the item that
+// takes the last ticket of a (row, kv head) merges that row's splits, as
+// many as its own position has.
+template <typename CT>
+static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBatchScratch& s,
+                                         const QttsPlan& p, const QttsRing& ring, QttsSeq& q,
+                                         int& stage, const float* x_in, float* x, CT* kc, CT* vc,
+                                         int B, int T, const int64_t* pos_dev, int pos_host,
+                                         unsigned char* un, bool last_barrier) {
+  const int H = w.H, I = w.I, D = w.D, nq = w.nq, nk = w.nk;
+  const int qd = nq * D, A = qd + 2 * nk * D;
+  const int tid = threadIdx.x;
+  if (tid < B) qtts_brow_pos()[tid] = qtts_row_pos(pos_dev, pos_host, tid, T, 1);
+  if (tid == 0) {
+    qtts_mbar_init(qtts_act_bar(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int act_loads = 0;
+  const int kp_i = (I + 511) & ~511;  // the silu input's row stride
+  const int half = tid / QTTS_ATTN_D, t = tid % QTTS_ATTN_D;
+  const QttsNamedSync hsync{1 + half};
+  const int lane0 = 2 * blockIdx.x + half, lanes = 2 * gridDim.x;  // attention item dealing
+  const size_t cache_row = (size_t)nk * T * D;  // one row of one layer
+  const size_t part_row = (size_t)nq * s.max_splits * (D + 2);
+  int gb0, nb;
+  qtts_group_rows(p, gb0, nb);
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(un);
+  QttsAttnSmem* am = reinterpret_cast<QttsAttnSmem*>(un);
+  for (int l = 0; l < w.L; ++l) {
+    CT* kl = kc + (size_t)l * B * cache_row;
+    CT* vl = vc + (size_t)l * B * cache_row;
+    // qkv = bf16(RMSNorm(x) * attn_norm) @ Wqkv * scale
+    qtts_bprologue<QTTS_IN_NORM>((l == 0 ? x_in : x) + (size_t)gb0 * H, H,
+                                 w.attn_norm + (size_t)l * H, w.eps, H, nb, act);
+    if (l == 0 && x_in != x) {
+      for (int k = blockIdx.x * blockDim.x + tid; k < B * H; k += gridDim.x * blockDim.x) {
+        x[k] = x_in[k];
+      }
+    }
+    // this layer's cached k / v rows of the half's attention items, into L2
+    // (after the prologue's loads: B rows' caches can queue up the memory
+    // system for microseconds)
+    QttsBItem item;
+    for (int it = lane0; qtts_bitem(it, B, nk, item); it += lanes) {
+      qtts_attn_prefetch(kl + item.b * cache_row, vl + item.b * cache_row, item.h, item.split, T,
+                         item.pos, t);
+    }
+    qtts_ring_bgemv<false>(p, ring, q, QTTS_KIND_QKV, stage, act, nb, s.qkv + (size_t)gb0 * A, A);
+    qtts_phase_barrier(p);
+    // the split attention: K1's items on (row, kv head, split), two per block
+    for (int it = lane0; qtts_bitem(it, B, nk, item); it += lanes) {
+      const int b = item.b, h = item.h, pos = item.pos;
+      const int n_splits = pos / QTTS_ATTN_CHUNK + 1;  // the row's own splits
+      float* part = s.part + b * part_row;
+      float* attn = s.attn + (size_t)b * qd;
+      hsync();  // the half's previous item is done with its shared memory
+      qtts_attn_item_any<CT>(am[half], hsync, t, h, item.split, s.qkv + (size_t)b * A,
+                             w.q_norm + (size_t)l * D, w.k_norm + (size_t)l * D, w.inv_freq,
+                             kl + b * cache_row, vl + b * cache_row, part,
+                             n_splits == 1 ? attn : nullptr, nq, nk, T, pos, s.max_splits, w.eps,
+                             w.attn_scale);
+      if (n_splits == 1) continue;
+      __threadfence();  // the item's partials, before its ticket
+      hsync();
+      uint32_t* tk = p.tickets + (size_t)b * nk + h;  // one ticket per (row, kv head)
+      int* ticket = reinterpret_cast<int*>(am[half].red);  // free once the item is done
+      if (t == 0) *ticket = (int)atomicAdd(tk, 1u);
+      hsync();
+      if (*ticket == n_splits - 1) {
+        __threadfence();
+        const int g = nq / nk;
+        for (int gi = 0; gi < g; ++gi) {
+          qtts_attn_combine_l2(t, h * g + gi, part, attn, s.max_splits, pos);
+        }
+        if (t == 0) *tk = 0u;  // every split of the row has taken its ticket
+      }
+    }
+    qtts_phase_barrier(p);
+    // x += bf16(attn) @ Wo * scale
+    qtts_bprologue<QTTS_IN_PLAIN>(s.attn + (size_t)gb0 * qd, qd, nullptr, 0.f, qd, nb, act);
+    qtts_ring_bgemv<true>(p, ring, q, QTTS_KIND_O, stage, act, nb, x + (size_t)gb0 * H, H);
+    qtts_phase_barrier(p);
+    // gu = bf16(RMSNorm(x) * mlp_norm) @ Wgu * scale
+    qtts_bprologue<QTTS_IN_NORM>(x + (size_t)gb0 * H, H, w.mlp_norm + (size_t)l * H, w.eps, H, nb,
+                                 act);
+    qtts_ring_bgemv<false>(p, ring, q, QTTS_KIND_GU, stage, act, nb, s.gu + (size_t)gb0 * 2 * I,
+                           2 * I);
+    qtts_phase_barrier(p);
+    // x += bf16(silu(gate) * up) @ Wd * scale, the input made once over the
+    // grid: every block would otherwise read its rows' B x 2I floats
+    qtts_silu_rows(s.gu, I, B, s.hb);
+    qtts_phase_barrier(p);
+    qtts_act_load(s.hb + (size_t)gb0 * kp_i, (uint32_t)(2 * nb * kp_i), act, act_loads);
+    qtts_ring_bgemv<true>(p, ring, q, QTTS_KIND_DOWN, stage, act, nb, x + (size_t)gb0 * H, H);
+    if (l + 1 < w.L || last_barrier) qtts_phase_barrier(p);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The cooperative launch
 // ---------------------------------------------------------------------------
 
 // The plan's scalar constraints against the transformer it drives (V: the
-// head rows, 0 without heads).
-static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int V) {
+// head rows, 0 without heads; B: the rows of a batched launch, 0 for K1 and
+// K2, whose GEMV input is MAX_K floats).
+static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int V, int B = 0) {
   const int qd = w.nq * w.D;
   const int K[QTTS_KINDS] = {w.H, qd, w.H, w.I, w.H};
   if (p.grid < 1 || p.n_slots < 1 || p.slot_bytes % 16 || p.slot_rows % 4 || p.union_bytes % 128) {
+    return false;
+  }
+  if (p.batch != (B > 0 ? B : 1) || p.groups < 1 || p.groups > p.batch || p.groups > p.grid ||
+      p.n_tickets < p.batch * w.nk || p.n_tickets > QTTS_P_MAX_TICKETS) {
     return false;
   }
   const int g = w.nq / w.nk;
@@ -1145,9 +1624,13 @@ static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int
       return false;
     }
   }
-  // the union region: the GEMV input, two attention items, or the
-  // sampler's scratch
-  size_t need = 4 * (size_t)QTTS_P_MAX_K;
+  // the union region: the GEMV input (MAX_K floats, or each of a group's
+  // rows in bf16), two attention items, or the sampler's scratch
+  const int k_hq = w.H > qd ? w.H : qd;
+  const int k_wide = k_hq > w.I ? k_hq : w.I;  // the widest GEMV input
+  const int k_act = (k_wide + 511) & ~511;      // act's row stride
+  size_t need = B > 0 ? (size_t)2 * k_act * ((B + p.groups - 1) / p.groups)
+                      : 4 * (size_t)QTTS_P_MAX_K;
   need = 2 * sizeof(QttsAttnSmem) > need ? 2 * sizeof(QttsAttnSmem) : need;
   need = sizeof(QttsSampleSmem) > need ? sizeof(QttsSampleSmem) : need;
   return (size_t)p.union_bytes >= need && qtts_plan_layout(p).total == (size_t)p.smem_bytes;

@@ -94,6 +94,7 @@ class Plan(ctypes.Structure):
         ("stage_rows", ctypes.c_int32 * 5), ("smem_bytes", ctypes.c_int32),
         ("union_bytes", ctypes.c_int32), ("tickets", ctypes.c_void_p),
         ("trace_rows", ctypes.c_int32), ("trace", ctypes.c_void_p),
+        ("batch", ctypes.c_int32), ("groups", ctypes.c_int32), ("n_tickets", ctypes.c_int32),
     ]
 
 
@@ -105,7 +106,7 @@ class BatchScratch(ctypes.Structure):
 
     _fields_ = [
         ("qkv", ctypes.c_void_p), ("gu", ctypes.c_void_p), ("part", ctypes.c_void_p),
-        ("hb", ctypes.c_void_p), ("max_splits", ctypes.c_int32),
+        ("hb", ctypes.c_void_p), ("max_splits", ctypes.c_int32), ("attn", ctypes.c_void_p),
     ]
 
 
@@ -223,16 +224,19 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_persistent_sizes.restype = None
             lib.qtts_persistent_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
             _check_persistent_sizes(lib)
+            BS, CB = ctypes.POINTER(BatchScratch), ctypes.POINTER(ChainBatchArgs)
             lib.qtts_decode_step_batched.restype = i32
             lib.qtts_decode_step_batched.argtypes = [
-                ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch), vp, vp, vp, vp,
-                i32, i32, i32, vp, i32, vp,
+                W, BS, P, vp, vp, vp, vp, i32, i32, i32, vp, i32, vp,
+            ]
+            lib.qtts_decode_step_batched_multi.restype = i32
+            lib.qtts_decode_step_batched_multi.argtypes = [
+                W, BS, vp, vp, vp, vp, i32, i32, i32, vp, i32, vp,
             ]
             lib.qtts_mtp_chain_batched.restype = i32
-            lib.qtts_mtp_chain_batched.argtypes = [
-                ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch),
-                ctypes.POINTER(ChainBatchArgs), vp,
-            ]
+            lib.qtts_mtp_chain_batched.argtypes = [W, BS, P, CB, vp]
+            lib.qtts_mtp_chain_batched_multi.restype = i32
+            lib.qtts_mtp_chain_batched_multi.argtypes = [W, BS, CB, vp]
             lib.qtts_mtp_chain_streamed.restype = i32
             lib.qtts_mtp_chain_streamed.argtypes = lib.qtts_mtp_chain_multi.argtypes
             lib.qtts_flash_attend.restype = i32
@@ -262,10 +266,12 @@ def _check_persistent_sizes(lib) -> None:
     """ops/persistent.py plans with the library's struct sizes and limits."""
     from . import persistent
 
-    got = (ctypes.c_int * 6)()
+    got = (ctypes.c_int * 9)()
     lib.qtts_persistent_sizes(got)
+    got[8] = lib.qtts_attn_chunk()
     want = (persistent.ATTN_SMEM_BYTES, persistent.SAMPLE_SMEM_BYTES, persistent.MAX_STAGE_ROWS,
-            persistent.THREADS, persistent.MAX_K, persistent.MAX_KV_HEADS)
+            persistent.THREADS, persistent.MAX_K, persistent.MAX_KV_HEADS,
+            persistent.MAX_TICKETS, persistent.MAX_BATCH, persistent.ATTN_CHUNK)
     if tuple(got) != want:
         raise RuntimeError(f"ops/persistent.py plans with {want}, the kernels have {tuple(got)}")
 

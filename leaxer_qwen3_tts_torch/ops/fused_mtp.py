@@ -15,9 +15,10 @@ the MTP pack and whose heads are one more GEMV phase each, every weight row
 streamed through one TMA ring (the plan of ``ops/persistent.py``), with the
 sampler and the gather on one block between them.  The sampled index stays
 in device memory; there is no host sync in the chain.
-The batched chain (``csrc/fused_mtp_batched.cu``) streams its trunk through
-kernel K4's layer kernels, reads each head row once for the batch and
-samples each row in its own block with that row's knobs.  On a CPU tensor
+The batched chain (``csrc/fused_mtp_batched.cu``) is the same one
+persistent launch for B rows: its trunk passes run the persistent K4's
+phases, each head row is read once for the batch, and block b samples row b
+with that row's knobs.  On a CPU tensor
 :func:`fused_mtp_chain` and :func:`fused_mtp_chain_batched` run their plain
 versions, :func:`fused_mtp_chain_reference` and
 :func:`fused_mtp_chain_batched_reference`.
@@ -409,14 +410,69 @@ def fused_mtp_chain_batched(
             cfg, fw, final_norm, heads, tables, last_hidden, code0_embed, gumbel,
             temperature, top_k, top_p, cache_dtype,
         )
+    return _launch_chain_batched(
+        fused_mtp_chain_batched, "qtts_mtp_chain_batched", cfg, fw, final_norm, heads, tables,
+        last_hidden, code0_embed, gumbel, temperature, top_k, top_p, cache_dtype,
+    )
+
+
+class _BatchChainEntry:
+    """The argument structs, scratch, [L, B, nk, n + 2, d] caches and plan of
+    one (packs, B, cache dtype) for a batched chain entry on one stream of
+    one thread: built once, then a call sets its inputs, outputs and knobs.
+    ``plan``: the persistent chain's (K5), else None."""
+
+    def __init__(self, cfg, fw, heads, tables, B, cache_dtype, device, planned):
+        from ._build import ChainBatchArgs
+
+        n, V, H = heads.q.shape
+        T = n + 2
+        self.kc = torch.empty((fw.wqkv.shape[0], B, cfg.num_kv_heads, T, cfg.head_dim),
+                              dtype=cache_dtype, device=device)
+        self.vc = torch.empty_like(self.kc)
+        self.w, self.s, self.scratch = batch_structs(cfg, fw, B, T, device)
+        self.buf = torch.empty(B * (2 * H + V), dtype=torch.float32, device=device)
+        x, x_in, self.logits = torch.split(self.buf, [B * H, B * H, B * V])
+        a = ChainBatchArgs()
+        a.heads, a.head_scales, a.tables = heads.q.data_ptr(), heads.scale.data_ptr(), tables.data_ptr()
+        a.x, a.x_in, a.logits = x.data_ptr(), x_in.data_ptr(), self.logits.data_ptr()
+        a.k_cache, a.v_cache = self.kc.data_ptr(), self.vc.data_ptr()
+        a.cache_bf16, a.B, a.n, a.V = int(cache_dtype == torch.bfloat16), B, n, V
+        a.Vt = tables.shape[1]
+        self.args = a
+        self.plan = persistent.device_plan(cfg, device, head_rows=V, batch=B) if planned else None
+
+
+def _batch_chain_entry(entry: str, cfg, fw, heads, tables, B, cache_dtype,
+                       device) -> _BatchChainEntry:
+    """The cached entry of these tensors at B rows, keyed by every pointer it holds."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (entry, cfg, B, cache_dtype, device, stream, threading.get_ident(),
+           *(t.data_ptr() for t in (*fw, *heads, tables)))
+    hit = _CHAIN_ENTRIES.get(key)
+    if hit is None:
+        hit = _BatchChainEntry(cfg, fw, heads, tables, B, cache_dtype, device,
+                               planned=entry == "qtts_mtp_chain_batched")
+        _CHAIN_ENTRIES[key] = hit
+        while len(_CHAIN_ENTRIES) > _MAX_ENTRIES:
+            _CHAIN_ENTRIES.popitem(last=False)
+    return hit
+
+
+def _launch_chain_batched(wrapper, entry: str, cfg, fw, final_norm, heads, tables, last_hidden,
+                          code0_embed, gumbel, temperature, top_k, top_p, cache_dtype):
+    """Launch a batched chain entry (``qtts_mtp_chain_batched``: K5,
+    persistent, with its plan; ``qtts_mtp_chain_batched_multi``: the
+    launch-per-op chain) on CUDA tensors, counting the launch on ``wrapper``."""
+    what = wrapper.__name__
     if last_hidden.device.type != "cuda":
-        raise ValueError(f"fused_mtp_chain_batched: unsupported device {last_hidden.device}")
-    from ._build import ChainBatchArgs, check, load_kernels
+        raise ValueError(f"{what}: unsupported device {last_hidden.device}")
+    from ._build import check, load_kernels
 
     n, V, H = heads.q.shape
     B = last_hidden.shape[0]
     if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"fused_mtp_chain_batched takes 1..{MAX_BATCH} rows, got {B}")
+        raise ValueError(f"{what} takes 1..{MAX_BATCH} rows, got {B}")
     knobs = row_knobs(temperature, top_k, top_p, B)
     greedy = [t <= 0.0 for t, _, _ in knobs]
     if gumbel is None and not all(greedy):
@@ -427,48 +483,47 @@ def fused_mtp_chain_batched(
             "(other dtypes: ROADMAP item K2v)"
         )
     device = last_hidden.device
-    T = n + 2
-    kc = torch.empty((fw.wqkv.shape[0], B, cfg.num_kv_heads, T, cfg.head_dim),
-                     dtype=cache_dtype, device=device)
-    vc = torch.empty_like(kc)
-    _check_cuda_inputs(fw, kc, vc)
+    e = _batch_chain_entry(entry, cfg, fw, heads, tables, B, cache_dtype, device)
+    _check_cuda_inputs(fw, e.kc, e.vc)
     for t in (heads.q, heads.scale, tables, final_norm):
         if not t.is_cuda or not t.is_contiguous():
-            raise ValueError("fused_mtp_chain_batched: every tensor must be contiguous and on CUDA")
+            raise ValueError(f"{what}: every tensor must be contiguous and on CUDA")
+    if any(t.data_ptr() % 16 for t in heads):
+        raise ValueError(f"{what}: the heads must be 16-byte aligned")
     lib = load_kernels()
-    w, s, scratch = batch_structs(cfg, fw, B, T, device)
-    buf = torch.empty(B * (3 * H + V), dtype=torch.float32, device=device)
-    x, x_in, sub_sum, logits = torch.split(buf, [B * H, B * H, B * H, B * V])
     subs = torch.empty((B, n), dtype=torch.int32, device=device)
+    sub_sum = torch.empty((B, H), dtype=torch.float32, device=device)
+    # converted on every call: the entry is keyed by pointers only, and a
+    # later model's norm may come to lie at the same address
     fn = final_norm.float().contiguous()
     lh = last_hidden.float().contiguous()
     c0 = code0_embed.float().contiguous()
     if all(greedy):
-        noise, strides = logits, (0, 0)
+        noise, strides = e.logits, (0, 0)
     else:
         noise = gumbel if gumbel.dtype == torch.float32 else gumbel.float()
         if noise.shape != (n, B, V) or noise.stride(2) != 1 or not noise.is_cuda:
-            raise ValueError("fused_mtp_chain_batched: noise must be [n, B, V] on CUDA with a "
-                             "contiguous last axis")
+            raise ValueError(f"{what}: noise must be [n, B, V] on CUDA with a contiguous last "
+                             "axis")
         strides = (noise.stride(0), noise.stride(1))
     pad = [0] * (MAX_BATCH - B)
-    args = ChainBatchArgs(
-        fn.data_ptr(), heads.q.data_ptr(), heads.scale.data_ptr(), tables.data_ptr(),
-        noise.data_ptr(), strides[0], strides[1], lh.data_ptr(), c0.data_ptr(),
-        subs.data_ptr(), sub_sum.data_ptr(), x.data_ptr(), x_in.data_ptr(), logits.data_ptr(),
-        kc.data_ptr(), vc.data_ptr(), int(cache_dtype == torch.bfloat16), B, n, V,
-        tables.shape[1],
-        (ctypes.c_float * MAX_BATCH)(*[clamp_temperature(t) for t, _, _ in knobs], *pad),
-        (ctypes.c_int32 * MAX_BATCH)(*[k for _, k, _ in knobs], *pad),
-        (ctypes.c_float * MAX_BATCH)(*[p for _, _, p in knobs], *pad),
-        (ctypes.c_int32 * MAX_BATCH)(*[int(g) for g in greedy], *pad),
-    )
+    a = e.args
+    a.final_norm, a.noise = fn.data_ptr(), noise.data_ptr()
+    a.noise_step_stride, a.noise_row_stride = strides
+    a.last_hidden, a.code0_embed = lh.data_ptr(), c0.data_ptr()
+    a.subcodes, a.sub_sum = subs.data_ptr(), sub_sum.data_ptr()
+    a.temperature = (ctypes.c_float * MAX_BATCH)(*[clamp_temperature(t) for t, _, _ in knobs], *pad)
+    a.top_k = (ctypes.c_int32 * MAX_BATCH)(*[k for _, k, _ in knobs], *pad)
+    a.top_p = (ctypes.c_float * MAX_BATCH)(*[p for _, _, p in knobs], *pad)
+    a.greedy = (ctypes.c_int32 * MAX_BATCH)(*[int(g) for g in greedy], *pad)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fused_mtp_chain_batched.launches += 1
-    err = lib.qtts_mtp_chain_batched(w, s, args, stream)
-    check(err, "fused_mtp_chain_batched")
-    del scratch, kc, vc  # enqueued; the caching allocator orders reuse on the stream
-    return subs, sub_sum.reshape(B, H)
+    wrapper.launches += 1
+    if e.plan is None:
+        err = getattr(lib, entry)(e.w, e.s, a, stream)
+    else:
+        err = getattr(lib, entry)(e.w, e.s, e.plan.struct, a, stream)
+    check(err, what)
+    return subs, sub_sum
 
 
 fused_mtp_chain_batched.launches = 0  # chain launches, for chip_smoke.py's path check

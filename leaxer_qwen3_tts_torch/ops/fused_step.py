@@ -17,7 +17,8 @@ On a CUDA tensor :func:`fused_decode_step` launches the hand-written kernel
 (``csrc/fused_step.cu``: the whole step in one persistent cooperative launch,
 its weights streamed through a TMA ring by the plan of ``ops/persistent.py``)
 and :func:`fused_decode_step_batched` its batched twin
-(``csrc/fused_step_batched.cu``); on a CPU tensor they run
+(``csrc/fused_step_batched.cu``: the same transport for B rows, one
+cooperative launch per step); on a CPU tensor they run
 :func:`fused_decode_step_reference` / :func:`fused_decode_step_batched_reference`,
 the plain PyTorch versions of the same functions (bf16-rounded operands
 upcast to float32 before each product, which equals a bf16 dot with float32
@@ -390,12 +391,42 @@ def batch_structs(cfg: TransformerConfig, fw: FusedStepWeights, B: int, T: int, 
     chunk = load_kernels().qtts_attn_chunk()
     max_splits = (T + chunk - 1) // chunk
     A = cfg.q_dim + 2 * cfg.kv_dim
-    scratch = torch.empty(B * (A + 2 * I + nq * max_splits * (d + 2)),
-                          dtype=torch.float32, device=device)
-    qkv, gu, part = torch.split(scratch, [B * A, B * 2 * I, B * nq * max_splits * (d + 2)])
-    hb = torch.empty(B * max(H, cfg.q_dim, I), dtype=torch.bfloat16, device=device)
-    s = BatchScratch(qkv.data_ptr(), gu.data_ptr(), part.data_ptr(), hb.data_ptr(), max_splits)
+    sizes = [B * A, B * 2 * I, B * nq * max_splits * (d + 2), B * cfg.q_dim]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    qkv, gu, part, attn = torch.split(scratch, sizes)
+    # the next GEMV's bf16 input; the persistent K4 and K5 keep the down
+    # projection's there in rows of I rounded up to 512
+    hb = torch.empty(B * -(-max(H, cfg.q_dim, I) // 512) * 512, dtype=torch.bfloat16,
+                     device=device)
+    s = BatchScratch(qkv.data_ptr(), gu.data_ptr(), part.data_ptr(), hb.data_ptr(), max_splits,
+                     attn.data_ptr())
     return _weights_struct(cfg, fw), s, (scratch, hb)
+
+
+class _BatchEntry:
+    """The argument structs, scratch and plan of one (pack, B, cache bucket)
+    on one stream of one thread, for the persistent K4 (as _StepEntry)."""
+
+    def __init__(self, cfg: TransformerConfig, fw: FusedStepWeights, B: int, T: int, device):
+        self.w, self.s, self.scratch = batch_structs(cfg, fw, B, T, device)
+        self.plan = persistent.device_plan(cfg, device, batch=B)
+
+
+_BATCH_ENTRIES: "OrderedDict[tuple, _BatchEntry]" = OrderedDict()
+
+
+def _batch_entry(cfg: TransformerConfig, fw: FusedStepWeights, B: int, T: int,
+                 device) -> _BatchEntry:
+    """The cached entry of this pack at B rows, keyed by every pointer it holds."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (cfg, B, T, device, stream, threading.get_ident(), *(t.data_ptr() for t in fw))
+    entry = _BATCH_ENTRIES.get(key)
+    if entry is None:
+        entry = _BatchEntry(cfg, fw, B, T, device)
+        _BATCH_ENTRIES[key] = entry
+        while len(_BATCH_ENTRIES) > _MAX_ENTRIES:
+            _BATCH_ENTRIES.popitem(last=False)
+    return entry
 
 
 def fused_decode_step_batched(
@@ -412,34 +443,52 @@ def fused_decode_step_batched(
     caches are updated in place.  Positions past the last slot are clamped
     to it.  A position tensor stays on the device: the kernel reads it, so
     the step needs no host sync."""
-    B, T = x.shape[0], k_cache.shape[3]
     if x.device.type == "cpu":
         return fused_decode_step_batched_reference(cfg, fw, x, pos, k_cache, v_cache)
+    return _launch_step_batched(fused_decode_step_batched, "qtts_decode_step_batched", cfg, fw, x,
+                                pos, k_cache, v_cache)
+
+
+def _launch_step_batched(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeights,
+                         x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """Launch a batched step entry (``qtts_decode_step_batched``: K4,
+    persistent, with its cached plan; ``qtts_decode_step_batched_multi``:
+    the launch-per-op sequence) on CUDA tensors, counting the launch on
+    ``wrapper``."""
+    what = wrapper.__name__
+    B, T = x.shape[0], k_cache.shape[3]
     if x.device.type != "cuda":
-        raise ValueError(f"fused_decode_step_batched: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"fused_decode_step_batched takes 1..{MAX_BATCH} rows, got {B}")
+        raise ValueError(f"{what} takes 1..{MAX_BATCH} rows, got {B}")
     _check_cuda_inputs(fw, k_cache, v_cache)
     from ._build import check, load_kernels
 
     lib = load_kernels()
-    w, s, scratch = batch_structs(cfg, fw, B, T, x.device)
+    planned = entry == "qtts_decode_step_batched"
+    if planned:
+        e = _batch_entry(cfg, fw, B, T, x.device)
+        w, s, scratch = e.w, e.s, None
+    else:
+        w, s, scratch = batch_structs(cfg, fw, B, T, x.device)
     x_in = x.float().contiguous()
     x_out = torch.empty((B, cfg.hidden_size), dtype=torch.float32, device=x.device)
     if isinstance(pos, torch.Tensor):
         pos_dev = pos.to(dtype=torch.long).reshape(B).contiguous()
         if pos_dev.device != x.device:
-            raise ValueError("fused_decode_step_batched: positions must be on the device")
+            raise ValueError(f"{what}: positions must be on the device")
         pos_ptr, pos_host = pos_dev.data_ptr(), 0
     else:
         pos_ptr, pos_host = None, min(int(pos), T - 1)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fused_decode_step_batched.launches += 1
-    err = lib.qtts_decode_step_batched(
-        w, s, x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        int(k_cache.dtype == torch.bfloat16), B, T, pos_ptr, pos_host, stream,
-    )
-    check(err, "fused_decode_step_batched")
+    args = (x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            int(k_cache.dtype == torch.bfloat16), B, T, pos_ptr, pos_host, stream)
+    wrapper.launches += 1
+    if planned:
+        err = lib.qtts_decode_step_batched(w, s, e.plan.struct, *args)
+    else:
+        err = lib.qtts_decode_step_batched_multi(w, s, *args)
+    check(err, what)
     del scratch  # enqueued; the caching allocator orders reuse on the stream
     return x_out, k_cache, v_cache
 

@@ -1,7 +1,7 @@
-"""The work plan of the persistent kernels K1 and K2 (``csrc/qtts_stream.cuh``).
+"""The work plan of the persistent kernels K1, K2, K4 and K5 (``csrc/qtts_stream.cuh``).
 
-One cooperative launch runs a whole decode step (K1) or a whole sub-code
-chain (K2) on a grid of one block per SM.  Each block owns a fixed,
+One cooperative launch runs a whole decode step (K1; K4 for B rows) or a
+whole sub-code chain (K2; K5 for B rows) on a grid of one block per SM.  Each block owns a fixed,
 contiguous range of output rows in every GEMV of the transformer (qkv, o,
 gate|up, down) and of the chain's heads, balanced over the grid in multiples
 of four rows (the scale copies move 16 bytes at a time).  A block's rows of
@@ -12,6 +12,14 @@ on the CPU: which rows each block owns, how many rows a stage takes, how many
 slots fit, and the dynamic shared memory of the launch.  The layout mirrors
 ``qtts_plan_layout``; the C entries check the plan's scalars again and raise
 on one they do not take.
+
+A batched plan (``batch`` rows, K4 and K5) keeps each block's batch rows'
+bf16 GEMV inputs in shared memory beside the ring, B x max(H, q_dim, I) x 2
+bytes.  Where that leaves fewer than MIN_SLOTS ring slots, the grid is split
+into ``groups`` groups of consecutive blocks: group g takes batch rows
+[g * B / groups, (g + 1) * B / groups) through every product, and its blocks
+split every product's rows among themselves, so each group streams every
+weight row once (the other groups' copies of a stage mostly come from L2).
 """
 
 from __future__ import annotations
@@ -24,13 +32,17 @@ import torch
 from ..config import TransformerConfig
 
 SMEM_PER_BLOCK = 232_448  # shared memory a Hopper block may use (227 KB)
-STATIC_SMEM = 1_024  # reserved for the kernels' static shared memory
+STATIC_SMEM = 2_048  # reserved for the kernels' static shared memory
 ATTN_SMEM_BYTES = 21_892  # sizeof(QttsAttnSmem): one attention item
 SAMPLE_SMEM_BYTES = 576  # sizeof(QttsSampleSmem)
 MAX_STAGE_ROWS = 64  # 8 warps x QTTS_P_RPW rows
 THREADS = 256
 MAX_K = 6144  # the widest GEMV input a block holds in registers
-MAX_KV_HEADS = 64  # the attention tickets a plan holds
+MAX_KV_HEADS = 64  # the kv heads a plan takes
+MAX_BATCH = 32  # the rows a batched launch takes
+MAX_TICKETS = MAX_BATCH * MAX_KV_HEADS  # attention tickets: one per (row, kv head)
+ATTN_CHUNK = 64  # cache slots per attention split
+MIN_SLOTS = 3  # ring slots a batched plan keeps before it splits the grid into groups
 ROW_QUANTUM = 4  # rows per 16 bytes of float32 scales
 SLOT_BYTES = 32 * 1024
 KINDS = ("qkv", "o", "gu", "down", "head")
@@ -46,6 +58,8 @@ class Plan(NamedTuple):
     n_slots: int
     union_bytes: int  # GEMV input / attention items / sampler scratch
     smem_bytes: int  # dynamic shared memory of the launch
+    batch: int = 1  # rows of the launch (1: K1, K2)
+    groups: int = 1  # batch groups: bounds are [kind][grid + groups]
 
 
 def _align(v: int, a: int) -> int:
@@ -75,16 +89,52 @@ def smem_layout(n_slots: int, slot_bytes: int, slot_rows: int, union_bytes: int)
     return {"bars": bars, "scales": scales, "slots": slots, "total": slots + slot_bytes * n_slots}
 
 
-def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0) -> Plan:
+def act_bytes(cfg: TransformerConfig, rows: int) -> int:
+    """Shared memory of ``rows`` batch rows' bf16 GEMV inputs: the widest
+    input (H, q_dim or I), rounded up to 512 columns, per row."""
+    return 2 * rows * _align(max(cfg.hidden_size, cfg.q_dim, cfg.intermediate_size), 512)
+
+
+def _slots(slot_rows: int, union_bytes: int) -> int:
+    """Ring slots of SLOT_BYTES that fit beside the union region."""
+    budget = SMEM_PER_BLOCK - STATIC_SMEM
+    n = 0
+    while smem_layout(n + 1, SLOT_BYTES, slot_rows, union_bytes)["total"] <= budget:
+        n += 1
+    return n
+
+
+def group_blocks(grid: int, groups: int, g: int) -> Tuple[int, int]:
+    """The blocks [first, end) of group g."""
+    return g * grid // groups, (g + 1) * grid // groups
+
+
+def group_of(plan: Plan, block: int) -> int:
+    """The group of ``block`` (``qtts_group_of``)."""
+    return ((block + 1) * plan.groups - 1) // plan.grid
+
+
+def group_rows(plan: Plan, block: int) -> Tuple[int, int]:
+    """The batch rows [first, end) of ``block``'s group (``qtts_group_rows``)."""
+    g = group_of(plan, block)
+    return g * plan.batch // plan.groups, (g + 1) * plan.batch // plan.groups
+
+
+def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int = 1) -> Plan:
     """The plan of a launch on ``grid`` blocks over the transformer ``cfg``
-    (and ``head_rows`` head rows for the chain), with as many ring slots of
-    SLOT_BYTES as fit.  Raises ValueError where a block would own no rows of
-    some product, or nothing fits."""
+    (and ``head_rows`` head rows for the chain) for ``batch`` rows (1: K1 and
+    K2, whose GEMV input is MAX_K floats), with as many ring slots of
+    SLOT_BYTES as fit; a batched plan takes the fewest batch groups that
+    leave MIN_SLOTS slots.  Raises ValueError where a block would own no rows
+    of some product, or nothing fits."""
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"a launch takes 1..{MAX_BATCH} rows, not {batch}")
+    if head_rows and batch > grid:
+        raise ValueError(f"{batch} rows to sample on {grid} blocks")
     shapes = kind_shapes(cfg, head_rows)
-    bounds, stage_rows = [], []
+    stage_rows = []
     for N, K in shapes:
         if N == 0:
-            bounds.append((0,) * (grid + 1))
             stage_rows.append(ROW_QUANTUM)
             continue
         if N % ROW_QUANTUM or K % 16:
@@ -94,30 +144,56 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0) -> Plan:
         rows = min(MAX_STAGE_ROWS, SLOT_BYTES // K) // ROW_QUANTUM * ROW_QUANTUM
         if rows < ROW_QUANTUM:
             raise ValueError(f"a {SLOT_BYTES}-byte slot holds fewer than 4 rows of {K} bytes")
-        bounds.append(split_rows(N, grid))
         stage_rows.append(rows)
     slot_rows = max(stage_rows)
     widths = [K for N, K in shapes if N]
     if max(widths) > MAX_K or cfg.num_kv_heads > MAX_KV_HEADS:
         raise ValueError(f"GEMV inputs past {MAX_K} wide or past {MAX_KV_HEADS} kv heads")
-    # the GEMV input (MAX_K floats), two attention items, or the sampler's scratch
-    union_bytes = _align(max(2 * ATTN_SMEM_BYTES, 4 * MAX_K, SAMPLE_SMEM_BYTES), 128)
-    budget = SMEM_PER_BLOCK - STATIC_SMEM
-    n_slots = 0
-    while smem_layout(n_slots + 1, SLOT_BYTES, slot_rows, union_bytes)["total"] <= budget:
-        n_slots += 1
-    if n_slots < 1:
+    # the GEMV input (MAX_K floats at one row, a group's rows in bf16
+    # batched), two attention items, or the sampler's scratch
+    for groups in range(1, batch + 1):
+        rows_in_group = -(-batch // groups)
+        inputs = 4 * MAX_K if batch == 1 else act_bytes(cfg, rows_in_group)
+        union_bytes = _align(max(2 * ATTN_SMEM_BYTES, inputs, SAMPLE_SMEM_BYTES), 128)
+        n_slots = _slots(slot_rows, union_bytes)
+        if n_slots >= (1 if batch == 1 else MIN_SLOTS):
+            break
+    else:
         raise ValueError(f"no {SLOT_BYTES}-byte slot fits beside {union_bytes} bytes")
+    bounds = []
+    for N, _ in shapes:
+        row = []
+        for g in range(groups):
+            first, end = group_blocks(grid, groups, g)
+            row += split_rows(N, end - first) if N else (0,) * (end - first + 1)
+        bounds.append(tuple(row))
     smem = smem_layout(n_slots, SLOT_BYTES, slot_rows, union_bytes)["total"]
     return Plan(grid, shapes, tuple(bounds), tuple(stage_rows), SLOT_BYTES, slot_rows, n_slots,
-                union_bytes, smem)
+                union_bytes, smem, batch, groups)
 
 
 def stages(plan: Plan, kind: int, block: int) -> Sequence[Tuple[int, int]]:
     """(first row, rows) of each stage of ``block``'s rows of ``kind``."""
-    r0, r1 = plan.bounds[kind][block], plan.bounds[kind][block + 1]
+    at = block + group_of(plan, block)
+    r0, r1 = plan.bounds[kind][at], plan.bounds[kind][at + 1]
     step = plan.stage_rows[kind]
     return [(n, min(step, r1 - n)) for n in range(r0, r1, step)]
+
+
+def attention_items(batch: int, num_kv_heads: int, T: int, positions, grid: int):
+    """The attention work items of one batched layer (``qtts_bstep_phases``)
+    that each of the grid's 2 x ``grid`` halves runs, in order, as (row, kv
+    head, split).  The items are the rows' in row order, row b's
+    num_kv_heads x (pos_b // ATTN_CHUNK + 1) (kv head fastest, then split),
+    and item i goes to half i % (2 grid).  ``positions``: the rows' device
+    positions (clamped into [0, T - 1]), or one host position for every row."""
+    if isinstance(positions, int):
+        pos = [positions] * batch
+    else:
+        pos = [min(max(int(p), 0), T - 1) for p in positions]
+    items = [(b, i % num_kv_heads, i // num_kv_heads) for b in range(batch)
+             for i in range(num_kv_heads * (pos[b] // ATTN_CHUNK + 1))]
+    return [items[lane::2 * grid] for lane in range(2 * grid)]
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +203,8 @@ def stages(plan: Plan, kind: int, block: int) -> Sequence[Tuple[int, int]]:
 
 class DevicePlan:
     """A plan's ctypes struct (``QttsPlan``) with the tensors it points to:
-    the row bounds and the attention tickets (one per kv head; the item that
-    takes a head's last ticket merges its splits and resets it)."""
+    the row bounds and the attention tickets (one per (row, kv head); the
+    item that takes the last ticket merges the splits and resets it)."""
 
     def __init__(self, plan: Plan, device):
         from ._build import Plan as PlanStruct
@@ -138,11 +214,11 @@ class DevicePlan:
         # cache bucket builds its plan inside a decode chunk
         self._host_bounds = torch.tensor(plan.bounds, dtype=torch.int32).pin_memory()
         self.bounds = self._host_bounds.to(device, non_blocking=True)
-        self.tickets = torch.zeros(MAX_KV_HEADS, dtype=torch.int32, device=device)
+        self.tickets = torch.zeros(MAX_TICKETS, dtype=torch.int32, device=device)
         self.struct = PlanStruct(
             self.bounds.data_ptr(), plan.grid, plan.n_slots, plan.slot_bytes, plan.slot_rows,
             (ctypes.c_int32 * len(KINDS))(*plan.stage_rows), plan.smem_bytes, plan.union_bytes,
-            self.tickets.data_ptr(), 0, None,
+            self.tickets.data_ptr(), 0, None, plan.batch, plan.groups, MAX_TICKETS,
         )
         self.trace = None
 
@@ -170,8 +246,9 @@ def grid_size(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def device_plan(cfg: TransformerConfig, device, head_rows: int = 0) -> DevicePlan:
-    """The device plan of ``cfg`` (and ``head_rows`` heads) on this device;
-    each caller keeps its own (the attention tickets are per launch stream)."""
+def device_plan(cfg: TransformerConfig, device, head_rows: int = 0, batch: int = 1) -> DevicePlan:
+    """The device plan of ``cfg`` (and ``head_rows`` heads, ``batch`` rows)
+    on this device; each caller keeps its own (the attention tickets are per
+    launch stream)."""
     device = torch.device(device)
-    return DevicePlan(make_plan(cfg, grid_size(device), head_rows), device)
+    return DevicePlan(make_plan(cfg, grid_size(device), head_rows, batch), device)
