@@ -1,6 +1,6 @@
 """A/B of the B=1 fixed 300-frame run between two checkouts, on one GPU.
 
-    python3 chip_ab.py OLD NEW [--spec] [--batched]
+    python3 chip_ab.py OLD NEW [--spec] [--batched] [--frame] [--voice] [--chains]
 
 OLD and NEW are checkout roots (unpack a commit with ``git archive`` into a
 directory that ``.gitignore`` lists).  Each run is its own process, in the
@@ -15,8 +15,17 @@ per committed frame.  With ``--batched`` a run also times the batched fixed
 the smoke's batched phase) and, by CUDA events on seeded inputs, the kernels
 of the batched frame (K4 at T=512 with the smoke's per-row positions, K5 with
 its mixed knobs, B=8 and 32) and of the B=1 frame (K1 at T=256 pos 200, K2
-sampled).  Prints one ``AB`` line per run with the card's name and power
-limit.
+sampled).  With ``--frame`` a run also times the 0.6B ``frame_fused`` fixed
+300-frame run twice and K7 on a seeded frame (T=256, pos 255, sampled);
+with ``--voice`` the 1.7B preset's fixed 300-frame instruct run twice
+(random weights, the smoke's voice configuration) and K3 on a seeded chain
+(sampled).  With ``--chains`` a run makes no engine: it times the chains
+alone on seeded inputs, three times each, and traces each once
+(``chip_smoke.trace_phases``): K5 at B=8 and 32 with K5_KNOBS cycled over
+the rows and with the engine's knobs, and the persistent B=1 chain on the
+1.7B trunk with a float32 cache (``fused_mtp_chain``: the kernel that K3
+runs, and at an older checkout the persistent chain K3 did not yet run).
+Prints one ``AB`` line per run with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -91,7 +100,114 @@ def batched_ms(cs, eng):
     return out
 
 
-def run_one(root: str, spec: bool, batched: bool) -> None:
+def frame_ms(cs, params, tok):
+    """The frame_fused fixed runs and K7's ms on a seeded frame: {label: ms}."""
+    import torch
+
+    from leaxer_qwen3_tts_torch.api.engine import TTSEngine
+    from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B
+    from leaxer_qwen3_tts_torch.ops import fused_frame as K7
+
+    eng = TTSEngine(config=QWEN3_TTS_06B, params=params, tokenizer=tok, quantize="int8",
+                    frame_fused=True)
+    eng.synthesize("warm up", language="en", max_tokens=16)
+    out = {f"frame_fused fixed run {i}": cs.check_fixed_run(eng, 300, [TEXT], cs.CARD)
+           for i in range(2)}
+    del eng
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED)
+    packs = cs.frame_packs(QWEN3_TTS_06B, gen)
+    inp = cs.k7_inputs(packs, 255, 1, gen)
+    kc, vc = cs.k7_caches(packs[0], 256, 255, torch.bfloat16, gen)
+    out["K7 T=256 pos 255 sampled"] = cs.time_ms(
+        lambda: cs.k7_call(K7.fused_frame_step, packs, inp, (0.8, 50, 0.95), kc, vc), 10)
+    return out
+
+
+def voice_ms(cs, tok):
+    """The 1.7B fixed instruct runs and K3's ms on a seeded chain: {label: ms}."""
+    import torch
+
+    from leaxer_qwen3_tts_torch.api.engine import TTSEngine
+    from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as K3
+    from leaxer_qwen3_tts_torch.runtime.sampling import gumbel_noise
+    from leaxer_qwen3_tts_torch.runtime.weights import init_params
+
+    cfg = cs.voice_config()
+    params = init_params(cfg, seed=cs.SEED, device="cuda")
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
+    del params
+    eng.synthesize("warm up", language="en", max_tokens=16, instruct=cs.VOICE_INSTRUCT)
+    out = {f"1.7B fixed instruct run {i}": cs.check_fixed_run(
+        eng, 300, [cs.VOICE_TEXT], cs.CARD, instruct=cs.VOICE_INSTRUCT) for i in range(2)}
+    cp, cpp = cfg.code_predictor, eng.params["code_predictor"]
+    H, V, n = cp.transformer.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED)
+    lh = (torch.randn((1, H), generator=gen, device=cs.DEV) * 0.5).to(torch.bfloat16)
+    c0 = (torch.randn((1, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+    args = (cp.transformer, cpp["fused_step"], cpp["transformer"]["final_norm"],
+            cpp["fused_heads"], eng.params["embeddings"]["pred_embed"], lh, c0,
+            gumbel_noise((n, 1, V), gen, cs.DEV), 0.8, 50, 0.95)
+    out["K3 1.7B sampled"] = cs.time_ms(lambda: K3.fused_mtp_chain_streamed(*args), 10)
+    return out
+
+
+def chains_ms(cs):
+    """K5 (B=8, 32; mixed and engine knobs) and the 1.7B float32-cache chain,
+    timed three times and traced once each: {label: [ms, ms, ms]}."""
+    import torch
+
+    from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B, QWEN3_TTS_17B
+    from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
+    from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
+    from leaxer_qwen3_tts_torch.runtime.sampling import gumbel_noise
+
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED)
+    out = {}
+    for cfg in (QWEN3_TTS_06B, QWEN3_TTS_17B):
+        cp = cfg.code_predictor
+        mt = cp.transformer
+        H, V, n = mt.hidden_size, cp.subcode_vocab_size, cp.num_steps
+        mfw = cs.packed_trunk(mt, gen)
+        heads = K2.pack_heads(quantize_weight(
+            (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16)))
+        tables = (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+        fnorm = torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV)
+        runs = []
+        if cfg is QWEN3_TTS_06B:
+            for B in (8, 32):
+                for label, knobs in (("mixed", [cs.K5_KNOBS[b % len(cs.K5_KNOBS)]
+                                                for b in range(B)]),
+                                     ("engine knobs", [(0.8, 50, 0.95)] * B)):
+                    runs.append((f"K5 B={B} {label}", B, knobs, True))
+        else:
+            runs.append(("1.7B chain, float32 cache", 1, [(0.8, 50, 0.95)], False))
+        for label, B, knobs, batched in runs:
+            lh = (torch.randn((B, H), generator=gen, device=cs.DEV) * 0.5).to(torch.bfloat16)
+            c0 = (torch.randn((B, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+            noise = gumbel_noise((n, B, V), gen, cs.DEV)
+            if batched:
+                args = (mt, mfw, fnorm, heads, tables, lh, c0, noise, *zip(*knobs))
+                fn = lambda: K2.fused_mtp_chain_batched(*args, cache_dtype=torch.bfloat16)
+                plan = K2._batch_chain_entry("qtts_mtp_chain_batched", mt, mfw, heads, tables, B,
+                                             torch.bfloat16, lh.device).plan
+            else:
+                args = (mt, mfw, fnorm, heads, tables, lh, c0, noise, *knobs[0])
+                fn = lambda: K2.fused_mtp_chain(*args, cache_dtype=torch.float32)
+                plan = K2._chain_entry("qtts_mtp_chain", mt, mfw, heads, tables, torch.float32,
+                                       lh.device).plan
+            out[label] = [cs.time_ms(fn, 5) for _ in range(3)]
+            cs.trace_phases(f"{label}", plan, cs.chain_phase_names(mt.num_layers, n, batched),
+                            fn)
+        del mfw, heads, tables
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_one(root: str, spec: bool, batched: bool, frame: bool = False,
+            voice: bool = False, chains: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -104,6 +220,9 @@ def run_one(root: str, spec: bool, batched: bool) -> None:
         raise RuntimeError(f"chip_smoke imported from {cs.__file__}, not {root}")
     cs.CARD = cs.card()
     torch.backends.cuda.matmul.allow_tf32 = False
+    if chains:
+        print(f"AB {root}: chains {chains_ms(cs)} [{cs.CARD}]", flush=True)
+        return
     params = init_params(QWEN3_TTS_06B, seed=cs.SEED, device="cuda")
     with tempfile.TemporaryDirectory() as workdir:
         tok = cs.byte_level_tokenizer(workdir)
@@ -116,15 +235,21 @@ def run_one(root: str, spec: bool, batched: bool) -> None:
               flush=True)
     if batched:
         print(f"AB {root}: batched {batched_ms(cs, eng)} [{cs.CARD}]", flush=True)
+    if frame:
+        print(f"AB {root}: frame_fused {frame_ms(cs, params, tok)} [{cs.CARD}]", flush=True)
+    if voice:
+        del eng, params
+        torch.cuda.empty_cache()
+        print(f"AB {root}: 1.7B {voice_ms(cs, tok)} [{cs.CARD}]", flush=True)
 
 
 def main() -> int:
     args = sys.argv[1:]
-    flags = [a for a in args if a in ("--spec", "--batched")]
-    spec, batched = "--spec" in flags, "--batched" in flags
+    names = ("--spec", "--batched", "--frame", "--voice", "--chains")
+    flags = [a for a in args if a in names]
     args = [a for a in args if a not in flags]
     if args[:1] == ["--one"]:
-        run_one(os.path.abspath(args[1]), spec, batched)
+        run_one(os.path.abspath(args[1]), *(f in flags for f in names))
         return 0
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
@@ -133,7 +258,8 @@ def main() -> int:
     for root in (old, new, new, old):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root] + flags,
                              capture_output=True, text=True)
-        lines = [ln for ln in out.stdout.splitlines() if ln.startswith(("AB ", "fixed run"))]
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("AB ", "fixed run", "trace "))]
         print("\n".join(lines) if lines else out.stdout[-2000:] + out.stderr[-2000:], flush=True)
         if out.returncode != 0:
             return out.returncode

@@ -8,9 +8,12 @@ Builds faulty copies of the kernel sources in a temporary directory (the
 checkout is never touched), each with one fault, and runs the checks of the
 kernel it breaks against it: ``chip_smoke.check_k6_shallow`` on one talker
 layer with float32 and bf16 caches (K6), ``chip_smoke.check_k3_equals_k2`` on
-the 1.7B MTP trunk (K3), ``chip_smoke.check_k8`` at the 1.7B prefill shape
-and on the random GQA shapes (K8), ``chip_smoke.check_k7_composition`` and
-``chip_smoke.check_k7_plain`` at the 0.6B widths (K7),
+the 1.7B MTP trunk (K3, also with a one-slot weight ring),
+``chip_smoke.check_k8`` at the 1.7B prefill shape and on the random GQA
+shapes (K8), ``chip_smoke.check_k7_composition`` (against the launch-per-op
+frame kernel and the composition K2 -> K1 -> norm+lm_head, also with a
+one-slot weight ring) and ``chip_smoke.check_k7_plain`` at the 0.6B widths
+(K7),
 ``chip_smoke.check_k1_equal`` on the 0.6B talker and MTP trunk and
 ``chip_smoke.check_k2_equal`` on the 0.6B chain (the persistent K1 and K2
 against the launch sequences they replaced, bit for bit), each also with a
@@ -37,7 +40,8 @@ from leaxer_qwen3_tts_torch.ops import _build
 from leaxer_qwen3_tts_torch.ops.fused_mtp import pack_heads
 from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
 
-# name -> (source file, original text, faulty text, kernel whose checks must catch it)
+# name -> (source file, original text, faulty text, kernel whose checks must
+# catch it); a tuple of texts and one of faulty texts replace pair by pair
 MUTANTS = {
     # the verify rows leave their own new slot out of the attention
     "own slot dropped": (
@@ -62,8 +66,9 @@ MUTANTS = {
         "  kc[at] = qtts_to_cache<CT>(qtts_bf16_round(k_s[t]));",
         "K6",
     ),
-    # the streamed chain writes its KV scratch in bf16 (K2 at the config
-    # dtype, not the JAX kernel's float32 scratch)
+    # the streamed chain (and its launch-per-op reference) writes its KV
+    # scratch in bf16 (K2 at the config dtype, not the JAX kernel's float32
+    # scratch): caught by the comparison with K2 at a float32 cache
     "K3 scratch in bf16": (
         "fused_mtp_stream.cu",
         "  f32.cache_bf16 = 0;",
@@ -77,40 +82,77 @@ MUTANTS = {
         "for (int t0 = 0; t0 + FA_BT < Tp; t0 += FA_BT) {",
         "K8",
     ),
-    # the whole frame rounds the next talker input to bf16 (the multi-dispatch
-    # path's numerics, not the JAX kernel's float32 sum)
+    # the persistent frame rounds the next talker input to bf16 (the
+    # multi-dispatch path's numerics, not the JAX kernel's float32 sum)
     "K7 next input in bf16": (
         "fused_frame.cu",
-        "a.x[k] = __fadd_rn(__fadd_rn(a.c0e[k], a.sub_sum[k]), load_in(a.drip, a.drip_bf16, k));",
-        "a.x[k] = qtts_bf16_round(\n"
-        "              __fadd_rn(__fadd_rn(a.c0e[k], a.sub_sum[k]), load_in(a.drip, a.drip_bf16, k)));",
+        "      a.x[k] = __fadd_rn(__fadd_rn(a.c0e[k], c.sub_sum[k]), load_in(a.drip, a.drip_bf16, k));"
+        "\n    }\n  }, &talker);",
+        "      a.x[k] = qtts_bf16_round(\n"
+        "          __fadd_rn(__fadd_rn(a.c0e[k], c.sub_sum[k]), load_in(a.drip, a.drip_bf16, k)));"
+        "\n    }\n  }, &talker);",
         "K7",
     ),
     # the grid barrier between the chain's last gather and the talker's first
-    # layer dropped: the talker may read x before the last gather writes it
+    # layer dropped from the persistent frame: the talker may read x before
+    # the last gather writes it
     "K7 barrier before the talker dropped": (
-        "fused_frame.cu",
-        "  qtts_grid_sync();  // the talker's first layer reads x\n",
-        "",
+        "qtts_stream.cuh",
+        "    if (j + 1 < n || tail != nullptr) qtts_phase_barrier(p);",
+        "    if (j + 1 < n) qtts_phase_barrier(p);",
+        "K7",
+    ),
+    # the persistent frame's talker segment (the plan's second weight set)
+    # reads each ring stage before it waits on the stage's mbarrier (it waits
+    # after its dot products, so the barrier's phases stay in step): caught
+    # by the one-slot ring check (with the default ring the copy has landed)
+    "K7 talker ring stage read before its copy lands": (
+        "qtts_stream.cuh",
+        ("    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const int n0 = r0 + c * stage_rows;\n",
+         "      default: break;\n    }\n    __syncthreads();  // every warp is done with the slot\n"),
+        ("    const bool late = kind >= QTTS_KINDS;\n"
+         "    if (!late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const int n0 = r0 + c * stage_rows;\n",
+         "      default: break;\n    }\n"
+         "    if (late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    __syncthreads();  // every warp is done with the slot\n"),
         "K7",
     ),
     # the persistent kernels' consumer reads a launch's fourth ring stage
-    # (layer 0's second gate|up stage) without waiting on its mbarrier for
-    # the bulk copies to land (caught by the one-slot ring checks below:
-    # with the default ring that copy was issued at the start and lands in
-    # time)
+    # (the MTP trunk's layer 0 second gate|up stage on the one-slot ring)
+    # before it waits on the stage's mbarrier (it waits after its dot
+    # products, so the barrier's phases stay in step): caught by the
+    # one-slot ring checks below (with the default ring that copy was issued
+    # long before and lands in time)
     "K1/K2 ring stage read before its copy lands": (
         "qtts_stream.cuh",
-        "    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);",
-        "    if (stage != 3) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);",
+        ("    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const int n0 = r0 + c * stage_rows;\n",
+         "      default: break;\n    }\n    __syncthreads();  // every warp is done with the slot\n"),
+        ("    const bool late = stage == 3;\n"
+         "    if (!late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const int n0 = r0 + c * stage_rows;\n",
+         "      default: break;\n    }\n"
+         "    if (late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    __syncthreads();  // every warp is done with the slot\n"),
         "K1K2",
     ),
     # the grid barrier between the o projection (which adds into x) and the
     # gate|up prologue (which reads all of x) dropped
     "K1/K2 grid barrier after the o projection dropped": (
         "qtts_stream.cuh",
-        "    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_O, stage, sh, x);\n    qtts_phase_barrier(p);\n",
-        "    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_O, stage, sh, x);\n",
+        "    qtts_ring_gemv<true>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);\n"
+        "    qtts_phase_barrier(p);\n",
+        "    qtts_ring_gemv<true>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);\n",
         "K1K2",
     ),
     # the batched attention merges a row's splits by row 0's split count:
@@ -146,7 +188,8 @@ def checks(gen):
         (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16))),
         (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16),
         torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV))
-    k3 = [lambda: cs.check_k3_equals_k2(*chain, gen, 1)]
+    k3 = [lambda: cs.check_k3_equals_k2(*chain, gen, 0, inputs=4),
+          lambda: cs.one_slot_ring(lambda: cs.check_k3_equals_k2(*chain, gen, 0, inputs=2))]
     t = QWEN3_TTS_17B.talker.transformer
     k8 = [lambda: cs.check_k8("1.7B prefill", 1, 57, 256, t.num_heads, t.num_kv_heads,
                               "prefill", gen)]
@@ -158,6 +201,8 @@ def checks(gen):
           for T, pos in ((256, 64), (2560, 2559))]
     k7 += [lambda knobs=knobs: cs.check_k7_plain(packs, 256, 255, knobs, gen)
            for knobs in cs.K7_KNOBS]
+    k7 += [lambda: cs.one_slot_ring(lambda: cs.check_k7_composition(packs, 256, 255,
+                                                                   torch.bfloat16, gen, inputs=2))]
     tt, mt = QWEN3_TTS_06B.talker.transformer, QWEN3_TTS_06B.code_predictor.transformer
     cp6 = QWEN3_TTS_06B.code_predictor
     H6, V6, n6 = mt.hidden_size, cp6.subcode_vocab_size, cp6.num_steps
@@ -202,10 +247,13 @@ def main() -> int:
             path = os.path.join(csrc, fname)
             with open(path) as f:
                 text = f.read()
-            if old not in text:
-                raise RuntimeError(f"mutant {name!r}: the original text is not in {fname}")
+            pairs = zip(old, new) if isinstance(old, tuple) else ((old, new),)
+            for o, nw in pairs:
+                if o not in text:
+                    raise RuntimeError(f"mutant {name!r}: the original text is not in {fname}")
+                text = text.replace(o, nw)
             with open(path, "w") as f:
-                f.write(text.replace(old, new))
+                f.write(text)
             _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = csrc, os.path.join(tmp, "build"), None
             cs.log(f"=== mutant: {name}")
             failed = 0

@@ -1,4 +1,4 @@
-"""Quick chip check of the persistent kernels K1, K2, K4 and K5 on one NVIDIA GPU.
+"""Quick chip check of the persistent kernels K1-K5 and K7 on one NVIDIA GPU.
 
     python3 chip_persistent.py
 
@@ -17,9 +17,15 @@ turns and traces one launch per case (``chip_smoke.in_turns``,
 ``chip_smoke.trace_phases``): K1 at the 0.6B talker, T=256 pos 200 and
 T=2560 pos 1800; K2 at the 0.6B MTP trunk with a bf16 cache, greedy and four
 sampled knob sets (the engine's defaults, top-k and top-p off, top-k alone,
-top-p alone), whose sampler phases give the sampler's cost per knob.  A
-check that fails raises, and the exit code is then not 0; so it is without
-CUDA.  It is the short first call after a change to ``csrc/qtts_stream.cuh``;
+top-p alone), whose sampler phases give the sampler's cost per knob.  Last
+K7 and K3: the persistent frame against the launch-per-op frame kernel and
+the composition K2 -> K1 -> norm+lm_head bit for bit
+(``chip_smoke.check_k7_composition`` at the 0.6B widths, T = 256 and 2560,
+bf16 and float32 caches, and with one ring slot), the persistent K3 against
+its launch-per-op chain and K2 with a float32 cache at the 1.7B trunk
+(``chip_smoke.check_k3_equals_k2``, and with one ring slot), each timed in
+turns with the kernel it replaced and traced once.  A check that fails
+raises, and the exit code is then not 0; so it is without CUDA.  It is the short first call after a change to ``csrc/qtts_stream.cuh``;
 ``chip_smoke.py`` runs the same checks among all the others.
 """
 
@@ -31,8 +37,9 @@ import time
 import torch
 
 import chip_smoke as cs
-from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B
+from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B, QWEN3_TTS_17B
 from leaxer_qwen3_tts_torch.ops import _build
+from leaxer_qwen3_tts_torch.ops import fused_frame as K7
 from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
 from leaxer_qwen3_tts_torch.ops import fused_step as K1
 from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
@@ -46,7 +53,8 @@ def ptxas_report(path):
     with open(path + ".log") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and any(k in line for k in ("step_kernel", "chain_kernel")):
+        if "Compiling entry" in line and any(k in line for k in ("step_kernel", "chain_kernel",
+                                                                 "frame_kernel")):
             cs.log(line.strip()[:160])
             for nxt in lines[i + 1:]:
                 if "Compiling entry" in nxt:
@@ -134,6 +142,32 @@ def main() -> int:
                     lambda: K2.fused_mtp_chain(*args, cache_dtype=torch.bfloat16), 10)
         cs.trace_phases(f"K2 0.6B {knobs}", plan, cs.chain_phase_names(mt.num_layers, n),
                         lambda: K2.fused_mtp_chain(*args, cache_dtype=torch.bfloat16))
+
+    packs = cs.frame_packs(cfg, gen)
+    for T, pos in ((256, 64), (2560, 2559)):
+        for dt in (torch.bfloat16, torch.float32):
+            cs.check_k7_composition(packs, T, pos, dt, gen, inputs=2)
+    cs.one_slot_ring(lambda: cs.check_k7_composition(packs, 256, 255, torch.bfloat16, gen,
+                                                     inputs=2))
+    inp = cs.k7_inputs(packs, 255, 1, gen)
+    kc, vc = cs.k7_caches(tt, 256, 255, torch.bfloat16, gen)
+    knobs = cs.K7_KNOBS[1]
+    cs.in_turns(f"K7 0.6B frame T=256 pos 255 {knobs}",
+                lambda: cs.k7_call(cs.k7_multi, packs, inp, knobs, kc, vc),
+                lambda: cs.k7_call(K7.fused_frame_step, packs, inp, knobs, kc, vc), 10)
+    cs.trace_phases(f"K7 0.6B frame T=256 pos 255 {knobs}",
+                    K7.frame_plan(*packs, 256, torch.bfloat16),
+                    cs.frame_phase_names(tt.num_layers, mt.num_layers, n),
+                    lambda: cs.k7_call(K7.fused_frame_step, packs, inp, knobs, kc, vc))
+    del packs, kc, vc, tfw
+    cp17 = QWEN3_TTS_17B.code_predictor
+    H, V = cp17.transformer.hidden_size, cp17.subcode_vocab_size
+    chain17 = (cp17, cs.packed_trunk(cp17.transformer, gen), K2.pack_heads(quantize_weight(
+        (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16))),
+        (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16),
+        torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV))
+    cs.check_k3_equals_k2(*chain17, gen, 10, inputs=8)
+    cs.one_slot_ring(lambda: cs.check_k3_equals_k2(*chain17, gen, 0, inputs=2))
     return 0
 
 

@@ -42,14 +42,18 @@ prints the final line:
    the default ring the copy has landed).  Then K5 (``fused_mtp_chain_batched``)
    at B=8 and B=32 with mixed per-row knobs (K2's margin rule for a
    mismatch), every row equal to K2 on that row's noise, bit for bit.
-5. K7 (``fused_frame_step``, one cooperative launch per frame) at the 0.6B
-   widths, T=256 and 2560, at a split edge and the last slot, greedy and two
-   sampled knob sets, 16 seeded inputs each (and a float32 cache case): its
-   code0 is the plain sampler's pick on the same logits and noise, and its
-   sub-codes, c0e, sub_sum, x, talker caches, hidden and logits equal the
-   composition K2 -> float32 next input -> K1 -> K1's GEMV body on the final
-   norm (``qtts_norm_head``) bit for bit; against its plain version, K1's
-   deep limits and K5's flip rule; timed beside the composition.  Then the
+5. K7 (``fused_frame_step``, one persistent cooperative launch per frame on
+   a plan of two weight sets) at the 0.6B widths, T=256 and 2560, at a split
+   edge and the last slot, greedy and two sampled knob sets, 16 seeded inputs
+   each with a bf16 cache (4 or 2 with a float32 cache, 2 with a one-slot
+   ring): its code0 is the plain sampler's pick on the same logits and
+   noise; code0, the sub-codes, c0e, sub_sum, x, talker caches, hidden and
+   logits equal the launch-per-op frame kernel's (``qtts_frame_step_multi``)
+   bit for bit, and all but code0 equal the composition K2 -> float32 next
+   input -> K1 -> K1's GEMV body on the final norm (``qtts_norm_head``);
+   timed in turns with the launch-per-op frame and traced once; against its
+   plain version, K1's deep limits and K5's flip rule; timed beside the
+   composition.  Then the
    probes P1 and P2 (``tools/a8_probe.py``, ``tools/w8a8_probe.py``) through
    their ``run`` entries: every arm against its plain version and timed
    beside one PyTorch call of the unit product.
@@ -93,9 +97,12 @@ prints the final line:
    (28 layers, and one layer with 24 seeded inputs per float32 / bf16 case
    under the tight-input count), the persistent K1 against its launch
    sequence at T=256 and the persistent K2 against its launch-per-op chain
-   on the 1.7B trunk (bf16 cache) bit for bit; K3 (``fused_mtp_chain_streamed``) against
-   its plain version, greedy and two sampled knob sets, and against K2 with a
-   float32 cache on 16 seeded inputs, bit for bit, timed in turns with it;
+   on the 1.7B trunk (bf16 cache) bit for bit; K3 (``fused_mtp_chain_streamed``,
+   K2's persistent chain on a float32 cache) against its plain version,
+   greedy and two sampled knob sets, and against its launch-per-op chain
+   (``qtts_mtp_chain_streamed_multi``) and K2 with a float32 cache on 16
+   seeded inputs (and 2 with a one-slot ring), bit for bit, timed in turns
+   with the launch-per-op chain and traced once;
    K8 (``flash_attend``) against its plain version at the 1.7B prefill shape
    and on random GQA shapes with invalid keys, ragged S and T and a fully
    masked row, timed beside ``scaled_dot_product_attention``; then
@@ -409,6 +416,17 @@ def k2_multi(t, fw, fnorm, heads, tables, lh, c0, noise, temperature, top_k, top
 k2_multi.launches = 0  # not a kernel of the path: compare-only launches
 
 
+def k3_multi(t, fw, fnorm, heads, tables, lh, c0, noise, temperature, top_k, top_p):
+    """K3's launch-per-op chain (``qtts_mtp_chain_streamed_multi``: K2's
+    launch-per-op chain on a float32 cache) on the same inputs: the
+    reference the persistent K3 is held to bit for bit."""
+    return K2._launch_chain(k3_multi, "qtts_mtp_chain_streamed_multi", t, fw, fnorm, heads,
+                            tables, lh, c0, noise, temperature, top_k, top_p, torch.float32)
+
+
+k3_multi.launches = 0  # not a kernel of the path: compare-only launches
+
+
 def k1_run(t, fw, T, pos, cache_dtype, gen) -> K1Run:
     L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
     x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
@@ -696,14 +714,22 @@ def in_turns(label, old, new, iters):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
+ONE_SLOT_BYTES = 24 * 1024  # most phases then take two stages or more (K = 6144: 4 rows)
+
+
 def one_slot_ring(run):
-    """``run()`` with the persistent kernels' plans cut to one ring slot;
-    the wrappers' cached entries are dropped before and after."""
+    """``run()`` with the persistent kernels' plans cut to one ring slot of
+    ONE_SLOT_BYTES, so that a stage after a phase's first is issued right
+    before it is read; the wrappers' cached entries are dropped before and
+    after."""
     real = persistent.device_plan
 
-    def one_slot(cfg, device, head_rows=0, batch=1):
+    def one_slot(cfg, device, head_rows=0, batch=1, talker=None, lm_rows=0):
         device = torch.device(device)
-        plan = persistent.make_plan(cfg, persistent.grid_size(device), head_rows, batch)
+        plan = persistent.make_plan(cfg, persistent.grid_size(device), head_rows, batch, talker,
+                                    lm_rows)
+        plan = persistent._plan_at(ONE_SLOT_BYTES, cfg, plan.grid, plan.shapes, batch,
+                                   plan.n_sets)
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.union_bytes)
         return persistent.DevicePlan(plan._replace(n_slots=1, smem_bytes=smem["total"]), device)
 
@@ -711,6 +737,7 @@ def one_slot_ring(run):
         K1._STEP_ENTRIES.clear()
         K1._BATCH_ENTRIES.clear()
         K2._CHAIN_ENTRIES.clear()
+        K7._ENTRIES.clear()
 
     clear()
     persistent.device_plan = one_slot
@@ -725,7 +752,8 @@ def trace_phases(label, plan, names, run):
     """One traced launch of a persistent kernel (``run``), its plan's trace
     on: per phase kind of ``names`` (one per grid barrier, in order), the
     slowest block's work (for a GEMV phase split into its input and its
-    dot products), the mean block's, and the barrier's latency from the last
+    dot products; for a sampler phase, block 0's split into the sampler's
+    steps), the mean block's, and the barrier's latency from the last
     arrival to the first departure.  Returns (us per launch, us per
     barrier, barriers)."""
     tr = plan.enable_trace(len(names))
@@ -745,6 +773,9 @@ def trace_phases(label, plan, names, run):
     parts = [(mid - prev) / 1e3, (ready - mid) / 1e3, (dots - ready) / 1e3, (arrive - dots) / 1e3]
     latency = (depart.min(dim=1).values - arrive.max(dim=1).values) / 1e3
     total = float(end.max() - start.min()) / 1e3
+    # a sampler phase: block 0's marks after the top-k threshold, the softmax
+    # and the top-p threshold (the other blocks wait at the barrier)
+    sampler = (~gemv) & (mid[:, 0] > 0) & (ready[:, 0] > 0) & (dots[:, 0] > 0)
     kinds = {}
     for i, kind in enumerate(names):
         k = kinds.setdefault(kind, [0, 0.0, 0.0, 0.0, [0.0] * 4])
@@ -755,11 +786,15 @@ def trace_phases(label, plan, names, run):
         if bool(gemv[i]):
             for j, part in enumerate(parts):
                 k[4][j] += float(part[i].mean())
+        elif bool(sampler[i]):
+            for j, part in enumerate(parts):
+                k[4][j] += float(part[i, 0])
     bar_us = float(latency.mean())
     log(f"trace {label}: {total:.1f} us per launch, {nb} grid barriers at {bar_us:.2f} us each "
         f"({nb * bar_us:.1f} us, {nb * bar_us / total:.1%}); per phase (count: slowest block's "
         f"work, mean block's [GEMV phases, mean block: input, wait for the first weight stage, "
-        f"dot products, last refill], barrier us): "
+        f"dot products, last refill; sampler phases, block 0: load and top-k threshold, softmax, "
+        f"top-p threshold, draw and gather], barrier us): "
         + "; ".join(f"{kind} x{c}: {w / c:.2f}, {m / c:.2f} [" + ", ".join(
             f"{v / c:.2f}" for v in sub) + f"], {lat / c:.2f}"
             for kind, (c, w, m, lat, sub) in kinds.items())
@@ -776,12 +811,21 @@ def step_phase_names(layers, last_barrier=False, batched=False):
 
 
 def chain_phase_names(layers, n, batched=False):
-    """The phase ending at each grid barrier of one persistent chain (K2, K5)."""
+    """The phase ending at each grid barrier of one persistent chain (K2, K3,
+    K5)."""
     names = step_phase_names(layers, True, batched) * 2
     for j in range(n):
         names += ["head"] + (["sample"] + step_phase_names(layers, True, batched)
                              if j + 1 < n else [])
     return names
+
+
+def frame_phase_names(talker_layers, mtp_layers, n):
+    """The phase ending at each grid barrier of one persistent frame (K7):
+    code0's draw, the chain (K2's phases), the last draw with the next
+    input, the talker step; the lm_head runs after the last barrier."""
+    return (["code0"] + chain_phase_names(mtp_layers, n) + ["sample"]
+            + ["talker " + k for k in step_phase_names(talker_layers, True)])
 
 
 def check_chain(label, kernel_fn, plain_fn, knobs, cp, fw, heads, tables, fnorm, gen, iters,
@@ -1681,23 +1725,39 @@ def spec_pool_phase(eng, spec_eng, card_line):
     return counts
 
 
-def check_k3_equals_k2(cp, fw, heads, tables, fnorm, gen, iters):
-    """K3 against K2 with a float32 cache on K3_EQUAL_INPUTS seeded inputs
-    (knobs cycling through K5_KNOBS): sub-codes and sub_sum equal bit for
-    bit.  Then both timed in turns (K2, K3, K3, K2): the difference is the
-    L2 prefetch of K3's head kernel.  Returns (K3 ms, K2 float32-cache ms)."""
+def check_k3_equals_k2(cp, fw, heads, tables, fnorm, gen, iters, inputs=K3_EQUAL_INPUTS):
+    """The persistent K3 on ``inputs`` seeded inputs (knobs cycling through
+    K5_KNOBS) against its launch-per-op chain (``k3_multi``) and against K2
+    with a float32 cache: sub-codes and sub_sum equal bit for bit.  With
+    ``iters``, K3 timed in turns with the launch-per-op chain (old, new, new,
+    old) and with K2 at a float32 cache, and traced once.  Returns (K3 ms,
+    K2 float32-cache ms)."""
     n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
     t = cp.transformer
     equal = 0
-    for i in range(K3_EQUAL_INPUTS):
+    for i in range(inputs):
         temp, top_k, top_p = K5_KNOBS[i % len(K5_KNOBS)]
         lh = (torch.randn((1, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
         c0 = (torch.randn((1, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
         args = (t, fw, fnorm, heads, tables, lh, c0, gumbel_noise((n, 1, V), gen, DEV), temp,
                 top_k, top_p)
         s3, sum3 = K3.fused_mtp_chain_streamed(*args)
+        so, sum_o = k3_multi(*args)
         s2, sum2 = K2.fused_mtp_chain(*args, cache_dtype=torch.float32)
-        equal += bool(torch.equal(s3, s2)) and bool(torch.equal(sum3, sum2))
+        same = [bool(torch.equal(s3, so)) and bool(torch.equal(sum3, sum_o)),
+                bool(torch.equal(s3, s2)) and bool(torch.equal(sum3, sum2))]
+        if not all(same):
+            log(f"K3 input {i} knobs {(temp, top_k, top_p)}: equal to the launch-per-op chain "
+                f"{same[0]}, to K2 (float32 cache) {same[1]}")
+        equal += all(same)
+    ok = equal == inputs
+    log(f"K3 vs its launch-per-op chain and K2 (float32 cache): {equal}/{inputs} seeded chains "
+        f"equal bit for bit (sub-codes, sub_sum; knobs {K5_KNOBS}) -> {'ok' if ok else 'FAIL'} "
+        f"[{CARD}]")
+    if not ok:
+        raise RuntimeError("K3 differs from its launch-per-op chain or from K2 with a float32 cache")
+    if not iters:
+        return float("nan"), float("nan")
     args = args[:8] + K5_KNOBS[1]
 
     def k2():
@@ -1706,16 +1766,14 @@ def check_k3_equals_k2(cp, fw, heads, tables, fnorm, gen, iters):
     def k3():
         return K3.fused_mtp_chain_streamed(*args)
 
+    k3_ms, _ = in_turns(f"K3 {t.hidden_size}-wide sampled {K5_KNOBS[1]}", lambda: k3_multi(*args),
+                        k3, iters)
     k2_ms = time_ms(k2, iters)
-    k3_ms = time_ms(k3, iters)
-    k3_ms = (k3_ms + time_ms(k3, iters)) / 2
-    k2_ms = (k2_ms + time_ms(k2, iters)) / 2
-    ok = equal == K3_EQUAL_INPUTS
-    log(f"K3 vs K2 (float32 cache): {equal}/{K3_EQUAL_INPUTS} seeded chains equal bit for bit "
-        f"(knobs {K5_KNOBS}); K3 {k3_ms:.4f} ms/chain, K2 float32 cache {k2_ms:.4f} ms/chain "
-        f"(L2 prefetch {k2_ms - k3_ms:+.4f} ms) -> {'ok' if ok else 'FAIL'} [{CARD}]")
-    if not ok:
-        raise RuntimeError("K3 differs from K2 with a float32 cache")
+    log(f"K3 {k3_ms:.4f} ms/chain, K2 float32 cache {k2_ms:.4f} ms/chain (the same kernel on "
+        f"another plan entry) [{CARD}]")
+    trace_phases(f"K3 {t.hidden_size}-wide sampled {K5_KNOBS[1]}",
+                 K2._chain_entry("qtts_mtp_chain_streamed", t, fw, heads, tables, torch.float32,
+                                 args[5].device).plan, chain_phase_names(t.num_layers, n), k3)
     return k3_ms, k2_ms
 
 
@@ -1846,6 +1904,7 @@ def voice_phase(tok, gen, card_line):
                    cache_dtypes=(torch.bfloat16,))
     k3_ms, k2_f32_ms = check_k3_equals_k2(*chain, gen, 10)
     k3[0] = (k3[0][0], k3_ms, k3[0][2])
+    one_slot_ring(lambda: check_k3_equals_k2(*chain, gen45, 0, inputs=2))
     bounds = {"K3": chain_bound(cp.transformer, cpp["fused_step"], cpp["fused_heads"], 1)}
     log(f"K3 bound {bounds['K3'][0]:.4f} ms ({bounds['K3'][1]}, each input read once); "
         f"the trunk ({K2.trunk_bytes(cpp['fused_step']) / 1e6:.0f} MB) is past the 50 MB L2, so "
@@ -1949,6 +2008,16 @@ def k7_call(fn, packs, inp, knobs, kc, vc):
               mtp_cache_dtype=kc.dtype)
 
 
+def k7_multi(*a, **kw):
+    """The launch-per-op frame kernel (``qtts_frame_step_multi``) with
+    :func:`fused_frame_step`'s arguments: the reference the persistent K7 is
+    held to bit for bit."""
+    return K7._launch_frame(k7_multi, "qtts_frame_step_multi", *a, **kw)
+
+
+k7_multi.launches = 0  # not a kernel of the path: compare-only launches
+
+
 def k7_composition(packs, inp, knobs, code0, kc, vc):
     """The frame from checked kernels on K7's code0: K2 on its codec row, the
     float32 next input c0e + sub_sum + drip, K1 (kc, vc updated in place),
@@ -1974,14 +2043,17 @@ def k7_composition(packs, inp, knobs, code0, kc, vc):
 
 
 def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
-    """K7 against the composition of checked kernels on ``inputs`` seeded
-    inputs per knob set: code0 the plain sampler's pick on the same logits
-    and noise (a near tie passes by K5's flip rule, counted), and the
-    sub-codes, c0e, sub_sum, x, the talker caches, hidden and logits equal
-    bit for bit.  Returns the number of frames compared."""
+    """K7 against the launch-per-op frame kernel it replaced (``k7_multi``)
+    and the composition of checked kernels on ``inputs`` seeded inputs per
+    knob set: code0 the plain sampler's pick on the same logits and noise (a
+    near tie passes by K5's flip rule, counted); code0, the sub-codes, c0e,
+    sub_sum, x, the talker caches, hidden and logits equal the launch-per-op
+    frame's bit for bit, and all but code0 the composition's on K7's code0.
+    Returns the number of frames compared."""
     tt = packs[0]
     kc0, vc0 = k7_caches(tt, T, pos, cache_dtype, gen)
     equal = flips = eos = frames = 0
+    names = ("c0e", "subcodes", "sub_sum", "x", "k_cache", "v_cache", "hidden", "logits")
     for knobs in K7_KNOBS:
         for i in range(inputs):
             inp = k7_inputs(packs, pos, i, gen)
@@ -1999,27 +2071,35 @@ def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
                                        f"is not the plain sampler's pick {pick}")
                 flips += 1
             eos += c0 == CODEC_EOS
+            km, vm = kc0.clone(), vc0.clone()
+            m_code0, m_subs, m_logits, m_hidden, _, _ = k7_call(k7_multi, packs, inp, knobs, km, vm)
+            m_work = K7.frame_work(*packs, T, cache_dtype, entry="qtts_frame_step_multi")
             kc, vc = kc0.clone(), vc0.clone()
             c0e, s2, sum2, x, h, lg = k7_composition(packs, inp, knobs, code0, kc, vc)
             same = [torch.equal(c0e, work["c0e"][None]), torch.equal(s2, subs),
                     torch.equal(sum2, work["sub_sum"][None]), torch.equal(x, work["x"][None]),
                     torch.equal(kc, kk), torch.equal(vc, vk), torch.equal(h, hidden),
                     torch.equal(lg, logits)]
-            equal += all(same)
+            same_m = [torch.equal(m_work["c0e"], work["c0e"]), torch.equal(m_subs, subs),
+                      torch.equal(m_work["sub_sum"], work["sub_sum"]),
+                      torch.equal(m_work["x"], work["x"]), torch.equal(km, kk),
+                      torch.equal(vm, vk), torch.equal(m_hidden, hidden),
+                      torch.equal(m_logits, logits), torch.equal(m_code0, code0)]
+            equal += all(same) and all(same_m)
             frames += 1
-            if not all(same):
-                names = ("c0e", "subcodes", "sub_sum", "x", "k_cache", "v_cache", "hidden",
-                         "logits")
+            if not (all(same) and all(same_m)):
                 log(f"K7 T={T} pos={pos} knobs {knobs} input {i}: differs from the composition in "
-                    f"{[nm for nm, ok in zip(names, same) if not ok]}")
+                    f"{[nm for nm, ok in zip(names, same) if not ok]}, from the launch-per-op "
+                    f"frame in {[nm for nm, ok in zip(names + ('code0',), same_m) if not ok]}")
     ok = equal == frames
-    log(f"K7 vs K2 -> float32 x -> K1 -> norm+lm_head: T={T} pos={pos} cache="
-        f"{str(cache_dtype)[6:]} knobs {K7_KNOBS}: {equal}/{frames} frames equal bit for bit "
-        f"(c0e, sub-codes, sub_sum, x, caches, hidden, logits); code0 = plain pick on "
+    log(f"K7 vs the launch-per-op frame and K2 -> float32 x -> K1 -> norm+lm_head: T={T} pos={pos} "
+        f"cache={str(cache_dtype)[6:]} knobs {K7_KNOBS}: {equal}/{frames} frames equal bit for bit "
+        f"(code0, c0e, sub-codes, sub_sum, x, caches, hidden, logits); code0 = plain pick on "
         f"{frames - flips}/{frames} (near-tie flips {flips}), EOS drawn {eos} -> "
         f"{'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
-        raise RuntimeError(f"K7 T={T} pos={pos} differs from the composition of K2 and K1")
+        raise RuntimeError(f"K7 T={T} pos={pos} differs from the launch-per-op frame or the "
+                           "composition of K2 and K1")
     return frames
 
 
@@ -2110,17 +2190,42 @@ def frame_bound(packs, pos, cache_dtype, trunk_reads=1):
 
 
 def frame_checks(cfg, gen):
-    """K7 at the preset's widths: against the composition on every case
-    (bf16 caches, and a float32 talker and chain cache at the first), against
-    its plain version per case and knob set, timed at the first bucket's
-    last slot.  Returns (report checks, bound, frames compared)."""
+    """K7 at the preset's widths: against the launch-per-op frame kernel and
+    the composition on every case with bf16 and float32 caches, and with a
+    one-slot ring; timed in turns with the launch-per-op frame and traced;
+    against its plain version per case and knob set, timed at the first
+    bucket's last slot.  Returns (report checks, bound, frames compared)."""
     packs = frame_packs(cfg, gen)
-    grid = K7.frame_grid(*packs, 256, torch.bfloat16)
-    log(f"K7 grid: {grid} blocks of 256 threads on {torch.cuda.get_device_properties(0).multi_processor_count} "
-        f"SMs, one cooperative launch per frame [{CARD}]")
+    tt, mt, n = packs[0], packs[1], cfg.code_predictor.num_steps
+    p = K7.frame_plan(*packs, 256, torch.bfloat16).plan
+    log(f"K7 plan: grid {p.grid} blocks of 256 threads on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, {p.n_slots} ring slots "
+        f"of {p.slot_bytes} B, stage rows {p.stage_rows} (MTP trunk and heads, then talker and "
+        f"lm_head), {p.smem_bytes} B of dynamic shared memory; one cooperative launch per frame "
+        f"[{CARD}]")
     frames = check_k7_composition(packs, 256, 64, torch.float32, gen, inputs=4)
     for T, pos in K7_CASES:
         frames += check_k7_composition(packs, T, pos, torch.bfloat16, gen)
+    # the float32 cache at the other cases, one ring slot, the timing and the
+    # trace draw from a generator of their own: the checks after keep their
+    # inputs
+    gen7 = torch.Generator(device=DEV)
+    gen7.manual_seed(SEED + 7)
+    for T, pos in K7_CASES[1:]:
+        frames += check_k7_composition(packs, T, pos, torch.float32, gen7, inputs=2)
+    inp = k7_inputs(packs, 255, 1, gen7)
+    kc, vc = k7_caches(tt, 256, 255, torch.bfloat16, gen7)
+    knobs = K7_KNOBS[1]
+    in_turns(f"K7 0.6B frame T=256 pos 255 sampled {knobs}",
+             lambda: k7_call(k7_multi, packs, inp, knobs, kc, vc),
+             lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, kc, vc), 10)
+    trace_phases(f"K7 0.6B frame T=256 pos 255 sampled {knobs}",
+                 K7.frame_plan(*packs, 256, torch.bfloat16),
+                 frame_phase_names(tt.num_layers, mt.num_layers, n),
+                 lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, kc, vc))
+    del kc, vc
+    frames += one_slot_ring(lambda: check_k7_composition(packs, 256, 255, torch.bfloat16, gen7,
+                                                         inputs=2))
     timed, checks = None, []
     for T, pos in K7_CASES:
         for knobs in K7_KNOBS:

@@ -3,8 +3,7 @@
 // Replaces leaxer_qwen3_tts_tpu/ops/fused_frame.py::fused_frame_step
 // (_make_frame_kernel).  The same function, in the JAX kernel's order:
 //   code0:  logits0 = last_logits + suppress (+ -1e30 at CODEC_EOS when
-//           forbidden), drawn by gumbel_topk_topp_sample on the full row
-//           (qtts_sample_index, K2's sampler);
+//           forbidden), drawn by gumbel_topk_topp_sample on the full row;
 //   c0e:    codec_embed[code0] as float32;
 //   chain:  K2's whole chain, prefix included, at the MTP cache dtype;
 //   x:      c0e + sub_sum + drip in float32, with no cast (the multi-dispatch
@@ -15,32 +14,119 @@
 //           logits = bf16(hidden) @ bf16(lm rows) * scale.
 //
 // The TPU kernel walks the talker's (L,) grid on one core with the chain in
-// the l == 0 prologue.  On Hopper one launch per frame means a persistent
-// cooperative kernel: a grid of SM count x resident blocks per SM
-// (cudaLaunchCooperativeKernel; a grid that cannot be co-resident fails the
-// launch, and the wrapper raises), whose phases are the launches K1 and K2
-// would make, separated by grid-wide barriers (qtts_grid_sync).  Each phase
-// deals its work items to the blocks round-robin and runs them through the
-// device bodies K1 and K2 launch (qtts_kernels.cuh), with the thread count and
-// the reduction order each has there: a GEMV row group or the sampler on a
-// whole 256-thread block, an attention item on 128 threads -- each block runs
-// two at once, one per half, each half on its own named barrier.  So every
-// value K7 computes equals, bit for bit, what K2 -> float32 next input -> K1
-// -> K1's GEMV on the final norm computes on the same inputs; chip_smoke.py
-// holds it to that.
+// the l == 0 prologue.  On Hopper the frame is one cooperative launch of
+// the persistent transport K1 and K2 run on (qtts_stream.cuh): a plan of two
+// weight sets (ops/persistent.py: the MTP trunk with its heads, then the
+// talker with its lm_head) whose stages form one sequence through a TMA
+// weight ring, so the talker's first stages load while the chain's last
+// sub-code is drawn.  Its phases are, in order: block 0's code0 draw (K2's
+// register sampler at 12 values a thread), while the chain's first stages
+// load; K2's chain body (qtts_chain_phases), whose last gather also forms
+// the next input; K1's step phases on the talker weights; and the final
+// norm with the lm_head as one more ring GEMV, whose prologue writes the
+// float32 normed hidden.  Every value keeps the op sequence of the kernels it
+// is built from, so K7 equals, bit for bit, both the launch-per-op frame
+// kernel it replaced (qtts_frame_step_multi, below) and the composition
+// K2 -> float32 next input -> K1 -> K1's GEMV body on the final norm
+// (qtts_norm_head); chip_smoke.py holds it to both.
 //
 // What bounds it on the H100 (NVIDIA data sheet, SXM, 3.35 TB/s): the int8
 // weights read once -- the 440 MB talker, the 82 MB trunk, 30 MB of heads, the
 // 3 MB lm_head -- about 554 MB, 0.165 ms; the trunk is larger than the 50 MB
-// L2, so each of its 16 passes streams it again (1.31 GB, 0.39 ms).  What this
-// simple design leaves on the table: ~780 grid barriers per frame (six per
-// layer, two per chain step), GEMV phases of 64 row groups on a grid of
-// hundreds of blocks, K1's GEMV with no cp.async / TMA weight pipeline, and
-// the samplers on one block while the rest of the grid waits.
+// L2, so each of its 16 passes streams it again (1.31 GB, 0.39 ms).  At one
+// token the frame is bound by latency instead: ~650 grid barriers (five per
+// layer, two per chain step), the 16 draws on one block, and each block's
+// stages of a phase; the card measured, its power limit and the per-phase
+// trace are in PERF.md.
 
-#include "qtts_kernels.cuh"
+#include "qtts_stream.cuh"
 
 namespace {
+
+constexpr int kCode0Vpt = 12;  // code0's logits per thread: Vc <= 3072
+
+__device__ __forceinline__ float load_in(const void* p, int bf16, int k) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[k])
+              : static_cast<const float*>(p)[k];
+}
+
+// ---------------------------------------------------------------------------
+// The persistent frame (K7)
+// ---------------------------------------------------------------------------
+
+// The frame's one argument (travels by value).
+struct FrameLaunch {
+  QttsFrameArgs a;
+  QttsPlan p;
+};
+
+template <typename CT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+frame_kernel(const __grid_constant__ FrameLaunch f) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  const QttsFrameArgs& a = f.a;
+  const QttsChainArgs& c = a.mc;
+  const int H = a.tw.H, tid = threadIdx.x;
+  // set 0: the MTP trunk and its n heads in chain order; set 1: the talker
+  // step and its lm_head
+  const QttsSetSpec sets[QTTS_SETS] = {{&a.mw, c.heads, c.head_scales, c.n, c.V, 1},
+                                       {&a.tw, a.lm, a.lm_scale, 1, a.Vc, 0}};
+  qtts_ring_start(ring, seq, smem, f.p, sets);
+  int stage = 0;
+  // code0 on block 0 while the chain's first stages load: the gated logits
+  // drawn by the register sampler on the whole Vc row, then its codec row;
+  // every block copies its share of last_hidden into the chain's float32
+  // first input
+  if (blockIdx.x == 0) {
+    const int c0 = qtts_sample_regs<kCode0Vpt>(
+        [&](int v) {
+          const float add = (v == a.eos && a.forbid_eos) ? QTTS_NEG_INF : 0.f;
+          return __fadd_rn(__fadd_rn(a.last_logits[v], a.suppress[v]), add);
+        },
+        a.Vc, a.g0, c.temperature, c.top_k, c.top_p, c.greedy,
+        *reinterpret_cast<QttsSampleSmem*>(smem), &f.p);
+    if (tid == 0) a.codes[0] = c0;
+    for (int k = tid; k < H; k += blockDim.x) {
+      a.c0e[k] = __bfloat162float(a.codec[(size_t)c0 * H + k]);
+    }
+  }
+  for (int k = blockIdx.x * blockDim.x + tid; k < H; k += gridDim.x * blockDim.x) {
+    a.lh[k] = load_in(a.last_hidden, a.lh_bf16, k);
+  }
+  qtts_phase_barrier(f.p);
+  // the chain; after its last gather block 0 forms the next talker input
+  // c0e + sub_sum + drip in float32 (each thread wrote its c0e[k] above and
+  // its sub_sum[k] just before); a grid barrier (the talker's first layer
+  // reads x), then the talker step on set 1 as the chain's tail
+  const QttsStepTail<CT> talker{&a.tw, &a.ts, 1, a.x, static_cast<CT*>(a.k_cache),
+                                static_cast<CT*>(a.v_cache), a.T, a.pos};
+  qtts_chain_phases<CT>(a.mw, a.ms, f.p, ring, seq, 0, stage, c, smem, [&] {
+    for (int k = tid; k < H; k += blockDim.x) {
+      a.x[k] = __fadd_rn(__fadd_rn(a.c0e[k], c.sub_sum[k]), load_in(a.drip, a.drip_bf16, k));
+    }
+  }, &talker);
+  // final norm + lm_head: one more ring GEMV, block 0 writing the float32
+  // normed values (before the bf16 rounding) as hidden
+  qtts_prologue<QTTS_IN_NORM>(a.x, a.talker_norm, a.tw.eps, H, reinterpret_cast<float*>(smem),
+                              blockIdx.x == 0 ? a.hidden : nullptr);
+  qtts_ring_gemv<false>(f.p, ring, seq, QTTS_KINDS + QTTS_KIND_HEAD, stage,
+                        reinterpret_cast<float*>(smem), a.logits);
+  qtts_trace_end(f.p);
+}
+
+// ---------------------------------------------------------------------------
+// The launch-per-op frame K7 ran before it was persistent
+// ---------------------------------------------------------------------------
+//
+// A cooperative grid of SM count x resident blocks per SM whose phases are
+// the launches K1 and K2's launch-per-op sequences make, separated by grid
+// barriers: each phase deals its work items to the blocks round-robin and
+// runs them through the device bodies those launches run (qtts_kernels.cuh),
+// with their thread counts and reduction orders -- a GEMV row group or the
+// sampler on a whole 256-thread block, an attention item on one 128-thread
+// half.  Kept as the reference chip_smoke.py holds the persistent K7 to.
 
 constexpr int kThreads = QTTS_GEMV_THREADS;  // 256: two attention items per block
 
@@ -54,11 +140,6 @@ __device__ __forceinline__ void gemv_phase(const float* in, const float* norm_w,
     __syncthreads();  // the previous group's rows are done with sh
     qtts_gemv_i8_body<IN_MODE, ACCUM>(in, norm_w, eps, W, scale, out, N, K, g, sh, raw);
   }
-}
-
-__device__ __forceinline__ float load_in(const void* p, int bf16, int k) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[k])
-              : static_cast<const float*>(p)[k];
 }
 
 // One K1 step through every layer of w at position pos: the phases of
@@ -112,11 +193,13 @@ __device__ void frame_step(const QttsStepWeights& w, const QttsStepScratch& s, c
 }
 
 template <typename CT>
-__global__ void __launch_bounds__(kThreads) frame_kernel(const __grid_constant__ QttsFrameArgs a) {
+__global__ void __launch_bounds__(kThreads)
+frame_kernel_multi(const __grid_constant__ QttsFrameArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sh = reinterpret_cast<float*>(smem);  // GEMV input / sampler rows
   QttsAttnSmem* am = reinterpret_cast<QttsAttnSmem*>(smem);  // two attention items
-  const int H = a.tw.H, n = a.n, V = a.V;
+  const QttsChainArgs& c = a.mc;
+  const int H = a.tw.H, n = c.n, V = c.V;
   const int tid = threadIdx.x;
 
   // --- code0: suppress + EOS gate + draw, then its codec row (block 0);
@@ -129,45 +212,45 @@ __global__ void __launch_bounds__(kThreads) frame_kernel(const __grid_constant__
       lg[v] = __fadd_rn(__fadd_rn(a.last_logits[v], a.suppress[v]), add);
     }
     __syncthreads();
-    const int c0 = qtts_sample_index(lg, pr, a.Vc, a.g0, a.temperature, a.top_k, a.top_p,
-                                     a.greedy);
+    const int c0 = qtts_sample_index(lg, pr, a.Vc, a.g0, c.temperature, c.top_k, c.top_p,
+                                     c.greedy);
     if (tid == 0) a.codes[0] = c0;
     for (int k = tid; k < H; k += blockDim.x) {
       a.c0e[k] = __bfloat162float(a.codec[(size_t)c0 * H + k]);
     }
   }
   for (int k = blockIdx.x * blockDim.x + tid; k < H; k += gridDim.x * blockDim.x) {
-    a.mx[k] = load_in(a.last_hidden, a.lh_bf16, k);
+    c.x[k] = load_in(a.last_hidden, a.lh_bf16, k);
   }
   qtts_grid_sync();
 
   // --- the chain (qtts_run_mtp_chain's order) ---
-  CT* mkc = static_cast<CT*>(a.mk_cache);
-  CT* mvc = static_cast<CT*>(a.mv_cache);
+  CT* mkc = static_cast<CT*>(c.k_cache);
+  CT* mvc = static_cast<CT*>(c.v_cache);
   const int Tm = n + 2;
-  frame_step<CT>(a.mw, a.ms, a.mx, a.mx, mkc, mvc, Tm, 0, sh, am);
-  frame_step<CT>(a.mw, a.ms, a.c0e, a.mx, mkc, mvc, Tm, 1, sh, am);
+  frame_step<CT>(a.mw, a.ms, c.x, c.x, mkc, mvc, Tm, 0, sh, am);
+  frame_step<CT>(a.mw, a.ms, a.c0e, c.x, mkc, mvc, Tm, 1, sh, am);
   for (int j = 0; j < n; ++j) {
     QttsHeadStep p;
-    p.x = a.mx;
-    p.final_norm = a.mtp_norm;
+    p.x = c.x;
+    p.final_norm = c.final_norm;
     p.eps = a.mw.eps;
-    p.W = a.heads + (size_t)j * V * H;
-    p.scale = a.head_scales + (size_t)j * V;
-    p.gumbel = a.greedy ? nullptr : a.gumbel + (size_t)j * V;
-    p.table = a.tables + (size_t)j * a.Vt * H;
-    p.logits = a.head_logits;
+    p.W = c.heads + (size_t)j * V * H;
+    p.scale = c.head_scales + (size_t)j * V;
+    p.gumbel = c.greedy ? nullptr : c.gumbel + (size_t)j * V;
+    p.table = c.tables + (size_t)j * c.Vt * H;
+    p.logits = c.logits;
     p.counter = nullptr;
-    p.subcodes = a.codes + 1;
-    p.sub_sum = a.sub_sum;
-    p.x_next = a.mx_in;
+    p.subcodes = c.subcodes;
+    p.sub_sum = c.sub_sum;
+    p.x_next = c.x_in;
     p.j = j;
     p.V = V;
     p.H = H;
-    p.temperature = a.temperature;
-    p.top_k = a.top_k;
-    p.top_p = a.top_p;
-    p.greedy = a.greedy;
+    p.temperature = c.temperature;
+    p.top_k = c.top_k;
+    p.top_p = c.top_p;
+    p.greedy = c.greedy;
     gemv_phase<QTTS_IN_NORM, false>(p.x, p.final_norm, p.eps, p.W, p.scale, p.logits, V, H, sh);
     qtts_grid_sync();
     if (blockIdx.x == 0) {
@@ -177,13 +260,13 @@ __global__ void __launch_bounds__(kThreads) frame_kernel(const __grid_constant__
         // the next talker input: codec sum + text drip, in float32 (this
         // thread wrote sub_sum[k] just above and c0e[k] in the code0 phase)
         for (int k = tid; k < H; k += blockDim.x) {
-          a.x[k] = __fadd_rn(__fadd_rn(a.c0e[k], a.sub_sum[k]), load_in(a.drip, a.drip_bf16, k));
+          a.x[k] = __fadd_rn(__fadd_rn(a.c0e[k], c.sub_sum[k]), load_in(a.drip, a.drip_bf16, k));
         }
       }
     }
     if (j + 1 < n) {
       qtts_grid_sync();  // the next trunk pass reads the sampled embedding
-      frame_step<CT>(a.mw, a.ms, a.mx_in, a.mx, mkc, mvc, Tm, 2 + j, sh, am);
+      frame_step<CT>(a.mw, a.ms, c.x_in, c.x, mkc, mvc, Tm, 2 + j, sh, am);
     }
   }
   qtts_grid_sync();  // the talker's first layer reads x
@@ -205,9 +288,16 @@ bool step_ok(const QttsStepWeights& w, const QttsStepScratch& s, int T, int pos)
          pos / QTTS_ATTN_CHUNK + 1 <= s.max_splits;
 }
 
-size_t frame_smem(const QttsFrameArgs& a) {
+bool frame_ok(const QttsFrameArgs& a) {
+  const QttsChainArgs& c = a.mc;
+  return step_ok(a.tw, a.ts, a.T, a.pos) && step_ok(a.mw, a.ms, c.n + 2, c.n) &&
+         a.mw.H == a.tw.H && c.n >= 1 && c.V <= c.Vt && a.Vc >= 1 &&
+         c.cache_bf16 == a.cache_bf16;
+}
+
+size_t frame_smem_multi(const QttsFrameArgs& a) {
   size_t f = (size_t)2 * a.Vc;  // the code0 sampler's rows
-  const size_t widths[] = {(size_t)2 * a.V, (size_t)a.tw.H, (size_t)a.tw.nq * a.tw.D,
+  const size_t widths[] = {(size_t)2 * a.mc.V, (size_t)a.tw.H, (size_t)a.tw.nq * a.tw.D,
                            (size_t)a.tw.I, (size_t)a.mw.nq * a.mw.D, (size_t)a.mw.I};
   for (size_t v : widths) f = v > f ? v : f;
   const size_t bytes = f * sizeof(float);
@@ -215,58 +305,31 @@ size_t frame_smem(const QttsFrameArgs& a) {
   return bytes > attn ? bytes : attn;
 }
 
-// The grid of the launch: SM count x the blocks per SM that fit, once per
-// (instantiation, shared memory size); 0 with the error in *err.
+// The launch-per-op frame on a grid of SM count x the blocks per SM that
+// fit, found once per (instantiation, shared memory size).
 template <typename CT>
-int frame_grid(size_t smem, cudaError_t* err) {
+int launch_frame_multi(const QttsFrameArgs& a, cudaStream_t st) {
   static size_t cached_smem = 0;
   static int cached_grid = 0;
-  *err = cudaSuccess;
-  if (cached_grid > 0 && cached_smem == smem) return cached_grid;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((*err = cudaGetDevice(&dev)) != cudaSuccess) return 0;
-  if ((*err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess) {
-    return 0;
+  const size_t smem = frame_smem_multi(a);
+  if (cached_grid == 0 || cached_smem != smem) {
+    int dev = 0, coop = 0, sms = 0, per_sm = 0;
+    QTTS_TRY(cudaGetDevice(&dev));
+    QTTS_TRY(cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
+    if (!coop) return (int)cudaErrorNotSupported;
+    QTTS_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    QTTS_TRY(cudaFuncSetAttribute(frame_kernel_multi<CT>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    QTTS_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frame_kernel_multi<CT>,
+                                                           kThreads, smem));
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cached_smem = smem;
+    cached_grid = sms * per_sm;
   }
-  if (!coop) {
-    *err = cudaErrorNotSupported;
-    return 0;
-  }
-  if ((*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
-    return 0;
-  }
-  if ((*err = cudaFuncSetAttribute(frame_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem)) != cudaSuccess) {
-    return 0;
-  }
-  if ((*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frame_kernel<CT>, kThreads,
-                                                            smem)) != cudaSuccess) {
-    return 0;
-  }
-  if (per_sm < 1) {
-    *err = cudaErrorCooperativeLaunchTooLarge;
-    return 0;
-  }
-  cached_smem = smem;
-  cached_grid = sms * per_sm;
-  return cached_grid;
-}
-
-template <typename CT>
-int launch_frame(const QttsFrameArgs& a, cudaStream_t st) {
-  const size_t smem = frame_smem(a);
-  cudaError_t err;
-  const int grid = frame_grid<CT>(smem, &err);
-  if (!grid) return (int)err;
   void* params[] = {const_cast<QttsFrameArgs*>(&a)};
-  QTTS_TRY(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(frame_kernel<CT>), dim3(grid),
-                                       dim3(kThreads), params, smem, st));
+  QTTS_TRY(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(frame_kernel_multi<CT>),
+                                       dim3(cached_grid), dim3(kThreads), params, smem, st));
   return (int)cudaGetLastError();
-}
-
-bool frame_ok(const QttsFrameArgs& a) {
-  return step_ok(a.tw, a.ts, a.T, a.pos) && step_ok(a.mw, a.ms, a.n + 2, a.n) &&
-         a.mw.H == a.tw.H && a.n >= 1 && a.V <= a.Vt && a.Vc >= 1;
 }
 
 }  // namespace
@@ -274,21 +337,32 @@ bool frame_ok(const QttsFrameArgs& a) {
 extern "C" {
 
 // Kernel K7 entry: one frame; codes [1 + n], logits [Vc] and hidden [H] out,
-// the talker caches updated in place.
-int qtts_frame_step(const QttsFrameArgs* a, void* stream) {
+// the talker caches updated in place, in one cooperative launch on the
+// plan's grid (the plan's set 0: the MTP trunk with n heads of V rows; set
+// 1: the talker with the Vc lm_head rows).
+int qtts_frame_step(const QttsFrameArgs* a, const QttsPlan* p, void* stream) {
+  if (!frame_ok(*a) || a->Vc > QTTS_P_THREADS * kCode0Vpt ||
+      a->mc.V > QTTS_P_THREADS * QTTS_SAMPLE_VPT ||
+      !qtts_plan_ok(*p, a->mw, a->mc.V, 0, &a->tw, a->Vc)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const FrameLaunch f{*a, *p};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a->cache_bf16 ? qtts_launch_persistent(frame_kernel<__nv_bfloat16>, f, *p, st)
+                       : qtts_launch_persistent(frame_kernel<float>, f, *p, st);
+}
+
+// The launch-per-op frame kernel K7 ran before it was persistent: the
+// reference chip_smoke.py holds the persistent frame to, bit for bit; no
+// wrapper calls it.
+int qtts_frame_step_multi(const QttsFrameArgs* a, void* stream) {
   if (!frame_ok(*a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a->cache_bf16 ? launch_frame<__nv_bfloat16>(*a, st) : launch_frame<float>(*a, st);
+  return a->cache_bf16 ? launch_frame_multi<__nv_bfloat16>(*a, st)
+                       : launch_frame_multi<float>(*a, st);
 }
 
 // sizeof(QttsFrameArgs), for the wrapper's check of its ctypes mirror.
 int qtts_frame_args_size() { return (int)sizeof(QttsFrameArgs); }
-
-// The grid K7 launches with for these arguments (0 on an error).
-int qtts_frame_grid(const QttsFrameArgs* a) {
-  cudaError_t err;
-  const size_t smem = frame_smem(*a);
-  return a->cache_bf16 ? frame_grid<__nv_bfloat16>(smem, &err) : frame_grid<float>(smem, &err);
-}
 
 }  // extern "C"

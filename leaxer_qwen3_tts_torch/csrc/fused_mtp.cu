@@ -22,14 +22,15 @@
 // At one token the chain is latency-bound: the launch-per-op chain below
 // (qtts_mtp_chain_multi: K1's six launches per layer for each of the 16
 // passes, one head + sampler kernel per step, ~590 dependent launches) ran at
-// 0.6% of the bound.  The persistent chain (chain_kernel, on qtts_stream.cuh)
-// runs every pass as K1's five grid phases per layer and every head as one
-// more GEMV phase, all fed by one TMA weight ring whose stages run ahead of
-// the data dependency (the next pass's first weights load while one block
-// samples), and samples with the register sampler (qtts_sample_fast).  Its
-// sub-codes and sub_sum equal the launch-per-op chain's bit for bit
-// (chip_smoke.py checks).  What it leaves: ~510 grid barriers per chain, and
-// the trunk streamed from device memory 16 times (no cluster-resident split).
+// 0.6% of the bound.  The persistent chain (chain_kernel: qtts_chain_phases
+// on qtts_stream.cuh, the body K3 and K7 run too) runs every pass as K1's
+// five grid phases per layer and every head as one more GEMV phase, all fed
+// by one TMA weight ring whose stages run ahead of the data dependency (the
+// next pass's first weights load while one block samples), and samples with
+// the register sampler (qtts_sample_fast).  Its sub-codes and sub_sum equal
+// the launch-per-op chain's bit for bit (chip_smoke.py checks).  What it
+// leaves: ~510 grid barriers per chain, the 15 draws on one block, and the
+// trunk streamed from device memory 16 times (no cluster-resident split).
 
 #include "qtts_stream.cuh"
 
@@ -56,40 +57,9 @@ chain_kernel(const __grid_constant__ ChainLaunch a) {
   __shared__ QttsSeq seq;
   QttsRing ring;
   const QttsChainArgs& c = a.c;
-  const int H = a.w.H, V = c.V, n = c.n, T = n + 2;
-  qtts_ring_start(ring, seq, smem, a.p, a.w, c.heads, c.head_scales, n, V);
+  qtts_ring_start(ring, seq, smem, a.p, a.w, c.heads, c.head_scales, c.n, c.V);
   int stage = 0;
-  CT* kc = static_cast<CT*>(c.k_cache);
-  CT* vc = static_cast<CT*>(c.v_cache);
-  float* sh = reinterpret_cast<float*>(smem);
-  qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.last_hidden, c.x, kc, vc, T, 0, smem,
-                       true);
-  qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.code0_embed, c.x, kc, vc, T, 1, smem,
-                       true);
-  for (int j = 0; j < n; ++j) {
-    // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j
-    qtts_prologue<QTTS_IN_NORM>(c.x, c.final_norm, a.w.eps, H, sh);
-    qtts_ring_gemv<false>(a.p, ring, seq, QTTS_KIND_HEAD, stage, sh, c.logits);
-    qtts_phase_barrier(a.p);
-    if (blockIdx.x == 0) {
-      // the draw, then the embedding row into sub_sum and the next trunk input
-      const int sub = qtts_sample_fast(c.logits, V, c.gumbel + (size_t)j * V, c.temperature,
-                                       c.top_k, c.top_p, c.greedy,
-                                       *reinterpret_cast<QttsSampleSmem*>(smem));
-      if (threadIdx.x == 0) c.subcodes[j] = sub;
-      const __nv_bfloat16* table = c.tables + (size_t)j * c.Vt * H + (size_t)sub * H;
-      for (int k = threadIdx.x; k < H; k += blockDim.x) {
-        const float e = __bfloat162float(table[k]);
-        c.sub_sum[k] = j == 0 ? e : c.sub_sum[k] + e;
-        c.x_in[k] = e;
-      }
-    }
-    if (j + 1 < n) {
-      qtts_phase_barrier(a.p);  // the next trunk pass reads the sampled embedding
-      qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.x_in, c.x, kc, vc, T, 2 + j, smem,
-                           true);
-    }
-  }
+  qtts_chain_phases<CT>(a.w, a.s, a.p, ring, seq, 0, stage, c, smem, [] {});
   qtts_trace_end(a.p);
 }
 

@@ -108,10 +108,10 @@ bchain_kernel(const __grid_constant__ BChainLaunch a) {
       // row b's draw on block b, then its embedding row into sub_sum and
       // the next trunk input
       const int b = blockIdx.x;
-      const int sub = qtts_sample_fast(c.logits + (size_t)b * V, V,
-                                       c.noise + j * c.noise_step_stride + b * c.noise_row_stride,
-                                       c.temperature[b], c.top_k[b], c.top_p[b], c.greedy[b],
-                                       *reinterpret_cast<QttsSampleSmem*>(smem));
+      const int sub = qtts_sample_fast(
+          c.logits + (size_t)b * V, V, c.noise + j * c.noise_step_stride + b * c.noise_row_stride,
+          c.temperature[b], c.top_k[b], c.top_p[b], c.greedy[b],
+          *reinterpret_cast<QttsSampleSmem*>(smem), &a.p);
       if (threadIdx.x == 0) c.subcodes[b * n + j] = sub;
       const __nv_bfloat16* table = c.tables + (size_t)j * c.Vt * H + (size_t)sub * H;
       float* sum = c.sub_sum + (size_t)b * H;

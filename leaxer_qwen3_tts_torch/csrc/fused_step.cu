@@ -89,8 +89,9 @@ step_kernel(const __grid_constant__ StepLaunch a) {
   QttsRing ring;
   qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
   int stage = 0;
-  qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x, static_cast<CT*>(a.k_cache),
-                       static_cast<CT*>(a.v_cache), a.T, a.pos, smem, false);
+  qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, 0, stage, a.x_in, a.x,
+                       static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.T, a.pos, smem,
+                       false);
   qtts_trace_end(a.p);
 }
 
@@ -165,8 +166,8 @@ int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const Q
 
 // The launch-per-op sequence K1 ran before it was persistent (six launches
 // per layer): the reference chip_smoke.py holds the persistent step to, bit
-// for bit.  No wrapper calls it; K3's chain runs the same layer kernels
-// through qtts_launch_decode_step.
+// for bit.  No wrapper calls it; the launch-per-op chains (K2's and K3's
+// references) run the same layer kernels through qtts_launch_decode_step.
 int qtts_decode_step_multi(const QttsStepWeights* w, const QttsStepScratch* s, const float* x_in,
                            float* x_out, void* k_cache, void* v_cache, int cache_bf16, int T,
                            int pos, void* stream) {
@@ -177,7 +178,8 @@ int qtts_decode_step_multi(const QttsStepWeights* w, const QttsStepScratch* s, c
 // The sizes and limits ops/persistent.py plans with: sizeof(QttsAttnSmem),
 // sizeof(QttsSampleSmem), the most rows a stage may hold, the threads of a
 // block, the widest GEMV input, the kv heads a plan takes, the attention
-// tickets of a batched launch, the rows a batched launch takes.
+// tickets of a batched launch, the rows a batched launch takes, the weight
+// sets a plan takes, sizeof(QttsPlan).
 void qtts_persistent_sizes(int* out) {
   out[0] = (int)sizeof(QttsAttnSmem);
   out[1] = (int)sizeof(QttsSampleSmem);
@@ -187,6 +189,8 @@ void qtts_persistent_sizes(int* out) {
   out[5] = QTTS_P_MAX_KV_HEADS;
   out[6] = QTTS_P_MAX_TICKETS;
   out[7] = QTTS_MAX_BATCH;
+  out[8] = QTTS_SETS;
+  out[9] = (int)sizeof(QttsPlan);
 }
 
 // The final norm and an int8 head on K1's GEMV: hidden = RMSNorm(x) * norm_w

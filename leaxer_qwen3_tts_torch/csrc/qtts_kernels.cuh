@@ -102,48 +102,39 @@ struct QttsChainBatchArgs {
   int32_t greedy[QTTS_MAX_BATCH];
 };
 
-// Arguments of the whole-frame entry (kernel K7, fused_frame.cu).  The
-// wrapper builds the pointer fields once per (pack, cache bucket, cache
-// dtype) and sets the outputs and the per-frame scalars before each launch;
-// the struct travels by value as the kernel's one parameter.
+// Arguments of the whole-frame entries (kernel K7, fused_frame.cu).  The
+// wrapper builds the pointer fields once per (packs, cache bucket, cache
+// dtype) and sets the inputs, outputs and per-frame scalars before each
+// launch; the struct travels by value in the kernel's one parameter.
 struct QttsFrameArgs {
   QttsStepWeights tw;           // talker
   QttsStepScratch ts;           // talker step scratch (max_splits for T)
   QttsStepWeights mw;           // MTP trunk
   QttsStepScratch ms;           // chain step scratch (T = n + 2)
+  // the chain: MTP final norm, heads, tables, noise [n, V] (unread when
+  // greedy), the knobs (also code0's), last_hidden = lh, code0_embed = c0e,
+  // subcodes = codes + 1, sub_sum, trunk residual x, next trunk input x_in,
+  // head logits [V], the [Lm, nk, n + 2, D] caches in the talker cache dtype
+  QttsChainArgs mc;
   const float* talker_norm;     // [H] talker final norm
   const int8_t* lm;             // [Vc, H] lm_head rows
   const float* lm_scale;        // [Vc]
   const __nv_bfloat16* codec;   // [codec vocab, H] codec_embed table
-  const float* mtp_norm;        // [H] MTP final norm
-  const int8_t* heads;          // [n, V, H]
-  const float* head_scales;     // [n, V]
-  const __nv_bfloat16* tables;  // [n, Vt, H]
   const float* last_logits;     // [Vc]
   const float* suppress;        // [Vc]
   const float* g0;              // [Vc] code0 Gumbel noise (unread when greedy)
-  const float* gumbel;          // [n, V] chain Gumbel noise (unread when greedy)
   const void* last_hidden;      // [H] float32 or bf16 (lh_bf16)
   const void* drip;             // [H] float32 or bf16 (drip_bf16)
   void* k_cache;                // talker [L, nk, T, D] cache dtype, updated in place
   void* v_cache;
-  void* mk_cache;               // chain [Lm, nk, n + 2, D] cache dtype (scratch)
-  void* mv_cache;
   float* x;                     // [H] talker residual: the next input, then pre-final-norm
-  float* mx;                    // [H] trunk residual
-  float* mx_in;                 // [H] sampled embedding (the next trunk input)
-  float* sub_sum;               // [H]
-  float* c0e;                   // [H] codec_embed(code0) as float32
-  float* head_logits;           // [V]
+  float* c0e;                   // [H] codec_embed(code0) as float32 (mc.code0_embed)
+  float* lh;                    // [H] last_hidden as float32 (mc.last_hidden)
   int32_t* codes;               // [1 + n] out: code0, then the sub-codes
   float* logits;                // [Vc] out
   float* hidden;                // [H] out: final-normed, float32
   int32_t cache_bf16, lh_bf16, drip_bf16;
-  int32_t T, pos, Vc, n, V, Vt, eos, forbid_eos;
-  float temperature;  // max(temperature, 1e-6) as float32 (sampled mode)
-  int32_t top_k;
-  float top_p;
-  int32_t greedy;
+  int32_t T, pos, Vc, eos, forbid_eos;
 };
 
 constexpr int QTTS_ATTN_D = 128;      // head_dim the attention kernel takes

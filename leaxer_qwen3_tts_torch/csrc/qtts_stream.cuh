@@ -1,11 +1,14 @@
-// The persistent transport of kernels K1 and K2: one cooperative launch per
-// decode step (K1) or per sub-code chain (K2), whose weights stream through a
-// shared-memory ring ahead of the data dependency.  Kernels K4 and K5 run the
-// same transport for B rows (the batched section below), each row K1's or
-// K2's arithmetic in K1's or K2's order.
+// The persistent transport of kernels K1, K2, K3 and K7: one cooperative
+// launch per decode step (K1), per sub-code chain (K2; K3, the same chain on
+// a float32 cache) or per whole frame (K7: the chain, then the talker step
+// and its lm_head), whose weights stream through a shared-memory ring ahead
+// of the data dependency.  Kernels K4 and K5 run the same transport for B
+// rows (the batched section below), each row K1's or K2's arithmetic in K1's
+// or K2's order.
 //
 // What it keeps from the launch-per-op sequences (qtts_decode_step_multi,
-// qtts_mtp_chain_multi): every value, bit for bit.  Each output row is one
+// qtts_mtp_chain_multi, qtts_frame_step_multi): every value, bit for bit.
+// Each output row is one
 // warp's dot product in K1's lane order (lane l takes the 16-byte chunks at
 // l*16 + i*512, fmaf in element order, then the xor butterfly, the separate
 // scale product and residual sum); the GEMV input is qtts_gemv_prologue's,
@@ -19,17 +22,22 @@
 //     every GEMV (qkv, o, gate|up, down, and the chain's heads), balanced over
 //     the grid in multiples of four rows.  The wrapper computes the ranges,
 //     the ring's geometry and the shared-memory size (ops/persistent.py) and
-//     passes them in a QttsPlan.
+//     passes them in a QttsPlan.  A plan covers one weight set (a
+//     transformer and its heads) or two (K7: the MTP trunk with its heads,
+//     then the talker with its lm_head), with a bounds table per set.
 //   * Weight ring.  A block's rows of one GEMV are cut into stages of at most
 //     slot_bytes, and the stages of the whole launch form one sequence (layer
 //     by layer, phase by phase; in the chain, the trunk passes and the heads
-//     in chain order).  Thread 0 keeps the next n_slots stages in flight:
+//     in chain order; in the frame, the chain's and then the talker's).
+//     Thread 0 keeps the next n_slots stages in flight:
 //     each stage is a 1-D TMA bulk copy (cp.async.bulk) of the rows' int8
 //     bytes plus one of their float32 scales, completed on the slot's
 //     mbarrier.  A slot is refilled the moment its stage has been consumed,
 //     so the copies of a phase are issued long before the grid barrier its
 //     input waits on, across layer boundaries and, in the chain, while one
-//     block samples.  The rows' weights are then read from shared memory.
+//     block samples (in the frame, the talker's first stages load while the
+//     chain's last sub-code is drawn).  The rows' weights are then read from
+//     shared memory.
 //   * Latency.  At one token every phase is a chain of dependent round trips
 //     to L2, so each input is loaded into registers at once before any of
 //     its arithmetic: the GEMV prologue once per block per phase (the
@@ -63,6 +71,10 @@ enum {
   QTTS_KIND_HEAD = 4,
   QTTS_KINDS = 5
 };
+// Weight sets a plan streams: one, or two in the frame (the MTP trunk and its
+// heads, then the talker and its lm_head).  Set s's kind k is kind index
+// s * QTTS_KINDS + k of the plan's tables and of the block's stage sequence.
+constexpr int QTTS_SETS = 2;
 
 constexpr int QTTS_P_THREADS = QTTS_GEMV_THREADS;  // 256: qtts_prep_scale's partition
 constexpr int QTTS_P_WARPS = QTTS_P_THREADS / 32;
@@ -87,15 +99,16 @@ constexpr int QTTS_SAMPLE_VPT = 8;  // logits per thread: V <= 2048
 // (g + 1) * batch / groups) through every product: each group holds every
 // weight row once, each block its group's rows' inputs in shared memory.
 struct QttsPlan {
-  // [QTTS_KINDS, grid + groups]: group by group, the row starts of the
-  // group's blocks and then its end; block b of group g owns rows
-  // [k][b + g] .. [k][b + g + 1] of kind k
+  // [n_sets * QTTS_KINDS, grid + groups]: group by group, the row starts of
+  // the group's blocks and then its end; block b of group g owns rows
+  // [k][b + g] .. [k][b + g + 1] of kind index k
   const int32_t* bounds;
   int32_t grid;           // blocks: all co-resident
   int32_t n_slots;        // ring slots
   int32_t slot_bytes;     // weight bytes per slot (a multiple of 16)
   int32_t slot_rows;      // scale floats per slot (a multiple of 4)
-  int32_t stage_rows[QTTS_KINDS];  // rows per stage of each kind (multiples of 4, <= 64)
+  // rows per stage of each kind index (multiples of 4, <= 64)
+  int32_t stage_rows[QTTS_SETS * QTTS_KINDS];
   int32_t smem_bytes;     // dynamic shared memory
   int32_t union_bytes;    // bytes of the union region (a multiple of 128)
   uint32_t* tickets;      // [n_tickets] attention tickets per (row, kv head) (zeroed once)
@@ -104,6 +117,7 @@ struct QttsPlan {
   int32_t batch;          // rows of the launch (1: K1, K2)
   int32_t groups;         // batch groups (1 unless batched)
   int32_t n_tickets;
+  int32_t n_sets;         // weight sets (2: the frame)
 };
 
 // The group of this block (groups of floor-divided block ranges).
@@ -114,9 +128,12 @@ static __host__ __device__ __forceinline__ int qtts_group_of(const QttsPlan& p, 
 // The sampler's shared scratch (inside the union region): per-warp partials
 // of the pass's candidates, double buffered.
 struct QttsSampleSmem {
-  int cnt[2][QTTS_P_WARPS][4];     // a pass's per-warp candidate counts (top-k)
-  float part[2][QTTS_P_WARPS][4];  // a pass's per-warp candidate sums (top-p)
-  float lim[2][QTTS_P_WARPS];      // per-warp min and max of the scaled row
+  // a pass's per-warp candidate counts (top-k), then the least and the
+  // largest key of the values inside the interval
+  __align__(16) int cnt[2][QTTS_P_WARPS][8];
+  __align__(16) float part[2][QTTS_P_WARPS][4];  // a pass's per-warp candidate sums (top-p)
+  float lim[2][QTTS_P_WARPS];                    // per-warp min and max of the scaled row
+  float red[2][QTTS_P_WARPS];                    // per-warp softmax max, then sum
 };
 
 // Byte offsets of the plan's shared-memory areas.
@@ -194,9 +211,10 @@ static __device__ __forceinline__ int& qtts_barrier_index() {
 // Thread 0 of block b, with a trace: row 1 holds the block's start; rows
 // 5i + 2 .. 5i + 6 the end of the phase's input, the moment its first weight
 // stage was in shared memory and the end of its last stage's dot products
-// before that slot's refill (GEMV phases; 0 elsewhere), the arrival at grid
-// barrier i and the departure from it; row 5n + 2 after n barriers the
-// block's end (qtts_trace_end).
+// before that slot's refill (GEMV phases; in a sampler phase, the sampling
+// block's ends of the top-k threshold, the softmax and the top-p threshold;
+// 0 elsewhere), the arrival at grid barrier i and the departure from it;
+// row 5n + 2 after n barriers the block's end (qtts_trace_end).
 static __device__ __forceinline__ void qtts_trace_at(const QttsPlan& p, int row) {
   if (row < p.trace_rows) p.trace[(size_t)row * p.grid + blockIdx.x] = qtts_globaltimer();
 }
@@ -228,23 +246,32 @@ static __device__ __forceinline__ void qtts_trace_end(const QttsPlan& p) {
 
 // One block's rows of one kind and where its matrices live.
 struct QttsKindRows {
-  const int8_t* W;    // unit 0's [N, K] rows
-  const float* S;     // unit 0's [N] scales
-  size_t w_unit;      // elements between units (layers or heads)
-  size_t s_unit;
-  int r0, rows, stage_rows, chunks, K;
+  const int8_t* W;  // unit 0's [N, K] rows
+  const float* S;   // unit 0's [N] scales
+  int N, r0, rows, stage_rows, chunks, K;
 };
 
-// The block's stage sequence: `passes` trunk passes of L layers and `heads`
-// head products, in chain order (pass 0, pass 1, then head j and pass j + 2
-// for j < heads - 1, then the last head), or one pass when heads == 0.
+// What one weight set streams: L layers and `heads` head products of N_head
+// rows; the passes and heads in chain order, `lead` passes (0 or 1) then
+// `heads` times a pass and a head: pass, pass, head 0, pass, head 1, ...,
+// the last head (the chain: lead 1); pass, head (the frame's talker and its
+// lm_head: lead 0); one pass (a step: lead 1, no heads).
+struct QttsSetSpec {
+  const QttsStepWeights* w;
+  const int8_t* heads;
+  const float* head_scales;
+  int n_heads, head_rows, lead;
+};
+
+// The block's stage sequence over the plan's sets, in order.
 struct QttsSeq {
-  QttsKindRows kind[QTTS_KINDS];
-  int L, per_layer, per_pass, head_chunks, heads, total;
-  // thread 0's cursor: the next stage to issue, as (segment, layer or head,
-  // kind, chunk); segments: one pass without heads, else pass, pass, then
-  // head j and (j < heads - 1) a pass
-  int next, seg, unit, cur_kind, chunk;
+  QttsKindRows kind[QTTS_SETS * QTTS_KINDS];  // set s's kind k at s * QTTS_KINDS + k
+  int L[QTTS_SETS], lead[QTTS_SETS], heads[QTTS_SETS];
+  int n_sets, total;
+  // thread 0's cursor: the next stage to issue, as (set, segment, layer or
+  // head, kind, chunk); a set's segments are its lead passes, then a pass
+  // and a head for each head
+  int next, set, seg, unit, cur_kind, chunk;
 };
 
 struct QttsRing {
@@ -254,44 +281,43 @@ struct QttsRing {
   int n_slots, slot_bytes, slot_rows;
 };
 
-// Thread 0 of every block, once: the block's rows of each kind from the
-// plan, and the stage count.
-static __device__ void qtts_seq_build(QttsSeq& q, const QttsPlan& p, const QttsStepWeights& w,
-                                      const int8_t* heads, const float* head_scales, int n_heads,
-                                      int V) {
+// Thread 0 of every block, once: the block's rows of each kind of set `set`
+// from the plan; returns the set's stage count.
+static __device__ int qtts_seq_set(QttsSeq& q, const QttsPlan& p, int set, const QttsSetSpec& sp) {
+  const QttsStepWeights& w = *sp.w;
   const int H = w.H, qd = w.nq * w.D, A = qd + 2 * w.nk * w.D, I = w.I;
   const int at = blockIdx.x + qtts_group_of(p, blockIdx.x);  // the block's bounds entry
-  const int N[QTTS_KINDS] = {A, H, 2 * I, H, V};
+  const int N[QTTS_KINDS] = {A, H, 2 * I, H, sp.head_rows};
   const int K[QTTS_KINDS] = {H, qd, H, I, H};
-  const int8_t* W[QTTS_KINDS] = {w.wqkv, w.wo, w.wgu, w.wd, heads};
-  const float* S[QTTS_KINDS] = {w.sqkv, w.so, w.sgu, w.sd, head_scales};
+  const int8_t* W[QTTS_KINDS] = {w.wqkv, w.wo, w.wgu, w.wd, sp.heads};
+  const float* S[QTTS_KINDS] = {w.sqkv, w.so, w.sgu, w.sd, sp.head_scales};
+  int per_layer = 0;
   for (int k = 0; k < QTTS_KINDS; ++k) {
-    QttsKindRows& r = q.kind[k];
-    const bool used = k != QTTS_KIND_HEAD || n_heads > 0;
+    const int at_k = set * QTTS_KINDS + k;
+    QttsKindRows& r = q.kind[at_k];
+    const bool used = k != QTTS_KIND_HEAD || sp.n_heads > 0;
     r.W = W[k];
     r.S = S[k];
-    r.w_unit = (size_t)N[k] * K[k];
-    r.s_unit = (size_t)N[k];
+    r.N = N[k];
     r.K = K[k];
-    r.stage_rows = p.stage_rows[k];
-    r.r0 = used ? p.bounds[k * (p.grid + p.groups) + at] : 0;
-    r.rows = used ? p.bounds[k * (p.grid + p.groups) + at + 1] - r.r0 : 0;
+    r.stage_rows = p.stage_rows[at_k];
+    r.r0 = used ? p.bounds[at_k * (p.grid + p.groups) + at] : 0;
+    r.rows = used ? p.bounds[at_k * (p.grid + p.groups) + at + 1] - r.r0 : 0;
     r.chunks = r.rows > 0 ? (r.rows + r.stage_rows - 1) / r.stage_rows : 0;
+    if (k != QTTS_KIND_HEAD) per_layer += r.chunks;
   }
-  q.L = w.L;
-  q.per_layer = q.kind[0].chunks + q.kind[1].chunks + q.kind[2].chunks + q.kind[3].chunks;
-  q.per_pass = q.L * q.per_layer;
-  q.head_chunks = q.kind[QTTS_KIND_HEAD].chunks;
-  q.heads = n_heads;
-  q.total = n_heads > 0 ? (n_heads + 1) * q.per_pass + n_heads * q.head_chunks : q.per_pass;
-  q.next = q.seg = q.unit = q.cur_kind = q.chunk = 0;
+  q.L[set] = w.L;
+  q.lead[set] = sp.lead;
+  q.heads[set] = sp.n_heads;
+  return (sp.lead + sp.n_heads) * w.L * per_layer +
+         sp.n_heads * q.kind[set * QTTS_KINDS + QTTS_KIND_HEAD].chunks;
 }
 
 // Thread 0: the copies of the cursor's stage into slot next % n_slots
 // (nothing past the end), then the cursor one stage on.
 static __device__ void qtts_ring_issue(const QttsRing& ring, QttsSeq& q) {
   if (q.next >= q.total) return;
-  const QttsKindRows& r = q.kind[q.cur_kind];
+  const QttsKindRows& r = q.kind[q.set * QTTS_KINDS + q.cur_kind];
   const int n0 = r.r0 + q.chunk * r.stage_rows;
   const int rows = min(r.stage_rows, r.rows - q.chunk * r.stage_rows);
   const int slot = q.next % ring.n_slots;
@@ -299,11 +325,12 @@ static __device__ void qtts_ring_issue(const QttsRing& ring, QttsSeq& q) {
   const uint32_t wbytes = (uint32_t)rows * r.K;
   qtts_mbar_expect_tx(bar, wbytes + 4u * rows);
   qtts_bulk_load(ring.slots + (size_t)slot * ring.slot_bytes,
-                 r.W + (size_t)q.unit * r.w_unit + (size_t)n0 * r.K, wbytes, bar);
-  qtts_bulk_load(ring.scales + (size_t)slot * ring.slot_rows,
-                 r.S + (size_t)q.unit * r.s_unit + n0, 4u * rows, bar);
+                 r.W + ((size_t)q.unit * r.N + n0) * r.K, wbytes, bar);
+  qtts_bulk_load(ring.scales + (size_t)slot * ring.slot_rows, r.S + (size_t)q.unit * r.N + n0,
+                 4u * rows, bar);
   // advance: chunks of a kind, kinds of a layer, layers of a pass; the
-  // chunks of a head; then the next segment
+  // chunks of a head; then the next segment, and past a set's last
+  // segment the next set
   ++q.next;
   bool seg_done = false;
   if (q.cur_kind == QTTS_KIND_HEAD) {
@@ -312,25 +339,28 @@ static __device__ void qtts_ring_issue(const QttsRing& ring, QttsSeq& q) {
     q.chunk = 0;
     if (++q.cur_kind == QTTS_KIND_HEAD) {
       q.cur_kind = 0;
-      seg_done = ++q.unit == q.L;
+      seg_done = ++q.unit == q.L[q.set];
     }
   }
   if (seg_done) {
-    ++q.seg;
     q.chunk = 0;
-    const bool head = q.heads > 0 && q.seg >= 2 && (q.seg - 2) % 2 == 0;
+    if (++q.seg == q.lead[q.set] + 2 * q.heads[q.set]) {
+      q.seg = 0;
+      if (++q.set == q.n_sets) return;  // the end: q.next == q.total
+    }
+    const int after = q.seg - q.lead[q.set];  // segments past the lead passes
+    const bool head = after >= 0 && after % 2 == 1;
     q.cur_kind = head ? QTTS_KIND_HEAD : 0;
-    q.unit = head ? (q.seg - 2) / 2 : 0;
+    q.unit = head ? after / 2 : 0;
   }
 }
 
 // Every thread: the ring's areas in dynamic shared memory; thread 0 builds
-// the sequence, initialises the slots' barriers and issues the first
-// n_slots stages.  Ends with a block barrier.
+// the sequence of the plan's sets (spec[0 .. p.n_sets)), initialises the
+// slots' barriers and issues the first n_slots stages.  Ends with a block
+// barrier.
 static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char* smem,
-                                       const QttsPlan& p, const QttsStepWeights& w,
-                                       const int8_t* heads, const float* head_scales, int n_heads,
-                                       int V) {
+                                       const QttsPlan& p, const QttsSetSpec* spec) {
   const QttsSmemLayout lay = qtts_plan_layout(p);
   ring.full = reinterpret_cast<uint64_t*>(smem + lay.bars);
   ring.scales = reinterpret_cast<float*>(smem + lay.scales);
@@ -341,12 +371,25 @@ static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char
   if (threadIdx.x == 0) {
     qtts_barrier_index() = 0;
     if (p.trace != nullptr) qtts_trace_at(p, 1);
-    qtts_seq_build(q, p, w, heads, head_scales, n_heads, V);
+    q.n_sets = p.n_sets;
+    q.total = 0;
+    for (int s = 0; s < p.n_sets; ++s) q.total += qtts_seq_set(q, p, s, spec[s]);
+    q.next = q.set = q.seg = q.unit = q.cur_kind = q.chunk = 0;
     for (int s = 0; s < ring.n_slots; ++s) qtts_mbar_init(ring.full + s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int s = 0; s < ring.n_slots; ++s) qtts_ring_issue(ring, q);
   }
   __syncthreads();
+}
+
+// The ring of a one-set plan: the transformer w, then n_heads heads of V
+// rows in chain order (none: one pass).
+static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char* smem,
+                                       const QttsPlan& p, const QttsStepWeights& w,
+                                       const int8_t* heads, const float* head_scales, int n_heads,
+                                       int V) {
+  const QttsSetSpec spec{&w, heads, head_scales, n_heads, V, 1};
+  qtts_ring_start(ring, q, smem, p, &spec);
 }
 
 // Byte b of `word` as a signed int8, as float: the byte biased by 128 forms
@@ -359,10 +402,25 @@ static __device__ __forceinline__ float qtts_i8_to_float(uint32_t word, int b) {
   return __fadd_rn(__uint_as_float(bits), -8388736.f);
 }
 
+// The position in shared memory of the B=1 GEMV input's column k: in each
+// 512-column pass, lane l's four float4 (columns 16l + 4q .. 16l + 4q + 3, q
+// < 4) sit at 128q + 4l, so that the warp's float4 loads of one q fall on
+// distinct banks.  (Unswizzled, lane l's chunk starts 64 bytes after lane l -
+// 1's: a quarter warp's loads hit two 4-bank groups, a 4-way conflict on the
+// input loads that a warp's M rows share; the prologue's stores now take
+// that 4-way conflict instead, once per phase.  A layout free of conflicts
+// both ways, float4 32q + (l ^ 2q), measured slower: its per-q lane offsets
+// cost the dot products registers.)  The layout moves no value: each lane
+// reads the same 16 floats in the same order.
+static __device__ __forceinline__ int qtts_sh_col(int k) {
+  return (k & ~511) | (((k >> 2) & 3) << 7) | (((k >> 4) & 31) << 2) | (k & 3);
+}
+
 // A warp's M rows (warp, warp + 8, ...) of one stage: each a dot product in
 // K1's lane order, then the xor butterfly and qtts_gemv_store's epilogue
 // (the residual, with ACCUM, loaded before the dot products).  M is a
-// template argument so that the rows' FFMA chains interleave.
+// template argument so that the rows' FFMA chains interleave.  sh: the
+// input in qtts_sh_col's layout.
 template <bool ACCUM, int M>
 static __device__ __forceinline__ void qtts_stage_rows(const int8_t* ws, const float* ss,
                                                        const float* sh, float* out, int n0, int K,
@@ -376,15 +434,15 @@ static __device__ __forceinline__ void qtts_stage_rows(const int8_t* ws, const f
   float acc[M];
 #pragma unroll
   for (int j = 0; j < M; ++j) acc[j] = 0.f;
-  for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
-    float hv[16];
+  for (int k0 = lane * 16, t0 = 0; k0 < K; k0 += 32 * 16, t0 += 32 * 16) {
+    float hv[16];  // columns k0 .. k0 + 15
 #pragma unroll
-    for (int i = 0; i < 16; i += 4) {
-      const float4 t4 = *reinterpret_cast<const float4*>(sh + k0 + i);
-      hv[i] = t4.x;
-      hv[i + 1] = t4.y;
-      hv[i + 2] = t4.z;
-      hv[i + 3] = t4.w;
+    for (int q = 0; q < 4; ++q) {
+      const float4 t4 = *reinterpret_cast<const float4*>(sh + t0 + q * 128 + lane * 4);
+      hv[4 * q] = t4.x;
+      hv[4 * q + 1] = t4.y;
+      hv[4 * q + 2] = t4.z;
+      hv[4 * q + 3] = t4.w;
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
@@ -412,11 +470,12 @@ static __device__ __forceinline__ void qtts_stage_rows(const int8_t* ws, const f
   }
 }
 
-// Consumes the block's stages of one GEMV kind in order (`stage` counts the
-// launch's stages): out[n] (+)= scale[n] * sum_k sh[k] * W[n, k] for the
-// block's rows n, sh the bf16-rounded input (K floats, from
-// qtts_prologue).  Warp w takes the stage's rows w, w + 8, ...; after a
-// stage thread 0 refills its slot with the stage n_slots ahead.
+// Consumes the block's stages of one GEMV kind index in order (`stage`
+// counts the launch's stages): out[n] (+)= scale[n] * sum_k sh[k] * W[n, k]
+// for the block's rows n, sh the bf16-rounded input (K floats in
+// qtts_sh_col's layout, from qtts_prologue).  Warp w takes the stage's rows
+// w, w + 8, ...; after a stage thread 0 refills its slot with the stage
+// n_slots ahead.
 template <bool ACCUM>
 static __device__ __forceinline__ void qtts_ring_gemv(const QttsPlan& p, const QttsRing& ring,
                                                       QttsSeq& q, int kind, int& stage,
@@ -457,11 +516,14 @@ static __device__ __forceinline__ void qtts_ring_gemv(const QttsPlan& p, const Q
 // ---------------------------------------------------------------------------
 
 // qtts_gemv_prologue's values for K <= VPT * 256 (the same expressions in
-// the same order), with the thread's inputs loaded into registers first.
+// the same order), with the thread's inputs loaded into registers first,
+// into sh in qtts_sh_col's layout; raw, if given, gets the float32 values
+// before the bf16 rounding, in column order.
 template <int IN_MODE, int VPT>
 static __device__ __forceinline__ void qtts_prologue_vpt(const float* in,
                                                          const float* __restrict__ norm_w,
-                                                         float eps, int K, float* sh) {
+                                                         float eps, int K, float* sh,
+                                                         float* raw) {
   const int tid = threadIdx.x;
   float a[VPT], b[VPT];
 #pragma unroll
@@ -502,25 +564,27 @@ static __device__ __forceinline__ void qtts_prologue_vpt(const float* in,
         const float u = b[i];
         v = g * (1.f / (1.f + expf(-g))) * u;
       }
-      sh[k] = qtts_bf16_round(v);
+      if (raw != nullptr) raw[k] = v;
+      sh[qtts_sh_col(k)] = qtts_bf16_round(v);
     }
   }
   __syncthreads();
 }
 
-// The GEMV input (IN_MODE as in qtts_gemv_prologue) of K <= QTTS_P_MAX_K.
+// The GEMV input (IN_MODE as in qtts_gemv_prologue) of K <= QTTS_P_MAX_K;
+// raw as in qtts_prologue_vpt.
 template <int IN_MODE>
 static __device__ __forceinline__ void qtts_prologue(const float* in,
                                                      const float* __restrict__ norm_w, float eps,
-                                                     int K, float* sh) {
+                                                     int K, float* sh, float* raw = nullptr) {
   if (K <= 4 * QTTS_P_THREADS) {
-    qtts_prologue_vpt<IN_MODE, 4>(in, norm_w, eps, K, sh);
+    qtts_prologue_vpt<IN_MODE, 4>(in, norm_w, eps, K, sh, raw);
   } else if (K <= 8 * QTTS_P_THREADS) {
-    qtts_prologue_vpt<IN_MODE, 8>(in, norm_w, eps, K, sh);
+    qtts_prologue_vpt<IN_MODE, 8>(in, norm_w, eps, K, sh, raw);
   } else if (K <= 12 * QTTS_P_THREADS) {
-    qtts_prologue_vpt<IN_MODE, 12>(in, norm_w, eps, K, sh);
+    qtts_prologue_vpt<IN_MODE, 12>(in, norm_w, eps, K, sh, raw);
   } else {
-    qtts_prologue_vpt<IN_MODE, 24>(in, norm_w, eps, K, sh);
+    qtts_prologue_vpt<IN_MODE, 24>(in, norm_w, eps, K, sh, raw);
   }
 }
 
@@ -818,15 +882,18 @@ static __device__ __forceinline__ void qtts_attn_item_any(
 // One decode step through every layer, as grid phases
 // ---------------------------------------------------------------------------
 
-// x_in is read by layer 0's qkv prologue and copied to x there.  `un`: the
-// union region.  last_barrier: end with a grid barrier (a phase follows).
+// x_in is read by layer 0's qkv prologue and copied to x there.  `set`: the
+// plan's weight set of w.  `un`: the union region.  last_barrier: end with a
+// grid barrier (a phase follows).
 template <typename CT>
-static __device__ void qtts_step_phases(const QttsStepWeights& w, const QttsStepScratch& s,
+static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w,
+                                                        const QttsStepScratch& s,
                                         const QttsPlan& p, const QttsRing& ring,
-                                        QttsSeq& q, int& stage, const float* x_in, float* x,
-                                        CT* kc, CT* vc, int T, int pos, unsigned char* un,
-                                        bool last_barrier) {
+                                        QttsSeq& q, int set, int& stage, const float* x_in,
+                                        float* x, CT* kc, CT* vc, int T, int pos,
+                                        unsigned char* un, bool last_barrier) {
   const int H = w.H, I = w.I, D = w.D;
+  const int kinds = set * QTTS_KINDS;  // the set's kind indices
   const int n_splits = pos / QTTS_ATTN_CHUNK + 1;
   const int tid = threadIdx.x;
   const int half = tid / QTTS_ATTN_D, t = tid % QTTS_ATTN_D;
@@ -848,7 +915,7 @@ static __device__ void qtts_step_phases(const QttsStepWeights& w, const QttsStep
         x[k] = x_in[k];
       }
     }
-    qtts_ring_gemv<false>(p, ring, q, QTTS_KIND_QKV, stage, sh, s.qkv);
+    qtts_ring_gemv<false>(p, ring, q, kinds + QTTS_KIND_QKV, stage, sh, s.qkv);
     qtts_phase_barrier(p);
     // the split attention: K1's items, two per block at once; the last item
     // of each kv head to finish merges the head's splits into s.attn
@@ -877,33 +944,45 @@ static __device__ void qtts_step_phases(const QttsStepWeights& w, const QttsStep
     qtts_phase_barrier(p);
     // x += bf16(attn) @ Wo * scale
     qtts_prologue<QTTS_IN_PLAIN>(s.attn, nullptr, 0.f, w.nq * D, sh);
-    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_O, stage, sh, x);
+    qtts_ring_gemv<true>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);
     qtts_phase_barrier(p);
     // gu = bf16(RMSNorm(x) * mlp_norm) @ Wgu * scale
     qtts_prologue<QTTS_IN_NORM>(x, w.mlp_norm + (size_t)l * H, w.eps, H, sh);
-    qtts_ring_gemv<false>(p, ring, q, QTTS_KIND_GU, stage, sh, s.gu);
+    qtts_ring_gemv<false>(p, ring, q, kinds + QTTS_KIND_GU, stage, sh, s.gu);
     qtts_phase_barrier(p);
     // x += bf16(silu(gate) * up) @ Wd * scale
     qtts_prologue<QTTS_IN_SILU>(s.gu, nullptr, 0.f, I, sh);
-    qtts_ring_gemv<true>(p, ring, q, QTTS_KIND_DOWN, stage, sh, x);
+    qtts_ring_gemv<true>(p, ring, q, kinds + QTTS_KIND_DOWN, stage, sh, x);
     if (l + 1 < w.L || last_barrier) qtts_phase_barrier(p);
   }
 }
 
 // ---------------------------------------------------------------------------
-// The sampler on registers (K2)
+// The sampler on registers (K2, K5; K7's code0 draw on Vc values)
 // ---------------------------------------------------------------------------
+
+// The argmax's block scratch (one per kernel, whatever VPT).
+struct QttsArgmaxSmem {
+  float rv[32];
+  int ri[32];
+  int result;
+};
+static __device__ __forceinline__ QttsArgmaxSmem& qtts_argmax_smem() {
+  __shared__ QttsArgmaxSmem sm;
+  return sm;
+}
 
 // First index of the maximum of the block's values (thread tid holds index
 // tid + i * blockDim.x in val[i]); qtts_block_argmax_first's comparisons.
-static __device__ __forceinline__ int qtts_argmax_regs(const float (&val)[QTTS_SAMPLE_VPT], int n) {
-  __shared__ float rv[32];
-  __shared__ int ri[32];
-  __shared__ int result;
+template <int VPT>
+static __device__ __forceinline__ int qtts_argmax_regs(const float (&val)[VPT], int n) {
+  float* rv = qtts_argmax_smem().rv;
+  int* ri = qtts_argmax_smem().ri;
+  int& result = qtts_argmax_smem().result;
   float bv = -CUDART_INF_F;
   int bi = n;
 #pragma unroll
-  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+  for (int i = 0; i < VPT; ++i) {
     const int v = threadIdx.x + i * blockDim.x;
     if (v < n && val[i] > bv) {
       bv = val[i];
@@ -944,6 +1023,16 @@ static __device__ __forceinline__ int qtts_argmax_regs(const float (&val)[QTTS_S
   const int out = result;
   __syncthreads();
   return out;
+}
+
+// A float's key in the order of the signed integers (the float order; -0
+// and +0 get two keys), and back.
+static __device__ __forceinline__ int qtts_float_key(float v) {
+  const int b = __float_as_int(v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+static __device__ __forceinline__ float qtts_key_float(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
 }
 
 // The midpoints of the round tree below (lo, hi): node c's interval is the
@@ -997,32 +1086,45 @@ static __device__ __forceinline__ void qtts_round_walk(const float (&mid)[N],
   }
 }
 
-// qtts_sample_index's function on logits [V] in device memory (V <= 256 *
-// QTTS_SAMPLE_VPT), every value in registers at v = tid + i * 256.  Same op
-// sequence: temperature, the top-k threshold by 40 rounds of bisection on
-// integer counts, the masked softmax with qtts_block_reduce's trees, the
+// qtts_sample_index's function on the logits load(v) for v < V (V <= 256 *
+// VPT), every value in registers at v = tid + i * 256.  Same op sequence:
+// temperature, the top-k threshold by 40 rounds of bisection on
+// integer counts, the masked softmax with qtts_block_reduce's trees (every
+// warp runs the second level itself), the
 // top-p threshold by 40 rounds on float sums in each thread's order and the
 // same block tree (every warp runs the second level itself), the
 // first-index argmax of masked + noise.  The min and max of the scaled row
 // share one reduction (both are exact in any order), the rounds run
 // QTTS_SPEC_DEPTH at a time, and a bisection whose mask is off (top-k
 // outside (0, V), top-p >= 1) is skipped, since its threshold is then unread.
-static __device__ int qtts_sample_fast(const float* logits, int V, const float* gumbel,
-                                       float temperature, int top_k, float top_p, int greedy,
-                                       QttsSampleSmem& sm) {
+// A round's decision depends on one value: the top_k-th largest u (the
+// count reaches top_k exactly when u >= mid) or the probability u at which
+// the kept mass falls below top_p (kept exactly when mid < u).  u lies in
+// the interval (top-k: in [lo, hi]; top-p: in (plo, phi] once both ends
+// have moved), and each pass also finds the least and the largest value
+// there; when they are equal that value is u, and the rest of the
+// bisection runs on lo and hi alone, u deciding each round (the same float
+// steps, no reduction).
+// With a plan `tp` whose trace is on, thread 0 marks the phase's trace rows
+// 0-2 after the top-k threshold, the softmax and the top-p threshold.
+template <int VPT, typename Load>
+static __device__ int qtts_sample_regs(Load load, int V, const float* gumbel, float temperature,
+                                       int top_k, float top_p, int greedy, QttsSampleSmem& sm,
+                                       const QttsPlan* tp = nullptr) {
   constexpr int N = (1 << QTTS_SPEC_DEPTH) - 1;
+  static_assert(N == 3, "a pass exchanges three candidates per warp");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float lg[QTTS_SAMPLE_VPT], gm[QTTS_SAMPLE_VPT];
+  float lg[VPT], gm[VPT];
 #pragma unroll
-  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+  for (int i = 0; i < VPT; ++i) {
     const int v = tid + i * QTTS_P_THREADS;
-    lg[i] = v < V ? __ldcg(logits + v) : 0.f;
+    lg[i] = v < V ? load(v) : 0.f;
     gm[i] = v < V && !greedy ? __ldcg(gumbel + v) : 0.f;
   }
-  if (greedy) return qtts_argmax_regs(lg, V);
+  if (greedy) return qtts_argmax_regs<VPT>(lg, V);
   float lmin = QttsMinF::identity(), lmax = QttsMaxF::identity();
 #pragma unroll
-  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+  for (int i = 0; i < VPT; ++i) {
     if (tid + i * QTTS_P_THREADS < V) {
       lg[i] = lg[i] / temperature;
       lmin = fminf(lmin, lg[i]);
@@ -1048,47 +1150,86 @@ static __device__ int qtts_sample_fast(const float* logits, int V, const float* 
     for (int done = 0; done < QTTS_BISECT_ROUNDS; done += QTTS_SPEC_DEPTH, buf ^= 1) {
       float mid[N];
       qtts_round_tree(lo, hi, mid);
+      // cnt: the candidates' counts; kmin, kmax: the keys of the values in
+      // [lo, hi], where the top_k-th largest lies
       int cnt[N];
+      int kmin = 0x7fffffff, kmax = -0x7fffffff - 1;
 #pragma unroll
       for (int c = 0; c < N; ++c) cnt[c] = 0;
 #pragma unroll
-      for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+      for (int i = 0; i < VPT; ++i) {
         if (tid + i * QTTS_P_THREADS < V) {
 #pragma unroll
           for (int c = 0; c < N; ++c) cnt[c] += lg[i] >= mid[c] ? 1 : 0;
+          if (lg[i] >= lo && lg[i] <= hi) {
+            kmin = min(kmin, qtts_float_key(lg[i]));
+            kmax = max(kmax, qtts_float_key(lg[i]));
+          }
         }
       }
-#pragma unroll
-      for (int c = 0; c < N; ++c) {
-        const int wsum = __reduce_add_sync(0xffffffffu, cnt[c]);
-        if (lane == 0) sm.cnt[buf][warp][c] = wsum;
+      int4 w0, w1;
+      w0.x = __reduce_add_sync(0xffffffffu, cnt[0]);
+      w0.y = __reduce_add_sync(0xffffffffu, cnt[1]);
+      w0.z = __reduce_add_sync(0xffffffffu, cnt[2]);
+      w0.w = 0;
+      w1.x = __reduce_min_sync(0xffffffffu, kmin);
+      w1.y = __reduce_max_sync(0xffffffffu, kmax);
+      w1.z = w1.w = 0;
+      if (lane == 0) {
+        *reinterpret_cast<int4*>(sm.cnt[buf][warp]) = w0;
+        *reinterpret_cast<int4*>(sm.cnt[buf][warp] + 4) = w1;
       }
       __syncthreads();
+      int total[N] = {};  // integers: any order
+      kmin = 0x7fffffff;
+      kmax = -0x7fffffff - 1;
+#pragma unroll
+      for (int w = 0; w < QTTS_P_WARPS; ++w) {
+        const int4 t = *reinterpret_cast<const int4*>(sm.cnt[buf][w]);
+        total[0] += t.x;
+        total[1] += t.y;
+        total[2] += t.z;
+        const int4 k = *reinterpret_cast<const int4*>(sm.cnt[buf][w] + 4);
+        kmin = min(kmin, k.x);
+        kmax = max(kmax, k.y);
+      }
+      if (kmin == kmax) {
+        // one value u (the top_k-th largest) is left in [lo, hi]: every
+        // later round's count reaches top_k exactly when u >= its midpoint
+        const float u = qtts_key_float(kmin);
+        for (int r = done; r < QTTS_BISECT_ROUNDS; ++r) {
+          const float m = 0.5f * (lo + hi);
+          if (u >= m) lo = m; else hi = m;
+        }
+        break;
+      }
       bool right[N];
 #pragma unroll
-      for (int c = 0; c < N; ++c) {
-        int total = 0;  // integers: any order
-#pragma unroll
-        for (int w = 0; w < QTTS_P_WARPS; ++w) total += sm.cnt[buf][w][c];
-        right[c] = total >= top_k;
-      }
+      for (int c = 0; c < N; ++c) right[c] = total[c] >= top_k;
       qtts_round_walk(mid, right, QTTS_BISECT_ROUNDS - done, lo, hi);
     }
   }
+  if (tp != nullptr) qtts_trace_mark(*tp, 0);
   float mloc = QttsMaxF::identity();
 #pragma unroll
-  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+  for (int i = 0; i < VPT; ++i) {
     if (tid + i * QTTS_P_THREADS < V) {
       const float s = lg[i];
       lg[i] = (s >= lo || !k_active) ? s : QTTS_NEG_INF;
       mloc = fmaxf(mloc, lg[i]);
     }
   }
-  const float mm = qtts_block_reduce(mloc, QttsMaxF());
-  float pr[QTTS_SAMPLE_VPT];
+  // the max, then the sum, each by qtts_block_reduce's tree with its second
+  // level run by every warp (one block barrier each)
+  mloc = qtts_warp_reduce(mloc, QttsMaxF());
+  if (lane == 0) sm.red[0][warp] = mloc;
+  __syncthreads();
+  const float mm = qtts_warp_reduce(
+      lane < QTTS_P_WARPS ? sm.red[0][lane] : QttsMaxF::identity(), QttsMaxF());
+  float pr[VPT];
   float sloc = 0.f;
 #pragma unroll
-  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+  for (int i = 0; i < VPT; ++i) {
     pr[i] = 0.f;
     if (tid + i * QTTS_P_THREADS < V) {
       const float e = expf(lg[i] - mm);
@@ -1096,48 +1237,176 @@ static __device__ int qtts_sample_fast(const float* logits, int V, const float* 
       sloc += e;
     }
   }
-  const float se = qtts_block_reduce(sloc, QttsSumF());
+  sloc = qtts_warp_reduce(sloc, QttsSumF());
+  if (lane == 0) sm.red[1][warp] = sloc;
+  __syncthreads();
+  const float se = qtts_warp_reduce(
+      lane < QTTS_P_WARPS ? sm.red[1][lane] : QttsSumF::identity(), QttsSumF());
 #pragma unroll
-  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) pr[i] = pr[i] / se;
+  for (int i = 0; i < VPT; ++i) pr[i] = pr[i] / se;
+  if (tp != nullptr) qtts_trace_mark(*tp, 1);
   const bool p_off = top_p >= 1.f;
   float plo = 0.f, phi = 1.f;
   if (!p_off) {
     for (int done = 0; done < QTTS_BISECT_ROUNDS; done += QTTS_SPEC_DEPTH, buf ^= 1) {
       float mid[N];
       qtts_round_tree(plo, phi, mid);
+      // s: the candidates' sums; kmin, kmax: the keys of the probabilities
+      // in (plo, phi], once both ends have moved (then the probability whose
+      // mass crosses top_p lies there)
+      const bool isolate = plo != 0.f && phi != 1.f;
       float s[N];
+      int kmin = 0x7fffffff, kmax = -0x7fffffff - 1;
 #pragma unroll
       for (int c = 0; c < N; ++c) s[c] = 0.f;
 #pragma unroll
-      for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+      for (int i = 0; i < VPT; ++i) {
         if (tid + i * QTTS_P_THREADS < V) {
 #pragma unroll
           for (int c = 0; c < N; ++c) s[c] += pr[i] > mid[c] ? pr[i] : 0.f;
+          if (isolate && pr[i] > plo && pr[i] <= phi) {
+            kmin = min(kmin, __float_as_int(pr[i]));
+            kmax = max(kmax, __float_as_int(pr[i]));
+          }
         }
       }
-#pragma unroll
-      for (int c = 0; c < N; ++c) {
-        const float wsum = qtts_warp_reduce(s[c], QttsSumF());
-        if (lane == 0) sm.part[buf][warp][c] = wsum;
+      float4 ws;
+      ws.x = qtts_warp_reduce(s[0], QttsSumF());
+      ws.y = qtts_warp_reduce(s[1], QttsSumF());
+      ws.z = qtts_warp_reduce(s[2], QttsSumF());
+      ws.w = 0.f;
+      int4 wk;
+      if (isolate) {
+        wk.x = __reduce_min_sync(0xffffffffu, kmin);
+        wk.y = __reduce_max_sync(0xffffffffu, kmax);
+      }
+      if (lane == 0) {
+        *reinterpret_cast<float4*>(sm.part[buf][warp]) = ws;
+        if (isolate) *reinterpret_cast<int4*>(sm.cnt[buf][warp] + 4) = wk;
       }
       __syncthreads();
+      if (isolate) {
+        kmin = 0x7fffffff;
+        kmax = -0x7fffffff - 1;
+#pragma unroll
+        for (int w = 0; w < QTTS_P_WARPS; ++w) {
+          const int4 k = *reinterpret_cast<const int4*>(sm.cnt[buf][w] + 4);
+          kmin = min(kmin, k.x);
+          kmax = max(kmax, k.y);
+        }
+        if (kmin == kmax) {
+          // one probability u lies in (plo, phi]: every later round keeps
+          // the mass past top_p exactly when its midpoint is below u
+          const float u = __int_as_float(kmin);
+          for (int r = done; r < QTTS_BISECT_ROUNDS; ++r) {
+            const float m = 0.5f * (plo + phi);
+            if (m < u) plo = m; else phi = m;
+          }
+          break;
+        }
+      }
+      const float4 pv = lane < QTTS_P_WARPS ? *reinterpret_cast<const float4*>(sm.part[buf][lane])
+                                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float pc[N] = {pv.x, pv.y, pv.z};
       bool right[N];
 #pragma unroll
       for (int c = 0; c < N; ++c) {
-        float r = lane < QTTS_P_WARPS ? sm.part[buf][lane][c] : QttsSumF::identity();
-        r = qtts_warp_reduce(r, QttsSumF());
+        const float r = qtts_warp_reduce(pc[c], QttsSumF());
         right[c] = !(r < top_p);  // s < top_p keeps the lower half (phi = mid)
       }
       qtts_round_walk(mid, right, QTTS_BISECT_ROUNDS - done, plo, phi);
     }
   }
-  float val[QTTS_SAMPLE_VPT];
+  if (tp != nullptr) qtts_trace_mark(*tp, 2);
+  float val[VPT];
 #pragma unroll
-  for (int i = 0; i < QTTS_SAMPLE_VPT; ++i) {
+  for (int i = 0; i < VPT; ++i) {
     const float fin = (pr[i] > plo || p_off) ? lg[i] : QTTS_NEG_INF;
     val[i] = fin + gm[i];
   }
-  return qtts_argmax_regs(val, V);
+  return qtts_argmax_regs<VPT>(val, V);
+}
+
+// The sampler on logits [V] in device memory, V <= 256 * QTTS_SAMPLE_VPT
+// (K2, K5: written by other blocks in this launch, so read past L1).
+static __device__ __forceinline__ int qtts_sample_fast(const float* logits, int V,
+                                                       const float* gumbel, float temperature,
+                                                       int top_k, float top_p, int greedy,
+                                                       QttsSampleSmem& sm,
+                                                       const QttsPlan* tp = nullptr) {
+  return qtts_sample_regs<QTTS_SAMPLE_VPT>(
+      [logits](int v) { return __ldcg(logits + v); }, V, gumbel, temperature, top_k, top_p,
+      greedy, sm, tp);
+}
+
+// ---------------------------------------------------------------------------
+// The B=1 sub-code chain (K2, K3, and the chain of K7's frame)
+// ---------------------------------------------------------------------------
+
+// One more B=1 step after a chain, on another weight set (the frame's
+// talker step): its weights, scratch, plan set, residual (read and written
+// in place), caches and position.
+template <typename CT>
+struct QttsStepTail {
+  const QttsStepWeights* w;
+  const QttsStepScratch* s;
+  int set;
+  float* x;
+  CT* kc;
+  CT* vc;
+  int T, pos;
+};
+
+// The whole chain of weight set `set` as grid phases: two prefix trunk
+// passes at positions 0 and 1 (c.last_hidden, then c.code0_embed) into the
+// (n + 2)-slot cache, then for j = 0..n-1 the head product, block 0's draw
+// and gather, and (j < n - 1) a trunk pass on the sampled embedding at
+// position 2 + j.  After the last gather block 0 runs last() (the frame's
+// next input); with a tail, a grid barrier and the tail's step follow, else
+// the chain ends without a grid barrier.  Every pass, the tail's included,
+// runs at the one call site of qtts_step_phases: inlined once, the step's
+// phases keep their registers (a step called from several sites is an
+// out-of-line function, which spilled in its GEMV and attention loops).
+template <typename CT, typename Last>
+static __device__ __forceinline__ void qtts_chain_phases(
+    const QttsStepWeights& w, const QttsStepScratch& s, const QttsPlan& p, const QttsRing& ring,
+    QttsSeq& q, int set, int& stage, const QttsChainArgs& c, unsigned char* un, Last last,
+    const QttsStepTail<CT>* tail = nullptr) {
+  const int H = w.H, V = c.V, n = c.n;
+  float* sh = reinterpret_cast<float*>(un);
+  const int passes = n + 1 + (tail != nullptr ? 1 : 0);
+  for (int pass = 0; pass < passes; ++pass) {
+    const bool talker = pass == n + 1;
+    const float* in = pass == 0 ? c.last_hidden : pass == 1 ? c.code0_embed : c.x_in;
+    qtts_step_phases<CT>(talker ? *tail->w : w, talker ? *tail->s : s, p, ring, q,
+                         talker ? tail->set : set, stage, talker ? tail->x : in,
+                         talker ? tail->x : c.x,
+                         talker ? tail->kc : static_cast<CT*>(c.k_cache),
+                         talker ? tail->vc : static_cast<CT*>(c.v_cache),
+                         talker ? tail->T : n + 2, talker ? tail->pos : pass, un, true);
+    if (pass == 0 || talker) continue;
+    const int j = pass - 1;
+    // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j
+    qtts_prologue<QTTS_IN_NORM>(c.x, c.final_norm, w.eps, H, sh);
+    qtts_ring_gemv<false>(p, ring, q, set * QTTS_KINDS + QTTS_KIND_HEAD, stage, sh, c.logits);
+    qtts_phase_barrier(p);
+    if (blockIdx.x == 0) {
+      // the draw, then the embedding row into sub_sum and the next trunk input
+      const int sub = qtts_sample_fast(c.logits, V, c.gumbel + (size_t)j * V,
+                                             c.temperature, c.top_k, c.top_p, c.greedy,
+                                             *reinterpret_cast<QttsSampleSmem*>(un), &p);
+      if (threadIdx.x == 0) c.subcodes[j] = sub;
+      const __nv_bfloat16* table = c.tables + (size_t)j * c.Vt * H + (size_t)sub * H;
+      for (int k = threadIdx.x; k < H; k += blockDim.x) {
+        const float e = __bfloat162float(table[k]);
+        c.sub_sum[k] = j == 0 ? e : c.sub_sum[k] + e;
+        c.x_in[k] = e;
+      }
+      if (j == n - 1) last();
+    }
+    // the next pass reads the sampled embedding (the tail: the next input)
+    if (j + 1 < n || tail != nullptr) qtts_phase_barrier(p);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1597,35 +1866,48 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
 // The cooperative launch
 // ---------------------------------------------------------------------------
 
-// The plan's scalar constraints against the transformer it drives (V: the
-// head rows, 0 without heads; B: the rows of a batched launch, 0 for K1 and
-// K2, whose GEMV input is MAX_K floats).
-static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int V, int B = 0) {
+// The plan's constraints on weight set `set`: the transformer w and V head
+// rows (0 without heads).
+static inline bool qtts_plan_set_ok(const QttsPlan& p, int set, const QttsStepWeights& w, int V) {
   const int qd = w.nq * w.D;
   const int K[QTTS_KINDS] = {w.H, qd, w.H, w.I, w.H};
-  if (p.grid < 1 || p.n_slots < 1 || p.slot_bytes % 16 || p.slot_rows % 4 || p.union_bytes % 128) {
-    return false;
-  }
-  if (p.batch != (B > 0 ? B : 1) || p.groups < 1 || p.groups > p.batch || p.groups > p.grid ||
-      p.n_tickets < p.batch * w.nk || p.n_tickets > QTTS_P_MAX_TICKETS) {
-    return false;
-  }
   const int g = w.nq / w.nk;
   if (g != 1 && g != 2 && g != 4 && g != 8) return false;
   if (w.H > QTTS_P_MAX_K || w.I > QTTS_P_MAX_K || qd > QTTS_P_MAX_K ||
-      w.nk > QTTS_P_MAX_KV_HEADS || p.tickets == nullptr) {
+      w.nk > QTTS_P_MAX_KV_HEADS || p.n_tickets < p.batch * w.nk) {
     return false;
   }
   for (int k = 0; k < QTTS_KINDS; ++k) {
     if (k == QTTS_KIND_HEAD && V == 0) continue;
-    const int r = p.stage_rows[k];
+    const int r = p.stage_rows[set * QTTS_KINDS + k];
     if (K[k] % 16 || r < 4 || r % 4 || r > QTTS_P_MAX_STAGE_ROWS || r > p.slot_rows ||
         (size_t)r * K[k] > (size_t)p.slot_bytes) {
       return false;
     }
   }
+  return true;
+}
+
+// The plan's scalar constraints against the transformer it drives (V: the
+// head rows, 0 without heads; B: the rows of a batched launch, 0 for K1, K2,
+// K3 and K7, whose GEMV input is MAX_K floats).  A two-set plan (K7) also
+// drives w2 with V2 head rows.
+static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int V, int B = 0,
+                                const QttsStepWeights* w2 = nullptr, int V2 = 0) {
+  if (p.grid < 1 || p.n_slots < 1 || p.slot_bytes % 16 || p.slot_rows % 4 || p.union_bytes % 128) {
+    return false;
+  }
+  if (p.batch != (B > 0 ? B : 1) || p.groups < 1 || p.groups > p.batch || p.groups > p.grid ||
+      p.n_tickets > QTTS_P_MAX_TICKETS || p.tickets == nullptr) {
+    return false;
+  }
+  if (p.n_sets != (w2 != nullptr ? 2 : 1) || (w2 != nullptr && B > 0) ||
+      !qtts_plan_set_ok(p, 0, w, V) || (w2 != nullptr && !qtts_plan_set_ok(p, 1, *w2, V2))) {
+    return false;
+  }
   // the union region: the GEMV input (MAX_K floats, or each of a group's
   // rows in bf16), two attention items, or the sampler's scratch
+  const int qd = w.nq * w.D;
   const int k_hq = w.H > qd ? w.H : qd;
   const int k_wide = k_hq > w.I ? k_hq : w.I;  // the widest GEMV input
   const int k_act = (k_wide + 511) & ~511;      // act's row stride
@@ -1688,3 +1970,10 @@ static int qtts_launch_persistent(void (*kernel)(Args), const Args& a, const Qtt
                                        (size_t)p.smem_bytes, st));
   return (int)cudaGetLastError();
 }
+
+// The B=1 chain entries of fused_mtp.cu (K2 and its launch-per-op chain),
+// which K3's entries (fused_mtp_stream.cu) run on a float32 cache.
+extern "C" int qtts_mtp_chain(const QttsStepWeights* w, const QttsStepScratch* s,
+                              const QttsPlan* p, const QttsChainArgs* a, void* stream);
+extern "C" int qtts_mtp_chain_multi(const QttsStepWeights* w, const QttsStepScratch* s,
+                                    const QttsChainArgs* a, void* stream);

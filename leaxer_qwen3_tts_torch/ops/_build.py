@@ -91,10 +91,11 @@ class Plan(ctypes.Structure):
         ("bounds", ctypes.c_void_p),
         ("grid", ctypes.c_int32), ("n_slots", ctypes.c_int32),
         ("slot_bytes", ctypes.c_int32), ("slot_rows", ctypes.c_int32),
-        ("stage_rows", ctypes.c_int32 * 5), ("smem_bytes", ctypes.c_int32),
+        ("stage_rows", ctypes.c_int32 * 10), ("smem_bytes", ctypes.c_int32),
         ("union_bytes", ctypes.c_int32), ("tickets", ctypes.c_void_p),
         ("trace_rows", ctypes.c_int32), ("trace", ctypes.c_void_p),
         ("batch", ctypes.c_int32), ("groups", ctypes.c_int32), ("n_tickets", ctypes.c_int32),
+        ("n_sets", ctypes.c_int32),
     ]
 
 
@@ -134,16 +135,13 @@ class FrameArgs(ctypes.Structure):
 
     _fields_ = [
         ("tw", StepWeights), ("ts", StepScratch), ("mw", StepWeights), ("ms", StepScratch),
+        ("mc", ChainArgs),
         *[(name, ctypes.c_void_p) for name in (
-            "talker_norm", "lm", "lm_scale", "codec", "mtp_norm", "heads", "head_scales",
-            "tables", "last_logits", "suppress", "g0", "gumbel", "last_hidden", "drip",
-            "k_cache", "v_cache", "mk_cache", "mv_cache", "x", "mx", "mx_in", "sub_sum", "c0e",
-            "head_logits", "codes", "logits", "hidden")],
+            "talker_norm", "lm", "lm_scale", "codec", "last_logits", "suppress", "g0",
+            "last_hidden", "drip", "k_cache", "v_cache", "x", "c0e", "lh", "codes", "logits",
+            "hidden")],
         *[(name, ctypes.c_int32) for name in (
-            "cache_bf16", "lh_bf16", "drip_bf16", "T", "pos", "Vc", "n", "V", "Vt", "eos",
-            "forbid_eos")],
-        ("temperature", ctypes.c_float), ("top_k", ctypes.c_int32),
-        ("top_p", ctypes.c_float), ("greedy", ctypes.c_int32),
+            "cache_bf16", "lh_bf16", "drip_bf16", "T", "pos", "Vc", "eos", "forbid_eos")],
     ]
 
 
@@ -238,19 +236,21 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_mtp_chain_batched_multi.restype = i32
             lib.qtts_mtp_chain_batched_multi.argtypes = [W, BS, CB, vp]
             lib.qtts_mtp_chain_streamed.restype = i32
-            lib.qtts_mtp_chain_streamed.argtypes = lib.qtts_mtp_chain_multi.argtypes
+            lib.qtts_mtp_chain_streamed.argtypes = lib.qtts_mtp_chain.argtypes
+            lib.qtts_mtp_chain_streamed_multi.restype = i32
+            lib.qtts_mtp_chain_streamed_multi.argtypes = lib.qtts_mtp_chain_multi.argtypes
             lib.qtts_flash_attend.restype = i32
             lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
             lib.qtts_norm_head.restype = i32
             lib.qtts_norm_head.argtypes = [vp, vp, ctypes.c_float, vp, vp, vp, vp, i32, i32, vp]
             lib.qtts_frame_step.restype = i32
-            lib.qtts_frame_step.argtypes = [ctypes.POINTER(FrameArgs), vp]
+            lib.qtts_frame_step.argtypes = [ctypes.POINTER(FrameArgs), P, vp]
+            lib.qtts_frame_step_multi.restype = i32
+            lib.qtts_frame_step_multi.argtypes = [ctypes.POINTER(FrameArgs), vp]
             lib.qtts_frame_args_size.restype = i32
             lib.qtts_frame_args_size.argtypes = []
             if lib.qtts_frame_args_size() != ctypes.sizeof(FrameArgs):
                 raise RuntimeError("FrameArgs does not mirror QttsFrameArgs")
-            lib.qtts_frame_grid.restype = i32
-            lib.qtts_frame_grid.argtypes = [ctypes.POINTER(FrameArgs)]
             lib.qtts_unit_probe.restype = i32
             lib.qtts_unit_probe.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
             lib.qtts_verify_step.restype = i32
@@ -266,12 +266,13 @@ def _check_persistent_sizes(lib) -> None:
     """ops/persistent.py plans with the library's struct sizes and limits."""
     from . import persistent
 
-    got = (ctypes.c_int * 9)()
+    got = (ctypes.c_int * 11)()
     lib.qtts_persistent_sizes(got)
-    got[8] = lib.qtts_attn_chunk()
+    got[10] = lib.qtts_attn_chunk()
     want = (persistent.ATTN_SMEM_BYTES, persistent.SAMPLE_SMEM_BYTES, persistent.MAX_STAGE_ROWS,
             persistent.THREADS, persistent.MAX_K, persistent.MAX_KV_HEADS,
-            persistent.MAX_TICKETS, persistent.MAX_BATCH, persistent.ATTN_CHUNK)
+            persistent.MAX_TICKETS, persistent.MAX_BATCH, persistent.MAX_SETS,
+            ctypes.sizeof(Plan), persistent.ATTN_CHUNK)
     if tuple(got) != want:
         raise RuntimeError(f"ops/persistent.py plans with {want}, the kernels have {tuple(got)}")
 

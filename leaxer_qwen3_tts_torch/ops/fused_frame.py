@@ -19,21 +19,23 @@ call runs the whole frame, in the JAX kernel's order:
 So its sampled output is a different per-seed stream from the multi-dispatch
 path's, and its greedy output may differ where logits nearly tie (the JAX
 kernel's numerics, kept here).  On a CUDA tensor :func:`fused_frame_step`
-launches the hand-written persistent kernel (``csrc/fused_frame.cu``); on a
-CPU tensor it runs :func:`fused_frame_step_reference`, the plain PyTorch
-version.  The kernel launch is cooperative: a card that cannot hold the
-grid at once raises, and nothing runs in its place.
+launches the hand-written persistent kernel (``csrc/fused_frame.cu``: the
+transport of K1 and K2 on a plan of two weight sets, ``ops/persistent.py``);
+on a CPU tensor it runs :func:`fused_frame_step_reference`, the plain
+PyTorch version.  The kernel launch is cooperative: a card that cannot hold
+the grid at once raises, and nothing runs in its place.
 """
 
 from __future__ import annotations
 
-import ctypes
+import threading
 from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
 
 from ..config import CODEC_EOS, TransformerConfig
+from . import persistent
 from .fused_mtp import (
     NEG_INF,
     RESIDENT_MAX_BYTES,
@@ -131,57 +133,67 @@ def fused_frame_step_reference(
 
 
 class _Entry:
-    """The argument struct and scratch of one (packs, cache bucket, cache
-    dtype): built once, then only the per-frame fields change."""
+    """The argument struct, scratch, chain caches and plan of one (packs,
+    cache bucket, cache dtype) for a frame entry on one stream of one
+    thread: built once, then a call sets its inputs, outputs, norms and knobs
+    (two threads never share one).  ``plan``: the persistent frame's (K7),
+    else None."""
 
-    def __init__(self, tcfg, mcfg, tfw, talker_fnorm, lm_head, codec_table, mfw, mtp_fnorm,
-                 heads, tables, T: int, cache_dtype: torch.dtype, device):
+    def __init__(self, tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables, T: int,
+                 cache_dtype: torch.dtype, device, planned: bool):
         from ._build import FrameArgs
 
         n, V, H = heads.q.shape
+        Vc = lm_head.q.shape[0]
         Lm, nk, d = mfw.wqkv.shape[0], mcfg.num_kv_heads, mcfg.head_dim
         tw, ts, t_scratch = step_structs(tcfg, tfw, T, device)
         mw, ms, m_scratch = step_structs(mcfg, mfw, n + 2, device)
-        self.norms = (talker_fnorm.float().contiguous(), mtp_fnorm.float().contiguous())
-        self.buf = torch.empty(5 * H + V, dtype=torch.float32, device=device)
-        x, mx, mx_in, sub_sum, c0e, head_logits = torch.split(self.buf, [H] * 5 + [V])
+        self.buf = torch.empty(6 * H + V, dtype=torch.float32, device=device)
+        x, mx, mx_in, sub_sum, c0e, lh, head_logits = torch.split(self.buf, [H] * 6 + [V])
         self.work = {"x": x, "sub_sum": sub_sum, "c0e": c0e}
         self.mk = torch.empty((Lm, nk, n + 2, d), dtype=cache_dtype, device=device)
         self.mv = torch.empty_like(self.mk)
         self.scratch = (t_scratch, m_scratch)
+        bf16 = int(cache_dtype == torch.bfloat16)
         a = FrameArgs()
         a.tw, a.ts, a.mw, a.ms = tw, ts, mw, ms
-        a.talker_norm, a.mtp_norm = (t.data_ptr() for t in self.norms)
+        c = a.mc  # shares a's memory
+        c.heads, c.head_scales = heads.q.data_ptr(), heads.scale.data_ptr()
+        c.tables = tables.data_ptr()
+        c.last_hidden, c.code0_embed = lh.data_ptr(), c0e.data_ptr()
+        c.sub_sum, c.x, c.x_in, c.logits = (t.data_ptr() for t in (sub_sum, mx, mx_in, head_logits))
+        c.k_cache, c.v_cache = self.mk.data_ptr(), self.mv.data_ptr()
+        c.cache_bf16, c.n, c.V, c.Vt = bf16, n, V, tables.shape[1]
         a.lm, a.lm_scale = lm_head.q.data_ptr(), lm_head.scale.data_ptr()
         a.codec = codec_table.data_ptr()
-        a.heads, a.head_scales, a.tables = heads.q.data_ptr(), heads.scale.data_ptr(), tables.data_ptr()
-        a.mk_cache, a.mv_cache = self.mk.data_ptr(), self.mv.data_ptr()
-        a.x, a.mx, a.mx_in = x.data_ptr(), mx.data_ptr(), mx_in.data_ptr()
-        a.sub_sum, a.c0e, a.head_logits = sub_sum.data_ptr(), c0e.data_ptr(), head_logits.data_ptr()
-        a.cache_bf16 = int(cache_dtype == torch.bfloat16)
-        a.T, a.Vc, a.n, a.V, a.Vt = T, lm_head.q.shape[0], n, V, tables.shape[1]
-        a.eos = CODEC_EOS
+        a.x, a.c0e, a.lh = x.data_ptr(), c0e.data_ptr(), lh.data_ptr()
+        a.cache_bf16, a.T, a.Vc, a.eos = bf16, T, Vc, CODEC_EOS
         self.args = a
+        self.plan = persistent.device_plan(mcfg, device, head_rows=V, talker=tcfg,
+                                           lm_rows=Vc) if planned else None
 
 
 _ENTRIES: "OrderedDict[tuple, _Entry]" = OrderedDict()
 _MAX_ENTRIES = 8
 
 
-def _entry(tcfg, mcfg, tfw, talker_fnorm, lm_head, codec_table, mfw, mtp_fnorm, heads, tables,
-           T, cache_dtype, device) -> _Entry:
-    """The cached entry of these tensors: keyed by every pointer the struct
-    holds, so a hit is the struct these tensors would build."""
-    tensors = (*tfw, *mfw, talker_fnorm, *lm_head, codec_table, mtp_fnorm, *heads, tables)
-    key = (tcfg, mcfg, T, cache_dtype, device, *(t.data_ptr() for t in tensors))
-    entry = _ENTRIES.get(key)
-    if entry is None:
-        entry = _Entry(tcfg, mcfg, tfw, talker_fnorm, lm_head, codec_table, mfw, mtp_fnorm,
-                       heads, tables, T, cache_dtype, device)
-        _ENTRIES[key] = entry
+def _entry(entry: str, tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables, T,
+           cache_dtype, device) -> _Entry:
+    """The cached entry of these tensors on this stream and thread, keyed by
+    every pointer the struct holds, so a hit is the struct these tensors
+    would build."""
+    tensors = (*tfw, *mfw, *lm_head, codec_table, *heads, tables)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (entry, tcfg, mcfg, T, cache_dtype, device, stream, threading.get_ident(),
+           *(t.data_ptr() for t in tensors))
+    hit = _ENTRIES.get(key)
+    if hit is None:
+        hit = _Entry(tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables, T, cache_dtype,
+                     device, planned=not entry.endswith("_multi"))
+        _ENTRIES[key] = hit
         while len(_ENTRIES) > _MAX_ENTRIES:
             _ENTRIES.popitem(last=False)
-    return entry
+    return hit
 
 
 def _check_frame_inputs(tfw, mfw, lm_head, codec_table, heads, tables, k_cache, v_cache,
@@ -202,6 +214,8 @@ def _check_frame_inputs(tfw, mfw, lm_head, codec_table, heads, tables, k_cache, 
             raise ValueError("fused_frame_step: every tensor must be contiguous and on CUDA")
     if lm_head.q.dtype != torch.int8 or heads.q.dtype != torch.int8:
         raise NotImplementedError("the frame kernel takes int8 lm_head and MTP head rows")
+    if any(t.data_ptr() % 16 for t in (*lm_head, *heads)):
+        raise ValueError("fused_frame_step: the lm_head and heads must be 16-byte aligned")
 
 
 def fused_frame_step(
@@ -246,8 +260,24 @@ def fused_frame_step(
             *args, last_logits, last_hidden, suppress, drip, pos, k_cache, v_cache, g0, gumbel,
             temperature, top_k, top_p, forbid_eos, mtp_cache_dtype,
         )
+    return _launch_frame(fused_frame_step, "qtts_frame_step", *args, last_logits, last_hidden,
+                         suppress, drip, pos, k_cache, v_cache, g0, gumbel, temperature, top_k,
+                         top_p, forbid_eos, mtp_cache_dtype)
+
+
+fused_frame_step.launches = 0  # kernel launches, for chip_smoke.py's path check
+
+
+def _launch_frame(wrapper, entry: str, tcfg, mcfg, tfw, talker_fnorm, lm_head, codec_table, mfw,
+                  mtp_fnorm, heads, tables, last_logits, last_hidden, suppress, drip, pos,
+                  k_cache, v_cache, g0, gumbel, temperature, top_k, top_p, forbid_eos,
+                  mtp_cache_dtype):
+    """Launch a frame entry (``qtts_frame_step``: K7, persistent, with its
+    plan; ``qtts_frame_step_multi``: the launch-per-op frame kernel) on CUDA
+    tensors, counting the launch on ``wrapper``."""
+    what = wrapper.__name__
     if last_logits.device.type != "cuda":
-        raise ValueError(f"fused_frame_step: unsupported device {last_logits.device}")
+        raise ValueError(f"{what}: unsupported device {last_logits.device}")
     greedy = temperature <= 0.0
     if not greedy and (g0 is None or gumbel is None):
         raise ValueError("a sampled frame needs Gumbel noise g0 [1, Vc] and gumbel [n, 1, V]")
@@ -257,8 +287,11 @@ def fused_frame_step(
 
     lib = load_kernels()
     device = last_logits.device
-    entry = _entry(*args, T, k_cache.dtype, device)
-    a = entry.args
+    T = k_cache.shape[3]
+    pos = min(int(pos), T - 1)
+    e = _entry(entry, tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables, T,
+               k_cache.dtype, device)
+    a = e.args
     n, H = heads.q.shape[0], tcfg.hidden_size
     Vc = a.Vc
     ll = last_logits.float().contiguous()
@@ -267,9 +300,9 @@ def fused_frame_step(
     dr = drip.contiguous()
     for t in (lh, dr):
         if t.dtype not in (torch.float32, torch.bfloat16) or t.numel() != H:
-            raise ValueError("fused_frame_step: last_hidden and drip must be [1, H] float32 or bf16")
+            raise ValueError(f"{what}: last_hidden and drip must be [1, H] float32 or bf16")
     if ll.numel() != Vc or sup.numel() != Vc:
-        raise ValueError(f"fused_frame_step: last_logits and suppress must hold {Vc} values")
+        raise ValueError(f"{what}: last_logits and suppress must hold {Vc} values")
     out = torch.empty(Vc + H, dtype=torch.float32, device=device)
     logits, hidden = torch.split(out, [Vc, H])
     codes = torch.empty(1 + n, dtype=torch.int32, device=device)
@@ -277,45 +310,51 @@ def fused_frame_step(
         noise = (ll, ll)  # unread
     else:
         noise = (g0.float().contiguous(), gumbel.float().contiguous())
-        if noise[0].numel() != Vc or noise[1].numel() != n * a.V:
-            raise ValueError("fused_frame_step: noise must be g0 [1, Vc] and gumbel [n, 1, V]")
+        if noise[0].numel() != Vc or noise[1].numel() != n * a.mc.V:
+            raise ValueError(f"{what}: noise must be g0 [1, Vc] and gumbel [n, 1, V]")
+    # converted on every call: the entry is keyed by pointers only, and a
+    # later model's norm may come to lie at the same address
+    norms = (talker_fnorm.float().contiguous(), mtp_fnorm.float().contiguous())
+    c = a.mc
+    a.talker_norm, c.final_norm = (t.data_ptr() for t in norms)
     a.last_logits, a.suppress = ll.data_ptr(), sup.data_ptr()
-    a.g0, a.gumbel = noise[0].data_ptr(), noise[1].data_ptr()
+    a.g0, c.gumbel = noise[0].data_ptr(), noise[1].data_ptr()
     a.last_hidden, a.drip = lh.data_ptr(), dr.data_ptr()
     a.lh_bf16, a.drip_bf16 = int(lh.dtype == torch.bfloat16), int(dr.dtype == torch.bfloat16)
     a.k_cache, a.v_cache = k_cache.data_ptr(), v_cache.data_ptr()
-    a.codes, a.logits, a.hidden = codes.data_ptr(), logits.data_ptr(), hidden.data_ptr()
+    a.codes, c.subcodes = codes.data_ptr(), codes.data_ptr() + codes.element_size()
+    a.logits, a.hidden = logits.data_ptr(), hidden.data_ptr()
     a.pos, a.forbid_eos = pos, int(bool(forbid_eos))
-    a.temperature, a.top_k, a.top_p = clamp_temperature(temperature), int(top_k), float(top_p)
-    a.greedy = int(greedy)
+    c.temperature, c.top_k, c.top_p = clamp_temperature(temperature), int(top_k), float(top_p)
+    c.greedy = int(greedy)
     stream = torch.cuda.current_stream(device).cuda_stream
-    fused_frame_step.launches += 1
-    err = lib.qtts_frame_step(ctypes.byref(a), stream)
-    check(err, "fused_frame_step")
+    wrapper.launches += 1
+    if e.plan is None:
+        err = getattr(lib, entry)(a, stream)
+    else:
+        err = getattr(lib, entry)(a, e.plan.struct, stream)
+    check(err, what)
     return (codes[:1], codes[1:].reshape(1, n), logits.reshape(1, Vc), hidden.reshape(1, H),
             k_cache, v_cache)
 
 
-fused_frame_step.launches = 0  # kernel launches, for chip_smoke.py's path check
+def _packs_entry(args, entry: str = "qtts_frame_step") -> _Entry:
+    tcfg, mcfg, tfw, _, lm_head, codec_table, mfw, _, heads, tables, T, cache_dtype = args
+    return _entry(entry, tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables, T,
+                  cache_dtype, mfw.wqkv.device)
 
 
-def _packs_entry(args) -> _Entry:
-    *packs, T, cache_dtype = args
-    return _entry(*packs, T, cache_dtype, packs[2].wqkv.device)
+def frame_plan(*args) -> persistent.DevicePlan:
+    """K7's device plan for these packs at cache bucket T on this stream and
+    thread (``args``: :func:`fused_frame_step`'s first ten, then T and the
+    cache dtype): its grid is the launch's; chip_smoke.py traces it."""
+    return _packs_entry(args).plan
 
 
-def frame_grid(*args) -> int:
-    """The grid (blocks of 256 threads) K7 launches with for these packs at
-    cache bucket T (``args``: :func:`fused_frame_step`'s first ten, then T and
-    the cache dtype)."""
-    from ._build import load_kernels
-
-    return load_kernels().qtts_frame_grid(ctypes.byref(_packs_entry(args).args))
-
-
-def frame_work(*args) -> dict:
-    """K7's float32 work vectors [H] for these packs (``args`` as
-    :func:`frame_grid`'s), as the last launch left them: ``x`` (the talker
-    residual before the final norm), ``sub_sum`` and ``c0e`` (the codec row of
-    code0).  chip_smoke.py holds them to kernels K2 and K1 bit for bit."""
-    return _packs_entry(args).work
+def frame_work(*args, entry: str = "qtts_frame_step") -> dict:
+    """The float32 work vectors [H] of a frame entry for these packs
+    (``args`` as :func:`frame_plan`'s), as its last launch on this stream
+    and thread left them: ``x`` (the talker residual before the final norm),
+    ``sub_sum`` and ``c0e`` (the codec row of code0).  chip_smoke.py holds
+    them to kernels K2 and K1 bit for bit."""
+    return _packs_entry(args, entry).work

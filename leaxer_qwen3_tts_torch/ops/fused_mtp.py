@@ -221,7 +221,7 @@ class _ChainEntry:
     dtype) for a B=1 chain entry on one stream of one thread: built once,
     then a call sets its inputs, outputs and knobs (two threads, such as a
     pool's admissions, never share one).  ``plan``: the persistent chain's
-    (K2), else None."""
+    (K2, K3), else None."""
 
     def __init__(self, cfg, fw, heads, tables, cache_dtype, device, planned):
         from ._build import ChainArgs
@@ -235,7 +235,8 @@ class _ChainEntry:
         self.buf = torch.empty(2 * H + V, dtype=torch.float32, device=device)
         x, x_in, logits = torch.split(self.buf, [H, H, V])
         self.logits = logits
-        self.counter = torch.zeros(1, dtype=torch.int32, device=device)  # K3's head tickets
+        # the launch-per-op chains' head tickets
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
         a = ChainArgs()
         a.heads, a.head_scales = heads.q.data_ptr(), heads.scale.data_ptr()
         a.tables, a.x, a.x_in, a.logits = tables.data_ptr(), x.data_ptr(), x_in.data_ptr(), logits.data_ptr()
@@ -258,7 +259,7 @@ def _chain_entry(entry: str, cfg, fw, heads, tables, cache_dtype, device) -> _Ch
     hit = _CHAIN_ENTRIES.get(key)
     if hit is None:
         hit = _ChainEntry(cfg, fw, heads, tables, cache_dtype, device,
-                          planned=entry == "qtts_mtp_chain")
+                          planned=not entry.endswith("_multi"))
         _CHAIN_ENTRIES[key] = hit
         while len(_CHAIN_ENTRIES) > _MAX_ENTRIES:
             _CHAIN_ENTRIES.popitem(last=False)
@@ -267,9 +268,10 @@ def _chain_entry(entry: str, cfg, fw, heads, tables, cache_dtype, device) -> _Ch
 
 def _launch_chain(wrapper, entry: str, cfg, fw, final_norm, heads, tables, last_hidden,
                   code0_embed, gumbel, temperature, top_k, top_p, cache_dtype):
-    """Launch a B=1 chain entry (``qtts_mtp_chain``: K2, persistent, with its
-    plan; ``qtts_mtp_chain_streamed``: K3) on CUDA tensors, counting the
-    launch on ``wrapper``."""
+    """Launch a B=1 chain entry (``qtts_mtp_chain``: K2, and
+    ``qtts_mtp_chain_streamed``: K3, persistent, each with its plan; the
+    ``_multi`` entries: the launch-per-op chains) on CUDA tensors, counting
+    the launch on ``wrapper``."""
     what = wrapper.__name__
     if last_hidden.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {last_hidden.device}")
@@ -452,7 +454,7 @@ def _batch_chain_entry(entry: str, cfg, fw, heads, tables, B, cache_dtype,
     hit = _CHAIN_ENTRIES.get(key)
     if hit is None:
         hit = _BatchChainEntry(cfg, fw, heads, tables, B, cache_dtype, device,
-                               planned=entry == "qtts_mtp_chain_batched")
+                               planned=not entry.endswith("_multi"))
         _CHAIN_ENTRIES[key] = hit
         while len(_CHAIN_ENTRIES) > _MAX_ENTRIES:
             _CHAIN_ENTRIES.popitem(last=False)

@@ -6,9 +6,11 @@ the resident chain K2 (the 1.7B family: 302 MB).  It computes what K2
 computes, with the JAX kernel's float32 17-slot KV scratch whatever the
 model dtype: at a bf16 model it equals K2 with a float32 cache, not K2 at
 the config dtype.  On the TPU the trunk streams through a DMA ring whose next
-position's reads start behind the current one's work; on Hopper every chain
-streams its trunk, and K3 (``csrc/fused_mtp_stream.cu``) prefetches the next
-trunk pass's first weights into L2 while the sampler runs.
+position's reads start behind the current one's work; on Hopper K3
+(``csrc/fused_mtp_stream.cu``) is one cooperative launch of K2's persistent
+chain on a float32 cache, whose TMA weight ring runs through every trunk
+pass and head of the chain (the plan of ``ops/persistent.py`` at the 1.7B
+widths), so the next pass's first stages load while block 0 samples.
 
 On a CUDA tensor :func:`fused_mtp_chain_streamed` launches the kernel; on a
 CPU tensor it runs :func:`fused_mtp_chain_streamed_reference`, K2's plain

@@ -1,7 +1,9 @@
-"""The work plan of the persistent kernels K1, K2, K4 and K5 (``csrc/qtts_stream.cuh``).
+"""The work plan of the persistent kernels K1-K5 and K7 (``csrc/qtts_stream.cuh``).
 
-One cooperative launch runs a whole decode step (K1; K4 for B rows) or a
-whole sub-code chain (K2; K5 for B rows) on a grid of one block per SM.  Each block owns a fixed,
+One cooperative launch runs a whole decode step (K1; K4 for B rows), a
+whole sub-code chain (K2, and K3 on a float32 cache; K5 for B rows) or a
+whole frame (K7: the chain, then the talker step and its lm_head) on a grid
+of one block per SM.  Each block owns a fixed,
 contiguous range of output rows in every GEMV of the transformer (qkv, o,
 gate|up, down) and of the chain's heads, balanced over the grid in multiples
 of four rows (the scale copies move 16 bytes at a time).  A block's rows of
@@ -12,6 +14,11 @@ on the CPU: which rows each block owns, how many rows a stage takes, how many
 slots fit, and the dynamic shared memory of the launch.  The layout mirrors
 ``qtts_plan_layout``; the C entries check the plan's scalars again and raise
 on one they do not take.
+
+A frame's plan (``make_plan(..., talker=..., lm_rows=...)``) covers two
+weight sets on one grid and one ring: set 0 the MTP trunk with its heads,
+set 1 the talker with its lm_head.  Its tables hold set s's kind k at kind
+index s * len(KINDS) + k, whose stages follow set 0's in the ring.
 
 A batched plan (``batch`` rows, K4 and K5) keeps each block's batch rows'
 bf16 GEMV inputs in shared memory beside the ring, B x max(H, q_dim, I) x 2
@@ -25,7 +32,7 @@ weight row once (the other groups' copies of a stage mostly come from L2).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,7 +41,7 @@ from ..config import TransformerConfig
 SMEM_PER_BLOCK = 232_448  # shared memory a Hopper block may use (227 KB)
 STATIC_SMEM = 2_048  # reserved for the kernels' static shared memory
 ATTN_SMEM_BYTES = 21_892  # sizeof(QttsAttnSmem): one attention item
-SAMPLE_SMEM_BYTES = 576  # sizeof(QttsSampleSmem)
+SAMPLE_SMEM_BYTES = 896  # sizeof(QttsSampleSmem)
 MAX_STAGE_ROWS = 64  # 8 warps x QTTS_P_RPW rows
 THREADS = 256
 MAX_K = 6144  # the widest GEMV input a block holds in registers
@@ -44,22 +51,31 @@ MAX_TICKETS = MAX_BATCH * MAX_KV_HEADS  # attention tickets: one per (row, kv he
 ATTN_CHUNK = 64  # cache slots per attention split
 MIN_SLOTS = 3  # ring slots a batched plan keeps before it splits the grid into groups
 ROW_QUANTUM = 4  # rows per 16 bytes of float32 scales
-SLOT_BYTES = 32 * 1024
+SLOT_BYTES = 32 * 1024  # a batched plan's slot, and a one-row plan's past WIDE_SLOT_BYTES
+WIDE_SLOT_BYTES = 48 * 1024  # a one-row plan's slot where a block's layer fits the ring
 KINDS = ("qkv", "o", "gu", "down", "head")
+MAX_SETS = 2  # QTTS_SETS: weight sets a plan streams
 
 
 class Plan(NamedTuple):
     grid: int
-    shapes: Tuple[Tuple[int, int], ...]  # (N, K) of each kind; N = 0 for an unused kind
-    bounds: Tuple[Tuple[int, ...], ...]  # [kind][block]: block b's rows are [b], [b + 1])
-    stage_rows: Tuple[int, ...]  # rows per stage of each kind
+    shapes: Tuple[Tuple[int, int], ...]  # (N, K) of each kind index; N = 0 for an unused kind
+    bounds: Tuple[Tuple[int, ...], ...]  # [kind index][block]: block b's rows are [b], [b + 1])
+    stage_rows: Tuple[int, ...]  # rows per stage of each kind index
     slot_bytes: int
     slot_rows: int  # scale floats per slot
     n_slots: int
     union_bytes: int  # GEMV input / attention items / sampler scratch
     smem_bytes: int  # dynamic shared memory of the launch
-    batch: int = 1  # rows of the launch (1: K1, K2)
-    groups: int = 1  # batch groups: bounds are [kind][grid + groups]
+    batch: int = 1  # rows of the launch (1: K1, K2, K3, K7)
+    groups: int = 1  # batch groups: bounds are [kind index][grid + groups]
+    n_sets: int = 1  # weight sets (2: K7's MTP trunk, then its talker)
+
+
+def kind_name(kind: int) -> str:
+    """The name of kind index ``kind`` (``talker down`` for set 1's)."""
+    name = KINDS[kind % len(KINDS)]
+    return name if kind < len(KINDS) else f"talker {name}"
 
 
 def _align(v: int, a: int) -> int:
@@ -95,11 +111,11 @@ def act_bytes(cfg: TransformerConfig, rows: int) -> int:
     return 2 * rows * _align(max(cfg.hidden_size, cfg.q_dim, cfg.intermediate_size), 512)
 
 
-def _slots(slot_rows: int, union_bytes: int) -> int:
-    """Ring slots of SLOT_BYTES that fit beside the union region."""
+def _slots(slot_rows: int, union_bytes: int, slot_bytes: int = SLOT_BYTES) -> int:
+    """Ring slots of ``slot_bytes`` that fit beside the union region."""
     budget = SMEM_PER_BLOCK - STATIC_SMEM
     n = 0
-    while smem_layout(n + 1, SLOT_BYTES, slot_rows, union_bytes)["total"] <= budget:
+    while smem_layout(n + 1, slot_bytes, slot_rows, union_bytes)["total"] <= budget:
         n += 1
     return n
 
@@ -120,46 +136,65 @@ def group_rows(plan: Plan, block: int) -> Tuple[int, int]:
     return g * plan.batch // plan.groups, (g + 1) * plan.batch // plan.groups
 
 
-def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int = 1) -> Plan:
+def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int = 1,
+              talker: Optional[TransformerConfig] = None, lm_rows: int = 0) -> Plan:
     """The plan of a launch on ``grid`` blocks over the transformer ``cfg``
-    (and ``head_rows`` head rows for the chain) for ``batch`` rows (1: K1 and
-    K2, whose GEMV input is MAX_K floats), with as many ring slots of
-    SLOT_BYTES as fit; a batched plan takes the fewest batch groups that
-    leave MIN_SLOTS slots.  Raises ValueError where a block would own no rows
-    of some product, or nothing fits."""
+    (and ``head_rows`` head rows for the chain) for ``batch`` rows (1: K1,
+    K2 and K3, whose GEMV input is MAX_K floats), with as many ring slots as
+    fit; a batched plan takes the fewest batch groups that leave MIN_SLOTS
+    slots.  With ``talker`` (K7, one row): a second weight set, the talker
+    and its ``lm_rows`` lm_head rows, after the first.  A plan of one row
+    takes WIDE_SLOT_BYTES slots where each block's share of one layer of
+    every set fits that ring (fewer, larger stages, each with its fixed
+    wait, barrier and refill), else SLOT_BYTES slots (more of them, to keep
+    more bytes in flight).  Raises ValueError where a block would own no
+    rows of some product, or nothing fits."""
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"a launch takes 1..{MAX_BATCH} rows, not {batch}")
     if head_rows and batch > grid:
         raise ValueError(f"{batch} rows to sample on {grid} blocks")
-    shapes = kind_shapes(cfg, head_rows)
+    sets = [(cfg, head_rows)]
+    if talker is not None:
+        if batch != 1 or not lm_rows:
+            raise ValueError("a frame's plan takes one row and the talker's lm_head rows")
+        sets.append((talker, lm_rows))
+    shapes = sum((kind_shapes(c, rows) for c, rows in sets), ())
+    for N, K in shapes:
+        if N and (N % ROW_QUANTUM or K % 16):
+            raise ValueError(f"a [{N}, {K}] product does not split into 16-byte rows of 4")
+        if N and N // ROW_QUANTUM < grid:
+            raise ValueError(f"{grid} blocks over {N} rows: a block would own none")
+    if max(K for N, K in shapes if N) > MAX_K or max(
+            c.num_kv_heads for c, _ in sets) > MAX_KV_HEADS:
+        raise ValueError(f"GEMV inputs past {MAX_K} wide or past {MAX_KV_HEADS} kv heads")
+    if batch == 1:
+        wide = _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets))
+        if wide.n_slots * wide.slot_bytes >= max(layer_share(wide, s) for s in range(len(sets))):
+            return wide
+    return _plan_at(SLOT_BYTES, cfg, grid, shapes, batch, len(sets))
+
+
+def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: int,
+             n_sets: int) -> Plan:
+    """The plan of ``make_plan`` with slots of ``slot_bytes``."""
     stage_rows = []
     for N, K in shapes:
-        if N == 0:
-            stage_rows.append(ROW_QUANTUM)
-            continue
-        if N % ROW_QUANTUM or K % 16:
-            raise ValueError(f"a [{N}, {K}] product does not split into 16-byte rows of 4")
-        if N // ROW_QUANTUM < grid:
-            raise ValueError(f"{grid} blocks over {N} rows: a block would own none")
-        rows = min(MAX_STAGE_ROWS, SLOT_BYTES // K) // ROW_QUANTUM * ROW_QUANTUM
-        if rows < ROW_QUANTUM:
-            raise ValueError(f"a {SLOT_BYTES}-byte slot holds fewer than 4 rows of {K} bytes")
-        stage_rows.append(rows)
+        rows = min(MAX_STAGE_ROWS, slot_bytes // K) // ROW_QUANTUM * ROW_QUANTUM
+        if N and rows < ROW_QUANTUM:
+            raise ValueError(f"a {slot_bytes}-byte slot holds fewer than 4 rows of {K} bytes")
+        stage_rows.append(rows if N else ROW_QUANTUM)
     slot_rows = max(stage_rows)
-    widths = [K for N, K in shapes if N]
-    if max(widths) > MAX_K or cfg.num_kv_heads > MAX_KV_HEADS:
-        raise ValueError(f"GEMV inputs past {MAX_K} wide or past {MAX_KV_HEADS} kv heads")
     # the GEMV input (MAX_K floats at one row, a group's rows in bf16
     # batched), two attention items, or the sampler's scratch
     for groups in range(1, batch + 1):
         rows_in_group = -(-batch // groups)
         inputs = 4 * MAX_K if batch == 1 else act_bytes(cfg, rows_in_group)
         union_bytes = _align(max(2 * ATTN_SMEM_BYTES, inputs, SAMPLE_SMEM_BYTES), 128)
-        n_slots = _slots(slot_rows, union_bytes)
+        n_slots = _slots(slot_rows, union_bytes, slot_bytes)
         if n_slots >= (1 if batch == 1 else MIN_SLOTS):
             break
     else:
-        raise ValueError(f"no {SLOT_BYTES}-byte slot fits beside {union_bytes} bytes")
+        raise ValueError(f"no {slot_bytes}-byte slot fits beside {union_bytes} bytes")
     bounds = []
     for N, _ in shapes:
         row = []
@@ -167,13 +202,21 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
             first, end = group_blocks(grid, groups, g)
             row += split_rows(N, end - first) if N else (0,) * (end - first + 1)
         bounds.append(tuple(row))
-    smem = smem_layout(n_slots, SLOT_BYTES, slot_rows, union_bytes)["total"]
-    return Plan(grid, shapes, tuple(bounds), tuple(stage_rows), SLOT_BYTES, slot_rows, n_slots,
-                union_bytes, smem, batch, groups)
+    smem = smem_layout(n_slots, slot_bytes, slot_rows, union_bytes)["total"]
+    return Plan(grid, shapes, tuple(bounds), tuple(stage_rows), slot_bytes, slot_rows, n_slots,
+                union_bytes, smem, batch, groups, n_sets)
+
+
+def layer_share(plan: Plan, s: int = 0) -> int:
+    """The int8 bytes of one layer of weight set ``s`` (its qkv, o, gate|up
+    and down rows) that the block owning the most of them streams."""
+    kinds = range(s * len(KINDS), s * len(KINDS) + 4)
+    return max(sum((plan.bounds[k][at + 1] - plan.bounds[k][at]) * plan.shapes[k][1]
+                   for k in kinds) for at in range(len(plan.bounds[0]) - 1))
 
 
 def stages(plan: Plan, kind: int, block: int) -> Sequence[Tuple[int, int]]:
-    """(first row, rows) of each stage of ``block``'s rows of ``kind``."""
+    """(first row, rows) of each stage of ``block``'s rows of kind index ``kind``."""
     at = block + group_of(plan, block)
     r0, r1 = plan.bounds[kind][at], plan.bounds[kind][at + 1]
     step = plan.stage_rows[kind]
@@ -215,10 +258,12 @@ class DevicePlan:
         self._host_bounds = torch.tensor(plan.bounds, dtype=torch.int32).pin_memory()
         self.bounds = self._host_bounds.to(device, non_blocking=True)
         self.tickets = torch.zeros(MAX_TICKETS, dtype=torch.int32, device=device)
+        unused = (ROW_QUANTUM,) * (MAX_SETS * len(KINDS) - len(plan.stage_rows))
         self.struct = PlanStruct(
             self.bounds.data_ptr(), plan.grid, plan.n_slots, plan.slot_bytes, plan.slot_rows,
-            (ctypes.c_int32 * len(KINDS))(*plan.stage_rows), plan.smem_bytes, plan.union_bytes,
-            self.tickets.data_ptr(), 0, None, plan.batch, plan.groups, MAX_TICKETS,
+            (ctypes.c_int32 * (MAX_SETS * len(KINDS)))(*plan.stage_rows, *unused),
+            plan.smem_bytes, plan.union_bytes, self.tickets.data_ptr(), 0, None, plan.batch,
+            plan.groups, MAX_TICKETS, plan.n_sets,
         )
         self.trace = None
 
@@ -246,9 +291,10 @@ def grid_size(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def device_plan(cfg: TransformerConfig, device, head_rows: int = 0, batch: int = 1) -> DevicePlan:
-    """The device plan of ``cfg`` (and ``head_rows`` heads, ``batch`` rows)
-    on this device; each caller keeps its own (the attention tickets are per
-    launch stream)."""
+def device_plan(cfg: TransformerConfig, device, head_rows: int = 0, batch: int = 1,
+                talker: Optional[TransformerConfig] = None, lm_rows: int = 0) -> DevicePlan:
+    """The device plan of ``cfg`` (and ``head_rows`` heads, ``batch`` rows;
+    the frame's talker and ``lm_rows``) on this device; each caller keeps
+    its own (the attention tickets are per launch stream)."""
     device = torch.device(device)
-    return DevicePlan(make_plan(cfg, grid_size(device), head_rows, batch), device)
+    return DevicePlan(make_plan(cfg, grid_size(device), head_rows, batch, talker, lm_rows), device)

@@ -1,12 +1,14 @@
-"""The work plan of the persistent kernels K1, K2, K4 and K5
-(ops/persistent.py), on the CPU: for the 0.6B talker, the 0.6B MTP trunk with
-its heads, and the 1.7B talker and trunk, at B = 1 (K1, K2) and at B = 2, 5,
-8 and 32 rows (K4, K5), at the SM counts of an H100 SXM (132) and PCIe
-(114), every (row, batch row) of every product belongs to exactly one block,
-every stage fits its ring slot, the launch's shared memory (ring, the
-batch rows' inputs, two attention items) fits a Hopper block, and the
-attention tickets cover every (row, kv head).  And the batched attention's
-item dealing, against a model of what it must run."""
+"""The work plan of the persistent kernels K1-K5 and K7 (ops/persistent.py),
+on the CPU: for the 0.6B talker, the 0.6B MTP trunk with its heads, and the
+1.7B talker and trunk (K3's plan), at B = 1 (K1, K2, K3) and at B = 2, 5, 8
+and 32 rows (K4, K5), and for the 0.6B frame (K7: the MTP trunk with its
+2048-row heads, then the talker with its 3072-row lm_head), at the SM counts
+of an H100 SXM (132) and PCIe (114), every (row, batch row) of every product
+of every weight set belongs to exactly one block, every stage fits its ring
+slot, the launch's shared memory (ring, the batch rows' inputs, two
+attention items) fits a Hopper block, and the attention tickets cover every
+(row, kv head).  And the batched attention's item dealing, against a model
+of what it must run."""
 
 from __future__ import annotations
 
@@ -15,21 +17,33 @@ import pytest
 from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B, QWEN3_TTS_17B
 from leaxer_qwen3_tts_torch.ops import persistent
 
+_MTP06 = (QWEN3_TTS_06B.code_predictor.transformer,
+          QWEN3_TTS_06B.code_predictor.subcode_vocab_size)
+_TALKER06 = QWEN3_TTS_06B.talker.transformer
+# name -> the weight sets of the plan, (transformer, head rows) each
 CASES = {
-    "0.6B talker": (QWEN3_TTS_06B.talker.transformer, 0),
-    "0.6B MTP trunk": (QWEN3_TTS_06B.code_predictor.transformer,
-                       QWEN3_TTS_06B.code_predictor.subcode_vocab_size),
-    "1.7B talker": (QWEN3_TTS_17B.talker.transformer, 0),
-    "1.7B MTP trunk": (QWEN3_TTS_17B.code_predictor.transformer,
-                       QWEN3_TTS_17B.code_predictor.subcode_vocab_size),
+    "0.6B talker": ((_TALKER06, 0),),
+    "0.6B MTP trunk": (_MTP06,),
+    "1.7B talker": ((QWEN3_TTS_17B.talker.transformer, 0),),
+    "1.7B MTP trunk": ((QWEN3_TTS_17B.code_predictor.transformer,
+                        QWEN3_TTS_17B.code_predictor.subcode_vocab_size),),
 }
+FRAMES = {"0.6B frame": (_MTP06, (_TALKER06, QWEN3_TTS_06B.talker.codec_vocab_size))}
 GRIDS = (132, 114)
 BATCHES = (1, 2, 5, 8, 32)
-PARAMS = [(name, grid, B) for name in CASES for grid in GRIDS for B in BATCHES]
+PARAMS = ([(name, grid, B) for name in CASES for grid in GRIDS for B in BATCHES]
+          + [(name, grid, 1) for name in FRAMES for grid in GRIDS])
+
+
+def _sets(name):
+    return {**CASES, **FRAMES}[name]
 
 
 def _plan(name, grid, B):
-    cfg, heads = CASES[name]
+    (cfg, heads), *rest = _sets(name)
+    if rest:
+        (talker, lm_rows), = rest
+        return persistent.make_plan(cfg, grid, head_rows=heads, talker=talker, lm_rows=lm_rows)
     return persistent.make_plan(cfg, grid, head_rows=heads, batch=B)
 
 
@@ -61,7 +75,7 @@ def test_every_row_once(name, grid, B):
                 for b in range(b0, b1):
                     for n in range(n0, n0 + r):
                         owner[b][n] += 1
-        assert owner == [[1] * N for _ in range(B)], persistent.KINDS[kind]
+        assert owner == [[1] * N for _ in range(B)], persistent.kind_name(kind)
         for g in range(plan.groups):
             first, end = persistent.group_blocks(grid, plan.groups, g)
             at = [blk + g for blk in range(first, end)]
@@ -92,20 +106,22 @@ def test_shared_memory_fits(name, grid, B):
     assert lay["total"] == plan.smem_bytes
     assert plan.smem_bytes + persistent.STATIC_SMEM <= 232_448
     assert lay["scales"] % 16 == 0 and lay["slots"] % 128 == 0 and plan.union_bytes % 128 == 0
-    cfg, _ = CASES[name]
+    sets = _sets(name)
+    cfg = sets[0][0]
     widths = [K for N, K in plan.shapes if N]
-    assert max(widths) <= persistent.MAX_K and cfg.num_kv_heads <= persistent.MAX_KV_HEADS
+    kv_heads = max(c.num_kv_heads for c, _ in sets)
+    assert max(widths) <= persistent.MAX_K and kv_heads <= persistent.MAX_KV_HEADS
     # the GEMV input (MAX_K floats at B = 1, else the largest group's rows in
     # bf16 at the widest input), two attention items, or the sampler's scratch
     group_rows = max(persistent.group_rows(plan, blk)[1] - persistent.group_rows(plan, blk)[0]
                      for blk in range(grid))
-    widest = max(cfg.hidden_size, cfg.q_dim, cfg.intermediate_size)
+    widest = max(max(c.hidden_size, c.q_dim, c.intermediate_size) for c, _ in sets)
     inputs = 4 * persistent.MAX_K if B == 1 else 2 * group_rows * (-(-widest // 512) * 512)
     assert inputs == (4 * persistent.MAX_K if B == 1 else persistent.act_bytes(cfg, group_rows))
     assert plan.union_bytes >= max(2 * persistent.ATTN_SMEM_BYTES, inputs,
                                    persistent.SAMPLE_SMEM_BYTES)
     # the attention tickets: one per (row, kv head)
-    assert B * cfg.num_kv_heads <= persistent.MAX_TICKETS
+    assert B * kv_heads <= persistent.MAX_TICKETS
     # one more slot would not fit
     more = persistent.smem_layout(plan.n_slots + 1, plan.slot_bytes, plan.slot_rows,
                                   plan.union_bytes)
@@ -115,6 +131,65 @@ def test_shared_memory_fits(name, grid, B):
         fewer = persistent._slots(plan.slot_rows, persistent.act_bytes(
             cfg, -(-B // (plan.groups - 1))))
         assert fewer < persistent.MIN_SLOTS
+
+
+@pytest.mark.parametrize("name,grid,B", [p for p in PARAMS if p[2] == 1])
+def test_one_row_slots(name, grid, B):
+    """A one-row plan (K1, K2, K3, K7) takes the wide slots exactly where
+    each block's share of one layer of every weight set fits their ring;
+    the 1.7B plans, whose layer shares are past it, keep the 32 KB slots
+    and five of them."""
+    plan = _plan(name, grid, B)
+    n_sets = len(_sets(name))
+    wide = persistent._plan_at(persistent.WIDE_SLOT_BYTES, _sets(name)[0][0], grid, plan.shapes,
+                               1, n_sets)
+    fits = all(persistent.layer_share(wide, s) <= wide.n_slots * wide.slot_bytes
+               for s in range(n_sets))
+    assert plan.slot_bytes == (persistent.WIDE_SLOT_BYTES if fits else persistent.SLOT_BYTES)
+    # every block's rows of every kind are counted in its share
+    for s in range(n_sets):
+        for blk in range(grid):
+            own = sum(r * plan.shapes[k][1] for k in range(s * 5, s * 5 + 4)
+                      for _, r in persistent.stages(plan, k, blk))
+            assert own <= persistent.layer_share(plan, s)
+    if name.startswith("1.7B"):
+        assert plan.slot_bytes == persistent.SLOT_BYTES and plan.n_slots == 5
+    if grid == 132 and name.startswith("0.6B"):
+        assert plan.slot_bytes == persistent.WIDE_SLOT_BYTES and plan.n_slots == 3
+
+
+def test_batched_plans_keep_the_narrow_slots():
+    for name in CASES:
+        assert _plan(name, 132, 8).slot_bytes == persistent.SLOT_BYTES
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_frame_plan_is_the_chain_then_the_talker(grid):
+    """K7's plan: set 0 is the chain's own plan (K2's rows and stages), set 1
+    the talker step's (K1's) with the lm_head as its head kind; one ring of
+    one slot geometry for both."""
+    (mcfg, V), (tcfg, Vc) = FRAMES["0.6B frame"]
+    frame = persistent.make_plan(mcfg, grid, head_rows=V, talker=tcfg, lm_rows=Vc)
+    chain = persistent.make_plan(mcfg, grid, head_rows=V)
+    step = persistent.make_plan(tcfg, grid)
+    kinds = len(persistent.KINDS)
+    assert frame.n_sets == 2 and chain.n_sets == step.n_sets == 1
+    assert len(frame.shapes) == len(frame.bounds) == len(frame.stage_rows) == 2 * kinds
+    assert frame.shapes[:kinds] == chain.shapes
+    assert frame.shapes[kinds:] == persistent.kind_shapes(tcfg, Vc)
+    assert frame.bounds[:kinds] == chain.bounds and frame.bounds[kinds:kinds + 4] == step.bounds[:4]
+    same = persistent._plan_at(frame.slot_bytes, mcfg, grid, frame.shapes, 1, 2)
+    assert frame == same
+    if frame.slot_bytes == chain.slot_bytes == step.slot_bytes:
+        assert frame.stage_rows[:kinds] == chain.stage_rows
+        assert frame.stage_rows[kinds:kinds + 4] == step.stage_rows[:4]
+    assert frame.union_bytes == chain.union_bytes == step.union_bytes
+    assert frame.slot_bytes == (chain.slot_bytes if chain.slot_bytes == step.slot_bytes
+                                else persistent.SLOT_BYTES)
+    assert frame.slot_rows == max(frame.stage_rows)
+    assert persistent.kind_name(kinds + 4) == "talker head" and persistent.kind_name(3) == "down"
+    with pytest.raises(ValueError):
+        persistent.make_plan(mcfg, grid, head_rows=V, batch=2, talker=tcfg, lm_rows=Vc)
 
 
 def test_plan_refuses_a_grid_past_the_rows():
