@@ -1,6 +1,6 @@
 """A/B of the B=1 fixed 300-frame run between two checkouts, on one GPU.
 
-    python3 chip_ab.py OLD NEW [--spec] [--batched] [--frame] [--voice] [--chains]
+    python3 chip_ab.py OLD NEW [--spec] [--batched] [--frame] [--voice] [--chains] [--kernels]
 
 OLD and NEW are checkout roots (unpack a commit with ``git archive`` into a
 directory that ``.gitignore`` lists).  Each run is its own process, in the
@@ -10,7 +10,9 @@ int8), warms it up and times ``chip_smoke.check_fixed_run`` three times.
 With ``--spec`` a run also times the speculative B=1 fixed run at k=4
 (``chip_smoke.spec_fixed_run``, sampled, 300 frames, as the smoke's spec
 phase does) at full acceptance and with the repeat draft, twice each, in ms
-per committed frame.  With ``--batched`` a run also times the batched fixed
+per committed frame, and the spec pool (8 slots x 3 candidates, the smoke's
+12 pool requests with their seeds, after one warm-up round) twice, in
+aggregate RTF.  With ``--batched`` a run also times the batched fixed
 300-frame runs at B=8 and B=32 (ms per batched frame and aggregate RTF, as
 the smoke's batched phase) and, by CUDA events on seeded inputs, the kernels
 of the batched frame (K4 at T=512 with the smoke's per-row positions, K5 with
@@ -19,7 +21,13 @@ sampled).  With ``--frame`` a run also times the 0.6B ``frame_fused`` fixed
 300-frame run twice and K7 on a seeded frame (T=256, pos 255, sampled);
 with ``--voice`` the 1.7B preset's fixed 300-frame instruct run twice
 (random weights, the smoke's voice configuration) and K3 on a seeded chain
-(sampled).  With ``--chains`` a run makes no engine: it times the chains
+(sampled).  With ``--kernels`` a run first times the kernels alone (and
+makes no engine unless another flag asks for one), by CUDA events on
+seeded inputs, three timings each (bf16 caches):
+K1 (T=256, pos 200), K2 (sampled), K4 (B=8, 32 at T=512), K5 (B=4, 8, 32,
+mixed knobs), K6 (B=1 x S=4 at T=256 start 200, 8 x 3 and 4 x 8 at
+T=512, the smoke's starts), K7 (T=256, pos 255, sampled) and P1 (the
+conv arm's whole chain).  With ``--chains`` a run makes no engine: it times the chains
 alone on seeded inputs, three times each, and traces each once
 (``chip_smoke.trace_phases``): K5 at B=8 and 32 with K5_KNOBS cycled over
 the rows and with the engine's knobs, and the persistent B=1 chain on the
@@ -50,6 +58,98 @@ def spec_ms(cs, eng):
             _, _, decode_s, decoded = cs.spec_fixed_run(eng, 300, sampled, [cs.SPEC_TEXT],
                                                         repeat_draft, force)
             out.setdefault(label, []).append(decode_s * 1e3 / decoded)
+    return out
+
+
+def spec_pool_rtf(cs, params, tok, eng):
+    """Aggregate RTF of the smoke's 12 pool requests through an 8-slot spec
+    pool at k=3: one warm-up round, then two timed rounds."""
+    import time
+
+    from leaxer_qwen3_tts_torch.api.engine import TTSEngine
+    from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B
+    from leaxer_qwen3_tts_torch.serve import ContinuousBatcher
+
+    spec_eng = TTSEngine(config=QWEN3_TTS_06B, params=params, tokenizer=tok, quantize="int8",
+                         spec_k=cs.SPEC_K, spec_iters=cs.SPEC_ITERS, spec_accept_floor=0.0)
+    pool = ContinuousBatcher(spec_eng, pool_size=8, kv_bucket=eng.kv_ladder[0],
+                             spec_k=cs.POOL_SPEC_K, spec_iters=cs.POOL_SPEC_ITERS)
+    rtf = []
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            futs = [pool.submit(text, language=lang, temperature=k[0], top_k=k[1], top_p=k[2],
+                                max_tokens=mt, seed=cs.SEED + i)
+                    for i, (text, lang, k, mt) in enumerate(cs.POOL_REQUESTS)]
+            audio = sum(f.result(timeout=600).metrics.audio_seconds for f in futs)
+            rtf.append(audio / (time.perf_counter() - t0))
+    finally:
+        pool.shutdown()
+    return rtf[1:]
+
+
+def kernels_ms(cs):
+    """The kernels alone by CUDA events on seeded inputs: {label: [ms] x 3}."""
+    import torch
+
+    from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B
+    from leaxer_qwen3_tts_torch.ops import fused_frame as K7
+    from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
+    from leaxer_qwen3_tts_torch.ops import fused_step as K1
+    from leaxer_qwen3_tts_torch.ops import fused_verify as K6
+    from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
+    from leaxer_qwen3_tts_torch.runtime.sampling import gumbel_noise
+    from leaxer_qwen3_tts_torch.tools import a8_probe as P1
+
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED)
+    tt, cp = QWEN3_TTS_06B.talker.transformer, QWEN3_TTS_06B.code_predictor
+    mt = cp.transformer
+    tfw, mfw = cs.packed_trunk(tt, gen), cs.packed_trunk(mt, gen)
+    H, V, n = mt.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    heads = K2.pack_heads(quantize_weight(
+        (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16)))
+    tables = (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV)
+    out = {}
+
+    def timed(label, fn, iters):
+        out[label] = [round(cs.time_ms(fn, iters), 4) for _ in range(3)]
+
+    x, kc, vc = cs.k1_inputs(tt, 256, 200, torch.bfloat16, gen)
+    timed("K1 T=256 pos 200", lambda: K1.fused_decode_step(tt, tfw, x, 200, kc, vc), 20)
+    for B in (1, 4, 8, 32):
+        lh = (torch.randn((B, H), generator=gen, device=cs.DEV) * 0.5).to(torch.bfloat16)
+        c0 = (torch.randn((B, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
+        noise = gumbel_noise((n, B, V), gen, cs.DEV)
+        if B == 1:
+            args = (mt, mfw, fnorm, heads, tables, lh, c0, noise, *cs.K5_KNOBS[1])
+            timed("K2 sampled", lambda: K2.fused_mtp_chain(*args, cache_dtype=torch.bfloat16), 10)
+            continue
+        if B > 4:
+            x, kc, vc, pos = cs.k4_inputs(tt, B, 512, torch.bfloat16, gen)
+            pos_dev = torch.tensor(pos, device=cs.DEV)
+            timed(f"K4 B={B} T=512",
+                  lambda: K1.fused_decode_step_batched(tt, tfw, x, pos_dev, kc, vc), 10)
+        knobs = [cs.K5_KNOBS[b % len(cs.K5_KNOBS)] for b in range(B)]
+        args = (mt, mfw, fnorm, heads, tables, lh, c0, noise, *zip(*knobs))
+        timed(f"K5 B={B} mixed knobs",
+              lambda: K2.fused_mtp_chain_batched(*args, cache_dtype=torch.bfloat16), 5)
+    for B, S, T, starts, _ in cs.K6_DEEP_CASES:
+        if (B, S, T) == (1, 4, 512):
+            continue
+        x, kc, vc, pos = cs.k6_inputs(tt, B, S, T, starts, torch.bfloat16, gen)
+        timed(f"K6 {B}x{S} T={T}", lambda: K6.fused_verify_step(tt, tfw, x, pos, kc, vc), 10)
+    del x, kc, vc, tfw, mfw
+    packs = cs.frame_packs(QWEN3_TTS_06B, gen)
+    inp = cs.k7_inputs(packs, 255, 1, gen)
+    kc, vc = cs.k7_caches(packs[0], 256, 255, torch.bfloat16, gen)
+    timed("K7 T=256 pos 255 sampled",
+          lambda: cs.k7_call(K7.fused_frame_step, packs, inp, (0.8, 50, 0.95), kc, vc), 10)
+    del packs, kc, vc
+    w, s = P1.make_weights("conv", device=cs.DEV)
+    x0 = torch.full((1, P1.H), 0.1, device=cs.DEV)
+    timed(f"P1 conv chain of {P1.S * P1.U} units", lambda: P1.chain("conv", w, s, x0), 10)
     return out
 
 
@@ -207,7 +307,7 @@ def chains_ms(cs):
 
 
 def run_one(root: str, spec: bool, batched: bool, frame: bool = False,
-            voice: bool = False, chains: bool = False) -> None:
+            voice: bool = False, chains: bool = False, kernels: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -223,6 +323,10 @@ def run_one(root: str, spec: bool, batched: bool, frame: bool = False,
     if chains:
         print(f"AB {root}: chains {chains_ms(cs)} [{cs.CARD}]", flush=True)
         return
+    if kernels:
+        print(f"AB {root}: kernels {kernels_ms(cs)} [{cs.CARD}]", flush=True)
+        if not (spec or batched or frame or voice):
+            return
     params = init_params(QWEN3_TTS_06B, seed=cs.SEED, device="cuda")
     with tempfile.TemporaryDirectory() as workdir:
         tok = cs.byte_level_tokenizer(workdir)
@@ -233,6 +337,8 @@ def run_one(root: str, spec: bool, batched: bool, frame: bool = False,
     if spec:
         print(f"AB {root}: spec k=4 ms per committed frame {spec_ms(cs, eng)} [{cs.CARD}]",
               flush=True)
+        print(f"AB {root}: spec pool 8 x {cs.POOL_SPEC_K} aggregate RTF "
+              f"{spec_pool_rtf(cs, params, tok, eng)} [{cs.CARD}]", flush=True)
     if batched:
         print(f"AB {root}: batched {batched_ms(cs, eng)} [{cs.CARD}]", flush=True)
     if frame:
@@ -245,7 +351,7 @@ def run_one(root: str, spec: bool, batched: bool, frame: bool = False,
 
 def main() -> int:
     args = sys.argv[1:]
-    names = ("--spec", "--batched", "--frame", "--voice", "--chains")
+    names = ("--spec", "--batched", "--frame", "--voice", "--chains", "--kernels")
     flags = [a for a in args if a in names]
     args = [a for a in args if a not in flags]
     if args[:1] == ["--one"]:

@@ -1,4 +1,4 @@
-"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7 and persistent K1 / K2 / K4 / K5 checks on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7, P1 and persistent K1 / K2 / K4 / K5 checks on one NVIDIA GPU.
 
     python3 chip_mutants.py [WORD ...]
 
@@ -7,7 +7,12 @@ With words, only the mutants whose name contains one of them run.
 Builds faulty copies of the kernel sources in a temporary directory (the
 checkout is never touched), each with one fault, and runs the checks of the
 kernel it breaks against it: ``chip_smoke.check_k6_shallow`` on one talker
-layer with float32 and bf16 caches (K6), ``chip_smoke.check_k3_equals_k2`` on
+layer with float32 and bf16 caches and ``chip_smoke.check_k6_equal`` (the
+persistent K6 against its launch-per-op pass and the K1 / K4 steps, bit for
+bit) on one layer, at full depth (also with every slot write stalled) and
+with a one-slot weight ring (K6),
+``chip_smoke.check_p1_ring`` (P1's ring kernel against the group kernel,
+every arm; P1), ``chip_smoke.check_k3_equals_k2`` on
 the 1.7B MTP trunk (K3, also with a one-slot weight ring),
 ``chip_smoke.check_k8`` at the 1.7B prefill shape and on the random GQA
 shapes (K8), ``chip_smoke.check_k7_composition`` (against the launch-per-op
@@ -45,10 +50,58 @@ from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
 MUTANTS = {
     # the verify rows leave their own new slot out of the attention
     "own slot dropped": (
-        "qtts_kernels.cuh",
+        "qtts_stream.cuh",
         "const int end = min(start + QTTS_ATTN_CHUNK, pos + 1);",
-        "const int end = min(start + QTTS_ATTN_CHUNK, pos + (TAIL_IN_CACHE ? 0 : 1));",
+        "const int end = min(start + QTTS_ATTN_CHUNK, pos + (OWN ? 1 : 0));",
         "K6",
+    ),
+    # candidate s also attends slot start + s + 1: the next candidate's new
+    # slot (or, for the last, a slot past the pass)
+    "K6 candidate s attends slot start+s+1": (
+        "qtts_stream.cuh",
+        "const int end = min(start + QTTS_ATTN_CHUNK, pos + 1);",
+        "const int end = min(start + QTTS_ATTN_CHUNK, pos + (OWN ? 1 : 2));",
+        "K6",
+    ),
+    # the grid barrier between the slot write and the attention dropped: a
+    # candidate may read a slot before the item that writes it has
+    "K6 write-phase barrier dropped": (
+        "qtts_stream.cuh",
+        "      qtts_phase_barrier(p);  // the new slots, before any candidate attends them\n",
+        "",
+        "K6",
+    ),
+    # the batched consumer reads a launch's second ring stage (the first
+    # layer's second qkv stage on the one-slot ring) before it waits on the
+    # stage's mbarrier (it waits after its dot products): caught only with a
+    # one-slot ring, where that copy is issued just before it is read
+    "K6 ring stage read before its copy lands": (
+        "qtts_stream.cuh",
+        ("    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const int8_t* ws",
+         "    qtts_bstage<ACCUM>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);\n"
+         "    __syncthreads();  // every warp is done with the slot\n"),
+        ("    const bool late = stage == 1;\n"
+         "    if (!late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const int8_t* ws",
+         "    qtts_bstage<ACCUM>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);\n"
+         "    if (late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    __syncthreads();  // every warp is done with the slot\n"),
+        "K6",
+    ),
+    # P1's ring runs one unit behind the walk: every stage after the first
+    # n_slots carries the previous unit's weights (each refill is the copy
+    # that was due one unit earlier)
+    "P1 stage issued one unit late": (
+        "unit_probe.cu",
+        "  if (i >= a.steps * a.n_u) return;\n  const int u = i % a.n_u;\n",
+        "  if (i >= a.steps * a.n_u) return;\n"
+        "  const int u = (i - (i >= ring.n_slots ? 1 : 0)) % a.n_u;\n",
+        "P1",
     ),
     # the write kernel rotates every candidate's k at its stream's start
     "k written at the start's angle": (
@@ -182,6 +235,11 @@ def checks(gen):
     k6 = [lambda B=B, S=S, starts=starts, dt=dt: cs.check_k6_shallow(t1, fw, B, S, 512, starts,
                                                                     dt, gen)
           for dt in (torch.float32, torch.bfloat16) for B, S, starts in K6_CASES]
+    shallow = [(B, S, 512, starts) for B, S, starts in cs.K6_SHALLOW_CASES]
+    k6 += [lambda: cs.check_k6_equal("talker-1-layer", t1, fw, shallow, gen),
+           lambda: cs.one_slot_ring(lambda: cs.check_k6_equal("talker-1-layer, one ring slot",
+                                                              t1, fw, shallow, gen))]
+    p1 = [lambda: cs.check_p1_ring(gen, calls=1)]
     cp = QWEN3_TTS_17B.code_predictor
     H, V, n = cp.transformer.hidden_size, cp.subcode_vocab_size, cp.num_steps
     chain = (cp, cs.packed_trunk(cp.transformer, gen), pack_heads(quantize_weight(
@@ -224,7 +282,10 @@ def checks(gen):
             for dt in (torch.bfloat16, torch.float32)]
     k4k5 += [lambda: cs.check_k5_equal("0.6B MTP trunk", *chain6, gen, batches=(8,),
                                        cache_dtypes=(torch.bfloat16,))]
-    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5}
+    k6 += [lambda: cs.check_k6_equal("0.6B talker", tt, tfw, cs.K6_STALL_CASES, gen),
+           lambda: cs.check_k6_equal("0.6B talker", tt, tfw, cs.K6_STALL_CASES, gen,
+                                     stall_ns=cs.K6_STALL_NS)]
+    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1}
 
 
 def main() -> int:

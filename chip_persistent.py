@@ -1,9 +1,18 @@
-"""Quick chip check of the persistent kernels K1-K5 and K7 on one NVIDIA GPU.
+"""Quick chip check of the persistent kernels K1-K7 and of P1's ring on one NVIDIA GPU.
 
     python3 chip_persistent.py
 
 Builds the kernels and prints ptxas's report of the persistent kernels
-(registers, stack, spills).  First the batched kernels: K4 and K5 against K1
+(registers, stack, spills).  First K6: the persistent verify pass against
+the launch-per-op pass it replaced and the K1 / K4 steps, bit for bit
+(``chip_smoke.check_k6_equal`` on one talker layer at every
+K6_SHALLOW_CASES input and at the 0.6B talker at every K6_DEEP_CASES input,
+both caches, again with every slot write stalled, and on one layer with
+one ring slot), then timed
+against it in turns and traced once at B=1 x S=4 (T=256) and 8 x 3 and
+4 x 8 (T=512).  Then P1's ring kernel against the group kernel it replaced,
+every arm, bit for bit and in turns (``chip_smoke.check_p1_ring``).  Then
+the batched kernels: K4 and K5 against K1
 and K2 row by row and against the launch-per-op sequences they replaced, bit
 for bit (``chip_smoke.check_k4_equal`` at the 0.6B talker, B = 2, 5, 8 and 32,
 T = 256 and 2560, ``chip_smoke.check_k5_equal`` at the 0.6B chain, B = 2, 8
@@ -31,6 +40,7 @@ raises, and the exit code is then not 0; so it is without CUDA.  It is the short
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 
@@ -42,6 +52,7 @@ from leaxer_qwen3_tts_torch.ops import _build
 from leaxer_qwen3_tts_torch.ops import fused_frame as K7
 from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
 from leaxer_qwen3_tts_torch.ops import fused_step as K1
+from leaxer_qwen3_tts_torch.ops import fused_verify as K6
 from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
 from leaxer_qwen3_tts_torch.runtime.sampling import gumbel_noise
 
@@ -53,8 +64,8 @@ def ptxas_report(path):
     with open(path + ".log") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and any(k in line for k in ("step_kernel", "chain_kernel",
-                                                                 "frame_kernel")):
+        if "Compiling entry" in line and any(k in line for k in (
+                "step_kernel", "chain_kernel", "frame_kernel", "ring_kernel")):
             cs.log(line.strip()[:160])
             for nxt in lines[i + 1:]:
                 if "Compiling entry" in nxt:
@@ -83,6 +94,27 @@ def main() -> int:
         (torch.randn((n, H, V), generator=gen, device=cs.DEV) * H ** -0.5).to(torch.bfloat16)))
     tables = (torch.randn((n, V, H), generator=gen, device=cs.DEV) * 0.02).to(torch.bfloat16)
     fnorm = torch.ones((H,), dtype=torch.bfloat16, device=cs.DEV)
+
+    t1 = dataclasses.replace(tt, num_layers=1)
+    f1 = cs.packed_trunk(t1, gen)
+    shallow = [(B, S, 512, starts) for B, S, starts in cs.K6_SHALLOW_CASES]
+    cs.check_k6_equal("talker-1-layer", t1, f1, shallow, gen)
+    cs.check_k6_equal("0.6B talker", tt, tfw, [c[:4] for c in cs.K6_DEEP_CASES], gen)
+    cs.check_k6_equal("0.6B talker", tt, tfw, cs.K6_STALL_CASES, gen, stall_ns=cs.K6_STALL_NS)
+    cs.one_slot_ring(lambda: cs.check_k6_equal("talker-1-layer, one ring slot", t1, f1, shallow,
+                                               gen))
+    for B, S, T, starts, _ in cs.K6_DEEP_CASES:
+        if (B, S, T) == (1, 4, 512):
+            continue
+        x, kc, vc, pos = cs.k6_inputs(tt, B, S, T, starts, torch.bfloat16, gen)
+        label = f"K6 0.6B talker {B} x {S} T={T} starts {starts}"
+        cs.in_turns(label, lambda: cs.k6_multi(tt, tfw, x, pos, kc, vc),
+                    lambda: K6.fused_verify_step(tt, tfw, x, pos, kc, vc), 10)
+        cs.trace_phases(label, K6._verify_entry(tt, tfw, B, S, T, torch.bfloat16, x.device).plan,
+                        cs.verify_phase_names(tt.num_layers),
+                        lambda: K6.fused_verify_step(tt, tfw, x, pos, kc, vc))
+        del x, kc, vc
+    cs.check_p1_ring(gen)
 
     cs.check_k4_equal("0.6B talker", tt, tfw, cs.K4_EQUAL_CASES, gen)
     cs.check_k5_equal("0.6B MTP trunk", cp, mfw, heads, tables, fnorm, gen)

@@ -23,7 +23,13 @@ prints the final line:
    rows at full depth, and S in {2, 4, 8} at B in {1, 4} on one layer with
    both caches, starts at 0, across a split edge, at T - S and past it; the
    K1 limits and tight share, and every row equal bit for bit to the S
-   successive K1 (B=1) or K4 steps it stands for.  K1 is one persistent
+   successive K1 (B=1) or K4 steps it stands for.  K6 is one persistent
+   cooperative launch per pass (K4's transport and a slot-write phase): on
+   every one of those inputs, and on one more per deep case with each cache
+   dtype and per shallow case with a one-slot ring, x and both caches equal
+   the launch-per-op pass it replaced (``qtts_verify_step_multi``) bit for
+   bit, also with every slot write stalled 20 us (the slot-write barrier
+   must hold the readers); it is timed against it in turns and traced once.  K1 is one persistent
    cooperative launch per step: it is held bit for bit (x and both caches)
    to the launch-per-op sequence it replaced (``qtts_decode_step_multi``) at
    the 0.6B talker (T=256 and 2560, the first slot, split edges, the last
@@ -53,10 +59,13 @@ prints the final line:
    input -> K1 -> K1's GEMV body on the final norm (``qtts_norm_head``);
    timed in turns with the launch-per-op frame and traced once; against its
    plain version, K1's deep limits and K5's flip rule; timed beside the
-   composition.  Then the
+   composition.  Then P1's ring kernel against the group kernel it replaced
+   (``qtts_unit_probe``, P2's kernel), every arm, bit for bit on the short
+   and the whole chain, and in turns with it; then the
    probes P1 and P2 (``tools/a8_probe.py``, ``tools/w8a8_probe.py``) through
    their ``run`` entries: every arm against its plain version and timed
-   beside one PyTorch call of the unit product.
+   beside one PyTorch call of the unit product (P1 on the ring kernel alone,
+   P2 on the group kernel alone).
 6. Slice: ``TTSEngine.synthesize`` (0.6B preset, random weights from a seed,
    int8) on three requests, then a fixed 300-frame run through the generate
    callables and the engine's cache growth (256 -> 512 slots), with any host
@@ -90,13 +99,17 @@ prints the final line:
    serves 12 requests, its greedy output equals B=1 ``synthesize``, a seeded
    request is the same alone and among co-tenants, and a second spec pool
    runs every chunk with host syncs raising while its fallback fires.  One
-   K6 and one K5 per verify iteration; K2 for each frame 0 at B=1.
+   K6 and one K5 per verify iteration; K2 for each frame 0 at B=1.  On
+   every main path no launch-per-op entry (``qtts_*_multi``) runs: the
+   library's entries are counted where the wrappers call them.
 10. The 1.7B voice slice (``QWEN3_TTS_17B`` with the talker's
    ``attn_impl="pallas"``, random weights made on the card from a seed, int8,
    bf16 KV cache, a random [9, 2048] speaker table): K1 at the 1.7B widths
    (28 layers, and one layer with 24 seeded inputs per float32 / bf16 case
    under the tight-input count), the persistent K1 against its launch
-   sequence at T=256 and the persistent K2 against its launch-per-op chain
+   sequence at T=256, K4 and K6 (B=1 x S=4 at T=256, 4 x 8 at T=512, both
+   caches) against their launch sequences and the K1 / K4 steps bit for
+   bit, and the persistent K2 against its launch-per-op chain
    on the 1.7B trunk (bf16 cache) bit for bit; K3 (``fused_mtp_chain_streamed``,
    K2's persistent chain on a float32 cache) against its plain version,
    greedy and two sampled knob sets, and against its launch-per-op chain
@@ -169,6 +182,7 @@ from leaxer_qwen3_tts_torch.runtime.speculative import (
 from leaxer_qwen3_tts_torch.runtime.weights import init_params
 from leaxer_qwen3_tts_torch.serve import ContinuousBatcher, make_http_server
 from leaxer_qwen3_tts_torch.tools import a8_probe as P1
+from leaxer_qwen3_tts_torch.tools import unit_probe
 from leaxer_qwen3_tts_torch.tools import w8a8_probe as P2
 
 DEV = torch.device("cuda")
@@ -231,6 +245,11 @@ K6_DEEP_CASES = ((1, 4, 256, [200], 20), (1, 4, 512, [300], 20),
 # and one start past it (clamped to T - S)
 K6_SHALLOW_CASES = ((1, 2, [0]), (1, 4, [62]), (1, 8, [504]), (4, 4, [0, 61, 200, 600]),
                     (4, 8, [62, 5, 504, 130]))
+# K6 with every slot write stalled K6_STALL_NS first (check_k6_equal), at
+# full depth, starts at a split edge so that readers of the new slots open
+# their split with them: the slot-write phase's grid barrier must hold them
+K6_STALL_CASES = ((1, 4, 256, [192]), (4, 8, 512, [64, 5, 504, 128]))
+K6_STALL_NS = 20_000
 # The 1.7B phase: a VoiceDesign request (the instruction makes the longest
 # prefill the system builds) and a CustomVoice preset speaker
 VOICE_TEXT = "hello world, this voice was designed by an instruction"
@@ -606,6 +625,47 @@ def k5_multi(t, fw, fnorm, heads, tables, lh, c0, noise, temperature, top_k, top
 k5_multi.launches = 0  # not a kernel of the path: compare-only launches
 
 
+def k6_multi(t, fw, x, pos, kc, vc):
+    """K6's launch-per-op pass (``qtts_verify_step_multi``, ten launches per
+    layer) on the same inputs: the reference the persistent K6 is held to bit
+    for bit.  Returns x_out [B, S, H]; the caches are updated in place."""
+    return K6.launch_verify(k6_multi, "qtts_verify_step_multi", t, fw, x, pos, kc, vc)[0]
+
+
+k6_multi.launches = 0  # not a kernel of the path: compare-only launches
+
+
+def p1_multi(arm, w, s, x0, steps=P1.S):
+    """P1's chain on the group kernel it ran before the weight ring
+    (``qtts_unit_probe``, probe 1; P2's kernel): the reference the ring
+    kernel is held to bit for bit."""
+    return unit_probe.launch(p1_multi, arm, 1, w, s, x0, steps)
+
+
+p1_multi.launches = 0  # not a kernel of the path: compare-only launches
+
+# The launch-per-op entries of the kernel library: count_entries routes each
+# through a counter, and check_launches fails if a main path reached one.
+MULTI_ENTRIES = ("qtts_decode_step_multi", "qtts_mtp_chain_multi",
+                 "qtts_decode_step_batched_multi", "qtts_mtp_chain_batched_multi",
+                 "qtts_verify_step_multi", "qtts_mtp_chain_streamed_multi",
+                 "qtts_frame_step_multi")
+ENTRY_CALLS = {}
+
+
+def count_entries(lib, names=MULTI_ENTRIES + ("qtts_unit_probe", "qtts_unit_probe_ring")):
+    """Route the library's entries ``names`` through a counter of calls
+    (ENTRY_CALLS): every wrapper looks its entry up on this one library."""
+    for name in names:
+        fn = getattr(lib, name)
+
+        def counted(*a, _fn=fn, _name=name):
+            ENTRY_CALLS[_name] = ENTRY_CALLS.get(_name, 0) + 1
+            return _fn(*a)
+
+        setattr(lib, name, counted)
+
+
 def check_k4_equal(name, t, fw, cases, gen, inputs=1, cache_dtypes=(torch.bfloat16, torch.float32)):
     """The persistent K4 on ``inputs`` seeded batches per (B, T) of ``cases``
     and cache dtype (per-row device positions of k4_equal_positions, and one
@@ -701,15 +761,15 @@ def check_k5_equal(label, cp, fw, heads, tables, fnorm, gen, batches=K5_EQUAL_BA
     return total
 
 
-def in_turns(label, old, new, iters):
+def in_turns(label, old, new, iters, names=("launch sequence", "persistent")):
     """ms per call of ``old`` and ``new`` timed in turns (old, new, new,
     old); returns (new mean, old mean)."""
     o1 = time_ms(old, iters)
     n1 = time_ms(new, iters)
     n2 = time_ms(new, iters)
     o2 = time_ms(old, iters)
-    log(f"{label} in turns (launch sequence, persistent, persistent, launch sequence): "
-        f"{o1:.4f} {n1:.4f} {n2:.4f} {o2:.4f} ms; persistent {(n1 + n2) / 2:.4f} vs "
+    log(f"{label} in turns ({names[0]}, {names[1]}, {names[1]}, {names[0]}): "
+        f"{o1:.4f} {n1:.4f} {n2:.4f} {o2:.4f} ms; {names[1]} {(n1 + n2) / 2:.4f} vs "
         f"{(o1 + o2) / 2:.4f} ms [{CARD}]")
     return (n1 + n2) / 2, (o1 + o2) / 2
 
@@ -737,6 +797,7 @@ def one_slot_ring(run):
         K1._STEP_ENTRIES.clear()
         K1._BATCH_ENTRIES.clear()
         K2._CHAIN_ENTRIES.clear()
+        K6._ENTRIES.clear()
         K7._ENTRIES.clear()
 
     clear()
@@ -808,6 +869,13 @@ def step_phase_names(layers, last_barrier=False, batched=False):
     names = ["qkv", "attn", "o", "gu"] + (["silu"] if batched else []) + ["down"]
     names = names * layers
     return names if last_barrier else names[:-1]
+
+
+def verify_phase_names(layers):
+    """The phase ending at each grid barrier of one persistent verify pass
+    (K6): K4's phases with the slot write after the qkv product."""
+    names = ["qkv", "write", "attn", "o", "gu", "silu", "down"] * layers
+    return names[:-1]
 
 
 def chain_phase_names(layers, n, batched=False):
@@ -1019,14 +1087,27 @@ class K6Run:
     slot_rel: torch.Tensor  # [B * S]
     untouched: bool  # the kernel left every other slot as it was
     rows_equal_steps: bool  # equal to S successive K1 (B=1) / K4 steps, bit for bit
+    equal_multi: bool  # x and both caches equal the launch-per-op pass's, bit for bit
 
 
-def k6_run(t, fw, B, S, T, starts, cache_dtype, gen, against_steps=False) -> K6Run:
+def k6_run(t, fw, B, S, T, starts, cache_dtype, gen, against_steps=False, plain=True) -> K6Run:
+    """K6 on one seeded batch against the launch-per-op pass (bit for bit),
+    its plain version (unless ``plain`` is False: the errors are then NaN)
+    and, with ``against_steps``, the S successive K1 / K4 steps."""
     x, kc, vc, pos_dev = k6_inputs(t, B, S, T, starts, cache_dtype, gen)
-    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    kk, vk = kc.clone(), vc.clone()
     xk, _, _ = K6.fused_verify_step(t, fw, x, pos_dev, kk, vk)
-    xp, _, _ = K6.fused_verify_step_reference(t, fw, x, pos_dev, kp, vp)
+    if plain:
+        kp, vp = kc.clone(), vc.clone()
+        xp, _, _ = K6.fused_verify_step_reference(t, fw, x, pos_dev, kp, vp)
+    else:  # the errors below are then NaN
+        xp, kp, vp = xk, kk, vk
+    km, vm = kc.clone(), vc.clone()
+    xm = k6_multi(t, fw, x, pos_dev, km, vm)
     torch.cuda.synchronize()
+    equal_multi = bool(torch.equal(xk, xm)) and bool(torch.equal(kk, km)) and bool(
+        torch.equal(vk, vm))
+    del km, vm
     first = torch.clamp(pos_dev, 0, T - S)
     slots = first[:, None] + torch.arange(S, device=DEV)  # [B, S]
     rows = torch.arange(B, device=DEV)[:, None].expand(B, S)
@@ -1050,8 +1131,10 @@ def k6_run(t, fw, B, S, T, starts, cache_dtype, gen, against_steps=False) -> K6R
                 x1, _, _ = K1.fused_decode_step_batched(t, fw, x[:, s], first + s, k1, v1)
             equal &= bool(torch.equal(x1, xk[:, s]))
         equal &= bool(torch.equal(k1, kk)) and bool(torch.equal(v1, vk))
-    return K6Run(float(dx.max()), (dx / xp.abs().amax(dim=2)).flatten().cpu(),
-                 float(slot_abs.max()), (slot_abs / slot_ref).flatten().cpu(), untouched, equal)
+    nan = 1.0 if plain else float("nan")
+    return K6Run(nan * float(dx.max()), nan * (dx / xp.abs().amax(dim=2)).flatten().cpu(),
+                 nan * float(slot_abs.max()), nan * (slot_abs / slot_ref).flatten().cpu(),
+                 untouched, equal, equal_multi)
 
 
 def time_k6(t, fw, B, S, T, starts, gen, iters):
@@ -1070,13 +1153,14 @@ def check_k6_deep(name, t, fw, B, S, T, starts, gen, iters):
     r = k6_run(t, fw, B, S, T, starts, torch.bfloat16, gen, against_steps=True)
     rel = float(r.rel.max())
     ms, plain_ms, bound = time_k6(t, fw, B, S, T, starts, gen, iters)
-    ok = rel < K1_DEEP_X_REL and r.slot_err < K1_DEEP_SLOT_ABS and r.untouched and r.rows_equal_steps
+    ok = (rel < K1_DEEP_X_REL and r.slot_err < K1_DEEP_SLOT_ABS and r.untouched
+          and r.rows_equal_steps and r.equal_multi)
     log(f"K6 {name}: L={t.num_layers} B={B} S={S} T={T} starts={starts} cache=bfloat16 x "
         f"max_abs_err={r.err:.3e} max row rel={rel:.3e} (tol {K1_DEEP_X_REL}) slot "
         f"max_abs_err={r.slot_err:.3e} (tol {K1_DEEP_SLOT_ABS}) untouched_slots_equal="
-        f"{r.untouched} rows_equal_{'K1' if B == 1 else 'K4'}_steps={r.rows_equal_steps} kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}) -> "
-        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+        f"{r.untouched} rows_equal_{'K1' if B == 1 else 'K4'}_steps={r.rows_equal_steps} "
+        f"equal_to_launch_sequence={r.equal_multi} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"bound {bound[0]:.4f} ms ({bound[1]}) -> {'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
         raise RuntimeError(f"K6 {name} B={B} S={S} disagrees with its plain version or the steps")
     return r.err, ms, plain_ms, bound
@@ -1091,17 +1175,58 @@ def check_k6_shallow(t, fw, B, S, T, starts, cache_dtype, gen):
     slot_err = max(r.slot_err for r in runs)
     tight = sum(int(((r.rel <= K1_TIGHT_REL) & (r.slot_rel <= K1_TIGHT_REL)).sum()) for r in runs)
     need = K1_TIGHT_MIN * B * S
+    multi = sum(r.equal_multi for r in runs)
     ok = (rel < K1_SHALLOW_X_REL and slot_err < K1_SHALLOW_SLOT_ABS and tight >= need
-          and all(r.untouched for r in runs) and runs[0].rows_equal_steps)
+          and all(r.untouched for r in runs) and runs[0].rows_equal_steps and multi == len(runs))
     log(f"K6 talker-1-layer: B={B} S={S} T={T} starts={starts} cache={str(cache_dtype)[6:]} "
         f"{len(runs)} batches: x max row rel {rel:.3e} (tol {K1_SHALLOW_X_REL}) slot "
         f"max_abs_err={slot_err:.3e} (tol {K1_SHALLOW_SLOT_ABS}) tight rows {tight}/"
         f"{len(runs) * B * S} (need {need}) untouched_slots_equal="
-        f"{all(r.untouched for r in runs)} rows_equal_steps={runs[0].rows_equal_steps} -> "
-        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+        f"{all(r.untouched for r in runs)} rows_equal_steps={runs[0].rows_equal_steps} "
+        f"equal_to_launch_sequence {multi}/{len(runs)} -> {'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
         raise RuntimeError(f"K6 1-layer B={B} S={S} disagrees with its plain version or the steps")
     return max(r.err for r in runs)
+
+
+def check_k6_equal(name, t, fw, cases, gen, cache_dtypes=(torch.bfloat16, torch.float32),
+                   stall_ns=0):
+    """The persistent K6 on one seeded batch per (B, S, T, starts) of
+    ``cases`` and cache dtype: x and both caches equal the launch-per-op
+    pass's (``k6_multi``) bit for bit, and every row equals the S successive
+    K1 (B=1) or K4 steps it stands for.  With ``stall_ns`` each slot write
+    first waits that long (the plan's ``write_stall_ns``): the write phase's
+    grid barrier must then hold every reader back, where a missing barrier
+    would let the attention read a slot before its write (with no stall the
+    writes land within a microsecond, before any reader gets there).
+    Returns the passes compared."""
+    equal = total = 0
+    for B, S, T, starts in cases:
+        for cache_dtype in cache_dtypes:
+            plan = K6._verify_entry(t, fw, B, S, T, cache_dtype,
+                                    torch.device("cuda", torch.cuda.current_device())).plan
+            plan.struct.write_stall_ns = stall_ns
+            try:
+                r = k6_run(t, fw, B, S, T, starts, cache_dtype, gen, against_steps=True,
+                           plain=False)
+            finally:
+                plan.struct.write_stall_ns = 0
+            if not (r.equal_multi and r.rows_equal_steps):
+                log(f"K6 {name} B={B} S={S} T={T} starts={starts} cache={str(cache_dtype)[6:]}: "
+                    f"equal to the launch sequence {r.equal_multi}, rows equal to the steps "
+                    f"{r.rows_equal_steps}")
+            equal += r.equal_multi and r.rows_equal_steps
+            total += 1
+    ok = equal == total
+    log(f"K6 persistent vs the launch sequence and the K1 / K4 steps, {name}: L={t.num_layers} "
+        f"(B, S, T, starts) {[c[:4] for c in cases]} x caches "
+        f"{[str(d)[6:] for d in cache_dtypes]}{f', writes stalled {stall_ns} ns' if stall_ns else ''}"
+        f": {equal}/{total} passes equal bit for bit (x, k and v caches) -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"the persistent K6 differs from the launch sequence or the steps "
+                           f"({name})")
+    return total
 
 
 def flip_eps(logits, g, knobs, token, gen):
@@ -1291,6 +1416,7 @@ KERNEL_IDS = ("K1", "K2", "K4", "K5", "K6", "K3", "K8", "K7", "P1", "P2")
 def reset_launches():
     for fn in KERNELS:
         fn.launches = 0
+    ENTRY_CALLS.clear()
 
 
 def launches():
@@ -1306,6 +1432,9 @@ def check_launches(phase, want):
     if got != want:
         raise RuntimeError(f"{phase}: launches {dict(zip(KERNEL_IDS, got))}, expected "
                            f"{dict(zip(KERNEL_IDS, want))}")
+    multi = {k: n for k, n in ENTRY_CALLS.items() if k in MULTI_ENTRIES}
+    if multi:
+        raise RuntimeError(f"{phase}: the path ran launch-per-op entries {multi}")
     log(f"launches on the main path, {phase}: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, got)))
     return got
@@ -1876,6 +2005,8 @@ def voice_phase(tok, gen, card_line):
     gen45 = torch.Generator(device=DEV)  # as in main: the other checks keep their inputs
     gen45.manual_seed(SEED + 17)
     check_k4_equal("1.7B talker", talker_t, fw_t, ((4, 256),), gen45)
+    check_k6_equal("1.7B talker", talker_t, fw_t,
+                   ((1, 4, 256, [200]), (4, 8, 512, [60, 5, 504, 200])), gen45)
     k1_ms, k1_by = step_bound(talker_t, fw_t, 1, [60], 1, torch.bfloat16)
     log(f"K1 talker-1.7B bound {k1_ms:.4f} ms ({k1_by}): {nbytes(fw_t) / 1e9:.3f} GB of packed "
         f"weights per step [{CARD}]")
@@ -2245,12 +2376,44 @@ def frame_checks(cfg, gen):
     return checks, (b_ms, b_by), frames
 
 
+def check_p1_ring(gen, calls=10):
+    """P1's ring kernel against the group kernel it replaced (``p1_multi``),
+    every arm, bit for bit: the 2-unit chain and the whole chain (U units x
+    S steps) from the probe's input and from a seeded one; then each arm
+    timed in turns with it (group, ring, ring, group).  Returns {arm: (ring
+    ms, group ms)} per call of the whole chain."""
+    times = {}
+    for arm in P1.ARMS:
+        w, s = P1.make_weights(arm, device=DEV)
+        x0 = torch.full((P1.rows(arm), P1.H), 0.1, device=DEV)
+        xr = torch.randn((P1.rows(arm), P1.H), generator=gen, device=DEV)
+        runs = [(w[:P1.SHORT_UNITS], s[:P1.SHORT_UNITS], x, 1) for x in (x0, xr)]
+        runs += [(w, s, x, P1.S) for x in (x0, xr)]
+        equal = sum(bool(torch.equal(P1.chain(arm, *r), p1_multi(arm, *r))) for r in runs)
+        log(f"P1 {arm} ring kernel vs the group kernel: {equal}/{len(runs)} chains equal bit for "
+            f"bit ({P1.SHORT_UNITS}-unit and {P1.S} x {w.shape[0]}-unit chains, the probe's and "
+            f"a seeded input) -> {'ok' if equal == len(runs) else 'FAIL'} [{CARD}]")
+        if equal != len(runs):
+            raise RuntimeError(f"P1 {arm}: the ring kernel differs from the group kernel")
+        times[arm] = in_turns(f"P1 {arm} chain of {P1.S * w.shape[0]} units",
+                              lambda: p1_multi(arm, w, s, x0), lambda: P1.chain(arm, w, s, x0),
+                              calls, names=("group kernel", "ring"))
+        del w, s
+    return times
+
+
 def probe_phase():
     """Probes P1 and P2 through their entry points: every arm against its
-    plain version and timed beside one PyTorch call of the unit product.
-    Returns (launch counts, P1 results, P2 results)."""
+    plain version and timed beside one PyTorch call of the unit product; P1
+    only on the ring kernel, P2 only on the group kernel.  Returns (launch
+    counts, P1 results, P2 results)."""
     reset_launches()
-    p1, p2 = P1.run(), P2.run()
+    p1 = P1.run()
+    if ENTRY_CALLS != {"qtts_unit_probe_ring": P1.chain.launches}:
+        raise RuntimeError(f"P1's entry point ran {ENTRY_CALLS}, not only the ring kernel")
+    p2 = P2.run()
+    if ENTRY_CALLS.get("qtts_unit_probe") != P2.chain.launches:
+        raise RuntimeError(f"P2's entry point ran {ENTRY_CALLS}, not only the group kernel")
     counts = launches()
     for r in p1 + p2:
         if not (r["ok"] and r["finite"]):
@@ -2374,7 +2537,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     path = _build.build()
-    _build.load_kernels()
+    count_entries(_build.load_kernels())
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(path)} [{CARD}]")
     with open(path + ".log") as f:
         for line in f:
@@ -2433,7 +2596,21 @@ def main() -> int:
     }
     k6 = [check_k6_deep("talker", talker_t, talker_fw, B, S, T, starts, gen, iters)
           for B, S, T, starts, iters in K6_DEEP_CASES]
-    del talker_fw
+    # the persistent K6 checks draw from a generator of their own, as K4's
+    gen6 = torch.Generator(device=DEV)
+    gen6.manual_seed(SEED + 6)
+    check_k6_equal("0.6B talker", talker_t, talker_fw, [c[:4] for c in K6_DEEP_CASES], gen6)
+    check_k6_equal("0.6B talker", talker_t, talker_fw, K6_STALL_CASES, gen6,
+                   stall_ns=K6_STALL_NS)
+    x, kc, vc, starts = k6_inputs(talker_t, 1, 4, 256, [200], torch.bfloat16, gen6)
+    in_turns("K6 0.6B talker B=1 S=4 T=256 start 200",
+             lambda: k6_multi(talker_t, talker_fw, x, starts, kc, vc),
+             lambda: K6.fused_verify_step(talker_t, talker_fw, x, starts, kc, vc), 20)
+    trace_phases("K6 0.6B talker B=1 S=4 T=256 start 200",
+                 K6._verify_entry(talker_t, talker_fw, 1, 4, 256, torch.bfloat16, x.device).plan,
+                 verify_phase_names(talker_t.num_layers),
+                 lambda: K6.fused_verify_step(talker_t, talker_fw, x, starts, kc, vc))
+    del x, kc, vc, talker_fw
     ts = dataclasses.replace(talker_t, num_layers=K1_SHALLOW_LAYERS)
     fws = packed_trunk(ts, gen)
     for cache_dtype in (torch.float32, torch.bfloat16):
@@ -2447,6 +2624,10 @@ def main() -> int:
         for B, S, starts in K6_SHALLOW_CASES:
             k6_shallow = check_k6_shallow(ts, fws, B, S, 512, starts, cache_dtype, gen)
             k6[0] = (max(k6[0][0], k6_shallow),) + k6[0][1:]
+    # a ring-wait fault shows only with one ring slot (see below)
+    one_slot_ring(lambda: check_k6_equal(
+        "talker-1-layer, one ring slot", ts, fws,
+        [(B, S, 512, starts) for B, S, starts in K6_SHALLOW_CASES], gen6))
     del fws
 
     cp = cfg.code_predictor
@@ -2513,6 +2694,7 @@ def main() -> int:
     del mtp_fw, heads, tables
     torch.cuda.empty_cache()
     k7, bounds["K7"], _ = frame_checks(cfg, gen)
+    check_p1_ring(gen6)
     probed, p1, p2 = probe_phase()
 
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 // Kernel K6: the speculative verify step.  S = 2..8 candidate inputs of each
 // of B streams (R = B * S <= 32 rows) run through every layer of a GQA
 // transformer in one pass, candidate s of stream b at position pos[b] + s,
-// with each weight row read once for all R rows.
+// with each weight row read once for all R rows, as ONE persistent
+// cooperative launch (vstep_kernel).
 //
 // Replaces leaxer_qwen3_tts_tpu/ops/fused_verify.py::fused_verify_step
 // (_make_verify_kernel, modes "vmem" and "win"; B = 1 there, and the JAX
@@ -21,21 +22,30 @@
 // The race the Pallas kernel does not have: its S new slots sat in VMEM
 // registers for the whole block.  Here candidate s reads slots pos..pos+s-1,
 // which blocks of other rows write, in any order.  So every new slot is
-// written to the cache by qtts_kv_write_kernel in its own launch first, and
-// the split attention then reads every slot, the new ones included, from
-// memory, rounded to the cache dtype (the JAX "win" mode's tail used the
-// unrounded register values; one rounding rule for every bucket here).  The
-// starts come from a device array (the pool) or a host int (the engine) and
-// are clamped into [0, T - S] in the kernel, as the JAX wrapper clamps them.
+// written to the cache first (qtts_kv_write_body) and the split attention
+// then reads every slot, the new ones included, from memory, rounded to the
+// cache dtype (the JAX "win" mode's tail used the unrounded register values;
+// one rounding rule for every bucket here).  The starts come from a device
+// array (the pool) or a host int (the engine) and are clamped into [0, T - S]
+// in the kernel, as the JAX wrapper clamps them.
+//
+// The persistent pass is K4's (csrc/qtts_stream.cuh, qtts_bstep_phases in
+// its VERIFY mode) on a plan of R rows: the TMA weight ring, the batch rows'
+// bf16 GEMV inputs in shared memory (batch groups where R rows' inputs leave
+// fewer than 3 ring slots: the 0.6B plan at R = 24 and 32), attention items
+// per (row, kv head, split) up to each row's own position with a ticket per
+// (row, kv head).  It adds one phase per layer after the qkv product: the
+// slot write of every row's k and v, then a grid barrier, so seven grid
+// barriers per layer.  The launch-per-op pass it replaced
+// (qtts_verify_step_multi: ten launches per layer) stays for the checks.
 //
 // What bounds it on the H100: the int8 weight bytes, 440 MB per pass of the
 // 0.6B talker whatever R is (0.13 ms at the 3.35 TB/s of an H100 SXM, NVIDIA
-// data sheet), plus the cache each row reads.  The GEMVs are K4's row
-// kernels at R rows (qtts_launch_prep_rows / qtts_launch_gemv_rows), so they
-// share K4's limits: ten launches per layer, no cp.async / TMA weight
-// pipeline, and per-lane accumulators sized for the next power of two of R.
+// data sheet), plus the cache each row reads; at R = 32 the R x 440 M
+// multiply-adds on CUDA cores (~0.42 ms at 67 TFLOPS float32), since tensor
+// cores would sum in another order than K1.
 
-#include "qtts_kernels.cuh"
+#include "qtts_stream.cuh"
 
 namespace {
 
@@ -88,16 +98,67 @@ int launch_verify_step(const QttsStepWeights& w, const QttsBatchScratch& s, cons
   return (int)cudaSuccess;
 }
 
+// The persistent verify pass's one argument (travels by value).
+struct VStepLaunch {
+  QttsStepWeights w;
+  QttsBatchScratch s;
+  QttsPlan p;
+  const float* x_in;
+  float* x;
+  void* k_cache;
+  void* v_cache;
+  const int64_t* pos_dev;
+  int32_t B, S, T, pos_host;
+};
+
+template <typename CT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+vstep_kernel(const __grid_constant__ VStepLaunch a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
+  int stage = 0;
+  qtts_bstep_phases<CT, true>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
+                              static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache),
+                              a.B * a.S, a.T, a.pos_dev, a.pos_host, smem, false, a.S);
+  qtts_trace_end(a.p);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Kernel K6 entry: x_out [B * S, H] (row b * S + s) = the verify pass of
 // x_in with the caches [L, B, nk, T, D] updated in place; pos_dev [B] int64
-// starts on the device, or null for every stream at pos_host.
-int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const float* x_in,
-                     float* x_out, void* k_cache, void* v_cache, int cache_bf16, int B, int S,
-                     int T, const int64_t* pos_dev, int pos_host, void* stream) {
+// starts on the device, or null for every stream at pos_host.  One
+// cooperative launch on the plan's grid (a plan of B * S rows).
+int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const QttsPlan* p,
+                     const float* x_in, float* x_out, void* k_cache, void* v_cache, int cache_bf16,
+                     int B, int S, int T, const int64_t* pos_dev, int pos_host, void* stream) {
+  const int R = B * S, qd = w->nq * w->D;
+  const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
+                               : (pos_host + S - 1) / QTTS_ATTN_CHUNK + 1;
+  if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
+      w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || S < 2 || S > 8 || B < 1 ||
+      R > QTTS_MAX_BATCH || T < S || (pos_dev == nullptr && (pos_host < 0 || pos_host > T - S)) ||
+      n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, R)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const VStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, pos_dev, B, S, T, pos_host};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return cache_bf16 ? qtts_launch_persistent(vstep_kernel<__nv_bfloat16>, a, *p, st)
+                    : qtts_launch_persistent(vstep_kernel<float>, a, *p, st);
+}
+
+// The launch-per-op pass K6 ran before it was persistent (ten launches per
+// layer: the row prologues and GEMVs of K4's launch sequence, the slot
+// write, the split attention reading every slot from the cache, the
+// combine): the reference chip_smoke.py holds the persistent pass to, bit for
+// bit.  No wrapper calls it.
+int qtts_verify_step_multi(const QttsStepWeights* w, const QttsBatchScratch* s, const float* x_in,
+                           float* x_out, void* k_cache, void* v_cache, int cache_bf16, int B,
+                           int S, int T, const int64_t* pos_dev, int pos_host, void* stream) {
   return launch_verify_step(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, B, S, T, pos_dev,
                             pos_host, static_cast<cudaStream_t>(stream));
 }

@@ -4,10 +4,13 @@
 // and its lm_head), whose weights stream through a shared-memory ring ahead
 // of the data dependency.  Kernels K4 and K5 run the same transport for B
 // rows (the batched section below), each row K1's or K2's arithmetic in K1's
-// or K2's order.
+// or K2's order, and K6 runs K4's phases on S candidates per stream.  Probe
+// P1 (unit_probe.cu) streams its unit walk through a ring on the same
+// mbarrier and bulk-copy helpers.
 //
 // What it keeps from the launch-per-op sequences (qtts_decode_step_multi,
-// qtts_mtp_chain_multi, qtts_frame_step_multi): every value, bit for bit.
+// qtts_mtp_chain_multi, qtts_frame_step_multi, qtts_verify_step_multi):
+// every value, bit for bit.
 // Each output row is one
 // warp's dot product in K1's lane order (lane l takes the 16-byte chunks at
 // l*16 + i*512, fmaf in element order, then the xor butterfly, the separate
@@ -118,6 +121,10 @@ struct QttsPlan {
   int32_t groups;         // batch groups (1 unless batched)
   int32_t n_tickets;
   int32_t n_sets;         // weight sets (2: the frame)
+  // K6's checks only (0 on every path): each slot-write item first waits
+  // this many ns, so that a reader the phase's grid barrier does not hold
+  // back reads its slot before the write
+  int32_t write_stall_ns;
 };
 
 // The group of this block (groups of floor-divided block ranges).
@@ -695,8 +702,10 @@ static __device__ __forceinline__ void qtts_head_norms(float (&v)[N], const floa
 // the dot products of a block of four slots run before that block's
 // (serial) online-softmax updates.  With attn given (the position's only
 // split), the item also merges its heads into attn itself, as the combine
-// would.
-template <typename CT, int GG>
+// would.  OWN = false (K6): the slot-write phase has stored every row's new
+// slot, and the item reads every slot, its own included, from the cache (the
+// same values: the write rounds to the cache dtype as the item would).
+template <typename CT, int GG, bool OWN>
 static __device__ __forceinline__ void qtts_attn_item(
     QttsAttnSmem& sm, QttsNamedSync sync, int t, int h, int split, const float* qkv,
     const float* __restrict__ q_norm, const float* __restrict__ k_norm,
@@ -742,7 +751,7 @@ static __device__ __forceinline__ void qtts_attn_item(
     const CT vq = qtts_to_cache<CT>(v_s[t]);
     k_s[t] = qtts_from_cache(kq);
     v_s[t] = qtts_from_cache(vq);
-    if (split == 0) {
+    if (OWN && split == 0) {
       kc[((size_t)h * T + pos) * D + t] = kq;
       vc[((size_t)h * T + pos) * D + t] = vq;
     }
@@ -765,7 +774,7 @@ static __device__ __forceinline__ void qtts_attn_item(
   const int start = split * QTTS_ATTN_CHUNK;
   const int end = min(start + QTTS_ATTN_CHUNK, pos + 1);
   auto fetch = [&](int j, float (&kf)[4], float (&vf)[4]) {
-    if (j == pos) {
+    if (OWN && j == pos) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         kf[e] = k_s[lane * 4 + e];
@@ -859,7 +868,7 @@ static __device__ __forceinline__ void qtts_attn_item(
 }
 
 // The item dispatched on the group size nq / nk (1, 2, 4 or 8).
-template <typename CT>
+template <typename CT, bool OWN = true>
 static __device__ __forceinline__ void qtts_attn_item_any(
     QttsAttnSmem& sm, QttsNamedSync sync, int t, int h, int split, const float* qkv,
     const float* __restrict__ q_norm, const float* __restrict__ k_norm,
@@ -867,8 +876,8 @@ static __device__ __forceinline__ void qtts_attn_item_any(
     float* __restrict__ part, float* attn, int nq, int nk, int T, int pos, int max_splits,
     float eps, float scale) {
 #define QTTS_ITEM(GG)                                                                         \
-  qtts_attn_item<CT, GG>(sm, sync, t, h, split, qkv, q_norm, k_norm, inv_freq, kc, vc, part, \
-                         attn, nq, nk, T, pos, max_splits, eps, scale)
+  qtts_attn_item<CT, GG, OWN>(sm, sync, t, h, split, qkv, q_norm, k_norm, inv_freq, kc, vc,   \
+                              part, attn, nq, nk, T, pos, max_splits, eps, scale)
   switch (nq / nk) {
     case 1: QTTS_ITEM(1); break;
     case 2: QTTS_ITEM(2); break;
@@ -1766,16 +1775,27 @@ static __device__ __forceinline__ bool qtts_bitem(int it, int B, int nk, QttsBIt
 // over each row's (kv head, split) up to the row's position; the item that
 // takes the last ticket of a (row, kv head) merges that row's splits, as
 // many as its own position has.
-template <typename CT>
+//
+// VERIFY (K6): the B rows are S candidates of each of B / S streams, row r
+// on cache row r / S at position qtts_row_pos(pos_dev, pos_host, r, T, S)
+// (the stream's start clamped into [0, T - S], plus r % S); the cache is
+// [L, B / S, nk, T, D].  Candidate s attends slots start .. start + s, which
+// rows of other blocks write, so a slot-write phase after the qkv product
+// stores every row's new k and v (qtts_kv_write_body: the launch-per-op
+// pass's slot-write kernel, op for op) and a grid barrier orders it before
+// the attention, whose items then read every slot from the cache: seven
+// grid barriers per layer.  K4 is this map at S = 1.
+template <typename CT, bool VERIFY = false>
 static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBatchScratch& s,
                                          const QttsPlan& p, const QttsRing& ring, QttsSeq& q,
                                          int& stage, const float* x_in, float* x, CT* kc, CT* vc,
                                          int B, int T, const int64_t* pos_dev, int pos_host,
-                                         unsigned char* un, bool last_barrier) {
+                                         unsigned char* un, bool last_barrier, int S_arg = 1) {
+  const int S = VERIFY ? S_arg : 1;  // K4 and K5: the candidates' map folds away
   const int H = w.H, I = w.I, D = w.D, nq = w.nq, nk = w.nk;
   const int qd = nq * D, A = qd + 2 * nk * D;
   const int tid = threadIdx.x;
-  if (tid < B) qtts_brow_pos()[tid] = qtts_row_pos(pos_dev, pos_host, tid, T, 1);
+  if (tid < B) qtts_brow_pos()[tid] = qtts_row_pos(pos_dev, pos_host, tid, T, S);
   if (tid == 0) {
     qtts_mbar_init(qtts_act_bar(), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -1793,8 +1813,8 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(un);
   QttsAttnSmem* am = reinterpret_cast<QttsAttnSmem*>(un);
   for (int l = 0; l < w.L; ++l) {
-    CT* kl = kc + (size_t)l * B * cache_row;
-    CT* vl = vc + (size_t)l * B * cache_row;
+    CT* kl = kc + (size_t)l * (B / S) * cache_row;
+    CT* vl = vc + (size_t)l * (B / S) * cache_row;
     // qkv = bf16(RMSNorm(x) * attn_norm) @ Wqkv * scale
     qtts_bprologue<QTTS_IN_NORM>((l == 0 ? x_in : x) + (size_t)gb0 * H, H,
                                  w.attn_norm + (size_t)l * H, w.eps, H, nb, act);
@@ -1808,11 +1828,26 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
     // system for microseconds)
     QttsBItem item;
     for (int it = lane0; qtts_bitem(it, B, nk, item); it += lanes) {
-      qtts_attn_prefetch(kl + item.b * cache_row, vl + item.b * cache_row, item.h, item.split, T,
-                         item.pos, t);
+      qtts_attn_prefetch(kl + item.b / S * cache_row, vl + item.b / S * cache_row, item.h,
+                         item.split, T, item.pos, t);
     }
     qtts_ring_bgemv<false>(p, ring, q, QTTS_KIND_QKV, stage, act, nb, s.qkv + (size_t)gb0 * A, A);
     qtts_phase_barrier(p);
+    if constexpr (VERIFY) {
+      // every row's new k and v into its slot, one (row, kv head) per item
+      for (int it = lane0; it < B * nk; it += lanes) {
+        hsync();  // the half's previous item is done with its shared memory
+        if (p.write_stall_ns > 0) {
+          const uint64_t t0 = qtts_globaltimer();
+          while (qtts_globaltimer() - t0 < (uint64_t)p.write_stall_ns) {
+          }
+        }
+        qtts_kv_write_body<CT>(am[half], hsync, t, it % nk, it / nk, s.qkv, A,
+                               w.k_norm + (size_t)l * D, w.inv_freq, kl, vl, cache_row, nq, nk, T,
+                               pos_dev, pos_host, S, w.eps);
+      }
+      qtts_phase_barrier(p);  // the new slots, before any candidate attends them
+    }
     // the split attention: K1's items on (row, kv head, split), two per block
     for (int it = lane0; qtts_bitem(it, B, nk, item); it += lanes) {
       const int b = item.b, h = item.h, pos = item.pos;
@@ -1820,11 +1855,11 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
       float* part = s.part + b * part_row;
       float* attn = s.attn + (size_t)b * qd;
       hsync();  // the half's previous item is done with its shared memory
-      qtts_attn_item_any<CT>(am[half], hsync, t, h, item.split, s.qkv + (size_t)b * A,
-                             w.q_norm + (size_t)l * D, w.k_norm + (size_t)l * D, w.inv_freq,
-                             kl + b * cache_row, vl + b * cache_row, part,
-                             n_splits == 1 ? attn : nullptr, nq, nk, T, pos, s.max_splits, w.eps,
-                             w.attn_scale);
+      qtts_attn_item_any<CT, !VERIFY>(am[half], hsync, t, h, item.split, s.qkv + (size_t)b * A,
+                                      w.q_norm + (size_t)l * D, w.k_norm + (size_t)l * D,
+                                      w.inv_freq, kl + b / S * cache_row, vl + b / S * cache_row,
+                                      part, n_splits == 1 ? attn : nullptr, nq, nk, T, pos,
+                                      s.max_splits, w.eps, w.attn_scale);
       if (n_splits == 1) continue;
       __threadfence();  // the item's partials, before its ticket
       hsync();
@@ -1918,15 +1953,16 @@ static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int
   return (size_t)p.union_bytes >= need && qtts_plan_layout(p).total == (size_t)p.smem_bytes;
 }
 
-// Launches `kernel` on the plan's grid with one argument struct, after
-// checking once per (kernel, shared memory size) that the grid can be
-// co-resident: a grid that cannot fails with cudaErrorCooperativeLaunchTooLarge.
-// A kernel's dynamic shared-memory attribute is set again whenever a plan
-// asks for another size than the last (the 0.6B and 1.7B plans differ, and
-// a launch past the attribute fails); the lock is held through the launch,
-// so that no other thread's plan changes the attribute in between.
+// Launches `kernel` on `grid` blocks with `smem` bytes of dynamic shared
+// memory and one argument struct, after checking once per (kernel, shared
+// memory size) that the grid can be co-resident: a grid that cannot fails
+// with cudaErrorCooperativeLaunchTooLarge.  A kernel's dynamic shared-memory
+// attribute is set again whenever a launch asks for another size than the
+// last (the 0.6B and 1.7B plans differ, and a launch past the attribute
+// fails); the lock is held through the launch, so that no other thread's
+// plan changes the attribute in between.
 template <typename Args>
-static int qtts_launch_persistent(void (*kernel)(Args), const Args& a, const QttsPlan& p,
+static int qtts_launch_persistent(void (*kernel)(Args), const Args& a, int grid, int smem,
                                   cudaStream_t st) {
   struct Seen {
     const void* fn;
@@ -1941,16 +1977,16 @@ static int qtts_launch_persistent(void (*kernel)(Args), const Args& a, const Qtt
   std::lock_guard<std::mutex> lock(mu);
   int at = 0;
   while (at < n_allowed && allowed[at].fn != fn) ++at;
-  if (at == n_allowed || allowed[at].smem != p.smem_bytes) {
-    QTTS_TRY(cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes));
+  if (at == n_allowed || allowed[at].smem != smem) {
+    QTTS_TRY(cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
     if (at < 8) {
-      allowed[at] = Seen{fn, p.smem_bytes, 0};
+      allowed[at] = Seen{fn, smem, 0};
       if (at == n_allowed) ++n_allowed;
     }
   }
   int max_grid = 0;
   for (int i = 0; i < n_seen; ++i) {
-    if (seen[i].fn == fn && seen[i].smem == p.smem_bytes) max_grid = seen[i].max_grid;
+    if (seen[i].fn == fn && seen[i].smem == smem) max_grid = seen[i].max_grid;
   }
   if (max_grid == 0) {
     int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -1958,17 +1994,23 @@ static int qtts_launch_persistent(void (*kernel)(Args), const Args& a, const Qtt
     QTTS_TRY(cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
     if (!coop) return (int)cudaErrorNotSupported;
     QTTS_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-    QTTS_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, QTTS_P_THREADS,
-                                                           p.smem_bytes));
+    QTTS_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, QTTS_P_THREADS, smem));
     max_grid = sms * per_sm;
     if (max_grid == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-    if (n_seen < 16) seen[n_seen++] = Seen{fn, p.smem_bytes, max_grid};
+    if (n_seen < 16) seen[n_seen++] = Seen{fn, smem, max_grid};
   }
-  if (p.grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* params[] = {const_cast<Args*>(&a)};
-  QTTS_TRY(cudaLaunchCooperativeKernel(fn, dim3(p.grid), dim3(QTTS_P_THREADS), params,
-                                       (size_t)p.smem_bytes, st));
+  QTTS_TRY(cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(QTTS_P_THREADS), params,
+                                       (size_t)smem, st));
   return (int)cudaGetLastError();
+}
+
+// The launch on a plan's grid and shared memory.
+template <typename Args>
+static int qtts_launch_persistent(void (*kernel)(Args), const Args& a, const QttsPlan& p,
+                                  cudaStream_t st) {
+  return qtts_launch_persistent(kernel, a, p.grid, p.smem_bytes, st);
 }
 
 // The B=1 chain entries of fused_mtp.cu (K2 and its launch-per-op chain),

@@ -23,17 +23,30 @@
 // unit's y * 1e-3 + its input; its w8a8 arm quantises without P1's epsilon
 // and clip (sa = max|x| * (1/127)).
 //
-// One unit is one phase of the persistent kernel (cudaLaunchCooperativeKernel,
-// SM count x resident blocks per SM), ended by K7's grid barrier
-// (qtts_grid_sync).  Every block recomputes the unit's input vector and its
-// reductions in its prologue, as K1's GEMV blocks do, then computes its row
-// groups.  What bounds it on the H100 (NVIDIA data sheet, SXM): the weight
-// bytes, 1 MB per int8 unit (0.31 us at 3.35 TB/s; P1's 72 MB stack is larger
-// than the 50 MB L2, so each step streams it); the barrier per unit, about a
-// microsecond, is of the same order, so the probe times transport and barrier
-// together, as the TPU probe timed transport and step.
+// One unit is one phase of a persistent kernel (cudaLaunchCooperativeKernel),
+// ended by a grid barrier (qtts_grid_sync).  Every block recomputes the
+// unit's input vector and its reductions in its prologue, as K1's GEMV blocks
+// do, then computes its rows.  What bounds it on the H100 (NVIDIA data sheet,
+// SXM): the weight bytes, 1 MB per int8 unit (0.31 us at 3.35 TB/s; P1's 72
+// MB stack is larger than the 50 MB L2, so each step streams it); the barrier
+// per unit, about a microsecond, is of the same order, so the probe times
+// transport and barrier together, as the TPU probe timed transport and step.
+//
+// Two kernels.  probe_kernel (P2's, and P1's reference, qtts_unit_probe):
+// SM count x resident blocks per SM, each unit cut into 16-row groups dealt
+// over the grid, the weights loaded with __ldg after the unit's barrier.
+// ring_kernel (P1, qtts_unit_probe_ring): one block per SM, each owning a
+// fixed range of every unit's rows (tools/unit_probe.py::probe_plan, in
+// multiples of four rows); the block's stage sequence is the walk itself,
+// stage i its rows of weight unit i % n_u and their scales, one TMA bulk
+// copy each into a ring of n_slots shared-memory slots (qtts_stream.cuh's
+// mbarrier and bulk-copy helpers).  The weights do not depend on the data, so
+// thread 0 keeps n_slots stages in flight across the per-unit grid barrier.
+// Each arm's arithmetic is probe_kernel's (the input prologue, the lane
+// order, the conversions, the warp reduction), so every output equals it bit
+// for bit.
 
-#include "qtts_kernels.cuh"
+#include "qtts_stream.cuh"
 
 namespace {
 
@@ -231,6 +244,241 @@ __global__ void __launch_bounds__(kThreads) probe_kernel(const __grid_constant__
 
 size_t probe_smem(int R, int K) { return (size_t)2 * R * K * sizeof(float) + K; }
 
+// The ring kernel's argument and plan (tools/unit_probe.py::probe_plan).
+// Shared memory, in order: the input area (in_bytes: the unit's input, its
+// bf16 rounding, its a8 quantisation), n_slots mbarriers, n_slots scale
+// areas of slot_rows floats, n_slots weight slots of slot_bytes.
+struct RingArgs {
+  const void* w;          // [n_u, NW, K] rows: int8, or bf16 for ARM_BF16
+  const float* s;         // [n_u, NW] row scales
+  const float* x0;        // [R, K] the first unit's input
+  float* y;               // [2, R, NW] unit outputs, alternating
+  float* out;             // [R, K] the last output normalised
+  const int32_t* bounds;  // [grid + 1]: block b owns rows [b], [b + 1]) of every unit
+  int32_t arm, n_u, steps, R, K, NW;
+  int32_t grid, n_slots, slot_bytes, slot_rows, in_bytes, smem_bytes;
+};
+
+// The plans' layout (qtts_plan_layout) with the input area as the union region.
+static __host__ __device__ __forceinline__ QttsSmemLayout ring_layout(const RingArgs& a) {
+  QttsPlan p{};
+  p.union_bytes = a.in_bytes;
+  p.n_slots = a.n_slots;
+  p.slot_bytes = a.slot_bytes;
+  p.slot_rows = a.slot_rows;
+  return qtts_plan_layout(p);
+}
+
+// Thread 0: stage i of the block's walk (its rows of weight unit i % n_u and
+// their scales) into slot i % n_slots, completed on the slot's mbarrier;
+// nothing past the walk's end.
+static __device__ __forceinline__ void ring_issue(const QttsRing& ring, const RingArgs& a, int i,
+                                                  int r0, int rows) {
+  if (i >= a.steps * a.n_u) return;
+  const int u = i % a.n_u;
+  const int esize = a.arm == ARM_BF16 ? 2 : 1;
+  const int slot = i % ring.n_slots;
+  uint64_t* bar = ring.full + slot;
+  const uint32_t wbytes = (uint32_t)rows * a.K * esize;
+  qtts_mbar_expect_tx(bar, wbytes + 4u * rows);
+  qtts_bulk_load(ring.slots + (size_t)slot * ring.slot_bytes,
+                 static_cast<const unsigned char*>(a.w) + ((size_t)u * a.NW + r0) * a.K * esize,
+                 wbytes, bar);
+  qtts_bulk_load(ring.scales + (size_t)slot * ring.slot_rows, a.s + (size_t)u * a.NW + r0,
+                 4u * rows, bar);
+}
+
+// One output row of the unit from its weight row in shared memory (wr; sv
+// its scale), by one warp in probe_kernel's lane order for the arm; lane 0
+// stores yo[m * NW + n] for each activation row m.
+static __device__ __forceinline__ void ring_row(const RingArgs& a, const unsigned char* wr,
+                                                float sv, const float* xb, const int8_t* qs,
+                                                float sx, float* yo, int n, int lane) {
+  const int K = a.K, NW = a.NW;
+  if (a.arm == ARM_A8) {
+    int iacc = 0;
+    for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
+      const int4 xv = *reinterpret_cast<const int4*>(qs + k0);
+      const int4 wv = *reinterpret_cast<const int4*>(wr + k0);
+      iacc = __dp4a(wv.x, xv.x, iacc);
+      iacc = __dp4a(wv.y, xv.y, iacc);
+      iacc = __dp4a(wv.z, xv.z, iacc);
+      iacc = __dp4a(wv.w, xv.w, iacc);
+    }
+    const int v = qtts_warp_reduce(iacc, QttsSumI());
+    if (lane == 0) yo[n] = __fmul_rn((float)v, __fmul_rn(sx, sv));
+  } else if (a.arm == ARM_BF16) {
+    float acc = 0.f;
+    for (int k0 = lane * 8; k0 < K; k0 += 32 * 8) {
+      const int4 wv = *reinterpret_cast<const int4*>(wr + 2 * k0);
+      const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc = fmaf(xb[k0 + 2 * q], __uint_as_float(words[q] << 16), acc);
+        acc = fmaf(xb[k0 + 2 * q + 1], __uint_as_float(words[q] & 0xffff0000u), acc);
+      }
+    }
+    const float v = qtts_warp_reduce(acc, QttsSumF());
+    if (lane == 0) yo[n] = __fmul_rn(v, sv);
+  } else if (a.arm == ARM_M8) {
+    float acc[kMaxRows] = {};
+    for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
+      const int4 wv = *reinterpret_cast<const int4*>(wr + k0);
+      const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
+      float wf[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) wf[e] = (float)(int8_t)(uint8_t)(words[e / 4] >> (8 * (e % 4)));
+#pragma unroll
+      for (int m = 0; m < kMaxRows; ++m) {
+        if (m < a.R) {
+          float hv[16];
+#pragma unroll
+          for (int i = 0; i < 16; i += 4) {
+            const float4 t4 = *reinterpret_cast<const float4*>(xb + m * K + k0 + i);
+            hv[i] = t4.x;
+            hv[i + 1] = t4.y;
+            hv[i + 2] = t4.z;
+            hv[i + 3] = t4.w;
+          }
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[m] = fmaf(hv[e], wf[e], acc[m]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kMaxRows; ++m) {
+      if (m < a.R) {
+        const float v = qtts_warp_reduce(acc[m], QttsSumF());
+        if (lane == 0) yo[(size_t)m * NW + n] = __fmul_rn(v, sv);
+      }
+    }
+  } else {  // ARM_CONV, ARM_W2048: qtts_gemv_rows' lane order
+    float acc = 0.f;
+    for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
+      float hv[16];
+#pragma unroll
+      for (int i = 0; i < 16; i += 4) {
+        const float4 t4 = *reinterpret_cast<const float4*>(xb + k0 + i);
+        hv[i] = t4.x;
+        hv[i + 1] = t4.y;
+        hv[i + 2] = t4.z;
+        hv[i + 3] = t4.w;
+      }
+      const int4 wv = *reinterpret_cast<const int4*>(wr + k0);
+      const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const float wf = (float)(int8_t)(uint8_t)(words[q] >> (8 * b));
+          acc = fmaf(hv[q * 4 + b], wf, acc);
+        }
+      }
+    }
+    const float v = qtts_warp_reduce(acc, QttsSumF());
+    if (lane == 0) yo[n] = __fmul_rn(v, sv);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ring_kernel(const __grid_constant__ RingArgs a) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  unsigned char* smem = ring_smem;
+  const QttsSmemLayout lay = ring_layout(a);
+  const QttsRing ring{smem + lay.slots, reinterpret_cast<float*>(smem + lay.scales),
+                      reinterpret_cast<uint64_t*>(smem + lay.bars), a.n_slots, a.slot_bytes,
+                      a.slot_rows};
+  const int tid = threadIdx.x, K = a.K, R = a.R, NW = a.NW, RK = R * K;
+  float* xe = reinterpret_cast<float*>(smem);  // [R, K] the unit's input
+  float* xb = xe + RK;                         // [R, K] its bf16 rounding
+  int8_t* qs = reinterpret_cast<int8_t*>(xe + 2 * RK);  // [K] its a8 quantisation
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = a.bounds[blockIdx.x], rows = a.bounds[blockIdx.x + 1] - r0;
+  const int units = a.steps * a.n_u;
+  if (tid == 0) {
+    for (int s = 0; s < ring.n_slots; ++s) qtts_mbar_init(ring.full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < ring.n_slots; ++s) ring_issue(ring, a, s, r0, rows);
+  }
+  for (int i = 0;; ++i) {
+    // prologue: probe_kernel's (probe 1), the unit's input from the previous
+    // unit's output (all of it, in every block), the same expressions in the
+    // same order; a thread's loads of PV values are issued together (other
+    // blocks wrote them in this launch: read past L1)
+    constexpr int PV = 4;
+    const float* yp = a.y + (size_t)((i + 1) & 1) * R * NW;
+    __syncthreads();  // the previous unit is done with xb and qs
+    float ss = 0.f;
+    for (int e0 = tid; e0 < RK; e0 += PV * kThreads) {
+      float v[PV], w[PV];
+#pragma unroll
+      for (int j = 0; j < PV; ++j) {
+        const int e = e0 + j * kThreads;
+        v[j] = w[j] = 0.f;
+        if (e < RK) {
+          if (i == 0) {
+            v[j] = __ldg(a.x0 + e);
+          } else {
+            const float* row = yp + (size_t)(e / K) * NW;
+            const int k = e % K;
+            v[j] = __ldcg(row + k);
+            if (NW != K) w[j] = __ldcg(row + K + k);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < PV; ++j) {
+        const int e = e0 + j * kThreads;
+        if (e < RK) {
+          const float x = i > 0 && NW != K ? __fadd_rn(v[j], w[j]) : v[j];
+          xe[e] = x;
+          ss += x * x;
+        }
+      }
+    }
+    if (i > 0) {
+      const float rn = rsqrtf(qtts_block_reduce(ss, QttsSumF()) / (float)RK + 1e-6f);
+      for (int e = tid; e < RK; e += blockDim.x) xe[e] = xe[e] * rn;
+    }
+    __syncthreads();
+    if (i == units) break;
+
+    // the arm's transform of the input
+    float sx = 1.f;
+    if (a.arm == ARM_A8) {
+      float amax = 0.f;
+      for (int k = tid; k < K; k += blockDim.x) amax = fmaxf(amax, fabsf(xe[k]));
+      amax = qtts_block_reduce(amax, QttsMaxF());
+      sx = fmaxf(amax / 127.f, 1e-8f);
+      const float inv = 1.f / sx;
+      for (int k = tid; k < K; k += blockDim.x) {
+        float q = rintf(xe[k] * inv);
+        q = fminf(fmaxf(q, -127.f), 127.f);
+        qs[k] = (int8_t)(int)q;
+      }
+    } else {
+      for (int e = tid; e < RK; e += blockDim.x) xb[e] = qtts_bf16_round(xe[e]);
+    }
+    __syncthreads();
+
+    // the block's rows of stage i, one row per warp at a time
+    const int slot = i % ring.n_slots;
+    qtts_mbar_wait(ring.full + slot, (uint32_t)(i / ring.n_slots) & 1u);
+    const unsigned char* ws = ring.slots + (size_t)slot * ring.slot_bytes;
+    const float* sc = ring.scales + (size_t)slot * ring.slot_rows;
+    const size_t row_bytes = (size_t)K * (a.arm == ARM_BF16 ? 2 : 1);
+    float* yo = a.y + (size_t)(i & 1) * R * NW;
+    for (int r = warp; r < rows; r += kThreads / 32) {
+      ring_row(a, ws + r * row_bytes, sc[r], xb, qs, sx, yo, r0 + r, lane);
+    }
+    __syncthreads();  // every warp is done with the slot
+    if (tid == 0) ring_issue(ring, a, i + ring.n_slots, r0, rows);
+    qtts_grid_sync();
+  }
+  if (blockIdx.x == 0) {
+    for (int e = tid; e < RK; e += blockDim.x) a.out[e] = xe[e];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -266,6 +514,27 @@ int qtts_unit_probe(const void* w, const float* s, const float* x0, float* y, fl
                                        dim3(cached_grid), dim3(kThreads), params, smem,
                                        static_cast<cudaStream_t>(stream)));
   return (int)cudaGetLastError();
+}
+
+// P1's entry: one call of the chain on the weight ring (probe 1's arms);
+// bounds [grid + 1] and the ring's geometry from tools/unit_probe.py::probe_plan.
+int qtts_unit_probe_ring(const void* w, const float* s, const float* x0, float* y, float* out,
+                         const int32_t* bounds, int arm, int n_u, int steps, int R, int K, int NW,
+                         int grid, int n_slots, int slot_bytes, int slot_rows, int in_bytes,
+                         int smem_bytes, void* stream) {
+  const int esize = arm == ARM_BF16 ? 2 : 1;
+  if (K % 16 != 0 || R < 1 || R > kMaxRows || (R > 1) != (arm == ARM_M8) || n_u < 1 ||
+      steps < 1 || arm < ARM_CONV || arm > ARM_M8 || (arm == ARM_W2048) != (NW == 2 * K) ||
+      (arm != ARM_W2048 && NW != K) || NW % 4 != 0 || grid < 1 || n_slots < 1 ||
+      slot_bytes % 16 != 0 || slot_rows % 4 != 0 || (size_t)slot_rows * K * esize > (size_t)slot_bytes ||
+      in_bytes % 128 != 0 || (size_t)in_bytes < probe_smem(R, K) || bounds == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RingArgs a{w, s, x0, y, out, bounds, arm, n_u, steps, R, K, NW,
+                   grid, n_slots, slot_bytes, slot_rows, in_bytes, smem_bytes};
+  if (ring_layout(a).total != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
+  return qtts_launch_persistent(ring_kernel, a, grid, smem_bytes,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

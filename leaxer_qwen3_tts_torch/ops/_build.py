@@ -95,7 +95,7 @@ class Plan(ctypes.Structure):
         ("union_bytes", ctypes.c_int32), ("tickets", ctypes.c_void_p),
         ("trace_rows", ctypes.c_int32), ("trace", ctypes.c_void_p),
         ("batch", ctypes.c_int32), ("groups", ctypes.c_int32), ("n_tickets", ctypes.c_int32),
-        ("n_sets", ctypes.c_int32),
+        ("n_sets", ctypes.c_int32), ("write_stall_ns", ctypes.c_int32),
     ]
 
 
@@ -253,10 +253,15 @@ def load_kernels() -> ctypes.CDLL:
                 raise RuntimeError("FrameArgs does not mirror QttsFrameArgs")
             lib.qtts_unit_probe.restype = i32
             lib.qtts_unit_probe.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
+            lib.qtts_unit_probe_ring.restype = i32
+            lib.qtts_unit_probe_ring.argtypes = [vp, vp, vp, vp, vp, vp, *([i32] * 12), vp]
             lib.qtts_verify_step.restype = i32
             lib.qtts_verify_step.argtypes = [
-                ctypes.POINTER(StepWeights), ctypes.POINTER(BatchScratch), vp, vp, vp, vp,
-                i32, i32, i32, i32, vp, i32, vp,
+                W, BS, P, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,
+            ]
+            lib.qtts_verify_step_multi.restype = i32
+            lib.qtts_verify_step_multi.argtypes = [
+                W, BS, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,
             ]
             _lib = lib
         return _lib

@@ -12,21 +12,26 @@ PRE-final-norm hidden state, float32; the caches are updated IN PLACE.
 Row (b, s) is the function one decode step of stream b at ``pos[b] + s``
 computes after candidates 0..s-1 have been stepped, so the plain version,
 :func:`fused_verify_step_reference`, is exactly those S steps of kernel K4's
-plain version, and the CUDA kernel (``csrc/fused_verify.cu``) does K4's
-arithmetic for every row, op for op.  On a CUDA tensor
+plain version, and the CUDA kernel (``csrc/fused_verify.cu``: one persistent
+cooperative launch per pass, K4's transport on a plan of B * S rows) does
+K4's arithmetic for every row, op for op.  On a CUDA tensor
 :func:`fused_verify_step` launches the kernel or raises; on a CPU tensor it
 runs the plain version.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import Tuple
 
 import torch
 
 from ..config import TransformerConfig
+from . import persistent
 from ._build import MAX_BATCH
 from .fused_step import (
+    _MAX_ENTRIES,
     FusedStepWeights,
     _check_cuda_inputs,
     batch_structs,
@@ -73,6 +78,35 @@ def fused_verify_step_reference(
     return torch.stack(rows, dim=1), k_cache, v_cache
 
 
+class _VerifyEntry:
+    """The argument structs, scratch and plan (of B * S rows) of one (pack,
+    B, S, cache bucket, cache dtype) on one stream of one thread."""
+
+    def __init__(self, cfg: TransformerConfig, fw: FusedStepWeights, B: int, S: int, T: int,
+                 device):
+        self.w, self.s, self.scratch = batch_structs(cfg, fw, B * S, T, device)
+        self.plan = persistent.device_plan(cfg, device, batch=B * S)
+
+
+_ENTRIES: "OrderedDict[tuple, _VerifyEntry]" = OrderedDict()
+
+
+def _verify_entry(cfg: TransformerConfig, fw: FusedStepWeights, B: int, S: int, T: int, dtype,
+                  device) -> _VerifyEntry:
+    """The cached entry of this pack at B x S rows, keyed by every pointer it
+    holds (nothing derived from a tensor's contents is cached)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (cfg, B, S, T, dtype, device, stream, threading.get_ident(),
+           *(t.data_ptr() for t in fw))
+    entry = _ENTRIES.get(key)
+    if entry is None:
+        entry = _VerifyEntry(cfg, fw, B, S, T, device)
+        _ENTRIES[key] = entry
+        while len(_ENTRIES) > _MAX_ENTRIES:
+            _ENTRIES.popitem(last=False)
+    return entry
+
+
 def fused_verify_step(
     cfg: TransformerConfig,
     fw: FusedStepWeights,
@@ -87,35 +121,52 @@ def fused_verify_step(
     caches are updated in place.  Each stream's start is clamped into
     [0, T - S].  A start tensor stays on the device: the kernel reads it, so
     the pass needs no host sync."""
-    B, S, T = _check_shapes(x, k_cache)
     if x.device.type == "cpu":
         return fused_verify_step_reference(cfg, fw, x, pos, k_cache, v_cache)
+    return launch_verify(fused_verify_step, "qtts_verify_step", cfg, fw, x, pos, k_cache,
+                         v_cache)
+
+
+def launch_verify(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeights,
+                  x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """Launch a verify entry (``qtts_verify_step``: K6, persistent, with its
+    cached entry; ``qtts_verify_step_multi``: the launch-per-op pass) on CUDA
+    tensors, counting the launch on ``wrapper``."""
+    what = wrapper.__name__
+    B, S, T = _check_shapes(x, k_cache)
     if x.device.type != "cuda":
-        raise ValueError(f"fused_verify_step: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if B * S > MAX_BATCH:
-        raise ValueError(f"fused_verify_step takes at most {MAX_BATCH} rows, got {B} x {S}")
+        raise ValueError(f"{what} takes at most {MAX_BATCH} rows, got {B} x {S}")
     _check_cuda_inputs(fw, k_cache, v_cache)
     from ._build import check, load_kernels
 
     lib = load_kernels()
+    planned = entry == "qtts_verify_step"
+    if planned:
+        e = _verify_entry(cfg, fw, B, S, T, k_cache.dtype, x.device)
+        w, s, scratch = e.w, e.s, None
+    else:
+        w, s, scratch = batch_structs(cfg, fw, B * S, T, x.device)
     H = cfg.hidden_size
-    w, s, scratch = batch_structs(cfg, fw, B * S, T, x.device)
     x_in = x.float().reshape(B * S, H).contiguous()
     x_out = torch.empty((B * S, H), dtype=torch.float32, device=x.device)
     if isinstance(pos, torch.Tensor):
         pos_dev = pos.to(dtype=torch.long).reshape(B).contiguous()
         if pos_dev.device != x.device:
-            raise ValueError("fused_verify_step: starts must be on the device")
+            raise ValueError(f"{what}: starts must be on the device")
         pos_ptr, pos_host = pos_dev.data_ptr(), 0
     else:
         pos_ptr, pos_host = None, min(max(int(pos), 0), T - S)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fused_verify_step.launches += 1
-    err = lib.qtts_verify_step(
-        w, s, x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        int(k_cache.dtype == torch.bfloat16), B, S, T, pos_ptr, pos_host, stream,
-    )
-    check(err, "fused_verify_step")
+    args = (x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            int(k_cache.dtype == torch.bfloat16), B, S, T, pos_ptr, pos_host, stream)
+    wrapper.launches += 1
+    if planned:
+        err = lib.qtts_verify_step(w, s, e.plan.struct, *args)
+    else:
+        err = lib.qtts_verify_step_multi(w, s, *args)
+    check(err, what)
     del scratch  # enqueued; the caching allocator orders reuse on the stream
     return x_out.reshape(B, S, H), k_cache, v_cache
 

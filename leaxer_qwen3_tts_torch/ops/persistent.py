@@ -1,4 +1,4 @@
-"""The work plan of the persistent kernels K1-K5 and K7 (``csrc/qtts_stream.cuh``).
+"""The work plan of the persistent kernels K1-K7 (``csrc/qtts_stream.cuh``).
 
 One cooperative launch runs a whole decode step (K1; K4 for B rows), a
 whole sub-code chain (K2, and K3 on a float32 cache; K5 for B rows) or a
@@ -20,7 +20,10 @@ weight sets on one grid and one ring: set 0 the MTP trunk with its heads,
 set 1 the talker with its lm_head.  Its tables hold set s's kind k at kind
 index s * len(KINDS) + k, whose stages follow set 0's in the ring.
 
-A batched plan (``batch`` rows, K4 and K5) keeps each block's batch rows'
+A verify pass (K6) is a batched plan of B * S rows, candidate s of stream b
+on row b * S + s (``verify_rows``).
+
+A batched plan (``batch`` rows, K4, K5 and K6) keeps each block's batch rows'
 bf16 GEMV inputs in shared memory beside the ring, B x max(H, q_dim, I) x 2
 bytes.  Where that leaves fewer than MIN_SLOTS ring slots, the grid is split
 into ``groups`` groups of consecutive blocks: group g takes batch rows
@@ -221,6 +224,17 @@ def stages(plan: Plan, kind: int, block: int) -> Sequence[Tuple[int, int]]:
     r0, r1 = plan.bounds[kind][at], plan.bounds[kind][at + 1]
     step = plan.stage_rows[kind]
     return [(n, min(step, r1 - n)) for n in range(r0, r1, step)]
+
+
+def verify_rows(B: int, S: int, T: int, starts) -> Tuple[Tuple[int, int], ...]:
+    """(cache row, position) of each of the B * S rows of a verify pass
+    (``qtts_row_pos`` at S candidates per stream): row r = b * S + s on cache
+    row b at position start_b + s, start_b clamped into [0, T - S].
+    ``starts``: the streams' device starts, or one start for every stream."""
+    if isinstance(starts, int):
+        starts = [starts] * B
+    first = [min(max(int(p), 0), T - S) for p in starts]
+    return tuple((r // S, first[r // S] + r % S) for r in range(B * S))
 
 
 def attention_items(batch: int, num_kv_heads: int, T: int, positions, grid: int):

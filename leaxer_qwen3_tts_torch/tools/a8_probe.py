@@ -5,8 +5,9 @@ Port of ``tools/a8_probe.py`` (the JAX package's TPU probe).  A serial chain
 of [R, 1024] x [1024, 1024] unit products, ``S`` walks over a stack of
 ``U`` 1 MB int8 units (72 MB, past the H100's 50 MB L2), each output
 normalised into the next unit's input (x * rsqrt(mean(x^2) + 1e-6)), in one
-persistent kernel (``csrc/unit_probe.cu``).  Arms, all walking the same
-weight bytes per step:
+persistent kernel (``csrc/unit_probe.cu``'s ring kernel: each block's rows of
+every unit stream through a TMA weight ring, stages in flight across the
+per-unit grid barrier).  Arms, all walking the same weight bytes per step:
 
     conv   int8 units converted to bf16, bf16 activations, float32 sums
     a8     the activation quantised to int8 per vector, int8 x int8 -> int32
@@ -101,7 +102,7 @@ def chain(arm: str, w: torch.Tensor, s: torch.Tensor, x0: torch.Tensor,
     on CPU tensors."""
     if x0.device.type == "cpu":
         return chain_reference(arm, w, s, x0, steps)
-    return launch(chain, arm, 1, w, s, x0, steps)
+    return launch(chain, arm, 1, w, s, x0, steps, ring=True)
 
 
 chain.launches = 0  # kernel launches, for chip_smoke.py's path check

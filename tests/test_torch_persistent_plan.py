@@ -1,14 +1,18 @@
-"""The work plan of the persistent kernels K1-K5 and K7 (ops/persistent.py),
-on the CPU: for the 0.6B talker, the 0.6B MTP trunk with its heads, and the
-1.7B talker and trunk (K3's plan), at B = 1 (K1, K2, K3) and at B = 2, 5, 8
-and 32 rows (K4, K5), and for the 0.6B frame (K7: the MTP trunk with its
-2048-row heads, then the talker with its 3072-row lm_head), at the SM counts
-of an H100 SXM (132) and PCIe (114), every (row, batch row) of every product
-of every weight set belongs to exactly one block, every stage fits its ring
-slot, the launch's shared memory (ring, the batch rows' inputs, two
-attention items) fits a Hopper block, and the attention tickets cover every
-(row, kv head).  And the batched attention's item dealing, against a model
-of what it must run."""
+"""The work plan of the persistent kernels K1-K7 (ops/persistent.py), on the
+CPU: for the 0.6B talker, the 0.6B MTP trunk with its heads, and the 1.7B
+talker and trunk (K3's plan), at B = 1 (K1, K2, K3) and at B = 2, 5, 8, 24
+and 32 rows (K4, K5; K6's B x S rows), and for the 0.6B frame (K7: the MTP
+trunk with its 2048-row heads, then the talker with its 3072-row lm_head),
+at the SM counts of an H100 SXM (132) and PCIe (114), every (row, batch row)
+of every product of every weight set belongs to exactly one block, every
+stage fits its ring slot, the launch's shared memory (ring, the batch rows'
+inputs, two attention items) fits a Hopper block, and the attention tickets
+cover every (row, kv head).  The batched attention's item dealing, against
+a model of what it must run, at K4's rows and at K6's B x S rows (its row
+map: row r on cache row r // S at the clamped start plus r % S).  And probe
+P1's ring plan (tools/unit_probe.py) for every arm: every row of every unit
+in exactly one block's range, the stages in walk order, the shared memory
+within a block's."""
 
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import pytest
 
 from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B, QWEN3_TTS_17B
 from leaxer_qwen3_tts_torch.ops import persistent
+from leaxer_qwen3_tts_torch.tools import a8_probe, unit_probe
 
 _MTP06 = (QWEN3_TTS_06B.code_predictor.transformer,
           QWEN3_TTS_06B.code_predictor.subcode_vocab_size)
@@ -30,7 +35,7 @@ CASES = {
 }
 FRAMES = {"0.6B frame": (_MTP06, (_TALKER06, QWEN3_TTS_06B.talker.codec_vocab_size))}
 GRIDS = (132, 114)
-BATCHES = (1, 2, 5, 8, 32)
+BATCHES = (1, 2, 5, 8, 24, 32)  # 24: a spec pool's 8 streams x 3 candidates
 PARAMS = ([(name, grid, B) for name in CASES for grid in GRIDS for B in BATCHES]
           + [(name, grid, 1) for name in FRAMES for grid in GRIDS])
 
@@ -200,20 +205,51 @@ def test_plan_refuses_a_grid_past_the_rows():
         persistent.make_plan(cfg, 132, batch=persistent.MAX_BATCH + 1)
 
 
+# K6's streams x candidates: every (B, S) of at most MAX_BATCH rows, S in
+# 2..8, at T=512 with starts at the first slot, on both sides of a split
+# edge, at T - S and past it, and inside
+VERIFY_SHAPES = [(B, S) for S in range(2, 9) for B in range(1, persistent.MAX_BATCH // S + 1)]
+VERIFY_STARTS = (0, 61, 200, 600, 509, 5, 130, 62)
+
+
+def _verify_starts(B):
+    return [VERIFY_STARTS[b % len(VERIFY_STARTS)] for b in range(B)]
+
+
 # (B, T, positions): the first slot, both sides of a 64-slot split edge, the
-# last slot, clamped ones past the bucket and below 0; a host position
+# last slot, clamped ones past the bucket and below 0; a host position; then
+# K6's B x S rows at their own positions
 ITEM_CASES = [
     (5, 256, [0, 63, 64, 255, 700]),
     (8, 2560, [0, 63, 64, 2559, 9999, -3, 1800, 130]),
     (32, 512, [(0, 63, 64, 511, 600, 5, 200, 130)[b % 8] for b in range(32)]),
     (4, 2560, 1800),
-]
+] + [(B * S, 512, [p for _, p in persistent.verify_rows(B, S, 512, _verify_starts(B))])
+     for B, S in VERIFY_SHAPES]
+
+
+@pytest.mark.parametrize("B,S", VERIFY_SHAPES)
+def test_verify_rows(B, S):
+    """K6's row map: row r = b * S + s on cache row b at stream b's start,
+    clamped into [0, T - S], plus s; at S = 1 it is K4's position clamp."""
+    T = 512
+    starts = [-4] + _verify_starts(B)[1:]  # stream 0's start below 0
+    rows = persistent.verify_rows(B, S, T, starts)
+    assert len(rows) == B * S
+    for r, (b, p) in enumerate(rows):
+        assert b == r // S and p == min(max(starts[b], 0), T - S) + r % S and 0 <= p < T
+    assert len(set(rows)) == B * S  # no slot written twice
+    assert persistent.verify_rows(B, S, T, 200) == persistent.verify_rows(B, S, T, [200] * B)
+    assert [p for _, p in persistent.verify_rows(B * S, 1, T, starts * S)] == [
+        min(max(p, 0), T - 1) for p in starts * S]
+    assert B * S <= persistent.MAX_BATCH
 
 
 @pytest.mark.parametrize("B,T,positions", ITEM_CASES)
 @pytest.mark.parametrize("grid", GRIDS)
 def test_attention_items_run_once(B, T, positions, grid):
     nk = QWEN3_TTS_06B.talker.transformer.num_kv_heads
+    assert B * nk <= persistent.MAX_TICKETS  # one ticket per (row, kv head)
     halves = persistent.attention_items(B, nk, T, positions, grid)
     assert len(halves) == 2 * grid
     pos = ([positions] * B if isinstance(positions, int)
@@ -244,3 +280,66 @@ def test_attention_items_run_once(B, T, positions, grid):
                 merges[(b, h)] = merges.get((b, h), 0) + 1
     assert merges == {(b, h): 1 for b in range(B) for h in range(nk)}
     assert all(tickets[(b, h)] == pos[b] // persistent.ATTN_CHUNK + 1 for b, h in tickets)
+
+
+PROBE_ARMS = [(arm, grid) for arm in a8_probe.ARMS for grid in GRIDS]
+
+
+def _probe_plan(arm, grid):
+    NW = 2 * a8_probe.H if arm == "w2048" else a8_probe.H
+    return unit_probe.probe_plan(arm, a8_probe.rows(arm), a8_probe.H, NW, grid), NW
+
+
+@pytest.mark.parametrize("arm,grid", PROBE_ARMS)
+def test_probe_ring_rows_once(arm, grid):
+    """P1's ring: every row of every unit of the walk in exactly one block's
+    stage, blocks balanced within one quantum of four rows."""
+    plan, NW = _probe_plan(arm, grid)
+    n_u, steps = 3, 2
+    owner = [[0] * NW for _ in range(steps * n_u)]
+    for blk in range(grid):
+        stages = unit_probe.probe_stages(plan, blk, n_u, steps)
+        for i, u, r0, rows in stages:
+            assert u == i % n_u and r0 % persistent.ROW_QUANTUM == 0
+            assert 0 < rows and rows % persistent.ROW_QUANTUM == 0
+            for n in range(r0, r0 + rows):
+                owner[i][n] += 1
+    assert owner == [[1] * NW for _ in range(steps * n_u)]
+    sizes = [b1 - b0 for b0, b1 in zip(plan.bounds, plan.bounds[1:])]
+    assert len(sizes) == grid and max(sizes) - min(sizes) <= persistent.ROW_QUANTUM
+
+
+@pytest.mark.parametrize("arm,grid", PROBE_ARMS)
+def test_probe_ring_stages_walk_in_order(arm, grid):
+    """A block's stages are the walk itself: stage i carries unit i % n_u,
+    i = 0 .. steps x n_u - 1, and fits one slot (rows and scales)."""
+    plan, _ = _probe_plan(arm, grid)
+    esize = 2 if arm == "bf16" else 1
+    for blk in (0, grid // 2, grid - 1):
+        stages = unit_probe.probe_stages(plan, blk, a8_probe.U, a8_probe.S)
+        assert [i for i, *_ in stages] == list(range(a8_probe.S * a8_probe.U))
+        assert [u for _, u, *_ in stages] == [i % a8_probe.U for i in range(len(stages))]
+        for _, _, _, rows in stages:
+            assert rows * a8_probe.H * esize <= plan.slot_bytes and rows <= plan.slot_rows
+    assert plan.slot_bytes % 16 == 0 and plan.slot_rows % persistent.ROW_QUANTUM == 0
+
+
+@pytest.mark.parametrize("arm,grid", PROBE_ARMS)
+def test_probe_ring_shared_memory_fits(arm, grid):
+    """The input area, the ring's barriers, scales and slots fit a Hopper
+    block, and one more slot would not."""
+    plan, _ = _probe_plan(arm, grid)
+    R, K = a8_probe.rows(arm), a8_probe.H
+    assert plan.in_bytes % 128 == 0 and plan.in_bytes >= 2 * R * K * 4 + K
+    lay = persistent.smem_layout(plan.n_slots, plan.slot_bytes, plan.slot_rows, plan.in_bytes)
+    assert lay["total"] == plan.smem_bytes and lay["slots"] % 128 == 0
+    assert plan.n_slots >= 2
+    assert plan.smem_bytes + persistent.STATIC_SMEM <= persistent.SMEM_PER_BLOCK
+    more = persistent.smem_layout(plan.n_slots + 1, plan.slot_bytes, plan.slot_rows,
+                                  plan.in_bytes)
+    assert more["total"] + persistent.STATIC_SMEM > persistent.SMEM_PER_BLOCK
+
+
+def test_probe_plan_refuses_a_grid_past_the_rows():
+    with pytest.raises(ValueError):
+        unit_probe.probe_plan("conv", 1, 1024, 1024, 1024 // persistent.ROW_QUANTUM + 1)
