@@ -20,15 +20,20 @@ its mixed knobs, B=8 and 32) and of the B=1 frame (K1 at T=256 pos 200, K2
 sampled).  With ``--frame`` a run also times the 0.6B ``frame_fused`` fixed
 300-frame run twice and K7 on a seeded frame (T=256, pos 255, sampled);
 with ``--voice`` the 1.7B preset's fixed 300-frame instruct run twice
-(random weights, the smoke's voice configuration) and K3 on a seeded chain
-(sampled).  With ``--kernels`` a run first times the kernels alone (and
-makes no engine unless another flag asks for one), by CUDA events on
+(random weights, the smoke's voice configuration), K3 on a seeded chain
+(sampled), and the prefill ms and TTFA of four instruct requests (the
+smoke's voice text, 48 frames at most, after a warm-up): the prefill's 28
+K8 launches are what its attention costs end to end.  With ``--kernels`` a
+run first times the kernels alone (and makes no engine unless another flag
+asks for one), by CUDA events on
 seeded inputs, three timings each (bf16 caches):
 K1 (T=256, pos 200), K2 (sampled), K4 (B=8, 32 at T=512), K5 (B=4, 8, 32,
 mixed knobs), K6 (B=1 x S=4 at T=256 start 200, 8 x 3 and 4 x 8 at
-T=512, the smoke's starts), K7 (T=256, pos 255, sampled) and P1 (the
-conv arm's whole chain).  With ``--chains`` a run makes no engine: it times the chains
-alone on seeded inputs, three times each, and traces each once
+T=512, the smoke's starts), K7 (T=256, pos 255, sampled), P1 (the
+conv arm's whole chain), K8 at the 1.7B prefill shape (bf16, B=1, S=57,
+T=256, 16 / 8 heads; also its device time per call from the profiler) and
+P2 (both arms' whole chain).  With ``--chains`` a run makes no engine: it
+times the chains alone on seeded inputs, three times each, and traces each once
 (``chip_smoke.trace_phases``): K5 at B=8 and 32 with K5_KNOBS cycled over
 the rows and with the engine's knobs, and the persistent B=1 chain on the
 1.7B trunk with a float32 cache (``fused_mtp_chain``: the kernel that K3
@@ -88,6 +93,21 @@ def spec_pool_rtf(cs, params, tok, eng):
     return rtf[1:]
 
 
+def device_ms(fn, iters):
+    """Device ms per call of ``fn`` from ``torch.profiler`` (self device time
+    of every device op over ``iters`` calls, after one warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / iters
+
+
 def kernels_ms(cs):
     """The kernels alone by CUDA events on seeded inputs: {label: [ms] x 3}."""
     import torch
@@ -96,10 +116,12 @@ def kernels_ms(cs):
     from leaxer_qwen3_tts_torch.ops import fused_frame as K7
     from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
     from leaxer_qwen3_tts_torch.ops import fused_step as K1
+    from leaxer_qwen3_tts_torch.ops import flash_attention as K8
     from leaxer_qwen3_tts_torch.ops import fused_verify as K6
     from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
     from leaxer_qwen3_tts_torch.runtime.sampling import gumbel_noise
     from leaxer_qwen3_tts_torch.tools import a8_probe as P1
+    from leaxer_qwen3_tts_torch.tools import w8a8_probe as P2
 
     gen = torch.Generator(device=cs.DEV)
     gen.manual_seed(cs.SEED)
@@ -150,6 +172,14 @@ def kernels_ms(cs):
     w, s = P1.make_weights("conv", device=cs.DEV)
     x0 = torch.full((1, P1.H), 0.1, device=cs.DEV)
     timed(f"P1 conv chain of {P1.S * P1.U} units", lambda: P1.chain("conv", w, s, x0), 10)
+    del w, s
+    q, k, v, mask = cs.k8_case(1, 57, 256, 16, 8, "prefill", torch.bfloat16, gen)
+    timed("K8 1.7B prefill S=57 T=256", lambda: K8.flash_attend(q, k, v, mask), 200)
+    out["K8 1.7B prefill device ms (profiler)"] = [
+        round(device_ms(lambda: K8.flash_attend(q, k, v, mask), 200), 5) for _ in range(3)]
+    w, s, x0 = P2.make_inputs(cs.DEV)
+    for arm in P2.ARMS:
+        timed(f"P2 {arm} chain of {P2.P * P2.U} units", lambda: P2.chain(arm, w, s, x0), 10)
     return out
 
 
@@ -225,7 +255,8 @@ def frame_ms(cs, params, tok):
 
 
 def voice_ms(cs, tok):
-    """The 1.7B fixed instruct runs and K3's ms on a seeded chain: {label: ms}."""
+    """The 1.7B fixed instruct runs, K3's ms on a seeded chain, and the
+    prefill ms and TTFA of four instruct requests: {label: ms or [ms]}."""
     import torch
 
     from leaxer_qwen3_tts_torch.api.engine import TTSEngine
@@ -240,6 +271,12 @@ def voice_ms(cs, tok):
     eng.synthesize("warm up", language="en", max_tokens=16, instruct=cs.VOICE_INSTRUCT)
     out = {f"1.7B fixed instruct run {i}": cs.check_fixed_run(
         eng, 300, [cs.VOICE_TEXT], cs.CARD, instruct=cs.VOICE_INSTRUCT) for i in range(2)}
+    requests = [eng.synthesize(cs.VOICE_TEXT, language="en", temperature=0.8, top_k=50,
+                               top_p=0.95, max_tokens=48, seed=cs.SEED + i,
+                               instruct=cs.VOICE_INSTRUCT).metrics for i in range(4)]
+    out["1.7B instruct prefill ms"] = [round(m.stage_seconds["prefill"] * 1e3, 3)
+                                       for m in requests]
+    out["1.7B instruct TTFA ms"] = [round(m.ttfa_seconds * 1e3, 3) for m in requests]
     cp, cpp = cfg.code_predictor, eng.params["code_predictor"]
     H, V, n = cp.transformer.hidden_size, cp.subcode_vocab_size, cp.num_steps
     gen = torch.Generator(device=cs.DEV)

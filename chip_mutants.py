@@ -1,4 +1,4 @@
-"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7, P1 and persistent K1 / K2 / K4 / K5 checks on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7, P1, P2 and persistent K1 / K2 / K4 / K5 checks on one NVIDIA GPU.
 
     python3 chip_mutants.py [WORD ...]
 
@@ -12,10 +12,13 @@ persistent K6 against its launch-per-op pass and the K1 / K4 steps, bit for
 bit) on one layer, at full depth (also with every slot write stalled) and
 with a one-slot weight ring (K6),
 ``chip_smoke.check_p1_ring`` (P1's ring kernel against the group kernel,
-every arm; P1), ``chip_smoke.check_k3_equals_k2`` on
+every arm; P1), ``chip_smoke.check_p2_ring`` (P2's, both arms, also with a
+one-slot ring whose stages are issued late; P2),
+``chip_smoke.check_k3_equals_k2`` on
 the 1.7B MTP trunk (K3, also with a one-slot weight ring),
-``chip_smoke.check_k8`` at the 1.7B prefill shape and on the random GQA
-shapes (K8), ``chip_smoke.check_k7_composition`` (against the launch-per-op
+``chip_smoke.check_k8`` at the 1.7B prefill shape, on the random GQA
+shapes and on the key range's edge cases (K8),
+``chip_smoke.check_k7_composition`` (against the launch-per-op
 frame kernel and the composition K2 -> K1 -> norm+lm_head, also with a
 one-slot weight ring) and ``chip_smoke.check_k7_plain`` at the 0.6B widths
 (K7),
@@ -128,12 +131,62 @@ MUTANTS = {
         "  f32.cache_bf16 = 1;",
         "K3",
     ),
-    # flash attention skips the last key tile
-    "K8 last key tile skipped": (
+    # the float32 flash attention skips the last key tile of its range
+    "K8 float32 last key tile skipped": (
         "flash_attention.cu",
-        "for (int t0 = 0; t0 < Tp; t0 += FA_BT) {",
-        "for (int t0 = 0; t0 + FA_BT < Tp; t0 += FA_BT) {",
+        "for (int t0 = t_lo; t0 < t_end; t0 += F32_KT) {",
+        "for (int t0 = t_lo; t0 + F32_KT < t_end; t0 += F32_KT) {",
         "K8",
+    ),
+    # the tensor-core flash attention skips the last key tile of its range
+    "K8 last planned key tile skipped": (
+        "flash_attention.cu",
+        "for (int j = lo; j <= hi; ++j) {",
+        "for (int j = lo; j < hi; ++j) {",
+        "K8",
+    ),
+    # both kernels give a row that allows no key its online-softmax value
+    # (acc / l over the visited tiles) instead of sum_{t<T} v_t / Tp
+    "K8 closed form dropped": (
+        "flash_attention.cu",
+        ("      const float o0 = alive ? acc[dn][2 * h] / denom : tl.vsum[d] / (float)Tp;\n"
+         "      const float o1 = alive ? acc[dn][2 * h + 1] / denom : tl.vsum[d + 1] / (float)Tp;\n",
+         "      o[d] = alive ? acc[rr][e] / denom : tl.vsum[d] / (float)Tp;\n"),
+        ("      const float o0 = acc[dn][2 * h] / denom;\n"
+         "      const float o1 = acc[dn][2 * h + 1] / denom;\n",
+         "      o[d] = acc[rr][e] / denom;\n"),
+        "K8",
+    ),
+    # the tensor-core kernel's P.V drops P's lo term: P rounded once to bf16
+    "K8 P's lo term dropped": (
+        "flash_attention.cu",
+        ("        fa_mma(acc[2 * dp], pl, bv[0], bv[1]);\n"
+         "        fa_mma(acc[2 * dp + 1], pl, bv[2], bv[3]);\n"),
+        "",
+        "K8",
+    ),
+    # the probes' ring kernel reads its stage before the mbarrier wait (it
+    # waits after its rows, so the barrier's phases stay in step): caught
+    # only by the one-slot pass whose stages are issued late
+    "P2 ring read before its wait": (
+        "unit_probe.cu",
+        ("    qtts_mbar_wait(ring.full + slot, (uint32_t)(i / ring.n_slots) & 1u);\n"
+         "    const unsigned char* ws",
+         "    __syncthreads();  // every warp is done with the slot\n"
+         "    if (tid == 0 && a.issue_stall_ns == 0)"),
+        ("    const unsigned char* ws",
+         "    qtts_mbar_wait(ring.full + slot, (uint32_t)(i / ring.n_slots) & 1u);\n"
+         "    __syncthreads();  // every warp is done with the slot\n"
+         "    if (tid == 0 && a.issue_stall_ns == 0)"),
+        "P2",
+    ),
+    # the ring kernel normalises probe 2's input as probe 1's
+    # (x * rsqrt(mean(x^2) + 1e-6)); the group kernel does not
+    "P2 with probe 1's normalisation": (
+        "unit_probe.cu",
+        "    if (PROBE == 1 && i > 0) {",
+        "    if (i > 0) {",
+        "P2",
     ),
     # the persistent frame rounds the next talker input to bf16 (the
     # multi-dispatch path's numerics, not the JAX kernel's float32 sum)
@@ -240,6 +293,7 @@ def checks(gen):
            lambda: cs.one_slot_ring(lambda: cs.check_k6_equal("talker-1-layer, one ring slot",
                                                               t1, fw, shallow, gen))]
     p1 = [lambda: cs.check_p1_ring(gen, calls=1)]
+    p2 = [lambda: cs.check_p2_ring(gen, calls=1)]
     cp = QWEN3_TTS_17B.code_predictor
     H, V, n = cp.transformer.hidden_size, cp.subcode_vocab_size, cp.num_steps
     chain = (cp, cs.packed_trunk(cp.transformer, gen), pack_heads(quantize_weight(
@@ -253,6 +307,7 @@ def checks(gen):
                               "prefill", gen)]
     k8 += [lambda shape=shape: cs.check_k8("random GQA", *shape, "random", gen)
            for shape in cs.K8_RANDOM_SHAPES]
+    k8 += [lambda case=case: cs.check_k8("key range", *case, gen) for case in cs.K8_SCHEDULE_CASES]
     packs = cs.frame_packs(QWEN3_TTS_06B, gen)
     k7 = [lambda T=T, pos=pos: cs.check_k7_composition(packs, T, pos, torch.bfloat16, gen,
                                                        inputs=4)
@@ -285,7 +340,8 @@ def checks(gen):
     k6 += [lambda: cs.check_k6_equal("0.6B talker", tt, tfw, cs.K6_STALL_CASES, gen),
            lambda: cs.check_k6_equal("0.6B talker", tt, tfw, cs.K6_STALL_CASES, gen,
                                      stall_ns=cs.K6_STALL_NS)]
-    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1}
+    return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1,
+            "P2": p2}
 
 
 def main() -> int:

@@ -59,13 +59,14 @@ prints the final line:
    input -> K1 -> K1's GEMV body on the final norm (``qtts_norm_head``);
    timed in turns with the launch-per-op frame and traced once; against its
    plain version, K1's deep limits and K5's flip rule; timed beside the
-   composition.  Then P1's ring kernel against the group kernel it replaced
-   (``qtts_unit_probe``, P2's kernel), every arm, bit for bit on the short
-   and the whole chain, and in turns with it; then the
-   probes P1 and P2 (``tools/a8_probe.py``, ``tools/w8a8_probe.py``) through
-   their ``run`` entries: every arm against its plain version and timed
-   beside one PyTorch call of the unit product (P1 on the ring kernel alone,
-   P2 on the group kernel alone).
+   composition.  Then the probes' ring kernel against the group kernel it
+   replaced (``qtts_unit_probe``, run only by these checks): P1's every arm,
+   P2's both arms, bit for bit on the short and the whole chain (P2 also
+   with a one-slot ring whose stages are issued late), and in turns with
+   it; then the probes P1 and P2 (``tools/a8_probe.py``,
+   ``tools/w8a8_probe.py``) through their ``run`` entries: every arm against
+   its plain version and timed beside one PyTorch call of the unit product,
+   both on the ring kernel alone.
 6. Slice: ``TTSEngine.synthesize`` (0.6B preset, random weights from a seed,
    int8) on three requests, then a fixed 300-frame run through the generate
    callables and the engine's cache growth (256 -> 512 slots), with any host
@@ -117,8 +118,12 @@ prints the final line:
    seeded inputs (and 2 with a one-slot ring), bit for bit, timed in turns
    with the launch-per-op chain and traced once;
    K8 (``flash_attend``) against its plain version at the 1.7B prefill shape
-   and on random GQA shapes with invalid keys, ragged S and T and a fully
-   masked row, timed beside ``scaled_dot_product_attention``; then
+   and on random GQA shapes (g = 1 to 8, S = 1) with invalid keys, ragged S
+   and T, rows masked everywhere beside rows that are not (against the
+   closed form sum v / Tp too) and every allowed key in the last key tile;
+   float32 within K8_F32_ABS, bf16 within K8_BF16_REL and with at most
+   K8_BF16_FLIPS of the outputs off the plain version's bf16 value; timed
+   beside ``scaled_dot_product_attention``; then
    ``synthesize(instruct=...)`` and ``synthesize_speaker("serena")`` through
    the engine and a fixed 300-frame instruct run: one K1 and one K3 per
    decoded frame, no K2, and 28 K8 launches per prefill.
@@ -269,9 +274,24 @@ K3_EQUAL_INPUTS = 16
 # bf16 outputs: at most one bf16 ulp, 2^-7 of the largest output.
 K8_F32_ABS = 2e-5
 K8_BF16_REL = 2 ** -7
+# ... and at most this share of the bf16 outputs differs from the plain
+# version's bf16 value at all.  The tensor-core kernel's P is bf16 hi + lo,
+# within 2^-17 of P, and its scores and sums are float32 in another order:
+# each output moves by ~2^-16 relative or less, so it crosses a bf16
+# rounding edge (an ulp is 2^-8 to 2^-7 relative) for at most ~2^-8 of the
+# outputs.  P rounded once to bf16 moves each output by ~2^-10 relative and
+# changes ~1/8 of them.
+K8_BF16_FLIPS = 2 ** -6
 # (B, S, T, nq, nk) with queries at T-S..T-1, per-batch invalid keys and
-# batch 0's first row masked everywhere: ragged S and T, GQA 2:1 to 8:1
+# batch 0's first row masked everywhere: ragged S and T (none a multiple of
+# a key tile), GQA 2:1 to 8:1 and MHA, S = 1
 K8_RANDOM_SHAPES = ((2, 37, 301, 16, 8), (1, 5, 23, 8, 2), (3, 17, 130, 16, 2), (2, 1, 200, 4, 4))
+# the key range's edges, (B, S, T, nq, nk, kind): "dead rows", batch 0 with
+# rows masked everywhere beside rows that are not; "last tile", every
+# allowed key in the last 64-key tile
+K8_SCHEDULE_CASES = ((2, 9, 150, 16, 2, "dead rows"), (2, 37, 301, 16, 8, "dead rows"),
+                     (1, 57, 256, 16, 8, "last tile"), (2, 9, 150, 4, 4, "last tile"),
+                     (1, 1, 150, 8, 1, "last tile"))
 # K7 (the whole frame) at the 0.6B widths, (T, pos): the first slot past a
 # 64-slot split edge and the last slot, in the first bucket and in the 2560
 # bucket; greedy and two sampled knob sets; K7_INPUTS seeded inputs each (EOS
@@ -383,6 +403,21 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device milliseconds per call of ``fn`` from ``torch.profiler``: the
+    self device time of every device op over ``iters`` calls (after one
+    warm-up), without the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / iters
 
 
 def packed_trunk(t, gen):
@@ -644,6 +679,16 @@ def p1_multi(arm, w, s, x0, steps=P1.S):
 
 p1_multi.launches = 0  # not a kernel of the path: compare-only launches
 
+
+def p2_multi(arm, w, s, x, passes=P2.P):
+    """P2's chain on the group kernel it ran before the weight ring
+    (``qtts_unit_probe``, probe 2): the reference the ring kernel is held to
+    bit for bit."""
+    return unit_probe.launch(p2_multi, P2.KERNEL_ARM[arm], 2, w, s, x, passes)
+
+
+p2_multi.launches = 0  # not a kernel of the path: compare-only launches
+
 # The launch-per-op entries of the kernel library: count_entries routes each
 # through a counter, and check_launches fails if a main path reached one.
 MULTI_ENTRIES = ("qtts_decode_step_multi", "qtts_mtp_chain_multi",
@@ -777,12 +822,20 @@ def in_turns(label, old, new, iters, names=("launch sequence", "persistent")):
 ONE_SLOT_BYTES = 24 * 1024  # most phases then take two stages or more (K = 6144: 4 rows)
 
 
-def one_slot_ring(run):
+def one_slot_ring(run, probe_stall_ns=0):
     """``run()`` with the persistent kernels' plans cut to one ring slot of
     ONE_SLOT_BYTES, so that a stage after a phase's first is issued right
-    before it is read; the wrappers' cached entries are dropped before and
+    before it is read, and the probes' ring plans to one slot (each stage
+    past the first issued ``probe_stall_ns`` after the block's warps reach
+    their wait); the wrappers' cached entries are dropped before and
     after."""
     real = persistent.device_plan
+    real_probe = unit_probe.probe_plan
+
+    def one_slot_probe(arm, R, K, NW, grid):
+        plan = real_probe(arm, R, K, NW, grid)
+        smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.in_bytes)
+        return plan._replace(n_slots=1, smem_bytes=smem["total"], issue_stall_ns=probe_stall_ns)
 
     def one_slot(cfg, device, head_rows=0, batch=1, talker=None, lm_rows=0):
         device = torch.device(device)
@@ -799,13 +852,16 @@ def one_slot_ring(run):
         K2._CHAIN_ENTRIES.clear()
         K6._ENTRIES.clear()
         K7._ENTRIES.clear()
+        unit_probe._PLANS.clear()
 
     clear()
     persistent.device_plan = one_slot
+    unit_probe.probe_plan = one_slot_probe
     try:
         return run()
     finally:
         persistent.device_plan = real
+        unit_probe.probe_plan = real_probe
         clear()
 
 
@@ -1910,7 +1966,9 @@ def k8_case(B, S, T, nq, nk, kind, dtype, gen):
     """Seeded q [B, S, nq, 128], k and v [B, nk, T, 128] and a mask [B, S, T].
     kind "prefill": query i at position i over a T-slot bucket (the engine's
     prefill); "random": queries at T-S..T-1, batch b's keys valid below a
-    random length, and batch 0's first row masked everywhere."""
+    random length, and batch 0's first row masked everywhere; "dead rows":
+    "random" with batch 0's rows 0, 2 and S - 1 masked everywhere; "last
+    tile": every row allows the keys of the last 64-key tile only."""
     d = 128
     q = torch.randn((B, S, nq, d), generator=gen, device=DEV).to(dtype)
     k = torch.randn((B, nk, T, d), generator=gen, device=DEV).to(dtype)
@@ -1919,10 +1977,15 @@ def k8_case(B, S, T, nq, nk, kind, dtype, gen):
     if kind == "prefill":
         mask = slots[None, None, :] <= torch.arange(S, device=DEV)[None, :, None]
         return q, k, v, mask.expand(B, S, T).contiguous()
+    if kind == "last tile":
+        mask = slots[None, None, :] >= (T - 1) // 64 * 64
+        return q, k, v, mask.expand(B, S, T).contiguous()
     qpos = torch.arange(S, device=DEV) + (T - S)
     valid = torch.randint(T // 2, T + 1, (B,), generator=gen, device=DEV)
     mask = (slots[None, None, :] <= qpos[None, :, None]) & (slots[None, None, :] < valid[:, None, None])
     mask[0, 0] = False
+    if kind == "dead rows":
+        mask[0, [0, min(2, S - 1), S - 1]] = False
     return q, k, v, mask.contiguous()
 
 
@@ -1938,37 +2001,52 @@ def attn_bound(q, k, mask):
 
 def check_k8(name, B, S, T, nq, nk, kind, gen, iters=0):
     """K8 against its plain version on one seeded case in float32 (within
-    K8_F32_ABS) and in bf16 (within K8_BF16_REL of the largest output).
-    With ``iters``, the bf16 case is timed beside its plain version and
+    K8_F32_ABS) and in bf16 (within K8_BF16_REL of the largest output, and
+    at most K8_BF16_FLIPS of the outputs differing at all); the rows that
+    allow no key against sum_{t<T} v_t / Tp in both.  With ``iters``, the
+    bf16 case is timed beside its plain version and
     ``scaled_dot_product_attention`` on the same inputs (k and v repeated to
-    the q heads first, outside the timing).  Returns (bf16 max_abs_err, ms,
-    plain ms, library ms, bound)."""
+    the q heads first, outside the timing), and its device time per call is
+    read from the profiler.  Returns (bf16 max_abs_err, ms, plain ms,
+    library ms, bound)."""
     res = {}
+    Tp = K8.padded_keys(T)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, mask = k8_case(B, S, T, nq, nk, kind, dtype, gen)
         out = K8.flash_attend(q, k, v, mask)
         ref = K8.flash_attend_reference(q, k, v, mask)
+        dead = ~mask.any(dim=-1)  # [B, S]
+        closed = (v.float().sum(dim=2) / Tp).repeat_interleave(nq // nk, dim=1)  # [B, nq, D]
+        closed = closed[:, None].expand(B, S, nq, -1)[dead]
         torch.cuda.synchronize()
         res[dtype] = (float((out.float() - ref.float()).abs().max()), float(ref.float().abs().max()),
-                      bool(torch.isfinite(out.float()).all()))
-    (e32, _, fin32), (e16, m16, fin16) = res[torch.float32], res[torch.bfloat16]
-    ok = fin32 and fin16 and e32 <= K8_F32_ABS and e16 <= K8_BF16_REL * m16
-    ms = plain_ms = lib_ms = float("nan")
+                      bool(torch.isfinite(out.float()).all()), int((out != ref).sum()),
+                      float((out.float()[dead] - closed).abs().max()) if dead.any() else 0.0,
+                      int(dead.sum()))
+    (e32, _, fin32, _, c32, n_dead), (e16, m16, fin16, flips, c16, _) = (
+        res[torch.float32], res[torch.bfloat16])
+    n_out = B * S * nq * 128
+    ok = (fin32 and fin16 and e32 <= K8_F32_ABS and e16 <= K8_BF16_REL * m16
+          and flips <= K8_BF16_FLIPS * n_out and c32 <= K8_F32_ABS and c16 <= K8_BF16_REL * m16)
+    ms = plain_ms = lib_ms = dev_ms = float("nan")
     if iters:
         ms = time_ms(lambda: K8.flash_attend(q, k, v, mask), iters)
+        dev_ms = device_ms(lambda: K8.flash_attend(q, k, v, mask), iters)
         plain_ms = time_ms(lambda: K8.flash_attend_reference(q, k, v, mask), 5, 1)
         g = nq // nk
         qh, kh, vh = q.transpose(1, 2), k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
         am = mask[:, None]
         lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=am), iters)
-    masked = "" if kind == "prefill" else (
-        f"; fully masked row max |out| {float(out[0, 0].float().abs().max()):.3e} (the sum of V "
-        f"over {K8.padded_keys(T)} padded keys, as the JAX kernel gives)")
+    masked = "" if not n_dead else (
+        f"; {n_dead} rows allow no key: max |out - sum v / {Tp}| float32 {c32:.3e}, bf16 "
+        f"{c16:.3e}")
     b_ms, b_by = attn_bound(q, k, mask)
-    log(f"K8 {name}: B={B} S={S} T={T} nq={nq} nk={nk} float32 max_abs_err={e32:.3e} (tol "
-        f"{K8_F32_ABS}) bf16 max_abs_err={e16:.3e} (tol {K8_BF16_REL * m16:.3e}){masked}; kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound {b_ms * 1e3:.3f} us "
+    log(f"K8 {name} ({kind}): B={B} S={S} T={T} nq={nq} nk={nk} float32 max_abs_err={e32:.3e} (tol "
+        f"{K8_F32_ABS}) bf16 max_abs_err={e16:.3e} (tol {K8_BF16_REL * m16:.3e}), bf16 outputs "
+        f"differing {flips}/{n_out} (limit {K8_BF16_FLIPS * n_out:.0f}){masked}; kernel "
+        f"{ms:.4f} ms (device {dev_ms * 1e3:.2f} us per call, profiler) plain {plain_ms:.4f} ms "
+        f"sdpa {lib_ms:.4f} ms bound {b_ms * 1e3:.3f} us "
         f"({b_by}) -> {'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
         raise RuntimeError(f"K8 {name} disagrees with its plain version")
@@ -2048,6 +2126,7 @@ def voice_phase(tok, gen, card_line):
     nq, nk = talker_t.num_heads, talker_t.num_kv_heads
     k8 = [check_k8("1.7B prefill", 1, P, eng.kv_ladder[0], nq, nk, "prefill", gen, iters=50)]
     k8 += [check_k8("random GQA", *shape, "random", gen) for shape in K8_RANDOM_SHAPES]
+    k8 += [check_k8("key range", *case, gen) for case in K8_SCHEDULE_CASES]
     bounds["K8"] = k8[0][4]
 
     layers = talker_t.num_layers
@@ -2402,18 +2481,52 @@ def check_p1_ring(gen, calls=10):
     return times
 
 
+# a late stage (the checks' one-slot pass): each block's thread 0 issues a
+# stage past the first only this long after its other warps reach their
+# wait, so a stage read before its wait reads the slot's previous unit
+P2_STALL_NS = 20_000
+
+
+def check_p2_ring(gen, calls=10):
+    """P2's ring kernel against the group kernel it replaced (``p2_multi``),
+    both arms, bit for bit: a 2-unit chain (one pass) and the whole chain (U
+    units x P passes) from the probe's input and from a seeded one; a 2-unit
+    and a whole chain again with a one-slot ring whose stages are issued
+    P2_STALL_NS late; then each arm timed in turns with the group
+    kernel (group, ring, ring, group).  Returns {arm: (ring ms, group ms)}
+    per call of the whole chain."""
+    times = {}
+    w, s, x0 = P2.make_inputs(DEV)
+    xr = torch.randn((1, P2.H), generator=gen, device=DEV)
+    runs = [(w[:2], s[:2], x, 1) for x in (x0, xr)] + [(w, s, x, P2.P) for x in (x0, xr)]
+    for arm in P2.ARMS:
+        equal = sum(bool(torch.equal(P2.chain(arm, *r), p2_multi(arm, *r))) for r in runs)
+        slot = one_slot_ring(lambda: sum(bool(torch.equal(P2.chain(arm, *r), p2_multi(arm, *r)))
+                                         for r in runs[1:3]), probe_stall_ns=P2_STALL_NS)
+        log(f"P2 {arm} ring kernel vs the group kernel: {equal}/{len(runs)} chains equal bit for "
+            f"bit (2-unit and {P2.P} x {w.shape[0]}-unit chains, the probe's and a seeded input), "
+            f"{slot}/2 with a one-slot ring and stages issued {P2_STALL_NS} ns late -> "
+            f"{'ok' if equal == len(runs) and slot == 2 else 'FAIL'} [{CARD}]")
+        if equal != len(runs) or slot != 2:
+            raise RuntimeError(f"P2 {arm}: the ring kernel differs from the group kernel")
+        times[arm] = in_turns(f"P2 {arm} chain of {P2.P * w.shape[0]} units",
+                              lambda: p2_multi(arm, w, s, x0), lambda: P2.chain(arm, w, s, x0),
+                              calls, names=("group kernel", "ring"))
+    return times
+
+
 def probe_phase():
     """Probes P1 and P2 through their entry points: every arm against its
-    plain version and timed beside one PyTorch call of the unit product; P1
-    only on the ring kernel, P2 only on the group kernel.  Returns (launch
-    counts, P1 results, P2 results)."""
+    plain version and timed beside one PyTorch call of the unit product,
+    both only on the ring kernel.  Returns (launch counts, P1 results, P2
+    results)."""
     reset_launches()
     p1 = P1.run()
     if ENTRY_CALLS != {"qtts_unit_probe_ring": P1.chain.launches}:
         raise RuntimeError(f"P1's entry point ran {ENTRY_CALLS}, not only the ring kernel")
     p2 = P2.run()
-    if ENTRY_CALLS.get("qtts_unit_probe") != P2.chain.launches:
-        raise RuntimeError(f"P2's entry point ran {ENTRY_CALLS}, not only the group kernel")
+    if ENTRY_CALLS != {"qtts_unit_probe_ring": P1.chain.launches + P2.chain.launches}:
+        raise RuntimeError(f"P2's entry point ran {ENTRY_CALLS}, not only the ring kernel")
     counts = launches()
     for r in p1 + p2:
         if not (r["ok"] and r["finite"]):
@@ -2695,6 +2808,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k7, bounds["K7"], _ = frame_checks(cfg, gen)
     check_p1_ring(gen6)
+    check_p2_ring(gen6)
     probed, p1, p2 = probe_phase()
 
     t0 = time.perf_counter()

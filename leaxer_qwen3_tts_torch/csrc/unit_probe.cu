@@ -32,19 +32,22 @@
 // per unit, about a microsecond, is of the same order, so the probe times
 // transport and barrier together, as the TPU probe timed transport and step.
 //
-// Two kernels.  probe_kernel (P2's, and P1's reference, qtts_unit_probe):
-// SM count x resident blocks per SM, each unit cut into 16-row groups dealt
-// over the grid, the weights loaded with __ldg after the unit's barrier.
-// ring_kernel (P1, qtts_unit_probe_ring): one block per SM, each owning a
+// Two kernels.  probe_kernel (the reference of both probes' ring kernel,
+// qtts_unit_probe, run only by the checks): SM count x resident blocks per
+// SM, each unit cut into 16-row groups dealt over the grid, the weights
+// loaded with __ldg after the unit's barrier.
+// ring_kernel (P1 and P2, qtts_unit_probe_ring): one block per SM, each owning a
 // fixed range of every unit's rows (tools/unit_probe.py::probe_plan, in
 // multiples of four rows); the block's stage sequence is the walk itself,
 // stage i its rows of weight unit i % n_u and their scales, one TMA bulk
 // copy each into a ring of n_slots shared-memory slots (qtts_stream.cuh's
 // mbarrier and bulk-copy helpers).  The weights do not depend on the data, so
 // thread 0 keeps n_slots stages in flight across the per-unit grid barrier.
-// Each arm's arithmetic is probe_kernel's (the input prologue, the lane
-// order, the conversions, the warp reduction), so every output equals it bit
-// for bit.
+// Each arm's arithmetic is probe_kernel's (the input prologue of the probe,
+// its a8 quantisation, the lane order, the conversions, the warp reduction),
+// so every output equals it bit for bit.  P2 (R = 1, NW = K) keeps its
+// running input xe in the block's input area across the units, as
+// probe_kernel's blocks do.
 
 #include "qtts_stream.cuh"
 
@@ -253,10 +256,11 @@ struct RingArgs {
   const float* s;         // [n_u, NW] row scales
   const float* x0;        // [R, K] the first unit's input
   float* y;               // [2, R, NW] unit outputs, alternating
-  float* out;             // [R, K] the last output normalised
+  float* out;             // [R, K] P1: the last output normalised; P2: the last running input
   const int32_t* bounds;  // [grid + 1]: block b owns rows [b], [b + 1]) of every unit
   int32_t arm, n_u, steps, R, K, NW;
   int32_t grid, n_slots, slot_bytes, slot_rows, in_bytes, smem_bytes;
+  int32_t issue_stall_ns;  // checks only (0 on every path): see the stage's wait
 };
 
 // The plans' layout (qtts_plan_layout) with the input area as the union region.
@@ -380,6 +384,9 @@ static __device__ __forceinline__ void ring_row(const RingArgs& a, const unsigne
   }
 }
 
+// PROBE (1 or 2) is a template argument: read from the arguments, it made
+// P1's chain ~2% slower on an H100 (chip_ab.py --kernels)
+template <int PROBE>
 __global__ void __launch_bounds__(kThreads, 1) ring_kernel(const __grid_constant__ RingArgs a) {
   extern __shared__ __align__(128) unsigned char ring_smem[];
   unsigned char* smem = ring_smem;
@@ -400,10 +407,11 @@ __global__ void __launch_bounds__(kThreads, 1) ring_kernel(const __grid_constant
     for (int s = 0; s < ring.n_slots; ++s) ring_issue(ring, a, s, r0, rows);
   }
   for (int i = 0;; ++i) {
-    // prologue: probe_kernel's (probe 1), the unit's input from the previous
-    // unit's output (all of it, in every block), the same expressions in the
-    // same order; a thread's loads of PV values are issued together (other
-    // blocks wrote them in this launch: read past L1)
+    // prologue: probe_kernel's, the unit's input from the previous unit's
+    // output (all of it, in every block), the same expressions in the same
+    // order (P1: the folded output, normalised; P2: y * 1e-3 + the running
+    // input, R = 1 and NW = K); a thread's loads of PV values are issued
+    // together (other blocks wrote them in this launch: read past L1)
     constexpr int PV = 4;
     const float* yp = a.y + (size_t)((i + 1) & 1) * R * NW;
     __syncthreads();  // the previous unit is done with xb and qs
@@ -429,13 +437,20 @@ __global__ void __launch_bounds__(kThreads, 1) ring_kernel(const __grid_constant
       for (int j = 0; j < PV; ++j) {
         const int e = e0 + j * kThreads;
         if (e < RK) {
-          const float x = i > 0 && NW != K ? __fadd_rn(v[j], w[j]) : v[j];
+          float x;
+          if (i == 0) {
+            x = v[j];
+          } else if (PROBE == 2) {
+            x = __fadd_rn(__fmul_rn(v[j], 1e-3f), xe[e]);
+          } else {
+            x = NW != K ? __fadd_rn(v[j], w[j]) : v[j];
+          }
           xe[e] = x;
           ss += x * x;
         }
       }
     }
-    if (i > 0) {
+    if (PROBE == 1 && i > 0) {
       const float rn = rsqrtf(qtts_block_reduce(ss, QttsSumF()) / (float)RK + 1e-6f);
       for (int e = tid; e < RK; e += blockDim.x) xe[e] = xe[e] * rn;
     }
@@ -448,11 +463,11 @@ __global__ void __launch_bounds__(kThreads, 1) ring_kernel(const __grid_constant
       float amax = 0.f;
       for (int k = tid; k < K; k += blockDim.x) amax = fmaxf(amax, fabsf(xe[k]));
       amax = qtts_block_reduce(amax, QttsMaxF());
-      sx = fmaxf(amax / 127.f, 1e-8f);
+      sx = PROBE == 1 ? fmaxf(amax / 127.f, 1e-8f) : amax * (1.f / 127.f);
       const float inv = 1.f / sx;
       for (int k = tid; k < K; k += blockDim.x) {
         float q = rintf(xe[k] * inv);
-        q = fminf(fmaxf(q, -127.f), 127.f);
+        if (PROBE == 1) q = fminf(fmaxf(q, -127.f), 127.f);
         qs[k] = (int8_t)(int)q;
       }
     } else {
@@ -460,8 +475,17 @@ __global__ void __launch_bounds__(kThreads, 1) ring_kernel(const __grid_constant
     }
     __syncthreads();
 
-    // the block's rows of stage i, one row per warp at a time
+    // the block's rows of stage i, one row per warp at a time.  With
+    // issue_stall_ns (a check's setting), stage i >= n_slots is issued only
+    // here, that long after the other warps reach their wait: a warp that
+    // read its stage before the wait would read the slot's previous stage
     const int slot = i % ring.n_slots;
+    if (a.issue_stall_ns > 0 && tid == 0 && i >= ring.n_slots) {
+      const uint64_t t0 = qtts_globaltimer();
+      while (qtts_globaltimer() - t0 < (uint64_t)a.issue_stall_ns) {
+      }
+      ring_issue(ring, a, i, r0, rows);
+    }
     qtts_mbar_wait(ring.full + slot, (uint32_t)(i / ring.n_slots) & 1u);
     const unsigned char* ws = ring.slots + (size_t)slot * ring.slot_bytes;
     const float* sc = ring.scales + (size_t)slot * ring.slot_rows;
@@ -471,7 +495,7 @@ __global__ void __launch_bounds__(kThreads, 1) ring_kernel(const __grid_constant
       ring_row(a, ws + r * row_bytes, sc[r], xb, qs, sx, yo, r0 + r, lane);
     }
     __syncthreads();  // every warp is done with the slot
-    if (tid == 0) ring_issue(ring, a, i + ring.n_slots, r0, rows);
+    if (tid == 0 && a.issue_stall_ns == 0) ring_issue(ring, a, i + ring.n_slots, r0, rows);
     qtts_grid_sync();
   }
   if (blockIdx.x == 0) {
@@ -483,7 +507,8 @@ __global__ void __launch_bounds__(kThreads, 1) ring_kernel(const __grid_constant
 
 extern "C" {
 
-// Probe entry: one call of the chain (P1: probe 1, P2: probe 2).
+// The group kernel: one call of the chain (P1: probe 1, P2: probe 2), the
+// reference the ring kernel is held to.
 int qtts_unit_probe(const void* w, const float* s, const float* x0, float* y, float* out,
                     int arm, int probe, int n_u, int steps, int R, int K, int NW, void* stream) {
   if (K % 16 != 0 || R < 1 || R > kMaxRows || (R > 1) != (arm == ARM_M8) ||
@@ -516,25 +541,29 @@ int qtts_unit_probe(const void* w, const float* s, const float* x0, float* y, fl
   return (int)cudaGetLastError();
 }
 
-// P1's entry: one call of the chain on the weight ring (probe 1's arms);
-// bounds [grid + 1] and the ring's geometry from tools/unit_probe.py::probe_plan.
+// The probes' entry: one call of the chain on the weight ring (P1: probe 1,
+// P2: probe 2); bounds [grid + 1] and the ring's geometry from
+// tools/unit_probe.py::probe_plan; issue_stall_ns is zero but in checks.
 int qtts_unit_probe_ring(const void* w, const float* s, const float* x0, float* y, float* out,
-                         const int32_t* bounds, int arm, int n_u, int steps, int R, int K, int NW,
-                         int grid, int n_slots, int slot_bytes, int slot_rows, int in_bytes,
-                         int smem_bytes, void* stream) {
+                         const int32_t* bounds, int arm, int probe, int n_u, int steps, int R,
+                         int K, int NW, int grid, int n_slots, int slot_bytes, int slot_rows,
+                         int in_bytes, int smem_bytes, int issue_stall_ns, void* stream) {
   const int esize = arm == ARM_BF16 ? 2 : 1;
-  if (K % 16 != 0 || R < 1 || R > kMaxRows || (R > 1) != (arm == ARM_M8) || n_u < 1 ||
-      steps < 1 || arm < ARM_CONV || arm > ARM_M8 || (arm == ARM_W2048) != (NW == 2 * K) ||
+  if (K % 16 != 0 || R < 1 || R > kMaxRows || (R > 1) != (arm == ARM_M8) ||
+      (probe == 2 && (R != 1 || NW != K || (arm != ARM_CONV && arm != ARM_A8))) || n_u < 1 ||
+      steps < 1 || (probe != 1 && probe != 2) || issue_stall_ns < 0 || arm < ARM_CONV ||
+      arm > ARM_M8 || (arm == ARM_W2048) != (NW == 2 * K) ||
       (arm != ARM_W2048 && NW != K) || NW % 4 != 0 || grid < 1 || n_slots < 1 ||
       slot_bytes % 16 != 0 || slot_rows % 4 != 0 || (size_t)slot_rows * K * esize > (size_t)slot_bytes ||
       in_bytes % 128 != 0 || (size_t)in_bytes < probe_smem(R, K) || bounds == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const RingArgs a{w, s, x0, y, out, bounds, arm, n_u, steps, R, K, NW,
-                   grid, n_slots, slot_bytes, slot_rows, in_bytes, smem_bytes};
+                   grid, n_slots, slot_bytes, slot_rows, in_bytes, smem_bytes, issue_stall_ns};
   if (ring_layout(a).total != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
-  return qtts_launch_persistent(ring_kernel, a, grid, smem_bytes,
-                                static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return probe == 1 ? qtts_launch_persistent(ring_kernel<1>, a, grid, smem_bytes, st)
+                    : qtts_launch_persistent(ring_kernel<2>, a, grid, smem_bytes, st);
 }
 
 }  // extern "C"

@@ -240,7 +240,7 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_mtp_chain_streamed_multi.restype = i32
             lib.qtts_mtp_chain_streamed_multi.argtypes = lib.qtts_mtp_chain_multi.argtypes
             lib.qtts_flash_attend.restype = i32
-            lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
+            lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 8), vp]
             lib.qtts_norm_head.restype = i32
             lib.qtts_norm_head.argtypes = [vp, vp, ctypes.c_float, vp, vp, vp, vp, i32, i32, vp]
             lib.qtts_frame_step.restype = i32
@@ -254,7 +254,7 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_unit_probe.restype = i32
             lib.qtts_unit_probe.argtypes = [vp, vp, vp, vp, vp, *([i32] * 7), vp]
             lib.qtts_unit_probe_ring.restype = i32
-            lib.qtts_unit_probe_ring.argtypes = [vp, vp, vp, vp, vp, vp, *([i32] * 12), vp]
+            lib.qtts_unit_probe_ring.argtypes = [vp, vp, vp, vp, vp, vp, *([i32] * 14), vp]
             lib.qtts_verify_step.restype = i32
             lib.qtts_verify_step.argtypes = [
                 W, BS, P, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,

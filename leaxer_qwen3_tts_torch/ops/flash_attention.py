@@ -17,15 +17,26 @@ cached forward of such a config).  Its arithmetic, which differs from
 * the q/kv head of q head h is h // (nq / nk); the output is cast to q.dtype.
 
 On a CUDA tensor :func:`flash_attend` launches the hand-written kernel
-(``csrc/flash_attention.cu``); on a CPU tensor it runs the plain version
-:func:`flash_attend_reference`.
+(``csrc/flash_attention.cu``; tensor cores for bf16 inputs, CUDA cores for
+float32 ones); on a CPU tensor it runs the plain version
+:func:`flash_attend_reference`.  The kernel's schedule is here too: the
+query positions per block (:func:`query_tile`), each block's key-tile range
+and the rows that allow no key (:func:`key_schedule`), the plain version run
+over only that range (:func:`flash_attend_scheduled`), and its P.V with P
+split into two bf16 terms (:func:`split_pv`).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 NEG_INF = -1e30
+MAX_ROWS = 16  # stacked rows (q heads x query positions) of a kernel block: one m16 tile
+# keys per tile of the kernel: 64 on the tensor cores (bf16), 32 on the CUDA
+# cores (float32: a lane per key)
+KEY_TILE = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def block_t(T: int) -> int:
@@ -38,6 +49,98 @@ def padded_keys(T: int) -> int:
     visits (the ones past T masked, with zero values)."""
     bt = block_t(T)
     return -(-T // bt) * bt
+
+
+def query_tile(g: int, B: int, nk: int, S: int, sms: int) -> int:
+    """Query positions per kernel block, whose g * qt rows are the g q heads
+    of its kv head at qt positions: 16 // g (a full m16 tile) when that gives
+    every one of the ``sms`` SMs a block, else 8 // g (half a tile, twice the
+    blocks).  The 1.7B prefill (B=1, nk=8, g=2, S=57) takes 4: 120 blocks."""
+    if not 1 <= g <= MAX_ROWS:
+        raise ValueError(f"the kernel stacks at most {MAX_ROWS} q heads per kv head, got {g}")
+    full = MAX_ROWS // g
+    if B * nk * -(-S // full) >= sms:
+        return full
+    return max(1, MAX_ROWS // 2 // g)
+
+
+def key_schedule(mask: torch.Tensor, qt: int, key_tile: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's key range, from the mask [B, S, T] alone: for each block
+    of qt query positions (and every head), the first and last key tile in
+    which any of its positions allows a key (lo, hi [B, ceil(S / qt)]; hi <
+    lo where none does), and per position whether it allows any key (alive
+    [B, S]).  The block visits tiles lo .. hi only; a position that is not
+    alive takes the closed form sum_{t<T} v_t / Tp."""
+    B, S, T = mask.shape
+    n = -(-S // qt)
+    m = torch.nn.functional.pad(mask.bool(), (0, 0, 0, n * qt - S))
+    blk = m.view(B, n, qt, T).any(dim=2)  # [B, n, T]: keys any position of the block allows
+    keys = torch.arange(T, device=mask.device)
+    some = blk.any(dim=-1)
+    first = torch.where(blk, keys, T).amin(dim=-1)
+    last = torch.where(blk, keys, -1).amax(dim=-1)
+    lo = torch.where(some, first // key_tile, 0)
+    hi = torch.where(some, last // key_tile, -1)
+    return lo, hi, mask.bool().any(dim=-1)
+
+
+def flash_attend_scheduled(
+    q: torch.Tensor,  # [B, S, Nq, D]
+    k: torch.Tensor,  # [B, Nk, T, D]
+    v: torch.Tensor,  # [B, Nk, T, D]
+    mask: torch.Tensor,  # [B, S, T] bool
+    qt: int,
+    key_tile: int,
+) -> torch.Tensor:
+    """The plain version run as the kernel schedules it: per block of qt
+    query positions, the float32 online softmax over key tiles lo .. hi of
+    :func:`key_schedule` only (keys past T masked, with zero values), and
+    sum_{t<T} v_t / Tp for a position that allows no key.  Float32
+    arithmetic throughout; returns [B, S, Nq, D] in q.dtype."""
+    B, S, nq, d = q.shape
+    nk, T = k.shape[1], k.shape[2]
+    g = nq // nk
+    lo, hi, alive = key_schedule(mask, qt, key_tile)
+    nt = -(-T // key_tile)
+    pad = nt * key_tile - T
+    kp = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    mp = torch.nn.functional.pad(mask.bool(), (0, pad))
+    closed = v.float().sum(dim=2) / padded_keys(T)  # [B, nk, d]
+    qs = q.float() * (1.0 / d ** 0.5)
+    out = torch.empty((B, S, nq, d), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for i in range(lo.shape[1]):
+            s0, s1 = i * qt, min(S, (i + 1) * qt)
+            qh = qs[b, s0:s1].reshape(s1 - s0, nk, g, d).permute(1, 0, 2, 3)  # [nk, P, g, d]
+            acc = torch.zeros((nk, s1 - s0, g, d), device=q.device)
+            m = torch.full((nk, s1 - s0, g, 1), NEG_INF, device=q.device)
+            l = torch.zeros((nk, s1 - s0, g, 1), device=q.device)
+            for j in range(int(lo[b, i]), int(hi[b, i]) + 1):
+                t0, t1 = j * key_tile, (j + 1) * key_tile
+                sc = torch.einsum("npgd,ntd->npgt", qh, kp[b, :, t0:t1])
+                sc = torch.where(mp[b, s0:s1, None, None, t0:t1].transpose(0, 1), sc, NEG_INF)
+                m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+                p = torch.exp(sc - m_new)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + torch.einsum("npgt,ntd->npgd", p, vp[b, :, t0:t1])
+                m = m_new
+            o = torch.where(alive[b, s0:s1, None, None, None].transpose(0, 1),
+                            acc / torch.clamp(l, min=1e-30), closed[b, :, None, None, :])
+            out[b, s0:s1] = o.permute(1, 0, 2, 3).reshape(s1 - s0, nq, d)
+    return out.to(q.dtype)
+
+
+def split_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """P.V as the tensor-core kernel forms it: P (float32) split into hi =
+    bf16(P) and lo = bf16(P - hi), each times bf16 V with float32 sums; the
+    weights keep ~16 bits (|P - hi - lo| <= 2^-17 |P|)."""
+    hi = p.to(torch.bfloat16)
+    lo = (p - hi.float()).to(torch.bfloat16)
+    vb = v.to(torch.bfloat16).float()
+    return torch.matmul(hi.float(), vb) + torch.matmul(lo.float(), vb)
 
 
 def flash_attend_reference(
@@ -84,6 +187,7 @@ def flash_attend(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attend: unsupported device {q.device}")
     from ._build import check, load_kernels
+    from .persistent import grid_size
 
     B, S, nq, d = q.shape
     nk, T = k.shape[1], k.shape[2]
@@ -102,12 +206,16 @@ def flash_attend(
     for t in (k, v, m8):
         if not t.is_cuda:
             raise ValueError("flash_attend: every tensor must be on CUDA")
+    # the tensor-core kernel copies 16-byte runs of q, k and v
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attend: q, k and v must be 16-byte aligned")
+    qt = query_tile(nq // nk, B, nk, S, grid_size(q.device))  # raises past 16 q heads per kv head
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flash_attend.launches += 1
     err = load_kernels().qtts_flash_attend(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m8.data_ptr(), out.data_ptr(),
-        B, S, nq, nk, T, padded_keys(T), int(q.dtype == torch.bfloat16), stream,
+        B, S, nq, nk, T, padded_keys(T), qt, int(q.dtype == torch.bfloat16), stream,
     )
     check(err, "flash_attend")
     return out

@@ -3,12 +3,12 @@
 :func:`launch` runs one call of the chain on the card: ``steps`` walks over
 the ``n_u`` unit weights ``w`` ([n_u, NW, K] rows, int8 or bf16) from ``x0``
 ([R, K] float32), each unit a grid-wide phase of one persistent cooperative
-kernel: P1's on the weight ring (``ring=True``: one block per SM, each
-owning a fixed range of every unit's rows, its stages the walk itself, by
-the plan of :func:`probe_plan`), P2's (and P1's reference) with each unit
-cut into 16-row groups.  The probes' modules hold each arm's plain PyTorch
-version and time both on the card beside one PyTorch call of the unit
-product.
+kernel: the probes' kernel on the weight ring (``ring=True``: one block per
+SM, each owning a fixed range of every unit's rows, its stages the walk
+itself, by the plan of :func:`probe_plan`), or the group kernel it is held
+to bit for bit (each unit cut into 16-row groups; the checks' reference).
+The probes' modules hold each arm's plain PyTorch version and time both on
+the card beside one PyTorch call of the unit product.
 """
 
 from __future__ import annotations
@@ -41,11 +41,13 @@ class ProbePlan(NamedTuple):
     n_slots: int
     in_bytes: int  # the unit's input, its bf16 rounding and its a8 quantisation
     smem_bytes: int
+    issue_stall_ns: int = 0  # checks only: each stage past the first slots issued late
 
 
 def probe_plan(arm: str, R: int, K: int, NW: int, grid: int) -> ProbePlan:
-    """P1's ring plan on ``grid`` blocks for units of [NW, K] rows (bf16 for
-    the bf16 arm, else int8) and R activation rows: the rows balanced over
+    """The ring plan on ``grid`` blocks for units of [NW, K] rows (bf16 for
+    the bf16 arm, else int8) and R activation rows (P1's arms; P2's conv and
+    a8 arms are P1's at R = 1, K = NW = 1024): the rows balanced over
     the grid in multiples of four (``persistent.split_rows``), and as many
     ring slots as fit beside the input area.  The layout mirrors
     ``ring_layout`` in ``csrc/unit_probe.cu``."""
@@ -90,12 +92,15 @@ def _device_plan(arm: str, R: int, K: int, NW: int, device):
 
 def launch(wrapper, arm: str, probe: int, w: torch.Tensor, s: torch.Tensor, x0: torch.Tensor,
            steps: int, ring: bool = False) -> torch.Tensor:
-    """One kernel call on CUDA tensors, counted on ``wrapper``: P1's ring
-    kernel (``ring``, probe 1) or the group kernel.  Returns the chain's
-    result [R, K] (P1: the last output normalised; P2: the last running
-    input)."""
+    """One kernel call on CUDA tensors, counted on ``wrapper``: the ring
+    kernel (``ring``) or the group kernel, for ``probe`` 1 or 2.  Returns the
+    chain's result [R, K] (P1: the last output normalised; P2: the last
+    running input)."""
     from ..ops._build import check, load_kernels
 
+    if probe not in (1, 2):
+        raise ValueError(f"{wrapper.__name__}: the kernels run probe 1's or probe 2's chain, "
+                         f"not probe {probe}'s")
     for t in (w, s, x0):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{wrapper.__name__}: every tensor must be contiguous and on CUDA")
@@ -104,8 +109,6 @@ def launch(wrapper, arm: str, probe: int, w: torch.Tensor, s: torch.Tensor, x0: 
     want = torch.bfloat16 if arm == "bf16" else torch.int8
     if w.dtype != want or s.dtype != torch.float32 or x0.dtype != torch.float32:
         raise ValueError(f"{wrapper.__name__} {arm}: weights {want}, scales and x0 float32")
-    if ring and probe != 1:
-        raise ValueError(f"{wrapper.__name__}: the ring kernel runs probe 1's chain")
     # the bulk copies move 16-byte-aligned runs of rows and scales
     if ring and (w.data_ptr() % 16 or s.data_ptr() % 16):
         raise ValueError(f"{wrapper.__name__}: weights and scales must be 16-byte aligned")
@@ -118,9 +121,9 @@ def launch(wrapper, arm: str, probe: int, w: torch.Tensor, s: torch.Tensor, x0: 
         plan, bounds = _device_plan(arm, R, K, NW, w.device)
         wrapper.launches += 1
         err = lib.qtts_unit_probe_ring(
-            *ptrs, bounds.data_ptr(), ARM_IDS[arm], n_u, steps, R, K, NW, plan.grid,
+            *ptrs, bounds.data_ptr(), ARM_IDS[arm], probe, n_u, steps, R, K, NW, plan.grid,
             plan.n_slots, plan.slot_bytes, plan.slot_rows, plan.in_bytes, plan.smem_bytes,
-            stream,
+            plan.issue_stall_ns, stream,
         )
     else:
         wrapper.launches += 1

@@ -4,7 +4,10 @@ converting int8 weights to bf16?
 Port of ``tools/w8a8_probe.py`` (the JAX package's TPU probe).  ``P``
 passes over ``U`` [1024, 1024] int8 units (16 MB), each unit's input the
 previous unit's y * 1e-3 + its input, in one persistent kernel
-(``csrc/unit_probe.cu``).  Arms:
+(``csrc/unit_probe.cu``'s ring kernel, P1's: each block's rows of every unit
+stream through a TMA weight ring, stages in flight across the per-unit grid
+barrier; the 16 MB stack stays in the 50 MB L2 after the first pass).
+Arms:
 
     bf16   int8 weights converted to bf16, bf16 activations, float32 sums
     w8a8   the activation quantised to int8 (sa = max|x| / 127, no clip),
@@ -70,7 +73,7 @@ def chain(arm: str, w: torch.Tensor, s: torch.Tensor, x: torch.Tensor,
     """One call: the kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return chain_reference(arm, w, s, x, passes)
-    return launch(chain, KERNEL_ARM[arm], 2, w, s, x, passes)
+    return launch(chain, KERNEL_ARM[arm], 2, w, s, x, passes, ring=True)
 
 
 chain.launches = 0  # kernel launches, for chip_smoke.py's path check

@@ -9,18 +9,20 @@ stage fits its ring slot, the launch's shared memory (ring, the batch rows'
 inputs, two attention items) fits a Hopper block, and the attention tickets
 cover every (row, kv head).  The batched attention's item dealing, against
 a model of what it must run, at K4's rows and at K6's B x S rows (its row
-map: row r on cache row r // S at the clamped start plus r % S).  And probe
-P1's ring plan (tools/unit_probe.py) for every arm: every row of every unit
-in exactly one block's range, the stages in walk order, the shared memory
-within a block's."""
+map: row r on cache row r // S at the clamped start plus r % S).  And the
+probes' ring plan (tools/unit_probe.py) for every arm of P1 and both arms of
+P2: every row of every unit in exactly one block's range, the stages in walk
+order, the shared memory within a block's; ``launch`` refuses a probe other
+than 1 or 2."""
 
 from __future__ import annotations
 
 import pytest
+import torch
 
 from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B, QWEN3_TTS_17B
 from leaxer_qwen3_tts_torch.ops import persistent
-from leaxer_qwen3_tts_torch.tools import a8_probe, unit_probe
+from leaxer_qwen3_tts_torch.tools import a8_probe, unit_probe, w8a8_probe
 
 _MTP06 = (QWEN3_TTS_06B.code_predictor.transformer,
           QWEN3_TTS_06B.code_predictor.subcode_vocab_size)
@@ -282,12 +284,24 @@ def test_attention_items_run_once(B, T, positions, grid):
     assert all(tickets[(b, h)] == pos[b] // persistent.ATTN_CHUNK + 1 for b, h in tickets)
 
 
-PROBE_ARMS = [(arm, grid) for arm in a8_probe.ARMS for grid in GRIDS]
+# P1's arms; P2's kernel arms ("p2-" + conv or a8: R = 1, K = NW = 1024) also
+# on half an H100's SMs
+PROBE_ARMS = ([(arm, grid) for arm in a8_probe.ARMS for grid in GRIDS]
+              + [("p2-" + w8a8_probe.KERNEL_ARM[arm], grid) for arm in w8a8_probe.ARMS
+                 for grid in GRIDS + (66,)])
+
+
+def _probe_shape(arm):
+    """(kernel arm, R, K, NW, units, walks) of a P1 arm or a "p2-" arm."""
+    if arm.startswith("p2-"):
+        return arm[3:], 1, w8a8_probe.H, w8a8_probe.N, w8a8_probe.U, w8a8_probe.P
+    NW = 2 * a8_probe.H if arm == "w2048" else a8_probe.H
+    return arm, a8_probe.rows(arm), a8_probe.H, NW, a8_probe.U, a8_probe.S
 
 
 def _probe_plan(arm, grid):
-    NW = 2 * a8_probe.H if arm == "w2048" else a8_probe.H
-    return unit_probe.probe_plan(arm, a8_probe.rows(arm), a8_probe.H, NW, grid), NW
+    kernel_arm, R, K, NW, _, _ = _probe_shape(arm)
+    return unit_probe.probe_plan(kernel_arm, R, K, NW, grid), NW
 
 
 @pytest.mark.parametrize("arm,grid", PROBE_ARMS)
@@ -314,13 +328,14 @@ def test_probe_ring_stages_walk_in_order(arm, grid):
     """A block's stages are the walk itself: stage i carries unit i % n_u,
     i = 0 .. steps x n_u - 1, and fits one slot (rows and scales)."""
     plan, _ = _probe_plan(arm, grid)
+    _, _, K, _, U, S = _probe_shape(arm)
     esize = 2 if arm == "bf16" else 1
     for blk in (0, grid // 2, grid - 1):
-        stages = unit_probe.probe_stages(plan, blk, a8_probe.U, a8_probe.S)
-        assert [i for i, *_ in stages] == list(range(a8_probe.S * a8_probe.U))
-        assert [u for _, u, *_ in stages] == [i % a8_probe.U for i in range(len(stages))]
+        stages = unit_probe.probe_stages(plan, blk, U, S)
+        assert [i for i, *_ in stages] == list(range(S * U))
+        assert [u for _, u, *_ in stages] == [i % U for i in range(len(stages))]
         for _, _, _, rows in stages:
-            assert rows * a8_probe.H * esize <= plan.slot_bytes and rows <= plan.slot_rows
+            assert rows * K * esize <= plan.slot_bytes and rows <= plan.slot_rows
     assert plan.slot_bytes % 16 == 0 and plan.slot_rows % persistent.ROW_QUANTUM == 0
 
 
@@ -329,7 +344,7 @@ def test_probe_ring_shared_memory_fits(arm, grid):
     """The input area, the ring's barriers, scales and slots fit a Hopper
     block, and one more slot would not."""
     plan, _ = _probe_plan(arm, grid)
-    R, K = a8_probe.rows(arm), a8_probe.H
+    _, R, K, _, _, _ = _probe_shape(arm)
     assert plan.in_bytes % 128 == 0 and plan.in_bytes >= 2 * R * K * 4 + K
     lay = persistent.smem_layout(plan.n_slots, plan.slot_bytes, plan.slot_rows, plan.in_bytes)
     assert lay["total"] == plan.smem_bytes and lay["slots"] % 128 == 0
@@ -343,3 +358,14 @@ def test_probe_ring_shared_memory_fits(arm, grid):
 def test_probe_plan_refuses_a_grid_past_the_rows():
     with pytest.raises(ValueError):
         unit_probe.probe_plan("conv", 1, 1024, 1024, 1024 // persistent.ROW_QUANTUM + 1)
+
+
+@pytest.mark.parametrize("probe", [0, 3])
+def test_probe_launch_refuses_other_probes(probe):
+    """The kernels run probe 1's and probe 2's chains only: ``launch``
+    refuses any other probe number before it touches the card."""
+    w, s = torch.zeros((1, 1024, 1024), dtype=torch.int8), torch.ones((1, 1024))
+    x0 = torch.zeros((1, 1024))
+    for ring in (True, False):
+        with pytest.raises(ValueError, match="probe"):
+            unit_probe.launch(w8a8_probe.chain, "conv", probe, w, s, x0, 1, ring=ring)
