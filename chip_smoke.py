@@ -103,7 +103,27 @@ prints the final line:
    K6 and one K5 per verify iteration; K2 for each frame 0 at B=1.  On
    every main path no launch-per-op entry (``qtts_*_multi``) runs: the
    library's entries are counted where the wrappers call them.
-10. The 1.7B voice slice (``QWEN3_TTS_17B`` with the talker's
+10. Entry points, at the 0.6B preset's full width: the port's
+   ``save_checkpoint`` writes a checkpoint directory (random bf16 weights
+   from a seed with a speaker encoder, ~1.7 GB of npz, and the byte-level
+   tokenizer files); ``load_checkpoint`` reads it back bit for bit (save and
+   load seconds and GB/s printed); ``TTSEngine(<dir>, quantize="int8")``
+   decodes the greedy codes of the engine built on the same params; the CLI
+   runs in this process (``cli.main``, so the launch counters see it) on the
+   directory: one-shot, ``--frame-fused on``, ``--stream``, ``--ref`` (a 3 s
+   WAV made from the first run's audio) and ``--spec-k 4`` exit 0 with a mono
+   16-bit 24 kHz WAV, one K1 and one K2 per decoded frame (one K7 under
+   ``--frame-fused on``; one K6 and one K5 per verify iteration and K2 for
+   frame 0 under ``--spec-k``) and no launch-per-op entry; without
+   ``--quantize`` and with ``--kv-quant`` it exits 1 with the engine's
+   error.  The speaker embedding of that WAV on the card is within SPK_REL
+   of the same checkpoint's on the CPU (ms per call printed).  The server
+   (``python -m leaxer_qwen3_tts_torch.serve``) runs as a subprocess: its
+   warmup seconds, two requests (``/synthesize``: a WAV; ``/synthesize_stream``:
+   16-bit PCM), exit 0 on SIGINT, each step under a stated timeout.  Last,
+   one ``synthesize`` with ``QTTS_PROFILE`` set writes a Chrome trace that
+   holds the ``synthesize`` range and K1's and K2's kernels by name.
+11. The 1.7B voice slice (``QWEN3_TTS_17B`` with the talker's
    ``attn_impl="pallas"``, random weights made on the card from a seed, int8,
    bf16 KV cache, a random [9, 2048] speaker table): K1 at the 1.7B widths
    (28 layers, and one layer with 24 seeded inputs per float32 / bf16 case
@@ -126,28 +146,37 @@ prints the final line:
    beside ``scaled_dot_product_attention``; then
    ``synthesize(instruct=...)`` and ``synthesize_speaker("serena")`` through
    the engine and a fixed 300-frame instruct run: one K1 and one K3 per
-   decoded frame, no K2, and 28 K8 launches per prefill.
-11. The kernel report (each kernel's launches on the main paths, error
+   decoded frame, no K2, and 28 K8 launches per prefill.  With
+   ``QTTS_MTP_STREAM=0`` (the streamed chain off) the 1.7B engine is not
+   ready: its error names the per-step chain, which is not ported.
+12. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time) and the device line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import queue
+import re
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+import wave
 
 import numpy as np
 import torch
 
 from leaxer_qwen3_tts_torch.api.engine import TTSEngine
+from leaxer_qwen3_tts_torch.cli.main import main as cli_main
 from leaxer_qwen3_tts_torch.config import (
     CODEC_EOS,
     LANG_ENGLISH,
@@ -157,7 +186,7 @@ from leaxer_qwen3_tts_torch.config import (
     SAMPLES_PER_FRAME,
     DraftConfig,
 )
-from leaxer_qwen3_tts_torch.frontend import Tokenizer
+from leaxer_qwen3_tts_torch.frontend import Tokenizer, write_wav
 from leaxer_qwen3_tts_torch.frontend._bpe_py import byte_to_proxy
 from leaxer_qwen3_tts_torch.models.code_predictor import chain_kernel
 from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
@@ -184,7 +213,13 @@ from leaxer_qwen3_tts_torch.runtime.speculative import (
     make_spec_generate_fns,
     repeat_draft,
 )
-from leaxer_qwen3_tts_torch.runtime.weights import init_params
+from leaxer_qwen3_tts_torch.runtime.weights import (
+    flatten_params,
+    init_params,
+    load_checkpoint,
+    param_count,
+    save_checkpoint,
+)
 from leaxer_qwen3_tts_torch.serve import ContinuousBatcher, make_http_server
 from leaxer_qwen3_tts_torch.tools import a8_probe as P1
 from leaxer_qwen3_tts_torch.tools import unit_probe
@@ -2053,6 +2088,264 @@ def check_k8(name, B, S, T, nq, nk, kind, gen, iters=0):
     return e16, ms, plain_ms, lib_ms, (b_ms, b_by)
 
 
+# The entry points (phase 10): a checkpoint directory, the CLI in process, the
+# speaker embedding, the server as a subprocess, a profile
+ENTRY_TEXT = "hello world, this is the command line"
+CLI_FRAMES = 48
+# the speaker embedding on the card against the same checkpoint on the CPU:
+# the two log-mels are float32 FFTs rounded differently (cuFFT and
+# PocketFFT), which moves a random 0.6B-width encoder's embedding by 2e-7 of
+# its largest value on noise-like audio, 2.3e-5 on a 16-bit tone and 3.3e-4
+# on a pure tone, whose bins lie at the FFT's rounding floor (two CPU FFTs,
+# XLA's and PocketFFT's); matmuls in float32 on both (TF32 off)
+SPK_REL = 1e-3
+SERVE_START_S = 600  # the server subprocess: load, build the engine, warm up
+SERVE_STOP_S = 120  # ... and exit 0 after SIGINT
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+SUMMARY = re.compile(r"decode ([\d.]+)ms.*; (\d+) frames decoded"
+                     r"(?:; spec (\d+) iterations, (\d+) accepted(, fallback)?)?\)")
+
+
+def same_checkpoint(a: dict, b: dict) -> bool:
+    """Every leaf of ``a`` and ``b`` by key: the same dtype, shape and bytes."""
+    fa, fb = flatten_params(a), flatten_params(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype.str == fb[k].dtype.str and fa[k].shape == fb[k].shape
+        and np.array_equal(fa[k].view(np.uint8), fb[k].view(np.uint8)) for k in fa)
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process (so that the launch counters see
+    its kernels): (exit code, stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def check_wav(path_or_bytes, label):
+    """A mono 16-bit 24 kHz WAV of whole frames; returns its samples."""
+    src = io.BytesIO(path_or_bytes) if isinstance(path_or_bytes, bytes) else path_or_bytes
+    with wave.open(src) as w:
+        fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+        n = w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), "<i2")
+    if fmt != (1, 2, 24000) or n == 0 or n % SAMPLES_PER_FRAME:
+        raise RuntimeError(f"{label}: not a mono 16-bit 24 kHz WAV of whole frames: {fmt}, {n}")
+    return pcm
+
+
+def cli_phase(d, tmp, card_line):
+    """The CLI on the checkpoint, in process: one-shot, --frame-fused on,
+    --stream, --ref, --spec-k 4, and the flags it refuses on the card.
+    Returns (launch counts, ms per frame of the one-shot run, reference WAV)."""
+    base = ["-m", d, "-p", ENTRY_TEXT, "--lang", "en", "--temp", "0", "--max-tokens",
+            str(CLI_FRAMES), "--quantize", "int8", "--verbose"]
+    ref = os.path.join(tmp, "ref.wav")
+    counts, ms_frame = [], None
+    for label, extra in (("one-shot", []), ("--frame-fused on", ["--frame-fused", "on"]),
+                         ("--stream", ["--stream"]), ("--ref", ["--ref", ref]),
+                         ("--spec-k 4", ["--spec-k", "4"])):
+        out_wav = os.path.join(tmp, f"cli-{len(counts)}.wav")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(base + ["-o", out_wav] + extra)
+        wall = time.perf_counter() - t0
+        m = SUMMARY.search(out)
+        if rc != 0 or m is None:
+            raise RuntimeError(f"CLI {label}: exit {rc}\n{out}\n{err}")
+        decode_ms, n = float(m.group(1)), int(m.group(2))
+        if extra == ["--frame-fused", "on"]:
+            want = (0, 0, 0, 0, 0, 0, 0, n)
+        elif m.group(3) is not None:
+            it, fallback = int(m.group(3)), m.group(5) is not None
+            seq = n - 1 - it * 4  # frames decoded after a fallback
+            want = (seq + fallback, 1 + seq, 0, it, it)
+        else:
+            want = (n, n)
+        counts.append(check_launches(f"CLI {label} ({n} frames decoded)", want))
+        pcm = check_wav(out_wav, f"CLI {label}")
+        log(f"CLI {label}: exit 0, {pcm.size / 24000:.2f} s of audio, {n} frames decoded, "
+            f"{decode_ms / n:.3f} ms/frame decode, {wall:.2f} s of wall time (checkpoint load, "
+            f"engine build, synthesis, WAV) [{card_line}]")
+        if label == "one-shot":
+            ms_frame = decode_ms / n
+            # a 3 s reference for --ref, from this run's audio
+            write_wav(ref, np.resize(pcm.astype(np.float32) / 32768.0, 3 * 24000), 24000)
+    for label, extra, words in (
+            ("without --quantize", [a for a in base if a not in ("--quantize", "int8")],
+             "the kernels take int8 weights"),
+            ("--kv-quant", base + ["--kv-quant"], "kv_quant")):
+        reset_launches()
+        out_wav = os.path.join(tmp, "refused.wav")
+        rc, out, err = run_cli(extra + ["-o", out_wav])
+        errors = [line for line in err.splitlines() if line.startswith("Error: ")]
+        if rc != 1 or len(errors) != 1 or words not in errors[0] or os.path.exists(out_wav):
+            raise RuntimeError(f"CLI {label}: exit {rc}, expected 1 with the engine's error\n{err}")
+        check_launches(f"CLI {label} (refused)", ())
+        log(f"CLI {label}: exit 1, {errors[0]}")
+    return [sum(c) for c in zip(*counts)], ms_frame, ref
+
+
+def serve_phase(d, card_line):
+    """``python -m leaxer_qwen3_tts_torch.serve`` as a subprocess: its warmup,
+    two requests (one streamed), exit 0 on SIGINT.  Returns its warmup s."""
+    cmd = [sys.executable, "-m", "leaxer_qwen3_tts_torch.serve", "-m", d, "--quantize", "int8",
+           "--max-tokens", "128", "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put("")],
+                              daemon=True)
+    reader.start()
+    seen, port, warm_s = [], None, None
+    try:
+        deadline = time.perf_counter() + SERVE_START_S
+        while port is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.perf_counter(), 0.1))
+            except queue.Empty:
+                raise RuntimeError(f"server: no 'serving on' line in {SERVE_START_S} s:\n"
+                                   + "".join(seen)) from None
+            if not line:
+                raise RuntimeError(f"server exited ({proc.wait()}) before serving:\n"
+                                   + "".join(seen))
+            seen.append(line)
+            if line.startswith("warmup done in "):
+                warm_s = float(line.split()[3].rstrip("s"))
+            m = re.match(r"serving on http://127\.0\.0\.1:(\d+) ", line)
+            if m:
+                port = int(m.group(1))
+        started_s = time.perf_counter() - t0
+        body = json.dumps({"text": ENTRY_TEXT, "language": "en", "temperature": 0.0,
+                           "max_tokens": 48}).encode()
+        for path in ("/synthesize", "/synthesize_stream"):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                         headers={"Content-Type": "application/json"})
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, kind, data = r.status, r.headers["Content-Type"], r.read()
+            if path == "/synthesize":
+                n = check_wav(data, "server /synthesize").size
+            elif not kind.startswith("audio/L16") or not data or len(data) % 2:
+                raise RuntimeError(f"server {path}: {kind}, {len(data)} bytes")
+            else:
+                n = len(data) // 2
+            if status != 200:
+                raise RuntimeError(f"server {path}: HTTP {status}")
+            log(f"server {path}: HTTP 200, {kind}, {n / 24000:.2f} s of audio in "
+                f"{(time.perf_counter() - t1) * 1e3:.1f} ms [{card_line}]")
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=SERVE_STOP_S)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"server: still running {SERVE_STOP_S} s after SIGINT") from None
+        if rc != 0:
+            raise RuntimeError(f"server: exit {rc} after SIGINT:\n" + "".join(seen))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    log(f"server subprocess: serving {started_s:.1f} s after start (checkpoint load, engine "
+        f"build, warmup {warm_s} s), exit 0 on SIGINT [{card_line}]")
+    return warm_s
+
+
+def profile_phase(eng, tmp, card_line):
+    """One synthesize with QTTS_PROFILE set: its trace must hold the
+    ``synthesize`` range and K1's and K2's kernels by name."""
+    os.environ["QTTS_PROFILE"] = tmp
+    try:
+        reset_launches()
+        r = eng.synthesize(ENTRY_TEXT, language="en", temperature=0.0, max_tokens=16)
+        counts = check_launches("profiled synthesize",
+                                (r.metrics.decoded_frames, r.metrics.decoded_frames))
+    finally:
+        del os.environ["QTTS_PROFILE"]
+    dirs = [x for x in os.listdir(tmp) if x.startswith("synthesize-")]
+    if len(dirs) != 1:
+        raise RuntimeError(f"profile: expected one trace directory, found {dirs}")
+    with open(os.path.join(tmp, dirs[0], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    found = {key: sum(bool(re.search(pat, x)) for x in names)
+             for key, pat in (("synthesize", r"^synthesize$"), ("K1", r"\bstep_kernel\b"),
+                              ("K2", r"\bchain_kernel\b"))}
+    if not all(found.values()):
+        raise RuntimeError(f"profile: the trace lacks a range or a kernel: {found}")
+    log(f"profile: {dirs[0]}/trace.json holds {len(events)} events: the synthesize range "
+        f"{found['synthesize']}, K1 (step_kernel) {found['K1']}, K2 (chain_kernel) "
+        f"{found['K2']} launches [{card_line}]")
+    return counts
+
+
+def entry_phase(tok, card_line):
+    """Phase 10: the entry points from a checkpoint directory at the 0.6B
+    preset's full width.  Returns (launch counts, numbers)."""
+    cfg = QWEN3_TTS_06B
+    params = init_params(cfg, seed=SEED, device=DEV)
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "qwen3-tts-0.6b")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(d, cfg, params)
+        save_s = time.perf_counter() - t0
+        gb = os.path.getsize(os.path.join(d, "params.npz")) / 1e9
+        byte_level_tokenizer(d)
+        t0 = time.perf_counter()
+        lcfg, lparams = load_checkpoint(d)
+        load_s = time.perf_counter() - t0
+        if lcfg != cfg or not same_checkpoint(lparams, params):
+            raise RuntimeError("checkpoint: what was loaded differs from what was saved")
+        del lparams
+        numbers.update(save_s=save_s, load_s=load_s, gb=gb)
+        log(f"checkpoint: 0.6B preset, {param_count(params):,} random bf16 weights (seed "
+            f"{SEED}) with a speaker encoder, {gb:.3f} GB of npz; save {save_s:.2f} s "
+            f"({gb / save_s:.2f} GB/s, from the card), load {load_s:.2f} s "
+            f"({gb / load_s:.2f} GB/s, to the host); equal bit for bit [{card_line}]")
+
+        t0 = time.perf_counter()
+        eng = TTSEngine(d, quantize="int8")
+        if not eng.is_ready():
+            raise RuntimeError(f"engine from the directory: {eng.get_error()}")
+        log(f"engine from the directory: built in {time.perf_counter() - t0:.2f} s (load, int8, "
+            f"packs) [{card_line}]")
+        mem = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
+        del params
+        kw = dict(language="en", temperature=0.0, max_tokens=CLI_FRAMES)
+        a, b = eng.synthesize(ENTRY_TEXT, **kw), mem.synthesize(ENTRY_TEXT, **kw)
+        if not np.array_equal(a.codes, b.codes):
+            raise RuntimeError("the engine from the directory decodes other greedy codes")
+        log(f"engine from the directory: greedy codes equal to the engine on the same params "
+            f"({len(a.codes)} frames)")
+        del mem
+        torch.cuda.empty_cache()
+
+        counts, numbers["cli_ms_frame"], ref = cli_phase(d, tmp, card_line)
+
+        e_card = eng.extract_speaker_embedding(ref)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.extract_speaker_embedding(ref)
+        numbers["spk_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+        e_cpu = TTSEngine(d, device="cpu").extract_speaker_embedding(ref)
+        rel = float(np.abs(e_card - e_cpu).max() / np.abs(e_cpu).max())
+        log(f"speaker embedding of a 3 s WAV: {numbers['spk_ms']:.2f} ms per call on the card "
+            f"(read, resample, log-mel, encoder), max|card - cpu| / max|cpu| = {rel:.2e} "
+            f"(limit {SPK_REL}) [{card_line}]")
+        if e_card.shape != (cfg.speaker_encoder.output_dim,) or not rel <= SPK_REL:
+            raise RuntimeError("speaker embedding: the card disagrees with the CPU")
+
+        numbers["warmup_s"] = serve_phase(d, card_line)
+        counts = [sum(c) for c in zip(counts, profile_phase(eng, tmp, card_line))]
+    del eng
+    torch.cuda.empty_cache()
+    return counts, numbers
+
+
 def voice_config():
     """The 1.7B preset with the talker's prefill attention on K8."""
     t = QWEN3_TTS_17B.talker
@@ -2061,16 +2354,31 @@ def voice_config():
 
 
 def voice_phase(tok, gen, card_line):
-    """The 1.7B voice slice at B=1 (phase 10).  Returns (launch counts, K1
+    """The 1.7B voice slice at B=1 (phase 11).  Returns (launch counts, K1
     checks, K3 checks, K8 checks, bounds)."""
     cfg = voice_config()
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED, device=DEV)
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
     H = cfg.talker.hidden_size
     params["speaker_table"] = (torch.randn((len(PRESET_SPEAKERS), H), generator=gen,
                                            device=DEV) * 0.02).to(torch.bfloat16)
     eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
-    del params
+    # F4: with the streamed chain off, a trunk past K2's residency gate
+    # selects the per-step chain, which is not ported: the engine refuses it
+    env = os.environ.get("QTTS_MTP_STREAM")
+    os.environ["QTTS_MTP_STREAM"] = "0"
+    try:
+        off = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
+    finally:
+        if env is None:
+            del os.environ["QTTS_MTP_STREAM"]
+        else:
+            os.environ["QTTS_MTP_STREAM"] = env
+    if off.is_ready() or "per-step MTP chain" not in off.get_error():
+        raise RuntimeError(f"1.7B with QTTS_MTP_STREAM=0: the engine must refuse the per-step "
+                           f"chain; ready={off.is_ready()}, error {off.get_error()!r}")
+    log(f"1.7B with QTTS_MTP_STREAM=0: not ready, {off.get_error()}")
+    del params, off
     torch.cuda.synchronize()
     log(f"engine: 1.7B preset (talker attn_impl=pallas), random weights (seed {SEED}) made on "
         f"the card, int8, bf16 KV cache, speaker table [{len(PRESET_SPEAKERS)}, {H}], built in "
@@ -2812,7 +3120,7 @@ def main() -> int:
     probed, p1, p2 = probe_phase()
 
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED, device=DEV)
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
     with tempfile.TemporaryDirectory() as workdir:
         tok = byte_level_tokenizer(workdir)
     eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
@@ -2863,10 +3171,11 @@ def main() -> int:
     spec, _ = spec_phase(eng, spec_eng, draft_eng, seq_ms, card_line)
     del eng, spec_eng, draft_eng
     torch.cuda.empty_cache()
+    entry, _ = entry_phase(tok, card_line)
     voice, k1_17b, k3, k8, voice_bounds = voice_phase(tok, gen, card_line)
     k1 += k1_17b
     bounds.update(voice_bounds)
-    total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, voice, probed)]
+    total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed)]
     log("launches on the main paths in all: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)))
 

@@ -6,11 +6,12 @@ acoustic codes -> causal codec vocoder -> 24 kHz audio.  The talker's decode
 step (kernel K1 at B=1, K4 at B=2..32) and the MTP sub-code chain (K2, K5)
 are hand-written CUDA kernels (``csrc/``); everything else is plain PyTorch.
 Batched serving lives in ``serve`` (continuous-batching pool, batching
-server, HTTP facade).
+server, HTTP facade).  Entry points: ``python -m leaxer_qwen3_tts_torch.cli``
+and ``python -m leaxer_qwen3_tts_torch.serve``.  Importing the package
+imports no torch (``--help`` stays fast); its attributes load on first use.
 """
 
-from . import config
-from .config import QWEN3_TTS_06B, QWEN3_TTS_17B, TTSModelConfig
+import importlib
 
 __version__ = "0.1.0"
 
@@ -27,9 +28,11 @@ __all__ = [
 
 
 def __getattr__(name):
-    # the engine pulls in the whole model stack; import it lazily
+    # torch and the engine's model stack load on first use
+    if name == "config":
+        return importlib.import_module(".config", __name__)
+    if name in ("TTSModelConfig", "QWEN3_TTS_06B", "QWEN3_TTS_17B"):
+        return getattr(importlib.import_module(".config", __name__), name)
     if name in ("TTSEngine", "SynthesisResult", "EngineError"):
-        from . import api
-
-        return getattr(api, name)
+        return getattr(importlib.import_module(".api", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

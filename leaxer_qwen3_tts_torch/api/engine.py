@@ -1,9 +1,13 @@
 """TTSEngine: the top-level synthesis API of the PyTorch port.
 
-Port of ``leaxer_qwen3_tts_tpu/api/engine.py``: ``synthesize`` and
-``synthesize_stream`` (with an optional voice-design ``instruct`` segment),
-``synthesize_speaker`` (a CustomVoice preset speaker spliced from the
-checkpoint's ``speaker_table``), ``synthesize_tokens`` and
+Port of ``leaxer_qwen3_tts_tpu/api/engine.py``, built from a checkpoint
+directory or from (config, params): ``synthesize`` and
+``synthesize_stream`` (with an optional voice-design ``instruct`` segment
+and an optional reference WAV), ``synthesize_clone`` and
+``extract_speaker_embedding`` (voice cloning: log-mel, then the speaker
+encoder, into the prompt's speaker segment), ``synthesize_speaker`` (a
+CustomVoice preset speaker spliced from the checkpoint's ``speaker_table``),
+``warmup``, ``synthesize_tokens`` and
 ``synthesize_batch`` (B streams in one decode, EOS latched per stream,
 per-stream seeds), the KV
 bucket ladder with cache growth between chunks, the small first chunk for
@@ -32,12 +36,14 @@ they do not take raises ``EngineError``.  On
 the CPU the same code runs the kernels' plain versions.  A decode chunk (a
 dispatch of verify iterations) enqueues its frames on the device and the
 engine syncs once per chunk, when it copies the chunk's codes to the host.
+With ``QTTS_PROFILE`` set, every synthesis writes a trace
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
+import time
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,11 +61,14 @@ from ..config import (
     TTSModelConfig,
     language_to_codec_id,
 )
-from ..frontend.tokenizer import Tokenizer
-from ..models.code_predictor import prepare_fused_step, resident_enabled
+from ..frontend.mel import log_mel
+from ..frontend.tokenizer import Tokenizer, find_tokenizer_files
+from ..frontend.wav import read_wav, resample
+from ..models.code_predictor import chain_kernel, prepare_fused_step, resident_enabled
 from ..models.codec12hz import vocode_chunk, vocoder_forward
+from ..models.speaker_encoder import speaker_encoder_forward
 from ..models.talker import prepare_fused_talker
-from ..ops.fused_step import MAX_BATCH, supports
+from ..ops.fused_step import MAX_BATCH, meta_pack, supports
 from ..ops.quant import fuse_params, quantize_params
 from ..runtime.generate import (
     GenerateFns,
@@ -75,9 +84,12 @@ from ..runtime.speculative import (
     make_spec_generate_fns,
     spec_to_seq,
 )
+from ..runtime.weights import load_checkpoint
+from ..utils.logging import get_logger
 from ..utils.metrics import StageTimer, SynthesisMetrics
+from ..utils.profiling import maybe_trace
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 
 class EngineError(RuntimeError):
@@ -110,13 +122,19 @@ def _sync(device: torch.device) -> None:
 
 
 class TTSEngine:
-    """Qwen3-TTS synthesis engine on PyTorch."""
+    """Qwen3-TTS synthesis engine on PyTorch.
+
+    Construct from a checkpoint directory (``config.json`` and the weights,
+    see ``runtime/weights.py``; the tokenizer files are looked up beside
+    them) or from ``config`` and ``params``.  Construction records errors
+    instead of raising: check ``is_ready()`` / ``get_error()``."""
 
     def __init__(
         self,
+        model_dir: Optional[str] = None,
         *,
-        config: TTSModelConfig,
-        params: dict,
+        config: Optional[TTSModelConfig] = None,
+        params: Optional[dict] = None,
         tokenizer: Optional[Tokenizer] = None,
         device=None,
         max_frames: int = MAX_NEW_TOKENS,
@@ -130,6 +148,9 @@ class TTSEngine:
         spec_iters: int = 8,
         spec_accept_floor: float = 0.3,
         spec_adapt_window: int = 24,
+        kv_quant: bool = False,
+        mtp_quantize: Optional[str] = None,
+        mtp_resident: Optional[bool] = None,
         frame_fused: Optional[bool] = None,
     ):
         self._ready = False
@@ -161,34 +182,36 @@ class TTSEngine:
         # as in the JAX engine, construction records its error instead of
         # raising: check is_ready() / get_error(); synthesis raises then
         try:
-            self._build(config, params, device, quantize, mesh, frame_fused)
+            self._build(model_dir, config, params, device, quantize, mesh, kv_quant,
+                        mtp_quantize, mtp_resident, frame_fused)
             self._ready = True
         except Exception as e:  # record, don't raise (the JAX engine's contract)
             self._error = str(e)
             log.error("engine init failed: %s", e)
 
-    def _build(self, config: TTSModelConfig, params: dict, device, quantize, mesh,
-               frame_fused: Optional[bool]) -> None:
+    @staticmethod
+    def _check_arguments(quantize, mesh, kv_quant, mtp_quantize) -> None:
+        """The arguments' own errors, before anything is loaded."""
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet (ROADMAP M15)")
-        if frame_fused is not None:
-            # pin the whole-frame kernel K7 on or off (None keeps the config's
-            # frame_fused); B=1 sequential decode only: the argument refuses
-            # spec_k, as in the JAX engine (a config with frame_fused set
-            # decodes spec iterations and runs K7 on sequential frames only)
-            if frame_fused and self.spec_k is not None:
-                raise EngineError("frame_fused is sequential-only: unset spec_k")
-            config = dataclasses.replace(config, frame_fused=bool(frame_fused))
-        self.cfg = config
-        if quantize not in (None, "int8"):
-            raise EngineError(
-                f"quantize={quantize!r}: only int8 is ported (int4: ROADMAP item K1v)"
-            )
-        cfg = self.cfg
-        if cfg.talker.transformer.kv_cache_quant:
-            raise EngineError("the int8 KV cache is not ported yet (ROADMAP item K1v)")
-        talker_fused = cfg.talker.decode_impl == "fused"
-        mtp_fused = cfg.code_predictor.impl == "fused"
+        if quantize not in (None, "int8", "int4"):
+            raise EngineError(f"unknown quantize mode {quantize!r}")
+        if quantize == "int4":
+            raise EngineError("quantize='int4': only int8 is ported "
+                              "(int4 not ported: ROADMAP K1v / K2v)")
+        if mtp_quantize not in (None, "int8", "int4", "auto"):
+            raise EngineError(f"unknown mtp_quantize mode {mtp_quantize!r}")
+        if mtp_quantize is not None and mtp_quantize != quantize:
+            # int4 and "auto" (an int4 alt trunk) and an int8 trunk beside an
+            # unquantized talker are packs of other precisions
+            raise EngineError(f"mtp_quantize={mtp_quantize!r} with quantize={quantize!r}: "
+                              "not ported (ROADMAP K1v / K2v)")
+        if kv_quant:
+            raise EngineError("kv_quant: the int8 KV cache is not ported (ROADMAP K1v / K2v)")
+
+    def _build(self, model_dir, config, params, device, quantize, mesh, kv_quant,
+               mtp_quantize, mtp_resident, frame_fused) -> None:
+        self._check_arguments(quantize, mesh, kv_quant, mtp_quantize)
         if device is None:
             if not torch.cuda.is_available():
                 raise EngineError(
@@ -197,10 +220,42 @@ class TTSEngine:
                 )
             device = "cuda"
         self.device = torch.device(device)
+        if self.device.type == "cuda" and quantize != "int8":
+            raise EngineError("CUDA kernel path unavailable: the kernels take int8 weights "
+                              "(quantize='int8'; bits=16 units are ROADMAP K1v-b)")
+        if model_dir is not None:
+            config, params = load_checkpoint(model_dir)
+            if self.tokenizer is None:
+                found = find_tokenizer_files(model_dir)
+                if found is not None:
+                    self.tokenizer = Tokenizer(found[0], found[1])
+                else:
+                    log.warning(
+                        "no vocab.json found for %s; text synthesis disabled "
+                        "(token-level API still available)", model_dir,
+                    )
+        elif config is None or params is None:
+            raise EngineError("need model_dir or (config, params)")
+        if mtp_resident is not None:
+            # pin the resident MTP chain on or off (None keeps the config's
+            # resident, else QTTS_MTP_RESIDENT)
+            config = dataclasses.replace(config, code_predictor=dataclasses.replace(
+                config.code_predictor, resident=bool(mtp_resident)))
+        if frame_fused is not None:
+            # pin the whole-frame kernel K7 on or off (None keeps the config's
+            # frame_fused); B=1 sequential decode only: the argument refuses
+            # spec_k, as in the JAX engine (a config with frame_fused set
+            # decodes spec iterations and runs K7 on sequential frames only)
+            if frame_fused and self.spec_k is not None:
+                raise EngineError("frame_fused is sequential-only: unset spec_k")
+            config = dataclasses.replace(config, frame_fused=bool(frame_fused))
+        self.cfg = cfg = config
+        if cfg.talker.transformer.kv_cache_quant:
+            raise EngineError("the int8 KV cache is not ported (ROADMAP K1v / K2v)")
+        talker_fused = cfg.talker.decode_impl == "fused"
+        mtp_fused = cfg.code_predictor.impl == "fused"
         if self.device.type == "cuda":
             problems = []
-            if quantize != "int8":
-                problems.append("the kernels take int8 weights (quantize='int8')")
             if not (talker_fused and mtp_fused):
                 problems.append("decode_impl and the MTP impl must be 'fused'")
             if not supports(cfg.talker.transformer) or not supports(
@@ -213,9 +268,16 @@ class TTSEngine:
                 problems.append("code_predictor.resident=False (or QTTS_MTP_RESIDENT=0) selects "
                                 "the per-step MTP path, which is not ported to the card (the "
                                 "chains K2 and K3 are)")
+            b1_pack = {"fused_step": meta_pack(cfg.code_predictor.transformer)}
+            if not problems and chain_kernel(cfg.code_predictor, b1_pack, 1) is None:
+                problems.append("the MTP trunk is past the residency gate of K2 and "
+                                "QTTS_MTP_STREAM=0 turns the streamed chain K3 off: that selects "
+                                "the per-step MTP chain, which is not ported to the card")
             if problems:
                 raise EngineError("CUDA kernel path unavailable: " + "; ".join(problems))
 
+        # one qkv and one gate/up product per layer (the JAX engine's fuse=True,
+        # its default; the port takes no other layout)
         params = fuse_params(_to_device(params, self.device))
         if quantize == "int8":
             # quantize first: the packs reuse the QuantizedLinear values
@@ -263,7 +325,7 @@ class TTSEngine:
         """Text -> 24 kHz waveform.  ``instruct``: an optional voice-design
         instruction (VoiceDesign models), a prompt segment of its own."""
         return self._last(self.synthesize_stream(
-            text, language, temperature, top_k, top_p, max_tokens, seed, instruct
+            text, language, temperature, top_k, top_p, max_tokens, seed, instruct=instruct
         ))
 
     def synthesize_stream(
@@ -275,12 +337,83 @@ class TTSEngine:
         top_p: float = 0.95,
         max_tokens: Optional[int] = None,
         seed: int = 0,
+        speaker_wav: Optional[str] = None,
         instruct: Optional[str] = None,
     ) -> Iterator:
         """Yields audio chunks (np float32 @ 24 kHz) as they decode; the final
-        item is the SynthesisResult."""
+        item is the SynthesisResult.  ``speaker_wav``: a reference WAV whose
+        speaker embedding conditions the voice (as :meth:`synthesize_clone`)."""
+        speaker = None
+        if speaker_wav is not None:
+            speaker = torch.from_numpy(self.extract_speaker_embedding(speaker_wav))[None]
         return self._text_stream(text, language, temperature, top_k, top_p, max_tokens, seed,
-                                 instruct=instruct)
+                                 speaker=speaker, instruct=instruct)
+
+    def synthesize_clone(
+        self,
+        text: str,
+        ref_wav_path: str,
+        language: str = "auto",
+        temperature: float = 0.8,
+        top_k: int = 50,
+        top_p: float = 0.95,
+        max_tokens: Optional[int] = None,
+        seed: int = 0,
+        instruct: Optional[str] = None,
+    ) -> SynthesisResult:
+        """Voice clone from a ~3 s reference WAV: its speaker embedding
+        (:meth:`extract_speaker_embedding`) goes into the prompt's
+        speaker segment."""
+        spk = torch.from_numpy(self.extract_speaker_embedding(ref_wav_path))[None]
+        return self._last(self._text_stream(text, language, temperature, top_k, top_p,
+                                            max_tokens, seed, speaker=spk, instruct=instruct))
+
+    def extract_speaker_embedding(self, wav_path: str) -> np.ndarray:
+        """Reference WAV -> float32 speaker embedding [output_dim]: read,
+        resample to 24 kHz, log-mel, speaker encoder (on the engine's
+        device)."""
+        self._require_ready()
+        if not self.has_speaker_encoder():
+            raise EngineError("model has no speaker encoder")
+        audio, sr = read_wav(wav_path)
+        if sr != SAMPLE_RATE:
+            audio = resample(audio, sr, SAMPLE_RATE)
+        mel = log_mel(audio, self.cfg.mel, device=self.device)  # [T, num_mels]
+        emb = speaker_encoder_forward(self.cfg.speaker_encoder, self.params["speaker_encoder"],
+                                      mel[None])
+        return emb[0].float().cpu().numpy()
+
+    def warmup(self, language: str = "auto", languages=None, text_buckets=None) -> float:
+        """Run the requests a serving deployment will send once, so that the
+        first real request does not pay the one-time costs: on the card the
+        first call builds the CUDA kernels (``ops/_build.py``) and fills the
+        wrappers' struct, scratch and plan caches.
+
+        One full-length greedy request per declared (text bucket, language)
+        signature, ``min(max_frames, top KV bucket)`` frames long (every KV
+        ladder rung the budget reaches, the small first chunk and the
+        steady-state chunks, the streamed vocoder's windows), plus one
+        ``first_chunk_len`` request (the early-EOS partial window), from the
+        token ids ``[5] * (bucket - 2)``.  Defaults to the first text bucket
+        and one language.  Returns the wall-clock seconds spent."""
+        self._require_ready()
+        t0 = time.perf_counter()
+        if languages is None:
+            languages = (language,)
+        if text_buckets is None:
+            text_buckets = (self.text_bucket,)
+        long_frames = min(self.max_frames, self.kv_ladder[-1])
+        for lang in languages:
+            for tb in text_buckets:
+                ids = [[5] * max(1, int(tb) - 2)]  # rounds up to bucket tb
+                for mt in (long_frames, self.first_chunk_len):
+                    timer = StageTimer(SynthesisMetrics())
+                    # untraced: QTTS_PROFILE traces the requests, not the warmup
+                    for _ in self._ids_stream_impl(ids, lang, 0.0, 50, 0.95, mt, 0, timer):
+                        pass
+        dt = time.perf_counter() - t0
+        log.info("engine warmup done in %.1fs", dt)
+        return dt
 
     def synthesize_speaker(
         self,
@@ -414,9 +547,13 @@ class TTSEngine:
         valid = torch.cat([vm, torch.zeros((vm.shape[0], pad), dtype=vm.dtype, device=vm.device)], 1)
         return state._replace(cache=cache, valid_mask=valid)
 
-    def _ids_stream(
+    def _ids_stream(self, *args, **kw):
+        with maybe_trace("synthesize"):
+            yield from self._ids_stream_impl(*args, **kw)
+
+    def _ids_stream_impl(
         self, id_lists, language, temperature, top_k, top_p, max_tokens, seed, timer,
-        speaker: Optional[torch.Tensor] = None,  # [B, H] preset speaker embedding
+        speaker: Optional[torch.Tensor] = None,  # [B, H] preset or cloned speaker embedding
         instruct_ids: Optional[List[int]] = None,  # the instruction's token ids
     ):
         self._require_ready()

@@ -203,7 +203,9 @@ class VocoderConfig:
 
 @dataclass(frozen=True)
 class SpeakerEncoderConfig:
-    """Voice-clone speaker encoder (not ported yet; kept for JSON round-trips)."""
+    """Voice-clone speaker encoder: log-mel [T, 128] -> embedding
+    (``models/speaker_encoder.py``).  ``topology``: "transformer" (the
+    primary guess) or "ecapa" (the ECAPA-TDNN fallback)."""
 
     num_mels: int = 128
     d_model: int = 512
@@ -217,6 +219,10 @@ class SpeakerEncoderConfig:
     ecapa_scale: int = 8
     ecapa_mfa_dim: int = 1536
     ecapa_att_dim: int = 128
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
 
 
 @dataclass(frozen=True)

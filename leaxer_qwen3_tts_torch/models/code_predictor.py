@@ -14,8 +14,9 @@ JAX package's with its TPU defaults: kernel K2
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`) when the
 trunk passes the residency gate (the 0.6B trunk), else kernel K3
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp_stream.fused_mtp_chain_streamed`,
-float32 KV scratch) when the stream gate passes (the 1.7B trunk).  At
-B=2..32 it is kernel K5
+float32 KV scratch) when the stream gate passes (the 1.7B trunk) and the
+streamed chain is on (:func:`stream_enabled`: ``QTTS_MTP_STREAM``, else on).
+At B=2..32 it is kernel K5
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain_batched`),
 which takes every int8 pack.  On a CUDA device a chain the kernels cannot
 take raises; only the CPU runs the cached path.
@@ -84,11 +85,20 @@ def resident_enabled(cfg: CodePredictorConfig) -> bool:
     return True if env is None else env != "0"
 
 
+def stream_enabled() -> bool:
+    """The streamed chain's switch, as the JAX package resolves it
+    (``models/code_predictor.py::_stream_enabled``): ``QTTS_MTP_STREAM``
+    when set (on unless "0"), else on, the JAX package's default on its
+    accelerator."""
+    env = os.environ.get("QTTS_MTP_STREAM")
+    return True if env is None else env != "0"
+
+
 def chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int):
     """The wrapper of the kernel that runs a chain of ``rows`` rows (K2, K3
     or K5; on the CPU its plain version), or None for the cached plain path.
-    At B=1: K2 when the trunk passes the residency gate, else K3 when it
-    passes the stream gate."""
+    At B=1: K2 when the trunk passes the residency gate, else K3 when the
+    streamed chain is on and the trunk passes the stream gate."""
     if not (cfg.impl == "fused" and resident_enabled(cfg) and "fused_step" in params
             and rows <= MAX_BATCH and cfg.head_mode == "per_step"):
         return None
@@ -97,7 +107,7 @@ def chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int):
     fw = params["fused_step"]
     if supports_resident(fw):
         return fused_mtp_chain
-    if supports_stream(fw, cfg.subcode_vocab_size):
+    if stream_enabled() and supports_stream(fw, cfg.subcode_vocab_size):
         return fused_mtp_chain_streamed
     return None
 

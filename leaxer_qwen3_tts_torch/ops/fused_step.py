@@ -64,6 +64,24 @@ class FusedStepWeights(NamedTuple):
     inv_freq: torch.Tensor  # f32 [d/2] rotary inverse frequencies
 
 
+def meta_pack(cfg: TransformerConfig) -> FusedStepWeights:
+    """An int8 pack of ``cfg``'s shapes on the meta device (nothing
+    allocated): what the gates that read a pack's sizes need."""
+    L, H, A = cfg.num_layers, cfg.hidden_size, cfg.q_dim + 2 * cfg.kv_dim
+    I, qd, d = cfg.intermediate_size, cfg.q_dim, cfg.head_dim
+
+    def m(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i8 = torch.int8
+    return FusedStepWeights(
+        wqkv=m((L, A, H), i8), sqkv=m((L, A)), wo=m((L, H, qd), i8), so=m((L, H)),
+        wgu=m((L, 2 * I, H), i8), sgu=m((L, 2 * I)), wd=m((L, H, I), i8), sd=m((L, H)),
+        attn_norm=m((L, H)), mlp_norm=m((L, H)), q_norm=m((L, d)), k_norm=m((L, d)),
+        inv_freq=m((d // 2,)),
+    )
+
+
 def supports(cfg: TransformerConfig) -> bool:
     """Architectures the packed path takes: the JAX package's unit gate
     (hidden size a multiple of 1024, ...) plus what the CUDA attention

@@ -22,6 +22,9 @@ text-drip buffer and noise generator.  Pool chunks decode with
 the device, so a chunk needs no host sync.  Retirement vocodes the stream's
 codes off the decode loop and resolves its future.
 
+``warmup`` runs tiny greedy requests through the live pool before it
+serves (every declared text bucket and language, and the streamed path).
+
 Speculative mode (``spec_k``): each pool decode runs ``spec_iters`` verify
 iterations over ``pool_size`` x ``spec_k`` candidate rows (kernels K6 and K5
 on the card) with per-slot acceptance, fill levels and EOS latches, all on
@@ -43,7 +46,6 @@ fresh stream each time.
 from __future__ import annotations
 
 import contextlib
-import logging
 import queue
 import threading
 import time
@@ -70,9 +72,10 @@ from ..runtime.speculative import (
     make_spec_generate_fns,
     spec_to_seq,
 )
+from ..utils.logging import get_logger
 from ..utils.metrics import SynthesisMetrics
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 _STREAM_DONE = object()  # chunk-queue sentinel: no more audio chunks
 
@@ -220,6 +223,7 @@ class ContinuousBatcher:
         self._acc_slots = 0
         self._acc_iters = 0
         self._spec_fallback = False
+        self._warming = False  # warmup's requests leave the acceptance window alone
         # device work of other threads waits for a sync-checked chunk
         self._device_lock = threading.Lock()
         # admission prefills run on worker threads; the decode loop only
@@ -233,6 +237,49 @@ class ContinuousBatcher:
         )
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+
+    def _text_for_bucket(self, bucket: int) -> str:
+        """A text whose BPE length rounds up to exactly ``bucket``."""
+        words, text = ["a"], "a"
+        while _round_up(len(self.engine._tokenize(text)), 16) < bucket:
+            words.append("a")
+            text = " ".join(words)
+        return text
+
+    def warmup(self, languages=("auto",), text_buckets=None, streaming: bool = True) -> float:
+        """Run tiny greedy requests through the live pool, so that the first
+        real requests skip the one-time costs (on the card: the kernels'
+        build and the wrappers' struct and plan caches at the pool's shapes).
+
+        Covers every declared (text bucket, language) signature (the
+        admission prefill), the pooled decode chunk, the splice, retirement
+        vocoding and (``streaming``) the streamed request's bootstrap and
+        per-chunk vocoding.  Needs a tokenizer.  The pool's counters are put
+        back afterwards, so unseeded requests draw as they would have without
+        it, and a spec pool does not count the warmup's acceptance: its
+        adaptive fallback sees real requests only.  Returns the seconds
+        spent."""
+        t0 = time.perf_counter()
+        if text_buckets is None:
+            text_buckets = (16,)
+        counters = (self._admits, self._requests_done, self._chunks_run)
+        texts = {b: self._text_for_bucket(b) for b in text_buckets}
+        self._warming = True
+        try:
+            futs = [self.submit(texts[b], language=lang, temperature=0.0,
+                                max_tokens=self.chunk_len)
+                    for lang in languages for b in text_buckets]
+            stream = (self.submit_stream(texts[min(text_buckets)], temperature=0.0,
+                                         max_tokens=2 * self.chunk_len) if streaming else ())
+            for f in futs:
+                f.result()
+            list(stream)
+        finally:
+            self._warming = False
+        self._admits, self._requests_done, self._chunks_run = counters
+        dt = time.perf_counter() - t0
+        log.info("pool warmup done in %.1fs", dt)
+        return dt
 
     # ------------------------------------------------------------------
     def submit(
@@ -739,7 +786,7 @@ class ContinuousBatcher:
                 self._reset(e)
                 continue
             self._chunks_run += 1
-            if self.spec_k and self.engine.spec_accept_floor > 0:
+            if self.spec_k and self.engine.spec_accept_floor > 0 and not self._warming:
                 self._check_acceptance(valid_np, done_np)
             for slot, active in enumerate(self._slots):
                 if active is None:

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import io
 import json
-import logging
 import queue
 import struct
 import threading
@@ -30,8 +29,9 @@ import numpy as np
 
 from ..api.engine import SynthesisResult, TTSEngine
 from ..config import SAMPLE_RATE
+from ..utils.logging import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
 

@@ -1,1 +1,1 @@
-"""Metrics."""
+"""Metrics, logging and profiling."""

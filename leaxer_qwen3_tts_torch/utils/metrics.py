@@ -38,6 +38,18 @@ class SynthesisMetrics:
         """Real-time factor: audio seconds generated per wall-clock second."""
         return self.audio_seconds / self.total_seconds if self.total_seconds > 0 else 0.0
 
+    def summary(self) -> str:
+        stages = ", ".join(f"{k} {v * 1e3:.1f}ms" for k, v in self.stage_seconds.items())
+        ttfa = f", ttfa {self.ttfa_seconds * 1e3:.1f}ms" if self.ttfa_seconds is not None else ""
+        spec = ""
+        if self.spec_iterations:
+            spec = (f"; spec {self.spec_iterations} iterations, {self.spec_accepted} accepted"
+                    + (", fallback" if self.spec_fallback else ""))
+        return (
+            f"audio {self.audio_seconds:.2f}s in {self.total_seconds:.2f}s "
+            f"(RTF {self.rtf:.2f}x{ttfa}; {stages}; {self.decoded_frames} frames decoded{spec})"
+        )
+
 
 class StageTimer:
     """Accumulates wall-clock per named stage into a SynthesisMetrics."""

@@ -27,12 +27,12 @@ from leaxer_qwen3_tts_torch.models import code_predictor as tcp
 from leaxer_qwen3_tts_torch.models.talker import prepare_fused_talker
 from leaxer_qwen3_tts_torch.ops import fused_frame as tff
 from leaxer_qwen3_tts_torch.ops.fused_mtp import pack_heads
-from leaxer_qwen3_tts_torch.ops.fused_step import pack_fused_weights
+from leaxer_qwen3_tts_torch.ops.fused_step import meta_pack, pack_fused_weights
 from leaxer_qwen3_tts_torch.ops.quant import fuse_params, quantize_params
 from leaxer_qwen3_tts_torch.runtime import generate as tgen
 from leaxer_qwen3_tts_torch.runtime.sampling import SamplingParams, make_codec_suppress_mask
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
-from test_torch_fused_mtp_stream import _jax_pack, _meta_pack
+from test_torch_fused_mtp_stream import _jax_pack
 from test_torch_voice import _kernel_width
 
 torch.set_num_threads(2)
@@ -281,7 +281,7 @@ def test_supports_frame_presets_match_jax(preset, fits):
     cp = getattr(tcfg, preset).code_predictor
     jp = getattr(jcfg, preset)
     talker = getattr(tcfg, preset).talker.transformer
-    assert tff.supports_frame(_meta_pack(cp.transformer), 512, talker) is fits
+    assert tff.supports_frame(meta_pack(cp.transformer), 512, talker) is fits
     assert j_ff.supports_frame(_jax_pack(jp.code_predictor.transformer), 512,
                                jp.talker.transformer) is fits
 

@@ -23,7 +23,7 @@ from leaxer_qwen3_tts_torch.models import code_predictor as tcp
 from leaxer_qwen3_tts_torch.ops import fused_mtp as tfm
 from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as tstream
 from leaxer_qwen3_tts_torch.ops import quant as tquant
-from leaxer_qwen3_tts_torch.ops.fused_step import FusedStepWeights
+from leaxer_qwen3_tts_torch.ops.fused_step import meta_pack
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
 
 torch.set_num_threads(2)
@@ -108,23 +108,6 @@ def test_streamed_chain_bf16_model_matches_jax(models_bf16, knobs):
     assert torch.equal(k2_subs, t_subs)
 
 
-def _meta_pack(t):
-    """A port pack of ``t``'s shapes on the meta device: no trunk allocated."""
-    L, H, A = t.num_layers, t.hidden_size, t.q_dim + 2 * t.kv_dim
-    I, qd, d = t.intermediate_size, t.q_dim, t.head_dim
-
-    def m(shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
-    i8 = torch.int8
-    return FusedStepWeights(
-        wqkv=m((L, A, H), i8), sqkv=m((L, A)), wo=m((L, H, qd), i8), so=m((L, H)),
-        wgu=m((L, 2 * I, H), i8), sgu=m((L, 2 * I)), wd=m((L, H, I), i8), sd=m((L, H)),
-        attn_norm=m((L, H)), mlp_norm=m((L, H)), q_norm=m((L, d)), k_norm=m((L, d)),
-        inv_freq=m((d // 2,)),
-    )
-
-
 def _jax_pack(t):
     """The JAX pack's shapes as zero-stride numpy views (no allocation)."""
     n_qkv, n_wo, n_gu, n_wd = (t.q_dim + 2 * t.kv_dim) // 1024, (t.q_dim // t.hidden_size) * (
@@ -150,7 +133,7 @@ def test_b1_route_by_the_jax_gates(preset, route):
     ``resident=False`` leaves the chains."""
     cp = getattr(tcfg, preset).code_predictor
     jcp = getattr(jcfg, preset).code_predictor
-    fw, jfw = _meta_pack(cp.transformer), _jax_pack(jcp.transformer)
+    fw, jfw = meta_pack(cp.transformer), _jax_pack(jcp.transformer)
     n, V = cp.num_steps, cp.subcode_vocab_size
     assert tfm.trunk_bytes(fw) == jfw.units.nbytes
     assert tfm.supports_resident(fw) == j_fm.supports_resident(jfw) == (route == "K2")
@@ -160,3 +143,61 @@ def test_b1_route_by_the_jax_gates(preset, route):
     assert tcp.chain_kernel(cp, {"fused_step": fw}, 8) is tfm.fused_mtp_chain_batched
     off = dataclasses.replace(cp, resident=False)
     assert tcp.chain_kernel(off, {"fused_step": fw}, 1) is None
+
+
+@pytest.mark.parametrize("env", ["1", "0"])
+def test_stream_switch_routes_b1_like_jax(models_f32, env, monkeypatch):
+    """QTTS_MTP_STREAM with the residency gate patched out (the 1.7B case,
+    as the JAX package's own routing test simulates it): "1" runs the
+    streamed chain in both packages (the JAX kernel in interpret mode, the
+    port's K3 plain version); "0" runs the JAX package's per-step chain and
+    the port's cached plain path (the per-step chain is not ported).  Greedy
+    sub-codes are equal and sub_sum within SUM_ABS in both settings."""
+    import leaxer_qwen3_tts_tpu.models.code_predictor as jcp
+    from leaxer_qwen3_tts_tpu.runtime.sampling import SamplingParams as JSP
+    from leaxer_qwen3_tts_torch.runtime.sampling import SamplingParams
+
+    cfg, jq, tc, tq, tables = models_f32
+    cfg = dataclasses.replace(cfg, resident=True)
+    monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
+    monkeypatch.setenv("QTTS_MTP_STREAM", env)
+    monkeypatch.setattr(jcp, "resident_pack", lambda params, batch: None)
+    monkeypatch.setattr(tcp, "supports_resident", lambda fw: False)
+    rng = np.random.default_rng(11)
+    hidden = (rng.standard_normal((1, 1024)) * 0.5).astype(np.float32)
+    c0e = (rng.standard_normal((1, 1024)) * 0.02).astype(np.float32)
+    j_subs, j_sum = jcp.predict_subcodes(
+        cfg, jq, jnp.asarray(tables), jnp.asarray(hidden), jnp.asarray(c0e),
+        jax.random.PRNGKey(0), sample_fn=lambda key, logits: jnp.argmax(logits, -1),
+        sp=JSP.create(temperature=0.0))
+    want = tstream.fused_mtp_chain_streamed if env == "1" else None
+    assert tcp.chain_kernel(tc, tq, 1) is want
+    t_subs, t_sum = tcp.predict_subcodes(
+        tc, tq, torch.from_numpy(tables), torch.from_numpy(hidden), torch.from_numpy(c0e),
+        sample_fn=lambda logits, j: logits.argmax(-1), sp=SamplingParams.create(0.0))
+    assert t_subs.tolist() == np.asarray(j_subs).tolist()
+    np.testing.assert_allclose(t_sum.numpy(), np.asarray(j_sum), atol=SUM_ABS, rtol=0)
+
+
+def test_stream_switch_default_is_the_accelerators(monkeypatch):
+    """Unset, the switch is on: the JAX package's default on its accelerator
+    (its ``_stream_enabled`` with the backend read as "tpu"); set, both read
+    it alike.  On the card, "0" with a trunk past the residency gate (the
+    1.7B preset) leaves the engine not ready, naming the per-step chain."""
+    import leaxer_qwen3_tts_tpu.models.code_predictor as jcp
+    from leaxer_qwen3_tts_torch.api.engine import TTSEngine
+
+    monkeypatch.delenv("QTTS_MTP_STREAM", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    assert tcp.stream_enabled() is jcp._stream_enabled() is True
+    for env, on in (("0", False), ("1", True), ("2", True)):
+        monkeypatch.setenv("QTTS_MTP_STREAM", env)
+        assert tcp.stream_enabled() is jcp._stream_enabled() is on
+    cp = tcfg.QWEN3_TTS_17B.code_predictor
+    monkeypatch.setenv("QTTS_MTP_STREAM", "0")
+    assert tcp.chain_kernel(cp, {"fused_step": meta_pack(cp.transformer)}, 1) is None
+    assert tcp.chain_kernel(cp, {"fused_step": meta_pack(cp.transformer)}, 8) is (
+        tfm.fused_mtp_chain_batched)
+    eng = TTSEngine(config=tcfg.QWEN3_TTS_17B, params={}, quantize="int8", device="cuda")
+    assert not eng.is_ready() and "per-step MTP chain" in eng.get_error()
+    assert "QTTS_MTP_STREAM=0" in eng.get_error()

@@ -353,3 +353,94 @@ def test_spec_pool_fallback(engine):
     for text, r in zip(TEXTS, results):
         np.testing.assert_array_equal(r.codes, engine.synthesize(text, temperature=0.0,
                                                                  max_tokens=8).codes)
+
+
+def test_engine_warmup_leaves_outputs_alone(engine):
+    """Engine warmup over two languages returns the seconds it spent (above
+    0); a seeded sampled request gives the same codes and audio after it."""
+    before = engine.synthesize("hello world", temperature=0.8, seed=5, max_tokens=8)
+    assert engine.warmup(languages=("auto", "en")) > 0
+    after = engine.synthesize("hello world", temperature=0.8, seed=5, max_tokens=8)
+    np.testing.assert_array_equal(after.codes, before.codes)
+    np.testing.assert_array_equal(after.audio, before.audio)
+
+
+@pytest.mark.parametrize("spec_k", [None, 3])
+def test_pool_warmup_leaves_no_state(engine, spec_k):
+    """Pool warmup (two languages, the streamed path) returns seconds above
+    0 and puts the pool's counters back: an unseeded sampled request (noise
+    from the admission counter) and a greedy one give a warmed pool the codes
+    and stats they give a fresh pool of the same seed.  A spec pool, under a
+    floor no acceptance reaches and a one-iteration window, is still
+    speculative after warmup (its requests feed no acceptance window) and
+    falls back on the real requests as the fresh pool does."""
+    def requests(p):
+        return [p.synthesize("hello world", temperature=0.8, max_tokens=6),
+                p.synthesize("hello", temperature=0.0, max_tokens=6)]
+
+    def make():
+        return ContinuousBatcher(engine, pool_size=2, chunk_len=2, kv_bucket=64,
+                                 text_bucket_max=16, spec_k=spec_k, spec_iters=1)
+
+    floor, window = engine.spec_accept_floor, engine.spec_adapt_window
+    if spec_k:
+        engine.spec_accept_floor, engine.spec_adapt_window = 1.01, 1
+    fresh, warmed = make(), make()
+    try:
+        want = requests(fresh)
+        assert warmed.warmup(languages=("auto", "en")) > 0
+        assert warmed.stats == dict(fresh.stats, requests=0, chunks=0, spec_fallback=False)
+        assert warmed.spec_k == spec_k
+        got = requests(warmed)
+        assert warmed.stats == fresh.stats
+        assert fresh.stats["spec_fallback"] is bool(spec_k)
+    finally:
+        fresh.shutdown()
+        warmed.shutdown()
+        engine.spec_accept_floor, engine.spec_adapt_window = floor, window
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.codes, w.codes)
+        np.testing.assert_array_equal(g.audio, w.audio)
+
+
+@pytest.mark.parametrize("batcher", ["continuous", "static"])
+def test_serve_main_answers_and_shuts_down(batcher, tiny_model, tiny_vocab_files, tmp_path,
+                                           monkeypatch, capsys):
+    """``serve.__main__.main`` on a checkpoint directory with --device cpu
+    and --port 0, in a thread: it warms up, serves one request (HTTP 200,
+    WAV bytes) and returns 0 when its HTTP server shuts down."""
+    from leaxer_qwen3_tts_tpu.runtime.weights import save_checkpoint
+    from leaxer_qwen3_tts_torch.serve import server as srv
+    from leaxer_qwen3_tts_torch.serve.__main__ import main as serve_main
+
+    cfg, params = tiny_model
+    d = str(tmp_path / "model")
+    save_checkpoint(d, cfg, jax.device_get(params))
+    for src in tiny_vocab_files[:2]:
+        with open(src) as f, open(f"{d}/{src.rsplit('/', 1)[1]}", "w") as g:
+            g.write(f.read())
+    made = []
+    real = srv.make_http_server
+    monkeypatch.setattr(srv, "make_http_server", lambda *a, **k: made.append(real(*a, **k))
+                        or made[-1])
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(serve_main(
+        ["-m", d, "--device", "cpu", "--port", "0", "--max-tokens", "8", "--pool-size", "2",
+         "--kv-bucket", "64", "--batcher", batcher, "--max-wait-ms", "5"])), daemon=True)
+    t.start()
+    for _ in range(3000):
+        if made or not t.is_alive():
+            break
+        t.join(0.1)
+    assert made, f"the server did not start: {rc}"
+    httpd = made[0]
+    body = json.dumps({"text": "hello", "temperature": 0.0, "max_tokens": 3}).encode()
+    try:
+        with _post(httpd.server_address[1], "/synthesize", body) as r:
+            assert r.status == 200 and r.read()[:4] == b"RIFF"
+    finally:
+        httpd.shutdown()
+    t.join(120)
+    assert rc == [0] and not t.is_alive()
+    out = capsys.readouterr().out
+    assert "warmup done in" in out and f"serving on http://127.0.0.1:{httpd.server_address[1]}" in out

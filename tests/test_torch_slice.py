@@ -222,8 +222,9 @@ def test_engine_without_device_needs_cuda(tiny_model):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the serving layer included, imports with
-    neither JAX nor the JAX package."""
+    """Every module of the port, the serving layer and the entry points (the
+    CLI, the server's main) included, imports with neither JAX nor the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import leaxer_qwen3_tts_torch as p\n"
@@ -243,7 +244,11 @@ def test_port_imports_no_jax():
             "leaxer_qwen3_tts_torch.runtime.speculative", "leaxer_qwen3_tts_torch.ops.fused_verify",
             "leaxer_qwen3_tts_torch.models.draft", "leaxer_qwen3_tts_torch.ops.fused_mtp_stream",
             "leaxer_qwen3_tts_torch.ops.flash_attention", "leaxer_qwen3_tts_torch.ops.fused_frame",
-            "leaxer_qwen3_tts_torch.tools.a8_probe", "leaxer_qwen3_tts_torch.tools.w8a8_probe"} <= modules
+            "leaxer_qwen3_tts_torch.tools.a8_probe", "leaxer_qwen3_tts_torch.tools.w8a8_probe",
+            "leaxer_qwen3_tts_torch.cli.main", "leaxer_qwen3_tts_torch.cli.__main__",
+            "leaxer_qwen3_tts_torch.serve.__main__", "leaxer_qwen3_tts_torch.models.speaker_encoder",
+            "leaxer_qwen3_tts_torch.frontend.mel", "leaxer_qwen3_tts_torch.utils.profiling",
+            "leaxer_qwen3_tts_torch.utils.logging", "leaxer_qwen3_tts_torch.runtime.weights"} <= modules
     # no kernel ran on the CPU
     assert fused_step.fused_decode_step.launches == 0
     assert fused_mtp.fused_mtp_chain.launches == 0
