@@ -1,4 +1,4 @@
-"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7, P1, P2 and persistent K1 / K2 / K4 / K5 checks on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7, P1, P2, persistent K1 / K2 / K4 / K5 and bf16-unit checks on one NVIDIA GPU.
 
     python3 chip_mutants.py [WORD ...]
 
@@ -27,8 +27,13 @@ one-slot weight ring) and ``chip_smoke.check_k7_plain`` at the 0.6B widths
 against the launch sequences they replaced, bit for bit), each also with a
 one-slot weight ring, and ``chip_smoke.check_k4_equal`` /
 ``chip_smoke.check_k5_equal`` (the persistent K4 and K5 against K1 / K2 rows
-and their launch sequences) for the batched attention's faults.  A mutant is
-caught when at least one case fails.  Exits non-zero if a mutant is not
+and their launch sequences) for the batched attention's faults; the bf16
+anchors (``chip_smoke.check_unit_anchor_k1`` / ``_k4`` / ``_chains``: K1,
+K4, K3 and K5 on bf16 twins of int8 packs with unit scales, bit for bit)
+for the bf16 units' faults, two in the sources and one in
+``ops/persistent.py`` (``PY_MUTANTS``, patched in this process after the
+source mutants; ``python3 chip_mutants.py int8`` runs the three).  A mutant
+is caught when at least one case fails.  Exits non-zero if a mutant is not
 caught, or without CUDA.
 """
 
@@ -44,7 +49,7 @@ import torch
 
 import chip_smoke as cs
 from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B, QWEN3_TTS_17B
-from leaxer_qwen3_tts_torch.ops import _build
+from leaxer_qwen3_tts_torch.ops import _build, persistent
 from leaxer_qwen3_tts_torch.ops.fused_mtp import pack_heads
 from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
 
@@ -83,15 +88,17 @@ MUTANTS = {
         ("    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
          "    if (c == 0) qtts_trace_mark(p, 1);\n"
          "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
-         "    const int8_t* ws",
-         "    qtts_bstage<ACCUM>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);\n"
+         "    const WT* ws",
+         "    qtts_bstage<ACCUM, WT>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp,"
+         " lane);\n"
          "    __syncthreads();  // every warp is done with the slot\n"),
         ("    const bool late = stage == 1;\n"
          "    if (!late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
          "    if (c == 0) qtts_trace_mark(p, 1);\n"
          "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
-         "    const int8_t* ws",
-         "    qtts_bstage<ACCUM>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);\n"
+         "    const WT* ws",
+         "    qtts_bstage<ACCUM, WT>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp,"
+         " lane);\n"
          "    if (late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
          "    __syncthreads();  // every warp is done with the slot\n"),
         "K6",
@@ -256,9 +263,9 @@ MUTANTS = {
     # gate|up prologue (which reads all of x) dropped
     "K1/K2 grid barrier after the o projection dropped": (
         "qtts_stream.cuh",
-        "    qtts_ring_gemv<true>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);\n"
+        "    qtts_ring_gemv<true, WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);\n"
         "    qtts_phase_barrier(p);\n",
-        "    qtts_ring_gemv<true>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);\n",
+        "    qtts_ring_gemv<true, WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);\n",
         "K1K2",
     ),
     # the batched attention merges a row's splits by row 0's split count:
@@ -277,7 +284,52 @@ MUTANTS = {
         "      uint32_t* tk = p.tickets + h;",
         "K4K5",
     ),
+    # the bf16 stages read their rows at the int8 stride (K bytes apart, half
+    # a bf16 row), in the one-row and the batched GEMV; int8 is unchanged
+    "bf16 stage rows at the int8 stride": (
+        "qtts_stream.cuh",
+        ("      qtts_unit_load<WT, 16>(ws + (size_t)(warp + j * QTTS_P_WARPS) * K + k0, words);",
+         "  const WT* wrow = ws + (size_t)r0 * K + lane * 16;"),
+        ("      qtts_unit_load<WT, 16>(ws + (size_t)(warp + j * QTTS_P_WARPS) * K / sizeof(WT) + k0,"
+         " words);",
+         "  const WT* wrow = ws + (size_t)r0 * K / sizeof(WT) + lane * 16;"),
+        "BF16",
+    ),
+    # the ring copies a bf16 stage as int8 bytes: rows x K bytes from the
+    # int8 offset of its first row (half the stage, from the wrong place)
+    "bf16 stage copied as int8 bytes": (
+        "qtts_stream.cuh",
+        ("  const uint32_t wbytes = (uint32_t)rows * r.K * r.esize;",
+         "                 r.W + ((size_t)q.unit * r.N + n0) * r.K * r.esize, wbytes, bar);"),
+        ("  const uint32_t wbytes = (uint32_t)rows * r.K;",
+         "                 r.W + ((size_t)q.unit * r.N + n0) * r.K, wbytes, bar);"),
+        "BF16",
+    ),
 }
+
+
+def _plan_as_int8():
+    """ops/persistent.py reckons bf16 rows as int8 bytes: a stage takes the
+    rows of slot_bytes / K, twice what a bf16 slot holds.  Returns the undo."""
+    real = persistent._plan_at
+
+    def faulty(slot_bytes, cfg, grid, shapes, batch, n_sets, unit_bytes=1):
+        return real(slot_bytes, cfg, grid, shapes, batch, n_sets, 1)._replace(
+            unit_bytes=unit_bytes)
+
+    cs.clear_entries()  # plans cached before the fault would hide it
+    persistent._plan_at = faulty
+
+    def undo():
+        persistent._plan_at = real
+        cs.clear_entries()
+
+    return undo
+
+
+# name -> (apply: returns its undo, kernel whose checks must catch it):
+# faults of the port's Python modules, made in this process
+PY_MUTANTS = {"plan reckons bf16 rows as int8 bytes": (_plan_as_int8, "BF16")}
 K6_CASES = ((1, 4, [62]), (4, 8, [62, 5, 504, 130]))  # (B, S, starts) at T=512
 
 
@@ -340,8 +392,35 @@ def checks(gen):
     k6 += [lambda: cs.check_k6_equal("0.6B talker", tt, tfw, cs.K6_STALL_CASES, gen),
            lambda: cs.check_k6_equal("0.6B talker", tt, tfw, cs.K6_STALL_CASES, gen,
                                      stall_ns=cs.K6_STALL_NS)]
+    # bf16 units: the anchors (bf16 twins of int8 packs with unit scales, bit
+    # for bit) on the MTP trunk, one talker layer at the 1.7B widths (the 48
+    # KB slots' 12 KB rows) and the chains, also on a one-slot ring
+    mi8, mb16 = cs.unit_pair(mt, gen)
+    h8, h16 = cs.heads_pair(cp6, gen)
+    t17 = dataclasses.replace(t, num_layers=1)
+    ti8, tb16 = cs.unit_pair(t17, gen)
+    anchors = (cp6, mi8, h8, mb16, h16, chain6[3], chain6[4])
+    bf16 = [lambda: cs.check_unit_anchor_k1("0.6B MTP trunk", mt, mi8, mb16, ((17, 9),), gen),
+            lambda: cs.check_unit_anchor_k1("1.7B talker-1-layer", t17, ti8, tb16, ((256, 63),),
+                                            gen),
+            lambda: cs.check_unit_anchor_k4("0.6B MTP trunk", mt, mi8, mb16, (8,), 17, gen),
+            lambda: cs.check_unit_anchor_chains("0.6B MTP trunk", *anchors, gen)]
+    bf16 += [lambda: cs.one_slot_ring(lambda: cs.check_unit_anchor_chains(
+        "0.6B MTP trunk, one ring slot", *anchors, gen, knob_sets=cs.UNIT_KNOBS[1:2]))]
     return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1,
-            "P2": p2}
+            "P2": p2, "BF16": bf16}
+
+
+def run_checks(name, checks):
+    """Run a mutant's checks: the failed count of the kernel's checks."""
+    cs.log(f"=== mutant: {name}")
+    failed = 0
+    for check in checks:
+        try:
+            check()
+        except RuntimeError:
+            failed += 1
+    return f"{failed}/{len(checks)}" if failed else "0 (NOT CAUGHT)"
 
 
 def main() -> int:
@@ -352,7 +431,7 @@ def main() -> int:
     gen = torch.Generator(device=cs.DEV)
     gen.manual_seed(cs.SEED)
     by_kernel = checks(gen)
-    source = _build.CSRC_DIR
+    source, build_dir = _build.CSRC_DIR, _build.BUILD_DIR
     caught = {}
     words = sys.argv[1:]
     for name, (fname, old, new, kernel) in MUTANTS.items():
@@ -372,17 +451,16 @@ def main() -> int:
             with open(path, "w") as f:
                 f.write(text)
             _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = csrc, os.path.join(tmp, "build"), None
-            cs.log(f"=== mutant: {name}")
-            failed = 0
-            for check in by_kernel[kernel]:
-                try:
-                    check()
-                except RuntimeError:
-                    failed += 1
-            caught[name] = f"{failed}/{len(by_kernel[kernel])}"
-            if not failed:
-                caught[name] = "0 (NOT CAUGHT)"
-    _build.CSRC_DIR, _build._lib = source, None
+            caught[name] = run_checks(name, by_kernel[kernel])
+    _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = source, build_dir, None
+    for name, (apply, kernel) in PY_MUTANTS.items():
+        if words and not any(w in name for w in words):
+            continue
+        undo = apply()
+        try:
+            caught[name] = run_checks(name, by_kernel[kernel])
+        finally:
+            undo()
     cs.log(f"mutants caught (failed cases of the kernel's checks): {caught} [{cs.CARD}]")
     return 0 if not any("NOT" in v for v in caught.values()) else 1
 

@@ -110,17 +110,21 @@ prints the final line:
    load seconds and GB/s printed); ``TTSEngine(<dir>, quantize="int8")``
    decodes the greedy codes of the engine built on the same params; the CLI
    runs in this process (``cli.main``, so the launch counters see it) on the
-   directory: one-shot, ``--frame-fused on``, ``--stream``, ``--ref`` (a 3 s
-   WAV made from the first run's audio) and ``--spec-k 4`` exit 0 with a mono
+   directory with ``--quantize int8``: one-shot, ``--frame-fused on``,
+   ``--stream``, ``--ref`` (a 3 s WAV made from the first run's audio) and
+   ``--spec-k 4`` exit 0 with a mono
    16-bit 24 kHz WAV, one K1 and one K2 per decoded frame (one K7 under
    ``--frame-fused on``; one K6 and one K5 per verify iteration and K2 for
    frame 0 under ``--spec-k``) and no launch-per-op entry; without
-   ``--quantize`` and with ``--kv-quant`` it exits 1 with the engine's
+   ``--quantize`` (bf16 units) it exits 0 with a WAV, one K1 and one K3
+   per decoded frame; ``--quantize int4``, ``--kv-quant`` and, without
+   ``--quantize``, ``--spec-k 4`` (K6 at bf16) exit 1 with the engine's
    error.  The speaker embedding of that WAV on the card is within SPK_REL
    of the same checkpoint's on the CPU (ms per call printed).  The server
-   (``python -m leaxer_qwen3_tts_torch.serve``) runs as a subprocess: its
-   warmup seconds, two requests (``/synthesize``: a WAV; ``/synthesize_stream``:
-   16-bit PCM), exit 0 on SIGINT, each step under a stated timeout.  Last,
+   (``python -m leaxer_qwen3_tts_torch.serve``) runs as a subprocess, with
+   ``--quantize int8`` and then without it (bf16 units): its warmup seconds,
+   two requests (``/synthesize``: a WAV; ``/synthesize_stream``: 16-bit
+   PCM), exit 0 on SIGINT, each step under a stated timeout.  Last,
    one ``synthesize`` with ``QTTS_PROFILE`` set writes a Chrome trace that
    holds the ``synthesize`` range and K1's and K2's kernels by name.
 11. The 1.7B voice slice (``QWEN3_TTS_17B`` with the talker's
@@ -149,9 +153,29 @@ prints the final line:
    decoded frame, no K2, and 28 K8 launches per prefill.  With
    ``QTTS_MTP_STREAM=0`` (the streamed chain off) the 1.7B engine is not
    ready: its error names the per-step chain, which is not ported.
-12. The kernel report (each kernel's launches on the main paths, error
+12. bf16 weight units (``quantize`` unset, the CLI's and the server's
+   default; bits=16 packs: raw weights as bf16 with scales of one).
+   Anchors: K1 (0.6B talker at T=256 and 2560, split edges and the last
+   slot; MTP trunk; the 1.7B talker), K4 (B=8 and 32), K3 and K5 (greedy and
+   two sampled knob sets; the 1.7B trunk's K3) on bf16 twins of int8 packs
+   (the int8 values as bf16, unit scales on both) equal the int8 kernels bit
+   for bit (x and both caches; sub-codes and sub_sum); on real bf16 packs
+   K4 rows equal K1 and K5 rows (on K3's float32 cache) equal K3 bit for
+   bit; K1 / K4 / K3 / K5 against their plain versions with the int8
+   kernels' limits (K1's deep and one-layer limits and tight count, K3's and
+   K5's flip rule); one pass on a one-slot ring.  Then ``TTSEngine(config,
+   params)`` with ``quantize`` unset at the 0.6B preset: three requests and
+   a fixed 300-frame run (one K1 and one K3 per frame, no K2), the same with
+   ``frame_fused=True`` (no K7: JAX's frame gate refuses bf16 trunks),
+   phase 7's and phase 8's runs (one K4 and one K5 per frame; the greedy
+   pool output equals B=1 ``synthesize``), and the 1.7B preset at B=1 (one
+   K1 and one K3 per frame, 28 K8 per prefill; ``synthesize_batch`` and a
+   pool refused, ROADMAP B17).  Each figure is printed beside the int8 one
+   of this run.
+13. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
-   K8, the library call's time) and the device line.
+   K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units)
+   and the device line.
 """
 
 from __future__ import annotations
@@ -746,12 +770,14 @@ def count_entries(lib, names=MULTI_ENTRIES + ("qtts_unit_probe", "qtts_unit_prob
         setattr(lib, name, counted)
 
 
-def check_k4_equal(name, t, fw, cases, gen, inputs=1, cache_dtypes=(torch.bfloat16, torch.float32)):
+def check_k4_equal(name, t, fw, cases, gen, inputs=1,
+                   cache_dtypes=(torch.bfloat16, torch.float32), multi=True):
     """The persistent K4 on ``inputs`` seeded batches per (B, T) of ``cases``
     and cache dtype (per-row device positions of k4_equal_positions, and one
     batch at a host position per case): x and both caches equal the
-    launch-per-op sequence's bit for bit, and every row equals K1 on that
-    row (x and the row's caches).  Returns the number of steps compared."""
+    launch-per-op sequence's bit for bit (``multi``: int8 packs, the
+    sequence's only units), and every row equals K1 on that row (x and the
+    row's caches).  Returns the number of steps compared."""
     equal = total = 0
     for B, T in cases:
         for cache_dtype in cache_dtypes:
@@ -778,18 +804,20 @@ def check_k4_equal(name, t, fw, cases, gen, inputs=1, cache_dtypes=(torch.bfloat
                     x1, _, _ = K1.fused_decode_step(t, fw, x[b : b + 1], p, k1, v1)
                     rows_k1 &= bool(torch.equal(x1[0], xn[b])) and bool(
                         torch.equal(k1[:, 0], kn[:, b])) and bool(torch.equal(v1[:, 0], vn[:, b]))
-                xo = k4_multi(t, fw, x, arg, kc, vc)  # the sequence on the original caches
-                same = bool(torch.equal(xn, xo)) and bool(torch.equal(kn, kc)) and bool(
-                    torch.equal(vn, vc))
+                same = True
+                if multi:
+                    xo = k4_multi(t, fw, x, arg, kc, vc)  # the sequence on the original caches
+                    same = bool(torch.equal(xn, xo)) and bool(torch.equal(kn, kc)) and bool(
+                        torch.equal(vn, vc))
                 if not (same and rows_k1):
                     log(f"K4 {name} B={B} T={T} cache={str(cache_dtype)[6:]} positions {pos}: "
-                        f"equal to the launch sequence {same}, rows equal to K1 {rows_k1} (x max "
-                        f"diff to the sequence {float((xn - xo).abs().max()):.3e})")
+                        f"equal to the launch sequence {same}, rows equal to K1 {rows_k1}")
                 equal += same and rows_k1
                 total += 1
                 del kc, vc, kn, vn
     ok = equal == total
-    log(f"K4 persistent vs K1 rows and the launch sequence, {name}: L={t.num_layers} (B, T) "
+    log(f"K4 persistent vs K1 rows{' and the launch sequence' if multi else ''}, {name}: "
+        f"L={t.num_layers} (B, T) "
         f"{list(cases)} x caches {[str(d)[6:] for d in cache_dtypes]} x {inputs} batches at "
         f"device positions + 1 at a host position: {equal}/{total} steps equal bit for bit (x, k "
         f"and v caches) -> {'ok' if ok else 'FAIL'} [{CARD}]")
@@ -799,11 +827,13 @@ def check_k4_equal(name, t, fw, cases, gen, inputs=1, cache_dtypes=(torch.bfloat
 
 
 def check_k5_equal(label, cp, fw, heads, tables, fnorm, gen, batches=K5_EQUAL_BATCHES, inputs=1,
-                   cache_dtypes=(torch.bfloat16, torch.float32)):
+                   cache_dtypes=(torch.bfloat16, torch.float32), multi=True, row_chain=None):
     """The persistent K5 on ``inputs`` seeded chains per B of ``batches`` and
     cache dtype, the rows' knobs cycling through K5_KNOBS: sub-codes and
-    sub_sum equal the launch-per-op chain's bit for bit, and every row
-    equals K2 on that row's inputs and noise.  Returns the chains compared."""
+    sub_sum equal the launch-per-op chain's bit for bit (``multi``: int8
+    packs), and every row equals the B=1 chain on that row's inputs and
+    noise: K2 on the same cache, or ``row_chain`` (K3 for bf16 units, whose
+    K5 runs on K3's float32 cache).  Returns the chains compared."""
     n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
     t = cp.transformer
     equal = total = 0
@@ -817,22 +847,27 @@ def check_k5_equal(label, cp, fw, heads, tables, fnorm, gen, batches=K5_EQUAL_BA
                 noise = gumbel_noise((n, B, V), gen, DEV)
                 args = (t, fw, fnorm, heads, tables, lh, c0, noise, temps, ks, ps)
                 sn, sum_n = K2.fused_mtp_chain_batched(*args, cache_dtype=cache_dtype)
-                so, sum_o = k5_multi(*args, cache_dtype=cache_dtype)
-                same = bool(torch.equal(sn, so)) and bool(torch.equal(sum_n, sum_o))
+                same = True
+                if multi:
+                    so, sum_o = k5_multi(*args, cache_dtype=cache_dtype)
+                    same = bool(torch.equal(sn, so)) and bool(torch.equal(sum_n, sum_o))
                 rows_k2 = True
                 for b, (tb, kb, pb) in enumerate(knobs):
-                    s1, sum1 = K2.fused_mtp_chain(t, fw, fnorm, heads, tables, lh[b : b + 1],
-                                                  c0[b : b + 1], noise[:, b : b + 1].contiguous(),
-                                                  tb, kb, pb, cache_dtype=cache_dtype)
+                    row = (t, fw, fnorm, heads, tables, lh[b : b + 1], c0[b : b + 1],
+                           noise[:, b : b + 1].contiguous(), tb, kb, pb)
+                    s1, sum1 = (K2.fused_mtp_chain(*row, cache_dtype=cache_dtype)
+                                if row_chain is None else row_chain(*row))
                     rows_k2 &= bool(torch.equal(s1[0], sn[b])) and bool(torch.equal(sum1[0],
                                                                                    sum_n[b]))
                 if not (same and rows_k2):
                     log(f"K5 {label} B={B} cache={str(cache_dtype)[6:]} input {i}: equal to the "
-                        f"launch-per-op chain {same}, rows equal to K2 {rows_k2}")
+                        f"launch-per-op chain {same}, rows equal to the B=1 chain {rows_k2}")
                 equal += same and rows_k2
                 total += 1
     ok = equal == total
-    log(f"K5 persistent vs K2 rows and the launch-per-op chain, {label}: B {list(batches)} x "
+    rows = "K2" if row_chain is None else "K3"
+    log(f"K5 persistent vs {rows} rows{' and the launch-per-op chain' if multi else ''}, {label}: "
+        f"B {list(batches)} x "
         f"caches {[str(d)[6:] for d in cache_dtypes]} x {inputs} inputs, knobs {K5_KNOBS} cycled "
         f"over the rows: {equal}/{total} chains equal bit for bit (sub-codes, sub_sum) -> "
         f"{'ok' if ok else 'FAIL'} [{CARD}]")
@@ -854,7 +889,7 @@ def in_turns(label, old, new, iters, names=("launch sequence", "persistent")):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
-ONE_SLOT_BYTES = 24 * 1024  # most phases then take two stages or more (K = 6144: 4 rows)
+ONE_SLOT_BYTES = 24 * 1024  # most phases then take two stages or more (int8 K = 6144: 4 rows)
 
 
 def one_slot_ring(run, probe_stall_ns=0):
@@ -872,24 +907,16 @@ def one_slot_ring(run, probe_stall_ns=0):
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.in_bytes)
         return plan._replace(n_slots=1, smem_bytes=smem["total"], issue_stall_ns=probe_stall_ns)
 
-    def one_slot(cfg, device, head_rows=0, batch=1, talker=None, lm_rows=0):
+    def one_slot(cfg, device, head_rows=0, batch=1, talker=None, lm_rows=0, unit_bytes=1):
         device = torch.device(device)
         plan = persistent.make_plan(cfg, persistent.grid_size(device), head_rows, batch, talker,
-                                    lm_rows)
+                                    lm_rows, unit_bytes)
         plan = persistent._plan_at(ONE_SLOT_BYTES, cfg, plan.grid, plan.shapes, batch,
-                                   plan.n_sets)
+                                   plan.n_sets, unit_bytes)
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.union_bytes)
         return persistent.DevicePlan(plan._replace(n_slots=1, smem_bytes=smem["total"]), device)
 
-    def clear():
-        K1._STEP_ENTRIES.clear()
-        K1._BATCH_ENTRIES.clear()
-        K2._CHAIN_ENTRIES.clear()
-        K6._ENTRIES.clear()
-        K7._ENTRIES.clear()
-        unit_probe._PLANS.clear()
-
-    clear()
+    clear_entries()
     persistent.device_plan = one_slot
     unit_probe.probe_plan = one_slot_probe
     try:
@@ -897,7 +924,17 @@ def one_slot_ring(run, probe_stall_ns=0):
     finally:
         persistent.device_plan = real
         unit_probe.probe_plan = real_probe
-        clear()
+        clear_entries()
+
+
+def clear_entries():
+    """Drop the wrappers' cached structs, scratch and plans."""
+    K1._STEP_ENTRIES.clear()
+    K1._BATCH_ENTRIES.clear()
+    K2._CHAIN_ENTRIES.clear()
+    K6._ENTRIES.clear()
+    K7._ENTRIES.clear()
+    unit_probe._PLANS.clear()
 
 
 def trace_phases(label, plan, names, run):
@@ -1333,11 +1370,13 @@ def flip_eps(logits, g, knobs, token, gen):
     return None
 
 
-def check_k5(B, cp, fw, heads, tables, fnorm, gen, iters):
+def check_k5(B, cp, fw, heads, tables, fnorm, gen, iters, cache_dtype=torch.bfloat16,
+             row_chain=None):
     """K5 against its plain version on mixed per-row knobs and the same noise
     (a row's first mismatch passes when a logit perturbation within
-    K5_FLIP_EPS reaches it), and every row against K2 on that row's inputs
-    and noise, bit for bit."""
+    K5_FLIP_EPS reaches it), and every row against the B=1 chain on that
+    row's inputs and noise, bit for bit: K2 on ``cache_dtype``, or
+    ``row_chain`` (K3 for bf16 units, on a float32 cache)."""
     n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
     t = cp.transformer
     knobs = [K5_KNOBS[b % len(K5_KNOBS)] for b in range(B)]
@@ -1348,7 +1387,7 @@ def check_k5(B, cp, fw, heads, tables, fnorm, gen, iters):
 
     def run(fn):
         return fn(t, fw, fnorm, heads, tables, lh, c0, noise, temps, ks, ps,
-                  cache_dtype=torch.bfloat16)
+                  cache_dtype=cache_dtype)
 
     sk, sum_k = run(K2.fused_mtp_chain_batched)
     seen = []  # the plain run's sampler inputs, step-major, row-minor
@@ -1365,9 +1404,10 @@ def check_k5(B, cp, fw, heads, tables, fnorm, gen, iters):
         K2.gumbel_topk_topp_sample = real
     rows_k2 = True
     for b, (tb, kb, pb) in enumerate(knobs):
-        s1, sum1 = K2.fused_mtp_chain(t, fw, fnorm, heads, tables, lh[b : b + 1], c0[b : b + 1],
-                                      noise[:, b : b + 1].contiguous(), tb, kb, pb,
-                                      cache_dtype=torch.bfloat16)
+        row = (t, fw, fnorm, heads, tables, lh[b : b + 1], c0[b : b + 1],
+               noise[:, b : b + 1].contiguous(), tb, kb, pb)
+        s1, sum1 = (K2.fused_mtp_chain(*row, cache_dtype=cache_dtype) if row_chain is None
+                    else row_chain(*row))
         rows_k2 &= bool(torch.equal(s1[0], sk[b])) and bool(torch.equal(sum1[0], sum_k[b]))
     torch.cuda.synchronize()
     kern, plain = sk.tolist(), sp_.tolist()
@@ -1386,10 +1426,12 @@ def check_k5(B, cp, fw, heads, tables, fnorm, gen, iters):
     ok = ok and err < K2_SUM_ABS and rows_k2 and len(equal_rows) >= K5_MIN_EQUAL * B
     ms = time_ms(lambda: run(K2.fused_mtp_chain_batched), iters)
     plain_ms = time_ms(lambda: run(K2.fused_mtp_chain_batched_reference), 1, 0)
-    log(f"K5 B={B} mixed knobs {K5_KNOBS}: rows equal {len(equal_rows)}/{B} (need "
+    log(f"K5 B={B} {str(fw.wqkv.dtype)[6:]} units mixed knobs {K5_KNOBS}: rows equal "
+        f"{len(equal_rows)}/{B} (need "
         f"{K5_MIN_EQUAL:.0%}), first mismatches (row, step, flip eps) {flips} (tol "
         f"{K5_FLIP_EPS[-1]}); sub_sum "
-        f"max_abs_err over equal rows={err:.3e} (tol {K2_SUM_ABS}); rows_equal_K2={rows_k2} "
+        f"max_abs_err over equal rows={err:.3e} (tol {K2_SUM_ABS}); rows_equal_"
+        f"{'K2' if row_chain is None else 'K3'}={rows_k2} "
         f"kernel {ms:.4f} ms/chain plain {plain_ms:.4f} ms/chain -> {'ok' if ok else 'FAIL'} "
         f"[{CARD}]")
     if not ok:
@@ -1515,6 +1557,18 @@ def launches():
     return tuple(fn.launches for fn in KERNELS)
 
 
+def counts_of(**n):
+    """Launch counts in KERNEL_IDS' order from counts by kernel id."""
+    return tuple(n.get(k, 0) for k in KERNEL_IDS)
+
+
+def b1_chain(eng):
+    """The id of the chain kernel of ``eng``'s B=1 frames: K2, or K3 for a
+    trunk past K2's residency gate (the 1.7B int8 trunk, every bf16 one)."""
+    chain = chain_kernel(eng.cfg.code_predictor, eng.params["code_predictor"], 1)
+    return "K3" if chain is K3.fused_mtp_chain_streamed else "K2"
+
+
 def check_launches(phase, want):
     """``want``: counts in KERNEL_IDS' order; the kernels past its end must
     not have launched."""
@@ -1619,7 +1673,8 @@ def pool_phase(eng, card_line):
         audio_s = sum(r.metrics.audio_seconds for r in results)
         log(f"pool: 12 requests through 8 slots in {wall:.2f} s, {chunks} chunks of 16 frames, "
             f"aggregate RTF {audio_s / wall:.2f}x [{card_line}]")
-        counts = [check_launches("pool", (1, 1, chunks * 16, chunks * 16, 0))]
+        counts = [check_launches("pool", counts_of(K1=1, **{b1_chain(eng): 1}, K4=chunks * 16,
+                                                   K5=chunks * 16))]
 
         reset_launches()
         chunks0 = pool.stats["chunks"]
@@ -2137,25 +2192,32 @@ def check_wav(path_or_bytes, label):
 
 def cli_phase(d, tmp, card_line):
     """The CLI on the checkpoint, in process: one-shot, --frame-fused on,
-    --stream, --ref, --spec-k 4, and the flags it refuses on the card.
-    Returns (launch counts, ms per frame of the one-shot run, reference WAV)."""
+    --stream, --ref, --spec-k 4 (int8), one-shot without --quantize (bf16
+    units: one K1 and one K3 per frame), and the flags it refuses on the
+    card.  Returns (int8 launch counts, ms per frame of the int8 one-shot
+    run, reference WAV, bf16 launch counts, ms per frame of the bf16 run)."""
     base = ["-m", d, "-p", ENTRY_TEXT, "--lang", "en", "--temp", "0", "--max-tokens",
             str(CLI_FRAMES), "--quantize", "int8", "--verbose"]
+    unquantized = [a for a in base if a not in ("--quantize", "int8")]
     ref = os.path.join(tmp, "ref.wav")
-    counts, ms_frame = [], None
+    counts, ms_frame, bf16_counts, bf16_ms = [], None, [], None
     for label, extra in (("one-shot", []), ("--frame-fused on", ["--frame-fused", "on"]),
                          ("--stream", ["--stream"]), ("--ref", ["--ref", ref]),
-                         ("--spec-k 4", ["--spec-k", "4"])):
-        out_wav = os.path.join(tmp, f"cli-{len(counts)}.wav")
+                         ("--spec-k 4", ["--spec-k", "4"]), ("without --quantize", None)):
+        out_wav = os.path.join(tmp, f"cli-{len(counts) + len(bf16_counts)}.wav")
         reset_launches()
         t0 = time.perf_counter()
-        rc, out, err = run_cli(base + ["-o", out_wav] + extra)
+        argv = (base + ["-o", out_wav] + extra if extra is not None
+                else unquantized + ["-o", out_wav])
+        rc, out, err = run_cli(argv)
         wall = time.perf_counter() - t0
         m = SUMMARY.search(out)
         if rc != 0 or m is None:
             raise RuntimeError(f"CLI {label}: exit {rc}\n{out}\n{err}")
         decode_ms, n = float(m.group(1)), int(m.group(2))
-        if extra == ["--frame-fused", "on"]:
+        if extra is None:  # bf16 units: the streamed chain K3 at B=1
+            want = counts_of(K1=n, K3=n)
+        elif extra == ["--frame-fused", "on"]:
             want = (0, 0, 0, 0, 0, 0, 0, n)
         elif m.group(3) is not None:
             it, fallback = int(m.group(3)), m.group(5) is not None
@@ -2163,7 +2225,8 @@ def cli_phase(d, tmp, card_line):
             want = (seq + fallback, 1 + seq, 0, it, it)
         else:
             want = (n, n)
-        counts.append(check_launches(f"CLI {label} ({n} frames decoded)", want))
+        (counts if extra is not None else bf16_counts).append(
+            check_launches(f"CLI {label} ({n} frames decoded)", want))
         pcm = check_wav(out_wav, f"CLI {label}")
         log(f"CLI {label}: exit 0, {pcm.size / 24000:.2f} s of audio, {n} frames decoded, "
             f"{decode_ms / n:.3f} ms/frame decode, {wall:.2f} s of wall time (checkpoint load, "
@@ -2172,10 +2235,12 @@ def cli_phase(d, tmp, card_line):
             ms_frame = decode_ms / n
             # a 3 s reference for --ref, from this run's audio
             write_wav(ref, np.resize(pcm.astype(np.float32) / 32768.0, 3 * 24000), 24000)
+        if extra is None:
+            bf16_ms = decode_ms / n
     for label, extra, words in (
-            ("without --quantize", [a for a in base if a not in ("--quantize", "int8")],
-             "the kernels take int8 weights"),
-            ("--kv-quant", base + ["--kv-quant"], "kv_quant")):
+            ("--quantize int4", [a if a != "int8" else "int4" for a in base], "int4"),
+            ("--kv-quant", base + ["--kv-quant"], "kv_quant"),
+            ("without --quantize, --spec-k 4", unquantized + ["--spec-k", "4"], "K1v-b")):
         reset_launches()
         out_wav = os.path.join(tmp, "refused.wav")
         rc, out, err = run_cli(extra + ["-o", out_wav])
@@ -2184,14 +2249,16 @@ def cli_phase(d, tmp, card_line):
             raise RuntimeError(f"CLI {label}: exit {rc}, expected 1 with the engine's error\n{err}")
         check_launches(f"CLI {label} (refused)", ())
         log(f"CLI {label}: exit 1, {errors[0]}")
-    return [sum(c) for c in zip(*counts)], ms_frame, ref
+    return [sum(c) for c in zip(*counts)], ms_frame, ref, [sum(c) for c in zip(*bf16_counts)], (
+        bf16_ms)
 
 
-def serve_phase(d, card_line):
-    """``python -m leaxer_qwen3_tts_torch.serve`` as a subprocess: its warmup,
-    two requests (one streamed), exit 0 on SIGINT.  Returns its warmup s."""
-    cmd = [sys.executable, "-m", "leaxer_qwen3_tts_torch.serve", "-m", d, "--quantize", "int8",
-           "--max-tokens", "128", "--port", "0"]
+def serve_phase(d, card_line, quantize="int8"):
+    """``python -m leaxer_qwen3_tts_torch.serve`` as a subprocess (with
+    ``--quantize quantize``, or none: bf16 units): its warmup, two requests
+    (one streamed), exit 0 on SIGINT.  Returns its warmup s."""
+    cmd = [sys.executable, "-m", "leaxer_qwen3_tts_torch.serve", "-m", d,
+           *(["--quantize", quantize] if quantize else []), "--max-tokens", "128", "--port", "0"]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -2248,7 +2315,8 @@ def serve_phase(d, card_line):
             proc.kill()
             proc.wait()
     reader.join(timeout=10)
-    log(f"server subprocess: serving {started_s:.1f} s after start (checkpoint load, engine "
+    log(f"server subprocess ({'--quantize ' + quantize if quantize else 'no --quantize: bf16 units'}"
+        f"): serving {started_s:.1f} s after start (checkpoint load, engine "
         f"build, warmup {warm_s} s), exit 0 on SIGINT [{card_line}]")
     return warm_s
 
@@ -2324,7 +2392,8 @@ def entry_phase(tok, card_line):
         del mem
         torch.cuda.empty_cache()
 
-        counts, numbers["cli_ms_frame"], ref = cli_phase(d, tmp, card_line)
+        counts, numbers["cli_ms_frame"], ref, numbers["bf16_counts"], numbers[
+            "cli_bf16_ms_frame"] = cli_phase(d, tmp, card_line)
 
         e_card = eng.extract_speaker_embedding(ref)
         t0 = time.perf_counter()
@@ -2340,6 +2409,7 @@ def entry_phase(tok, card_line):
             raise RuntimeError("speaker embedding: the card disagrees with the CPU")
 
         numbers["warmup_s"] = serve_phase(d, card_line)
+        numbers["warmup_bf16_s"] = serve_phase(d, card_line, quantize=None)
         counts = [sum(c) for c in zip(counts, profile_phase(eng, tmp, card_line))]
     del eng
     torch.cuda.empty_cache()
@@ -2460,6 +2530,7 @@ def voice_phase(tok, gen, card_line):
     reset_launches()
     ms = check_fixed_run(eng, 300, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
     counts.append(check_launches("1.7B fixed run", (300, 0, 0, 0, 0, 300, layers)))
+    figure("1.7B B=1 ms/frame", ms)
     log(f"1.7B fixed run with the instruction: {ms:.3f} ms/frame, RTF {1e3 / 12 / ms:.2f}x "
         f"(decode only; real time is 83.3 ms/frame) [{card_line}]")
     del eng
@@ -2943,6 +3014,384 @@ def frame_fused_phase(eng, ff_eng, requests, card_line):
     return [sum(c) for c in zip(*counts)], means, prof
 
 
+# ---------------------------------------------------------------------------
+# bf16 weight units (quantize=None): K1, K3, K4 and K5 at bits=16
+# ---------------------------------------------------------------------------
+
+# The unquantized config's figures beside the int8 ones of the same run:
+# (int8, bf16) by name, filled by the phases and printed by bf16_phase.
+FIGURES = {}
+
+
+def figure(name, value):
+    """Record ``value``: the int8 figure first, then the bf16 one."""
+    FIGURES[name] = FIGURES.get(name, ()) + (value,)
+
+
+def batched_figures(ms):
+    """ms per batched frame at B=8 and 32 and B=8's aggregate decode RTF."""
+    figure("0.6B ms per batched frame B=8, B=32", (ms[8], ms[32]))
+    figure("0.6B aggregate decode RTF B=8", 8 * 1e3 / 12 / ms[8])
+# the chains' knob sets of the bf16 anchors: greedy and two sampled sets
+UNIT_KNOBS = ((0.0, 50, 0.9), (0.8, 50, 0.95), (0.7, 1, 0.9))
+
+
+def unit_pair(t, gen):
+    """An int8 pack of ``t`` with its scales set to one, and its twin whose
+    bf16 units hold the same int8 values (exact): K1 / K4 / K3 / K5 on the
+    two must agree bit for bit, since every weight converts to the same
+    float and the FMA order is the int8 path's."""
+    i8 = packed_trunk(t, gen)
+    i8 = i8._replace(**{k: torch.ones_like(getattr(i8, k)) for k in ("sqkv", "so", "sgu", "sd")})
+    b16 = i8._replace(**{k: getattr(i8, k).to(torch.bfloat16) for k in ("wqkv", "wo", "wgu", "wd")})
+    return i8, b16
+
+
+def heads_pair(cp, gen):
+    """The chain's int8 heads with scales of one, and their bf16 twin."""
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
+    h8 = K2.pack_heads(quantize_weight(
+        (torch.randn((n, H, V), generator=gen, device=DEV) * H ** -0.5).to(torch.bfloat16)))
+    h8 = h8._replace(scale=torch.ones_like(h8.scale))
+    return h8, h8._replace(q=h8.q.to(torch.bfloat16))
+
+
+def bf16_trunk(t, gen):
+    """A real bf16 pack of ``t`` (random weights, bits=16: scales of one)."""
+    layers = fuse_params({"m": {"transformer": init_transformer_params(t, gen, DEV)}},
+                         modules=("m",))["m"]["transformer"]["layers"]
+    return K1.pack_fused_weights(t, layers, bits=16)
+
+
+def bf16_heads(cp, gen):
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
+    return K2.pack_heads((torch.randn((n, H, V), generator=gen, device=DEV) * H ** -0.5).to(
+        torch.bfloat16))
+
+
+def check_unit_anchor_k1(name, t, i8, b16, cases, gen, cache_dtypes=(torch.bfloat16, torch.float32)):
+    """K1 on the bf16 twin against K1 on the int8 pack (unit scales), one
+    seeded input per (T, pos) of ``cases`` and cache dtype: x and both
+    caches equal bit for bit.  Returns the number of steps compared."""
+    equal = total = 0
+    for T, pos in cases:
+        for cache_dtype in cache_dtypes:
+            x, kc, vc = k1_inputs(t, T, pos, cache_dtype, gen)
+            k8, v8, kb, vb = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            x8, _, _ = K1.fused_decode_step(t, i8, x, pos, k8, v8)
+            xb, _, _ = K1.fused_decode_step(t, b16, x, pos, kb, vb)
+            same = bool(torch.equal(x8, xb)) and bool(torch.equal(k8, kb)) and bool(
+                torch.equal(v8, vb))
+            if not same:
+                log(f"K1 bf16 anchor {name} T={T} pos={pos} cache={str(cache_dtype)[6:]}: x max "
+                    f"diff {float((x8 - xb).abs().max()):.3e}")
+            equal += same
+            total += 1
+    ok = equal == total
+    log(f"K1 bf16 units vs int8 units (int8-valued bf16, unit scales), {name}: L={t.num_layers} "
+        f"(T, pos) {list(cases)} x caches {[str(d)[6:] for d in cache_dtypes]}: {equal}/{total} "
+        f"steps equal bit for bit (x, k and v caches) -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K1 on bf16 units differs from K1 on int8 units ({name})")
+    return total
+
+
+def check_unit_anchor_k4(name, t, i8, b16, batches, T, gen):
+    """K4 on the bf16 twin against K4 on the int8 pack at B rows of
+    ``batches`` (k4_inputs' per-row positions), both cache dtypes: x and
+    both caches equal bit for bit."""
+    equal = total = 0
+    for B in batches:
+        for cache_dtype in (torch.bfloat16, torch.float32):
+            x, kc, vc, pos = k4_inputs(t, B, T, cache_dtype, gen)
+            pos_dev = torch.tensor(pos, device=DEV)
+            k8, v8, kb, vb = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            x8, _, _ = K1.fused_decode_step_batched(t, i8, x, pos_dev, k8, v8)
+            xb, _, _ = K1.fused_decode_step_batched(t, b16, x, pos_dev, kb, vb)
+            same = bool(torch.equal(x8, xb)) and bool(torch.equal(k8, kb)) and bool(
+                torch.equal(v8, vb))
+            equal += same
+            total += 1
+            del kc, vc, k8, v8, kb, vb
+    ok = equal == total
+    log(f"K4 bf16 units vs int8 units, {name}: L={t.num_layers} B {list(batches)} T={T} x caches "
+        f"bf16/f32: {equal}/{total} steps equal bit for bit (x, k and v caches) -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K4 on bf16 units differs from K4 on int8 units ({name})")
+    return total
+
+
+def check_unit_anchor_chains(label, cp, i8, h8, b16, h16, tables, fnorm, gen, batches=(8,),
+                             knob_sets=UNIT_KNOBS):
+    """K3 (B=1) and K5 (B rows of ``batches``, the knob sets cycled over the
+    rows) on the bf16 twins against the same kernels on the int8 pack and
+    heads (unit scales), float32 cache, the same inputs and noise: sub-codes
+    and sub_sum equal bit for bit."""
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
+    t = cp.transformer
+    equal = total = 0
+    for knobs in knob_sets:
+        sp = SamplingParams.create(*knobs)
+        lh = (torch.randn((1, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+        c0 = (torch.randn((1, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+        noise = None if sp.greedy else gumbel_noise((n, 1, V), gen, DEV)
+        rest = (tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
+        s8, sum8 = K3.fused_mtp_chain_streamed(t, i8, fnorm, h8, *rest)
+        sb, sumb = K3.fused_mtp_chain_streamed(t, b16, fnorm, h16, *rest)
+        same = bool(torch.equal(s8, sb)) and bool(torch.equal(sum8, sumb))
+        if not same:
+            log(f"K3 {label} knobs {knobs}: int8 {s8[0].tolist()} bf16 {sb[0].tolist()}")
+        equal += same
+        total += 1
+    for B in batches:
+        knobs = [knob_sets[b % len(knob_sets)] for b in range(B)]
+        temps, ks, ps = zip(*knobs)
+        lh = (torch.randn((B, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+        c0 = (torch.randn((B, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+        rest = (tables, lh, c0, gumbel_noise((n, B, V), gen, DEV), temps, ks, ps)
+        s8, sum8 = K2.fused_mtp_chain_batched(t, i8, fnorm, h8, *rest, cache_dtype=torch.float32)
+        sb, sumb = K2.fused_mtp_chain_batched(t, b16, fnorm, h16, *rest, cache_dtype=torch.float32)
+        same = bool(torch.equal(s8, sb)) and bool(torch.equal(sum8, sumb))
+        if not same:
+            log(f"K5 {label} B={B}: the bf16 chain differs from the int8 one")
+        equal += same
+        total += 1
+    ok = equal == total
+    log(f"K3 and K5 bf16 units vs int8 units, {label}: K3 on knobs {list(knob_sets)}, K5 at B "
+        f"{list(batches)}, float32 cache: {equal}/{total} chains equal bit for bit (sub-codes, "
+        f"sub_sum) -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"the chains on bf16 units differ from those on int8 units ({label})")
+    return total
+
+
+def bf16_anchors(cfg, gen):
+    """The bit-for-bit anchors of the bf16 kernels at the 0.6B widths: bf16
+    twins of int8 packs (K1 at the talker and the trunk, K4 at B=8 and 32,
+    K3 and K5), then real bf16 packs: K4 rows against K1 and K5 rows against
+    K3, bit for bit; each kernel against its plain version with the int8
+    kernels' limits; one pass on a one-slot ring.  Returns the (error, ms,
+    plain ms) checks of K1, K4, K3 and K5 and their bounds."""
+    talker_t, cp = cfg.talker.transformer, cfg.code_predictor
+    mtp_t = cp.transformer
+    H, V, n = mtp_t.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    tables = (torch.randn((n, V, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=DEV)
+    i8, b16 = unit_pair(talker_t, gen)
+    check_unit_anchor_k1("0.6B talker", talker_t, i8, b16,
+                         ((256, 0), (256, 63), (256, 255), (2560, 64), (2560, 2559)), gen)
+    check_unit_anchor_k4("0.6B talker", talker_t, i8, b16, (8, 32), 512, gen)
+    del i8, b16
+    mi8, mb16 = unit_pair(mtp_t, gen)
+    h8, h16 = heads_pair(cp, gen)
+    check_unit_anchor_k1("0.6B MTP trunk", mtp_t, mi8, mb16, ((17, 0), (17, 9), (17, 16)), gen)
+    check_unit_anchor_k4("0.6B MTP trunk", mtp_t, mi8, mb16, (8, 32), 17, gen)
+    check_unit_anchor_chains("0.6B MTP trunk", cp, mi8, h8, mb16, h16, tables, fnorm, gen,
+                             batches=(8, 32))
+    one_slot_ring(lambda: (
+        check_unit_anchor_k1("0.6B MTP trunk, one ring slot", mtp_t, mi8, mb16, ((17, 16),), gen),
+        check_unit_anchor_chains("0.6B MTP trunk, one ring slot", cp, mi8, h8, mb16, h16, tables,
+                                 fnorm, gen, knob_sets=UNIT_KNOBS[1:2])))
+    del mi8, mb16, h8, h16
+
+    # real bf16 packs: against the plain versions and row by row
+    fw = bf16_trunk(talker_t, gen)
+    k1 = [check_k1_deep("talker bf16", talker_t, fw, 256, 200, gen, 20),
+          check_k1_deep("talker bf16", talker_t, fw, 2560, 1800, gen, 5)]
+    k4 = [check_k4_deep("talker bf16", talker_t, fw, 8, 512, gen, 10),
+          check_k4_deep("talker bf16", talker_t, fw, 32, 512, gen, 3)]
+    check_k4_equal("0.6B talker bf16", talker_t, fw, ((8, 256), (32, 2560)), gen, multi=False)
+    bounds = {"K1": step_bound(talker_t, fw, 1, [200], 1, torch.bfloat16),
+              "K4": step_bound(talker_t, fw, 8, [min(p, 511) for p in K4_POSITIONS], 1,
+                               torch.bfloat16)}
+    log(f"K1 0.6B talker bf16 units: {nbytes(fw) / 1e6:.1f} MB of pack per step, bound "
+        f"{bounds['K1'][0]:.4f} ms ({bounds['K1'][1]}) [{CARD}]")
+    del fw
+    ts = dataclasses.replace(talker_t, num_layers=K1_SHALLOW_LAYERS)
+    fws = bf16_trunk(ts, gen)
+    for cache_dtype in (torch.float32, torch.bfloat16):
+        for T, pos in ((256, 63), (512, 64), (2560, 2559)):
+            k1.append(check_k1_shallow(f"talker-{K1_SHALLOW_LAYERS}-layer bf16", ts, fws, T, pos,
+                                       cache_dtype, gen, 0))
+        k4_shallow = check_k4_shallow(ts, fws, 8, 512, cache_dtype, gen)
+        k4[0] = (max(k4[0][0], k4_shallow),) + k4[0][1:]
+    del fws
+    mfw = bf16_trunk(mtp_t, gen)
+    heads = bf16_heads(cp, gen)
+    k1.append(check_k1_deep("mtp-trunk bf16", mtp_t, mfw, 17, 9, gen, 20))
+    chain = (cp, mfw, heads, tables, fnorm)
+    # K3's limits: its 1.7B check's flip rule (a near-tie sub-code may flip)
+    k3 = [check_chain("K3 0.6B bf16", K3.fused_mtp_chain_streamed,
+                      K3.fused_mtp_chain_streamed_reference, knobs, *chain, gen, iters,
+                      flip_rule=True)
+          for knobs, iters in (((0.8, 50, 0.95), 10), ((0.0,), 0), ((1.0, 0, 1.0), 0))]
+    k3_row = K3.fused_mtp_chain_streamed
+    k5 = [check_k5(B, *chain, gen, iters, cache_dtype=torch.float32, row_chain=k3_row)
+          for B, iters in ((8, 5), (32, 3))]
+    check_k5_equal("0.6B MTP trunk bf16", *chain, gen, batches=(2, 8, 32),
+                   cache_dtypes=(torch.float32,), multi=False, row_chain=k3_row)
+    one_slot_ring(lambda: (
+        check_k4_equal("0.6B MTP trunk bf16, one ring slot", mtp_t, mfw, ((5, 17), (32, 17)), gen,
+                       multi=False),
+        check_k5_equal("0.6B MTP trunk bf16, one ring slot", *chain, gen, batches=(8,),
+                       cache_dtypes=(torch.float32,), multi=False, row_chain=k3_row)))
+    bounds["K3"] = chain_bound(mtp_t, mfw, heads, 1)
+    bounds["K5"] = chain_bound(mtp_t, mfw, heads, 8)
+    del mfw, heads, tables
+    torch.cuda.empty_cache()
+    return k1, k4, k3, k5, bounds
+
+
+def bf16_17b(tok, gen, card_line):
+    """The 1.7B preset at B=1 with bf16 units: the anchors at its widths (K1
+    and K3 on the wide slots' four 12 KB down rows), K1 and K3 against
+    their plain versions on the engine's packs, the engine's instruct and
+    preset-speaker requests and a fixed 300-frame run (one K1 and one K3 per
+    frame, 28 K8 per prefill), and its batched refusal.  Returns the launch
+    counts."""
+    cfg = voice_config()
+    talker_t, cp = cfg.talker.transformer, cfg.code_predictor
+    i8, b16 = unit_pair(talker_t, gen)
+    check_unit_anchor_k1("1.7B talker", talker_t, i8, b16, ((256, 63), (1024, 1023)), gen)
+    del i8, b16
+    mi8, mb16 = unit_pair(cp.transformer, gen)
+    h8, h16 = heads_pair(cp, gen)
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
+    tables = (torch.randn((n, V, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=DEV)
+    check_unit_anchor_chains("1.7B MTP trunk", cp, mi8, h8, mb16, h16, tables, fnorm, gen,
+                             batches=(), knob_sets=UNIT_KNOBS[:2])
+    del mi8, mb16, h8, h16, tables
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    params["speaker_table"] = (torch.randn((len(PRESET_SPEAKERS), talker_t.hidden_size),
+                                           generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok)
+    del params
+    torch.cuda.synchronize()
+    if not eng.is_ready():
+        raise RuntimeError(f"1.7B engine with quantize unset: {eng.get_error()}")
+    plan = persistent.make_plan(talker_t, persistent.grid_size(DEV), unit_bytes=2)
+    log(f"engine: 1.7B preset, quantize unset (bf16 units), built in "
+        f"{time.perf_counter() - t0:.1f} s; one-row plan: {plan.n_slots} slots of "
+        f"{plan.slot_bytes} bytes, stage rows {plan.stage_rows[:5]} [{card_line}]")
+    fw = eng.params["talker"]["fused_step"]
+    cpp = eng.params["code_predictor"]
+    if fw.wqkv.dtype != torch.bfloat16 or b1_chain(eng) != "K3":
+        raise RuntimeError("the 1.7B bf16 engine does not pack bf16 units or route B=1 to K3")
+    check_k1_deep("talker-1.7B bf16", talker_t, fw, 256, 60, gen, 10)
+    check_chain("K3 1.7B bf16", K3.fused_mtp_chain_streamed,
+                K3.fused_mtp_chain_streamed_reference, (0.8, 50, 0.95), cp, cpp["fused_step"],
+                cpp["fused_heads"], eng.params["embeddings"]["pred_embed"],
+                cpp["transformer"]["final_norm"], gen, 5, flip_rule=True)
+    layers = talker_t.num_layers
+    reset_launches()
+    decoded = 0
+    for label, r in (
+            ("synthesize(instruct)", eng.synthesize(
+                VOICE_TEXT, language="en", temperature=0.8, top_k=50, top_p=0.95, max_tokens=48,
+                seed=SEED, instruct=VOICE_INSTRUCT)),
+            ("synthesize_speaker(serena)", eng.synthesize_speaker(
+                "hello world, a preset speaker", "serena", language="en", temperature=0.0,
+                max_tokens=48))):
+        m = r.metrics
+        decoded += m.decoded_frames
+        if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                r.audio).all() or r.codes.shape[1:] != (16,):
+            raise RuntimeError(f"bad 1.7B bf16 {label} output")
+        log(f"1.7B bf16 {label}: {m.frames} frames ({m.decoded_frames} decoded), "
+            f"{m.stage_seconds['decode'] * 1e3 / max(m.decoded_frames, 1):.3f} ms/frame decode, "
+            f"TTFA {m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+    counts = [check_launches(f"1.7B bf16 requests (one K1 and one K3 per decoded frame, {layers} "
+                             "K8 per prefill)", counts_of(K1=decoded, K3=decoded, K8=2 * layers))]
+    reset_launches()
+    ms = check_fixed_run(eng, 300, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
+    counts.append(check_launches("1.7B bf16 fixed run", counts_of(K1=300, K3=300, K8=layers)))
+    figure("1.7B B=1 ms/frame", ms)
+    for what, call in (("synthesize_batch", lambda: eng.synthesize_batch(["hello", "world"])),
+                       ("a pool", lambda: ContinuousBatcher(eng, pool_size=8))):
+        try:
+            call()
+        except Exception as e:  # noqa: BLE001 - the refusal is the check
+            if "ROADMAP B17" not in str(e):
+                raise
+            log(f"1.7B bf16 {what}: refused, {e}")
+        else:
+            raise RuntimeError(f"1.7B bf16 {what} ran: the batched plan cannot hold its rows")
+    del eng
+    torch.cuda.empty_cache()
+    return [sum(c) for c in zip(*counts)]
+
+
+def bf16_phase(tok, gen, card_line):
+    """Phase 12: ``quantize`` unset (bf16 units) on the card.  The anchors
+    (bf16_anchors), then ``TTSEngine(config, params)`` at the 0.6B preset:
+    three requests and a fixed 300-frame run (one K1 and one K3 per frame),
+    ``frame_fused=True`` (the same: JAX's frame gate refuses bf16 trunks),
+    ``synthesize_batch`` and fixed runs at B=8 and 32 and a pool of 8 (one K4
+    and one K5 per frame, greedy pool output equal to B=1 ``synthesize``),
+    then the 1.7B preset at B=1 (bf16_17b).  Prints each figure beside the
+    int8 one of this run.  Returns (launch counts, checks, bounds)."""
+    cfg = QWEN3_TTS_06B
+    k1, k4, k3, k5, bounds = bf16_anchors(cfg, gen)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok)
+    ff_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, frame_fused=True)
+    del params
+    torch.cuda.synchronize()
+    for e in (eng, ff_eng):
+        if not e.is_ready():
+            raise RuntimeError(f"0.6B engine with quantize unset: {e.get_error()}")
+    if eng.params["talker"]["fused_step"].wqkv.dtype != torch.bfloat16 or b1_chain(eng) != "K3":
+        raise RuntimeError("the 0.6B bf16 engine does not pack bf16 units or route B=1 to K3")
+    log(f"engines: 0.6B preset, random weights (seed {SEED}), quantize unset (bf16 units), "
+        f"sequential and frame_fused, built in {time.perf_counter() - t0:.1f} s [{card_line}]")
+    counts = []
+    for label, e in (("sequential", eng), ("frame_fused=True", ff_eng)):
+        reset_launches()
+        decoded, ttfa = 0, []
+        for req in B1_REQUESTS:
+            r = e.synthesize(max_tokens=48, seed=SEED, **req)
+            m = r.metrics
+            decoded += m.decoded_frames
+            ttfa.append(m.ttfa_seconds * 1e3)
+            if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                    r.audio).all() or r.codes.shape[1:] != (16,) or m.frame_fused_frames:
+                raise RuntimeError(f"bad bf16 synthesis output for {req} ({label})")
+            decode_ms = m.stage_seconds["decode"] * 1e3 / max(m.decoded_frames, 1)
+            log(f"bf16 {label} synthesize {req['language']} T={req['temperature']}: {m.frames} "
+                f"frames ({m.decoded_frames} decoded), {decode_ms:.3f} ms/frame decode, RTF "
+                f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+        ms = check_fixed_run(e, 300, [FIXED_TEXT], card_line)
+        decoded += 300
+        counts.append(check_launches(f"bf16 B=1 slice, {label} (one K1 and one K3 per decoded "
+                                     "frame, no K2 or K7)", counts_of(K1=decoded, K3=decoded)))
+        if e is eng:
+            figure("0.6B B=1 ms/frame", ms)
+            figure("0.6B B=1 TTFA ms (3 requests)", [round(x, 1) for x in ttfa])
+    del ff_eng
+    batched, ms = batched_phase(eng, card_line)
+    batched_figures(ms)
+    counts += [batched, pool_phase(eng, card_line)]
+    del eng
+    torch.cuda.empty_cache()
+    counts.append(bf16_17b(tok, gen, card_line))
+    log("bf16 units (quantize unset) beside int8, this run: " + "; ".join(
+        f"{k}: int8 {v[0]}, bf16 {v[-1]}" for k, v in FIGURES.items()) + f" [{card_line}]")
+    return [sum(c) for c in zip(*counts)], (k1, k4, k3, k5), bounds
+
+
+B1_REQUESTS = [
+    dict(text="hello world", language="en", temperature=0.0),
+    dict(text="hello world, hello world", language="en", temperature=0.8, top_k=50, top_p=0.95),
+    dict(text="你好，世界", language="zh", temperature=0.8, top_k=50, top_p=0.95),
+]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
@@ -2961,9 +3410,13 @@ def main() -> int:
     count_entries(_build.load_kernels())
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(path)} [{CARD}]")
     with open(path + ".log") as f:
+        fn = ""
         for line in f:
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
             if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+                spills = "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+                log("  ptxas: " + line.strip() + (f" ({fn})" if spills else ""))
 
     cfg = QWEN3_TTS_06B
     talker_t = cfg.talker.transformer
@@ -3141,17 +3594,13 @@ def main() -> int:
         f"ladder {eng.kv_ladder} [{CARD}]")
 
     reset_launches()
-    requests = [
-        dict(text="hello world", language="en", temperature=0.0),
-        dict(text="hello world, hello world", language="en", temperature=0.8, top_k=50,
-             top_p=0.95),
-        dict(text="你好，世界", language="zh", temperature=0.8, top_k=50, top_p=0.95),
-    ]
-    decoded = 0
+    requests = B1_REQUESTS
+    decoded, ttfa = 0, []
     for req in requests:
         r = eng.synthesize(max_tokens=48, seed=SEED, **req)
         m = r.metrics
         decoded += m.decoded_frames
+        ttfa.append(m.ttfa_seconds * 1e3)
         if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
                 r.audio).all() or r.codes.shape[1:] != (16,):
             raise RuntimeError(f"bad synthesis output for {req}")
@@ -3161,23 +3610,33 @@ def main() -> int:
             f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms, total "
             f"{m.total_seconds * 1e3:.1f} ms [{card_line}]")
     seq_ms = check_fixed_run(eng, 300, [FIXED_TEXT], card_line)
+    figure("0.6B B=1 ms/frame", seq_ms)
+    figure("0.6B B=1 TTFA ms (3 requests)", [round(x, 1) for x in ttfa])
     decoded += 300
     b1 = check_launches("B=1 slice (one K1 and one K2 per decoded frame)",
                         (decoded, decoded, 0, 0, 0))
     framed, _, _ = frame_fused_phase(eng, ff_eng, requests, card_line)
     del ff_eng
-    batched, _ = batched_phase(eng, card_line)
+    batched, batched_ms = batched_phase(eng, card_line)
+    batched_figures(batched_ms)
     pooled = pool_phase(eng, card_line)
     spec, _ = spec_phase(eng, spec_eng, draft_eng, seq_ms, card_line)
     del eng, spec_eng, draft_eng
     torch.cuda.empty_cache()
-    entry, _ = entry_phase(tok, card_line)
+    entry, numbers = entry_phase(tok, card_line)
     voice, k1_17b, k3, k8, voice_bounds = voice_phase(tok, gen, card_line)
     k1 += k1_17b
     bounds.update(voice_bounds)
+    # the bf16 units' phase draws from a generator of its own, as K4's
+    gen16 = torch.Generator(device=DEV)
+    gen16.manual_seed(SEED + 16)
+    bf16, (k1b, k4b, k3b, k5b), bf16_bounds = bf16_phase(tok, gen16, card_line)
+    bounds.update({f"{k} bf16": v for k, v in bf16_bounds.items()})
+    bf16 = [sum(c) for c in zip(bf16, numbers["bf16_counts"])]
     total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed)]
-    log("launches on the main paths in all: "
-        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)))
+    log("launches on the main paths in all, int8 units: "
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)) + "; bf16 units: "
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)))
 
     def entry(name, source, replaces, launched, checks, bound_key, library_ms=None):
         # library_ms: one PyTorch call computing the same function, where one
@@ -3216,6 +3675,15 @@ def main() -> int:
               "P1"),
         entry("w8a8_probe", "unit_probe.cu", "tools/w8a8_probe.py:33", total[9],
               probe_checks["P2"], "P2"),
+        # bf16 weight units (quantize unset): the same kernels' bits=16 instances
+        entry("fused_decode_step (bf16 units)", "fused_step.cu", "fused_step.py:1290", bf16[0],
+              k1b, "K1 bf16"),
+        entry("fused_decode_step_batched (bf16 units)", "fused_step_batched.cu",
+              "fused_step.py:2083", bf16[2], k4b, "K4 bf16"),
+        entry("fused_mtp_chain_batched (bf16 units)", "fused_mtp_batched.cu", "fused_mtp.py:703",
+              bf16[3], k5b, "K5 bf16"),
+        entry("fused_mtp_chain_streamed (bf16 units)", "fused_mtp_stream.cu",
+              "fused_mtp_stream.py:372", bf16[5], k3b, "K3 bf16"),
     ]}
     print(json.dumps(report))
     print(card_line)

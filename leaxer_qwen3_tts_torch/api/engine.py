@@ -26,13 +26,16 @@ instead of raising (no device and no CUDA device, a configuration the kernels
 do not take, ...): ``is_ready()`` and ``get_error()`` report it, and every
 synthesis call then raises ``EngineError("engine not ready: ...")``; only a
 ``spec_k`` outside [2, 8] raises at once.  On the card
-it runs only the kernel path: it requires ``quantize="int8"`` and the fused
-talker and MTP implementations, packs both for kernels K1 and K2 or K3
-(B=1; K3 for an MTP trunk past the residency gate, the 1.7B family), K4 and
-K5 (B=2..32) and K6 (the verify pass, B x spec_k <= 32 rows); a talker with
-``attn_impl="pallas"`` runs its prefill attention as kernel K8.  A
-configuration the kernels do not take leaves the engine not ready; a batch
-they do not take raises ``EngineError``.  On
+it runs only the kernel path: it requires the fused talker and MTP
+implementations and packs both, as the JAX engine on its accelerator:
+``quantize="int8"`` as int8 units, ``quantize=None`` (the default) as bf16
+units with scales of one (bits=16, no quantization), for kernels K1 and K2
+or K3 (B=1; K3 for an MTP trunk past the residency gate: the 1.7B int8
+trunk and every bf16 trunk), K4 and K5 (B=2..32) and K6 (the verify pass,
+B x spec_k <= 32 rows; int8 only); a talker with ``attn_impl="pallas"``
+runs its prefill attention as kernel K8.  A configuration the kernels do
+not take leaves the engine not ready; a batch they do not take raises
+``EngineError``.  On
 the CPU the same code runs the kernels' plain versions.  A decode chunk (a
 dispatch of verify iterations) enqueues its frames on the device and the
 engine syncs once per chunk, when it copies the chunk's codes to the host.
@@ -68,6 +71,7 @@ from ..models.code_predictor import chain_kernel, prepare_fused_step, resident_e
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.speaker_encoder import speaker_encoder_forward
 from ..models.talker import prepare_fused_talker
+from ..ops import persistent
 from ..ops.fused_step import MAX_BATCH, meta_pack, supports
 from ..ops.quant import fuse_params, quantize_params
 from ..runtime.generate import (
@@ -155,6 +159,7 @@ class TTSEngine:
     ):
         self._ready = False
         self._error = ""
+        self._bits = 8  # the packs' unit bits (16: bf16 units, quantize=None)
         self.cfg = config
         self.params: Optional[dict] = None
         self.tokenizer = tokenizer
@@ -197,7 +202,7 @@ class TTSEngine:
         if quantize not in (None, "int8", "int4"):
             raise EngineError(f"unknown quantize mode {quantize!r}")
         if quantize == "int4":
-            raise EngineError("quantize='int4': only int8 is ported "
+            raise EngineError("quantize='int4': int8 and unquantized (None) weights are ported "
                               "(int4 not ported: ROADMAP K1v / K2v)")
         if mtp_quantize not in (None, "int8", "int4", "auto"):
             raise EngineError(f"unknown mtp_quantize mode {mtp_quantize!r}")
@@ -220,9 +225,11 @@ class TTSEngine:
                 )
             device = "cuda"
         self.device = torch.device(device)
-        if self.device.type == "cuda" and quantize != "int8":
-            raise EngineError("CUDA kernel path unavailable: the kernels take int8 weights "
-                              "(quantize='int8'; bits=16 units are ROADMAP K1v-b)")
+        if self.device.type == "cuda" and quantize is None and self.spec_k is not None:
+            raise EngineError("spec_k with quantize=None: the verify kernel K6 takes int8 units "
+                              "(quantize='int8'; bf16 units in K6: ROADMAP K1v-b)")
+        # the JAX engine's pack precision: quantize=None packs bf16 units
+        self._bits = 16 if quantize is None else 8
         if model_dir is not None:
             config, params = load_checkpoint(model_dir)
             if self.tokenizer is None:
@@ -268,7 +275,7 @@ class TTSEngine:
                 problems.append("code_predictor.resident=False (or QTTS_MTP_RESIDENT=0) selects "
                                 "the per-step MTP path, which is not ported to the card (the "
                                 "chains K2 and K3 are)")
-            b1_pack = {"fused_step": meta_pack(cfg.code_predictor.transformer)}
+            b1_pack = {"fused_step": meta_pack(cfg.code_predictor.transformer, self._bits)}
             if not problems and chain_kernel(cfg.code_predictor, b1_pack, 1) is None:
                 problems.append("the MTP trunk is past the residency gate of K2 and "
                                 "QTTS_MTP_STREAM=0 turns the streamed chain K3 off: that selects "
@@ -279,15 +286,17 @@ class TTSEngine:
         # one qkv and one gate/up product per layer (the JAX engine's fuse=True,
         # its default; the port takes no other layout)
         params = fuse_params(_to_device(params, self.device))
-        if quantize == "int8":
+        if self._bits == 8:
             # quantize first: the packs reuse the QuantizedLinear values
             params = quantize_params(params)
-            if mtp_fused:
-                params["code_predictor"] = prepare_fused_step(
-                    cfg.code_predictor, params["code_predictor"]
-                )
-            if talker_fused:
-                params["talker"] = prepare_fused_talker(cfg.talker, params["talker"])
+        # int8 units of the quantized params, or bf16 units of the raw ones
+        # (bits=16, nothing quantized): JAX's order
+        if mtp_fused:
+            params["code_predictor"] = prepare_fused_step(
+                cfg.code_predictor, params["code_predictor"], bits=self._bits
+            )
+        if talker_fused:
+            params["talker"] = prepare_fused_talker(cfg.talker, params["talker"], bits=self._bits)
         self.params = params
 
     # ------------------------------------------------------------------
@@ -306,6 +315,20 @@ class TTSEngine:
     def _require_ready(self) -> None:
         if not self._ready:
             raise EngineError(f"engine not ready: {self._error}")
+
+    def check_batched(self) -> None:
+        """Raise EngineError where the card cannot run this engine's batched
+        kernels K4 and K5 (``synthesize_batch`` at B > 1, a pool): bf16
+        units past 4096 columns (the 1.7B widths) leave a batched plan's
+        32 KB ring slot fewer than 4 rows."""
+        if self.device.type != "cuda" or self._bits != 16:
+            return
+        for t in (self.cfg.talker.transformer, self.cfg.code_predictor.transformer):
+            if not persistent.batched_fits(t, 2):
+                raise EngineError(
+                    f"batched decoding of bf16 units at hidden size {t.hidden_size}: a batched "
+                    "plan's 32 KB ring slot holds fewer than 4 rows of its widest product "
+                    "(quantize='int8' runs; the 1.7B family beyond B=1: ROADMAP B17)")
 
     # ------------------------------------------------------------------
     # Public synthesis API
@@ -563,6 +586,8 @@ class TTSEngine:
             raise EngineError("no texts")
         if self.device.type == "cuda" and B > MAX_BATCH:
             raise EngineError(f"batch of {B}: the batched kernels take at most {MAX_BATCH} streams")
+        if B > 1:
+            self.check_batched()
         vocab = cfg.talker.text_vocab_size
         for ids in list(id_lists) + ([instruct_ids] if instruct_ids else []):
             bad = [i for i in ids if not 0 <= int(i) < vocab]

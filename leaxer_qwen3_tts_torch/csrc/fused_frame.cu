@@ -290,7 +290,10 @@ bool step_ok(const QttsStepWeights& w, const QttsStepScratch& s, int T, int pos)
 
 bool frame_ok(const QttsFrameArgs& a) {
   const QttsChainArgs& c = a.mc;
-  return step_ok(a.tw, a.ts, a.T, a.pos) && step_ok(a.mw, a.ms, c.n + 2, c.n) &&
+  // int8 units and heads only (bf16 units and the bf16-talker + int8-MTP
+  // mix: ROADMAP K1v-b / K2v)
+  return !a.tw.unit_bf16 && !a.mw.unit_bf16 && !c.heads_bf16 &&
+         step_ok(a.tw, a.ts, a.T, a.pos) && step_ok(a.mw, a.ms, c.n + 2, c.n) &&
          a.mw.H == a.tw.H && c.n >= 1 && c.V <= c.Vt && a.Vc >= 1 &&
          c.cache_bf16 == a.cache_bf16;
 }

@@ -50,7 +50,7 @@ struct ChainLaunch {
   QttsChainArgs c;
 };
 
-template <typename CT>
+template <typename CT, typename WT>
 __global__ void __launch_bounds__(QTTS_P_THREADS, 1)
 chain_kernel(const __grid_constant__ ChainLaunch a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -59,7 +59,7 @@ chain_kernel(const __grid_constant__ ChainLaunch a) {
   const QttsChainArgs& c = a.c;
   qtts_ring_start(ring, seq, smem, a.p, a.w, c.heads, c.head_scales, c.n, c.V);
   int stage = 0;
-  qtts_chain_phases<CT>(a.w, a.s, a.p, ring, seq, 0, stage, c, smem, [] {});
+  qtts_chain_phases<CT, WT>(a.w, a.s, a.p, ring, seq, 0, stage, c, smem, [] {});
   qtts_trace_end(a.p);
 }
 
@@ -68,20 +68,26 @@ chain_kernel(const __grid_constant__ ChainLaunch a) {
 extern "C" {
 
 // Kernel K2 entry: subcodes [n] and sub_sum [H] of one frame's chain, in one
-// cooperative launch on the plan's grid.
+// cooperative launch on the plan's grid.  int8 units and heads with either
+// cache; bf16 units and heads (a->heads_bf16 == w->unit_bf16) with a float32
+// cache only: K3's chain, which K3's entry runs through this one.
 int qtts_mtp_chain(const QttsStepWeights* w, const QttsStepScratch* s, const QttsPlan* p,
                    const QttsChainArgs* a, void* stream) {
   const int T = a->n + 2, qd = w->nq * w->D;
   if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || a->n < 1 || a->V > a->Vt ||
       a->V > QTTS_P_THREADS * QTTS_SAMPLE_VPT || (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits ||
+      a->heads_bf16 != w->unit_bf16 || (w->unit_bf16 && a->cache_bf16) ||
       !qtts_plan_ok(*p, *w, a->V)) {
     return (int)cudaErrorInvalidValue;
   }
   const ChainLaunch launch{*w, *s, *p, *a};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a->cache_bf16 ? qtts_launch_persistent(chain_kernel<__nv_bfloat16>, launch, *p, st)
-                       : qtts_launch_persistent(chain_kernel<float>, launch, *p, st);
+  if (w->unit_bf16) {
+    return qtts_launch_persistent(chain_kernel<float, __nv_bfloat16>, launch, *p, st);
+  }
+  return a->cache_bf16 ? qtts_launch_persistent(chain_kernel<__nv_bfloat16, int8_t>, launch, *p, st)
+                       : qtts_launch_persistent(chain_kernel<float, int8_t>, launch, *p, st);
 }
 
 // The launch-per-op chain K2 ran before it was persistent: K1's layer
@@ -91,6 +97,7 @@ int qtts_mtp_chain(const QttsStepWeights* w, const QttsStepScratch* s, const Qtt
 // persistent chain to, bit for bit; no wrapper calls it.
 int qtts_mtp_chain_multi(const QttsStepWeights* w, const QttsStepScratch* s,
                          const QttsChainArgs* a, void* stream) {
+  if (w->unit_bf16 || a->heads_bf16) return (int)cudaErrorInvalidValue;  // int8 only
   return qtts_run_mtp_chain(
       *w, *s, *a, static_cast<cudaStream_t>(stream),
       [](const QttsHeadStep& p, bool, int grid, size_t smem, cudaStream_t st) {

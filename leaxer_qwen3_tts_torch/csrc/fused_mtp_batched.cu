@@ -79,7 +79,7 @@ struct BChainLaunch {
   QttsChainBatchArgs c;
 };
 
-template <typename CT>
+template <typename CT, typename WT>
 __global__ void __launch_bounds__(QTTS_P_THREADS, 1)
 bchain_kernel(const __grid_constant__ BChainLaunch a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -94,14 +94,14 @@ bchain_kernel(const __grid_constant__ BChainLaunch a) {
   CT* kc = static_cast<CT*>(c.k_cache);
   CT* vc = static_cast<CT*>(c.v_cache);
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
-  qtts_bstep_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.last_hidden, c.x, kc, vc, B, T,
-                        nullptr, 0, smem, true);
-  qtts_bstep_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.code0_embed, c.x, kc, vc, B, T,
-                        nullptr, 1, smem, true);
+  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.last_hidden, c.x, kc, vc,
+                                   B, T, nullptr, 0, smem, true);
+  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.code0_embed, c.x, kc, vc,
+                                   B, T, nullptr, 1, smem, true);
   for (int j = 0; j < n; ++j) {
     // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j, every row
     qtts_bprologue<QTTS_IN_NORM>(c.x + (size_t)gb0 * H, H, c.final_norm, a.w.eps, H, nb, act);
-    qtts_ring_bgemv<false>(a.p, ring, seq, QTTS_KIND_HEAD, stage, act, nb,
+    qtts_ring_bgemv<false, WT>(a.p, ring, seq, QTTS_KIND_HEAD, stage, act, nb,
                            c.logits + (size_t)gb0 * V, V);
     qtts_phase_barrier(a.p);
     if ((int)blockIdx.x < B) {
@@ -124,8 +124,8 @@ bchain_kernel(const __grid_constant__ BChainLaunch a) {
     }
     if (j + 1 < n) {
       qtts_phase_barrier(a.p);  // the next trunk pass reads the sampled embeddings
-      qtts_bstep_phases<CT>(a.w, a.s, a.p, ring, seq, stage, c.x_in, c.x, kc, vc, B, T, nullptr,
-                            2 + j, smem, true);
+      qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.x_in, c.x, kc, vc, B,
+                                       T, nullptr, 2 + j, smem, true);
     }
   }
   qtts_trace_end(a.p);
@@ -136,20 +136,27 @@ bchain_kernel(const __grid_constant__ BChainLaunch a) {
 extern "C" {
 
 // Kernel K5 entry: subcodes [B, n] and sub_sum [B, H] of one frame's chain,
-// in one cooperative launch on the plan's grid.
+// in one cooperative launch on the plan's grid.  int8 units and heads with
+// either cache; bf16 units and heads (a->heads_bf16 == w->unit_bf16) with a
+// float32 cache only, as K3 runs them, so that each row equals K3 on it.
 int qtts_mtp_chain_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
                            const QttsPlan* p, const QttsChainBatchArgs* a, void* stream) {
   const int T = a->n + 2, qd = w->nq * w->D, B = a->B;
   if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || a->n < 1 || a->V > a->Vt ||
       a->V > QTTS_P_THREADS * QTTS_SAMPLE_VPT || B < 1 || B > QTTS_MAX_BATCH || B > p->grid ||
-      (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits || !qtts_plan_ok(*p, *w, a->V, B)) {
+      (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits || a->heads_bf16 != w->unit_bf16 ||
+      (w->unit_bf16 && a->cache_bf16) || !qtts_plan_ok(*p, *w, a->V, B)) {
     return (int)cudaErrorInvalidValue;
   }
   const BChainLaunch launch{*w, *s, *p, *a};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a->cache_bf16 ? qtts_launch_persistent(bchain_kernel<__nv_bfloat16>, launch, *p, st)
-                       : qtts_launch_persistent(bchain_kernel<float>, launch, *p, st);
+  if (w->unit_bf16) {
+    return qtts_launch_persistent(bchain_kernel<float, __nv_bfloat16>, launch, *p, st);
+  }
+  return a->cache_bf16
+             ? qtts_launch_persistent(bchain_kernel<__nv_bfloat16, int8_t>, launch, *p, st)
+             : qtts_launch_persistent(bchain_kernel<float, int8_t>, launch, *p, st);
 }
 
 // The launch-per-op chain K5 ran before it was persistent: K4's layer
@@ -160,7 +167,9 @@ int qtts_mtp_chain_batched_multi(const QttsStepWeights* w, const QttsBatchScratc
                                  const QttsChainBatchArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = a->n + 2, H = w->H, V = a->V, B = a->B;
-  if (H % 16 != 0 || V > a->Vt || B < 1 || B > QTTS_MAX_BATCH) return (int)cudaErrorInvalidValue;
+  if (w->unit_bf16 || a->heads_bf16 || H % 16 != 0 || V > a->Vt || B < 1 || B > QTTS_MAX_BATCH) {
+    return (int)cudaErrorInvalidValue;  // int8 only
+  }
   const size_t smem = (size_t)2 * V * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
 

@@ -1,5 +1,7 @@
 // Kernel K3: the B=1 MTP sub-code chain with a streamed trunk and a float32
-// KV scratch (the 1.7B chain, whose int8 trunk is past the residency gate).
+// KV scratch (the 1.7B chain, whose int8 trunk is past the residency gate,
+// and every bf16 trunk: the unquantized config's B=1 chain at 0.6B and
+// 1.7B, bf16 units and bf16 heads with scales of one).
 //
 // Replaces leaxer_qwen3_tts_tpu/ops/fused_mtp_stream.py::fused_mtp_chain_streamed
 // (_make_stream_chain_kernel).  It computes what K2 computes, with the JAX
@@ -27,7 +29,8 @@
 // again, ~4.8 GB and ~1.44 ms per chain.  At one token the chain is bound by
 // latency instead: grid barriers (~510 per chain), the 15 draws on one
 // block, and each block's stages of a phase; the card measured, its power
-// limit and the per-phase trace are in PERF.md.
+// limit and the per-phase trace are in PERF.md.  bf16 units double the
+// trunk's and the heads' bytes, and so each bound above.
 
 #include "qtts_stream.cuh"
 

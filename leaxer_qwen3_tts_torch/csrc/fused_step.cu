@@ -28,6 +28,11 @@
 // phases on SM-count blocks, each block owning fixed row ranges whose int8
 // rows stream through a TMA ring ahead of the barriers their inputs wait on;
 // its values equal the launch sequence's bit for bit (chip_smoke.py checks).
+// bf16 units (the unquantized config, the JAX pack's bits=16: scales of one)
+// run the same phases with each lane's 16 columns read as two 16-byte loads
+// and converted exactly, in the int8 path's FMA order: twice the bytes
+// (~880 MB at 0.6B, 0.26 ms at the roofline), and on int8-valued bf16
+// weights with unit scales the int8 kernel's values bit for bit.
 // What it leaves: the grid barriers themselves (five per layer), the
 // attention's items on two 128-thread halves per block, and no CUDA graph
 // around the host's per-frame work.
@@ -81,7 +86,7 @@ struct StepLaunch {
   int32_t T, pos;
 };
 
-template <typename CT>
+template <typename CT, typename WT>
 __global__ void __launch_bounds__(QTTS_P_THREADS, 1)
 step_kernel(const __grid_constant__ StepLaunch a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -89,9 +94,9 @@ step_kernel(const __grid_constant__ StepLaunch a) {
   QttsRing ring;
   qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
   int stage = 0;
-  qtts_step_phases<CT>(a.w, a.s, a.p, ring, seq, 0, stage, a.x_in, a.x,
-                       static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.T, a.pos, smem,
-                       false);
+  qtts_step_phases<CT, WT>(a.w, a.s, a.p, ring, seq, 0, stage, a.x_in, a.x,
+                           static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.T, a.pos,
+                           smem, false);
   qtts_trace_end(a.p);
 }
 
@@ -107,7 +112,7 @@ bool step_args_ok(const QttsStepWeights& w, const QttsStepScratch& s, int T, int
 int qtts_launch_decode_step(const QttsStepWeights& w, const QttsStepScratch& s,
                             const float* x_in, float* x, void* k_cache, void* v_cache,
                             int cache_bf16, int T, int pos, cudaStream_t st) {
-  if (w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
+  if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
     return (int)cudaErrorInvalidValue;
   }
   if (pos < 0 || pos >= T) return (int)cudaErrorInvalidValue;
@@ -151,7 +156,8 @@ int qtts_attn_chunk() { return QTTS_ATTN_CHUNK; }
 const char* qtts_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 // Kernel K1 entry: x_out = decode_step(x_in) with the caches updated in
-// place, in one cooperative launch on the plan's grid.
+// place, in one cooperative launch on the plan's grid; int8 or bf16 units
+// (w->unit_bf16), each with a bf16 or float32 cache.
 int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const QttsPlan* p,
                      const float* x_in, float* x_out, void* k_cache, void* v_cache,
                      int cache_bf16, int T, int pos, void* stream) {
@@ -160,13 +166,17 @@ int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const Q
   }
   const StepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, T, pos};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return cache_bf16 ? qtts_launch_persistent(step_kernel<__nv_bfloat16>, a, *p, st)
-                    : qtts_launch_persistent(step_kernel<float>, a, *p, st);
+  if (w->unit_bf16) {
+    return cache_bf16 ? qtts_launch_persistent(step_kernel<__nv_bfloat16, __nv_bfloat16>, a, *p, st)
+                      : qtts_launch_persistent(step_kernel<float, __nv_bfloat16>, a, *p, st);
+  }
+  return cache_bf16 ? qtts_launch_persistent(step_kernel<__nv_bfloat16, int8_t>, a, *p, st)
+                    : qtts_launch_persistent(step_kernel<float, int8_t>, a, *p, st);
 }
 
 // The launch-per-op sequence K1 ran before it was persistent (six launches
-// per layer): the reference chip_smoke.py holds the persistent step to, bit
-// for bit.  No wrapper calls it; the launch-per-op chains (K2's and K3's
+// per layer, int8 units only): the reference chip_smoke.py holds the
+// persistent step to, bit for bit.  No wrapper calls it; the launch-per-op chains (K2's and K3's
 // references) run the same layer kernels through qtts_launch_decode_step.
 int qtts_decode_step_multi(const QttsStepWeights* w, const QttsStepScratch* s, const float* x_in,
                            float* x_out, void* k_cache, void* v_cache, int cache_bf16, int T,

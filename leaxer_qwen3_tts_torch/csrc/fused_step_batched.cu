@@ -31,6 +31,10 @@
 // of the batch (ops/persistent.py).  Every (row, output) value is K1's
 // arithmetic in K1's order, so row b equals K1 on row b bit for bit, and the
 // launch-per-op sequence below (qtts_decode_step_batched_multi) bit for bit.
+// bf16 units take K1's bf16 path per row (a half row of 8 weights is one
+// 16-byte load), so a bf16 K4 row equals the bf16 K1 on it too.  A bf16
+// plan needs four rows of the widest K in a 32 KB slot: K <= 4096 (the
+// 0.6B widths; the 1.7B down product's 12 KB rows are refused).
 //
 // What bounds it on the H100: the int8 weight bytes, 440 MB per step of the
 // 0.6B talker, shared by B streams (0.13 ms at the 3.35 TB/s of an H100 SXM,
@@ -178,7 +182,7 @@ struct BStepLaunch {
   int32_t B, T, pos_host;
 };
 
-template <typename CT>
+template <typename CT, typename WT>
 __global__ void __launch_bounds__(QTTS_P_THREADS, 1)
 bstep_kernel(const __grid_constant__ BStepLaunch a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -186,9 +190,9 @@ bstep_kernel(const __grid_constant__ BStepLaunch a) {
   QttsRing ring;
   qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
   int stage = 0;
-  qtts_bstep_phases<CT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
-                        static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.B, a.T,
-                        a.pos_dev, a.pos_host, smem, false);
+  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
+                                   static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.B,
+                                   a.T, a.pos_dev, a.pos_host, smem, false);
   qtts_trace_end(a.p);
 }
 
@@ -219,7 +223,7 @@ int qtts_launch_decode_step_batched(const QttsStepWeights& w, const QttsBatchScr
                                     const float* x_in, float* x, void* k_cache, void* v_cache,
                                     int cache_bf16, int B, int T, const int64_t* pos_dev,
                                     int pos_host, cudaStream_t st) {
-  if (w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
+  if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
     return (int)cudaErrorInvalidValue;
   }
   if (B < 1 || B > QTTS_MAX_BATCH || T < 1) return (int)cudaErrorInvalidValue;
@@ -268,7 +272,8 @@ extern "C" {
 
 // Kernel K4 entry: x_out [B, H] = decode_step(x_in) with the caches updated in
 // place; pos_dev [B] int64 on the device, or null for every row at pos_host.
-// One cooperative launch on the plan's grid.
+// One cooperative launch on the plan's grid; int8 or bf16 units
+// (w->unit_bf16), each with a bf16 or float32 cache.
 int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
                              const QttsPlan* p, const float* x_in, float* x_out, void* k_cache,
                              void* v_cache, int cache_bf16, int B, int T, const int64_t* pos_dev,
@@ -284,12 +289,17 @@ int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s
   }
   const BStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, pos_dev, B, T, pos_host};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return cache_bf16 ? qtts_launch_persistent(bstep_kernel<__nv_bfloat16>, a, *p, st)
-                    : qtts_launch_persistent(bstep_kernel<float>, a, *p, st);
+  if (w->unit_bf16) {
+    return cache_bf16
+               ? qtts_launch_persistent(bstep_kernel<__nv_bfloat16, __nv_bfloat16>, a, *p, st)
+               : qtts_launch_persistent(bstep_kernel<float, __nv_bfloat16>, a, *p, st);
+  }
+  return cache_bf16 ? qtts_launch_persistent(bstep_kernel<__nv_bfloat16, int8_t>, a, *p, st)
+                    : qtts_launch_persistent(bstep_kernel<float, int8_t>, a, *p, st);
 }
 
 // The launch-per-op sequence K4 ran before it was persistent (nine launches
-// per layer): the reference chip_smoke.py holds the persistent step to, bit
+// per layer, int8 units only): the reference chip_smoke.py holds the persistent step to, bit
 // for bit.  No wrapper calls it.
 int qtts_decode_step_batched_multi(const QttsStepWeights* w, const QttsBatchScratch* s,
                                    const float* x_in, float* x_out, void* k_cache, void* v_cache,

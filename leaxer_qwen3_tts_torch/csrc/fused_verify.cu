@@ -52,7 +52,7 @@ namespace {
 int launch_verify_step(const QttsStepWeights& w, const QttsBatchScratch& s, const float* x_in,
                        float* x, void* k_cache, void* v_cache, int cache_bf16, int B, int S, int T,
                        const int64_t* pos_dev, int pos_host, cudaStream_t st) {
-  if (w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
+  if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
     return (int)cudaErrorInvalidValue;
   }
   const int R = B * S;
@@ -139,8 +139,10 @@ int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const 
   const int R = B * S, qd = w->nq * w->D;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
                                : (pos_host + S - 1) / QTTS_ATTN_CHUNK + 1;
-  if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
-      w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || S < 2 || S > 8 || B < 1 ||
+  // int8 units only (bf16 units: ROADMAP K1v-b)
+  if (w->unit_bf16 || w->D != QTTS_ATTN_D || w->nq % w->nk != 0 ||
+      w->nq / w->nk > QTTS_ATTN_MAX_G || w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 ||
+      S < 2 || S > 8 || B < 1 ||
       R > QTTS_MAX_BATCH || T < S || (pos_dev == nullptr && (pos_host < 0 || pos_host > T - S)) ||
       n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, R)) {
     return (int)cudaErrorInvalidValue;

@@ -10,8 +10,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-// Per-layer-stacked int8 weights of one transformer (Hopper pack layout: every
-// matrix is stored [N, K], one output row per N with its K bytes contiguous).
+// Per-layer-stacked weight units of one transformer (Hopper pack layout:
+// every matrix is stored [N, K], one output row per N with its K values
+// contiguous): int8 with per-row scales, or bf16 with scales of one
+// (unit_bf16; the persistent K1, K3, K4 and K5 take both, every other entry
+// int8 only).  The int8_t pointers then hold the bf16 values' bytes.
 struct QttsStepWeights {
   const int8_t* wqkv;  // [L, A, H]   A = nq*D + 2*nk*D
   const float* sqkv;   // [L, A]      per-output-column scale
@@ -29,6 +32,7 @@ struct QttsStepWeights {
   int32_t L, H, nq, nk, D, I;
   float eps;         // RMSNorm epsilon
   float attn_scale;  // 1/sqrt(D), rounded to float32
+  int32_t unit_bf16;  // 1: bf16 units, 0: int8
 };
 
 // Device scratch the wrapper allocates for one decode step.
@@ -62,6 +66,7 @@ struct QttsChainArgs {
   int32_t top_k;
   float top_p;
   int32_t greedy;
+  int32_t heads_bf16;  // 1: bf16 heads (scales of one), 0: int8; the trunk's unit type
 };
 
 // Device scratch of one batched decode step (kernel K4, fused_step_batched.cu).
@@ -100,6 +105,7 @@ struct QttsChainBatchArgs {
   int32_t top_k[QTTS_MAX_BATCH];
   float top_p[QTTS_MAX_BATCH];
   int32_t greedy[QTTS_MAX_BATCH];
+  int32_t heads_bf16;  // 1: bf16 heads (scales of one), 0: int8; the trunk's unit type
 };
 
 // Arguments of the whole-frame entries (kernel K7, fused_frame.cu).  The

@@ -33,9 +33,9 @@
 //     by layer, phase by phase; in the chain, the trunk passes and the heads
 //     in chain order; in the frame, the chain's and then the talker's).
 //     Thread 0 keeps the next n_slots stages in flight:
-//     each stage is a 1-D TMA bulk copy (cp.async.bulk) of the rows' int8
-//     bytes plus one of their float32 scales, completed on the slot's
-//     mbarrier.  A slot is refilled the moment its stage has been consumed,
+//     each stage is a 1-D TMA bulk copy (cp.async.bulk) of the rows' weight
+//     bytes (int8 or bf16 units) plus one of their float32 scales, completed
+//     on the slot's mbarrier.  A slot is refilled the moment its stage has been consumed,
 //     so the copies of a phase are issued long before the grid barrier its
 //     input waits on, across layer boundaries and, in the chain, while one
 //     block samples (in the frame, the talker's first stages load while the
@@ -253,9 +253,10 @@ static __device__ __forceinline__ void qtts_trace_end(const QttsPlan& p) {
 
 // One block's rows of one kind and where its matrices live.
 struct QttsKindRows {
-  const int8_t* W;  // unit 0's [N, K] rows
+  const int8_t* W;  // unit 0's [N, K] rows (the bytes of int8 or bf16 values)
   const float* S;   // unit 0's [N] scales
   int N, r0, rows, stage_rows, chunks, K;
+  int esize;  // bytes per weight: 1 (int8) or 2 (bf16)
 };
 
 // What one weight set streams: L layers and `heads` head products of N_head
@@ -307,6 +308,7 @@ static __device__ int qtts_seq_set(QttsSeq& q, const QttsPlan& p, int set, const
     r.S = S[k];
     r.N = N[k];
     r.K = K[k];
+    r.esize = w.unit_bf16 ? 2 : 1;  // the heads take the trunk's unit type
     r.stage_rows = p.stage_rows[at_k];
     r.r0 = used ? p.bounds[at_k * (p.grid + p.groups) + at] : 0;
     r.rows = used ? p.bounds[at_k * (p.grid + p.groups) + at + 1] - r.r0 : 0;
@@ -329,10 +331,10 @@ static __device__ void qtts_ring_issue(const QttsRing& ring, QttsSeq& q) {
   const int rows = min(r.stage_rows, r.rows - q.chunk * r.stage_rows);
   const int slot = q.next % ring.n_slots;
   uint64_t* bar = ring.full + slot;
-  const uint32_t wbytes = (uint32_t)rows * r.K;
+  const uint32_t wbytes = (uint32_t)rows * r.K * r.esize;
   qtts_mbar_expect_tx(bar, wbytes + 4u * rows);
   qtts_bulk_load(ring.slots + (size_t)slot * ring.slot_bytes,
-                 r.W + ((size_t)q.unit * r.N + n0) * r.K, wbytes, bar);
+                 r.W + ((size_t)q.unit * r.N + n0) * r.K * r.esize, wbytes, bar);
   qtts_bulk_load(ring.scales + (size_t)slot * ring.slot_rows, r.S + (size_t)q.unit * r.N + n0,
                  4u * rows, bar);
   // advance: chunks of a kind, kinds of a layer, layers of a pass; the
@@ -409,6 +411,45 @@ static __device__ __forceinline__ float qtts_i8_to_float(uint32_t word, int b) {
   return __fadd_rn(__uint_as_float(bits), -8388736.f);
 }
 
+// Weight units: int8 (a row's scale applied after the dot product) or bf16
+// (scales of one).  Both convert exactly to float, so the same FMA chain
+// over a unit's values gives the same sums whatever type held them.
+//
+// A lane's n consecutive weights of one row into words (n / 4 words of
+// int8, n / 2 of bf16): 16-byte loads, one 8-byte load for 8 int8.
+template <typename WT, int n>
+static __device__ __forceinline__ void qtts_unit_load(const WT* p, uint32_t* words) {
+  constexpr int bytes = n * (int)sizeof(WT);
+  if constexpr (bytes == 8) {
+    const int2 v = *reinterpret_cast<const int2*>(p);
+    words[0] = (uint32_t)v.x;
+    words[1] = (uint32_t)v.y;
+  } else {
+    static_assert(bytes % 16 == 0, "whole 16-byte loads");
+#pragma unroll
+    for (int i = 0; i < bytes / 16; ++i) {
+      const int4 v = reinterpret_cast<const int4*>(p)[i];
+      words[4 * i] = (uint32_t)v.x;
+      words[4 * i + 1] = (uint32_t)v.y;
+      words[4 * i + 2] = (uint32_t)v.z;
+      words[4 * i + 3] = (uint32_t)v.w;
+    }
+  }
+}
+
+// Weight e of the words qtts_unit_load filled, as float (exact): an int8
+// byte by qtts_i8_to_float; a bf16 value by a 16-bit shift (e even: the
+// low half of its word, little-endian).
+template <typename WT>
+static __device__ __forceinline__ float qtts_unit_value(const uint32_t* words, int e) {
+  if constexpr (sizeof(WT) == 1) {
+    return qtts_i8_to_float(words[e >> 2], e & 3);
+  } else {
+    const uint32_t w = words[e >> 1];
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+}
+
 // The position in shared memory of the B=1 GEMV input's column k: in each
 // 512-column pass, lane l's four float4 (columns 16l + 4q .. 16l + 4q + 3, q
 // < 4) sit at 128q + 4l, so that the warp's float4 loads of one q fall on
@@ -427,9 +468,10 @@ static __device__ __forceinline__ int qtts_sh_col(int k) {
 // K1's lane order, then the xor butterfly and qtts_gemv_store's epilogue
 // (the residual, with ACCUM, loaded before the dot products).  M is a
 // template argument so that the rows' FFMA chains interleave.  sh: the
-// input in qtts_sh_col's layout.
-template <bool ACCUM, int M>
-static __device__ __forceinline__ void qtts_stage_rows(const int8_t* ws, const float* ss,
+// input in qtts_sh_col's layout.  WT: the unit type; a bf16 lane reads its
+// 16 columns as two 16-byte loads, in the same FMA order as int8.
+template <bool ACCUM, int M, typename WT>
+static __device__ __forceinline__ void qtts_stage_rows(const WT* ws, const float* ss,
                                                        const float* sh, float* out, int n0, int K,
                                                        int warp, int lane) {
   float res[M];
@@ -453,16 +495,10 @@ static __device__ __forceinline__ void qtts_stage_rows(const int8_t* ws, const f
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      const int4 wv =
-          *reinterpret_cast<const int4*>(ws + (size_t)(warp + j * QTTS_P_WARPS) * K + k0);
-      const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
+      uint32_t words[4 * sizeof(WT)];
+      qtts_unit_load<WT, 16>(ws + (size_t)(warp + j * QTTS_P_WARPS) * K + k0, words);
 #pragma unroll
-      for (int qq = 0; qq < 4; ++qq) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          acc[j] = fmaf(hv[qq * 4 + b], qtts_i8_to_float(words[qq], b), acc[j]);
-        }
-      }
+      for (int e = 0; e < 16; ++e) acc[j] = fmaf(hv[e], qtts_unit_value<WT>(words, e), acc[j]);
     }
   }
 #pragma unroll
@@ -483,7 +519,7 @@ static __device__ __forceinline__ void qtts_stage_rows(const int8_t* ws, const f
 // qtts_sh_col's layout, from qtts_prologue).  Warp w takes the stage's rows
 // w, w + 8, ...; after a stage thread 0 refills its slot with the stage
 // n_slots ahead.
-template <bool ACCUM>
+template <bool ACCUM, typename WT = int8_t>
 static __device__ __forceinline__ void qtts_ring_gemv(const QttsPlan& p, const QttsRing& ring,
                                                       QttsSeq& q, int kind, int& stage,
                                                       const float* sh, float* out) {
@@ -497,18 +533,18 @@ static __device__ __forceinline__ void qtts_ring_gemv(const QttsPlan& p, const Q
     if (c == 0) qtts_trace_mark(p, 1);
     const int rows = min(stage_rows, nrows - c * stage_rows);
     const int n0 = r0 + c * stage_rows;
-    const int8_t* ws = reinterpret_cast<const int8_t*>(ring.slots + (size_t)slot * ring.slot_bytes);
+    const WT* ws = reinterpret_cast<const WT*>(ring.slots + (size_t)slot * ring.slot_bytes);
     const float* ss = ring.scales + (size_t)slot * ring.slot_rows;
     const int mine = rows > warp ? (rows - warp + QTTS_P_WARPS - 1) / QTTS_P_WARPS : 0;
     switch (mine) {
-      case 1: qtts_stage_rows<ACCUM, 1>(ws, ss, sh, out, n0, K, warp, lane); break;
-      case 2: qtts_stage_rows<ACCUM, 2>(ws, ss, sh, out, n0, K, warp, lane); break;
-      case 3: qtts_stage_rows<ACCUM, 3>(ws, ss, sh, out, n0, K, warp, lane); break;
-      case 4: qtts_stage_rows<ACCUM, 4>(ws, ss, sh, out, n0, K, warp, lane); break;
-      case 5: qtts_stage_rows<ACCUM, 5>(ws, ss, sh, out, n0, K, warp, lane); break;
-      case 6: qtts_stage_rows<ACCUM, 6>(ws, ss, sh, out, n0, K, warp, lane); break;
-      case 7: qtts_stage_rows<ACCUM, 7>(ws, ss, sh, out, n0, K, warp, lane); break;
-      case 8: qtts_stage_rows<ACCUM, 8>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 1: qtts_stage_rows<ACCUM, 1, WT>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 2: qtts_stage_rows<ACCUM, 2, WT>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 3: qtts_stage_rows<ACCUM, 3, WT>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 4: qtts_stage_rows<ACCUM, 4, WT>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 5: qtts_stage_rows<ACCUM, 5, WT>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 6: qtts_stage_rows<ACCUM, 6, WT>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 7: qtts_stage_rows<ACCUM, 7, WT>(ws, ss, sh, out, n0, K, warp, lane); break;
+      case 8: qtts_stage_rows<ACCUM, 8, WT>(ws, ss, sh, out, n0, K, warp, lane); break;
       default: break;
     }
     __syncthreads();  // every warp is done with the slot
@@ -893,8 +929,8 @@ static __device__ __forceinline__ void qtts_attn_item_any(
 
 // x_in is read by layer 0's qkv prologue and copied to x there.  `set`: the
 // plan's weight set of w.  `un`: the union region.  last_barrier: end with a
-// grid barrier (a phase follows).
-template <typename CT>
+// grid barrier (a phase follows).  WT: w's unit type.
+template <typename CT, typename WT = int8_t>
 static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w,
                                                         const QttsStepScratch& s,
                                         const QttsPlan& p, const QttsRing& ring,
@@ -924,7 +960,7 @@ static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w
         x[k] = x_in[k];
       }
     }
-    qtts_ring_gemv<false>(p, ring, q, kinds + QTTS_KIND_QKV, stage, sh, s.qkv);
+    qtts_ring_gemv<false, WT>(p, ring, q, kinds + QTTS_KIND_QKV, stage, sh, s.qkv);
     qtts_phase_barrier(p);
     // the split attention: K1's items, two per block at once; the last item
     // of each kv head to finish merges the head's splits into s.attn
@@ -953,15 +989,15 @@ static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w
     qtts_phase_barrier(p);
     // x += bf16(attn) @ Wo * scale
     qtts_prologue<QTTS_IN_PLAIN>(s.attn, nullptr, 0.f, w.nq * D, sh);
-    qtts_ring_gemv<true>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);
+    qtts_ring_gemv<true, WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);
     qtts_phase_barrier(p);
     // gu = bf16(RMSNorm(x) * mlp_norm) @ Wgu * scale
     qtts_prologue<QTTS_IN_NORM>(x, w.mlp_norm + (size_t)l * H, w.eps, H, sh);
-    qtts_ring_gemv<false>(p, ring, q, kinds + QTTS_KIND_GU, stage, sh, s.gu);
+    qtts_ring_gemv<false, WT>(p, ring, q, kinds + QTTS_KIND_GU, stage, sh, s.gu);
     qtts_phase_barrier(p);
     // x += bf16(silu(gate) * up) @ Wd * scale
     qtts_prologue<QTTS_IN_SILU>(s.gu, nullptr, 0.f, I, sh);
-    qtts_ring_gemv<true>(p, ring, q, kinds + QTTS_KIND_DOWN, stage, sh, x);
+    qtts_ring_gemv<true, WT>(p, ring, q, kinds + QTTS_KIND_DOWN, stage, sh, x);
     if (l + 1 < w.L || last_barrier) qtts_phase_barrier(p);
   }
 }
@@ -1376,7 +1412,8 @@ struct QttsStepTail {
 // runs at the one call site of qtts_step_phases: inlined once, the step's
 // phases keep their registers (a step called from several sites is an
 // out-of-line function, which spilled in its GEMV and attention loops).
-template <typename CT, typename Last>
+// WT: the unit type of w, its heads and a tail's talker.
+template <typename CT, typename WT = int8_t, typename Last>
 static __device__ __forceinline__ void qtts_chain_phases(
     const QttsStepWeights& w, const QttsStepScratch& s, const QttsPlan& p, const QttsRing& ring,
     QttsSeq& q, int set, int& stage, const QttsChainArgs& c, unsigned char* un, Last last,
@@ -1387,7 +1424,7 @@ static __device__ __forceinline__ void qtts_chain_phases(
   for (int pass = 0; pass < passes; ++pass) {
     const bool talker = pass == n + 1;
     const float* in = pass == 0 ? c.last_hidden : pass == 1 ? c.code0_embed : c.x_in;
-    qtts_step_phases<CT>(talker ? *tail->w : w, talker ? *tail->s : s, p, ring, q,
+    qtts_step_phases<CT, WT>(talker ? *tail->w : w, talker ? *tail->s : s, p, ring, q,
                          talker ? tail->set : set, stage, talker ? tail->x : in,
                          talker ? tail->x : c.x,
                          talker ? tail->kc : static_cast<CT*>(c.k_cache),
@@ -1397,7 +1434,8 @@ static __device__ __forceinline__ void qtts_chain_phases(
     const int j = pass - 1;
     // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j
     qtts_prologue<QTTS_IN_NORM>(c.x, c.final_norm, w.eps, H, sh);
-    qtts_ring_gemv<false>(p, ring, q, set * QTTS_KINDS + QTTS_KIND_HEAD, stage, sh, c.logits);
+    qtts_ring_gemv<false, WT>(p, ring, q, set * QTTS_KINDS + QTTS_KIND_HEAD, stage, sh,
+                              c.logits);
     qtts_phase_barrier(p);
     if (blockIdx.x == 0) {
       // the draw, then the embedding row into sub_sum and the next trunk input
@@ -1453,8 +1491,9 @@ static __device__ __forceinline__ int qtts_act_col(int k) {
 // whose first row is n0: `out` rows are `ldo` floats apart, row 0 the
 // group's first.  Batch rows past nb compute on row nb - 1 and store nothing.
 // Every array index below is a compile-time constant once the loops unroll.
-template <bool ACCUM, int R, int BT>
-static __device__ __forceinline__ void qtts_bstage_unit(const int8_t* ws, const float* ss,
+// WT: the unit type (a bf16 half row is one 16-byte load, an int8 one 8 bytes).
+template <bool ACCUM, int R, int BT, typename WT>
+static __device__ __forceinline__ void qtts_bstage_unit(const WT* ws, const float* ss,
                                                         const __nv_bfloat16* act, int K,
                                                         float* out, int ldo, int n0, int r0,
                                                         int b0, int nb, int lane) {
@@ -1465,7 +1504,7 @@ static __device__ __forceinline__ void qtts_bstage_unit(const int8_t* ws, const 
   float res = 0.f;
   if (ACCUM && stores) res = *dst;
   const int kp = (K + 511) & ~511;
-  const int8_t* wrow = ws + (size_t)r0 * K + lane * 16;
+  const WT* wrow = ws + (size_t)r0 * K + lane * 16;
   const __nv_bfloat16* arow = act + lane * 8;
   float acc[R][BT];
 #pragma unroll
@@ -1477,13 +1516,9 @@ static __device__ __forceinline__ void qtts_bstage_unit(const int8_t* ws, const 
     const int t0 = k0 - lane * 16;  // the pass's first column
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      uint32_t wv[R][2];  // the rows' 8 int8 of this half
+      uint32_t wv[R][2 * sizeof(WT)];  // the rows' 8 weights of this half
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int2 v = *reinterpret_cast<const int2*>(wrow + (size_t)r * K + t0 + 8 * h);
-        wv[r][0] = (uint32_t)v.x;
-        wv[r][1] = (uint32_t)v.y;
-      }
+      for (int r = 0; r < R; ++r) qtts_unit_load<WT, 8>(wrow + (size_t)r * K + t0 + 8 * h, wv[r]);
       uint32_t av[BT][4];  // the batch rows' 8 bf16 of this half
 #pragma unroll
       for (int b = 0; b < BT; ++b) {
@@ -1499,7 +1534,7 @@ static __device__ __forceinline__ void qtts_bstage_unit(const int8_t* ws, const 
       for (int e = 0; e < 8; ++e) {
         float wf[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) wf[r] = qtts_i8_to_float(wv[r][e >> 2], e & 3);
+        for (int r = 0; r < R; ++r) wf[r] = qtts_unit_value<WT>(wv[r], e);
 #pragma unroll
         for (int b = 0; b < BT; ++b) {
           const uint32_t word = av[b][e >> 1];
@@ -1535,8 +1570,8 @@ static __device__ __forceinline__ int qtts_unit_cost(int rows, int nb, int R, in
 
 // A stage's units dealt to the warps: (R, BT) of {1, 2, 4} x {2, 4, 8} of
 // the least qtts_unit_cost (the larger R on a tie).
-template <bool ACCUM>
-static __device__ __forceinline__ void qtts_bstage(const int8_t* ws, const float* ss,
+template <bool ACCUM, typename WT>
+static __device__ __forceinline__ void qtts_bstage(const WT* ws, const float* ss,
                                                    const __nv_bfloat16* act, int K, float* out,
                                                    int ldo, int n0, int rows, int nb, int warp,
                                                    int lane) {
@@ -1556,7 +1591,7 @@ static __device__ __forceinline__ void qtts_bstage(const int8_t* ws, const float
   for (int u = warp; u < units; u += QTTS_P_WARPS) {
     const int r0 = (u / tiles) * R, b0 = (u % tiles) * bt;
 #define QTTS_UNIT(RR, BB) \
-  qtts_bstage_unit<ACCUM, RR, BB>(ws, ss, act, K, out, ldo, n0, r0, b0, nb, lane)
+  qtts_bstage_unit<ACCUM, RR, BB, WT>(ws, ss, act, K, out, ldo, n0, r0, b0, nb, lane)
     if (bt == 8) {
       if (R == 4) QTTS_UNIT(4, 8); else if (R == 2) QTTS_UNIT(2, 8); else QTTS_UNIT(1, 8);
     } else if (bt == 4) {
@@ -1571,7 +1606,7 @@ static __device__ __forceinline__ void qtts_bstage(const int8_t* ws, const float
 // Consumes the block's stages of one GEMV kind for its nb group rows, as
 // qtts_ring_gemv does for one row: out[b, n] (+)= scale[n] * sum_k act[b, k]
 // * W[n, k], out's rows ldo floats apart from the group's first.
-template <bool ACCUM>
+template <bool ACCUM, typename WT = int8_t>
 static __device__ __forceinline__ void qtts_ring_bgemv(const QttsPlan& p, const QttsRing& ring,
                                                        QttsSeq& q, int kind, int& stage,
                                                        const __nv_bfloat16* act, int nb,
@@ -1585,9 +1620,9 @@ static __device__ __forceinline__ void qtts_ring_bgemv(const QttsPlan& p, const 
     qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);
     if (c == 0) qtts_trace_mark(p, 1);
     const int rows = min(stage_rows, nrows - c * stage_rows);
-    const int8_t* ws = reinterpret_cast<const int8_t*>(ring.slots + (size_t)slot * ring.slot_bytes);
+    const WT* ws = reinterpret_cast<const WT*>(ring.slots + (size_t)slot * ring.slot_bytes);
     const float* ss = ring.scales + (size_t)slot * ring.slot_rows;
-    qtts_bstage<ACCUM>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);
+    qtts_bstage<ACCUM, WT>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);
     __syncthreads();  // every warp is done with the slot
     if (c + 1 == chunks) qtts_trace_mark(p, 2);
     if (threadIdx.x == 0) qtts_ring_issue(ring, q);
@@ -1784,8 +1819,8 @@ static __device__ __forceinline__ bool qtts_bitem(int it, int B, int nk, QttsBIt
 // stores every row's new k and v (qtts_kv_write_body: the launch-per-op
 // pass's slot-write kernel, op for op) and a grid barrier orders it before
 // the attention, whose items then read every slot from the cache: seven
-// grid barriers per layer.  K4 is this map at S = 1.
-template <typename CT, bool VERIFY = false>
+// grid barriers per layer.  K4 is this map at S = 1.  WT: w's unit type.
+template <typename CT, bool VERIFY = false, typename WT = int8_t>
 static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBatchScratch& s,
                                          const QttsPlan& p, const QttsRing& ring, QttsSeq& q,
                                          int& stage, const float* x_in, float* x, CT* kc, CT* vc,
@@ -1831,7 +1866,8 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
       qtts_attn_prefetch(kl + item.b / S * cache_row, vl + item.b / S * cache_row, item.h,
                          item.split, T, item.pos, t);
     }
-    qtts_ring_bgemv<false>(p, ring, q, QTTS_KIND_QKV, stage, act, nb, s.qkv + (size_t)gb0 * A, A);
+    qtts_ring_bgemv<false, WT>(p, ring, q, QTTS_KIND_QKV, stage, act, nb, s.qkv + (size_t)gb0 * A,
+                               A);
     qtts_phase_barrier(p);
     if constexpr (VERIFY) {
       // every row's new k and v into its slot, one (row, kv head) per item
@@ -1879,20 +1915,20 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
     qtts_phase_barrier(p);
     // x += bf16(attn) @ Wo * scale
     qtts_bprologue<QTTS_IN_PLAIN>(s.attn + (size_t)gb0 * qd, qd, nullptr, 0.f, qd, nb, act);
-    qtts_ring_bgemv<true>(p, ring, q, QTTS_KIND_O, stage, act, nb, x + (size_t)gb0 * H, H);
+    qtts_ring_bgemv<true, WT>(p, ring, q, QTTS_KIND_O, stage, act, nb, x + (size_t)gb0 * H, H);
     qtts_phase_barrier(p);
     // gu = bf16(RMSNorm(x) * mlp_norm) @ Wgu * scale
     qtts_bprologue<QTTS_IN_NORM>(x + (size_t)gb0 * H, H, w.mlp_norm + (size_t)l * H, w.eps, H, nb,
                                  act);
-    qtts_ring_bgemv<false>(p, ring, q, QTTS_KIND_GU, stage, act, nb, s.gu + (size_t)gb0 * 2 * I,
-                           2 * I);
+    qtts_ring_bgemv<false, WT>(p, ring, q, QTTS_KIND_GU, stage, act, nb,
+                               s.gu + (size_t)gb0 * 2 * I, 2 * I);
     qtts_phase_barrier(p);
     // x += bf16(silu(gate) * up) @ Wd * scale, the input made once over the
     // grid: every block would otherwise read its rows' B x 2I floats
     qtts_silu_rows(s.gu, I, B, s.hb);
     qtts_phase_barrier(p);
     qtts_act_load(s.hb + (size_t)gb0 * kp_i, (uint32_t)(2 * nb * kp_i), act, act_loads);
-    qtts_ring_bgemv<true>(p, ring, q, QTTS_KIND_DOWN, stage, act, nb, x + (size_t)gb0 * H, H);
+    qtts_ring_bgemv<true, WT>(p, ring, q, QTTS_KIND_DOWN, stage, act, nb, x + (size_t)gb0 * H, H);
     if (l + 1 < w.L || last_barrier) qtts_phase_barrier(p);
   }
 }
@@ -1912,11 +1948,12 @@ static inline bool qtts_plan_set_ok(const QttsPlan& p, int set, const QttsStepWe
       w.nk > QTTS_P_MAX_KV_HEADS || p.n_tickets < p.batch * w.nk) {
     return false;
   }
+  const size_t esize = w.unit_bf16 ? 2 : 1;  // the units' and heads' bytes per weight
   for (int k = 0; k < QTTS_KINDS; ++k) {
     if (k == QTTS_KIND_HEAD && V == 0) continue;
     const int r = p.stage_rows[set * QTTS_KINDS + k];
     if (K[k] % 16 || r < 4 || r % 4 || r > QTTS_P_MAX_STAGE_ROWS || r > p.slot_rows ||
-        (size_t)r * K[k] > (size_t)p.slot_bytes) {
+        (size_t)r * K[k] * esize > (size_t)p.slot_bytes) {
       return false;
     }
   }

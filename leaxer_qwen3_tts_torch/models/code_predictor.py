@@ -18,8 +18,11 @@ float32 KV scratch) when the stream gate passes (the 1.7B trunk) and the
 streamed chain is on (:func:`stream_enabled`: ``QTTS_MTP_STREAM``, else on).
 At B=2..32 it is kernel K5
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain_batched`),
-which takes every int8 pack.  On a CUDA device a chain the kernels cannot
-take raises; only the CPU runs the cached path.
+which takes every pack.  A bf16 trunk (the unquantized config) fails the
+residency gate, as in JAX, so its B=1 chain is K3; its batched chain K5
+runs on K3's float32 cache, so that each row equals K3 on it.  On a CUDA
+device a chain the kernels cannot take raises; only the CPU runs the cached
+path.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ def _head(heads, j: int):
 
 def prepare_fused_step(cfg: CodePredictorConfig, cp_params: dict, bits: int = 8) -> dict:
     """Attach the packed trunk (``fused_step``) and heads (``fused_heads``)
-    for the chain kernel when the architecture qualifies."""
+    for the chain kernel when the architecture qualifies: int8 (bits=8,
+    quantized params) or bf16 units and heads (bits=16, raw params)."""
     if not supports(cfg.transformer) or cfg.head_mode != "per_step":
         return cp_params
     out = dict(cp_params)
@@ -156,8 +160,14 @@ def predict_subcodes(
     if chain is not None:
         noise = None if sp.greedy else noise_fn()
         knobs = sp.rows(1)[0] if B == 1 else sp
-        # K3 keeps its float32 scratch whatever the model dtype
-        dtype = {} if chain is fused_mtp_chain_streamed else {"cache_dtype": t.torch_dtype}
+        # K3 keeps its float32 scratch whatever the model dtype, and K5 takes
+        # it on a bf16 trunk (whose B=1 chain is K3)
+        if chain is fused_mtp_chain_streamed:
+            dtype = {}
+        elif params["fused_step"].wqkv.dtype == torch.bfloat16:
+            dtype = {"cache_dtype": torch.float32}
+        else:
+            dtype = {"cache_dtype": t.torch_dtype}
         subcodes, sub_sum = chain(
             t, params["fused_step"], params["transformer"]["final_norm"],
             params["fused_heads"], pred_embed_tables, last_hidden, code0_embed,
@@ -166,7 +176,7 @@ def predict_subcodes(
         return subcodes, sub_sum.to(last_hidden.dtype)
     if last_hidden.device.type == "cuda":
         raise RuntimeError(
-            f"MTP chain at B={B}: the chain kernels take a packed int8 trunk with per-step "
+            f"MTP chain at B={B}: the chain kernels take a packed trunk with per-step "
             f"heads and 1..{MAX_BATCH} rows; the plain path does not run on the card"
         )
 

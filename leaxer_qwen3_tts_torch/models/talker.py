@@ -47,9 +47,11 @@ def talker_init_cache(cfg: TalkerConfig, batch: int, max_len: int, device) -> KV
 
 
 def prepare_fused_talker(cfg: TalkerConfig, talker_params: dict, bits: int = 8) -> dict:
-    """Attach the packed K1 weights when the architecture qualifies, and an
-    int8 lm_head as [Vc, H] rows + [Vc] scales (``fused_lm_head``: the
-    layout kernel K7's epilogue reads)."""
+    """Attach the packed K1 weights when the architecture qualifies (bits=8:
+    int8 units of quantized params; bits=16: bf16 units of raw params), and
+    an int8 lm_head as [Vc, H] rows + [Vc] scales (``fused_lm_head``: the
+    layout kernel K7's epilogue reads; none for a raw lm_head, which K7
+    does not take)."""
     if not supports(cfg.transformer):
         return talker_params
     out = dict(talker_params)
@@ -128,7 +130,7 @@ def talker_decode_step(
         return logits, hidden, cache._replace(length=cache.length + 1), valid_mask
     if embed.device.type == "cuda":
         raise RuntimeError(
-            f"talker decode step at B={B}: the step kernels take a packed int8 talker and "
+            f"talker decode step at B={B}: the step kernels take a packed talker and "
             f"1..{MAX_BATCH} rows; the plain layers do not run on the card"
         )
     hidden, cache, valid_mask = transformer_forward(

@@ -51,7 +51,7 @@ class StepWeights(ctypes.Structure):
         ("inv_freq", ctypes.c_void_p),
         ("L", ctypes.c_int32), ("H", ctypes.c_int32), ("nq", ctypes.c_int32),
         ("nk", ctypes.c_int32), ("D", ctypes.c_int32), ("I", ctypes.c_int32),
-        ("eps", ctypes.c_float), ("attn_scale", ctypes.c_float),
+        ("eps", ctypes.c_float), ("attn_scale", ctypes.c_float), ("unit_bf16", ctypes.c_int32),
     ]
 
 
@@ -80,7 +80,7 @@ class ChainArgs(ctypes.Structure):
         ("cache_bf16", ctypes.c_int32), ("n", ctypes.c_int32), ("V", ctypes.c_int32),
         ("Vt", ctypes.c_int32),
         ("temperature", ctypes.c_float), ("top_k", ctypes.c_int32),
-        ("top_p", ctypes.c_float), ("greedy", ctypes.c_int32),
+        ("top_p", ctypes.c_float), ("greedy", ctypes.c_int32), ("heads_bf16", ctypes.c_int32),
     ]
 
 
@@ -127,6 +127,7 @@ class ChainBatchArgs(ctypes.Structure):
         ("V", ctypes.c_int32), ("Vt", ctypes.c_int32),
         ("temperature", ctypes.c_float * MAX_BATCH), ("top_k", ctypes.c_int32 * MAX_BATCH),
         ("top_p", ctypes.c_float * MAX_BATCH), ("greedy", ctypes.c_int32 * MAX_BATCH),
+        ("heads_bf16", ctypes.c_int32),
     ]
 
 

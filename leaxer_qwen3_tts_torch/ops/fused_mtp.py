@@ -22,6 +22,12 @@ with that row's knobs.  On a CPU tensor
 :func:`fused_mtp_chain` and :func:`fused_mtp_chain_batched` run their plain
 versions, :func:`fused_mtp_chain_reference` and
 :func:`fused_mtp_chain_batched_reference`.
+
+Units and heads are int8, or bf16 with scales of one (the unquantized
+config: :func:`pack_heads` of raw heads, as the JAX chains cast them).  A
+bf16 trunk's B=1 chain is K3 (the JAX residency gate refuses bf16 trunks),
+so K2 takes int8 only; K5 takes a bf16 trunk and heads on a float32 cache,
+K3's, so that each of its rows equals K3 on it.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from .fused_step import (
     fused_decode_step_batched_reference,
     fused_decode_step_reference,
     step_structs,
+    unit_bytes,
 )
 from ..runtime.sampling import clamp_temperature, scale_by_temperature
 from . import persistent
@@ -77,17 +84,24 @@ def supports_resident(fw: FusedStepWeights) -> bool:
 
 
 class HeadPack(NamedTuple):
-    """Step-indexed int8 heads in kernel layout."""
+    """Step-indexed heads in kernel layout: int8 rows with their scales, or
+    bf16 rows with scales of one."""
 
-    q: torch.Tensor  # int8 [n, V, H] (one output row per V, H contiguous); [V, H] for one head
+    q: torch.Tensor  # int8 or bf16 [n, V, H] (one output row per V, H contiguous); [V, H] for one
     scale: torch.Tensor  # f32 [n, V]; [V]
 
 
-def pack_heads(heads: QuantizedLinear) -> HeadPack:
+def pack_heads(heads: Union[QuantizedLinear, torch.Tensor]) -> HeadPack:
     """QuantizedLinear [..., H, V] / [..., 1, V] -> HeadPack [..., V, H] / [..., V]
-    (the step-indexed heads [n, H, V], or one head such as the lm_head)."""
+    (the step-indexed heads [n, H, V], or one head such as the lm_head); raw
+    heads [..., H, V] -> bf16 rows [..., V, H] with scales of one, as the JAX
+    chains cast unquantized heads."""
     if not isinstance(heads, QuantizedLinear):
-        raise NotImplementedError("only int8 heads run in the chain kernel")
+        return HeadPack(
+            q=heads.to(torch.bfloat16).transpose(-1, -2).contiguous(),
+            scale=torch.ones(heads.shape[:-2] + heads.shape[-1:], dtype=torch.float32,
+                             device=heads.device),
+        )
     return HeadPack(
         q=heads.q.transpose(-1, -2).contiguous(),
         scale=heads.scale[..., 0, :].float().contiguous(),
@@ -242,8 +256,10 @@ class _ChainEntry:
         a.tables, a.x, a.x_in, a.logits = tables.data_ptr(), x.data_ptr(), x_in.data_ptr(), logits.data_ptr()
         a.counter, a.k_cache, a.v_cache = self.counter.data_ptr(), self.kc.data_ptr(), self.vc.data_ptr()
         a.cache_bf16, a.n, a.V, a.Vt = int(cache_dtype == torch.bfloat16), n, V, tables.shape[1]
+        a.heads_bf16 = int(heads.q.dtype == torch.bfloat16)
         self.args = a
-        self.plan = persistent.device_plan(cfg, device, head_rows=V) if planned else None
+        self.plan = persistent.device_plan(cfg, device, head_rows=V,
+                                           unit_bytes=unit_bytes(fw)) if planned else None
 
 
 _CHAIN_ENTRIES: "OrderedDict[tuple, _ChainEntry]" = OrderedDict()
@@ -254,8 +270,8 @@ def _chain_entry(entry: str, cfg, fw, heads, tables, cache_dtype, device) -> _Ch
     """The cached entry of these tensors, keyed by every pointer it holds."""
     tensors = (*fw, *heads, tables)
     stream = torch.cuda.current_stream(device).cuda_stream
-    key = (entry, cfg, cache_dtype, device, stream, threading.get_ident(),
-           *(t.data_ptr() for t in tensors))
+    key = (entry, cfg, cache_dtype, device, stream, threading.get_ident(), fw.wqkv.dtype,
+           heads.q.dtype, *(t.data_ptr() for t in tensors))
     hit = _CHAIN_ENTRIES.get(key)
     if hit is None:
         hit = _ChainEntry(cfg, fw, heads, tables, cache_dtype, device,
@@ -264,6 +280,22 @@ def _chain_entry(entry: str, cfg, fw, heads, tables, cache_dtype, device) -> _Ch
         while len(_CHAIN_ENTRIES) > _MAX_ENTRIES:
             _CHAIN_ENTRIES.popitem(last=False)
     return hit
+
+
+def _check_chain_units(what: str, fw, heads, cache_dtype, bf16_ok: bool) -> None:
+    """A chain kernel's units and heads: one type, int8, or bf16 where the
+    kernel takes it (``bf16_ok``: K3, K5) and on a float32 cache."""
+    if heads.q.dtype != fw.wqkv.dtype:
+        raise NotImplementedError(
+            f"{what}: {heads.q.dtype} heads on {fw.wqkv.dtype} units (the bf16-talker + int8-MTP "
+            "mix): the chain kernels take heads of the trunk's unit type (ROADMAP item K2v)")
+    if fw.wqkv.dtype == torch.bfloat16:
+        if not bf16_ok:
+            raise NotImplementedError(
+                f"{what}: bf16 units run the streamed chain K3 at B=1 (the JAX residency gate "
+                "refuses bf16 trunks); bf16 in K2: ROADMAP item K1v-b / K2v")
+        if cache_dtype != torch.float32:
+            raise ValueError(f"{what}: a bf16 trunk's chain runs on K3's float32 cache")
 
 
 def _launch_chain(wrapper, entry: str, cfg, fw, final_norm, heads, tables, last_hidden,
@@ -287,8 +319,9 @@ def _launch_chain(wrapper, entry: str, cfg, fw, final_norm, heads, tables, last_
             "(other dtypes: ROADMAP item K2v)"
         )
     device = last_hidden.device
+    _check_chain_units(what, fw, heads, cache_dtype, entry == "qtts_mtp_chain_streamed")
     e = _chain_entry(entry, cfg, fw, heads, tables, cache_dtype, device)
-    _check_cuda_inputs(fw, e.kc, e.vc)
+    _check_cuda_inputs(fw, e.kc, e.vc, bf16_units=entry == "qtts_mtp_chain_streamed")
     for t in (heads.q, heads.scale, tables, final_norm) + (() if greedy else (gumbel,)):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{what}: every tensor must be contiguous and on CUDA")
@@ -441,16 +474,18 @@ class _BatchChainEntry:
         a.k_cache, a.v_cache = self.kc.data_ptr(), self.vc.data_ptr()
         a.cache_bf16, a.B, a.n, a.V = int(cache_dtype == torch.bfloat16), B, n, V
         a.Vt = tables.shape[1]
+        a.heads_bf16 = int(heads.q.dtype == torch.bfloat16)
         self.args = a
-        self.plan = persistent.device_plan(cfg, device, head_rows=V, batch=B) if planned else None
+        self.plan = persistent.device_plan(cfg, device, head_rows=V, batch=B,
+                                           unit_bytes=unit_bytes(fw)) if planned else None
 
 
 def _batch_chain_entry(entry: str, cfg, fw, heads, tables, B, cache_dtype,
                        device) -> _BatchChainEntry:
     """The cached entry of these tensors at B rows, keyed by every pointer it holds."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    key = (entry, cfg, B, cache_dtype, device, stream, threading.get_ident(),
-           *(t.data_ptr() for t in (*fw, *heads, tables)))
+    key = (entry, cfg, B, cache_dtype, device, stream, threading.get_ident(), fw.wqkv.dtype,
+           heads.q.dtype, *(t.data_ptr() for t in (*fw, *heads, tables)))
     hit = _CHAIN_ENTRIES.get(key)
     if hit is None:
         hit = _BatchChainEntry(cfg, fw, heads, tables, B, cache_dtype, device,
@@ -485,8 +520,10 @@ def _launch_chain_batched(wrapper, entry: str, cfg, fw, final_norm, heads, table
             "(other dtypes: ROADMAP item K2v)"
         )
     device = last_hidden.device
+    planned = entry == "qtts_mtp_chain_batched"  # the _multi chain takes int8 only
+    _check_chain_units(what, fw, heads, cache_dtype, planned)
     e = _batch_chain_entry(entry, cfg, fw, heads, tables, B, cache_dtype, device)
-    _check_cuda_inputs(fw, e.kc, e.vc)
+    _check_cuda_inputs(fw, e.kc, e.vc, bf16_units=planned)
     for t in (heads.q, heads.scale, tables, final_norm):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{what}: every tensor must be contiguous and on CUDA")

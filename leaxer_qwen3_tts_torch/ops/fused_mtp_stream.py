@@ -1,8 +1,10 @@
 """Kernel K3: the B=1 MTP chain with a streamed trunk and a float32 KV scratch.
 
 Port of ``leaxer_qwen3_tts_tpu/ops/fused_mtp_stream.py::fused_mtp_chain_streamed``,
-the chain the JAX package runs at B=1 when the int8 trunk is too large for
-the resident chain K2 (the 1.7B family: 302 MB).  It computes what K2
+the chain the JAX package runs at B=1 when the trunk does not pass the
+resident chain K2's gate: an int8 trunk too large for it (the 1.7B family:
+302 MB), and every bf16 trunk (the unquantized config, both presets; bf16
+units and heads with scales of one).  It computes what K2
 computes, with the JAX kernel's float32 17-slot KV scratch whatever the
 model dtype: at a bf16 model it equals K2 with a float32 cache, not K2 at
 the config dtype.  On the TPU the trunk streams through a DMA ring whose next
@@ -42,14 +44,15 @@ def _unit_count(fw: FusedStepWeights) -> int:
 
 
 def supports_stream(fw: Optional[FusedStepWeights], V: int) -> bool:
-    """The JAX package's gate of the streamed chain: the ring's int8 units,
-    all the scales and the double buffer of the [H, V] heads within the
+    """The JAX package's gate of the streamed chain: the ring's units (their
+    bytes by the units' element size), all the scales and the double buffer
+    of the [H, V] heads (reckoned as int8, as JAX does) within the
     resident-VMEM budget (the trunk itself never needs to fit)."""
-    if fw is None or fw.wqkv.dtype != torch.int8:
+    if fw is None:
         return False
     L, H = fw.wqkv.shape[0], fw.attn_norm.shape[-1]
     U = _unit_count(fw)
-    unit_b = H * N_UNIT
+    unit_b = H * N_UNIT * fw.wqkv.element_size()
     scales_b = L * U * N_UNIT * 4
     heads_b = 2 * H * V
     return _RING * unit_b + scales_b + heads_b + _STREAM_FIXED <= RESIDENT_MAX_BYTES

@@ -25,9 +25,12 @@ upcast to float32 before each product, which equals a bf16 dot with float32
 accumulation).
 
 The pack is Hopper's own layout: every matrix stored [N, K] (one output row
-with its K bytes contiguous) so the kernel streams 16-byte loads along K.  The
-dequantized values equal ``ops.quant.quantize_weight``'s, and so the JAX
-package's unit pack's.
+with its K values contiguous) so the kernel streams 16-byte loads along K.
+Its units are int8 (``bits=8``: the dequantized values equal
+``ops.quant.quantize_weight``'s, and so the JAX package's unit pack's) or
+bf16 with scales of one (``bits=16``, the unquantized config: the JAX
+package's bits=16 pack, the raw weights cast to bf16); the kernels and
+their plain versions take both.
 """
 
 from __future__ import annotations
@@ -47,15 +50,16 @@ from .quant import QuantizedLinear, quantize_weight
 
 
 class FusedStepWeights(NamedTuple):
-    """Per-layer-stacked int8 weights of one transformer, Hopper layout."""
+    """Per-layer-stacked weight units of one transformer, Hopper layout:
+    int8 with per-row scales, or bf16 with scales of one."""
 
-    wqkv: torch.Tensor  # int8 [L, A, H], A = q_dim + 2 * kv_dim
+    wqkv: torch.Tensor  # int8 or bf16 [L, A, H], A = q_dim + 2 * kv_dim
     sqkv: torch.Tensor  # f32 [L, A] per-output-column scale
-    wo: torch.Tensor  # int8 [L, H, q_dim]
+    wo: torch.Tensor  # [L, H, q_dim]
     so: torch.Tensor  # f32 [L, H]
-    wgu: torch.Tensor  # int8 [L, 2I, H]
+    wgu: torch.Tensor  # [L, 2I, H]
     sgu: torch.Tensor  # f32 [L, 2I]
-    wd: torch.Tensor  # int8 [L, H, I]
+    wd: torch.Tensor  # [L, H, I]
     sd: torch.Tensor  # f32 [L, H]
     attn_norm: torch.Tensor  # f32 [L, H]
     mlp_norm: torch.Tensor  # f32 [L, H]
@@ -64,16 +68,20 @@ class FusedStepWeights(NamedTuple):
     inv_freq: torch.Tensor  # f32 [d/2] rotary inverse frequencies
 
 
-def meta_pack(cfg: TransformerConfig) -> FusedStepWeights:
-    """An int8 pack of ``cfg``'s shapes on the meta device (nothing
-    allocated): what the gates that read a pack's sizes need."""
+UNIT_DTYPES = {8: torch.int8, 16: torch.bfloat16}  # bits -> the units' dtype
+
+
+def meta_pack(cfg: TransformerConfig, bits: int = 8) -> FusedStepWeights:
+    """A ``bits`` pack (8: int8 units, 16: bf16) of ``cfg``'s shapes on the
+    meta device (nothing allocated): what the gates that read a pack's
+    sizes and unit type need."""
     L, H, A = cfg.num_layers, cfg.hidden_size, cfg.q_dim + 2 * cfg.kv_dim
     I, qd, d = cfg.intermediate_size, cfg.q_dim, cfg.head_dim
 
     def m(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    i8 = torch.int8
+    i8 = UNIT_DTYPES[bits]
     return FusedStepWeights(
         wqkv=m((L, A, H), i8), sqkv=m((L, A)), wo=m((L, H, qd), i8), so=m((L, H)),
         wgu=m((L, 2 * I, H), i8), sgu=m((L, 2 * I)), wd=m((L, H, I), i8), sd=m((L, H)),
@@ -109,17 +117,28 @@ def _rows(w: QuantizedLinear) -> Tuple[torch.Tensor, torch.Tensor]:
 def pack_fused_weights(
     cfg: TransformerConfig, layer_params: dict, bits: int = 8
 ) -> FusedStepWeights:
-    """Pack stacked layer params (fused/quantized by ``ops.quant`` or raw
-    arrays, quantized here on the same grid) into the kernel layout."""
-    if bits != 8:
+    """Pack stacked layer params into the kernel layout.  bits=8: fused /
+    quantized by ``ops.quant`` or raw arrays, quantized here on the same
+    grid.  bits=16 (the unquantized config): raw arrays only, cast to bf16
+    units with scales of one, as the JAX package's bits=16 pack."""
+    if bits not in UNIT_DTYPES:
         raise NotImplementedError(
-            f"bits={bits}: int4 and bf16-unit packs are ROADMAP item K1v"
+            f"bits={bits}: int4 packs are ROADMAP item K1v-b / K2v (int8 and bf16 units run)"
         )
     if not supports(cfg):
         raise ValueError("the fused step kernel does not take this architecture")
 
     def as_quant(w):
-        return w if isinstance(w, QuantizedLinear) else quantize_weight(w)
+        if isinstance(w, QuantizedLinear):
+            if bits != 8:
+                raise ValueError(f"bits={bits} packing needs raw weights (pack before "
+                                 "quantize_params in the engine)")
+            return w
+        if bits == 16:
+            ones = torch.ones(w.shape[:-2] + (1, w.shape[-1]), dtype=torch.float32,
+                              device=w.device)
+            return QuantizedLinear(w.to(torch.bfloat16), ones)
+        return quantize_weight(w)
 
     p = layer_params
     wqkv = as_quant(p["wqkv"] if "wqkv" in p else torch.cat([p["wq"], p["wk"], p["wv"]], -1))
@@ -222,14 +241,23 @@ def fused_decode_step_reference(
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache) -> None:
+def unit_bytes(fw: FusedStepWeights) -> int:
+    """Bytes per weight of the pack's units: 1 (int8) or 2 (bf16)."""
+    return fw.wqkv.element_size()
+
+
+def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool = False) -> None:
+    """The checks every kernel wrapper makes; ``bf16_units``: the kernel
+    takes bf16 packs besides int8 (K1, K3, K4, K5)."""
     if k_cache.dtype not in (torch.bfloat16, torch.float32) or v_cache.dtype != k_cache.dtype:
         raise NotImplementedError(
             f"KV cache dtype {k_cache.dtype}: the int8-KV kernel is ROADMAP item K1v"
         )
-    if fw.wqkv.dtype != torch.int8:
+    units = (torch.int8, torch.bfloat16) if bf16_units else (torch.int8,)
+    if fw.wqkv.dtype not in units or any(w.dtype != fw.wqkv.dtype for w in (fw.wo, fw.wgu, fw.wd)):
         raise NotImplementedError(
-            "only int8 packs run on the card (int4 / bf16 units: ROADMAP item K1v)"
+            f"{fw.wqkv.dtype} units: this kernel takes {' and '.join(str(u)[6:] for u in units)} "
+            "packs (int4 units, and bf16 units in K2, K6 and K7: ROADMAP item K1v-b / K2v)"
         )
     for t in (*fw, k_cache, v_cache):
         if not t.is_cuda or not t.is_contiguous():
@@ -250,6 +278,7 @@ def _weights_struct(cfg: TransformerConfig, fw: FusedStepWeights):
         fw.k_norm.data_ptr(), fw.inv_freq.data_ptr(),
         fw.wqkv.shape[0], cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
         cfg.intermediate_size, cfg.rms_norm_eps, attn_scale(cfg.head_dim),
+        int(fw.wqkv.dtype == torch.bfloat16),
     )
 
 
@@ -276,7 +305,7 @@ class _StepEntry:
 
     def __init__(self, cfg: TransformerConfig, fw: FusedStepWeights, T: int, device):
         self.w, self.s, self.scratch = step_structs(cfg, fw, T, device)
-        self.plan = persistent.device_plan(cfg, device)
+        self.plan = persistent.device_plan(cfg, device, unit_bytes=unit_bytes(fw))
 
 
 _STEP_ENTRIES: "OrderedDict[tuple, _StepEntry]" = OrderedDict()
@@ -287,7 +316,8 @@ def _step_entry(cfg: TransformerConfig, fw: FusedStepWeights, T: int, device) ->
     """The cached entry of this pack: keyed by every pointer the structs
     hold, so a hit is the struct these tensors would build."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    key = (cfg, T, device, stream, threading.get_ident(), *(t.data_ptr() for t in fw))
+    key = (cfg, T, device, stream, threading.get_ident(), fw.wqkv.dtype,
+           *(t.data_ptr() for t in fw))
     entry = _STEP_ENTRIES.get(key)
     if entry is None:
         entry = _StepEntry(cfg, fw, T, device)
@@ -316,7 +346,7 @@ def fused_decode_step(
         return fused_decode_step_reference(cfg, fw, x, pos, k_cache, v_cache)
     if x.device.type != "cuda":
         raise ValueError(f"fused_decode_step: unsupported device {x.device}")
-    _check_cuda_inputs(fw, k_cache, v_cache)
+    _check_cuda_inputs(fw, k_cache, v_cache, bf16_units=True)
     from ._build import check, load_kernels
 
     lib = load_kernels()
@@ -427,7 +457,7 @@ class _BatchEntry:
 
     def __init__(self, cfg: TransformerConfig, fw: FusedStepWeights, B: int, T: int, device):
         self.w, self.s, self.scratch = batch_structs(cfg, fw, B, T, device)
-        self.plan = persistent.device_plan(cfg, device, batch=B)
+        self.plan = persistent.device_plan(cfg, device, batch=B, unit_bytes=unit_bytes(fw))
 
 
 _BATCH_ENTRIES: "OrderedDict[tuple, _BatchEntry]" = OrderedDict()
@@ -437,7 +467,8 @@ def _batch_entry(cfg: TransformerConfig, fw: FusedStepWeights, B: int, T: int,
                  device) -> _BatchEntry:
     """The cached entry of this pack at B rows, keyed by every pointer it holds."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    key = (cfg, B, T, device, stream, threading.get_ident(), *(t.data_ptr() for t in fw))
+    key = (cfg, B, T, device, stream, threading.get_ident(), fw.wqkv.dtype,
+           *(t.data_ptr() for t in fw))
     entry = _BATCH_ENTRIES.get(key)
     if entry is None:
         entry = _BatchEntry(cfg, fw, B, T, device)
@@ -479,11 +510,11 @@ def _launch_step_batched(wrapper, entry: str, cfg: TransformerConfig, fw: FusedS
         raise ValueError(f"{what}: unsupported device {x.device}")
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"{what} takes 1..{MAX_BATCH} rows, got {B}")
-    _check_cuda_inputs(fw, k_cache, v_cache)
+    planned = entry == "qtts_decode_step_batched"  # the _multi sequence takes int8 only
+    _check_cuda_inputs(fw, k_cache, v_cache, bf16_units=planned)
     from ._build import check, load_kernels
 
     lib = load_kernels()
-    planned = entry == "qtts_decode_step_batched"
     if planned:
         e = _batch_entry(cfg, fw, B, T, x.device)
         w, s, scratch = e.w, e.s, None

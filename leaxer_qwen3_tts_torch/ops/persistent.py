@@ -7,13 +7,20 @@ of one block per SM.  Each block owns a fixed,
 contiguous range of output rows in every GEMV of the transformer (qkv, o,
 gate|up, down) and of the chain's heads, balanced over the grid in multiples
 of four rows (the scale copies move 16 bytes at a time).  A block's rows of
-one GEMV are cut into stages of at most SLOT_BYTES int8 bytes, and the
+one GEMV are cut into stages of at most a slot's weight bytes, and the
 stages stream through a ring of ``n_slots`` shared-memory slots by TMA bulk
 copies.  This module computes that plan on the host, so that it can be held
 on the CPU: which rows each block owns, how many rows a stage takes, how many
 slots fit, and the dynamic shared memory of the launch.  The layout mirrors
 ``qtts_plan_layout``; the C entries check the plan's scalars again and raise
 on one they do not take.
+
+Units are int8 or bf16 (``unit_bytes`` 1 or 2, the heads of the pack's
+type too): a stage's rows are slot_bytes over K x unit_bytes.  A bf16 row
+of the 1.7B down product (K = 6144) is 12 KB, so a SLOT_BYTES slot holds two
+rows, under ROW_QUANTUM: a one-row bf16 plan there takes WIDE_SLOT_BYTES
+slots (four rows exactly), and a batched one cannot be built
+(:func:`batched_fits`).
 
 A frame's plan (``make_plan(..., talker=..., lm_rows=...)``) covers two
 weight sets on one grid and one ring: set 0 the MTP trunk with its heads,
@@ -73,6 +80,7 @@ class Plan(NamedTuple):
     batch: int = 1  # rows of the launch (1: K1, K2, K3, K7)
     groups: int = 1  # batch groups: bounds are [kind index][grid + groups]
     n_sets: int = 1  # weight sets (2: K7's MTP trunk, then its talker)
+    unit_bytes: int = 1  # bytes per weight: 1 (int8 units), 2 (bf16)
 
 
 def kind_name(kind: int) -> str:
@@ -140,7 +148,8 @@ def group_rows(plan: Plan, block: int) -> Tuple[int, int]:
 
 
 def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int = 1,
-              talker: Optional[TransformerConfig] = None, lm_rows: int = 0) -> Plan:
+              talker: Optional[TransformerConfig] = None, lm_rows: int = 0,
+              unit_bytes: int = 1) -> Plan:
     """The plan of a launch on ``grid`` blocks over the transformer ``cfg``
     (and ``head_rows`` head rows for the chain) for ``batch`` rows (1: K1,
     K2 and K3, whose GEMV input is MAX_K floats), with as many ring slots as
@@ -150,8 +159,10 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     takes WIDE_SLOT_BYTES slots where each block's share of one layer of
     every set fits that ring (fewer, larger stages, each with its fixed
     wait, barrier and refill), else SLOT_BYTES slots (more of them, to keep
-    more bytes in flight).  Raises ValueError where a block would own no
-    rows of some product, or nothing fits."""
+    more bytes in flight), unless a SLOT_BYTES slot holds fewer than
+    ROW_QUANTUM rows of the widest product (bf16 units at K = 6144).
+    ``unit_bytes``: 1 for int8 units, 2 for bf16.  Raises ValueError where
+    a block would own no rows of some product, or nothing fits."""
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"a launch takes 1..{MAX_BATCH} rows, not {batch}")
     if head_rows and batch > grid:
@@ -170,21 +181,34 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     if max(K for N, K in shapes if N) > MAX_K or max(
             c.num_kv_heads for c, _ in sets) > MAX_KV_HEADS:
         raise ValueError(f"GEMV inputs past {MAX_K} wide or past {MAX_KV_HEADS} kv heads")
+    if unit_bytes not in (1, 2):
+        raise ValueError(f"units of {unit_bytes} bytes: the kernels take int8 (1) and bf16 (2)")
     if batch == 1:
-        wide = _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets))
-        if wide.n_slots * wide.slot_bytes >= max(layer_share(wide, s) for s in range(len(sets))):
+        wide = _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes)
+        narrow_fits = SLOT_BYTES // (unit_bytes * max(K for N, K in shapes if N)) >= ROW_QUANTUM
+        if not narrow_fits or wide.n_slots * wide.slot_bytes >= max(
+                layer_share(wide, s) for s in range(len(sets))):
             return wide
-    return _plan_at(SLOT_BYTES, cfg, grid, shapes, batch, len(sets))
+    return _plan_at(SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes)
+
+
+def batched_fits(cfg: TransformerConfig, unit_bytes: int) -> bool:
+    """Whether a batched plan (K4, K5) of ``cfg`` can be built: a SLOT_BYTES
+    slot holds ROW_QUANTUM rows of its widest product (bf16 units: K <=
+    4096, the 0.6B widths, not 1.7B's)."""
+    widest = max(K for N, K in kind_shapes(cfg))
+    return SLOT_BYTES // (unit_bytes * widest) >= ROW_QUANTUM
 
 
 def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: int,
-             n_sets: int) -> Plan:
+             n_sets: int, unit_bytes: int = 1) -> Plan:
     """The plan of ``make_plan`` with slots of ``slot_bytes``."""
     stage_rows = []
     for N, K in shapes:
-        rows = min(MAX_STAGE_ROWS, slot_bytes // K) // ROW_QUANTUM * ROW_QUANTUM
+        rows = min(MAX_STAGE_ROWS, slot_bytes // (K * unit_bytes)) // ROW_QUANTUM * ROW_QUANTUM
         if N and rows < ROW_QUANTUM:
-            raise ValueError(f"a {slot_bytes}-byte slot holds fewer than 4 rows of {K} bytes")
+            raise ValueError(f"a {slot_bytes}-byte slot holds fewer than 4 rows of "
+                             f"{K * unit_bytes} bytes")
         stage_rows.append(rows if N else ROW_QUANTUM)
     slot_rows = max(stage_rows)
     # the GEMV input (MAX_K floats at one row, a group's rows in bf16
@@ -207,15 +231,16 @@ def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: 
         bounds.append(tuple(row))
     smem = smem_layout(n_slots, slot_bytes, slot_rows, union_bytes)["total"]
     return Plan(grid, shapes, tuple(bounds), tuple(stage_rows), slot_bytes, slot_rows, n_slots,
-                union_bytes, smem, batch, groups, n_sets)
+                union_bytes, smem, batch, groups, n_sets, unit_bytes)
 
 
 def layer_share(plan: Plan, s: int = 0) -> int:
-    """The int8 bytes of one layer of weight set ``s`` (its qkv, o, gate|up
-    and down rows) that the block owning the most of them streams."""
+    """The weight bytes of one layer of weight set ``s`` (its qkv, o,
+    gate|up and down rows) that the block owning the most of them streams."""
     kinds = range(s * len(KINDS), s * len(KINDS) + 4)
-    return max(sum((plan.bounds[k][at + 1] - plan.bounds[k][at]) * plan.shapes[k][1]
-                   for k in kinds) for at in range(len(plan.bounds[0]) - 1))
+    return plan.unit_bytes * max(
+        sum((plan.bounds[k][at + 1] - plan.bounds[k][at]) * plan.shapes[k][1] for k in kinds)
+        for at in range(len(plan.bounds[0]) - 1))
 
 
 def stages(plan: Plan, kind: int, block: int) -> Sequence[Tuple[int, int]]:
@@ -306,9 +331,12 @@ def grid_size(device) -> int:
 
 
 def device_plan(cfg: TransformerConfig, device, head_rows: int = 0, batch: int = 1,
-                talker: Optional[TransformerConfig] = None, lm_rows: int = 0) -> DevicePlan:
+                talker: Optional[TransformerConfig] = None, lm_rows: int = 0,
+                unit_bytes: int = 1) -> DevicePlan:
     """The device plan of ``cfg`` (and ``head_rows`` heads, ``batch`` rows;
-    the frame's talker and ``lm_rows``) on this device; each caller keeps
-    its own (the attention tickets are per launch stream)."""
+    the frame's talker and ``lm_rows``; ``unit_bytes`` per weight) on this
+    device; each caller keeps its own (the attention tickets are per launch
+    stream)."""
     device = torch.device(device)
-    return DevicePlan(make_plan(cfg, grid_size(device), head_rows, batch, talker, lm_rows), device)
+    return DevicePlan(make_plan(cfg, grid_size(device), head_rows, batch, talker, lm_rows,
+                                unit_bytes), device)

@@ -4,7 +4,8 @@ Port of ``leaxer_qwen3_tts_tpu/serve/__main__.py``, flag for flag, plus
 ``--device {cuda,cpu}`` as in the CLI: build the engine from the checkpoint
 directory, pick the continuous pool or the static batcher, warm both up
 (unless ``--no-warmup``), then serve HTTP until Ctrl-C (exit 0).  On the card
-the engine needs ``--quantize int8``.
+an unset ``--quantize`` (the default) serves bf16 weight units at the 0.6B
+widths (1.7B bf16 pools: ROADMAP B17) and ``--quantize int8`` int8 units.
 """
 
 import argparse

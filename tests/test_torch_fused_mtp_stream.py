@@ -108,8 +108,9 @@ def test_streamed_chain_bf16_model_matches_jax(models_bf16, knobs):
     assert torch.equal(k2_subs, t_subs)
 
 
-def _jax_pack(t):
-    """The JAX pack's shapes as zero-stride numpy views (no allocation)."""
+def _jax_pack(t, bits=8):
+    """The JAX pack's shapes as zero-stride numpy views (no allocation):
+    int8 units (bits=8) or bf16 (bits=16)."""
     n_qkv, n_wo, n_gu, n_wd = (t.q_dim + 2 * t.kv_dim) // 1024, (t.q_dim // t.hidden_size) * (
         t.hidden_size // 1024), 2 * t.intermediate_size // 1024, (
         t.intermediate_size // t.hidden_size) * (t.hidden_size // 1024)
@@ -120,24 +121,37 @@ def _jax_pack(t):
         return np.broadcast_to(np.zeros((), dtype), shape)
 
     return types.SimpleNamespace(
-        units=z((L, U, H, 1024), np.int8), scales=z((L, U, 1, 1024), np.float32),
+        units=z((L, U, H, 1024), np.int8 if bits == 8 else jnp.bfloat16),
+        scales=z((L, U, 1, 1024), np.float32),
         attn_norm=z((L, 1, H), np.float32),
     )
 
 
-@pytest.mark.parametrize("preset,route", [("QWEN3_TTS_06B", "K2"), ("QWEN3_TTS_17B", "K3")])
-def test_b1_route_by_the_jax_gates(preset, route):
-    """The port's copies of the residency and stream gates agree with the
-    JAX package's on the preset's MTP trunk (0.6B: 78 MB, resident; 1.7B:
-    302 MB, streamed), and route B=1 to K2 or K3; B>1 stays on K5, and
-    ``resident=False`` leaves the chains."""
+@pytest.mark.parametrize("preset,bits,route", [
+    ("QWEN3_TTS_06B", 8, "K2"), ("QWEN3_TTS_17B", 8, "K3"),
+    ("QWEN3_TTS_06B", 16, "K3"), ("QWEN3_TTS_17B", 16, "K3"),
+])
+def test_b1_route_by_the_jax_gates(preset, bits, route):
+    """The port's copies of the residency, stream and frame gates agree
+    with the JAX package's on the preset's MTP trunk (int8, 0.6B: 78 MB,
+    resident; 1.7B: 302 MB, streamed; bf16 units, the unquantized config:
+    never resident, streamed at both presets, no whole frame), and route B=1
+    to K2 or K3; B>1 stays on K5, and ``resident=False`` leaves the chains."""
+    from leaxer_qwen3_tts_tpu.ops import fused_frame as j_ff
+    from leaxer_qwen3_tts_torch.ops import fused_frame as t_ff
+
     cp = getattr(tcfg, preset).code_predictor
     jcp = getattr(jcfg, preset).code_predictor
-    fw, jfw = meta_pack(cp.transformer), _jax_pack(jcp.transformer)
+    fw, jfw = meta_pack(cp.transformer, bits), _jax_pack(jcp.transformer, bits)
     n, V = cp.num_steps, cp.subcode_vocab_size
     assert tfm.trunk_bytes(fw) == jfw.units.nbytes
     assert tfm.supports_resident(fw) == j_fm.supports_resident(jfw) == (route == "K2")
     assert tstream.supports_stream(fw, V) == j_stream.supports_stream(jfw, n, V) is True
+    talker = getattr(tcfg, preset).talker.transformer
+    jtalker = getattr(jcfg, preset).talker.transformer
+    for T in (256, 2560):
+        assert t_ff.supports_frame(fw, T, talker) == j_ff.supports_frame(jfw, T, jtalker)
+    assert t_ff.supports_frame(fw, 256, talker) == (preset == "QWEN3_TTS_06B" and bits == 8)
     want = tfm.fused_mtp_chain if route == "K2" else tstream.fused_mtp_chain_streamed
     assert tcp.chain_kernel(cp, {"fused_step": fw}, 1) is want
     assert tcp.chain_kernel(cp, {"fused_step": fw}, 8) is tfm.fused_mtp_chain_batched

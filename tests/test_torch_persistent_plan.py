@@ -13,7 +13,10 @@ map: row r on cache row r // S at the clamped start plus r % S).  And the
 probes' ring plan (tools/unit_probe.py) for every arm of P1 and both arms of
 P2: every row of every unit in exactly one block's range, the stages in walk
 order, the shared memory within a block's; ``launch`` refuses a probe other
-than 1 or 2."""
+than 1 or 2.  Every check of the int8 plans also holds for bf16 units (the
+unquantized config, two bytes per weight) at the 0.6B widths at every
+batch and at the 1.7B widths at one row, whose 12 KB down rows take the
+48 KB slots; a batched 1.7B bf16 plan is refused."""
 
 from __future__ import annotations
 
@@ -36,14 +39,22 @@ CASES = {
                         QWEN3_TTS_17B.code_predictor.subcode_vocab_size),),
 }
 FRAMES = {"0.6B frame": (_MTP06, (_TALKER06, QWEN3_TTS_06B.talker.codec_vocab_size))}
+# the same weight sets with bf16 units (a name ending in " bf16")
+BF16 = {f"{name} bf16": sets for name, sets in CASES.items()}
 GRIDS = (132, 114)
 BATCHES = (1, 2, 5, 8, 24, 32)  # 24: a spec pool's 8 streams x 3 candidates
 PARAMS = ([(name, grid, B) for name in CASES for grid in GRIDS for B in BATCHES]
-          + [(name, grid, 1) for name in FRAMES for grid in GRIDS])
+          + [(name, grid, 1) for name in FRAMES for grid in GRIDS]
+          + [(name, grid, B) for name in BF16 for grid in GRIDS
+             for B in (BATCHES if name.startswith("0.6B") else (1,))])
 
 
 def _sets(name):
-    return {**CASES, **FRAMES}[name]
+    return {**CASES, **FRAMES, **BF16}[name]
+
+
+def _unit_bytes(name):
+    return 2 if name.endswith(" bf16") else 1
 
 
 def _plan(name, grid, B):
@@ -51,7 +62,8 @@ def _plan(name, grid, B):
     if rest:
         (talker, lm_rows), = rest
         return persistent.make_plan(cfg, grid, head_rows=heads, talker=talker, lm_rows=lm_rows)
-    return persistent.make_plan(cfg, grid, head_rows=heads, batch=B)
+    return persistent.make_plan(cfg, grid, head_rows=heads, batch=B,
+                                unit_bytes=_unit_bytes(name))
 
 
 @pytest.mark.parametrize("name,grid,B", PARAMS)
@@ -94,6 +106,7 @@ def test_every_row_once(name, grid, B):
 def test_stages_fit_the_ring(name, grid, B):
     plan = _plan(name, grid, B)
     assert plan.n_slots >= (2 if B == 1 else persistent.MIN_SLOTS)
+    assert plan.unit_bytes == _unit_bytes(name)
     for kind, (N, K) in enumerate(plan.shapes):
         if N == 0:
             continue
@@ -102,7 +115,7 @@ def test_stages_fit_the_ring(name, grid, B):
         assert rows <= plan.slot_rows
         for b in range(grid):
             for _, r in persistent.stages(plan, kind, b):
-                assert r * K <= plan.slot_bytes and r <= plan.slot_rows
+                assert r * K * plan.unit_bytes <= plan.slot_bytes and r <= plan.slot_rows
 
 
 @pytest.mark.parametrize("name,grid,B", PARAMS)
@@ -148,26 +161,55 @@ def test_one_row_slots(name, grid, B):
     and five of them."""
     plan = _plan(name, grid, B)
     n_sets = len(_sets(name))
+    ub = _unit_bytes(name)
     wide = persistent._plan_at(persistent.WIDE_SLOT_BYTES, _sets(name)[0][0], grid, plan.shapes,
-                               1, n_sets)
+                               1, n_sets, ub)
     fits = all(persistent.layer_share(wide, s) <= wide.n_slots * wide.slot_bytes
                for s in range(n_sets))
-    assert plan.slot_bytes == (persistent.WIDE_SLOT_BYTES if fits else persistent.SLOT_BYTES)
+    # a 32 KB slot must hold four rows of the widest product
+    narrow = persistent.SLOT_BYTES // (ub * max(K for N, K in plan.shapes if N)) >= 4
+    assert plan.slot_bytes == (persistent.WIDE_SLOT_BYTES if fits or not narrow
+                               else persistent.SLOT_BYTES)
     # every block's rows of every kind are counted in its share
     for s in range(n_sets):
         for blk in range(grid):
-            own = sum(r * plan.shapes[k][1] for k in range(s * 5, s * 5 + 4)
+            own = sum(r * plan.shapes[k][1] * ub for k in range(s * 5, s * 5 + 4)
                       for _, r in persistent.stages(plan, k, blk))
             assert own <= persistent.layer_share(plan, s)
-    if name.startswith("1.7B"):
+    if name.startswith("1.7B") and ub == 1:
         assert plan.slot_bytes == persistent.SLOT_BYTES and plan.n_slots == 5
-    if grid == 132 and name.startswith("0.6B"):
+    if grid == 132 and name.startswith("0.6B") and ub == 1:
         assert plan.slot_bytes == persistent.WIDE_SLOT_BYTES and plan.n_slots == 3
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("name", [n for n in BF16 if n.startswith("1.7B")])
+def test_bf16_17b_plans(name, grid):
+    """bf16 units at the 1.7B widths: a 12 KB down row leaves a 32 KB slot
+    two rows, so the one-row plan takes the 48 KB slots, whatever its layer
+    share, four down rows a stage, and the union region still leaves the
+    ring slots; a batched plan cannot be built (the engine refuses 1.7B
+    bf16 batches)."""
+    (cfg, heads), = _sets(name)
+    plan = _plan(name, grid, 1)
+    assert plan.slot_bytes == persistent.WIDE_SLOT_BYTES and plan.n_slots >= 1
+    assert plan.stage_rows[persistent.KINDS.index("down")] == 4
+    assert persistent.layer_share(plan) > plan.n_slots * plan.slot_bytes  # the share test alone
+    assert not persistent.batched_fits(cfg, 2) and persistent.batched_fits(cfg, 1)
+    with pytest.raises(ValueError, match="fewer than 4 rows"):
+        persistent.make_plan(cfg, grid, head_rows=heads, batch=2, unit_bytes=2)
+    # 0.6B bf16 batches fit
+    assert all(persistent.batched_fits(c, 2) for (c, _), in (CASES["0.6B talker"],
+                                                             CASES["0.6B MTP trunk"]))
 
 
 def test_batched_plans_keep_the_narrow_slots():
     for name in CASES:
         assert _plan(name, 132, 8).slot_bytes == persistent.SLOT_BYTES
+    for name in ("0.6B talker bf16", "0.6B MTP trunk bf16"):
+        assert _plan(name, 132, 8).slot_bytes == persistent.SLOT_BYTES
+    with pytest.raises(ValueError):
+        persistent.make_plan(_TALKER06, 132, unit_bytes=4)
 
 
 @pytest.mark.parametrize("grid", GRIDS)
