@@ -27,7 +27,8 @@ K8 launches are what its attention costs end to end.  With ``--kernels`` a
 run first times the kernels alone (and makes no engine unless another flag
 asks for one), by CUDA events on
 seeded inputs, three timings each (bf16 caches):
-K1 (T=256, pos 200), K2 (sampled), K4 (B=8, 32 at T=512), K5 (B=4, 8, 32,
+K1 (T=256, pos 200), K2 (sampled), K3 (K2's inputs: the 0.6B int8 trunk on
+its float32 cache), K4 (B=8, 32 at T=512), K5 (B=4, 8, 32,
 mixed knobs), K6 (B=1 x S=4 at T=256 start 200, 8 x 3 and 4 x 8 at
 T=512, the smoke's starts), K7 (T=256, pos 255, sampled), P1 (the
 conv arm's whole chain), K8 at the 1.7B prefill shape (bf16, B=1, S=57,
@@ -115,6 +116,7 @@ def kernels_ms(cs):
     from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B
     from leaxer_qwen3_tts_torch.ops import fused_frame as K7
     from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
+    from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as K3
     from leaxer_qwen3_tts_torch.ops import fused_step as K1
     from leaxer_qwen3_tts_torch.ops import flash_attention as K8
     from leaxer_qwen3_tts_torch.ops import fused_verify as K6
@@ -147,6 +149,7 @@ def kernels_ms(cs):
         if B == 1:
             args = (mt, mfw, fnorm, heads, tables, lh, c0, noise, *cs.K5_KNOBS[1])
             timed("K2 sampled", lambda: K2.fused_mtp_chain(*args, cache_dtype=torch.bfloat16), 10)
+            timed("K3 0.6B trunk sampled", lambda: K3.fused_mtp_chain_streamed(*args), 10)
             continue
         if B > 4:
             x, kc, vc, pos = cs.k4_inputs(tt, B, 512, torch.bfloat16, gen)
@@ -165,10 +168,10 @@ def kernels_ms(cs):
     del x, kc, vc, tfw, mfw
     packs = cs.frame_packs(QWEN3_TTS_06B, gen)
     inp = cs.k7_inputs(packs, 255, 1, gen)
-    kc, vc = cs.k7_caches(packs[0], 256, 255, torch.bfloat16, gen)
+    caches = cs.k7_caches(packs[0], 256, 255, torch.bfloat16, gen)
     timed("K7 T=256 pos 255 sampled",
-          lambda: cs.k7_call(K7.fused_frame_step, packs, inp, (0.8, 50, 0.95), kc, vc), 10)
-    del packs, kc, vc
+          lambda: cs.k7_call(K7.fused_frame_step, packs, inp, (0.8, 50, 0.95), *caches), 10)
+    del packs, caches
     w, s = P1.make_weights("conv", device=cs.DEV)
     x0 = torch.full((1, P1.H), 0.1, device=cs.DEV)
     timed(f"P1 conv chain of {P1.S * P1.U} units", lambda: P1.chain("conv", w, s, x0), 10)

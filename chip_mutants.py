@@ -1,4 +1,5 @@
-"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7, P1, P2, persistent K1 / K2 / K4 / K5 and bf16-unit checks on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7, P1, P2, persistent K1 / K2 / K4 / K5,
+bf16-unit and int8-KV-cache checks on one NVIDIA GPU.
 
     python3 chip_mutants.py [WORD ...]
 
@@ -32,8 +33,12 @@ anchors (``chip_smoke.check_unit_anchor_k1`` / ``_k4`` / ``_chains``: K1,
 K4, K3 and K5 on bf16 twins of int8 packs with unit scales, bit for bit)
 for the bf16 units' faults, two in the sources and one in
 ``ops/persistent.py`` (``PY_MUTANTS``, patched in this process after the
-source mutants; ``python3 chip_mutants.py int8`` runs the three).  A mutant
-is caught when at least one case fails.  Exits non-zero if a mutant is not
+source mutants; ``python3 chip_mutants.py int8`` runs the three); the int8
+KV cache's five (``python3 chip_mutants.py kvq``) against
+``chip_smoke.check_kvq_ties``, ``check_kvq_k1`` on one layer, ``check_kvq_k4``
+and ``check_kvq_k6`` (K4 rows against K1, K6 against its steps, also with
+every slot write stalled) and K7's int8-cache composition and plain checks.
+A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
 caught, or without CUDA.
 """
 
@@ -305,6 +310,59 @@ MUTANTS = {
          "                 r.W + ((size_t)q.unit * r.N + n0) * r.K, wbytes, bar);"),
         "BF16",
     ),
+    # the int8 KV cache: the quantization rounds half away from zero
+    # (roundf), where quantize_kv rounds half to even
+    "kvq rounding half away from zero": (
+        "qtts_kernels.cuh",
+        "  return fminf(fmaxf(rintf(x / scale), -127.f), 127.f);",
+        "  return fminf(fmaxf(roundf(x / scale), -127.f), 127.f);",
+        "KVQ",
+    ),
+    # a cached slot's k scale read from the slot after it
+    "kvq k scale read from the wrong slot": (
+        "qtts_stream.cuh",
+        "      a = ks[(size_t)h * T + j];",
+        "      a = ks[(size_t)h * T + j + 1];",
+        "KVQ",
+    ),
+    # the normaliser sums p * v_scale (the weight of the value term) where
+    # the reference's softmax sums p alone
+    "kvq v scale folded into the normaliser": (
+        "qtts_stream.cuh",
+        "          l[gi] = l[gi] * alpha + p;\n",
+        "          l[gi] = l[gi] * alpha + (qtts_int8_cache<CT> ? p * vsb[u] : p);\n",
+        "KVQ",
+    ),
+    # the step writes the new slot's int8 values but not its scales
+    "kvq new slot's scale not written": (
+        "qtts_stream.cuh",
+        ("          ks[(size_t)h * T + pos] = ks_own;\n",
+         "          vs[(size_t)h * T + pos] = vs_own;\n"),
+        ("", ""),
+        "KVQ",
+    ),
+    # K6's slot-write phase stores the scales after its grid barrier (a
+    # second pass of the write items, each first stalled as the plan says),
+    # so a candidate may read another row's new slot with a stale scale
+    "kvq K6 scales written after the slot-write barrier": (
+        "qtts_stream.cuh",
+        ("                               pos_dev, pos_host, S, w.eps, ksl, vsl);\n      }\n"
+         "      qtts_phase_barrier(p);  // the new slots, before any candidate attends them\n",),
+        ("                               pos_dev, pos_host, S, w.eps, s.part, s.part + 1);\n"
+         "      }\n"
+         "      qtts_phase_barrier(p);  // the new slots, before any candidate attends them\n"
+         "      for (int it = lane0; qtts_int8_cache<CT> && it < B * nk; it += lanes) {\n"
+         "        hsync();\n"
+         "        const uint64_t t0 = qtts_globaltimer();\n"
+         "        while (qtts_globaltimer() - t0 < (uint64_t)p.write_stall_ns) {\n"
+         "        }\n"
+         "        qtts_kv_write_body<CT>(am[half], hsync, t, it % nk, it / nk, s.qkv, A,\n"
+         "                               w.k_norm + (size_t)l * D, w.inv_freq, kl, vl, cache_row, "
+         "nq, nk, T,\n"
+         "                               pos_dev, pos_host, S, w.eps, ksl, vsl);\n"
+         "      }\n",),
+        "KVQ",
+    ),
 }
 
 
@@ -407,8 +465,22 @@ def checks(gen):
             lambda: cs.check_unit_anchor_chains("0.6B MTP trunk", *anchors, gen)]
     bf16 += [lambda: cs.one_slot_ring(lambda: cs.check_unit_anchor_chains(
         "0.6B MTP trunk, one ring slot", *anchors, gen, knob_sets=cs.UNIT_KNOBS[1:2]))]
+    # the int8 KV cache: the exact-tie quantization, K1 on one layer (24
+    # inputs, the tight-row count), K4 rows against K1 and K6 against its
+    # steps (also with every slot write stalled), and K7 against its
+    # composition and its plain version
+    kvq = [lambda: cs.check_kvq_ties(t1, gen)]
+    kvq += [lambda T=T, pos=pos: cs.check_kvq_k1("talker-1-layer", t1, fw, T, pos, gen,
+                                                 cs.K1_TIGHT_INPUTS, 0)
+            for T, pos in ((256, 200), (2560, 2559))]
+    kvq += [lambda: cs.check_kvq_k4("talker-1-layer", t1, fw, 8, 512, gen, 0)]
+    kvq += [lambda ns=ns, case=case: cs.check_kvq_k6("talker-1-layer", t1, fw, *case, gen, 0,
+                                                     stall_ns=ns)
+            for case in cs.K6_STALL_CASES for ns in (0, cs.K6_STALL_NS)]
+    kvq += [lambda: cs.check_k7_composition(packs, 256, 255, torch.int8, gen, inputs=2),
+            lambda: cs.check_k7_plain(packs, 256, 255, cs.K7_KNOBS[1], gen, 0, torch.int8)]
     return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1,
-            "P2": p2, "BF16": bf16}
+            "P2": p2, "BF16": bf16, "KVQ": kvq}
 
 
 def run_checks(name, checks):

@@ -117,12 +117,15 @@ prints the final line:
    ``--frame-fused on``; one K6 and one K5 per verify iteration and K2 for
    frame 0 under ``--spec-k``) and no launch-per-op entry; without
    ``--quantize`` (bf16 units) it exits 0 with a WAV, one K1 and one K3
-   per decoded frame; ``--quantize int4``, ``--kv-quant`` and, without
-   ``--quantize``, ``--spec-k 4`` (K6 at bf16) exit 1 with the engine's
-   error.  The speaker embedding of that WAV on the card is within SPK_REL
-   of the same checkpoint's on the CPU (ms per call printed).  The server
+   per decoded frame; ``--quantize int8 --kv-quant`` and ``--kv-quant``
+   alone (the int8 KV cache) exit 0 with a WAV, one K1 and one K2 (K3) per
+   frame; ``--quantize int4`` and, without ``--quantize``, ``--spec-k 4``
+   (K6 at bf16) exit 1 with the engine's error.  The speaker embedding of
+   that WAV on the card is within SPK_REL of the same checkpoint's on the
+   CPU (ms per call printed).  The server
    (``python -m leaxer_qwen3_tts_torch.serve``) runs as a subprocess, with
-   ``--quantize int8`` and then without it (bf16 units): its warmup seconds,
+   ``--quantize int8``, without it (bf16 units) and with ``--kv-quant``
+   alone: its warmup seconds,
    two requests (``/synthesize``: a WAV; ``/synthesize_stream``: 16-bit
    PCM), exit 0 on SIGINT, each step under a stated timeout.  Last,
    one ``synthesize`` with ``QTTS_PROFILE`` set writes a Chrome trace that
@@ -172,10 +175,30 @@ prints the final line:
    K1 and one K3 per frame, 28 K8 per prefill; ``synthesize_batch`` and a
    pool refused, ROADMAP B17).  Each figure is printed beside the int8 one
    of this run.
-13. The kernel report (each kernel's launches on the main paths, error
+13. ``kvq_phase``: the int8 KV cache (``kv_quant=True``: int8 K/V with a
+   float32 scale per (slot, kv head)).  K1 at T=256 and 2560 (28 layers,
+   and one layer at the first slot, the split edges and the last slots with
+   24 seeded inputs each under the flip-tolerant limits and the tight count:
+   x within K1_TIGHT_REL and the written int8 slot equal), K4 at B=8 and
+   32 (T=512), K6 at 1 x 4 (T=256), 8 x 3 and 4 x 8 (T=512) and K7 at
+   T=256 and 2560, greedy and sampled, against their plain versions (the
+   written slots dequantized, every other slot and scale untouched; K6 also
+   with every slot write stalled 20 us); the quantization on exact ties (v / scale = k + 1/2) in K1, K4 and K6 bit
+   for bit with the plain version (half to even); every K4 row equal to K1
+   and every K6 row to the K1 / K4 steps it stands for, K7 equal to K2 ->
+   float32 x -> K1 -> norm+lm_head, and K1 / K4 on bf16 twins of int8 packs
+   equal to the int8 packs, all bit for bit (values and scales), again on a
+   one-slot ring.  Then the 0.6B engines: fixed 300-frame B=1 runs in turns
+   with a bf16 cache (int8 and bf16 units), greedy B=1 equal to spec_k=4
+   greedy, ``frame_fused`` (one K7 per frame), spec_k=4 at full and zero
+   acceptance, ``synthesize_batch`` at B=8 and 32 and a pool of 8 (int8 and
+   bf16 units, greedy pool output equal to B=1), and the 1.7B preset at B=1
+   (K1 kvq at its widths, an instruct request and a fixed 300-frame run);
+   every run's launch counts, and K1, K4, K6 and K7 launched on them.
+14. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
-   K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units)
-   and the device line.
+   K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
+   K1, K4, K6 and K7 once more for the int8 KV cache) and the device line.
 """
 
 from __future__ import annotations
@@ -215,7 +238,7 @@ from leaxer_qwen3_tts_torch.frontend._bpe_py import byte_to_proxy
 from leaxer_qwen3_tts_torch.models.code_predictor import chain_kernel
 from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
 from leaxer_qwen3_tts_torch.models.draft import init_draft_params
-from leaxer_qwen3_tts_torch.models.layers import init_transformer_params
+from leaxer_qwen3_tts_torch.models.layers import init_transformer_params, quantize_kv
 from leaxer_qwen3_tts_torch.ops import _build
 from leaxer_qwen3_tts_torch.ops import flash_attention as K8
 from leaxer_qwen3_tts_torch.ops import fused_frame as K7
@@ -426,13 +449,21 @@ def nbytes(tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
+def slot_bytes(t, cache_dtype) -> int:
+    """Bytes of one cache slot over every layer: k and v of each kv head in
+    the cache dtype, and an int8 cache's two float32 scales per head."""
+    elem = torch.empty((), dtype=cache_dtype).element_size()
+    scales = 2 * 4 if cache_dtype == torch.int8 else 0
+    return t.num_layers * t.num_kv_heads * (2 * t.head_dim * elem + scales)
+
+
 def step_bound(t, fw, rows: int, ctx, S: int, cache_dtype):
     """Bound of one step (S = 1: K1, K4) or verify pass (K6) of ``rows`` rows,
     S per stream, stream b reading its ``ctx[b]`` cached slots: the packed
     weights, those slots, the S new slots per stream and x in and out; the
     GEMV products and each row's attention over its slots."""
     L, nk, nq, d, H = t.num_layers, t.num_kv_heads, t.num_heads, t.head_dim, t.hidden_size
-    slot = L * 2 * nk * d * torch.finfo(cache_dtype).bits // 8
+    slot = slot_bytes(t, cache_dtype)
     moved = nbytes(fw) + slot * (sum(ctx) + rows) + 2 * rows * H * 4
     macs = sum(w.numel() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd))
     attn = sum(c + s + 1 for c in ctx for s in range(S))  # slots each row attends to
@@ -2193,29 +2224,37 @@ def check_wav(path_or_bytes, label):
 def cli_phase(d, tmp, card_line):
     """The CLI on the checkpoint, in process: one-shot, --frame-fused on,
     --stream, --ref, --spec-k 4 (int8), one-shot without --quantize (bf16
-    units: one K1 and one K3 per frame), and the flags it refuses on the
+    units: one K1 and one K3 per frame), --quantize int8 --kv-quant and
+    --kv-quant alone (the int8 KV cache), and the flags it refuses on the
     card.  Returns (int8 launch counts, ms per frame of the int8 one-shot
-    run, reference WAV, bf16 launch counts, ms per frame of the bf16 run)."""
+    run, reference WAV, bf16 launch counts, ms per frame of the bf16 run,
+    int8-KV-cache launch counts)."""
     base = ["-m", d, "-p", ENTRY_TEXT, "--lang", "en", "--temp", "0", "--max-tokens",
             str(CLI_FRAMES), "--quantize", "int8", "--verbose"]
     unquantized = [a for a in base if a not in ("--quantize", "int8")]
     ref = os.path.join(tmp, "ref.wav")
-    counts, ms_frame, bf16_counts, bf16_ms = [], None, [], None
+    counts, ms_frame, bf16_counts, bf16_ms, kvq_counts = [], None, [], None, []
     for label, extra in (("one-shot", []), ("--frame-fused on", ["--frame-fused", "on"]),
                          ("--stream", ["--stream"]), ("--ref", ["--ref", ref]),
-                         ("--spec-k 4", ["--spec-k", "4"]), ("without --quantize", None)):
-        out_wav = os.path.join(tmp, f"cli-{len(counts) + len(bf16_counts)}.wav")
+                         ("--spec-k 4", ["--spec-k", "4"]), ("without --quantize", None),
+                         ("--quantize int8 --kv-quant", ["--kv-quant"]),
+                         ("--kv-quant without --quantize", ["--kv-quant", None])):
+        out_wav = os.path.join(tmp, f"cli-{len(counts) + len(bf16_counts) + len(kvq_counts)}.wav")
         reset_launches()
         t0 = time.perf_counter()
-        argv = (base + ["-o", out_wav] + extra if extra is not None
-                else unquantized + ["-o", out_wav])
+        kvq = extra is not None and "--kv-quant" in extra
+        if extra is not None and None in extra:  # unquantized, with the flags before None
+            argv = unquantized + ["-o", out_wav] + extra[:-1]
+        else:
+            argv = (base + ["-o", out_wav] + extra if extra is not None
+                    else unquantized + ["-o", out_wav])
         rc, out, err = run_cli(argv)
         wall = time.perf_counter() - t0
         m = SUMMARY.search(out)
         if rc != 0 or m is None:
             raise RuntimeError(f"CLI {label}: exit {rc}\n{out}\n{err}")
         decode_ms, n = float(m.group(1)), int(m.group(2))
-        if extra is None:  # bf16 units: the streamed chain K3 at B=1
+        if extra is None or None in extra:  # bf16 units: the streamed chain K3 at B=1
             want = counts_of(K1=n, K3=n)
         elif extra == ["--frame-fused", "on"]:
             want = (0, 0, 0, 0, 0, 0, 0, n)
@@ -2225,7 +2264,7 @@ def cli_phase(d, tmp, card_line):
             want = (seq + fallback, 1 + seq, 0, it, it)
         else:
             want = (n, n)
-        (counts if extra is not None else bf16_counts).append(
+        (kvq_counts if kvq else counts if extra is not None else bf16_counts).append(
             check_launches(f"CLI {label} ({n} frames decoded)", want))
         pcm = check_wav(out_wav, f"CLI {label}")
         log(f"CLI {label}: exit 0, {pcm.size / 24000:.2f} s of audio, {n} frames decoded, "
@@ -2239,7 +2278,6 @@ def cli_phase(d, tmp, card_line):
             bf16_ms = decode_ms / n
     for label, extra, words in (
             ("--quantize int4", [a if a != "int8" else "int4" for a in base], "int4"),
-            ("--kv-quant", base + ["--kv-quant"], "kv_quant"),
             ("without --quantize, --spec-k 4", unquantized + ["--spec-k", "4"], "K1v-b")):
         reset_launches()
         out_wav = os.path.join(tmp, "refused.wav")
@@ -2249,16 +2287,18 @@ def cli_phase(d, tmp, card_line):
             raise RuntimeError(f"CLI {label}: exit {rc}, expected 1 with the engine's error\n{err}")
         check_launches(f"CLI {label} (refused)", ())
         log(f"CLI {label}: exit 1, {errors[0]}")
-    return [sum(c) for c in zip(*counts)], ms_frame, ref, [sum(c) for c in zip(*bf16_counts)], (
-        bf16_ms)
+    return ([sum(c) for c in zip(*counts)], ms_frame, ref, [sum(c) for c in zip(*bf16_counts)],
+            bf16_ms, [sum(c) for c in zip(*kvq_counts)])
 
 
-def serve_phase(d, card_line, quantize="int8"):
+def serve_phase(d, card_line, quantize="int8", extra=()):
     """``python -m leaxer_qwen3_tts_torch.serve`` as a subprocess (with
-    ``--quantize quantize``, or none: bf16 units): its warmup, two requests
-    (one streamed), exit 0 on SIGINT.  Returns its warmup s."""
+    ``--quantize quantize``, or none: bf16 units; then the ``extra`` flags):
+    its warmup, two requests (one streamed), exit 0 on SIGINT.  Returns its
+    warmup s."""
     cmd = [sys.executable, "-m", "leaxer_qwen3_tts_torch.serve", "-m", d,
-           *(["--quantize", quantize] if quantize else []), "--max-tokens", "128", "--port", "0"]
+           *(["--quantize", quantize] if quantize else []), *extra, "--max-tokens", "128",
+           "--port", "0"]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -2316,8 +2356,8 @@ def serve_phase(d, card_line, quantize="int8"):
             proc.wait()
     reader.join(timeout=10)
     log(f"server subprocess ({'--quantize ' + quantize if quantize else 'no --quantize: bf16 units'}"
-        f"): serving {started_s:.1f} s after start (checkpoint load, engine "
-        f"build, warmup {warm_s} s), exit 0 on SIGINT [{card_line}]")
+        f"{''.join(' ' + f for f in extra)}): serving {started_s:.1f} s after start (checkpoint "
+        f"load, engine build, warmup {warm_s} s), exit 0 on SIGINT [{card_line}]")
     return warm_s
 
 
@@ -2392,8 +2432,8 @@ def entry_phase(tok, card_line):
         del mem
         torch.cuda.empty_cache()
 
-        counts, numbers["cli_ms_frame"], ref, numbers["bf16_counts"], numbers[
-            "cli_bf16_ms_frame"] = cli_phase(d, tmp, card_line)
+        (counts, numbers["cli_ms_frame"], ref, numbers["bf16_counts"],
+         numbers["cli_bf16_ms_frame"], numbers["kvq_counts"]) = cli_phase(d, tmp, card_line)
 
         e_card = eng.extract_speaker_embedding(ref)
         t0 = time.perf_counter()
@@ -2410,6 +2450,7 @@ def entry_phase(tok, card_line):
 
         numbers["warmup_s"] = serve_phase(d, card_line)
         numbers["warmup_bf16_s"] = serve_phase(d, card_line, quantize=None)
+        numbers["warmup_kvq_s"] = serve_phase(d, card_line, quantize=None, extra=("--kv-quant",))
         counts = [sum(c) for c in zip(counts, profile_phase(eng, tmp, card_line))]
     del eng
     torch.cuda.empty_cache()
@@ -2561,12 +2602,15 @@ def frame_packs(cfg, gen):
 
 
 def k7_caches(tt, T, pos, cache_dtype, gen):
+    """The talker caches [k, v] (and, int8, their scales) of one frame."""
+    if cache_dtype == torch.int8:
+        return q8_cache(tt, 1, T, [pos], gen)
     L, nk, d = tt.num_layers, tt.num_kv_heads, tt.head_dim
     kc = (torch.randn((L, 1, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
     vc = (torch.randn((L, 1, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
     kc[:, :, :, pos:] = 0
     vc[:, :, :, pos:] = 0
-    return kc, vc
+    return [kc, vc]
 
 
 def k7_inputs(packs, pos, i, gen):
@@ -2587,14 +2631,18 @@ def k7_inputs(packs, pos, i, gen):
         forbid_eos=i % 2 == 0)
 
 
-def k7_call(fn, packs, inp, knobs, kc, vc):
-    """K7 (or its plain version) on one input; the noise only when sampled."""
+def k7_call(fn, packs, inp, knobs, *caches):
+    """K7 (or its plain version) on one input and the talker caches k, v (and
+    an int8 cache's k and v scales); the noise only when sampled.  Returns
+    code0, the sub-codes, logits and hidden."""
     temp, top_k, top_p = knobs
     sampled = temp > 0
+    kc, vc, *scales = caches
     return fn(*packs, inp["last_logits"], inp["last_hidden"], inp["suppress"], inp["drip"],
               inp["pos"], kc, vc, inp["g0"] if sampled else None,
               inp["gumbel"] if sampled else None, temp, top_k, top_p, inp["forbid_eos"],
-              mtp_cache_dtype=kc.dtype)
+              mtp_cache_dtype=K7.chain_cache_dtype(kc.dtype),
+              **dict(zip(("k_scale", "v_scale"), scales)))[:4]
 
 
 def k7_multi(*a, **kw):
@@ -2607,19 +2655,20 @@ def k7_multi(*a, **kw):
 k7_multi.launches = 0  # not a kernel of the path: compare-only launches
 
 
-def k7_composition(packs, inp, knobs, code0, kc, vc):
-    """The frame from checked kernels on K7's code0: K2 on its codec row, the
-    float32 next input c0e + sub_sum + drip, K1 (kc, vc updated in place),
-    then K1's GEMV body on the final norm (qtts_norm_head).  Returns c0e,
-    sub-codes, sub_sum, x, hidden and logits."""
+def k7_composition(packs, inp, knobs, code0, caches):
+    """The frame from checked kernels on K7's code0: K2 on its codec row (at
+    the chain's cache dtype), the float32 next input c0e + sub_sum + drip,
+    K1 (``caches`` updated in place), then K1's GEMV body on the final norm
+    (qtts_norm_head).  Returns c0e, sub-codes, sub_sum, x, hidden and
+    logits."""
     tt, mt, tfw, tfnorm, lm, codec, mfw, mfnorm, heads, tables = packs
     temp, top_k, top_p = knobs
     c0e = codec[code0.long()].float()
     subs, ssum = K2.fused_mtp_chain(mt, mfw, mfnorm, heads, tables, inp["last_hidden"], c0e,
                                     inp["gumbel"] if temp > 0 else None, temp, top_k, top_p,
-                                    cache_dtype=kc.dtype)
+                                    cache_dtype=K7.chain_cache_dtype(caches[0].dtype))
     x = c0e + ssum + inp["drip"].float()
-    x, _, _ = K1.fused_decode_step(tt, tfw, x, inp["pos"], kc, vc)
+    x = K1.fused_decode_step(tt, tfw, x, inp["pos"], *caches)[0]
     H, Vc = tt.hidden_size, lm.q.shape[0]
     hidden = torch.empty((1, H), dtype=torch.float32, device=DEV)
     logits = torch.empty((1, Vc), dtype=torch.float32, device=DEV)
@@ -2638,17 +2687,18 @@ def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
     near tie passes by K5's flip rule, counted); code0, the sub-codes, c0e,
     sub_sum, x, the talker caches, hidden and logits equal the launch-per-op
     frame's bit for bit, and all but code0 the composition's on K7's code0.
-    Returns the number of frames compared."""
+    An int8 cache (``cache_dtype`` int8: its scales too) has no launch-per-op
+    frame: the composition alone.  Returns the number of frames compared."""
     tt = packs[0]
-    kc0, vc0 = k7_caches(tt, T, pos, cache_dtype, gen)
+    base = k7_caches(tt, T, pos, cache_dtype, gen)
+    multi = cache_dtype != torch.int8
     equal = flips = eos = frames = 0
-    names = ("c0e", "subcodes", "sub_sum", "x", "k_cache", "v_cache", "hidden", "logits")
+    names = ("c0e", "subcodes", "sub_sum", "x", "caches", "hidden", "logits")
     for knobs in K7_KNOBS:
         for i in range(inputs):
             inp = k7_inputs(packs, pos, i, gen)
-            kk, vk = kc0.clone(), vc0.clone()
-            code0, subs, logits, hidden, _, _ = k7_call(K7.fused_frame_step, packs, inp, knobs,
-                                                         kk, vk)
+            ck = clone_all(base)
+            code0, subs, logits, hidden = k7_call(K7.fused_frame_step, packs, inp, knobs, *ck)
             work = {k: v.clone() for k, v in K7.frame_work(*packs, T, cache_dtype).items()}
             logits0 = K7._eos_gate(inp["last_logits"], inp["suppress"], inp["forbid_eos"])
             g0 = inp["g0"] if knobs[0] > 0 else None
@@ -2660,20 +2710,21 @@ def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
                                        f"is not the plain sampler's pick {pick}")
                 flips += 1
             eos += c0 == CODEC_EOS
-            km, vm = kc0.clone(), vc0.clone()
-            m_code0, m_subs, m_logits, m_hidden, _, _ = k7_call(k7_multi, packs, inp, knobs, km, vm)
-            m_work = K7.frame_work(*packs, T, cache_dtype, entry="qtts_frame_step_multi")
-            kc, vc = kc0.clone(), vc0.clone()
-            c0e, s2, sum2, x, h, lg = k7_composition(packs, inp, knobs, code0, kc, vc)
+            same_m = [True]
+            if multi:
+                cm = clone_all(base)
+                m_code0, m_subs, m_logits, m_hidden = k7_call(k7_multi, packs, inp, knobs, *cm)
+                m_work = K7.frame_work(*packs, T, cache_dtype, entry="qtts_frame_step_multi")
+                same_m = [torch.equal(m_work["c0e"], work["c0e"]), torch.equal(m_subs, subs),
+                          torch.equal(m_work["sub_sum"], work["sub_sum"]),
+                          torch.equal(m_work["x"], work["x"]), equal_all(cm, ck),
+                          torch.equal(m_hidden, hidden), torch.equal(m_logits, logits),
+                          torch.equal(m_code0, code0)]
+            cc = clone_all(base)
+            c0e, s2, sum2, x, h, lg = k7_composition(packs, inp, knobs, code0, cc)
             same = [torch.equal(c0e, work["c0e"][None]), torch.equal(s2, subs),
                     torch.equal(sum2, work["sub_sum"][None]), torch.equal(x, work["x"][None]),
-                    torch.equal(kc, kk), torch.equal(vc, vk), torch.equal(h, hidden),
-                    torch.equal(lg, logits)]
-            same_m = [torch.equal(m_work["c0e"], work["c0e"]), torch.equal(m_subs, subs),
-                      torch.equal(m_work["sub_sum"], work["sub_sum"]),
-                      torch.equal(m_work["x"], work["x"]), torch.equal(km, kk),
-                      torch.equal(vm, vk), torch.equal(m_hidden, hidden),
-                      torch.equal(m_logits, logits), torch.equal(m_code0, code0)]
+                    equal_all(cc, ck), torch.equal(h, hidden), torch.equal(lg, logits)]
             equal += all(same) and all(same_m)
             frames += 1
             if not (all(same) and all(same_m)):
@@ -2681,7 +2732,8 @@ def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
                     f"{[nm for nm, ok in zip(names, same) if not ok]}, from the launch-per-op "
                     f"frame in {[nm for nm, ok in zip(names + ('code0',), same_m) if not ok]}")
     ok = equal == frames
-    log(f"K7 vs the launch-per-op frame and K2 -> float32 x -> K1 -> norm+lm_head: T={T} pos={pos} "
+    log(f"K7 vs {'the launch-per-op frame and ' if multi else ''}K2 -> float32 x -> K1 -> "
+        f"norm+lm_head: T={T} pos={pos} "
         f"cache={str(cache_dtype)[6:]} knobs {K7_KNOBS}: {equal}/{frames} frames equal bit for bit "
         f"(code0, c0e, sub-codes, sub_sum, x, caches, hidden, logits); code0 = plain pick on "
         f"{frames - flips}/{frames} (near-tie flips {flips}), EOS drawn {eos} -> "
@@ -2692,18 +2744,19 @@ def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
     return frames
 
 
-def check_k7_plain(packs, T, pos, knobs, gen, iters=0):
+def check_k7_plain(packs, T, pos, knobs, gen, iters=0, cache_dtype=torch.bfloat16):
     """K7 against its plain version on one seeded input: code0 and the
     sub-codes equal, or the first mismatch within K5's flip rule (then
     nothing after it is compared); else hidden and logits within K1's deep
-    relative limit, the written slot within its absolute limit and every
-    other slot untouched.  With ``iters``, both timed beside the
-    composition.  Returns (hidden max_abs_err, ms, plain ms, composition ms)."""
+    relative limit, the written slot (dequantized, on an int8 cache) within
+    its absolute limit and every other slot (and scale) untouched.  With
+    ``iters``, both timed beside the composition.  Returns (hidden
+    max_abs_err, ms, plain ms, composition ms)."""
     tt = packs[0]
-    kc0, vc0 = k7_caches(tt, T, pos, torch.bfloat16, gen)
+    base = k7_caches(tt, T, pos, cache_dtype, gen)
     inp = k7_inputs(packs, pos, 1, gen)
-    kk, vk, kp, vp = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
-    got = k7_call(K7.fused_frame_step, packs, inp, knobs, kk, vk)
+    ck, cp = clone_all(base), clone_all(base)
+    got = k7_call(K7.fused_frame_step, packs, inp, knobs, *ck)
     seen = []
     real = K2.gumbel_topk_topp_sample
 
@@ -2713,7 +2766,7 @@ def check_k7_plain(packs, T, pos, knobs, gen, iters=0):
 
     K2.gumbel_topk_topp_sample = K7.gumbel_topk_topp_sample = record
     try:
-        want = k7_call(K7.fused_frame_step_reference, packs, inp, knobs, kp, vp)
+        want = k7_call(K7.fused_frame_step_reference, packs, inp, knobs, *cp)
     finally:
         K2.gumbel_topk_topp_sample = K7.gumbel_topk_topp_sample = real
     torch.cuda.synchronize()
@@ -2732,13 +2785,11 @@ def check_k7_plain(packs, T, pos, knobs, gen, iters=0):
         err = float((got[3] - want[3]).abs().max())
         rel = err / float(want[3].abs().max())
         lrel = float((got[2] - want[2]).abs().max()) / float(want[2].abs().max())
-        slot_k = torch.stack((kk[:, :, :, pos], vk[:, :, :, pos])).float()
-        slot_p = torch.stack((kp[:, :, :, pos], vp[:, :, :, pos])).float()
-        slot_err = float((slot_k - slot_p).abs().max())
-        others = torch.ones(T, dtype=torch.bool, device=DEV)
-        others[pos] = False
-        untouched = bool(torch.equal(kk[:, :, :, others], kc0[:, :, :, others])) and bool(
-            torch.equal(vk[:, :, :, others], vc0[:, :, :, others]))
+        rows, slots = torch.tensor([0], device=DEV), torch.tensor([pos], device=DEV)
+        slot_err = float((cache_slots(ck, rows, slots) - cache_slots(cp, rows, slots)).abs().max())
+        written = torch.zeros((1, T), dtype=torch.bool, device=DEV)
+        written[0, pos] = True
+        untouched = untouched_slots(ck, base, written)
         ok = (rel < K1_DEEP_X_REL and lrel < K1_DEEP_X_REL and slot_err < K1_DEEP_SLOT_ABS
               and untouched and bool(torch.isfinite(got[2]).all()))
         detail = (f"codes equal; hidden max_abs_err={err:.3e} rel={rel:.3e} logits rel={lrel:.3e} "
@@ -2746,12 +2797,13 @@ def check_k7_plain(packs, T, pos, knobs, gen, iters=0):
                   f"{K1_DEEP_SLOT_ABS}) untouched_slots_equal={untouched}")
     ms = plain_ms = comp_ms = float("nan")
     if iters:
-        ms = time_ms(lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, kk, vk), iters)
+        ms = time_ms(lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, *ck), iters)
         code0 = got[0]
-        comp_ms = time_ms(lambda: k7_composition(packs, inp, knobs, code0, kp, vp), iters)
-        plain_ms = time_ms(lambda: k7_call(K7.fused_frame_step_reference, packs, inp, knobs, kp,
-                                           vp), 2, 1)
-    log(f"K7 vs plain: T={T} pos={pos} knobs {knobs}: {detail}; kernel {ms:.4f} ms/frame, "
+        comp_ms = time_ms(lambda: k7_composition(packs, inp, knobs, code0, cp), iters)
+        plain_ms = time_ms(
+            lambda: k7_call(K7.fused_frame_step_reference, packs, inp, knobs, *cp), 2, 1)
+    log(f"K7 vs plain: T={T} pos={pos} cache={str(cache_dtype)[6:]} knobs {knobs}: {detail}; "
+        f"kernel {ms:.4f} ms/frame, "
         f"K2 + K1 + norm_head {comp_ms:.4f} ms, plain {plain_ms:.4f} ms -> "
         f"{'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
@@ -2769,7 +2821,7 @@ def frame_bound(packs, pos, cache_dtype, trunk_reads=1):
     n, V, H = heads.q.shape
     Vc = lm.q.shape[0]
     L, nk, nq, d = tt.num_layers, tt.num_kv_heads, tt.num_heads, tt.head_dim
-    slot = L * 2 * nk * d * torch.finfo(cache_dtype).bits // 8
+    slot = slot_bytes(tt, cache_dtype)
     moved = (nbytes(tfw) + trunk_reads * nbytes(mfw) + nbytes(heads) + nbytes(lm)
              + slot * (pos + 2) + (n + 1) * H * 2 + 4 * Vc * 4 + n * V * 4 + 4 * H * 4)
     macs = [sum(w.numel() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd)) for fw in (tfw, mfw)]
@@ -2803,16 +2855,16 @@ def frame_checks(cfg, gen):
     for T, pos in K7_CASES[1:]:
         frames += check_k7_composition(packs, T, pos, torch.float32, gen7, inputs=2)
     inp = k7_inputs(packs, 255, 1, gen7)
-    kc, vc = k7_caches(tt, 256, 255, torch.bfloat16, gen7)
+    caches = k7_caches(tt, 256, 255, torch.bfloat16, gen7)
     knobs = K7_KNOBS[1]
     in_turns(f"K7 0.6B frame T=256 pos 255 sampled {knobs}",
-             lambda: k7_call(k7_multi, packs, inp, knobs, kc, vc),
-             lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, kc, vc), 10)
+             lambda: k7_call(k7_multi, packs, inp, knobs, *caches),
+             lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, *caches), 10)
     trace_phases(f"K7 0.6B frame T=256 pos 255 sampled {knobs}",
                  K7.frame_plan(*packs, 256, torch.bfloat16),
                  frame_phase_names(tt.num_layers, mt.num_layers, n),
-                 lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, kc, vc))
-    del kc, vc
+                 lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, *caches))
+    del caches
     frames += one_slot_ring(lambda: check_k7_composition(packs, 256, 255, torch.bfloat16, gen7,
                                                          inputs=2))
     timed, checks = None, []
@@ -3385,6 +3437,536 @@ def bf16_phase(tok, gen, card_line):
     return [sum(c) for c in zip(*counts)], (k1, k4, k3, k5), bounds
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the int8 KV cache (kv_quant=True)
+# ---------------------------------------------------------------------------
+
+# K1 on an int8 cache: (T, pos, timing iterations) at full depth, and the
+# one-layer cases: the first slot, both sides of a split edge, the last slot
+# of each bucket
+KVQ_K1_DEEP_CASES = ((256, 200, 20), (2560, 2559, 5))
+KVQ_K1_SHALLOW_CASES = ((256, 0), (256, 63), (256, 64), (256, 255), (2560, 1800), (2560, 2559))
+# K6 on an int8 cache: (B, S, T, starts, timing iterations), K6_DEEP_CASES' shapes
+KVQ_K6_CASES = ((1, 4, 256, [200], 20), (8, 3, 512, [0, 62, 63, 64, 509, 700, 130, 5], 5),
+                (4, 8, 512, [60, 5, 504, 200], 3))
+KVQ_K7_CASES = ((256, 255), (2560, 2559))
+KVQ_POOL_TEXTS = ["hello world", "hello world, hello world", "a quick test of the pool",
+                  "hello", "world", "hello hello", "the pool's seventh", "and its eighth"]
+
+
+def q8_cache(t, B, T, filled, gen):
+    """[k, v, k scale, v scale]: a seeded int8 cache [L, B, nk, T, d] on
+    ``quantize_kv``'s grid with its float32 scales [L, B, nk, T], row b
+    holding values before ``filled[b]`` and zeros from there."""
+    L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
+    out = []
+    for _ in range(2):
+        x = torch.randn((L, B, nk, T, d), generator=gen, device=DEV) * 0.5
+        for b, p in enumerate(filled):
+            x[:, b, :, min(p, T):] = 0
+        out.append(quantize_kv(x))
+        del x
+    (kq, ks), (vq, vs) = out
+    return [kq, vq, ks, vs]
+
+
+def clone_all(c):
+    return [x.clone() for x in c]
+
+
+def equal_all(a, b) -> bool:
+    return len(a) == len(b) and all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def cache_slots(c, rows, slots):
+    """The k and v of caches ``c`` at (rows, slots) as float32 [2, n, L, nk,
+    d], dequantized on an int8 cache."""
+    out = [c[i][:, rows, :, slots].float() for i in (0, 1)]
+    if len(c) == 4:
+        out = [o * c[2 + i][:, rows, :, slots][..., None] for i, o in enumerate(out)]
+    return torch.stack(out)
+
+
+def untouched_slots(after, before, written) -> bool:
+    """Every slot (and scale) outside ``written`` [B, T] kept its bits."""
+    keep = ~written[None, :, None, :]
+    return all(bool(torch.equal(a.masked_select(keep if a.dim() == 4 else keep[..., None]),
+                                b.masked_select(keep if b.dim() == 4 else keep[..., None])))
+               for a, b in zip(after, before))
+
+
+@dataclasses.dataclass
+class Q8Run:
+    """One seeded input through a kernel and its plain version on an int8
+    cache (``rows``: the launch's rows, each with its written slot)."""
+
+    err: float  # max |x_kernel - x_plain|
+    rel: torch.Tensor  # [rows] max |dx| / max |x_plain|
+    slot_err: float  # max |dequantized written slot, kernel - plain|
+    slot_excess: float  # the same past one grid step (the larger of the two scales)
+    q_equal: torch.Tensor  # [rows] the written int8 values equal
+    scale_ulps: torch.Tensor  # [rows] the written scales' largest distance in ulps
+    untouched: bool  # every other slot and scale as it was
+    anchored: bool = True  # equal to the K1 / K4 steps it stands for, bit for bit
+
+
+def q8_compare(xk, xp, ck, cp, base, rows, slots) -> Q8Run:
+    B, T = base[0].shape[1], base[0].shape[3]
+    written = torch.zeros((B, T), dtype=torch.bool, device=DEV)
+    written[rows, slots] = True
+    dx = (xk - xp).abs().amax(dim=-1)
+    diff = (cache_slots(ck, rows, slots) - cache_slots(cp, rows, slots)).abs()
+    step = torch.maximum(ck[2][:, rows, :, slots], cp[2][:, rows, :, slots])
+    step = torch.stack((step, torch.maximum(ck[3][:, rows, :, slots], cp[3][:, rows, :, slots])))
+    q_equal = torch.ones(len(rows), dtype=torch.bool, device=DEV)
+    ulps = torch.zeros(len(rows), device=DEV)
+    for i in (0, 1):
+        q_equal &= (ck[i][:, rows, :, slots] == cp[i][:, rows, :, slots]).flatten(1).all(1)
+        a, b = ck[2 + i][:, rows, :, slots], cp[2 + i][:, rows, :, slots]
+        ulp = torch.nextafter(b, torch.full_like(b, float("inf"))) - b
+        ulps = torch.maximum(ulps, ((a - b).abs() / ulp).flatten(1).amax(1))
+    torch.cuda.synchronize()
+    return Q8Run(float(dx.max()), (dx / xp.abs().amax(dim=-1)).cpu(), float(diff.max()),
+                 float((diff - step[..., None]).clamp(min=0).max()), q_equal.cpu(), ulps.cpu(),
+                 untouched_slots(ck, base, written))
+
+
+def kvq_k1_run(t, fw, T, pos, gen):
+    x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+    base = q8_cache(t, 1, T, [pos], gen)
+    ck, cp = clone_all(base), clone_all(base)
+    xk = K1.fused_decode_step(t, fw, x, pos, *ck)[0]
+    xp = K1.fused_decode_step_reference(t, fw, x, pos, *cp)[0]
+    idx = torch.tensor([0], device=DEV), torch.tensor([pos], device=DEV)
+    return q8_compare(xk, xp, ck, cp, base, *idx), x, base
+
+
+def kvq_k4_run(t, fw, B, T, gen):
+    """K4 on one seeded batch (K4_POSITIONS' rows) against its plain version,
+    and every row against K1 on it, bit for bit (x, values and scales)."""
+    pos = [K4_POSITIONS[b % len(K4_POSITIONS)] for b in range(B)]
+    x = torch.randn((B, t.hidden_size), generator=gen, device=DEV) * 0.3
+    base = q8_cache(t, B, T, [min(p, T - 1) for p in pos], gen)
+    pos_dev = torch.tensor(pos, device=DEV)
+    ck, cp = clone_all(base), clone_all(base)
+    xk = K1.fused_decode_step_batched(t, fw, x, pos_dev, *ck)[0]
+    xp = K1.fused_decode_step_batched_reference(t, fw, x, pos_dev, *cp)[0]
+    r = q8_compare(xk, xp, ck, cp, base, torch.arange(B, device=DEV),
+                   torch.clamp(pos_dev, max=T - 1))
+    del cp
+    for b, p in enumerate(pos):
+        c1 = [c[:, b : b + 1].clone() for c in base]
+        x1 = K1.fused_decode_step(t, fw, x[b : b + 1], p, *c1)[0]
+        r.anchored &= bool(torch.equal(x1[0], xk[b])) and equal_all(
+            [c[:, 0] for c in c1], [c[:, b] for c in ck])
+    return r, (x, pos_dev, base)
+
+
+def kvq_k6_run(t, fw, B, S, T, starts, gen, stall_ns=0):
+    """K6 on one seeded batch against its plain version, and against the S
+    successive K1 (B=1) or K4 steps it stands for, bit for bit; with
+    ``stall_ns`` every slot write of K6 first waits that long (see
+    check_k6_equal)."""
+    x = torch.randn((B, S, t.hidden_size), generator=gen, device=DEV) * 0.3
+    base = q8_cache(t, B, T, [min(p, T - S) for p in starts], gen)
+    pos_dev = torch.tensor(starts, device=DEV)
+    ck, cp = clone_all(base), clone_all(base)
+    plan = None
+    if stall_ns:
+        plan = K6._verify_entry(t, fw, B, S, T, torch.int8,
+                                torch.device("cuda", torch.cuda.current_device())).plan
+        plan.struct.write_stall_ns = stall_ns
+    try:
+        xk = K6.fused_verify_step(t, fw, x, pos_dev, *ck)[0]
+    finally:
+        if plan is not None:
+            plan.struct.write_stall_ns = 0
+    xp = K6.fused_verify_step_reference(t, fw, x, pos_dev, *cp)[0]
+    first = torch.clamp(pos_dev, 0, T - S)
+    slots = (first[:, None] + torch.arange(S, device=DEV)).flatten()
+    rows = torch.arange(B, device=DEV).repeat_interleave(S)
+    H = t.hidden_size
+    r = q8_compare(xk.reshape(B * S, H), xp.reshape(B * S, H), ck, cp, base, rows, slots)
+    del cp
+    c1 = clone_all(base)
+    for s in range(S):
+        if B == 1:
+            x1 = K1.fused_decode_step(t, fw, x[:, s], int(first[0]) + s, *c1)[0]
+        else:
+            x1 = K1.fused_decode_step_batched(t, fw, x[:, s], first + s, *c1)[0]
+        r.anchored &= bool(torch.equal(x1, xk[:, s]))
+    r.anchored &= equal_all(c1, ck)
+    return r, (x, pos_dev, base)
+
+
+def check_q8(label, runs, deep):
+    """The limits of K1's checks on int8-cache runs: deep, x within
+    K1_DEEP_X_REL and each written slot (dequantized) within
+    K1_DEEP_SLOT_ABS past one grid step; shallow, the one-layer limits and
+    K1_TIGHT_MIN of every K1_TIGHT_INPUTS rows tight (x within K1_TIGHT_REL
+    and the written int8 values equal); every other slot and scale
+    untouched and every anchor bit for bit.  The written scales are amax /
+    127 of values the kernel and the plain version sum in other orders, so
+    they agree to a few ulps (printed), not bit for bit; on exact ties
+    (check_kvq_ties) they agree bit for bit."""
+    rel = max(float(r.rel.max()) for r in runs)
+    excess = max(r.slot_excess for r in runs)
+    slot_err = max(r.slot_err for r in runs)
+    untouched = all(r.untouched for r in runs)
+    anchored = all(r.anchored for r in runs)
+    rels = torch.cat([r.rel for r in runs])
+    q_equal = torch.cat([r.q_equal for r in runs])
+    tight = int(((rels <= K1_TIGHT_REL) & q_equal).sum())
+    rows = len(rels)
+    x_tol, slot_tol = ((K1_DEEP_X_REL, K1_DEEP_SLOT_ABS) if deep
+                       else (K1_SHALLOW_X_REL, K1_SHALLOW_SLOT_ABS))
+    need = 0 if deep else K1_TIGHT_MIN * rows // K1_TIGHT_INPUTS
+    ok = rel < x_tol and excess < slot_tol and untouched and anchored and tight >= need
+    quart = [f"{float(v):.1e}" for v in torch.quantile(rels.double(), torch.tensor(
+        [0.25, 0.5, 0.75], dtype=torch.float64))]
+    log(f"{label}: {len(runs)} input(s), x max row rel {rel:.3e} (tol {x_tol}; quartiles "
+        f"{quart}) slot max_abs_err {slot_err:.3e}, past one grid step {excess:.3e} (tol "
+        f"{slot_tol}) int8 slots equal {int(q_equal.sum())}/{rows}, scales within "
+        f"{float(torch.cat([r.scale_ulps for r in runs]).max()):.0f} ulps; tight rows (x rel <= "
+        f"{K1_TIGHT_REL}, int8 slot equal) {tight}/{rows} (need {need}) "
+        f"untouched_slots_and_scales_equal={untouched} anchors_bit_for_bit={anchored} -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"{label}: the int8-cache kernel disagrees with its plain version or "
+                           "its anchors")
+    return max(r.err for r in runs)
+
+
+def check_kvq_k1(name, t, fw, T, pos, gen, inputs, iters):
+    runs = [kvq_k1_run(t, fw, T, pos, gen) for _ in range(inputs)]
+    err = check_q8(f"K1 kvq {name}: L={t.num_layers} T={T} pos={pos}", [r for r, _, _ in runs],
+                   deep=inputs == 1)
+    ms = plain_ms = float("nan")
+    if iters:
+        _, x, base = runs[0]
+        ck, cp = clone_all(base), clone_all(base)
+        ms = time_ms(lambda: K1.fused_decode_step(t, fw, x, pos, *ck), iters)
+        plain_ms = time_ms(lambda: K1.fused_decode_step_reference(t, fw, x, pos, *cp), 3, 1)
+        log(f"K1 kvq {name} T={T} pos={pos}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{CARD}]")
+    return err, ms, plain_ms
+
+
+def check_kvq_k4(name, t, fw, B, T, gen, iters):
+    r, (x, pos_dev, base) = kvq_k4_run(t, fw, B, T, gen)
+    err = check_q8(f"K4 kvq {name}: L={t.num_layers} B={B} T={T} (rows against K1 kvq)", [r],
+                   deep=True)
+    ms = plain_ms = float("nan")
+    if iters:
+        ck, cp = clone_all(base), clone_all(base)
+        ms = time_ms(lambda: K1.fused_decode_step_batched(t, fw, x, pos_dev, *ck), iters)
+        plain_ms = time_ms(lambda: K1.fused_decode_step_batched_reference(t, fw, x, pos_dev, *cp),
+                           1, 1)
+        log(f"K4 kvq {name} B={B} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{CARD}]")
+    return err, ms, plain_ms
+
+
+def check_kvq_k6(name, t, fw, B, S, T, starts, gen, iters, stall_ns=0):
+    r, (x, pos_dev, base) = kvq_k6_run(t, fw, B, S, T, starts, gen, stall_ns)
+    stalled = f", writes stalled {stall_ns} ns" if stall_ns else ""
+    err = check_q8(f"K6 kvq {name}: L={t.num_layers} B={B} S={S} T={T} starts={starts} (rows "
+                   f"against the {'K1' if B == 1 else 'K4'} kvq steps{stalled})", [r], deep=True)
+    ms = plain_ms = float("nan")
+    if iters:
+        ck, cp = clone_all(base), clone_all(base)
+        ms = time_ms(lambda: K6.fused_verify_step(t, fw, x, pos_dev, *ck), iters)
+        plain_ms = time_ms(lambda: K6.fused_verify_step_reference(t, fw, x, pos_dev, *cp), 1, 1)
+        log(f"K6 kvq {name} B={B} S={S} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"[{CARD}]")
+    return err, ms, plain_ms
+
+
+def check_kvq_units(name, t, i8, b16, gen):
+    """K1 (T=256 and 2560) and K4 (B=8 and 32, T=512) on the bf16 twin of an
+    int8 pack with unit scales against the int8 pack, on an int8 cache: x,
+    values and scales equal bit for bit.  Returns the steps compared."""
+    equal = total = 0
+    for T, pos in ((256, 63), (2560, 2559)):
+        x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+        base = q8_cache(t, 1, T, [pos], gen)
+        c8, cb = clone_all(base), clone_all(base)
+        same = bool(torch.equal(K1.fused_decode_step(t, i8, x, pos, *c8)[0],
+                                K1.fused_decode_step(t, b16, x, pos, *cb)[0]))
+        equal += same and equal_all(c8, cb)
+        total += 1
+    for B in (8, 32):
+        pos = torch.tensor([K4_POSITIONS[b % len(K4_POSITIONS)] for b in range(B)], device=DEV)
+        x = torch.randn((B, t.hidden_size), generator=gen, device=DEV) * 0.3
+        base = q8_cache(t, B, 512, torch.clamp(pos, max=511).tolist(), gen)
+        c8, cb = clone_all(base), clone_all(base)
+        same = bool(torch.equal(K1.fused_decode_step_batched(t, i8, x, pos, *c8)[0],
+                                K1.fused_decode_step_batched(t, b16, x, pos, *cb)[0]))
+        equal += same and equal_all(c8, cb)
+        total += 1
+        del base, c8, cb
+    ok = equal == total
+    log(f"K1 / K4 bf16 units vs int8 units on an int8 KV cache, {name}: K1 (T, pos) ((256, 63), "
+        f"(2560, 2559)), K4 B 8 and 32 at T=512: {equal}/{total} steps equal bit for bit (x, "
+        f"values, scales) -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"bf16 units differ from int8 units on an int8 KV cache ({name})")
+    return total
+
+
+def check_kvq_ties(t, gen):
+    """The quantization's rounding on exact ties, through the kernels: a
+    one-layer pack whose v rows read only the first input column (an int8
+    one) at per-row scales (127, k + 1/2, ...) / 8, and x = ones, so that
+    bf16(RMSNorm(x)) = 1 and each head's v is that row of scales: amax / 127
+    = 1/8 and v / scale = k + 1/2 exactly.  K1, K4 (2 rows) and K6 (2
+    candidates, the slot-write phase) write the plain version's int8 v
+    values (half to even) and v scales bit for bit."""
+    fw = packed_trunk(t, gen)
+    v0, d = t.q_dim + t.kv_dim, t.head_dim
+    w, sc = fw.wqkv.clone(), fw.sqkv.clone()
+    w[:, v0:] = 0
+    w[:, v0:, 0] = 1
+    row = torch.tensor([127.0] + [(j * 37) % 61 - 30 + 0.5 for j in range(1, d)], device=DEV)
+    sc[:, v0:] = (row / 8).repeat(t.num_kv_heads)
+    fw = fw._replace(wqkv=w, sqkv=sc)
+    H, T = t.hidden_size, 256
+    results = []
+    for what, B, S, pos in (("K1", 1, 0, 77), ("K4", 2, 0, [5, 130]), ("K6", 1, 2, [63])):
+        base = q8_cache(t, B, T, pos if isinstance(pos, list) else [pos], gen)
+        ck, cp = clone_all(base), clone_all(base)
+        if what == "K1":
+            x = torch.ones((1, H), device=DEV)
+            K1.fused_decode_step(t, fw, x, pos, *ck)
+            K1.fused_decode_step_reference(t, fw, x, pos, *cp)
+        elif what == "K4":
+            x, p = torch.ones((B, H), device=DEV), torch.tensor(pos, device=DEV)
+            K1.fused_decode_step_batched(t, fw, x, p, *ck)
+            K1.fused_decode_step_batched_reference(t, fw, x, p, *cp)
+        else:
+            x, p = torch.ones((B, S, H), device=DEV), torch.tensor(pos, device=DEV)
+            K6.fused_verify_step(t, fw, x, p, *ck)
+            K6.fused_verify_step_reference(t, fw, x, p, *cp)
+        torch.cuda.synchronize()
+        # the plain version's slot (row 0's first write) holds the ties' even neighbours
+        slot = pos[0] if isinstance(pos, list) else pos
+        v8, vs = cp[1][0, 0, :, slot], cp[3][0, 0, :, slot]
+        if not (torch.equal(v8, torch.round(row).to(torch.int8).expand_as(v8))
+                and bool((vs == 0.125).all())):
+            raise RuntimeError(f"{what}: the tie input did not make ties (plain slot {v8[0, :4]})")
+        # v's int8 values and scales (k's pass through a random product)
+        results.append((what, torch.equal(ck[1], cp[1]) and torch.equal(ck[3], cp[3])))
+        del base, ck, cp
+    ok = all(e for _, e in results)
+    log(f"int8 KV quantization on exact ties (v / scale = k + 1/2): "
+        + ", ".join(f"{w} writes the plain version's int8 v and v scales bit for bit {e}"
+                    for w, e in results) + f" -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError("the int8 KV quantization rounds a tie otherwise than half to even")
+
+
+def kvq_one_slot(t, fw, i8, b16, packs, gen):
+    """The bit-for-bit anchors of the int8-cache kernels with every
+    persistent plan on one ring slot: K4 rows against K1, K6 against its
+    K4 steps, the bf16-unit twins, and K7 against its composition."""
+    r4, _ = kvq_k4_run(t, fw, 8, 512, gen)
+    r6, _ = kvq_k6_run(t, fw, 4, 8, 512, [60, 5, 504, 200], gen)
+    ok = r4.anchored and r6.anchored and r4.untouched and r6.untouched
+    log(f"int8 KV cache, one ring slot: K4 B=8 rows equal K1 {r4.anchored}, K6 4 x 8 equal its K4 "
+        f"steps {r6.anchored} [{CARD}]")
+    if not ok:
+        raise RuntimeError("int8 KV cache, one ring slot: an anchor differs")
+    check_kvq_units("0.6B talker, one ring slot", t, i8, b16, gen)
+    check_k7_composition(packs, 256, 255, torch.int8, gen, inputs=1)
+
+
+def kvq_engine_runs(tok, card_line):
+    """The 0.6B engines with kv_quant=True: B=1 fixed runs in turns with a
+    bf16 cache (int8 and bf16 units), greedy B=1 against spec_k=4,
+    frame_fused, spec_k=4 at full and zero acceptance, synthesize_batch at
+    B=8 and 32 and a pool of 8 (int8 and bf16 units; greedy pool output
+    equal to B=1).  Returns the kvq launch counts."""
+    cfg = QWEN3_TTS_06B
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    kw = dict(config=cfg, params=params, tokenizer=tok)
+    q8 = TTSEngine(**kw, quantize="int8", kv_quant=True)
+    qb = TTSEngine(**kw, kv_quant=True)
+    refs = {"int8": TTSEngine(**kw, quantize="int8"), "bf16": TTSEngine(**kw)}
+    ff = TTSEngine(**kw, quantize="int8", kv_quant=True, frame_fused=True)
+    spec = TTSEngine(**kw, quantize="int8", kv_quant=True, spec_k=SPEC_K, spec_iters=SPEC_ITERS,
+                     spec_accept_floor=0.0)
+    del params, kw
+    for e in (q8, qb, ff, spec, *refs.values()):
+        if not e.is_ready():
+            raise RuntimeError(f"0.6B engine: {e.get_error()}")
+    for e in (q8, qb, ff, spec):
+        c = e.cfg.talker.transformer
+        if not c.kv_cache_quant or e.cfg.code_predictor.transformer.kv_cache_quant:
+            raise RuntimeError("kv_quant must set the talker's int8 cache, and only the talker's")
+    log(f"engines: 0.6B preset, kv_quant=True (int8 and bf16 units, frame_fused, spec_k={SPEC_K}) "
+        f"and a bf16 cache; KV ladder {q8.kv_ladder} [{card_line}]")
+    counts = []
+    for units, e in (("int8", q8), ("bf16", qb)):
+        ref, chain = refs[units], b1_chain(e)
+        ms = {}
+        for label, eng in (("bf16 cache", ref), ("int8 cache", e), ("int8 cache", e),
+                           ("bf16 cache", ref)):
+            reset_launches()
+            ms.setdefault(label, []).append(check_fixed_run(eng, 300, [FIXED_TEXT], card_line))
+            got = check_launches(f"fixed run B=1, {units} units, {label}",
+                                 counts_of(K1=300, **{chain: 300}))
+            if eng is e:
+                counts.append(got)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        log(f"0.6B B=1 fixed run, {units} units, in turns (bf16 cache, int8 cache, int8 cache, "
+            f"bf16 cache): bf16 cache {ms['bf16 cache']} int8 cache {ms['int8 cache']} ms/frame; "
+            f"means {mean['int8 cache']:.4f} vs {mean['bf16 cache']:.4f} ms/frame (int8 / bf16 "
+            f"{mean['int8 cache'] / mean['bf16 cache']:.4f}) [{card_line}]")
+    del refs
+    # greedy B=1 with the int8 cache equals spec_k=4 greedy (the JAX tests' pin)
+    counts.append(check_spec_engine("kvq B=1 repeat draft", q8, spec, card_line))
+    reset_launches()
+    r = ff.synthesize(FIXED_TEXT, language="en", temperature=0.0, max_tokens=48)
+    n = r.metrics.decoded_frames
+    if r.metrics.frame_fused_frames != n or not np.isfinite(r.audio).all():
+        raise RuntimeError("kvq frame_fused: a frame left K7, or bad audio")
+    counts.append(check_launches("kvq frame_fused synthesize (one K7 per frame)", counts_of(K7=n)))
+    reset_launches()
+    ff_ms = check_fixed_run(ff, 300, [FIXED_TEXT], card_line)
+    counts.append(check_launches("kvq frame_fused fixed run", counts_of(K7=300)))
+    log(f"kvq frame_fused fixed run: {ff_ms:.3f} ms/frame [{card_line}]")
+    sampled = SamplingParams.create(0.8, 50, 0.95, forbid_eos=True)
+    for label, force in (("full acceptance (force_accept)", True), ("repeat draft", False)):
+        reset_launches()
+        _, it, decode_s, decoded = spec_fixed_run(spec, 300, sampled, [SPEC_TEXT], repeat_draft,
+                                                  force)
+        counts.append(check_launches(f"kvq spec fixed run, {label}", (0, 1, 0, it, it)))
+        log(f"kvq spec fixed run B=1 k={SPEC_K}, {label}: {decoded} frames in {it} iterations, "
+            f"{decode_s * 1e3 / decoded:.3f} ms per committed frame [{card_line}]")
+    del ff, spec
+    for units, e in (("int8", q8), ("bf16", qb)):
+        for B in (8, 32):
+            texts = [BATCH_TEXTS[b % len(BATCH_TEXTS)] for b in range(B)]
+            reset_launches()
+            t0 = time.perf_counter()
+            results = e.synthesize_batch(texts, language="en", temperature=0.8, top_k=50,
+                                         top_p=0.95, max_tokens=48, seed=list(range(B)))
+            wall = time.perf_counter() - t0
+            decoded = results[0].metrics.decoded_frames
+            if any(not np.isfinite(r.audio).all() or r.codes.shape[1:] != (16,) for r in results):
+                raise RuntimeError(f"kvq synthesize_batch B={B}: bad output")
+            counts.append(check_launches(f"kvq synthesize_batch B={B}, {units} units",
+                                         counts_of(K4=decoded, K5=decoded)))
+            log(f"kvq synthesize_batch B={B}, {units} units: {decoded} batched frames, "
+                f"{results[0].metrics.stage_seconds['decode'] * 1e3 / decoded:.3f} ms per batched "
+                f"frame decode, aggregate RTF "
+                f"{sum(r.metrics.audio_seconds for r in results) / wall:.2f}x [{card_line}]")
+        pool = ContinuousBatcher(e, pool_size=8, chunk_len=16, kv_bucket=e.kv_ladder[0])
+        try:
+            reset_launches()
+            c0 = pool.stats["chunks"]
+            futs = [pool.submit(t, language="en", temperature=0.8, max_tokens=32, seed=SEED + i)
+                    for i, t in enumerate(KVQ_POOL_TEXTS)]
+            for f in futs:
+                r = f.result(timeout=600)
+                if not np.isfinite(r.audio).all() or not 0 < len(r.codes) <= 32:
+                    raise RuntimeError("kvq pool: bad result")
+            text = "hello world, greedy through the pool"
+            got = pool.synthesize(text, language="en", temperature=0.0, max_tokens=48)
+            n = 16 * (pool.stats["chunks"] - c0)
+            counts.append(check_launches(f"kvq pool of 8, {units} units", counts_of(K4=n, K5=n)))
+            want = e.synthesize(text, language="en", temperature=0.0, max_tokens=48)
+            equal = np.array_equal(got.codes, want.codes)
+            log(f"kvq pool of 8, {units} units: {len(KVQ_POOL_TEXTS)} requests, {n} pooled frames; "
+                f"greedy output equal to B=1 synthesize={equal} [{card_line}]")
+            if not equal:
+                raise RuntimeError("kvq pool: greedy output differs from B=1 synthesize")
+        finally:
+            pool.shutdown()
+    del q8, qb
+    torch.cuda.empty_cache()
+    return [sum(c) for c in zip(*counts)]
+
+
+def kvq_17b(tok, gen, card_line):
+    """The 1.7B preset at B=1 with kv_quant=True and int8 units: K1 kvq at the
+    1.7B talker's widths (T=256) against its plain version, then an instruct
+    request and a fixed 300-frame run (one K1 and one K3 per frame, K8 on the
+    dequantized K/V in every prefill).  Returns the launch counts and the K1
+    check."""
+    cfg = voice_config()
+    t = cfg.talker.transformer
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8", kv_quant=True)
+    del params
+    if not eng.is_ready():
+        raise RuntimeError(f"1.7B kv_quant engine: {eng.get_error()}")
+    k1 = check_kvq_k1("talker-1.7B", t, eng.params["talker"]["fused_step"], 256, 60, gen, 1, 0)
+    layers = t.num_layers
+    reset_launches()
+    r = eng.synthesize(VOICE_TEXT, language="en", temperature=0.8, top_k=50, top_p=0.95,
+                       max_tokens=48, seed=SEED, instruct=VOICE_INSTRUCT)
+    n = r.metrics.decoded_frames
+    if not np.isfinite(r.audio).all() or r.codes.shape[1:] != (16,):
+        raise RuntimeError("1.7B kvq synthesize(instruct): bad output")
+    counts = [check_launches("1.7B kvq synthesize(instruct)", counts_of(K1=n, K3=n, K8=layers))]
+    reset_launches()
+    check_fixed_run(eng, 300, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
+    counts.append(check_launches("1.7B kvq fixed run", counts_of(K1=300, K3=300, K8=layers)))
+    del eng
+    torch.cuda.empty_cache()
+    return [sum(c) for c in zip(*counts)], k1
+
+
+def kvq_phase(tok, gen, card_line):
+    """Phase 13: the int8 KV cache (``kv_quant=True``).  K1, K4, K6 and K7 on
+    int8 caches against their plain versions and their anchors, then the
+    engines (kvq_engine_runs) and the 1.7B preset (kvq_17b).  Returns
+    (launch counts, checks of K1, K4, K6, K7, bounds)."""
+    t0 = time.perf_counter()
+    cfg = QWEN3_TTS_06B
+    t = cfg.talker.transformer
+    fw = packed_trunk(t, gen)
+    k1 = [check_kvq_k1("talker", t, fw, T, pos, gen, 1, iters)
+          for T, pos, iters in KVQ_K1_DEEP_CASES]
+    k4 = [check_kvq_k4("talker", t, fw, B, 512, gen, iters) for B, iters in ((8, 10), (32, 3))]
+    k6 = [check_kvq_k6("talker", t, fw, B, S, T, starts, gen, iters)
+          for B, S, T, starts, iters in KVQ_K6_CASES]
+    # every slot write stalled: the slot-write phase's barrier must hold the
+    # readers of the new values and scales (check_k6_equal's stall)
+    for case in K6_STALL_CASES:
+        check_kvq_k6("talker", t, fw, *case, gen, 0, stall_ns=K6_STALL_NS)
+    bounds = {"K1 kvq": step_bound(t, fw, 1, [200], 1, torch.int8),
+              "K4 kvq": step_bound(t, fw, 8, [min(p, 511) for p in K4_POSITIONS], 1, torch.int8),
+              "K6 kvq": step_bound(t, fw, 4, [200], 4, torch.int8)}
+    ts = dataclasses.replace(t, num_layers=K1_SHALLOW_LAYERS)
+    fws = packed_trunk(ts, gen)
+    for T, pos in KVQ_K1_SHALLOW_CASES:
+        k1.append(check_kvq_k1(f"talker-{K1_SHALLOW_LAYERS}-layer", ts, fws, T, pos, gen,
+                               K1_TIGHT_INPUTS, 0))
+    del fws
+    check_kvq_ties(ts, gen)
+    i8, b16 = unit_pair(t, gen)
+    check_kvq_units("0.6B talker", t, i8, b16, gen)
+    packs = frame_packs(cfg, gen)
+    for T, pos in KVQ_K7_CASES:
+        check_k7_composition(packs, T, pos, torch.int8, gen, inputs=4)
+    k7 = [check_k7_plain(packs, 256, 255, K7_KNOBS[1], gen, 20, torch.int8)]
+    k7 += [check_k7_plain(packs, T, pos, knobs, gen, 0, torch.int8)
+           for T, pos in KVQ_K7_CASES for knobs in K7_KNOBS[:2] if (T, knobs) != (256, K7_KNOBS[1])]
+    bounds["K7 kvq"] = frame_bound(packs, 255, torch.int8)
+    one_slot_ring(lambda: kvq_one_slot(t, fw, i8, b16, packs, gen))
+    del fw, i8, b16, packs
+    torch.cuda.empty_cache()
+    for key, (ms, by) in bounds.items():
+        log(f"{key} bound {ms:.4f} ms ({by}): weights, the int8 slots and their scales read "
+            f"[{CARD}]")
+    log(f"int8 KV cache kernel checks: {time.perf_counter() - t0:.1f} s [{card_line}]")
+    counts = kvq_engine_runs(tok, card_line)
+    c17, k1_17 = kvq_17b(tok, gen, card_line)
+    k1.append(k1_17)
+    log(f"int8 KV cache phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
+    return [sum(c) for c in zip(counts, c17)], (k1, k4, k6, k7), bounds
+
+
 B1_REQUESTS = [
     dict(text="hello world", language="en", temperature=0.0),
     dict(text="hello world, hello world", language="en", temperature=0.8, top_k=50, top_p=0.95),
@@ -3633,10 +4215,20 @@ def main() -> int:
     bf16, (k1b, k4b, k3b, k5b), bf16_bounds = bf16_phase(tok, gen16, card_line)
     bounds.update({f"{k} bf16": v for k, v in bf16_bounds.items()})
     bf16 = [sum(c) for c in zip(bf16, numbers["bf16_counts"])]
+    # the int8 KV cache's phase draws from a generator of its own, as K4's
+    gen8 = torch.Generator(device=DEV)
+    gen8.manual_seed(SEED + 8)
+    kvq, (k1q, k4q, k6q, k7q), kvq_bounds = kvq_phase(tok, gen8, card_line)
+    bounds.update(kvq_bounds)
+    kvq = [sum(c) for c in zip(kvq, numbers["kvq_counts"])]
+    unlaunched = [k for k in ("K1", "K4", "K6", "K7") if not kvq[KERNEL_IDS.index(k)]]
+    if unlaunched:
+        raise RuntimeError(f"the int8 KV cache's main paths never launched {unlaunched}")
     total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed)]
     log("launches on the main paths in all, int8 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)) + "; bf16 units: "
-        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)))
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)) + "; int8 KV cache: "
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, kvq)))
 
     def entry(name, source, replaces, launched, checks, bound_key, library_ms=None):
         # library_ms: one PyTorch call computing the same function, where one
@@ -3684,6 +4276,15 @@ def main() -> int:
               bf16[3], k5b, "K5 bf16"),
         entry("fused_mtp_chain_streamed (bf16 units)", "fused_mtp_stream.cu",
               "fused_mtp_stream.py:372", bf16[5], k3b, "K3 bf16"),
+        # the int8 KV cache (kv_quant): the same kernels' int8-cache instances
+        entry("fused_decode_step (K1 kvq: int8 KV cache)", "fused_step.cu", "fused_step.py:1290",
+              kvq[0], k1q, "K1 kvq"),
+        entry("fused_decode_step_batched (K4 kvq: int8 KV cache)", "fused_step_batched.cu",
+              "fused_step.py:2083", kvq[2], k4q, "K4 kvq"),
+        entry("fused_verify_step (K6 kvq: int8 KV cache)", "fused_verify.cu", "fused_verify.py:473",
+              kvq[4], k6q, "K6 kvq"),
+        entry("fused_frame_step (K7 kvq: int8 KV cache)", "fused_frame.cu", "fused_frame.py:245",
+              kvq[7], k7q, "K7 kvq"),
     ]}
     print(json.dumps(report))
     print(card_line)

@@ -33,9 +33,11 @@ units with scales of one (bits=16, no quantization), for kernels K1 and K2
 or K3 (B=1; K3 for an MTP trunk past the residency gate: the 1.7B int8
 trunk and every bf16 trunk), K4 and K5 (B=2..32) and K6 (the verify pass,
 B x spec_k <= 32 rows; int8 only); a talker with ``attn_impl="pallas"``
-runs its prefill attention as kernel K8.  A configuration the kernels do
-not take leaves the engine not ready; a batch they do not take raises
-``EngineError``.  On
+runs its prefill attention as kernel K8.  ``kv_quant=True`` keeps the
+talker's KV cache in int8 with per-(slot, head) scales (K1, K4, K6 and K7
+take it; the top bucket is rounded up to 128 slots).  A configuration the
+kernels do not take leaves the engine not ready; a batch they do not take
+raises ``EngineError``.  On
 the CPU the same code runs the kernels' plain versions.  A decode chunk (a
 dispatch of verify iterations) enqueues its frames on the device and the
 engine syncs once per chunk, when it copies the chunk's codes to the host.
@@ -181,6 +183,10 @@ class TTSEngine:
         full = self.max_frames + 32
         if full > 1024:
             full = _round_up(full, 512)
+        elif kv_quant:
+            # the int8-KV kernels take 128-aligned buckets (the JAX kernels'
+            # scale windows): a top bucket off that grid would raise on the card
+            full = _round_up(full, 128)
         # KV-cache bucket ladder: attention reads scale with the current
         # bucket; the cache is zero-padded up a rung as the position nears it
         self.kv_ladder = tuple(sorted({b for b in kv_buckets if b < full} | {full}))
@@ -195,7 +201,7 @@ class TTSEngine:
             log.error("engine init failed: %s", e)
 
     @staticmethod
-    def _check_arguments(quantize, mesh, kv_quant, mtp_quantize) -> None:
+    def _check_arguments(quantize, mesh, mtp_quantize) -> None:
         """The arguments' own errors, before anything is loaded."""
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet (ROADMAP M15)")
@@ -203,7 +209,7 @@ class TTSEngine:
             raise EngineError(f"unknown quantize mode {quantize!r}")
         if quantize == "int4":
             raise EngineError("quantize='int4': int8 and unquantized (None) weights are ported "
-                              "(int4 not ported: ROADMAP K1v / K2v)")
+                              "(int4 not ported: ROADMAP K1v-b / K2v)")
         if mtp_quantize not in (None, "int8", "int4", "auto"):
             raise EngineError(f"unknown mtp_quantize mode {mtp_quantize!r}")
         if mtp_quantize is not None and mtp_quantize != quantize:
@@ -211,12 +217,10 @@ class TTSEngine:
             # unquantized talker are packs of other precisions
             raise EngineError(f"mtp_quantize={mtp_quantize!r} with quantize={quantize!r}: "
                               "not ported (ROADMAP K1v / K2v)")
-        if kv_quant:
-            raise EngineError("kv_quant: the int8 KV cache is not ported (ROADMAP K1v / K2v)")
 
     def _build(self, model_dir, config, params, device, quantize, mesh, kv_quant,
                mtp_quantize, mtp_resident, frame_fused) -> None:
-        self._check_arguments(quantize, mesh, kv_quant, mtp_quantize)
+        self._check_arguments(quantize, mesh, mtp_quantize)
         if device is None:
             if not torch.cuda.is_available():
                 raise EngineError(
@@ -256,9 +260,14 @@ class TTSEngine:
             if frame_fused and self.spec_k is not None:
                 raise EngineError("frame_fused is sequential-only: unset spec_k")
             config = dataclasses.replace(config, frame_fused=bool(frame_fused))
+        if kv_quant:
+            # the int8 KV cache with per-(slot, head) scales, on the talker
+            # only (the MTP cache stays in the model dtype, as in the JAX
+            # engine); orthogonal to the weights' quantize
+            config = dataclasses.replace(config, talker=dataclasses.replace(
+                config.talker, transformer=dataclasses.replace(
+                    config.talker.transformer, kv_cache_quant=True)))
         self.cfg = cfg = config
-        if cfg.talker.transformer.kv_cache_quant:
-            raise EngineError("the int8 KV cache is not ported (ROADMAP K1v / K2v)")
         talker_fused = cfg.talker.decode_impl == "fused"
         mtp_fused = cfg.code_predictor.impl == "fused"
         if self.device.type == "cuda":
@@ -559,13 +568,17 @@ class TTSEngine:
 
     @staticmethod
     def _grow_state(state: GenerateState, new_len: int) -> GenerateState:
-        """Zero-pad the KV cache (head-major time axis) and the validity mask
-        up to the next bucket; padded slots are invalid until written."""
+        """Zero-pad the KV cache (head-major time axis; an int8 cache's
+        scales alongside) and the validity mask up to the next bucket; padded
+        slots are invalid until written."""
         pad = new_len - state.cache.k.shape[3]
         cache = state.cache._replace(
             k=F.pad(state.cache.k, (0, 0, 0, pad)),
             v=F.pad(state.cache.v, (0, 0, 0, pad)),
         )
+        if cache.quantized:
+            cache = cache._replace(k_scale=F.pad(cache.k_scale, (0, pad)),
+                                   v_scale=F.pad(cache.v_scale, (0, pad)))
         vm = state.valid_mask
         valid = torch.cat([vm, torch.zeros((vm.shape[0], pad), dtype=vm.dtype, device=vm.device)], 1)
         return state._replace(cache=cache, valid_mask=valid)

@@ -12,10 +12,10 @@ created; the summary prints "Generated X.XX seconds of audio"; exit code 1 on
 missing/invalid inputs, a flag whose path is not ported (the engine's error)
 or failed synthesis; output WAV is 16-bit PCM mono 24 kHz without peak
 normalization (main_onnx.cpp:15-58).  On the card an unset --quantize (the
-default) runs bf16 weight units and --quantize int8 int8 units; --quantize
-int4, --kv-quant, --mtp-quantize other than --quantize and, without
---quantize, --spec-k leave the engine not ready (exit 1, the error names its
-ROADMAP item).
+default) runs bf16 weight units and --quantize int8 int8 units, either with
+--kv-quant (the int8 KV cache); --quantize int4, --mtp-quantize other than
+--quantize and, without --quantize, --spec-k leave the engine not ready
+(exit 1, the error names its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -69,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--kv-quant", action="store_true",
-        help="int8 KV cache (not ported: the engine is then not ready)",
+        help="int8 KV cache with per-(slot, head) scales (the talker's; halves its "
+             "K/V bytes)",
     )
     p.add_argument(
         "--spec-k", type=int, choices=range(2, 9), metavar="K",

@@ -39,6 +39,12 @@
 // stages of a phase; the card measured, its power limit and the per-phase
 // trace are in PERF.md.
 
+// An int8 talker KV cache (the JAX kernel's kvq mode): the talker step runs
+// K1's int8-cache phases (frame_kernel<bf16, int8_t>: the chain keeps a
+// bf16 cache, the talker step gets a call site of its own), so K7 still
+// equals the composition K2 -> float32 x -> K1 (int8 cache) -> norm + head
+// bit for bit.  The launch-per-op frame takes no int8 cache.
+
 #include "qtts_stream.cuh"
 
 namespace {
@@ -60,7 +66,9 @@ struct FrameLaunch {
   QttsPlan p;
 };
 
-template <typename CT>
+// CT: the chain's cache type; TCT: the talker's (int8_t: an int8 talker
+// cache with its scales, beside a bf16 chain cache).
+template <typename CT, typename TCT = CT>
 __global__ void __launch_bounds__(QTTS_P_THREADS, 1)
 frame_kernel(const __grid_constant__ FrameLaunch f) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -100,8 +108,8 @@ frame_kernel(const __grid_constant__ FrameLaunch f) {
   // c0e + sub_sum + drip in float32 (each thread wrote its c0e[k] above and
   // its sub_sum[k] just before); a grid barrier (the talker's first layer
   // reads x), then the talker step on set 1 as the chain's tail
-  const QttsStepTail<CT> talker{&a.tw, &a.ts, 1, a.x, static_cast<CT*>(a.k_cache),
-                                static_cast<CT*>(a.v_cache), a.T, a.pos};
+  const QttsStepTail<TCT> talker{&a.tw, &a.ts, 1, a.x, static_cast<TCT*>(a.k_cache),
+                                 static_cast<TCT*>(a.v_cache), a.k_scale, a.v_scale, a.T, a.pos};
   qtts_chain_phases<CT>(a.mw, a.ms, f.p, ring, seq, 0, stage, c, smem, [&] {
     for (int k = tid; k < H; k += blockDim.x) {
       a.x[k] = __fadd_rn(__fadd_rn(a.c0e[k], c.sub_sum[k]), load_in(a.drip, a.drip_bf16, k));
@@ -290,12 +298,18 @@ bool step_ok(const QttsStepWeights& w, const QttsStepScratch& s, int T, int pos)
 
 bool frame_ok(const QttsFrameArgs& a) {
   const QttsChainArgs& c = a.mc;
+  // the talker cache: the chain's dtype, or int8 with its scales beside a
+  // bf16 chain cache on JAX's buckets (128-aligned; beyond 512 slots
+  // 512-aligned)
+  const bool i8 = a.k_scale != nullptr;
+  const bool caches = i8 ? a.v_scale != nullptr && c.cache_bf16 && !a.cache_bf16 &&
+                               a.T % 128 == 0 && (a.T <= 512 || a.T % 512 == 0)
+                         : a.v_scale == nullptr && c.cache_bf16 == a.cache_bf16;
   // int8 units and heads only (bf16 units and the bf16-talker + int8-MTP
   // mix: ROADMAP K1v-b / K2v)
   return !a.tw.unit_bf16 && !a.mw.unit_bf16 && !c.heads_bf16 &&
          step_ok(a.tw, a.ts, a.T, a.pos) && step_ok(a.mw, a.ms, c.n + 2, c.n) &&
-         a.mw.H == a.tw.H && c.n >= 1 && c.V <= c.Vt && a.Vc >= 1 &&
-         c.cache_bf16 == a.cache_bf16;
+         a.mw.H == a.tw.H && c.n >= 1 && c.V <= c.Vt && a.Vc >= 1 && caches;
 }
 
 size_t frame_smem_multi(const QttsFrameArgs& a) {
@@ -351,6 +365,9 @@ int qtts_frame_step(const QttsFrameArgs* a, const QttsPlan* p, void* stream) {
   }
   const FrameLaunch f{*a, *p};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->k_scale != nullptr) {
+    return qtts_launch_persistent(frame_kernel<__nv_bfloat16, int8_t>, f, *p, st);
+  }
   return a->cache_bf16 ? qtts_launch_persistent(frame_kernel<__nv_bfloat16>, f, *p, st)
                        : qtts_launch_persistent(frame_kernel<float>, f, *p, st);
 }
@@ -359,7 +376,7 @@ int qtts_frame_step(const QttsFrameArgs* a, const QttsPlan* p, void* stream) {
 // reference chip_smoke.py holds the persistent frame to, bit for bit; no
 // wrapper calls it.
 int qtts_frame_step_multi(const QttsFrameArgs* a, void* stream) {
-  if (!frame_ok(*a)) return (int)cudaErrorInvalidValue;
+  if (!frame_ok(*a) || a->k_scale != nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return a->cache_bf16 ? launch_frame_multi<__nv_bfloat16>(*a, st)
                        : launch_frame_multi<float>(*a, st);

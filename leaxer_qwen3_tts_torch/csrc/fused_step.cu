@@ -36,6 +36,14 @@
 // What it leaves: the grid barriers themselves (five per layer), the
 // attention's items on two 128-thread halves per block, and no CUDA graph
 // around the host's per-frame work.
+// An int8 KV cache (the JAX kernel's kvq mode, both unit types) runs the
+// same phases with CT = int8_t: the attention item quantizes the new slot
+// on quantize_kv's grid (amax over the head on the head-norm tree, an IEEE
+// division, rintf: half to even), writes it with its float32 scales, and
+// weights each slot's score by its k scale and its value term by its v
+// scale.  Its bound adds the int8 slots and their scales to the weights:
+// 0.136 ms at T=256 pos 200 against the bf16 cache's 0.139; the item stays
+// latency-bound, one pair of barriers longer for the amax.
 
 #include "qtts_stream.cuh"
 
@@ -83,6 +91,8 @@ struct StepLaunch {
   float* x;
   void* k_cache;
   void* v_cache;
+  float* k_scale;  // [L, nk, T] scales of an int8 cache (CT = int8_t), else null
+  float* v_scale;
   int32_t T, pos;
 };
 
@@ -96,7 +106,7 @@ step_kernel(const __grid_constant__ StepLaunch a) {
   int stage = 0;
   qtts_step_phases<CT, WT>(a.w, a.s, a.p, ring, seq, 0, stage, a.x_in, a.x,
                            static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.T, a.pos,
-                           smem, false);
+                           smem, false, a.k_scale, a.v_scale);
   qtts_trace_end(a.p);
 }
 
@@ -157,15 +167,24 @@ const char* qtts_error_string(int err) { return cudaGetErrorString(static_cast<c
 
 // Kernel K1 entry: x_out = decode_step(x_in) with the caches updated in
 // place, in one cooperative launch on the plan's grid; int8 or bf16 units
-// (w->unit_bf16), each with a bf16 or float32 cache.
+// (w->unit_bf16), each with a bf16 or float32 cache, or an int8 cache with
+// its scales k_scale / v_scale [L, nk, T] (null for the other caches; the
+// bucket 128-aligned, as the JAX kernel's scale windows need).
 int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const QttsPlan* p,
                      const float* x_in, float* x_out, void* k_cache, void* v_cache,
-                     int cache_bf16, int T, int pos, void* stream) {
-  if (!step_args_ok(*w, *s, T, pos) || !qtts_plan_ok(*p, *w, 0) || x_in == x_out) {
+                     float* k_scale, float* v_scale, int cache_bf16, int T, int pos,
+                     void* stream) {
+  const bool i8 = k_scale != nullptr;
+  if (!step_args_ok(*w, *s, T, pos) || !qtts_plan_ok(*p, *w, 0) || x_in == x_out ||
+      i8 != (v_scale != nullptr) || (i8 && (cache_bf16 || T % 128 != 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  const StepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, T, pos};
+  const StepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, T, pos};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (i8) {
+    return w->unit_bf16 ? qtts_launch_persistent(step_kernel<int8_t, __nv_bfloat16>, a, *p, st)
+                        : qtts_launch_persistent(step_kernel<int8_t, int8_t>, a, *p, st);
+  }
   if (w->unit_bf16) {
     return cache_bf16 ? qtts_launch_persistent(step_kernel<__nv_bfloat16, __nv_bfloat16>, a, *p, st)
                       : qtts_launch_persistent(step_kernel<float, __nv_bfloat16>, a, *p, st);
@@ -181,6 +200,7 @@ int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const Q
 int qtts_decode_step_multi(const QttsStepWeights* w, const QttsStepScratch* s, const float* x_in,
                            float* x_out, void* k_cache, void* v_cache, int cache_bf16, int T,
                            int pos, void* stream) {
+  if (cache_bf16 != 0 && cache_bf16 != 1) return (int)cudaErrorInvalidValue;
   return qtts_launch_decode_step(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, T, pos,
                                  static_cast<cudaStream_t>(stream));
 }

@@ -44,6 +44,10 @@
 // every block reads its group's inputs from L2 in every phase (the silu
 // input is B x 2I floats), the grid barriers, and no CUDA graph.
 //
+// An int8 KV cache (the JAX kernel's bwin kvq mode) takes K1's int8-cache
+// item per row (CT = int8_t, both unit types), so each row still equals K1
+// on it bit for bit, values and scales.
+//
 // The launch-per-op sequence (nine launches per layer, kept for the checks
 // and for K6's GEMV): a row kernel turns the GEMV input into bf16 once per
 // row, and the batched GEMV stages it in shared memory 512 columns at a time.
@@ -178,6 +182,8 @@ struct BStepLaunch {
   float* x;
   void* k_cache;
   void* v_cache;
+  float* k_scale;  // [L, B, nk, T] scales of an int8 cache (CT = int8_t), else null
+  float* v_scale;
   const int64_t* pos_dev;
   int32_t B, T, pos_host;
 };
@@ -192,7 +198,8 @@ bstep_kernel(const __grid_constant__ BStepLaunch a) {
   int stage = 0;
   qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
                                    static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.B,
-                                   a.T, a.pos_dev, a.pos_host, smem, false);
+                                   a.T, a.pos_dev, a.pos_host, smem, false, 1, a.k_scale,
+                                   a.v_scale);
   qtts_trace_end(a.p);
 }
 
@@ -276,19 +283,26 @@ extern "C" {
 // (w->unit_bf16), each with a bf16 or float32 cache.
 int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
                              const QttsPlan* p, const float* x_in, float* x_out, void* k_cache,
-                             void* v_cache, int cache_bf16, int B, int T, const int64_t* pos_dev,
-                             int pos_host, void* stream) {
+                             void* v_cache, float* k_scale, float* v_scale, int cache_bf16, int B,
+                             int T, const int64_t* pos_dev, int pos_host, void* stream) {
+  const bool i8 = k_scale != nullptr;
   const int qd = w->nq * w->D;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
                                : pos_host / QTTS_ATTN_CHUNK + 1;
   if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || B < 1 || B > QTTS_MAX_BATCH ||
       T < 1 || (pos_dev == nullptr && (pos_host < 0 || pos_host >= T)) ||
-      n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, B)) {
+      n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, B) ||
+      i8 != (v_scale != nullptr) || (i8 && (cache_bf16 || T % 128 != 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  const BStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, pos_dev, B, T, pos_host};
+  const BStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev, B, T,
+                      pos_host};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (i8) {
+    return w->unit_bf16 ? qtts_launch_persistent(bstep_kernel<int8_t, __nv_bfloat16>, a, *p, st)
+                        : qtts_launch_persistent(bstep_kernel<int8_t, int8_t>, a, *p, st);
+  }
   if (w->unit_bf16) {
     return cache_bf16
                ? qtts_launch_persistent(bstep_kernel<__nv_bfloat16, __nv_bfloat16>, a, *p, st)
@@ -305,6 +319,7 @@ int qtts_decode_step_batched_multi(const QttsStepWeights* w, const QttsBatchScra
                                    const float* x_in, float* x_out, void* k_cache, void* v_cache,
                                    int cache_bf16, int B, int T, const int64_t* pos_dev,
                                    int pos_host, void* stream) {
+  if (cache_bf16 != 0 && cache_bf16 != 1) return (int)cudaErrorInvalidValue;
   return qtts_launch_decode_step_batched(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, B, T,
                                          pos_dev, pos_host, static_cast<cudaStream_t>(stream));
 }

@@ -45,6 +45,13 @@
 // multiply-adds on CUDA cores (~0.42 ms at 67 TFLOPS float32), since tensor
 // cores would sum in another order than K1.
 
+// An int8 KV cache (the JAX kernel's kvq mode; int8 units): the slot-write
+// phase quantizes every row's new k and v as K1's item would and writes the
+// int8 values and their scales before its grid barrier, and the items read
+// every slot's values and scales from the cache, so a row still equals the
+// K1 / K4 steps it stands for bit for bit.  The launch-per-op pass takes no
+// int8 cache.
+
 #include "qtts_stream.cuh"
 
 namespace {
@@ -107,6 +114,8 @@ struct VStepLaunch {
   float* x;
   void* k_cache;
   void* v_cache;
+  float* k_scale;  // [L, B, nk, T] scales of an int8 cache (CT = int8_t), else null
+  float* v_scale;
   const int64_t* pos_dev;
   int32_t B, S, T, pos_host;
 };
@@ -121,7 +130,8 @@ vstep_kernel(const __grid_constant__ VStepLaunch a) {
   int stage = 0;
   qtts_bstep_phases<CT, true>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
                               static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache),
-                              a.B * a.S, a.T, a.pos_dev, a.pos_host, smem, false, a.S);
+                              a.B * a.S, a.T, a.pos_dev, a.pos_host, smem, false, a.S, a.k_scale,
+                              a.v_scale);
   qtts_trace_end(a.p);
 }
 
@@ -134,9 +144,11 @@ extern "C" {
 // starts on the device, or null for every stream at pos_host.  One
 // cooperative launch on the plan's grid (a plan of B * S rows).
 int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const QttsPlan* p,
-                     const float* x_in, float* x_out, void* k_cache, void* v_cache, int cache_bf16,
-                     int B, int S, int T, const int64_t* pos_dev, int pos_host, void* stream) {
+                     const float* x_in, float* x_out, void* k_cache, void* v_cache,
+                     float* k_scale, float* v_scale, int cache_bf16, int B, int S, int T,
+                     const int64_t* pos_dev, int pos_host, void* stream) {
   const int R = B * S, qd = w->nq * w->D;
+  const bool i8 = k_scale != nullptr;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
                                : (pos_host + S - 1) / QTTS_ATTN_CHUNK + 1;
   // int8 units only (bf16 units: ROADMAP K1v-b)
@@ -144,11 +156,15 @@ int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const 
       w->nq / w->nk > QTTS_ATTN_MAX_G || w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 ||
       S < 2 || S > 8 || B < 1 ||
       R > QTTS_MAX_BATCH || T < S || (pos_dev == nullptr && (pos_host < 0 || pos_host > T - S)) ||
-      n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, R)) {
+      n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, R) ||
+      i8 != (v_scale != nullptr) ||
+      (i8 && (cache_bf16 || T % 128 != 0 || (T > 512 && T % 512 != 0)))) {
     return (int)cudaErrorInvalidValue;
   }
-  const VStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, pos_dev, B, S, T, pos_host};
+  const VStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev, B, S,
+                      T, pos_host};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (i8) return qtts_launch_persistent(vstep_kernel<int8_t>, a, *p, st);
   return cache_bf16 ? qtts_launch_persistent(vstep_kernel<__nv_bfloat16>, a, *p, st)
                     : qtts_launch_persistent(vstep_kernel<float>, a, *p, st);
 }
@@ -161,6 +177,7 @@ int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const 
 int qtts_verify_step_multi(const QttsStepWeights* w, const QttsBatchScratch* s, const float* x_in,
                            float* x_out, void* k_cache, void* v_cache, int cache_bf16, int B,
                            int S, int T, const int64_t* pos_dev, int pos_host, void* stream) {
+  if (cache_bf16 != 0 && cache_bf16 != 1) return (int)cudaErrorInvalidValue;
   return launch_verify_step(*w, *s, x_in, x_out, k_cache, v_cache, cache_bf16, B, S, T, pos_dev,
                             pos_host, static_cast<cudaStream_t>(stream));
 }

@@ -9,6 +9,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <type_traits>
 
 // Per-layer-stacked weight units of one transformer (Hopper pack layout:
 // every matrix is stored [N, K], one output row per N with its K values
@@ -139,6 +140,8 @@ struct QttsFrameArgs {
   int32_t* codes;               // [1 + n] out: code0, then the sub-codes
   float* logits;                // [Vc] out
   float* hidden;                // [H] out: final-normed, float32
+  float* k_scale;               // [L, nk, T] talker int8-cache scales, in place (null: a
+  float* v_scale;               //   bf16 or float32 talker cache in the chain's dtype)
   int32_t cache_bf16, lh_bf16, drip_bf16;
   int32_t T, pos, Vc, eos, forbid_eos;
 };
@@ -454,6 +457,52 @@ __device__ __forceinline__ void qtts_load4(const __nv_bfloat16* p, float (&o)[4]
   const float2 fb = __bfloat1622float2(b);
   o[0] = fa.x; o[1] = fa.y; o[2] = fb.x; o[3] = fb.y;
 }
+__device__ __forceinline__ void qtts_load4(const int8_t* p, float (&o)[4]) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  o[0] = (float)c.x; o[1] = (float)c.y; o[2] = (float)c.z; o[3] = (float)c.w;
+}
+
+// The int8 KV cache (the JAX kernels' kvq mode): int8 values with one float32
+// scale per (slot, kv head) in [L, B, nk, T] arrays beside the cache, on
+// models/layers.py::quantize_kv's grid: scale = max(amax / 127, 1e-8), q =
+// clip(rint(x / scale), -127, 127), the division an IEEE one (the build has no
+// fast math) and rint rounding half to even, as jnp.round and torch.round do.
+// The attention multiplies a slot's score by its k scale after the 1/sqrt(D)
+// factor and its softmax weight by its v scale before the weighted sum; the
+// normaliser sums the weights without it.
+template <typename CT>
+constexpr bool qtts_int8_cache = std::is_same<CT, int8_t>::value;
+
+__device__ __forceinline__ float qtts_quant8(float x, float scale) {
+  return fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
+}
+
+// The int8 scales of the head vectors k and v of the item's QTTS_ATTN_D
+// threads (element t each): max |x| by the warp butterfly, then warp 0's over
+// the four warp maxima (qtts_group_sum's tree; a max is exact in any order).
+// red: 10 floats, free until the caller's next barrier.
+template <typename Sync>
+__device__ __forceinline__ float2 qtts_kv_scales(float k, float v, float* red, Sync sync, int t) {
+  constexpr int nw = QTTS_ATTN_D / 32;
+  const int lane = t & 31, warp = t >> 5;
+  const float ka = qtts_warp_reduce(fabsf(k), QttsMaxF());
+  const float va = qtts_warp_reduce(fabsf(v), QttsMaxF());
+  if (lane == 0) {
+    red[warp] = ka;
+    red[nw + warp] = va;
+  }
+  sync();
+  if (warp == 0) {
+    const float rk = qtts_warp_reduce(lane < nw ? red[lane] : 0.f, QttsMaxF());
+    const float rv = qtts_warp_reduce(lane < nw ? red[nw + lane] : 0.f, QttsMaxF());
+    if (lane == 0) {
+      red[2 * nw] = fmaxf(rk / 127.f, 1e-8f);
+      red[2 * nw + 1] = fmaxf(rv / 127.f, 1e-8f);
+    }
+  }
+  sync();
+  return make_float2(red[2 * nw], red[2 * nw + 1]);
+}
 
 // Position of launch row r.  S rows share one cache row (K1 and K4: S = 1;
 // K6's verify: row r is candidate s = r % S of cache row b = r / S): the
@@ -679,13 +728,16 @@ qtts_attn_split_kernel(const float* __restrict__ qkv, int qkv_ld,
 // Work item (h, r) of the K6 slot write, on QTTS_ATTN_D threads: normalises
 // and rotates kv head h's k of launch row r at its position, with the split
 // body's helpers and so its bits, and stores k and v there, rounded to the
-// cache dtype.  qtts_kv_write_kernel: grid (nk, R), one item per block.
+// cache dtype, or on an int8 cache quantized with their scales (the
+// attention item's arithmetic: K1's values) into ks / vs [B / S, nk, T].
+// qtts_kv_write_kernel: grid (nk, R), one item per block.
 template <typename CT, typename Sync>
 __device__ __forceinline__ void qtts_kv_write_body(
     QttsAttnSmem& sm, Sync sync, int t, int h, int r, const float* qkv, int qkv_ld,
     const float* __restrict__ k_norm, const float* __restrict__ inv_freq, CT* __restrict__ kc,
     CT* __restrict__ vc, size_t cache_row, int nq, int nk, int T,
-    const int64_t* __restrict__ pos_dev, int pos_host, int S, float eps) {
+    const int64_t* __restrict__ pos_dev, int pos_host, int S, float eps,
+    float* __restrict__ ks = nullptr, float* __restrict__ vs = nullptr) {
   constexpr int D = QTTS_ATTN_D;
   float* k_s = sm.k_s;
   const int pos = qtts_row_pos(pos_dev, pos_host, r, T, S);
@@ -700,8 +752,20 @@ __device__ __forceinline__ void qtts_kv_write_body(
   }
   sync();
   const size_t at = (size_t)(r / S) * cache_row + ((size_t)h * T + pos) * D + t;
-  kc[at] = qtts_to_cache<CT>(k_s[t]);
-  vc[at] = qtts_to_cache<CT>(v);
+  if constexpr (qtts_int8_cache<CT>) {
+    const float k = k_s[t];
+    const float2 sc = qtts_kv_scales(k, v, sm.red, sync, t);
+    kc[at] = (int8_t)qtts_quant8(k, sc.x);
+    vc[at] = (int8_t)qtts_quant8(v, sc.y);
+    if (t == 0) {
+      const size_t si = ((size_t)(r / S) * nk + h) * T + pos;
+      ks[si] = sc.x;
+      vs[si] = sc.y;
+    }
+  } else {
+    kc[at] = qtts_to_cache<CT>(k_s[t]);
+    vc[at] = qtts_to_cache<CT>(v);
+  }
 }
 
 template <typename CT>

@@ -678,10 +678,13 @@ static __device__ __forceinline__ void qtts_attn_combine_l2(int t, int hq, const
 // Prefetches into L2 the cached k and v rows item (h, split) will read
 // (slots [split * CHUNK, min((split + 1) * CHUNK, pos)), the new slot pos
 // excluded), one 128-byte line per thread and step, t: the thread's index
-// among the item's QTTS_ATTN_D threads.
+// among the item's QTTS_ATTN_D threads; on an int8 cache also the lines of
+// those slots' k and v scales (ks, vs: the layer row's [nk, T]).
 template <typename CT>
 static __device__ __forceinline__ void qtts_attn_prefetch(const CT* kc, const CT* vc, int h,
-                                                          int split, int T, int pos, int t) {
+                                                          int split, int T, int pos, int t,
+                                                          const float* ks = nullptr,
+                                                          const float* vs = nullptr) {
   constexpr int D = QTTS_ATTN_D;
   constexpr int LINES = D * (int)sizeof(CT) / 128;  // lines per cache row
   const int start = split * QTTS_ATTN_CHUNK;
@@ -691,6 +694,13 @@ static __device__ __forceinline__ void qtts_attn_prefetch(const CT* kc, const CT
     const CT* base = (i & 1) ? vc : kc;
     const void* ptr = base + ((size_t)h * T + j) * D + line * (128 / (int)sizeof(CT));
     asm volatile("prefetch.global.L2 [%0];" ::"l"(ptr));
+  }
+  if constexpr (qtts_int8_cache<CT>) {
+    const int lines = (end - start + 31) / 32;  // 32 scales a line
+    if (t < 2 * lines) {
+      const float* ptr = ((t & 1) ? vs : ks) + (size_t)h * T + start + (t >> 1) * 32;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(ptr));
+    }
   }
 }
 
@@ -741,13 +751,20 @@ static __device__ __forceinline__ void qtts_head_norms(float (&v)[N], const floa
 // would.  OWN = false (K6): the slot-write phase has stored every row's new
 // slot, and the item reads every slot, its own included, from the cache (the
 // same values: the write rounds to the cache dtype as the item would).
+//
+// On an int8 cache (CT = int8_t; ks, vs: the layer row's [nk, T] scales) the
+// item quantizes the new k and v on their scales (qtts_kv_scales, one more
+// pair of barriers), split 0 stores the int8 values and the scales, and the
+// slot's own term reads those same values, as a slot read from the cache
+// would; slot j's score is (q . k_j) * scale * ks[j] and its value term
+// (p * vs[j]) * v_j, the JAX kernel's ew = e * vs.
 template <typename CT, int GG, bool OWN>
 static __device__ __forceinline__ void qtts_attn_item(
     QttsAttnSmem& sm, QttsNamedSync sync, int t, int h, int split, const float* qkv,
     const float* __restrict__ q_norm, const float* __restrict__ k_norm,
     const float* __restrict__ inv_freq, CT* __restrict__ kc, CT* __restrict__ vc,
     float* __restrict__ part, float* attn, int nq, int nk, int T, int pos, int max_splits,
-    float eps, float scale) {
+    float eps, float scale, float* __restrict__ ks, float* __restrict__ vs) {
   constexpr int D = QTTS_ATTN_D;
   if (split * QTTS_ATTN_CHUNK > pos) return;
   auto& q_s = sm.q_s;
@@ -782,7 +799,25 @@ static __device__ __forceinline__ void qtts_attn_item(
     qtts_rope_pair(k_s[t], k_s[t + D / 2], c, s);
   }
   sync();
-  {
+  float ks_own = 0.f, vs_own = 0.f;  // the new slot's int8 scales
+  if constexpr (qtts_int8_cache<CT>) {
+    if (OWN) {
+      const float2 sc = qtts_kv_scales(k_s[t], v_s[t], sm.red, sync, t);
+      ks_own = sc.x;
+      vs_own = sc.y;
+      const float kq = qtts_quant8(k_s[t], ks_own), vq = qtts_quant8(v_s[t], vs_own);
+      k_s[t] = kq;
+      v_s[t] = vq;
+      if (split == 0) {
+        kc[((size_t)h * T + pos) * D + t] = (int8_t)kq;
+        vc[((size_t)h * T + pos) * D + t] = (int8_t)vq;
+        if (t == 0) {
+          ks[(size_t)h * T + pos] = ks_own;
+          vs[(size_t)h * T + pos] = vs_own;
+        }
+      }
+    }
+  } else {
     const CT kq = qtts_to_cache<CT>(k_s[t]);
     const CT vq = qtts_to_cache<CT>(v_s[t]);
     k_s[t] = qtts_from_cache(kq);
@@ -821,15 +856,30 @@ static __device__ __forceinline__ void qtts_attn_item(
       qtts_load4(vc + ((size_t)h * T + j) * D + lane * 4, vf);
     }
   };
+  // an int8 cache's slot scales, beside its values
+  auto fetch_scales = [&](int j, float& a, float& b) {
+    if (OWN && j == pos) {
+      a = ks_own;
+      b = vs_own;
+    } else {
+      a = ks[(size_t)h * T + j];
+      b = vs[(size_t)h * T + j];
+    }
+  };
   // the warp's slots j0, j0 + 4, ... in order, DEPTH in flight
   constexpr int DEPTH = 4;
   const int j0 = start + warp;
   float kb[DEPTH][4], vb[DEPTH][4];
+  float ksb[DEPTH], vsb[DEPTH];
 #pragma unroll
   for (int u = 0; u < DEPTH; ++u) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) kb[u][e] = vb[u][e] = 0.f;
-    if (j0 + 4 * u < end) fetch(j0 + 4 * u, kb[u], vb[u]);
+    ksb[u] = vsb[u] = 0.f;
+    if (j0 + 4 * u < end) {
+      fetch(j0 + 4 * u, kb[u], vb[u]);
+      if constexpr (qtts_int8_cache<CT>) fetch_scales(j0 + 4 * u, ksb[u], vsb[u]);
+    }
   }
   for (int jb = j0; jb < end; jb += 4 * DEPTH) {
     float dots[DEPTH][GG];
@@ -848,16 +898,22 @@ static __device__ __forceinline__ void qtts_attn_item(
       if (j < end) {
 #pragma unroll
         for (int gi = 0; gi < GG; ++gi) {
-          const float sc = dots[u][gi] * scale;
+          float sc = dots[u][gi] * scale;
+          if constexpr (qtts_int8_cache<CT>) sc = sc * ksb[u];
           const float mn = fmaxf(m[gi], sc);
           const float alpha = expf(m[gi] - mn);
           const float p = expf(sc - mn);
           l[gi] = l[gi] * alpha + p;
+          // the value term's weight: p, times the slot's v scale on an int8 cache
+          const float pv = qtts_int8_cache<CT> ? p * vsb[u] : p;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[gi][e] = acc[gi][e] * alpha + p * vb[u][e];
+          for (int e = 0; e < 4; ++e) acc[gi][e] = acc[gi][e] * alpha + pv * vb[u][e];
           m[gi] = mn;
         }
-        if (j + 4 * DEPTH < end) fetch(j + 4 * DEPTH, kb[u], vb[u]);
+        if (j + 4 * DEPTH < end) {
+          fetch(j + 4 * DEPTH, kb[u], vb[u]);
+          if constexpr (qtts_int8_cache<CT>) fetch_scales(j + 4 * DEPTH, ksb[u], vsb[u]);
+        }
       }
     }
   }
@@ -910,10 +966,10 @@ static __device__ __forceinline__ void qtts_attn_item_any(
     const float* __restrict__ q_norm, const float* __restrict__ k_norm,
     const float* __restrict__ inv_freq, CT* __restrict__ kc, CT* __restrict__ vc,
     float* __restrict__ part, float* attn, int nq, int nk, int T, int pos, int max_splits,
-    float eps, float scale) {
+    float eps, float scale, float* ks = nullptr, float* vs = nullptr) {
 #define QTTS_ITEM(GG)                                                                         \
   qtts_attn_item<CT, GG, OWN>(sm, sync, t, h, split, qkv, q_norm, k_norm, inv_freq, kc, vc,   \
-                              part, attn, nq, nk, T, pos, max_splits, eps, scale)
+                              part, attn, nq, nk, T, pos, max_splits, eps, scale, ks, vs)
   switch (nq / nk) {
     case 1: QTTS_ITEM(1); break;
     case 2: QTTS_ITEM(2); break;
@@ -929,14 +985,16 @@ static __device__ __forceinline__ void qtts_attn_item_any(
 
 // x_in is read by layer 0's qkv prologue and copied to x there.  `set`: the
 // plan's weight set of w.  `un`: the union region.  last_barrier: end with a
-// grid barrier (a phase follows).  WT: w's unit type.
+// grid barrier (a phase follows).  WT: w's unit type.  ks, vs: an int8
+// cache's [L, nk, T] scales (CT = int8_t), updated in place with the cache.
 template <typename CT, typename WT = int8_t>
 static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w,
                                                         const QttsStepScratch& s,
                                         const QttsPlan& p, const QttsRing& ring,
                                         QttsSeq& q, int set, int& stage, const float* x_in,
                                         float* x, CT* kc, CT* vc, int T, int pos,
-                                        unsigned char* un, bool last_barrier) {
+                                        unsigned char* un, bool last_barrier,
+                                        float* ks = nullptr, float* vs = nullptr) {
   const int H = w.H, I = w.I, D = w.D;
   const int kinds = set * QTTS_KINDS;  // the set's kind indices
   const int n_splits = pos / QTTS_ATTN_CHUNK + 1;
@@ -945,13 +1003,16 @@ static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w
   const QttsNamedSync hsync{1 + half};
   const int lane0 = 2 * blockIdx.x + half, lanes = 2 * gridDim.x;  // attention item dealing
   const size_t row = (size_t)w.nk * T * D;
+  const size_t srow = (size_t)w.nk * T;  // one layer's int8 scales
   float* sh = reinterpret_cast<float*>(un);
   QttsAttnSmem* am = reinterpret_cast<QttsAttnSmem*>(un);
   for (int l = 0; l < w.L; ++l) {
+    float* ksl = qtts_int8_cache<CT> ? ks + l * srow : nullptr;
+    float* vsl = qtts_int8_cache<CT> ? vs + l * srow : nullptr;
     // this layer's cached k / v rows of the half's attention items, into L2
     // now: the item loop would otherwise wait on device memory slot by slot
     for (int it = lane0; it < w.nk * n_splits; it += lanes) {
-      qtts_attn_prefetch(kc + l * row, vc + l * row, it % w.nk, it / w.nk, T, pos, t);
+      qtts_attn_prefetch(kc + l * row, vc + l * row, it % w.nk, it / w.nk, T, pos, t, ksl, vsl);
     }
     // qkv = bf16(RMSNorm(x) * attn_norm) @ Wqkv * scale
     qtts_prologue<QTTS_IN_NORM>(l == 0 ? x_in : x, w.attn_norm + (size_t)l * H, w.eps, H, sh);
@@ -970,7 +1031,7 @@ static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w
       qtts_attn_item_any<CT>(am[half], hsync, t, h, it / w.nk, s.qkv, w.q_norm + (size_t)l * D,
                          w.k_norm + (size_t)l * D, w.inv_freq, kc + l * row, vc + l * row,
                          s.part, n_splits == 1 ? s.attn : nullptr, w.nq, w.nk, T, pos,
-                         s.max_splits, w.eps, w.attn_scale);
+                         s.max_splits, w.eps, w.attn_scale, ksl, vsl);
       if (n_splits == 1) continue;
       __threadfence();  // the item's partials, before its ticket
       hsync();
@@ -1390,7 +1451,7 @@ static __device__ __forceinline__ int qtts_sample_fast(const float* logits, int 
 
 // One more B=1 step after a chain, on another weight set (the frame's
 // talker step): its weights, scratch, plan set, residual (read and written
-// in place), caches and position.
+// in place), caches (and an int8 cache's scales) and position.
 template <typename CT>
 struct QttsStepTail {
   const QttsStepWeights* w;
@@ -1399,6 +1460,8 @@ struct QttsStepTail {
   float* x;
   CT* kc;
   CT* vc;
+  float* ks;
+  float* vs;
   int T, pos;
 };
 
@@ -1412,24 +1475,36 @@ struct QttsStepTail {
 // runs at the one call site of qtts_step_phases: inlined once, the step's
 // phases keep their registers (a step called from several sites is an
 // out-of-line function, which spilled in its GEMV and attention loops).
-// WT: the unit type of w, its heads and a tail's talker.
-template <typename CT, typename WT = int8_t, typename Last>
+// WT: the unit type of w, its heads and a tail's talker.  TCT: the tail's
+// cache type; where it is not the chain's (the frame's int8 talker cache
+// beside a bf16 chain cache) the tail's step has a call site of its own.
+template <typename CT, typename WT = int8_t, typename TCT = CT, typename Last>
 static __device__ __forceinline__ void qtts_chain_phases(
     const QttsStepWeights& w, const QttsStepScratch& s, const QttsPlan& p, const QttsRing& ring,
     QttsSeq& q, int set, int& stage, const QttsChainArgs& c, unsigned char* un, Last last,
-    const QttsStepTail<CT>* tail = nullptr) {
+    const QttsStepTail<TCT>* tail = nullptr) {
   const int H = w.H, V = c.V, n = c.n;
   float* sh = reinterpret_cast<float*>(un);
   const int passes = n + 1 + (tail != nullptr ? 1 : 0);
   for (int pass = 0; pass < passes; ++pass) {
     const bool talker = pass == n + 1;
     const float* in = pass == 0 ? c.last_hidden : pass == 1 ? c.code0_embed : c.x_in;
-    qtts_step_phases<CT, WT>(talker ? *tail->w : w, talker ? *tail->s : s, p, ring, q,
-                         talker ? tail->set : set, stage, talker ? tail->x : in,
-                         talker ? tail->x : c.x,
-                         talker ? tail->kc : static_cast<CT*>(c.k_cache),
-                         talker ? tail->vc : static_cast<CT*>(c.v_cache),
-                         talker ? tail->T : n + 2, talker ? tail->pos : pass, un, true);
+    if constexpr (std::is_same<CT, TCT>::value) {
+      qtts_step_phases<CT, WT>(talker ? *tail->w : w, talker ? *tail->s : s, p, ring, q,
+                           talker ? tail->set : set, stage, talker ? tail->x : in,
+                           talker ? tail->x : c.x,
+                           talker ? tail->kc : static_cast<CT*>(c.k_cache),
+                           talker ? tail->vc : static_cast<CT*>(c.v_cache),
+                           talker ? tail->T : n + 2, talker ? tail->pos : pass, un, true);
+    } else if (talker) {
+      qtts_step_phases<TCT, WT>(*tail->w, *tail->s, p, ring, q, tail->set, stage, tail->x,
+                                tail->x, tail->kc, tail->vc, tail->T, tail->pos, un, true,
+                                tail->ks, tail->vs);
+    } else {
+      qtts_step_phases<CT, WT>(w, s, p, ring, q, set, stage, in, c.x,
+                               static_cast<CT*>(c.k_cache), static_cast<CT*>(c.v_cache), n + 2,
+                               pass, un, true);
+    }
     if (pass == 0 || talker) continue;
     const int j = pass - 1;
     // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j
@@ -1820,12 +1895,15 @@ static __device__ __forceinline__ bool qtts_bitem(int it, int B, int nk, QttsBIt
 // pass's slot-write kernel, op for op) and a grid barrier orders it before
 // the attention, whose items then read every slot from the cache: seven
 // grid barriers per layer.  K4 is this map at S = 1.  WT: w's unit type.
+// ks, vs: an int8 cache's [L, B / S, nk, T] scales (CT = int8_t), which the
+// slot-write phase and the items update in place with the cache.
 template <typename CT, bool VERIFY = false, typename WT = int8_t>
 static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBatchScratch& s,
                                          const QttsPlan& p, const QttsRing& ring, QttsSeq& q,
                                          int& stage, const float* x_in, float* x, CT* kc, CT* vc,
                                          int B, int T, const int64_t* pos_dev, int pos_host,
-                                         unsigned char* un, bool last_barrier, int S_arg = 1) {
+                                         unsigned char* un, bool last_barrier, int S_arg = 1,
+                                         float* ks = nullptr, float* vs = nullptr) {
   const int S = VERIFY ? S_arg : 1;  // K4 and K5: the candidates' map folds away
   const int H = w.H, I = w.I, D = w.D, nq = w.nq, nk = w.nk;
   const int qd = nq * D, A = qd + 2 * nk * D;
@@ -1842,6 +1920,7 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
   const QttsNamedSync hsync{1 + half};
   const int lane0 = 2 * blockIdx.x + half, lanes = 2 * gridDim.x;  // attention item dealing
   const size_t cache_row = (size_t)nk * T * D;  // one row of one layer
+  const size_t scale_row = (size_t)nk * T;  // its int8 scales
   const size_t part_row = (size_t)nq * s.max_splits * (D + 2);
   int gb0, nb;
   qtts_group_rows(p, gb0, nb);
@@ -1850,6 +1929,12 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
   for (int l = 0; l < w.L; ++l) {
     CT* kl = kc + (size_t)l * (B / S) * cache_row;
     CT* vl = vc + (size_t)l * (B / S) * cache_row;
+    float* ksl = qtts_int8_cache<CT> ? ks + (size_t)l * (B / S) * scale_row : nullptr;
+    float* vsl = qtts_int8_cache<CT> ? vs + (size_t)l * (B / S) * scale_row : nullptr;
+    // row b's scales (null on a bf16 or float32 cache)
+    auto srow = [&](float* base, int b) {
+      return qtts_int8_cache<CT> ? base + (size_t)(b / S) * scale_row : nullptr;
+    };
     // qkv = bf16(RMSNorm(x) * attn_norm) @ Wqkv * scale
     qtts_bprologue<QTTS_IN_NORM>((l == 0 ? x_in : x) + (size_t)gb0 * H, H,
                                  w.attn_norm + (size_t)l * H, w.eps, H, nb, act);
@@ -1864,7 +1949,7 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
     QttsBItem item;
     for (int it = lane0; qtts_bitem(it, B, nk, item); it += lanes) {
       qtts_attn_prefetch(kl + item.b / S * cache_row, vl + item.b / S * cache_row, item.h,
-                         item.split, T, item.pos, t);
+                         item.split, T, item.pos, t, srow(ksl, item.b), srow(vsl, item.b));
     }
     qtts_ring_bgemv<false, WT>(p, ring, q, QTTS_KIND_QKV, stage, act, nb, s.qkv + (size_t)gb0 * A,
                                A);
@@ -1880,7 +1965,7 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
         }
         qtts_kv_write_body<CT>(am[half], hsync, t, it % nk, it / nk, s.qkv, A,
                                w.k_norm + (size_t)l * D, w.inv_freq, kl, vl, cache_row, nq, nk, T,
-                               pos_dev, pos_host, S, w.eps);
+                               pos_dev, pos_host, S, w.eps, ksl, vsl);
       }
       qtts_phase_barrier(p);  // the new slots, before any candidate attends them
     }
@@ -1895,7 +1980,8 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
                                       w.q_norm + (size_t)l * D, w.k_norm + (size_t)l * D,
                                       w.inv_freq, kl + b / S * cache_row, vl + b / S * cache_row,
                                       part, n_splits == 1 ? attn : nullptr, nq, nk, T, pos,
-                                      s.max_splits, w.eps, w.attn_scale);
+                                      s.max_splits, w.eps, w.attn_scale, srow(ksl, b),
+                                      srow(vsl, b));
       if (n_splits == 1) continue;
       __threadfence();  // the item's partials, before its ticket
       hsync();

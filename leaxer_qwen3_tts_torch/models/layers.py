@@ -29,25 +29,43 @@ class KVCache(NamedTuple):
     k, v: [num_layers, batch, num_kv_heads, max_len, head_dim]
     length: filled slots -- one host int when the fill is uniform across the
     batch, else a [batch] int64 tensor on the cache's device.
+    k_scale, v_scale: None (bf16 / float32 cache), or float32
+    [num_layers, batch, num_kv_heads, max_len] when k and v are int8: the
+    symmetric scale of each slot's head vector.
     """
 
     k: torch.Tensor
     v: torch.Tensor
     length: Union[int, torch.Tensor]
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def scales(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """(k_scale, v_scale): the kernels' optional scale arguments."""
+        return self.k_scale, self.v_scale
+
 
 def init_kv_cache(
     cfg: TransformerConfig, batch: int, max_len: int, device: torch.device
 ) -> KVCache:
-    if cfg.kv_cache_quant:
-        raise NotImplementedError(
-            "int8 KV cache is not ported yet (ROADMAP item K1v)"
-        )
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    if cfg.kv_cache_quant:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            length=0,
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
@@ -58,11 +76,28 @@ def init_kv_cache(
 def splice_kv_cache(cache: KVCache, c1: KVCache, slot: int) -> KVCache:
     """Write the 1-stream cache ``c1`` into batch row ``slot`` of ``cache``
     (continuous-pool admission), in place.  ``cache.length`` is the pool's
-    [B] tensor; its row takes ``c1``'s fill level."""
+    [B] tensor; its row takes ``c1``'s fill level.  The scales of an int8
+    cache splice alongside."""
     cache.k[:, slot].copy_(c1.k[:, 0])
     cache.v[:, slot].copy_(c1.v[:, 0])
+    if cache.quantized:
+        cache.k_scale[:, slot].copy_(c1.k_scale[:, 0])
+        cache.v_scale[:, slot].copy_(c1.v_scale[:, 0])
     cache.length[slot] = c1.length  # a host int: filled on the device
     return cache
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., d] float -> (int8 [..., d], float32 scale [...]), symmetric per
+    vector: scale = max(amax / 127, 1e-8), q = clip(round(x / scale), +-127)
+    in float32, rounding half to even (as ``jnp.round``).  Both divisions are
+    elementwise by a tensor, so that no device turns them into a product
+    with a reciprocal."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +227,8 @@ def _block(
     sin: torch.Tensor,
     k_cache: torch.Tensor,  # [B, Nk, T, D] (one layer's view; written in place)
     v_cache: torch.Tensor,
+    ks_cache: Optional[torch.Tensor],  # float32 [B, Nk, T] int8 scales, or None
+    vs_cache: Optional[torch.Tensor],
     cache_len,  # host int (uniform fill) or [B, S] slot indices (per-row fill)
     attn_mask: torch.Tensor,  # [B, S, T] bool
 ) -> torch.Tensor:
@@ -208,16 +245,27 @@ def _block(
         k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if ks_cache is not None:
+        # int8 cache: the post-RoPE K/V per (token, head) on the int8 grid
+        k, k_sc = quantize_kv(k)  # [B, S, nk, d] int8, [B, S, nk] float32
+        v, v_sc = quantize_kv(v)
 
     if isinstance(cache_len, int):
         k_cache[:, :, cache_len : cache_len + S] = k.transpose(1, 2).to(k_cache.dtype)
         v_cache[:, :, cache_len : cache_len + S] = v.transpose(1, 2).to(v_cache.dtype)
+        if ks_cache is not None:
+            ks_cache[:, :, cache_len : cache_len + S] = k_sc.transpose(1, 2)
+            vs_cache[:, :, cache_len : cache_len + S] = v_sc.transpose(1, 2)
     else:
         rows = torch.arange(B, device=x.device)[:, None]
         k_cache[rows, :, cache_len] = k.to(k_cache.dtype)  # [B, S, nk, d]
         v_cache[rows, :, cache_len] = v.to(v_cache.dtype)
+        if ks_cache is not None:
+            ks_cache[rows, :, cache_len] = k_sc  # [B, S, nk]
+            vs_cache[rows, :, cache_len] = v_sc
 
-    out = attend(q, k_cache, v_cache, attn_mask, impl=cfg.attn_impl).reshape(B, S, nq * d)
+    out = attend(q, k_cache, v_cache, attn_mask, impl=cfg.attn_impl,
+                 k_scale=ks_cache, v_scale=vs_cache).reshape(B, S, nq * d)
     x = x + dense(out, p["wo"]).to(x.dtype)
     h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
     return x + _mlp(cfg, p, h)
@@ -271,10 +319,12 @@ def transformer_forward(
 
     x = embeds
     layers = params["layers"]
+    q8 = cache.quantized
     for i in range(cfg.num_layers):
         x = _block(
-            cfg, layer_params(layers, i), x, cos, sin,
-            cache.k[i], cache.v[i], write_at, attn_mask,
+            cfg, layer_params(layers, i), x, cos, sin, cache.k[i], cache.v[i],
+            cache.k_scale[i] if q8 else None, cache.v_scale[i] if q8 else None,
+            write_at, attn_mask,
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, cache._replace(length=length + S), valid_mask

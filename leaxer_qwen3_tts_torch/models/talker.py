@@ -111,12 +111,13 @@ def talker_decode_step(
         if uniform_fill:
             pos = min(int(cache.length), T - 1)
         if B == 1 and uniform_fill:
-            x_out, _, _ = fused_decode_step(t, params["fused_step"], embed, pos, cache.k, cache.v)
+            x_out = fused_decode_step(t, params["fused_step"], embed, pos, cache.k, cache.v,
+                                      *cache.scales)[0]
         else:
-            x_out, _, _ = fused_decode_step_batched(
+            x_out = fused_decode_step_batched(
                 t, params["fused_step"], embed, pos if uniform_fill else position,
-                cache.k, cache.v,
-            )
+                cache.k, cache.v, *cache.scales,
+            )[0]
         hidden = rms_norm(
             x_out, params["transformer"]["final_norm"], t.rms_norm_eps
         ).to(embed.dtype)
@@ -166,7 +167,8 @@ def talker_verify_step(
     new = (slots[None, :] >= start[:, None]) & (slots[None, :] < start[:, None] + K)
     if (cfg.decode_impl == "fused" and "fused_step" in params and B * K <= MAX_BATCH
             and MIN_S <= K <= MAX_S):
-        x_out, _, _ = fused_verify_step(t, params["fused_step"], embeds, start, cache.k, cache.v)
+        x_out = fused_verify_step(t, params["fused_step"], embeds, start, cache.k, cache.v,
+                                  *cache.scales)[0]
         fn = params["transformer"]["final_norm"]
         hidden = [rms_norm(x_out[:, s].contiguous(), fn, t.rms_norm_eps).to(embeds.dtype)
                   for s in range(K)]

@@ -140,7 +140,7 @@ class FrameArgs(ctypes.Structure):
         *[(name, ctypes.c_void_p) for name in (
             "talker_norm", "lm", "lm_scale", "codec", "last_logits", "suppress", "g0",
             "last_hidden", "drip", "k_cache", "v_cache", "x", "c0e", "lh", "codes", "logits",
-            "hidden")],
+            "hidden", "k_scale", "v_scale")],
         *[(name, ctypes.c_int32) for name in (
             "cache_bf16", "lh_bf16", "drip_bf16", "T", "pos", "Vc", "eos", "forbid_eos")],
     ]
@@ -213,7 +213,7 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_error_string.argtypes = [i32]
             W, S, P = (ctypes.POINTER(t) for t in (StepWeights, StepScratch, Plan))
             lib.qtts_decode_step.restype = i32
-            lib.qtts_decode_step.argtypes = [W, S, P, vp, vp, vp, vp, i32, i32, i32, vp]
+            lib.qtts_decode_step.argtypes = [W, S, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
             lib.qtts_decode_step_multi.restype = i32
             lib.qtts_decode_step_multi.argtypes = [W, S, vp, vp, vp, vp, i32, i32, i32, vp]
             lib.qtts_mtp_chain.restype = i32
@@ -226,7 +226,7 @@ def load_kernels() -> ctypes.CDLL:
             BS, CB = ctypes.POINTER(BatchScratch), ctypes.POINTER(ChainBatchArgs)
             lib.qtts_decode_step_batched.restype = i32
             lib.qtts_decode_step_batched.argtypes = [
-                W, BS, P, vp, vp, vp, vp, i32, i32, i32, vp, i32, vp,
+                W, BS, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp, i32, vp,
             ]
             lib.qtts_decode_step_batched_multi.restype = i32
             lib.qtts_decode_step_batched_multi.argtypes = [
@@ -258,7 +258,7 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_unit_probe_ring.argtypes = [vp, vp, vp, vp, vp, vp, *([i32] * 14), vp]
             lib.qtts_verify_step.restype = i32
             lib.qtts_verify_step.argtypes = [
-                W, BS, P, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,
+                W, BS, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,
             ]
             lib.qtts_verify_step_multi.restype = i32
             lib.qtts_verify_step_multi.argtypes = [

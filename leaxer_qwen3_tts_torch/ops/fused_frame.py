@@ -12,7 +12,8 @@ call runs the whole frame, in the JAX kernel's order:
     x:      c0e + sub_sum + drip in float32, with no cast (the multi-dispatch
             path rounds it to the embedding dtype first);
     talker: one step through every talker layer at min(pos, T - 1) (kernel
-            K1's function), the caches updated in place;
+            K1's function), the caches updated in place (an int8 cache with
+            its scales: K1's int8-cache step);
     head:   hidden = RMSNorm(x) * final_norm (float32) and the lm_head as
             bf16(hidden) . bf16(int8 rows) * scale.
 
@@ -23,7 +24,9 @@ launches the hand-written persistent kernel (``csrc/fused_frame.cu``: the
 transport of K1 and K2 on a plan of two weight sets, ``ops/persistent.py``);
 on a CPU tensor it runs :func:`fused_frame_step_reference`, the plain
 PyTorch version.  The kernel launch is cooperative: a card that cannot hold
-the grid at once raises, and nothing runs in its place.
+the grid at once raises, and nothing runs in its place.  The kernel keeps
+the chain's cache in the talker cache's dtype, or in bf16 beside an int8
+talker cache.
 """
 
 from __future__ import annotations
@@ -45,11 +48,14 @@ from .fused_mtp import (
     trunk_bytes,
 )
 from .fused_step import (
+    WINDOW,
     FusedStepWeights,
     _check_cuda_inputs,
     _gemv,
     _rms,
+    _with_scales,
     fused_decode_step_reference,
+    scale_ptrs,
     step_structs,
     supports,
 )
@@ -58,18 +64,21 @@ from ..runtime.sampling import clamp_temperature
 # The JAX kernel's fixed VMEM beyond the resident trunk (its _FRAME_FIXED),
 # kept as the port's gate: the trunk sizes the TPU frame kernel takes.
 FRAME_FIXED_BYTES = 24 * 1024 * 1024
-WINDOW = 512  # the JAX talker step's long-form cache window
 
 
-def supports_frame(mfw: FusedStepWeights, T: int, cfg: TransformerConfig) -> bool:
-    """The JAX gate (``supports_frame`` without int8 KV): an int8 MTP trunk,
-    a talker bucket of at most 512 slots or a multiple of 512, an
-    architecture the step kernel takes, and the trunk plus the fixed buffers
-    within the TPU's resident budget (0.6B: 78 MB passes; 1.7B: 302 MB does
-    not)."""
+def supports_frame(mfw: FusedStepWeights, T: int, cfg: TransformerConfig,
+                   kvq: bool = False) -> bool:
+    """The JAX gate (``supports_frame``): an int8 MTP trunk, a talker bucket
+    of at most 512 slots (128-aligned under an int8 KV cache, ``kvq``) or a
+    multiple of 512, an architecture the step kernel takes, and the trunk
+    plus the fixed buffers within the TPU's resident budget (0.6B: 78 MB
+    passes; 1.7B: 302 MB does not)."""
     if mfw.wqkv.dtype != torch.int8:
         return False
-    if T > 512 and T % WINDOW != 0:
+    if T <= 512:
+        if kvq and T % 128 != 0:
+            return False
+    elif T % WINDOW != 0:
         return False
     if not supports(cfg):
         return False
@@ -110,6 +119,8 @@ def fused_frame_step_reference(
     top_p: float,
     forbid_eos: bool,
     mtp_cache_dtype: torch.dtype = torch.float32,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the kernel; same contract."""
     pos = min(int(pos), k_cache.shape[3] - 1)
@@ -121,10 +132,11 @@ def fused_frame_step_reference(
         top_p, mtp_cache_dtype,
     )
     x = c0e + sub_sum + drip.float()
-    x, _, _ = fused_decode_step_reference(tcfg, tfw, x, pos, k_cache, v_cache)
+    x = fused_decode_step_reference(tcfg, tfw, x, pos, k_cache, v_cache, k_scale, v_scale)[0]
     hidden = _rms(x, talker_fnorm.float(), tcfg.rms_norm_eps)
     logits = _gemv(hidden, lm_head.q, lm_head.scale)
-    return code0.to(torch.int32), subcodes, logits, hidden, k_cache, v_cache
+    return _with_scales((code0.to(torch.int32), subcodes, logits, hidden, k_cache, v_cache),
+                        k_scale, v_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +144,14 @@ def fused_frame_step_reference(
 # ---------------------------------------------------------------------------
 
 
+def chain_cache_dtype(cache_dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the chain's cache beside a talker cache of ``cache_dtype``."""
+    return torch.bfloat16 if cache_dtype == torch.int8 else cache_dtype
+
+
 class _Entry:
     """The argument struct, scratch, chain caches and plan of one (packs,
-    cache bucket, cache dtype) for a frame entry on one stream of one
+    cache bucket, talker cache dtype) for a frame entry on one stream of one
     thread: built once, then a call sets its inputs, outputs, norms and knobs
     (two threads never share one).  ``plan``: the persistent frame's (K7),
     else None."""
@@ -151,10 +168,10 @@ class _Entry:
         self.buf = torch.empty(6 * H + V, dtype=torch.float32, device=device)
         x, mx, mx_in, sub_sum, c0e, lh, head_logits = torch.split(self.buf, [H] * 6 + [V])
         self.work = {"x": x, "sub_sum": sub_sum, "c0e": c0e}
-        self.mk = torch.empty((Lm, nk, n + 2, d), dtype=cache_dtype, device=device)
+        self.mk = torch.empty((Lm, nk, n + 2, d), dtype=chain_cache_dtype(cache_dtype),
+                              device=device)
         self.mv = torch.empty_like(self.mk)
         self.scratch = (t_scratch, m_scratch)
-        bf16 = int(cache_dtype == torch.bfloat16)
         a = FrameArgs()
         a.tw, a.ts, a.mw, a.ms = tw, ts, mw, ms
         c = a.mc  # shares a's memory
@@ -163,11 +180,12 @@ class _Entry:
         c.last_hidden, c.code0_embed = lh.data_ptr(), c0e.data_ptr()
         c.sub_sum, c.x, c.x_in, c.logits = (t.data_ptr() for t in (sub_sum, mx, mx_in, head_logits))
         c.k_cache, c.v_cache = self.mk.data_ptr(), self.mv.data_ptr()
-        c.cache_bf16, c.n, c.V, c.Vt = bf16, n, V, tables.shape[1]
+        c.cache_bf16 = int(self.mk.dtype == torch.bfloat16)
+        c.n, c.V, c.Vt = n, V, tables.shape[1]
         a.lm, a.lm_scale = lm_head.q.data_ptr(), lm_head.scale.data_ptr()
         a.codec = codec_table.data_ptr()
         a.x, a.c0e, a.lh = x.data_ptr(), c0e.data_ptr(), lh.data_ptr()
-        a.cache_bf16, a.T, a.Vc, a.eos = bf16, T, Vc, CODEC_EOS
+        a.cache_bf16, a.T, a.Vc, a.eos = int(cache_dtype == torch.bfloat16), T, Vc, CODEC_EOS
         self.args = a
         self.plan = persistent.device_plan(mcfg, device, head_rows=V, talker=tcfg,
                                            lm_rows=Vc) if planned else None
@@ -197,13 +215,13 @@ def _entry(entry: str, tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables
 
 
 def _check_frame_inputs(tfw, mfw, lm_head, codec_table, heads, tables, k_cache, v_cache,
-                        mtp_cache_dtype) -> None:
-    _check_cuda_inputs(tfw, k_cache, v_cache)
-    _check_cuda_inputs(mfw, k_cache, v_cache)
-    if mtp_cache_dtype != k_cache.dtype:
+                        k_scale, v_scale, mtp_cache_dtype) -> None:
+    _check_cuda_inputs(tfw, k_cache, v_cache, False, k_scale, v_scale, window=True)
+    _check_cuda_inputs(mfw, k_cache, v_cache, False, k_scale, v_scale, window=True)
+    if mtp_cache_dtype != chain_cache_dtype(k_cache.dtype):
         raise NotImplementedError(
-            f"the frame kernel keeps the chain's cache in the talker cache dtype ({k_cache.dtype}), "
-            f"not {mtp_cache_dtype}"
+            f"the frame kernel keeps the chain's cache in {chain_cache_dtype(k_cache.dtype)} "
+            f"beside a {k_cache.dtype} talker cache, not in {mtp_cache_dtype}"
         )
     if codec_table.dtype != torch.bfloat16 or tables.dtype != torch.bfloat16:
         raise NotImplementedError(
@@ -242,27 +260,26 @@ def fused_frame_step(
     top_k: int,
     top_p: float,
     forbid_eos: bool,
-    k_scale=None,
-    v_scale=None,
+    k_scale: Optional[torch.Tensor] = None,  # float32 [L, 1, nk, T] (int8 talker cache)
+    v_scale: Optional[torch.Tensor] = None,
     mtp_cache_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, ...]:
     """One whole 12 Hz frame.
 
     Returns (code0 [1] int32, subcodes [1, n] int32, logits [1, Vc] f32,
-    hidden [1, H] f32, k_cache, v_cache); the caches are updated in place."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP item K1v)")
+    hidden [1, H] f32, k_cache, v_cache[, k_scale, v_scale]); the caches
+    (and scales) are updated in place."""
     T = k_cache.shape[3]
     pos = min(int(pos), T - 1)
     args = (tcfg, mcfg, tfw, talker_fnorm, lm_head, codec_table, mfw, mtp_fnorm, heads, tables)
     if last_logits.device.type == "cpu":
         return fused_frame_step_reference(
             *args, last_logits, last_hidden, suppress, drip, pos, k_cache, v_cache, g0, gumbel,
-            temperature, top_k, top_p, forbid_eos, mtp_cache_dtype,
+            temperature, top_k, top_p, forbid_eos, mtp_cache_dtype, k_scale, v_scale,
         )
     return _launch_frame(fused_frame_step, "qtts_frame_step", *args, last_logits, last_hidden,
                          suppress, drip, pos, k_cache, v_cache, g0, gumbel, temperature, top_k,
-                         top_p, forbid_eos, mtp_cache_dtype)
+                         top_p, forbid_eos, mtp_cache_dtype, k_scale, v_scale)
 
 
 fused_frame_step.launches = 0  # kernel launches, for chip_smoke.py's path check
@@ -271,18 +288,21 @@ fused_frame_step.launches = 0  # kernel launches, for chip_smoke.py's path check
 def _launch_frame(wrapper, entry: str, tcfg, mcfg, tfw, talker_fnorm, lm_head, codec_table, mfw,
                   mtp_fnorm, heads, tables, last_logits, last_hidden, suppress, drip, pos,
                   k_cache, v_cache, g0, gumbel, temperature, top_k, top_p, forbid_eos,
-                  mtp_cache_dtype):
+                  mtp_cache_dtype, k_scale=None, v_scale=None):
     """Launch a frame entry (``qtts_frame_step``: K7, persistent, with its
-    plan; ``qtts_frame_step_multi``: the launch-per-op frame kernel) on CUDA
-    tensors, counting the launch on ``wrapper``."""
+    plan; ``qtts_frame_step_multi``: the launch-per-op frame kernel, on a
+    bf16 or float32 talker cache) on CUDA tensors, counting the launch on
+    ``wrapper``."""
     what = wrapper.__name__
     if last_logits.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {last_logits.device}")
     greedy = temperature <= 0.0
     if not greedy and (g0 is None or gumbel is None):
         raise ValueError("a sampled frame needs Gumbel noise g0 [1, Vc] and gumbel [n, 1, V]")
+    if entry.endswith("_multi") and k_scale is not None:
+        raise NotImplementedError(f"{what}: the launch-per-op frame takes no int8 cache")
     _check_frame_inputs(tfw, mfw, lm_head, codec_table, heads, tables, k_cache, v_cache,
-                        mtp_cache_dtype)
+                        k_scale, v_scale, mtp_cache_dtype)
     from ._build import check, load_kernels
 
     lib = load_kernels()
@@ -322,6 +342,7 @@ def _launch_frame(wrapper, entry: str, tcfg, mcfg, tfw, talker_fnorm, lm_head, c
     a.last_hidden, a.drip = lh.data_ptr(), dr.data_ptr()
     a.lh_bf16, a.drip_bf16 = int(lh.dtype == torch.bfloat16), int(dr.dtype == torch.bfloat16)
     a.k_cache, a.v_cache = k_cache.data_ptr(), v_cache.data_ptr()
+    a.k_scale, a.v_scale = scale_ptrs(k_scale, v_scale)
     a.codes, c.subcodes = codes.data_ptr(), codes.data_ptr() + codes.element_size()
     a.logits, a.hidden = logits.data_ptr(), hidden.data_ptr()
     a.pos, a.forbid_eos = pos, int(bool(forbid_eos))
@@ -334,8 +355,8 @@ def _launch_frame(wrapper, entry: str, tcfg, mcfg, tfw, talker_fnorm, lm_head, c
     else:
         err = getattr(lib, entry)(a, e.plan.struct, stream)
     check(err, what)
-    return (codes[:1], codes[1:].reshape(1, n), logits.reshape(1, Vc), hidden.reshape(1, H),
-            k_cache, v_cache)
+    return _with_scales((codes[:1], codes[1:].reshape(1, n), logits.reshape(1, Vc),
+                         hidden.reshape(1, H), k_cache, v_cache), k_scale, v_scale)
 
 
 def _packs_entry(args, entry: str = "qtts_frame_step") -> _Entry:

@@ -13,6 +13,16 @@ for the whole batch, and its row b is K1's arithmetic on that row.
 Unlike the JAX kernel, which returns new arrays, the caches are updated IN
 PLACE (and returned for the same call shape).
 
+An int8 KV cache (the JAX kernels' ``kvq`` mode) comes with float32 scales
+``k_scale`` / ``v_scale`` [L, B, nk, T], one per (slot, kv head): the new
+slot is quantized as ``models.layers.quantize_kv`` quantizes it (per head
+vector, after QK-norm and RoPE for k), the scores are multiplied by the
+slots' k scales after the 1/sqrt(d) factor, and the softmax weights by the
+slots' v scales before the weights.V product (the normaliser sums the
+weights without them).  The scales are updated in place too, and returned
+after the caches, as the JAX wrappers return them.  The card takes JAX's
+bucket gates for such a cache (:func:`kvq_bucket_ok`) and raises elsewhere.
+
 On a CUDA tensor :func:`fused_decode_step` launches the hand-written kernel
 (``csrc/fused_step.cu``: the whole step in one persistent cooperative launch,
 its weights streamed through a TMA ring by the plan of ``ops/persistent.py``)
@@ -38,12 +48,12 @@ from __future__ import annotations
 import math
 import threading
 from collections import OrderedDict
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import TransformerConfig
-from ..models.layers import rope_inv_freq
+from ..models.layers import quantize_kv, rope_inv_freq
 from . import persistent
 from ._build import MAX_BATCH
 from .quant import QuantizedLinear, quantize_weight
@@ -69,6 +79,7 @@ class FusedStepWeights(NamedTuple):
 
 
 UNIT_DTYPES = {8: torch.int8, 16: torch.bfloat16}  # bits -> the units' dtype
+WINDOW = 512  # the JAX talker step's long-form cache window
 
 
 def meta_pack(cfg: TransformerConfig, bits: int = 8) -> FusedStepWeights:
@@ -194,6 +205,45 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def _store_slot(caches, where, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write the new k and v at ``where`` (an index of one layer's [B, nk,
+    T] slots) of ``caches`` = (k_cache, v_cache, k_scale, v_scale), rounded
+    to the cache dtype, or onto the int8 grid with their scales."""
+    k_cache, v_cache, k_scale, v_scale = caches
+    if k_scale is not None:
+        k, k_scale[where] = quantize_kv(k)
+        v, v_scale[where] = quantize_kv(v)
+    k_cache[where] = k.to(k_cache.dtype)
+    v_cache[where] = v.to(v_cache.dtype)
+
+
+def _attend_slots(q, caches, b: int, end: int, scale: float) -> torch.Tensor:
+    """Row b's attention of q [nk, g, d] over its slots 0..end-1 of one
+    layer's ``caches`` (k, v and, int8, their scales)."""
+    kc, vc, ks, vs = caches
+    K, V = kc[b, :, :end].float(), vc[b, :, :end].float()  # [nk, end, d]
+    scores = torch.einsum("ngd,ntd->ngt", q, K) * scale
+    if ks is not None:
+        scores = scores * ks[b, :, None, :end]
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        w = w * vs[b, :, None, :end]
+    return torch.einsum("ngt,ntd->ngd", w, V)
+
+
+def _layer_caches(l: int, k_cache, v_cache, k_scale, v_scale) -> tuple:
+    """Layer l's (k, v, k scale, v scale) views (scales None unless int8)."""
+    if k_scale is None:
+        return k_cache[l], v_cache[l], None, None
+    return k_cache[l], v_cache[l], k_scale[l], v_scale[l]
+
+
+def _with_scales(out: tuple, k_scale, v_scale) -> tuple:
+    """A wrapper's result: the scales follow the caches when given."""
+    return out if k_scale is None else out + (k_scale, v_scale)
+
+
 def fused_decode_step_reference(
     cfg: TransformerConfig,
     fw: FusedStepWeights,
@@ -201,7 +251,9 @@ def fused_decode_step_reference(
     pos: int,
     k_cache: torch.Tensor,  # [L, 1, nk, T, d], updated in place
     v_cache: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scale: Optional[torch.Tensor] = None,  # float32 [L, 1, nk, T] (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple:
     """Plain PyTorch version of the kernel; same contract."""
     nq, nk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = nq // nk
@@ -219,21 +271,16 @@ def fused_decode_step_reference(
         v = qkv[qd + kvd :].reshape(nk, d)
         q = _rope(q, cos, sin)
         k = _rope(k, cos, sin)
-        k_cache[l, 0, :, pos] = k.to(k_cache.dtype)
-        v_cache[l, 0, :, pos] = v.to(v_cache.dtype)
-        K = k_cache[l, 0, :, : pos + 1].float()  # [nk, pos+1, d]
-        V = v_cache[l, 0, :, : pos + 1].float()
-        scores = torch.einsum("ngd,ntd->ngt", q.reshape(nk, g, d), K) * scale
-        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-        w = e / e.sum(dim=-1, keepdim=True)
-        attn = torch.einsum("ngt,ntd->ngd", w, V).reshape(1, qd)
+        caches = _layer_caches(l, k_cache, v_cache, k_scale, v_scale)
+        _store_slot(caches, (0, slice(None), pos), k, v)
+        attn = _attend_slots(q.reshape(nk, g, d), caches, 0, pos + 1, scale).reshape(1, qd)
         x = x + _gemv(attn, fw.wo[l], fw.so[l])
         h = _rms(x, fw.mlp_norm[l], eps)
         gu = _gemv(h, fw.wgu[l], fw.sgu[l])
         gate, up = gu[:, :I], gu[:, I:]
         act = gate * (1.0 / (1.0 + torch.exp(-gate))) * up
         x = x + _gemv(act, fw.wd[l], fw.sd[l])
-    return x, k_cache, v_cache
+    return _with_scales((x, k_cache, v_cache), k_scale, v_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -246,26 +293,53 @@ def unit_bytes(fw: FusedStepWeights) -> int:
     return fw.wqkv.element_size()
 
 
-def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool = False) -> None:
+def kvq_bucket_ok(T: int, window: bool = False) -> bool:
+    """The JAX kernels' bucket gates for an int8 KV cache: 128-aligned (the
+    scale rows' slot windows: K1 and K4), and with ``window`` (K6 and K7)
+    beyond 512 slots a multiple of the 512-slot window."""
+    return T % 128 == 0 and (not window or T <= 512 or T % WINDOW == 0)
+
+
+def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool = False,
+                       k_scale=None, v_scale=None, window: bool = False) -> None:
     """The checks every kernel wrapper makes; ``bf16_units``: the kernel
-    takes bf16 packs besides int8 (K1, K3, K4, K5)."""
-    if k_cache.dtype not in (torch.bfloat16, torch.float32) or v_cache.dtype != k_cache.dtype:
-        raise NotImplementedError(
-            f"KV cache dtype {k_cache.dtype}: the int8-KV kernel is ROADMAP item K1v"
-        )
+    takes bf16 packs besides int8 (K1, K3, K4, K5).  An int8 cache comes
+    with its float32 scales and meets :func:`kvq_bucket_ok` (``window``:
+    K6's and K7's gate)."""
+    if k_cache.dtype not in (torch.bfloat16, torch.float32, torch.int8) or (
+            v_cache.dtype != k_cache.dtype):
+        raise NotImplementedError(f"KV cache dtype {k_cache.dtype}: the kernels take bfloat16, "
+                                  "float32 and int8 caches")
+    scales = [t for t in (k_scale, v_scale) if t is not None]
+    if (k_cache.dtype == torch.int8) != (len(scales) == 2) or len(scales) == 1:
+        raise ValueError("an int8 KV cache needs its k and v scales, and only an int8 one")
+    if scales:
+        if any(t.dtype != torch.float32 or t.shape != k_cache.shape[:-1] for t in scales):
+            raise ValueError(f"int8 KV scales must be float32 {tuple(k_cache.shape[:-1])}")
+        T = k_cache.shape[3]
+        if not kvq_bucket_ok(T, window):
+            raise ValueError(
+                f"int8 KV fused decode needs the bucket ({T}) 128-aligned"
+                + (" (and beyond 512 slots a multiple of 512)" if window else "")
+                + "; the engine rounds its top bucket so")
     units = (torch.int8, torch.bfloat16) if bf16_units else (torch.int8,)
     if fw.wqkv.dtype not in units or any(w.dtype != fw.wqkv.dtype for w in (fw.wo, fw.wgu, fw.wd)):
         raise NotImplementedError(
             f"{fw.wqkv.dtype} units: this kernel takes {' and '.join(str(u)[6:] for u in units)} "
             "packs (int4 units, and bf16 units in K2, K6 and K7: ROADMAP item K1v-b / K2v)"
         )
-    for t in (*fw, k_cache, v_cache):
+    for t in (*fw, k_cache, v_cache, *scales):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("fused_decode_step: every tensor must be contiguous and on CUDA")
     # the persistent kernels' bulk copies move 16-byte-aligned runs of rows
     # and scales out of every pack tensor
     if any(t.data_ptr() % 16 for t in fw):
         raise ValueError("fused_decode_step: the pack's tensors must be 16-byte aligned")
+
+
+def scale_ptrs(k_scale, v_scale) -> tuple:
+    """The entries' scale pointers: an int8 cache's scales, else null."""
+    return (None, None) if k_scale is None else (k_scale.data_ptr(), v_scale.data_ptr())
 
 
 def _weights_struct(cfg: TransformerConfig, fw: FusedStepWeights):
@@ -334,19 +408,21 @@ def fused_decode_step(
     pos: int,
     k_cache: torch.Tensor,  # [L, 1, nk, T, d]
     v_cache: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scale: Optional[torch.Tensor] = None,  # float32 [L, 1, nk, T] (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple:
     """One fused decode step over all layers.
 
-    Returns (x_out [1, H] float32 pre-final-norm, k_cache, v_cache); the
-    caches are updated in place.  ``pos`` is clamped to the last slot like
-    the reference."""
+    Returns (x_out [1, H] float32 pre-final-norm, k_cache, v_cache[,
+    k_scale, v_scale]); the caches (and scales) are updated in place.
+    ``pos`` is clamped to the last slot like the reference."""
     T = k_cache.shape[3]
     pos = min(int(pos), T - 1)
     if x.device.type == "cpu":
-        return fused_decode_step_reference(cfg, fw, x, pos, k_cache, v_cache)
+        return fused_decode_step_reference(cfg, fw, x, pos, k_cache, v_cache, k_scale, v_scale)
     if x.device.type != "cuda":
         raise ValueError(f"fused_decode_step: unsupported device {x.device}")
-    _check_cuda_inputs(fw, k_cache, v_cache, bf16_units=True)
+    _check_cuda_inputs(fw, k_cache, v_cache, True, k_scale, v_scale)
     from ._build import check, load_kernels
 
     lib = load_kernels()
@@ -357,11 +433,11 @@ def fused_decode_step(
     fused_decode_step.launches += 1
     err = lib.qtts_decode_step(
         entry.w, entry.s, entry.plan.struct, x_in.data_ptr(), x_out.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), int(k_cache.dtype == torch.bfloat16), T, pos,
-        stream,
+        k_cache.data_ptr(), v_cache.data_ptr(), *scale_ptrs(k_scale, v_scale),
+        int(k_cache.dtype == torch.bfloat16), T, pos, stream,
     )
     check(err, "fused_decode_step")
-    return x_out, k_cache, v_cache
+    return _with_scales((x_out, k_cache, v_cache), k_scale, v_scale)
 
 
 fused_decode_step.launches = 0  # kernel launches, for chip_smoke.py's path check
@@ -386,7 +462,9 @@ def fused_decode_step_batched_reference(
     pos,  # [B] int tensor, or one int for every row
     k_cache: torch.Tensor,  # [L, B, nk, T, d], updated in place
     v_cache: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scale: Optional[torch.Tensor] = None,  # float32 [L, B, nk, T] (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple:
     """Plain PyTorch version of kernel K4; same contract.  Row b is the B=1
     plain step on row b (its products and its attention row by row)."""
     B = x.shape[0]
@@ -411,23 +489,17 @@ def fused_decode_step_batched_reference(
         v = qkv[:, qd + kvd :].reshape(B, nk, d)
         q = _rope(q, cos, sin)
         k = _rope(k, cos, sin)
-        k_cache[l, rows, :, pos] = k.to(k_cache.dtype)
-        v_cache[l, rows, :, pos] = v.to(v_cache.dtype)
-        attn = []
-        for b, end in enumerate(ends):  # B=1's attention, row by row
-            K = k_cache[l, b, :, :end].float()  # [nk, end, d]
-            V = v_cache[l, b, :, :end].float()
-            scores = torch.einsum("ngd,ntd->ngt", q[b].reshape(nk, g, d), K) * scale
-            e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-            w = e / e.sum(dim=-1, keepdim=True)
-            attn.append(torch.einsum("ngt,ntd->ngd", w, V).reshape(qd))
+        caches = _layer_caches(l, k_cache, v_cache, k_scale, v_scale)
+        _store_slot(caches, (rows, slice(None), pos), k, v)
+        attn = [_attend_slots(q[b].reshape(nk, g, d), caches, b, end, scale).reshape(qd)
+                for b, end in enumerate(ends)]  # B=1's attention, row by row
         x = x + _gemv_rows(torch.stack(attn), fw.wo[l], fw.so[l])
         h = _rms(x, fw.mlp_norm[l], eps)
         gu = _gemv_rows(h, fw.wgu[l], fw.sgu[l])
         gate, up = gu[:, :I], gu[:, I:]
         act = gate * (1.0 / (1.0 + torch.exp(-gate))) * up
         x = x + _gemv_rows(act, fw.wd[l], fw.sd[l])
-    return x, k_cache, v_cache
+    return _with_scales((x, k_cache, v_cache), k_scale, v_scale)
 
 
 def batch_structs(cfg: TransformerConfig, fw: FusedStepWeights, B: int, T: int, device):
@@ -485,25 +557,30 @@ def fused_decode_step_batched(
     pos,  # [B] int tensor on x's device (per-row), or one int (every row)
     k_cache: torch.Tensor,  # [L, B, nk, T, d]
     v_cache: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scale: Optional[torch.Tensor] = None,  # float32 [L, B, nk, T] (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple:
     """One fused decode step of B streams over all layers.
 
-    Returns (x_out [B, H] float32 pre-final-norm, k_cache, v_cache); the
-    caches are updated in place.  Positions past the last slot are clamped
-    to it.  A position tensor stays on the device: the kernel reads it, so
-    the step needs no host sync."""
+    Returns (x_out [B, H] float32 pre-final-norm, k_cache, v_cache[,
+    k_scale, v_scale]); the caches (and scales) are updated in place.
+    Positions past the last slot are clamped to it.  A position tensor
+    stays on the device: the kernel reads it, so the step needs no host
+    sync."""
     if x.device.type == "cpu":
-        return fused_decode_step_batched_reference(cfg, fw, x, pos, k_cache, v_cache)
+        return fused_decode_step_batched_reference(cfg, fw, x, pos, k_cache, v_cache, k_scale,
+                                                   v_scale)
     return _launch_step_batched(fused_decode_step_batched, "qtts_decode_step_batched", cfg, fw, x,
-                                pos, k_cache, v_cache)
+                                pos, k_cache, v_cache, k_scale, v_scale)
 
 
 def _launch_step_batched(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeights,
-                         x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor):
+                         x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         k_scale=None, v_scale=None):
     """Launch a batched step entry (``qtts_decode_step_batched``: K4,
     persistent, with its cached plan; ``qtts_decode_step_batched_multi``:
-    the launch-per-op sequence) on CUDA tensors, counting the launch on
-    ``wrapper``."""
+    the launch-per-op sequence, int8 units on a bf16 or float32 cache) on
+    CUDA tensors, counting the launch on ``wrapper``."""
     what = wrapper.__name__
     B, T = x.shape[0], k_cache.shape[3]
     if x.device.type != "cuda":
@@ -511,7 +588,9 @@ def _launch_step_batched(wrapper, entry: str, cfg: TransformerConfig, fw: FusedS
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"{what} takes 1..{MAX_BATCH} rows, got {B}")
     planned = entry == "qtts_decode_step_batched"  # the _multi sequence takes int8 only
-    _check_cuda_inputs(fw, k_cache, v_cache, bf16_units=planned)
+    if not planned and k_scale is not None:
+        raise NotImplementedError(f"{what}: the launch-per-op sequence takes no int8 cache")
+    _check_cuda_inputs(fw, k_cache, v_cache, planned, k_scale, v_scale)
     from ._build import check, load_kernels
 
     lib = load_kernels()
@@ -530,16 +609,17 @@ def _launch_step_batched(wrapper, entry: str, cfg: TransformerConfig, fw: FusedS
     else:
         pos_ptr, pos_host = None, min(int(pos), T - 1)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            int(k_cache.dtype == torch.bfloat16), B, T, pos_ptr, pos_host, stream)
+    caches = (x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+    args = (int(k_cache.dtype == torch.bfloat16), B, T, pos_ptr, pos_host, stream)
     wrapper.launches += 1
     if planned:
-        err = lib.qtts_decode_step_batched(w, s, e.plan.struct, *args)
+        err = lib.qtts_decode_step_batched(w, s, e.plan.struct, *caches,
+                                           *scale_ptrs(k_scale, v_scale), *args)
     else:
-        err = lib.qtts_decode_step_batched_multi(w, s, *args)
+        err = lib.qtts_decode_step_batched_multi(w, s, *caches, *args)
     check(err, what)
     del scratch  # enqueued; the caching allocator orders reuse on the stream
-    return x_out, k_cache, v_cache
+    return _with_scales((x_out, k_cache, v_cache), k_scale, v_scale)
 
 
 fused_decode_step_batched.launches = 0  # kernel launches, for chip_smoke.py's path check

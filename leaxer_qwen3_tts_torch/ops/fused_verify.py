@@ -16,14 +16,17 @@ plain version, and the CUDA kernel (``csrc/fused_verify.cu``: one persistent
 cooperative launch per pass, K4's transport on a plan of B * S rows) does
 K4's arithmetic for every row, op for op.  On a CUDA tensor
 :func:`fused_verify_step` launches the kernel or raises; on a CPU tensor it
-runs the plain version.
+runs the plain version.  An int8 cache comes with its scales (the JAX
+kernel's ``kvq`` mode): the slot-write phase quantizes each row's new slot
+as K4 does and writes its scales before the phase's barrier, and the
+scales are updated in place and returned after the caches.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,8 +37,10 @@ from .fused_step import (
     _MAX_ENTRIES,
     FusedStepWeights,
     _check_cuda_inputs,
+    _with_scales,
     batch_structs,
     fused_decode_step_batched_reference,
+    scale_ptrs,
 )
 
 MIN_S, MAX_S = 2, 8  # candidates per stream, as the JAX kernel takes them
@@ -66,16 +71,19 @@ def fused_verify_step_reference(
     pos,  # [B] int tensor, or one int for every stream
     k_cache: torch.Tensor,  # [L, B, nk, T, d], updated in place
     v_cache: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scale: Optional[torch.Tensor] = None,  # float32 [L, B, nk, T] (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple:
     """Plain PyTorch version of kernel K6; same contract: the S candidates
     stepped one after another through K4's plain version."""
     B, S, T = _check_shapes(x, k_cache)
     start = verify_starts(pos, B, S, T, x.device)
     rows = [
-        fused_decode_step_batched_reference(cfg, fw, x[:, s], start + s, k_cache, v_cache)[0]
+        fused_decode_step_batched_reference(cfg, fw, x[:, s], start + s, k_cache, v_cache,
+                                            k_scale, v_scale)[0]
         for s in range(S)
     ]
-    return torch.stack(rows, dim=1), k_cache, v_cache
+    return _with_scales((torch.stack(rows, dim=1), k_cache, v_cache), k_scale, v_scale)
 
 
 class _VerifyEntry:
@@ -114,35 +122,41 @@ def fused_verify_step(
     pos,  # [B] int tensor on x's device (per stream), or one int (every stream)
     k_cache: torch.Tensor,  # [L, B, nk, T, d]
     v_cache: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scale: Optional[torch.Tensor] = None,  # float32 [L, B, nk, T] (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple:
     """One verify pass of S candidates per stream over all layers.
 
-    Returns (x_out [B, S, H] float32 pre-final-norm, k_cache, v_cache); the
-    caches are updated in place.  Each stream's start is clamped into
-    [0, T - S].  A start tensor stays on the device: the kernel reads it, so
-    the pass needs no host sync."""
+    Returns (x_out [B, S, H] float32 pre-final-norm, k_cache, v_cache[,
+    k_scale, v_scale]); the caches (and scales) are updated in place.  Each
+    stream's start is clamped into [0, T - S].  A start tensor stays on the
+    device: the kernel reads it, so the pass needs no host sync."""
     if x.device.type == "cpu":
-        return fused_verify_step_reference(cfg, fw, x, pos, k_cache, v_cache)
+        return fused_verify_step_reference(cfg, fw, x, pos, k_cache, v_cache, k_scale, v_scale)
     return launch_verify(fused_verify_step, "qtts_verify_step", cfg, fw, x, pos, k_cache,
-                         v_cache)
+                         v_cache, k_scale, v_scale)
 
 
 def launch_verify(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeights,
-                  x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor):
+                  x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  k_scale=None, v_scale=None):
     """Launch a verify entry (``qtts_verify_step``: K6, persistent, with its
-    cached entry; ``qtts_verify_step_multi``: the launch-per-op pass) on CUDA
-    tensors, counting the launch on ``wrapper``."""
+    cached entry; ``qtts_verify_step_multi``: the launch-per-op pass, on a
+    bf16 or float32 cache) on CUDA tensors, counting the launch on
+    ``wrapper``."""
     what = wrapper.__name__
     B, S, T = _check_shapes(x, k_cache)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if B * S > MAX_BATCH:
         raise ValueError(f"{what} takes at most {MAX_BATCH} rows, got {B} x {S}")
-    _check_cuda_inputs(fw, k_cache, v_cache)
+    planned = entry == "qtts_verify_step"
+    if not planned and k_scale is not None:
+        raise NotImplementedError(f"{what}: the launch-per-op pass takes no int8 cache")
+    _check_cuda_inputs(fw, k_cache, v_cache, False, k_scale, v_scale, window=True)
     from ._build import check, load_kernels
 
     lib = load_kernels()
-    planned = entry == "qtts_verify_step"
     if planned:
         e = _verify_entry(cfg, fw, B, S, T, k_cache.dtype, x.device)
         w, s, scratch = e.w, e.s, None
@@ -159,16 +173,17 @@ def launch_verify(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeig
     else:
         pos_ptr, pos_host = None, min(max(int(pos), 0), T - S)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            int(k_cache.dtype == torch.bfloat16), B, S, T, pos_ptr, pos_host, stream)
+    caches = (x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+    args = (int(k_cache.dtype == torch.bfloat16), B, S, T, pos_ptr, pos_host, stream)
     wrapper.launches += 1
     if planned:
-        err = lib.qtts_verify_step(w, s, e.plan.struct, *args)
+        err = lib.qtts_verify_step(w, s, e.plan.struct, *caches, *scale_ptrs(k_scale, v_scale),
+                                   *args)
     else:
-        err = lib.qtts_verify_step_multi(w, s, *args)
+        err = lib.qtts_verify_step_multi(w, s, *caches, *args)
     check(err, what)
     del scratch  # enqueued; the caching allocator orders reuse on the stream
-    return x_out.reshape(B, S, H), k_cache, v_cache
+    return _with_scales((x_out.reshape(B, S, H), k_cache, v_cache), k_scale, v_scale)
 
 
 fused_verify_step.launches = 0  # kernel launches, for chip_smoke.py's path check

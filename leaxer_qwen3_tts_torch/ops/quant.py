@@ -3,7 +3,7 @@
 Port of ``leaxer_qwen3_tts_tpu/ops/quant.py``: per-output-column symmetric
 int8 with the same grid (``torch.round`` rounds half to even, like
 ``jnp.round``), so both packages dequantize to identical values.  int4
-(``QuantizedLinear4``) is not ported yet (ROADMAP item K1v).
+(``QuantizedLinear4``) is not ported yet (ROADMAP item K1v-b / K2v).
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ def quantize_params(
     Embedding tables, norms and the vocoder keep their dtype."""
     if bits != 8:
         raise NotImplementedError(
-            f"bits={bits}: only int8 is ported (int4: ROADMAP item K1v)"
+            f"bits={bits}: only int8 is ported (int4: ROADMAP item K1v-b / K2v)"
         )
 
     def walk(node, quantizing: bool):

@@ -188,7 +188,8 @@ def frame_fused_eligible(cfg: TTSModelConfig, params: dict, state: GenerateState
         return False
     if cfg.code_predictor.head_mode != "per_step":
         return False
-    return supports_frame(cp["fused_step"], state.cache.max_len, cfg.talker.transformer)
+    return supports_frame(cp["fused_step"], state.cache.max_len, cfg.talker.transformer,
+                          kvq=state.cache.quantized)
 
 
 def _frame_step_fused(
@@ -216,14 +217,14 @@ def _frame_step_fused(
     drip = compute_drip(state.step, trailing, trailing_len, tts_pad_embed)
     cache = state.cache
     pos = min(int(cache.length), cache.max_len - 1)
-    code0, subcodes, logits2, hidden2, _, _ = fused_frame_step(
+    code0, subcodes, logits2, hidden2 = fused_frame_step(
         cfg.talker.transformer, cfg.code_predictor.transformer, tp["fused_step"],
         tp["transformer"]["final_norm"], tp["fused_lm_head"], emb["codec_embed"],
         cp["fused_step"], cp["transformer"]["final_norm"], cp["fused_heads"], emb["pred_embed"],
         state.last_logits, state.last_hidden, suppress, drip, pos, cache.k, cache.v, g0, gm,
-        knobs.temperature, knobs.top_k, knobs.top_p, knobs.forbid_eos,
+        knobs.temperature, knobs.top_k, knobs.top_p, knobs.forbid_eos, *cache.scales,
         mtp_cache_dtype=cfg.code_predictor.transformer.torch_dtype,
-    )
+    )[:4]
     is_eos = code0 == CODEC_EOS
     frame_valid = ~state.done & ~is_eos
     frame = torch.cat([code0[:, None], subcodes], dim=1)

@@ -5,7 +5,8 @@ Port of ``leaxer_qwen3_tts_tpu/serve/__main__.py``, flag for flag, plus
 directory, pick the continuous pool or the static batcher, warm both up
 (unless ``--no-warmup``), then serve HTTP until Ctrl-C (exit 0).  On the card
 an unset ``--quantize`` (the default) serves bf16 weight units at the 0.6B
-widths (1.7B bf16 pools: ROADMAP B17) and ``--quantize int8`` int8 units.
+widths (1.7B bf16 pools: ROADMAP B17) and ``--quantize int8`` int8 units,
+either with ``--kv-quant`` (the int8 KV cache).
 """
 
 import argparse
@@ -31,7 +32,7 @@ def main(argv=None) -> int:
     p.add_argument("--max-tokens", type=int, default=2048)
     p.add_argument("--quantize", choices=["int8", "int4"])
     p.add_argument("--kv-quant", action="store_true",
-                   help="int8 KV cache (not ported: the engine is then not ready)")
+                   help="int8 KV cache with per-(slot, head) scales (the talker's)")
     p.add_argument("--mtp-resident", choices=["on", "off"],
                    help="pin the resident MTP chain kernel "
                         "(default: on; QTTS_MTP_RESIDENT env overrides)")

@@ -61,7 +61,7 @@ from ..config import SAMPLE_RATE, language_to_codec_id
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.layers import splice_kv_cache
 from ..models.talker import talker_init_cache
-from ..ops.fused_step import MAX_BATCH
+from ..ops.fused_step import MAX_BATCH, kvq_bucket_ok
 from ..runtime.generate import GenerateState, make_generate_fns
 from ..runtime.prompt import prompt_length, tts_embeds
 from ..runtime.sampling import SamplingParams
@@ -179,6 +179,11 @@ class ContinuousBatcher:
             )
         if sync_check and self.device.type != "cuda":
             raise ValueError("sync_check needs a CUDA engine")
+        if (self.device.type == "cuda" and engine.cfg.talker.transformer.kv_cache_quant
+                and not kvq_bucket_ok(int(kv_bucket), window=bool(self.spec_k))):
+            raise EngineError(
+                f"kv_bucket {kv_bucket} with the int8 KV cache: the kernels take 128-aligned "
+                "buckets (the verify kernel beyond 512 slots multiples of 512)")
         self.engine = engine
         self.cfg = engine.cfg
         self.pool_size = int(pool_size)

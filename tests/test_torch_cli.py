@@ -1,7 +1,8 @@
 """The PyTorch port's CLI against the JAX package's, on the CPU: one checkpoint
-directory through both ``cli.main`` functions (one-shot, ``--stream`` and
-``--ref``), the error exits, the flags whose paths are not ported, the
-``--device`` flag, and ``--help`` without torch."""
+directory through both ``cli.main`` functions (one-shot, ``--stream``,
+``--ref``, and ``--kv-quant`` alone and with ``--quantize int8``), the error
+exits, the flags whose paths are not ported, the ``--device`` flag, and
+``--help`` without torch."""
 
 import os
 import subprocess
@@ -76,9 +77,24 @@ def test_cli_errors_like_jax(tmp_path):
         assert main(argv + ["--device", "cpu"]) == j_main(argv) == 1
 
 
+@pytest.mark.parametrize("flags", [["--kv-quant"], ["--quantize", "int8", "--kv-quant"]])
+def test_cli_kv_quant_matches_jax(model_dir, tmp_path, flags, capsys):
+    """The int8 KV cache (alone and beside int8 weights) runs: exit 0 in both
+    CLIs, WAVs of equal length within PCM_ABS, the JAX CLI's printout."""
+    ours, theirs = str(tmp_path / "kvq.wav"), str(tmp_path / "j.wav")
+    assert main(["-m", model_dir, "-o", ours, "--device", "cpu"] + ARGS + flags) == 0
+    out = capsys.readouterr().out
+    assert j_main(["-m", model_dir, "-o", theirs] + ARGS + flags) == 0
+    j_out = capsys.readouterr().out
+    a, sr = read_wav(ours)
+    b, j_sr = read_wav(theirs)
+    assert sr == j_sr == 24000 and a.shape == b.shape and a.size > 0
+    np.testing.assert_allclose(a, b, atol=PCM_ABS, rtol=0)
+    assert out.replace(ours, "X") == j_out.replace(theirs, "X")
+
+
 @pytest.mark.parametrize("flags,words", [
     (["--quantize", "int4"], "int4"),
-    (["--kv-quant"], "kv_quant"),
     (["--mtp-quantize", "int4"], "ROADMAP K1v / K2v"),
     (["--mtp-quantize", "auto"], "ROADMAP K1v / K2v"),
     (["--quantize", "int8", "--mtp-quantize", "int4"], "ROADMAP K1v / K2v"),
