@@ -1,6 +1,7 @@
 """A/B of the B=1 fixed 300-frame run between two checkouts, on one GPU.
 
     python3 chip_ab.py OLD NEW [--spec] [--batched] [--frame] [--voice] [--chains] [--kernels]
+                               [--mesh]
 
 OLD and NEW are checkout roots (unpack a commit with ``git archive`` into a
 directory that ``.gitignore`` lists).  Each run is its own process, in the
@@ -39,7 +40,12 @@ times the chains alone on seeded inputs, three times each, and traces each once
 the rows and with the engine's knobs, and the persistent B=1 chain on the
 1.7B trunk with a float32 cache (``fused_mtp_chain``: the kernel that K3
 runs, and at an older checkout the persistent chain K3 did not yet run).
-Prints one ``AB`` line per run with the card's name and power limit.
+With ``--mesh`` a run makes no single-device engine: on a mesh that lists
+the card tp times (0.6B tp=2, 1.7B tp=4) it times the K9 step (the talker,
+T=256, pos 200) and K10 (sampled, bf16 heads) by CUDA events on seeded
+inputs, three timings each, then runs ``chip_smoke.tp_engine_runs`` (its
+ms/frame lines).  Prints one ``AB`` line per run with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -346,8 +352,42 @@ def chains_ms(cs):
     return out
 
 
+def mesh_ms(cs, tok):
+    """The tensor-parallel path: {label: [ms] x 3} of the K9 step and K10 at
+    0.6B tp=2 and 1.7B tp=4, then the mesh engines (they log their lines)."""
+    import torch
+
+    from leaxer_qwen3_tts_torch.ops import fused_mtp_tp as K10
+    from leaxer_qwen3_tts_torch.ops import fused_tp as K9
+
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(cs.SEED)
+    out = {}
+    for name, cfg, tp in cs.TP_MODELS:
+        mesh = cs.make_mesh(1, tp, devices=cs.card_devices(tp))
+        t = cfg.talker.transformer
+        fw = cs.tp_pack(t, tp, mesh, gen)
+        x = torch.randn((1, t.hidden_size), generator=gen, device=cs.DEV) * 0.3
+        kc, vc = cs.tp_caches(t, tp, 256, 200, torch.bfloat16, gen, mesh.model_devices())
+        out[f"{name} K9 step"] = [
+            cs.time_ms(lambda: K9.fused_decode_step_tp(t, fw, x, 200, kc, vc, mesh), 20)
+            for _ in range(3)]
+        del fw, kc, vc
+        cp, cfw, heads, tables, fnorm = cs.tp_chain_packs(name, cfg, tp, mesh, gen)
+        sp, lh, c0, noise = cs.tp_chain_inputs(cp, gen, (0.8, 50, 0.95))
+        args = (fnorm, heads["bf16"], tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
+        out[f"{name} K10"] = [
+            cs.time_ms(lambda: K10.fused_mtp_chain_tp(cp.transformer, tp, mesh, cfw, *args), 20)
+            for _ in range(3)]
+        del cfw, heads, tables
+        torch.cuda.empty_cache()
+    cs.tp_engine_runs(tok, cs.CARD)
+    return out
+
+
 def run_one(root: str, spec: bool, batched: bool, frame: bool = False,
-            voice: bool = False, chains: bool = False, kernels: bool = False) -> None:
+            voice: bool = False, chains: bool = False, kernels: bool = False,
+            mesh: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -362,6 +402,11 @@ def run_one(root: str, spec: bool, batched: bool, frame: bool = False,
     torch.backends.cuda.matmul.allow_tf32 = False
     if chains:
         print(f"AB {root}: chains {chains_ms(cs)} [{cs.CARD}]", flush=True)
+        return
+    if mesh:
+        with tempfile.TemporaryDirectory() as workdir:
+            tok = cs.byte_level_tokenizer(workdir)
+        print(f"AB {root}: mesh {mesh_ms(cs, tok)} [{cs.CARD}]", flush=True)
         return
     if kernels:
         print(f"AB {root}: kernels {kernels_ms(cs)} [{cs.CARD}]", flush=True)
@@ -391,7 +436,7 @@ def run_one(root: str, spec: bool, batched: bool, frame: bool = False,
 
 def main() -> int:
     args = sys.argv[1:]
-    names = ("--spec", "--batched", "--frame", "--voice", "--chains", "--kernels")
+    names = ("--spec", "--batched", "--frame", "--voice", "--chains", "--kernels", "--mesh")
     flags = [a for a in args if a in names]
     args = [a for a in args if a not in flags]
     if args[:1] == ["--one"]:
@@ -405,7 +450,7 @@ def main() -> int:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root] + flags,
                              capture_output=True, text=True)
         lines = [ln for ln in out.stdout.splitlines()
-                 if ln.startswith(("AB ", "fixed run", "trace "))]
+                 if ln.startswith(("AB ", "fixed run", "trace ")) or " mesh tp=" in ln]
         print("\n".join(lines) if lines else out.stdout[-2000:] + out.stderr[-2000:], flush=True)
         if out.returncode != 0:
             return out.returncode

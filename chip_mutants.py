@@ -1,5 +1,5 @@
 """Mutation check of ``chip_smoke.py``'s K6, K3, K8, K7, P1, P2, persistent K1 / K2 / K4 / K5,
-bf16-unit and int8-KV-cache checks on one NVIDIA GPU.
+bf16-unit, int8-KV-cache and tensor-parallel (K9, K10) checks on one NVIDIA GPU.
 
     python3 chip_mutants.py [WORD ...]
 
@@ -37,8 +37,13 @@ source mutants; ``python3 chip_mutants.py int8`` runs the three); the int8
 KV cache's five (``python3 chip_mutants.py kvq``) against
 ``chip_smoke.check_kvq_ties``, ``check_kvq_k1`` on one layer, ``check_kvq_k4``
 and ``check_kvq_k6`` (K4 rows against K1, K6 against its steps, also with
-every slot write stalled) and K7's int8-cache composition and plain checks.
-A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
+every slot write stalled) and K7's int8-cache composition and plain checks;
+the tensor-parallel kernels' three (``python3 chip_mutants.py TP``) against
+``chip_smoke.check_k9_halves`` on a pack whose unit scales are drawn anew,
+``check_k9_step`` and ``check_k10`` (also on such a pack, and twice in a row
+with odd ranks' sends stalled) at 0.6B tp=2 and 1.7B tp=4, two talker
+layers.  A mutant rebuilds only the sources that include the file it
+changes.  A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
 caught, or without CUDA.
 """
 
@@ -46,7 +51,9 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 import shutil
+import subprocess
 import sys
 import tempfile
 
@@ -363,6 +370,32 @@ MUTANTS = {
          "      }\n",),
         "KVQ",
     ),
+    # K9 / K10: a K-split product's every chunk scaled by the first chunk's
+    # unit scales (a real pack's chunks share their column's scales; the
+    # checks draw each unit's anew)
+    "TP K-split chunk takes the first chunk's scale": (
+        "qtts_tp.cuh",
+        "S != nullptr ? __fmul_rn(d, S[(size_t)(i * nn + c / NU) * NU + c % NU]) : d;",
+        "S != nullptr ? __fmul_rn(d, S[(size_t)(c / NU) * NU + c % NU]) : d;",
+        "TP",
+    ),
+    # K10's hypercube partner one rank off: at tp=2 every rank exchanges
+    # with itself, at tp=4 the rounds pair the wrong ranks
+    "TP hypercube partner off by one": (
+        "fused_mtp_tp.cu",
+        "const int partner = me ^ (1 << r);",
+        "const int partner = ((me ^ (1 << r)) + 1) % a.tp;",
+        "TP",
+    ),
+    # K10's wait satisfied by any raised flag: the previous call's flags pass
+    # it, so a rank whose partner's send is late reads the previous call's
+    # values (caught only with the sends stalled, on the second call)
+    "TP flag not generation-counted": (
+        "fused_mtp_tp.cu",
+        "while (flag_acquire<SYS>(flag) != gen) {",
+        "while (flag_acquire<SYS>(flag) == 0u) {",
+        "TP",
+    ),
 }
 
 
@@ -479,8 +512,74 @@ def checks(gen):
             for case in cs.K6_STALL_CASES for ns in (0, cs.K6_STALL_NS)]
     kvq += [lambda: cs.check_k7_composition(packs, 256, 255, torch.int8, gen, inputs=2),
             lambda: cs.check_k7_plain(packs, 256, 255, cs.K7_KNOBS[1], gen, 0, torch.int8)]
+    # the tensor-parallel kernels: K9's halves on a pack whose unit scales
+    # are drawn anew and its step, K10 against its plain version (also on
+    # such a pack, and twice in a row with odd ranks' sends stalled), at
+    # 0.6B tp=2 and 1.7B tp=4
+    tp = []
+    for name, cfg, n_tp in cs.TP_MODELS:
+        mesh = cs.make_mesh(1, n_tp, devices=cs.card_devices(n_tp))
+        tt = dataclasses.replace(cfg.talker.transformer, num_layers=2)
+        tfw = cs.tp_pack(tt, n_tp, mesh, gen)
+        rs = cs.random_scales(tfw, gen)
+        tp += [lambda tt=tt, rs=rs, n_tp=n_tp, mesh=mesh, name=name: cs.check_k9_halves(
+            f"{name} talker-2-layer", tt, n_tp, rs, 256, 200, torch.bfloat16, gen,
+            mesh.model_devices()),
+               lambda tt=tt, tfw=tfw, n_tp=n_tp, mesh=mesh, name=name: cs.check_k9_step(
+            f"{name} talker-2-layer", tt, n_tp, tfw, mesh, 256, 200, gen)]
+        cp, cfw, heads, tables, fnorm = cs.tp_chain_packs(name, cfg, n_tp, mesh, gen)
+        crs = cs.random_scales(cfw, gen)
+        args = (cp, n_tp, mesh)
+        tp += [lambda a=args, f=cfw, h=heads, tb=tables, fn=fnorm, name=name: cs.check_k10(
+            f"K10 {name}", *a, f, h["int8"], tb, fn, cs.K10_KNOBS[0], gen),
+               lambda a=args, f=crs, h=heads, tb=tables, fn=fnorm, name=name: cs.check_k10(
+            f"K10 {name} unit scales drawn anew", *a, f, h["bf16"], tb, fn, cs.K10_KNOBS[1], gen),
+               lambda a=args, f=cfw, h=heads, tb=tables, fn=fnorm, name=name: cs.check_k10(
+            f"K10 {name} stalled", *a, f, h["bf16"], tb, fn, cs.K10_KNOBS[1], gen, calls=2,
+            stall_ns=cs.K10_STALL_NS)]
     return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1,
-            "P2": p2, "BF16": bf16, "KVQ": kvq}
+            "P2": p2, "BF16": bf16, "KVQ": kvq, "TP": tp}
+
+
+def _includes(csrc, name):
+    """The headers of ``csrc`` that ``name`` includes, directly or not."""
+    found, todo = set(), [name]
+    while todo:
+        with open(os.path.join(csrc, todo.pop())) as f:
+            for inc in re.findall(r'^#include "([^"]+)"', f.read(), re.M):
+                if inc not in found:
+                    found.add(inc)
+                    todo.append(inc)
+    return found
+
+
+def _compile(csrc, names, out_dir):
+    """``out_dir/<name>.o`` of ``csrc/<name>`` for every name, compiled at once."""
+    nvcc = _build._nvcc()
+    procs = [(name, subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-c", "-o", os.path.join(out_dir, name + ".o"),
+         os.path.join(csrc, name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in names]
+    for name, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {name}:\n{out[-4000:]}")
+
+
+def build_mutant(csrc, fname, base_objs):
+    """Link the mutant's library where ``_build.load_kernels`` looks for it
+    (``_build.CSRC_DIR`` and ``BUILD_DIR`` set to the mutant's): the sources
+    that are or include ``fname`` compiled from ``csrc``, the others' objects
+    from ``base_objs`` (the checkout's)."""
+    hit = [s for s in _build.SOURCES if s == fname or fname in _includes(csrc, s)]
+    obj_dir = os.path.join(_build.BUILD_DIR, "objects")
+    os.makedirs(obj_dir)
+    _compile(csrc, hit, obj_dir)
+    objs = [os.path.join(obj_dir if s in hit else base_objs, s + ".o") for s in _build.SOURCES]
+    link = subprocess.run([_build._nvcc(), "-shared", "-o", _build.library_path(), *objs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode:
+        raise RuntimeError(f"link failed:\n{link.stdout[-4000:]}")
 
 
 def run_checks(name, checks):
@@ -506,9 +605,15 @@ def main() -> int:
     source, build_dir = _build.CSRC_DIR, _build.BUILD_DIR
     caught = {}
     words = sys.argv[1:]
-    for name, (fname, old, new, kernel) in MUTANTS.items():
-        if words and not any(w in name for w in words):
-            continue
+    chosen = [name for name in MUTANTS if not words or any(w in name for w in words)]
+    # a mutant recompiles only the sources its fault reaches: the others'
+    # objects are compiled from the checkout once
+    os.makedirs(build_dir, exist_ok=True)
+    base_objs = tempfile.mkdtemp(prefix="mutant-base-", dir=build_dir)
+    if chosen:
+        _compile(source, _build.SOURCES, base_objs)
+    for name in chosen:
+        fname, old, new, kernel = MUTANTS[name]
         with tempfile.TemporaryDirectory() as tmp:
             csrc = os.path.join(tmp, "csrc")
             shutil.copytree(source, csrc)
@@ -523,8 +628,13 @@ def main() -> int:
             with open(path, "w") as f:
                 f.write(text)
             _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = csrc, os.path.join(tmp, "build"), None
+            try:
+                build_mutant(csrc, fname, base_objs)
+            except RuntimeError as e:  # the checks' own build then fails them alike
+                cs.log(f"mutant {name!r} does not build: {str(e)[:200]}")
             caught[name] = run_checks(name, by_kernel[kernel])
     _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = source, build_dir, None
+    shutil.rmtree(base_objs, ignore_errors=True)
     for name, (apply, kernel) in PY_MUTANTS.items():
         if words and not any(w in name for w in words):
             continue

@@ -195,10 +195,32 @@ prints the final line:
    bf16 units, greedy pool output equal to B=1), and the 1.7B preset at B=1
    (K1 kvq at its widths, an instruct request and a fixed 300-frame run);
    every run's launch counts, and K1, K4, K6 and K7 launched on them.
-14. The kernel report (each kernel's launches on the main paths, error
+14. ``tp_phase``: the tensor-parallel path on a mesh that lists this card
+   ``tp`` times (``make_mesh(1, tp, devices=[cuda:0] * tp)``: tp logical
+   ranks), at the 0.6B widths (tp=2) and the 1.7B widths (tp=4).  The K9
+   step (K9a and K9b per layer and rank, the ranks' partials summed in rank
+   order) against the step on the plain halves at T=256 pos 200 and T=2560
+   pos 2559 (K1's deep limits, timed in ms per step); K9a and K9b alone on a
+   pack whose unit scales are drawn anew (chunks of a K-split column then
+   scale differently) with bf16 and float32 caches, 8 seeded inputs per case
+   (K1's one-layer limits and K9_TIGHT_MIN tight); K10 against its plain
+   version (which rounds and sums as the kernel does), int8 and bf16 heads,
+   greedy and two sampled knob sets: every rank's sub-codes and final
+   residual and the sub_sum equal bit for bit, no exchange timed out; K10
+   twice in a row with every odd rank's sends stalled K10_STALL_NS (a wait a
+   stale flag satisfies then reads the previous call's values) and on the
+   drawn-anew scales; a planted timeout (the sends held past the wait
+   limit) raises, and the next call is clean.  Then
+   ``TTSEngine(config, params, mesh=...)`` with ``quantize`` unset: two 0.6B
+   requests at tp=2 and one 1.7B request at tp=4, L x tp launches of each K9
+   half and one K10 per decoded frame and no other kernel.  With two cards
+   or more the kernel checks and the engines run again with the ranks on
+   distinct cards; with one, a line says that run was not made.
+15. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
-   K1, K4, K6 and K7 once more for the int8 KV cache) and the device line.
+   K1, K4, K6 and K7 once more for the int8 KV cache; K9a and K9b per call of
+   one half, K10 per chain) and the device line.
 """
 
 from __future__ import annotations
@@ -246,6 +268,8 @@ from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
 from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as K3
 from leaxer_qwen3_tts_torch.ops import fused_step as K1
 from leaxer_qwen3_tts_torch.ops import fused_verify as K6
+from leaxer_qwen3_tts_torch.ops import fused_mtp_tp as K10
+from leaxer_qwen3_tts_torch.ops import fused_tp as K9
 from leaxer_qwen3_tts_torch.ops import persistent
 from leaxer_qwen3_tts_torch.ops.quant import fuse_params, quantize_params, quantize_weight
 from leaxer_qwen3_tts_torch.runtime.prompt import prompt_length
@@ -267,6 +291,7 @@ from leaxer_qwen3_tts_torch.runtime.weights import (
     param_count,
     save_checkpoint,
 )
+from leaxer_qwen3_tts_torch.parallel import make_mesh
 from leaxer_qwen3_tts_torch.serve import ContinuousBatcher, make_http_server
 from leaxer_qwen3_tts_torch.tools import a8_probe as P1
 from leaxer_qwen3_tts_torch.tools import unit_probe
@@ -1573,8 +1598,9 @@ def check_fixed_run(eng, n_frames, texts, card_line, instruct=None):
 
 KERNELS = (K1.fused_decode_step, K2.fused_mtp_chain, K1.fused_decode_step_batched,
            K2.fused_mtp_chain_batched, K6.fused_verify_step, K3.fused_mtp_chain_streamed,
-           K8.flash_attend, K7.fused_frame_step, P1.chain, P2.chain)
-KERNEL_IDS = ("K1", "K2", "K4", "K5", "K6", "K3", "K8", "K7", "P1", "P2")
+           K8.flash_attend, K7.fused_frame_step, P1.chain, P2.chain, K9.attn_half,
+           K9.mlp_half, K10.fused_mtp_chain_tp)
+KERNEL_IDS = ("K1", "K2", "K4", "K5", "K6", "K3", "K8", "K7", "P1", "P2", "K9a", "K9b", "K10")
 
 
 def reset_launches():
@@ -3967,6 +3993,417 @@ def kvq_phase(tok, gen, card_line):
     return [sum(c) for c in zip(counts, c17)], (k1, k4, k6, k7), bounds
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the tensor-parallel decode path (kernels K9 and K10) on a mesh that
+# lists this card tp times: tp logical ranks, each with its shard, its kv
+# heads and its exchange buffers, all on the one card.
+# ---------------------------------------------------------------------------
+
+TP_MODELS = (("0.6B", QWEN3_TTS_06B, 2), ("1.7B", QWEN3_TTS_17B, 4))
+K9_CASES = ((256, 200), (2560, 2559))
+# K9's halves on one layer against their plain versions: the same bf16
+# operands summed in other orders, so most inputs agree to ~1e-7 and a GEMV
+# input on a bf16 rounding edge moves a partial by up to ~1e-3 relative; a
+# wrong unit, scale or slot moves it by O(1).  Each case runs K9_HALF_INPUTS
+# seeded inputs (rank and layer varying), all within K1's flip-tolerant
+# limits, and needs K9_TIGHT_MIN of them within K1_TIGHT_REL.
+K9_HALF_INPUTS = 8
+K9_TIGHT_MIN = 3
+K10_STALL_NS = 20_000  # odd ranks hold every exchange's send back this long
+# the planted timeout: odd ranks' sends held past the even ranks' wait limit
+K10_TIMEOUT_STALL_NS = 2_000_000
+K10_TIMEOUT_NS = 200_000
+K10_KNOBS = ((0.0,), (0.8, 50, 0.95), (1.0, 0, 1.0))
+
+
+def card_devices(tp, first=0):
+    """A mesh's model devices: this card tp times (logical ranks), or tp
+    cards from ``first`` on."""
+    return [torch.device("cuda", first)] * tp
+
+
+def tp_pack(t, tp, mesh, gen):
+    """Random raw layers of ``t`` (seeded), packed per rank for K9 / K10."""
+    layers = init_transformer_params(t, gen, DEV)["layers"]
+    fw = K9.pack_fused_tp(t, layers, tp, mesh=mesh)
+    del layers
+    return fw
+
+
+def random_scales(fw, gen):
+    """The pack with every unit's scales drawn anew (0.5x to 1.5x): chunks of
+    one K-split column then carry different scales, which a real pack's
+    (taken over the shard's rows, the same for every chunk) never show."""
+    def draw(leaf):
+        return [s * (0.5 + torch.rand(s.shape, generator=gen, device=s.device)) for s in leaf]
+
+    return fw._replace(**{k: draw(getattr(fw, k)) for k in ("qkv_s", "wo_s", "gu_s", "wd_s")})
+
+
+def tp_caches(t, tp, T, pos, cache_dtype, gen, devices):
+    """Seeded per-rank caches [L, 1, nk / tp, T, d] with the slots from pos on zeroed."""
+    L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
+    out = []
+    for _ in range(2):
+        c = (torch.randn((L, 1, nk, T, d), generator=gen, device=DEV) * 0.5).to(cache_dtype)
+        c[:, :, :, pos:] = 0
+        out.append(K9.split_heads(c, devices))
+    return out
+
+
+def half_bound(t, tp, fw, r, l, pos, cache_dtype, kind):
+    """One half of one layer on one rank: its units and scales read once,
+    the slots it attends (attention) and x in, the partial out."""
+    H, d, nq_s, nk_s, qd_s, kvd_s, A_s, I_s, NU, KCo, KCd = K9._dims(t, tp)
+    elem = torch.empty((), dtype=cache_dtype).element_size()
+    if kind == "attn":
+        w = nbytes([fw.qkv_u[r][l], fw.qkv_s[r][l], fw.wo_u[r][l], fw.wo_s[r][l]])
+        moved = w + 2 * nk_s * d * elem * (pos + 2) + 2 * H * 4
+        ops = 2 * (H * A_s + qd_s * H) + 4 * nq_s * d * (pos + 1)
+    else:
+        w = nbytes([fw.gu_u[r][l], fw.gu_s[r][l], fw.wd_u[r][l], fw.wd_s[r][l]])
+        moved, ops = w + 2 * H * 4, 2 * (H * 2 * I_s + I_s * H)
+    return bound(moved, ops)
+
+
+def check_k9_halves(name, t, tp, fw, T, pos, cache_dtype, gen, devices, iters=0):
+    """K9a and K9b on K9_HALF_INPUTS seeded inputs (rank r = i % tp, layer
+    i % L) against their plain versions: dx / dm within K1_SHALLOW_X_REL,
+    the written slot within K1_SHALLOW_SLOT_ABS, every other slot untouched,
+    and K9_TIGHT_MIN inputs of each half within K1_TIGHT_REL (x and slot)."""
+    L, H = t.num_layers, t.hidden_size
+    worst = {"attn": 0.0, "mlp": 0.0}
+    errs = {"attn": 0.0, "mlp": 0.0}
+    tight = {"attn": 0, "mlp": 0}
+    untouched, slot_err = True, 0.0
+    for i in range(K9_HALF_INPUTS):
+        r, l = i % tp, i % L
+        x = (torch.randn((1, H), generator=gen, device=DEV) * 0.3).to(devices[r])
+        kc, vc = tp_caches(t, tp, T, pos, cache_dtype, gen, devices)
+        kk, vk, kp, vp = kc[r].clone(), vc[r].clone(), kc[r].clone(), vc[r].clone()
+        dk = K9.attn_half(t, tp, fw, r, l, x, pos, kk, vk)
+        dp = K9.attn_half_reference(t, tp, fw, r, l, x, pos, kp, vp)
+        mk = K9.mlp_half(t, tp, fw, r, l, x)
+        mp = K9.mlp_half_reference(t, tp, fw, r, l, x)
+        torch.cuda.synchronize()
+        sk = torch.stack((kk[l, :, :, pos], vk[l, :, :, pos])).float()
+        sp_ = torch.stack((kp[l, :, :, pos], vp[l, :, :, pos])).float()
+        s_err = float((sk - sp_).abs().max())
+        s_rel = s_err / float(sp_.abs().max())
+        slot_err = max(slot_err, s_err)
+        others = torch.ones(T, dtype=torch.bool, device=DEV)
+        others[pos] = False
+        untouched &= all(bool(torch.equal(a[:, :, :, others], b[:, :, :, others]))
+                         for a, b in ((kk, kc[r]), (vk, vc[r])))
+        for kind, a, b, extra in (("attn", dk, dp, s_rel), ("mlp", mk, mp, 0.0)):
+            err = float((a - b).abs().max())
+            rel = err / float(b.abs().max())
+            errs[kind] = max(errs[kind], err)
+            worst[kind] = max(worst[kind], rel)
+            tight[kind] += rel <= K1_TIGHT_REL and extra <= K1_TIGHT_REL
+    ms = {"attn": float("nan"), "mlp": float("nan")}
+    plain = dict(ms)
+    if iters:
+        x = x.to(devices[0])
+        kk, vk = kc[0].clone(), vc[0].clone()
+        ms["attn"] = time_ms(lambda: K9.attn_half(t, tp, fw, 0, 0, x, pos, kk, vk), iters)
+        plain["attn"] = time_ms(lambda: K9.attn_half_reference(t, tp, fw, 0, 0, x, pos, kk, vk),
+                                3, 1)
+        ms["mlp"] = time_ms(lambda: K9.mlp_half(t, tp, fw, 0, 0, x), iters)
+        plain["mlp"] = time_ms(lambda: K9.mlp_half_reference(t, tp, fw, 0, 0, x), 3, 1)
+    ok = (max(worst.values()) < K1_SHALLOW_X_REL and slot_err < K1_SHALLOW_SLOT_ABS and untouched
+          and min(tight.values()) >= K9_TIGHT_MIN)
+    log(f"K9 halves {name}: tp={tp} T={T} pos={pos} cache={str(cache_dtype)[6:]} "
+        f"{K9_HALF_INPUTS} inputs: dx max rel {worst['attn']:.3e} dm max rel {worst['mlp']:.3e} "
+        f"(tol {K1_SHALLOW_X_REL}) slot max_abs_err={slot_err:.3e} (tol {K1_SHALLOW_SLOT_ABS}) "
+        f"tight (<= {K1_TIGHT_REL}) K9a {tight['attn']}/{K9_HALF_INPUTS} K9b "
+        f"{tight['mlp']}/{K9_HALF_INPUTS} (need {K9_TIGHT_MIN}) untouched_slots_equal="
+        f"{untouched} K9a {ms['attn']:.4f} ms plain {plain['attn']:.4f} ms, K9b {ms['mlp']:.4f} "
+        f"ms plain {plain['mlp']:.4f} ms -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K9 halves {name} T={T} pos={pos} disagree with their plain versions")
+    return ((errs["attn"], ms["attn"], plain["attn"]), (errs["mlp"], ms["mlp"], plain["mlp"]))
+
+
+def check_k9_step(name, t, tp, fw, mesh, T, pos, gen, iters=0):
+    """The whole step (K9a and K9b per layer and rank, the partial sums in
+    rank order) against the step on the plain halves, bf16 cache, K1's deep
+    limits.  Returns (max abs error, ms per step, plain ms per step)."""
+    devices = mesh.model_devices()
+    x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+    kc, vc = tp_caches(t, tp, T, pos, torch.bfloat16, gen, devices)
+    kk, vk = [c.clone() for c in kc], [c.clone() for c in vc]
+    kp, vp = [c.clone() for c in kc], [c.clone() for c in vc]
+    xk, _, _ = K9.fused_decode_step_tp(t, fw, x, pos, kk, vk, mesh)
+    xp, _, _ = K9.fused_decode_step_tp_reference(t, fw, x, pos, kp, vp, mesh)
+    torch.cuda.synchronize()
+    err = float((xk - xp).abs().max())
+    rel = err / float(xp.abs().max())
+    slot_err = max(float((a[:, :, :, pos].float() - b[:, :, :, pos].float()).abs().max())
+                   for a, b in zip(kk + vk, kp + vp))
+    others = torch.ones(T, dtype=torch.bool, device=DEV)
+    others[pos] = False
+    untouched = all(bool(torch.equal(a[:, :, :, others], b[:, :, :, others]))
+                    for a, b in zip(kk + vk, kc + vc))
+    ms = plain_ms = float("nan")
+    if iters:
+        ms = time_ms(lambda: K9.fused_decode_step_tp(t, fw, x, pos, kk, vk, mesh), iters)
+        plain_ms = time_ms(lambda: K9.fused_decode_step_tp_reference(t, fw, x, pos, kp, vp, mesh),
+                           2, 1)
+    ok = rel < K1_DEEP_X_REL and slot_err < K1_DEEP_SLOT_ABS and untouched
+    log(f"K9 step {name}: L={t.num_layers} tp={tp} T={T} pos={pos} cache=bfloat16 x "
+        f"max_abs_err={err:.3e} rel={rel:.3e} (tol {K1_DEEP_X_REL}) slot max_abs_err="
+        f"{slot_err:.3e} (tol {K1_DEEP_SLOT_ABS}) untouched_slots_equal={untouched} kernels "
+        f"{ms:.4f} ms/step plain {plain_ms:.4f} ms/step -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K9 step {name} T={T} pos={pos} disagrees with its plain version")
+    return err, ms, plain_ms
+
+
+def tp_chain_inputs(cp, gen, knobs):
+    H, V, n = cp.transformer.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    sp = SamplingParams.create(*knobs)
+    lh = (torch.randn((1, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    c0 = (torch.randn((1, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    noise = None if sp.greedy else gumbel_noise((n, 1, V), gen, DEV)
+    return sp, lh, c0, noise
+
+
+def check_k10(label, cp, tp, mesh, fw, heads, tables, fnorm, knobs, gen, calls=1, stall_ns=0,
+              iters=0):
+    """K10 against its plain version on ``calls`` seeded inputs in a row (the
+    same entry: each call's flags carry a new generation).  The plain
+    version rounds every product and sum as the kernel does and sums in its
+    order, so every rank's sub-codes and final residual and rank 0's sub_sum
+    must equal it bit for bit, and no exchange may time out.  Returns
+    (sub_sum max abs error, ms per chain, plain ms)."""
+    n, t = cp.num_steps, cp.transformer
+    mode = "greedy" if knobs[0] <= 0 else f"sampled {knobs}"
+    hs = K10._as_heads(heads, mesh.model_devices())
+    ok, err = True, 0.0
+    for call in range(calls):
+        sp, lh, c0, noise = tp_chain_inputs(cp, gen, knobs)
+        args = (fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
+        run = K10.launch_chain_tp(t, tp, mesh, fw, *args, stall_ns=stall_ns)
+        ps, psum, px = K10.chain_tp_plain(t, tp, fw, fnorm, hs, tables, lh, c0, noise,
+                                          sp.temperature, sp.top_k, sp.top_p)
+        torch.cuda.synchronize()
+        status = [int(s.item()) for s in run.status]
+        kern, plain = run.subcodes[0].tolist(), ps[0].tolist()
+        diff = [j for j in range(n) if kern[j] != plain[j]]
+        ranks_equal = all(torch.equal(c.to(DEV), ps[0].to(DEV)) for c in run.codes)
+        x_equal = all(torch.equal(x.to(DEV), px) for x in run.x)
+        x_err = max(float((x.to(DEV) - px).abs().max()) for x in run.x)
+        e = float((run.sub_sum.to(DEV) - psum).abs().max())
+        err = max(err, e)
+        good = not diff and ranks_equal and x_equal and e == 0.0 and not any(status)
+        ok &= good
+        log(f"{label} {mode} call {call}{f' stall {stall_ns} ns' if stall_ns else ''}: kernel "
+            f"{kern} plain {plain} equal={not diff}"
+            + (f" (first mismatch at step {diff[0]})" if diff else "")
+            + f"; every rank's codes equal the plain's={ranks_equal}, every rank's residual "
+            f"equal the plain's={x_equal} (max_abs_err={x_err:.3e}), sub_sum "
+            f"max_abs_err={e:.3e} (tol 0), status={status} -> {'ok' if good else 'FAIL'} "
+            f"[{CARD}]")
+    ms = plain_ms = float("nan")
+    if iters:
+        sp, lh, c0, noise = tp_chain_inputs(cp, gen, knobs)
+        args = (fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
+        ms = time_ms(lambda: K10.fused_mtp_chain_tp(t, tp, mesh, fw, *args), iters)
+        plain_ms = time_ms(lambda: K10.fused_mtp_chain_tp_reference(t, tp, fw, fnorm, hs,
+                                                                    *args[2:]), 2, 1)
+        log(f"{label} {mode}: {ms:.4f} ms/chain, plain {plain_ms:.4f} ms/chain [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"{label} {mode} disagrees with its plain version")
+    return err, ms, plain_ms
+
+
+def check_k10_timeout(label, cp, tp, mesh, fw, heads, tables, fnorm, gen):
+    """A planted exchange timeout: odd ranks hold each send back
+    K10_TIMEOUT_STALL_NS against a wait limit of K10_TIMEOUT_NS, so the even
+    ranks' status words are set, and ``check_timeouts`` on the tracked words
+    (the engine path's read behind the launch) raises; then the entry's next
+    call through ``fused_mtp_chain_tp`` (statuses zeroed) equals the plain
+    version bit for bit and its words pass ``check_timeouts``."""
+    t = cp.transformer
+    sp, lh, c0, noise = tp_chain_inputs(cp, gen, K10_KNOBS[1])
+    args = (fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
+    run = K10.launch_chain_tp(t, tp, mesh, fw, *args, stall_ns=K10_TIMEOUT_STALL_NS,
+                              timeout_ns=K10_TIMEOUT_NS)
+    status = [int(s.item()) for s in run.status]
+    K10.track(run.status)
+    try:
+        K10.check_timeouts()
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    subs, ssum = K10.fused_mtp_chain_tp(t, tp, mesh, fw, *args)
+    K10.check_timeouts()  # the clean call's words
+    ps, psum = K10.fused_mtp_chain_tp_reference(t, tp, fw, fnorm,
+                                                K10._as_heads(heads, mesh.model_devices()),
+                                                tables, lh, c0, noise, sp.temperature,
+                                                sp.top_k, sp.top_p)
+    clean = torch.equal(subs.to(DEV), ps.to(DEV)) and torch.equal(ssum.to(DEV), psum)
+    late = [r for r in range(tp) if status[r]]
+    ok = late == list(range(0, tp, 2)) and bool(raised) and clean
+    log(f"{label}: planted timeout (odd ranks' sends held {K10_TIMEOUT_STALL_NS} ns, wait "
+        f"limit {K10_TIMEOUT_NS} ns): status={status}, raised={bool(raised)}; the next call "
+        f"equals the plain version={clean} -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"{label}: a timed-out exchange was not reported, or the next call "
+                           "was not clean")
+
+
+def tp_chain_packs(name, cfg, tp, mesh, gen):
+    """The MTP trunk's per-rank pack, its heads as int8 and as bf16 row
+    shards, tables and final norm, seeded."""
+    cp = cfg.code_predictor
+    H, V, n = cp.transformer.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    fw = tp_pack(cp.transformer, tp, mesh, gen)
+    raw = (torch.randn((n, H, V), generator=gen, device=DEV) * H ** -0.5).to(torch.bfloat16)
+    devices = mesh.model_devices()
+    heads = {"int8": K10.shard_heads(quantize_weight(raw), devices),
+             "bf16": K10.shard_heads(raw, devices)}
+    tables = (torch.randn((n, V, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=DEV)
+    return cp, fw, heads, tables, fnorm
+
+
+def chain_tp_bound(cp, tp, fw, heads):
+    """Bound of one K10 chain: every rank's trunk shard and head rows read
+    once (the ranks share the card's HBM), each step's table row, the outputs
+    written; n + 1 trunk passes and n head products over all ranks."""
+    t, n = cp.transformer, cp.num_steps
+    H, V = t.hidden_size, cp.subcode_vocab_size
+    moved = sum(nbytes(leaf) for leaf in fw) + nbytes(heads.q) + nbytes(heads.scale[:1]) + (
+        n * H * 2 + H * 4 + n * 4)
+    macs = sum(nbytes(getattr(fw, k)) for k in ("qkv_u", "wo_u", "gu_u", "wd_u"))  # int8: 1 byte
+    attn = t.num_layers * 4 * t.num_heads * t.head_dim * sum(range(1, n + 2))
+    return bound(moved, 2 * ((n + 1) * macs + n * V * H) + attn)
+
+
+def tp_kernel_checks(gen, card_line, devices_of=card_devices, first=True):
+    """K9 and K10 against their plain versions at the 0.6B widths (tp=2) and
+    the 1.7B widths (tp=4).  Returns (K9a checks, K9b checks, step checks,
+    K10 checks, bounds)."""
+    k9a, k9b, steps, k10, bounds = [], [], [], [], {}
+    for name, cfg, tp in TP_MODELS:
+        devices = devices_of(tp)
+        mesh = make_mesh(1, tp, devices=devices)
+        t = cfg.talker.transformer
+        fw = tp_pack(t, tp, mesh, gen)
+        for T, pos in K9_CASES:
+            steps.append(check_k9_step(f"{name} talker", t, tp, fw, mesh, T, pos, gen,
+                                       10 if first and T == 256 else 0))
+        rs = random_scales(fw, gen)
+        for cache_dtype in (torch.bfloat16, torch.float32):
+            for T, pos in K9_CASES:
+                a, m = check_k9_halves(f"{name} talker, unit scales drawn anew", t, tp, rs, T,
+                                       pos, cache_dtype, gen, devices,
+                                       20 if first and cache_dtype == torch.bfloat16 and T == 256
+                                       else 0)
+                k9a.append(a)
+                k9b.append(m)
+        if name == "0.6B":
+            bounds["K9a"] = half_bound(t, tp, fw, 0, 0, 200, torch.bfloat16, "attn")
+            bounds["K9b"] = half_bound(t, tp, fw, 0, 0, 200, torch.bfloat16, "mlp")
+        L = t.num_layers
+        a_ms = sum(half_bound(t, tp, fw, r, l, 200, torch.bfloat16, "attn")[0]
+                   for r in range(tp) for l in range(L))
+        m_ms = sum(half_bound(t, tp, fw, r, l, 200, torch.bfloat16, "mlp")[0]
+                   for r in range(tp) for l in range(L))
+        log(f"K9 step bound {name} tp={tp} T=256 pos 200: {a_ms + m_ms:.4f} ms (bytes of every "
+            f"rank's shard, {sum(nbytes(l) for l in fw) / 1e6:.1f} MB of packs) [{CARD}]")
+        del fw, rs
+        cp, fw, heads, tables, fnorm = tp_chain_packs(name, cfg, tp, mesh, gen)
+        for kind in ("int8", "bf16"):
+            for i, knobs in enumerate(K10_KNOBS):
+                k10.append(check_k10(f"K10 {name} tp={tp} {kind} heads", cp, tp, mesh, fw,
+                                     heads[kind], tables, fnorm, knobs, gen,
+                                     iters=10 if first and i == 1 else 0))
+        # every odd rank's sends held back: a wait that a stale flag satisfies
+        # reads the previous call's values
+        check_k10(f"K10 {name} tp={tp} bf16 heads", cp, tp, mesh, fw, heads["bf16"], tables,
+                  fnorm, K10_KNOBS[1], gen, calls=2, stall_ns=K10_STALL_NS)
+        rs = random_scales(fw, gen)
+        check_k10(f"K10 {name} tp={tp} bf16 heads, unit scales drawn anew", cp, tp, mesh, rs,
+                  heads["bf16"], tables, fnorm, K10_KNOBS[0], gen)
+        check_k10_timeout(f"K10 {name} tp={tp}", cp, tp, mesh, fw, heads["bf16"], tables, fnorm,
+                          gen)
+        if name == "0.6B":
+            bounds["K10"] = chain_tp_bound(cp, tp, fw, heads["bf16"])
+        else:
+            log(f"K10 bound {name} tp={tp}: {chain_tp_bound(cp, tp, fw, heads['bf16'])[0]:.4f} "
+                f"ms [{CARD}]")
+        del cp, fw, heads, tables, fnorm, rs
+        torch.cuda.empty_cache()
+    return k9a, k9b, steps, k10, bounds
+
+
+def tp_engine_runs(tok, card_line, devices_of=None):
+    """``TTSEngine(config, params, mesh=make_mesh(1, tp, [card] * tp))`` with
+    ``quantize`` unset: two 0.6B requests at tp=2, one 1.7B request at tp=4.
+    One K10 chain and L x tp launches of each K9 half per decoded frame, no
+    other kernel.  Returns the launch counts."""
+    counts = [0] * len(KERNELS)
+    for name, cfg, tp, reqs in (("0.6B", QWEN3_TTS_06B, 2, B1_REQUESTS[:2]),
+                                ("1.7B", QWEN3_TTS_17B, 4, B1_REQUESTS[1:2])):
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+        devices = (devices_of or card_devices)(tp)
+        eng = TTSEngine(config=cfg, params=params, tokenizer=tok,
+                        mesh=make_mesh(1, tp, devices=devices))
+        del params
+        if not eng.is_ready():
+            raise RuntimeError(f"{name} mesh engine not ready: {eng.get_error()}")
+        torch.cuda.synchronize()
+        log(f"{name} mesh engine tp={tp} on {[str(d) for d in devices]}, quantize unset, built "
+            f"in {time.perf_counter() - t0:.1f} s [{card_line}]")
+        reset_launches()
+        decoded = 0
+        for req in reqs:
+            r = eng.synthesize(max_tokens=48, seed=SEED, **req)
+            m = r.metrics
+            decoded += m.decoded_frames
+            if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                    r.audio).all() or r.codes.shape[1:] != (16,):
+                raise RuntimeError(f"bad {name} mesh synthesis output for {req}")
+            decode_ms = m.stage_seconds.get("decode", 0.0) * 1e3 / max(m.decoded_frames, 1)
+            log(f"{name} mesh tp={tp} synthesize T={req['temperature']}: {m.frames} frames "
+                f"({m.decoded_frames} decoded), {decode_ms:.3f} ms/frame decode, RTF "
+                f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+        L = cfg.talker.transformer.num_layers
+        got = check_launches(f"{name} mesh tp={tp} (L x tp of each K9 half and one K10 per "
+                             f"frame)", counts_of(K9a=decoded * L * tp, K9b=decoded * L * tp,
+                                                   K10=decoded))
+        counts = [a + b for a, b in zip(counts, got)]
+        del eng
+        torch.cuda.empty_cache()
+    return counts
+
+
+def tp_phase(tok, gen, card_line):
+    """Phase 14: the tensor-parallel decode path.  Returns (launch counts,
+    (K9a, K9b, K9 step, K10 checks), bounds)."""
+    t0 = time.perf_counter()
+    k9a, k9b, steps, k10, bounds = tp_kernel_checks(gen, card_line)
+    counts = tp_engine_runs(tok, card_line)
+    if torch.cuda.device_count() >= 2:
+        # the same kernels with the ranks on distinct cards (peer pointers,
+        # the exchange at system scope)
+        cards = torch.cuda.device_count()
+
+        def spread(tp):  # consecutive ranks share a card
+            return [torch.device("cuda", r * min(cards, tp) // tp) for r in range(tp)]
+
+        tp_kernel_checks(gen, card_line, devices_of=spread, first=False)
+        tp_engine_runs(tok, card_line, devices_of=spread)
+    else:
+        log(f"tensor-parallel path across distinct cards: not run, this machine has "
+            f"{torch.cuda.device_count()} card [{card_line}]")
+    log(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
+    return counts, (k9a, k9b, steps, k10), bounds
+
 B1_REQUESTS = [
     dict(text="hello world", language="en", temperature=0.0),
     dict(text="hello world, hello world", language="en", temperature=0.8, top_k=50, top_p=0.95),
@@ -4224,7 +4661,13 @@ def main() -> int:
     unlaunched = [k for k in ("K1", "K4", "K6", "K7") if not kvq[KERNEL_IDS.index(k)]]
     if unlaunched:
         raise RuntimeError(f"the int8 KV cache's main paths never launched {unlaunched}")
-    total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed)]
+    # the tensor-parallel phase draws from a generator of its own, as K4's
+    gen9 = torch.Generator(device=DEV)
+    gen9.manual_seed(SEED + 9)
+    tp_counts, (k9a, k9b, k9s, k10), tp_bounds = tp_phase(tok, gen9, card_line)
+    bounds.update(tp_bounds)
+    total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed,
+                                 tp_counts)]
     log("launches on the main paths in all, int8 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)) + "; bf16 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)) + "; int8 KV cache: "
@@ -4285,6 +4728,15 @@ def main() -> int:
               kvq[4], k6q, "K6 kvq"),
         entry("fused_frame_step (K7 kvq: int8 KV cache)", "fused_frame.cu", "fused_frame.py:245",
               kvq[7], k7q, "K7 kvq"),
+        # the tensor-parallel path on a mesh listing the card twice (0.6B) or
+        # four times (1.7B): per call of one half (one layer, one rank) and
+        # per chain; the step's time is in the log
+        entry("fused_decode_step_tp attention half (K9a)", "fused_tp.cu", "fused_tp.py:215",
+              total[10], k9a, "K9a"),
+        entry("fused_decode_step_tp MLP half (K9b)", "fused_tp.cu", "fused_tp.py:314",
+              total[11], k9b, "K9b"),
+        entry("fused_mtp_chain_tp (K10)", "fused_mtp_tp.cu", "fused_mtp_tp.py:364", total[12],
+              k10[1:2] + k10, "K10"),
     ]}
     print(json.dumps(report))
     print(card_line)

@@ -37,7 +37,21 @@ runs its prefill attention as kernel K8.  ``kv_quant=True`` keeps the
 talker's KV cache in int8 with per-(slot, head) scales (K1, K4, K6 and K7
 take it; the top bucket is rounded up to 128 slots).  A configuration the
 kernels do not take leaves the engine not ready; a batch they do not take
-raises ``EngineError``.  On
+raises ``EngineError``.
+
+With ``mesh`` (``parallel.make_mesh(1, tp, devices=...)``; a device listed
+``tp`` times holds ``tp`` logical shards) the engine decodes tensor-parallel
+at B=1, as the JAX engine's mesh path: ``quantize`` must be None, nothing is
+fused, the talker's step is kernel K9 on per-rank int8 packs
+(``pack_fused_tp``, where ``supports_tp`` holds and the KV cache is not
+int8) and the MTP chain kernel K10 (where ``supports_tp_resident`` holds).
+The prefill, lm_head, code0 draw, embeddings and vocoder run on the mesh's
+first device with the full params (the JAX engine lets GSPMD shard them: a
+standing difference, ROADMAP Queue 3).  On the card a mesh engine
+needs both packs (the plain decode and the cached chain do not run there).
+Batched decoding (``synthesize_batch`` at B > 1, the pool, the server),
+``spec_k``, ``frame_fused=True`` and a data axis over 1 are not ported under
+a mesh (ROADMAP M15).  On
 the CPU the same code runs the kernels' plain versions.  A decode chunk (a
 dispatch of verify iterations) enqueues its frames on the device and the
 engine syncs once per chunk, when it copies the chunk's codes to the host.
@@ -53,7 +67,6 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import (
     IM_END,
@@ -74,8 +87,11 @@ from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.speaker_encoder import speaker_encoder_forward
 from ..models.talker import prepare_fused_talker
 from ..ops import persistent
+from ..ops.fused_mtp_tp import check_timeouts, shard_heads, supports_tp_resident
 from ..ops.fused_step import MAX_BATCH, meta_pack, supports
+from ..ops.fused_tp import pack_fused_tp, supports_tp
 from ..ops.quant import fuse_params, quantize_params
+from ..parallel import Mesh
 from ..runtime.generate import (
     GenerateFns,
     GenerateState,
@@ -135,6 +151,8 @@ class TTSEngine:
     them) or from ``config`` and ``params``.  Construction records errors
     instead of raising: check ``is_ready()`` / ``get_error()``."""
 
+    mesh = None  # the tensor-parallel mesh (parallel.make_mesh), if any
+
     def __init__(
         self,
         model_dir: Optional[str] = None,
@@ -162,6 +180,7 @@ class TTSEngine:
         self._ready = False
         self._error = ""
         self._bits = 8  # the packs' unit bits (16: bf16 units, quantize=None)
+        self.mesh = mesh
         self.cfg = config
         self.params: Optional[dict] = None
         self.tokenizer = tokenizer
@@ -200,13 +219,24 @@ class TTSEngine:
             self._error = str(e)
             log.error("engine init failed: %s", e)
 
-    @staticmethod
-    def _check_arguments(quantize, mesh, mtp_quantize) -> None:
+    def _check_arguments(self, quantize, mesh, mtp_quantize, frame_fused=None) -> None:
         """The arguments' own errors, before anything is loaded."""
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP M15)")
         if quantize not in (None, "int8", "int4"):
             raise EngineError(f"unknown quantize mode {quantize!r}")
+        if quantize is not None and mesh is not None:
+            raise EngineError(f"quantize={quantize} with a mesh is unsupported")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise EngineError(f"mesh {mesh!r}: a leaxer_qwen3_tts_torch.parallel.Mesh "
+                                  "(make_mesh) is expected")
+            if mesh.shape.get("data", 1) != 1:
+                raise EngineError(f"a mesh with data={mesh.shape['data']}: sharding batches "
+                                  "over the data axis is not ported (ROADMAP M15)")
+            if self.spec_k is not None:
+                raise EngineError("spec_k with a mesh: not ported (ROADMAP M15)")
+            if frame_fused:
+                raise EngineError("frame_fused with a mesh: not ported (ROADMAP M15; the JAX "
+                                  "package's frame gate refuses a mesh)")
         if quantize == "int4":
             raise EngineError("quantize='int4': int8 and unquantized (None) weights are ported "
                               "(int4 not ported: ROADMAP K1v-b / K2v)")
@@ -220,7 +250,12 @@ class TTSEngine:
 
     def _build(self, model_dir, config, params, device, quantize, mesh, kv_quant,
                mtp_quantize, mtp_resident, frame_fused) -> None:
-        self._check_arguments(quantize, mesh, mtp_quantize)
+        self._check_arguments(quantize, mesh, mtp_quantize, frame_fused)
+        if mesh is not None:
+            # the plain path runs on the mesh's first device
+            if device is not None and torch.device(device) != mesh.lead:
+                raise EngineError(f"device {device} is not the mesh's first device {mesh.lead}")
+            device = mesh.lead
         if device is None:
             if not torch.cuda.is_available():
                 raise EngineError(
@@ -284,14 +319,20 @@ class TTSEngine:
                 problems.append("code_predictor.resident=False (or QTTS_MTP_RESIDENT=0) selects "
                                 "the per-step MTP path, which is not ported to the card (the "
                                 "chains K2 and K3 are)")
+            if mesh is not None:
+                problems += self._mesh_problems(cfg, mesh)
             b1_pack = {"fused_step": meta_pack(cfg.code_predictor.transformer, self._bits)}
-            if not problems and chain_kernel(cfg.code_predictor, b1_pack, 1) is None:
+            if not problems and mesh is None and chain_kernel(cfg.code_predictor, b1_pack,
+                                                              1) is None:
                 problems.append("the MTP trunk is past the residency gate of K2 and "
                                 "QTTS_MTP_STREAM=0 turns the streamed chain K3 off: that selects "
                                 "the per-step MTP chain, which is not ported to the card")
             if problems:
                 raise EngineError("CUDA kernel path unavailable: " + "; ".join(problems))
 
+        if mesh is not None:
+            self.params = self._mesh_params(cfg, _to_device(params, self.device), mesh)
+            return
         # one qkv and one gate/up product per layer (the JAX engine's fuse=True,
         # its default; the port takes no other layout)
         params = fuse_params(_to_device(params, self.device))
@@ -307,6 +348,46 @@ class TTSEngine:
         if talker_fused:
             params["talker"] = prepare_fused_talker(cfg.talker, params["talker"], bits=self._bits)
         self.params = params
+
+    @staticmethod
+    def _mesh_problems(cfg: TTSModelConfig, mesh) -> List[str]:
+        """Why the card cannot decode ``cfg`` on ``mesh``: the talker step
+        needs K9 and the chain K10 (the plain decode and the cached chain do
+        not run on the card)."""
+        tp = mesh.shape.get("model", 1)
+        tr, cp = cfg.talker.transformer, cfg.code_predictor
+        problems = []
+        if not (tp > 1 and supports_tp(tr, tp) and not tr.kv_cache_quant):
+            problems.append(f"the tensor-parallel step K9 does not take the talker at tp={tp}"
+                            + (" with an int8 KV cache" if tr.kv_cache_quant else ""))
+        if not (tp > 1 and supports_tp_resident(cp.transformer, tp, cp.num_steps,
+                                                cp.subcode_vocab_size)):
+            problems.append(f"the sharded chain K10 does not take the MTP trunk at tp={tp} (the "
+                            "JAX package's cached chain under a mesh is not ported to the card, "
+                            "ROADMAP M15)")
+        return problems
+
+    @staticmethod
+    def _mesh_params(cfg: TTSModelConfig, params: dict, mesh) -> dict:
+        """The JAX engine's mesh build: nothing fused or quantized; per-rank
+        int8 packs of the raw layers for K9 (``talker["fused_tp"]``) and K10
+        (``code_predictor["fused_tp"]`` with the heads' row shards,
+        ``fused_tp_heads``) where their gates hold."""
+        tp = mesh.shape.get("model", 1)
+        tr, cp = cfg.talker.transformer, cfg.code_predictor
+        params = dict(params)
+        if tp > 1 and cfg.talker.decode_impl == "fused" and supports_tp(tr, tp) and (
+                not tr.kv_cache_quant):
+            params["talker"] = dict(params["talker"], fused_tp=pack_fused_tp(
+                tr, params["talker"]["transformer"]["layers"], tp, mesh=mesh))
+        if tp > 1 and cp.impl == "fused" and cp.head_mode == "per_step" and supports_tp_resident(
+                cp.transformer, tp, cp.num_steps, cp.subcode_vocab_size):
+            sub = params["code_predictor"]
+            params["code_predictor"] = dict(
+                sub, fused_tp=pack_fused_tp(cp.transformer, sub["transformer"]["layers"], tp,
+                                            mesh=mesh),
+                fused_tp_heads=shard_heads(sub["heads"], mesh.model_devices()))
+        return params
 
     # ------------------------------------------------------------------
     # Status (the JAX engine's is_ready / get_error / has_speaker_encoder)
@@ -329,7 +410,11 @@ class TTSEngine:
         """Raise EngineError where the card cannot run this engine's batched
         kernels K4 and K5 (``synthesize_batch`` at B > 1, a pool): bf16
         units past 4096 columns (the 1.7B widths) leave a batched plan's
-        32 KB ring slot fewer than 4 rows."""
+        32 KB ring slot fewer than 4 rows.  Under a mesh (anywhere): batched
+        decoding is not ported."""
+        if self.mesh is not None:
+            raise EngineError("batched decoding under a mesh (synthesize_batch at B > 1, the "
+                              "pool, the server): not ported (ROADMAP M15)")
         if self.device.type != "cuda" or self._bits != 16:
             return
         for t in (self.cfg.talker.transformer, self.cfg.code_predictor.transformer):
@@ -563,25 +648,19 @@ class TTSEngine:
 
     def _get_fns(self, lang_id, kv_bucket: int, chunk_len: int, batch: int = 1) -> GenerateFns:
         return make_generate_fns(
-            self.cfg, batch=batch, max_len=kv_bucket, chunk_len=chunk_len, lang_id=lang_id
+            self.cfg, batch=batch, max_len=kv_bucket, chunk_len=chunk_len, lang_id=lang_id,
+            mesh=self.mesh,
         )
 
     @staticmethod
     def _grow_state(state: GenerateState, new_len: int) -> GenerateState:
-        """Zero-pad the KV cache (head-major time axis; an int8 cache's
-        scales alongside) and the validity mask up to the next bucket; padded
-        slots are invalid until written."""
-        pad = new_len - state.cache.k.shape[3]
-        cache = state.cache._replace(
-            k=F.pad(state.cache.k, (0, 0, 0, pad)),
-            v=F.pad(state.cache.v, (0, 0, 0, pad)),
-        )
-        if cache.quantized:
-            cache = cache._replace(k_scale=F.pad(cache.k_scale, (0, pad)),
-                                   v_scale=F.pad(cache.v_scale, (0, pad)))
+        """Zero-pad the KV cache (:meth:`KVCache.grow`, or every rank's head
+        shard of a mesh's :class:`TPKVCache`) and the validity mask up to the
+        next bucket; padded slots are invalid until written."""
         vm = state.valid_mask
+        pad = new_len - state.cache.max_len
         valid = torch.cat([vm, torch.zeros((vm.shape[0], pad), dtype=vm.dtype, device=vm.device)], 1)
-        return state._replace(cache=cache, valid_mask=valid)
+        return state._replace(cache=state.cache.grow(new_len), valid_mask=valid)
 
     def _ids_stream(self, *args, **kw):
         with maybe_trace("synthesize"):
@@ -690,7 +769,7 @@ class TTSEngine:
                 bidx += 1
                 state = self._grow_state(state, self.kv_ladder[bidx])
             fns = self._get_fns(lang_id, self.kv_ladder[bidx], cur_chunk, B)
-            if frame_fused_eligible(cfg, self.params, state, sp):
+            if frame_fused_eligible(cfg, self.params, state, sp, mesh=self.mesh):
                 fused_frames += cur_chunk
             with timer.stage("decode"):
                 state, frames, valid = fns.decode(
@@ -698,6 +777,8 @@ class TTSEngine:
                     bundle.tts_pad_embed, sp,
                 )
                 frames_np = frames.cpu().numpy()  # the one sync of the chunk
+                if self.mesh is not None:
+                    check_timeouts()  # K10's status words of the chunk's chains
             valid_np = valid.cpu().numpy()
             done = bool(state.done.all().cpu())
             frames_chunks.append(frames_np)

@@ -20,9 +20,12 @@ At B=2..32 it is kernel K5
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain_batched`),
 which takes every pack.  A bf16 trunk (the unquantized config) fails the
 residency gate, as in JAX, so its B=1 chain is K3; its batched chain K5
-runs on K3's float32 cache, so that each row equals K3 on it.  On a CUDA
-device a chain the kernels cannot take raises; only the CPU runs the cached
-path.
+runs on K3's float32 cache, so that each row equals K3 on it.  Under a
+tensor-parallel mesh with a ``fused_tp`` pack (the engine attaches one where
+the JAX package's ``supports_tp_resident`` passes) a B=1 chain is kernel K10
+(:func:`predict_subcodes_tp_resident`), ahead of every other route, as in
+the JAX package.  On a CUDA device a chain the kernels cannot take raises;
+only the CPU runs the cached path.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..ops.fused_mtp import (
     supports_resident,
 )
 from ..ops.fused_mtp_stream import fused_mtp_chain_streamed, supports_stream
+from ..ops.fused_mtp_tp import fused_mtp_chain_tp
 from ..ops.fused_step import MAX_BATCH, pack_fused_weights, supports
 from ..ops.quant import QuantizedLinear, dense
 from ..runtime.sampling import SamplingParams
@@ -148,6 +152,7 @@ def predict_subcodes(
     sample_fn: Callable[[torch.Tensor, int], torch.Tensor],  # (logits [B, V], j) -> [B]
     sp: Optional[SamplingParams] = None,  # enables the chain kernels
     noise_fn: Optional[Callable[[], Optional[torch.Tensor]]] = None,
+    mesh=None,  # a tensor-parallel mesh: enables the sharded chain (fused_tp pack)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Runs the MTP loop for one frame.
 
@@ -156,6 +161,10 @@ def predict_subcodes(
     last_hidden's dtype)."""
     t = cfg.transformer
     B, H = last_hidden.shape
+    if (cfg.impl == "fused" and mesh is not None and sp is not None and resident_enabled(cfg)
+            and cfg.head_mode == "per_step" and "fused_tp" in params and B == 1):
+        return predict_subcodes_tp_resident(cfg, params, pred_embed_tables, last_hidden,
+                                            code0_embed, sp, noise_fn, mesh)
     chain = None if sp is None else chain_kernel(cfg, params, B)
     if chain is not None:
         noise = None if sp.greedy else noise_fn()
@@ -206,3 +215,29 @@ def predict_subcodes(
     # the reference sums the first n-1 embeddings, then adds the last
     sub_sum = torch.stack(embs[:-1]).sum(dim=0) + embs[-1]
     return torch.stack(subcodes, dim=1), sub_sum.to(last_hidden.dtype)
+
+
+def predict_subcodes_tp_resident(
+    cfg: CodePredictorConfig,
+    params: dict,
+    pred_embed_tables: torch.Tensor,
+    last_hidden: torch.Tensor,  # [1, H]
+    code0_embed: torch.Tensor,  # [1, H]
+    sp: SamplingParams,
+    noise_fn: Callable[[], Optional[torch.Tensor]],
+    mesh,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-parallel chain (kernel K10) on the mesh's model ranks: the
+    ``fused_tp`` trunk shards and the ``fused_tp_heads`` row shards (the
+    engine attaches both), every rank sampling from the same noise.  The
+    noise [n, 1, V] is the draw the single-device chain (K2 / K3) makes for
+    this frame from the same generator, so the sampled stream is the one
+    that chain would sample on the same logits."""
+    knobs = sp.rows(1)[0]
+    noise = None if sp.greedy else noise_fn()
+    subcodes, sub_sum = fused_mtp_chain_tp(
+        cfg.transformer, mesh.shape["model"], mesh, params["fused_tp"],
+        params["transformer"]["final_norm"], params["fused_tp_heads"], pred_embed_tables,
+        last_hidden, code0_embed, noise, knobs.temperature, knobs.top_k, knobs.top_p,
+    )
+    return subcodes, sub_sum.to(last_hidden.dtype)

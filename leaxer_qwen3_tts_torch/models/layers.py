@@ -53,6 +53,44 @@ class KVCache(NamedTuple):
         """(k_scale, v_scale): the kernels' optional scale arguments."""
         return self.k_scale, self.v_scale
 
+    def grow(self, new_len: int) -> "KVCache":
+        """Zero-padded up to ``new_len`` slots (an int8 cache's scales alongside)."""
+        pad = new_len - self.max_len
+        out = self._replace(k=F.pad(self.k, (0, 0, 0, pad)), v=F.pad(self.v, (0, 0, 0, pad)))
+        if self.quantized:
+            out = out._replace(k_scale=F.pad(self.k_scale, (0, pad)),
+                               v_scale=F.pad(self.v_scale, (0, pad)))
+        return out
+
+
+class TPKVCache(NamedTuple):
+    """The talker's KV cache of a tensor-parallel mesh's decode step (kernel
+    K9, batch 1): the model ranks' kv-head shards, rank r's
+    [num_layers, 1, num_kv_heads / tp, max_len, head_dim] on its device
+    holding kv heads r nk / tp .. (r + 1) nk / tp - 1.  Made once from the
+    prefill's :class:`KVCache` (:meth:`split`); bf16 / float32 only."""
+
+    k: Tuple[torch.Tensor, ...]
+    v: Tuple[torch.Tensor, ...]
+    length: int
+
+    @classmethod
+    def split(cls, cache: KVCache, devices) -> "TPKVCache":
+        from ..ops.fused_tp import split_heads
+
+        return cls(k=split_heads(cache.k, devices), v=split_heads(cache.v, devices),
+                   length=cache.length)
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[3]
+
+    def grow(self, new_len: int) -> "TPKVCache":
+        """Every rank's shard zero-padded up to ``new_len`` slots."""
+        pad = new_len - self.max_len
+        return self._replace(k=tuple(F.pad(c, (0, 0, 0, pad)) for c in self.k),
+                             v=tuple(F.pad(c, (0, 0, 0, pad)) for c in self.v))
+
 
 def init_kv_cache(
     cfg: TransformerConfig, batch: int, max_len: int, device: torch.device

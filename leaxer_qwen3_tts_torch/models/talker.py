@@ -6,8 +6,13 @@ JAX shape: with a packed ``fused_step`` the decode step is kernel K1 at B=1
 K4 at B=2..32 (:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step_batched`,
 per-row positions), and the speculative verify pass of K candidates per
 stream is kernel K6 (:func:`~leaxer_qwen3_tts_torch.ops.fused_verify.fused_verify_step`,
-B x K <= 32 rows); otherwise the plain layers path, which runs only on the
-CPU: on a CUDA device a step or a verify pass the kernels cannot take raises.  The final norm
+B x K <= 32 rows); under a tensor-parallel mesh with a ``fused_tp`` pack a
+B=1 step is kernel K9 on the mesh's model ranks
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_tp.fused_decode_step_tp`, on the
+ranks' kv-head shards of a :class:`~.layers.TPKVCache`, which
+:func:`talker_shard_cache` makes from the prefill's cache); otherwise the
+plain layers path, which runs only on the CPU: on a CUDA device a step or a
+verify pass the kernels cannot take raises.  The final norm
 and the ``lm_head`` stay outside the kernels, in plain PyTorch, as the JAX
 package left them to XLA.
 """
@@ -27,9 +32,10 @@ from ..ops.fused_step import (
     supports,
 )
 from ..ops.fused_mtp import pack_heads
+from ..ops.fused_tp import fused_decode_step_tp
 from ..ops.fused_verify import MAX_S, MIN_S, fused_verify_step
 from ..ops.quant import QuantizedLinear, dense
-from .layers import KVCache, _normal, init_kv_cache, init_transformer_params, rms_norm, transformer_forward
+from .layers import KVCache, TPKVCache, _normal, init_kv_cache, init_transformer_params, rms_norm, transformer_forward
 
 
 def init_talker_params(cfg: TalkerConfig, gen: torch.Generator, device) -> dict:
@@ -44,6 +50,17 @@ def init_talker_params(cfg: TalkerConfig, gen: torch.Generator, device) -> dict:
 
 def talker_init_cache(cfg: TalkerConfig, batch: int, max_len: int, device) -> KVCache:
     return init_kv_cache(cfg.transformer, batch, max_len, device)
+
+
+def talker_shard_cache(cfg: TalkerConfig, talker_params: dict, cache: KVCache, mesh):
+    """The prefill's cache as the ranks' kv-head shards (a :class:`TPKVCache`)
+    where the mesh's step is kernel K9 (the JAX package's predicate: fused
+    decode, a ``fused_tp`` pack, B=1, no int8 cache; the caller's fill is
+    uniform), else the cache as it is."""
+    if (mesh is None or cfg.decode_impl != "fused" or "fused_tp" not in talker_params
+            or cache.k.shape[1] != 1 or cache.quantized):
+        return cache
+    return TPKVCache.split(cache, mesh.model_devices())
 
 
 def prepare_fused_talker(cfg: TalkerConfig, talker_params: dict, bits: int = 8) -> dict:
@@ -95,6 +112,7 @@ def talker_decode_step(
     cache: KVCache,
     valid_mask: torch.Tensor,  # [B, T] bool
     uniform_fill: bool = True,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache, torch.Tensor]:
     """One decode step.  Returns (logits [B, V] f32, hidden [B, H], cache,
     valid_mask).  The cache is updated in place.
@@ -103,9 +121,23 @@ def talker_decode_step(
     position is the cache's host fill level ``cache.length``, which the
     kernels take as a host int.  ``uniform_fill=False`` (the continuous
     pool): the rows' positions are the [B] device tensor ``position``, which
-    the batched kernel reads on the device."""
+    the batched kernel reads on the device.  ``mesh``: the engine's
+    tensor-parallel mesh; a :class:`TPKVCache` (:func:`talker_shard_cache`
+    made it where the JAX package's predicate routes the step to K9) runs
+    K9 on the ranks' shards."""
     B, H = embed.shape
     t = cfg.transformer
+    if isinstance(cache, TPKVCache):
+        pos = min(cache.length, cache.max_len - 1)
+        x_out = fused_decode_step_tp(t, params["fused_tp"], embed, pos, cache.k, cache.v,
+                                     mesh)[0]
+        hidden = rms_norm(
+            x_out, params["transformer"]["final_norm"], t.rms_norm_eps
+        ).to(embed.dtype)
+        logits = dense(hidden, params["lm_head"])
+        valid_mask = valid_mask.clone()
+        valid_mask[:, pos] = True
+        return logits, hidden, cache._replace(length=cache.length + 1), valid_mask
     if cfg.decode_impl == "fused" and "fused_step" in params and B <= MAX_BATCH:
         T = cache.max_len
         if uniform_fill:

@@ -25,9 +25,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
     "fused_step.cu", "fused_step_batched.cu", "fused_mtp.cu", "fused_mtp_batched.cu",
     "fused_verify.cu", "fused_mtp_stream.cu", "flash_attention.cu", "fused_frame.cu",
-    "unit_probe.cu",
+    "unit_probe.cu", "fused_tp.cu", "fused_mtp_tp.cu",
 )
-HEADERS = ("qtts_kernels.cuh", "qtts_stream.cuh")
+HEADERS = ("qtts_kernels.cuh", "qtts_stream.cuh", "qtts_tp.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -146,6 +146,53 @@ class FrameArgs(ctypes.Structure):
     ]
 
 
+class TpWeights(ctypes.Structure):
+    """Mirror of ``QttsTpWeights`` (csrc/qtts_tp.cuh): one rank's shard."""
+
+    _fields_ = [
+        *[(name, ctypes.c_void_p) for name in (
+            "qkv_u", "qkv_s", "wo_u", "wo_s", "gu_u", "gu_s", "wd_u", "wd_s", "attn_norm",
+            "mlp_norm", "q_norm", "k_norm", "inv_freq")],
+        *[(name, ctypes.c_int32) for name in ("L", "H", "nq", "nk", "D", "I", "NU", "KCo", "KCd")],
+        ("eps", ctypes.c_float), ("attn_scale", ctypes.c_float),
+    ]
+
+
+class TpScratch(ctypes.Structure):
+    """Mirror of ``QttsTpScratch``."""
+
+    _fields_ = [
+        ("qkv", ctypes.c_void_p), ("attn", ctypes.c_void_p), ("gu", ctypes.c_void_p),
+        ("part", ctypes.c_void_p), ("max_splits", ctypes.c_int32),
+    ]
+
+
+TP_MAX = 8  # QTTS_TP_MAX: the ranks a K10 launch takes
+
+
+class TpRank(ctypes.Structure):
+    """Mirror of ``QttsTpRank`` (csrc/fused_mtp_tp.cu)."""
+
+    _fields_ = [("w", TpWeights)] + [(name, ctypes.c_void_p) for name in (
+        "heads", "head_scales", "tables", "gumbel", "final_norm", "last_hidden", "code0_embed",
+        "rope", "x", "x_in", "qkv", "attn", "gu", "logits", "k_cache", "v_cache", "recv", "flags",
+        "codes", "sub_sum", "status")]
+
+
+class TpChainArgs(ctypes.Structure):
+    """Mirror of ``QttsTpChainArgs``."""
+
+    _fields_ = [
+        ("rank", TpRank * TP_MAX),
+        *[(name, ctypes.c_int32) for name in (
+            "tp", "rank0", "n_local", "bpr", "n", "V", "Vt", "sites", "W")],
+        ("gen", ctypes.c_uint32), ("temperature", ctypes.c_float), ("top_k", ctypes.c_int32),
+        ("top_p", ctypes.c_float),
+        *[(name, ctypes.c_int32) for name in ("greedy", "heads_bf16", "cross_device", "stall_ns")],
+        ("timeout_ns", ctypes.c_int64),
+    ]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -260,6 +307,19 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_verify_step.argtypes = [
                 W, BS, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,
             ]
+            TW, TS = ctypes.POINTER(TpWeights), ctypes.POINTER(TpScratch)
+            lib.qtts_tp_attn_half.restype = i32
+            lib.qtts_tp_attn_half.argtypes = [TW, TS, i32, vp, vp, vp, vp, i32, i32, i32, vp]
+            lib.qtts_tp_mlp_half.restype = i32
+            lib.qtts_tp_mlp_half.argtypes = [TW, TS, i32, vp, vp, vp]
+            lib.qtts_tp_mtp_chain.restype = i32
+            lib.qtts_tp_mtp_chain.argtypes = [ctypes.POINTER(TpChainArgs), vp]
+            lib.qtts_tp_enable_peers.restype = i32
+            lib.qtts_tp_enable_peers.argtypes = [ctypes.POINTER(ctypes.c_int), i32]
+            lib.qtts_tp_chain_args_size.restype = i32
+            lib.qtts_tp_chain_args_size.argtypes = []
+            if lib.qtts_tp_chain_args_size() != ctypes.sizeof(TpChainArgs):
+                raise RuntimeError("TpChainArgs does not mirror QttsTpChainArgs")
             lib.qtts_verify_step_multi.restype = i32
             lib.qtts_verify_step_multi.argtypes = [
                 W, BS, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,

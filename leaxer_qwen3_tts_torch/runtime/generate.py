@@ -20,6 +20,12 @@ continuous pool's slots can sit at different positions (``uniform_fill=
 False``) and a pool chunk needs no host sync either.  Gumbel noise is drawn
 on the device from the streams' ``torch.Generator``s: one for the batch, or
 one per stream (:class:`~leaxer_qwen3_tts_torch.runtime.sampling.NoiseSource`).
+
+With a tensor-parallel ``mesh`` (the engine's) a B=1 frame's talker step is
+kernel K9 and its chain kernel K10 where the engine attached their packs;
+the prefill, the code0 draw, the embeddings and the lm_head run on the mesh's
+first device.  ``frame_fused`` is ineligible under a mesh, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -32,8 +38,13 @@ import torch
 from ..config import CODEC_EOS, TTSModelConfig
 from ..models.code_predictor import predict_subcodes
 from ..models.embeddings import codec_embed
-from ..models.layers import KVCache
-from ..models.talker import talker_decode_step, talker_init_cache, talker_prefill
+from ..models.layers import KVCache, TPKVCache
+from ..models.talker import (
+    talker_decode_step,
+    talker_init_cache,
+    talker_prefill,
+    talker_shard_cache,
+)
 from ..ops.fused_frame import fused_frame_step, supports_frame
 from .prompt import PromptBundle, build_prompt
 from .sampling import (
@@ -49,7 +60,7 @@ Generators = Union[None, torch.Generator, Sequence[Optional[torch.Generator]]]
 
 
 class GenerateState(NamedTuple):
-    cache: KVCache
+    cache: Union[KVCache, TPKVCache]  # TPKVCache: a mesh's K9 step (B=1)
     valid_mask: torch.Tensor  # [B, T] bool
     last_logits: torch.Tensor  # [B, V] f32
     last_hidden: torch.Tensor  # [B, H]
@@ -125,6 +136,7 @@ def sample_subcodes(
     sp: SamplingParams,  # the B streams' knobs
     noise: NoiseSource,
     slots: int = 1,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Codebooks 1..15 of B streams with ``slots`` candidate rows each (row
     b * slots + j: stream b's candidate j, sampled with stream b's knobs and
@@ -145,6 +157,7 @@ def sample_subcodes(
         lambda lg, j: sample_token(lg, flat, noise.draw(sub_widths, slots)),
         sp=flat,
         noise_fn=lambda: noise.draw_chain(cp.num_steps, Vs, [not r.greedy for r in rows], slots),
+        mesh=mesh,
     )
     return code0_embed, subcodes, sub_sum
 
@@ -170,19 +183,23 @@ def frame_fused_enabled(cfg: TTSModelConfig) -> bool:
 
 
 def frame_fused_eligible(cfg: TTSModelConfig, params: dict, state: GenerateState,
-                         sp: Optional[SamplingParams], uniform_fill: bool = True) -> bool:
+                         sp: Optional[SamplingParams], uniform_fill: bool = True,
+                         mesh=None) -> bool:
     """The JAX package's gate for the whole-frame kernel (its
-    ``_frame_fused_eligible``, no mesh or tensor-parallel terms):
-    :func:`frame_fused_enabled`, B=1 sequential decode, the fused talker and MTP packs, per-step heads,
-    and :func:`~leaxer_qwen3_tts_torch.ops.fused_frame.supports_frame` at this
+    ``_frame_fused_eligible``): no mesh, :func:`frame_fused_enabled`, B=1
+    sequential decode, the fused talker and MTP packs and no talker
+    ``fused_tp`` pack, per-step heads, and
+    :func:`~leaxer_qwen3_tts_torch.ops.fused_frame.supports_frame` at this
     cache bucket.  Shapes and config only: no device data."""
-    if not frame_fused_enabled(cfg) or sp is None or not uniform_fill:
+    if mesh is not None or not frame_fused_enabled(cfg) or sp is None or not uniform_fill:
         return False
     if state.last_hidden.shape[0] != 1:
         return False
     tp = params.get("talker", {})
     cp = params.get("code_predictor", {})
     if cfg.talker.decode_impl != "fused" or "fused_step" not in tp or "fused_lm_head" not in tp:
+        return False
+    if "fused_tp" in tp:
         return False
     if "fused_step" not in cp or "fused_heads" not in cp:
         return False
@@ -256,6 +273,7 @@ def _frame_step(
     state: GenerateState,
     uniform_fill: bool = True,
     frame_fused: bool = False,
+    mesh=None,
 ) -> Tuple[GenerateState, Tuple[torch.Tensor, torch.Tensor]]:
     """One 12 Hz frame.  Returns (state', (frame_codes [B, 16] int32, frame_valid [B])).
     ``frame_fused``: :func:`frame_fused_eligible` for this chunk."""
@@ -268,7 +286,7 @@ def _frame_step(
     frame_valid = ~state.done & ~is_eos
     done = state.done | is_eos
     code0_embed, subcodes, sub_sum = sample_subcodes(cfg, params, state.last_hidden, code0, sp,
-                                                     noise)
+                                                     noise, mesh=mesh)
     frame = torch.cat([code0[:, None].to(torch.int32), subcodes.to(torch.int32)], dim=1)
     frame = torch.where(frame_valid[:, None], frame, 0)
 
@@ -278,7 +296,7 @@ def _frame_step(
 
     logits2, hidden2, cache, valid_mask = talker_decode_step(
         cfg.talker, params["talker"], next_embed, state.pos, state.cache, state.valid_mask,
-        uniform_fill=uniform_fill,
+        uniform_fill=uniform_fill, mesh=mesh,
     )
     new_state = GenerateState(
         cache=cache,
@@ -303,6 +321,7 @@ def decode_frames(
     sp: SamplingParams,
     num_frames: int,
     uniform_fill: bool = True,
+    mesh=None,
 ) -> Tuple[GenerateState, torch.Tensor, torch.Tensor]:
     """Run ``num_frames`` frames.  Returns (state, frames [B, F, 16] int32,
     valid [B, F] bool), all on the device; nothing here waits for it."""
@@ -310,12 +329,12 @@ def decode_frames(
     B, V = state.last_logits.shape
     suppress = make_codec_suppress_mask(cfg.talker.codec_vocab_size, device)
     knobs = RowKnobs.build(sp, B, V, device)  # once per chunk
-    fused = frame_fused_eligible(cfg, params, state, sp, uniform_fill)  # shapes: once per chunk
+    fused = frame_fused_eligible(cfg, params, state, sp, uniform_fill, mesh)  # once per chunk
     frames, valid = [], []
     for _ in range(num_frames):
         state, (frame, fv) = _frame_step(
             cfg, params, suppress, trailing, trailing_len, tts_pad_embed, sp, knobs, state,
-            uniform_fill, fused,
+            uniform_fill, fused, mesh,
         )
         frames.append(frame)
         valid.append(fv)
@@ -336,23 +355,30 @@ def make_generate_fns(
     chunk_len: int = 32,
     lang_id: Optional[int] = None,
     uniform_fill: bool = True,
+    mesh=None,
 ) -> GenerateFns:
     """Prefill / decode-chunk callables, the shape of the JAX package's
     ``make_generate_fns``.  ``max_len`` is the first KV-cache bucket;
     ``uniform_fill=False`` decodes a pool state whose rows sit at their own
-    positions (``cache.length`` a [B] device tensor)."""
+    positions (``cache.length`` a [B] device tensor); ``mesh``: the
+    tensor-parallel mesh of the decode (K9, K10)."""
 
     def prefill_fn(params, text_ids, text_len, generator=None, **segments):
         """``segments``: the optional prompt segments of :func:`prefill`
         (``speaker_embed``, ``instruct_ids``, ``instruct_len``)."""
         if text_ids.shape[0] != batch:
             raise ValueError(f"batch {text_ids.shape[0]} != {batch}")
-        return prefill(cfg, params, text_ids, text_len, lang_id, max_len, generator, **segments)
+        state, bundle = prefill(cfg, params, text_ids, text_len, lang_id, max_len, generator,
+                                **segments)
+        if uniform_fill:  # a mesh's K9 step takes the ranks' head shards
+            state = state._replace(cache=talker_shard_cache(cfg.talker, params["talker"],
+                                                            state.cache, mesh))
+        return state, bundle
 
     def decode_fn(params, state, trailing, trailing_len, tts_pad_embed, sp):
         return decode_frames(
             cfg, params, state, trailing, trailing_len, tts_pad_embed, sp, chunk_len,
-            uniform_fill,
+            uniform_fill, mesh,
         )
 
     return GenerateFns(prefill=prefill_fn, decode=decode_fn)

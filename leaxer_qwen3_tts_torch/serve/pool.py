@@ -1,7 +1,8 @@
 """Continuous batching: a persistent decode pool with per-slot admit/retire.
 
-Port of ``leaxer_qwen3_tts_tpu/serve/pool.py`` without a device mesh
-(ROADMAP M15):
+Port of ``leaxer_qwen3_tts_tpu/serve/pool.py``; the JAX pool's slots over a
+mesh's "data" axis are not ported, and an engine built on a mesh is refused
+here (``TTSEngine.check_batched``; ROADMAP M15):
 
   * B decode SLOTS run one shared chunked decode forever; requests are
     ADMITTED into free slots at chunk boundaries and RETIRED independently on

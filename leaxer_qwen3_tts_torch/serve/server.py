@@ -64,6 +64,8 @@ class BatchingServer:
     ):
         if max_batch not in BATCH_BUCKETS:
             raise ValueError(f"max_batch must be one of {BATCH_BUCKETS}")
+        if getattr(engine, "mesh", None) is not None:
+            engine.check_batched()  # raises: batched decoding under a mesh is not ported
         self.engine = engine
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3

@@ -24,6 +24,7 @@ from leaxer_qwen3_tts_torch import config as tcfg
 from leaxer_qwen3_tts_torch.api.engine import EngineError, TTSEngine
 from leaxer_qwen3_tts_torch.frontend import Tokenizer, read_wav
 from leaxer_qwen3_tts_torch.models import layers as tlayers
+from leaxer_qwen3_tts_torch.parallel import make_mesh
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
 from leaxer_qwen3_tts_torch.serve import BatchingServer, ContinuousBatcher, make_http_server, wav_bytes
 
@@ -276,16 +277,26 @@ def test_wav_bytes_roundtrip(tmp_path):
 
 
 def test_unported_modes_raise(engine, tiny_model):
-    """A device mesh is a later ROADMAP item: the engine is not ready (its
-    error names the item) and a pool refuses it, instead of running
-    something else; a spec_k the verify pass does not take raises too."""
+    """A pool over a device mesh (its slots on the "data" axis) is a later
+    ROADMAP item: a mesh with a data axis leaves the engine not ready, and a
+    pool refuses an engine on a tensor-parallel mesh (each error names the
+    item), instead of running something else; an object that is no mesh
+    leaves the engine not ready; a spec_k the verify pass does not take
+    raises too."""
     with pytest.raises(ValueError, match="spec_k"):
         ContinuousBatcher(engine, pool_size=2, spec_k=9)
     cfg, params = _port(tiny_model)
-    meshed = TTSEngine(config=cfg, params=params, mesh=object(), device="cpu")
-    assert not meshed.is_ready() and "M15" in meshed.get_error()
+    cpu = [torch.device("cpu")] * 4
+    data = TTSEngine(config=cfg, params=params, mesh=make_mesh(2, 2, devices=cpu))
+    assert not data.is_ready() and "M15" in data.get_error()
     with pytest.raises(EngineError, match="engine not ready: .*M15"):
+        ContinuousBatcher(data, pool_size=2)
+    meshed = TTSEngine(config=cfg, params=params, mesh=make_mesh(1, 2, devices=cpu))
+    assert meshed.is_ready(), meshed.get_error()
+    with pytest.raises(EngineError, match="under a mesh.*M15"):
         ContinuousBatcher(meshed, pool_size=2)
+    bogus = TTSEngine(config=cfg, params=params, mesh=object(), device="cpu")
+    assert not bogus.is_ready() and "make_mesh" in bogus.get_error()
 
 
 @pytest.fixture(scope="module")

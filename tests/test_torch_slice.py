@@ -248,7 +248,9 @@ def test_port_imports_no_jax():
             "leaxer_qwen3_tts_torch.cli.main", "leaxer_qwen3_tts_torch.cli.__main__",
             "leaxer_qwen3_tts_torch.serve.__main__", "leaxer_qwen3_tts_torch.models.speaker_encoder",
             "leaxer_qwen3_tts_torch.frontend.mel", "leaxer_qwen3_tts_torch.utils.profiling",
-            "leaxer_qwen3_tts_torch.utils.logging", "leaxer_qwen3_tts_torch.runtime.weights"} <= modules
+            "leaxer_qwen3_tts_torch.utils.logging", "leaxer_qwen3_tts_torch.runtime.weights",
+            "leaxer_qwen3_tts_torch.parallel.mesh", "leaxer_qwen3_tts_torch.ops.fused_tp",
+            "leaxer_qwen3_tts_torch.ops.fused_mtp_tp"} <= modules
     # no kernel ran on the CPU
     assert fused_step.fused_decode_step.launches == 0
     assert fused_mtp.fused_mtp_chain.launches == 0
