@@ -38,11 +38,11 @@ KV cache's five (``python3 chip_mutants.py kvq``) against
 ``chip_smoke.check_kvq_ties``, ``check_kvq_k1`` on one layer, ``check_kvq_k4``
 and ``check_kvq_k6`` (K4 rows against K1, K6 against its steps, also with
 every slot write stalled) and K7's int8-cache composition and plain checks;
-the tensor-parallel kernels' three (``python3 chip_mutants.py TP``) against
-``chip_smoke.check_k9_halves`` on a pack whose unit scales are drawn anew,
-``check_k9_step`` and ``check_k10`` (also on such a pack, and twice in a row
-with odd ranks' sends stalled) at 0.6B tp=2 and 1.7B tp=4, two talker
-layers.  A mutant rebuilds only the sources that include the file it
+the tensor-parallel kernels' five (``python3 chip_mutants.py TP``) against
+``chip_smoke.check_k9_step``, ``check_k9_stalled`` and ``check_k10`` (also
+twice in a row with odd ranks' sends stalled) at 0.6B tp=2 and 1.7B tp=4, two
+talker layers, and ``check_k9_equals_k1`` and ``check_k10`` at 0.6B on a
+one-slot weight ring.  A mutant rebuilds only the sources that include the file it
 changes.  A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
 caught, or without CUDA.
 """
@@ -275,9 +275,9 @@ MUTANTS = {
     # gate|up prologue (which reads all of x) dropped
     "K1/K2 grid barrier after the o projection dropped": (
         "qtts_stream.cuh",
-        "    qtts_ring_gemv<true, WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);\n"
-        "    qtts_phase_barrier(p);\n",
-        "    qtts_ring_gemv<true, WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);\n",
+        "    g.template residual<WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x, 2 * l);\n"
+        "    g.barrier(p);\n",
+        "    g.template residual<WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x, 2 * l);\n",
         "K1K2",
     ),
     # the batched attention merges a row's splits by row 0's split count:
@@ -370,30 +370,60 @@ MUTANTS = {
          "      }\n",),
         "KVQ",
     ),
-    # K9 / K10: a K-split product's every chunk scaled by the first chunk's
-    # unit scales (a real pack's chunks share their column's scales; the
-    # checks draw each unit's anew)
-    "TP K-split chunk takes the first chunk's scale": (
+    # K10's consumer reads the launch's fourth ring stage (at 0.6B tp=2 on
+    # the one-slot ring every block's second gate|up stage of layer 0: 20-24
+    # rows that three warps read while the copy flies; the second stage is
+    # the o product's, whose copy lands during the attention phase) before
+    # it waits on the stage's mbarrier (it waits after its dot products, so
+    # the barrier's phases stay in step): caught only with a one-slot ring
+    "TP K10 ring stage read before its copy lands": (
+        "fused_mtp_tp.cu",
+        ("    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    tp_stage_rows<WT>(",
+         "                      lane);\n"
+         "    __syncthreads();  // every warp is done with the slot\n"),
+        ("    const bool late = stage == 3;\n"
+         "    if (!late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    tp_stage_rows<WT>(",
+         "                      lane);\n"
+         "    if (late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    __syncthreads();  // every warp is done with the slot\n"),
+        "TP",
+    ),
+    # K10's stages after a block's first write their rows one quad on: four
+    # rows of the next block's left stale, four of its own unwritten
+    "TP K10 stage rows one quad off": (
+        "fused_mtp_tp.cu",
+        "r0 + c * stage_rows, min(stage_rows, nrows - c * stage_rows), K, KC, warp,",
+        "r0 + c * stage_rows + (c > 0 ? 4 : 0), min(stage_rows, nrows - c * stage_rows), K, KC,"
+        " warp,",
+        "TP",
+    ),
+    # the exchange's sender writes its rows into the slot of the next rank:
+    # at tp=2 rank 1 then reads a slot no rank wrote this call
+    "TP exchange partner one off": (
         "qtts_tp.cuh",
-        "S != nullptr ? __fmul_rn(d, S[(size_t)(i * nn + c / NU) * NU + c % NU]) : d;",
-        "S != nullptr ? __fmul_rn(d, S[(size_t)(c / NU) * NU + c % NU]) : d;",
+        "    float* dst = link[peer].recv + (slot + s.me) * s.W + r0;",
+        "    float* dst = link[peer].recv + (slot + (s.me + 1) % s.tp) * s.W + r0;",
         "TP",
     ),
-    # K10's hypercube partner one rank off: at tp=2 every rank exchanges
-    # with itself, at tp=4 the rounds pair the wrong ranks
+    # the hypercube's round adds the value one rank on instead of its
+    # partner's: the ranks end with different bits
     "TP hypercube partner off by one": (
-        "fused_mtp_tp.cu",
-        "const int partner = me ^ (1 << r);",
-        "const int partner = ((me ^ (1 << r)) + 1) % a.tp;",
+        "qtts_tp.cuh",
+        "for (int k = 0; k < QTTS_TP_MAX; ++k) u[k] = __fadd_rn(v[k], v[k ^ step]);",
+        "for (int k = 0; k < QTTS_TP_MAX; ++k) u[k] = __fadd_rn(v[k], v[(k + step) % QTTS_TP_MAX]);",
         "TP",
     ),
-    # K10's wait satisfied by any raised flag: the previous call's flags pass
-    # it, so a rank whose partner's send is late reads the previous call's
-    # values (caught only with the sends stalled, on the second call)
+    # the exchange's wait satisfied by any raised flag: the previous call's
+    # flags pass it, so a rank whose peer's send is late reads the previous
+    # call's rows (caught only with the sends stalled, on the second call)
     "TP flag not generation-counted": (
-        "fused_mtp_tp.cu",
-        "while (flag_acquire<SYS>(flag) != gen) {",
-        "while (flag_acquire<SYS>(flag) == 0u) {",
+        "qtts_tp.cuh",
+        "while (qtts_flag_acquire<SYS>(flag) != gen) {",
+        "while (qtts_flag_acquire<SYS>(flag) == 0u) {",
         "TP",
     ),
 }
@@ -404,8 +434,8 @@ def _plan_as_int8():
     rows of slot_bytes / K, twice what a bf16 slot holds.  Returns the undo."""
     real = persistent._plan_at
 
-    def faulty(slot_bytes, cfg, grid, shapes, batch, n_sets, unit_bytes=1):
-        return real(slot_bytes, cfg, grid, shapes, batch, n_sets, 1)._replace(
+    def faulty(slot_bytes, cfg, grid, shapes, batch, n_sets, unit_bytes=1, head_bytes=0):
+        return real(slot_bytes, cfg, grid, shapes, batch, n_sets, 1, head_bytes)._replace(
             unit_bytes=unit_bytes)
 
     cs.clear_entries()  # plans cached before the fault would hide it
@@ -512,31 +542,35 @@ def checks(gen):
             for case in cs.K6_STALL_CASES for ns in (0, cs.K6_STALL_NS)]
     kvq += [lambda: cs.check_k7_composition(packs, 256, 255, torch.int8, gen, inputs=2),
             lambda: cs.check_k7_plain(packs, 256, 255, cs.K7_KNOBS[1], gen, 0, torch.int8)]
-    # the tensor-parallel kernels: K9's halves on a pack whose unit scales
-    # are drawn anew and its step, K10 against its plain version (also on
-    # such a pack, and twice in a row with odd ranks' sends stalled), at
-    # 0.6B tp=2 and 1.7B tp=4
+    # the tensor-parallel kernels: K9's step against its plain version and,
+    # twice in a row with odd ranks' sends stalled, against itself; K10
+    # against its plain version (also twice in a row with the sends stalled),
+    # at 0.6B tp=2 and 1.7B tp=4, two talker layers; then at 0.6B K9 at tp=1
+    # against K1 and K10 against its plain version on a one-slot ring
     tp = []
     for name, cfg, n_tp in cs.TP_MODELS:
         mesh = cs.make_mesh(1, n_tp, devices=cs.card_devices(n_tp))
         tt = dataclasses.replace(cfg.talker.transformer, num_layers=2)
-        tfw = cs.tp_pack(tt, n_tp, mesh, gen)
-        rs = cs.random_scales(tfw, gen)
-        tp += [lambda tt=tt, rs=rs, n_tp=n_tp, mesh=mesh, name=name: cs.check_k9_halves(
-            f"{name} talker-2-layer", tt, n_tp, rs, 256, 200, torch.bfloat16, gen,
-            mesh.model_devices()),
-               lambda tt=tt, tfw=tfw, n_tp=n_tp, mesh=mesh, name=name: cs.check_k9_step(
-            f"{name} talker-2-layer", tt, n_tp, tfw, mesh, 256, 200, gen)]
+        rows = cs.tp_pack(tt, n_tp, mesh, gen)
+        tp += [lambda tt=tt, rows=rows, n_tp=n_tp, mesh=mesh, name=name: cs.check_k9_step(
+            f"{name} talker-2-layer", tt, n_tp, rows, mesh, 256, 200, gen),
+               lambda tt=tt, rows=rows, n_tp=n_tp, mesh=mesh, name=name: cs.check_k9_stalled(
+            f"{name} talker-2-layer", tt, n_tp, rows, mesh, gen)]
         cp, cfw, heads, tables, fnorm = cs.tp_chain_packs(name, cfg, n_tp, mesh, gen)
-        crs = cs.random_scales(cfw, gen)
         args = (cp, n_tp, mesh)
         tp += [lambda a=args, f=cfw, h=heads, tb=tables, fn=fnorm, name=name: cs.check_k10(
             f"K10 {name}", *a, f, h["int8"], tb, fn, cs.K10_KNOBS[0], gen),
-               lambda a=args, f=crs, h=heads, tb=tables, fn=fnorm, name=name: cs.check_k10(
-            f"K10 {name} unit scales drawn anew", *a, f, h["bf16"], tb, fn, cs.K10_KNOBS[1], gen),
                lambda a=args, f=cfw, h=heads, tb=tables, fn=fnorm, name=name: cs.check_k10(
             f"K10 {name} stalled", *a, f, h["bf16"], tb, fn, cs.K10_KNOBS[1], gen, calls=2,
             stall_ns=cs.K10_STALL_NS)]
+    t2 = dataclasses.replace(QWEN3_TTS_06B.talker.transformer, num_layers=2)
+    mesh2 = cs.make_mesh(1, 2, devices=cs.card_devices(2))
+    chain2 = cs.tp_chain_packs("0.6B", QWEN3_TTS_06B, 2, mesh2, gen)
+    tp += [lambda: cs.one_slot_ring(lambda: cs.check_k9_equals_k1(
+        "0.6B talker-2-layer, one ring slot", t2, gen, cs.K9_EQUAL_CASES[:1])),
+           lambda: cs.one_slot_ring(lambda: cs.check_k10(
+        "K10 0.6B, one ring slot", chain2[0], 2, mesh2, chain2[1], chain2[2]["int8"],
+        *chain2[3:], cs.K10_KNOBS[0], gen))]
     return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1,
             "P2": p2, "BF16": bf16, "KVQ": kvq, "TP": tp}
 

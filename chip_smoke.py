@@ -197,30 +197,35 @@ prints the final line:
    every run's launch counts, and K1, K4, K6 and K7 launched on them.
 14. ``tp_phase``: the tensor-parallel path on a mesh that lists this card
    ``tp`` times (``make_mesh(1, tp, devices=[cuda:0] * tp)``: tp logical
-   ranks), at the 0.6B widths (tp=2) and the 1.7B widths (tp=4).  The K9
-   step (K9a and K9b per layer and rank, the ranks' partials summed in rank
-   order) against the step on the plain halves at T=256 pos 200 and T=2560
-   pos 2559 (K1's deep limits, timed in ms per step); K9a and K9b alone on a
-   pack whose unit scales are drawn anew (chunks of a K-split column then
-   scale differently) with bf16 and float32 caches, 8 seeded inputs per case
-   (K1's one-layer limits and K9_TIGHT_MIN tight); K10 against its plain
-   version (which rounds and sums as the kernel does), int8 and bf16 heads,
-   greedy and two sampled knob sets: every rank's sub-codes and final
-   residual and the sub_sum equal bit for bit, no exchange timed out; K10
-   twice in a row with every odd rank's sends stalled K10_STALL_NS (a wait a
-   stale flag satisfies then reads the previous call's values) and on the
-   drawn-anew scales; a planted timeout (the sends held past the wait
-   limit) raises, and the next call is clean.  Then
-   ``TTSEngine(config, params, mesh=...)`` with ``quantize`` unset: two 0.6B
-   requests at tp=2 and one 1.7B request at tp=4, L x tp launches of each K9
-   half and one K10 per decoded frame and no other kernel.  With two cards
-   or more the kernel checks and the engines run again with the ranks on
-   distinct cards; with one, a line says that run was not made.
+   ranks), at the 0.6B widths (tp=2) and the 1.7B widths (tp=4).  K9 (one
+   launch per step for the card's ranks: K1's phases on each rank's rows, the
+   partials all-reduced in the kernel) at tp=1 (four layers) against K1 on
+   K1's pack of the same weights, bit for bit, bf16 and float32 caches, and
+   with every peer's rows zero against K1 on rank 0's shard, bit for bit; the
+   K9 step against the step on the plain halves at T=256 pos 200 and T=2560
+   pos 2559 (K1's deep limits, timed in ms per step, every rank's x the same
+   bits) and traced (rank 0's phases, group barriers and exchanges; K10 too);
+   two calls with the odd ranks' sends stalled equal the unstalled step bit
+   for bit; a planted timeout raises and the next call is clean; K9 on
+   one-layer shards, bf16 and float32 caches, 24 seeded inputs per case (K1's
+   one-layer limits and 8 tight); K10 against its plain version (which rounds
+   and sums as the kernel does), int8 and bf16 heads, greedy and two sampled
+   knob sets: every rank's sub-codes and final residual and the sub_sum equal
+   bit for bit, no exchange timed out; K10 twice in a row with every odd
+   rank's sends stalled K10_STALL_NS (a wait a stale flag satisfies then reads
+   the previous call's values) and on the drawn-anew scales; a planted timeout
+   (the sends held past the wait limit) raises, and the next call is clean; K9
+   and K10 again on a one-slot ring.  Then ``TTSEngine(config, params,
+   mesh=...)`` with ``quantize`` unset: two 0.6B requests at tp=2 and one 1.7B
+   request at tp=4, one K9 and one K10 launch per decoded frame and no other
+   kernel.  With two cards or more the kernel checks and the engines run again
+   with the ranks on distinct cards; with one, a line says that run was not
+   made.
 15. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
-   K1, K4, K6 and K7 once more for the int8 KV cache; K9a and K9b per call of
-   one half, K10 per chain) and the device line.
+   K1, K4, K6 and K7 once more for the int8 KV cache; K9 per step, K10 per
+   chain) and the device line.
 """
 
 from __future__ import annotations
@@ -963,12 +968,13 @@ def one_slot_ring(run, probe_stall_ns=0):
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.in_bytes)
         return plan._replace(n_slots=1, smem_bytes=smem["total"], issue_stall_ns=probe_stall_ns)
 
-    def one_slot(cfg, device, head_rows=0, batch=1, talker=None, lm_rows=0, unit_bytes=1):
+    def one_slot(cfg, device, head_rows=0, batch=1, talker=None, lm_rows=0, unit_bytes=1,
+                 grid=None, head_k=0, head_bytes=0):
         device = torch.device(device)
-        plan = persistent.make_plan(cfg, persistent.grid_size(device), head_rows, batch, talker,
-                                    lm_rows, unit_bytes)
+        plan = persistent.make_plan(cfg, grid or persistent.grid_size(device), head_rows, batch,
+                                    talker, lm_rows, unit_bytes, head_k, head_bytes)
         plan = persistent._plan_at(ONE_SLOT_BYTES, cfg, plan.grid, plan.shapes, batch,
-                                   plan.n_sets, unit_bytes)
+                                   plan.n_sets, unit_bytes, head_bytes)
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.union_bytes)
         return persistent.DevicePlan(plan._replace(n_slots=1, smem_bytes=smem["total"]), device)
 
@@ -990,6 +996,8 @@ def clear_entries():
     K2._CHAIN_ENTRIES.clear()
     K6._ENTRIES.clear()
     K7._ENTRIES.clear()
+    K9._ENTRIES.clear()
+    K10._ENTRIES.clear()
     unit_probe._PLANS.clear()
 
 
@@ -1598,9 +1606,9 @@ def check_fixed_run(eng, n_frames, texts, card_line, instruct=None):
 
 KERNELS = (K1.fused_decode_step, K2.fused_mtp_chain, K1.fused_decode_step_batched,
            K2.fused_mtp_chain_batched, K6.fused_verify_step, K3.fused_mtp_chain_streamed,
-           K8.flash_attend, K7.fused_frame_step, P1.chain, P2.chain, K9.attn_half,
-           K9.mlp_half, K10.fused_mtp_chain_tp)
-KERNEL_IDS = ("K1", "K2", "K4", "K5", "K6", "K3", "K8", "K7", "P1", "P2", "K9a", "K9b", "K10")
+           K8.flash_attend, K7.fused_frame_step, P1.chain, P2.chain, K9.fused_decode_step_tp,
+           K10.fused_mtp_chain_tp)
+KERNEL_IDS = ("K1", "K2", "K4", "K5", "K6", "K3", "K8", "K7", "P1", "P2", "K9", "K10")
 
 
 def reset_launches():
@@ -4001,19 +4009,25 @@ def kvq_phase(tok, gen, card_line):
 
 TP_MODELS = (("0.6B", QWEN3_TTS_06B, 2), ("1.7B", QWEN3_TTS_17B, 4))
 K9_CASES = ((256, 200), (2560, 2559))
-# K9's halves on one layer against their plain versions: the same bf16
-# operands summed in other orders, so most inputs agree to ~1e-7 and a GEMV
-# input on a bf16 rounding edge moves a partial by up to ~1e-3 relative; a
-# wrong unit, scale or slot moves it by O(1).  Each case runs K9_HALF_INPUTS
-# seeded inputs (rank and layer varying), all within K1's flip-tolerant
-# limits, and needs K9_TIGHT_MIN of them within K1_TIGHT_REL.
-K9_HALF_INPUTS = 8
-K9_TIGHT_MIN = 3
-K10_STALL_NS = 20_000  # odd ranks hold every exchange's send back this long
+# K9 against K1 bit for bit: at tp=1 (the shard is the whole tensor), and
+# with every peer's rows zero (rank 0's result is K1's on rank 0's shard)
+K9_EQUAL_CASES = ((256, 200), (2560, 1800))
+# K9 on one layer against its plain version (the JAX halves' unit products
+# and the hypercube's sum): the same bf16 operands summed in other orders, so
+# most inputs agree to ~1e-7 and a GEMV input on a bf16 rounding edge moves x
+# by up to ~1e-3 relative; a wrong row, scale, slot or exchange moves it by
+# O(1).  Each case runs K1's count of seeded inputs, all within K1's
+# flip-tolerant limits, and needs K1's count of them within K1_TIGHT_REL (at
+# the 1.7B widths, T=2560, a bf16 cache: 8 and 2 of 8 inputs tight in two
+# runs, so 3 of 8 failed the real kernel).
+K9_ONE_LAYER_INPUTS = K1_TIGHT_INPUTS
+K9_TIGHT_MIN = K1_TIGHT_MIN
+K10_STALL_NS = 20_000  # odd ranks hold every exchange's send back this long (K9 and K10)
 # the planted timeout: odd ranks' sends held past the even ranks' wait limit
 K10_TIMEOUT_STALL_NS = 2_000_000
 K10_TIMEOUT_NS = 200_000
 K10_KNOBS = ((0.0,), (0.8, 50, 0.95), (1.0, 0, 1.0))
+ROW_LEAVES = ("wqkv", "sqkv", "wo", "so", "wgu", "sgu", "wd", "sd")
 
 
 def card_devices(tp, first=0):
@@ -4023,21 +4037,28 @@ def card_devices(tp, first=0):
 
 
 def tp_pack(t, tp, mesh, gen):
-    """Random raw layers of ``t`` (seeded), packed per rank for K9 / K10."""
+    """Random raw layers of ``t`` (seeded), packed per rank as the JAX
+    package packs them and turned into the ranks' row packs (what K9 and
+    K10 take)."""
     layers = init_transformer_params(t, gen, DEV)["layers"]
-    fw = K9.pack_fused_tp(t, layers, tp, mesh=mesh)
+    rows = K9.pack_rows(t, tp, K9.pack_fused_tp(t, layers, tp, mesh=mesh))
     del layers
-    return fw
+    return rows
 
 
-def random_scales(fw, gen):
-    """The pack with every unit's scales drawn anew (0.5x to 1.5x): chunks of
-    one K-split column then carry different scales, which a real pack's
-    (taken over the shard's rows, the same for every chunk) never show."""
-    def draw(leaf):
-        return [s * (0.5 + torch.rand(s.shape, generator=gen, device=s.device)) for s in leaf]
+def random_scales(rows, gen):
+    """The row packs with every row's scale drawn anew (0.5x to 1.5x)."""
+    def draw(s):
+        return s * (0.5 + torch.rand(s.shape, generator=gen, device=s.device))
 
-    return fw._replace(**{k: draw(getattr(fw, k)) for k in ("qkv_s", "wo_s", "gu_s", "wd_s")})
+    return K9.FusedTPRows([w._replace(**{k: draw(getattr(w, k)) for k in ("sqkv", "so", "sgu",
+                                                                         "sd")})
+                           for w in rows.ranks])
+
+
+def rows_bytes(rows, names=None) -> int:
+    """Bytes of every rank's leaves ``names`` (all of them by default)."""
+    return sum(nbytes([getattr(w, k) for k in (names or w._fields)]) for w in rows.ranks)
 
 
 def tp_caches(t, tp, T, pos, cache_dtype, gen, devices):
@@ -4051,92 +4072,39 @@ def tp_caches(t, tp, T, pos, cache_dtype, gen, devices):
     return out
 
 
-def half_bound(t, tp, fw, r, l, pos, cache_dtype, kind):
-    """One half of one layer on one rank: its units and scales read once,
-    the slots it attends (attention) and x in, the partial out."""
-    H, d, nq_s, nk_s, qd_s, kvd_s, A_s, I_s, NU, KCo, KCd = K9._dims(t, tp)
+def statuses(run) -> list:
+    """Every rank's status word of a K9 or K10 run, in rank order."""
+    return [int(v) for words in run.status for v in words.tolist()]
+
+
+def step_tp_bound(t, tp, rows, pos, cache_dtype):
+    """Bound of one K9 step: every rank's rows, scales and norms read once
+    (the ranks share the card's HBM), the slots it attends over every layer,
+    the new slot and x written; the products' and the attention's
+    multiply-adds."""
     elem = torch.empty((), dtype=cache_dtype).element_size()
-    if kind == "attn":
-        w = nbytes([fw.qkv_u[r][l], fw.qkv_s[r][l], fw.wo_u[r][l], fw.wo_s[r][l]])
-        moved = w + 2 * nk_s * d * elem * (pos + 2) + 2 * H * 4
-        ops = 2 * (H * A_s + qd_s * H) + 4 * nq_s * d * (pos + 1)
-    else:
-        w = nbytes([fw.gu_u[r][l], fw.gu_s[r][l], fw.wd_u[r][l], fw.wd_s[r][l]])
-        moved, ops = w + 2 * H * 4, 2 * (H * 2 * I_s + I_s * H)
-    return bound(moved, ops)
+    L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
+    moved = rows_bytes(rows) + 2 * L * nk * d * elem * (pos + 2) + 2 * t.hidden_size * 4
+    macs = rows_bytes(rows, ("wqkv", "wo", "wgu", "wd"))  # int8: 1 byte a multiply-add
+    return bound(moved, 2 * macs + L * 4 * t.num_heads * d * (pos + 1))
 
 
-def check_k9_halves(name, t, tp, fw, T, pos, cache_dtype, gen, devices, iters=0):
-    """K9a and K9b on K9_HALF_INPUTS seeded inputs (rank r = i % tp, layer
-    i % L) against their plain versions: dx / dm within K1_SHALLOW_X_REL,
-    the written slot within K1_SHALLOW_SLOT_ABS, every other slot untouched,
-    and K9_TIGHT_MIN inputs of each half within K1_TIGHT_REL (x and slot)."""
-    L, H = t.num_layers, t.hidden_size
-    worst = {"attn": 0.0, "mlp": 0.0}
-    errs = {"attn": 0.0, "mlp": 0.0}
-    tight = {"attn": 0, "mlp": 0}
-    untouched, slot_err = True, 0.0
-    for i in range(K9_HALF_INPUTS):
-        r, l = i % tp, i % L
-        x = (torch.randn((1, H), generator=gen, device=DEV) * 0.3).to(devices[r])
-        kc, vc = tp_caches(t, tp, T, pos, cache_dtype, gen, devices)
-        kk, vk, kp, vp = kc[r].clone(), vc[r].clone(), kc[r].clone(), vc[r].clone()
-        dk = K9.attn_half(t, tp, fw, r, l, x, pos, kk, vk)
-        dp = K9.attn_half_reference(t, tp, fw, r, l, x, pos, kp, vp)
-        mk = K9.mlp_half(t, tp, fw, r, l, x)
-        mp = K9.mlp_half_reference(t, tp, fw, r, l, x)
-        torch.cuda.synchronize()
-        sk = torch.stack((kk[l, :, :, pos], vk[l, :, :, pos])).float()
-        sp_ = torch.stack((kp[l, :, :, pos], vp[l, :, :, pos])).float()
-        s_err = float((sk - sp_).abs().max())
-        s_rel = s_err / float(sp_.abs().max())
-        slot_err = max(slot_err, s_err)
-        others = torch.ones(T, dtype=torch.bool, device=DEV)
-        others[pos] = False
-        untouched &= all(bool(torch.equal(a[:, :, :, others], b[:, :, :, others]))
-                         for a, b in ((kk, kc[r]), (vk, vc[r])))
-        for kind, a, b, extra in (("attn", dk, dp, s_rel), ("mlp", mk, mp, 0.0)):
-            err = float((a - b).abs().max())
-            rel = err / float(b.abs().max())
-            errs[kind] = max(errs[kind], err)
-            worst[kind] = max(worst[kind], rel)
-            tight[kind] += rel <= K1_TIGHT_REL and extra <= K1_TIGHT_REL
-    ms = {"attn": float("nan"), "mlp": float("nan")}
-    plain = dict(ms)
-    if iters:
-        x = x.to(devices[0])
-        kk, vk = kc[0].clone(), vc[0].clone()
-        ms["attn"] = time_ms(lambda: K9.attn_half(t, tp, fw, 0, 0, x, pos, kk, vk), iters)
-        plain["attn"] = time_ms(lambda: K9.attn_half_reference(t, tp, fw, 0, 0, x, pos, kk, vk),
-                                3, 1)
-        ms["mlp"] = time_ms(lambda: K9.mlp_half(t, tp, fw, 0, 0, x), iters)
-        plain["mlp"] = time_ms(lambda: K9.mlp_half_reference(t, tp, fw, 0, 0, x), 3, 1)
-    ok = (max(worst.values()) < K1_SHALLOW_X_REL and slot_err < K1_SHALLOW_SLOT_ABS and untouched
-          and min(tight.values()) >= K9_TIGHT_MIN)
-    log(f"K9 halves {name}: tp={tp} T={T} pos={pos} cache={str(cache_dtype)[6:]} "
-        f"{K9_HALF_INPUTS} inputs: dx max rel {worst['attn']:.3e} dm max rel {worst['mlp']:.3e} "
-        f"(tol {K1_SHALLOW_X_REL}) slot max_abs_err={slot_err:.3e} (tol {K1_SHALLOW_SLOT_ABS}) "
-        f"tight (<= {K1_TIGHT_REL}) K9a {tight['attn']}/{K9_HALF_INPUTS} K9b "
-        f"{tight['mlp']}/{K9_HALF_INPUTS} (need {K9_TIGHT_MIN}) untouched_slots_equal="
-        f"{untouched} K9a {ms['attn']:.4f} ms plain {plain['attn']:.4f} ms, K9b {ms['mlp']:.4f} "
-        f"ms plain {plain['mlp']:.4f} ms -> {'ok' if ok else 'FAIL'} [{CARD}]")
-    if not ok:
-        raise RuntimeError(f"K9 halves {name} T={T} pos={pos} disagree with their plain versions")
-    return ((errs["attn"], ms["attn"], plain["attn"]), (errs["mlp"], ms["mlp"], plain["mlp"]))
-
-
-def check_k9_step(name, t, tp, fw, mesh, T, pos, gen, iters=0):
-    """The whole step (K9a and K9b per layer and rank, the partial sums in
-    rank order) against the step on the plain halves, bf16 cache, K1's deep
-    limits.  Returns (max abs error, ms per step, plain ms per step)."""
+def check_k9_step(name, t, tp, rows, mesh, T, pos, gen, iters=0):
+    """The whole step (one launch for the card's ranks) against the step on
+    the plain halves, bf16 cache, K1's deep limits; every rank's residual
+    the same bits, no exchange timed out.  Returns (max abs error, ms per
+    step, plain ms per step)."""
     devices = mesh.model_devices()
     x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
     kc, vc = tp_caches(t, tp, T, pos, torch.bfloat16, gen, devices)
     kk, vk = [c.clone() for c in kc], [c.clone() for c in vc]
     kp, vp = [c.clone() for c in kc], [c.clone() for c in vc]
-    xk, _, _ = K9.fused_decode_step_tp(t, fw, x, pos, kk, vk, mesh)
-    xp, _, _ = K9.fused_decode_step_tp_reference(t, fw, x, pos, kp, vp, mesh)
+    run = K9.launch_step_tp(t, rows, x, pos, kk, vk, mesh)
+    xp, _, _ = K9.fused_decode_step_tp_reference(t, rows, x, pos, kp, vp, mesh)
     torch.cuda.synchronize()
+    xk = run.x
+    ranks_equal = all(torch.equal(v.to(DEV), xk[0]) for v in run.xs)
+    status = statuses(run)
     err = float((xk - xp).abs().max())
     rel = err / float(xp.abs().max())
     slot_err = max(float((a[:, :, :, pos].float() - b[:, :, :, pos].float()).abs().max())
@@ -4147,17 +4115,198 @@ def check_k9_step(name, t, tp, fw, mesh, T, pos, gen, iters=0):
                     for a, b in zip(kk + vk, kc + vc))
     ms = plain_ms = float("nan")
     if iters:
-        ms = time_ms(lambda: K9.fused_decode_step_tp(t, fw, x, pos, kk, vk, mesh), iters)
-        plain_ms = time_ms(lambda: K9.fused_decode_step_tp_reference(t, fw, x, pos, kp, vp, mesh),
+        ms = time_ms(lambda: K9.fused_decode_step_tp(t, rows, x, pos, kk, vk, mesh), iters)
+        K9.check_timeouts()
+        plain_ms = time_ms(lambda: K9.fused_decode_step_tp_reference(t, rows, x, pos, kp, vp, mesh),
                            2, 1)
-    ok = rel < K1_DEEP_X_REL and slot_err < K1_DEEP_SLOT_ABS and untouched
+    ok = (rel < K1_DEEP_X_REL and slot_err < K1_DEEP_SLOT_ABS and untouched and ranks_equal
+          and not any(status))
     log(f"K9 step {name}: L={t.num_layers} tp={tp} T={T} pos={pos} cache=bfloat16 x "
         f"max_abs_err={err:.3e} rel={rel:.3e} (tol {K1_DEEP_X_REL}) slot max_abs_err="
-        f"{slot_err:.3e} (tol {K1_DEEP_SLOT_ABS}) untouched_slots_equal={untouched} kernels "
-        f"{ms:.4f} ms/step plain {plain_ms:.4f} ms/step -> {'ok' if ok else 'FAIL'} [{CARD}]")
+        f"{slot_err:.3e} (tol {K1_DEEP_SLOT_ABS}) untouched_slots_equal={untouched} every "
+        f"rank's x equal={ranks_equal} status={status} kernel {ms:.4f} ms/step plain "
+        f"{plain_ms:.4f} ms/step -> {'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
         raise RuntimeError(f"K9 step {name} T={T} pos={pos} disagrees with its plain version")
     return err, ms, plain_ms
+
+
+def check_k9_one_layer(name, t, tp, mesh, T, pos, cache_dtype, gen):
+    """K9 on a one-layer shard of ``t`` (seeded) against the plain step on
+    K9_ONE_LAYER_INPUTS seeded inputs: x within K1_SHALLOW_X_REL, every
+    rank's written slot within K1_SHALLOW_SLOT_ABS, every other slot
+    untouched, every rank's x the same bits, and K9_TIGHT_MIN inputs within
+    K1_TIGHT_REL (x and slot).  Returns (max abs error, nan, nan)."""
+    t1 = dataclasses.replace(t, num_layers=1)
+    devices = mesh.model_devices()
+    rows = tp_pack(t1, tp, mesh, gen)
+    worst = slot_err = err = 0.0
+    tight, untouched, ranks_equal, status = 0, True, True, []
+    others = torch.ones(T, dtype=torch.bool, device=DEV)
+    others[pos] = False
+    for _ in range(K9_ONE_LAYER_INPUTS):
+        x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+        kc, vc = tp_caches(t1, tp, T, pos, cache_dtype, gen, devices)
+        kk, vk = [c.clone() for c in kc], [c.clone() for c in vc]
+        kp, vp = [c.clone() for c in kc], [c.clone() for c in vc]
+        run = K9.launch_step_tp(t1, rows, x, pos, kk, vk, mesh)
+        xp, _, _ = K9.fused_decode_step_tp_reference(t1, rows, x, pos, kp, vp, mesh)
+        torch.cuda.synchronize()
+        status += statuses(run)
+        ranks_equal &= all(torch.equal(v.to(DEV), run.x[0]) for v in run.xs)
+        e = float((run.x - xp).abs().max())
+        rel = e / float(xp.abs().max())
+        s_err = max(float((a[:, :, :, pos].float() - b[:, :, :, pos].float()).abs().max())
+                    for a, b in zip(kk + vk, kp + vp))
+        s_rel = s_err / max(float(b[:, :, :, pos].float().abs().max()) for b in kp + vp)
+        untouched &= all(bool(torch.equal(a[:, :, :, others], b[:, :, :, others]))
+                         for a, b in zip(kk + vk, kc + vc))
+        err, worst, slot_err = max(err, e), max(worst, rel), max(slot_err, s_err)
+        tight += rel <= K1_TIGHT_REL and s_rel <= K1_TIGHT_REL
+    ok = (worst < K1_SHALLOW_X_REL and slot_err < K1_SHALLOW_SLOT_ABS and untouched
+          and ranks_equal and not any(status) and tight >= K9_TIGHT_MIN)
+    log(f"K9 {name}-1-layer: tp={tp} T={T} pos={pos} cache={str(cache_dtype)[6:]} "
+        f"{K9_ONE_LAYER_INPUTS} inputs: x max rel {worst:.3e} (tol {K1_SHALLOW_X_REL}) slot "
+        f"max_abs_err={slot_err:.3e} (tol {K1_SHALLOW_SLOT_ABS}) tight (<= {K1_TIGHT_REL}) "
+        f"{tight}/{K9_ONE_LAYER_INPUTS} (need {K9_TIGHT_MIN}) untouched_slots_equal={untouched} "
+        f"every rank's x equal={ranks_equal} statuses set={sum(map(bool, status))} -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K9 {name} one layer T={T} pos={pos} disagrees with its plain version")
+    return err, float("nan"), float("nan")
+
+
+def k9_against_k1(label, t, k9_rows, mesh, k1_cfg, k1_fw, cases, gen):
+    """K9 (``k9_rows`` on ``mesh``) against K1 (``k1_fw`` at ``k1_cfg``'s
+    widths on rank 0's cache shard) on one seeded input per (T, pos) of
+    ``cases`` and cache dtype: rank 0's x and cache shard equal bit for bit,
+    every rank's x the same bits, no status set.  Returns the cases equal."""
+    devices = mesh.model_devices()
+    equal = total = 0
+    for T, pos in cases:
+        for cache_dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+            kc, vc = tp_caches(t, len(devices), T, pos, cache_dtype, gen, devices)
+            k1k, k1v = kc[0].clone(), vc[0].clone()
+            run = K9.launch_step_tp(t, k9_rows, x, pos, kc, vc, mesh)
+            x1, _, _ = K1.fused_decode_step(k1_cfg, k1_fw, x, pos, k1k, k1v)
+            torch.cuda.synchronize()
+            good = (torch.equal(run.x, x1) and torch.equal(kc[0], k1k) and torch.equal(vc[0], k1v)
+                    and all(torch.equal(v.to(DEV), run.x[0]) for v in run.xs)
+                    and not any(statuses(run)))
+            equal += good
+            total += 1
+            if not good:
+                log(f"{label}: T={T} pos={pos} cache={str(cache_dtype)[6:]} x max_abs_err "
+                    f"{float((run.x - x1).abs().max()):.3e}, statuses {statuses(run)} [{CARD}]")
+    ok = equal == total
+    log(f"{label}: {equal}/{total} steps equal K1 bit for bit (x and rank 0's cache shard) -> "
+        f"{'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"{label}: K9 disagrees with K1")
+    return equal
+
+
+def check_k9_equals_k1(name, t, gen, cases=K9_EQUAL_CASES):
+    """K9 at tp=1 (a mesh of this card once: the shard is the whole tensor)
+    on the rows of JAX's pack against K1 on K1's own pack of the same raw
+    weights: the packs equal leaf for leaf, then ``k9_against_k1``."""
+    layers = init_transformer_params(t, gen, DEV)["layers"]
+    mesh = make_mesh(1, 1, devices=card_devices(1))
+    rows = K9.pack_rows(t, 1, K9.pack_fused_tp(t, layers, 1, mesh=mesh))
+    k1 = K1.pack_fused_weights(t, layers)
+    del layers
+    same = all(torch.equal(a, b) for a, b in zip(rows.ranks[0], k1))
+    log(f"K9 {name} tp=1: the row pack of JAX's units equals K1's pack of the same weights="
+        f"{same} [{CARD}]")
+    if not same:
+        raise RuntimeError(f"K9 {name}: the tp=1 row pack is not K1's")
+    return k9_against_k1(f"K9 {name} tp=1 against K1", t, rows, mesh, t, k1, cases, gen)
+
+
+def check_k9_zero_peers(name, t, tp, rows, mesh, gen, cases=K9_EQUAL_CASES[:1]):
+    """K9 on ``rows`` with every peer's rows and scales zero against K1 on
+    rank 0's shard (a K1 weight set at the shard's widths, on rank 0's kv
+    heads): rank 0's x = x + ((p0 + 0) + ...) = K1's x + p0, bit for bit."""
+    zero = K9.FusedTPRows([rows.ranks[0]] + [
+        w._replace(**{k: torch.zeros_like(getattr(w, k)) for k in ROW_LEAVES})
+        for w in rows.ranks[1:]])
+    return k9_against_k1(f"K9 {name} tp={tp}, every peer's rows zero, against K1 on rank 0's "
+                         f"shard", t, zero, mesh, K9.shard_config(t, tp), rows.ranks[0], cases,
+                         gen)
+
+
+def check_k9_stalled(name, t, tp, rows, mesh, gen, T=256, pos=200):
+    """K9 with every odd rank's sends held back K10_STALL_NS, two calls in a
+    row on one seeded input, each equal to the unstalled step on it bit for
+    bit (x and every cache shard), no status set: a wait that a stale flag
+    satisfied would read the previous call's rows."""
+    devices = mesh.model_devices()
+    x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+    kc, vc = tp_caches(t, tp, T, pos, torch.bfloat16, gen, devices)
+    want_k, want_v = [c.clone() for c in kc], [c.clone() for c in vc]
+    want = K9.launch_step_tp(t, rows, x, pos, want_k, want_v, mesh).x.clone()
+    good = []
+    for _ in range(2):
+        kk, vk = [c.clone() for c in kc], [c.clone() for c in vc]
+        run = K9.launch_step_tp(t, rows, x, pos, kk, vk, mesh, stall_ns=K10_STALL_NS)
+        torch.cuda.synchronize()
+        good.append(torch.equal(run.x, want) and not any(statuses(run)) and all(
+            torch.equal(a, b) for a, b in zip(kk + vk, want_k + want_v)))
+    ok = all(good)
+    log(f"K9 {name} tp={tp}: two calls with odd ranks' sends stalled {K10_STALL_NS} ns equal the "
+        f"unstalled step bit for bit={good} -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K9 {name}: a stalled exchange changed the step")
+
+
+def check_k9_timeout(name, t, tp, rows, mesh, gen, T=256, pos=200):
+    """A planted exchange timeout of K9: odd ranks hold each send back
+    K10_TIMEOUT_STALL_NS against a wait limit of K10_TIMEOUT_NS, so the even
+    ranks' status words are set, and ``check_timeouts`` on the tracked words
+    (the engine path's read behind the launch) raises; then the entry's next
+    call through ``fused_decode_step_tp`` equals a clean launch on the same
+    input bit for bit and its words pass ``check_timeouts``."""
+    devices = mesh.model_devices()
+    x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+    kc, vc = tp_caches(t, tp, T, pos, torch.bfloat16, gen, devices)
+    run = K9.launch_step_tp(t, rows, x, pos, [c.clone() for c in kc], [c.clone() for c in vc],
+                            mesh, stall_ns=K10_TIMEOUT_STALL_NS, timeout_ns=K10_TIMEOUT_NS)
+    status = statuses(run)
+    K9.track(run.status, "fused_decode_step_tp")
+    try:
+        K9.check_timeouts()
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    xn, _, _ = K9.fused_decode_step_tp(t, rows, x, pos, [c.clone() for c in kc],
+                                       [c.clone() for c in vc], mesh)
+    K9.check_timeouts()  # the clean call's words
+    xc = K9.launch_step_tp(t, rows, x, pos, [c.clone() for c in kc], [c.clone() for c in vc],
+                           mesh).x
+    clean = torch.equal(xn, xc)
+    late = [r for r in range(tp) if status[r]]
+    ok = late == list(range(0, tp, 2)) and "fused_decode_step_tp" in raised and clean
+    log(f"K9 {name} tp={tp}: planted timeout (odd ranks' sends held {K10_TIMEOUT_STALL_NS} ns, "
+        f"wait limit {K10_TIMEOUT_NS} ns): status={status}, raised={bool(raised)}; the next call "
+        f"equals a clean launch={clean} -> {'ok' if ok else 'FAIL'} [{CARD}]")
+    if not ok:
+        raise RuntimeError(f"K9 {name}: a timed-out exchange was not reported, or the next call "
+                           "was not clean")
+
+
+def trace_k9(name, t, rows, mesh, gen, T=256, pos=200):
+    """One traced K9 step (rank 0's blocks): per phase the slowest and mean
+    block's work, the o and down phases' exchange inside their last part
+    (from the last stage's dot products to the barrier's arrival), and the
+    group barriers' latency."""
+    devices = mesh.model_devices()
+    x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+    kc, vc = tp_caches(t, len(devices), T, pos, torch.bfloat16, gen, devices)
+    plan = K9.step_entry(t, rows, T, devices).plans[0]
+    trace_phases(f"K9 {name} tp={len(devices)} T={T} pos {pos} (rank 0; o and down: last "
+                 f"refill + exchange)", plan, step_phase_names(t.num_layers),
+                 lambda: K9.launch_step_tp(t, rows, x, pos, kc, vc, mesh))
 
 
 def tp_chain_inputs(cp, gen, knobs):
@@ -4188,7 +4337,7 @@ def check_k10(label, cp, tp, mesh, fw, heads, tables, fnorm, knobs, gen, calls=1
         ps, psum, px = K10.chain_tp_plain(t, tp, fw, fnorm, hs, tables, lh, c0, noise,
                                           sp.temperature, sp.top_k, sp.top_p)
         torch.cuda.synchronize()
-        status = [int(s.item()) for s in run.status]
+        status = statuses(run)
         kern, plain = run.subcodes[0].tolist(), ps[0].tolist()
         diff = [j for j in range(n) if kern[j] != plain[j]]
         ranks_equal = all(torch.equal(c.to(DEV), ps[0].to(DEV)) for c in run.codes)
@@ -4211,7 +4360,7 @@ def check_k10(label, cp, tp, mesh, fw, heads, tables, fnorm, knobs, gen, calls=1
         args = (fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
         ms = time_ms(lambda: K10.fused_mtp_chain_tp(t, tp, mesh, fw, *args), iters)
         plain_ms = time_ms(lambda: K10.fused_mtp_chain_tp_reference(t, tp, fw, fnorm, hs,
-                                                                    *args[2:]), 2, 1)
+                                                                    *args[2:]), 1, 0)
         log(f"{label} {mode}: {ms:.4f} ms/chain, plain {plain_ms:.4f} ms/chain [{CARD}]")
     if not ok:
         raise RuntimeError(f"{label} {mode} disagrees with its plain version")
@@ -4230,7 +4379,7 @@ def check_k10_timeout(label, cp, tp, mesh, fw, heads, tables, fnorm, gen):
     args = (fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
     run = K10.launch_chain_tp(t, tp, mesh, fw, *args, stall_ns=K10_TIMEOUT_STALL_NS,
                               timeout_ns=K10_TIMEOUT_NS)
-    status = [int(s.item()) for s in run.status]
+    status = statuses(run)
     K10.track(run.status)
     try:
         K10.check_timeouts()
@@ -4255,7 +4404,7 @@ def check_k10_timeout(label, cp, tp, mesh, fw, heads, tables, fnorm, gen):
 
 
 def tp_chain_packs(name, cfg, tp, mesh, gen):
-    """The MTP trunk's per-rank pack, its heads as int8 and as bf16 row
+    """The MTP trunk's per-rank row pack, its heads as int8 and as bf16 rank
     shards, tables and final norm, seeded."""
     cp = cfg.code_predictor
     H, V, n = cp.transformer.hidden_size, cp.subcode_vocab_size, cp.num_steps
@@ -4275,61 +4424,76 @@ def chain_tp_bound(cp, tp, fw, heads):
     written; n + 1 trunk passes and n head products over all ranks."""
     t, n = cp.transformer, cp.num_steps
     H, V = t.hidden_size, cp.subcode_vocab_size
-    moved = sum(nbytes(leaf) for leaf in fw) + nbytes(heads.q) + nbytes(heads.scale[:1]) + (
+    moved = rows_bytes(fw) + nbytes(heads.q) + nbytes(heads.scale[:1]) + (
         n * H * 2 + H * 4 + n * 4)
-    macs = sum(nbytes(getattr(fw, k)) for k in ("qkv_u", "wo_u", "gu_u", "wd_u"))  # int8: 1 byte
+    macs = rows_bytes(fw, ("wqkv", "wo", "wgu", "wd"))  # int8: 1 byte a multiply-add
     attn = t.num_layers * 4 * t.num_heads * t.head_dim * sum(range(1, n + 2))
     return bound(moved, 2 * ((n + 1) * macs + n * V * H) + attn)
 
 
+def trace_k10(label, cp, tp, mesh, fw, heads, tables, fnorm, gen):
+    """One traced K10 chain (rank 0's blocks, sampled): per phase the slowest
+    and mean block's work, the o, down and head phases' exchange inside
+    their last part, and the group barriers' latency."""
+    sp, lh, c0, noise = tp_chain_inputs(cp, gen, K10_KNOBS[1])
+    args = (fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
+    e = K10.chain_entry(cp.transformer, tp, fw, K10._as_heads(heads, mesh.model_devices()),
+                        tables, mesh.model_devices())
+    trace_phases(f"{label} (rank 0; o, down and head: last refill + exchange)", e.plans[0],
+                 chain_phase_names(cp.transformer.num_layers, cp.num_steps),
+                 lambda: K10.launch_chain_tp(cp.transformer, tp, mesh, fw, *args))
+
+
 def tp_kernel_checks(gen, card_line, devices_of=card_devices, first=True):
-    """K9 and K10 against their plain versions at the 0.6B widths (tp=2) and
-    the 1.7B widths (tp=4).  Returns (K9a checks, K9b checks, step checks,
+    """K9 and K10 against their plain versions (and K9 against K1) at the
+    0.6B widths (tp=2) and the 1.7B widths (tp=4).  Returns (K9 checks,
     K10 checks, bounds)."""
-    k9a, k9b, steps, k10, bounds = [], [], [], [], {}
+    k9, k10, bounds = [], [], {}
     for name, cfg, tp in TP_MODELS:
         devices = devices_of(tp)
         mesh = make_mesh(1, tp, devices=devices)
         t = cfg.talker.transformer
-        fw = tp_pack(t, tp, mesh, gen)
+        if first:  # four layers: the bit-for-bit checks hold layer by layer
+            check_k9_equals_k1(f"{name} talker-4-layer", dataclasses.replace(t, num_layers=4),
+                               gen)
+        rows = tp_pack(t, tp, mesh, gen)
+        if first:
+            check_k9_zero_peers(f"{name} talker", t, tp, rows, mesh, gen)
         for T, pos in K9_CASES:
-            steps.append(check_k9_step(f"{name} talker", t, tp, fw, mesh, T, pos, gen,
-                                       10 if first and T == 256 else 0))
-        rs = random_scales(fw, gen)
+            k9.append(check_k9_step(f"{name} talker", t, tp, rows, mesh, T, pos, gen,
+                                    10 if first and T == 256 else 0))
+        if first:
+            trace_k9(f"{name} talker", t, rows, mesh, gen)
+        check_k9_stalled(f"{name} talker", t, tp, rows, mesh, gen)
+        check_k9_timeout(f"{name} talker", t, tp, rows, mesh, gen)
         for cache_dtype in (torch.bfloat16, torch.float32):
             for T, pos in K9_CASES:
-                a, m = check_k9_halves(f"{name} talker, unit scales drawn anew", t, tp, rs, T,
-                                       pos, cache_dtype, gen, devices,
-                                       20 if first and cache_dtype == torch.bfloat16 and T == 256
-                                       else 0)
-                k9a.append(a)
-                k9b.append(m)
+                k9.append(check_k9_one_layer(f"{name} talker", t, tp, mesh, T, pos, cache_dtype,
+                                             gen))
+        b = step_tp_bound(t, tp, rows, 200, torch.bfloat16)
         if name == "0.6B":
-            bounds["K9a"] = half_bound(t, tp, fw, 0, 0, 200, torch.bfloat16, "attn")
-            bounds["K9b"] = half_bound(t, tp, fw, 0, 0, 200, torch.bfloat16, "mlp")
-        L = t.num_layers
-        a_ms = sum(half_bound(t, tp, fw, r, l, 200, torch.bfloat16, "attn")[0]
-                   for r in range(tp) for l in range(L))
-        m_ms = sum(half_bound(t, tp, fw, r, l, 200, torch.bfloat16, "mlp")[0]
-                   for r in range(tp) for l in range(L))
-        log(f"K9 step bound {name} tp={tp} T=256 pos 200: {a_ms + m_ms:.4f} ms (bytes of every "
-            f"rank's shard, {sum(nbytes(l) for l in fw) / 1e6:.1f} MB of packs) [{CARD}]")
-        del fw, rs
+            bounds["K9"] = b
+        log(f"K9 step bound {name} tp={tp} T=256 pos 200: {b[0]:.4f} ms ({b[1]}; "
+            f"{rows_bytes(rows) / 1e6:.1f} MB of every rank's rows) [{CARD}]")
+        del rows
         cp, fw, heads, tables, fnorm = tp_chain_packs(name, cfg, tp, mesh, gen)
         for kind in ("int8", "bf16"):
             for i, knobs in enumerate(K10_KNOBS):
                 k10.append(check_k10(f"K10 {name} tp={tp} {kind} heads", cp, tp, mesh, fw,
                                      heads[kind], tables, fnorm, knobs, gen,
-                                     iters=10 if first and i == 1 else 0))
+                                     iters=10 if first and i == 1 and kind == "int8" else 0))
         # every odd rank's sends held back: a wait that a stale flag satisfies
         # reads the previous call's values
         check_k10(f"K10 {name} tp={tp} bf16 heads", cp, tp, mesh, fw, heads["bf16"], tables,
                   fnorm, K10_KNOBS[1], gen, calls=2, stall_ns=K10_STALL_NS)
         rs = random_scales(fw, gen)
-        check_k10(f"K10 {name} tp={tp} bf16 heads, unit scales drawn anew", cp, tp, mesh, rs,
+        check_k10(f"K10 {name} tp={tp} bf16 heads, row scales drawn anew", cp, tp, mesh, rs,
                   heads["bf16"], tables, fnorm, K10_KNOBS[0], gen)
         check_k10_timeout(f"K10 {name} tp={tp}", cp, tp, mesh, fw, heads["bf16"], tables, fnorm,
                           gen)
+        if first:
+            trace_k10(f"K10 {name} tp={tp} bf16 heads", cp, tp, mesh, fw, heads["bf16"], tables,
+                      fnorm, gen)
         if name == "0.6B":
             bounds["K10"] = chain_tp_bound(cp, tp, fw, heads["bf16"])
         else:
@@ -4337,14 +4501,38 @@ def tp_kernel_checks(gen, card_line, devices_of=card_devices, first=True):
                 f"ms [{CARD}]")
         del cp, fw, heads, tables, fnorm, rs
         torch.cuda.empty_cache()
-    return k9a, k9b, steps, k10, bounds
+    if first:
+        tp_one_slot(gen)
+    return k9, k10, bounds
+
+
+def tp_one_slot(gen):
+    """K9 and K10 again with every plan cut to one ring slot (a stage read
+    without its mbarrier wait shows only there): K9 at tp=1 against K1 on a
+    two-layer 0.6B talker, K9 at tp=2 on one layer against its plain
+    version, K10 at the 0.6B widths against its plain version bit for bit."""
+    name, cfg, tp = TP_MODELS[0]
+    t = cfg.talker.transformer
+    mesh = make_mesh(1, tp, devices=card_devices(tp))
+
+    def checks():
+        check_k9_equals_k1(f"{name} talker-2-layer, one ring slot",
+                           dataclasses.replace(t, num_layers=2), gen, K9_EQUAL_CASES[:1])
+        check_k9_one_layer(f"{name} talker, one ring slot", t, tp, mesh, 256, 200,
+                           torch.bfloat16, gen)
+        cp, fw, heads, tables, fnorm = tp_chain_packs(name, cfg, tp, mesh, gen)
+        for kind, knobs in (("int8", K10_KNOBS[0]), ("bf16", K10_KNOBS[1])):
+            check_k10(f"K10 {name} tp={tp} {kind} heads, one ring slot", cp, tp, mesh, fw,
+                      heads[kind], tables, fnorm, knobs, gen)
+
+    one_slot_ring(checks)
 
 
 def tp_engine_runs(tok, card_line, devices_of=None):
     """``TTSEngine(config, params, mesh=make_mesh(1, tp, [card] * tp))`` with
     ``quantize`` unset: two 0.6B requests at tp=2, one 1.7B request at tp=4.
-    One K10 chain and L x tp launches of each K9 half per decoded frame, no
-    other kernel.  Returns the launch counts."""
+    One K9 and one K10 launch per decoded frame and device, no other
+    kernel.  Returns the launch counts."""
     counts = [0] * len(KERNELS)
     for name, cfg, tp, reqs in (("0.6B", QWEN3_TTS_06B, 2, B1_REQUESTS[:2]),
                                 ("1.7B", QWEN3_TTS_17B, 4, B1_REQUESTS[1:2])):
@@ -4372,10 +4560,9 @@ def tp_engine_runs(tok, card_line, devices_of=None):
             log(f"{name} mesh tp={tp} synthesize T={req['temperature']}: {m.frames} frames "
                 f"({m.decoded_frames} decoded), {decode_ms:.3f} ms/frame decode, RTF "
                 f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
-        L = cfg.talker.transformer.num_layers
-        got = check_launches(f"{name} mesh tp={tp} (L x tp of each K9 half and one K10 per "
-                             f"frame)", counts_of(K9a=decoded * L * tp, K9b=decoded * L * tp,
-                                                   K10=decoded))
+        n_dev = len(set(devices))
+        got = check_launches(f"{name} mesh tp={tp} (one K9 and one K10 per frame and device)",
+                             counts_of(K9=decoded * n_dev, K10=decoded * n_dev))
         counts = [a + b for a, b in zip(counts, got)]
         del eng
         torch.cuda.empty_cache()
@@ -4384,9 +4571,9 @@ def tp_engine_runs(tok, card_line, devices_of=None):
 
 def tp_phase(tok, gen, card_line):
     """Phase 14: the tensor-parallel decode path.  Returns (launch counts,
-    (K9a, K9b, K9 step, K10 checks), bounds)."""
+    (K9, K10 checks), bounds)."""
     t0 = time.perf_counter()
-    k9a, k9b, steps, k10, bounds = tp_kernel_checks(gen, card_line)
+    k9, k10, bounds = tp_kernel_checks(gen, card_line)
     counts = tp_engine_runs(tok, card_line)
     if torch.cuda.device_count() >= 2:
         # the same kernels with the ranks on distinct cards (peer pointers,
@@ -4402,7 +4589,7 @@ def tp_phase(tok, gen, card_line):
         log(f"tensor-parallel path across distinct cards: not run, this machine has "
             f"{torch.cuda.device_count()} card [{card_line}]")
     log(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
-    return counts, (k9a, k9b, steps, k10), bounds
+    return counts, (k9, k10), bounds
 
 B1_REQUESTS = [
     dict(text="hello world", language="en", temperature=0.0),
@@ -4664,7 +4851,7 @@ def main() -> int:
     # the tensor-parallel phase draws from a generator of its own, as K4's
     gen9 = torch.Generator(device=DEV)
     gen9.manual_seed(SEED + 9)
-    tp_counts, (k9a, k9b, k9s, k10), tp_bounds = tp_phase(tok, gen9, card_line)
+    tp_counts, (k9, k10), tp_bounds = tp_phase(tok, gen9, card_line)
     bounds.update(tp_bounds)
     total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed,
                                  tp_counts)]
@@ -4728,14 +4915,11 @@ def main() -> int:
               kvq[4], k6q, "K6 kvq"),
         entry("fused_frame_step (K7 kvq: int8 KV cache)", "fused_frame.cu", "fused_frame.py:245",
               kvq[7], k7q, "K7 kvq"),
-        # the tensor-parallel path on a mesh listing the card twice (0.6B) or
-        # four times (1.7B): per call of one half (one layer, one rank) and
-        # per chain; the step's time is in the log
-        entry("fused_decode_step_tp attention half (K9a)", "fused_tp.cu", "fused_tp.py:215",
-              total[10], k9a, "K9a"),
-        entry("fused_decode_step_tp MLP half (K9b)", "fused_tp.cu", "fused_tp.py:314",
-              total[11], k9b, "K9b"),
-        entry("fused_mtp_chain_tp (K10)", "fused_mtp_tp.cu", "fused_mtp_tp.py:364", total[12],
+        # the tensor-parallel path on a mesh listing the card twice (0.6B,
+        # timed) or four times (1.7B): per step (one launch for the card's
+        # ranks) and per chain
+        entry("fused_decode_step_tp (K9)", "fused_tp.cu", "fused_tp.py:573", total[10], k9, "K9"),
+        entry("fused_mtp_chain_tp (K10)", "fused_mtp_tp.cu", "fused_mtp_tp.py:364", total[11],
               k10[1:2] + k10, "K10"),
     ]}
     print(json.dumps(report))

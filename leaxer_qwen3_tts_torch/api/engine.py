@@ -87,9 +87,9 @@ from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.speaker_encoder import speaker_encoder_forward
 from ..models.talker import prepare_fused_talker
 from ..ops import persistent
-from ..ops.fused_mtp_tp import check_timeouts, shard_heads, supports_tp_resident
+from ..ops.fused_mtp_tp import shard_heads, supports_tp_resident
 from ..ops.fused_step import MAX_BATCH, meta_pack, supports
-from ..ops.fused_tp import pack_fused_tp, supports_tp
+from ..ops.fused_tp import check_timeouts, pack_fused_tp, pack_rows, supports_shard, supports_tp
 from ..ops.quant import fuse_params, quantize_params
 from ..parallel import Mesh
 from ..runtime.generate import (
@@ -357,11 +357,13 @@ class TTSEngine:
         tp = mesh.shape.get("model", 1)
         tr, cp = cfg.talker.transformer, cfg.code_predictor
         problems = []
-        if not (tp > 1 and supports_tp(tr, tp) and not tr.kv_cache_quant):
+        if not (tp > 1 and supports_tp(tr, tp) and supports_shard(tr, tp)
+                and not tr.kv_cache_quant):
             problems.append(f"the tensor-parallel step K9 does not take the talker at tp={tp}"
                             + (" with an int8 KV cache" if tr.kv_cache_quant else ""))
         if not (tp > 1 and supports_tp_resident(cp.transformer, tp, cp.num_steps,
-                                                cp.subcode_vocab_size)):
+                                                cp.subcode_vocab_size)
+                and supports_shard(cp.transformer, tp)):
             problems.append(f"the sharded chain K10 does not take the MTP trunk at tp={tp} (the "
                             "JAX package's cached chain under a mesh is not ported to the card, "
                             "ROADMAP M15)")
@@ -371,21 +373,23 @@ class TTSEngine:
     def _mesh_params(cfg: TTSModelConfig, params: dict, mesh) -> dict:
         """The JAX engine's mesh build: nothing fused or quantized; per-rank
         int8 packs of the raw layers for K9 (``talker["fused_tp"]``) and K10
-        (``code_predictor["fused_tp"]`` with the heads' row shards,
-        ``fused_tp_heads``) where their gates hold."""
+        (``code_predictor["fused_tp"]`` with the heads' shards,
+        ``fused_tp_heads``) where their gates hold.  Each pack is JAX's
+        (``pack_fused_tp``) turned into the ranks' rows (``pack_rows``): the
+        engine keeps the rows only, the same int8 values and scales."""
         tp = mesh.shape.get("model", 1)
         tr, cp = cfg.talker.transformer, cfg.code_predictor
         params = dict(params)
         if tp > 1 and cfg.talker.decode_impl == "fused" and supports_tp(tr, tp) and (
                 not tr.kv_cache_quant):
-            params["talker"] = dict(params["talker"], fused_tp=pack_fused_tp(
-                tr, params["talker"]["transformer"]["layers"], tp, mesh=mesh))
+            params["talker"] = dict(params["talker"], fused_tp=pack_rows(tr, tp, pack_fused_tp(
+                tr, params["talker"]["transformer"]["layers"], tp, mesh=mesh)))
         if tp > 1 and cp.impl == "fused" and cp.head_mode == "per_step" and supports_tp_resident(
                 cp.transformer, tp, cp.num_steps, cp.subcode_vocab_size):
             sub = params["code_predictor"]
             params["code_predictor"] = dict(
-                sub, fused_tp=pack_fused_tp(cp.transformer, sub["transformer"]["layers"], tp,
-                                            mesh=mesh),
+                sub, fused_tp=pack_rows(cp.transformer, tp, pack_fused_tp(
+                    cp.transformer, sub["transformer"]["layers"], tp, mesh=mesh)),
                 fused_tp_heads=shard_heads(sub["heads"], mesh.model_devices()))
         return params
 
@@ -778,7 +782,7 @@ class TTSEngine:
                 )
                 frames_np = frames.cpu().numpy()  # the one sync of the chunk
                 if self.mesh is not None:
-                    check_timeouts()  # K10's status words of the chunk's chains
+                    check_timeouts()  # K9's and K10's status words of the chunk's launches
             valid_np = valid.cpu().numpy()
             done = bool(state.done.all().cpu())
             frames_chunks.append(frames_np)

@@ -8,59 +8,51 @@
 // last_hidden and code0_embed; from it 2, sample j = it - 2: the rank's
 // [1, Hs] x [Hs, V] head rows, all-reduced, then scaled, the sampler on the
 // replicated noise, the table row into sub_sum and the next input; while
-// it <= n, a trunk pass at position it: per layer the rank's qkv units, its
+// it <= n, a trunk pass at position it: per layer the rank's qkv rows, its
 // kv heads' attention over a float32 [L, nk, n + 2, D] scratch, the wo
 // partial all-reduced into the residual, RMSNorm, gate|up, silu, the down
 // partial all-reduced into the residual.
 //
-// The exchange (tp_exchange): a hypercube all-reduce of log2(tp) rounds;
-// in round r rank me writes its value into rank me ^ (1 << r)'s receive slot
-// and raises the slot's flag to this call's generation (st.release after a
-// fence; .gpu scope on one device, .sys with __threadfence_system across
-// devices), waits for its own slot's flag to reach the generation
-// (ld.acquire), and adds what it received after its own value; a + b == b + a
-// bitwise, so every rank holds the same bits.  Each exchange site (2 per
-// layer and pass, 1 per head) has its own slots and flags, per 64-column
-// tile, so a slot is written once per call; the generation (a per-call
-// counter, never a reset) keeps the previous call's flags from satisfying
-// this call's waits.  A wait that sees no flag within the timeout sets the
-// rank's status word and every later wait of the launch is skipped, so a
-// fault ends the launch with a status instead of hanging the card; the
-// wrapper zeroes the status words before each launch and raises when one
-// was set (ops/fused_mtp_tp.py::check_timeouts, read behind the launch).
+// Design.  K2's transport (qtts_stream.cuh) on each rank's block group:
+// the rank's trunk shard as K1's row pack and its slice of the head rows
+// ([n, V, Hs]: columns [r Hs, (r + 1) Hs) of every head row) stream through
+// the TMA weight ring in chain order, each product's output rows spread over
+// all the rank's blocks by the rank's plan (ops/persistent.py, the same
+// bounds on every rank).  Phases end at the rank's group barrier; the o,
+// down and head products end in qtts_tp.cuh's exchange, the ranks' rows
+// summed in the hypercube's order.  The draw runs on block 0 of each rank on
+// the replicated noise, so every rank draws the same sub-code.  The head's
+// partials are summed before the scale, as the JAX kernel sums them.
 //
-// Rounding: every product and sum is rounded on its own (explicit _rn
-// intrinsics, no fused multiply-add), and each reduction runs in a fixed
-// order the plain version (ops/fused_mtp_tp.py) takes step for step: the
-// RMSNorms' per-thread sums and halving trees, the unit products' 16 row
-// slices, the attention's 4-wide lane dots and warp tree, the softmax's and
-// the weighted values' slot order.  RoPE reads a cos / sin table of the
-// chain's n + 2 positions that the wrapper computes once per entry, as the
-// plain version does.  So the two agree bit for bit on the card.
-//
-// Co-residency: ranks on one device are block groups of one cooperative
-// launch (grid = ranks x blocks per rank; the launch is refused if the grid
-// cannot be co-resident), or a rank would spin on a peer that never runs.
-// Ranks on distinct devices are one launch per device with peer pointers.
+// Rounding: every product and sum is rounded on its own and each reduction
+// runs in a fixed order that the plain version (ops/fused_mtp_tp.py) takes
+// step for step, the orders K10 took before the ring: the RMSNorms'
+// per-thread sums and halving trees (tp_prologue); the row products'
+// 16 slices per KC-row chunk (slice s: k = s, s + 16, ... of the chunk, each
+// bf16 x int8 or bf16 x bf16 product exact in float32, so the fused
+// multiply-add rounds once as the separate sum would), the slices added in
+// order, times the row's scale, the chunks added in order (tp_stage_rows);
+// the attention's 4-wide lane dots and warp tree, the softmax's and the
+// weighted values' slot order (tp_attn_item); the exchange's hypercube.
+// RoPE reads a cos / sin table of the chain's n + 2 positions that the
+// wrapper computes once per entry, as the plain version does.  So the two
+// agree bit for bit on the card.
 //
 // What bounds it on the H100: the ranks' trunk shards and head rows, read
 // once per pass and per head (the 1.7B trunk at tp=4: 302 MB x 16 passes of
-// int8 over all ranks, 1.44 ms at 3.35 TB/s when the ranks share the card);
-// at one token it is latency-bound: four grid barriers and two exchanges per
-// layer and pass, one block's draw per sub-code.  Not done yet: the TMA
-// weight ring of K2 (ROADMAP K-speed).
+// int8 over all ranks, 1.44 ms at 3.35 TB/s when the ranks share the card,
+// most of it from L2 after the first pass); at one token it is
+// latency-bound: five group barriers and two exchanges per layer and pass,
+// one block's draw per sub-code.
 
-#include "qtts_stream.cuh"
 #include "qtts_tp.cuh"
 
-namespace cg = cooperative_groups;
-
-// One rank's shard, inputs and buffers (every pointer on the rank's device;
-// the peers' recv and flags are read through the whole array).
+// One rank's shard, inputs and buffers (every pointer on the rank's device).
 struct QttsTpRank {
-  QttsTpWeights w;
-  const void* heads;              // [n, Hs, V] int8 or bf16: rows [r Hs, (r+1) Hs) of the heads
-  const float* head_scales;       // [n, V]
+  QttsStepWeights w;              // the trunk shard: K1's row pack at the shard's widths (int8)
+  QttsPlan p;                     // the rank's plan on bpr blocks: trunk and head rows
+  const void* heads;              // [n, V, Hs] int8 or bf16: the rank's slice of each head row
+  const float* head_scales;       // [n, V] (applied after the all-reduce)
   const __nv_bfloat16* tables;    // [n, Vt, H]
   const float* gumbel;            // [n, V] (unread when greedy)
   const float* final_norm;        // [H]
@@ -72,20 +64,20 @@ struct QttsTpRank {
   float* qkv;                     // [A]
   float* attn;                    // [nq D]
   float* gu;                      // [2 I]
+  float* part;                    // [W] the rank's partial of the current exchange
   float* logits;                  // [V]
   float* k_cache;                 // [L, nk, n + 2, D] float32
   float* v_cache;
-  float* recv;                    // [sites, rounds, W] receive slots
-  uint32_t* flags;                // [sites, rounds, W / 64]
   int32_t* codes;                 // [n] the rank's sub-codes
   float* sub_sum;                 // [H]
-  int32_t* status;                // [1] nonzero: an exchange timed out
 };
 
 struct QttsTpChainArgs {
   QttsTpRank rank[QTTS_TP_MAX];
+  QttsTpLink link[QTTS_TP_MAX];
   int32_t tp, rank0, n_local, bpr;  // the launch runs ranks rank0 .. rank0 + n_local - 1
-  int32_t n, V, Vt, sites, W;
+  int32_t n, V, Vt, W;
+  int32_t KCo, KCd;                 // the o and down products' chunks (the JAX pack's KC)
   uint32_t gen;                     // this call's flag value
   float temperature;                // max(temperature, 1e-6) (sampled)
   int32_t top_k;
@@ -93,82 +85,9 @@ struct QttsTpChainArgs {
   int32_t greedy, heads_bf16, cross_device, stall_ns;
   int64_t timeout_ns;
 };
+static_assert(sizeof(QttsTpChainArgs) <= 4096, "a kernel parameter of at most 4 KB");
 
 namespace {
-
-template <bool SYS>
-__device__ __forceinline__ void flag_release(uint32_t* p, uint32_t v) {
-  if (SYS) {
-    asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-  } else {
-    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-  }
-}
-
-template <bool SYS>
-__device__ __forceinline__ uint32_t flag_acquire(const uint32_t* p) {
-  uint32_t v;
-  if (SYS) {
-    asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  } else {
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  }
-  return v;
-}
-
-// Spins until *flag == gen, or sets *status after timeout_ns (and returns at
-// once when a wait of this launch already timed out).
-template <bool SYS>
-__device__ void tp_wait(const uint32_t* flag, uint32_t gen, int32_t* status, int64_t timeout_ns) {
-  if (*reinterpret_cast<volatile int32_t*>(status) != 0) return;
-  const uint64_t t0 = qtts_globaltimer();
-  while (flag_acquire<SYS>(flag) != gen) {
-    if (qtts_globaltimer() - t0 > (uint64_t)timeout_ns) {
-      atomicExch(status, 1);
-      return;
-    }
-  }
-}
-
-// The hypercube all-reduce of tile `tile` (64 columns; the value of column
-// tile * 64 + t on threads t < 64) at exchange site `site`.  With stall_ns,
-// odd ranks hold each send back that long (the check's stalled pass).
-template <bool SYS>
-__device__ float tp_exchange(const QttsTpChainArgs& a, int me, int site, int tile, float v) {
-  const int t = threadIdx.x;
-  const int ntiles = a.W / QTTS_TP_COLS;
-  const QttsTpRank& mine = a.rank[me];
-  const int rounds = 31 - __clz(a.tp);
-  for (int r = 0; r < rounds; ++r) {
-    const int partner = me ^ (1 << r);
-    const size_t slot = (size_t)site * rounds + r;
-    if (a.stall_ns > 0 && (me & 1)) {
-      if (t == 0) {
-        const uint64_t t0 = qtts_globaltimer();
-        while (qtts_globaltimer() - t0 < (uint64_t)a.stall_ns) {
-        }
-      }
-      __syncthreads();
-    }
-    if (t < QTTS_TP_COLS) a.rank[partner].recv[slot * a.W + tile * QTTS_TP_COLS + t] = v;
-    __syncthreads();
-    if (t == 0) {
-      if (SYS) {
-        __threadfence_system();
-      } else {
-        __threadfence();
-      }
-      flag_release<SYS>(a.rank[partner].flags + slot * ntiles + tile, a.gen);
-      tp_wait<SYS>(mine.flags + slot * ntiles + tile, a.gen, mine.status, a.timeout_ns);
-    }
-    __syncthreads();
-    if (t < QTTS_TP_COLS) {
-      const float* src = mine.recv + slot * a.W + tile * QTTS_TP_COLS + t;
-      v = v + (SYS ? __ldcv(src) : __ldcg(src));
-    }
-  }
-  return v;
-}
 
 // The halving tree of part[0 .. n) (n a power of two) on threads t < n of
 // the barrier sync: in round o = n / 2, n / 4, ..., 1, part[t] += part[t + o]
@@ -189,30 +108,28 @@ __device__ __forceinline__ float tp_inv_rms(float ss, int K, float eps) {
   return __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)K), eps)));
 }
 
-// qtts_tp_prologue's GEMV input (sh[k] = bf16(transform(in))[k0 + k] for
-// k < n; IN_NORM, IN_PLAIN, IN_SILU) with every product and sum rounded on
-// its own in the plain version's order: thread t of 256 sums the squares of
-// k = t, t + 256, ... in order, tp_tree adds the 256 sums.  K9 keeps the
-// shared prologue: in its GEMV this one took the K9 step from 12.4-14.4 to
-// 19.6 ms at the 1.7B widths (tp=4) on an H100 (`chip_ab.py --mesh`; the
-// norm variant compiled to 40 registers instead of 48).  The activations
-// come from other blocks of the launch, so they are read past L1.
+// The GEMV input (sh[k] = bf16(transform(in))[k0 + k] for k < n; IN_NORM,
+// IN_PLAIN, IN_SILU as in qtts_prologue) with every product and sum rounded
+// on its own in the plain version's order: thread t of 256 sums the squares
+// of k = t, t + 256, ... in order, tp_tree adds the 256 sums (part: 256
+// floats).  The activations come from other blocks of the launch, so they
+// are read past L1.
 template <int IN_MODE>
 __device__ __forceinline__ void tp_prologue(const float* in, const float* __restrict__ norm_w,
-                                            float eps, int K, int k0, int n, float* sh) {
+                                            float eps, int K, int k0, int n, float* sh,
+                                            float* part) {
   float r = 0.f;
   if (IN_MODE == QTTS_IN_NORM) {
-    __shared__ float part[QTTS_TP_THREADS];
     float ss = 0.f;
-    for (int k = threadIdx.x; k < K; k += QTTS_TP_THREADS) {
+    for (int k = threadIdx.x; k < K; k += QTTS_P_THREADS) {
       const float v = __ldcg(in + k);
       ss = __fadd_rn(ss, __fmul_rn(v, v));
     }
     part[threadIdx.x] = ss;
     __syncthreads();
-    r = tp_inv_rms(tp_tree(part, QTTS_TP_THREADS, QttsBlockSync{}, threadIdx.x), K, eps);
+    r = tp_inv_rms(tp_tree(part, QTTS_P_THREADS, QttsBlockSync{}, threadIdx.x), K, eps);
   }
-  for (int k = threadIdx.x; k < n; k += QTTS_TP_THREADS) {
+  for (int k = threadIdx.x; k < n; k += QTTS_P_THREADS) {
     const int kk = k0 + k;
     float v;
     if (IN_MODE == QTTS_IN_NORM) {
@@ -227,6 +144,90 @@ __device__ __forceinline__ void tp_prologue(const float* in, const float* __rest
     sh[k] = qtts_bf16_round(v);
   }
   __syncthreads();
+}
+
+// Four consecutive weights of a row as floats (exact): 4 bytes of int8, 8 of bf16.
+__device__ __forceinline__ void tp_load4(const int8_t* p, float (&w)[4]) {
+  const uint32_t word = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) w[e] = qtts_i8_to_float(word, e);
+}
+__device__ __forceinline__ void tp_load4(const __nv_bfloat16* p, float (&w)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  w[0] = __uint_as_float(raw.x << 16);
+  w[1] = __uint_as_float(raw.x & 0xffff0000u);
+  w[2] = __uint_as_float(raw.y << 16);
+  w[3] = __uint_as_float(raw.y & 0xffff0000u);
+}
+
+// A warp's 8 rows of one ring stage (rows 8 warp .. 8 warp + 7 of the
+// stage's `rows`, each on a quad of lanes): out[n0 + row] = the row's dot
+// product with sh (K floats), per KC-column chunk in order: 16 slices (slice
+// s: columns s, s + 16, ... of the chunk, fused multiply-adds in column
+// order; lane j of the quad holds slices 4 j .. 4 j + 3, one 4-column load
+// per 16 columns), the slices added in order 0 .. 15, times the row's scale
+// ss when scaled, added to the previous chunks' sum.
+template <typename WT>
+__device__ __forceinline__ void tp_stage_rows(const WT* ws, const float* ss, bool scaled,
+                                              const float* sh, float* out, int n0, int rows,
+                                              int K, int KC, int warp, int lane) {
+  const int row = warp * 8 + (lane >> 2), j = lane & 3, quad = lane & ~3;
+  const bool live = row < rows;
+  const WT* w = ws + (size_t)(live ? row : 0) * K;
+  float total = 0.f;
+  for (int c0 = 0; c0 < K; c0 += KC) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (live) {
+#pragma unroll 4
+      for (int k = c0 + 4 * j; k < c0 + KC; k += 16) {
+        float wv[4];
+        tp_load4(w + k, wv);
+        const float4 h = *reinterpret_cast<const float4*>(sh + k);
+        acc[0] = fmaf(h.x, wv[0], acc[0]);
+        acc[1] = fmaf(h.y, wv[1], acc[1]);
+        acc[2] = fmaf(h.z, wv[2], acc[2]);
+        acc[3] = fmaf(h.w, wv[3], acc[3]);
+      }
+    }
+    float d = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = __shfl_sync(0xffffffffu, acc[e], quad | q);
+        d = q == 0 && e == 0 ? v : __fadd_rn(d, v);
+      }
+    }
+    const float p = scaled ? __fmul_rn(d, ss[live ? row : 0]) : d;
+    total = c0 == 0 ? p : __fadd_rn(total, p);
+  }
+  if (live && j == 0) out[n0 + row] = total;
+}
+
+// Consumes the block's stages of kind `kind` in order (`stage` counts the
+// launch's stages), tp_stage_rows on each, as qtts_ring_gemv does with K1's
+// rows: after a stage thread 0 refills its slot with the stage n_slots ahead.
+template <typename WT>
+__device__ __forceinline__ void tp_ring_gemv(const QttsPlan& p, const QttsRing& ring, QttsSeq& q,
+                                             int kind, int& stage, const float* sh, float* out,
+                                             int KC, bool scaled) {
+  qtts_trace_mark(p, 0);
+  const QttsKindRows& r = q.kind[kind];
+  const int K = r.K, chunks = r.chunks, stage_rows = r.stage_rows, r0 = r.r0, nrows = r.rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = 0; c < chunks; ++c) {
+    const int slot = stage % ring.n_slots;
+    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);
+    if (c == 0) qtts_trace_mark(p, 1);
+    tp_stage_rows<WT>(reinterpret_cast<const WT*>(ring.slots + (size_t)slot * ring.slot_bytes),
+                      ring.scales + (size_t)slot * ring.slot_rows, scaled, sh, out,
+                      r0 + c * stage_rows, min(stage_rows, nrows - c * stage_rows), K, KC, warp,
+                      lane);
+    __syncthreads();  // every warp is done with the slot
+    if (c + 1 == chunks) qtts_trace_mark(p, 2);
+    if (threadIdx.x == 0) qtts_ring_issue(ring, q);
+    ++stage;
+  }
 }
 
 struct TpAttnSmem {
@@ -255,7 +256,7 @@ __device__ __forceinline__ float tp_head_norm(float v, float w, float eps, float
 // with the sum in slot order, and attn = sum_s w_s v_s in slot order (the
 // JAX kernel's full-row form on the slots it does not mask).
 template <typename Sync>
-__device__ void tp_attn_item(TpAttnSmem& sm, Sync sync, int t, int h, const QttsTpWeights& w,
+__device__ void tp_attn_item(TpAttnSmem& sm, Sync sync, int t, int h, const QttsStepWeights& w,
                              int l, const float* qkv, const float* rope, float* kc, float* vc,
                              int T, int pos, float* attn) {
   constexpr int D = QTTS_ATTN_D;
@@ -316,41 +317,51 @@ __device__ void tp_attn_item(TpAttnSmem& sm, Sync sync, int t, int h, const Qtts
   }
 }
 
+// The union region's areas: the GEMV input (QTTS_P_MAX_K floats) and the
+// prologue's tree (256 floats) after it; an attention item, or block 0's
+// sampler scratch, in the phases that have no GEMV input.
+constexpr size_t TP_UNION_BYTES = 4 * ((size_t)QTTS_P_MAX_K + QTTS_P_THREADS);
+static_assert(sizeof(TpAttnSmem) <= TP_UNION_BYTES && sizeof(QttsSampleSmem) <= TP_UNION_BYTES,
+              "the union region holds an attention item and the sampler");
+
 template <typename HT, bool SYS>
-__global__ void __launch_bounds__(QTTS_TP_THREADS, 1)
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
 tp_chain_kernel(const __grid_constant__ QttsTpChainArgs a) {
-  extern __shared__ float sh[];  // the GEMV input: max(H, nq D, I, Hs) floats
-  __shared__ float red[QTTS_TP_SLICES][QTTS_TP_COLS];
-  __shared__ TpAttnSmem am;
-  __shared__ QttsSampleSmem ss;
-  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ QttsSeq seq;
+  float* sh = reinterpret_cast<float*>(smem);  // the GEMV input
+  float* tree = sh + QTTS_P_MAX_K;
+  TpAttnSmem& am = *reinterpret_cast<TpAttnSmem*>(smem);
+  QttsSampleSmem& ss = *reinterpret_cast<QttsSampleSmem*>(smem);
   const int t = threadIdx.x;
-  const int b = blockIdx.x % a.bpr;
-  const int me = a.rank0 + blockIdx.x / a.bpr;
+  const int b = (int)blockIdx.x % a.bpr, me = a.rank0 + (int)blockIdx.x / a.bpr;
   const QttsTpRank& R = a.rank[me];
-  const QttsTpWeights& w = R.w;
-  const int H = w.H, D = w.D, nk = w.nk, I = w.I, NU = w.NU;
-  const int qd = w.nq * D, A = (w.nq + 2 * nk) * D, T = a.n + 2, Hs = H / a.tp;
-  const int Uq = A / NU, Uo = (qd / w.KCo) * (H / NU), Ug = 2 * I / NU, Ud = (I / w.KCd) * (H / NU);
+  const QttsStepWeights& w = R.w;
+  const QttsPlan& p = R.p;
+  const int H = w.H, D = w.D, nk = w.nk, I = w.I, qd = w.nq * D, T = a.n + 2, Hs = H / a.tp;
+  QttsRing ring;
+  const QttsSetSpec spec{&w, static_cast<const int8_t*>(R.heads), R.head_scales, a.n, a.V, 1,
+                         Hs, (int)sizeof(HT)};
+  qtts_ring_start(ring, seq, smem, p, &spec, b);
+  const QttsTpSync sync{a.tp, me, b, a.bpr, a.W, a.gen, a.stall_ns, a.timeout_ns};
+  uint32_t* bar = a.link[me].bar;
   const QttsNamedSync item_sync{1};
-  int site = 0;
+  int stage = 0, site = 0;
   for (int it = 0; it < a.n + 2; ++it) {
     if (it >= 2) {
       // sub-code j: this rank's head rows of RMSNorm(x) * final_norm, the
       // partial [V] all-reduced, then scaled
       const int j = it - 2;
-      tp_prologue<QTTS_IN_NORM>(R.x, R.final_norm, w.eps, H, me * Hs, Hs, sh);
-      const HT* hw = static_cast<const HT*>(R.heads) + (size_t)j * Hs * a.V;
-      for (int tile = b; tile < a.V / QTTS_TP_COLS; tile += a.bpr) {
-        float v = qtts_tp_tile<HT>(sh, hw, nullptr, a.V, a.V, Hs, 1, tile, red);
-        v = tp_exchange<SYS>(a, me, site, tile, v);
-        if (t < QTTS_TP_COLS) {
-          const int c = tile * QTTS_TP_COLS + t;
-          R.logits[c] = __fmul_rn(v, R.head_scales[(size_t)j * a.V + c]);
-        }
-      }
-      ++site;
-      grid.sync();
+      tp_prologue<QTTS_IN_NORM>(R.x, R.final_norm, w.eps, H, me * Hs, Hs, sh, tree);
+      tp_ring_gemv<HT>(p, ring, seq, QTTS_KIND_HEAD, stage, sh, R.part, Hs, false);
+      const QttsKindRows& hr = seq.kind[QTTS_KIND_HEAD];
+      const float* scale = R.head_scales + (size_t)j * a.V;
+      float* logits = R.logits;
+      qtts_tp_allreduce<SYS>(a.link, sync, site++, hr.r0, hr.rows, R.part,
+                             [logits, scale](int c, float v) {
+                               logits[c] = __fmul_rn(v, scale[c]);
+                             });
+      qtts_group_barrier(p, bar, b, a.bpr);
       if (b == 0) {
         // the draw on the replicated noise, then the table row
         const float* lg = R.logits;
@@ -366,78 +377,76 @@ tp_chain_kernel(const __grid_constant__ QttsTpChainArgs a) {
         }
       }
       if (it > a.n) break;
-      grid.sync();
+      qtts_group_barrier(p, bar, b, a.bpr);
     }
     // the trunk pass at position it
     const float* in = it == 0 ? R.last_hidden : it == 1 ? R.code0_embed : R.x_in;
     for (int l = 0; l < w.L; ++l) {
       const float* xr = l == 0 ? in : R.x;
-      tp_prologue<QTTS_IN_NORM>(xr, w.attn_norm + (size_t)l * H, w.eps, H, 0, H, sh);
-      for (int tile = b; tile < A / QTTS_TP_COLS; tile += a.bpr) {
-        const float v = qtts_tp_tile<int8_t>(sh, w.qkv_u + (size_t)l * Uq * H * NU,
-                                             w.qkv_s + (size_t)l * Uq * NU, A, NU, H, 1, tile,
-                                             red);
-        if (t < QTTS_TP_COLS) R.qkv[tile * QTTS_TP_COLS + t] = v;
-      }
-      grid.sync();
+      float* x = R.x;
+      tp_prologue<QTTS_IN_NORM>(xr, w.attn_norm + (size_t)l * H, w.eps, H, 0, H, sh, tree);
+      tp_ring_gemv<int8_t>(p, ring, seq, QTTS_KIND_QKV, stage, sh, R.qkv, H, true);
+      qtts_group_barrier(p, bar, b, a.bpr);
       if (t < QTTS_ATTN_D) {
         for (int h = b; h < nk; h += a.bpr) {
           tp_attn_item(am, item_sync, t, h, w, l, R.qkv, R.rope, R.k_cache, R.v_cache, T, it,
                        R.attn);
         }
       }
-      grid.sync();
-      tp_prologue<QTTS_IN_PLAIN>(R.attn, nullptr, w.eps, qd, 0, qd, sh);
-      for (int tile = b; tile < H / QTTS_TP_COLS; tile += a.bpr) {
-        float v = qtts_tp_tile<int8_t>(sh, w.wo_u + (size_t)l * Uo * w.KCo * NU,
-                                       w.wo_s + (size_t)l * Uo * NU, H, NU, w.KCo, qd / w.KCo,
-                                       tile, red);
-        v = tp_exchange<SYS>(a, me, site, tile, v);
-        if (t < QTTS_TP_COLS) {
-          const int c = tile * QTTS_TP_COLS + t;
-          R.x[c] = __ldcg(xr + c) + v;
-        }
-      }
-      ++site;
-      grid.sync();
-      tp_prologue<QTTS_IN_NORM>(R.x, w.mlp_norm + (size_t)l * H, w.eps, H, 0, H, sh);
-      for (int tile = b; tile < 2 * I / QTTS_TP_COLS; tile += a.bpr) {
-        const float v = qtts_tp_tile<int8_t>(sh, w.gu_u + (size_t)l * Ug * H * NU,
-                                             w.gu_s + (size_t)l * Ug * NU, 2 * I, NU, H, 1, tile,
-                                             red);
-        if (t < QTTS_TP_COLS) R.gu[tile * QTTS_TP_COLS + t] = v;
-      }
-      grid.sync();
-      tp_prologue<QTTS_IN_SILU>(R.gu, nullptr, w.eps, I, 0, I, sh);
-      for (int tile = b; tile < H / QTTS_TP_COLS; tile += a.bpr) {
-        float v = qtts_tp_tile<int8_t>(sh, w.wd_u + (size_t)l * Ud * w.KCd * NU,
-                                       w.wd_s + (size_t)l * Ud * NU, H, NU, w.KCd, I / w.KCd,
-                                       tile, red);
-        v = tp_exchange<SYS>(a, me, site, tile, v);
-        if (t < QTTS_TP_COLS) {
-          const int c = tile * QTTS_TP_COLS + t;
-          R.x[c] = __ldcg(R.x + c) + v;
-        }
-      }
-      ++site;
-      grid.sync();
+      qtts_group_barrier(p, bar, b, a.bpr);
+      tp_prologue<QTTS_IN_PLAIN>(R.attn, nullptr, w.eps, qd, 0, qd, sh, tree);
+      tp_ring_gemv<int8_t>(p, ring, seq, QTTS_KIND_O, stage, sh, R.part, a.KCo, true);
+      const QttsKindRows& orow = seq.kind[QTTS_KIND_O];
+      qtts_tp_allreduce<SYS>(a.link, sync, site++, orow.r0, orow.rows, R.part,
+                             [x, xr](int c, float v) { x[c] = __fadd_rn(__ldcg(xr + c), v); });
+      qtts_group_barrier(p, bar, b, a.bpr);
+      tp_prologue<QTTS_IN_NORM>(R.x, w.mlp_norm + (size_t)l * H, w.eps, H, 0, H, sh, tree);
+      tp_ring_gemv<int8_t>(p, ring, seq, QTTS_KIND_GU, stage, sh, R.gu, H, true);
+      qtts_group_barrier(p, bar, b, a.bpr);
+      tp_prologue<QTTS_IN_SILU>(R.gu, nullptr, w.eps, I, 0, I, sh, tree);
+      tp_ring_gemv<int8_t>(p, ring, seq, QTTS_KIND_DOWN, stage, sh, R.part, a.KCd, true);
+      const QttsKindRows& drow = seq.kind[QTTS_KIND_DOWN];
+      qtts_tp_allreduce<SYS>(a.link, sync, site++, drow.r0, drow.rows, R.part,
+                             [x](int c, float v) { x[c] = __fadd_rn(x[c], v); });
+      qtts_group_barrier(p, bar, b, a.bpr);
     }
   }
+  qtts_trace_end(p);
 }
 
-template <typename HT, bool SYS>
-int launch_chain(const QttsTpChainArgs& a, size_t smem, cudaStream_t st) {
-  auto kernel = tp_chain_kernel<HT, SYS>;
-  int dev = 0, sms = 0, per_sm = 0;
-  QTTS_TRY(cudaGetDevice(&dev));
-  QTTS_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  QTTS_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, QTTS_TP_THREADS, smem));
-  const int grid = a.n_local * a.bpr;
-  if (grid > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {const_cast<QttsTpChainArgs*>(&a)};
-  QTTS_TRY(cudaLaunchCooperativeKernel((void*)kernel, dim3(grid), dim3(QTTS_TP_THREADS), args,
-                                       smem, st));
-  return (int)cudaSuccess;
+template <typename HT>
+int launch_chain(const QttsTpChainArgs& a, cudaStream_t st) {
+  const int grid = a.n_local * a.bpr, smem = a.rank[a.rank0].p.smem_bytes;
+  return a.cross_device ? qtts_launch_persistent(tp_chain_kernel<HT, true>, a, grid, smem, st)
+                        : qtts_launch_persistent(tp_chain_kernel<HT, false>, a, grid, smem, st);
+}
+
+bool chain_args_ok(const QttsTpChainArgs& a) {
+  if (a.tp < 1 || a.tp > QTTS_TP_MAX || a.rank0 < 0 || a.n_local < 1 ||
+      a.rank0 + a.n_local > a.tp ||
+      a.bpr < 1 || a.n < 1 || a.n + 2 > QTTS_TP_MAX_T || a.V > QTTS_P_THREADS * QTTS_SAMPLE_VPT ||
+      a.V > a.Vt || a.V % 4 || (a.heads_bf16 != 0 && a.heads_bf16 != 1) || (a.tp & (a.tp - 1)) ||
+      a.KCo < 16 || a.KCo % 16 || a.KCd < 16 || a.KCd % 16) {
+    return false;
+  }
+  const QttsTpRank& r0 = a.rank[a.rank0];
+  const size_t hsize = a.heads_bf16 ? 2 : 1;
+  for (int r = a.rank0; r < a.rank0 + a.n_local; ++r) {
+    const QttsTpRank& R = a.rank[r];
+    const QttsStepWeights& w = R.w;
+    const int H = w.H, Hs = H / a.tp, g = w.nk > 0 ? w.nq / w.nk : 0;
+    const int hrows = R.p.stage_rows[QTTS_KIND_HEAD];
+    if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nk < 1 || w.nq % w.nk != 0 || g > QTTS_ATTN_MAX_G ||
+        H % a.tp || Hs % 16 || H % 16 || (w.nq * w.D) % a.KCo || w.I % a.KCd || a.W < H ||
+        a.W < a.V || w.H != r0.w.H || w.nq != r0.w.nq ||
+        w.nk != r0.w.nk || w.I != r0.w.I || w.L != r0.w.L || !qtts_plan_ok(R.p, w, 0) ||
+        R.p.grid != a.bpr || R.p.smem_bytes != r0.p.smem_bytes ||
+        (size_t)R.p.union_bytes < TP_UNION_BYTES || hrows < 4 || hrows % 4 ||
+        hrows > R.p.slot_rows || (size_t)hrows * Hs * hsize > (size_t)R.p.slot_bytes) {
+      return false;
+    }
+  }
+  return true;
 }
 
 }  // namespace
@@ -449,31 +458,9 @@ extern "C" {
 // n_local x bpr blocks on stream.  Each rank writes its sub-codes and
 // sub_sum; an exchange that timed out leaves the rank's status nonzero.
 int qtts_tp_mtp_chain(const QttsTpChainArgs* a, void* stream) {
-  const int tp = a->tp;
-  if (tp < 2 || tp > QTTS_TP_MAX || (tp & (tp - 1)) || a->rank0 < 0 || a->n_local < 1 ||
-      a->rank0 + a->n_local > tp || a->bpr < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const QttsTpWeights& w = a->rank[a->rank0].w;
-  const int H = w.H, A = (w.nq + 2 * w.nk) * w.D;
-  if (!qtts_tp_shapes_ok(w) || H % tp != 0 ||
-      (H / tp) % 4 != 0 || a->n < 1 || a->n + 2 > QTTS_TP_MAX_T || a->V % QTTS_TP_COLS != 0 ||
-      a->V > QTTS_P_THREADS * QTTS_SAMPLE_VPT || a->V > a->Vt || H % QTTS_TP_COLS != 0 ||
-      A % QTTS_TP_COLS != 0 || a->W < H || a->W < a->V || a->W % QTTS_TP_COLS != 0 ||
-      a->sites != (a->n + 1) * 2 * w.L + a->n) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int qd = w.nq * w.D;
-  int kmax = H > qd ? H : qd;
-  kmax = kmax > w.I ? kmax : w.I;
-  const size_t smem = (size_t)kmax * sizeof(float);
+  if (!chain_args_ok(*a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->cross_device) {
-    return a->heads_bf16 ? launch_chain<__nv_bfloat16, true>(*a, smem, st)
-                         : launch_chain<int8_t, true>(*a, smem, st);
-  }
-  return a->heads_bf16 ? launch_chain<__nv_bfloat16, false>(*a, smem, st)
-                       : launch_chain<int8_t, false>(*a, smem, st);
+  return a->heads_bf16 ? launch_chain<__nv_bfloat16>(*a, st) : launch_chain<int8_t>(*a, st);
 }
 
 // Enables peer access from each device of devs[0 .. n) to every other

@@ -215,6 +215,13 @@ static __device__ __forceinline__ int& qtts_barrier_index() {
   return index;
 }
 
+// The block's column of the trace: its block in the plan (blockIdx.x, or its
+// place in its rank's block group in the tensor-parallel kernels).
+static __device__ __forceinline__ int& qtts_trace_col() {
+  __shared__ int col;
+  return col;
+}
+
 // Thread 0 of block b, with a trace: row 1 holds the block's start; rows
 // 5i + 2 .. 5i + 6 the end of the phase's input, the moment its first weight
 // stage was in shared memory and the end of its last stage's dot products
@@ -223,7 +230,7 @@ static __device__ __forceinline__ int& qtts_barrier_index() {
 // 0 elsewhere), the arrival at grid barrier i and the departure from it;
 // row 5n + 2 after n barriers the block's end (qtts_trace_end).
 static __device__ __forceinline__ void qtts_trace_at(const QttsPlan& p, int row) {
-  if (row < p.trace_rows) p.trace[(size_t)row * p.grid + blockIdx.x] = qtts_globaltimer();
+  if (row < p.trace_rows) p.trace[(size_t)row * p.grid + qtts_trace_col()] = qtts_globaltimer();
 }
 
 static __device__ __forceinline__ void qtts_trace_mark(const QttsPlan& p, int offset) {
@@ -263,12 +270,16 @@ struct QttsKindRows {
 // rows; the passes and heads in chain order, `lead` passes (0 or 1) then
 // `heads` times a pass and a head: pass, pass, head 0, pass, head 1, ...,
 // the last head (the chain: lead 1); pass, head (the frame's talker and its
-// lm_head: lead 0); one pass (a step: lead 1, no heads).
+// lm_head: lead 0); one pass (a step: lead 1, no heads).  head_k and
+// head_esize: a head row's width and bytes per weight where they are not the
+// trunk's (the tensor-parallel chain's rank slice of the heads; 0: H and the
+// trunk's unit type).
 struct QttsSetSpec {
   const QttsStepWeights* w;
   const int8_t* heads;
   const float* head_scales;
   int n_heads, head_rows, lead;
+  int head_k, head_esize;
 };
 
 // The block's stage sequence over the plan's sets, in order.
@@ -289,14 +300,15 @@ struct QttsRing {
   int n_slots, slot_bytes, slot_rows;
 };
 
-// Thread 0 of every block, once: the block's rows of each kind of set `set`
-// from the plan; returns the set's stage count.
-static __device__ int qtts_seq_set(QttsSeq& q, const QttsPlan& p, int set, const QttsSetSpec& sp) {
+// Thread 0 of every block, once: the rows of each kind of set `set` that
+// the plan gives block `block`; returns the set's stage count.
+static __device__ int qtts_seq_set(QttsSeq& q, const QttsPlan& p, int set, const QttsSetSpec& sp,
+                                   int block) {
   const QttsStepWeights& w = *sp.w;
   const int H = w.H, qd = w.nq * w.D, A = qd + 2 * w.nk * w.D, I = w.I;
-  const int at = blockIdx.x + qtts_group_of(p, blockIdx.x);  // the block's bounds entry
+  const int at = block + qtts_group_of(p, block);  // the block's bounds entry
   const int N[QTTS_KINDS] = {A, H, 2 * I, H, sp.head_rows};
-  const int K[QTTS_KINDS] = {H, qd, H, I, H};
+  const int K[QTTS_KINDS] = {H, qd, H, I, sp.head_k > 0 ? sp.head_k : H};
   const int8_t* W[QTTS_KINDS] = {w.wqkv, w.wo, w.wgu, w.wd, sp.heads};
   const float* S[QTTS_KINDS] = {w.sqkv, w.so, w.sgu, w.sd, sp.head_scales};
   int per_layer = 0;
@@ -308,7 +320,8 @@ static __device__ int qtts_seq_set(QttsSeq& q, const QttsPlan& p, int set, const
     r.S = S[k];
     r.N = N[k];
     r.K = K[k];
-    r.esize = w.unit_bf16 ? 2 : 1;  // the heads take the trunk's unit type
+    r.esize = w.unit_bf16 ? 2 : 1;  // the heads take the trunk's unit type unless set
+    if (k == QTTS_KIND_HEAD && sp.head_esize > 0) r.esize = sp.head_esize;
     r.stage_rows = p.stage_rows[at_k];
     r.r0 = used ? p.bounds[at_k * (p.grid + p.groups) + at] : 0;
     r.rows = used ? p.bounds[at_k * (p.grid + p.groups) + at + 1] - r.r0 : 0;
@@ -365,11 +378,11 @@ static __device__ void qtts_ring_issue(const QttsRing& ring, QttsSeq& q) {
 }
 
 // Every thread: the ring's areas in dynamic shared memory; thread 0 builds
-// the sequence of the plan's sets (spec[0 .. p.n_sets)), initialises the
-// slots' barriers and issues the first n_slots stages.  Ends with a block
-// barrier.
+// the sequence of the plan's sets (spec[0 .. p.n_sets)) for plan block
+// `block`, initialises the slots' barriers and issues the first n_slots
+// stages.  Ends with a block barrier.
 static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char* smem,
-                                       const QttsPlan& p, const QttsSetSpec* spec) {
+                                       const QttsPlan& p, const QttsSetSpec* spec, int block) {
   const QttsSmemLayout lay = qtts_plan_layout(p);
   ring.full = reinterpret_cast<uint64_t*>(smem + lay.bars);
   ring.scales = reinterpret_cast<float*>(smem + lay.scales);
@@ -379,10 +392,11 @@ static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char
   ring.slot_rows = p.slot_rows;
   if (threadIdx.x == 0) {
     qtts_barrier_index() = 0;
+    qtts_trace_col() = block;
     if (p.trace != nullptr) qtts_trace_at(p, 1);
     q.n_sets = p.n_sets;
     q.total = 0;
-    for (int s = 0; s < p.n_sets; ++s) q.total += qtts_seq_set(q, p, s, spec[s]);
+    for (int s = 0; s < p.n_sets; ++s) q.total += qtts_seq_set(q, p, s, spec[s], block);
     q.next = q.set = q.seg = q.unit = q.cur_kind = q.chunk = 0;
     for (int s = 0; s < ring.n_slots; ++s) qtts_mbar_init(ring.full + s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -391,13 +405,19 @@ static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char
   __syncthreads();
 }
 
+// The ring of a whole-grid plan (block blockIdx.x).
+static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char* smem,
+                                       const QttsPlan& p, const QttsSetSpec* spec) {
+  qtts_ring_start(ring, q, smem, p, spec, (int)blockIdx.x);
+}
+
 // The ring of a one-set plan: the transformer w, then n_heads heads of V
 // rows in chain order (none: one pass).
 static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char* smem,
                                        const QttsPlan& p, const QttsStepWeights& w,
                                        const int8_t* heads, const float* head_scales, int n_heads,
                                        int V) {
-  const QttsSetSpec spec{&w, heads, head_scales, n_heads, V, 1};
+  const QttsSetSpec spec{&w, heads, head_scales, n_heads, V, 1, 0, 0};
   qtts_ring_start(ring, q, smem, p, &spec);
 }
 
@@ -983,25 +1003,44 @@ static __device__ __forceinline__ void qtts_attn_item_any(
 // One decode step through every layer, as grid phases
 // ---------------------------------------------------------------------------
 
+// Where the step's blocks stand: the whole grid, whose phases end at grid
+// barriers and whose o and down products add into the residual (K1-K7).
+// The tensor-parallel step (fused_tp.cu) runs the same phases on one rank's
+// block group with a barrier of its own and an all-reduce of the residual's
+// partials (`site`: the product's exchange, 2 per layer).
+struct QttsWholeGrid {
+  __device__ __forceinline__ int block() const { return (int)blockIdx.x; }
+  __device__ __forceinline__ int blocks() const { return (int)gridDim.x; }
+  __device__ __forceinline__ void barrier(const QttsPlan& p) const { qtts_phase_barrier(p); }
+  template <typename WT>
+  __device__ __forceinline__ void residual(const QttsPlan& p, const QttsRing& ring, QttsSeq& q,
+                                           int kind, int& stage, const float* sh, float* x,
+                                           int site) const {
+    qtts_ring_gemv<true, WT>(p, ring, q, kind, stage, sh, x);
+  }
+};
+
 // x_in is read by layer 0's qkv prologue and copied to x there.  `set`: the
 // plan's weight set of w.  `un`: the union region.  last_barrier: end with a
 // grid barrier (a phase follows).  WT: w's unit type.  ks, vs: an int8
 // cache's [L, nk, T] scales (CT = int8_t), updated in place with the cache.
-template <typename CT, typename WT = int8_t>
+// g: the blocks the phases run on (QttsWholeGrid: the launch's grid).
+template <typename CT, typename WT = int8_t, typename G = QttsWholeGrid>
 static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w,
                                                         const QttsStepScratch& s,
                                         const QttsPlan& p, const QttsRing& ring,
                                         QttsSeq& q, int set, int& stage, const float* x_in,
                                         float* x, CT* kc, CT* vc, int T, int pos,
                                         unsigned char* un, bool last_barrier,
-                                        float* ks = nullptr, float* vs = nullptr) {
+                                        float* ks = nullptr, float* vs = nullptr,
+                                        const G& g = G()) {
   const int H = w.H, I = w.I, D = w.D;
   const int kinds = set * QTTS_KINDS;  // the set's kind indices
   const int n_splits = pos / QTTS_ATTN_CHUNK + 1;
   const int tid = threadIdx.x;
   const int half = tid / QTTS_ATTN_D, t = tid % QTTS_ATTN_D;
   const QttsNamedSync hsync{1 + half};
-  const int lane0 = 2 * blockIdx.x + half, lanes = 2 * gridDim.x;  // attention item dealing
+  const int lane0 = 2 * g.block() + half, lanes = 2 * g.blocks();  // attention item dealing
   const size_t row = (size_t)w.nk * T * D;
   const size_t srow = (size_t)w.nk * T;  // one layer's int8 scales
   float* sh = reinterpret_cast<float*>(un);
@@ -1017,12 +1056,12 @@ static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w
     // qkv = bf16(RMSNorm(x) * attn_norm) @ Wqkv * scale
     qtts_prologue<QTTS_IN_NORM>(l == 0 ? x_in : x, w.attn_norm + (size_t)l * H, w.eps, H, sh);
     if (l == 0 && x_in != x) {
-      for (int k = blockIdx.x * blockDim.x + tid; k < H; k += gridDim.x * blockDim.x) {
+      for (int k = g.block() * blockDim.x + tid; k < H; k += g.blocks() * blockDim.x) {
         x[k] = x_in[k];
       }
     }
     qtts_ring_gemv<false, WT>(p, ring, q, kinds + QTTS_KIND_QKV, stage, sh, s.qkv);
-    qtts_phase_barrier(p);
+    g.barrier(p);
     // the split attention: K1's items, two per block at once; the last item
     // of each kv head to finish merges the head's splits into s.attn
     for (int it = lane0; it < w.nk * n_splits; it += lanes) {
@@ -1047,19 +1086,19 @@ static __device__ __forceinline__ void qtts_step_phases(const QttsStepWeights& w
         if (t == 0) p.tickets[h] = 0u;  // every split has taken its ticket
       }
     }
-    qtts_phase_barrier(p);
+    g.barrier(p);
     // x += bf16(attn) @ Wo * scale
     qtts_prologue<QTTS_IN_PLAIN>(s.attn, nullptr, 0.f, w.nq * D, sh);
-    qtts_ring_gemv<true, WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x);
-    qtts_phase_barrier(p);
+    g.template residual<WT>(p, ring, q, kinds + QTTS_KIND_O, stage, sh, x, 2 * l);
+    g.barrier(p);
     // gu = bf16(RMSNorm(x) * mlp_norm) @ Wgu * scale
     qtts_prologue<QTTS_IN_NORM>(x, w.mlp_norm + (size_t)l * H, w.eps, H, sh);
     qtts_ring_gemv<false, WT>(p, ring, q, kinds + QTTS_KIND_GU, stage, sh, s.gu);
-    qtts_phase_barrier(p);
+    g.barrier(p);
     // x += bf16(silu(gate) * up) @ Wd * scale
     qtts_prologue<QTTS_IN_SILU>(s.gu, nullptr, 0.f, I, sh);
-    qtts_ring_gemv<true, WT>(p, ring, q, kinds + QTTS_KIND_DOWN, stage, sh, x);
-    if (l + 1 < w.L || last_barrier) qtts_phase_barrier(p);
+    g.template residual<WT>(p, ring, q, kinds + QTTS_KIND_DOWN, stage, sh, x, 2 * l + 1);
+    if (l + 1 < w.L || last_barrier) g.barrier(p);
   }
 }
 

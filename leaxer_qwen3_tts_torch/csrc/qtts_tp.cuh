@@ -1,165 +1,198 @@
 // Shared declarations and device helpers of the tensor-parallel kernels K9
-// (fused_tp.cu: the decode step's attention and MLP halves per rank) and K10
-// (fused_mtp_tp.cu: the sharded MTP chain with its in-kernel exchange).
+// (fused_tp.cu: the decode step) and K10 (fused_mtp_tp.cu: the sharded MTP
+// chain), both persistent launches on the transport of qtts_stream.cuh.
 //
-// The pack is the JAX package's FusedTPWeights (ops/fused_tp.py), leaf for
-// leaf: per rank, K-major int8 units of NU columns with float32 scales per
-// unit column.  An N-split product (qkv, gate|up) has one unit per NU output
-// columns over all K = H input rows; a K-split product (wo, down) has
-// (K / KC) x (N / NU) units, unit (i, j) holding input rows [i KC, (i+1) KC)
-// of output columns [j NU, (j+1) NU), and its output column sums the chunks'
-// scaled dot products in chunk order.  Both are one layout: chunk i of
-// column c lies in unit i * (N / NU) + c / NU (an N-split product has one
-// chunk).
+// Ranks.  The ranks placed on one device are block groups of one cooperative
+// launch (blocks [r bpr, (r + 1) bpr) are rank rank0 + r), so that every rank
+// runs while its peers wait on it; ranks on distinct devices are one launch
+// per device and reach each other through peer pointers.  A rank's weights
+// are K1's row pack at the shard's widths (nq / tp and nk / tp heads, I / tp,
+// o with K = nq D / tp, down with K = I / tp), its plan ops/persistent.py's
+// on its bpr blocks: every rank's plan has the same bounds, so block b of
+// every rank owns the same output rows of every product.
+//
+// Barriers.  Between phases a block waits only on its own rank's blocks
+// (qtts_group_barrier: cooperative groups' grid barrier on a counter of the
+// rank's own).  The exchange below is the only wait across ranks.
+//
+// The exchange (qtts_tp_allreduce).  After a product whose output the ranks
+// sum (K9's o and down, K10's o, down and head rows), block b of rank me
+// writes its own rows of its partial into receive slot (site, me) of every
+// peer and raises the peer's flag (site, me, b) to this call's generation
+// (st.release after a fence; .gpu scope on one device, .sys with
+// __threadfence_system across devices), then waits until each peer's flag
+// (site, peer, b) on its own device holds the generation (ld.acquire), and
+// sums the ranks' rows in the hypercube's order, each add rounded on its
+// own: in round r (step 2^r) every value i becomes value i plus value
+// i ^ 2^r (tp a power of two), and rank me keeps value me.  a + b == b + a
+// bitwise, so every rank holds the same bits: ((v0 + v1) + (v2 + v3)) at
+// tp = 4.  This is the order of K10's hypercube exchange before it shared
+// this one (rank me received its round-r partner's sum), and the plain
+// versions' (ops/fused_tp.py::hypercube_sum).  Each exchange site of a call
+// has its own slots and flags, so a slot is written once per call, and the
+// generation (a per-call counter, never a reset) keeps the previous call's
+// flags from satisfying this call's waits.  A wait that sees no flag within
+// the timeout sets the rank's status word, and every later wait of the
+// launch returns at once, so a fault ends the launch with a status instead of
+// hanging the card; the wrappers zero the words before each launch and raise
+// when one was set (ops/fused_tp.py::check_timeouts, read behind the launch).
 //
 // The structs are mirrored by ctypes.Structure classes in ops/_build.py.
 #pragma once
 
-#include "qtts_kernels.cuh"
+#include "qtts_stream.cuh"
 
-constexpr int QTTS_TP_MAX = 8;        // ranks a chain launch takes
-constexpr int QTTS_TP_COLS = 64;      // output columns of one GEMV tile
-constexpr int QTTS_TP_SLICES = 16;    // K slices of a tile: 16 column groups of 4 x 16 = 256 threads
-constexpr int QTTS_TP_THREADS = 256;
-constexpr int QTTS_TP_MAX_T = 32;     // the chain's cache slots (n + 2)
+constexpr int QTTS_TP_MAX = 8;     // ranks a launch takes
+constexpr int QTTS_TP_MAX_T = 32;  // the chain's cache slots (n + 2)
 
-// One rank's shard of one transformer (nq, nk and I per rank).
-struct QttsTpWeights {
-  const int8_t* qkv_u;  // [L, A / NU, H, NU]      A = (nq + 2 nk) D
-  const float* qkv_s;   // [L, A / NU, NU]
-  const int8_t* wo_u;   // [L, (nq D / KCo) (H / NU), KCo, NU]
-  const float* wo_s;    // [L, (nq D / KCo) (H / NU), NU]
-  const int8_t* gu_u;   // [L, 2 I / NU, H, NU]     gate | up
-  const float* gu_s;
-  const int8_t* wd_u;   // [L, (I / KCd) (H / NU), KCd, NU]
-  const float* wd_s;
-  const float* attn_norm;  // [L, H]
-  const float* mlp_norm;   // [L, H]
-  const float* q_norm;     // [L, D]
-  const float* k_norm;     // [L, D]
-  const float* inv_freq;   // [D / 2]
-  int32_t L, H, nq, nk, D, I, NU, KCo, KCd;
-  float eps, attn_scale;
+// What the ranks of a launch reach of rank r (every pointer on r's device).
+struct QttsTpLink {
+  float* recv;       // [sites, tp, W]: slot (site, src) holds rank src's rows
+  uint32_t* flags;   // [sites, tp, bpr]: flag (site, src, b) = the generation once block b
+                     // of rank src has written its rows
+  uint32_t* bar;     // [1] the rank's group-barrier counter (zeroed once, never reset)
+  int32_t* status;   // [1] nonzero: an exchange wait of the rank timed out
 };
 
-// Device scratch of one rank's halves (K9).
-struct QttsTpScratch {
-  float* qkv;   // [A]
-  float* attn;  // [nq D]
-  float* gu;    // [2 I]
-  float* part;  // [nq, max_splits, D + 2]: split-softmax partials
-  int32_t max_splits;
+// One block's place in the exchanges of a launch.
+struct QttsTpSync {
+  int tp, me, b, bpr, W;
+  uint32_t gen;        // this call's flag value
+  int stall_ns;        // the checks' stalled sends: odd ranks hold each send back this long
+  int64_t timeout_ns;  // a wait's limit
 };
 
-// The shard's geometry checks every entry makes.
-static inline bool qtts_tp_shapes_ok(const QttsTpWeights& w) {
-  const int A = (w.nq + 2 * w.nk) * w.D, qd = w.nq * w.D;
-  return w.D == QTTS_ATTN_D && w.nk > 0 && w.nq % w.nk == 0 && w.nq / w.nk <= QTTS_ATTN_MAX_G &&
-         w.NU % QTTS_TP_COLS == 0 && w.H % w.NU == 0 && A % w.NU == 0 && (2 * w.I) % w.NU == 0 &&
-         w.KCo > 0 && qd % w.KCo == 0 && w.KCd > 0 && w.I % w.KCd == 0 && w.H <= 8192 &&
-         qd <= 8192 && w.I <= 8192;
-}
-
-// Four consecutive unit values as floats.
-static __device__ __forceinline__ void qtts_tp_load4(const int8_t* p, float (&w)[4]) {
-  const char4 c = __ldg(reinterpret_cast<const char4*>(p));
-  w[0] = (float)c.x;
-  w[1] = (float)c.y;
-  w[2] = (float)c.z;
-  w[3] = (float)c.w;
-}
-static __device__ __forceinline__ void qtts_tp_load4(const __nv_bfloat16* p, float (&w)[4]) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  w[0] = a.x;
-  w[1] = a.y;
-  w[2] = b.x;
-  w[3] = b.y;
-}
-
-// The GEMV input: sh[k] = bf16(transform(in))[k0 + k] for k < n, as float32,
-// on the whole block.  IN_NORM: RMSNorm over all K values of in, times
-// norm_w (the head product keeps the rank's rows k0 .. k0 + n); IN_PLAIN: in;
-// IN_SILU: silu(gate) * up of in = gate | up, K values each.  The
-// activations come from other blocks of the launch (K10), so they are read
-// past L1.
-template <int IN_MODE>
-static __device__ __forceinline__ void qtts_tp_prologue(const float* in,
-                                                        const float* __restrict__ norm_w,
-                                                        float eps, int K, int k0, int n,
-                                                        float* sh) {
-  float r = 0.f;
-  if (IN_MODE == QTTS_IN_NORM) {
-    float ss = 0.f;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const float v = __ldcg(in + k);
-      ss += v * v;
-    }
-    ss = qtts_block_reduce(ss, QttsSumF());
-    r = rsqrtf(ss / (float)K + eps);
+template <bool SYS>
+static __device__ __forceinline__ void qtts_flag_release(uint32_t* p, uint32_t v) {
+  if (SYS) {
+    asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  } else {
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
   }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int kk = k0 + k;
-    float v;
-    if (IN_MODE == QTTS_IN_NORM) {
-      v = (__ldcg(in + kk) * r) * norm_w[kk];
-    } else if (IN_MODE == QTTS_IN_PLAIN) {
-      v = __ldcg(in + kk);
-    } else {
-      const float g = __ldcg(in + kk);
-      const float u = __ldcg(in + K + kk);
-      v = g * (1.f / (1.f + expf(-g))) * u;
+}
+
+template <bool SYS>
+static __device__ __forceinline__ uint32_t qtts_flag_acquire(const uint32_t* p) {
+  uint32_t v;
+  if (SYS) {
+    asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  } else {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  }
+  return v;
+}
+
+// Spins until *flag == gen, or sets *status after timeout_ns (and returns at
+// once when a wait of this launch already timed out).
+template <bool SYS>
+static __device__ void qtts_tp_wait(const uint32_t* flag, uint32_t gen, int32_t* status,
+                                    int64_t timeout_ns) {
+  if (*reinterpret_cast<volatile int32_t*>(status) != 0) return;
+  const uint64_t t0 = qtts_globaltimer();
+  while (qtts_flag_acquire<SYS>(flag) != gen) {
+    if (qtts_globaltimer() - t0 > (uint64_t)timeout_ns) {
+      atomicExch(status, 1);
+      return;
     }
-    sh[k] = qtts_bf16_round(v);
+  }
+}
+
+// The barrier of block b of one rank's nblocks blocks: cooperative groups'
+// grid barrier on the rank's counter.  Block 0 adds 0x80000000 - (nblocks -
+// 1) and every other block 1, so each barrier flips the counter's top bit
+// and leaves its low bits as they were; a block leaves once the top bit
+// differs from the one its own add saw.  With the plan's trace on it records
+// the arrival and the departure as qtts_phase_barrier does.
+static __device__ __forceinline__ void qtts_group_barrier(const QttsPlan& p, uint32_t* bar, int b,
+                                                          int nblocks) {
+  const bool traced = p.trace != nullptr && threadIdx.x == 0;
+  if (traced) qtts_trace_at(p, 5 * qtts_barrier_index() + 5);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t add = b == 0 ? 0x80000000u - (uint32_t)(nblocks - 1) : 1u;
+    __threadfence();
+    const uint32_t old = atomicAdd(bar, add);
+    while (((old ^ *reinterpret_cast<volatile uint32_t*>(bar)) & 0x80000000u) == 0u) {
+    }
+    __threadfence();
   }
   __syncthreads();
+  if (traced) qtts_trace_at(p, 5 * qtts_barrier_index()++ + 6);
 }
 
-// Tile `tile` (QTTS_TP_COLS output columns) of the unit product on the
-// block's bf16 input sh (n_chunks x KC floats): for each chunk in order, the
-// dot product of every column (thread (g, s) takes columns 4 g .. 4 g + 3 over
-// rows s, s + 16, ..., fmaf in row order; the 16 slices then summed in slice
-// order), times the unit column's scale when S is given, added to the
-// previous chunks' sum.  The input is bf16 and the units int8 or bf16, so
-// each product is exact in float32 and the fmaf rounds once, as a separate
-// product and sum would.  Returns column tile * 64 + t's value on threads
-// t < 64.  red: the block's [16][64] floats.
-template <typename WT>
-static __device__ __forceinline__ float qtts_tp_tile(const float* sh, const WT* __restrict__ W,
-                                                     const float* __restrict__ S, int N, int NU,
-                                                     int KC, int n_chunks, int tile,
-                                                     float (*red)[QTTS_TP_COLS]) {
-  const int t = threadIdx.x, cg = t & 15, ks = t >> 4;
-  const int c0 = tile * QTTS_TP_COLS, nn = N / NU;
-  const int cb = c0 + cg * 4;
-  const int un = cb / NU, j = cb % NU;
-  float total = 0.f;
-  for (int i = 0; i < n_chunks; ++i) {
-    const WT* wu = W + (size_t)(i * nn + un) * KC * NU + j;
-    const float* hi = sh + i * KC;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int k = ks; k < KC; k += QTTS_TP_SLICES) {
-      float w[4];
-      qtts_tp_load4(wu + (size_t)k * NU, w);
-      const float h = hi[k];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[e] = fmaf(h, w[e], acc[e]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) red[ks][cg * 4 + e] = acc[e];
-    __syncthreads();
-    if (t < QTTS_TP_COLS) {
-      float d = red[0][t];
-#pragma unroll
-      for (int s = 1; s < QTTS_TP_SLICES; ++s) d = __fadd_rn(d, red[s][t]);
-      const int c = c0 + t;
-      const float p =
-          S != nullptr ? __fmul_rn(d, S[(size_t)(i * nn + c / NU) * NU + c % NU]) : d;
-      total = i == 0 ? p : __fadd_rn(total, p);
+// The all-reduce of exchange site `site` over the block's rows [r0, r0 + n)
+// of the ranks' partials (part: this rank's, [W] floats, the block's rows
+// written by the block): combine(row, total) on each row, total the ranks'
+// values summed in the hypercube's order.  Every thread of the block calls
+// it.
+template <bool SYS, typename Combine>
+static __device__ __forceinline__ void qtts_tp_allreduce(const QttsTpLink* link,
+                                                         const QttsTpSync& s, int site, int r0,
+                                                         int n, const float* part,
+                                                         Combine combine) {
+  const int t = threadIdx.x;
+  const QttsTpLink& mine = link[s.me];
+  if (s.stall_ns > 0 && (s.me & 1)) {
+    if (t == 0) {
+      const uint64_t t0 = qtts_globaltimer();
+      while (qtts_globaltimer() - t0 < (uint64_t)s.stall_ns) {
+      }
     }
     __syncthreads();
   }
-  return total;
+  const size_t slot = (size_t)site * s.tp;  // slot (site, src) = slot + src
+  for (int peer = 0; peer < s.tp; ++peer) {
+    if (peer == s.me) continue;
+    float* dst = link[peer].recv + (slot + s.me) * s.W + r0;
+    for (int i = t; i < n; i += blockDim.x) dst[i] = part[r0 + i];
+  }
+  __syncthreads();
+  if (t == 0) {
+    if (SYS) {
+      __threadfence_system();
+    } else {
+      __threadfence();
+    }
+    for (int peer = 0; peer < s.tp; ++peer) {
+      if (peer != s.me) {
+        qtts_flag_release<SYS>(link[peer].flags + (slot + s.me) * s.bpr + s.b, s.gen);
+      }
+    }
+    for (int peer = 0; peer < s.tp; ++peer) {
+      if (peer != s.me) {
+        qtts_tp_wait<SYS>(mine.flags + (slot + peer) * s.bpr + s.b, s.gen, mine.status,
+                          s.timeout_ns);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < n; i += blockDim.x) {
+    float v[QTTS_TP_MAX];
+#pragma unroll
+    for (int src = 0; src < QTTS_TP_MAX; ++src) {
+      v[src] = 0.f;
+      if (src == s.me) {
+        v[src] = part[r0 + i];
+      } else if (src < s.tp) {
+        const float* p = mine.recv + (slot + src) * s.W + r0 + i;
+        v[src] = SYS ? __ldcv(p) : __ldcg(p);
+      }
+    }
+#pragma unroll
+    for (int step = 1; step < QTTS_TP_MAX; step <<= 1) {
+      if (step < s.tp) {
+        float u[QTTS_TP_MAX];
+#pragma unroll
+        for (int k = 0; k < QTTS_TP_MAX; ++k) u[k] = __fadd_rn(v[k], v[k ^ step]);
+#pragma unroll
+        for (int k = 0; k < QTTS_TP_MAX; ++k) v[k] = u[k];
+      }
+    }
+    float total = v[0];
+#pragma unroll
+    for (int k = 1; k < QTTS_TP_MAX; ++k) {
+      if (k == s.me) total = v[k];
+    }
+    combine(r0 + i, total);
+  }
 }

@@ -146,46 +146,50 @@ class FrameArgs(ctypes.Structure):
     ]
 
 
-class TpWeights(ctypes.Structure):
-    """Mirror of ``QttsTpWeights`` (csrc/qtts_tp.cuh): one rank's shard."""
+TP_MAX = 8  # QTTS_TP_MAX: the ranks a K9 or K10 launch takes
+
+
+class TpLink(ctypes.Structure):
+    """Mirror of ``QttsTpLink`` (csrc/qtts_tp.cuh): what the ranks reach of one rank."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("recv", "flags", "bar", "status")]
+
+
+class TpStepRank(ctypes.Structure):
+    """Mirror of ``QttsTpStepRank`` (csrc/fused_tp.cu): one rank of K9."""
+
+    _fields_ = [("w", StepWeights), ("s", StepScratch), ("p", Plan)] + [
+        (name, ctypes.c_void_p) for name in ("x_in", "x", "part", "k_cache", "v_cache")]
+
+
+class TpStepArgs(ctypes.Structure):
+    """Mirror of ``QttsTpStepArgs``."""
 
     _fields_ = [
-        *[(name, ctypes.c_void_p) for name in (
-            "qkv_u", "qkv_s", "wo_u", "wo_s", "gu_u", "gu_s", "wd_u", "wd_s", "attn_norm",
-            "mlp_norm", "q_norm", "k_norm", "inv_freq")],
-        *[(name, ctypes.c_int32) for name in ("L", "H", "nq", "nk", "D", "I", "NU", "KCo", "KCd")],
-        ("eps", ctypes.c_float), ("attn_scale", ctypes.c_float),
+        ("rank", TpStepRank * TP_MAX), ("link", TpLink * TP_MAX),
+        *[(name, ctypes.c_int32) for name in (
+            "tp", "rank0", "n_local", "bpr", "T", "pos", "cache_bf16", "cross_device",
+            "stall_ns")],
+        ("gen", ctypes.c_uint32), ("timeout_ns", ctypes.c_int64),
     ]
-
-
-class TpScratch(ctypes.Structure):
-    """Mirror of ``QttsTpScratch``."""
-
-    _fields_ = [
-        ("qkv", ctypes.c_void_p), ("attn", ctypes.c_void_p), ("gu", ctypes.c_void_p),
-        ("part", ctypes.c_void_p), ("max_splits", ctypes.c_int32),
-    ]
-
-
-TP_MAX = 8  # QTTS_TP_MAX: the ranks a K10 launch takes
 
 
 class TpRank(ctypes.Structure):
-    """Mirror of ``QttsTpRank`` (csrc/fused_mtp_tp.cu)."""
+    """Mirror of ``QttsTpRank`` (csrc/fused_mtp_tp.cu): one rank of K10."""
 
-    _fields_ = [("w", TpWeights)] + [(name, ctypes.c_void_p) for name in (
-        "heads", "head_scales", "tables", "gumbel", "final_norm", "last_hidden", "code0_embed",
-        "rope", "x", "x_in", "qkv", "attn", "gu", "logits", "k_cache", "v_cache", "recv", "flags",
-        "codes", "sub_sum", "status")]
+    _fields_ = [("w", StepWeights), ("p", Plan)] + [(name, ctypes.c_void_p) for name in (
+        "heads", "head_scales", "tables", "gumbel", "final_norm", "last_hidden",
+        "code0_embed", "rope", "x", "x_in", "qkv", "attn", "gu", "part", "logits", "k_cache",
+        "v_cache", "codes", "sub_sum")]
 
 
 class TpChainArgs(ctypes.Structure):
     """Mirror of ``QttsTpChainArgs``."""
 
     _fields_ = [
-        ("rank", TpRank * TP_MAX),
+        ("rank", TpRank * TP_MAX), ("link", TpLink * TP_MAX),
         *[(name, ctypes.c_int32) for name in (
-            "tp", "rank0", "n_local", "bpr", "n", "V", "Vt", "sites", "W")],
+            "tp", "rank0", "n_local", "bpr", "n", "V", "Vt", "W", "KCo", "KCd")],
         ("gen", ctypes.c_uint32), ("temperature", ctypes.c_float), ("top_k", ctypes.c_int32),
         ("top_p", ctypes.c_float),
         *[(name, ctypes.c_int32) for name in ("greedy", "heads_bf16", "cross_device", "stall_ns")],
@@ -307,11 +311,12 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_verify_step.argtypes = [
                 W, BS, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,
             ]
-            TW, TS = ctypes.POINTER(TpWeights), ctypes.POINTER(TpScratch)
-            lib.qtts_tp_attn_half.restype = i32
-            lib.qtts_tp_attn_half.argtypes = [TW, TS, i32, vp, vp, vp, vp, i32, i32, i32, vp]
-            lib.qtts_tp_mlp_half.restype = i32
-            lib.qtts_tp_mlp_half.argtypes = [TW, TS, i32, vp, vp, vp]
+            lib.qtts_tp_decode_step.restype = i32
+            lib.qtts_tp_decode_step.argtypes = [ctypes.POINTER(TpStepArgs), vp]
+            lib.qtts_tp_step_args_size.restype = i32
+            lib.qtts_tp_step_args_size.argtypes = []
+            if lib.qtts_tp_step_args_size() != ctypes.sizeof(TpStepArgs):
+                raise RuntimeError("TpStepArgs does not mirror QttsTpStepArgs")
             lib.qtts_tp_mtp_chain.restype = i32
             lib.qtts_tp_mtp_chain.argtypes = [ctypes.POINTER(TpChainArgs), vp]
             lib.qtts_tp_enable_peers.restype = i32

@@ -30,6 +30,12 @@ index s * len(KINDS) + k, whose stages follow set 0's in the ring.
 A verify pass (K6) is a batched plan of B * S rows, candidate s of stream b
 on row b * S + s (``verify_rows``).
 
+The tensor-parallel kernels (K9, K10) run one plan per rank on the rank's
+block group (``grid``: the device's SMs over its ranks), over the shard's
+widths (:func:`leaxer_qwen3_tts_torch.ops.fused_tp.shard_config`); K10's
+head rows are the rank's slice of H (``head_k``), in the heads' own unit type
+(``head_bytes``: bf16 heads beside an int8 trunk).
+
 A batched plan (``batch`` rows, K4, K5 and K6) keeps each block's batch rows'
 bf16 GEMV inputs in shared memory beside the ring, B x max(H, q_dim, I) x 2
 bytes.  Where that leaves fewer than MIN_SLOTS ring slots, the grid is split
@@ -81,6 +87,7 @@ class Plan(NamedTuple):
     groups: int = 1  # batch groups: bounds are [kind index][grid + groups]
     n_sets: int = 1  # weight sets (2: K7's MTP trunk, then its talker)
     unit_bytes: int = 1  # bytes per weight: 1 (int8 units), 2 (bf16)
+    head_bytes: int = 0  # bytes per head weight where not unit_bytes (K10's bf16 heads)
 
 
 def kind_name(kind: int) -> str:
@@ -93,12 +100,13 @@ def _align(v: int, a: int) -> int:
     return (v + a - 1) // a * a
 
 
-def kind_shapes(cfg: TransformerConfig, head_rows: int = 0) -> Tuple[Tuple[int, int], ...]:
+def kind_shapes(cfg: TransformerConfig, head_rows: int = 0,
+                head_k: int = 0) -> Tuple[Tuple[int, int], ...]:
     """(N, K) of the qkv, o, gate|up and down products and of the heads
-    (``head_rows`` rows of K = H; none when 0)."""
+    (``head_rows`` rows of K = ``head_k`` or H; none when 0)."""
     H, qd, I = cfg.hidden_size, cfg.q_dim, cfg.intermediate_size
     A = qd + 2 * cfg.kv_dim
-    return ((A, H), (H, qd), (2 * I, H), (H, I), (head_rows, H))
+    return ((A, H), (H, qd), (2 * I, H), (H, I), (head_rows, head_k or H))
 
 
 def split_rows(N: int, grid: int) -> Tuple[int, ...]:
@@ -149,7 +157,7 @@ def group_rows(plan: Plan, block: int) -> Tuple[int, int]:
 
 def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int = 1,
               talker: Optional[TransformerConfig] = None, lm_rows: int = 0,
-              unit_bytes: int = 1) -> Plan:
+              unit_bytes: int = 1, head_k: int = 0, head_bytes: int = 0) -> Plan:
     """The plan of a launch on ``grid`` blocks over the transformer ``cfg``
     (and ``head_rows`` head rows for the chain) for ``batch`` rows (1: K1,
     K2 and K3, whose GEMV input is MAX_K floats), with as many ring slots as
@@ -161,18 +169,21 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     wait, barrier and refill), else SLOT_BYTES slots (more of them, to keep
     more bytes in flight), unless a SLOT_BYTES slot holds fewer than
     ROW_QUANTUM rows of the widest product (bf16 units at K = 6144).
-    ``unit_bytes``: 1 for int8 units, 2 for bf16.  Raises ValueError where
-    a block would own no rows of some product, or nothing fits."""
+    ``unit_bytes``: 1 for int8 units, 2 for bf16; ``head_k`` and
+    ``head_bytes``: the head rows' width and bytes per weight where they are
+    not H and ``unit_bytes`` (K10).  Raises ValueError where a block would
+    own no rows of some product, or nothing fits."""
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"a launch takes 1..{MAX_BATCH} rows, not {batch}")
     if head_rows and batch > grid:
         raise ValueError(f"{batch} rows to sample on {grid} blocks")
     sets = [(cfg, head_rows)]
     if talker is not None:
-        if batch != 1 or not lm_rows:
+        if batch != 1 or not lm_rows or head_k or head_bytes:
             raise ValueError("a frame's plan takes one row and the talker's lm_head rows")
         sets.append((talker, lm_rows))
-    shapes = sum((kind_shapes(c, rows) for c, rows in sets), ())
+    shapes = kind_shapes(cfg, head_rows, head_k) + sum(
+        (kind_shapes(c, rows) for c, rows in sets[1:]), ())
     for N, K in shapes:
         if N and (N % ROW_QUANTUM or K % 16):
             raise ValueError(f"a [{N}, {K}] product does not split into 16-byte rows of 4")
@@ -181,15 +192,24 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     if max(K for N, K in shapes if N) > MAX_K or max(
             c.num_kv_heads for c, _ in sets) > MAX_KV_HEADS:
         raise ValueError(f"GEMV inputs past {MAX_K} wide or past {MAX_KV_HEADS} kv heads")
-    if unit_bytes not in (1, 2):
+    if unit_bytes not in (1, 2) or head_bytes not in (0, 1, 2):
         raise ValueError(f"units of {unit_bytes} bytes: the kernels take int8 (1) and bf16 (2)")
     if batch == 1:
-        wide = _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes)
-        narrow_fits = SLOT_BYTES // (unit_bytes * max(K for N, K in shapes if N)) >= ROW_QUANTUM
+        wide = _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes,
+                        head_bytes)
+        widest = max(_kind_bytes(i, unit_bytes, head_bytes) * K
+                     for i, (N, K) in enumerate(shapes) if N)
+        narrow_fits = SLOT_BYTES // widest >= ROW_QUANTUM
         if not narrow_fits or wide.n_slots * wide.slot_bytes >= max(
                 layer_share(wide, s) for s in range(len(sets))):
             return wide
-    return _plan_at(SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes)
+    return _plan_at(SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes, head_bytes)
+
+
+def _kind_bytes(kind: int, unit_bytes: int, head_bytes: int) -> int:
+    """Bytes per weight of kind index ``kind``: set 0's heads take
+    ``head_bytes`` where it is set."""
+    return head_bytes if kind == KINDS.index("head") and head_bytes else unit_bytes
 
 
 def batched_fits(cfg: TransformerConfig, unit_bytes: int) -> bool:
@@ -201,14 +221,15 @@ def batched_fits(cfg: TransformerConfig, unit_bytes: int) -> bool:
 
 
 def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: int,
-             n_sets: int, unit_bytes: int = 1) -> Plan:
+             n_sets: int, unit_bytes: int = 1, head_bytes: int = 0) -> Plan:
     """The plan of ``make_plan`` with slots of ``slot_bytes``."""
     stage_rows = []
-    for N, K in shapes:
-        rows = min(MAX_STAGE_ROWS, slot_bytes // (K * unit_bytes)) // ROW_QUANTUM * ROW_QUANTUM
+    for i, (N, K) in enumerate(shapes):
+        row_bytes = K * _kind_bytes(i, unit_bytes, head_bytes)
+        rows = min(MAX_STAGE_ROWS, slot_bytes // row_bytes) // ROW_QUANTUM * ROW_QUANTUM
         if N and rows < ROW_QUANTUM:
             raise ValueError(f"a {slot_bytes}-byte slot holds fewer than 4 rows of "
-                             f"{K * unit_bytes} bytes")
+                             f"{row_bytes} bytes")
         stage_rows.append(rows if N else ROW_QUANTUM)
     slot_rows = max(stage_rows)
     # the GEMV input (MAX_K floats at one row, a group's rows in bf16
@@ -231,7 +252,7 @@ def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: 
         bounds.append(tuple(row))
     smem = smem_layout(n_slots, slot_bytes, slot_rows, union_bytes)["total"]
     return Plan(grid, shapes, tuple(bounds), tuple(stage_rows), slot_bytes, slot_rows, n_slots,
-                union_bytes, smem, batch, groups, n_sets, unit_bytes)
+                union_bytes, smem, batch, groups, n_sets, unit_bytes, head_bytes)
 
 
 def layer_share(plan: Plan, s: int = 0) -> int:
@@ -332,11 +353,14 @@ def grid_size(device) -> int:
 
 def device_plan(cfg: TransformerConfig, device, head_rows: int = 0, batch: int = 1,
                 talker: Optional[TransformerConfig] = None, lm_rows: int = 0,
-                unit_bytes: int = 1) -> DevicePlan:
+                unit_bytes: int = 1, grid: Optional[int] = None, head_k: int = 0,
+                head_bytes: int = 0) -> DevicePlan:
     """The device plan of ``cfg`` (and ``head_rows`` heads, ``batch`` rows;
     the frame's talker and ``lm_rows``; ``unit_bytes`` per weight) on this
-    device; each caller keeps its own (the attention tickets are per launch
-    stream)."""
+    device, on ``grid`` blocks (default: one per SM; a tensor-parallel
+    rank's block group, with ``head_k`` and ``head_bytes`` as in
+    :func:`make_plan`); each caller keeps its own (the attention tickets are
+    per launch stream)."""
     device = torch.device(device)
-    return DevicePlan(make_plan(cfg, grid_size(device), head_rows, batch, talker, lm_rows,
-                                unit_bytes), device)
+    return DevicePlan(make_plan(cfg, grid or grid_size(device), head_rows, batch, talker, lm_rows,
+                                unit_bytes, head_k, head_bytes), device)

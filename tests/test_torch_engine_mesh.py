@@ -86,10 +86,11 @@ def _mesh(tp=2):
 
 
 def test_tp_engine_routes_and_decodes_like_jax(tp_model, jax_tp_run, monkeypatch):
-    """Both engines attach the talker's and the MTP's ``fused_tp`` packs;
-    the port's greedy codes equal JAX's over 4 frames (2 chunks, the bucket
-    growing 12 -> 36 between them), each frame one K9 step (L x tp halves of
-    each kind) and one K10 chain."""
+    """Both engines attach the talker's and the MTP's ``fused_tp`` packs (the
+    port's: the ranks' row packs); the port's greedy codes equal JAX's over
+    4 frames (2 chunks, the bucket growing 12 -> 36 between them), each
+    frame one call of K9's step entry (on the CPU its plain version: L x tp
+    plain halves of each kind) and one K10 chain."""
     cfg, params = tp_model
     je, jr = jax_tp_run
     tc, tparams = _port(cfg, params)
@@ -99,10 +100,17 @@ def test_tp_engine_routes_and_decodes_like_jax(tp_model, jax_tp_run, monkeypatch
     for sub in ("talker", "code_predictor"):
         assert ("fused_tp" in eng.params[sub]) == ("fused_tp" in je.params[sub]) == True
     assert isinstance(eng.params["code_predictor"]["fused_tp_heads"], TPHeads)
+    for sub in ("talker", "code_predictor"):
+        assert isinstance(eng.params[sub]["fused_tp"], ttp.FusedTPRows)
     assert "fused_step" not in eng.params["talker"]  # no single-device pack under a mesh
-    calls = {"attn": 0, "mlp": 0, "chain": 0, "grow": []}
-    real_attn, real_mlp, real_chain = ttp.attn_half, ttp.mlp_half, tcp.fused_mtp_chain_tp
+    calls = {"step": 0, "attn": 0, "mlp": 0, "chain": 0, "grow": []}
+    real_step, real_chain = ttalker.fused_decode_step_tp, tcp.fused_mtp_chain_tp
+    real_attn, real_mlp = ttp.attn_half_reference, ttp.mlp_half_reference
     real_grow = TTSEngine._grow_state
+
+    def step(*a, **k):
+        calls["step"] += 1
+        return real_step(*a, **k)
 
     def attn(*a, **k):
         calls["attn"] += 1
@@ -121,14 +129,16 @@ def test_tp_engine_routes_and_decodes_like_jax(tp_model, jax_tp_run, monkeypatch
         calls["grow"].append(tuple(s.shape for s in out.cache.k))
         return out
 
-    monkeypatch.setattr(ttp, "attn_half", attn)
-    monkeypatch.setattr(ttp, "mlp_half", mlp)
+    monkeypatch.setattr(ttalker, "fused_decode_step_tp", step)
+    monkeypatch.setattr(ttp, "attn_half_reference", attn)
+    monkeypatch.setattr(ttp, "mlp_half_reference", mlp)
     monkeypatch.setattr(tcp, "fused_mtp_chain_tp", chain)
     monkeypatch.setattr(TTSEngine, "_grow_state", staticmethod(grow))
     r = eng.synthesize_tokens(IDS, temperature=0.0, max_tokens=4)
     frames, L = r.metrics.decoded_frames, cfg.talker.transformer.num_layers
-    assert frames == 4 and calls["attn"] == calls["mlp"] == frames * L * 2
-    assert calls["chain"] == frames
+    assert frames == 4 and calls["step"] == calls["chain"] == frames
+    assert calls["attn"] == calls["mlp"] == frames * L * 2
+    assert ttp.fused_decode_step_tp.launches == 0  # the plain version on the CPU
     # every rank's head shard grew: [L, 1, nk / 2, 36, d] each
     assert calls["grow"] == [((L, 1, 2, 36, 128), (L, 1, 2, 36, 128))]
     np.testing.assert_array_equal(r.codes, jr.codes)

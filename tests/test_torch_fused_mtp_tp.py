@@ -1,9 +1,11 @@
 """Kernel K10 (PyTorch port): the plain version of the tensor-parallel MTP
-chain against the JAX package's ``fused_mtp_chain_tp`` in interpret mode on
-the ``tp_chain_setup`` model of ``tests/test_fused_mtp_tp.py`` (H=512, 2
-layers, 3 steps, V=256), int8 and bf16 heads, greedy and on the same fixed
-Gumbel noise; the routing gate ``supports_tp_resident`` against JAX's; and
-the ``predict_subcodes`` route under a mesh."""
+chain (on the ranks' row packs) against the JAX package's
+``fused_mtp_chain_tp`` in interpret mode on the ``tp_chain_setup`` model of
+``tests/test_fused_mtp_tp.py`` (H=512, 2 layers, 3 steps, V=256), int8 and
+bf16 heads, greedy and on the same fixed Gumbel noise; the routing gate
+``supports_tp_resident`` against JAX's; the heads' row shards; the plain
+chain's pieces in the kernel's orders; and the ``predict_subcodes`` route
+under a mesh."""
 
 import dataclasses
 
@@ -89,7 +91,8 @@ def test_plain_chain_matches_jax(setup, tp, head_kind, knobs):
         js, jsum = np.asarray(jax.device_get(js)), np.asarray(jax.device_get(jsum))
 
     tm = make_mesh(1, tp, devices=[CPU] * tp)
-    tfw = ttp.pack_fused_tp(tc.transformer, tparams["transformer"]["layers"], tp, mesh=tm)
+    tfw = ttp.pack_rows(tc.transformer, tp, ttp.pack_fused_tp(
+        tc.transformer, tparams["transformer"]["layers"], tp, mesh=tm))
     heads = tmtp.shard_heads(theads if head_kind == "int8" else tparams["heads"],
                              tm.model_devices())
     assert heads.q[0].dtype == (torch.int8 if head_kind == "int8" else torch.bfloat16)
@@ -137,16 +140,21 @@ def test_hypercube_sum_is_every_ranks_value():
 
 
 def test_shard_heads(setup):
-    """int8 heads keep their scales; raw heads go to bf16 rows with scales of
-    one (the JAX chain's two branches); rank r holds rows r H/tp.."""
+    """int8 heads keep their scales; raw heads go to bf16 with scales of one
+    (the JAX chain's two branches); rank r holds inputs r H/tp.. of every
+    head as rows [n, V, H/tp] (one per output column, contiguous)."""
     _, _, _, _, tparams, theads, _ = setup
     h8 = tmtp.shard_heads(theads, [CPU] * 4)
-    assert [q.shape for q in h8.q] == [(3, 128, 256)] * 4
-    np.testing.assert_array_equal(h8.q[2].numpy(), theads.q[:, 256:384].numpy())
+    assert [q.shape for q in h8.q] == [(3, 256, 128)] * 4
+    assert all(q.is_contiguous() for q in h8.q)
+    np.testing.assert_array_equal(h8.q[2].numpy(),
+                                  theads.q[:, 256:384].numpy().transpose(0, 2, 1))
+    assert h8.q[2][1, 7, 5] == theads.q[1, 256 + 5, 7]
     np.testing.assert_array_equal(h8.scale[0].numpy(), theads.scale[:, 0].numpy())
     h16 = tmtp.shard_heads(tparams["heads"], [CPU] * 2)
     assert h16.q[1].dtype == torch.bfloat16 and torch.equal(h16.scale[0], torch.ones(3, 256))
-    torch.testing.assert_close(h16.q[1].float(), tparams["heads"][:, 256:].to(torch.bfloat16).float())
+    torch.testing.assert_close(
+        h16.q[1].float(), tparams["heads"][:, 256:].to(torch.bfloat16).float().transpose(1, 2))
 
 
 def test_predict_subcodes_routes_to_tp_chain(setup):
@@ -156,7 +164,8 @@ def test_predict_subcodes_routes_to_tp_chain(setup):
     cfg, _, _, tc, tparams, _, tables = setup
     tc = dataclasses.replace(tc, resident=True)
     tm = make_mesh(1, 2, devices=[CPU] * 2)
-    fw = ttp.pack_fused_tp(tc.transformer, tparams["transformer"]["layers"], 2, mesh=tm)
+    fw = ttp.pack_rows(tc.transformer, 2, ttp.pack_fused_tp(
+        tc.transformer, tparams["transformer"]["layers"], 2, mesh=tm))
     cp = dict(tparams, fused_tp=fw, fused_tp_heads=tmtp.shard_heads(tparams["heads"], [CPU] * 2),
               fused_step=object())  # a single-device pack must not shadow the route
     lh, c0, gumbel = _inputs(7)
@@ -183,10 +192,13 @@ def test_predict_subcodes_routes_to_tp_chain(setup):
 
 
 def test_raise_on_timeout():
-    """No status word set: no error; a set word names its ranks."""
+    """No status word set: no error; a set word names its ranks (one word
+    per rank, or a device's words in one tensor)."""
     tmtp.raise_on_timeout([torch.zeros(1, dtype=torch.int32)] * 4)
     with pytest.raises(RuntimeError, match=r"rank\(s\) \[1, 3\]"):
         tmtp.raise_on_timeout([torch.tensor([v], dtype=torch.int32) for v in (0, 1, 0, 1)])
+    with pytest.raises(RuntimeError, match=r"fused_mtp_chain_tp: .* rank\(s\) \[2\]"):
+        tmtp.raise_on_timeout([torch.tensor([0, 0, 1, 0], dtype=torch.int32)])
 
 
 # The plain chain's pieces sum in the kernel's orders; against the plain math
@@ -211,13 +223,13 @@ def test_kernel_order_pieces_equal_the_plain_math(part):
     elif part == "head_norm":
         x, w = rand(2, 3, 128), rand(128)
         got, want = tmtp._head_norm(x, w, 1e-6), tfs._rms(x, w, 1e-6)
-    elif part == "units":  # a K-split product of two ranks: 3 chunks of 256 rows, 2 units of 128
+    elif part == "units":  # a K-split product of two ranks on rows: 3 chunks of 256 inputs
         KC, NU, N, nc = 256, 128, 256, 3
         h = tfs._bf16(rand(2, nc * KC))
-        units = torch.from_numpy(rng.integers(-127, 128, (2, nc * N // NU, KC, NU), dtype=np.int8))
-        scales = rand(2, nc * N // NU, 1, NU, scale=0.01).abs()
-        got = tmtp._units(h, units, scales, KC, NU, N)
-        want = torch.cat([ttp._ksplit(h[r : r + 1], units[r], scales[r], KC, NU, N)
+        rows = torch.from_numpy(rng.integers(-127, 128, (2, N, nc * KC), dtype=np.int8))
+        scales = rand(2, N, scale=0.01).abs()
+        got = tmtp._units(h, rows, scales, KC)
+        want = torch.cat([ttp._ksplit(h[r : r + 1], rows[r], scales[r], KC, NU)
                           for r in range(2)])
     elif part == "attend":
         q, kc, vc = rand(2, 2, 2, 128, scale=0.3), rand(2, 2, 7, 128), rand(2, 2, 7, 128)
