@@ -38,11 +38,17 @@ KV cache's five (``python3 chip_mutants.py kvq``) against
 ``chip_smoke.check_kvq_ties``, ``check_kvq_k1`` on one layer, ``check_kvq_k4``
 and ``check_kvq_k6`` (K4 rows against K1, K6 against its steps, also with
 every slot write stalled) and K7's int8-cache composition and plain checks;
-the tensor-parallel kernels' five (``python3 chip_mutants.py TP``) against
-``chip_smoke.check_k9_step``, ``check_k9_stalled`` and ``check_k10`` (also
-twice in a row with odd ranks' sends stalled) at 0.6B tp=2 and 1.7B tp=4, two
-talker layers, and ``check_k9_equals_k1`` and ``check_k10`` at 0.6B on a
-one-slot weight ring.  A mutant rebuilds only the sources that include the file it
+the tensor-parallel kernels' six (``python3 chip_mutants.py TP``) against
+``chip_smoke.check_k9_step``, ``check_k9_stalled``, ``check_k9_narrow_ring``
+(a one-slot ring of four rows a stage: the only check a read of K9's o
+stage before its wait fails) and ``check_k10`` (also twice in a row with odd ranks'
+sends stalled) at 0.6B tp=2 and 1.7B tp=4, two talker layers, and
+``check_k9_equals_k1`` and ``check_k10`` at 0.6B on a one-slot weight ring;
+the int4 units' three (``python3 chip_mutants.py INT4``: nibble halves
+swapped, a scale one group off, one scale per row; ``fused_int4.cu``
+rebuilds alone) against ``check_k1_shallow`` on one int4 talker layer
+(float32 and bf16 caches), ``check_kvq_k1`` on it and ``check_chain`` on
+the 0.6B int4 MTP trunk, greedy and sampled.  A mutant rebuilds only the sources that include the file it
 changes.  A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
 caught, or without CUDA.
 """
@@ -62,6 +68,7 @@ import torch
 import chip_smoke as cs
 from leaxer_qwen3_tts_torch.config import QWEN3_TTS_06B, QWEN3_TTS_17B
 from leaxer_qwen3_tts_torch.ops import _build, persistent
+from leaxer_qwen3_tts_torch.ops import fused_mtp as K2
 from leaxer_qwen3_tts_torch.ops.fused_mtp import pack_heads
 from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
 
@@ -311,8 +318,8 @@ MUTANTS = {
     # int8 offset of its first row (half the stage, from the wrong place)
     "bf16 stage copied as int8 bytes": (
         "qtts_stream.cuh",
-        ("  const uint32_t wbytes = (uint32_t)rows * r.K * r.esize;",
-         "                 r.W + ((size_t)q.unit * r.N + n0) * r.K * r.esize, wbytes, bar);"),
+        ("  const uint32_t wbytes = (uint32_t)rows * r.row_bytes;",
+         "                 r.W + ((size_t)q.unit * r.N + n0) * r.row_bytes, wbytes, bar);"),
         ("  const uint32_t wbytes = (uint32_t)rows * r.K;",
          "                 r.W + ((size_t)q.unit * r.N + n0) * r.K, wbytes, bar);"),
         "BF16",
@@ -416,6 +423,54 @@ MUTANTS = {
         "for (int k = 0; k < QTTS_TP_MAX; ++k) u[k] = __fadd_rn(v[k], v[k ^ step]);",
         "for (int k = 0; k < QTTS_TP_MAX; ++k) u[k] = __fadd_rn(v[k], v[(k + step) % QTTS_TP_MAX]);",
         "TP",
+    ),
+    # K9's o stage read before its wait (the wait after the dot products):
+    # on the default and the one-slot rings the copy lands during the
+    # attention phase and the read goes unseen; caught only on the narrow
+    # one-slot ring (chip_smoke.check_k9_narrow_ring)
+    "TP K9 o stage read before its copy lands": (
+        "qtts_stream.cuh",
+        ("    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const int n0 = r0 + c * stage_rows;\n",
+         "      default: break;\n    }\n    __syncthreads();  // every warp is done with the slot\n"),
+        ("    const bool late = kind == QTTS_KIND_O;\n"
+         "    if (!late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const int n0 = r0 + c * stage_rows;\n",
+         "      default: break;\n    }\n"
+         "    if (late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    __syncthreads();  // every warp is done with the slot\n"),
+        "TP",
+    ),
+    # int4 units: the nibbles of each byte read in the other order (column
+    # 2j + 1 for 2j)
+    "INT4 nibble halves swapped": (
+        "fused_int4.cu",
+        "  const uint32_t biased = ((word ^ 0x88888888u) >> (4 * e)) & 0xFu;",
+        "  const uint32_t biased = ((word ^ 0x88888888u) >> (4 * (e ^ 1))) & 0xFu;",
+        "INT4",
+    ),
+    # int4 units: each 128-column group's partial scaled by the next group's
+    # scale
+    "INT4 scale one group off": (
+        "fused_int4.cu",
+        "      acc[j] = fmaf(part, ss[row * G + g], acc[j]);",
+        "      acc[j] = fmaf(part, ss[row * G + (g + 1) % G], acc[j]);",
+        "INT4",
+    ),
+    # int4 units: one scale per row (the row's first group's) applied once
+    # after the whole dot product, as for int8 rows
+    "INT4 group scale applied once per row": (
+        "fused_int4.cu",
+        ("      acc[j] = fmaf(part, ss[row * G + g], acc[j]);",
+         "      out[n0 + warp + j * QTTS_P_WARPS] = ACCUM ? __fadd_rn(res[j], acc[j]) : acc[j];"),
+        ("      acc[j] += part;",
+         "      const float v = __fmul_rn(acc[j], ss[(warp + j * QTTS_P_WARPS) * G]);\n"
+         "      out[n0 + warp + j * QTTS_P_WARPS] = ACCUM ? __fadd_rn(res[j], v) : v;"),
+        "INT4",
     ),
     # the exchange's wait satisfied by any raised flag: the previous call's
     # flags pass it, so a rank whose peer's send is late reads the previous
@@ -555,7 +610,9 @@ def checks(gen):
         tp += [lambda tt=tt, rows=rows, n_tp=n_tp, mesh=mesh, name=name: cs.check_k9_step(
             f"{name} talker-2-layer", tt, n_tp, rows, mesh, 256, 200, gen),
                lambda tt=tt, rows=rows, n_tp=n_tp, mesh=mesh, name=name: cs.check_k9_stalled(
-            f"{name} talker-2-layer", tt, n_tp, rows, mesh, gen)]
+            f"{name} talker-2-layer", tt, n_tp, rows, mesh, gen),
+               lambda tt=tt, rows=rows, n_tp=n_tp, mesh=mesh, name=name:
+               cs.check_k9_narrow_ring(f"{name} talker-2-layer", tt, n_tp, rows, mesh, gen)]
         cp, cfw, heads, tables, fnorm = cs.tp_chain_packs(name, cfg, n_tp, mesh, gen)
         args = (cp, n_tp, mesh)
         tp += [lambda a=args, f=cfw, h=heads, tb=tables, fn=fnorm, name=name: cs.check_k10(
@@ -571,8 +628,22 @@ def checks(gen):
            lambda: cs.one_slot_ring(lambda: cs.check_k10(
         "K10 0.6B, one ring slot", chain2[0], 2, mesh2, chain2[1], chain2[2]["int8"],
         *chain2[3:], cs.K10_KNOBS[0], gen))]
+    # int4 units: K1 on one talker layer (24 inputs each: the one-layer
+    # limits and the tight count) on float32, bf16 and int8 caches, and K2 on
+    # the 0.6B int4 MTP trunk with int8 heads against its plain version
+    fw4 = cs.int4_trunk(t1, gen)
+    int4 = [lambda dt=dt: cs.check_k1_shallow("talker-1-layer int4", t1, fw4, 256, 200, dt, gen,
+                                              0)
+            for dt in (torch.float32, torch.bfloat16)]
+    int4 += [lambda: cs.check_kvq_k1("talker-1-layer int4", t1, fw4, 256, 200, gen,
+                                     cs.K1_TIGHT_INPUTS, 0)]
+    m4 = cs.int4_trunk(mt, gen)
+    int4 += [lambda knobs=knobs: cs.check_chain(
+        "K2 int4", K2.fused_mtp_chain, K2.fused_mtp_chain_reference, knobs, cp6, m4, chain6[2],
+        chain6[3], chain6[4], gen, 0, flip_rule=True, cache_dtype=torch.bfloat16)
+        for knobs in ((0.0,), (0.8, 50, 0.95))]
     return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1,
-            "P2": p2, "BF16": bf16, "KVQ": kvq, "TP": tp}
+            "P2": p2, "BF16": bf16, "KVQ": kvq, "TP": tp, "INT4": int4}
 
 
 def _includes(csrc, name):

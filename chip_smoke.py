@@ -220,12 +220,36 @@ prints the final line:
    request at tp=4, one K9 and one K10 launch per decoded frame and no other
    kernel.  With two cards or more the kernel checks and the engines run again
    with the ranks on distinct cards; with one, a line says that run was not
-   made.
-15. The kernel report (each kernel's launches on the main paths, error
+   made.  K9 on a narrow one-slot ring (four rows a stage) equals the step
+   on the default ring bit for bit: the only setting where a read of the o
+   stage before its wait shows.
+15. ``precision_phase``: the CLI's remaining weight-precision flags.  K1 at
+   int4 units (real bits=4 packs: group-128 scales) against its plain
+   version at the 0.6B widths (T=256 and 2560) and the 1.7B widths, on a
+   bf16 cache under the deep limits and on an int8 cache, and on one layer
+   (float32, bf16 and int8 caches: 24 inputs each, the one-layer limits and
+   the tight count), timed in turns with int8 units and traced; K2 on the
+   0.6B int4 trunk with int8 heads, on the int8 trunk with bf16 heads and on
+   the int4 trunk with bf16 heads, greedy and sampled, against its plain
+   version, and K3 equal to K2 on a float32 cache bit for bit; K3 at the
+   1.7B widths on the int4 trunk (int8 heads) and on the int8 trunk with
+   bf16 heads (K5's flip rule), and equal to K2 on a float32 cache; K6 at
+   bf16 units (1 x 4, 4 x 8) against its plain version with its rows the K1
+   bf16 steps bit for bit, on bf16 and int8 caches (slot writes stalled too),
+   on one layer with the tight count; every new instance equal to itself bit
+   for bit on a one-slot ring and on a narrow one (four rows a stage).  Then
+   the CLI from a 0.6B checkpoint under --quantize int4 (with and without
+   --kv-quant), --mtp-quantize int8 and auto, --spec-k 4 (also with
+   --kv-quant), each a valid WAV with its ms/frame and launch counts, and
+   the flag sets still refused (exit 1, the ROADMAP item named); short 1.7B
+   requests at --quantize int4 and at --mtp-quantize int8; fails if a new
+   instance never launched on those paths.
+16. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
    K1, K4, K6 and K7 once more for the int8 KV cache; K9 per step, K10 per
-   chain) and the device line.
+   chain; K1 int4, K2 / K3 int4 and mixed heads, K6 bf16) and the device
+   line.
 """
 
 from __future__ import annotations
@@ -487,6 +511,12 @@ def slot_bytes(t, cache_dtype) -> int:
     return t.num_layers * t.num_kv_heads * (2 * t.head_dim * elem + scales)
 
 
+def weights(fw) -> int:
+    """The weights of a pack's four products (an int4 byte holds two)."""
+    per = 2 if fw.wqkv.dtype == torch.uint8 else 1
+    return per * sum(w.numel() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd))
+
+
 def step_bound(t, fw, rows: int, ctx, S: int, cache_dtype):
     """Bound of one step (S = 1: K1, K4) or verify pass (K6) of ``rows`` rows,
     S per stream, stream b reading its ``ctx[b]`` cached slots: the packed
@@ -495,7 +525,7 @@ def step_bound(t, fw, rows: int, ctx, S: int, cache_dtype):
     L, nk, nq, d, H = t.num_layers, t.num_kv_heads, t.num_heads, t.head_dim, t.hidden_size
     slot = slot_bytes(t, cache_dtype)
     moved = nbytes(fw) + slot * (sum(ctx) + rows) + 2 * rows * H * 4
-    macs = sum(w.numel() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd))
+    macs = weights(fw)
     attn = sum(c + s + 1 for c in ctx for s in range(S))  # slots each row attends to
     return bound(moved, 2 * rows * macs + 4 * L * nq * d * attn)
 
@@ -506,7 +536,7 @@ def chain_bound(t, fw, heads, rows: int):
     trunk passes and 15 head products per row."""
     n, V, H = heads.q.shape
     moved = nbytes(fw) + nbytes(heads) + rows * (n * H * 2 + 2 * H * 4 + H * 4 + n * 4)
-    macs = sum(w.numel() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd))
+    macs = weights(fw)
     attn = t.num_layers * 4 * t.num_heads * t.head_dim * sum(range(1, n + 2))
     return bound(moved, 2 * rows * ((n + 1) * macs + n * V * H) + rows * attn)
 
@@ -953,13 +983,17 @@ def in_turns(label, old, new, iters, names=("launch sequence", "persistent")):
 ONE_SLOT_BYTES = 24 * 1024  # most phases then take two stages or more (int8 K = 6144: 4 rows)
 
 
-def one_slot_ring(run, probe_stall_ns=0):
+def one_slot_ring(run, probe_stall_ns=0, narrow=False):
     """``run()`` with the persistent kernels' plans cut to one ring slot of
     ONE_SLOT_BYTES, so that a stage after a phase's first is issued right
     before it is read, and the probes' ring plans to one slot (each stage
     past the first issued ``probe_stall_ns`` after the block's warps reach
     their wait); the wrappers' cached entries are dropped before and
-    after."""
+    after.  ``narrow``: the slot holds four rows of the plan's widest row,
+    so every block's share of a phase spans the most stages, each copied
+    only once the one before it is consumed (K9's o stage: its first copy
+    lands during the attention phase, its later ones just before their
+    read)."""
     real = persistent.device_plan
     real_probe = unit_probe.probe_plan
 
@@ -973,8 +1007,13 @@ def one_slot_ring(run, probe_stall_ns=0):
         device = torch.device(device)
         plan = persistent.make_plan(cfg, grid or persistent.grid_size(device), head_rows, batch,
                                     talker, lm_rows, unit_bytes, head_k, head_bytes)
-        plan = persistent._plan_at(ONE_SLOT_BYTES, cfg, plan.grid, plan.shapes, batch,
-                                   plan.n_sets, unit_bytes, head_bytes)
+        slot = ONE_SLOT_BYTES
+        if narrow:
+            slot = persistent.ROW_QUANTUM * max(
+                int(K * persistent._kind_bytes(i, unit_bytes, head_bytes))
+                for i, (N, K) in enumerate(plan.shapes) if N)
+        plan = persistent._plan_at(slot, cfg, plan.grid, plan.shapes, batch, plan.n_sets,
+                                   unit_bytes, head_bytes)
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.union_bytes)
         return persistent.DevicePlan(plan._replace(n_slots=1, smem_bytes=smem["total"]), device)
 
@@ -1279,7 +1318,7 @@ class K6Run:
     slot_rel: torch.Tensor  # [B * S]
     untouched: bool  # the kernel left every other slot as it was
     rows_equal_steps: bool  # equal to S successive K1 (B=1) / K4 steps, bit for bit
-    equal_multi: bool  # x and both caches equal the launch-per-op pass's, bit for bit
+    equal_multi: Optional[bool]  # equal to the launch-per-op pass's, bit for bit (None: bf16)
 
 
 def k6_run(t, fw, B, S, T, starts, cache_dtype, gen, against_steps=False, plain=True) -> K6Run:
@@ -1294,12 +1333,14 @@ def k6_run(t, fw, B, S, T, starts, cache_dtype, gen, against_steps=False, plain=
         xp, _, _ = K6.fused_verify_step_reference(t, fw, x, pos_dev, kp, vp)
     else:  # the errors below are then NaN
         xp, kp, vp = xk, kk, vk
-    km, vm = kc.clone(), vc.clone()
-    xm = k6_multi(t, fw, x, pos_dev, km, vm)
-    torch.cuda.synchronize()
-    equal_multi = bool(torch.equal(xk, xm)) and bool(torch.equal(kk, km)) and bool(
-        torch.equal(vk, vm))
-    del km, vm
+    equal_multi = None  # the launch-per-op pass takes int8 units only
+    if fw.wqkv.dtype == torch.int8:
+        km, vm = kc.clone(), vc.clone()
+        xm = k6_multi(t, fw, x, pos_dev, km, vm)
+        torch.cuda.synchronize()
+        equal_multi = bool(torch.equal(xk, xm)) and bool(torch.equal(kk, km)) and bool(
+            torch.equal(vk, vm))
+        del km, vm
     first = torch.clamp(pos_dev, 0, T - S)
     slots = first[:, None] + torch.arange(S, device=DEV)  # [B, S]
     rows = torch.arange(B, device=DEV)[:, None].expand(B, S)
@@ -1346,7 +1387,7 @@ def check_k6_deep(name, t, fw, B, S, T, starts, gen, iters):
     rel = float(r.rel.max())
     ms, plain_ms, bound = time_k6(t, fw, B, S, T, starts, gen, iters)
     ok = (rel < K1_DEEP_X_REL and r.slot_err < K1_DEEP_SLOT_ABS and r.untouched
-          and r.rows_equal_steps and r.equal_multi)
+          and r.rows_equal_steps and r.equal_multi is not False)
     log(f"K6 {name}: L={t.num_layers} B={B} S={S} T={T} starts={starts} cache=bfloat16 x "
         f"max_abs_err={r.err:.3e} max row rel={rel:.3e} (tol {K1_DEEP_X_REL}) slot "
         f"max_abs_err={r.slot_err:.3e} (tol {K1_DEEP_SLOT_ABS}) untouched_slots_equal="
@@ -1367,7 +1408,7 @@ def check_k6_shallow(t, fw, B, S, T, starts, cache_dtype, gen):
     slot_err = max(r.slot_err for r in runs)
     tight = sum(int(((r.rel <= K1_TIGHT_REL) & (r.slot_rel <= K1_TIGHT_REL)).sum()) for r in runs)
     need = K1_TIGHT_MIN * B * S
-    multi = sum(r.equal_multi for r in runs)
+    multi = sum(r.equal_multi is not False for r in runs)
     ok = (rel < K1_SHALLOW_X_REL and slot_err < K1_SHALLOW_SLOT_ABS and tight >= need
           and all(r.untouched for r in runs) and runs[0].rows_equal_steps and multi == len(runs))
     log(f"K6 talker-1-layer: B={B} S={S} T={T} starts={starts} cache={str(cache_dtype)[6:]} "
@@ -2067,13 +2108,15 @@ def spec_pool_phase(eng, spec_eng, card_line):
 
 def check_k3_equals_k2(cp, fw, heads, tables, fnorm, gen, iters, inputs=K3_EQUAL_INPUTS):
     """The persistent K3 on ``inputs`` seeded inputs (knobs cycling through
-    K5_KNOBS) against its launch-per-op chain (``k3_multi``) and against K2
-    with a float32 cache: sub-codes and sub_sum equal bit for bit.  With
+    K5_KNOBS) against its launch-per-op chain (``k3_multi``, int8 units and
+    heads only) and against K2 with a float32 cache: sub-codes and sub_sum
+    equal bit for bit.  With
     ``iters``, K3 timed in turns with the launch-per-op chain (old, new, new,
     old) and with K2 at a float32 cache, and traced once.  Returns (K3 ms,
     K2 float32-cache ms)."""
     n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
     t = cp.transformer
+    multi = fw.wqkv.dtype == torch.int8 and heads.q.dtype == torch.int8
     equal = 0
     for i in range(inputs):
         temp, top_k, top_p = K5_KNOBS[i % len(K5_KNOBS)]
@@ -2082,7 +2125,7 @@ def check_k3_equals_k2(cp, fw, heads, tables, fnorm, gen, iters, inputs=K3_EQUAL
         args = (t, fw, fnorm, heads, tables, lh, c0, gumbel_noise((n, 1, V), gen, DEV), temp,
                 top_k, top_p)
         s3, sum3 = K3.fused_mtp_chain_streamed(*args)
-        so, sum_o = k3_multi(*args)
+        so, sum_o = k3_multi(*args) if multi else (s3, sum3)
         s2, sum2 = K2.fused_mtp_chain(*args, cache_dtype=torch.float32)
         same = [bool(torch.equal(s3, so)) and bool(torch.equal(sum3, sum_o)),
                 bool(torch.equal(s3, s2)) and bool(torch.equal(sum3, sum2))]
@@ -2091,9 +2134,10 @@ def check_k3_equals_k2(cp, fw, heads, tables, fnorm, gen, iters, inputs=K3_EQUAL
                 f"{same[0]}, to K2 (float32 cache) {same[1]}")
         equal += all(same)
     ok = equal == inputs
-    log(f"K3 vs its launch-per-op chain and K2 (float32 cache): {equal}/{inputs} seeded chains "
-        f"equal bit for bit (sub-codes, sub_sum; knobs {K5_KNOBS}) -> {'ok' if ok else 'FAIL'} "
-        f"[{CARD}]")
+    units = f"{K1.names_of(fw)} trunk, {str(heads.q.dtype)[6:]} heads"
+    log(f"K3 vs {'its launch-per-op chain and ' if multi else ''}K2 (float32 cache), {units}, "
+        f"H={t.hidden_size}: {equal}/{inputs} seeded chains equal bit for bit (sub-codes, "
+        f"sub_sum; knobs {K5_KNOBS}) -> {'ok' if ok else 'FAIL'} [{CARD}]")
     if not ok:
         raise RuntimeError("K3 differs from its launch-per-op chain or from K2 with a float32 cache")
     if not iters:
@@ -2259,8 +2303,8 @@ def cli_phase(d, tmp, card_line):
     """The CLI on the checkpoint, in process: one-shot, --frame-fused on,
     --stream, --ref, --spec-k 4 (int8), one-shot without --quantize (bf16
     units: one K1 and one K3 per frame), --quantize int8 --kv-quant and
-    --kv-quant alone (the int8 KV cache), and the flags it refuses on the
-    card.  Returns (int8 launch counts, ms per frame of the int8 one-shot
+    --kv-quant alone (the int8 KV cache), and flags it refuses on the card
+    (the precision phase drives the other precision flags).  Returns (int8 launch counts, ms per frame of the int8 one-shot
     run, reference WAV, bf16 launch counts, ms per frame of the bf16 run,
     int8-KV-cache launch counts)."""
     base = ["-m", d, "-p", ENTRY_TEXT, "--lang", "en", "--temp", "0", "--max-tokens",
@@ -2311,8 +2355,10 @@ def cli_phase(d, tmp, card_line):
         if extra is None:
             bf16_ms = decode_ms / n
     for label, extra, words in (
-            ("--quantize int4", [a if a != "int8" else "int4" for a in base], "int4"),
-            ("without --quantize, --spec-k 4", unquantized + ["--spec-k", "4"], "K1v-b")):
+            ("--quantize int4 --spec-k 4", [a if a != "int8" else "int4" for a in base]
+             + ["--spec-k", "4"], "K1v-b / K2v"),
+            ("without --quantize, --mtp-quantize int4 --spec-k 4",
+             unquantized + ["--mtp-quantize", "int4", "--spec-k", "4"], "K1v-b / K2v")):
         reset_launches()
         out_wav = os.path.join(tmp, "refused.wav")
         rc, out, err = run_cli(extra + ["-o", out_wav])
@@ -4260,6 +4306,24 @@ def check_k9_stalled(name, t, tp, rows, mesh, gen, T=256, pos=200):
         raise RuntimeError(f"K9 {name}: a stalled exchange changed the step")
 
 
+def check_k9_narrow_ring(name, t, tp, rows, mesh, gen, T=256, pos=200):
+    """K9 on a one-slot ring and on a narrow one (``ring_variants``: four
+    rows a stage, so each block's o rows span several stages, each copied
+    only once the one before it is consumed) equal to the step on the
+    default ring on the same input bit for bit (x and every cache shard).
+    On the wider rings the o stage's copy lands during the attention phase,
+    so a read of it before its wait goes unseen."""
+    devices = mesh.model_devices()
+    x = torch.randn((1, t.hidden_size), generator=gen, device=DEV) * 0.3
+    kc, vc = tp_caches(t, tp, T, pos, torch.bfloat16, gen, devices)
+
+    def step():
+        kk, vk = [c.clone() for c in kc], [c.clone() for c in vc]
+        return [K9.launch_step_tp(t, rows, x, pos, kk, vk, mesh).x.clone(), *kk, *vk]
+
+    ring_variants(f"K9 {name} tp={tp} T={T} pos={pos}", step)
+
+
 def check_k9_timeout(name, t, tp, rows, mesh, gen, T=256, pos=200):
     """A planted exchange timeout of K9: odd ranks hold each send back
     K10_TIMEOUT_STALL_NS against a wait limit of K10_TIMEOUT_NS, so the even
@@ -4465,6 +4529,8 @@ def tp_kernel_checks(gen, card_line, devices_of=card_devices, first=True):
         if first:
             trace_k9(f"{name} talker", t, rows, mesh, gen)
         check_k9_stalled(f"{name} talker", t, tp, rows, mesh, gen)
+        if first:
+            check_k9_narrow_ring(f"{name} talker", t, tp, rows, mesh, gen)
         check_k9_timeout(f"{name} talker", t, tp, rows, mesh, gen)
         for cache_dtype in (torch.bfloat16, torch.float32):
             for T, pos in K9_CASES:
@@ -4590,6 +4656,372 @@ def tp_phase(tok, gen, card_line):
             f"{torch.cuda.device_count()} card [{card_line}]")
     log(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
     return counts, (k9, k10), bounds
+
+# ---------------------------------------------------------------------------
+# Phase 15: the CLI's remaining weight-precision flags (int4 units in K1, K2
+# and K3; chain heads of another type than the trunk; bf16 units in K6)
+# ---------------------------------------------------------------------------
+
+# K3 == K2 on a float32 cache at int4 trunks and mixed heads: seeded chains
+PRECISION_K3_EQUAL_INPUTS = 4
+PRECISION_CLI_FRAMES = 24
+
+
+def ring_variants(label, run):
+    """``run()`` (its outputs, tensors) on the default ring, on a one-slot
+    ring and on a narrow one (four rows a stage: every stage's copy issued
+    only once the stage before it is consumed): every output equal bit for
+    bit.  A kernel's values do not depend on its plan (each row's dot
+    product keeps its order whatever stage holds it), and a stage read
+    before its wait shows only where its copy is still in flight."""
+    want = [x.clone() for x in run()]
+    got = {"one ring slot": one_slot_ring(run),
+           "one narrow slot": one_slot_ring(run, narrow=True)}
+    same = {k: all(bool(torch.equal(a, b)) for a, b in zip(v, want)) for k, v in got.items()}
+    ok = all(same.values())
+    log(f"{label}: equal bit for bit to the default ring {same} -> {'ok' if ok else 'FAIL'} "
+        f"[{CARD}]")
+    if not ok:
+        raise RuntimeError(f"{label}: a ring variant changed the kernel's values")
+
+
+def raw_layers(t, gen):
+    """A random transformer's fused raw layers on the card."""
+    return fuse_params({"m": {"transformer": init_transformer_params(t, gen, DEV)}},
+                       modules=("m",))["m"]["transformer"]["layers"]
+
+
+def int4_trunk(t, gen):
+    """A real int4 pack of ``t`` (bits=4 from raw weights, the engine's)."""
+    return K1.pack_fused_weights(t, raw_layers(t, gen), bits=4)
+
+
+def precision_k1(name, t, fw4, gen, deep_cases, shallow_cases, iters):
+    """K1 at int4 units: ``deep_cases`` (T, pos) at full depth on a bf16
+    cache and one on an int8 cache (deep limits), ``shallow_cases`` on one
+    layer on float32, bf16 and int8 caches (one-layer limits, tight counts).
+    Returns the checks (first timed) and the int8-cache check."""
+    checks = [check_k1_deep(f"{name} int4", t, fw4, T, pos, gen, iters if i == 0 else 5)
+              for i, (T, pos) in enumerate(deep_cases)]
+    T, pos = deep_cases[0]
+    kvq = check_kvq_k1(f"{name} int4", t, fw4, T, pos, gen, 1, iters)
+    ts = dataclasses.replace(t, num_layers=K1_SHALLOW_LAYERS)
+    fws = int4_trunk(ts, gen)
+    for T, pos in shallow_cases:
+        for cache_dtype in (torch.float32, torch.bfloat16):
+            checks.append(check_k1_shallow(f"{name}-{K1_SHALLOW_LAYERS}-layer int4", ts, fws, T,
+                                           pos, cache_dtype, gen, 0))
+        check_kvq_k1(f"{name}-{K1_SHALLOW_LAYERS}-layer int4", ts, fws, T, pos, gen,
+                     K1_TIGHT_INPUTS, 0)
+    return checks, kvq
+
+
+def precision_kernel_checks(gen, card_line):
+    """K1 int4 against its plain version at 0.6B and 1.7B; K2 and K3 on int4
+    trunks and with heads of another type than the trunk against their plain
+    versions, K3 == K2 on a float32 cache; K6 at bf16 units against its
+    plain version, its rows the K1 bf16 steps bit for bit, on bf16 and int8
+    caches; each new instance on a one-slot ring and on a narrow one.
+    Returns (checks by report key, bounds)."""
+    checks, bounds = {}, {}
+    cfg = QWEN3_TTS_06B
+    talker_t, cp = cfg.talker.transformer, cfg.code_predictor
+    mtp_t = cp.transformer
+    fw4 = int4_trunk(talker_t, gen)
+    checks["K1 int4"], checks["K1 int4 kvq"] = precision_k1(
+        "talker", talker_t, fw4, gen, ((256, 200), (2560, 1800)), ((256, 63), (2560, 2559)), 20)
+    bounds["K1 int4"] = step_bound(talker_t, fw4, 1, [200], 1, torch.bfloat16)
+    int8_fw = packed_trunk(talker_t, gen)
+    log(f"K1 0.6B talker bytes per step: int4 {nbytes(fw4) / 1e6:.1f} MB (rows "
+        f"{nbytes([fw4.wqkv, fw4.wo, fw4.wgu, fw4.wd]) / 1e6:.1f} MB), int8 "
+        f"{nbytes(int8_fw) / 1e6:.1f} MB; bound {bounds['K1 int4'][0]:.4f} ms against "
+        f"{step_bound(talker_t, int8_fw, 1, [200], 1, torch.bfloat16)[0]:.4f} [{CARD}]")
+    x, kc, vc = k1_inputs(talker_t, 256, 200, torch.bfloat16, gen)
+    in_turns("K1 0.6B talker T=256 pos 200, int8 / int4 units",
+             lambda: K1.fused_decode_step(talker_t, int8_fw, x, 200, kc, vc),
+             lambda: K1.fused_decode_step(talker_t, fw4, x, 200, kc, vc), 20,
+             names=("int8 units", "int4 units"))
+    trace_phases("K1 int4 0.6B talker T=256 pos 200",
+                 K1._step_entry(talker_t, fw4, 256, x.device).plan,
+                 step_phase_names(talker_t.num_layers),
+                 lambda: K1.fused_decode_step(talker_t, fw4, x, 200, kc, vc))
+    del int8_fw, x, kc, vc
+    t2 = dataclasses.replace(talker_t, num_layers=2)
+    fw2 = int4_trunk(t2, gen)
+    for cache_dtype in (torch.bfloat16, torch.int8):
+        if cache_dtype == torch.int8:
+            x = torch.randn((1, t2.hidden_size), generator=gen, device=DEV) * 0.3
+            base = q8_cache(t2, 1, 256, [200], gen)
+        else:
+            x, kc, vc = k1_inputs(t2, 256, 200, cache_dtype, gen)
+            base = [kc, vc]
+
+        def k1_once(x=x, base=base):
+            c = clone_all(base)
+            return (K1.fused_decode_step(t2, fw2, x, 200, *c)[0], *c)
+
+        ring_variants(f"K1 int4 talker-2-layer, {str(cache_dtype)[6:]} cache", k1_once)
+    del fw4, fw2
+
+    # the chains: int4 trunks with int8 heads (--quantize int4), int8 and
+    # int4 trunks with bf16 heads (an unset --quantize beside --mtp-quantize)
+    H, V, n = mtp_t.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    m_raw = raw_layers(mtp_t, gen)
+    m4 = K1.pack_fused_weights(mtp_t, m_raw, bits=4)
+    m8 = K1.pack_fused_weights(mtp_t, m_raw, bits=8)
+    del m_raw
+    raw_heads = (torch.randn((n, H, V), generator=gen, device=DEV) * H ** -0.5).to(torch.bfloat16)
+    h8, h16 = K2.pack_heads(quantize_weight(raw_heads)), K2.pack_heads(raw_heads)
+    tables = (torch.randn((n, V, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=DEV)
+    for key, fw, heads in (("K2 int4", m4, h8), ("K2 int8 trunk, bf16 heads", m8, h16),
+                           ("K2 int4 trunk, bf16 heads", m4, h16)):
+        if not K2.supports_resident(fw):
+            raise RuntimeError(f"{key}: the 0.6B trunk fails K2's residency gate")
+        # K5's flip rule: on the bf16 cache a rounding flip moves the 6-layer
+        # trunk's x by up to ~4e-3 relative, so a near-tie sub-code may flip
+        # (a greedy step at a 9.2e-4 score margin of one seeded int4 chain on
+        # an H100); a fault in the units picks unrelated tokens
+        checks[key] = [check_chain(key, K2.fused_mtp_chain, K2.fused_mtp_chain_reference, knobs,
+                                   cp, fw, heads, tables, fnorm, gen, iters, flip_rule=True,
+                                   cache_dtype=torch.bfloat16)
+                       for knobs, iters in (((0.8, 50, 0.95), 10), ((0.0,), 0))]
+        bounds[key] = chain_bound(mtp_t, fw, heads, 1)
+        check_k3_equals_k2(cp, fw, heads, tables, fnorm, gen, 0,
+                           inputs=PRECISION_K3_EQUAL_INPUTS)
+        lh = (torch.randn((1, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+        c0 = (torch.randn((1, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+        noise = gumbel_noise((n, 1, V), gen, DEV)
+
+        def chain_once(fw=fw, heads=heads, lh=lh, c0=c0, noise=noise):
+            return K2.fused_mtp_chain(mtp_t, fw, fnorm, heads, tables, lh, c0, noise,
+                                      *K5_KNOBS[1], cache_dtype=torch.bfloat16)
+
+        ring_variants(f"{key} 0.6B sampled", chain_once)
+        if key == "K2 int4":
+            ring_variants("K3 int4 0.6B sampled", lambda: K3.fused_mtp_chain_streamed(
+                mtp_t, m4, fnorm, h8, tables, lh, c0, noise, *K5_KNOBS[1]))
+            trace_phases("K2 int4 0.6B sampled",
+                         K2._chain_entry("qtts_mtp_chain", mtp_t, fw, heads, tables,
+                                         torch.bfloat16, lh.device).plan,
+                         chain_phase_names(mtp_t.num_layers, n), chain_once)
+    del m4, m8, h8, h16, raw_heads, tables
+
+    # K6 at bf16 units (--spec-k at an unset --quantize), 0.6B
+    fwb = bf16_trunk(talker_t, gen)
+    checks["K6 bf16"] = [check_k6_deep("talker bf16", talker_t, fwb, B, S, T, starts, gen, iters)
+                         for B, S, T, starts, iters in K6_DEEP_CASES[:2] + K6_DEEP_CASES[3:]]
+    bounds["K6 bf16"] = checks["K6 bf16"][0][3]
+    checks["K6 bf16 kvq"] = check_kvq_k6("talker bf16", talker_t, fwb, 1, 4, 256, [200], gen,
+                                         10)
+    tsb = dataclasses.replace(talker_t, num_layers=K1_SHALLOW_LAYERS)
+    fwsb = bf16_trunk(tsb, gen)
+    for cache_dtype in (torch.float32, torch.bfloat16):
+        for B, S, starts in K6_SHALLOW_CASES[1:2] + K6_SHALLOW_CASES[4:]:
+            check_k6_shallow(tsb, fwsb, B, S, 512, starts, cache_dtype, gen)
+    check_kvq_k6(f"talker-{K1_SHALLOW_LAYERS}-layer bf16", tsb, fwsb, 4, 8, 512,
+                 [62, 5, 504, 130], gen, 0, stall_ns=K6_STALL_NS)
+    for cache_dtype in (torch.bfloat16, torch.int8):
+        x, _, _, pos_dev = k6_inputs(tsb, 4, 8, 512, [62, 5, 504, 130], torch.bfloat16, gen)
+        base = (q8_cache(tsb, 4, 512, [62, 5, 504, 130], gen) if cache_dtype == torch.int8
+                else list(k6_inputs(tsb, 4, 8, 512, [62, 5, 504, 130], cache_dtype, gen)[1:3]))
+
+        def k6_once(x=x, base=base, pos_dev=pos_dev):
+            c = clone_all(base)
+            return (K6.fused_verify_step(tsb, fwsb, x, pos_dev, *c)[0], *c)
+
+        ring_variants(f"K6 bf16 talker-1-layer 4 x 8, {str(cache_dtype)[6:]} cache", k6_once)
+    x, kc, vc, starts = k6_inputs(talker_t, 1, 4, 256, [200], torch.bfloat16, gen)
+    trace_phases("K6 bf16 0.6B talker B=1 S=4 T=256 start 200",
+                 K6._verify_entry(talker_t, fwb, 1, 4, 256, torch.bfloat16, x.device).plan,
+                 verify_phase_names(talker_t.num_layers),
+                 lambda: K6.fused_verify_step(talker_t, fwb, x, starts, kc, vc))
+    del fwb, fwsb, x, kc, vc
+    try:  # B17: a 1.7B bf16 verify plan does not fit a batched plan's slot
+        persistent.make_plan(QWEN3_TTS_17B.talker.transformer, persistent.grid_size(DEV),
+                             batch=4, unit_bytes=2)
+        raise RuntimeError("a 1.7B bf16 verify plan was built: the engine's B17 refusal is stale")
+    except ValueError as e:
+        log(f"K6 bf16 at 1.7B: no plan ({e}); the engine refuses 1.7B bf16 spec (ROADMAP B17)")
+    torch.cuda.empty_cache()
+
+    # 1.7B: K1 int4 at H=2048, K3 on the int4 trunk (int8 heads) and on an
+    # int8 trunk with bf16 heads
+    c17 = QWEN3_TTS_17B
+    t17, cp17 = c17.talker.transformer, c17.code_predictor
+    fw17 = int4_trunk(t17, gen)
+    k1_17, _ = precision_k1("talker-1.7B", t17, fw17, gen, ((256, 60),), ((1024, 1023),), 10)
+    checks["K1 int4"] += k1_17
+    log(f"K1 int4 talker-1.7B bound {step_bound(t17, fw17, 1, [60], 1, torch.bfloat16)[0]:.4f} ms "
+        f"({nbytes(fw17) / 1e9:.3f} GB per step) [{CARD}]")
+    del fw17
+    m17 = cp17.transformer
+    H, V, n = m17.hidden_size, cp17.subcode_vocab_size, cp17.num_steps
+    m_raw = raw_layers(m17, gen)
+    m4 = K1.pack_fused_weights(m17, m_raw, bits=4)
+    m8 = K1.pack_fused_weights(m17, m_raw, bits=8)
+    del m_raw
+    raw_heads = (torch.randn((n, H, V), generator=gen, device=DEV) * H ** -0.5).to(torch.bfloat16)
+    h8, h16 = K2.pack_heads(quantize_weight(raw_heads)), K2.pack_heads(raw_heads)
+    tables = (torch.randn((n, V, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=DEV)
+    for key, fw, heads in (("K3 int4", m4, h8), ("K3 int8 trunk, bf16 heads", m8, h16)):
+        if K2.supports_resident(fw) or not K3.supports_stream(fw, V):
+            raise RuntimeError(f"{key}: the 1.7B trunk must route to K3")
+        checks[key] = [check_chain(f"{key} 1.7B", K3.fused_mtp_chain_streamed,
+                                   K3.fused_mtp_chain_streamed_reference, knobs, cp17, fw, heads,
+                                   tables, fnorm, gen, iters, flip_rule=True)
+                       for knobs, iters in (((0.8, 50, 0.95), 5), ((0.0,), 0))]
+        bounds[key] = chain_bound(m17, fw, heads, 1)
+        check_k3_equals_k2(cp17, fw, heads, tables, fnorm, gen, 0, inputs=2)
+    del m4, m8, h8, h16, raw_heads, tables
+    torch.cuda.empty_cache()
+    return checks, bounds
+
+
+def precision_cli(tok, card_line):
+    """The CLI at the 0.6B preset from a checkpoint, in process, under the
+    flags this phase adds: --quantize int4 (one K1 int4 and one K2 int4 per
+    frame), --quantize int4 --kv-quant, --mtp-quantize int8 and
+    --mtp-quantize auto at an unset --quantize (K1 bf16 and K2 on the int8
+    trunk or the int4 alt trunk, bf16 heads), --spec-k 4 at an unset
+    --quantize (K6 and K5 at bf16 units), also with --kv-quant, and the flag
+    sets still refused.
+    Returns ({flags: launch counts}, {flags: ms per frame})."""
+    cfg = QWEN3_TTS_06B
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    counts, ms = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "qwen3-tts-0.6b")
+        save_checkpoint(d, cfg, params)
+        del params
+        byte_level_tokenizer(d)
+        base = ["-m", d, "-p", ENTRY_TEXT, "--lang", "en", "--temp", "0", "--max-tokens",
+                str(PRECISION_CLI_FRAMES), "--verbose"]
+        for label, flags in (("--quantize int4", ["--quantize", "int4"]),
+                             ("--quantize int4 --kv-quant", ["--quantize", "int4", "--kv-quant"]),
+                             ("--mtp-quantize int8", ["--mtp-quantize", "int8"]),
+                             ("--mtp-quantize auto", ["--mtp-quantize", "auto"]),
+                             ("--spec-k 4", ["--spec-k", "4"]),
+                             ("--spec-k 4 --kv-quant", ["--spec-k", "4", "--kv-quant"])):
+            out_wav = os.path.join(tmp, f"p{len(counts)}.wav")
+            reset_launches()
+            t0 = time.perf_counter()
+            rc, out, err = run_cli(base + flags + ["-o", out_wav])
+            wall = time.perf_counter() - t0
+            m = SUMMARY.search(out)
+            if rc != 0 or m is None:
+                raise RuntimeError(f"CLI {label}: exit {rc}\n{out}\n{err}")
+            decode_ms, n = float(m.group(1)), int(m.group(2))
+            pcm = check_wav(out_wav, f"CLI {label}")
+            frames = pcm.size // SAMPLES_PER_FRAME
+            if m.group(3) is not None:  # spec: K1 after a fallback, K3 once, K6 and K5 per iteration
+                it, fallback = int(m.group(3)), m.group(5) is not None
+                seq = n - 1 - it * 4
+                want = counts_of(K1=seq + fallback, K3=1 + seq, K5=it, K6=it)
+                ms[label] = decode_ms / frames  # per committed frame, random drafts rejected
+            else:
+                want = counts_of(K1=n, K2=n)
+                ms[label] = decode_ms / n
+            counts[label] = check_launches(f"CLI {label} ({n} frames decoded)", want)
+            log(f"CLI {label}: exit 0, {pcm.size / 24000:.2f} s of audio ({frames} frames), {n} "
+                f"frames decoded, {decode_ms / n:.3f} ms per decoded frame, {decode_ms / frames:.3f} "
+                f"per committed frame, {wall:.2f} s of wall time [{card_line}]")
+        for label, flags, words in (
+                ("--quantize int4 --spec-k 4", ["--quantize", "int4", "--spec-k", "4"],
+                 "K1v-b / K2v"),
+                ("--mtp-quantize int8 --spec-k 4", ["--mtp-quantize", "int8", "--spec-k", "4"],
+                 "K1v-b / K2v"),
+                ("--quantize int4 --frame-fused on", ["--quantize", "int4", "--frame-fused", "on"],
+                 "K7")):
+            reset_launches()
+            out_wav = os.path.join(tmp, "refused.wav")
+            rc, out, err = run_cli(base + flags + ["-o", out_wav])
+            errors = [line for line in err.splitlines() if line.startswith("Error: ")]
+            if rc != 1 or len(errors) != 1 or words not in errors[0] or os.path.exists(out_wav):
+                raise RuntimeError(f"CLI {label}: exit {rc}, expected 1 with the engine's "
+                                   f"error\n{err}")
+            check_launches(f"CLI {label} (refused)", ())
+            log(f"CLI {label}: exit 1, {errors[0]}")
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def precision_17b(tok, card_line):
+    """Short 1.7B requests at ``quantize="int4"`` (one K1 int4 and one K3
+    int4 per frame) and at an unset ``quantize`` with
+    ``mtp_quantize="int8"`` (K1 bf16 and K3 on the int8 trunk with bf16
+    heads), K8 on each prefill.  Returns ({label: launch counts}, {label:
+    ms per frame})."""
+    cfg = voice_config()
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    counts, ms = {}, {}
+    for label, kw, unit in (("--quantize int4", dict(quantize="int4"), torch.uint8),
+                            ("--mtp-quantize int8", dict(mtp_quantize="int8"), torch.bfloat16)):
+        t0 = time.perf_counter()
+        eng = TTSEngine(config=cfg, params=params, tokenizer=tok, **kw)
+        if not eng.is_ready():
+            raise RuntimeError(f"1.7B engine at {kw}: {eng.get_error()}")
+        if eng.params["talker"]["fused_step"].wqkv.dtype != unit or b1_chain(eng) != "K3":
+            raise RuntimeError(f"the 1.7B engine at {kw} does not pack {unit} units or route B=1 "
+                               "to K3")
+        torch.cuda.synchronize()
+        log(f"engine: 1.7B preset (talker attn_impl=pallas), {label}, built in "
+            f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+        reset_launches()
+        r = eng.synthesize(max_tokens=24, seed=SEED, **B1_REQUESTS[1])
+        m = r.metrics
+        if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                r.audio).all() or r.codes.shape[1:] != (16,):
+            raise RuntimeError(f"bad 1.7B {label} synthesis output")
+        layers = cfg.talker.transformer.num_layers
+        counts[label] = check_launches(
+            f"1.7B {label} request (one K1 and one K3 per frame, K8 per prefill layer)",
+            counts_of(K1=m.decoded_frames, K3=m.decoded_frames, K8=layers))
+        ms[label] = m.stage_seconds["decode"] * 1e3 / max(m.decoded_frames, 1)
+        log(f"1.7B {label} synthesize: {m.frames} frames ({m.decoded_frames} decoded), "
+            f"{ms[label]:.3f} ms/frame decode, RTF {m.rtf:.2f}x, TTFA "
+            f"{m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    return counts, ms
+
+
+def precision_phase(tok, gen, card_line):
+    """Phase 15: the CLI's remaining weight-precision flags on the card.
+    The kernel checks (precision_kernel_checks), the CLI under each new
+    flag set (precision_cli) and a 1.7B int4 request (precision_17b).
+    Fails if K1 int4, K2 int4, K3 int4 or K6 bf16 never launched on those
+    main paths.  Returns (launch counts by report key, checks, bounds)."""
+    t0 = time.perf_counter()
+    checks, bounds = precision_kernel_checks(gen, card_line)
+    cli_counts, cli_ms = precision_cli(tok, card_line)
+    counts_17b, ms_17b = precision_17b(tok, card_line)
+    ids = {k: KERNEL_IDS.index(k) for k in ("K1", "K2", "K3", "K5", "K6")}
+    paths = {
+        "K1 int4": cli_counts["--quantize int4"][ids["K1"]]
+        + counts_17b["--quantize int4"][ids["K1"]],
+        "K1 int4 kvq": cli_counts["--quantize int4 --kv-quant"][ids["K1"]],
+        "K2 int4": cli_counts["--quantize int4"][ids["K2"]]
+        + cli_counts["--quantize int4 --kv-quant"][ids["K2"]],
+        "K2 int8 trunk, bf16 heads": cli_counts["--mtp-quantize int8"][ids["K2"]],
+        "K2 int4 trunk, bf16 heads": cli_counts["--mtp-quantize auto"][ids["K2"]],
+        "K3 int4": counts_17b["--quantize int4"][ids["K3"]],
+        "K3 int8 trunk, bf16 heads": counts_17b["--mtp-quantize int8"][ids["K3"]],
+        "K6 bf16": cli_counts["--spec-k 4"][ids["K6"]],
+        "K6 bf16 kvq": cli_counts["--spec-k 4 --kv-quant"][ids["K6"]],
+    }
+    unlaunched = [k for k, n in paths.items() if not n]
+    if unlaunched:
+        raise RuntimeError(f"the precision flags' main paths never launched {unlaunched}")
+    log("ms/frame per flag set (CLI, 0.6B, greedy, decode only; spec: per committed frame): "
+        + "; ".join(
+        f"{k}: {v:.3f}" for k, v in cli_ms.items()) + "; 1.7B: " + "; ".join(
+        f"{k}: {v:.3f}" for k, v in ms_17b.items()) + f" [{card_line}]")
+    log(f"precision phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
+    return paths, checks, bounds
+
 
 B1_REQUESTS = [
     dict(text="hello world", language="en", temperature=0.0),
@@ -4853,12 +5285,18 @@ def main() -> int:
     gen9.manual_seed(SEED + 9)
     tp_counts, (k9, k10), tp_bounds = tp_phase(tok, gen9, card_line)
     bounds.update(tp_bounds)
+    # the precision flags' phase draws from a generator of its own, as K4's
+    gen15 = torch.Generator(device=DEV)
+    gen15.manual_seed(SEED + 15)
+    precision, pchecks, pbounds = precision_phase(tok, gen15, card_line)
+    bounds.update(pbounds)
     total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed,
                                  tp_counts)]
     log("launches on the main paths in all, int8 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)) + "; bf16 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)) + "; int8 KV cache: "
-        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, kvq)))
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, kvq)) + "; precision flags: "
+        + ", ".join(f"{k} {n}" for k, n in precision.items()))
 
     def entry(name, source, replaces, launched, checks, bound_key, library_ms=None):
         # library_ms: one PyTorch call computing the same function, where one
@@ -4921,6 +5359,32 @@ def main() -> int:
         entry("fused_decode_step_tp (K9)", "fused_tp.cu", "fused_tp.py:573", total[10], k9, "K9"),
         entry("fused_mtp_chain_tp (K10)", "fused_mtp_tp.cu", "fused_mtp_tp.py:364", total[11],
               k10[1:2] + k10, "K10"),
+        # the CLI's remaining precision flags: int4 units (--quantize int4),
+        # heads of another type than the trunk (--mtp-quantize), bf16 units
+        # in K6 (--spec-k at an unset --quantize)
+        entry("fused_decode_step (K1 int4 units)", "fused_int4.cu", "fused_step.py:1290",
+              precision["K1 int4"], pchecks["K1 int4"], "K1 int4"),
+        entry("fused_decode_step (K1 int4 units, int8 KV cache)", "fused_int4.cu",
+              "fused_step.py:1290", precision["K1 int4 kvq"], [pchecks["K1 int4 kvq"]],
+              "K1 int4"),
+        entry("fused_mtp_chain (K2 int4 trunk, int8 heads)", "fused_int4.cu", "fused_mtp.py:835",
+              precision["K2 int4"], pchecks["K2 int4"], "K2 int4"),
+        entry("fused_mtp_chain (K2 int8 trunk, bf16 heads)", "fused_mtp.cu", "fused_mtp.py:835",
+              precision["K2 int8 trunk, bf16 heads"], pchecks["K2 int8 trunk, bf16 heads"],
+              "K2 int8 trunk, bf16 heads"),
+        entry("fused_mtp_chain (K2 int4 trunk, bf16 heads)", "fused_int4.cu", "fused_mtp.py:835",
+              precision["K2 int4 trunk, bf16 heads"], pchecks["K2 int4 trunk, bf16 heads"],
+              "K2 int4 trunk, bf16 heads"),
+        entry("fused_mtp_chain_streamed (K3 int4 trunk, int8 heads)", "fused_int4.cu",
+              "fused_mtp_stream.py:372", precision["K3 int4"], pchecks["K3 int4"], "K3 int4"),
+        entry("fused_mtp_chain_streamed (K3 int8 trunk, bf16 heads)", "fused_mtp.cu",
+              "fused_mtp_stream.py:372", precision["K3 int8 trunk, bf16 heads"],
+              pchecks["K3 int8 trunk, bf16 heads"], "K3 int8 trunk, bf16 heads"),
+        entry("fused_verify_step (K6 bf16 units)", "fused_verify.cu", "fused_verify.py:473",
+              precision["K6 bf16"], pchecks["K6 bf16"], "K6 bf16"),
+        entry("fused_verify_step (K6 bf16 units, int8 KV cache)", "fused_verify.cu",
+              "fused_verify.py:473", precision["K6 bf16 kvq"], [pchecks["K6 bf16 kvq"]],
+              "K6 bf16"),
     ]}
     print(json.dumps(report))
     print(card_line)

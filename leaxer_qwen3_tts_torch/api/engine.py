@@ -29,11 +29,22 @@ synthesis call then raises ``EngineError("engine not ready: ...")``; only a
 it runs only the kernel path: it requires the fused talker and MTP
 implementations and packs both, as the JAX engine on its accelerator:
 ``quantize="int8"`` as int8 units, ``quantize=None`` (the default) as bf16
-units with scales of one (bits=16, no quantization), for kernels K1 and K2
-or K3 (B=1; K3 for an MTP trunk past the residency gate: the 1.7B int8
-trunk and every bf16 trunk), K4 and K5 (B=2..32) and K6 (the verify pass,
-B x spec_k <= 32 rows; int8 only); a talker with ``attn_impl="pallas"``
-runs its prefill attention as kernel K8.  ``kv_quant=True`` keeps the
+units with scales of one (bits=16, no quantization), ``quantize="int4"`` as
+int4 units (group-128 scales, the heads int8), for kernels K1 and K2 or K3
+(B=1; K3 for an MTP trunk past the residency gate: the 1.7B trunks and
+every bf16 trunk), K4 and K5 (B=2..32, int8 and bf16) and K6 (the verify
+pass, B x spec_k <= 32 rows; int8 and bf16).  ``mtp_quantize`` packs the MTP
+trunk at another precision from the raw weights (its heads stay those of
+``quantize``: raw heads run as bf16 rows beside an int8 or int4 trunk), and
+``"auto"`` adds an int4 ``fused_step_alt`` that the B=1 chain takes where
+the primary pack fails the residency gate (JAX's ``resident_pack``).  What
+still refuses on the card, each naming its ROADMAP item: int4 units with
+``spec_k``, in batches, pools and the server (K4 / K5 / K6 int4); an MTP
+trunk of another precision with ``spec_k`` or in batches (K5 mixed heads),
+and ``"auto"`` where ``resident_pack`` would take the alt at B > 1; int4
+units with ``frame_fused`` (K7, anywhere); bf16 spec at the 1.7B widths
+(B17).  A talker with ``attn_impl="pallas"`` runs its prefill attention as
+kernel K8.  ``kv_quant=True`` keeps the
 talker's KV cache in int8 with per-(slot, head) scales (K1, K4, K6 and K7
 take it; the top bucket is rounded up to 128 slots).  A configuration the
 kernels do not take leaves the engine not ready; a batch they do not take
@@ -82,13 +93,19 @@ from ..config import (
 from ..frontend.mel import log_mel
 from ..frontend.tokenizer import Tokenizer, find_tokenizer_files
 from ..frontend.wav import read_wav, resample
-from ..models.code_predictor import chain_kernel, prepare_fused_step, resident_enabled
+from ..models.code_predictor import (
+    attach_heads,
+    chain_kernel,
+    prepare_fused_step,
+    resident_enabled,
+    resident_pack,
+)
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.speaker_encoder import speaker_encoder_forward
 from ..models.talker import prepare_fused_talker
 from ..ops import persistent
 from ..ops.fused_mtp_tp import shard_heads, supports_tp_resident
-from ..ops.fused_step import MAX_BATCH, meta_pack, supports
+from ..ops.fused_step import MAX_BATCH, UNIT_DTYPES, UNIT_NAMES, meta_pack, supports
 from ..ops.fused_tp import check_timeouts, pack_fused_tp, pack_rows, supports_shard, supports_tp
 from ..ops.quant import fuse_params, quantize_params
 from ..parallel import Mesh
@@ -96,6 +113,7 @@ from ..runtime.generate import (
     GenerateFns,
     GenerateState,
     frame_fused_eligible,
+    frame_fused_enabled,
     make_generate_fns,
 )
 from ..runtime.prompt import prompt_length
@@ -152,6 +170,10 @@ class TTSEngine:
     instead of raising: check ``is_ready()`` / ``get_error()``."""
 
     mesh = None  # the tensor-parallel mesh (parallel.make_mesh), if any
+    params: Optional[dict] = None
+    _bits = 8  # the packs' unit bits (16: bf16 units, quantize=None; 4: int4)
+    _mtp_bits: Optional[int] = None  # the MTP trunk's, where mtp_quantize sets it
+    _mtp_alt = False  # mtp_quantize="auto": an int4 alt trunk beside the primary
 
     def __init__(
         self,
@@ -179,7 +201,6 @@ class TTSEngine:
     ):
         self._ready = False
         self._error = ""
-        self._bits = 8  # the packs' unit bits (16: bf16 units, quantize=None)
         self.mesh = mesh
         self.cfg = config
         self.params: Optional[dict] = None
@@ -237,16 +258,8 @@ class TTSEngine:
             if frame_fused:
                 raise EngineError("frame_fused with a mesh: not ported (ROADMAP M15; the JAX "
                                   "package's frame gate refuses a mesh)")
-        if quantize == "int4":
-            raise EngineError("quantize='int4': int8 and unquantized (None) weights are ported "
-                              "(int4 not ported: ROADMAP K1v-b / K2v)")
         if mtp_quantize not in (None, "int8", "int4", "auto"):
             raise EngineError(f"unknown mtp_quantize mode {mtp_quantize!r}")
-        if mtp_quantize is not None and mtp_quantize != quantize:
-            # int4 and "auto" (an int4 alt trunk) and an int8 trunk beside an
-            # unquantized talker are packs of other precisions
-            raise EngineError(f"mtp_quantize={mtp_quantize!r} with quantize={quantize!r}: "
-                              "not ported (ROADMAP K1v / K2v)")
 
     def _build(self, model_dir, config, params, device, quantize, mesh, kv_quant,
                mtp_quantize, mtp_resident, frame_fused) -> None:
@@ -264,11 +277,13 @@ class TTSEngine:
                 )
             device = "cuda"
         self.device = torch.device(device)
-        if self.device.type == "cuda" and quantize is None and self.spec_k is not None:
-            raise EngineError("spec_k with quantize=None: the verify kernel K6 takes int8 units "
-                              "(quantize='int8'; bf16 units in K6: ROADMAP K1v-b)")
-        # the JAX engine's pack precision: quantize=None packs bf16 units
-        self._bits = 16 if quantize is None else 8
+        # the JAX engine's pack precisions: quantize=None packs bf16 units;
+        # mtp_quantize overrides the MTP trunk's ("auto" keeps the engine's
+        # and adds an int4 alt trunk, fused_step_alt)
+        self._bits = {None: 16, "int8": 8, "int4": 4}[quantize]
+        self._mtp_bits = (self._bits if mtp_quantize in (None, "auto")
+                          else {"int8": 8, "int4": 4}[mtp_quantize])
+        self._mtp_alt = mtp_quantize == "auto" and self._mtp_bits != 4
         if model_dir is not None:
             config, params = load_checkpoint(model_dir)
             if self.tokenizer is None:
@@ -295,6 +310,9 @@ class TTSEngine:
             if frame_fused and self.spec_k is not None:
                 raise EngineError("frame_fused is sequential-only: unset spec_k")
             config = dataclasses.replace(config, frame_fused=bool(frame_fused))
+        if frame_fused_enabled(config) and 4 in (self._bits, self._mtp_bits) and mesh is None:
+            raise EngineError("frame_fused with int4 units: the whole-frame kernel K7 takes int8 "
+                              "units (int4 in K7: ROADMAP K1v-b / K2v)")
         if kv_quant:
             # the int8 KV cache with per-(slot, head) scales, on the talker
             # only (the MTP cache stays in the model dtype, as in the JAX
@@ -321,7 +339,7 @@ class TTSEngine:
                                 "chains K2 and K3 are)")
             if mesh is not None:
                 problems += self._mesh_problems(cfg, mesh)
-            b1_pack = {"fused_step": meta_pack(cfg.code_predictor.transformer, self._bits)}
+            b1_pack = self._meta_packs(cfg)
             if not problems and mesh is None and chain_kernel(cfg.code_predictor, b1_pack,
                                                               1) is None:
                 problems.append("the MTP trunk is past the residency gate of K2 and "
@@ -329,6 +347,8 @@ class TTSEngine:
                                 "the per-step MTP chain, which is not ported to the card")
             if problems:
                 raise EngineError("CUDA kernel path unavailable: " + "; ".join(problems))
+            if mesh is None and self.spec_k is not None:
+                self._check_spec(cfg, b1_pack)
 
         if mesh is not None:
             self.params = self._mesh_params(cfg, _to_device(params, self.device), mesh)
@@ -336,18 +356,77 @@ class TTSEngine:
         # one qkv and one gate/up product per layer (the JAX engine's fuse=True,
         # its default; the port takes no other layout)
         params = fuse_params(_to_device(params, self.device))
+        cp = cfg.code_predictor
+        # JAX's order (its api/engine.py): the MTP trunk of another precision
+        # and the "auto" int4 alt trunk are packed from the raw weights, then
+        # int8 quantizes (the int8 packs reuse the QuantizedLinear values),
+        # then the primary packs, then int4 quantizes what the plain path
+        # reads (the int4 packs are cut from the raw weights on the same grid)
+        if mtp_fused and self._mtp_bits != self._bits:
+            params["code_predictor"] = prepare_fused_step(cp, params["code_predictor"],
+                                                          bits=self._mtp_bits)
+        if mtp_fused and self._mtp_alt:
+            params["code_predictor"] = prepare_fused_step(cp, params["code_predictor"], bits=4,
+                                                          alt=True)
         if self._bits == 8:
-            # quantize first: the packs reuse the QuantizedLinear values
             params = quantize_params(params)
-        # int8 units of the quantized params, or bf16 units of the raw ones
-        # (bits=16, nothing quantized): JAX's order
-        if mtp_fused:
-            params["code_predictor"] = prepare_fused_step(
-                cfg.code_predictor, params["code_predictor"], bits=self._bits
-            )
+        if mtp_fused and "fused_step" not in params["code_predictor"]:
+            params["code_predictor"] = prepare_fused_step(cp, params["code_predictor"],
+                                                          bits=self._bits)
         if talker_fused:
             params["talker"] = prepare_fused_talker(cfg.talker, params["talker"], bits=self._bits)
+        if self._bits == 4:
+            params = quantize_params(params, bits=4)
+        if "fused_step" in params["code_predictor"]:
+            # the chains read the heads the plain path reads (int8 once
+            # quantized, raw ones as bf16 rows), whenever the trunk was packed
+            params["code_predictor"] = attach_heads(cp, params["code_predictor"])
         self.params = params
+
+    def _meta_packs(self, cfg: TTSModelConfig) -> dict:
+        """The MTP packs this engine builds (``fused_step``, and under
+        ``mtp_quantize="auto"`` ``fused_step_alt``) on the meta device: what
+        the route gates read, before any tensor moves."""
+        t = cfg.code_predictor.transformer
+        packs = {"fused_step": meta_pack(t, self._mtp_bits or self._bits)}
+        if self._mtp_alt:
+            packs["fused_step_alt"] = meta_pack(t, 4)
+        return packs
+
+    def _check_spec(self, cfg: TTSModelConfig, mtp_packs: dict) -> None:
+        """Raise where the card cannot verify with ``spec_k``: the talker's
+        verify pass is K6 (int8 and bf16 units; a bf16 plan at the 1.7B
+        widths meets a batched plan's 32 KB slot) and the candidates' chain
+        K5 at spec_k rows (units and heads of one type, int8 or bf16)."""
+        if self._bits == 4:
+            raise EngineError("spec_k with quantize='int4': the verify kernel K6 and the batched "
+                              "chain K5 take int8 and bf16 units (int4 in K6 / K5: ROADMAP "
+                              "K1v-b / K2v)")
+        if self._bits == 16 and not persistent.batched_fits(cfg.talker.transformer, 2):
+            raise EngineError(
+                f"spec_k with bf16 units at hidden size {cfg.talker.transformer.hidden_size}: a "
+                "verify plan's 32 KB ring slot holds fewer than 4 rows of its widest product "
+                "(quantize='int8' runs; the 1.7B family beyond B=1: ROADMAP B17)")
+        self._check_k5(mtp_packs, self.spec_k, "spec_k")
+
+    def _check_k5(self, mtp_packs: dict, rows: int, what: str) -> None:
+        """Raise where the batched chain K5 at ``rows`` rows cannot take the
+        MTP pack: an int4 trunk, heads of another type than the trunk's (an
+        unquantized talker beside a quantized MTP trunk), or the int4 alt
+        trunk that JAX's ``resident_pack`` takes at this batch."""
+        units = {bits: UNIT_NAMES[dt] for bits, dt in UNIT_DTYPES.items()}
+        mtp_bits = self._mtp_bits or self._bits
+        if mtp_bits == 4 or (mtp_bits != self._bits and self._bits == 16):
+            raise EngineError(
+                f"{what} with an MTP trunk of {units[mtp_bits]} units beside {units[self._bits]} "
+                "units: the batched chain K5 takes int8 or bf16 trunks with heads of their type "
+                "(int4 and mixed heads in K5: ROADMAP K1v-b / K2v)")
+        alt = mtp_packs.get("fused_step_alt")
+        if alt is not None and resident_pack(mtp_packs, rows) is alt:
+            raise EngineError(
+                f"{what} with mtp_quantize='auto': JAX's resident_pack takes the int4 alt trunk "
+                f"at {rows} rows, which the batched chain K5 does not take (the auto alt trunk "
+                "at B > 1: ROADMAP K1v-b / K2v)")
 
     @staticmethod
     def _mesh_problems(cfg: TTSModelConfig, mesh) -> List[str]:
@@ -410,16 +489,28 @@ class TTSEngine:
         if not self._ready:
             raise EngineError(f"engine not ready: {self._error}")
 
-    def check_batched(self) -> None:
+    def check_batched(self, rows: int = MAX_BATCH) -> None:
         """Raise EngineError where the card cannot run this engine's batched
-        kernels K4 and K5 (``synthesize_batch`` at B > 1, a pool): bf16
-        units past 4096 columns (the 1.7B widths) leave a batched plan's
-        32 KB ring slot fewer than 4 rows.  Under a mesh (anywhere): batched
-        decoding is not ported."""
+        kernels K4 and K5 at up to ``rows`` rows (``synthesize_batch`` at B >
+        1, a pool, the server): int4 units (K4, K5), an MTP trunk that K5
+        does not take (:meth:`_check_k5`), and bf16 units past 4096 columns
+        (the 1.7B widths), which leave a batched plan's 32 KB ring slot fewer
+        than 4 rows.  Under a mesh (anywhere): batched decoding is not
+        ported."""
         if self.mesh is not None:
             raise EngineError("batched decoding under a mesh (synthesize_batch at B > 1, the "
                               "pool, the server): not ported (ROADMAP M15)")
-        if self.device.type != "cuda" or self._bits != 16:
+        if self.device.type != "cuda":
+            return
+        if self._bits == 4:
+            raise EngineError("batched decoding of int4 units (synthesize_batch at B > 1, the "
+                              "pool, the server): the batched kernels K4 and K5 take int8 and "
+                              "bf16 units (int4 in K4 / K5: ROADMAP K1v-b / K2v)")
+        packs = {k: v for k, v in self.params["code_predictor"].items()
+                 if k in ("fused_step", "fused_step_alt")} if self.params else self._meta_packs(
+                     self.cfg)
+        self._check_k5(packs, max(2, rows), "batched decoding")
+        if self._bits != 16:
             return
         for t in (self.cfg.talker.transformer, self.cfg.code_predictor.transformer):
             if not persistent.batched_fits(t, 2):
@@ -683,7 +774,7 @@ class TTSEngine:
         if self.device.type == "cuda" and B > MAX_BATCH:
             raise EngineError(f"batch of {B}: the batched kernels take at most {MAX_BATCH} streams")
         if B > 1:
-            self.check_batched()
+            self.check_batched(B * (self.spec_k or 1))
         vocab = cfg.talker.text_vocab_size
         for ids in list(id_lists) + ([instruct_ids] if instruct_ids else []):
             bad = [i for i in ids if not 0 <= int(i) < vocab]

@@ -12,10 +12,15 @@ created; the summary prints "Generated X.XX seconds of audio"; exit code 1 on
 missing/invalid inputs, a flag whose path is not ported (the engine's error)
 or failed synthesis; output WAV is 16-bit PCM mono 24 kHz without peak
 normalization (main_onnx.cpp:15-58).  On the card an unset --quantize (the
-default) runs bf16 weight units and --quantize int8 int8 units, either with
---kv-quant (the int8 KV cache); --quantize int4, --mtp-quantize other than
---quantize and, without --quantize, --spec-k leave the engine not ready
-(exit 1, the error names its ROADMAP item).
+default) runs bf16 weight units, --quantize int8 int8 units and --quantize
+int4 int4 units (int8 heads), each with --kv-quant (the int8 KV cache) and
+any --mtp-quantize (an MTP trunk of another precision; "auto" adds the int4
+trunk the chain takes where the primary one fails the residency gate);
+--spec-k runs with an unset --quantize (0.6B) and with int8.  What still
+leaves the engine not ready (exit 1, the error names its ROADMAP item):
+--spec-k with --quantize int4 or with an MTP trunk the batched chain does
+not take, --spec-k with bf16 units at the 1.7B widths, and --frame-fused on
+with int4 units.
 """
 
 from __future__ import annotations
@@ -48,13 +53,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--quantize", choices=["int8", "int4"],
-        help="weight-only quantization (unset: bf16 weight units on the card; int4: not "
-             "ported)",
+        help="weight-only quantization (unset: bf16 weight units; int8; int4: group-128 "
+             "int4 transformer weights, int8 heads)",
     )
     p.add_argument(
         "--mtp-quantize", choices=["int8", "int4", "auto"],
-        help="override the MTP trunk's pack precision (only the --quantize precision "
-             "is ported); defaults to --quantize",
+        help="override the MTP trunk's pack precision (auto: --quantize's, plus an int4 "
+             "trunk where it fails the residency gate); defaults to --quantize",
     )
     p.add_argument(
         "--mtp-resident", choices=["on", "off"],

@@ -307,7 +307,7 @@ bool frame_ok(const QttsFrameArgs& a) {
                          : a.v_scale == nullptr && c.cache_bf16 == a.cache_bf16;
   // int8 units and heads only (bf16 units and the bf16-talker + int8-MTP
   // mix: ROADMAP K1v-b / K2v)
-  return !a.tw.unit_bf16 && !a.mw.unit_bf16 && !c.heads_bf16 &&
+  return !a.tw.unit_type && !a.mw.unit_type && !c.heads_bf16 &&
          step_ok(a.tw, a.ts, a.T, a.pos) && step_ok(a.mw, a.ms, c.n + 2, c.n) &&
          a.mw.H == a.tw.H && c.n >= 1 && c.V <= c.Vt && a.Vc >= 1 && caches;
 }

@@ -31,6 +31,10 @@
 // the launch-per-op chain's bit for bit (chip_smoke.py checks).  What it
 // leaves: ~510 grid barriers per chain, the 15 draws on one block, and the
 // trunk streamed from device memory 16 times (no cluster-resident split).
+// The heads' unit type is a template argument of its own (HT): int8 heads
+// beside an int4 trunk (JAX's int4 mode), bf16 heads with scales of one
+// beside an int8 or int4 trunk (an unquantized talker with --mtp-quantize;
+// JAX casts raw heads so); the int4 trunks' instances are fused_int4.cu's.
 
 #include "qtts_stream.cuh"
 
@@ -42,52 +46,36 @@ __global__ void __launch_bounds__(QTTS_GEMV_THREADS) head_sample_kernel(QttsHead
   qtts_head_sample(p, sh);
 }
 
-// The persistent chain's one argument (travels by value).
-struct ChainLaunch {
-  QttsStepWeights w;
-  QttsStepScratch s;
-  QttsPlan p;
-  QttsChainArgs c;
-};
-
-template <typename CT, typename WT>
-__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
-chain_kernel(const __grid_constant__ ChainLaunch a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ QttsSeq seq;
-  QttsRing ring;
-  const QttsChainArgs& c = a.c;
-  qtts_ring_start(ring, seq, smem, a.p, a.w, c.heads, c.head_scales, c.n, c.V);
-  int stage = 0;
-  qtts_chain_phases<CT, WT>(a.w, a.s, a.p, ring, seq, 0, stage, c, smem, [] {});
-  qtts_trace_end(a.p);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Kernel K2 entry: subcodes [n] and sub_sum [H] of one frame's chain, in one
-// cooperative launch on the plan's grid.  int8 units and heads with either
-// cache; bf16 units and heads (a->heads_bf16 == w->unit_bf16) with a float32
-// cache only: K3's chain, which K3's entry runs through this one.
+// cooperative launch on the plan's grid.  int8 or int4 units with int8 or
+// bf16 heads (a->heads_bf16), each with either cache; bf16 units with bf16
+// heads on a float32 cache only: K3's chain, which K3's entry runs through
+// this one.  (JAX's int4 mode keeps the heads int8; the unquantized talker
+// beside a quantized MTP trunk gives bf16 heads, JAX's cast of raw heads.)
 int qtts_mtp_chain(const QttsStepWeights* w, const QttsStepScratch* s, const QttsPlan* p,
                    const QttsChainArgs* a, void* stream) {
   const int T = a->n + 2, qd = w->nq * w->D;
+  const bool bf16_trunk = w->unit_type == QTTS_UNIT_BF16;
   if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || a->n < 1 || a->V > a->Vt ||
       a->V > QTTS_P_THREADS * QTTS_SAMPLE_VPT || (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits ||
-      a->heads_bf16 != w->unit_bf16 || (w->unit_bf16 && a->cache_bf16) ||
-      !qtts_plan_ok(*p, *w, a->V)) {
+      (a->heads_bf16 != 0 && a->heads_bf16 != 1) || (bf16_trunk && !a->heads_bf16) ||
+      (bf16_trunk && a->cache_bf16) || !qtts_plan_ok(*p, *w, a->V, 0, nullptr, 0,
+                                                     a->heads_bf16 ? 2 : 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const ChainLaunch launch{*w, *s, *p, *a};
+  const QttsChainLaunch launch{*w, *s, *p, *a};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w->unit_bf16) {
-    return qtts_launch_persistent(chain_kernel<float, __nv_bfloat16>, launch, *p, st);
+  if (w->unit_type == QTTS_UNIT_INT4) return qtts_launch_chain_int4(launch, st);
+  if (bf16_trunk) {
+    return qtts_launch_persistent(chain_kernel<float, __nv_bfloat16, __nv_bfloat16>, launch, *p,
+                                  st);
   }
-  return a->cache_bf16 ? qtts_launch_persistent(chain_kernel<__nv_bfloat16, int8_t>, launch, *p, st)
-                       : qtts_launch_persistent(chain_kernel<float, int8_t>, launch, *p, st);
+  return qtts_launch_chain_heads<int8_t>(launch, st);
 }
 
 // The launch-per-op chain K2 ran before it was persistent: K1's layer
@@ -97,7 +85,9 @@ int qtts_mtp_chain(const QttsStepWeights* w, const QttsStepScratch* s, const Qtt
 // persistent chain to, bit for bit; no wrapper calls it.
 int qtts_mtp_chain_multi(const QttsStepWeights* w, const QttsStepScratch* s,
                          const QttsChainArgs* a, void* stream) {
-  if (w->unit_bf16 || a->heads_bf16) return (int)cudaErrorInvalidValue;  // int8 only
+  if (w->unit_type != QTTS_UNIT_INT8 || a->heads_bf16) {
+    return (int)cudaErrorInvalidValue;  // int8 only
+  }
   return qtts_run_mtp_chain(
       *w, *s, *a, static_cast<cudaStream_t>(stream),
       [](const QttsHeadStep& p, bool, int grid, size_t smem, cudaStream_t st) {

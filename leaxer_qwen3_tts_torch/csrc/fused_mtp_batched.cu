@@ -137,7 +137,7 @@ extern "C" {
 
 // Kernel K5 entry: subcodes [B, n] and sub_sum [B, H] of one frame's chain,
 // in one cooperative launch on the plan's grid.  int8 units and heads with
-// either cache; bf16 units and heads (a->heads_bf16 == w->unit_bf16) with a
+// either cache; bf16 units and heads (a->heads_bf16 == w->unit_type) with a
 // float32 cache only, as K3 runs them, so that each row equals K3 on it.
 int qtts_mtp_chain_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
                            const QttsPlan* p, const QttsChainBatchArgs* a, void* stream) {
@@ -145,13 +145,14 @@ int qtts_mtp_chain_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
   if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || a->n < 1 || a->V > a->Vt ||
       a->V > QTTS_P_THREADS * QTTS_SAMPLE_VPT || B < 1 || B > QTTS_MAX_BATCH || B > p->grid ||
-      (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits || a->heads_bf16 != w->unit_bf16 ||
-      (w->unit_bf16 && a->cache_bf16) || !qtts_plan_ok(*p, *w, a->V, B)) {
+      (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits || w->unit_type == QTTS_UNIT_INT4 ||
+      a->heads_bf16 != w->unit_type ||
+      (w->unit_type && a->cache_bf16) || !qtts_plan_ok(*p, *w, a->V, B)) {
     return (int)cudaErrorInvalidValue;
   }
   const BChainLaunch launch{*w, *s, *p, *a};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w->unit_bf16) {
+  if (w->unit_type) {
     return qtts_launch_persistent(bchain_kernel<float, __nv_bfloat16>, launch, *p, st);
   }
   return a->cache_bf16
@@ -167,7 +168,8 @@ int qtts_mtp_chain_batched_multi(const QttsStepWeights* w, const QttsBatchScratc
                                  const QttsChainBatchArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = a->n + 2, H = w->H, V = a->V, B = a->B;
-  if (w->unit_bf16 || a->heads_bf16 || H % 16 != 0 || V > a->Vt || B < 1 || B > QTTS_MAX_BATCH) {
+  if (w->unit_type != QTTS_UNIT_INT8 || a->heads_bf16 || H % 16 != 0 || V > a->Vt || B < 1 ||
+      B > QTTS_MAX_BATCH) {
     return (int)cudaErrorInvalidValue;  // int8 only
   }
   const size_t smem = (size_t)2 * V * sizeof(float);

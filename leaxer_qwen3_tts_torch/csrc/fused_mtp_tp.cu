@@ -436,8 +436,9 @@ bool chain_args_ok(const QttsTpChainArgs& a) {
     const QttsStepWeights& w = R.w;
     const int H = w.H, Hs = H / a.tp, g = w.nk > 0 ? w.nq / w.nk : 0;
     const int hrows = R.p.stage_rows[QTTS_KIND_HEAD];
-    if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nk < 1 || w.nq % w.nk != 0 || g > QTTS_ATTN_MAX_G ||
-        H % a.tp || Hs % 16 || H % 16 || (w.nq * w.D) % a.KCo || w.I % a.KCd || a.W < H ||
+    if (w.unit_type != QTTS_UNIT_INT8 || w.D != QTTS_ATTN_D || w.nk < 1 || w.nq % w.nk != 0 ||
+        g > QTTS_ATTN_MAX_G || H % a.tp || Hs % 16 || H % 16 || (w.nq * w.D) % a.KCo ||
+        w.I % a.KCd || a.W < H ||
         a.W < a.V || w.H != r0.w.H || w.nq != r0.w.nq ||
         w.nk != r0.w.nk || w.I != r0.w.I || w.L != r0.w.L || !qtts_plan_ok(R.p, w, 0) ||
         R.p.grid != a.bpr || R.p.smem_bytes != r0.p.smem_bytes ||

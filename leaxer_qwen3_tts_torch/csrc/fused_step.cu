@@ -44,6 +44,8 @@
 // scale.  Its bound adds the int8 slots and their scales to the weights:
 // 0.136 ms at T=256 pos 200 against the bf16 cache's 0.139; the item stays
 // latency-bound, one pair of barriers longer for the amax.
+// int4 units (--quantize int4) run the same phases; their instances are
+// fused_int4.cu's (qtts_launch_step_int4), to which this entry dispatches.
 
 #include "qtts_stream.cuh"
 
@@ -82,34 +84,6 @@ cudaError_t launch_gemv(const float* in, const float* norm_w, float eps, const i
   return cudaGetLastError();
 }
 
-// The persistent step's one argument (travels by value).
-struct StepLaunch {
-  QttsStepWeights w;
-  QttsStepScratch s;
-  QttsPlan p;
-  const float* x_in;
-  float* x;
-  void* k_cache;
-  void* v_cache;
-  float* k_scale;  // [L, nk, T] scales of an int8 cache (CT = int8_t), else null
-  float* v_scale;
-  int32_t T, pos;
-};
-
-template <typename CT, typename WT>
-__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
-step_kernel(const __grid_constant__ StepLaunch a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ QttsSeq seq;
-  QttsRing ring;
-  qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
-  int stage = 0;
-  qtts_step_phases<CT, WT>(a.w, a.s, a.p, ring, seq, 0, stage, a.x_in, a.x,
-                           static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.T, a.pos,
-                           smem, false, a.k_scale, a.v_scale);
-  qtts_trace_end(a.p);
-}
-
 bool step_args_ok(const QttsStepWeights& w, const QttsStepScratch& s, int T, int pos) {
   const int qd = w.nq * w.D;
   return w.D == QTTS_ATTN_D && w.nq % w.nk == 0 && w.nq / w.nk <= QTTS_ATTN_MAX_G &&
@@ -122,7 +96,8 @@ bool step_args_ok(const QttsStepWeights& w, const QttsStepScratch& s, int T, int
 int qtts_launch_decode_step(const QttsStepWeights& w, const QttsStepScratch& s,
                             const float* x_in, float* x, void* k_cache, void* v_cache,
                             int cache_bf16, int T, int pos, cudaStream_t st) {
-  if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
+  if (w.unit_type != QTTS_UNIT_INT8 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 ||
+      w.nq / w.nk > QTTS_ATTN_MAX_G) {
     return (int)cudaErrorInvalidValue;
   }
   if (pos < 0 || pos >= T) return (int)cudaErrorInvalidValue;
@@ -166,8 +141,8 @@ int qtts_attn_chunk() { return QTTS_ATTN_CHUNK; }
 const char* qtts_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 // Kernel K1 entry: x_out = decode_step(x_in) with the caches updated in
-// place, in one cooperative launch on the plan's grid; int8 or bf16 units
-// (w->unit_bf16), each with a bf16 or float32 cache, or an int8 cache with
+// place, in one cooperative launch on the plan's grid; int8, bf16 or int4
+// units (w->unit_type), each with a bf16 or float32 cache, or an int8 cache with
 // its scales k_scale / v_scale [L, nk, T] (null for the other caches; the
 // bucket 128-aligned, as the JAX kernel's scale windows need).
 int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const QttsPlan* p,
@@ -179,13 +154,14 @@ int qtts_decode_step(const QttsStepWeights* w, const QttsStepScratch* s, const Q
       i8 != (v_scale != nullptr) || (i8 && (cache_bf16 || T % 128 != 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  const StepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, T, pos};
+  const QttsStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, T, pos};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w->unit_type == QTTS_UNIT_INT4) return qtts_launch_step_int4(a, i8 ? 2 : cache_bf16, st);
   if (i8) {
-    return w->unit_bf16 ? qtts_launch_persistent(step_kernel<int8_t, __nv_bfloat16>, a, *p, st)
+    return w->unit_type ? qtts_launch_persistent(step_kernel<int8_t, __nv_bfloat16>, a, *p, st)
                         : qtts_launch_persistent(step_kernel<int8_t, int8_t>, a, *p, st);
   }
-  if (w->unit_bf16) {
+  if (w->unit_type) {
     return cache_bf16 ? qtts_launch_persistent(step_kernel<__nv_bfloat16, __nv_bfloat16>, a, *p, st)
                       : qtts_launch_persistent(step_kernel<float, __nv_bfloat16>, a, *p, st);
   }

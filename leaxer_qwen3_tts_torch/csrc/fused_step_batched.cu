@@ -230,7 +230,8 @@ int qtts_launch_decode_step_batched(const QttsStepWeights& w, const QttsBatchScr
                                     const float* x_in, float* x, void* k_cache, void* v_cache,
                                     int cache_bf16, int B, int T, const int64_t* pos_dev,
                                     int pos_host, cudaStream_t st) {
-  if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
+  if (w.unit_type != QTTS_UNIT_INT8 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 ||
+      w.nq / w.nk > QTTS_ATTN_MAX_G) {
     return (int)cudaErrorInvalidValue;
   }
   if (B < 1 || B > QTTS_MAX_BATCH || T < 1) return (int)cudaErrorInvalidValue;
@@ -280,7 +281,7 @@ extern "C" {
 // Kernel K4 entry: x_out [B, H] = decode_step(x_in) with the caches updated in
 // place; pos_dev [B] int64 on the device, or null for every row at pos_host.
 // One cooperative launch on the plan's grid; int8 or bf16 units
-// (w->unit_bf16), each with a bf16 or float32 cache.
+// (w->unit_type), each with a bf16 or float32 cache.
 int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
                              const QttsPlan* p, const float* x_in, float* x_out, void* k_cache,
                              void* v_cache, float* k_scale, float* v_scale, int cache_bf16, int B,
@@ -289,7 +290,9 @@ int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s
   const int qd = w->nq * w->D;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
                                : pos_host / QTTS_ATTN_CHUNK + 1;
-  if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
+  // int8 or bf16 units (int4 units in K4: ROADMAP K1v-b / K2v)
+  if (w->unit_type == QTTS_UNIT_INT4 || w->D != QTTS_ATTN_D || w->nq % w->nk != 0 ||
+      w->nq / w->nk > QTTS_ATTN_MAX_G ||
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || B < 1 || B > QTTS_MAX_BATCH ||
       T < 1 || (pos_dev == nullptr && (pos_host < 0 || pos_host >= T)) ||
       n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, B) ||
@@ -300,10 +303,10 @@ int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s
                       pos_host};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (i8) {
-    return w->unit_bf16 ? qtts_launch_persistent(bstep_kernel<int8_t, __nv_bfloat16>, a, *p, st)
+    return w->unit_type ? qtts_launch_persistent(bstep_kernel<int8_t, __nv_bfloat16>, a, *p, st)
                         : qtts_launch_persistent(bstep_kernel<int8_t, int8_t>, a, *p, st);
   }
-  if (w->unit_bf16) {
+  if (w->unit_type) {
     return cache_bf16
                ? qtts_launch_persistent(bstep_kernel<__nv_bfloat16, __nv_bfloat16>, a, *p, st)
                : qtts_launch_persistent(bstep_kernel<float, __nv_bfloat16>, a, *p, st);

@@ -116,7 +116,8 @@ bool step_args_ok(const QttsTpStepArgs& a) {
     const QttsStepWeights& w = R.w;
     // every rank: an int8 shard of rank rank0's shape on a plan of bpr
     // blocks with rank rank0's shared memory
-    if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nk < 1 || w.nq % w.nk != 0 || w.H % 16 ||
+    if (w.unit_type != QTTS_UNIT_INT8 || w.D != QTTS_ATTN_D || w.nk < 1 || w.nq % w.nk != 0 ||
+        w.H % 16 ||
         (w.nq * w.D) % 16 || w.I % 16 || w.H != r0.w.H || w.nq != r0.w.nq || w.nk != r0.w.nk ||
         w.I != r0.w.I || w.L != r0.w.L || a.pos / QTTS_ATTN_CHUNK + 1 > R.s.max_splits ||
         !qtts_plan_ok(R.p, w, 0) || R.p.grid != a.bpr || R.p.smem_bytes != r0.p.smem_bytes ||

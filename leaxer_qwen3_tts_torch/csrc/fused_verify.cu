@@ -45,7 +45,11 @@
 // multiply-adds on CUDA cores (~0.42 ms at 67 TFLOPS float32), since tensor
 // cores would sum in another order than K1.
 
-// An int8 KV cache (the JAX kernel's kvq mode; int8 units): the slot-write
+// bf16 units (the unquantized config, the JAX pack's bits=16: scales of one)
+// run K4's bf16 stage units (WT), so a row equals K1 / K4 bf16 steps bit for
+// bit; the bytes and the bound double (~880 MB per pass at 0.6B).
+//
+// An int8 KV cache (the JAX kernel's kvq mode; int8 and bf16 units): the slot-write
 // phase quantizes every row's new k and v as K1's item would and writes the
 // int8 values and their scales before its grid barrier, and the items read
 // every slot's values and scales from the cache, so a row still equals the
@@ -59,7 +63,8 @@ namespace {
 int launch_verify_step(const QttsStepWeights& w, const QttsBatchScratch& s, const float* x_in,
                        float* x, void* k_cache, void* v_cache, int cache_bf16, int B, int S, int T,
                        const int64_t* pos_dev, int pos_host, cudaStream_t st) {
-  if (w.unit_bf16 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 || w.nq / w.nk > QTTS_ATTN_MAX_G) {
+  if (w.unit_type != QTTS_UNIT_INT8 || w.D != QTTS_ATTN_D || w.nq % w.nk != 0 ||
+      w.nq / w.nk > QTTS_ATTN_MAX_G) {
     return (int)cudaErrorInvalidValue;
   }
   const int R = B * S;
@@ -120,7 +125,7 @@ struct VStepLaunch {
   int32_t B, S, T, pos_host;
 };
 
-template <typename CT>
+template <typename CT, typename WT>
 __global__ void __launch_bounds__(QTTS_P_THREADS, 1)
 vstep_kernel(const __grid_constant__ VStepLaunch a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -128,11 +133,19 @@ vstep_kernel(const __grid_constant__ VStepLaunch a) {
   QttsRing ring;
   qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
   int stage = 0;
-  qtts_bstep_phases<CT, true>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
-                              static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache),
-                              a.B * a.S, a.T, a.pos_dev, a.pos_host, smem, false, a.S, a.k_scale,
-                              a.v_scale);
+  qtts_bstep_phases<CT, true, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
+                                  static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache),
+                                  a.B * a.S, a.T, a.pos_dev, a.pos_host, smem, false, a.S,
+                                  a.k_scale, a.v_scale);
   qtts_trace_end(a.p);
+}
+
+// The pass on a float32, bf16 or int8 cache at units WT.
+template <typename WT>
+int launch_vstep(const VStepLaunch& a, bool i8, int cache_bf16, cudaStream_t st) {
+  if (i8) return qtts_launch_persistent(vstep_kernel<int8_t, WT>, a, a.p, st);
+  return cache_bf16 ? qtts_launch_persistent(vstep_kernel<__nv_bfloat16, WT>, a, a.p, st)
+                    : qtts_launch_persistent(vstep_kernel<float, WT>, a, a.p, st);
 }
 
 }  // namespace
@@ -151,8 +164,9 @@ int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const 
   const bool i8 = k_scale != nullptr;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
                                : (pos_host + S - 1) / QTTS_ATTN_CHUNK + 1;
-  // int8 units only (bf16 units: ROADMAP K1v-b)
-  if (w->unit_bf16 || w->D != QTTS_ATTN_D || w->nq % w->nk != 0 ||
+  // int8 or bf16 units (int4 units in K6: ROADMAP K1v-b / K2v)
+  if ((w->unit_type != QTTS_UNIT_INT8 && w->unit_type != QTTS_UNIT_BF16) ||
+      w->D != QTTS_ATTN_D || w->nq % w->nk != 0 ||
       w->nq / w->nk > QTTS_ATTN_MAX_G || w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 ||
       S < 2 || S > 8 || B < 1 ||
       R > QTTS_MAX_BATCH || T < S || (pos_dev == nullptr && (pos_host < 0 || pos_host > T - S)) ||
@@ -164,9 +178,8 @@ int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const 
   const VStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev, B, S,
                       T, pos_host};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (i8) return qtts_launch_persistent(vstep_kernel<int8_t>, a, *p, st);
-  return cache_bf16 ? qtts_launch_persistent(vstep_kernel<__nv_bfloat16>, a, *p, st)
-                    : qtts_launch_persistent(vstep_kernel<float>, a, *p, st);
+  return w->unit_type == QTTS_UNIT_BF16 ? launch_vstep<__nv_bfloat16>(a, i8, cache_bf16, st)
+                                        : launch_vstep<int8_t>(a, i8, cache_bf16, st);
 }
 
 // The launch-per-op pass K6 ran before it was persistent (ten launches per

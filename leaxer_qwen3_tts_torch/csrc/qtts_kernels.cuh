@@ -13,9 +13,14 @@
 
 // Per-layer-stacked weight units of one transformer (Hopper pack layout:
 // every matrix is stored [N, K], one output row per N with its K values
-// contiguous): int8 with per-row scales, or bf16 with scales of one
-// (unit_bf16; the persistent K1, K3, K4 and K5 take both, every other entry
-// int8 only).  The int8_t pointers then hold the bf16 values' bytes.
+// contiguous): int8 with per-row scales, bf16 with scales of one, or int4
+// (rows of K/2 bytes, byte j holding columns 2j in its low nibble and 2j + 1
+// in its high one, two's complement, with float32 scales [N, K/128], one per
+// 128-column group); unit_type says which.  The persistent K1, K3, K4, K5
+// and K6 take bf16, K1, K2 and K3 int4, every other entry int8 only.  The
+// int8_t pointers then hold the bf16 values' or the nibbles' bytes, and the
+// scale pointers [N, K/128] floats at int4.
+enum { QTTS_UNIT_INT8 = 0, QTTS_UNIT_BF16 = 1, QTTS_UNIT_INT4 = 2 };
 struct QttsStepWeights {
   const int8_t* wqkv;  // [L, A, H]   A = nq*D + 2*nk*D
   const float* sqkv;   // [L, A]      per-output-column scale
@@ -33,7 +38,7 @@ struct QttsStepWeights {
   int32_t L, H, nq, nk, D, I;
   float eps;         // RMSNorm epsilon
   float attn_scale;  // 1/sqrt(D), rounded to float32
-  int32_t unit_bf16;  // 1: bf16 units, 0: int8
+  int32_t unit_type;  // QTTS_UNIT_INT8, QTTS_UNIT_BF16 or QTTS_UNIT_INT4
 };
 
 // Device scratch the wrapper allocates for one decode step.
@@ -67,7 +72,7 @@ struct QttsChainArgs {
   int32_t top_k;
   float top_p;
   int32_t greedy;
-  int32_t heads_bf16;  // 1: bf16 heads (scales of one), 0: int8; the trunk's unit type
+  int32_t heads_bf16;  // 1: bf16 heads (scales of one), 0: int8 (any trunk type in K2, K3)
 };
 
 // Device scratch of one batched decode step (kernel K4, fused_step_batched.cu).

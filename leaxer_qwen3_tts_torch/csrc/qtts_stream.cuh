@@ -34,8 +34,9 @@
 //     in chain order; in the frame, the chain's and then the talker's).
 //     Thread 0 keeps the next n_slots stages in flight:
 //     each stage is a 1-D TMA bulk copy (cp.async.bulk) of the rows' weight
-//     bytes (int8 or bf16 units) plus one of their float32 scales, completed
-//     on the slot's mbarrier.  A slot is refilled the moment its stage has been consumed,
+//     bytes (int8, bf16 or int4 units) plus one of their float32 scales (one
+//     a row; K / 128 a row at int4), completed on the slot's mbarrier.  A
+//     slot is refilled the moment its stage has been consumed,
 //     so the copies of a phase are issued long before the grid barrier its
 //     input waits on, across layer boundaries and, in the chain, while one
 //     block samples (in the frame, the talker's first stages load while the
@@ -260,11 +261,20 @@ static __device__ __forceinline__ void qtts_trace_end(const QttsPlan& p) {
 
 // One block's rows of one kind and where its matrices live.
 struct QttsKindRows {
-  const int8_t* W;  // unit 0's [N, K] rows (the bytes of int8 or bf16 values)
-  const float* S;   // unit 0's [N] scales
+  const int8_t* W;  // unit 0's [N, K] rows (the bytes of int8, bf16 or int4 values)
+  const float* S;   // unit 0's [N, sfloats] scales
   int N, r0, rows, stage_rows, chunks, K;
-  int esize;  // bytes per weight: 1 (int8) or 2 (bf16)
+  int row_bytes;  // bytes per row: K (int8), 2K (bf16) or K / 2 (int4)
+  int sfloats;    // float32 scales per row: 1, or K / 128 at int4
 };
+
+// Bytes per row and scales per row of K weights of unit type `unit`.
+static __host__ __device__ __forceinline__ int qtts_row_bytes(int unit, int K) {
+  return unit == QTTS_UNIT_INT4 ? K / 2 : unit == QTTS_UNIT_BF16 ? 2 * K : K;
+}
+static __host__ __device__ __forceinline__ int qtts_row_scales(int unit, int K) {
+  return unit == QTTS_UNIT_INT4 ? K / 128 : 1;
+}
 
 // What one weight set streams: L layers and `heads` head products of N_head
 // rows; the passes and heads in chain order, `lead` passes (0 or 1) then
@@ -272,8 +282,9 @@ struct QttsKindRows {
 // the last head (the chain: lead 1); pass, head (the frame's talker and its
 // lm_head: lead 0); one pass (a step: lead 1, no heads).  head_k and
 // head_esize: a head row's width and bytes per weight where they are not the
-// trunk's (the tensor-parallel chain's rank slice of the heads; 0: H and the
-// trunk's unit type).
+// trunk's (the tensor-parallel chain's rank slice of the heads; bf16 heads
+// beside an int8 or int4 trunk; 0: H and the trunk's unit type, int8 beside
+// an int4 trunk, whose heads are never int4).
 struct QttsSetSpec {
   const QttsStepWeights* w;
   const int8_t* heads;
@@ -320,8 +331,13 @@ static __device__ int qtts_seq_set(QttsSeq& q, const QttsPlan& p, int set, const
     r.S = S[k];
     r.N = N[k];
     r.K = K[k];
-    r.esize = w.unit_bf16 ? 2 : 1;  // the heads take the trunk's unit type unless set
-    if (k == QTTS_KIND_HEAD && sp.head_esize > 0) r.esize = sp.head_esize;
+    r.row_bytes = qtts_row_bytes(w.unit_type, K[k]);
+    r.sfloats = qtts_row_scales(w.unit_type, K[k]);
+    if (k == QTTS_KIND_HEAD) {  // the trunk's unit type unless set; int8 beside int4
+      const int esize = sp.head_esize > 0 ? sp.head_esize : w.unit_type == QTTS_UNIT_BF16 ? 2 : 1;
+      r.row_bytes = esize * K[k];
+      r.sfloats = 1;
+    }
     r.stage_rows = p.stage_rows[at_k];
     r.r0 = used ? p.bounds[at_k * (p.grid + p.groups) + at] : 0;
     r.rows = used ? p.bounds[at_k * (p.grid + p.groups) + at + 1] - r.r0 : 0;
@@ -344,12 +360,13 @@ static __device__ void qtts_ring_issue(const QttsRing& ring, QttsSeq& q) {
   const int rows = min(r.stage_rows, r.rows - q.chunk * r.stage_rows);
   const int slot = q.next % ring.n_slots;
   uint64_t* bar = ring.full + slot;
-  const uint32_t wbytes = (uint32_t)rows * r.K * r.esize;
-  qtts_mbar_expect_tx(bar, wbytes + 4u * rows);
+  const uint32_t wbytes = (uint32_t)rows * r.row_bytes;
+  const uint32_t sbytes = 4u * rows * r.sfloats;
+  qtts_mbar_expect_tx(bar, wbytes + sbytes);
   qtts_bulk_load(ring.slots + (size_t)slot * ring.slot_bytes,
-                 r.W + ((size_t)q.unit * r.N + n0) * r.K * r.esize, wbytes, bar);
-  qtts_bulk_load(ring.scales + (size_t)slot * ring.slot_rows, r.S + (size_t)q.unit * r.N + n0,
-                 4u * rows, bar);
+                 r.W + ((size_t)q.unit * r.N + n0) * r.row_bytes, wbytes, bar);
+  qtts_bulk_load(ring.scales + (size_t)slot * ring.slot_rows,
+                 r.S + ((size_t)q.unit * r.N + n0) * r.sfloats, sbytes, bar);
   // advance: chunks of a kind, kinds of a layer, layers of a pass; the
   // chunks of a head; then the next segment, and past a set's last
   // segment the next set
@@ -412,12 +429,13 @@ static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char
 }
 
 // The ring of a one-set plan: the transformer w, then n_heads heads of V
-// rows in chain order (none: one pass).
+// rows in chain order (none: one pass), of head_esize bytes per weight (0:
+// as QttsSetSpec's).
 static __device__ void qtts_ring_start(QttsRing& ring, QttsSeq& q, unsigned char* smem,
                                        const QttsPlan& p, const QttsStepWeights& w,
                                        const int8_t* heads, const float* head_scales, int n_heads,
-                                       int V) {
-  const QttsSetSpec spec{&w, heads, head_scales, n_heads, V, 1, 0, 0};
+                                       int V, int head_esize = 0) {
+  const QttsSetSpec spec{&w, heads, head_scales, n_heads, V, 1, 0, head_esize};
   qtts_ring_start(ring, q, smem, p, &spec);
 }
 
@@ -431,9 +449,17 @@ static __device__ __forceinline__ float qtts_i8_to_float(uint32_t word, int b) {
   return __fadd_rn(__uint_as_float(bits), -8388736.f);
 }
 
+// int4 units: a tag type (the slots hold bytes, two weights each).
+struct QttsInt4 {
+  uint8_t pair;
+};
+template <typename WT>
+constexpr bool qtts_int4_units = std::is_same<WT, QttsInt4>::value;
+
 // Weight units: int8 (a row's scale applied after the dot product) or bf16
 // (scales of one).  Both convert exactly to float, so the same FMA chain
-// over a unit's values gives the same sums whatever type held them.
+// over a unit's values gives the same sums whatever type held them.  (int4
+// units take their own path through qtts_stage_rows: group scales.)
 //
 // A lane's n consecutive weights of one row into words (n / 4 words of
 // int8, n / 2 of bf16): 16-byte loads, one 8-byte load for 8 int8.
@@ -484,6 +510,14 @@ static __device__ __forceinline__ int qtts_sh_col(int k) {
   return (k & ~511) | (((k >> 2) & 3) << 7) | (((k >> 4) & 31) << 2) | (k & 3);
 }
 
+// qtts_stage_rows at int4 units, defined in fused_int4.cu: the one
+// translation unit that instantiates the int4 kernels (so a change to the
+// int4 arithmetic rebuilds that source alone).
+template <bool ACCUM, int M>
+static __device__ __forceinline__ void qtts_stage_rows4(const unsigned char* ws, const float* ss,
+                                                        const float* sh, float* out, int n0,
+                                                        int K, int warp, int lane);
+
 // A warp's M rows (warp, warp + 8, ...) of one stage: each a dot product in
 // K1's lane order, then the xor butterfly and qtts_gemv_store's epilogue
 // (the residual, with ACCUM, loaded before the dot products).  M is a
@@ -494,6 +528,11 @@ template <bool ACCUM, int M, typename WT>
 static __device__ __forceinline__ void qtts_stage_rows(const WT* ws, const float* ss,
                                                        const float* sh, float* out, int n0, int K,
                                                        int warp, int lane) {
+  if constexpr (qtts_int4_units<WT>) {
+    qtts_stage_rows4<ACCUM, M>(reinterpret_cast<const unsigned char*>(ws), ss, sh, out, n0, K,
+                               warp, lane);
+    return;
+  }
   float res[M];
 #pragma unroll
   for (int j = 0; j < M; ++j) {
@@ -1514,10 +1553,12 @@ struct QttsStepTail {
 // runs at the one call site of qtts_step_phases: inlined once, the step's
 // phases keep their registers (a step called from several sites is an
 // out-of-line function, which spilled in its GEMV and attention loops).
-// WT: the unit type of w, its heads and a tail's talker.  TCT: the tail's
-// cache type; where it is not the chain's (the frame's int8 talker cache
-// beside a bf16 chain cache) the tail's step has a call site of its own.
-template <typename CT, typename WT = int8_t, typename TCT = CT, typename Last>
+// WT: the unit type of w and a tail's talker.  TCT: the tail's cache type;
+// where it is not the chain's (the frame's int8 talker cache beside a bf16
+// chain cache) the tail's step has a call site of its own.  HT: the heads'
+// unit type (int8 or bf16), the trunk's unless given.
+template <typename CT, typename WT = int8_t, typename TCT = CT, typename HT = WT,
+          typename Last>
 static __device__ __forceinline__ void qtts_chain_phases(
     const QttsStepWeights& w, const QttsStepScratch& s, const QttsPlan& p, const QttsRing& ring,
     QttsSeq& q, int set, int& stage, const QttsChainArgs& c, unsigned char* un, Last last,
@@ -1548,7 +1589,7 @@ static __device__ __forceinline__ void qtts_chain_phases(
     const int j = pass - 1;
     // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j
     qtts_prologue<QTTS_IN_NORM>(c.x, c.final_norm, w.eps, H, sh);
-    qtts_ring_gemv<false, WT>(p, ring, q, set * QTTS_KINDS + QTTS_KIND_HEAD, stage, sh,
+    qtts_ring_gemv<false, HT>(p, ring, q, set * QTTS_KINDS + QTTS_KIND_HEAD, stage, sh,
                               c.logits);
     qtts_phase_barrier(p);
     if (blockIdx.x == 0) {
@@ -2063,8 +2104,10 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
 // ---------------------------------------------------------------------------
 
 // The plan's constraints on weight set `set`: the transformer w and V head
-// rows (0 without heads).
-static inline bool qtts_plan_set_ok(const QttsPlan& p, int set, const QttsStepWeights& w, int V) {
+// rows (0 without heads) of head_esize bytes per weight (0: the trunk's
+// unit type, int8 beside int4 units).
+static inline bool qtts_plan_set_ok(const QttsPlan& p, int set, const QttsStepWeights& w, int V,
+                                    int head_esize = 0) {
   const int qd = w.nq * w.D;
   const int K[QTTS_KINDS] = {w.H, qd, w.H, w.I, w.H};
   const int g = w.nq / w.nk;
@@ -2073,12 +2116,17 @@ static inline bool qtts_plan_set_ok(const QttsPlan& p, int set, const QttsStepWe
       w.nk > QTTS_P_MAX_KV_HEADS || p.n_tickets < p.batch * w.nk) {
     return false;
   }
-  const size_t esize = w.unit_bf16 ? 2 : 1;  // the units' and heads' bytes per weight
+  if (w.unit_type < QTTS_UNIT_INT8 || w.unit_type > QTTS_UNIT_INT4) return false;
+  const int head_b = head_esize > 0 ? head_esize : w.unit_type == QTTS_UNIT_BF16 ? 2 : 1;
   for (int k = 0; k < QTTS_KINDS; ++k) {
     if (k == QTTS_KIND_HEAD && V == 0) continue;
+    const bool head = k == QTTS_KIND_HEAD;
     const int r = p.stage_rows[set * QTTS_KINDS + k];
-    if (K[k] % 16 || r < 4 || r % 4 || r > QTTS_P_MAX_STAGE_ROWS || r > p.slot_rows ||
-        (size_t)r * K[k] * esize > (size_t)p.slot_bytes) {
+    const size_t row_bytes = head ? (size_t)head_b * K[k] : qtts_row_bytes(w.unit_type, K[k]);
+    const int sfloats = head ? 1 : qtts_row_scales(w.unit_type, K[k]);
+    if (K[k] % 16 || r < 4 || r % 4 || r > QTTS_P_MAX_STAGE_ROWS || r * sfloats > p.slot_rows ||
+        (size_t)r * row_bytes > (size_t)p.slot_bytes ||
+        (!head && w.unit_type == QTTS_UNIT_INT4 && K[k] % 256)) {
       return false;
     }
   }
@@ -2090,7 +2138,8 @@ static inline bool qtts_plan_set_ok(const QttsPlan& p, int set, const QttsStepWe
 // K3 and K7, whose GEMV input is MAX_K floats).  A two-set plan (K7) also
 // drives w2 with V2 head rows.
 static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int V, int B = 0,
-                                const QttsStepWeights* w2 = nullptr, int V2 = 0) {
+                                const QttsStepWeights* w2 = nullptr, int V2 = 0,
+                                int head_esize = 0) {
   if (p.grid < 1 || p.n_slots < 1 || p.slot_bytes % 16 || p.slot_rows % 4 || p.union_bytes % 128) {
     return false;
   }
@@ -2099,7 +2148,8 @@ static inline bool qtts_plan_ok(const QttsPlan& p, const QttsStepWeights& w, int
     return false;
   }
   if (p.n_sets != (w2 != nullptr ? 2 : 1) || (w2 != nullptr && B > 0) ||
-      !qtts_plan_set_ok(p, 0, w, V) || (w2 != nullptr && !qtts_plan_set_ok(p, 1, *w2, V2))) {
+      !qtts_plan_set_ok(p, 0, w, V, head_esize) ||
+      (w2 != nullptr && !qtts_plan_set_ok(p, 1, *w2, V2))) {
     return false;
   }
   // the union region: the GEMV input (MAX_K floats, or each of a group's
@@ -2174,6 +2224,90 @@ static int qtts_launch_persistent(void (*kernel)(Args), const Args& a, const Qtt
                                   cudaStream_t st) {
   return qtts_launch_persistent(kernel, a, p.grid, p.smem_bytes, st);
 }
+
+// ---------------------------------------------------------------------------
+// The B=1 step (K1) and chain (K2, K3) kernels: fused_step.cu and
+// fused_mtp.cu instantiate them at int8 and bf16 units, fused_int4.cu at
+// int4 units (a translation unit of its own, built beside the others)
+// ---------------------------------------------------------------------------
+
+// The persistent step's one argument (travels by value).
+struct QttsStepLaunch {
+  QttsStepWeights w;
+  QttsStepScratch s;
+  QttsPlan p;
+  const float* x_in;
+  float* x;
+  void* k_cache;
+  void* v_cache;
+  float* k_scale;  // [L, nk, T] scales of an int8 cache (CT = int8_t), else null
+  float* v_scale;
+  int32_t T, pos;
+};
+
+// The persistent chain's one argument (travels by value).
+struct QttsChainLaunch {
+  QttsStepWeights w;
+  QttsStepScratch s;
+  QttsPlan p;
+  QttsChainArgs c;
+};
+
+namespace {
+
+// CT: the cache type; WT: the units' type.
+template <typename CT, typename WT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+step_kernel(const __grid_constant__ QttsStepLaunch a) {
+  extern __shared__ __align__(128) unsigned char qtts_ring_smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  qtts_ring_start(ring, seq, qtts_ring_smem, a.p, a.w, nullptr, nullptr, 0, 0);
+  int stage = 0;
+  qtts_step_phases<CT, WT>(a.w, a.s, a.p, ring, seq, 0, stage, a.x_in, a.x,
+                           static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.T, a.pos,
+                           qtts_ring_smem, false, a.k_scale, a.v_scale);
+  qtts_trace_end(a.p);
+}
+
+// CT: the chain's cache type; WT: the trunk's units; HT: the heads' (int8 or
+// bf16, whatever the trunk's).
+template <typename CT, typename WT, typename HT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+chain_kernel(const __grid_constant__ QttsChainLaunch a) {
+  extern __shared__ __align__(128) unsigned char qtts_ring_smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  const QttsChainArgs& c = a.c;
+  qtts_ring_start(ring, seq, qtts_ring_smem, a.p, a.w, c.heads, c.head_scales, c.n, c.V,
+                  c.heads_bf16 ? 2 : 1);
+  int stage = 0;
+  qtts_chain_phases<CT, WT, CT, HT>(a.w, a.s, a.p, ring, seq, 0, stage, c, qtts_ring_smem,
+                                    [] {});
+  qtts_trace_end(a.p);
+}
+
+// The chain of heads type HT on a float32 or bf16 cache.
+template <typename WT, typename HT>
+int qtts_launch_chain_cache(const QttsChainLaunch& l, cudaStream_t st) {
+  return l.c.cache_bf16
+             ? qtts_launch_persistent(chain_kernel<__nv_bfloat16, WT, HT>, l, l.p, st)
+             : qtts_launch_persistent(chain_kernel<float, WT, HT>, l, l.p, st);
+}
+
+// The chain of trunk type WT with int8 or bf16 heads.
+template <typename WT>
+int qtts_launch_chain_heads(const QttsChainLaunch& l, cudaStream_t st) {
+  return l.c.heads_bf16 ? qtts_launch_chain_cache<WT, __nv_bfloat16>(l, st)
+                        : qtts_launch_chain_cache<WT, int8_t>(l, st);
+}
+
+}  // namespace
+
+// fused_int4.cu: K1 at int4 units (cache: 0 float32, 1 bf16, 2 int8 with
+// its scales) and the chain on an int4 trunk, each checked by its entry.
+int qtts_launch_step_int4(const QttsStepLaunch& a, int cache, cudaStream_t st);
+int qtts_launch_chain_int4(const QttsChainLaunch& a, cudaStream_t st);
 
 // The B=1 chain entries of fused_mtp.cu (K2 and its launch-per-op chain),
 // which K3's entries (fused_mtp_stream.cu) run on a float32 cache.

@@ -11,8 +11,11 @@ a packed ``fused_step`` and the resident chain on (:func:`resident_enabled`:
 ``cfg.resident``, else ``QTTS_MTP_RESIDENT`` as the JAX package reads it, else
 on), the whole chain as one kernel.  At B=1 the route is the
 JAX package's with its TPU defaults: kernel K2
-(:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`) when the
-trunk passes the residency gate (the 0.6B trunk), else kernel K3
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain`) on the pack
+:func:`resident_pack` gives (the primary ``fused_step`` where it passes the
+residency gate: the 0.6B int8 and int4 trunks; else the int4
+``fused_step_alt`` of ``mtp_quantize="auto"`` where that passes: the 0.6B
+chain of an unquantized talker), else kernel K3
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp_stream.fused_mtp_chain_streamed`,
 float32 KV scratch) when the stream gate passes (the 1.7B trunk) and the
 streamed chain is on (:func:`stream_enabled`: ``QTTS_MTP_STREAM``, else on).
@@ -68,18 +71,47 @@ def _head(heads, j: int):
     return heads[j]
 
 
-def prepare_fused_step(cfg: CodePredictorConfig, cp_params: dict, bits: int = 8) -> dict:
+def prepare_fused_step(cfg: CodePredictorConfig, cp_params: dict, bits: int = 8,
+                       alt: bool = False) -> dict:
     """Attach the packed trunk (``fused_step``) and heads (``fused_heads``)
     for the chain kernel when the architecture qualifies: int8 (bits=8,
-    quantized params) or bf16 units and heads (bits=16, raw params)."""
+    quantized or raw params), bf16 (bits=16, raw params) or int4 units
+    (bits=4, raw params), the heads as they stand (int8 rows of quantized
+    heads, bf16 rows of raw ones).  ``alt=True`` writes the trunk to
+    ``fused_step_alt`` instead, heads untouched: the engine's
+    ``mtp_quantize="auto"`` int4 trunk, which :func:`resident_pack` takes
+    where the primary pack fails the residency gate (JAX's)."""
     if not supports(cfg.transformer) or cfg.head_mode != "per_step":
         return cp_params
     out = dict(cp_params)
-    out["fused_step"] = pack_fused_weights(
+    out["fused_step_alt" if alt else "fused_step"] = pack_fused_weights(
         cfg.transformer, cp_params["transformer"]["layers"], bits=bits
     )
-    out["fused_heads"] = pack_heads(cp_params["heads"])
-    return out
+    return out if alt else attach_heads(cfg, out)
+
+
+def attach_heads(cfg: CodePredictorConfig, cp_params: dict) -> dict:
+    """The chain kernels' heads (``fused_heads``) packed from ``heads`` as
+    they stand: the engine packs them after the last ``quantize_params``,
+    whatever the trunk's precision, since the chains read the heads the
+    plain path reads (JAX's chains take ``params["heads"]`` at call time)."""
+    if cfg.head_mode != "per_step":
+        return cp_params
+    return dict(cp_params, fused_heads=pack_heads(cp_params["heads"]))
+
+
+def resident_pack(params: dict, batch: int):
+    """The trunk pack the resident chain takes at this batch, or None (JAX
+    ``models/code_predictor.py::resident_pack``): the primary ``fused_step``
+    where it passes the residency gate at ``batch`` rows, else the int4
+    ``fused_step_alt`` where that passes."""
+    fw = params.get("fused_step")
+    if fw is not None and supports_resident(fw, batch):
+        return fw
+    alt = params.get("fused_step_alt")
+    if alt is not None and supports_resident(alt, batch):
+        return alt
+    return None
 
 
 def resident_enabled(cfg: CodePredictorConfig) -> bool:
@@ -105,19 +137,29 @@ def stream_enabled() -> bool:
 def chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int):
     """The wrapper of the kernel that runs a chain of ``rows`` rows (K2, K3
     or K5; on the CPU its plain version), or None for the cached plain path.
-    At B=1: K2 when the trunk passes the residency gate, else K3 when the
-    streamed chain is on and the trunk passes the stream gate."""
+    At B=1: K2 when :func:`resident_pack` gives a pack, else K3 on the
+    primary pack when the streamed chain is on and it passes the stream
+    gate (JAX's ``predict_subcodes``); :func:`chain_pack` says which pack."""
     if not (cfg.impl == "fused" and resident_enabled(cfg) and "fused_step" in params
             and rows <= MAX_BATCH and cfg.head_mode == "per_step"):
         return None
     if rows > 1:
         return fused_mtp_chain_batched
-    fw = params["fused_step"]
-    if supports_resident(fw):
+    if resident_pack(params, 1) is not None:
         return fused_mtp_chain
-    if stream_enabled() and supports_stream(fw, cfg.subcode_vocab_size):
+    if stream_enabled() and supports_stream(params["fused_step"], cfg.subcode_vocab_size):
         return fused_mtp_chain_streamed
     return None
+
+
+def chain_pack(params: dict, chain):
+    """The trunk pack ``chain`` (a :func:`chain_kernel` result) reads: K2's
+    is :func:`resident_pack`'s at B=1, K3's and K5's the primary pack (the
+    port's batched chain takes the primary at any residency: ROADMAP Queue
+    3; where JAX would take the alt there the engine refuses)."""
+    if chain is fused_mtp_chain:
+        return resident_pack(params, 1)
+    return params["fused_step"]
 
 
 def subcode_embed_sum(
@@ -169,16 +211,17 @@ def predict_subcodes(
     if chain is not None:
         noise = None if sp.greedy else noise_fn()
         knobs = sp.rows(1)[0] if B == 1 else sp
+        fw = chain_pack(params, chain)
         # K3 keeps its float32 scratch whatever the model dtype, and K5 takes
         # it on a bf16 trunk (whose B=1 chain is K3)
         if chain is fused_mtp_chain_streamed:
             dtype = {}
-        elif params["fused_step"].wqkv.dtype == torch.bfloat16:
+        elif fw.wqkv.dtype == torch.bfloat16:
             dtype = {"cache_dtype": torch.float32}
         else:
             dtype = {"cache_dtype": t.torch_dtype}
         subcodes, sub_sum = chain(
-            t, params["fused_step"], params["transformer"]["final_norm"],
+            t, fw, params["transformer"]["final_norm"],
             params["fused_heads"], pred_embed_tables, last_hidden, code0_embed,
             noise, knobs.temperature, knobs.top_k, knobs.top_p, **dtype,
         )

@@ -8,7 +8,9 @@ cache tensors are updated IN PLACE.  The uniform fill (every sequence at the
 same slot: the engine path) keeps one host integer as the fill level;
 ``uniform_fill=False`` (the continuous pool, whose slots fill at different
 rates) keeps a [B] device tensor and writes each row at its own offset.
-int8 KV caches are a later ROADMAP item.
+An int8 KV cache (``kv_cache_quant``) keeps per-(slot, kv head) float32
+scales beside its values (``KVCache.k_scale`` / ``v_scale``, the JAX
+package's ``quantize_kv`` grid).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 
 from ..config import TransformerConfig
 from ..ops.attention import attend
-from ..ops.quant import QuantizedLinear, dense
+from ..ops.quant import dense, index_weight
 
 
 class KVCache(NamedTuple):
@@ -209,7 +211,7 @@ def layer_params(layers: dict, i: int) -> dict:
     """Parameters of layer ``i`` from the stacked (leading [L]) layer dict."""
     out = {}
     for k, v in layers.items():
-        out[k] = QuantizedLinear(v.q[i], v.scale[i]) if isinstance(v, QuantizedLinear) else v[i]
+        out[k] = index_weight(v, i)
     return out
 
 

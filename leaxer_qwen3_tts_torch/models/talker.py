@@ -65,10 +65,11 @@ def talker_shard_cache(cfg: TalkerConfig, talker_params: dict, cache: KVCache, m
 
 def prepare_fused_talker(cfg: TalkerConfig, talker_params: dict, bits: int = 8) -> dict:
     """Attach the packed K1 weights when the architecture qualifies (bits=8:
-    int8 units of quantized params; bits=16: bf16 units of raw params), and
-    an int8 lm_head as [Vc, H] rows + [Vc] scales (``fused_lm_head``: the
-    layout kernel K7's epilogue reads; none for a raw lm_head, which K7
-    does not take)."""
+    int8 units of quantized params; bits=16: bf16 units of raw params;
+    bits=4: int4 units of raw params, before the engine's int4
+    ``quantize_params``), and an int8 lm_head as [Vc, H] rows + [Vc] scales
+    (``fused_lm_head``: the layout kernel K7's epilogue reads; none for a
+    raw lm_head, which K7 does not take)."""
     if not supports(cfg.transformer):
         return talker_params
     out = dict(talker_params)
@@ -207,9 +208,9 @@ def talker_verify_step(
         valid_mask = valid_mask | new
     elif embeds.device.type == "cuda":
         raise RuntimeError(
-            f"verify pass of {B} x {K} rows: the verify kernel takes a packed int8 talker, "
-            f"{MIN_S}..{MAX_S} candidates and at most {MAX_BATCH} rows (ROADMAP M12b); the "
-            f"plain layers do not run on the card"
+            f"verify pass of {B} x {K} rows: the verify kernel takes a packed int8 or bf16 "
+            f"talker, {MIN_S}..{MAX_S} candidates and at most {MAX_BATCH} rows (ROADMAP M12b); "
+            f"the plain layers do not run on the card"
         )
     else:
         positions = start[:, None] + torch.arange(K, device=embeds.device)[None, :]

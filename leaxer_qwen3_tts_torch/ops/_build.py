@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
     "fused_step.cu", "fused_step_batched.cu", "fused_mtp.cu", "fused_mtp_batched.cu",
     "fused_verify.cu", "fused_mtp_stream.cu", "flash_attention.cu", "fused_frame.cu",
-    "unit_probe.cu", "fused_tp.cu", "fused_mtp_tp.cu",
+    "unit_probe.cu", "fused_tp.cu", "fused_mtp_tp.cu", "fused_int4.cu",
 )
 HEADERS = ("qtts_kernels.cuh", "qtts_stream.cuh", "qtts_tp.cuh")
 NVCC_FLAGS = (
@@ -51,7 +51,7 @@ class StepWeights(ctypes.Structure):
         ("inv_freq", ctypes.c_void_p),
         ("L", ctypes.c_int32), ("H", ctypes.c_int32), ("nq", ctypes.c_int32),
         ("nk", ctypes.c_int32), ("D", ctypes.c_int32), ("I", ctypes.c_int32),
-        ("eps", ctypes.c_float), ("attn_scale", ctypes.c_float), ("unit_bf16", ctypes.c_int32),
+        ("eps", ctypes.c_float), ("attn_scale", ctypes.c_float), ("unit_type", ctypes.c_int32),
     ]
 
 

@@ -23,11 +23,15 @@ with that row's knobs.  On a CPU tensor
 versions, :func:`fused_mtp_chain_reference` and
 :func:`fused_mtp_chain_batched_reference`.
 
-Units and heads are int8, or bf16 with scales of one (the unquantized
-config: :func:`pack_heads` of raw heads, as the JAX chains cast them).  A
-bf16 trunk's B=1 chain is K3 (the JAX residency gate refuses bf16 trunks),
-so K2 takes int8 only; K5 takes a bf16 trunk and heads on a float32 cache,
-K3's, so that each of its rows equals K3 on it.
+Units are int8, int4 or bf16 with scales of one, and heads int8 or bf16
+(:func:`pack_heads` of raw heads, as the JAX chains cast them).  K2 and K3
+take heads of either type beside an int8 or int4 trunk (JAX's int4 mode
+keeps the heads int8; an unquantized talker beside a quantized MTP trunk,
+``mtp_quantize``, leaves the heads raw: bf16), and a bf16 trunk with bf16
+heads on a float32 cache; a bf16 trunk's B=1 chain is K3 (the JAX residency
+gate refuses bf16 trunks).  K5 takes int8 and bf16 trunks with heads of the
+trunk's type, a bf16 one on a float32 cache, K3's, so that each of its rows
+equals K3 on it.
 """
 
 from __future__ import annotations
@@ -66,21 +70,26 @@ _BISECT_ITERS = 40
 # both from device memory; the byte arithmetic is the TPU's.
 RESIDENT_MAX_BYTES = 112 * 1024 * 1024
 _FIXED_B1 = 5 * 1024 * 1024  # B=1: heads double buffer, norms, scales, rope
+_FIXED_BATCHED = 13 * 1024 * 1024  # B > 1: the tables' double buffer too
 _PER_ROW = 1_100_000  # one row's KV scratch, noise and activations
 
 
 def trunk_bytes(fw: FusedStepWeights) -> int:
-    """Bytes of the packed int8 trunk matrices."""
+    """Bytes of the packed trunk matrices, scales left out: the JAX unit
+    pack's ``units.nbytes`` (int4: the halved nibble bytes)."""
     return sum(w.numel() * w.element_size() for w in (fw.wqkv, fw.wo, fw.wgu, fw.wd))
 
 
-def supports_resident(fw: FusedStepWeights) -> bool:
-    """True when the int8 trunk plus the B=1 chain's buffers fit the TPU's
-    resident-VMEM budget: the 0.6B MTP trunk (78 MB) does, the 1.7B one
-    (302 MB) does not."""
-    if fw.wqkv.dtype != torch.int8:
+def supports_resident(fw: FusedStepWeights, batch: int = 1) -> bool:
+    """True when the int8 or int4 trunk plus the buffers of a ``batch``-row
+    chain fit the TPU's resident-VMEM budget (JAX ``supports_resident``,
+    whose int4 units are int8 bytes): at B=1 the 0.6B MTP trunk (78 MB int8,
+    39 MB int4) does, the 1.7B one (302 MB int8, 151 MB int4) does not; the
+    0.6B int8 trunk through B=16, its int4 one through B=32; bf16 never."""
+    if fw.wqkv.dtype not in (torch.int8, torch.uint8):
         return False
-    return trunk_bytes(fw) + _FIXED_B1 + _PER_ROW <= RESIDENT_MAX_BYTES
+    fixed = _FIXED_BATCHED if batch > 1 else _FIXED_B1
+    return trunk_bytes(fw) + fixed + _PER_ROW * batch <= RESIDENT_MAX_BYTES
 
 
 class HeadPack(NamedTuple):
@@ -258,8 +267,8 @@ class _ChainEntry:
         a.cache_bf16, a.n, a.V, a.Vt = int(cache_dtype == torch.bfloat16), n, V, tables.shape[1]
         a.heads_bf16 = int(heads.q.dtype == torch.bfloat16)
         self.args = a
-        self.plan = persistent.device_plan(cfg, device, head_rows=V,
-                                           unit_bytes=unit_bytes(fw)) if planned else None
+        self.plan = persistent.device_plan(cfg, device, head_rows=V, unit_bytes=unit_bytes(fw),
+                                           head_bytes=heads.q.element_size()) if planned else None
 
 
 _CHAIN_ENTRIES: "OrderedDict[tuple, _ChainEntry]" = OrderedDict()
@@ -282,13 +291,24 @@ def _chain_entry(entry: str, cfg, fw, heads, tables, cache_dtype, device) -> _Ch
     return hit
 
 
-def _check_chain_units(what: str, fw, heads, cache_dtype, bf16_ok: bool) -> None:
-    """A chain kernel's units and heads: one type, int8, or bf16 where the
-    kernel takes it (``bf16_ok``: K3, K5) and on a float32 cache."""
-    if heads.q.dtype != fw.wqkv.dtype:
+def _check_chain_units(what: str, fw, heads, cache_dtype, bf16_ok: bool,
+                       b1: bool = True) -> None:
+    """A chain kernel's units and heads.  ``b1`` (K2, K3): int8 or int4
+    units with int8 or bf16 heads, or bf16 units and heads where the kernel
+    takes them (``bf16_ok``: K3); else (K5) int8 or bf16 units with heads of
+    their type.  A bf16 trunk's chain runs on a float32 cache."""
+    if heads.q.dtype not in (torch.int8, torch.bfloat16):
+        raise NotImplementedError(f"{what}: {heads.q.dtype} heads: the chains take int8 and bf16")
+    if fw.wqkv.dtype == torch.uint8 and not b1:
         raise NotImplementedError(
-            f"{what}: {heads.q.dtype} heads on {fw.wqkv.dtype} units (the bf16-talker + int8-MTP "
-            "mix): the chain kernels take heads of the trunk's unit type (ROADMAP item K2v)")
+            f"{what}: int4 units in the batched chain K5: ROADMAP item K1v-b / K2v (K2 and K3 "
+            "take them at B=1)")
+    mixed = heads.q.dtype != fw.wqkv.dtype
+    if mixed and (not b1 or fw.wqkv.dtype == torch.bfloat16):
+        raise NotImplementedError(
+            f"{what}: {heads.q.dtype} heads on {fw.wqkv.dtype} units: this chain takes heads of "
+            "the trunk's unit type (mixed heads in K5: ROADMAP item K1v-b / K2v; K2 and K3 take "
+            "int8 or bf16 heads beside int8 and int4 trunks)")
     if fw.wqkv.dtype == torch.bfloat16:
         if not bf16_ok:
             raise NotImplementedError(
@@ -319,9 +339,13 @@ def _launch_chain(wrapper, entry: str, cfg, fw, final_norm, heads, tables, last_
             "(other dtypes: ROADMAP item K2v)"
         )
     device = last_hidden.device
+    planned = not entry.endswith("_multi")  # the _multi chains take int8 only
     _check_chain_units(what, fw, heads, cache_dtype, entry == "qtts_mtp_chain_streamed")
+    if not planned and (fw.wqkv.dtype != torch.int8 or heads.q.dtype != torch.int8):
+        raise NotImplementedError(f"{what}: the launch-per-op chain takes int8 units and heads")
     e = _chain_entry(entry, cfg, fw, heads, tables, cache_dtype, device)
-    _check_cuda_inputs(fw, e.kc, e.vc, bf16_units=entry == "qtts_mtp_chain_streamed")
+    _check_cuda_inputs(fw, e.kc, e.vc, bf16_units=entry == "qtts_mtp_chain_streamed",
+                       int4_units=planned)
     for t in (heads.q, heads.scale, tables, final_norm) + (() if greedy else (gumbel,)):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{what}: every tensor must be contiguous and on CUDA")
@@ -521,7 +545,7 @@ def _launch_chain_batched(wrapper, entry: str, cfg, fw, final_norm, heads, table
         )
     device = last_hidden.device
     planned = entry == "qtts_mtp_chain_batched"  # the _multi chain takes int8 only
-    _check_chain_units(what, fw, heads, cache_dtype, planned)
+    _check_chain_units(what, fw, heads, cache_dtype, planned, b1=False)
     e = _batch_chain_entry(entry, cfg, fw, heads, tables, B, cache_dtype, device)
     _check_cuda_inputs(fw, e.kc, e.vc, bf16_units=planned)
     for t in (heads.q, heads.scale, tables, final_norm):

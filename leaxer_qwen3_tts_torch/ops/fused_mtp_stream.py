@@ -38,22 +38,25 @@ _STREAM_FIXED = 8 * 1024 * 1024
 def _unit_count(fw: FusedStepWeights) -> int:
     """Units per layer of the JAX pack of this trunk (qkv, wo, gate/up, wd)."""
     H, A = fw.attn_norm.shape[-1], fw.wqkv.shape[1]
-    qd, I = fw.wo.shape[2], fw.wd.shape[2]
+    per_byte = 2 if fw.wqkv.dtype == torch.uint8 else 1  # int4 rows: two columns a byte
+    qd, I = fw.wo.shape[2] * per_byte, fw.wd.shape[2] * per_byte
     return A // N_UNIT + (qd // H) * (H // N_UNIT) + fw.wgu.shape[1] // N_UNIT + (
         I // H) * (H // N_UNIT)
 
 
 def supports_stream(fw: Optional[FusedStepWeights], V: int) -> bool:
     """The JAX package's gate of the streamed chain: the ring's units (their
-    bytes by the units' element size), all the scales and the double buffer
+    bytes by the units' type: int4 halves int8's), all the scales (H / 128
+    rows per unit at int4) and the double buffer
     of the [H, V] heads (reckoned as int8, as JAX does) within the
     resident-VMEM budget (the trunk itself never needs to fit)."""
     if fw is None:
         return False
     L, H = fw.wqkv.shape[0], fw.attn_norm.shape[-1]
     U = _unit_count(fw)
-    unit_b = H * N_UNIT * fw.wqkv.element_size()
-    scales_b = L * U * N_UNIT * 4
+    int4 = fw.wqkv.dtype == torch.uint8  # JAX's [H/2, N_UNIT] units, H/128 scale rows
+    unit_b = H * N_UNIT * fw.wqkv.element_size() // (2 if int4 else 1)
+    scales_b = L * U * N_UNIT * 4 * (H // 128 if int4 else 1)
     heads_b = 2 * H * V
     return _RING * unit_b + scales_b + heads_b + _STREAM_FIXED <= RESIDENT_MAX_BYTES
 

@@ -37,10 +37,17 @@ accumulation).
 The pack is Hopper's own layout: every matrix stored [N, K] (one output row
 with its K values contiguous) so the kernel streams 16-byte loads along K.
 Its units are int8 (``bits=8``: the dequantized values equal
-``ops.quant.quantize_weight``'s, and so the JAX package's unit pack's) or
-bf16 with scales of one (``bits=16``, the unquantized config: the JAX
-package's bits=16 pack, the raw weights cast to bf16); the kernels and
-their plain versions take both.
+``ops.quant.quantize_weight``'s, and so the JAX package's unit pack's), bf16
+with scales of one (``bits=16``, the unquantized config: the JAX package's
+bits=16 pack, the raw weights cast to bf16) or int4 (``bits=4``: rows of K/2
+bytes, byte j holding columns 2j (low nibble) and 2j + 1 (high), two's
+complement, with float32 scales [N, K/128], one per 128-column group: the
+integers and scales of ``ops.quant.quantize_weight_int4``'s group-128 grid,
+and so of the JAX package's bits=4 unit pack).  The int4 rows are stored as
+``torch.uint8``, a dtype of their own, so that no gate takes them for int8
+units.  K1 and its plain version take all three; an int4 product sums each
+128-column group apart and applies the group's scale after its dot (JAX's
+``_make_matmul``).
 """
 
 from __future__ import annotations
@@ -56,15 +63,16 @@ from ..config import TransformerConfig
 from ..models.layers import quantize_kv, rope_inv_freq
 from . import persistent
 from ._build import MAX_BATCH
-from .quant import QuantizedLinear, quantize_weight
+from .quant import QuantizedLinear, QuantizedLinear4, quantize_int4_values, quantize_weight
 
 
 class FusedStepWeights(NamedTuple):
     """Per-layer-stacked weight units of one transformer, Hopper layout:
-    int8 with per-row scales, or bf16 with scales of one."""
+    int8 with per-row scales, bf16 with scales of one, or int4 (uint8 rows
+    of K/2 bytes) with per-(row, 128-column group) scales [L, N, K/128]."""
 
-    wqkv: torch.Tensor  # int8 or bf16 [L, A, H], A = q_dim + 2 * kv_dim
-    sqkv: torch.Tensor  # f32 [L, A] per-output-column scale
+    wqkv: torch.Tensor  # int8 or bf16 [L, A, H], A = q_dim + 2 * kv_dim; uint8 [L, A, H/2]
+    sqkv: torch.Tensor  # f32 [L, A] per-output-column scale; [L, A, H/128] at int4
     wo: torch.Tensor  # [L, H, q_dim]
     so: torch.Tensor  # f32 [L, H]
     wgu: torch.Tensor  # [L, 2I, H]
@@ -78,24 +86,32 @@ class FusedStepWeights(NamedTuple):
     inv_freq: torch.Tensor  # f32 [d/2] rotary inverse frequencies
 
 
-UNIT_DTYPES = {8: torch.int8, 16: torch.bfloat16}  # bits -> the units' dtype
+UNIT_DTYPES = {4: torch.uint8, 8: torch.int8, 16: torch.bfloat16}  # bits -> the units' dtype
+UNIT_BITS = {dt: bits for bits, dt in UNIT_DTYPES.items()}
+UNIT_NAMES = {torch.uint8: "int4", torch.int8: "int8", torch.bfloat16: "bf16"}
+INT4_COLS = 128  # columns per int4 scale group (ops.quant.INT4_GROUP)
 WINDOW = 512  # the JAX talker step's long-form cache window
 
 
 def meta_pack(cfg: TransformerConfig, bits: int = 8) -> FusedStepWeights:
-    """A ``bits`` pack (8: int8 units, 16: bf16) of ``cfg``'s shapes on the
-    meta device (nothing allocated): what the gates that read a pack's
-    sizes and unit type need."""
+    """A ``bits`` pack (4: int4 units, 8: int8, 16: bf16) of ``cfg``'s
+    shapes on the meta device (nothing allocated): what the gates that read
+    a pack's sizes and unit type need."""
     L, H, A = cfg.num_layers, cfg.hidden_size, cfg.q_dim + 2 * cfg.kv_dim
     I, qd, d = cfg.intermediate_size, cfg.q_dim, cfg.head_dim
 
     def m(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    i8 = UNIT_DTYPES[bits]
+    def rows(N, K):  # a product's units and scales
+        if bits == 4:
+            return m((L, N, K // 2), torch.uint8), m((L, N, K // INT4_COLS))
+        return m((L, N, K), UNIT_DTYPES[bits]), m((L, N))
+
+    (wqkv, sqkv), (wo, so), (wgu, sgu), (wd, sd) = (
+        rows(A, H), rows(H, qd), rows(2 * I, H), rows(H, I))
     return FusedStepWeights(
-        wqkv=m((L, A, H), i8), sqkv=m((L, A)), wo=m((L, H, qd), i8), so=m((L, H)),
-        wgu=m((L, 2 * I, H), i8), sgu=m((L, 2 * I)), wd=m((L, H, I), i8), sd=m((L, H)),
+        wqkv=wqkv, sqkv=sqkv, wo=wo, so=so, wgu=wgu, sgu=sgu, wd=wd, sd=sd,
         attn_norm=m((L, H)), mlp_norm=m((L, H)), q_norm=m((L, d)), k_norm=m((L, d)),
         inv_freq=m((d // 2,)),
     )
@@ -125,23 +141,43 @@ def _rows(w: QuantizedLinear) -> Tuple[torch.Tensor, torch.Tensor]:
     return w.q.transpose(1, 2).contiguous(), w.scale[:, 0, :].float().contiguous()
 
 
+def _rows4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw [L, K, N] -> int4 rows [L, N, K/2] uint8 (byte j: columns 2j low,
+    2j + 1 high) + scales [L, N, K/128], on ``quantize_weight_int4``'s grid
+    (whose groups and columns the JAX unit slices keep, so each unit of the
+    JAX bits=4 pack holds the same integers and scales)."""
+    q, scale = quantize_int4_values(w)
+    if q.shape[-2] // scale.shape[-2] != INT4_COLS:
+        raise ValueError(f"int4 rows need K a multiple of {2 * INT4_COLS}")
+    r = q.transpose(1, 2)  # [L, N, K]
+    packed = (r[..., 0::2] & 0xF) | ((r[..., 1::2] & 0xF) << 4)
+    return packed.to(torch.uint8).contiguous(), scale.transpose(1, 2).float().contiguous()
+
+
+def unpack_rows4(w: torch.Tensor) -> torch.Tensor:
+    """int4 rows [..., N, K/2] uint8 -> int32 values [..., N, K] in [-8, 7]."""
+    b = w.to(torch.int32)
+    lo, hi = ((b & 0xF) ^ 8) - 8, ((b >> 4) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(*w.shape[:-1], 2 * w.shape[-1])
+
+
 def pack_fused_weights(
     cfg: TransformerConfig, layer_params: dict, bits: int = 8
 ) -> FusedStepWeights:
     """Pack stacked layer params into the kernel layout.  bits=8: fused /
     quantized by ``ops.quant`` or raw arrays, quantized here on the same
     grid.  bits=16 (the unquantized config): raw arrays only, cast to bf16
-    units with scales of one, as the JAX package's bits=16 pack."""
+    units with scales of one, as the JAX package's bits=16 pack.  bits=4:
+    raw arrays only, quantized on the group-128 int4 grid (pack before
+    ``quantize_params``, as the JAX engine does)."""
     if bits not in UNIT_DTYPES:
-        raise NotImplementedError(
-            f"bits={bits}: int4 packs are ROADMAP item K1v-b / K2v (int8 and bf16 units run)"
-        )
+        raise ValueError(f"bits must be 4, 8 or 16, got {bits}")
     if not supports(cfg):
         raise ValueError("the fused step kernel does not take this architecture")
 
     def as_quant(w):
-        if isinstance(w, QuantizedLinear):
-            if bits != 8:
+        if isinstance(w, (QuantizedLinear, QuantizedLinear4)):
+            if bits != 8 or isinstance(w, QuantizedLinear4):
                 raise ValueError(f"bits={bits} packing needs raw weights (pack before "
                                  "quantize_params in the engine)")
             return w
@@ -152,12 +188,16 @@ def pack_fused_weights(
         return quantize_weight(w)
 
     p = layer_params
-    wqkv = as_quant(p["wqkv"] if "wqkv" in p else torch.cat([p["wq"], p["wk"], p["wv"]], -1))
-    wgu = as_quant(p["wgu"] if "wgu" in p else torch.cat([p["wg"], p["wu"]], -1))
-    wqkv_r, sqkv = _rows(wqkv)
-    wo_r, so = _rows(as_quant(p["wo"]))
-    wgu_r, sgu = _rows(wgu)
-    wd_r, sd = _rows(as_quant(p["wd"]))
+    mats = [p["wqkv"] if "wqkv" in p else torch.cat([p["wq"], p["wk"], p["wv"]], -1), p["wo"],
+            p["wgu"] if "wgu" in p else torch.cat([p["wg"], p["wu"]], -1), p["wd"]]
+    if bits == 4:
+        if any(isinstance(w, (QuantizedLinear, QuantizedLinear4)) for w in mats):
+            raise ValueError("bits=4 packing needs raw weights (pack before quantize_params in "
+                             "the engine)")
+        packed = [_rows4(w) for w in mats]
+    else:
+        packed = [_rows(as_quant(w)) for w in mats]
+    (wqkv_r, sqkv), (wo_r, so), (wgu_r, sgu), (wd_r, sd) = packed
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, wqkv_r.device)
     return FusedStepWeights(
         wqkv=wqkv_r, sqkv=sqkv, wo=wo_r, so=so, wgu=wgu_r, sgu=sgu, wd=wd_r, sd=sd,
@@ -188,7 +228,15 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gemv(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """[1, K] f32 @ rows [N, K] int8 -> [1, N] f32: bf16 lhs, scale after the dot."""
+    """[1, K] f32 @ rows [N, K] int8 -> [1, N] f32: bf16 lhs, scale after the
+    dot; int4 rows [N, K/2] with scales [N, K/128]: one dot per 128-column
+    group, each group's scale after its dot, the groups summed in order."""
+    if w.dtype == torch.uint8:
+        B, K = h.shape
+        N, G = s.shape
+        part = torch.einsum("bgk,ngk->bgn", _bf16(h).reshape(B, G, K // G),
+                            unpack_rows4(w).float().reshape(N, G, K // G))
+        return (part * s.t()).sum(dim=1)
     return torch.matmul(_bf16(h), w.float().t()) * s
 
 
@@ -288,9 +336,14 @@ def fused_decode_step_reference(
 # ---------------------------------------------------------------------------
 
 
-def unit_bytes(fw: FusedStepWeights) -> int:
-    """Bytes per weight of the pack's units: 1 (int8) or 2 (bf16)."""
-    return fw.wqkv.element_size()
+def unit_bits(fw: FusedStepWeights) -> int:
+    """Bits per weight of the pack's units: 4, 8 or 16."""
+    return UNIT_BITS[fw.wqkv.dtype]
+
+
+def unit_bytes(fw: FusedStepWeights) -> float:
+    """Bytes per weight of the pack's units: 0.5 (int4), 1 (int8) or 2 (bf16)."""
+    return unit_bits(fw) / 8
 
 
 def kvq_bucket_ok(T: int, window: bool = False) -> bool:
@@ -301,11 +354,12 @@ def kvq_bucket_ok(T: int, window: bool = False) -> bool:
 
 
 def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool = False,
-                       k_scale=None, v_scale=None, window: bool = False) -> None:
+                       k_scale=None, v_scale=None, window: bool = False,
+                       int4_units: bool = False) -> None:
     """The checks every kernel wrapper makes; ``bf16_units``: the kernel
-    takes bf16 packs besides int8 (K1, K3, K4, K5).  An int8 cache comes
-    with its float32 scales and meets :func:`kvq_bucket_ok` (``window``:
-    K6's and K7's gate)."""
+    takes bf16 packs besides int8 (K1, K3, K4, K5, K6); ``int4_units``: int4
+    packs too (K1, K2, K3).  An int8 cache comes with its float32 scales and
+    meets :func:`kvq_bucket_ok` (``window``: K6's and K7's gate)."""
     if k_cache.dtype not in (torch.bfloat16, torch.float32, torch.int8) or (
             v_cache.dtype != k_cache.dtype):
         raise NotImplementedError(f"KV cache dtype {k_cache.dtype}: the kernels take bfloat16, "
@@ -322,12 +376,18 @@ def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool 
                 f"int8 KV fused decode needs the bucket ({T}) 128-aligned"
                 + (" (and beyond 512 slots a multiple of 512)" if window else "")
                 + "; the engine rounds its top bucket so")
-    units = (torch.int8, torch.bfloat16) if bf16_units else (torch.int8,)
+    units = (torch.int8,) + ((torch.bfloat16,) if bf16_units else ()) + (
+        (torch.uint8,) if int4_units else ())
     if fw.wqkv.dtype not in units or any(w.dtype != fw.wqkv.dtype for w in (fw.wo, fw.wgu, fw.wd)):
         raise NotImplementedError(
-            f"{fw.wqkv.dtype} units: this kernel takes {' and '.join(str(u)[6:] for u in units)} "
-            "packs (int4 units, and bf16 units in K2, K6 and K7: ROADMAP item K1v-b / K2v)"
+            f"{UNIT_NAMES.get(fw.wqkv.dtype, fw.wqkv.dtype)} units: this kernel takes "
+            f"{' and '.join(UNIT_NAMES[u] for u in units)} packs (int4 units in K4, K5, K6 and "
+            "K7, bf16 units in K2 and K7: ROADMAP item K1v-b / K2v)"
         )
+    want = (fw.wqkv.shape[0], fw.wqkv.shape[1]) + ((fw.wqkv.shape[2] // (INT4_COLS // 2),)
+                                                   if fw.wqkv.dtype == torch.uint8 else ())
+    if fw.sqkv.shape != want:
+        raise ValueError(f"scales {tuple(fw.sqkv.shape)} for {names_of(fw)} units: want {want}")
     for t in (*fw, k_cache, v_cache, *scales):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("fused_decode_step: every tensor must be contiguous and on CUDA")
@@ -335,6 +395,15 @@ def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool 
     # and scales out of every pack tensor
     if any(t.data_ptr() % 16 for t in fw):
         raise ValueError("fused_decode_step: the pack's tensors must be 16-byte aligned")
+
+
+# the units' type code of QttsStepWeights.unit (csrc/qtts_kernels.cuh)
+UNIT_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.uint8: 2}
+
+
+def names_of(fw: FusedStepWeights) -> str:
+    """The pack's unit type, as the errors name it."""
+    return UNIT_NAMES[fw.wqkv.dtype]
 
 
 def scale_ptrs(k_scale, v_scale) -> tuple:
@@ -352,7 +421,7 @@ def _weights_struct(cfg: TransformerConfig, fw: FusedStepWeights):
         fw.k_norm.data_ptr(), fw.inv_freq.data_ptr(),
         fw.wqkv.shape[0], cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
         cfg.intermediate_size, cfg.rms_norm_eps, attn_scale(cfg.head_dim),
-        int(fw.wqkv.dtype == torch.bfloat16),
+        UNIT_TYPES[fw.wqkv.dtype],
     )
 
 
@@ -422,7 +491,7 @@ def fused_decode_step(
         return fused_decode_step_reference(cfg, fw, x, pos, k_cache, v_cache, k_scale, v_scale)
     if x.device.type != "cuda":
         raise ValueError(f"fused_decode_step: unsupported device {x.device}")
-    _check_cuda_inputs(fw, k_cache, v_cache, True, k_scale, v_scale)
+    _check_cuda_inputs(fw, k_cache, v_cache, True, k_scale, v_scale, int4_units=True)
     from ._build import check, load_kernels
 
     lib = load_kernels()

@@ -16,7 +16,11 @@ plain version, and the CUDA kernel (``csrc/fused_verify.cu``: one persistent
 cooperative launch per pass, K4's transport on a plan of B * S rows) does
 K4's arithmetic for every row, op for op.  On a CUDA tensor
 :func:`fused_verify_step` launches the kernel or raises; on a CPU tensor it
-runs the plain version.  An int8 cache comes with its scales (the JAX
+runs the plain version.  The units are int8 or bf16 (the unquantized
+config's bits=16 pack; a bf16 row equals K1 / K4 bf16 steps bit for bit);
+at the 1.7B widths a bf16 verify plan does not fit a batched plan's 32 KB
+ring slot (``persistent.batched_fits``: ROADMAP B17), so the engine refuses
+that spec there.  An int8 cache comes with its scales (the JAX
 kernel's ``kvq`` mode): the slot-write phase quantizes each row's new slot
 as K4 does and writes its scales before the phase's barrier, and the
 scales are updated in place and returned after the caches.
@@ -41,6 +45,7 @@ from .fused_step import (
     batch_structs,
     fused_decode_step_batched_reference,
     scale_ptrs,
+    unit_bytes,
 )
 
 MIN_S, MAX_S = 2, 8  # candidates per stream, as the JAX kernel takes them
@@ -93,7 +98,7 @@ class _VerifyEntry:
     def __init__(self, cfg: TransformerConfig, fw: FusedStepWeights, B: int, S: int, T: int,
                  device):
         self.w, self.s, self.scratch = batch_structs(cfg, fw, B * S, T, device)
-        self.plan = persistent.device_plan(cfg, device, batch=B * S)
+        self.plan = persistent.device_plan(cfg, device, batch=B * S, unit_bytes=unit_bytes(fw))
 
 
 _ENTRIES: "OrderedDict[tuple, _VerifyEntry]" = OrderedDict()
@@ -104,7 +109,7 @@ def _verify_entry(cfg: TransformerConfig, fw: FusedStepWeights, B: int, S: int, 
     """The cached entry of this pack at B x S rows, keyed by every pointer it
     holds (nothing derived from a tensor's contents is cached)."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    key = (cfg, B, S, T, dtype, device, stream, threading.get_ident(),
+    key = (cfg, B, S, T, dtype, device, stream, threading.get_ident(), fw.wqkv.dtype,
            *(t.data_ptr() for t in fw))
     entry = _ENTRIES.get(key)
     if entry is None:
@@ -141,9 +146,9 @@ def launch_verify(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeig
                   x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   k_scale=None, v_scale=None):
     """Launch a verify entry (``qtts_verify_step``: K6, persistent, with its
-    cached entry; ``qtts_verify_step_multi``: the launch-per-op pass, on a
-    bf16 or float32 cache) on CUDA tensors, counting the launch on
-    ``wrapper``."""
+    cached entry, int8 or bf16 units; ``qtts_verify_step_multi``: the
+    launch-per-op pass, int8 units on a bf16 or float32 cache) on CUDA
+    tensors, counting the launch on ``wrapper``."""
     what = wrapper.__name__
     B, S, T = _check_shapes(x, k_cache)
     if x.device.type != "cuda":
@@ -153,7 +158,7 @@ def launch_verify(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeig
     planned = entry == "qtts_verify_step"
     if not planned and k_scale is not None:
         raise NotImplementedError(f"{what}: the launch-per-op pass takes no int8 cache")
-    _check_cuda_inputs(fw, k_cache, v_cache, False, k_scale, v_scale, window=True)
+    _check_cuda_inputs(fw, k_cache, v_cache, planned, k_scale, v_scale, window=True)
     from ._build import check, load_kernels
 
     lib = load_kernels()

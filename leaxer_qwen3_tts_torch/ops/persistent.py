@@ -15,8 +15,14 @@ slots fit, and the dynamic shared memory of the launch.  The layout mirrors
 ``qtts_plan_layout``; the C entries check the plan's scalars again and raise
 on one they do not take.
 
-Units are int8 or bf16 (``unit_bytes`` 1 or 2, the heads of the pack's
-type too): a stage's rows are slot_bytes over K x unit_bytes.  A bf16 row
+Units are int8, bf16 or int4 (``unit_bytes`` 1, 2 or 0.5; the heads of the
+pack's type, or ``head_bytes``; an int4 trunk's heads are int8 unless
+``head_bytes`` says bf16): a stage's rows are slot_bytes over K x
+unit_bytes.  An int4 row carries K / 128 float32 scales (one per 128-column
+group) where the other types carry one, so a slot's scale area
+(``slot_rows`` floats) holds stage rows x K / 128 of them: 8 per row at K =
+1024, 48 at the 1.7B down product (K = 6144); every copy stays a multiple of
+16 bytes (rows come in fours).  A bf16 row
 of the 1.7B down product (K = 6144) is 12 KB, so a SLOT_BYTES slot holds two
 rows, under ROW_QUANTUM: a one-row bf16 plan there takes WIDE_SLOT_BYTES
 slots (four rows exactly), and a batched one cannot be built
@@ -66,7 +72,9 @@ MAX_BATCH = 32  # the rows a batched launch takes
 MAX_TICKETS = MAX_BATCH * MAX_KV_HEADS  # attention tickets: one per (row, kv head)
 ATTN_CHUNK = 64  # cache slots per attention split
 MIN_SLOTS = 3  # ring slots a batched plan keeps before it splits the grid into groups
-ROW_QUANTUM = 4  # rows per 16 bytes of float32 scales
+ROW_QUANTUM = 4  # rows per 16 bytes of float32 scales (one a row)
+INT4 = 0.5  # unit_bytes of int4 units
+INT4_COLS = 128  # columns per int4 scale group
 SLOT_BYTES = 32 * 1024  # a batched plan's slot, and a one-row plan's past WIDE_SLOT_BYTES
 WIDE_SLOT_BYTES = 48 * 1024  # a one-row plan's slot where a block's layer fits the ring
 KINDS = ("qkv", "o", "gu", "down", "head")
@@ -86,7 +94,7 @@ class Plan(NamedTuple):
     batch: int = 1  # rows of the launch (1: K1, K2, K3, K7)
     groups: int = 1  # batch groups: bounds are [kind index][grid + groups]
     n_sets: int = 1  # weight sets (2: K7's MTP trunk, then its talker)
-    unit_bytes: int = 1  # bytes per weight: 1 (int8 units), 2 (bf16)
+    unit_bytes: float = 1  # bytes per weight: 1 (int8 units), 2 (bf16), 0.5 (int4)
     head_bytes: int = 0  # bytes per head weight where not unit_bytes (K10's bf16 heads)
 
 
@@ -192,8 +200,11 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     if max(K for N, K in shapes if N) > MAX_K or max(
             c.num_kv_heads for c, _ in sets) > MAX_KV_HEADS:
         raise ValueError(f"GEMV inputs past {MAX_K} wide or past {MAX_KV_HEADS} kv heads")
-    if unit_bytes not in (1, 2) or head_bytes not in (0, 1, 2):
-        raise ValueError(f"units of {unit_bytes} bytes: the kernels take int8 (1) and bf16 (2)")
+    if unit_bytes not in (INT4, 1, 2) or head_bytes not in (0, 1, 2):
+        raise ValueError(f"units of {unit_bytes} bytes: the kernels take int8 (1), bf16 (2) and "
+                         f"int4 ({INT4})")
+    if unit_bytes == INT4 and any(N and K % (2 * INT4_COLS) for N, K in shapes[:4]):
+        raise ValueError(f"int4 rows need K a multiple of {2 * INT4_COLS}")
     if batch == 1:
         wide = _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes,
                         head_bytes)
@@ -206,16 +217,24 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     return _plan_at(SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes, head_bytes)
 
 
-def _kind_bytes(kind: int, unit_bytes: int, head_bytes: int) -> int:
+def _kind_bytes(kind: int, unit_bytes: float, head_bytes: int) -> float:
     """Bytes per weight of kind index ``kind``: set 0's heads take
-    ``head_bytes`` where it is set."""
-    return head_bytes if kind == KINDS.index("head") and head_bytes else unit_bytes
+    ``head_bytes`` where it is set (int8 beside int4 units otherwise)."""
+    if kind == KINDS.index("head"):
+        return head_bytes or (1 if unit_bytes == INT4 else unit_bytes)
+    return unit_bytes
+
+
+def scale_floats(kind: int, K: int, unit_bytes: float, head_bytes: int = 0) -> int:
+    """float32 scales per row of kind index ``kind``: K / 128 for int4 rows,
+    else one."""
+    return K // INT4_COLS if _kind_bytes(kind, unit_bytes, head_bytes) == INT4 else 1
 
 
 def batched_fits(cfg: TransformerConfig, unit_bytes: int) -> bool:
-    """Whether a batched plan (K4, K5) of ``cfg`` can be built: a SLOT_BYTES
-    slot holds ROW_QUANTUM rows of its widest product (bf16 units: K <=
-    4096, the 0.6B widths, not 1.7B's)."""
+    """Whether a batched plan (K4, K5, K6) of ``cfg`` can be built: a
+    SLOT_BYTES slot holds ROW_QUANTUM rows of its widest product (bf16
+    units: K <= 4096, the 0.6B widths, not 1.7B's)."""
     widest = max(K for N, K in kind_shapes(cfg))
     return SLOT_BYTES // (unit_bytes * widest) >= ROW_QUANTUM
 
@@ -224,14 +243,16 @@ def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: 
              n_sets: int, unit_bytes: int = 1, head_bytes: int = 0) -> Plan:
     """The plan of ``make_plan`` with slots of ``slot_bytes``."""
     stage_rows = []
+    slot_rows = 0
     for i, (N, K) in enumerate(shapes):
-        row_bytes = K * _kind_bytes(i, unit_bytes, head_bytes)
+        row_bytes = int(K * _kind_bytes(i, unit_bytes, head_bytes))
         rows = min(MAX_STAGE_ROWS, slot_bytes // row_bytes) // ROW_QUANTUM * ROW_QUANTUM
         if N and rows < ROW_QUANTUM:
             raise ValueError(f"a {slot_bytes}-byte slot holds fewer than 4 rows of "
                              f"{row_bytes} bytes")
         stage_rows.append(rows if N else ROW_QUANTUM)
-    slot_rows = max(stage_rows)
+        slot_rows = max(slot_rows, stage_rows[-1] * (
+            scale_floats(i, K, unit_bytes, head_bytes) if N else 1))
     # the GEMV input (MAX_K floats at one row, a group's rows in bf16
     # batched), two attention items, or the sampler's scratch
     for groups in range(1, batch + 1):
@@ -259,9 +280,9 @@ def layer_share(plan: Plan, s: int = 0) -> int:
     """The weight bytes of one layer of weight set ``s`` (its qkv, o,
     gate|up and down rows) that the block owning the most of them streams."""
     kinds = range(s * len(KINDS), s * len(KINDS) + 4)
-    return plan.unit_bytes * max(
+    return int(plan.unit_bytes * max(
         sum((plan.bounds[k][at + 1] - plan.bounds[k][at]) * plan.shapes[k][1] for k in kinds)
-        for at in range(len(plan.bounds[0]) - 1))
+        for at in range(len(plan.bounds[0]) - 1)))
 
 
 def stages(plan: Plan, kind: int, block: int) -> Sequence[Tuple[int, int]]:

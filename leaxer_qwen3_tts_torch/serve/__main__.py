@@ -6,7 +6,9 @@ directory, pick the continuous pool or the static batcher, warm both up
 (unless ``--no-warmup``), then serve HTTP until Ctrl-C (exit 0).  On the card
 an unset ``--quantize`` (the default) serves bf16 weight units at the 0.6B
 widths (1.7B bf16 pools: ROADMAP B17) and ``--quantize int8`` int8 units,
-either with ``--kv-quant`` (the int8 KV cache).
+either with ``--kv-quant`` (the int8 KV cache).  ``--quantize int4`` does
+not serve on the card: the batched kernels K4 and K5 take no int4 units
+(ROADMAP K1v-b / K2v; the engine's error, exit 1).
 """
 
 import argparse
@@ -52,7 +54,7 @@ def main(argv=None) -> int:
                    help="where the engine runs: the card (default) or the CPU")
     args = p.parse_args(argv)
 
-    from ..api.engine import TTSEngine
+    from ..api.engine import EngineError, TTSEngine
     from ..cli.main import engine_device
     from .pool import ContinuousBatcher
     from .server import BatchingServer, make_http_server
@@ -68,15 +70,19 @@ def main(argv=None) -> int:
         print(f"Error: {engine.get_error()}", file=sys.stderr)
         return 1
     warm_engine = not args.no_warmup and engine.tokenizer is not None
-    if args.batcher == "continuous":
-        server = ContinuousBatcher(
-            engine, pool_size=args.pool_size, kv_bucket=args.kv_bucket,
-            spec_k=args.spec_k,
-        )
-    else:
-        server = BatchingServer(
-            engine, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms
-        )
+    try:
+        if args.batcher == "continuous":
+            server = ContinuousBatcher(
+                engine, pool_size=args.pool_size, kv_bucket=args.kv_bucket,
+                spec_k=args.spec_k,
+            )
+        else:
+            server = BatchingServer(
+                engine, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms
+            )
+    except EngineError as e:  # batched decoding the card does not take
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
     if warm_engine:
         print("warming up (building the kernels, filling the plan caches)...", flush=True)
         dt = engine.warmup()  # /synthesize_stream + static-batcher paths

@@ -165,7 +165,7 @@ class ContinuousBatcher:
             raise ValueError("spec_k must be in [2, 8]")
         if not engine.is_ready():
             raise EngineError(f"engine not ready: {engine.get_error()}")
-        engine.check_batched()
+        engine.check_batched(int(pool_size) * (int(spec_k) if spec_k else 1))
         self.spec_k = int(spec_k) if spec_k else None
         self.spec_iters = max(1, int(spec_iters))
         self.device = engine.device

@@ -64,8 +64,10 @@ class BatchingServer:
     ):
         if max_batch not in BATCH_BUCKETS:
             raise ValueError(f"max_batch must be one of {BATCH_BUCKETS}")
-        if getattr(engine, "mesh", None) is not None:
-            engine.check_batched()  # raises: batched decoding under a mesh is not ported
+        if hasattr(engine, "check_batched"):
+            # raises where the card's batched kernels do not take the engine
+            # (a mesh, int4 units, a mixed MTP trunk, 1.7B bf16 units)
+            engine.check_batched(max_batch)
         self.engine = engine
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3

@@ -68,7 +68,7 @@ def packs():
 def test_bf16_pack_matches_jax(packs):
     """bf16 rows of the raw weights with float32 scales of one: the JAX
     units' values, column for column; a quantized input raises at bits=16,
-    as JAX's does, and int4 stays unported."""
+    as JAX's does, and so does one at bits=4 (test_torch_int4.py)."""
     t, jfw, tt, tfw, layers = packs
     assert jfw.units.dtype == jnp.bfloat16 and bool((np.asarray(jfw.scales) == 1.0).all())
     for w in (tfw.wqkv, tfw.wo, tfw.wgu, tfw.wd):
@@ -91,8 +91,8 @@ def test_bf16_pack_matches_jax(packs):
         t, jax.random.PRNGKey(0))}}))["talker"]["transformer"]["layers"]
     with pytest.raises(ValueError, match="raw weights"):  # JAX's pack refuses it too
         jfs.pack_fused_weights(t, jq, bits=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.pack_fused_weights(tt, layers, bits=4)
+    with pytest.raises(ValueError, match="raw weights"):
+        tfs.pack_fused_weights(tt, quantized, bits=4)
 
 
 @pytest.mark.parametrize("T,mode,pos,cache", [
@@ -374,18 +374,23 @@ def test_engine_quantize_none_packs_bf16(tiny_vocab_files, monkeypatch):
 
 def test_quantize_none_refusals_on_the_card(monkeypatch):
     """On the card ``quantize=None`` is ready in itself (decided before any
-    tensor moves); what stays refused names its ROADMAP item: spec_k (K6 at
-    bf16: K1v-b), an ``mtp_quantize`` other than ``quantize`` (the mix:
-    K1v / K2v), the streamed chain off (F4: the per-step chain), and
-    batched decoding at the 1.7B widths (B17); on the CPU spec_k runs the
-    plain versions."""
+    tensor moves), with spec_k (K6 at bf16 units) and with an
+    ``mtp_quantize`` of another precision (int8 or int4 trunks with bf16
+    heads in K2 / K3); what stays refused names its ROADMAP item: spec_k
+    beside such an MTP trunk (mixed heads in K5: K1v-b / K2v), the streamed
+    chain off (F4: the per-step chain), and batched decoding and spec at the
+    1.7B widths (B17); on the CPU spec_k runs the plain versions."""
     monkeypatch.delenv("QTTS_MTP_STREAM", raising=False)
     monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
     cfg = tcfg.QWEN3_TTS_06B
     spec = TTSEngine(config=cfg, params={}, spec_k=4, device="cuda")
-    assert not spec.is_ready() and "K1v-b" in spec.get_error() and "spec_k" in spec.get_error()
+    assert "ROADMAP" not in spec.get_error() and "code_predictor" in spec.get_error()
     mix = TTSEngine(config=cfg, params={}, mtp_quantize="int8", device="cuda")
-    assert not mix.is_ready() and "ROADMAP K1v / K2v" in mix.get_error()
+    assert "ROADMAP" not in mix.get_error() and "code_predictor" in mix.get_error()
+    mix_spec = TTSEngine(config=cfg, params={}, mtp_quantize="int8", spec_k=4, device="cuda")
+    assert not mix_spec.is_ready() and "ROADMAP K1v-b / K2v" in mix_spec.get_error()
+    spec17 = TTSEngine(config=tcfg.QWEN3_TTS_17B, params={}, spec_k=4, device="cuda")
+    assert not spec17.is_ready() and "ROADMAP B17" in spec17.get_error()
     monkeypatch.setenv("QTTS_MTP_STREAM", "0")
     off = TTSEngine(config=cfg, params={}, device="cuda")
     assert not off.is_ready() and "per-step MTP chain" in off.get_error()

@@ -94,19 +94,44 @@ def test_cli_kv_quant_matches_jax(model_dir, tmp_path, flags, capsys):
 
 
 @pytest.mark.parametrize("flags,words", [
-    (["--quantize", "int4"], "int4"),
-    (["--mtp-quantize", "int4"], "ROADMAP K1v / K2v"),
-    (["--mtp-quantize", "auto"], "ROADMAP K1v / K2v"),
-    (["--quantize", "int8", "--mtp-quantize", "int4"], "ROADMAP K1v / K2v"),
+    (["--quantize", "int4", "--frame-fused", "on"], "ROADMAP K1v-b / K2v"),
+    (["--mtp-quantize", "int4", "--frame-fused", "on"], "ROADMAP K1v-b / K2v"),
+    (["--quantize", "int4", "--mtp-quantize", "auto", "--frame-fused", "on"], "K7"),
+    (["--quantize", "int8", "--mtp-quantize", "int4", "--frame-fused", "on"], "K7"),
 ])
 def test_unported_flags_exit_1(model_dir, tmp_path, flags, words, capsys):
     """A flag whose path is not ported leaves the engine not ready: the CLI
-    prints the engine's error and exits 1, writing nothing."""
+    prints the engine's error and exits 1, writing nothing (int4 units in
+    the whole-frame kernel K7, on any device)."""
     out = str(tmp_path / "u.wav")
     assert main(["-m", model_dir, "-o", out, "--device", "cpu"] + ARGS + flags) == 1
     errors = [line for line in capsys.readouterr().err.splitlines() if line.startswith("Error: ")]
     assert len(errors) == 1 and words in errors[0]
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--quantize", "int4"],
+    ["--quantize", "int4", "--kv-quant"],
+    ["--mtp-quantize", "int8"],
+    ["--mtp-quantize", "auto"],
+    ["--quantize", "int8", "--mtp-quantize", "int4"],
+])
+def test_cli_precision_flags_match_jax(model_dir, tmp_path, flags, capsys):
+    """The weight-precision flags the JAX CLI takes run: exit 0 in both CLIs,
+    WAVs of equal length within PCM_ABS, the JAX CLI's printout (the tiny
+    checkpoint takes the plain path on both sides: ``--mtp-quantize`` packs
+    only where the kernels take the widths)."""
+    ours, theirs = str(tmp_path / "p.wav"), str(tmp_path / "j.wav")
+    assert main(["-m", model_dir, "-o", ours, "--device", "cpu"] + ARGS + flags) == 0
+    out = capsys.readouterr().out
+    assert j_main(["-m", model_dir, "-o", theirs] + ARGS + flags) == 0
+    j_out = capsys.readouterr().out
+    a, sr = read_wav(ours)
+    b, j_sr = read_wav(theirs)
+    assert sr == j_sr == 24000 and a.shape == b.shape and a.size > 0
+    np.testing.assert_allclose(a, b, atol=PCM_ABS, rtol=0)
+    assert out.replace(ours, "X") == j_out.replace(theirs, "X")
 
 
 def test_device_cuda_without_a_card_exits_1(model_dir, tmp_path, capsys):

@@ -176,7 +176,7 @@ def test_stream_switch_routes_b1_like_jax(models_f32, env, monkeypatch):
     monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
     monkeypatch.setenv("QTTS_MTP_STREAM", env)
     monkeypatch.setattr(jcp, "resident_pack", lambda params, batch: None)
-    monkeypatch.setattr(tcp, "supports_resident", lambda fw: False)
+    monkeypatch.setattr(tcp, "resident_pack", lambda params, batch: None)
     rng = np.random.default_rng(11)
     hidden = (rng.standard_normal((1, 1024)) * 0.5).astype(np.float32)
     c0e = (rng.standard_normal((1, 1024)) * 0.02).astype(np.float32)

@@ -14,6 +14,7 @@ from leaxer_qwen3_tts_tpu.ops import fused_step as jfs
 from leaxer_qwen3_tts_tpu.runtime.weights import flatten_params
 from leaxer_qwen3_tts_torch import config as tcfg
 from leaxer_qwen3_tts_torch.ops import fused_step as tfs
+from leaxer_qwen3_tts_torch.ops import quant as tquant
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
 
 torch.set_num_threads(2)
@@ -102,8 +103,13 @@ def test_pos_clamped_to_last_slot(packs):
 
 
 def test_unported_variants_raise(packs):
-    """int4 packs are not ported (bf16 units are: test_torch_bf16_units.py)."""
+    """A pack of unit bits the kernels do not take raises, and an int4 pack
+    (test_torch_int4.py) needs raw weights: the quantized layers of the int8
+    pack are refused at bits=4, as the JAX pack refuses them."""
     _, _, tt, _ = packs
     layers = {"wqkv": torch.zeros((1, 1024, 2048))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.pack_fused_weights(tt, layers, bits=4)
+    with pytest.raises(ValueError, match="bits must be 4, 8 or 16"):
+        tfs.pack_fused_weights(tt, layers, bits=2)
+    q = tquant.quantize_weight(torch.zeros((1, 1024, 2048)))
+    with pytest.raises(ValueError, match="raw weights"):
+        tfs.pack_fused_weights(tt, {"wqkv": q, "wo": q, "wgu": q, "wd": q}, bits=4)
