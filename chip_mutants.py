@@ -48,8 +48,14 @@ the int4 units' three (``python3 chip_mutants.py INT4``: nibble halves
 swapped, a scale one group off, one scale per row; ``fused_int4.cu``
 rebuilds alone) against ``check_k1_shallow`` on one int4 talker layer
 (float32 and bf16 caches), ``check_kvq_k1`` on it and ``check_chain`` on
-the 0.6B int4 MTP trunk, greedy and sampled.  A mutant rebuilds only the sources that include the file it
-changes.  A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
+the 0.6B int4 MTP trunk, greedy and sampled; the batched kernels' three
+(``python3 chip_mutants.py INT4-B``: a group scale one off and the nibble
+halves swapped in the batched int4 unit, ``fused_int4.cu`` alone; a stage
+of a 48 KB batched slot read before its wait) against
+``check_k4_shallow`` / ``check_k6_shallow`` on one int4 talker layer,
+``check_k5`` on the 0.6B int4 trunk and ``ring_variants`` of K4 on two
+1.7B bf16 talker layers (the narrow one-slot ring: one 48 KB slot).  A
+mutant rebuilds only the sources that include the file it changes.  A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
 caught, or without CUDA.
 """
 
@@ -472,6 +478,43 @@ MUTANTS = {
          "      out[n0 + warp + j * QTTS_P_WARPS] = ACCUM ? __fadd_rn(res[j], v) : v;"),
         "INT4",
     ),
+    # int4 units in the batched GEMV (K4, K5, K6): each (row, batch row)'s
+    # group partial scaled by the next group's scale
+    "INT4-B batched scale one group off": (
+        "fused_int4.cu",
+        "      const float sc = srow[r * G + g];",
+        "      const float sc = srow[r * G + (g + 1) % G];",
+        "INT4-B",
+    ),
+    # int4 units in the batched GEMV: the nibbles of each byte read in the
+    # other order there (the B=1 stage keeps the right order)
+    "INT4-B batched nibble halves swapped": (
+        "fused_int4.cu",
+        "        for (int r = 0; r < R; ++r) wf[r] = qtts_i4_to_float(h ? wv[r].y : wv[r].x, e);",
+        "        for (int r = 0; r < R; ++r) wf[r] = qtts_i4_to_float(h ? wv[r].y : wv[r].x, e ^ 1);",
+        "INT4-B",
+    ),
+    # the batched GEMV reads a stage of a 48 KB slot (the 1.7B bf16 batched
+    # plans, B17) before it waits on the stage's mbarrier (it waits after its
+    # dot products, so the barrier's phases stay in step): caught where a
+    # stage's copy is issued right before its read, on the narrow one-slot
+    # ring (four 12 KB rows: a 48 KB slot)
+    "INT4-B batched 48 KB stage read before its copy lands": (
+        "qtts_stream.cuh",
+        ("    qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const WT* ws",
+         "    qtts_bstage<ACCUM, WT>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);\n"),
+        ("    const bool late = ring.slot_bytes == 48 * 1024;\n"
+         "    if (!late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"
+         "    if (c == 0) qtts_trace_mark(p, 1);\n"
+         "    const int rows = min(stage_rows, nrows - c * stage_rows);\n"
+         "    const WT* ws",
+         "    qtts_bstage<ACCUM, WT>(ws, ss, act, K, out, ldo, r0 + c * stage_rows, rows, nb, warp, lane);\n"
+         "    if (late) qtts_mbar_wait(ring.full + slot, (uint32_t)(stage / ring.n_slots) & 1u);\n"),
+        "INT4-B",
+    ),
     # the exchange's wait satisfied by any raised flag: the previous call's
     # flags pass it, so a rank whose peer's send is late reads the previous
     # call's rows (caught only with the sends stalled, on the second call)
@@ -642,8 +685,28 @@ def checks(gen):
         "K2 int4", K2.fused_mtp_chain, K2.fused_mtp_chain_reference, knobs, cp6, m4, chain6[2],
         chain6[3], chain6[4], gen, 0, flip_rule=True, cache_dtype=torch.bfloat16)
         for knobs in ((0.0,), (0.8, 50, 0.95))]
+    # the batched kernels at int4 units (K4 and K6 on one talker layer under
+    # the one-layer limits and the tight count, their rows against K1; K5 on
+    # the int4 trunk against its plain version and K2's rows) and at bf16
+    # units on two 1.7B talker layers on the narrow one-slot ring (one 48 KB
+    # slot of four 12 KB rows) and the default ring, bit for bit
+    int4_b = [lambda dt=dt: cs.check_k4_shallow(t1, fw4, 8, 512, dt, gen)
+              for dt in (torch.float32, torch.bfloat16)]
+    int4_b += [lambda: cs.check_k6_shallow(t1, fw4, 4, 4, 512, [0, 61, 200, 600],
+                                           torch.float32, gen),
+               lambda: cs.check_k5(8, cp6, m4, chain6[2], chain6[3], chain6[4], gen, 1)]
+    t17 = dataclasses.replace(QWEN3_TTS_17B.talker.transformer, num_layers=2)
+    fw17 = cs.bf16_trunk(t17, gen)
+    x17, kc17, vc17, pos17 = cs.k4_inputs(t17, 8, 512, torch.bfloat16, gen)
+    pos17 = torch.tensor(pos17, device=cs.DEV)
+
+    def k4_17():
+        c = cs.clone_all([kc17, vc17])
+        return (cs.K1.fused_decode_step_batched(t17, fw17, x17, pos17, *c)[0], *c)
+
+    int4_b += [lambda: cs.ring_variants("K4 bf16 talker-1.7B-2-layer B=8", k4_17)]
     return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1,
-            "P2": p2, "BF16": bf16, "KVQ": kvq, "TP": tp, "INT4": int4}
+            "P2": p2, "BF16": bf16, "KVQ": kvq, "TP": tp, "INT4": int4, "INT4-B": int4_b}
 
 
 def _includes(csrc, name):
@@ -659,12 +722,13 @@ def _includes(csrc, name):
 
 
 def _compile(csrc, names, out_dir):
-    """``out_dir/<name>.o`` of ``csrc/<name>`` for every name, compiled at once."""
+    """``out_dir/<object>.o`` of every object of ``csrc/<name>`` for every
+    name (``_build.units``), compiled at once."""
     nvcc = _build._nvcc()
     procs = [(name, subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-c", "-o", os.path.join(out_dir, name + ".o"),
+        [nvcc, *_build.NVCC_FLAGS, *flags, "-c", "-o", os.path.join(out_dir, obj + ".o"),
          os.path.join(csrc, name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in names]
+        for name, obj, flags in _build.units(names)]
     for name, proc in procs:
         out = proc.communicate()[0]
         if proc.returncode:
@@ -680,7 +744,8 @@ def build_mutant(csrc, fname, base_objs):
     obj_dir = os.path.join(_build.BUILD_DIR, "objects")
     os.makedirs(obj_dir)
     _compile(csrc, hit, obj_dir)
-    objs = [os.path.join(obj_dir if s in hit else base_objs, s + ".o") for s in _build.SOURCES]
+    objs = [os.path.join(obj_dir if s in hit else base_objs, obj + ".o")
+            for s, obj, _ in _build.units()]
     link = subprocess.run([_build._nvcc(), "-shared", "-o", _build.library_path(), *objs],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode:

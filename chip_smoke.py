@@ -119,8 +119,10 @@ prints the final line:
    ``--quantize`` (bf16 units) it exits 0 with a WAV, one K1 and one K3
    per decoded frame; ``--quantize int8 --kv-quant`` and ``--kv-quant``
    alone (the int8 KV cache) exit 0 with a WAV, one K1 and one K2 (K3) per
-   frame; ``--quantize int4`` and, without ``--quantize``, ``--spec-k 4``
-   (K6 at bf16) exit 1 with the engine's error.  The speaker embedding of
+   frame; ``--quantize int4 --spec-k 4`` and, without ``--quantize``,
+   ``--mtp-quantize int4 --spec-k 4`` exit 0 with a WAV (K6 and K5 per
+   verify iteration), and ``--quantize int4 --frame-fused on`` exits 1 with
+   the engine's error (K7).  The speaker embedding of
    that WAV on the card is within SPK_REL of the same checkpoint's on the
    CPU (ms per call printed).  The server
    (``python -m leaxer_qwen3_tts_torch.serve``) runs as a subprocess, with
@@ -172,9 +174,15 @@ prints the final line:
    ``frame_fused=True`` (no K7: JAX's frame gate refuses bf16 trunks),
    phase 7's and phase 8's runs (one K4 and one K5 per frame; the greedy
    pool output equals B=1 ``synthesize``), and the 1.7B preset at B=1 (one
-   K1 and one K3 per frame, 28 K8 per prefill; ``synthesize_batch`` and a
-   pool refused, ROADMAP B17).  Each figure is printed beside the int8 one
-   of this run.
+   K1 and one K3 per frame, 28 K8 per prefill).  Then B17 at the 1.7B
+   widths: the batched plans (48 KB slots, batch groups) printed; K4 (B=8
+   and 32), K6 (1 x 4, 4 x 8) and K5 (B=8 and 32, K3's float32 cache) on
+   the engine's bf16 packs against their plain versions, K4 rows equal to
+   K1, K6 rows to the steps and K5 rows to K3 bit for bit, on a one-slot
+   ring and a narrow one; ``synthesize_batch`` and a pool of 8 at bf16 and
+   int8 units (greedy pool output equal to B=1), greedy ``spec_k=4`` equal
+   to sequential decoding, and the server from a 1.7B checkpoint without
+   ``--quantize``.  Each figure is printed beside the int8 one of this run.
 13. ``kvq_phase``: the int8 KV cache (``kv_quant=True``: int8 K/V with a
    float32 scale per (slot, kv head)).  K1 at T=256 and 2560 (28 layers,
    and one layer at the first slot, the split edges and the last slots with
@@ -238,18 +246,29 @@ prints the final line:
    bf16 steps bit for bit, on bf16 and int8 caches (slot writes stalled too),
    on one layer with the tight count; every new instance equal to itself bit
    for bit on a one-slot ring and on a narrow one (four rows a stage).  Then
-   the CLI from a 0.6B checkpoint under --quantize int4 (with and without
-   --kv-quant), --mtp-quantize int8 and auto, --spec-k 4 (also with
-   --kv-quant), each a valid WAV with its ms/frame and launch counts, and
-   the flag sets still refused (exit 1, the ROADMAP item named); short 1.7B
-   requests at --quantize int4 and at --mtp-quantize int8; fails if a new
-   instance never launched on those paths.
+   the batched kernels at the same units: K4 and K6 at int4 units (0.6B,
+   deep and one-layer limits, bf16, float32 and int8 caches) with K4 rows
+   equal to K1 int4 and K6 rows to the int4 steps bit for bit, K5 on the
+   int4 trunk with int8 heads and on int8 and int4 trunks with bf16 heads
+   (K5's flip rule) with its rows equal to K2 bit for bit, each on a
+   one-slot and a narrow ring.  Then the CLI from a 0.6B checkpoint under
+   --quantize int4 (with and without --kv-quant), --mtp-quantize int8 and
+   auto, --spec-k 4 (also with --kv-quant, with --quantize int4 --kv-quant
+   and with --mtp-quantize int8), each a valid WAV with its ms/frame and
+   launch counts; the server at --quantize int4; short 1.7B requests,
+   batches and pools at --quantize int4 and at --mtp-quantize int8; 0.6B
+   batches and pools at --quantize int4 and at --mtp-quantize int8 / auto
+   (greedy pool output equal to B=1), a B=32 batch at --quantize int8
+   --mtp-quantize auto (K5 on the int4 alt trunk) and the batch and pool
+   of 33 refused (M12b); fails if a new instance never launched on those
+   paths.
 16. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
    K1, K4, K6 and K7 once more for the int8 KV cache; K9 per step, K10 per
-   chain; K1 int4, K2 / K3 int4 and mixed heads, K6 bf16) and the device
-   line.
+   chain; K1 int4, K2 / K3 int4 and mixed heads, K6 bf16; K4 / K6 int4,
+   K5 int4 and mixed heads, K4 / K5 / K6 bf16 at 1.7B) and the device
+   line; it fails if any kernel in it never launched.
 """
 
 from __future__ import annotations
@@ -273,7 +292,7 @@ import wave
 import numpy as np
 import torch
 
-from leaxer_qwen3_tts_torch.api.engine import TTSEngine
+from leaxer_qwen3_tts_torch.api.engine import EngineError, TTSEngine
 from leaxer_qwen3_tts_torch.cli.main import main as cli_main
 from leaxer_qwen3_tts_torch.config import (
     CODEC_EOS,
@@ -286,7 +305,7 @@ from leaxer_qwen3_tts_torch.config import (
 )
 from leaxer_qwen3_tts_torch.frontend import Tokenizer, write_wav
 from leaxer_qwen3_tts_torch.frontend._bpe_py import byte_to_proxy
-from leaxer_qwen3_tts_torch.models.code_predictor import chain_kernel
+from leaxer_qwen3_tts_torch.models.code_predictor import chain_kernel, chain_pack
 from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
 from leaxer_qwen3_tts_torch.models.draft import init_draft_params
 from leaxer_qwen3_tts_torch.models.layers import init_transformer_params, quantize_kv
@@ -985,7 +1004,8 @@ ONE_SLOT_BYTES = 24 * 1024  # most phases then take two stages or more (int8 K =
 
 def one_slot_ring(run, probe_stall_ns=0, narrow=False):
     """``run()`` with the persistent kernels' plans cut to one ring slot of
-    ONE_SLOT_BYTES, so that a stage after a phase's first is issued right
+    ONE_SLOT_BYTES (or four rows of the widest row, where that is more), so
+    that a stage after a phase's first is issued right
     before it is read, and the probes' ring plans to one slot (each stage
     past the first issued ``probe_stall_ns`` after the block's warps reach
     their wait); the wrappers' cached entries are dropped before and
@@ -1007,11 +1027,12 @@ def one_slot_ring(run, probe_stall_ns=0, narrow=False):
         device = torch.device(device)
         plan = persistent.make_plan(cfg, grid or persistent.grid_size(device), head_rows, batch,
                                     talker, lm_rows, unit_bytes, head_k, head_bytes)
-        slot = ONE_SLOT_BYTES
-        if narrow:
-            slot = persistent.ROW_QUANTUM * max(
-                int(K * persistent._kind_bytes(i, unit_bytes, head_bytes))
-                for i, (N, K) in enumerate(plan.shapes) if N)
+        # four rows of the widest row: the narrow slot, and the least one a
+        # plan takes (the 1.7B bf16 down rows: 48 KB)
+        widest = persistent.ROW_QUANTUM * max(
+            int(K * persistent._kind_bytes(i, unit_bytes, head_bytes))
+            for i, (N, K) in enumerate(plan.shapes) if N)
+        slot = widest if narrow else max(ONE_SLOT_BYTES, widest)
         plan = persistent._plan_at(slot, cfg, plan.grid, plan.shapes, batch, plan.n_sets,
                                    unit_bytes, head_bytes)
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.union_bytes)
@@ -2303,15 +2324,18 @@ def cli_phase(d, tmp, card_line):
     """The CLI on the checkpoint, in process: one-shot, --frame-fused on,
     --stream, --ref, --spec-k 4 (int8), one-shot without --quantize (bf16
     units: one K1 and one K3 per frame), --quantize int8 --kv-quant and
-    --kv-quant alone (the int8 KV cache), and flags it refuses on the card
-    (the precision phase drives the other precision flags).  Returns (int8 launch counts, ms per frame of the int8 one-shot
+    --kv-quant alone (the int8 KV cache), --spec-k 4 with --quantize int4
+    and with an unset --quantize beside --mtp-quantize int4, and a flag set
+    it refuses on the card (the precision phase drives the other precision
+    flags).  Returns (int8 launch counts, ms per frame of the int8 one-shot
     run, reference WAV, bf16 launch counts, ms per frame of the bf16 run,
-    int8-KV-cache launch counts)."""
+    int8-KV-cache launch counts, the two spec runs' launch counts by flags)."""
     base = ["-m", d, "-p", ENTRY_TEXT, "--lang", "en", "--temp", "0", "--max-tokens",
             str(CLI_FRAMES), "--quantize", "int8", "--verbose"]
     unquantized = [a for a in base if a not in ("--quantize", "int8")]
     ref = os.path.join(tmp, "ref.wav")
     counts, ms_frame, bf16_counts, bf16_ms, kvq_counts = [], None, [], None, []
+    spec_counts = {}
     for label, extra in (("one-shot", []), ("--frame-fused on", ["--frame-fused", "on"]),
                          ("--stream", ["--stream"]), ("--ref", ["--ref", ref]),
                          ("--spec-k 4", ["--spec-k", "4"]), ("without --quantize", None),
@@ -2354,11 +2378,27 @@ def cli_phase(d, tmp, card_line):
             write_wav(ref, np.resize(pcm.astype(np.float32) / 32768.0, 3 * 24000), 24000)
         if extra is None:
             bf16_ms = decode_ms / n
+    # int4 units, and an int4 MTP trunk beside an unquantized talker, under
+    # --spec-k (K6 int4 / bf16, K5 int4)
+    int4 = [a if a != "int8" else "int4" for a in base]
+    for label, argv in (("--quantize int4 --spec-k 4", int4 + ["--spec-k", "4"]),
+                        ("without --quantize, --mtp-quantize int4 --spec-k 4",
+                         unquantized + ["--mtp-quantize", "int4", "--spec-k", "4"])):
+        out_wav = os.path.join(tmp, f"cli-spec-{len(spec_counts)}.wav")
+        reset_launches()
+        rc, out, err = run_cli(argv + ["-o", out_wav])
+        m = SUMMARY.search(out)
+        if rc != 0 or m is None or m.group(3) is None:
+            raise RuntimeError(f"CLI {label}: exit {rc}\n{out}\n{err}")
+        n, it, fallback = int(m.group(2)), int(m.group(3)), m.group(5) is not None
+        seq = n - 1 - it * 4
+        spec_counts[label] = check_launches(f"CLI {label} ({n} frames decoded)",
+                                            counts_of(K1=seq + fallback, K2=1 + seq, K5=it, K6=it))
+        pcm = check_wav(out_wav, f"CLI {label}")
+        log(f"CLI {label}: exit 0, {pcm.size / 24000:.2f} s of audio, {n} frames decoded, "
+            f"{it} verify iterations [{card_line}]")
     for label, extra, words in (
-            ("--quantize int4 --spec-k 4", [a if a != "int8" else "int4" for a in base]
-             + ["--spec-k", "4"], "K1v-b / K2v"),
-            ("without --quantize, --mtp-quantize int4 --spec-k 4",
-             unquantized + ["--mtp-quantize", "int4", "--spec-k", "4"], "K1v-b / K2v")):
+            ("--quantize int4 --frame-fused on", int4 + ["--frame-fused", "on"], "K7"),):
         reset_launches()
         out_wav = os.path.join(tmp, "refused.wav")
         rc, out, err = run_cli(extra + ["-o", out_wav])
@@ -2368,7 +2408,7 @@ def cli_phase(d, tmp, card_line):
         check_launches(f"CLI {label} (refused)", ())
         log(f"CLI {label}: exit 1, {errors[0]}")
     return ([sum(c) for c in zip(*counts)], ms_frame, ref, [sum(c) for c in zip(*bf16_counts)],
-            bf16_ms, [sum(c) for c in zip(*kvq_counts)])
+            bf16_ms, [sum(c) for c in zip(*kvq_counts)], spec_counts)
 
 
 def serve_phase(d, card_line, quantize="int8", extra=()):
@@ -2513,7 +2553,8 @@ def entry_phase(tok, card_line):
         torch.cuda.empty_cache()
 
         (counts, numbers["cli_ms_frame"], ref, numbers["bf16_counts"],
-         numbers["cli_bf16_ms_frame"], numbers["kvq_counts"]) = cli_phase(d, tmp, card_line)
+         numbers["cli_bf16_ms_frame"], numbers["kvq_counts"],
+         numbers["spec_counts"]) = cli_phase(d, tmp, card_line)
 
         e_card = eng.extract_speaker_embedding(ref)
         t0 = time.perf_counter()
@@ -3380,8 +3421,11 @@ def bf16_17b(tok, gen, card_line):
     and K3 on the wide slots' four 12 KB down rows), K1 and K3 against
     their plain versions on the engine's packs, the engine's instruct and
     preset-speaker requests and a fixed 300-frame run (one K1 and one K3 per
-    frame, 28 K8 per prefill), and its batched refusal.  Returns the launch
-    counts."""
+    frame, 28 K8 per prefill); then B17: K4, K5 and K6 on the 48 KB batched
+    plans (bf16_17b_batched_checks), ``synthesize_batch`` and a pool of 8 at
+    bf16 and at int8 units, greedy ``spec_k=4`` against sequential decoding,
+    and the server without ``--quantize``.  Returns (launch counts, the
+    batched ones by report key, checks, bounds)."""
     cfg = voice_config()
     talker_t, cp = cfg.talker.transformer, cfg.code_predictor
     i8, b16 = unit_pair(talker_t, gen)
@@ -3402,7 +3446,6 @@ def bf16_17b(tok, gen, card_line):
     params["speaker_table"] = (torch.randn((len(PRESET_SPEAKERS), talker_t.hidden_size),
                                            generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
     eng = TTSEngine(config=cfg, params=params, tokenizer=tok)
-    del params
     torch.cuda.synchronize()
     if not eng.is_ready():
         raise RuntimeError(f"1.7B engine with quantize unset: {eng.get_error()}")
@@ -3419,6 +3462,7 @@ def bf16_17b(tok, gen, card_line):
                 K3.fused_mtp_chain_streamed_reference, (0.8, 50, 0.95), cp, cpp["fused_step"],
                 cpp["fused_heads"], eng.params["embeddings"]["pred_embed"],
                 cpp["transformer"]["final_norm"], gen, 5, flip_rule=True)
+    checks, bounds = bf16_17b_batched_checks(cfg, eng, gen)
     layers = talker_t.num_layers
     reset_launches()
     decoded = 0
@@ -3443,19 +3487,113 @@ def bf16_17b(tok, gen, card_line):
     ms = check_fixed_run(eng, 300, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
     counts.append(check_launches("1.7B bf16 fixed run", counts_of(K1=300, K3=300, K8=layers)))
     figure("1.7B B=1 ms/frame", ms)
-    for what, call in (("synthesize_batch", lambda: eng.synthesize_batch(["hello", "world"])),
-                       ("a pool", lambda: ContinuousBatcher(eng, pool_size=8))):
-        try:
-            call()
-        except Exception as e:  # noqa: BLE001 - the refusal is the check
-            if "ROADMAP B17" not in str(e):
-                raise
-            log(f"1.7B bf16 {what}: refused, {e}")
-        else:
-            raise RuntimeError(f"1.7B bf16 {what} ran: the batched plan cannot hold its rows")
-    del eng
+    # B17: batches, pools and spec at the 1.7B widths, bf16 units on the
+    # 48 KB batched plans, int8 units beside them (the prefills add K8)
+    launched = {"K4 bf16 1.7B": batched_runs(eng, "1.7B bf16", card_line)}
+    spec = TTSEngine(config=cfg, params=params, tokenizer=tok, spec_k=SPEC_K,
+                     spec_iters=SPEC_ITERS, spec_accept_floor=0.0)
+    i8 = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
+    with tempfile.TemporaryDirectory() as tmp:  # the server at the 1.7B preset's default
+        d = os.path.join(tmp, "qwen3-tts-1.7b")
+        save_checkpoint(d, cfg, params)
+        byte_level_tokenizer(d)
+        del params
+        serve_phase(d, card_line, quantize=None)
+    for e in (spec, i8):
+        if not e.is_ready():
+            raise RuntimeError(f"1.7B engine: {e.get_error()}")
+    kw = dict(language="en", temperature=0.0, max_tokens=32)
+    want = eng.synthesize(SPEC_TEXT, **kw)
+    reset_launches()
+    got = spec.synthesize(SPEC_TEXT, **kw)
+    m = got.metrics
+    it, k = m.spec_iterations, spec.spec_k
+    seq = m.decoded_frames - 1 - it * k
+    launched["K6 bf16 1.7B"] = check_launches(
+        "1.7B bf16 spec_k=4 (K6 and K5 per iteration, K3 for frame 0 and after a fallback)",
+        with_prefills(spec, counts_of(K1=seq + m.spec_fallback, K3=1 + seq, K5=it, K6=it)))
+    equal = np.array_equal(got.codes, want.codes)
+    log(f"1.7B bf16 spec_k=4: {len(got.codes)} frames, {it} iterations, codes equal to "
+        f"sequential={equal} (K5's rows on K3's float32 cache), "
+        f"{m.stage_seconds['decode'] * 1e3 / max(len(got.codes), 1):.3f} ms per committed frame "
+        f"[{card_line}]")
+    if not equal or it < 1:
+        raise RuntimeError("1.7B bf16 spec: greedy codes differ from sequential decoding")
+    del spec
+    launched["1.7B int8"] = batched_runs(i8, "1.7B int8", card_line)
+    del eng, i8
     torch.cuda.empty_cache()
-    return [sum(c) for c in zip(*counts)]
+    counts += [launched["K4 bf16 1.7B"], launched["K6 bf16 1.7B"]]  # int8's: main's total
+    return [sum(c) for c in zip(*counts)], launched, checks, bounds
+
+
+def bf16_17b_batched_checks(cfg, eng, gen):
+    """K4, K5 and K6 at bf16 units and the 1.7B widths (the batched plans'
+    48 KB slots) on the engine's packs: K4 rows equal the K1 steps, K6 rows
+    the K1 / K4 steps and K5 rows K3's chains (a float32 cache) bit for bit,
+    each against its plain version (K5 at B=8; at B=32 its rows against
+    K3's); a one-slot ring and a narrow one on two-layer packs.  Returns
+    (checks by report key, bounds)."""
+    talker_t, cp = cfg.talker.transformer, cfg.code_predictor
+    fw = eng.params["talker"]["fused_step"]
+    cpp = eng.params["code_predictor"]
+    for B in (2, 8, 32):
+        plan = persistent.make_plan(talker_t, persistent.grid_size(DEV), batch=B, unit_bytes=2)
+        log(f"1.7B bf16 batched plan B={B}: {plan.n_slots} slots of {plan.slot_bytes} bytes, "
+            f"{plan.groups} batch groups, stage rows {plan.stage_rows[:4]}, {plan.smem_bytes} "
+            f"bytes of shared memory [{CARD}]")
+    checks = {"K4 bf16 1.7B": [check_k4_deep("talker-1.7B bf16", talker_t, fw, 8, 512, gen, 5),
+                               check_k4_deep("talker-1.7B bf16", talker_t, fw, 32, 512, gen, 1)],
+              "K6 bf16 1.7B": [check_k6_deep("talker-1.7B bf16", talker_t, fw, 1, 4, 256, [200],
+                                             gen, 10),
+                               check_k6_deep("talker-1.7B bf16", talker_t, fw, 4, 8, 512,
+                                             [60, 5, 504, 200], gen, 1)]}
+    bounds = {"K4 bf16 1.7B": step_bound(talker_t, fw, 8, [min(p, 511) for p in K4_POSITIONS],
+                                         1, torch.bfloat16),
+              "K6 bf16 1.7B": checks["K6 bf16 1.7B"][0][3]}
+    mfw, heads = cpp["fused_step"], cpp["fused_heads"]
+    tables = eng.params["embeddings"]["pred_embed"]
+    fnorm = cpp["transformer"]["final_norm"]
+    chain = (cp, mfw, heads, tables, fnorm)
+    k3_row = K3.fused_mtp_chain_streamed
+    checks["K5 bf16 1.7B"] = [
+        check_k5(8, *chain, gen, 3, cache_dtype=torch.float32, row_chain=k3_row)]
+    check_k5_equal("1.7B MTP trunk bf16", *chain, gen, batches=(2, 32),
+                   cache_dtypes=(torch.float32,), multi=False, row_chain=k3_row)
+    bounds["K5 bf16 1.7B"] = chain_bound(cp.transformer, mfw, heads, 8)
+    t2 = dataclasses.replace(talker_t, num_layers=2)
+    fw2 = bf16_trunk(t2, gen)
+    x4, kc4, vc4, pos = k4_inputs(t2, 8, 512, torch.bfloat16, gen)
+    x6, kc6, vc6, starts = k6_inputs(t2, 4, 4, 512, [62, 5, 504, 130], torch.bfloat16, gen)
+    pos_dev = torch.tensor(pos, device=DEV)
+
+    def k4_once():
+        c = clone_all([kc4, vc4])
+        return (K1.fused_decode_step_batched(t2, fw2, x4, pos_dev, *c)[0], *c)
+
+    def k6_once():
+        c = clone_all([kc6, vc6])
+        return (K6.fused_verify_step(t2, fw2, x6, starts, *c)[0], *c)
+
+    ring_variants("K4 bf16 talker-1.7B-2-layer B=8", k4_once)
+    ring_variants("K6 bf16 talker-1.7B-2-layer 4 x 4", k6_once)
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, cp.transformer.hidden_size
+    lh = (torch.randn((8, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    c0 = (torch.randn((8, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    noise = gumbel_noise((n, 8, V), gen, DEV)
+    knobs = list(zip(*[K5_KNOBS[b % len(K5_KNOBS)] for b in range(8)]))
+    ring_variants("K5 bf16 1.7B B=8 mixed knobs", lambda: K2.fused_mtp_chain_batched(
+        cp.transformer, mfw, fnorm, heads, tables, lh, c0, noise, *knobs,
+        cache_dtype=torch.float32))
+    x, kc, vc, pos = k4_inputs(talker_t, 8, 512, torch.bfloat16, gen)
+    pos_dev = torch.tensor(pos, device=DEV)
+    trace_phases("K4 bf16 1.7B talker B=8 T=512",
+                 K1._batch_entry(talker_t, fw, 8, 512, x.device).plan,
+                 step_phase_names(talker_t.num_layers, batched=True),
+                 lambda: K1.fused_decode_step_batched(talker_t, fw, x, pos_dev, kc, vc))
+    del fw2, x, kc, vc, kc4, vc4, kc6, vc6
+    torch.cuda.empty_cache()
+    return checks, bounds
 
 
 def bf16_phase(tok, gen, card_line):
@@ -3465,9 +3603,12 @@ def bf16_phase(tok, gen, card_line):
     ``frame_fused=True`` (the same: JAX's frame gate refuses bf16 trunks),
     ``synthesize_batch`` and fixed runs at B=8 and 32 and a pool of 8 (one K4
     and one K5 per frame, greedy pool output equal to B=1 ``synthesize``),
-    then the 1.7B preset at B=1 (bf16_17b).  Prints each figure beside the
-    int8 one of this run.  Returns (launch counts, checks, bounds)."""
+    then the 1.7B preset (bf16_17b: B=1, then its batches, pools, spec and
+    server).  Prints each figure beside the int8 one of this run.  Returns
+    (launch counts, checks, bounds, (the 1.7B batched launch counts and
+    checks by report key))."""
     cfg = QWEN3_TTS_06B
+    t_phase = time.perf_counter()
     k1, k4, k3, k5, bounds = bf16_anchors(cfg, gen)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
@@ -3511,10 +3652,13 @@ def bf16_phase(tok, gen, card_line):
     counts += [batched, pool_phase(eng, card_line)]
     del eng
     torch.cuda.empty_cache()
-    counts.append(bf16_17b(tok, gen, card_line))
+    c17, launched17, checks17, bounds17 = bf16_17b(tok, gen, card_line)
+    counts.append(c17)
     log("bf16 units (quantize unset) beside int8, this run: " + "; ".join(
         f"{k}: int8 {v[0]}, bf16 {v[-1]}" for k, v in FIGURES.items()) + f" [{card_line}]")
-    return [sum(c) for c in zip(*counts)], (k1, k4, k3, k5), bounds
+    log(f"bf16 phase: {time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return [sum(c) for c in zip(*counts)], (k1, k4, k3, k5), bounds, (launched17, checks17,
+                                                                       bounds17)
 
 
 # ---------------------------------------------------------------------------
@@ -4658,8 +4802,8 @@ def tp_phase(tok, gen, card_line):
     return counts, (k9, k10), bounds
 
 # ---------------------------------------------------------------------------
-# Phase 15: the CLI's remaining weight-precision flags (int4 units in K1, K2
-# and K3; chain heads of another type than the trunk; bf16 units in K6)
+# Phase 15: every weight precision (int4 units in K1-K6; chain heads of
+# another type than the trunk in K2, K3 and K5; bf16 units in K6)
 # ---------------------------------------------------------------------------
 
 # K3 == K2 on a float32 cache at int4 trunks and mixed heads: seeded chains
@@ -4837,12 +4981,6 @@ def precision_kernel_checks(gen, card_line):
                  verify_phase_names(talker_t.num_layers),
                  lambda: K6.fused_verify_step(talker_t, fwb, x, starts, kc, vc))
     del fwb, fwsb, x, kc, vc
-    try:  # B17: a 1.7B bf16 verify plan does not fit a batched plan's slot
-        persistent.make_plan(QWEN3_TTS_17B.talker.transformer, persistent.grid_size(DEV),
-                             batch=4, unit_bytes=2)
-        raise RuntimeError("a 1.7B bf16 verify plan was built: the engine's B17 refusal is stale")
-    except ValueError as e:
-        log(f"K6 bf16 at 1.7B: no plan ({e}); the engine refuses 1.7B bf16 spec (ROADMAP B17)")
     torch.cuda.empty_cache()
 
     # 1.7B: K1 int4 at H=2048, K3 on the int4 trunk (int8 heads) and on an
@@ -4879,14 +5017,245 @@ def precision_kernel_checks(gen, card_line):
     return checks, bounds
 
 
+def precision_batched_checks(gen):
+    """The batched kernels at the precision flags' units, 0.6B: K4 and K6 at
+    int4 units against their plain versions (deep and one-layer limits), K4
+    rows equal the K1 int4 steps and K6 rows the K1 / K4 int4 steps bit for
+    bit, also on an int8 cache; K5 on an int4 trunk with int8 heads, and on
+    int8 and int4 trunks with bf16 heads (the mixed heads, and the auto alt
+    trunk of an unquantized talker) against its plain version at B=8 (K5's
+    flip rule), its rows equal K2's on the same pack bit for bit at 2, 8 and
+    32 rows; each on a one-slot ring and a narrow one.  Returns (checks by
+    report key, bounds)."""
+    checks, bounds = {}, {}
+    cfg = QWEN3_TTS_06B
+    talker_t, cp = cfg.talker.transformer, cfg.code_predictor
+    mtp_t = cp.transformer
+    fw4 = int4_trunk(talker_t, gen)
+    checks["K4 int4"] = [check_k4_deep("talker int4", talker_t, fw4, 8, 512, gen, 10),
+                         check_k4_deep("talker int4", talker_t, fw4, 32, 512, gen, 3)]
+    bounds["K4 int4"] = step_bound(talker_t, fw4, 8, [min(p, 511) for p in K4_POSITIONS], 1,
+                                   torch.bfloat16)
+    check_kvq_k4("talker int4", talker_t, fw4, 8, 512, gen, 0)
+    checks["K6 int4"] = [check_k6_deep("talker int4", talker_t, fw4, B, S, T, starts, gen, iters)
+                         for B, S, T, starts, iters in K6_DEEP_CASES[:1] + K6_DEEP_CASES[3:]]
+    bounds["K6 int4"] = checks["K6 int4"][0][3]
+    checks["K6 int4 kvq"] = check_kvq_k6("talker int4", talker_t, fw4, 1, 4, 256, [200], gen, 10)
+    x, kc, vc, starts = k6_inputs(talker_t, 1, 4, 256, [200], torch.bfloat16, gen)
+    trace_phases("K6 int4 0.6B talker B=1 S=4 T=256 start 200",
+                 K6._verify_entry(talker_t, fw4, 1, 4, 256, torch.bfloat16, x.device).plan,
+                 verify_phase_names(talker_t.num_layers),
+                 lambda: K6.fused_verify_step(talker_t, fw4, x, starts, kc, vc))
+    del fw4, x, kc, vc
+    tsi = dataclasses.replace(talker_t, num_layers=K1_SHALLOW_LAYERS)
+    fws = int4_trunk(tsi, gen)
+    for cache_dtype in (torch.float32, torch.bfloat16):
+        checks["K4 int4"][0] = (max(checks["K4 int4"][0][0], check_k4_shallow(
+            tsi, fws, 8, 512, cache_dtype, gen)),) + checks["K4 int4"][0][1:]
+        check_k6_shallow(tsi, fws, 4, 4, 512, [0, 61, 200, 600], cache_dtype, gen)
+    del fws
+    t2 = dataclasses.replace(talker_t, num_layers=2)
+    fw2 = int4_trunk(t2, gen)
+    for cache_dtype in (torch.bfloat16, torch.int8):
+        x4, _, _, pos = k4_inputs(t2, 8, 512, torch.bfloat16, gen)
+        x6, _, _, starts = k6_inputs(t2, 4, 4, 512, [62, 5, 504, 130], torch.bfloat16, gen)
+        if cache_dtype == torch.int8:
+            base4 = q8_cache(t2, 8, 512, pos, gen)
+            base6 = q8_cache(t2, 4, 512, [62, 5, 504, 130], gen)
+        else:
+            base4 = list(k4_inputs(t2, 8, 512, cache_dtype, gen)[1:3])
+            base6 = list(k6_inputs(t2, 4, 4, 512, [62, 5, 504, 130], cache_dtype, gen)[1:3])
+        pos_dev = torch.tensor(pos, device=DEV)
+
+        def k4_once(x=x4, base=base4, pos_dev=pos_dev):
+            c = clone_all(base)
+            return (K1.fused_decode_step_batched(t2, fw2, x, pos_dev, *c)[0], *c)
+
+        def k6_once(x=x6, base=base6, starts=starts):
+            c = clone_all(base)
+            return (K6.fused_verify_step(t2, fw2, x, starts, *c)[0], *c)
+
+        ring_variants(f"K4 int4 talker-2-layer B=8, {str(cache_dtype)[6:]} cache", k4_once)
+        ring_variants(f"K6 int4 talker-2-layer 4 x 4, {str(cache_dtype)[6:]} cache", k6_once)
+    del fw2
+
+    H, V, n = mtp_t.hidden_size, cp.subcode_vocab_size, cp.num_steps
+    m_raw = raw_layers(mtp_t, gen)
+    m4 = K1.pack_fused_weights(mtp_t, m_raw, bits=4)
+    m8 = K1.pack_fused_weights(mtp_t, m_raw, bits=8)
+    del m_raw
+    raw_heads = (torch.randn((n, H, V), generator=gen, device=DEV) * H ** -0.5).to(torch.bfloat16)
+    h8, h16 = K2.pack_heads(quantize_weight(raw_heads)), K2.pack_heads(raw_heads)
+    tables = (torch.randn((n, V, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=DEV)
+    for key, fw, heads in (("K5 int4", m4, h8), ("K5 int8 trunk, bf16 heads", m8, h16),
+                           ("K5 int4 trunk, bf16 heads", m4, h16)):
+        # B=32 rows against K2 in check_k5_equal: its plain chain takes ~13 s
+        checks[key] = [check_k5(8, cp, fw, heads, tables, fnorm, gen, 5)]
+        bounds[key] = chain_bound(mtp_t, fw, heads, 8)
+        check_k5_equal(f"0.6B MTP trunk {key[3:]}", cp, fw, heads, tables, fnorm, gen,
+                       batches=(2, 32), cache_dtypes=(torch.bfloat16, torch.float32), multi=False)
+        lh = (torch.randn((8, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+        c0 = (torch.randn((8, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+        noise = gumbel_noise((n, 8, V), gen, DEV)
+        knobs = list(zip(*[K5_KNOBS[b % len(K5_KNOBS)] for b in range(8)]))
+
+        def chain_once(fw=fw, heads=heads, lh=lh, c0=c0, noise=noise, knobs=knobs):
+            return K2.fused_mtp_chain_batched(mtp_t, fw, fnorm, heads, tables, lh, c0, noise,
+                                              *knobs, cache_dtype=torch.bfloat16)
+
+        ring_variants(f"{key} 0.6B B=8 mixed knobs", chain_once)
+        if key == "K5 int4":
+            trace_phases("K5 int4 0.6B B=8 mixed knobs",
+                         K2._batch_chain_entry("qtts_mtp_chain_batched", mtp_t, fw, heads,
+                                               tables, 8, torch.bfloat16, lh.device).plan,
+                         chain_phase_names(mtp_t.num_layers, n, batched=True), chain_once)
+    del m4, m8, h8, h16, raw_heads, tables
+    torch.cuda.empty_cache()
+    return checks, bounds
+
+
+BATCHED_RUN_TEXTS = ["hello world", "hello", "a quick test of the batch", "world"]
+
+
+def with_prefills(eng, want):
+    """``want`` with K8's count as launched where the talker's prefill
+    attention is K8 (the 1.7B preset: a positive multiple of its layers,
+    one per layer and prefill call), else none."""
+    t = eng.cfg.talker.transformer
+    k8 = KERNEL_IDS.index("K8")
+    got = launches()[k8] if t.attn_impl == "pallas" else 0
+    if t.attn_impl == "pallas" and (got == 0 or got % t.num_layers):
+        raise RuntimeError(f"{got} K8 launches: not a multiple of the {t.num_layers} layers")
+    return want[:k8] + (got,) + want[k8 + 1:]
+
+
+def batched_runs(eng, label, card_line, pool=True, refusals=False):
+    """``synthesize_batch`` of four texts (one K4 and one K5 per batched
+    frame) and, with ``pool``, eight requests through an 8-slot pool (one K4
+    and one K5 per pooled frame) and a greedy pool request against
+    ``synthesize`` at B=1 (codes equal: each pool row is the B=1 kernels'
+    row bit for bit); with ``refusals``, a batch of 33 and a pool of 33 slots
+    refused (ROADMAP M12b).  Returns the launch counts."""
+    reset_launches()
+    t0 = time.perf_counter()
+    results = eng.synthesize_batch(BATCHED_RUN_TEXTS, language="en", temperature=0.8, top_k=50,
+                                   top_p=0.95, max_tokens=24, seed=list(range(4)))
+    wall = time.perf_counter() - t0
+    decoded = results[0].metrics.decoded_frames
+    for r in results:
+        if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                r.audio).all() or r.codes.shape[1:] != (16,):
+            raise RuntimeError(f"{label}: bad synthesize_batch output")
+    counts = [check_launches(f"{label} synthesize_batch B=4 ({decoded} batched frames)",
+                             with_prefills(eng, counts_of(K4=decoded, K5=decoded)))]
+    log(f"{label} synthesize_batch B=4: frames {[r.metrics.frames for r in results]}, "
+        f"{results[0].metrics.stage_seconds['decode'] * 1e3 / decoded:.3f} ms per batched frame, "
+        f"{wall:.2f} s of wall time [{card_line}]")
+    if pool:
+        p = ContinuousBatcher(eng, pool_size=8, chunk_len=16, kv_bucket=eng.kv_ladder[0])
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            futs = [p.submit(text, language=lang, temperature=k[0], top_k=k[1], top_p=k[2],
+                             max_tokens=min(mt, 24), seed=SEED + i)
+                    for i, (text, lang, k, mt) in enumerate(POOL_REQUESTS[:8])]
+            pooled = [f.result(timeout=600) for f in futs]
+            text = "hello world, greedy through the pool"
+            got = p.synthesize(text, language="en", temperature=0.0, max_tokens=24)
+            wall = time.perf_counter() - t0
+            chunks = p.stats["chunks"]
+            for r in pooled + [got]:
+                if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                        r.audio).all():
+                    raise RuntimeError(f"{label} pool: bad result")
+            counts.append(check_launches(f"{label} pool of 8 ({chunks} chunks of 16 frames)",
+                                         with_prefills(eng, counts_of(K4=16 * chunks,
+                                                                      K5=16 * chunks))))
+        finally:
+            p.shutdown()
+        want = eng.synthesize(text, language="en", temperature=0.0, max_tokens=24)
+        equal = np.array_equal(got.codes, want.codes)
+        log(f"{label} pool: 9 requests through 8 slots in {wall:.2f} s, {chunks} chunks; greedy "
+            f"pool request vs synthesize at B=1: {len(got.codes)} frames, codes equal={equal} "
+            f"[{card_line}]")
+        if not equal:
+            raise RuntimeError(f"{label}: greedy pool output differs from synthesize at B=1")
+    if refusals:
+        for what, call in (("synthesize_batch of 33", lambda: eng.synthesize_batch(["hi"] * 33)),
+                           ("a pool of 33 slots", lambda: ContinuousBatcher(eng, pool_size=33))):
+            try:
+                call()
+            except EngineError as e:
+                if "ROADMAP M12b" not in str(e):
+                    raise
+                log(f"{label} {what}: refused, {e}")
+            else:
+                raise RuntimeError(f"{label} {what} ran: more than 32 rows must refuse (M12b)")
+    return [sum(c) for c in zip(*counts)]
+
+
+def precision_engines(tok, card_line):
+    """The batched paths of the precision flags at the 0.6B preset, one
+    engine each from the same weights: ``quantize="int4"`` (K4 int4, K5 on
+    the int4 trunk with int8 heads), ``mtp_quantize="int8"`` and ``"auto"``
+    beside an unset ``quantize`` (K4 bf16; K5 on the int8 trunk and on the
+    int4 alt trunk with bf16 heads), and ``quantize="int8",
+    mtp_quantize="auto"`` at B=32, where JAX's ``resident_pack`` takes the
+    int4 alt trunk (K5 on it with int8 heads).  Returns launch counts by
+    report key."""
+    cfg = QWEN3_TTS_06B
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    counts = {}
+    cpk = K2.fused_mtp_chain_batched
+    for key, kw, unit, rows in (
+            ("K5 int4", dict(quantize="int4"), torch.uint8, 8),
+            ("K5 int8 trunk, bf16 heads", dict(mtp_quantize="int8"), torch.int8, 8),
+            ("K5 int4 trunk, bf16 heads", dict(mtp_quantize="auto"), torch.uint8, 8),
+            ("K5 int4 alt trunk, int8 heads", dict(quantize="int8", mtp_quantize="auto"),
+             torch.uint8, 32)):
+        t0 = time.perf_counter()
+        eng = TTSEngine(config=cfg, params=params, tokenizer=tok, **kw)
+        if not eng.is_ready():
+            raise RuntimeError(f"0.6B engine at {kw}: {eng.get_error()}")
+        cpp = eng.params["code_predictor"]
+        if chain_pack(cpp, cpk, rows).wqkv.dtype != unit:
+            raise RuntimeError(f"the 0.6B engine at {kw} does not take {unit} trunks in K5 at "
+                               f"{rows} rows")
+        log(f"engine: 0.6B preset at {kw}, built in {time.perf_counter() - t0:.1f} s; K5's pack "
+            f"at {rows} rows: {str(unit)[6:]} units [{card_line}]")
+        if rows == 32:
+            reset_launches()
+            texts = [BATCH_TEXTS[b % len(BATCH_TEXTS)] for b in range(32)]
+            results = eng.synthesize_batch(texts, language="en", temperature=0.8, max_tokens=16,
+                                           seed=list(range(32)))
+            d = results[0].metrics.decoded_frames
+            if any(not np.isfinite(r.audio).all() or r.codes.shape[1:] != (16,)
+                   for r in results):
+                raise RuntimeError(f"0.6B {kw} synthesize_batch B=32: bad output")
+            counts[key] = check_launches(
+                f"0.6B {kw} synthesize_batch B=32 (K5 on the int4 alt trunk)",
+                counts_of(K4=d, K5=d))
+        else:
+            counts[key] = batched_runs(eng, f"0.6B {kw}", card_line, refusals=key == "K5 int4")
+        if key == "K5 int4":
+            counts["K4 int4"] = counts[key]
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    return counts
+
+
 def precision_cli(tok, card_line):
     """The CLI at the 0.6B preset from a checkpoint, in process, under the
     flags this phase adds: --quantize int4 (one K1 int4 and one K2 int4 per
     frame), --quantize int4 --kv-quant, --mtp-quantize int8 and
     --mtp-quantize auto at an unset --quantize (K1 bf16 and K2 on the int8
     trunk or the int4 alt trunk, bf16 heads), --spec-k 4 at an unset
-    --quantize (K6 and K5 at bf16 units), also with --kv-quant, and the flag
-    sets still refused.
+    --quantize (K6 and K5 at bf16 units), also with --kv-quant, --spec-k 4
+    with --quantize int4 --kv-quant (K6 int4 on an int8 cache, K5 int4) and
+    with --mtp-quantize int8 (K5 on the int8 trunk with bf16 heads); then
+    the server subprocess at --quantize int4 (its pool on K4 / K5 int4).
     Returns ({flags: launch counts}, {flags: ms per frame})."""
     cfg = QWEN3_TTS_06B
     params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
@@ -4903,7 +5272,11 @@ def precision_cli(tok, card_line):
                              ("--mtp-quantize int8", ["--mtp-quantize", "int8"]),
                              ("--mtp-quantize auto", ["--mtp-quantize", "auto"]),
                              ("--spec-k 4", ["--spec-k", "4"]),
-                             ("--spec-k 4 --kv-quant", ["--spec-k", "4", "--kv-quant"])):
+                             ("--spec-k 4 --kv-quant", ["--spec-k", "4", "--kv-quant"]),
+                             ("--quantize int4 --spec-k 4 --kv-quant",
+                              ["--quantize", "int4", "--spec-k", "4", "--kv-quant"]),
+                             ("--mtp-quantize int8 --spec-k 4",
+                              ["--mtp-quantize", "int8", "--spec-k", "4"])):
             out_wav = os.path.join(tmp, f"p{len(counts)}.wav")
             reset_launches()
             t0 = time.perf_counter()
@@ -4915,10 +5288,11 @@ def precision_cli(tok, card_line):
             decode_ms, n = float(m.group(1)), int(m.group(2))
             pcm = check_wav(out_wav, f"CLI {label}")
             frames = pcm.size // SAMPLES_PER_FRAME
-            if m.group(3) is not None:  # spec: K1 after a fallback, K3 once, K6 and K5 per iteration
+            if m.group(3) is not None:  # spec: K1 after a fallback, the B=1 chain once, K6 and K5 per iteration
                 it, fallback = int(m.group(3)), m.group(5) is not None
                 seq = n - 1 - it * 4
-                want = counts_of(K1=seq + fallback, K3=1 + seq, K5=it, K6=it)
+                chain = "K3" if flags[:2] == ["--spec-k", "4"] else "K2"  # bf16 trunks: K3
+                want = counts_of(K1=seq + fallback, **{chain: 1 + seq}, K5=it, K6=it)
                 ms[label] = decode_ms / frames  # per committed frame, random drafts rejected
             else:
                 want = counts_of(K1=n, K2=n)
@@ -4927,22 +5301,7 @@ def precision_cli(tok, card_line):
             log(f"CLI {label}: exit 0, {pcm.size / 24000:.2f} s of audio ({frames} frames), {n} "
                 f"frames decoded, {decode_ms / n:.3f} ms per decoded frame, {decode_ms / frames:.3f} "
                 f"per committed frame, {wall:.2f} s of wall time [{card_line}]")
-        for label, flags, words in (
-                ("--quantize int4 --spec-k 4", ["--quantize", "int4", "--spec-k", "4"],
-                 "K1v-b / K2v"),
-                ("--mtp-quantize int8 --spec-k 4", ["--mtp-quantize", "int8", "--spec-k", "4"],
-                 "K1v-b / K2v"),
-                ("--quantize int4 --frame-fused on", ["--quantize", "int4", "--frame-fused", "on"],
-                 "K7")):
-            reset_launches()
-            out_wav = os.path.join(tmp, "refused.wav")
-            rc, out, err = run_cli(base + flags + ["-o", out_wav])
-            errors = [line for line in err.splitlines() if line.startswith("Error: ")]
-            if rc != 1 or len(errors) != 1 or words not in errors[0] or os.path.exists(out_wav):
-                raise RuntimeError(f"CLI {label}: exit {rc}, expected 1 with the engine's "
-                                   f"error\n{err}")
-            check_launches(f"CLI {label} (refused)", ())
-            log(f"CLI {label}: exit 1, {errors[0]}")
+        serve_phase(d, card_line, quantize="int4")
     torch.cuda.empty_cache()
     return counts, ms
 
@@ -4951,8 +5310,10 @@ def precision_17b(tok, card_line):
     """Short 1.7B requests at ``quantize="int4"`` (one K1 int4 and one K3
     int4 per frame) and at an unset ``quantize`` with
     ``mtp_quantize="int8"`` (K1 bf16 and K3 on the int8 trunk with bf16
-    heads), K8 on each prefill.  Returns ({label: launch counts}, {label:
-    ms per frame})."""
+    heads), K8 on each prefill; then each engine's batches and pool
+    (batched_runs: K4 int4 / bf16, K5 on the int4 trunk / the int8 trunk
+    with bf16 heads, on K3's float32 cache).  Returns ({label: launch
+    counts}, {label: ms per frame})."""
     cfg = voice_config()
     params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
     counts, ms = {}, {}
@@ -4982,23 +5343,31 @@ def precision_17b(tok, card_line):
         log(f"1.7B {label} synthesize: {m.frames} frames ({m.decoded_frames} decoded), "
             f"{ms[label]:.3f} ms/frame decode, RTF {m.rtf:.2f}x, TTFA "
             f"{m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
+        counts[f"1.7B batched {label}"] = batched_runs(eng, f"1.7B {label}", card_line)
         del eng
         torch.cuda.empty_cache()
     del params
     return counts, ms
 
 
-def precision_phase(tok, gen, card_line):
-    """Phase 15: the CLI's remaining weight-precision flags on the card.
-    The kernel checks (precision_kernel_checks), the CLI under each new
-    flag set (precision_cli) and a 1.7B int4 request (precision_17b).
-    Fails if K1 int4, K2 int4, K3 int4 or K6 bf16 never launched on those
-    main paths.  Returns (launch counts by report key, checks, bounds)."""
+def precision_phase(tok, gen, card_line, spec_counts):
+    """Phase 15: every weight precision on the card.  The kernel checks
+    (precision_kernel_checks, precision_batched_checks), the CLI under each
+    precision flag set (precision_cli; ``spec_counts``: cli_phase's int4
+    spec runs), 1.7B int4 and mixed requests, batches and pools
+    (precision_17b) and the 0.6B engines' batches and pools
+    (precision_engines).  Fails if an instance never launched on those main
+    paths.  Returns (launch counts by report key, checks, bounds)."""
     t0 = time.perf_counter()
     checks, bounds = precision_kernel_checks(gen, card_line)
+    more_checks, more_bounds = precision_batched_checks(gen)
+    checks.update(more_checks)
+    bounds.update(more_bounds)
     cli_counts, cli_ms = precision_cli(tok, card_line)
     counts_17b, ms_17b = precision_17b(tok, card_line)
-    ids = {k: KERNEL_IDS.index(k) for k in ("K1", "K2", "K3", "K5", "K6")}
+    engine_counts = precision_engines(tok, card_line)
+    ids = {k: KERNEL_IDS.index(k) for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    spec4 = spec_counts["--quantize int4 --spec-k 4"]
     paths = {
         "K1 int4": cli_counts["--quantize int4"][ids["K1"]]
         + counts_17b["--quantize int4"][ids["K1"]],
@@ -5011,6 +5380,18 @@ def precision_phase(tok, gen, card_line):
         "K3 int8 trunk, bf16 heads": counts_17b["--mtp-quantize int8"][ids["K3"]],
         "K6 bf16": cli_counts["--spec-k 4"][ids["K6"]],
         "K6 bf16 kvq": cli_counts["--spec-k 4 --kv-quant"][ids["K6"]],
+        "K4 int4": engine_counts["K4 int4"][ids["K4"]]
+        + counts_17b["1.7B batched --quantize int4"][ids["K4"]],
+        "K5 int4": engine_counts["K5 int4"][ids["K5"]]
+        + engine_counts["K5 int4 alt trunk, int8 heads"][ids["K5"]]
+        + counts_17b["1.7B batched --quantize int4"][ids["K5"]] + spec4[ids["K5"]],
+        "K5 int8 trunk, bf16 heads": engine_counts["K5 int8 trunk, bf16 heads"][ids["K5"]]
+        + counts_17b["1.7B batched --mtp-quantize int8"][ids["K5"]]
+        + cli_counts["--mtp-quantize int8 --spec-k 4"][ids["K5"]],
+        "K5 int4 trunk, bf16 heads": engine_counts["K5 int4 trunk, bf16 heads"][ids["K5"]]
+        + spec_counts["without --quantize, --mtp-quantize int4 --spec-k 4"][ids["K5"]],
+        "K6 int4": spec4[ids["K6"]],
+        "K6 int4 kvq": cli_counts["--quantize int4 --spec-k 4 --kv-quant"][ids["K6"]],
     }
     unlaunched = [k for k, n in paths.items() if not n]
     if unlaunched:
@@ -5035,6 +5416,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
               file=sys.stderr)
         return 2
+    started = time.perf_counter()
     global CARD
     CARD = card_line = card()
     log(f"card: {card_line}")
@@ -5268,8 +5650,10 @@ def main() -> int:
     # the bf16 units' phase draws from a generator of its own, as K4's
     gen16 = torch.Generator(device=DEV)
     gen16.manual_seed(SEED + 16)
-    bf16, (k1b, k4b, k3b, k5b), bf16_bounds = bf16_phase(tok, gen16, card_line)
+    bf16, (k1b, k4b, k3b, k5b), bf16_bounds, (b17, b17_checks, b17_bounds) = bf16_phase(
+        tok, gen16, card_line)
     bounds.update({f"{k} bf16": v for k, v in bf16_bounds.items()})
+    bounds.update(b17_bounds)
     bf16 = [sum(c) for c in zip(bf16, numbers["bf16_counts"])]
     # the int8 KV cache's phase draws from a generator of its own, as K4's
     gen8 = torch.Generator(device=DEV)
@@ -5288,10 +5672,10 @@ def main() -> int:
     # the precision flags' phase draws from a generator of its own, as K4's
     gen15 = torch.Generator(device=DEV)
     gen15.manual_seed(SEED + 15)
-    precision, pchecks, pbounds = precision_phase(tok, gen15, card_line)
+    precision, pchecks, pbounds = precision_phase(tok, gen15, card_line, numbers["spec_counts"])
     bounds.update(pbounds)
     total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed,
-                                 tp_counts)]
+                                 tp_counts, b17["1.7B int8"])]
     log("launches on the main paths in all, int8 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)) + "; bf16 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)) + "; int8 KV cache: "
@@ -5385,7 +5769,40 @@ def main() -> int:
         entry("fused_verify_step (K6 bf16 units, int8 KV cache)", "fused_verify.cu",
               "fused_verify.py:473", precision["K6 bf16 kvq"], [pchecks["K6 bf16 kvq"]],
               "K6 bf16"),
+        # every weight precision in the batched kernels: int4 units in K4, K5
+        # and K6, heads of another type than the trunk and the auto alt trunk
+        # in K5, and bf16 units at the 1.7B widths (the 48 KB batched plans)
+        entry("fused_decode_step_batched (K4 int4 units)", "fused_int4.cu", "fused_step.py:2083",
+              precision["K4 int4"], pchecks["K4 int4"], "K4 int4"),
+        entry("fused_mtp_chain_batched (K5 int4 trunk, int8 heads)", "fused_int4.cu",
+              "fused_mtp.py:703", precision["K5 int4"], pchecks["K5 int4"], "K5 int4"),
+        entry("fused_mtp_chain_batched (K5 int8 trunk, bf16 heads)", "fused_mtp_batched.cu",
+              "fused_mtp.py:703", precision["K5 int8 trunk, bf16 heads"],
+              pchecks["K5 int8 trunk, bf16 heads"], "K5 int8 trunk, bf16 heads"),
+        entry("fused_mtp_chain_batched (K5 int4 trunk, bf16 heads)", "fused_int4.cu",
+              "fused_mtp.py:703", precision["K5 int4 trunk, bf16 heads"],
+              pchecks["K5 int4 trunk, bf16 heads"], "K5 int4 trunk, bf16 heads"),
+        entry("fused_verify_step (K6 int4 units)", "fused_int4.cu", "fused_verify.py:473",
+              precision["K6 int4"], pchecks["K6 int4"], "K6 int4"),
+        entry("fused_verify_step (K6 int4 units, int8 KV cache)", "fused_int4.cu",
+              "fused_verify.py:473", precision["K6 int4 kvq"], [pchecks["K6 int4 kvq"]],
+              "K6 int4"),
+        entry("fused_decode_step_batched (K4 bf16 units, 1.7B)", "fused_step_batched.cu",
+              "fused_step.py:2083", b17["K4 bf16 1.7B"][KERNEL_IDS.index("K4")],
+              b17_checks["K4 bf16 1.7B"], "K4 bf16 1.7B"),
+        entry("fused_mtp_chain_batched (K5 bf16 units, 1.7B)", "fused_mtp_batched.cu",
+              "fused_mtp.py:703", b17["K4 bf16 1.7B"][KERNEL_IDS.index("K5")]
+              + b17["K6 bf16 1.7B"][KERNEL_IDS.index("K5")], b17_checks["K5 bf16 1.7B"],
+              "K5 bf16 1.7B"),
+        entry("fused_verify_step (K6 bf16 units, 1.7B)", "fused_verify.cu", "fused_verify.py:473",
+              b17["K6 bf16 1.7B"][KERNEL_IDS.index("K6")], b17_checks["K6 bf16 1.7B"],
+              "K6 bf16 1.7B"),
     ]}
+    unlaunched = [k["name"] for k in report["kernels"] if not k["launches"]]
+    if unlaunched:
+        raise RuntimeError(f"kernels never launched on their main paths: {unlaunched}")
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the build included "
+        f"[{card_line}]")
     print(json.dumps(report))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -32,18 +32,17 @@ implementations and packs both, as the JAX engine on its accelerator:
 units with scales of one (bits=16, no quantization), ``quantize="int4"`` as
 int4 units (group-128 scales, the heads int8), for kernels K1 and K2 or K3
 (B=1; K3 for an MTP trunk past the residency gate: the 1.7B trunks and
-every bf16 trunk), K4 and K5 (B=2..32, int8 and bf16) and K6 (the verify
-pass, B x spec_k <= 32 rows; int8 and bf16).  ``mtp_quantize`` packs the MTP
-trunk at another precision from the raw weights (its heads stay those of
-``quantize``: raw heads run as bf16 rows beside an int8 or int4 trunk), and
-``"auto"`` adds an int4 ``fused_step_alt`` that the B=1 chain takes where
-the primary pack fails the residency gate (JAX's ``resident_pack``).  What
-still refuses on the card, each naming its ROADMAP item: int4 units with
-``spec_k``, in batches, pools and the server (K4 / K5 / K6 int4); an MTP
-trunk of another precision with ``spec_k`` or in batches (K5 mixed heads),
-and ``"auto"`` where ``resident_pack`` would take the alt at B > 1; int4
-units with ``frame_fused`` (K7, anywhere); bf16 spec at the 1.7B widths
-(B17).  A talker with ``attn_impl="pallas"`` runs its prefill attention as
+every bf16 trunk), K4 and K5 (B=2..32) and K6 (the verify pass, B x spec_k
+<= 32 rows), at every unit type and both presets.  ``mtp_quantize`` packs
+the MTP trunk at another precision from the raw weights (its heads stay
+those of ``quantize``: raw heads run as bf16 rows beside an int8 or int4
+trunk), and ``"auto"`` adds an int4 ``fused_step_alt`` that the chain takes
+where the primary pack fails the residency gate at its batch (JAX's
+``resident_pack``; the 0.6B int8 trunk past 16 rows).  Where the B=1 chain
+is K3, the batched chain K5 runs on K3's float32 cache, so that its rows
+equal K3's.  What still refuses on the card, each naming its ROADMAP item:
+int4 units with ``frame_fused`` (K7, anywhere) and more than 32 rows
+(M12b).  A talker with ``attn_impl="pallas"`` runs its prefill attention as
 kernel K8.  ``kv_quant=True`` keeps the
 talker's KV cache in int8 with per-(slot, head) scales (K1, K4, K6 and K7
 take it; the top bucket is rounded up to 128 slots).  A configuration the
@@ -98,14 +97,12 @@ from ..models.code_predictor import (
     chain_kernel,
     prepare_fused_step,
     resident_enabled,
-    resident_pack,
 )
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.speaker_encoder import speaker_encoder_forward
 from ..models.talker import prepare_fused_talker
-from ..ops import persistent
 from ..ops.fused_mtp_tp import shard_heads, supports_tp_resident
-from ..ops.fused_step import MAX_BATCH, UNIT_DTYPES, UNIT_NAMES, meta_pack, supports
+from ..ops.fused_step import MAX_BATCH, meta_pack, supports
 from ..ops.fused_tp import check_timeouts, pack_fused_tp, pack_rows, supports_shard, supports_tp
 from ..ops.quant import fuse_params, quantize_params
 from ..parallel import Mesh
@@ -347,8 +344,6 @@ class TTSEngine:
                                 "the per-step MTP chain, which is not ported to the card")
             if problems:
                 raise EngineError("CUDA kernel path unavailable: " + "; ".join(problems))
-            if mesh is None and self.spec_k is not None:
-                self._check_spec(cfg, b1_pack)
 
         if mesh is not None:
             self.params = self._mesh_params(cfg, _to_device(params, self.device), mesh)
@@ -392,41 +387,6 @@ class TTSEngine:
         if self._mtp_alt:
             packs["fused_step_alt"] = meta_pack(t, 4)
         return packs
-
-    def _check_spec(self, cfg: TTSModelConfig, mtp_packs: dict) -> None:
-        """Raise where the card cannot verify with ``spec_k``: the talker's
-        verify pass is K6 (int8 and bf16 units; a bf16 plan at the 1.7B
-        widths meets a batched plan's 32 KB slot) and the candidates' chain
-        K5 at spec_k rows (units and heads of one type, int8 or bf16)."""
-        if self._bits == 4:
-            raise EngineError("spec_k with quantize='int4': the verify kernel K6 and the batched "
-                              "chain K5 take int8 and bf16 units (int4 in K6 / K5: ROADMAP "
-                              "K1v-b / K2v)")
-        if self._bits == 16 and not persistent.batched_fits(cfg.talker.transformer, 2):
-            raise EngineError(
-                f"spec_k with bf16 units at hidden size {cfg.talker.transformer.hidden_size}: a "
-                "verify plan's 32 KB ring slot holds fewer than 4 rows of its widest product "
-                "(quantize='int8' runs; the 1.7B family beyond B=1: ROADMAP B17)")
-        self._check_k5(mtp_packs, self.spec_k, "spec_k")
-
-    def _check_k5(self, mtp_packs: dict, rows: int, what: str) -> None:
-        """Raise where the batched chain K5 at ``rows`` rows cannot take the
-        MTP pack: an int4 trunk, heads of another type than the trunk's (an
-        unquantized talker beside a quantized MTP trunk), or the int4 alt
-        trunk that JAX's ``resident_pack`` takes at this batch."""
-        units = {bits: UNIT_NAMES[dt] for bits, dt in UNIT_DTYPES.items()}
-        mtp_bits = self._mtp_bits or self._bits
-        if mtp_bits == 4 or (mtp_bits != self._bits and self._bits == 16):
-            raise EngineError(
-                f"{what} with an MTP trunk of {units[mtp_bits]} units beside {units[self._bits]} "
-                "units: the batched chain K5 takes int8 or bf16 trunks with heads of their type "
-                "(int4 and mixed heads in K5: ROADMAP K1v-b / K2v)")
-        alt = mtp_packs.get("fused_step_alt")
-        if alt is not None and resident_pack(mtp_packs, rows) is alt:
-            raise EngineError(
-                f"{what} with mtp_quantize='auto': JAX's resident_pack takes the int4 alt trunk "
-                f"at {rows} rows, which the batched chain K5 does not take (the auto alt trunk "
-                "at B > 1: ROADMAP K1v-b / K2v)")
 
     @staticmethod
     def _mesh_problems(cfg: TTSModelConfig, mesh) -> List[str]:
@@ -489,35 +449,14 @@ class TTSEngine:
         if not self._ready:
             raise EngineError(f"engine not ready: {self._error}")
 
-    def check_batched(self, rows: int = MAX_BATCH) -> None:
-        """Raise EngineError where the card cannot run this engine's batched
-        kernels K4 and K5 at up to ``rows`` rows (``synthesize_batch`` at B >
-        1, a pool, the server): int4 units (K4, K5), an MTP trunk that K5
-        does not take (:meth:`_check_k5`), and bf16 units past 4096 columns
-        (the 1.7B widths), which leave a batched plan's 32 KB ring slot fewer
-        than 4 rows.  Under a mesh (anywhere): batched decoding is not
-        ported."""
+    def check_batched(self) -> None:
+        """Raise EngineError where this engine cannot decode batches
+        (``synthesize_batch`` at B > 1, a pool, the server): under a mesh,
+        anywhere (ROADMAP M15).  On the card every unit type, MTP trunk and
+        preset runs the batched kernels K4, K5 and K6."""
         if self.mesh is not None:
             raise EngineError("batched decoding under a mesh (synthesize_batch at B > 1, the "
                               "pool, the server): not ported (ROADMAP M15)")
-        if self.device.type != "cuda":
-            return
-        if self._bits == 4:
-            raise EngineError("batched decoding of int4 units (synthesize_batch at B > 1, the "
-                              "pool, the server): the batched kernels K4 and K5 take int8 and "
-                              "bf16 units (int4 in K4 / K5: ROADMAP K1v-b / K2v)")
-        packs = {k: v for k, v in self.params["code_predictor"].items()
-                 if k in ("fused_step", "fused_step_alt")} if self.params else self._meta_packs(
-                     self.cfg)
-        self._check_k5(packs, max(2, rows), "batched decoding")
-        if self._bits != 16:
-            return
-        for t in (self.cfg.talker.transformer, self.cfg.code_predictor.transformer):
-            if not persistent.batched_fits(t, 2):
-                raise EngineError(
-                    f"batched decoding of bf16 units at hidden size {t.hidden_size}: a batched "
-                    "plan's 32 KB ring slot holds fewer than 4 rows of its widest product "
-                    "(quantize='int8' runs; the 1.7B family beyond B=1: ROADMAP B17)")
 
     # ------------------------------------------------------------------
     # Public synthesis API
@@ -772,9 +711,10 @@ class TTSEngine:
         if B < 1:
             raise EngineError("no texts")
         if self.device.type == "cuda" and B > MAX_BATCH:
-            raise EngineError(f"batch of {B}: the batched kernels take at most {MAX_BATCH} streams")
+            raise EngineError(f"batch of {B}: the batched kernels take at most {MAX_BATCH} streams "
+                              "(ROADMAP M12b)")
         if B > 1:
-            self.check_batched(B * (self.spec_k or 1))
+            self.check_batched()
         vocab = cfg.talker.text_vocab_size
         for ids in list(id_lists) + ([instruct_ids] if instruct_ids else []):
             bad = [i for i in ids if not 0 <= int(i) < vocab]

@@ -13,14 +13,11 @@ missing/invalid inputs, a flag whose path is not ported (the engine's error)
 or failed synthesis; output WAV is 16-bit PCM mono 24 kHz without peak
 normalization (main_onnx.cpp:15-58).  On the card an unset --quantize (the
 default) runs bf16 weight units, --quantize int8 int8 units and --quantize
-int4 int4 units (int8 heads), each with --kv-quant (the int8 KV cache) and
-any --mtp-quantize (an MTP trunk of another precision; "auto" adds the int4
-trunk the chain takes where the primary one fails the residency gate);
---spec-k runs with an unset --quantize (0.6B) and with int8.  What still
-leaves the engine not ready (exit 1, the error names its ROADMAP item):
---spec-k with --quantize int4 or with an MTP trunk the batched chain does
-not take, --spec-k with bf16 units at the 1.7B widths, and --frame-fused on
-with int4 units.
+int4 int4 units (int8 heads), at both presets, each with --kv-quant (the
+int8 KV cache), any --mtp-quantize (an MTP trunk of another precision;
+"auto" adds the int4 trunk the chain takes where the primary one fails the
+residency gate) and --spec-k.  What still leaves the engine not ready (exit
+1, the error names its ROADMAP item): --frame-fused on with int4 units.
 """
 
 from __future__ import annotations
@@ -70,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--frame-fused", choices=["on", "off"],
         help="pin the whole-frame kernel (code0 sample + MTP chain + talker step + "
              "lm_head in ONE launch per frame, sequential B=1 only); default: "
-             "QTTS_FRAME_FUSED env",
+             "QTTS_FRAME_FUSED env; refused with int4 units (ROADMAP K1v-b / K2v)",
     )
     p.add_argument(
         "--kv-quant", action="store_true",

@@ -23,6 +23,11 @@
 // the device, and the knobs travel by value in the launch arguments: the
 // chain syncs nothing and copies nothing to the device.
 //
+// The trunk's units are int8, bf16 or int4 (fused_int4.cu instantiates the
+// int4 trunks) and the heads int8 or bf16, a template argument of their own
+// (HT), as in K2: mixed heads beside an unquantized talker, and the int4
+// alt trunk JAX's resident_pack takes past the int8 trunk's residency.
+//
 // What bounds it on the H100: 16 trunk passes x 82 MB of int8 plus 15 x 2 MB
 // of heads per frame, about 1.34 GB, shared by B rows (0.40 ms at the 3.35
 // TB/s of an H100 SXM, NVIDIA data sheet); at B = 32 the 16 x 81.8 M x 32
@@ -71,93 +76,37 @@ __global__ void __launch_bounds__(QTTS_GEMV_THREADS) sample_rows_kernel(RowSampl
   }
 }
 
-// The persistent batched chain's one argument (travels by value).
-struct BChainLaunch {
-  QttsStepWeights w;
-  QttsBatchScratch s;
-  QttsPlan p;
-  QttsChainBatchArgs c;
-};
-
-template <typename CT, typename WT>
-__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
-bchain_kernel(const __grid_constant__ BChainLaunch a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ QttsSeq seq;
-  QttsRing ring;
-  const QttsChainBatchArgs& c = a.c;
-  const int H = a.w.H, V = c.V, n = c.n, T = n + 2, B = c.B;
-  qtts_ring_start(ring, seq, smem, a.p, a.w, c.heads, c.head_scales, n, V);
-  int stage = 0;
-  int gb0, nb;
-  qtts_group_rows(a.p, gb0, nb);
-  CT* kc = static_cast<CT*>(c.k_cache);
-  CT* vc = static_cast<CT*>(c.v_cache);
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
-  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.last_hidden, c.x, kc, vc,
-                                   B, T, nullptr, 0, smem, true);
-  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.code0_embed, c.x, kc, vc,
-                                   B, T, nullptr, 1, smem, true);
-  for (int j = 0; j < n; ++j) {
-    // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j, every row
-    qtts_bprologue<QTTS_IN_NORM>(c.x + (size_t)gb0 * H, H, c.final_norm, a.w.eps, H, nb, act);
-    qtts_ring_bgemv<false, WT>(a.p, ring, seq, QTTS_KIND_HEAD, stage, act, nb,
-                           c.logits + (size_t)gb0 * V, V);
-    qtts_phase_barrier(a.p);
-    if ((int)blockIdx.x < B) {
-      // row b's draw on block b, then its embedding row into sub_sum and
-      // the next trunk input
-      const int b = blockIdx.x;
-      const int sub = qtts_sample_fast(
-          c.logits + (size_t)b * V, V, c.noise + j * c.noise_step_stride + b * c.noise_row_stride,
-          c.temperature[b], c.top_k[b], c.top_p[b], c.greedy[b],
-          *reinterpret_cast<QttsSampleSmem*>(smem), &a.p);
-      if (threadIdx.x == 0) c.subcodes[b * n + j] = sub;
-      const __nv_bfloat16* table = c.tables + (size_t)j * c.Vt * H + (size_t)sub * H;
-      float* sum = c.sub_sum + (size_t)b * H;
-      float* x_next = c.x_in + (size_t)b * H;
-      for (int k = threadIdx.x; k < H; k += blockDim.x) {
-        const float e = __bfloat162float(table[k]);
-        sum[k] = j == 0 ? e : sum[k] + e;
-        x_next[k] = e;
-      }
-    }
-    if (j + 1 < n) {
-      qtts_phase_barrier(a.p);  // the next trunk pass reads the sampled embeddings
-      qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.x_in, c.x, kc, vc, B,
-                                       T, nullptr, 2 + j, smem, true);
-    }
-  }
-  qtts_trace_end(a.p);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Kernel K5 entry: subcodes [B, n] and sub_sum [B, H] of one frame's chain,
-// in one cooperative launch on the plan's grid.  int8 units and heads with
-// either cache; bf16 units and heads (a->heads_bf16 == w->unit_type) with a
-// float32 cache only, as K3 runs them, so that each row equals K3 on it.
+// in one cooperative launch on the plan's grid.  int8 and int4 trunks with
+// int8 or bf16 heads (a->heads_bf16), on either cache; a bf16 trunk with
+// bf16 heads on a float32 cache only, as K3 runs it, so that each row
+// equals K3 on it.
 int qtts_mtp_chain_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
                            const QttsPlan* p, const QttsChainBatchArgs* a, void* stream) {
   const int T = a->n + 2, qd = w->nq * w->D, B = a->B;
+  const bool bf16_trunk = w->unit_type == QTTS_UNIT_BF16;
   if (w->D != QTTS_ATTN_D || w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || a->n < 1 || a->V > a->Vt ||
       a->V > QTTS_P_THREADS * QTTS_SAMPLE_VPT || B < 1 || B > QTTS_MAX_BATCH || B > p->grid ||
-      (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits || w->unit_type == QTTS_UNIT_INT4 ||
-      a->heads_bf16 != w->unit_type ||
-      (w->unit_type && a->cache_bf16) || !qtts_plan_ok(*p, *w, a->V, B)) {
+      (T - 1) / QTTS_ATTN_CHUNK + 1 > s->max_splits || w->unit_type < QTTS_UNIT_INT8 ||
+      w->unit_type > QTTS_UNIT_INT4 || (a->heads_bf16 != 0 && a->heads_bf16 != 1) ||
+      (bf16_trunk && (!a->heads_bf16 || a->cache_bf16)) ||
+      !qtts_plan_ok(*p, *w, a->V, B, nullptr, 0, a->heads_bf16 ? 2 : 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const BChainLaunch launch{*w, *s, *p, *a};
+  const QttsBChainLaunch launch{*w, *s, *p, *a};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w->unit_type) {
-    return qtts_launch_persistent(bchain_kernel<float, __nv_bfloat16>, launch, *p, st);
+  if (w->unit_type == QTTS_UNIT_INT4) return qtts_launch_bchain_int4(launch, st);
+  if (bf16_trunk) {
+    return qtts_launch_persistent(bchain_kernel<float, __nv_bfloat16, __nv_bfloat16>, launch, *p,
+                                  st);
   }
-  return a->cache_bf16
-             ? qtts_launch_persistent(bchain_kernel<__nv_bfloat16, int8_t>, launch, *p, st)
-             : qtts_launch_persistent(bchain_kernel<float, int8_t>, launch, *p, st);
+  return a->heads_bf16 ? qtts_launch_bchain_cache<int8_t, __nv_bfloat16>(launch, st)
+                       : qtts_launch_bchain_cache<int8_t, int8_t>(launch, st);
 }
 
 // The launch-per-op chain K5 ran before it was persistent: K4's layer

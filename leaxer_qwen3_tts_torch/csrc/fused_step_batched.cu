@@ -32,9 +32,11 @@
 // arithmetic in K1's order, so row b equals K1 on row b bit for bit, and the
 // launch-per-op sequence below (qtts_decode_step_batched_multi) bit for bit.
 // bf16 units take K1's bf16 path per row (a half row of 8 weights is one
-// 16-byte load), so a bf16 K4 row equals the bf16 K1 on it too.  A bf16
-// plan needs four rows of the widest K in a 32 KB slot: K <= 4096 (the
-// 0.6B widths; the 1.7B down product's 12 KB rows are refused).
+// 16-byte load), so a bf16 K4 row equals the bf16 K1 on it too; at the
+// 1.7B widths (12 KB down rows) the plan takes 48 KB slots, four rows each.
+// int4 units (fused_int4.cu instantiates them) take qtts_bstage_unit4, K1
+// int4's group-scaled sum per (row, batch row), so an int4 K4 row equals
+// the int4 K1 on it bit for bit.
 //
 // What bounds it on the H100: the int8 weight bytes, 440 MB per step of the
 // 0.6B talker, shared by B streams (0.13 ms at the 3.35 TB/s of an H100 SXM,
@@ -173,36 +175,6 @@ cudaError_t launch_gemv_rows(const __nv_bfloat16* in, const int8_t* W, const flo
   return cudaGetLastError();
 }
 
-// The persistent batched step's one argument (travels by value).
-struct BStepLaunch {
-  QttsStepWeights w;
-  QttsBatchScratch s;
-  QttsPlan p;
-  const float* x_in;
-  float* x;
-  void* k_cache;
-  void* v_cache;
-  float* k_scale;  // [L, B, nk, T] scales of an int8 cache (CT = int8_t), else null
-  float* v_scale;
-  const int64_t* pos_dev;
-  int32_t B, T, pos_host;
-};
-
-template <typename CT, typename WT>
-__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
-bstep_kernel(const __grid_constant__ BStepLaunch a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ QttsSeq seq;
-  QttsRing ring;
-  qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
-  int stage = 0;
-  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
-                                   static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.B,
-                                   a.T, a.pos_dev, a.pos_host, smem, false, 1, a.k_scale,
-                                   a.v_scale);
-  qtts_trace_end(a.p);
-}
-
 }  // namespace
 
 int qtts_launch_prep_rows(int in_mode, const float* in, int ld_in, const float* norm_w,
@@ -280,8 +252,8 @@ extern "C" {
 
 // Kernel K4 entry: x_out [B, H] = decode_step(x_in) with the caches updated in
 // place; pos_dev [B] int64 on the device, or null for every row at pos_host.
-// One cooperative launch on the plan's grid; int8 or bf16 units
-// (w->unit_type), each with a bf16 or float32 cache.
+// One cooperative launch on the plan's grid; int8, bf16 or int4 units
+// (w->unit_type), each with a float32, bf16 or int8 cache.
 int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
                              const QttsPlan* p, const float* x_in, float* x_out, void* k_cache,
                              void* v_cache, float* k_scale, float* v_scale, int cache_bf16, int B,
@@ -290,29 +262,23 @@ int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s
   const int qd = w->nq * w->D;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
                                : pos_host / QTTS_ATTN_CHUNK + 1;
-  // int8 or bf16 units (int4 units in K4: ROADMAP K1v-b / K2v)
-  if (w->unit_type == QTTS_UNIT_INT4 || w->D != QTTS_ATTN_D || w->nq % w->nk != 0 ||
-      w->nq / w->nk > QTTS_ATTN_MAX_G ||
+  if (w->unit_type < QTTS_UNIT_INT8 || w->unit_type > QTTS_UNIT_INT4 || w->D != QTTS_ATTN_D ||
+      w->nq % w->nk != 0 || w->nq / w->nk > QTTS_ATTN_MAX_G ||
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || B < 1 || B > QTTS_MAX_BATCH ||
       T < 1 || (pos_dev == nullptr && (pos_host < 0 || pos_host >= T)) ||
       n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, B) ||
       i8 != (v_scale != nullptr) || (i8 && (cache_bf16 || T % 128 != 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  const BStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev, B, T,
-                      pos_host};
+  const QttsBStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev,
+                          B, T, pos_host};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (i8) {
-    return w->unit_type ? qtts_launch_persistent(bstep_kernel<int8_t, __nv_bfloat16>, a, *p, st)
-                        : qtts_launch_persistent(bstep_kernel<int8_t, int8_t>, a, *p, st);
+  const int cache = i8 ? 2 : cache_bf16 ? 1 : 0;
+  switch (w->unit_type) {
+    case QTTS_UNIT_INT4: return qtts_launch_bstep_int4(a, cache, st);
+    case QTTS_UNIT_BF16: return qtts_launch_bstep_cache<__nv_bfloat16>(a, cache, st);
+    default: return qtts_launch_bstep_cache<int8_t>(a, cache, st);
   }
-  if (w->unit_type) {
-    return cache_bf16
-               ? qtts_launch_persistent(bstep_kernel<__nv_bfloat16, __nv_bfloat16>, a, *p, st)
-               : qtts_launch_persistent(bstep_kernel<float, __nv_bfloat16>, a, *p, st);
-  }
-  return cache_bf16 ? qtts_launch_persistent(bstep_kernel<__nv_bfloat16, int8_t>, a, *p, st)
-                    : qtts_launch_persistent(bstep_kernel<float, int8_t>, a, *p, st);
 }
 
 // The launch-per-op sequence K4 ran before it was persistent (nine launches

@@ -47,7 +47,9 @@
 
 // bf16 units (the unquantized config, the JAX pack's bits=16: scales of one)
 // run K4's bf16 stage units (WT), so a row equals K1 / K4 bf16 steps bit for
-// bit; the bytes and the bound double (~880 MB per pass at 0.6B).
+// bit; the bytes and the bound double (~880 MB per pass at 0.6B).  int4
+// units (fused_int4.cu instantiates them) run K4's int4 units, so a row
+// equals K1 / K4 int4 steps bit for bit; the weight bytes halve (~230 MB).
 //
 // An int8 KV cache (the JAX kernel's kvq mode; int8 and bf16 units): the slot-write
 // phase quantizes every row's new k and v as K1's item would and writes the
@@ -110,44 +112,6 @@ int launch_verify_step(const QttsStepWeights& w, const QttsBatchScratch& s, cons
   return (int)cudaSuccess;
 }
 
-// The persistent verify pass's one argument (travels by value).
-struct VStepLaunch {
-  QttsStepWeights w;
-  QttsBatchScratch s;
-  QttsPlan p;
-  const float* x_in;
-  float* x;
-  void* k_cache;
-  void* v_cache;
-  float* k_scale;  // [L, B, nk, T] scales of an int8 cache (CT = int8_t), else null
-  float* v_scale;
-  const int64_t* pos_dev;
-  int32_t B, S, T, pos_host;
-};
-
-template <typename CT, typename WT>
-__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
-vstep_kernel(const __grid_constant__ VStepLaunch a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ QttsSeq seq;
-  QttsRing ring;
-  qtts_ring_start(ring, seq, smem, a.p, a.w, nullptr, nullptr, 0, 0);
-  int stage = 0;
-  qtts_bstep_phases<CT, true, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
-                                  static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache),
-                                  a.B * a.S, a.T, a.pos_dev, a.pos_host, smem, false, a.S,
-                                  a.k_scale, a.v_scale);
-  qtts_trace_end(a.p);
-}
-
-// The pass on a float32, bf16 or int8 cache at units WT.
-template <typename WT>
-int launch_vstep(const VStepLaunch& a, bool i8, int cache_bf16, cudaStream_t st) {
-  if (i8) return qtts_launch_persistent(vstep_kernel<int8_t, WT>, a, a.p, st);
-  return cache_bf16 ? qtts_launch_persistent(vstep_kernel<__nv_bfloat16, WT>, a, a.p, st)
-                    : qtts_launch_persistent(vstep_kernel<float, WT>, a, a.p, st);
-}
-
 }  // namespace
 
 extern "C" {
@@ -164,8 +128,7 @@ int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const 
   const bool i8 = k_scale != nullptr;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
                                : (pos_host + S - 1) / QTTS_ATTN_CHUNK + 1;
-  // int8 or bf16 units (int4 units in K6: ROADMAP K1v-b / K2v)
-  if ((w->unit_type != QTTS_UNIT_INT8 && w->unit_type != QTTS_UNIT_BF16) ||
+  if (w->unit_type < QTTS_UNIT_INT8 || w->unit_type > QTTS_UNIT_INT4 ||
       w->D != QTTS_ATTN_D || w->nq % w->nk != 0 ||
       w->nq / w->nk > QTTS_ATTN_MAX_G || w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 ||
       S < 2 || S > 8 || B < 1 ||
@@ -175,11 +138,15 @@ int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const 
       (i8 && (cache_bf16 || T % 128 != 0 || (T > 512 && T % 512 != 0)))) {
     return (int)cudaErrorInvalidValue;
   }
-  const VStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev, B, S,
-                      T, pos_host};
+  const QttsVStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev,
+                          B, S, T, pos_host};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return w->unit_type == QTTS_UNIT_BF16 ? launch_vstep<__nv_bfloat16>(a, i8, cache_bf16, st)
-                                        : launch_vstep<int8_t>(a, i8, cache_bf16, st);
+  const int cache = i8 ? 2 : cache_bf16 ? 1 : 0;
+  switch (w->unit_type) {
+    case QTTS_UNIT_INT4: return qtts_launch_vstep_int4(a, cache, st);
+    case QTTS_UNIT_BF16: return qtts_launch_vstep_cache<__nv_bfloat16>(a, cache, st);
+    default: return qtts_launch_vstep_cache<int8_t>(a, cache, st);
+  }
 }
 
 // The launch-per-op pass K6 ran before it was persistent (ten launches per

@@ -1642,16 +1642,30 @@ static __device__ __forceinline__ int qtts_act_col(int k) {
   return (k & ~511) | (((k >> 3) & 1) << 8) | (((k >> 4) & 31) << 3) | (k & 7);
 }
 
+// qtts_bstage_unit at int4 units, defined in fused_int4.cu beside
+// qtts_stage_rows4, whose sum order it keeps per (row, batch row).
+template <bool ACCUM, int R, int BT>
+static __device__ __forceinline__ void qtts_bstage_unit4(const unsigned char* ws, const float* ss,
+                                                         const __nv_bfloat16* act, int K,
+                                                         float* out, int ldo, int n0, int r0,
+                                                         int b0, int nb, int lane);
+
 // Unit (stage rows [r0, r0 + R), group rows [b0, b0 + BT) of nb) of a stage
 // whose first row is n0: `out` rows are `ldo` floats apart, row 0 the
 // group's first.  Batch rows past nb compute on row nb - 1 and store nothing.
 // Every array index below is a compile-time constant once the loops unroll.
-// WT: the unit type (a bf16 half row is one 16-byte load, an int8 one 8 bytes).
+// WT: the unit type (a bf16 half row is one 16-byte load, an int8 one 8
+// bytes; int4 units take qtts_bstage_unit4: group scales, no row scale).
 template <bool ACCUM, int R, int BT, typename WT>
 static __device__ __forceinline__ void qtts_bstage_unit(const WT* ws, const float* ss,
                                                         const __nv_bfloat16* act, int K,
                                                         float* out, int ldo, int n0, int r0,
                                                         int b0, int nb, int lane) {
+  if constexpr (qtts_int4_units<WT>) {
+    qtts_bstage_unit4<ACCUM, R, BT>(reinterpret_cast<const unsigned char*>(ws), ss, act, K, out,
+                                    ldo, n0, r0, b0, nb, lane);
+    return;
+  }
   // lane l stores pair l = (stage row r0 + l / BT, batch row b0 + l % BT)
   const int pr = lane / BT, pb = lane % BT;
   const bool stores = lane < R * BT && b0 + pb < nb;
@@ -2253,6 +2267,44 @@ struct QttsChainLaunch {
   QttsChainArgs c;
 };
 
+// The persistent batched step's one argument (K4; travels by value).
+struct QttsBStepLaunch {
+  QttsStepWeights w;
+  QttsBatchScratch s;
+  QttsPlan p;
+  const float* x_in;
+  float* x;
+  void* k_cache;
+  void* v_cache;
+  float* k_scale;  // [L, B, nk, T] scales of an int8 cache (CT = int8_t), else null
+  float* v_scale;
+  const int64_t* pos_dev;
+  int32_t B, T, pos_host;
+};
+
+// The persistent verify pass's one argument (K6; travels by value).
+struct QttsVStepLaunch {
+  QttsStepWeights w;
+  QttsBatchScratch s;
+  QttsPlan p;
+  const float* x_in;
+  float* x;
+  void* k_cache;
+  void* v_cache;
+  float* k_scale;  // [L, B, nk, T] scales of an int8 cache (CT = int8_t), else null
+  float* v_scale;
+  const int64_t* pos_dev;
+  int32_t B, S, T, pos_host;
+};
+
+// The persistent batched chain's one argument (K5; travels by value).
+struct QttsBChainLaunch {
+  QttsStepWeights w;
+  QttsBatchScratch s;
+  QttsPlan p;
+  QttsChainBatchArgs c;
+};
+
 namespace {
 
 // CT: the cache type; WT: the units' type.
@@ -2302,12 +2354,138 @@ int qtts_launch_chain_heads(const QttsChainLaunch& l, cudaStream_t st) {
                         : qtts_launch_chain_cache<WT, int8_t>(l, st);
 }
 
+// K4 (fused_step_batched.cu; int4 units: fused_int4.cu).  CT: the cache
+// type; WT: the units' type.
+template <typename CT, typename WT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+bstep_kernel(const __grid_constant__ QttsBStepLaunch a) {
+  extern __shared__ __align__(128) unsigned char qtts_ring_smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  qtts_ring_start(ring, seq, qtts_ring_smem, a.p, a.w, nullptr, nullptr, 0, 0);
+  int stage = 0;
+  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
+                                   static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.B,
+                                   a.T, a.pos_dev, a.pos_host, qtts_ring_smem, false, 1,
+                                   a.k_scale, a.v_scale);
+  qtts_trace_end(a.p);
+}
+
+// The batched step on a float32 (cache 0), bf16 (1) or int8 (2) cache.
+template <typename WT>
+int qtts_launch_bstep_cache(const QttsBStepLaunch& a, int cache, cudaStream_t st) {
+  switch (cache) {
+    case 0: return qtts_launch_persistent(bstep_kernel<float, WT>, a, a.p, st);
+    case 1: return qtts_launch_persistent(bstep_kernel<__nv_bfloat16, WT>, a, a.p, st);
+    case 2: return qtts_launch_persistent(bstep_kernel<int8_t, WT>, a, a.p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K6 (fused_verify.cu; int4 units: fused_int4.cu): K4's phases in their
+// VERIFY mode on B x S rows.
+template <typename CT, typename WT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+vstep_kernel(const __grid_constant__ QttsVStepLaunch a) {
+  extern __shared__ __align__(128) unsigned char qtts_ring_smem[];
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  qtts_ring_start(ring, seq, qtts_ring_smem, a.p, a.w, nullptr, nullptr, 0, 0);
+  int stage = 0;
+  qtts_bstep_phases<CT, true, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
+                                  static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache),
+                                  a.B * a.S, a.T, a.pos_dev, a.pos_host, qtts_ring_smem, false,
+                                  a.S, a.k_scale, a.v_scale);
+  qtts_trace_end(a.p);
+}
+
+// The verify pass on a float32 (cache 0), bf16 (1) or int8 (2) cache.
+template <typename WT>
+int qtts_launch_vstep_cache(const QttsVStepLaunch& a, int cache, cudaStream_t st) {
+  switch (cache) {
+    case 0: return qtts_launch_persistent(vstep_kernel<float, WT>, a, a.p, st);
+    case 1: return qtts_launch_persistent(vstep_kernel<__nv_bfloat16, WT>, a, a.p, st);
+    case 2: return qtts_launch_persistent(vstep_kernel<int8_t, WT>, a, a.p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K5 (fused_mtp_batched.cu; int4 trunks: fused_int4.cu).  CT: the chain's
+// cache type; WT: the trunk's units; HT: the heads' (int8 or bf16, whatever
+// the trunk's).  Two prefix passes, then per step the heads' B-row GEMV on
+// the ring, block b's draw of row b, and (but after the last) a trunk pass.
+template <typename CT, typename WT, typename HT>
+__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
+bchain_kernel(const __grid_constant__ QttsBChainLaunch a) {
+  extern __shared__ __align__(128) unsigned char qtts_ring_smem[];
+  unsigned char* smem = qtts_ring_smem;
+  __shared__ QttsSeq seq;
+  QttsRing ring;
+  const QttsChainBatchArgs& c = a.c;
+  const int H = a.w.H, V = c.V, n = c.n, T = n + 2, B = c.B;
+  qtts_ring_start(ring, seq, smem, a.p, a.w, c.heads, c.head_scales, n, V, sizeof(HT));
+  int stage = 0;
+  int gb0, nb;
+  qtts_group_rows(a.p, gb0, nb);
+  CT* kc = static_cast<CT*>(c.k_cache);
+  CT* vc = static_cast<CT*>(c.v_cache);
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
+  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.last_hidden, c.x, kc, vc,
+                                   B, T, nullptr, 0, smem, true);
+  qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.code0_embed, c.x, kc, vc,
+                                   B, T, nullptr, 1, smem, true);
+  for (int j = 0; j < n; ++j) {
+    // logits = bf16(RMSNorm(x) * final_norm) @ head_j * scale_j, every row
+    qtts_bprologue<QTTS_IN_NORM>(c.x + (size_t)gb0 * H, H, c.final_norm, a.w.eps, H, nb, act);
+    qtts_ring_bgemv<false, HT>(a.p, ring, seq, QTTS_KIND_HEAD, stage, act, nb,
+                               c.logits + (size_t)gb0 * V, V);
+    qtts_phase_barrier(a.p);
+    if ((int)blockIdx.x < B) {
+      // row b's draw on block b, then its embedding row into sub_sum and
+      // the next trunk input
+      const int b = blockIdx.x;
+      const int sub = qtts_sample_fast(
+          c.logits + (size_t)b * V, V, c.noise + j * c.noise_step_stride + b * c.noise_row_stride,
+          c.temperature[b], c.top_k[b], c.top_p[b], c.greedy[b],
+          *reinterpret_cast<QttsSampleSmem*>(smem), &a.p);
+      if (threadIdx.x == 0) c.subcodes[b * n + j] = sub;
+      const __nv_bfloat16* table = c.tables + (size_t)j * c.Vt * H + (size_t)sub * H;
+      float* sum = c.sub_sum + (size_t)b * H;
+      float* x_next = c.x_in + (size_t)b * H;
+      for (int k = threadIdx.x; k < H; k += blockDim.x) {
+        const float e = __bfloat162float(table[k]);
+        sum[k] = j == 0 ? e : sum[k] + e;
+        x_next[k] = e;
+      }
+    }
+    if (j + 1 < n) {
+      qtts_phase_barrier(a.p);  // the next trunk pass reads the sampled embeddings
+      qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, c.x_in, c.x, kc, vc, B,
+                                       T, nullptr, 2 + j, smem, true);
+    }
+  }
+  qtts_trace_end(a.p);
+}
+
+// The batched chain of heads type HT on a float32 or bf16 cache.
+template <typename WT, typename HT>
+int qtts_launch_bchain_cache(const QttsBChainLaunch& l, cudaStream_t st) {
+  return l.c.cache_bf16
+             ? qtts_launch_persistent(bchain_kernel<__nv_bfloat16, WT, HT>, l, l.p, st)
+             : qtts_launch_persistent(bchain_kernel<float, WT, HT>, l, l.p, st);
+}
+
 }  // namespace
 
 // fused_int4.cu: K1 at int4 units (cache: 0 float32, 1 bf16, 2 int8 with
-// its scales) and the chain on an int4 trunk, each checked by its entry.
+// its scales) and the chain on an int4 trunk, each checked by its entry;
+// K4 and K6 at int4 units (the same cache codes) and K5 on an int4 trunk
+// (int8 or bf16 heads, a float32 or bf16 cache).
 int qtts_launch_step_int4(const QttsStepLaunch& a, int cache, cudaStream_t st);
 int qtts_launch_chain_int4(const QttsChainLaunch& a, cudaStream_t st);
+int qtts_launch_bstep_int4(const QttsBStepLaunch& a, int cache, cudaStream_t st);
+int qtts_launch_vstep_int4(const QttsVStepLaunch& a, int cache, cudaStream_t st);
+int qtts_launch_bchain_int4(const QttsBChainLaunch& a, cudaStream_t st);
 
 // The B=1 chain entries of fused_mtp.cu (K2 and its launch-per-op chain),
 // which K3's entries (fused_mtp_stream.cu) run on a float32 cache.

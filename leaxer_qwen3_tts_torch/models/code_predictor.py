@@ -21,9 +21,12 @@ float32 KV scratch) when the stream gate passes (the 1.7B trunk) and the
 streamed chain is on (:func:`stream_enabled`: ``QTTS_MTP_STREAM``, else on).
 At B=2..32 it is kernel K5
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain_batched`),
-which takes every pack.  A bf16 trunk (the unquantized config) fails the
-residency gate, as in JAX, so its B=1 chain is K3; its batched chain K5
-runs on K3's float32 cache, so that each row equals K3 on it.  Under a
+which takes every pack, on :func:`resident_pack`'s pack at that batch (the
+int4 ``fused_step_alt`` where the primary fails the gate, JAX's B=32
+serving pack) or else the primary.  A bf16 trunk (the unquantized config)
+fails the residency gate, as in JAX, so its B=1 chain is K3; wherever the
+B=1 chain is K3 (bf16 trunks, the 1.7B trunks) K5 runs on K3's float32
+cache (:func:`chain_cache_dtype`), so that each row equals K3 on it.  Under a
 tensor-parallel mesh with a ``fused_tp`` pack (the engine attaches one where
 the JAX package's ``supports_tp_resident`` passes) a B=1 chain is kernel K10
 (:func:`predict_subcodes_tp_resident`), ahead of every other route, as in
@@ -152,14 +155,28 @@ def chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int):
     return None
 
 
-def chain_pack(params: dict, chain):
-    """The trunk pack ``chain`` (a :func:`chain_kernel` result) reads: K2's
-    is :func:`resident_pack`'s at B=1, K3's and K5's the primary pack (the
-    port's batched chain takes the primary at any residency: ROADMAP Queue
-    3; where JAX would take the alt there the engine refuses)."""
+def chain_pack(params: dict, chain, rows: int = 1):
+    """The trunk pack ``chain`` (a :func:`chain_kernel` result) reads at
+    ``rows`` rows: K2's and K5's is :func:`resident_pack`'s at that batch (as
+    JAX's resident chains take it), K3's and, where no pack passes the gate,
+    K5's the primary pack (the port's batched chain runs at any residency:
+    ROADMAP Queue 3)."""
     if chain is fused_mtp_chain:
         return resident_pack(params, 1)
+    if chain is fused_mtp_chain_batched:
+        return resident_pack(params, rows) or params["fused_step"]
     return params["fused_step"]
+
+
+def chain_cache_dtype(cfg: CodePredictorConfig, params: dict, fw) -> torch.dtype:
+    """The KV cache dtype of a K2 or K5 chain on pack ``fw``: K3's float32
+    scratch where this engine's B=1 chain is K3 (no pack passes the
+    residency gate: the 1.7B trunks, a bf16 trunk without an alt), so that a
+    batched row (a pool slot, a spec candidate) equals K3's chain on it bit
+    for bit, and on any bf16 trunk; else the model dtype, K2's."""
+    if fw.wqkv.dtype == torch.bfloat16 or resident_pack(params, 1) is None:
+        return torch.float32
+    return cfg.transformer.torch_dtype
 
 
 def subcode_embed_sum(
@@ -211,15 +228,10 @@ def predict_subcodes(
     if chain is not None:
         noise = None if sp.greedy else noise_fn()
         knobs = sp.rows(1)[0] if B == 1 else sp
-        fw = chain_pack(params, chain)
-        # K3 keeps its float32 scratch whatever the model dtype, and K5 takes
-        # it on a bf16 trunk (whose B=1 chain is K3)
-        if chain is fused_mtp_chain_streamed:
-            dtype = {}
-        elif fw.wqkv.dtype == torch.bfloat16:
-            dtype = {"cache_dtype": torch.float32}
-        else:
-            dtype = {"cache_dtype": t.torch_dtype}
+        fw = chain_pack(params, chain, B)
+        # K3 keeps its float32 scratch whatever the model dtype
+        dtype = ({} if chain is fused_mtp_chain_streamed
+                 else {"cache_dtype": chain_cache_dtype(cfg, params, fw)})
         subcodes, sub_sum = chain(
             t, fw, params["transformer"]["final_norm"],
             params["fused_heads"], pred_embed_tables, last_hidden, code0_embed,

@@ -1,7 +1,7 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source
-started together, and linked into one shared library with a plain C
+(or per part of a source in PARTS) started together, and linked into one shared library with a plain C
 interface, at first use, into ``build/torch_kernels/`` at the repository
 root; the file name carries a hash of the sources and flags, so a changed
 source rebuilds.  The library is loaded with ``ctypes``.  A missing ``nvcc``
@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,6 +29,10 @@ SOURCES = (
     "unit_probe.cu", "fused_tp.cu", "fused_mtp_tp.cu", "fused_int4.cu",
 )
 HEADERS = ("qtts_kernels.cuh", "qtts_stream.cuh", "qtts_tp.cuh")
+# sources compiled as several objects, part i instantiating its share of the
+# kernels (-DQTTS_INT4_PART=i), so that no one compile holds back the
+# parallel build (fused_int4.cu's seventeen int4 kernels took 625 s as one)
+PARTS = {"fused_int4.cu": 5}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -207,8 +212,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def units(names=SOURCES):
+    """(source, object name, extra nvcc flags) of every object built from
+    ``names``: one per source, or one per part of a source in PARTS."""
+    out = []
+    for s in names:
+        n = PARTS.get(s, 0)
+        out += ([(s, f"{s}.{i}", (f"-DQTTS_INT4_PART={i}",)) for i in range(n)] if n
+                else [(s, s, ())])
+    return out
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(PARTS.items()))).encode())
     for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode())
@@ -230,12 +246,24 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR)
     try:
-        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC_DIR, s)]
-                for s, o in zip(SOURCES, objs)]
+        objs = [os.path.join(tmp, obj + ".o") for _, obj, _ in units()]
+        cmds = [[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", o, os.path.join(CSRC_DIR, s)]
+                for (s, _, flags), o in zip(units(), objs)]
+        t0 = time.monotonic()
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
-        runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        outs = [None] * len(procs)
+
+        def wait(i: int) -> None:  # each source's output, and its seconds to build
+            out = procs[i].communicate()[0]
+            outs[i] = f"{out}built in {time.monotonic() - t0:.1f} s\n"
+
+        waits = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        runs = [(c, out, p.returncode) for c, out, p in zip(cmds, outs, procs)]
         if all(rc == 0 for _, _, rc in runs):
             link = [nvcc, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
             proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -29,9 +29,11 @@ take heads of either type beside an int8 or int4 trunk (JAX's int4 mode
 keeps the heads int8; an unquantized talker beside a quantized MTP trunk,
 ``mtp_quantize``, leaves the heads raw: bf16), and a bf16 trunk with bf16
 heads on a float32 cache; a bf16 trunk's B=1 chain is K3 (the JAX residency
-gate refuses bf16 trunks).  K5 takes int8 and bf16 trunks with heads of the
-trunk's type, a bf16 one on a float32 cache, K3's, so that each of its rows
-equals K3 on it.
+gate refuses bf16 trunks).  K5 takes what K2 and K3 take, at any batch:
+int8 and int4 trunks with int8 or bf16 heads (the ``mtp_quantize`` mixes,
+and the ``"auto"`` int4 alt trunk that JAX's ``resident_pack`` takes past
+the primary's residency), and a bf16 trunk with bf16 heads on a float32
+cache, K3's, so that each of its rows equals K3 on it.
 """
 
 from __future__ import annotations
@@ -291,25 +293,17 @@ def _chain_entry(entry: str, cfg, fw, heads, tables, cache_dtype, device) -> _Ch
     return hit
 
 
-def _check_chain_units(what: str, fw, heads, cache_dtype, bf16_ok: bool,
-                       b1: bool = True) -> None:
-    """A chain kernel's units and heads.  ``b1`` (K2, K3): int8 or int4
-    units with int8 or bf16 heads, or bf16 units and heads where the kernel
-    takes them (``bf16_ok``: K3); else (K5) int8 or bf16 units with heads of
-    their type.  A bf16 trunk's chain runs on a float32 cache."""
+def _check_chain_units(what: str, fw, heads, cache_dtype, bf16_ok: bool) -> None:
+    """A chain kernel's units and heads: int8 or int4 units with int8 or
+    bf16 heads, or bf16 units and heads where the kernel takes them
+    (``bf16_ok``: K3, K5).  A bf16 trunk's chain runs on a float32 cache."""
     if heads.q.dtype not in (torch.int8, torch.bfloat16):
         raise NotImplementedError(f"{what}: {heads.q.dtype} heads: the chains take int8 and bf16")
-    if fw.wqkv.dtype == torch.uint8 and not b1:
-        raise NotImplementedError(
-            f"{what}: int4 units in the batched chain K5: ROADMAP item K1v-b / K2v (K2 and K3 "
-            "take them at B=1)")
-    mixed = heads.q.dtype != fw.wqkv.dtype
-    if mixed and (not b1 or fw.wqkv.dtype == torch.bfloat16):
-        raise NotImplementedError(
-            f"{what}: {heads.q.dtype} heads on {fw.wqkv.dtype} units: this chain takes heads of "
-            "the trunk's unit type (mixed heads in K5: ROADMAP item K1v-b / K2v; K2 and K3 take "
-            "int8 or bf16 heads beside int8 and int4 trunks)")
     if fw.wqkv.dtype == torch.bfloat16:
+        if heads.q.dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"{what}: {heads.q.dtype} heads on bf16 units: a bf16 trunk's chain takes bf16 "
+                "heads (the unquantized config's raw heads)")
         if not bf16_ok:
             raise NotImplementedError(
                 f"{what}: bf16 units run the streamed chain K3 at B=1 (the JAX residency gate "
@@ -501,7 +495,8 @@ class _BatchChainEntry:
         a.heads_bf16 = int(heads.q.dtype == torch.bfloat16)
         self.args = a
         self.plan = persistent.device_plan(cfg, device, head_rows=V, batch=B,
-                                           unit_bytes=unit_bytes(fw)) if planned else None
+                                           unit_bytes=unit_bytes(fw),
+                                           head_bytes=heads.q.element_size()) if planned else None
 
 
 def _batch_chain_entry(entry: str, cfg, fw, heads, tables, B, cache_dtype,
@@ -545,9 +540,11 @@ def _launch_chain_batched(wrapper, entry: str, cfg, fw, final_norm, heads, table
         )
     device = last_hidden.device
     planned = entry == "qtts_mtp_chain_batched"  # the _multi chain takes int8 only
-    _check_chain_units(what, fw, heads, cache_dtype, planned, b1=False)
+    _check_chain_units(what, fw, heads, cache_dtype, planned)
+    if not planned and (fw.wqkv.dtype != torch.int8 or heads.q.dtype != torch.int8):
+        raise NotImplementedError(f"{what}: the launch-per-op chain takes int8 units and heads")
     e = _batch_chain_entry(entry, cfg, fw, heads, tables, B, cache_dtype, device)
-    _check_cuda_inputs(fw, e.kc, e.vc, bf16_units=planned)
+    _check_cuda_inputs(fw, e.kc, e.vc, bf16_units=planned, int4_units=planned)
     for t in (heads.q, heads.scale, tables, final_norm):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{what}: every tensor must be contiguous and on CUDA")

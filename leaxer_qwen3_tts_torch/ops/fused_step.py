@@ -358,7 +358,7 @@ def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool 
                        int4_units: bool = False) -> None:
     """The checks every kernel wrapper makes; ``bf16_units``: the kernel
     takes bf16 packs besides int8 (K1, K3, K4, K5, K6); ``int4_units``: int4
-    packs too (K1, K2, K3).  An int8 cache comes with its float32 scales and
+    packs too (K1-K6; the launch-per-op entries take int8 only).  An int8 cache comes with its float32 scales and
     meets :func:`kvq_bucket_ok` (``window``: K6's and K7's gate)."""
     if k_cache.dtype not in (torch.bfloat16, torch.float32, torch.int8) or (
             v_cache.dtype != k_cache.dtype):
@@ -381,8 +381,8 @@ def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool 
     if fw.wqkv.dtype not in units or any(w.dtype != fw.wqkv.dtype for w in (fw.wo, fw.wgu, fw.wd)):
         raise NotImplementedError(
             f"{UNIT_NAMES.get(fw.wqkv.dtype, fw.wqkv.dtype)} units: this kernel takes "
-            f"{' and '.join(UNIT_NAMES[u] for u in units)} packs (int4 units in K4, K5, K6 and "
-            "K7, bf16 units in K2 and K7: ROADMAP item K1v-b / K2v)"
+            f"{' and '.join(UNIT_NAMES[u] for u in units)} packs (int4 and bf16 units in K7, bf16 "
+            "units in K2: ROADMAP item K1v-b / K2v)"
         )
     want = (fw.wqkv.shape[0], fw.wqkv.shape[1]) + ((fw.wqkv.shape[2] // (INT4_COLS // 2),)
                                                    if fw.wqkv.dtype == torch.uint8 else ())
@@ -659,7 +659,7 @@ def _launch_step_batched(wrapper, entry: str, cfg: TransformerConfig, fw: FusedS
     planned = entry == "qtts_decode_step_batched"  # the _multi sequence takes int8 only
     if not planned and k_scale is not None:
         raise NotImplementedError(f"{what}: the launch-per-op sequence takes no int8 cache")
-    _check_cuda_inputs(fw, k_cache, v_cache, planned, k_scale, v_scale)
+    _check_cuda_inputs(fw, k_cache, v_cache, planned, k_scale, v_scale, int4_units=planned)
     from ._build import check, load_kernels
 
     lib = load_kernels()

@@ -16,14 +16,14 @@ plain version, and the CUDA kernel (``csrc/fused_verify.cu``: one persistent
 cooperative launch per pass, K4's transport on a plan of B * S rows) does
 K4's arithmetic for every row, op for op.  On a CUDA tensor
 :func:`fused_verify_step` launches the kernel or raises; on a CPU tensor it
-runs the plain version.  The units are int8 or bf16 (the unquantized
-config's bits=16 pack; a bf16 row equals K1 / K4 bf16 steps bit for bit);
-at the 1.7B widths a bf16 verify plan does not fit a batched plan's 32 KB
-ring slot (``persistent.batched_fits``: ROADMAP B17), so the engine refuses
-that spec there.  An int8 cache comes with its scales (the JAX
-kernel's ``kvq`` mode): the slot-write phase quantizes each row's new slot
-as K4 does and writes its scales before the phase's barrier, and the
-scales are updated in place and returned after the caches.
+runs the plain version.  The units are int8, bf16 (the unquantized
+config's bits=16 pack) or int4 (group-128 scales); a row equals the K1 / K4
+steps of its unit type bit for bit.  At the 1.7B widths a bf16 verify plan
+takes 48 KB ring slots (``persistent.make_plan``).  An int8 cache comes
+with its scales (the JAX kernel's ``kvq`` mode): the slot-write phase
+quantizes each row's new slot as K4 does and writes its scales before the
+phase's barrier, and the scales are updated in place and returned after
+the caches.
 """
 
 from __future__ import annotations
@@ -158,7 +158,8 @@ def launch_verify(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeig
     planned = entry == "qtts_verify_step"
     if not planned and k_scale is not None:
         raise NotImplementedError(f"{what}: the launch-per-op pass takes no int8 cache")
-    _check_cuda_inputs(fw, k_cache, v_cache, planned, k_scale, v_scale, window=True)
+    _check_cuda_inputs(fw, k_cache, v_cache, planned, k_scale, v_scale, window=True,
+                       int4_units=planned)
     from ._build import check, load_kernels
 
     lib = load_kernels()

@@ -24,9 +24,9 @@ group) where the other types carry one, so a slot's scale area
 1024, 48 at the 1.7B down product (K = 6144); every copy stays a multiple of
 16 bytes (rows come in fours).  A bf16 row
 of the 1.7B down product (K = 6144) is 12 KB, so a SLOT_BYTES slot holds two
-rows, under ROW_QUANTUM: a one-row bf16 plan there takes WIDE_SLOT_BYTES
-slots (four rows exactly), and a batched one cannot be built
-(:func:`batched_fits`).
+rows, under ROW_QUANTUM: a bf16 plan there, one-row or batched, takes
+WIDE_SLOT_BYTES slots (four rows exactly); a batched one then keeps about
+six batch rows' inputs per group beside MIN_SLOTS of them.
 
 A frame's plan (``make_plan(..., talker=..., lm_rows=...)``) covers two
 weight sets on one grid and one ring: set 0 the MTP trunk with its heads,
@@ -176,8 +176,12 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     every set fits that ring (fewer, larger stages, each with its fixed
     wait, barrier and refill), else SLOT_BYTES slots (more of them, to keep
     more bytes in flight), unless a SLOT_BYTES slot holds fewer than
-    ROW_QUANTUM rows of the widest product (bf16 units at K = 6144).
-    ``unit_bytes``: 1 for int8 units, 2 for bf16; ``head_k`` and
+    ROW_QUANTUM rows of the widest product (bf16 units at K = 6144).  A
+    batched plan takes SLOT_BYTES slots, or WIDE_SLOT_BYTES ones where a
+    SLOT_BYTES slot holds fewer than ROW_QUANTUM rows of the widest product
+    (the 1.7B bf16 plans: four 12 KB rows a slot, about six batch rows a
+    group beside MIN_SLOTS slots).
+    ``unit_bytes``: 1 for int8 units, 2 for bf16, 0.5 for int4; ``head_k`` and
     ``head_bytes``: the head rows' width and bytes per weight where they are
     not H and ``unit_bytes`` (K10).  Raises ValueError where a block would
     own no rows of some product, or nothing fits."""
@@ -205,15 +209,17 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
                          f"int4 ({INT4})")
     if unit_bytes == INT4 and any(N and K % (2 * INT4_COLS) for N, K in shapes[:4]):
         raise ValueError(f"int4 rows need K a multiple of {2 * INT4_COLS}")
+    widest = max(_kind_bytes(i, unit_bytes, head_bytes) * K for i, (N, K) in enumerate(shapes) if N)
+    narrow_fits = SLOT_BYTES // widest >= ROW_QUANTUM
     if batch == 1:
         wide = _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes,
                         head_bytes)
-        widest = max(_kind_bytes(i, unit_bytes, head_bytes) * K
-                     for i, (N, K) in enumerate(shapes) if N)
-        narrow_fits = SLOT_BYTES // widest >= ROW_QUANTUM
         if not narrow_fits or wide.n_slots * wide.slot_bytes >= max(
                 layer_share(wide, s) for s in range(len(sets))):
             return wide
+    elif not narrow_fits:
+        return _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes,
+                        head_bytes)
     return _plan_at(SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes, head_bytes)
 
 
@@ -229,14 +235,6 @@ def scale_floats(kind: int, K: int, unit_bytes: float, head_bytes: int = 0) -> i
     """float32 scales per row of kind index ``kind``: K / 128 for int4 rows,
     else one."""
     return K // INT4_COLS if _kind_bytes(kind, unit_bytes, head_bytes) == INT4 else 1
-
-
-def batched_fits(cfg: TransformerConfig, unit_bytes: int) -> bool:
-    """Whether a batched plan (K4, K5, K6) of ``cfg`` can be built: a
-    SLOT_BYTES slot holds ROW_QUANTUM rows of its widest product (bf16
-    units: K <= 4096, the 0.6B widths, not 1.7B's)."""
-    widest = max(K for N, K in kind_shapes(cfg))
-    return SLOT_BYTES // (unit_bytes * widest) >= ROW_QUANTUM
 
 
 def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: int,

@@ -4,11 +4,11 @@ Port of ``leaxer_qwen3_tts_tpu/serve/__main__.py``, flag for flag, plus
 ``--device {cuda,cpu}`` as in the CLI: build the engine from the checkpoint
 directory, pick the continuous pool or the static batcher, warm both up
 (unless ``--no-warmup``), then serve HTTP until Ctrl-C (exit 0).  On the card
-an unset ``--quantize`` (the default) serves bf16 weight units at the 0.6B
-widths (1.7B bf16 pools: ROADMAP B17) and ``--quantize int8`` int8 units,
-either with ``--kv-quant`` (the int8 KV cache).  ``--quantize int4`` does
-not serve on the card: the batched kernels K4 and K5 take no int4 units
-(ROADMAP K1v-b / K2v; the engine's error, exit 1).
+every weight precision serves at both presets: an unset ``--quantize`` (the
+default) as bf16 weight units, ``--quantize int8`` and ``int4`` as int8 and
+int4 units, each with or without ``--kv-quant`` (the int8 KV cache) and
+``--spec-k``.  What still refuses (the engine's error, exit 1): a pool past
+32 slots, or slots x ``--spec-k`` past 32 rows (ROADMAP M12b).
 """
 
 import argparse

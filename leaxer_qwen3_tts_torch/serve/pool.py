@@ -165,13 +165,14 @@ class ContinuousBatcher:
             raise ValueError("spec_k must be in [2, 8]")
         if not engine.is_ready():
             raise EngineError(f"engine not ready: {engine.get_error()}")
-        engine.check_batched(int(pool_size) * (int(spec_k) if spec_k else 1))
+        engine.check_batched()
         self.spec_k = int(spec_k) if spec_k else None
         self.spec_iters = max(1, int(spec_iters))
         self.device = engine.device
         if self.device.type == "cuda" and not 2 <= int(pool_size) <= MAX_BATCH:
             raise EngineError(
-                f"pool_size {pool_size}: the batched kernels take 2..{MAX_BATCH} slots"
+                f"pool_size {pool_size}: the batched kernels take 2..{MAX_BATCH} slots "
+                "(ROADMAP M12b)"
             )
         if self.device.type == "cuda" and self.spec_k and int(pool_size) * self.spec_k > MAX_BATCH:
             raise EngineError(

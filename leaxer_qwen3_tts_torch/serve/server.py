@@ -65,9 +65,7 @@ class BatchingServer:
         if max_batch not in BATCH_BUCKETS:
             raise ValueError(f"max_batch must be one of {BATCH_BUCKETS}")
         if hasattr(engine, "check_batched"):
-            # raises where the card's batched kernels do not take the engine
-            # (a mesh, int4 units, a mixed MTP trunk, 1.7B bf16 units)
-            engine.check_batched(max_batch)
+            engine.check_batched()  # raises under a mesh (ROADMAP M15)
         self.engine = engine
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3

@@ -31,6 +31,7 @@ from leaxer_qwen3_tts_torch.models import code_predictor as tcp
 from leaxer_qwen3_tts_torch.ops import fused_mtp as tfm
 from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as tstream
 from leaxer_qwen3_tts_torch.ops import fused_step as tfs
+from leaxer_qwen3_tts_torch.ops import persistent
 from leaxer_qwen3_tts_torch.ops import quant as tquant
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
 
@@ -374,12 +375,12 @@ def test_engine_quantize_none_packs_bf16(tiny_vocab_files, monkeypatch):
 
 def test_quantize_none_refusals_on_the_card(monkeypatch):
     """On the card ``quantize=None`` is ready in itself (decided before any
-    tensor moves), with spec_k (K6 at bf16 units) and with an
-    ``mtp_quantize`` of another precision (int8 or int4 trunks with bf16
-    heads in K2 / K3); what stays refused names its ROADMAP item: spec_k
-    beside such an MTP trunk (mixed heads in K5: K1v-b / K2v), the streamed
-    chain off (F4: the per-step chain), and batched decoding and spec at the
-    1.7B widths (B17); on the CPU spec_k runs the plain versions."""
+    tensor moves), with spec_k (K6 at bf16 units), with an ``mtp_quantize``
+    of another precision (int8 or int4 trunks with bf16 heads in K2 / K3 /
+    K5), with both, and at the 1.7B widths (B17: the batched plans take 48
+    KB slots); what stays refused names its cause: the streamed chain off
+    (F4: the per-step chain) and batches under a mesh (M15); on the CPU
+    spec_k runs the plain versions."""
     monkeypatch.delenv("QTTS_MTP_STREAM", raising=False)
     monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
     cfg = tcfg.QWEN3_TTS_06B
@@ -388,9 +389,9 @@ def test_quantize_none_refusals_on_the_card(monkeypatch):
     mix = TTSEngine(config=cfg, params={}, mtp_quantize="int8", device="cuda")
     assert "ROADMAP" not in mix.get_error() and "code_predictor" in mix.get_error()
     mix_spec = TTSEngine(config=cfg, params={}, mtp_quantize="int8", spec_k=4, device="cuda")
-    assert not mix_spec.is_ready() and "ROADMAP K1v-b / K2v" in mix_spec.get_error()
+    assert "ROADMAP" not in mix_spec.get_error() and "code_predictor" in mix_spec.get_error()
     spec17 = TTSEngine(config=tcfg.QWEN3_TTS_17B, params={}, spec_k=4, device="cuda")
-    assert not spec17.is_ready() and "ROADMAP B17" in spec17.get_error()
+    assert "ROADMAP" not in spec17.get_error() and "code_predictor" in spec17.get_error()
     monkeypatch.setenv("QTTS_MTP_STREAM", "0")
     off = TTSEngine(config=cfg, params={}, device="cuda")
     assert not off.is_ready() and "per-step MTP chain" in off.get_error()
@@ -399,16 +400,16 @@ def test_quantize_none_refusals_on_the_card(monkeypatch):
     # past the checks an engine of (config, params={}) stops only at the params
     ready = TTSEngine(config=cfg, params={}, device="cuda")
     assert "K1v" not in ready.get_error() and "int8" not in ready.get_error()
-    for preset, fits in ((tcfg.QWEN3_TTS_06B, True), (tcfg.QWEN3_TTS_17B, False)):
+    for preset in (tcfg.QWEN3_TTS_06B, tcfg.QWEN3_TTS_17B):
         eng = TTSEngine.__new__(TTSEngine)
         eng.cfg, eng.device, eng._bits = preset, torch.device("cuda"), 16
-        if fits:
-            eng.check_batched()
-        else:
-            with pytest.raises(EngineError, match="ROADMAP B17"):
-                eng.check_batched()
-        eng._bits = 8
         eng.check_batched()
+        for t in (preset.talker.transformer, preset.code_predictor.transformer):
+            plan = persistent.make_plan(t, 132, batch=32, unit_bytes=2)
+            assert plan.n_slots >= persistent.MIN_SLOTS
+        eng.mesh = object()
+        with pytest.raises(EngineError, match="ROADMAP M15"):
+            eng.check_batched()
 
 
 def test_cpu_quantize_none_spec_runs(tiny_vocab_files):

@@ -5,7 +5,8 @@ int4 unit pack (every unit element's dequantized value, the integers and the
 group scales), kernel K1's plain version at int4 units against JAX
 ``fused_decode_step`` on its bits=4 pack (interpret mode) on a float32 and
 an int8 cache, a tiny engine at ``quantize="int4"`` against the JAX engine,
-and what stays refused, each error naming its ROADMAP item."""
+and what stays refused, each error naming its ROADMAP item (the batched
+int4 kernels' plain versions and engines: test_torch_batched_precision.py)."""
 
 import dataclasses
 
@@ -197,30 +198,32 @@ def test_int4_pack_matches_jax(packs):
 
 
 def test_int4_pack_refused_where_int8_is_expected(packs):
-    """An int4 pack never passes for int8 units: the kernels' input check
-    (K4, K5, K6 and K7 refuse it, naming the ROADMAP item), the residency
-    and frame gates read its own dtype, and a batched chain refuses it; K1,
-    K2 and K3 take it."""
+    """An int4 pack never passes for int8 units: the int8-only entries (the
+    launch-per-op sequences) refuse it, naming the ROADMAP item of the
+    kernels that still take no int4 (K7); the residency and frame gates
+    read its own dtype; K1-K6 take it (K4's and K6's input check and K5's
+    chain rules pass it)."""
     _, _, tt, tfw, _ = packs
     meta = torch.empty((L, 1, NK, 128, D), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="int4 units: .*ROADMAP item K1v-b / K2v"):
-        tfs._check_cuda_inputs(tfw, meta, meta, True)  # K4's, K6's check
+    with pytest.raises(NotImplementedError, match="int4 units: .*K7.*ROADMAP item K1v-b / K2v"):
+        tfs._check_cuda_inputs(tfw, meta, meta, True)  # an entry that takes int8 and bf16
     with pytest.raises(NotImplementedError, match="int4"):
         tfs._check_cuda_inputs(tfw, meta, meta)  # the int8-only entries'
-    with pytest.raises(ValueError, match="CUDA"):  # K1's: past the unit check
+    with pytest.raises(ValueError, match="CUDA"):  # K1's, K4's and K6's: past the unit check
         tfs._check_cuda_inputs(tfw, meta, meta, True, int4_units=True)
     heads = tfm.HeadPack(torch.zeros((3, 256, H), dtype=torch.int8), torch.ones((3, 256)))
-    with pytest.raises(NotImplementedError, match="K5.*ROADMAP item K1v-b / K2v"):
-        tfm._check_chain_units("K5", tfw, heads, torch.float32, True, b1=False)
+    tfm._check_chain_units("K5", tfw, heads, torch.float32, True)
     tfm._check_chain_units("K2", tfw, heads, torch.bfloat16, False)
     assert tfm.supports_resident(tfw)  # 2 layers: JAX's int8-typed int4 units pass too
     from leaxer_qwen3_tts_torch.ops.fused_frame import supports_frame
 
     assert not supports_frame(tfw, 256, tt)
-    # the plan of int4 rows: K / 2 bytes and K / 128 scales a row
-    plan = persistent.make_plan(tt, 132, unit_bytes=0.5)
-    for (N, K), r in zip(plan.shapes[:4], plan.stage_rows[:4]):
-        assert r * K // 2 <= plan.slot_bytes and r * K // 128 <= plan.slot_rows
+    # the plans of int4 rows, one row and batched: K / 2 bytes and K / 128
+    # scales a row
+    for B in (1, 8, 32):
+        plan = persistent.make_plan(tt, 132, batch=B, unit_bytes=0.5)
+        for (N, K), r in zip(plan.shapes[:4], plan.stage_rows[:4]):
+            assert r * K // 2 <= plan.slot_bytes and r * K // 128 <= plan.slot_rows
     with pytest.raises(ValueError, match="int4"):
         persistent.make_plan(tt, 132, unit_bytes=0.25)
 
@@ -322,18 +325,21 @@ def test_engine_int4_matches_jax(engines):
 
 
 def test_int4_refusals(monkeypatch):
-    """What ``quantize="int4"`` still refuses, each an EngineError naming its
-    ROADMAP item: on the card spec_k (K6 / K5 int4) and batched decoding
-    (K4 / K5 int4); anywhere the whole-frame kernel (K7 int4).  Plain
-    ``quantize="int4"`` is ready on the card (decided before any tensor
-    moves: the engine stops only at the missing params)."""
+    """``quantize="int4"`` on the card: ready with spec_k (K6 / K5 int4) and
+    beside every ``mtp_quantize``, at both presets, and its batched decoding
+    runs (K4 / K5 int4); what it still refuses, each an EngineError naming
+    its ROADMAP item: anywhere the whole-frame kernel (K7 int4), and on the
+    card more than 32 rows (M12b).  Readiness is decided before any tensor
+    moves: the engine stops only at the missing params."""
     monkeypatch.delenv("QTTS_MTP_STREAM", raising=False)
     monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
     monkeypatch.delenv("QTTS_FRAME_FUSED", raising=False)
     cfg = tcfg.QWEN3_TTS_06B
-    spec = TTSEngine(config=cfg, params={}, quantize="int4", spec_k=4, device="cuda")
-    assert not spec.is_ready() and "spec_k" in spec.get_error()
-    assert "ROADMAP K1v-b / K2v" in spec.get_error()
+    for preset in (tcfg.QWEN3_TTS_06B, tcfg.QWEN3_TTS_17B):
+        for m in (None, "int8", "auto"):
+            spec = TTSEngine(config=preset, params={}, quantize="int4", mtp_quantize=m, spec_k=4,
+                             device="cuda")
+            assert "ROADMAP" not in spec.get_error() and "code_predictor" in spec.get_error()
     for device in ("cuda", "cpu"):
         ff = TTSEngine(config=cfg, params={}, quantize="int4", frame_fused=True, device=device)
         assert not ff.is_ready() and "K7" in ff.get_error() and "K1v-b / K2v" in ff.get_error()
@@ -345,7 +351,9 @@ def test_int4_refusals(monkeypatch):
     for preset in (tcfg.QWEN3_TTS_06B, tcfg.QWEN3_TTS_17B):
         eng = TTSEngine.__new__(TTSEngine)
         eng.cfg, eng.device, eng._bits = preset, torch.device("cuda"), 4
-        with pytest.raises(EngineError, match="int4 in K4 / K5: ROADMAP K1v-b / K2v"):
-            eng.check_batched()
+        eng.check_batched()
+        eng._ready, eng.spec_k = True, None
+        with pytest.raises(EngineError, match="ROADMAP M12b"):
+            list(eng._ids_stream_impl([[1]] * 33, "en", 0.0, 50, 0.95, 8, 0, None))
         eng.device = torch.device("cpu")  # the plain versions take int4
         eng.check_batched()

@@ -8,7 +8,7 @@ version on bf16 units against JAX ``fused_verify_step`` at bits=16 on bf16
 and int8 caches (its rows the K1 bf16 steps bit for bit); the engine's packs
 and chain route against JAX ``resident_pack`` / ``supports_resident`` /
 ``supports_stream`` at both presets for every ``quantize`` x
-``mtp_quantize`` pair; and what stays refused."""
+``mtp_quantize`` pair, at B=1 and batched; and spec_k beside each."""
 
 import dataclasses
 import itertools
@@ -36,6 +36,7 @@ from leaxer_qwen3_tts_torch.ops import fused_mtp as tfm
 from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as tstream
 from leaxer_qwen3_tts_torch.ops import fused_step as tfs
 from leaxer_qwen3_tts_torch.ops import fused_verify as tfv
+from leaxer_qwen3_tts_torch.ops import persistent
 from leaxer_qwen3_tts_torch.ops import quant as tquant
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
 
@@ -140,10 +141,9 @@ def test_chain_matches_jax(chain_models, chain, trunk_bits, heads, knobs):
 
 
 def test_chain_units_rules(chain_models):
-    """Which chains take which heads: K2 and K3 take int8 or bf16 heads
+    """Which chains take which heads: K2, K3 and K5 take int8 or bf16 heads
     beside int8 and int4 trunks; a bf16 trunk takes bf16 heads only, on K3's
-    float32 cache; K5 takes heads of the trunk's type only, and no int4
-    trunk (ROADMAP item K1v-b / K2v)."""
+    float32 cache (K3, K5; not K2: ROADMAP item K1v-b / K2v)."""
     _, tp8 = _packs(chain_models, 8, "bf16")
     _, tp4 = _packs(chain_models, 4, "int8")
     fw8, h_bf16 = tp8["fused_step"], tp8["fused_heads"]
@@ -151,12 +151,16 @@ def test_chain_units_rules(chain_models):
     for fw, h in ((fw8, h_bf16), (fw8, h_int8), (fw4, h_bf16), (fw4, h_int8)):
         tfm._check_chain_units("K2", fw, h, torch.bfloat16, False)
         tfm._check_chain_units("K3", fw, h, torch.float32, True)
-    with pytest.raises(NotImplementedError, match="K5.*ROADMAP item K1v-b / K2v"):
-        tfm._check_chain_units("K5", fw8, h_bf16, torch.float32, True, b1=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP item K1v-b / K2v"):
-        tfm._check_chain_units("K5", fw4, h_int8, torch.float32, True, b1=False)
+        tfm._check_chain_units("K5", fw, h, torch.bfloat16, True)
     _, tp16 = _packs(chain_models, 16, "bf16")
-    with pytest.raises(NotImplementedError, match="trunk's unit type"):
+    tfm._check_chain_units("K5", tp16["fused_step"], tp16["fused_heads"], torch.float32, True)
+    with pytest.raises(ValueError, match="float32 cache"):
+        tfm._check_chain_units("K5", tp16["fused_step"], tp16["fused_heads"], torch.bfloat16,
+                               True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item K1v-b / K2v"):
+        tfm._check_chain_units("K2", tp16["fused_step"], tp16["fused_heads"], torch.float32,
+                               False)
+    with pytest.raises(NotImplementedError, match="bf16 heads"):
         tfm._check_chain_units("K3", tp16["fused_step"], h_int8, torch.float32, True)
 
 
@@ -287,9 +291,11 @@ def test_engine_packs_and_route_match_jax(jax_packs, preset, monkeypatch):
     widths: the port engine's MTP packs (decided on the meta device) have
     JAX's unit types, bytes and alt trunk; its B=1 chain is K2 exactly where
     JAX ``resident_pack(params, 1)`` gives a pack, on that pack (primary or
-    alt), else K3 where JAX ``supports_stream`` passes the primary; and its
-    batched paths refuse exactly where JAX's ``resident_pack`` takes the alt
-    at 2..32 rows or the trunk is one K5 does not take."""
+    alt), else K3 where JAX ``supports_stream`` passes the primary; its
+    batched chain at 2..32 rows is K5 on the pack JAX's ``resident_pack``
+    gives at that batch (the primary where none passes), on K3's float32
+    cache where the B=1 chain is K3 or the trunk is bf16, and its plan
+    fits."""
     monkeypatch.delenv("QTTS_MTP_STREAM", raising=False)
     monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
     cfg = tcfg.QWEN3_TTS_06B if preset == "0.6B" else tcfg.QWEN3_TTS_17B
@@ -316,18 +322,23 @@ def test_engine_packs_and_route_match_jax(jax_packs, preset, monkeypatch):
             assert chain is tstream.fused_mtp_chain_streamed
             assert tcp.chain_pack(packs, chain) is packs["fused_step"]
         routes[q, m] = (chain.__name__, tcp.chain_pack(packs, chain).wqkv.dtype)
-        bits = {None: 16, "int8": 8, "int4": 4}[q]
+        eng.check_batched()  # no mesh: every unit type and preset runs batched
+        k3_scratch = jres is None  # the B=1 chain is K3, on its float32 scratch
         for rows in (2, 16, 32):
-            jalt = "fused_step_alt" in jp and jcp.resident_pack(jp, rows) is jp["fused_step_alt"]
-            k5_takes = eng._mtp_bits in (8, 16) and (eng._mtp_bits == bits or bits != 16)
-            refused = bits == 4 or jalt or not k5_takes
-            if not refused and bits == 16 and preset == "1.7B":
-                refused = True  # B17: a 1.7B bf16 batched plan does not fit
-            if refused:
-                with pytest.raises(EngineError, match="ROADMAP"):
-                    eng.check_batched(rows)
-            else:
-                eng.check_batched(rows)
+            assert tcp.chain_kernel(cp, packs, rows) is tfm.fused_mtp_chain_batched
+            jpack = jcp.resident_pack(jp, rows)
+            which = [k for k in jp if jp[k] is jpack][0] if jpack is not None else "fused_step"
+            fw = tcp.chain_pack(packs, tfm.fused_mtp_chain_batched, rows)
+            assert fw is packs[which], (q, m, rows)
+            want = torch.float32 if k3_scratch or fw.wqkv.dtype == torch.bfloat16 else (
+                cp.transformer.torch_dtype)
+            assert tcp.chain_cache_dtype(cp, packs, fw) == want, (q, m, rows)
+            # K5's plan at these rows and heads, 1.7B bf16 included (B17)
+            heads = 2 if q is None else 1
+            plan = persistent.make_plan(cp.transformer, 132, head_rows=cp.subcode_vocab_size,
+                                        batch=rows, unit_bytes=tfs.unit_bytes(fw),
+                                        head_bytes=heads)
+            assert plan.smem_bytes + persistent.STATIC_SMEM <= persistent.SMEM_PER_BLOCK
     # the issue's expected routes: 0.6B int4 trunks on K2, 1.7B ones on K3;
     # an unquantized talker under "auto" takes the int4 alt at 0.6B
     if preset == "0.6B":
@@ -340,21 +351,19 @@ def test_engine_packs_and_route_match_jax(jax_packs, preset, monkeypatch):
 
 
 def test_mixed_precision_refusals(monkeypatch):
-    """What the mixed flags still refuse on the card, each naming its
-    ROADMAP item: spec_k with a mixed or int4 MTP trunk (K5), spec_k with
-    bf16 units at the 1.7B widths (B17); ``--spec-k`` at the default
-    ``quantize`` is ready at 0.6B (K6 at bf16 units)."""
+    """The mixed flags on the card: ``spec_k`` beside every MTP trunk and at
+    both presets is ready (decided before any tensor moves: the engine stops
+    only at the missing params), bf16 units at the 1.7B widths included
+    (B17 done); a mesh still refuses batches (ROADMAP M15)."""
     monkeypatch.delenv("QTTS_MTP_STREAM", raising=False)
     monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
-    cfg = tcfg.QWEN3_TTS_06B
-    spec = TTSEngine(config=cfg, params={}, spec_k=4, device="cuda")
-    assert "ROADMAP" not in spec.get_error() and "code_predictor" in spec.get_error()
-    for m in ("int8", "int4", "auto"):
-        mix = TTSEngine(config=cfg, params={}, mtp_quantize=m, spec_k=4, device="cuda")
-        assert not mix.is_ready() and "K5" in mix.get_error(), m
-        assert "ROADMAP K1v-b / K2v" in mix.get_error()
-    spec17 = TTSEngine(config=tcfg.QWEN3_TTS_17B, params={}, spec_k=4, device="cuda")
-    assert not spec17.is_ready() and "ROADMAP B17" in spec17.get_error()
-    int8_17 = TTSEngine(config=tcfg.QWEN3_TTS_17B, params={}, spec_k=4, quantize="int8",
-                        device="cuda")
-    assert "ROADMAP" not in int8_17.get_error()
+    for cfg in (tcfg.QWEN3_TTS_06B, tcfg.QWEN3_TTS_17B):
+        for q, m in itertools.product((None, "int8", "int4"), (None, "int8", "int4", "auto")):
+            spec = TTSEngine(config=cfg, params={}, quantize=q, mtp_quantize=m, spec_k=4,
+                             device="cuda")
+            assert "ROADMAP" not in spec.get_error(), (q, m, spec.get_error())
+            assert "code_predictor" in spec.get_error()
+    eng = TTSEngine.__new__(TTSEngine)
+    eng.mesh, eng.device = object(), torch.device("cuda")
+    with pytest.raises(EngineError, match="ROADMAP M15"):
+        eng.check_batched()

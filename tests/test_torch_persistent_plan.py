@@ -45,8 +45,7 @@ GRIDS = (132, 114)
 BATCHES = (1, 2, 5, 8, 24, 32)  # 24: a spec pool's 8 streams x 3 candidates
 PARAMS = ([(name, grid, B) for name in CASES for grid in GRIDS for B in BATCHES]
           + [(name, grid, 1) for name in FRAMES for grid in GRIDS]
-          + [(name, grid, B) for name in BF16 for grid in GRIDS
-             for B in (BATCHES if name.startswith("0.6B") else (1,))])
+          + [(name, grid, B) for name in BF16 for grid in GRIDS for B in BATCHES])
 
 
 def _sets(name):
@@ -149,7 +148,7 @@ def test_shared_memory_fits(name, grid, B):
     # with one group fewer the ring would keep fewer than MIN_SLOTS slots
     if plan.groups > 1:
         fewer = persistent._slots(plan.slot_rows, persistent.act_bytes(
-            cfg, -(-B // (plan.groups - 1))))
+            cfg, -(-B // (plan.groups - 1))), plan.slot_bytes)
         assert fewer < persistent.MIN_SLOTS
 
 
@@ -188,19 +187,22 @@ def test_bf16_17b_plans(name, grid):
     """bf16 units at the 1.7B widths: a 12 KB down row leaves a 32 KB slot
     two rows, so the one-row plan takes the 48 KB slots, whatever its layer
     share, four down rows a stage, and the union region still leaves the
-    ring slots; a batched plan cannot be built (the engine refuses 1.7B
-    bf16 batches)."""
+    ring slots; a batched plan takes the 48 KB slots too (B17), MIN_SLOTS of
+    them beside its batch groups' inputs, four down rows a stage."""
     (cfg, heads), = _sets(name)
     plan = _plan(name, grid, 1)
     assert plan.slot_bytes == persistent.WIDE_SLOT_BYTES and plan.n_slots >= 1
     assert plan.stage_rows[persistent.KINDS.index("down")] == 4
     assert persistent.layer_share(plan) > plan.n_slots * plan.slot_bytes  # the share test alone
-    assert not persistent.batched_fits(cfg, 2) and persistent.batched_fits(cfg, 1)
-    with pytest.raises(ValueError, match="fewer than 4 rows"):
-        persistent.make_plan(cfg, grid, head_rows=heads, batch=2, unit_bytes=2)
-    # 0.6B bf16 batches fit
-    assert all(persistent.batched_fits(c, 2) for (c, _), in (CASES["0.6B talker"],
-                                                             CASES["0.6B MTP trunk"]))
+    for B in (2, 8, 32):
+        batched = persistent.make_plan(cfg, grid, head_rows=heads, batch=B, unit_bytes=2)
+        assert batched.slot_bytes == persistent.WIDE_SLOT_BYTES
+        assert batched.n_slots == persistent.MIN_SLOTS
+        assert batched.stage_rows[persistent.KINDS.index("down")] == 4
+    # 0.6B bf16 batches keep the 32 KB slots
+    for (c, h), in (CASES["0.6B talker"], CASES["0.6B MTP trunk"]):
+        assert persistent.make_plan(c, grid, head_rows=h, batch=8,
+                                    unit_bytes=2).slot_bytes == persistent.SLOT_BYTES
 
 
 def test_batched_plans_keep_the_narrow_slots():
