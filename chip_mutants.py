@@ -54,8 +54,15 @@ halves swapped in the batched int4 unit, ``fused_int4.cu`` alone; a stage
 of a 48 KB batched slot read before its wait) against
 ``check_k4_shallow`` / ``check_k6_shallow`` on one int4 talker layer,
 ``check_k5`` on the 0.6B int4 trunk and ``ring_variants`` of K4 on two
-1.7B bf16 talker layers (the narrow one-slot ring: one 48 KB slot).  A
-mutant rebuilds only the sources that include the file it changes.  A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
+1.7B bf16 talker layers (the narrow one-slot ring: one 48 KB slot); the
+row split's two (``python3 chip_mutants.py M12B``: K4's launch and K6's
+ignoring their first row, so a split call's second launch works on the
+first rows' caches) against ``split_rows_checks`` (split calls of 40 and 64
+rows against calls of at most 32, bit for bit); K7's int4 frames' one
+(``python3 chip_mutants.py K7-MIX``: one 128-column group's partial added
+unscaled in the frame's int4 instances alone) against ``frame_mix_checks``
+at int4 units and at a bf16 talker beside an int4 trunk.  A mutant rebuilds
+only the sources that include the file it changes.  A mutant is caught when at least one case fails.  Exits non-zero if a mutant is not
 caught, or without CUDA.
 """
 
@@ -81,6 +88,36 @@ from leaxer_qwen3_tts_torch.ops.quant import quantize_weight
 # name -> (source file, original text, faulty text, kernel whose checks must
 # catch it); a tuple of texts and one of faulty texts replace pair by pair
 MUTANTS = {
+    # a call past 32 rows: K4's launch ignores its first row, so the second
+    # launch of a split step reads and writes cache rows 0.. (its own rows
+    # of x and positions, another stream's cache)
+    "M12B K4 launch ignores its first row": (
+        "fused_step_batched.cu",
+        "  const size_t first = (size_t)row0 * w->nk * T;",
+        "  const size_t first = 0;",
+        "M12B",
+    ),
+    # the same in K6: the second launch's streams verify on streams 0..'s
+    # cache rows
+    "M12B K6 launch ignores its first stream": (
+        "fused_verify.cu",
+        "  const size_t first = (size_t)row0 * w->nk * T;",
+        "  const size_t first = 0;",
+        "M12B",
+    ),
+    # K7 at int4 units (the frame's instances alone, parts 5-8 of
+    # fused_int4.cu): the second 128-column group's partial added unscaled,
+    # as if its scale were dropped
+    "K7-MIX int4 frame drops a group's scale": (
+        "fused_int4.cu",
+        "      acc[j] = fmaf(part, ss[row * G + g], acc[j]);",
+        "#if QTTS_PART >= 5\n"
+        "      acc[j] = fmaf(part, g == 1 ? 1.f : ss[row * G + g], acc[j]);\n"
+        "#else\n"
+        "      acc[j] = fmaf(part, ss[row * G + g], acc[j]);\n"
+        "#endif",
+        "K7-MIX",
+    ),
     # the verify rows leave their own new slot out of the attention
     "own slot dropped": (
         "qtts_stream.cuh",
@@ -532,9 +569,10 @@ def _plan_as_int8():
     rows of slot_bytes / K, twice what a bf16 slot holds.  Returns the undo."""
     real = persistent._plan_at
 
-    def faulty(slot_bytes, cfg, grid, shapes, batch, n_sets, unit_bytes=1, head_bytes=0):
-        return real(slot_bytes, cfg, grid, shapes, batch, n_sets, 1, head_bytes)._replace(
-            unit_bytes=unit_bytes)
+    def faulty(slot_bytes, cfg, grid, shapes, batch, n_sets, unit_bytes=1, head_bytes=0,
+               talker_bytes=0):
+        return real(slot_bytes, cfg, grid, shapes, batch, n_sets, 1, head_bytes,
+                    talker_bytes)._replace(unit_bytes=unit_bytes)
 
     cs.clear_entries()  # plans cached before the fault would hide it
     persistent._plan_at = faulty
@@ -705,8 +743,12 @@ def checks(gen):
         return (cs.K1.fused_decode_step_batched(t17, fw17, x17, pos17, *c)[0], *c)
 
     int4_b += [lambda: cs.ring_variants("K4 bf16 talker-1.7B-2-layer B=8", k4_17)]
+    m12b = [lambda: cs.split_rows_checks(gen)]
+    k7_mix = [lambda: cs.frame_mix_checks(gen, mixes=("K7 int4 units",)),
+              lambda: cs.frame_mix_checks(gen, mixes=("K7 bf16 talker, int4 trunk",))]
     return {"K6": k6, "K3": k3, "K8": k8, "K7": k7, "K1K2": k1k2, "K4K5": k4k5, "P1": p1,
-            "P2": p2, "BF16": bf16, "KVQ": kvq, "TP": tp, "INT4": int4, "INT4-B": int4_b}
+            "P2": p2, "BF16": bf16, "KVQ": kvq, "TP": tp, "INT4": int4, "INT4-B": int4_b,
+            "M12B": m12b, "K7-MIX": k7_mix}
 
 
 def _includes(csrc, name):

@@ -46,8 +46,9 @@ prints the final line:
    stage's copy is issued just before it is read, so that a consumer that
    does not wait on its stage's mbarrier reads bytes still in flight (with
    the default ring the copy has landed).  Then K5 (``fused_mtp_chain_batched``)
-   at B=8 and B=32 with mixed per-row knobs (K2's margin rule for a
-   mismatch), every row equal to K2 on that row's noise, bit for bit.
+   at B=8 and B=16 against its plain version with mixed per-row knobs (K2's
+   margin rule for a mismatch), and at B=2, 8 and 32 every row equal to K2
+   on that row's noise, bit for bit.
 5. K7 (``fused_frame_step``, one persistent cooperative launch per frame on
    a plan of two weight sets) at the 0.6B widths, T=256 and 2560, at a split
    edge and the last slot, greedy and two sampled knob sets, 16 seeded inputs
@@ -121,13 +122,12 @@ prints the final line:
    alone (the int8 KV cache) exit 0 with a WAV, one K1 and one K2 (K3) per
    frame; ``--quantize int4 --spec-k 4`` and, without ``--quantize``,
    ``--mtp-quantize int4 --spec-k 4`` exit 0 with a WAV (K6 and K5 per
-   verify iteration), and ``--quantize int4 --frame-fused on`` exits 1 with
-   the engine's error (K7).  The speaker embedding of
+   verify iteration).  The speaker embedding of
    that WAV on the card is within SPK_REL of the same checkpoint's on the
    CPU (ms per call printed).  The server
-   (``python -m leaxer_qwen3_tts_torch.serve``) runs as a subprocess, with
-   ``--quantize int8``, without it (bf16 units) and with ``--kv-quant``
-   alone: its warmup seconds,
+   (``python -m leaxer_qwen3_tts_torch.serve``) runs as four subprocesses
+   booting at once, with ``--quantize int8``, without it (bf16 units), with
+   ``--kv-quant`` alone and with ``--quantize int4``: its warmup seconds,
    two requests (``/synthesize``: a WAV; ``/synthesize_stream``: 16-bit
    PCM), exit 0 on SIGINT, each step under a stated timeout.  Last,
    one ``synthesize`` with ``QTTS_PROFILE`` set writes a Chrome trace that
@@ -254,21 +254,39 @@ prints the final line:
    one-slot and a narrow ring.  Then the CLI from a 0.6B checkpoint under
    --quantize int4 (with and without --kv-quant), --mtp-quantize int8 and
    auto, --spec-k 4 (also with --kv-quant, with --quantize int4 --kv-quant
-   and with --mtp-quantize int8), each a valid WAV with its ms/frame and
-   launch counts; the server at --quantize int4; short 1.7B requests,
-   batches and pools at --quantize int4 and at --mtp-quantize int8; 0.6B
-   batches and pools at --quantize int4 and at --mtp-quantize int8 / auto
-   (greedy pool output equal to B=1), a B=32 batch at --quantize int8
-   --mtp-quantize auto (K5 on the int4 alt trunk) and the batch and pool
-   of 33 refused (M12b); fails if a new instance never launched on those
-   paths.
-16. The kernel report (each kernel's launches on the main paths, error
+   and with --mtp-quantize int8), --frame-fused on at --quantize int4 and
+   at --mtp-quantize int8 (one K7 per frame), each a valid WAV with its
+   ms/frame and launch counts; short 1.7B
+   requests, batches and pools at --quantize int4 and at --mtp-quantize
+   int8; 0.6B batches and pools at --quantize int4 and at --mtp-quantize
+   int8 / auto (greedy pool output equal to B=1), a batch of 48 at
+   --quantize int4 (two launches of 24 rows a kernel) with every stream
+   equal to the batch in launches of at most 8 rows, a B=32 batch at
+   --quantize int8 --mtp-quantize auto (K5 on the int4 alt trunk); fails
+   if a new instance never launched on those paths.
+16. ``finish_phase``: K7 at every unit mix the engine builds (int4 units,
+   an int8 talker beside an int4 trunk and the reverse, a bf16 talker with
+   bf16 lm_head and heads beside an int8 or an int4 trunk) against the
+   composition K2 -> float32 x -> K1 -> norm+lm_head of the same mix bit
+   for bit (bf16 cache at T=256 and 2560, float32 and int8 caches, a
+   one-slot and a narrow ring) and against its plain version (timed beside
+   the composition); 0.6B ``frame_fused=True`` engines at each mix's flags,
+   with and without ``kv_quant`` (one K7 per decoded frame); K4, K5 and K6
+   at 40 and 64 rows (two launches each) equal bit for bit to calls of at
+   most 32 rows, timed beside one launch.  Besides: main's int8 engines
+   decode a batch of 40 (every stream equal to the batch in launches of at
+   most 8 rows), a pool of 40 slots and a spec pool of 12 x 4 (greedy
+   requests equal to B=1); ``bf16_17b`` a 1.7B bf16 batch of 34 (two
+   launches of 17 rows on the 48 KB plans) equal to the batch in launches
+   of at most 8.
+17. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
    K1, K4, K6 and K7 once more for the int8 KV cache; K9 per step, K10 per
    chain; K1 int4, K2 / K3 int4 and mixed heads, K6 bf16; K4 / K6 int4,
-   K5 int4 and mixed heads, K4 / K5 / K6 bf16 at 1.7B) and the device
-   line; it fails if any kernel in it never launched.
+   K5 int4 and mixed heads, K4 / K5 / K6 bf16 at 1.7B; K7 at each unit
+   mix, on a bf16 and an int8 cache) and the device line; it fails if any
+   kernel in it never launched.
 """
 
 from __future__ import annotations
@@ -482,8 +500,12 @@ K5_EQUAL_BATCHES = (2, 8, 32)
 CARD = "card not read yet"  # the nvidia-smi line, printed beside every measured number
 
 
+STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the report, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - STARTED:7.1f} s] {msg}", flush=True)
 
 
 def card() -> str:
@@ -1023,18 +1045,18 @@ def one_slot_ring(run, probe_stall_ns=0, narrow=False):
         return plan._replace(n_slots=1, smem_bytes=smem["total"], issue_stall_ns=probe_stall_ns)
 
     def one_slot(cfg, device, head_rows=0, batch=1, talker=None, lm_rows=0, unit_bytes=1,
-                 grid=None, head_k=0, head_bytes=0):
+                 grid=None, head_k=0, head_bytes=0, talker_bytes=0):
         device = torch.device(device)
         plan = persistent.make_plan(cfg, grid or persistent.grid_size(device), head_rows, batch,
-                                    talker, lm_rows, unit_bytes, head_k, head_bytes)
+                                    talker, lm_rows, unit_bytes, head_k, head_bytes, talker_bytes)
         # four rows of the widest row: the narrow slot, and the least one a
         # plan takes (the 1.7B bf16 down rows: 48 KB)
         widest = persistent.ROW_QUANTUM * max(
-            int(K * persistent._kind_bytes(i, unit_bytes, head_bytes))
+            int(K * persistent._kind_bytes(i, unit_bytes, head_bytes, talker_bytes))
             for i, (N, K) in enumerate(plan.shapes) if N)
         slot = widest if narrow else max(ONE_SLOT_BYTES, widest)
         plan = persistent._plan_at(slot, cfg, plan.grid, plan.shapes, batch, plan.n_sets,
-                                   unit_bytes, head_bytes)
+                                   unit_bytes, head_bytes, talker_bytes)
         smem = persistent.smem_layout(1, plan.slot_bytes, plan.slot_rows, plan.union_bytes)
         return persistent.DevicePlan(plan._replace(n_slots=1, smem_bytes=smem["total"]), device)
 
@@ -1274,7 +1296,7 @@ def time_k4(t, fw, B, T, cache_dtype, gen, iters):
     kp, vp = kc.clone(), vc.clone()
     ms = time_ms(lambda: K1.fused_decode_step_batched(t, fw, x, pos_dev, kc, vc), iters)
     plain_ms = time_ms(
-        lambda: K1.fused_decode_step_batched_reference(t, fw, x, pos_dev, kp, vp), 2, 1)
+        lambda: K1.fused_decode_step_batched_reference(t, fw, x, pos_dev, kp, vp), 1, 0)
     return ms, plain_ms
 
 
@@ -2325,9 +2347,8 @@ def cli_phase(d, tmp, card_line):
     --stream, --ref, --spec-k 4 (int8), one-shot without --quantize (bf16
     units: one K1 and one K3 per frame), --quantize int8 --kv-quant and
     --kv-quant alone (the int8 KV cache), --spec-k 4 with --quantize int4
-    and with an unset --quantize beside --mtp-quantize int4, and a flag set
-    it refuses on the card (the precision phase drives the other precision
-    flags).  Returns (int8 launch counts, ms per frame of the int8 one-shot
+    and with an unset --quantize beside --mtp-quantize int4 (the precision
+    phase drives the other precision flags).  Returns (int8 launch counts, ms per frame of the int8 one-shot
     run, reference WAV, bf16 launch counts, ms per frame of the bf16 run,
     int8-KV-cache launch counts, the two spec runs' launch counts by flags)."""
     base = ["-m", d, "-p", ENTRY_TEXT, "--lang", "en", "--temp", "0", "--max-tokens",
@@ -2397,87 +2418,107 @@ def cli_phase(d, tmp, card_line):
         pcm = check_wav(out_wav, f"CLI {label}")
         log(f"CLI {label}: exit 0, {pcm.size / 24000:.2f} s of audio, {n} frames decoded, "
             f"{it} verify iterations [{card_line}]")
-    for label, extra, words in (
-            ("--quantize int4 --frame-fused on", int4 + ["--frame-fused", "on"], "K7"),):
-        reset_launches()
-        out_wav = os.path.join(tmp, "refused.wav")
-        rc, out, err = run_cli(extra + ["-o", out_wav])
-        errors = [line for line in err.splitlines() if line.startswith("Error: ")]
-        if rc != 1 or len(errors) != 1 or words not in errors[0] or os.path.exists(out_wav):
-            raise RuntimeError(f"CLI {label}: exit {rc}, expected 1 with the engine's error\n{err}")
-        check_launches(f"CLI {label} (refused)", ())
-        log(f"CLI {label}: exit 1, {errors[0]}")
     return ([sum(c) for c in zip(*counts)], ms_frame, ref, [sum(c) for c in zip(*bf16_counts)],
             bf16_ms, [sum(c) for c in zip(*kvq_counts)], spec_counts)
 
 
-def serve_phase(d, card_line, quantize="int8", extra=()):
-    """``python -m leaxer_qwen3_tts_torch.serve`` as a subprocess (with
-    ``--quantize quantize``, or none: bf16 units; then the ``extra`` flags):
-    its warmup, two requests (one streamed), exit 0 on SIGINT.  Returns its
-    warmup s."""
-    cmd = [sys.executable, "-m", "leaxer_qwen3_tts_torch.serve", "-m", d,
-           *(["--quantize", quantize] if quantize else []), *extra, "--max-tokens", "128",
-           "--port", "0"]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    lines: "queue.Queue[str]" = queue.Queue()
-    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put("")],
-                              daemon=True)
-    reader.start()
-    seen, port, warm_s = [], None, None
+def serve_phase(d, card_line, flag_sets):
+    """``python -m leaxer_qwen3_tts_torch.serve`` as one subprocess per flag
+    set (``(quantize, extra)``: ``--quantize quantize``, or none: bf16 units;
+    then the ``extra`` flags), all started at once, so that their boots
+    overlap (each one's seconds to serve are then under that contention):
+    each one's warmup, two requests (one streamed), exit 0 on SIGINT.
+    Returns their warmup seconds."""
+    return finish_servers(start_servers(d, flag_sets), card_line)
+
+
+def start_servers(d, flag_sets):
+    """Start serve_phase's subprocesses; finish_servers waits for them."""
+    servers = []
     try:
-        deadline = time.perf_counter() + SERVE_START_S
-        while port is None:
-            try:
-                line = lines.get(timeout=max(deadline - time.perf_counter(), 0.1))
-            except queue.Empty:
-                raise RuntimeError(f"server: no 'serving on' line in {SERVE_START_S} s:\n"
-                                   + "".join(seen)) from None
-            if not line:
-                raise RuntimeError(f"server exited ({proc.wait()}) before serving:\n"
-                                   + "".join(seen))
-            seen.append(line)
-            if line.startswith("warmup done in "):
-                warm_s = float(line.split()[3].rstrip("s"))
-            m = re.match(r"serving on http://127\.0\.0\.1:(\d+) ", line)
-            if m:
-                port = int(m.group(1))
-        started_s = time.perf_counter() - t0
-        body = json.dumps({"text": ENTRY_TEXT, "language": "en", "temperature": 0.0,
-                           "max_tokens": 48}).encode()
-        for path in ("/synthesize", "/synthesize_stream"):
-            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
-                                         headers={"Content-Type": "application/json"})
-            t1 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=300) as r:
-                status, kind, data = r.status, r.headers["Content-Type"], r.read()
-            if path == "/synthesize":
-                n = check_wav(data, "server /synthesize").size
-            elif not kind.startswith("audio/L16") or not data or len(data) % 2:
-                raise RuntimeError(f"server {path}: {kind}, {len(data)} bytes")
-            else:
-                n = len(data) // 2
-            if status != 200:
-                raise RuntimeError(f"server {path}: HTTP {status}")
-            log(f"server {path}: HTTP 200, {kind}, {n / 24000:.2f} s of audio in "
-                f"{(time.perf_counter() - t1) * 1e3:.1f} ms [{card_line}]")
-        proc.send_signal(signal.SIGINT)
-        try:
-            rc = proc.wait(timeout=SERVE_STOP_S)
-        except subprocess.TimeoutExpired:
-            raise RuntimeError(f"server: still running {SERVE_STOP_S} s after SIGINT") from None
-        if rc != 0:
-            raise RuntimeError(f"server: exit {rc} after SIGINT:\n" + "".join(seen))
+        for quantize, extra in flag_sets:
+            cmd = [sys.executable, "-m", "leaxer_qwen3_tts_torch.serve", "-m", d,
+                   *(["--quantize", quantize] if quantize else []), *extra, "--max-tokens",
+                   "128", "--port", "0"]
+            proc = subprocess.Popen(cmd, cwd=REPO_DIR, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            # each line with the moment it came (a server is read only once
+            # the ones before it are done)
+            lines: "queue.Queue[tuple]" = queue.Queue()
+            reader = threading.Thread(
+                target=lambda p=proc, q=lines: [q.put((time.perf_counter(), x)) for x in p.stdout]
+                + [q.put((time.perf_counter(), ""))], daemon=True)
+            reader.start()
+            servers.append((quantize, extra, proc, lines, reader, time.perf_counter()))
+    except BaseException:
+        finish_servers(servers, None, kill=True)
+        raise
+    return servers
+
+
+def finish_servers(servers, card_line, kill=False):
+    """serve_phase on started servers (``kill``: stop them, nothing else);
+    every server is stopped on the way out, whatever failed.  Returns their
+    warmup seconds."""
+    try:
+        return [] if kill else [_serve(*s, card_line, len(servers)) for s in servers]
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for _, _, proc, *_ in servers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _serve(quantize, extra, proc, lines, reader, t0, card_line, booted):
+    """One server of serve_phase: wait for its "serving on" line, send its
+    requests, stop it.  Returns its warmup seconds."""
+    seen, port, warm_s = [], None, None
+    deadline = t0 + SERVE_START_S
+    while port is None:
+        try:
+            stamp, line = lines.get(timeout=max(deadline - time.perf_counter(), 0.1))
+        except queue.Empty:
+            raise RuntimeError(f"server: no 'serving on' line in {SERVE_START_S} s:\n"
+                               + "".join(seen)) from None
+        if not line:
+            raise RuntimeError(f"server exited ({proc.wait()}) before serving:\n" + "".join(seen))
+        seen.append(line)
+        if line.startswith("warmup done in "):
+            warm_s = float(line.split()[3].rstrip("s"))
+        m = re.match(r"serving on http://127\.0\.0\.1:(\d+) ", line)
+        if m:
+            port = int(m.group(1))
+    started_s = stamp - t0
+    body = json.dumps({"text": ENTRY_TEXT, "language": "en", "temperature": 0.0,
+                       "max_tokens": 48}).encode()
+    for path in ("/synthesize", "/synthesize_stream"):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, kind, data = r.status, r.headers["Content-Type"], r.read()
+        if path == "/synthesize":
+            n = check_wav(data, "server /synthesize").size
+        elif not kind.startswith("audio/L16") or not data or len(data) % 2:
+            raise RuntimeError(f"server {path}: {kind}, {len(data)} bytes")
+        else:
+            n = len(data) // 2
+        if status != 200:
+            raise RuntimeError(f"server {path}: HTTP {status}")
+        log(f"server {path}: HTTP 200, {kind}, {n / 24000:.2f} s of audio in "
+            f"{(time.perf_counter() - t1) * 1e3:.1f} ms [{card_line}]")
+    proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=SERVE_STOP_S)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"server: still running {SERVE_STOP_S} s after SIGINT") from None
+    if rc != 0:
+        raise RuntimeError(f"server: exit {rc} after SIGINT:\n" + "".join(seen))
     reader.join(timeout=10)
     log(f"server subprocess ({'--quantize ' + quantize if quantize else 'no --quantize: bf16 units'}"
         f"{''.join(' ' + f for f in extra)}): serving {started_s:.1f} s after start (checkpoint "
-        f"load, engine build, warmup {warm_s} s), exit 0 on SIGINT [{card_line}]")
+        f"load, engine build, warmup {warm_s} s; {booted} booting at once), exit 0 on SIGINT "
+        f"[{card_line}]")
     return warm_s
 
 
@@ -2569,9 +2610,11 @@ def entry_phase(tok, card_line):
         if e_card.shape != (cfg.speaker_encoder.output_dim,) or not rel <= SPK_REL:
             raise RuntimeError("speaker embedding: the card disagrees with the CPU")
 
-        numbers["warmup_s"] = serve_phase(d, card_line)
-        numbers["warmup_bf16_s"] = serve_phase(d, card_line, quantize=None)
-        numbers["warmup_kvq_s"] = serve_phase(d, card_line, quantize=None, extra=("--kv-quant",))
+        # the server at int8, bf16 (also with --kv-quant) and int4 units,
+        # booting at once
+        (numbers["warmup_s"], numbers["warmup_bf16_s"], numbers["warmup_kvq_s"],
+         _) = serve_phase(d, card_line, (("int8", ()), (None, ()), (None, ("--kv-quant",)),
+                                         ("int4", ())))
         counts = [sum(c) for c in zip(counts, profile_phase(eng, tmp, card_line))]
     del eng
     torch.cuda.empty_cache()
@@ -2700,17 +2743,23 @@ def voice_phase(tok, gen, card_line):
     return [sum(c) for c in zip(*counts)], k1, k3, k8, bounds
 
 
-def frame_packs(cfg, gen):
-    """K7's first ten arguments at the preset's widths: random int8 talker
-    and trunk packs, lm_head and heads, bf16 codec and step tables, and
-    final norms near 1."""
+def unit_pack(t, units, gen):
+    """A random pack of ``t`` at ``units`` ("int8", "int4" or "bf16")."""
+    return {"int8": packed_trunk, "int4": int4_trunk, "bf16": bf16_trunk}[units](t, gen)
+
+
+def frame_packs(cfg, gen, talker="int8", trunk="int8"):
+    """K7's first ten arguments at the preset's widths: random talker and
+    trunk packs of the given units, lm_head and heads (bf16 rows with scales
+    of one beside a bf16 talker, as the engine packs raw heads, else int8),
+    bf16 codec and step tables, and final norms near 1."""
     tt, cp = cfg.talker.transformer, cfg.code_predictor
     mt = cp.transformer
     H, Vc, V, n = tt.hidden_size, cfg.talker.codec_vocab_size, cp.subcode_vocab_size, cp.num_steps
 
     def head(*shape):
-        w = torch.randn(shape, generator=gen, device=DEV) * H ** -0.5
-        return K2.pack_heads(quantize_weight(w.to(torch.bfloat16)))
+        w = (torch.randn(shape, generator=gen, device=DEV) * H ** -0.5).to(torch.bfloat16)
+        return K2.pack_heads(w if talker == "bf16" else quantize_weight(w))
 
     def norm():
         return (1 + 0.1 * torch.randn((H,), generator=gen, device=DEV)).to(torch.bfloat16)
@@ -2718,8 +2767,8 @@ def frame_packs(cfg, gen):
     def table(*shape):
         return (torch.randn(shape, generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
 
-    return (tt, mt, packed_trunk(tt, gen), norm(), head(H, Vc), table(Vc, H),
-            packed_trunk(mt, gen), norm(), head(n, H, V), table(n, V, H))
+    return (tt, mt, unit_pack(tt, talker, gen), norm(), head(H, Vc), table(Vc, H),
+            unit_pack(mt, trunk, gen), norm(), head(n, H, V), table(n, V, H))
 
 
 def k7_caches(tt, T, pos, cache_dtype, gen):
@@ -2796,7 +2845,8 @@ def k7_composition(packs, inp, knobs, code0, caches):
     fn = tfnorm.float().contiguous()
     err = _build.load_kernels().qtts_norm_head(
         x.data_ptr(), fn.data_ptr(), tt.rms_norm_eps, lm.q.data_ptr(), lm.scale.data_ptr(),
-        hidden.data_ptr(), logits.data_ptr(), Vc, H, torch.cuda.current_stream().cuda_stream)
+        hidden.data_ptr(), logits.data_ptr(), Vc, H, int(lm.q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
     _build.check(err, "qtts_norm_head")
     return c0e, subs, ssum, x, hidden, logits
 
@@ -2808,11 +2858,13 @@ def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
     near tie passes by K5's flip rule, counted); code0, the sub-codes, c0e,
     sub_sum, x, the talker caches, hidden and logits equal the launch-per-op
     frame's bit for bit, and all but code0 the composition's on K7's code0.
-    An int8 cache (``cache_dtype`` int8: its scales too) has no launch-per-op
-    frame: the composition alone.  Returns the number of frames compared."""
+    An int8 cache (``cache_dtype`` int8: its scales too) and units other
+    than int8 have no launch-per-op frame: the composition alone.  Returns
+    the number of frames compared."""
     tt = packs[0]
     base = k7_caches(tt, T, pos, cache_dtype, gen)
-    multi = cache_dtype != torch.int8
+    units = [K1.UNIT_NAMES[packs[i].wqkv.dtype] for i in (2, 6)]
+    multi = cache_dtype != torch.int8 and units == ["int8", "int8"]
     equal = flips = eos = frames = 0
     names = ("c0e", "subcodes", "sub_sum", "x", "caches", "hidden", "logits")
     for knobs in K7_KNOBS:
@@ -2854,7 +2906,8 @@ def check_k7_composition(packs, T, pos, cache_dtype, gen, inputs=K7_INPUTS):
                     f"frame in {[nm for nm, ok in zip(names + ('code0',), same_m) if not ok]}")
     ok = equal == frames
     log(f"K7 vs {'the launch-per-op frame and ' if multi else ''}K2 -> float32 x -> K1 -> "
-        f"norm+lm_head: T={T} pos={pos} "
+        f"norm+lm_head: talker {units[0]}, trunk {units[1]}, {packs[4].q.dtype} heads, T={T} "
+        f"pos={pos} "
         f"cache={str(cache_dtype)[6:]} knobs {K7_KNOBS}: {equal}/{frames} frames equal bit for bit "
         f"(code0, c0e, sub-codes, sub_sum, x, caches, hidden, logits); code0 = plain pick on "
         f"{frames - flips}/{frames} (near-tie flips {flips}), EOS drawn {eos} -> "
@@ -2922,7 +2975,7 @@ def check_k7_plain(packs, T, pos, knobs, gen, iters=0, cache_dtype=torch.bfloat1
         code0 = got[0]
         comp_ms = time_ms(lambda: k7_composition(packs, inp, knobs, code0, cp), iters)
         plain_ms = time_ms(
-            lambda: k7_call(K7.fused_frame_step_reference, packs, inp, knobs, *cp), 2, 1)
+            lambda: k7_call(K7.fused_frame_step_reference, packs, inp, knobs, *cp), 1, 0)
     log(f"K7 vs plain: T={T} pos={pos} cache={str(cache_dtype)[6:]} knobs {knobs}: {detail}; "
         f"kernel {ms:.4f} ms/frame, "
         f"K2 + K1 + norm_head {comp_ms:.4f} ms, plain {plain_ms:.4f} ms -> "
@@ -3400,8 +3453,10 @@ def bf16_anchors(cfg, gen):
                       flip_rule=True)
           for knobs, iters in (((0.8, 50, 0.95), 10), ((0.0,), 0), ((1.0, 0, 1.0), 0))]
     k3_row = K3.fused_mtp_chain_streamed
+    # against the plain chain at 8 and 16 rows (a plain chain of 32 rows takes
+    # ~10 s); at 32 rows bit for bit against K3 below
     k5 = [check_k5(B, *chain, gen, iters, cache_dtype=torch.float32, row_chain=k3_row)
-          for B, iters in ((8, 5), (32, 3))]
+          for B, iters in ((8, 5), (16, 3))]
     check_k5_equal("0.6B MTP trunk bf16", *chain, gen, batches=(2, 8, 32),
                    cache_dtypes=(torch.float32,), multi=False, row_chain=k3_row)
     one_slot_ring(lambda: (
@@ -3490,6 +3545,9 @@ def bf16_17b(tok, gen, card_line):
     # B17: batches, pools and spec at the 1.7B widths, bf16 units on the
     # 48 KB batched plans, int8 units beside them (the prefills add K8)
     launched = {"K4 bf16 1.7B": batched_runs(eng, "1.7B bf16", card_line)}
+    # past 32 rows: two launches of 17 rows on the 48 KB plans, a few frames
+    launched["K4 bf16 1.7B"] = [a + b for a, b in zip(launched["K4 bf16 1.7B"], batch_rows_equal(
+        eng, 34, "1.7B bf16", card_line, frames=6))]
     spec = TTSEngine(config=cfg, params=params, tokenizer=tok, spec_k=SPEC_K,
                      spec_iters=SPEC_ITERS, spec_accept_floor=0.0)
     i8 = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
@@ -3498,29 +3556,39 @@ def bf16_17b(tok, gen, card_line):
         save_checkpoint(d, cfg, params)
         byte_level_tokenizer(d)
         del params
-        serve_phase(d, card_line, quantize=None)
-    for e in (spec, i8):
-        if not e.is_ready():
-            raise RuntimeError(f"1.7B engine: {e.get_error()}")
-    kw = dict(language="en", temperature=0.0, max_tokens=32)
-    want = eng.synthesize(SPEC_TEXT, **kw)
-    reset_launches()
-    got = spec.synthesize(SPEC_TEXT, **kw)
-    m = got.metrics
-    it, k = m.spec_iterations, spec.spec_k
-    seq = m.decoded_frames - 1 - it * k
-    launched["K6 bf16 1.7B"] = check_launches(
-        "1.7B bf16 spec_k=4 (K6 and K5 per iteration, K3 for frame 0 and after a fallback)",
-        with_prefills(spec, counts_of(K1=seq + m.spec_fallback, K3=1 + seq, K5=it, K6=it)))
-    equal = np.array_equal(got.codes, want.codes)
-    log(f"1.7B bf16 spec_k=4: {len(got.codes)} frames, {it} iterations, codes equal to "
-        f"sequential={equal} (K5's rows on K3's float32 cache), "
-        f"{m.stage_seconds['decode'] * 1e3 / max(len(got.codes), 1):.3f} ms per committed frame "
-        f"[{card_line}]")
-    if not equal or it < 1:
-        raise RuntimeError("1.7B bf16 spec: greedy codes differ from sequential decoding")
-    del spec
-    launched["1.7B int8"] = batched_runs(i8, "1.7B int8", card_line)
+        # the spec and int8 runs below while it boots (their times then
+        # share the card with its warmup)
+        server = start_servers(d, ((None, ()),))
+        try:
+            for e in (spec, i8):
+                if not e.is_ready():
+                    raise RuntimeError(f"1.7B engine: {e.get_error()}")
+            kw = dict(language="en", temperature=0.0, max_tokens=32)
+            want = eng.synthesize(SPEC_TEXT, **kw)
+            reset_launches()
+            got = spec.synthesize(SPEC_TEXT, **kw)
+            m = got.metrics
+            it, k = m.spec_iterations, spec.spec_k
+            seq = m.decoded_frames - 1 - it * k
+            launched["K6 bf16 1.7B"] = check_launches(
+                "1.7B bf16 spec_k=4 (K6 and K5 per iteration, K3 for frame 0 and after a "
+                "fallback)",
+                with_prefills(spec, counts_of(K1=seq + m.spec_fallback, K3=1 + seq, K5=it,
+                                              K6=it)))
+            equal = np.array_equal(got.codes, want.codes)
+            log(f"1.7B bf16 spec_k=4: {len(got.codes)} frames, {it} iterations, codes equal to "
+                f"sequential={equal} (K5's rows on K3's float32 cache), "
+                f"{m.stage_seconds['decode'] * 1e3 / max(len(got.codes), 1):.3f} ms per "
+                f"committed frame (beside a booting server) [{card_line}]")
+            if not equal or it < 1:
+                raise RuntimeError("1.7B bf16 spec: greedy codes differ from sequential decoding")
+            del spec
+            launched["1.7B int8"] = batched_runs(i8, "1.7B int8 (beside a booting server)",
+                                                 card_line)
+        except BaseException:
+            finish_servers(server, None, kill=True)
+            raise
+        finish_servers(server, card_line)
     del eng, i8
     torch.cuda.empty_cache()
     counts += [launched["K4 bf16 1.7B"], launched["K6 bf16 1.7B"]]  # int8's: main's total
@@ -5130,13 +5198,12 @@ def with_prefills(eng, want):
     return want[:k8] + (got,) + want[k8 + 1:]
 
 
-def batched_runs(eng, label, card_line, pool=True, refusals=False):
+def batched_runs(eng, label, card_line, pool=True):
     """``synthesize_batch`` of four texts (one K4 and one K5 per batched
     frame) and, with ``pool``, eight requests through an 8-slot pool (one K4
     and one K5 per pooled frame) and a greedy pool request against
     ``synthesize`` at B=1 (codes equal: each pool row is the B=1 kernels'
-    row bit for bit); with ``refusals``, a batch of 33 and a pool of 33 slots
-    refused (ROADMAP M12b).  Returns the launch counts."""
+    row bit for bit).  Returns the launch counts."""
     reset_launches()
     t0 = time.perf_counter()
     results = eng.synthesize_batch(BATCHED_RUN_TEXTS, language="en", temperature=0.8, top_k=50,
@@ -5181,17 +5248,6 @@ def batched_runs(eng, label, card_line, pool=True, refusals=False):
             f"[{card_line}]")
         if not equal:
             raise RuntimeError(f"{label}: greedy pool output differs from synthesize at B=1")
-    if refusals:
-        for what, call in (("synthesize_batch of 33", lambda: eng.synthesize_batch(["hi"] * 33)),
-                           ("a pool of 33 slots", lambda: ContinuousBatcher(eng, pool_size=33))):
-            try:
-                call()
-            except EngineError as e:
-                if "ROADMAP M12b" not in str(e):
-                    raise
-                log(f"{label} {what}: refused, {e}")
-            else:
-                raise RuntimeError(f"{label} {what} ran: more than 32 rows must refuse (M12b)")
     return [sum(c) for c in zip(*counts)]
 
 
@@ -5237,8 +5293,10 @@ def precision_engines(tok, card_line):
                 f"0.6B {kw} synthesize_batch B=32 (K5 on the int4 alt trunk)",
                 counts_of(K4=d, K5=d))
         else:
-            counts[key] = batched_runs(eng, f"0.6B {kw}", card_line, refusals=key == "K5 int4")
-        if key == "K5 int4":
+            counts[key] = batched_runs(eng, f"0.6B {kw}", card_line)
+        if key == "K5 int4":  # past 32 rows: K4 and K5 int4 in two launches of 24 rows
+            counts[key] = [a + b for a, b in zip(counts[key], batch_rows_equal(
+                eng, 48, f"0.6B {kw}", card_line))]
             counts["K4 int4"] = counts[key]
         del eng
         torch.cuda.empty_cache()
@@ -5254,8 +5312,11 @@ def precision_cli(tok, card_line):
     trunk or the int4 alt trunk, bf16 heads), --spec-k 4 at an unset
     --quantize (K6 and K5 at bf16 units), also with --kv-quant, --spec-k 4
     with --quantize int4 --kv-quant (K6 int4 on an int8 cache, K5 int4) and
-    with --mtp-quantize int8 (K5 on the int8 trunk with bf16 heads); then
-    the server subprocess at --quantize int4 (its pool on K4 / K5 int4).
+    with --mtp-quantize int8 (K5 on the int8 trunk with bf16 heads),
+    --frame-fused on at --quantize int4 and beside --mtp-quantize int8 (one
+    K7 per decoded frame: int4 units; a bf16 talker with bf16 heads beside
+    the int8 trunk).  (The server at --quantize int4 boots in the entry
+    phase, beside the others.)
     Returns ({flags: launch counts}, {flags: ms per frame})."""
     cfg = QWEN3_TTS_06B
     params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
@@ -5276,7 +5337,11 @@ def precision_cli(tok, card_line):
                              ("--quantize int4 --spec-k 4 --kv-quant",
                               ["--quantize", "int4", "--spec-k", "4", "--kv-quant"]),
                              ("--mtp-quantize int8 --spec-k 4",
-                              ["--mtp-quantize", "int8", "--spec-k", "4"])):
+                              ["--mtp-quantize", "int8", "--spec-k", "4"]),
+                             ("--quantize int4 --frame-fused on",
+                              ["--quantize", "int4", "--frame-fused", "on"]),
+                             ("--mtp-quantize int8 --frame-fused on",
+                              ["--mtp-quantize", "int8", "--frame-fused", "on"])):
             out_wav = os.path.join(tmp, f"p{len(counts)}.wav")
             reset_launches()
             t0 = time.perf_counter()
@@ -5294,14 +5359,13 @@ def precision_cli(tok, card_line):
                 chain = "K3" if flags[:2] == ["--spec-k", "4"] else "K2"  # bf16 trunks: K3
                 want = counts_of(K1=seq + fallback, **{chain: 1 + seq}, K5=it, K6=it)
                 ms[label] = decode_ms / frames  # per committed frame, random drafts rejected
-            else:
-                want = counts_of(K1=n, K2=n)
+            else:  # --frame-fused on: every decoded frame one K7 (JAX's gate admits both)
+                want = counts_of(K7=n) if "--frame-fused" in flags else counts_of(K1=n, K2=n)
                 ms[label] = decode_ms / n
             counts[label] = check_launches(f"CLI {label} ({n} frames decoded)", want)
             log(f"CLI {label}: exit 0, {pcm.size / 24000:.2f} s of audio ({frames} frames), {n} "
                 f"frames decoded, {decode_ms / n:.3f} ms per decoded frame, {decode_ms / frames:.3f} "
                 f"per committed frame, {wall:.2f} s of wall time [{card_line}]")
-        serve_phase(d, card_line, quantize="int4")
     torch.cuda.empty_cache()
     return counts, ms
 
@@ -5393,6 +5457,10 @@ def precision_phase(tok, gen, card_line, spec_counts):
         "K6 int4": spec4[ids["K6"]],
         "K6 int4 kvq": cli_counts["--quantize int4 --spec-k 4 --kv-quant"][ids["K6"]],
     }
+    # K7 at the new unit mixes on the CLI (phase 16 adds its engines' frames)
+    k7 = KERNEL_IDS.index("K7")
+    frames = {"K7 int4 units": cli_counts["--quantize int4 --frame-fused on"][k7],
+              "K7 bf16 talker, int8 trunk": cli_counts["--mtp-quantize int8 --frame-fused on"][k7]}
     unlaunched = [k for k, n in paths.items() if not n]
     if unlaunched:
         raise RuntimeError(f"the precision flags' main paths never launched {unlaunched}")
@@ -5401,7 +5469,315 @@ def precision_phase(tok, gen, card_line, spec_counts):
         f"{k}: {v:.3f}" for k, v in cli_ms.items()) + "; 1.7B: " + "; ".join(
         f"{k}: {v:.3f}" for k, v in ms_17b.items()) + f" [{card_line}]")
     log(f"precision phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
-    return paths, checks, bounds
+    return paths, checks, bounds, frames
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: K7 at every unit mix, and calls past 32 rows
+# ---------------------------------------------------------------------------
+
+# K7's unit mixes besides the int8 talker beside the int8 trunk: report key
+# -> (talker units, trunk units, the engine flags that build it); the
+# lm_head and heads are bf16 beside a bf16 talker, else int8
+K7_MIXES = {
+    "K7 int4 units": ("int4", "int4", dict(quantize="int4")),
+    "K7 int8 talker, int4 trunk": ("int8", "int4", dict(quantize="int8", mtp_quantize="int4")),
+    "K7 int4 talker, int8 trunk": ("int4", "int8", dict(quantize="int4", mtp_quantize="int8")),
+    "K7 bf16 talker, int8 trunk": ("bf16", "int8", dict(mtp_quantize="int8")),
+    "K7 bf16 talker, int4 trunk": ("bf16", "int4", dict(mtp_quantize="int4")),
+}
+UNIT_DTYPES = {"int8": torch.int8, "int4": torch.uint8, "bf16": torch.bfloat16}
+PAST_32_FRAMES = 16  # frames of each batch past 32 rows
+PAST_32_SMALL = 8  # the rows a launch takes in the batch it is held to
+
+
+def frame_mix_checks(gen, mixes=tuple(K7_MIXES)):
+    """K7 at each unit mix of K7_MIXES at the 0.6B widths: against the
+    composition K2 -> float32 x -> K1 -> norm+lm_head of the same mix, bit
+    for bit, on bf16 (T=256 pos 255, T=2560 pos 2559), float32 and int8
+    talker caches and on a one-slot and a narrow one-slot ring (each set's
+    stages of its own row bytes and scale floats); against its plain
+    version on the bf16 and the int8 cache, sampled (timed beside the
+    composition) and greedy.  ``mixes``: the report keys to check.  Returns
+    (checks, bounds) by report key (the int8 cache's key ends in " kvq")."""
+    cfg = QWEN3_TTS_06B
+    checks, bounds = {}, {}
+    for key in mixes:
+        talker, trunk, _ = K7_MIXES[key]
+        packs = frame_packs(cfg, gen, talker, trunk)
+        p = K7.frame_plan(*packs, 256, torch.bfloat16).plan
+        log(f"{key} plan: {p.n_slots} ring slots of {p.slot_bytes} B, stage rows {p.stage_rows} "
+            f"(trunk and heads, then talker and lm_head), {p.slot_rows} scale floats a slot, "
+            f"{p.smem_bytes} B of dynamic shared memory [{CARD}]")
+        frames = check_k7_composition(packs, 256, 255, torch.bfloat16, gen, inputs=4)
+        frames += check_k7_composition(packs, 2560, 2559, torch.bfloat16, gen, inputs=1)
+        frames += check_k7_composition(packs, 256, 64, torch.float32, gen, inputs=2)
+        frames += check_k7_composition(packs, 256, 255, torch.int8, gen, inputs=2)
+        for narrow in (False, True):
+            frames += one_slot_ring(lambda: check_k7_composition(
+                packs, 256, 255, torch.bfloat16, gen, inputs=1), narrow=narrow)
+        knobs = K7_KNOBS[1]
+        err, ms, plain_ms, comp_ms = check_k7_plain(packs, 256, 255, knobs, gen, iters=10)
+        check_k7_plain(packs, 256, 255, K7_KNOBS[0], gen)
+        errq, msq, plainq, compq = check_k7_plain(packs, 256, 255, knobs, gen, iters=10,
+                                                  cache_dtype=torch.int8)
+        checks[key] = [(err, ms, plain_ms)]
+        checks[f"{key} kvq"] = [(errq, msq, plainq)]
+        bounds[key] = frame_bound(packs, 255, torch.bfloat16)
+        bounds[f"{key} kvq"] = frame_bound(packs, 255, torch.int8)
+        log(f"{key}: {frames} frames equal to the composition bit for bit; T=256 pos 255 "
+            f"sampled: K7 {ms:.4f} ms (composition {comp_ms:.4f}), int8 cache {msq:.4f} "
+            f"(composition {compq:.4f}) [{CARD}]")
+        del packs
+        torch.cuda.empty_cache()
+    return checks, bounds
+
+
+def frame_mix_engines(tok, card_line):
+    """0.6B ``frame_fused=True`` engines at each mix's flags (K7_MIXES), with
+    and without ``kv_quant``: a greedy and a sampled request each, every
+    decoded frame one K7 launch (``frame_fused_frames`` equal to the decoded
+    frames; no K1, K2 or K3), as JAX's frame gate admits these mixes.
+    Returns launch counts by report key."""
+    cfg = QWEN3_TTS_06B
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    counts = {}
+    for key, (talker, trunk, flags) in K7_MIXES.items():
+        for kvq in (False, True):
+            eng = TTSEngine(config=cfg, params=params, tokenizer=tok, frame_fused=True,
+                            kv_quant=kvq, **flags)
+            if not eng.is_ready():
+                raise RuntimeError(f"0.6B frame_fused engine at {flags}: {eng.get_error()}")
+            units = (eng.params["talker"]["fused_step"].wqkv.dtype,
+                     eng.params["code_predictor"]["fused_step"].wqkv.dtype)
+            if units != (UNIT_DTYPES[talker], UNIT_DTYPES[trunk]):
+                raise RuntimeError(f"the 0.6B engine at {flags} packs {units}, not {key}")
+            reset_launches()
+            decoded, ms = 0, []
+            for req in B1_REQUESTS[:2]:
+                r = eng.synthesize(max_tokens=24, seed=SEED, **req)
+                m = r.metrics
+                if (m.frame_fused_frames != m.decoded_frames or not np.isfinite(r.audio).all()
+                        or r.codes.shape[1:] != (16,)):
+                    raise RuntimeError(f"frame_fused at {flags} kv_quant={kvq}: a frame left K7 "
+                                       f"({m.frame_fused_frames} of {m.decoded_frames}), or bad "
+                                       "output")
+                decoded += m.decoded_frames
+                ms.append(m.stage_seconds["decode"] * 1e3 / max(m.decoded_frames, 1))
+            label = f"{key}{' kvq' if kvq else ''}"
+            counts[label] = check_launches(f"0.6B frame_fused {flags} kv_quant={kvq} (one K7 per "
+                                           "decoded frame)", counts_of(K7=decoded))
+            log(f"0.6B frame_fused at {flags} kv_quant={kvq}: {decoded} frames decoded, all by "
+                f"K7; {[round(x, 3) for x in ms]} ms/frame decode [{card_line}]")
+            del eng
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def batch_rows_equal(eng, B, label, card_line, frames=PAST_32_FRAMES):
+    """``synthesize_batch`` of B streams (B > 32: K4 and K5 split into
+    ``persistent.row_launches(B)`` launches a frame; texts cycling through
+    BATCH_TEXTS, per-stream seeds), then the same batch with each launch
+    cut to at most PAST_32_SMALL rows: every stream's codes and audio equal
+    bit for bit, so no row depends on the launch that holds it.  (Batches
+    of other sizes are no reference: the plain prefill's products take
+    another shape there, and cuBLAS may round them otherwise.)  Returns the
+    first batch's launch counts."""
+    texts = [BATCH_TEXTS[b % len(BATCH_TEXTS)] for b in range(B)]
+    kw = dict(language="en", temperature=0.8, top_k=50, top_p=0.95, max_tokens=frames)
+    reset_launches()
+    t0 = time.perf_counter()
+    big = eng.synthesize_batch(texts, seed=list(range(B)), **kw)
+    wall = time.perf_counter() - t0
+    d = big[0].metrics.decoded_frames
+    n = len(persistent.row_launches(B))
+    counts = check_launches(f"{label} synthesize_batch B={B} ({d} batched frames, {n} launches "
+                            "of K4 and of K5 a frame)",
+                            with_prefills(eng, counts_of(K4=n * d, K5=n * d)))
+    for r in big:
+        if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                r.audio).all() or r.codes.shape[1:] != (16,):
+            raise RuntimeError(f"{label}: bad synthesize_batch output at B={B}")
+    launches = [nb for _, nb in persistent.row_launches(B)]
+    real = persistent.LAUNCH_ROWS
+    persistent.LAUNCH_ROWS = PAST_32_SMALL
+    try:
+        small = eng.synthesize_batch(texts, seed=list(range(B)), **kw)
+        narrow = [nb for _, nb in persistent.row_launches(B)]
+    finally:
+        persistent.LAUNCH_ROWS = real
+    same = [np.array_equal(a.codes, b.codes) and np.array_equal(a.audio, b.audio)
+            for a, b in zip(big, small)]
+    ms = big[0].metrics.stage_seconds["decode"] * 1e3 / d
+    log(f"{label} synthesize_batch B={B} ({n} launches of {launches} rows a kernel): {ms:.3f} ms "
+        f"per batched frame decode, {wall:.2f} s of wall time; each stream's codes and audio "
+        f"equal to the batch in launches of {narrow} rows: {sum(same)}/{B} -> "
+        f"{'ok' if all(same) else 'FAIL'} [{card_line}]")
+    if not all(same):
+        raise RuntimeError(f"{label} B={B}: streams {[b for b, ok in enumerate(same) if not ok]} "
+                           f"differ from the batch in launches of at most {PAST_32_SMALL} rows")
+    figure(f"{label} B={B} ms per batched frame", ms)
+    return counts
+
+
+def pool_rows_equal(eng, spec_eng, card_line):
+    """A pool of 40 slots (K4 and K5 in two launches of 20 rows a frame) and
+    a spec pool of 12 slots x spec_k=4 (48 rows: K6 in two launches of 6
+    streams, K5 in two of 24 rows an iteration), each serving one request
+    more than it has slots, every fourth greedy: each greedy request's codes
+    equal ``synthesize`` at B=1 (a row of at most 32).  Returns the launch
+    counts."""
+    counts = []
+    for label, pool_kw, per_chunk in (
+            ("pool of 40", dict(engine=eng, pool_size=40, chunk_len=4), 4),
+            (f"spec pool 12 x {SPEC_K}", dict(engine=spec_eng, pool_size=12, spec_k=SPEC_K,
+                                              spec_iters=POOL_SPEC_ITERS), POOL_SPEC_ITERS)):
+        p = ContinuousBatcher(kv_bucket=eng.kv_ladder[0], **pool_kw)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            reqs = [(f"{BATCH_TEXTS[i % len(BATCH_TEXTS)]}, request {i}",
+                     0.0 if i % 4 == 0 else 0.8) for i in range(p.pool_size + 1)]
+            futs = [p.submit(text, language="en", temperature=temp, top_k=50, top_p=0.95,
+                             max_tokens=PAST_32_SMALL, seed=SEED + i)
+                    for i, (text, temp) in enumerate(reqs)]
+            got = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            chunks = p.stats["chunks"]
+            for r in got:
+                if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                        r.audio).all():
+                    raise RuntimeError(f"{label}: bad result")
+            if "spec" in label:
+                rows = p.pool_size * SPEC_K
+                k6 = len(persistent.row_launches(p.pool_size, SPEC_K))
+                k5 = len(persistent.row_launches(rows))
+                want = counts_of(K2=len(reqs), K5=k5 * chunks * per_chunk,
+                                 K6=k6 * chunks * per_chunk)
+            else:
+                n = len(persistent.row_launches(p.pool_size))
+                want = counts_of(K4=n * chunks * per_chunk, K5=n * chunks * per_chunk)
+            counts.append(check_launches(f"{label} ({chunks} chunks)", want))
+        finally:
+            p.shutdown()
+        greedy = [(text, r) for (text, temp), r in zip(reqs, got) if temp == 0.0]
+        same = [np.array_equal(r.codes, eng.synthesize(text, language="en", temperature=0.0,
+                                                        max_tokens=PAST_32_SMALL).codes)
+                for text, r in greedy]
+        log(f"{label}: {len(reqs)} requests in {wall:.2f} s, {chunks} chunks; greedy requests "
+            f"equal to synthesize at B=1: {sum(same)}/{len(same)} -> "
+            f"{'ok' if all(same) else 'FAIL'} [{card_line}]")
+        if not all(same):
+            raise RuntimeError(f"{label}: a greedy request differs from synthesize at B=1")
+    return [sum(c) for c in zip(*counts)]
+
+
+def split_rows_checks(gen):
+    """K4, K5 and K6 past 32 rows at the 0.6B widths (``rows_past_32``'s
+    kernels): at 40 and 64 rows, each row of the split call (and each cache
+    row it writes) equal bit for bit to the same row of calls of at most 32
+    rows on copies of the caches (rows 0..31, then the rest: not the split's
+    own launches); then each timed beside one launch of its split's rows
+    (CUDA events), with the bound of the call's work.  Returns {label:
+    (split ms, launch ms, launches, bound ms)}."""
+    cfg = QWEN3_TTS_06B
+    t, cp = cfg.talker.transformer, cfg.code_predictor
+    mt = cp.transformer
+    fw, mfw = packed_trunk(t, gen), packed_trunk(mt, gen)
+    n, V, H = cp.num_steps, cp.subcode_vocab_size, mt.hidden_size
+    heads = K2.pack_heads(quantize_weight(
+        (torch.randn((n, H, V), generator=gen, device=DEV) * H ** -0.5).to(torch.bfloat16)))
+    tables = (torch.randn((n, V, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    fnorm = torch.ones((H,), dtype=torch.bfloat16, device=DEV)
+    out = {}
+
+    def compare(label, whole, parts):
+        same = all(bool(torch.equal(a, b)) for a, b in zip(whole, parts))
+        log(f"{label}: every row (and cache row) equal bit for bit to calls of 32 rows and the "
+            f"rest -> {'ok' if same else 'FAIL'} [{CARD}]")
+        if not same:
+            raise RuntimeError(f"{label}: a row of the split call differs from a call of at most "
+                               "32 rows")
+
+    for B in (40, 64):
+        x, kc, vc, pos = k4_inputs(t, B, 512, torch.bfloat16, gen)
+        pos = torch.tensor(pos, device=DEV)
+        ck = clone_all([kc, vc])
+        xo = K1.fused_decode_step_batched(t, fw, x, pos, *ck)[0]
+        pieces = []
+        for r0, r1 in ((0, 32), (32, B)):
+            cr = [c[:, r0:r1].clone() for c in (kc, vc)]
+            pieces.append((K1.fused_decode_step_batched(t, fw, x[r0:r1], pos[r0:r1], *cr)[0], cr))
+        compare(f"K4 0.6B talker B={B} T=512", [xo, *ck],
+                [torch.cat([p[0] for p in pieces]),
+                 *[torch.cat([p[1][i] for p in pieces], dim=1) for i in range(2)]])
+        launches = persistent.row_launches(B)
+        nb = launches[0][1]
+        out[f"K4 B={B}"] = (
+            time_ms(lambda: K1.fused_decode_step_batched(t, fw, x, pos, *ck), 10),
+            time_ms(lambda: K1.fused_decode_step_batched(t, fw, x[:nb], pos[:nb], *ck), 10),
+            len(launches),
+            step_bound(t, fw, B, [min(int(p), 511) for p in pos], 1, torch.bfloat16)[0])
+
+        S, streams = 4, B // 4
+        starts = [K4_POSITIONS[b % len(K4_POSITIONS)] for b in range(streams)]
+        x6, kc6, vc6, st6 = k6_inputs(t, streams, S, 512, starts, torch.bfloat16, gen)
+        ck6 = clone_all([kc6, vc6])
+        xo6 = K6.fused_verify_step(t, fw, x6, st6, *ck6)[0]
+        pieces = []
+        for s0, s1 in ((0, 8), (8, streams)):
+            cr = [c[:, s0:s1].clone() for c in (kc6, vc6)]
+            pieces.append((K6.fused_verify_step(t, fw, x6[s0:s1], st6[s0:s1], *cr)[0], cr))
+        compare(f"K6 0.6B talker {streams} x {S} rows T=512", [xo6, *ck6],
+                [torch.cat([p[0] for p in pieces]),
+                 *[torch.cat([p[1][i] for p in pieces], dim=1) for i in range(2)]])
+        launches = persistent.row_launches(streams, S)
+        sb = launches[0][1]
+        one = [c[:, :sb].contiguous() for c in ck6]
+        out[f"K6 {streams} x {S}"] = (
+            time_ms(lambda: K6.fused_verify_step(t, fw, x6, st6, *ck6), 10),
+            time_ms(lambda: K6.fused_verify_step(t, fw, x6[:sb], st6[:sb], *one), 10),
+            len(launches), step_bound(t, fw, B, starts, S, torch.bfloat16)[0])
+        del x, kc, vc, ck, x6, kc6, vc6, ck6, one, pieces
+
+        knobs = [K5_KNOBS[b % len(K5_KNOBS)] for b in range(B)]
+        lh = (torch.randn((B, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+        c0 = (torch.randn((B, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+        noise = gumbel_noise((n, B, V), gen, DEV)
+
+        def k5(r0, r1):
+            return K2.fused_mtp_chain_batched(mt, mfw, fnorm, heads, tables, lh[r0:r1], c0[r0:r1],
+                                              noise[:, r0:r1], *zip(*knobs[r0:r1]),
+                                              cache_dtype=torch.bfloat16)
+
+        whole = k5(0, B)
+        parts = [k5(0, 32), k5(32, B)]
+        compare(f"K5 0.6B chain B={B} mixed knobs", list(whole),
+                [torch.cat([p[i] for p in parts]) for i in range(2)])
+        launches = persistent.row_launches(B)
+        nb = launches[0][1]
+        out[f"K5 B={B}"] = (time_ms(lambda: k5(0, B), 3), time_ms(lambda: k5(0, nb), 3),
+                            len(launches), chain_bound(mt, mfw, heads, B)[0])
+    for label, (ms, one, k, least) in out.items():
+        log(f"{label}: {ms:.3f} ms in {k} launches; one launch of its rows {one:.3f} ms "
+            f"(x{k}: {k * one:.3f}); bound {least:.4f} ms [{CARD}]")
+    return out
+
+
+def finish_phase(tok, gen, card_line):
+    """Phase 16: K7 at every unit mix the engine builds (frame_mix_checks,
+    frame_mix_engines) and K4, K5 and K6 past 32 rows (split_rows_checks).
+    The batches, pools and CLI runs past 32 rows and at the new mixes ride
+    on the engines of the phases that build them (main's int8 engines,
+    precision_engines, precision_cli, bf16_17b).  Returns (launch counts,
+    checks, bounds) by report key."""
+    t0 = time.perf_counter()
+    checks, bounds = frame_mix_checks(gen)
+    counts = frame_mix_engines(tok, card_line)
+    split_rows_checks(gen)
+    log(f"phase 16 (K7 mixes, past 32 rows): {time.perf_counter() - t0:.1f} s [{card_line}]")
+    return counts, checks, bounds
 
 
 B1_REQUESTS = [
@@ -5561,8 +5937,10 @@ def main() -> int:
         check_k5_equal("0.6B MTP trunk, one ring slot", cp, mtp_fw, heads, tables, fnorm, gen45,
                        batches=(8, 32), cache_dtypes=(torch.bfloat16,))))
     # B=8 and 32 (the batched paths), and 4 rows (a B=1 verify iteration at k=4)
+    # against the plain chain at 8, 16 and 4 rows (a plain chain of 32 rows
+    # takes ~9 s); at 32 rows bit for bit against K2 (check_k5_equal)
     k5 = [check_k5(B, cp, mtp_fw, heads, tables, fnorm, gen, iters)
-          for B, iters in ((8, 5), (32, 3), (4, 5))]
+          for B, iters in ((8, 5), (16, 3), (4, 5))]
     check_k5_equal("0.6B MTP trunk", cp, mtp_fw, heads, tables, fnorm, gen45)
     macs = (n + 1) * sum(w.numel() for w in (mtp_fw.wqkv, mtp_fw.wo, mtp_fw.wgu, mtp_fw.wd)) + (
         heads.q.numel())
@@ -5641,6 +6019,10 @@ def main() -> int:
     batched_figures(batched_ms)
     pooled = pool_phase(eng, card_line)
     spec, _ = spec_phase(eng, spec_eng, draft_eng, seq_ms, card_line)
+    # past 32 rows: a batch of 40 (two launches of 20 rows a kernel), a pool
+    # of 40 slots and a spec pool of 12 x 4 rows
+    past32 = [sum(c) for c in zip(batch_rows_equal(eng, 40, "0.6B int8", card_line),
+                                  pool_rows_equal(eng, spec_eng, card_line))]
     del eng, spec_eng, draft_eng
     torch.cuda.empty_cache()
     entry, numbers = entry_phase(tok, card_line)
@@ -5672,15 +6054,25 @@ def main() -> int:
     # the precision flags' phase draws from a generator of its own, as K4's
     gen15 = torch.Generator(device=DEV)
     gen15.manual_seed(SEED + 15)
-    precision, pchecks, pbounds = precision_phase(tok, gen15, card_line, numbers["spec_counts"])
+    precision, pchecks, pbounds, cli_k7 = precision_phase(tok, gen15, card_line,
+                                                          numbers["spec_counts"])
     bounds.update(pbounds)
-    total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, entry, voice, probed,
+    # K7 at every unit mix and the kernels past 32 rows draw from a generator
+    # of their own, as K4's
+    gen18 = torch.Generator(device=DEV)
+    gen18.manual_seed(SEED + 18)
+    mix_counts, mix_checks, mix_bounds = finish_phase(tok, gen18, card_line)
+    bounds.update(mix_bounds)
+    k7i = KERNEL_IDS.index("K7")
+    mixed = {k: c[k7i] + cli_k7.get(k, 0) for k, c in mix_counts.items()}
+    total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, past32, entry, voice, probed,
                                  tp_counts, b17["1.7B int8"])]
     log("launches on the main paths in all, int8 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)) + "; bf16 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)) + "; int8 KV cache: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, kvq)) + "; precision flags: "
-        + ", ".join(f"{k} {n}" for k, n in precision.items()))
+        + ", ".join(f"{k} {n}" for k, n in precision.items()) + "; K7 unit mixes: "
+        + ", ".join(f"{k} {n}" for k, n in mixed.items()))
 
     def entry(name, source, replaces, launched, checks, bound_key, library_ms=None):
         # library_ms: one PyTorch call computing the same function, where one
@@ -5797,6 +6189,12 @@ def main() -> int:
         entry("fused_verify_step (K6 bf16 units, 1.7B)", "fused_verify.cu", "fused_verify.py:473",
               b17["K6 bf16 1.7B"][KERNEL_IDS.index("K6")], b17_checks["K6 bf16 1.7B"],
               "K6 bf16 1.7B"),
+        # K7 at every unit mix the engine builds (int4 units, a bf16 talker
+        # beside an int8 or int4 trunk), on a bf16 and an int8 talker cache
+        *[entry(f"fused_frame_step ({key}{', int8 KV cache' if kv else ''})",
+                "fused_frame.cu" if K7_MIXES[key][:2] == ("bf16", "int8") else "fused_int4.cu",
+                "fused_frame.py:245", mixed[key + kv], mix_checks[key + kv], key + kv)
+          for key in K7_MIXES for kv in ("", " kvq")],
     ]}
     unlaunched = [k["name"] for k in report["kernels"] if not k["launches"]]
     if unlaunched:

@@ -3,7 +3,7 @@
 A second package beside ``leaxer_qwen3_tts_tpu`` (the JAX reference, which it
 never imports): text -> BPE tokens -> talker transformer -> 16-codebook 12 Hz
 acoustic codes -> causal codec vocoder -> 24 kHz audio.  The talker's decode
-step (kernel K1 at B=1, K4 at B=2..32) and the MTP sub-code chain (K2, K5)
+step (kernel K1 at B=1, K4 at B >= 2) and the MTP sub-code chain (K2, K5)
 are hand-written CUDA kernels (``csrc/``); everything else is plain PyTorch.
 Batched serving lives in ``serve`` (continuous-batching pool, batching
 server, HTTP facade).  Entry points: ``python -m leaxer_qwen3_tts_torch.cli``

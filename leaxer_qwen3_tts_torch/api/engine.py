@@ -32,17 +32,23 @@ implementations and packs both, as the JAX engine on its accelerator:
 units with scales of one (bits=16, no quantization), ``quantize="int4"`` as
 int4 units (group-128 scales, the heads int8), for kernels K1 and K2 or K3
 (B=1; K3 for an MTP trunk past the residency gate: the 1.7B trunks and
-every bf16 trunk), K4 and K5 (B=2..32) and K6 (the verify pass, B x spec_k
-<= 32 rows), at every unit type and both presets.  ``mtp_quantize`` packs
+every bf16 trunk), K4 and K5 (B >= 2), K6 (the verify pass, B x spec_k
+rows) and K7 (``frame_fused``), at every unit type and both presets; past 32
+rows K4, K5 and K6 run as launches of at most 32 rows (K6 by whole streams),
+each row as in a call of at most 32.  ``mtp_quantize`` packs
 the MTP trunk at another precision from the raw weights (its heads stay
 those of ``quantize``: raw heads run as bf16 rows beside an int8 or int4
 trunk), and ``"auto"`` adds an int4 ``fused_step_alt`` that the chain takes
 where the primary pack fails the residency gate at its batch (JAX's
 ``resident_pack``; the 0.6B int8 trunk past 16 rows).  Where the B=1 chain
 is K3, the batched chain K5 runs on K3's float32 cache, so that its rows
-equal K3's.  What still refuses on the card, each naming its ROADMAP item:
-int4 units with ``frame_fused`` (K7, anywhere) and more than 32 rows
-(M12b).  A talker with ``attn_impl="pallas"`` runs its prefill attention as
+equal K3's.  With ``frame_fused`` each B=1 frame whose packs pass JAX's
+frame gate is one K7 launch: a talker of int8, int4 or bf16 units beside an
+int8 or int4 trunk (a bf16 trunk fails the gate and decodes K1 + K3, as in
+JAX), the lm_head and heads bf16 rows beside a bf16 talker.  What still
+refuses, each naming its ROADMAP item: float32 embedding tables in the
+kernels (K2v) and what a mesh does not take (M15).  A talker with
+``attn_impl="pallas"`` runs its prefill attention as
 kernel K8.  ``kv_quant=True`` keeps the
 talker's KV cache in int8 with per-(slot, head) scales (K1, K4, K6 and K7
 take it; the top bucket is rounded up to 128 slots).  A configuration the
@@ -100,9 +106,9 @@ from ..models.code_predictor import (
 )
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.speaker_encoder import speaker_encoder_forward
-from ..models.talker import prepare_fused_talker
+from ..models.talker import attach_lm_head, prepare_fused_talker
 from ..ops.fused_mtp_tp import shard_heads, supports_tp_resident
-from ..ops.fused_step import MAX_BATCH, meta_pack, supports
+from ..ops.fused_step import meta_pack, supports
 from ..ops.fused_tp import check_timeouts, pack_fused_tp, pack_rows, supports_shard, supports_tp
 from ..ops.quant import fuse_params, quantize_params
 from ..parallel import Mesh
@@ -110,7 +116,6 @@ from ..runtime.generate import (
     GenerateFns,
     GenerateState,
     frame_fused_eligible,
-    frame_fused_enabled,
     make_generate_fns,
 )
 from ..runtime.prompt import prompt_length
@@ -307,9 +312,6 @@ class TTSEngine:
             if frame_fused and self.spec_k is not None:
                 raise EngineError("frame_fused is sequential-only: unset spec_k")
             config = dataclasses.replace(config, frame_fused=bool(frame_fused))
-        if frame_fused_enabled(config) and 4 in (self._bits, self._mtp_bits) and mesh is None:
-            raise EngineError("frame_fused with int4 units: the whole-frame kernel K7 takes int8 "
-                              "units (int4 in K7: ROADMAP K1v-b / K2v)")
         if kv_quant:
             # the int8 KV cache with per-(slot, head) scales, on the talker
             # only (the MTP cache stays in the model dtype, as in the JAX
@@ -372,6 +374,9 @@ class TTSEngine:
             params["talker"] = prepare_fused_talker(cfg.talker, params["talker"], bits=self._bits)
         if self._bits == 4:
             params = quantize_params(params, bits=4)
+            if "fused_step" in params["talker"]:
+                # K7's lm_head: the int8 one the plain path now reads
+                params["talker"] = attach_lm_head(params["talker"])
         if "fused_step" in params["code_predictor"]:
             # the chains read the heads the plain path reads (int8 once
             # quantized, raw ones as bf16 rows), whenever the trunk was packed
@@ -609,7 +614,8 @@ class TTSEngine:
         scalars or per-stream sequences.  ``seed`` is an int (one noise
         generator for the batch) or a length-B sequence (one generator per
         stream: each stream's samples then depend on its own seed only).
-        On a CUDA device B is at most 32 (kernels K4 and K5)."""
+        Past 32 streams kernels K4 and K5 run as launches of at most 32
+        rows each, every stream as in a batch of at most 32."""
         self._require_ready()
         timer = StageTimer(SynthesisMetrics())
         with timer.stage("tokenize"):
@@ -710,9 +716,6 @@ class TTSEngine:
         B = len(id_lists)
         if B < 1:
             raise EngineError("no texts")
-        if self.device.type == "cuda" and B > MAX_BATCH:
-            raise EngineError(f"batch of {B}: the batched kernels take at most {MAX_BATCH} streams "
-                              "(ROADMAP M12b)")
         if B > 1:
             self.check_batched()
         vocab = cfg.talker.text_vocab_size
@@ -775,11 +778,6 @@ class TTSEngine:
         ids_t = torch.from_numpy(ids_padded).to(dev)
         lens_t = torch.from_numpy(lens).to(dev)
         if self.spec_k is not None:
-            if dev.type == "cuda" and B * self.spec_k > MAX_BATCH:
-                raise EngineError(
-                    f"batch of {B} with spec_k={self.spec_k}: the verify kernel takes at most "
-                    f"{MAX_BATCH} rows (B x spec_k; ROADMAP M12b)"
-                )
             spec = self._spec_stream if B == 1 else self._spec_stream_batched
             yield from spec(timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp, segments)
             return

@@ -16,8 +16,9 @@ default) runs bf16 weight units, --quantize int8 int8 units and --quantize
 int4 int4 units (int8 heads), at both presets, each with --kv-quant (the
 int8 KV cache), any --mtp-quantize (an MTP trunk of another precision;
 "auto" adds the int4 trunk the chain takes where the primary one fails the
-residency gate) and --spec-k.  What still leaves the engine not ready (exit
-1, the error names its ROADMAP item): --frame-fused on with int4 units.
+residency gate), --spec-k and --frame-fused on (the whole-frame kernel K7
+at every unit mix; an unquantized MTP trunk decodes K1 + K3 per frame, as
+JAX's frame gate refuses bf16 trunks).
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--frame-fused", choices=["on", "off"],
         help="pin the whole-frame kernel (code0 sample + MTP chain + talker step + "
              "lm_head in ONE launch per frame, sequential B=1 only); default: "
-             "QTTS_FRAME_FUSED env; refused with int4 units (ROADMAP K1v-b / K2v)",
+             "QTTS_FRAME_FUSED env; an unquantized MTP trunk (a bf16 one) decodes the "
+             "multi-dispatch path, as the JAX frame gate routes it",
     )
     p.add_argument(
         "--kv-quant", action="store_true",

@@ -40,89 +40,38 @@
 // trace are in PERF.md.
 
 // An int8 talker KV cache (the JAX kernel's kvq mode): the talker step runs
-// K1's int8-cache phases (frame_kernel<bf16, int8_t>: the chain keeps a
+// K1's int8-cache phases (frame_kernel<bf16, int8_t, ...>: the chain keeps a
 // bf16 cache, the talker step gets a call site of its own), so K7 still
 // equals the composition K2 -> float32 x -> K1 (int8 cache) -> norm + head
 // bit for bit.  The launch-per-op frame takes no int8 cache.
+//
+// Unit mixes (qtts_frame.cuh): the kernel is a template over the trunk's and
+// the talker's unit types.  This source instantiates the int8 talker beside
+// the int8 trunk and, as a part of its own (QTTS_PART 1, ops/_build.py
+// PARTS), the bf16 talker (bf16 heads and lm_head) beside it; fused_int4.cu
+// the mixes with int4 units.  The launch-per-op frame takes int8 units only.
 
-#include "qtts_stream.cuh"
+// The build compiles this source as two objects (ops/_build.py PARTS): part
+// 0 everything but the bf16-talker frame, part 1 that frame.  Unset, both.
+#ifndef QTTS_PART
+#define QTTS_PART -1
+#endif
+#define QTTS_FRAME_HAS(part) (QTTS_PART < 0 || QTTS_PART == (part))
+
+#include "qtts_frame.cuh"
+
+#if QTTS_FRAME_HAS(1)
+int qtts_launch_frame_bf16_i8(const QttsFrameLaunch& f, cudaStream_t st) {
+  if (f.a.tw.unit_type != QTTS_UNIT_BF16 || f.a.mw.unit_type != QTTS_UNIT_INT8) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return qtts_launch_frame_caches<int8_t, __nv_bfloat16>(f, st);
+}
+#endif
+
+#if QTTS_FRAME_HAS(0)
 
 namespace {
-
-constexpr int kCode0Vpt = 12;  // code0's logits per thread: Vc <= 3072
-
-__device__ __forceinline__ float load_in(const void* p, int bf16, int k) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[k])
-              : static_cast<const float*>(p)[k];
-}
-
-// ---------------------------------------------------------------------------
-// The persistent frame (K7)
-// ---------------------------------------------------------------------------
-
-// The frame's one argument (travels by value).
-struct FrameLaunch {
-  QttsFrameArgs a;
-  QttsPlan p;
-};
-
-// CT: the chain's cache type; TCT: the talker's (int8_t: an int8 talker
-// cache with its scales, beside a bf16 chain cache).
-template <typename CT, typename TCT = CT>
-__global__ void __launch_bounds__(QTTS_P_THREADS, 1)
-frame_kernel(const __grid_constant__ FrameLaunch f) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ QttsSeq seq;
-  QttsRing ring;
-  const QttsFrameArgs& a = f.a;
-  const QttsChainArgs& c = a.mc;
-  const int H = a.tw.H, tid = threadIdx.x;
-  // set 0: the MTP trunk and its n heads in chain order; set 1: the talker
-  // step and its lm_head
-  const QttsSetSpec sets[QTTS_SETS] = {{&a.mw, c.heads, c.head_scales, c.n, c.V, 1},
-                                       {&a.tw, a.lm, a.lm_scale, 1, a.Vc, 0}};
-  qtts_ring_start(ring, seq, smem, f.p, sets);
-  int stage = 0;
-  // code0 on block 0 while the chain's first stages load: the gated logits
-  // drawn by the register sampler on the whole Vc row, then its codec row;
-  // every block copies its share of last_hidden into the chain's float32
-  // first input
-  if (blockIdx.x == 0) {
-    const int c0 = qtts_sample_regs<kCode0Vpt>(
-        [&](int v) {
-          const float add = (v == a.eos && a.forbid_eos) ? QTTS_NEG_INF : 0.f;
-          return __fadd_rn(__fadd_rn(a.last_logits[v], a.suppress[v]), add);
-        },
-        a.Vc, a.g0, c.temperature, c.top_k, c.top_p, c.greedy,
-        *reinterpret_cast<QttsSampleSmem*>(smem), &f.p);
-    if (tid == 0) a.codes[0] = c0;
-    for (int k = tid; k < H; k += blockDim.x) {
-      a.c0e[k] = __bfloat162float(a.codec[(size_t)c0 * H + k]);
-    }
-  }
-  for (int k = blockIdx.x * blockDim.x + tid; k < H; k += gridDim.x * blockDim.x) {
-    a.lh[k] = load_in(a.last_hidden, a.lh_bf16, k);
-  }
-  qtts_phase_barrier(f.p);
-  // the chain; after its last gather block 0 forms the next talker input
-  // c0e + sub_sum + drip in float32 (each thread wrote its c0e[k] above and
-  // its sub_sum[k] just before); a grid barrier (the talker's first layer
-  // reads x), then the talker step on set 1 as the chain's tail
-  const QttsStepTail<TCT> talker{&a.tw, &a.ts, 1, a.x, static_cast<TCT*>(a.k_cache),
-                                 static_cast<TCT*>(a.v_cache), a.k_scale, a.v_scale, a.T, a.pos};
-  qtts_chain_phases<CT>(a.mw, a.ms, f.p, ring, seq, 0, stage, c, smem, [&] {
-    for (int k = tid; k < H; k += blockDim.x) {
-      a.x[k] = __fadd_rn(__fadd_rn(a.c0e[k], c.sub_sum[k]), load_in(a.drip, a.drip_bf16, k));
-    }
-  }, &talker);
-  // final norm + lm_head: one more ring GEMV, block 0 writing the float32
-  // normed values (before the bf16 rounding) as hidden
-  qtts_prologue<QTTS_IN_NORM>(a.x, a.talker_norm, a.tw.eps, H, reinterpret_cast<float*>(smem),
-                              blockIdx.x == 0 ? a.hidden : nullptr);
-  qtts_ring_gemv<false>(f.p, ring, seq, QTTS_KINDS + QTTS_KIND_HEAD, stage,
-                        reinterpret_cast<float*>(smem), a.logits);
-  qtts_trace_end(f.p);
-}
 
 // ---------------------------------------------------------------------------
 // The launch-per-op frame K7 ran before it was persistent
@@ -296,8 +245,14 @@ bool step_ok(const QttsStepWeights& w, const QttsStepScratch& s, int T, int pos)
          pos / QTTS_ATTN_CHUNK + 1 <= s.max_splits;
 }
 
+// The frame's scalar constraints; the units: a talker of int8, int4 or bf16
+// units beside an int8 or int4 trunk, its heads and lm_head bf16 exactly
+// where the talker is (the JAX gate refuses bf16 trunks).
 bool frame_ok(const QttsFrameArgs& a) {
   const QttsChainArgs& c = a.mc;
+  const bool units = a.tw.unit_type >= QTTS_UNIT_INT8 && a.tw.unit_type <= QTTS_UNIT_INT4 &&
+                     (a.mw.unit_type == QTTS_UNIT_INT8 || a.mw.unit_type == QTTS_UNIT_INT4) &&
+                     c.heads_bf16 == (a.tw.unit_type == QTTS_UNIT_BF16);
   // the talker cache: the chain's dtype, or int8 with its scales beside a
   // bf16 chain cache on JAX's buckets (128-aligned; beyond 512 slots
   // 512-aligned)
@@ -305,10 +260,7 @@ bool frame_ok(const QttsFrameArgs& a) {
   const bool caches = i8 ? a.v_scale != nullptr && c.cache_bf16 && !a.cache_bf16 &&
                                a.T % 128 == 0 && (a.T <= 512 || a.T % 512 == 0)
                          : a.v_scale == nullptr && c.cache_bf16 == a.cache_bf16;
-  // int8 units and heads only (bf16 units and the bf16-talker + int8-MTP
-  // mix: ROADMAP K1v-b / K2v)
-  return !a.tw.unit_type && !a.mw.unit_type && !c.heads_bf16 &&
-         step_ok(a.tw, a.ts, a.T, a.pos) && step_ok(a.mw, a.ms, c.n + 2, c.n) &&
+  return units && step_ok(a.tw, a.ts, a.T, a.pos) && step_ok(a.mw, a.ms, c.n + 2, c.n) &&
          a.mw.H == a.tw.H && c.n >= 1 && c.V <= c.Vt && a.Vc >= 1 && caches;
 }
 
@@ -360,23 +312,30 @@ extern "C" {
 int qtts_frame_step(const QttsFrameArgs* a, const QttsPlan* p, void* stream) {
   if (!frame_ok(*a) || a->Vc > QTTS_P_THREADS * kCode0Vpt ||
       a->mc.V > QTTS_P_THREADS * QTTS_SAMPLE_VPT ||
-      !qtts_plan_ok(*p, a->mw, a->mc.V, 0, &a->tw, a->Vc)) {
+      !qtts_plan_ok(*p, a->mw, a->mc.V, 0, &a->tw, a->Vc, a->mc.heads_bf16 ? 2 : 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const FrameLaunch f{*a, *p};
+  const QttsFrameLaunch f{*a, *p};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->k_scale != nullptr) {
-    return qtts_launch_persistent(frame_kernel<__nv_bfloat16, int8_t>, f, *p, st);
+  const bool m4 = a->mw.unit_type == QTTS_UNIT_INT4;
+  switch (a->tw.unit_type) {
+    case QTTS_UNIT_INT4:
+      return m4 ? qtts_launch_frame_i4_i4(f, st) : qtts_launch_frame_i4_i8(f, st);
+    case QTTS_UNIT_BF16:
+      return m4 ? qtts_launch_frame_bf16_i4(f, st) : qtts_launch_frame_bf16_i8(f, st);
+    default:
+      return m4 ? qtts_launch_frame_i8_i4(f, st) : qtts_launch_frame_caches<int8_t, int8_t>(f, st);
   }
-  return a->cache_bf16 ? qtts_launch_persistent(frame_kernel<__nv_bfloat16>, f, *p, st)
-                       : qtts_launch_persistent(frame_kernel<float>, f, *p, st);
 }
 
 // The launch-per-op frame kernel K7 ran before it was persistent: the
 // reference chip_smoke.py holds the persistent frame to, bit for bit; no
 // wrapper calls it.
 int qtts_frame_step_multi(const QttsFrameArgs* a, void* stream) {
-  if (!frame_ok(*a) || a->k_scale != nullptr) return (int)cudaErrorInvalidValue;
+  if (!frame_ok(*a) || a->k_scale != nullptr || a->tw.unit_type != QTTS_UNIT_INT8 ||
+      a->mw.unit_type != QTTS_UNIT_INT8) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return a->cache_bf16 ? launch_frame_multi<__nv_bfloat16>(*a, st)
                        : launch_frame_multi<float>(*a, st);
@@ -386,3 +345,5 @@ int qtts_frame_step_multi(const QttsFrameArgs* a, void* stream) {
 int qtts_frame_args_size() { return (int)sizeof(QttsFrameArgs); }
 
 }  // extern "C"
+
+#endif  // QTTS_FRAME_HAS(0)

@@ -35,16 +35,18 @@
 // products, which at int8 already run far below the bytes' bound.  The card
 // measured, its power limit and the times against the bound are in PERF.md.
 
-#include "qtts_stream.cuh"
+#include "qtts_frame.cuh"
 
-// The build compiles this source as five objects, part QTTS_INT4_PART
+// The build compiles this source as nine objects, part QTTS_PART
 // instantiating its share of the kernels (ops/_build.py PARTS): 0 the B=1
 // step, 1 the B=1 chains, 2 the batched step, 3 the verify pass, 4 the
-// batched chain.  Unset, every part.
-#ifndef QTTS_INT4_PART
-#define QTTS_INT4_PART -1
+// batched chain, 5-8 the frame K7 at its four unit mixes with int4 units
+// (talker / trunk: int4 / int4, int8 / int4, int4 / int8, bf16 / int4).
+// Unset, every part.
+#ifndef QTTS_PART
+#define QTTS_PART -1
 #endif
-#define QTTS_INT4_HAS(part) (QTTS_INT4_PART < 0 || QTTS_INT4_PART == (part))
+#define QTTS_INT4_HAS(part) (QTTS_PART < 0 || QTTS_PART == (part))
 
 // Nibble e (0..7) of `word` as a signed int4, as float: the nibble biased by
 // 8 forms the low mantissa bits of 2^23 (the float 8388608 + u, exact),
@@ -240,5 +242,45 @@ int qtts_launch_bchain_int4(const QttsBChainLaunch& a, cudaStream_t st) {
   if (a.w.unit_type != QTTS_UNIT_INT4) return (int)cudaErrorInvalidValue;
   return a.c.heads_bf16 ? qtts_launch_bchain_cache<QttsInt4, __nv_bfloat16>(a, st)
                         : qtts_launch_bchain_cache<QttsInt4, int8_t>(a, st);
+}
+#endif
+
+// K7 at the mixes with int4 units (qtts_frame.cuh): each phase on the stage
+// unit of its weight set's type, the heads and lm_head int8 beside an int8 or
+// int4 talker and bf16 beside a bf16 one, each on a float32, bf16 or int8
+// talker cache.
+#if QTTS_INT4_HAS(5)
+int qtts_launch_frame_i4_i4(const QttsFrameLaunch& f, cudaStream_t st) {
+  if (f.a.tw.unit_type != QTTS_UNIT_INT4 || f.a.mw.unit_type != QTTS_UNIT_INT4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return qtts_launch_frame_caches<QttsInt4, QttsInt4>(f, st);
+}
+#endif
+
+#if QTTS_INT4_HAS(6)
+int qtts_launch_frame_i8_i4(const QttsFrameLaunch& f, cudaStream_t st) {
+  if (f.a.tw.unit_type != QTTS_UNIT_INT8 || f.a.mw.unit_type != QTTS_UNIT_INT4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return qtts_launch_frame_caches<QttsInt4, int8_t>(f, st);
+}
+#endif
+
+#if QTTS_INT4_HAS(7)
+int qtts_launch_frame_i4_i8(const QttsFrameLaunch& f, cudaStream_t st) {
+  if (f.a.tw.unit_type != QTTS_UNIT_INT4 || f.a.mw.unit_type != QTTS_UNIT_INT8) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return qtts_launch_frame_caches<int8_t, QttsInt4>(f, st);
+}
+#endif
+
+#if QTTS_INT4_HAS(8)
+int qtts_launch_frame_bf16_i4(const QttsFrameLaunch& f, cudaStream_t st) {
+  if (f.a.tw.unit_type != QTTS_UNIT_BF16 || f.a.mw.unit_type != QTTS_UNIT_INT4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return qtts_launch_frame_caches<QttsInt4, __nv_bfloat16>(f, st);
 }
 #endif

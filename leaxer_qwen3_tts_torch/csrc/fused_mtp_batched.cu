@@ -35,7 +35,30 @@
 // What the design leaves: ~510 grid barriers per chain, the trunk streamed
 // from device memory every pass, and the sampler on one block per row.
 
+// The build compiles this source as two objects (ops/_build.py PARTS): part
+// 1 the batched chain with bf16 heads (beside an int8 trunk, and the bf16
+// trunk's), part 0 everything else.  Unset, both.
+#ifndef QTTS_PART
+#define QTTS_PART -1
+#endif
+#define QTTS_HAS_PART(part) (QTTS_PART < 0 || QTTS_PART == (part))
+
 #include "qtts_stream.cuh"
+
+#if QTTS_HAS_PART(1)
+int qtts_launch_bchain_bf16_heads(const QttsBChainLaunch& l, cudaStream_t st) {
+  if (!l.c.heads_bf16) return (int)cudaErrorInvalidValue;
+  switch (l.w.unit_type) {
+    case QTTS_UNIT_BF16:
+      return qtts_launch_persistent(bchain_kernel<float, __nv_bfloat16, __nv_bfloat16>, l, l.p,
+                                    st);
+    case QTTS_UNIT_INT8: return qtts_launch_bchain_cache<int8_t, __nv_bfloat16>(l, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
+
+#if QTTS_HAS_PART(0)
 
 namespace {
 
@@ -101,12 +124,8 @@ int qtts_mtp_chain_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
   const QttsBChainLaunch launch{*w, *s, *p, *a};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w->unit_type == QTTS_UNIT_INT4) return qtts_launch_bchain_int4(launch, st);
-  if (bf16_trunk) {
-    return qtts_launch_persistent(bchain_kernel<float, __nv_bfloat16, __nv_bfloat16>, launch, *p,
-                                  st);
-  }
-  return a->heads_bf16 ? qtts_launch_bchain_cache<int8_t, __nv_bfloat16>(launch, st)
-                       : qtts_launch_bchain_cache<int8_t, int8_t>(launch, st);
+  if (a->heads_bf16) return qtts_launch_bchain_bf16_heads(launch, st);  // a bf16 trunk's too
+  return qtts_launch_bchain_cache<int8_t, int8_t>(launch, st);
 }
 
 // The launch-per-op chain K5 ran before it was persistent: K4's layer
@@ -167,3 +186,5 @@ int qtts_mtp_chain_batched_multi(const QttsStepWeights* w, const QttsBatchScratc
 }
 
 }  // extern "C"
+
+#endif  // QTTS_HAS_PART(0)

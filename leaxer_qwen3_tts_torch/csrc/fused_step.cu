@@ -62,10 +62,12 @@ gemv_i8_kernel(const float* __restrict__ in, const float* __restrict__ norm_w, f
   qtts_gemv_i8_body<IN_MODE, ACCUM>(in, norm_w, eps, W, scale, out, N, K, blockIdx.x, sh);
 }
 
-// The normed GEMV with the float32 normed input written out (raw, by block 0).
+// The normed GEMV with the float32 normed input written out (raw, by block 0);
+// WT: int8 or bf16 rows.
+template <typename WT>
 __global__ void __launch_bounds__(QTTS_GEMV_THREADS)
 gemv_norm_raw_kernel(const float* __restrict__ in, const float* __restrict__ norm_w, float eps,
-                     const int8_t* __restrict__ W, const float* __restrict__ scale,
+                     const WT* __restrict__ W, const float* __restrict__ scale,
                      float* __restrict__ out, int N, int K, float* __restrict__ raw) {
   extern __shared__ float sh[];
   qtts_gemv_i8_body<QTTS_IN_NORM, false>(in, norm_w, eps, W, scale, out, N, K, blockIdx.x, sh,
@@ -199,17 +201,24 @@ void qtts_persistent_sizes(int* out) {
   out[9] = (int)sizeof(QttsPlan);
 }
 
-// The final norm and an int8 head on K1's GEMV: hidden = RMSNorm(x) * norm_w
-// (float32) and out[n] = scale[n] * bf16(hidden) . W[n] for n < N.  Kernel
-// K7's epilogue runs the same body; chip_smoke.py composes K2, K1 and this
-// launch to hold K7 to them bit for bit.
-int qtts_norm_head(const float* x, const float* norm_w, float eps, const int8_t* W,
-                   const float* scale, float* hidden, float* out, int N, int K, void* stream) {
+// The final norm and an int8 or bf16 (w_bf16) head on K1's GEMV: hidden =
+// RMSNorm(x) * norm_w (float32) and out[n] = scale[n] * bf16(hidden) . W[n]
+// for n < N.  Kernel K7's epilogue runs the same body; chip_smoke.py
+// composes K2, K1 and this launch to hold K7 to them bit for bit.
+int qtts_norm_head(const float* x, const float* norm_w, float eps, const void* W,
+                   const float* scale, float* hidden, float* out, int N, int K, int w_bf16,
+                   void* stream) {
   const size_t smem = (size_t)K * sizeof(float);
   if (K % 16 != 0 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int grid = (N + QTTS_GEMV_ROWS - 1) / QTTS_GEMV_ROWS;
-  gemv_norm_raw_kernel<<<grid, QTTS_GEMV_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, norm_w, eps, W, scale, out, N, K, hidden);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w_bf16) {
+    gemv_norm_raw_kernel<__nv_bfloat16><<<grid, QTTS_GEMV_THREADS, smem, st>>>(
+        x, norm_w, eps, static_cast<const __nv_bfloat16*>(W), scale, out, N, K, hidden);
+  } else {
+    gemv_norm_raw_kernel<int8_t><<<grid, QTTS_GEMV_THREADS, smem, st>>>(
+        x, norm_w, eps, static_cast<const int8_t*>(W), scale, out, N, K, hidden);
+  }
   return (int)cudaGetLastError();
 }
 

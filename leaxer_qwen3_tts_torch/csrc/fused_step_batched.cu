@@ -54,8 +54,23 @@
 // and for K6's GEMV): a row kernel turns the GEMV input into bf16 once per
 // row, and the batched GEMV stages it in shared memory 512 columns at a time.
 
+// The build compiles this source as two objects (ops/_build.py PARTS): part
+// 1 the batched step at bf16 units, part 0 everything else.  Unset, both.
+#ifndef QTTS_PART
+#define QTTS_PART -1
+#endif
+#define QTTS_HAS_PART(part) (QTTS_PART < 0 || QTTS_PART == (part))
+
 #include "qtts_stream.cuh"
 
+#if QTTS_HAS_PART(1)
+int qtts_launch_bstep_bf16(const QttsBStepLaunch& a, int cache, cudaStream_t st) {
+  if (a.w.unit_type != QTTS_UNIT_BF16) return (int)cudaErrorInvalidValue;
+  return qtts_launch_bstep_cache<__nv_bfloat16>(a, cache, st);
+}
+#endif
+
+#if QTTS_HAS_PART(0)
 namespace {
 
 constexpr int QTTS_BGEMV_KT = 512;  // input columns staged per tile: 32 lanes x 16
@@ -253,11 +268,16 @@ extern "C" {
 // Kernel K4 entry: x_out [B, H] = decode_step(x_in) with the caches updated in
 // place; pos_dev [B] int64 on the device, or null for every row at pos_host.
 // One cooperative launch on the plan's grid; int8, bf16 or int4 units
-// (w->unit_type), each with a float32, bf16 or int8 cache.
+// (w->unit_type), each with a float32, bf16 or int8 cache.  The caches (and
+// an int8 cache's scales) are [L, cache_rows, nk, T, D], of which the launch
+// takes rows row0 .. row0 + B - 1: a call past QTTS_MAX_BATCH rows is split
+// into launches of consecutive rows (ops/fused_step.py), each launch's row b
+// on cache row row0 + b.
 int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s,
                              const QttsPlan* p, const float* x_in, float* x_out, void* k_cache,
                              void* v_cache, float* k_scale, float* v_scale, int cache_bf16, int B,
-                             int T, const int64_t* pos_dev, int pos_host, void* stream) {
+                             int T, const int64_t* pos_dev, int pos_host, int cache_rows,
+                             int row0, void* stream) {
   const bool i8 = k_scale != nullptr;
   const int qd = w->nq * w->D;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
@@ -267,16 +287,25 @@ int qtts_decode_step_batched(const QttsStepWeights* w, const QttsBatchScratch* s
       w->H % 16 != 0 || qd % 16 != 0 || w->I % 16 != 0 || B < 1 || B > QTTS_MAX_BATCH ||
       T < 1 || (pos_dev == nullptr && (pos_host < 0 || pos_host >= T)) ||
       n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, B) ||
-      i8 != (v_scale != nullptr) || (i8 && (cache_bf16 || T % 128 != 0))) {
+      i8 != (v_scale != nullptr) || (i8 && (cache_bf16 || T % 128 != 0)) || row0 < 0 ||
+      row0 + B > cache_rows) {
     return (int)cudaErrorInvalidValue;
   }
-  const QttsBStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev,
-                          B, T, pos_host};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cache = i8 ? 2 : cache_bf16 ? 1 : 0;
+  // the launch's first cache row: row0 rows of layer 0 in (the layers' stride
+  // stays cache_rows rows)
+  const size_t first = (size_t)row0 * w->nk * T;
+  const size_t esize = cache == 2 ? 1 : cache == 1 ? 2 : 4;
+  void* kc = static_cast<char*>(k_cache) + first * w->D * esize;
+  void* vc = static_cast<char*>(v_cache) + first * w->D * esize;
+  float* ks = i8 ? k_scale + first : nullptr;
+  float* vs = i8 ? v_scale + first : nullptr;
+  const QttsBStepLaunch a{*w, *s, *p, x_in, x_out, kc, vc, ks, vs, pos_dev, B, T, pos_host,
+                          cache_rows};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (w->unit_type) {
     case QTTS_UNIT_INT4: return qtts_launch_bstep_int4(a, cache, st);
-    case QTTS_UNIT_BF16: return qtts_launch_bstep_cache<__nv_bfloat16>(a, cache, st);
+    case QTTS_UNIT_BF16: return qtts_launch_bstep_bf16(a, cache, st);
     default: return qtts_launch_bstep_cache<int8_t>(a, cache, st);
   }
 }
@@ -294,3 +323,5 @@ int qtts_decode_step_batched_multi(const QttsStepWeights* w, const QttsBatchScra
 }
 
 }  // extern "C"
+
+#endif  // QTTS_HAS_PART(0)

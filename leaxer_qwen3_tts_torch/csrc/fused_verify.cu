@@ -58,8 +58,23 @@
 // K1 / K4 steps it stands for bit for bit.  The launch-per-op pass takes no
 // int8 cache.
 
+// The build compiles this source as two objects (ops/_build.py PARTS): part
+// 1 the verify pass at bf16 units, part 0 everything else.  Unset, both.
+#ifndef QTTS_PART
+#define QTTS_PART -1
+#endif
+#define QTTS_HAS_PART(part) (QTTS_PART < 0 || QTTS_PART == (part))
+
 #include "qtts_stream.cuh"
 
+#if QTTS_HAS_PART(1)
+int qtts_launch_vstep_bf16(const QttsVStepLaunch& a, int cache, cudaStream_t st) {
+  if (a.w.unit_type != QTTS_UNIT_BF16) return (int)cudaErrorInvalidValue;
+  return qtts_launch_vstep_cache<__nv_bfloat16>(a, cache, st);
+}
+#endif
+
+#if QTTS_HAS_PART(0)
 namespace {
 
 int launch_verify_step(const QttsStepWeights& w, const QttsBatchScratch& s, const float* x_in,
@@ -117,13 +132,18 @@ int launch_verify_step(const QttsStepWeights& w, const QttsBatchScratch& s, cons
 extern "C" {
 
 // Kernel K6 entry: x_out [B * S, H] (row b * S + s) = the verify pass of
-// x_in with the caches [L, B, nk, T, D] updated in place; pos_dev [B] int64
-// starts on the device, or null for every stream at pos_host.  One
-// cooperative launch on the plan's grid (a plan of B * S rows).
+// x_in with the caches updated in place; pos_dev [B] int64 starts on the
+// device, or null for every stream at pos_host.  One cooperative launch on
+// the plan's grid (a plan of B * S rows).  The caches (and an int8 cache's
+// scales) are [L, cache_rows, nk, T, D], of which the launch takes streams
+// row0 .. row0 + B - 1: a call past QTTS_MAX_BATCH rows is split into
+// launches of whole streams (ops/fused_verify.py), stream b's candidates on
+// cache row row0 + b.
 int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const QttsPlan* p,
                      const float* x_in, float* x_out, void* k_cache, void* v_cache,
                      float* k_scale, float* v_scale, int cache_bf16, int B, int S, int T,
-                     const int64_t* pos_dev, int pos_host, void* stream) {
+                     const int64_t* pos_dev, int pos_host, int cache_rows, int row0,
+                     void* stream) {
   const int R = B * S, qd = w->nq * w->D;
   const bool i8 = k_scale != nullptr;
   const int n_splits = pos_dev ? (T + QTTS_ATTN_CHUNK - 1) / QTTS_ATTN_CHUNK
@@ -135,16 +155,25 @@ int qtts_verify_step(const QttsStepWeights* w, const QttsBatchScratch* s, const 
       R > QTTS_MAX_BATCH || T < S || (pos_dev == nullptr && (pos_host < 0 || pos_host > T - S)) ||
       n_splits > s->max_splits || x_in == x_out || !qtts_plan_ok(*p, *w, 0, R) ||
       i8 != (v_scale != nullptr) ||
-      (i8 && (cache_bf16 || T % 128 != 0 || (T > 512 && T % 512 != 0)))) {
+      (i8 && (cache_bf16 || T % 128 != 0 || (T > 512 && T % 512 != 0))) || row0 < 0 ||
+      row0 + B > cache_rows) {
     return (int)cudaErrorInvalidValue;
   }
-  const QttsVStepLaunch a{*w, *s, *p, x_in, x_out, k_cache, v_cache, k_scale, v_scale, pos_dev,
-                          B, S, T, pos_host};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cache = i8 ? 2 : cache_bf16 ? 1 : 0;
+  // the launch's first stream: row0 cache rows of layer 0 in (the layers'
+  // stride stays cache_rows rows)
+  const size_t first = (size_t)row0 * w->nk * T;
+  const size_t esize = cache == 2 ? 1 : cache == 1 ? 2 : 4;
+  void* kc = static_cast<char*>(k_cache) + first * w->D * esize;
+  void* vc = static_cast<char*>(v_cache) + first * w->D * esize;
+  float* ks = i8 ? k_scale + first : nullptr;
+  float* vs = i8 ? v_scale + first : nullptr;
+  const QttsVStepLaunch a{*w, *s, *p, x_in, x_out, kc, vc, ks, vs, pos_dev, B, S, T, pos_host,
+                          cache_rows};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (w->unit_type) {
     case QTTS_UNIT_INT4: return qtts_launch_vstep_int4(a, cache, st);
-    case QTTS_UNIT_BF16: return qtts_launch_vstep_cache<__nv_bfloat16>(a, cache, st);
+    case QTTS_UNIT_BF16: return qtts_launch_vstep_bf16(a, cache, st);
     default: return qtts_launch_vstep_cache<int8_t>(a, cache, st);
   }
 }
@@ -163,3 +192,5 @@ int qtts_verify_step_multi(const QttsStepWeights* w, const QttsBatchScratch* s, 
 }
 
 }  // extern "C"
+
+#endif  // QTTS_HAS_PART(0)

@@ -367,8 +367,11 @@ constexpr int QTTS_GEMV_ROWS = (QTTS_GEMV_THREADS / 32) * QTTS_GEMV_RPW;
 // Dot products of QTTS_GEMV_RPW rows [n0, n0 + RPW) of W [N, K] int8 with the
 // shared input; each lane streams 16-byte chunks.  Returns the float32 dots
 // (before the column scale) valid on every lane.
+// WT: int8 rows, or bf16 rows (a lane's 16 columns as two 16-byte loads, in
+// the same FMA order: both convert exactly to float).
+template <typename WT = int8_t>
 static __device__ __forceinline__ void qtts_gemv_rows(
-    const int8_t* __restrict__ W, const float* sh, int N, int K, int n0,
+    const WT* __restrict__ W, const float* sh, int N, int K, int n0,
     float (&acc)[QTTS_GEMV_RPW]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -386,7 +389,19 @@ static __device__ __forceinline__ void qtts_gemv_rows(
 #pragma unroll
     for (int r = 0; r < QTTS_GEMV_RPW; ++r) {
       const int n = n0 + r;
-      if (n < N) {
+      if (n >= N) continue;
+      if constexpr (sizeof(WT) == 2) {
+        const int4* wp = reinterpret_cast<const int4*>(W + (size_t)n * K + k0);
+        const int4 lo = __ldg(wp), hi = __ldg(wp + 1);
+        const uint32_t words[8] = {(uint32_t)lo.x, (uint32_t)lo.y, (uint32_t)lo.z, (uint32_t)lo.w,
+                                   (uint32_t)hi.x, (uint32_t)hi.y, (uint32_t)hi.z, (uint32_t)hi.w};
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const uint32_t w = words[e >> 1];
+          const float wf = __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+          acc[r] = fmaf(hv[e], wf, acc[r]);
+        }
+      } else {
         const int4 wv = __ldg(reinterpret_cast<const int4*>(W + (size_t)n * K + k0));
         const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z,
                                    (uint32_t)wv.w};
@@ -411,11 +426,12 @@ static __device__ __forceinline__ void qtts_gemv_rows(
 // for the input transform IN_MODE (see qtts_gemv_prologue); ACCUM adds into
 // out (the residual).  sh: K floats of shared memory; raw: see
 // qtts_gemv_prologue (written by group 0).  K1's GEMV kernel is this body at
-// group = blockIdx.x; K7 walks the groups in a persistent block.
-template <int IN_MODE, bool ACCUM>
+// group = blockIdx.x; K7 walks the groups in a persistent block.  WT: int8
+// rows, or bf16 rows (the composition's bf16 lm_head, chip_smoke.py).
+template <int IN_MODE, bool ACCUM, typename WT = int8_t>
 static __device__ __forceinline__ void qtts_gemv_i8_body(
     const float* in, const float* __restrict__ norm_w, float eps,
-    const int8_t* __restrict__ W, const float* __restrict__ scale, float* out, int N, int K,
+    const WT* __restrict__ W, const float* __restrict__ scale, float* out, int N, int K,
     int group, float* sh, float* raw = nullptr) {
   qtts_gemv_prologue<IN_MODE>(in, norm_w, eps, K, sh, group == 0 ? raw : nullptr);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

@@ -1553,12 +1553,13 @@ struct QttsStepTail {
 // runs at the one call site of qtts_step_phases: inlined once, the step's
 // phases keep their registers (a step called from several sites is an
 // out-of-line function, which spilled in its GEMV and attention loops).
-// WT: the unit type of w and a tail's talker.  TCT: the tail's cache type;
-// where it is not the chain's (the frame's int8 talker cache beside a bf16
-// chain cache) the tail's step has a call site of its own.  HT: the heads'
-// unit type (int8 or bf16), the trunk's unless given.
+// WT: the unit type of w.  TCT and TWT: the tail's cache and unit types;
+// where either is not the chain's (the frame's int8 talker cache beside a
+// bf16 chain cache; a talker of another unit type than the trunk) the
+// tail's step has a call site of its own.  HT: the heads' unit type (int8
+// or bf16), the trunk's unless given.
 template <typename CT, typename WT = int8_t, typename TCT = CT, typename HT = WT,
-          typename Last>
+          typename TWT = WT, typename Last>
 static __device__ __forceinline__ void qtts_chain_phases(
     const QttsStepWeights& w, const QttsStepScratch& s, const QttsPlan& p, const QttsRing& ring,
     QttsSeq& q, int set, int& stage, const QttsChainArgs& c, unsigned char* un, Last last,
@@ -1569,7 +1570,7 @@ static __device__ __forceinline__ void qtts_chain_phases(
   for (int pass = 0; pass < passes; ++pass) {
     const bool talker = pass == n + 1;
     const float* in = pass == 0 ? c.last_hidden : pass == 1 ? c.code0_embed : c.x_in;
-    if constexpr (std::is_same<CT, TCT>::value) {
+    if constexpr (std::is_same<CT, TCT>::value && std::is_same<WT, TWT>::value) {
       qtts_step_phases<CT, WT>(talker ? *tail->w : w, talker ? *tail->s : s, p, ring, q,
                            talker ? tail->set : set, stage, talker ? tail->x : in,
                            talker ? tail->x : c.x,
@@ -1577,9 +1578,9 @@ static __device__ __forceinline__ void qtts_chain_phases(
                            talker ? tail->vc : static_cast<CT*>(c.v_cache),
                            talker ? tail->T : n + 2, talker ? tail->pos : pass, un, true);
     } else if (talker) {
-      qtts_step_phases<TCT, WT>(*tail->w, *tail->s, p, ring, q, tail->set, stage, tail->x,
-                                tail->x, tail->kc, tail->vc, tail->T, tail->pos, un, true,
-                                tail->ks, tail->vs);
+      qtts_step_phases<TCT, TWT>(*tail->w, *tail->s, p, ring, q, tail->set, stage, tail->x,
+                                 tail->x, tail->kc, tail->vc, tail->T, tail->pos, un, true,
+                                 tail->ks, tail->vs);
     } else {
       qtts_step_phases<CT, WT>(w, s, p, ring, q, set, stage, in, c.x,
                                static_cast<CT*>(c.k_cache), static_cast<CT*>(c.v_cache), n + 2,
@@ -1991,13 +1992,18 @@ static __device__ __forceinline__ bool qtts_bitem(int it, int B, int nk, QttsBIt
 // grid barriers per layer.  K4 is this map at S = 1.  WT: w's unit type.
 // ks, vs: an int8 cache's [L, B / S, nk, T] scales (CT = int8_t), which the
 // slot-write phase and the items update in place with the cache.
+// cache_rows: the rows of the caches' layers (the layer stride) where the
+// launch takes a slice of them (a call past QTTS_MAX_BATCH rows split into
+// launches: kc, vc, ks and vs then point at the launch's first cache row);
+// 0: B / S, the whole cache.
 template <typename CT, bool VERIFY = false, typename WT = int8_t>
 static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBatchScratch& s,
                                          const QttsPlan& p, const QttsRing& ring, QttsSeq& q,
                                          int& stage, const float* x_in, float* x, CT* kc, CT* vc,
                                          int B, int T, const int64_t* pos_dev, int pos_host,
                                          unsigned char* un, bool last_barrier, int S_arg = 1,
-                                         float* ks = nullptr, float* vs = nullptr) {
+                                         float* ks = nullptr, float* vs = nullptr,
+                                         int cache_rows = 0) {
   const int S = VERIFY ? S_arg : 1;  // K4 and K5: the candidates' map folds away
   const int H = w.H, I = w.I, D = w.D, nq = w.nq, nk = w.nk;
   const int qd = nq * D, A = qd + 2 * nk * D;
@@ -2020,11 +2026,12 @@ static __device__ void qtts_bstep_phases(const QttsStepWeights& w, const QttsBat
   qtts_group_rows(p, gb0, nb);
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(un);
   QttsAttnSmem* am = reinterpret_cast<QttsAttnSmem*>(un);
+  const size_t layer_rows = cache_rows > 0 ? (size_t)cache_rows : (size_t)(B / S);
   for (int l = 0; l < w.L; ++l) {
-    CT* kl = kc + (size_t)l * (B / S) * cache_row;
-    CT* vl = vc + (size_t)l * (B / S) * cache_row;
-    float* ksl = qtts_int8_cache<CT> ? ks + (size_t)l * (B / S) * scale_row : nullptr;
-    float* vsl = qtts_int8_cache<CT> ? vs + (size_t)l * (B / S) * scale_row : nullptr;
+    CT* kl = kc + (size_t)l * layer_rows * cache_row;
+    CT* vl = vc + (size_t)l * layer_rows * cache_row;
+    float* ksl = qtts_int8_cache<CT> ? ks + (size_t)l * layer_rows * scale_row : nullptr;
+    float* vsl = qtts_int8_cache<CT> ? vs + (size_t)l * layer_rows * scale_row : nullptr;
     // row b's scales (null on a bf16 or float32 cache)
     auto srow = [&](float* base, int b) {
       return qtts_int8_cache<CT> ? base + (size_t)(b / S) * scale_row : nullptr;
@@ -2280,6 +2287,7 @@ struct QttsBStepLaunch {
   float* v_scale;
   const int64_t* pos_dev;
   int32_t B, T, pos_host;
+  int32_t cache_rows;  // the caches' rows per layer (k_cache at the launch's first row)
 };
 
 // The persistent verify pass's one argument (K6; travels by value).
@@ -2295,6 +2303,7 @@ struct QttsVStepLaunch {
   float* v_scale;
   const int64_t* pos_dev;
   int32_t B, S, T, pos_host;
+  int32_t cache_rows;  // the caches' streams per layer (k_cache at the launch's first stream)
 };
 
 // The persistent batched chain's one argument (K5; travels by value).
@@ -2367,7 +2376,7 @@ bstep_kernel(const __grid_constant__ QttsBStepLaunch a) {
   qtts_bstep_phases<CT, false, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
                                    static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache), a.B,
                                    a.T, a.pos_dev, a.pos_host, qtts_ring_smem, false, 1,
-                                   a.k_scale, a.v_scale);
+                                   a.k_scale, a.v_scale, a.cache_rows);
   qtts_trace_end(a.p);
 }
 
@@ -2395,7 +2404,7 @@ vstep_kernel(const __grid_constant__ QttsVStepLaunch a) {
   qtts_bstep_phases<CT, true, WT>(a.w, a.s, a.p, ring, seq, stage, a.x_in, a.x,
                                   static_cast<CT*>(a.k_cache), static_cast<CT*>(a.v_cache),
                                   a.B * a.S, a.T, a.pos_dev, a.pos_host, qtts_ring_smem, false,
-                                  a.S, a.k_scale, a.v_scale);
+                                  a.S, a.k_scale, a.v_scale, a.cache_rows);
   qtts_trace_end(a.p);
 }
 
@@ -2486,6 +2495,13 @@ int qtts_launch_chain_int4(const QttsChainLaunch& a, cudaStream_t st);
 int qtts_launch_bstep_int4(const QttsBStepLaunch& a, int cache, cudaStream_t st);
 int qtts_launch_vstep_int4(const QttsVStepLaunch& a, int cache, cudaStream_t st);
 int qtts_launch_bchain_int4(const QttsBChainLaunch& a, cudaStream_t st);
+
+// Part 1 of fused_step_batched.cu, fused_verify.cu and fused_mtp_batched.cu
+// (each source two objects of the parallel build): K4 and K6 at bf16 units,
+// K5 with bf16 heads (beside an int8 trunk, and the bf16 trunk's).
+int qtts_launch_bstep_bf16(const QttsBStepLaunch& a, int cache, cudaStream_t st);
+int qtts_launch_vstep_bf16(const QttsVStepLaunch& a, int cache, cudaStream_t st);
+int qtts_launch_bchain_bf16_heads(const QttsBChainLaunch& l, cudaStream_t st);
 
 // The B=1 chain entries of fused_mtp.cu (K2 and its launch-per-op chain),
 // which K3's entries (fused_mtp_stream.cu) run on a float32 cache.

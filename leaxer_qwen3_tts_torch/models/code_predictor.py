@@ -19,7 +19,7 @@ chain of an unquantized talker), else kernel K3
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp_stream.fused_mtp_chain_streamed`,
 float32 KV scratch) when the stream gate passes (the 1.7B trunk) and the
 streamed chain is on (:func:`stream_enabled`: ``QTTS_MTP_STREAM``, else on).
-At B=2..32 it is kernel K5
+At B >= 2 it is kernel K5 (past 32 rows as launches of at most 32)
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_mtp.fused_mtp_chain_batched`),
 which takes every pack, on :func:`resident_pack`'s pack at that batch (the
 int4 ``fused_step_alt`` where the primary fails the gate, JAX's B=32
@@ -50,7 +50,7 @@ from ..ops.fused_mtp import (
 )
 from ..ops.fused_mtp_stream import fused_mtp_chain_streamed, supports_stream
 from ..ops.fused_mtp_tp import fused_mtp_chain_tp
-from ..ops.fused_step import MAX_BATCH, pack_fused_weights, supports
+from ..ops.fused_step import pack_fused_weights, supports
 from ..ops.quant import QuantizedLinear, dense
 from ..runtime.sampling import SamplingParams
 from .layers import _normal, init_kv_cache, init_transformer_params, transformer_forward
@@ -144,7 +144,7 @@ def chain_kernel(cfg: CodePredictorConfig, params: dict, rows: int):
     primary pack when the streamed chain is on and it passes the stream
     gate (JAX's ``predict_subcodes``); :func:`chain_pack` says which pack."""
     if not (cfg.impl == "fused" and resident_enabled(cfg) and "fused_step" in params
-            and rows <= MAX_BATCH and cfg.head_mode == "per_step"):
+            and cfg.head_mode == "per_step"):
         return None
     if rows > 1:
         return fused_mtp_chain_batched
@@ -241,7 +241,7 @@ def predict_subcodes(
     if last_hidden.device.type == "cuda":
         raise RuntimeError(
             f"MTP chain at B={B}: the chain kernels take a packed trunk with per-step "
-            f"heads and 1..{MAX_BATCH} rows; the plain path does not run on the card"
+            "heads; the plain path does not run on the card"
         )
 
     n = cfg.num_steps

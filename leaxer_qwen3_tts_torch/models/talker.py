@@ -3,10 +3,11 @@
 Port of ``leaxer_qwen3_tts_tpu/models/talker.py``.  The dispatch keeps the
 JAX shape: with a packed ``fused_step`` the decode step is kernel K1 at B=1
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step`) and kernel
-K4 at B=2..32 (:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step_batched`,
-per-row positions), and the speculative verify pass of K candidates per
-stream is kernel K6 (:func:`~leaxer_qwen3_tts_torch.ops.fused_verify.fused_verify_step`,
-B x K <= 32 rows); under a tensor-parallel mesh with a ``fused_tp`` pack a
+K4 at B >= 2 (:func:`~leaxer_qwen3_tts_torch.ops.fused_step.fused_decode_step_batched`,
+per-row positions; past 32 rows as launches of at most 32), and the
+speculative verify pass of K candidates per stream is kernel K6
+(:func:`~leaxer_qwen3_tts_torch.ops.fused_verify.fused_verify_step`; past 32
+rows as launches of whole streams); under a tensor-parallel mesh with a ``fused_tp`` pack a
 B=1 step is kernel K9 on the mesh's model ranks
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_tp.fused_decode_step_tp`, on the
 ranks' kv-head shards of a :class:`~.layers.TPKVCache`, which
@@ -25,7 +26,6 @@ import torch
 
 from ..config import TalkerConfig
 from ..ops.fused_step import (
-    MAX_BATCH,
     fused_decode_step,
     fused_decode_step_batched,
     pack_fused_weights,
@@ -34,7 +34,7 @@ from ..ops.fused_step import (
 from ..ops.fused_mtp import pack_heads
 from ..ops.fused_tp import fused_decode_step_tp
 from ..ops.fused_verify import MAX_S, MIN_S, fused_verify_step
-from ..ops.quant import QuantizedLinear, dense
+from ..ops.quant import dense
 from .layers import KVCache, TPKVCache, _normal, init_kv_cache, init_transformer_params, rms_norm, transformer_forward
 
 
@@ -67,18 +67,24 @@ def prepare_fused_talker(cfg: TalkerConfig, talker_params: dict, bits: int = 8) 
     """Attach the packed K1 weights when the architecture qualifies (bits=8:
     int8 units of quantized params; bits=16: bf16 units of raw params;
     bits=4: int4 units of raw params, before the engine's int4
-    ``quantize_params``), and an int8 lm_head as [Vc, H] rows + [Vc] scales
-    (``fused_lm_head``: the layout kernel K7's epilogue reads; none for a
-    raw lm_head, which K7 does not take)."""
+    ``quantize_params``), and the lm_head K7's epilogue reads
+    (:func:`attach_lm_head`)."""
     if not supports(cfg.transformer):
         return talker_params
     out = dict(talker_params)
     out["fused_step"] = pack_fused_weights(
         cfg.transformer, talker_params["transformer"]["layers"], bits=bits
     )
-    if isinstance(talker_params["lm_head"], QuantizedLinear):
-        out["fused_lm_head"] = pack_heads(talker_params["lm_head"])
-    return out
+    return attach_lm_head(out)
+
+
+def attach_lm_head(talker_params: dict) -> dict:
+    """The lm_head as kernel K7 reads it (``fused_lm_head``): [Vc, H] rows +
+    [Vc] scales, int8 rows of a quantized lm_head, bf16 rows with scales of
+    one of a raw one (as the JAX frame kernel casts it).  The engine attaches
+    it again after an int4 ``quantize_params``, which leaves the lm_head
+    int8, so that it is the lm_head the plain path reads."""
+    return dict(talker_params, fused_lm_head=pack_heads(talker_params["lm_head"]))
 
 
 def talker_prefill(
@@ -139,7 +145,7 @@ def talker_decode_step(
         valid_mask = valid_mask.clone()
         valid_mask[:, pos] = True
         return logits, hidden, cache._replace(length=cache.length + 1), valid_mask
-    if cfg.decode_impl == "fused" and "fused_step" in params and B <= MAX_BATCH:
+    if cfg.decode_impl == "fused" and "fused_step" in params:
         T = cache.max_len
         if uniform_fill:
             pos = min(int(cache.length), T - 1)
@@ -164,8 +170,8 @@ def talker_decode_step(
         return logits, hidden, cache._replace(length=cache.length + 1), valid_mask
     if embed.device.type == "cuda":
         raise RuntimeError(
-            f"talker decode step at B={B}: the step kernels take a packed talker and "
-            f"1..{MAX_BATCH} rows; the plain layers do not run on the card"
+            f"talker decode step at B={B}: the step kernels take a packed talker; the plain "
+            "layers do not run on the card"
         )
     hidden, cache, valid_mask = transformer_forward(
         t, params["transformer"], embed[:, None, :], position[:, None], cache, valid_mask,
@@ -198,8 +204,7 @@ def talker_verify_step(
     T = cache.max_len
     slots = torch.arange(T, device=embeds.device)
     new = (slots[None, :] >= start[:, None]) & (slots[None, :] < start[:, None] + K)
-    if (cfg.decode_impl == "fused" and "fused_step" in params and B * K <= MAX_BATCH
-            and MIN_S <= K <= MAX_S):
+    if cfg.decode_impl == "fused" and "fused_step" in params and MIN_S <= K <= MAX_S:
         x_out = fused_verify_step(t, params["fused_step"], embeds, start, cache.k, cache.v,
                                   *cache.scales)[0]
         fn = params["transformer"]["final_norm"]
@@ -208,9 +213,8 @@ def talker_verify_step(
         valid_mask = valid_mask | new
     elif embeds.device.type == "cuda":
         raise RuntimeError(
-            f"verify pass of {B} x {K} rows: the verify kernel takes a packed int8 or bf16 "
-            f"talker, {MIN_S}..{MAX_S} candidates and at most {MAX_BATCH} rows (ROADMAP M12b); "
-            f"the plain layers do not run on the card"
+            f"verify pass of {B} x {K} rows: the verify kernel takes a packed talker and "
+            f"{MIN_S}..{MAX_S} candidates; the plain layers do not run on the card"
         )
     else:
         positions = start[:, None] + torch.arange(K, device=embeds.device)[None, :]

@@ -28,11 +28,16 @@ SOURCES = (
     "fused_verify.cu", "fused_mtp_stream.cu", "flash_attention.cu", "fused_frame.cu",
     "unit_probe.cu", "fused_tp.cu", "fused_mtp_tp.cu", "fused_int4.cu",
 )
-HEADERS = ("qtts_kernels.cuh", "qtts_stream.cuh", "qtts_tp.cuh")
+HEADERS = ("qtts_kernels.cuh", "qtts_stream.cuh", "qtts_tp.cuh", "qtts_frame.cuh")
 # sources compiled as several objects, part i instantiating its share of the
-# kernels (-DQTTS_INT4_PART=i), so that no one compile holds back the
-# parallel build (fused_int4.cu's seventeen int4 kernels took 625 s as one)
-PARTS = {"fused_int4.cu": 5}
+# kernels (-DQTTS_PART=i), so that no one compile holds back the parallel
+# build (fused_int4.cu's seventeen int4 kernels took 625 s as one): the int4
+# step, chains, batched step, verify pass and batched chain, then K7 at its
+# four mixes with int4 units; K7's frames beside the bf16-talker frame; the
+# batched step, verify pass and chain beside their bf16 instances (the last
+# three objects to finish when whole)
+PARTS = {"fused_int4.cu": 9, "fused_frame.cu": 2, "fused_step_batched.cu": 2,
+         "fused_verify.cu": 2, "fused_mtp_batched.cu": 2}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -104,7 +109,7 @@ class Plan(ctypes.Structure):
     ]
 
 
-MAX_BATCH = 32  # QTTS_MAX_BATCH: the rows kernels K4, K5 and K6 take
+MAX_BATCH = 32  # QTTS_MAX_BATCH: the rows one launch of kernel K4, K5 or K6 takes
 
 
 class BatchScratch(ctypes.Structure):
@@ -218,7 +223,7 @@ def units(names=SOURCES):
     out = []
     for s in names:
         n = PARTS.get(s, 0)
-        out += ([(s, f"{s}.{i}", (f"-DQTTS_INT4_PART={i}",)) for i in range(n)] if n
+        out += ([(s, f"{s}.{i}", (f"-DQTTS_PART={i}",)) for i in range(n)] if n
                 else [(s, s, ())])
     return out
 
@@ -305,7 +310,7 @@ def load_kernels() -> ctypes.CDLL:
             BS, CB = ctypes.POINTER(BatchScratch), ctypes.POINTER(ChainBatchArgs)
             lib.qtts_decode_step_batched.restype = i32
             lib.qtts_decode_step_batched.argtypes = [
-                W, BS, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp, i32, vp,
+                W, BS, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp, i32, i32, i32, vp,
             ]
             lib.qtts_decode_step_batched_multi.restype = i32
             lib.qtts_decode_step_batched_multi.argtypes = [
@@ -322,7 +327,8 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_flash_attend.restype = i32
             lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 8), vp]
             lib.qtts_norm_head.restype = i32
-            lib.qtts_norm_head.argtypes = [vp, vp, ctypes.c_float, vp, vp, vp, vp, i32, i32, vp]
+            lib.qtts_norm_head.argtypes = [vp, vp, ctypes.c_float, vp, vp, vp, vp, i32, i32, i32,
+                                           vp]
             lib.qtts_frame_step.restype = i32
             lib.qtts_frame_step.argtypes = [ctypes.POINTER(FrameArgs), P, vp]
             lib.qtts_frame_step_multi.restype = i32
@@ -337,7 +343,7 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_unit_probe_ring.argtypes = [vp, vp, vp, vp, vp, vp, *([i32] * 14), vp]
             lib.qtts_verify_step.restype = i32
             lib.qtts_verify_step.argtypes = [
-                W, BS, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, vp,
+                W, BS, P, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, i32, i32, i32, vp,
             ]
             lib.qtts_tp_decode_step.restype = i32
             lib.qtts_tp_decode_step.argtypes = [ctypes.POINTER(TpStepArgs), vp]

@@ -15,7 +15,14 @@ call runs the whole frame, in the JAX kernel's order:
             K1's function), the caches updated in place (an int8 cache with
             its scales: K1's int8-cache step);
     head:   hidden = RMSNorm(x) * final_norm (float32) and the lm_head as
-            bf16(hidden) . bf16(int8 rows) * scale.
+            bf16(hidden) . bf16(rows) * scale (int8 rows, or bf16 rows with
+            scales of one).
+
+Unit mixes, as the JAX kernel takes them (its tw4 / mw4 and bits=16
+talker): a talker of int8, int4 or bf16 units beside an int8 or int4 MTP
+trunk (never bf16: :func:`supports_frame`), the lm_head and the chain heads
+bf16 exactly where the talker is (the engine's raw heads at
+``quantize=None``), else int8.
 
 So its sampled output is a different per-seed stream from the multi-dispatch
 path's, and its greedy output may differ where logits nearly tie (the JAX
@@ -55,9 +62,11 @@ from .fused_step import (
     _rms,
     _with_scales,
     fused_decode_step_reference,
+    names_of,
     scale_ptrs,
     step_structs,
     supports,
+    unit_bytes,
 )
 from ..runtime.sampling import clamp_temperature
 
@@ -68,12 +77,14 @@ FRAME_FIXED_BYTES = 24 * 1024 * 1024
 
 def supports_frame(mfw: FusedStepWeights, T: int, cfg: TransformerConfig,
                    kvq: bool = False) -> bool:
-    """The JAX gate (``supports_frame``): an int8 MTP trunk, a talker bucket
-    of at most 512 slots (128-aligned under an int8 KV cache, ``kvq``) or a
-    multiple of 512, an architecture the step kernel takes, and the trunk
-    plus the fixed buffers within the TPU's resident budget (0.6B: 78 MB
-    passes; 1.7B: 302 MB does not)."""
-    if mfw.wqkv.dtype != torch.int8:
+    """The JAX gate (``supports_frame``): an int8 or int4 MTP trunk (JAX's
+    int4 units are int8-typed; the port's are uint8 pairs) and never a bf16
+    one, a talker bucket of at most 512 slots (128-aligned under an int8 KV
+    cache, ``kvq``) or a multiple of 512, an architecture the step kernel
+    takes, and the trunk plus the fixed buffers within the TPU's resident
+    budget (0.6B: 78 MB int8, 39 MB int4 pass; 1.7B: 302 MB int8 and 151 MB
+    int4 do not)."""
+    if mfw.wqkv.dtype not in (torch.int8, torch.uint8):
         return False
     if T <= 512:
         if kvq and T % 128 != 0:
@@ -182,13 +193,15 @@ class _Entry:
         c.k_cache, c.v_cache = self.mk.data_ptr(), self.mv.data_ptr()
         c.cache_bf16 = int(self.mk.dtype == torch.bfloat16)
         c.n, c.V, c.Vt = n, V, tables.shape[1]
+        c.heads_bf16 = int(heads.q.dtype == torch.bfloat16)
         a.lm, a.lm_scale = lm_head.q.data_ptr(), lm_head.scale.data_ptr()
         a.codec = codec_table.data_ptr()
         a.x, a.c0e, a.lh = x.data_ptr(), c0e.data_ptr(), lh.data_ptr()
         a.cache_bf16, a.T, a.Vc, a.eos = int(cache_dtype == torch.bfloat16), T, Vc, CODEC_EOS
         self.args = a
-        self.plan = persistent.device_plan(mcfg, device, head_rows=V, talker=tcfg,
-                                           lm_rows=Vc) if planned else None
+        self.plan = persistent.device_plan(
+            mcfg, device, head_rows=V, talker=tcfg, lm_rows=Vc, unit_bytes=unit_bytes(mfw),
+            head_bytes=heads.q.element_size(), talker_bytes=unit_bytes(tfw)) if planned else None
 
 
 _ENTRIES: "OrderedDict[tuple, _Entry]" = OrderedDict()
@@ -203,7 +216,7 @@ def _entry(entry: str, tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables
     tensors = (*tfw, *mfw, *lm_head, codec_table, *heads, tables)
     stream = torch.cuda.current_stream(device).cuda_stream
     key = (entry, tcfg, mcfg, T, cache_dtype, device, stream, threading.get_ident(),
-           *(t.data_ptr() for t in tensors))
+           *(t.dtype for t in (tfw.wqkv, mfw.wqkv, heads.q)), *(t.data_ptr() for t in tensors))
     hit = _ENTRIES.get(key)
     if hit is None:
         hit = _Entry(tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables, T, cache_dtype,
@@ -215,9 +228,14 @@ def _entry(entry: str, tcfg, mcfg, tfw, lm_head, codec_table, mfw, heads, tables
 
 
 def _check_frame_inputs(tfw, mfw, lm_head, codec_table, heads, tables, k_cache, v_cache,
-                        k_scale, v_scale, mtp_cache_dtype) -> None:
-    _check_cuda_inputs(tfw, k_cache, v_cache, False, k_scale, v_scale, window=True)
-    _check_cuda_inputs(mfw, k_cache, v_cache, False, k_scale, v_scale, window=True)
+                        k_scale, v_scale, mtp_cache_dtype, multi: bool = False) -> None:
+    """The frame's checks: K7 takes a talker of int8, int4 or bf16 units
+    beside an int8 or int4 trunk, its lm_head and heads bf16 exactly where
+    the talker is; the launch-per-op frame (``multi``) int8 units and heads."""
+    _check_cuda_inputs(tfw, k_cache, v_cache, not multi, k_scale, v_scale, window=True,
+                       int4_units=not multi)
+    _check_cuda_inputs(mfw, k_cache, v_cache, False, k_scale, v_scale, window=True,
+                       int4_units=not multi)
     if mtp_cache_dtype != chain_cache_dtype(k_cache.dtype):
         raise NotImplementedError(
             f"the frame kernel keeps the chain's cache in {chain_cache_dtype(k_cache.dtype)} "
@@ -230,8 +248,12 @@ def _check_frame_inputs(tfw, mfw, lm_head, codec_table, heads, tables, k_cache, 
     for t in (*lm_head, *heads, codec_table, tables):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("fused_frame_step: every tensor must be contiguous and on CUDA")
-    if lm_head.q.dtype != torch.int8 or heads.q.dtype != torch.int8:
-        raise NotImplementedError("the frame kernel takes int8 lm_head and MTP head rows")
+    rows = torch.bfloat16 if tfw.wqkv.dtype == torch.bfloat16 else torch.int8
+    if lm_head.q.dtype != rows or heads.q.dtype != rows:
+        raise NotImplementedError(
+            f"the frame kernel takes {rows} lm_head and MTP head rows beside "
+            f"{names_of(tfw)} talker units (bf16 exactly beside bf16 units), not "
+            f"{lm_head.q.dtype} and {heads.q.dtype}")
     if any(t.data_ptr() % 16 for t in (*lm_head, *heads)):
         raise ValueError("fused_frame_step: the lm_head and heads must be 16-byte aligned")
 
@@ -302,7 +324,7 @@ def _launch_frame(wrapper, entry: str, tcfg, mcfg, tfw, talker_fnorm, lm_head, c
     if entry.endswith("_multi") and k_scale is not None:
         raise NotImplementedError(f"{what}: the launch-per-op frame takes no int8 cache")
     _check_frame_inputs(tfw, mfw, lm_head, codec_table, heads, tables, k_cache, v_cache,
-                        k_scale, v_scale, mtp_cache_dtype)
+                        k_scale, v_scale, mtp_cache_dtype, multi=entry.endswith("_multi"))
     from ._build import check, load_kernels
 
     lib = load_kernels()

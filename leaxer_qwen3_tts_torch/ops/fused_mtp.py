@@ -1,5 +1,6 @@
 """Kernels K2 and K5: the whole MTP sub-code chain of one frame, for one
-stream (K2) and for a batch of 2..32 streams with per-row knobs (K5).
+stream (K2) and for a batch of streams with per-row knobs (K5: up to 32 rows
+a launch; a call of more runs as launches of nearly equal size).
 
 Port of ``leaxer_qwen3_tts_tpu/ops/fused_mtp.py::fused_mtp_chain`` and
 ``fused_mtp_chain_batched``: the 2-token prefix (talker hidden at position 0,
@@ -457,7 +458,28 @@ def fused_mtp_chain_batched(
 
     Returns (subcodes [B, n] int32, sub_sum [B, H] float32).  The knobs are
     host scalars or length-B sequences; ``gumbel`` ([n, B, V], any strides
-    with a contiguous last axis) may be None when every row is greedy."""
+    with a contiguous last axis) may be None when every row is greedy.
+    More than ``persistent.LAUNCH_ROWS`` rows run as
+    :func:`~.persistent.row_launches` launches of consecutive rows (on the
+    CPU the plain version on each launch's rows), each on its rows' inputs,
+    knobs and the slice [:, rows] of the one noise draw: each row is what a
+    call of at most LAUNCH_ROWS rows gives it, bit for bit."""
+    knobs = row_knobs(temperature, top_k, top_p, last_hidden.shape[0])
+    outs = []
+    for r0, nb in persistent.row_launches(last_hidden.shape[0]):
+        rows = slice(r0, r0 + nb)
+        temp, k, p = (list(v) for v in zip(*knobs[rows]))
+        outs.append(_chain_rows(cfg, fw, final_norm, heads, tables, last_hidden[rows],
+                                code0_embed[rows], None if gumbel is None else gumbel[:, rows],
+                                temp, k, p, cache_dtype))
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def _chain_rows(cfg, fw, final_norm, heads, tables, last_hidden, code0_embed, gumbel,
+                temperature, top_k, top_p, cache_dtype):
+    """One launch of K5 (on the CPU its plain version) on these rows."""
     if last_hidden.device.type == "cpu":
         return fused_mtp_chain_batched_reference(
             cfg, fw, final_norm, heads, tables, last_hidden, code0_embed, gumbel,
@@ -528,7 +550,7 @@ def _launch_chain_batched(wrapper, entry: str, cfg, fw, final_norm, heads, table
     n, V, H = heads.q.shape
     B = last_hidden.shape[0]
     if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"{what} takes 1..{MAX_BATCH} rows, got {B}")
+        raise ValueError(f"{what} takes 1..{MAX_BATCH} rows a launch, got {B}")
     knobs = row_knobs(temperature, top_k, top_p, B)
     greedy = [t <= 0.0 for t, _, _ in knobs]
     if gumbel is None and not all(greedy):

@@ -1,5 +1,6 @@
 """Kernels K1 and K4: the fused single-token transformer step, for one
-stream (K1) and for a batch of 2..32 streams at their own positions (K4).
+stream (K1) and for a batch of streams at their own positions (K4: up to 32
+rows a launch; a call of more runs as launches of nearly equal size).
 
 Port of ``leaxer_qwen3_tts_tpu/ops/fused_step.py::fused_decode_step`` and
 ``fused_decode_step_batched``.  One call runs one token per stream through
@@ -381,8 +382,8 @@ def _check_cuda_inputs(fw: FusedStepWeights, k_cache, v_cache, bf16_units: bool 
     if fw.wqkv.dtype not in units or any(w.dtype != fw.wqkv.dtype for w in (fw.wo, fw.wgu, fw.wd)):
         raise NotImplementedError(
             f"{UNIT_NAMES.get(fw.wqkv.dtype, fw.wqkv.dtype)} units: this kernel takes "
-            f"{' and '.join(UNIT_NAMES[u] for u in units)} packs (int4 and bf16 units in K7, bf16 "
-            "units in K2: ROADMAP item K1v-b / K2v)"
+            f"{' and '.join(UNIT_NAMES[u] for u in units)} packs (bf16 units in K2: ROADMAP item "
+            "K1v-b / K2v)"
         )
     want = (fw.wqkv.shape[0], fw.wqkv.shape[1]) + ((fw.wqkv.shape[2] // (INT4_COLS // 2),)
                                                    if fw.wqkv.dtype == torch.uint8 else ())
@@ -635,30 +636,60 @@ def fused_decode_step_batched(
     k_scale, v_scale]); the caches (and scales) are updated in place.
     Positions past the last slot are clamped to it.  A position tensor
     stays on the device: the kernel reads it, so the step needs no host
-    sync."""
+    sync.  More than ``persistent.LAUNCH_ROWS`` rows run as
+    :func:`~.persistent.row_launches` launches of consecutive rows on the
+    one cache (on the CPU the plain version on each launch's rows): each row
+    is what a call of at most LAUNCH_ROWS rows gives it, bit for bit."""
+    outs = [_step_rows(cfg, fw, x[r0 : r0 + nb], _row_slice(pos, r0, nb), k_cache, v_cache,
+                       k_scale, v_scale, r0)
+            for r0, nb in persistent.row_launches(x.shape[0])]
+    x_out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return _with_scales((x_out, k_cache, v_cache), k_scale, v_scale)
+
+
+def _row_slice(pos, r0: int, nb: int):
+    """Rows r0 .. r0 + nb - 1 of a [B] position (or start) tensor; one int
+    stays as it is."""
+    return pos.reshape(-1)[r0 : r0 + nb] if isinstance(pos, torch.Tensor) else pos
+
+
+def _cache_rows(caches, r0: int, nb: int) -> list:
+    """Cache rows r0 .. r0 + nb - 1 of every [L, B, ...] tensor (views; None stays)."""
+    return [None if t is None else t[:, r0 : r0 + nb] for t in caches]
+
+
+def _step_rows(cfg, fw, x, pos, k_cache, v_cache, k_scale, v_scale, row0: int) -> torch.Tensor:
+    """x_out of one launch of K4: ``x``'s rows on cache rows row0 ..; on
+    the CPU the plain version on those cache rows."""
     if x.device.type == "cpu":
-        return fused_decode_step_batched_reference(cfg, fw, x, pos, k_cache, v_cache, k_scale,
-                                                   v_scale)
+        caches = (k_cache, v_cache, k_scale, v_scale)
+        if row0 or x.shape[0] != k_cache.shape[1]:
+            caches = _cache_rows(caches, row0, x.shape[0])
+        return fused_decode_step_batched_reference(cfg, fw, x, pos, *caches)[0]
     return _launch_step_batched(fused_decode_step_batched, "qtts_decode_step_batched", cfg, fw, x,
-                                pos, k_cache, v_cache, k_scale, v_scale)
+                                pos, k_cache, v_cache, k_scale, v_scale, row0)[0]
 
 
 def _launch_step_batched(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeights,
                          x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                         k_scale=None, v_scale=None):
+                         k_scale=None, v_scale=None, row0: int = 0):
     """Launch a batched step entry (``qtts_decode_step_batched``: K4,
-    persistent, with its cached plan; ``qtts_decode_step_batched_multi``:
-    the launch-per-op sequence, int8 units on a bf16 or float32 cache) on
-    CUDA tensors, counting the launch on ``wrapper``."""
+    persistent, with its cached plan, on cache rows row0 .. row0 + B - 1;
+    ``qtts_decode_step_batched_multi``: the launch-per-op sequence, int8
+    units on a bf16 or float32 cache of B rows) on CUDA tensors, counting
+    the launch on ``wrapper``."""
     what = wrapper.__name__
     B, T = x.shape[0], k_cache.shape[3]
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"{what} takes 1..{MAX_BATCH} rows, got {B}")
+        raise ValueError(f"{what} takes 1..{MAX_BATCH} rows a launch, got {B}")
+    if not 0 <= row0 <= k_cache.shape[1] - B:
+        raise ValueError(f"{what}: rows {row0}..{row0 + B - 1} of a {k_cache.shape[1]}-row cache")
     planned = entry == "qtts_decode_step_batched"  # the _multi sequence takes int8 only
-    if not planned and k_scale is not None:
-        raise NotImplementedError(f"{what}: the launch-per-op sequence takes no int8 cache")
+    if not planned and (k_scale is not None or k_cache.shape[1] != B):
+        raise NotImplementedError(f"{what}: the launch-per-op sequence takes no int8 cache, and "
+                                  "a cache of its B rows")
     _check_cuda_inputs(fw, k_cache, v_cache, planned, k_scale, v_scale, int4_units=planned)
     from ._build import check, load_kernels
 
@@ -679,13 +710,14 @@ def _launch_step_batched(wrapper, entry: str, cfg: TransformerConfig, fw: FusedS
         pos_ptr, pos_host = None, min(int(pos), T - 1)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     caches = (x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
-    args = (int(k_cache.dtype == torch.bfloat16), B, T, pos_ptr, pos_host, stream)
+    args = (int(k_cache.dtype == torch.bfloat16), B, T, pos_ptr, pos_host)
     wrapper.launches += 1
     if planned:
         err = lib.qtts_decode_step_batched(w, s, e.plan.struct, *caches,
-                                           *scale_ptrs(k_scale, v_scale), *args)
+                                           *scale_ptrs(k_scale, v_scale), *args,
+                                           k_cache.shape[1], row0, stream)
     else:
-        err = lib.qtts_decode_step_batched_multi(w, s, *caches, *args)
+        err = lib.qtts_decode_step_batched_multi(w, s, *caches, *args, stream)
     check(err, what)
     del scratch  # enqueued; the caching allocator orders reuse on the stream
     return _with_scales((x_out, k_cache, v_cache), k_scale, v_scale)

@@ -40,7 +40,9 @@ from ._build import MAX_BATCH
 from .fused_step import (
     _MAX_ENTRIES,
     FusedStepWeights,
+    _cache_rows,
     _check_cuda_inputs,
+    _row_slice,
     _with_scales,
     batch_structs,
     fused_decode_step_batched_reference,
@@ -59,12 +61,16 @@ def verify_starts(pos, B: int, S: int, T: int, device) -> torch.Tensor:
     return torch.full((B,), min(max(int(pos), 0), T - S), dtype=torch.long, device=device)
 
 
-def _check_shapes(x: torch.Tensor, k_cache: torch.Tensor) -> Tuple[int, int, int]:
+def _check_shapes(x: torch.Tensor, k_cache: torch.Tensor,
+                  row0: Optional[int] = None) -> Tuple[int, int, int]:
+    """B, S and T of a pass of ``x`` on the whole cache, or (``row0``: a
+    launch's) on its cache rows row0 .. row0 + B - 1."""
     B, S, _ = x.shape
     T = k_cache.shape[3]
     if not MIN_S <= S <= MAX_S:
         raise ValueError(f"fused_verify_step takes {MIN_S}..{MAX_S} candidates, got {S}")
-    if k_cache.shape[1] != B or T < S:
+    rows_ok = k_cache.shape[1] == B if row0 is None else 0 <= row0 <= k_cache.shape[1] - B
+    if not rows_ok or T < S:
         raise ValueError(f"fused_verify_step: cache {tuple(k_cache.shape)} for {B} x {S} rows")
     return B, S, T
 
@@ -135,29 +141,50 @@ def fused_verify_step(
     Returns (x_out [B, S, H] float32 pre-final-norm, k_cache, v_cache[,
     k_scale, v_scale]); the caches (and scales) are updated in place.  Each
     stream's start is clamped into [0, T - S].  A start tensor stays on the
-    device: the kernel reads it, so the pass needs no host sync."""
+    device: the kernel reads it, so the pass needs no host sync.  Past
+    ``persistent.LAUNCH_ROWS`` rows the streams run as
+    :func:`~.persistent.row_launches` launches of whole streams (a stream's
+    cache row and its candidates in one launch; on the CPU the plain version
+    on each launch's streams): each row is what a pass of at most
+    LAUNCH_ROWS rows gives it, bit for bit."""
+    B, S, _ = _check_shapes(x, k_cache)
+    outs = [_verify_rows(cfg, fw, x[r0 : r0 + nb], _row_slice(pos, r0, nb), k_cache, v_cache,
+                         k_scale, v_scale, r0)
+            for r0, nb in persistent.row_launches(B, S)]
+    x_out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return _with_scales((x_out, k_cache, v_cache), k_scale, v_scale)
+
+
+def _verify_rows(cfg, fw, x, pos, k_cache, v_cache, k_scale, v_scale, row0: int) -> torch.Tensor:
+    """x_out [b, S, H] of one launch of K6: ``x``'s streams on cache rows
+    row0 ..; on the CPU the plain version on those cache rows."""
     if x.device.type == "cpu":
-        return fused_verify_step_reference(cfg, fw, x, pos, k_cache, v_cache, k_scale, v_scale)
+        caches = (k_cache, v_cache, k_scale, v_scale)
+        if row0 or x.shape[0] != k_cache.shape[1]:
+            caches = _cache_rows(caches, row0, x.shape[0])
+        return fused_verify_step_reference(cfg, fw, x, pos, *caches)[0]
     return launch_verify(fused_verify_step, "qtts_verify_step", cfg, fw, x, pos, k_cache,
-                         v_cache, k_scale, v_scale)
+                         v_cache, k_scale, v_scale, row0)[0]
 
 
 def launch_verify(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeights,
                   x: torch.Tensor, pos, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  k_scale=None, v_scale=None):
+                  k_scale=None, v_scale=None, row0: int = 0):
     """Launch a verify entry (``qtts_verify_step``: K6, persistent, with its
-    cached entry, int8 or bf16 units; ``qtts_verify_step_multi``: the
-    launch-per-op pass, int8 units on a bf16 or float32 cache) on CUDA
-    tensors, counting the launch on ``wrapper``."""
+    cached entry, int8, bf16 or int4 units, on cache rows row0 .. row0 + B -
+    1; ``qtts_verify_step_multi``: the launch-per-op pass, int8 units on a
+    bf16 or float32 cache of B rows) on CUDA tensors, counting the launch on
+    ``wrapper``."""
     what = wrapper.__name__
-    B, S, T = _check_shapes(x, k_cache)
+    B, S, T = _check_shapes(x, k_cache, row0)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if B * S > MAX_BATCH:
-        raise ValueError(f"{what} takes at most {MAX_BATCH} rows, got {B} x {S}")
+        raise ValueError(f"{what} takes at most {MAX_BATCH} rows a launch, got {B} x {S}")
     planned = entry == "qtts_verify_step"
-    if not planned and k_scale is not None:
-        raise NotImplementedError(f"{what}: the launch-per-op pass takes no int8 cache")
+    if not planned and (k_scale is not None or k_cache.shape[1] != B):
+        raise NotImplementedError(f"{what}: the launch-per-op pass takes no int8 cache, and a "
+                                  "cache of its B streams")
     _check_cuda_inputs(fw, k_cache, v_cache, planned, k_scale, v_scale, window=True,
                        int4_units=planned)
     from ._build import check, load_kernels
@@ -180,13 +207,13 @@ def launch_verify(wrapper, entry: str, cfg: TransformerConfig, fw: FusedStepWeig
         pos_ptr, pos_host = None, min(max(int(pos), 0), T - S)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     caches = (x_in.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
-    args = (int(k_cache.dtype == torch.bfloat16), B, S, T, pos_ptr, pos_host, stream)
+    args = (int(k_cache.dtype == torch.bfloat16), B, S, T, pos_ptr, pos_host)
     wrapper.launches += 1
     if planned:
         err = lib.qtts_verify_step(w, s, e.plan.struct, *caches, *scale_ptrs(k_scale, v_scale),
-                                   *args)
+                                   *args, k_cache.shape[1], row0, stream)
     else:
-        err = lib.qtts_verify_step_multi(w, s, *caches, *args)
+        err = lib.qtts_verify_step_multi(w, s, *caches, *args, stream)
     check(err, what)
     del scratch  # enqueued; the caching allocator orders reuse on the stream
     return _with_scales((x_out.reshape(B, S, H), k_cache, v_cache), k_scale, v_scale)

@@ -31,7 +31,11 @@ six batch rows' inputs per group beside MIN_SLOTS of them.
 A frame's plan (``make_plan(..., talker=..., lm_rows=...)``) covers two
 weight sets on one grid and one ring: set 0 the MTP trunk with its heads,
 set 1 the talker with its lm_head.  Its tables hold set s's kind k at kind
-index s * len(KINDS) + k, whose stages follow set 0's in the ring.
+index s * len(KINDS) + k, whose stages follow set 0's in the ring.  Each set
+has its own unit type (``unit_bytes`` the trunk's, ``talker_bytes`` the
+talker's: an int4 or bf16 talker beside an int8 or int4 trunk), so each
+kind's stage rows and scale floats follow its own set; the lm_head rows are
+bf16 beside a bf16 talker, else int8 (the chain heads: ``head_bytes``).
 
 A verify pass (K6) is a batched plan of B * S rows, candidate s of stream b
 on row b * S + s (``verify_rows``).
@@ -69,6 +73,7 @@ THREADS = 256
 MAX_K = 6144  # the widest GEMV input a block holds in registers
 MAX_KV_HEADS = 64  # the kv heads a plan takes
 MAX_BATCH = 32  # the rows a batched launch takes
+LAUNCH_ROWS = MAX_BATCH  # the rows one launch of K4, K5 or K6 takes: a call of more is split
 MAX_TICKETS = MAX_BATCH * MAX_KV_HEADS  # attention tickets: one per (row, kv head)
 ATTN_CHUNK = 64  # cache slots per attention split
 MIN_SLOTS = 3  # ring slots a batched plan keeps before it splits the grid into groups
@@ -96,6 +101,7 @@ class Plan(NamedTuple):
     n_sets: int = 1  # weight sets (2: K7's MTP trunk, then its talker)
     unit_bytes: float = 1  # bytes per weight: 1 (int8 units), 2 (bf16), 0.5 (int4)
     head_bytes: int = 0  # bytes per head weight where not unit_bytes (K10's bf16 heads)
+    talker_bytes: float = 0  # bytes per weight of set 1 (K7's talker) where not unit_bytes
 
 
 def kind_name(kind: int) -> str:
@@ -165,7 +171,8 @@ def group_rows(plan: Plan, block: int) -> Tuple[int, int]:
 
 def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int = 1,
               talker: Optional[TransformerConfig] = None, lm_rows: int = 0,
-              unit_bytes: int = 1, head_k: int = 0, head_bytes: int = 0) -> Plan:
+              unit_bytes: int = 1, head_k: int = 0, head_bytes: int = 0,
+              talker_bytes: float = 0) -> Plan:
     """The plan of a launch on ``grid`` blocks over the transformer ``cfg``
     (and ``head_rows`` head rows for the chain) for ``batch`` rows (1: K1,
     K2 and K3, whose GEMV input is MAX_K floats), with as many ring slots as
@@ -183,17 +190,22 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     group beside MIN_SLOTS slots).
     ``unit_bytes``: 1 for int8 units, 2 for bf16, 0.5 for int4; ``head_k`` and
     ``head_bytes``: the head rows' width and bytes per weight where they are
-    not H and ``unit_bytes`` (K10).  Raises ValueError where a block would
-    own no rows of some product, or nothing fits."""
+    not H and ``unit_bytes`` (K10; set 0's heads beside a bf16 talker in
+    K7); ``talker_bytes``: the talker's units where they are not
+    ``unit_bytes`` (K7), its lm_head rows bf16 beside bf16 units, else int8.
+    Raises ValueError where a block would own no rows of some product, or
+    nothing fits."""
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"a launch takes 1..{MAX_BATCH} rows, not {batch}")
     if head_rows and batch > grid:
         raise ValueError(f"{batch} rows to sample on {grid} blocks")
     sets = [(cfg, head_rows)]
     if talker is not None:
-        if batch != 1 or not lm_rows or head_k or head_bytes:
+        if batch != 1 or not lm_rows or head_k:
             raise ValueError("a frame's plan takes one row and the talker's lm_head rows")
         sets.append((talker, lm_rows))
+    elif talker_bytes:
+        raise ValueError("talker_bytes without a talker")
     shapes = kind_shapes(cfg, head_rows, head_k) + sum(
         (kind_shapes(c, rows) for c, rows in sets[1:]), ())
     for N, K in shapes:
@@ -204,53 +216,64 @@ def make_plan(cfg: TransformerConfig, grid: int, head_rows: int = 0, batch: int 
     if max(K for N, K in shapes if N) > MAX_K or max(
             c.num_kv_heads for c, _ in sets) > MAX_KV_HEADS:
         raise ValueError(f"GEMV inputs past {MAX_K} wide or past {MAX_KV_HEADS} kv heads")
-    if unit_bytes not in (INT4, 1, 2) or head_bytes not in (0, 1, 2):
+    if (unit_bytes not in (INT4, 1, 2) or head_bytes not in (0, 1, 2)
+            or talker_bytes not in (0, INT4, 1, 2)):
         raise ValueError(f"units of {unit_bytes} bytes: the kernels take int8 (1), bf16 (2) and "
                          f"int4 ({INT4})")
-    if unit_bytes == INT4 and any(N and K % (2 * INT4_COLS) for N, K in shapes[:4]):
+    if any(N and K % (2 * INT4_COLS) and _kind_bytes(i, unit_bytes, head_bytes, talker_bytes)
+           == INT4 for i, (N, K) in enumerate(shapes)):
         raise ValueError(f"int4 rows need K a multiple of {2 * INT4_COLS}")
-    widest = max(_kind_bytes(i, unit_bytes, head_bytes) * K for i, (N, K) in enumerate(shapes) if N)
+    widest = max(_kind_bytes(i, unit_bytes, head_bytes, talker_bytes) * K
+                 for i, (N, K) in enumerate(shapes) if N)
     narrow_fits = SLOT_BYTES // widest >= ROW_QUANTUM
+    at = (grid, shapes, batch, len(sets), unit_bytes, head_bytes, talker_bytes)
     if batch == 1:
-        wide = _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes,
-                        head_bytes)
+        wide = _plan_at(WIDE_SLOT_BYTES, cfg, *at)
         if not narrow_fits or wide.n_slots * wide.slot_bytes >= max(
                 layer_share(wide, s) for s in range(len(sets))):
             return wide
     elif not narrow_fits:
-        return _plan_at(WIDE_SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes,
-                        head_bytes)
-    return _plan_at(SLOT_BYTES, cfg, grid, shapes, batch, len(sets), unit_bytes, head_bytes)
+        return _plan_at(WIDE_SLOT_BYTES, cfg, *at)
+    return _plan_at(SLOT_BYTES, cfg, *at)
 
 
-def _kind_bytes(kind: int, unit_bytes: float, head_bytes: int) -> float:
+def _kind_bytes(kind: int, unit_bytes: float, head_bytes: int, talker_bytes: float = 0) -> float:
     """Bytes per weight of kind index ``kind``: set 0's heads take
-    ``head_bytes`` where it is set (int8 beside int4 units otherwise)."""
-    if kind == KINDS.index("head"):
+    ``head_bytes`` where it is set (int8 beside int4 units otherwise); set
+    1 (K7's talker) takes ``talker_bytes`` where it is set, its lm_head
+    bf16 beside bf16 units and int8 otherwise."""
+    head = kind % len(KINDS) == KINDS.index("head")
+    if kind >= len(KINDS):
+        units = talker_bytes or unit_bytes
+        return (2 if units == 2 else 1) if head else units
+    if head:
         return head_bytes or (1 if unit_bytes == INT4 else unit_bytes)
     return unit_bytes
 
 
-def scale_floats(kind: int, K: int, unit_bytes: float, head_bytes: int = 0) -> int:
+def scale_floats(kind: int, K: int, unit_bytes: float, head_bytes: int = 0,
+                 talker_bytes: float = 0) -> int:
     """float32 scales per row of kind index ``kind``: K / 128 for int4 rows,
     else one."""
-    return K // INT4_COLS if _kind_bytes(kind, unit_bytes, head_bytes) == INT4 else 1
+    return K // INT4_COLS if _kind_bytes(kind, unit_bytes, head_bytes,
+                                         talker_bytes) == INT4 else 1
 
 
 def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: int,
-             n_sets: int, unit_bytes: int = 1, head_bytes: int = 0) -> Plan:
+             n_sets: int, unit_bytes: int = 1, head_bytes: int = 0,
+             talker_bytes: float = 0) -> Plan:
     """The plan of ``make_plan`` with slots of ``slot_bytes``."""
     stage_rows = []
     slot_rows = 0
     for i, (N, K) in enumerate(shapes):
-        row_bytes = int(K * _kind_bytes(i, unit_bytes, head_bytes))
+        row_bytes = int(K * _kind_bytes(i, unit_bytes, head_bytes, talker_bytes))
         rows = min(MAX_STAGE_ROWS, slot_bytes // row_bytes) // ROW_QUANTUM * ROW_QUANTUM
         if N and rows < ROW_QUANTUM:
             raise ValueError(f"a {slot_bytes}-byte slot holds fewer than 4 rows of "
                              f"{row_bytes} bytes")
         stage_rows.append(rows if N else ROW_QUANTUM)
         slot_rows = max(slot_rows, stage_rows[-1] * (
-            scale_floats(i, K, unit_bytes, head_bytes) if N else 1))
+            scale_floats(i, K, unit_bytes, head_bytes, talker_bytes) if N else 1))
     # the GEMV input (MAX_K floats at one row, a group's rows in bf16
     # batched), two attention items, or the sampler's scratch
     for groups in range(1, batch + 1):
@@ -271,14 +294,15 @@ def _plan_at(slot_bytes: int, cfg: TransformerConfig, grid: int, shapes, batch: 
         bounds.append(tuple(row))
     smem = smem_layout(n_slots, slot_bytes, slot_rows, union_bytes)["total"]
     return Plan(grid, shapes, tuple(bounds), tuple(stage_rows), slot_bytes, slot_rows, n_slots,
-                union_bytes, smem, batch, groups, n_sets, unit_bytes, head_bytes)
+                union_bytes, smem, batch, groups, n_sets, unit_bytes, head_bytes, talker_bytes)
 
 
 def layer_share(plan: Plan, s: int = 0) -> int:
     """The weight bytes of one layer of weight set ``s`` (its qkv, o,
     gate|up and down rows) that the block owning the most of them streams."""
     kinds = range(s * len(KINDS), s * len(KINDS) + 4)
-    return int(plan.unit_bytes * max(
+    units = plan.talker_bytes if s == 1 and plan.talker_bytes else plan.unit_bytes
+    return int(units * max(
         sum((plan.bounds[k][at + 1] - plan.bounds[k][at]) * plan.shapes[k][1] for k in kinds)
         for at in range(len(plan.bounds[0]) - 1)))
 
@@ -289,6 +313,20 @@ def stages(plan: Plan, kind: int, block: int) -> Sequence[Tuple[int, int]]:
     r0, r1 = plan.bounds[kind][at], plan.bounds[kind][at + 1]
     step = plan.stage_rows[kind]
     return [(n, min(step, r1 - n)) for n in range(r0, r1, step)]
+
+
+def row_launches(B: int, S: int = 1) -> Tuple[Tuple[int, int], ...]:
+    """(first stream, streams) of each launch of a call of B streams of S
+    rows each (K6's candidates; 1 for K4 and K5): ceil(B / s) launches of
+    nearly equal size in row order, s the streams whose rows fit in
+    LAUNCH_ROWS (read at call time), so that each size has one cached plan
+    and the launches take about the same time (B = 40: 20 + 20, not 32 + 8).
+    One launch of every row at B <= s."""
+    per = LAUNCH_ROWS // S
+    if per < 1:
+        raise ValueError(f"{S} rows a stream: a launch takes {LAUNCH_ROWS}")
+    n = -(-B // per)
+    return tuple((i * B // n, (i + 1) * B // n - i * B // n) for i in range(n))
 
 
 def verify_rows(B: int, S: int, T: int, starts) -> Tuple[Tuple[int, int], ...]:
@@ -373,13 +411,13 @@ def grid_size(device) -> int:
 def device_plan(cfg: TransformerConfig, device, head_rows: int = 0, batch: int = 1,
                 talker: Optional[TransformerConfig] = None, lm_rows: int = 0,
                 unit_bytes: int = 1, grid: Optional[int] = None, head_k: int = 0,
-                head_bytes: int = 0) -> DevicePlan:
+                head_bytes: int = 0, talker_bytes: float = 0) -> DevicePlan:
     """The device plan of ``cfg`` (and ``head_rows`` heads, ``batch`` rows;
     the frame's talker and ``lm_rows``; ``unit_bytes`` per weight) on this
     device, on ``grid`` blocks (default: one per SM; a tensor-parallel
-    rank's block group, with ``head_k`` and ``head_bytes`` as in
-    :func:`make_plan`); each caller keeps its own (the attention tickets are
-    per launch stream)."""
+    rank's block group, with ``head_k``, ``head_bytes`` and ``talker_bytes``
+    as in :func:`make_plan`); each caller keeps its own (the attention
+    tickets are per launch stream)."""
     device = torch.device(device)
     return DevicePlan(make_plan(cfg, grid or grid_size(device), head_rows, batch, talker, lm_rows,
-                                unit_bytes, head_k, head_bytes), device)
+                                unit_bytes, head_k, head_bytes, talker_bytes), device)

@@ -186,22 +186,22 @@ def frame_fused_eligible(cfg: TTSModelConfig, params: dict, state: GenerateState
                          sp: Optional[SamplingParams], uniform_fill: bool = True,
                          mesh=None) -> bool:
     """The JAX package's gate for the whole-frame kernel (its
-    ``_frame_fused_eligible``): no mesh, :func:`frame_fused_enabled`, B=1
-    sequential decode, the fused talker and MTP packs and no talker
-    ``fused_tp`` pack, per-step heads, and
+    ``_frame_fused_eligible``), and nothing more: no mesh,
+    :func:`frame_fused_enabled`, B=1 sequential decode, the fused talker and
+    MTP packs and no talker ``fused_tp`` pack, per-step heads, and
     :func:`~leaxer_qwen3_tts_torch.ops.fused_frame.supports_frame` at this
-    cache bucket.  Shapes and config only: no device data."""
+    cache bucket.  Shapes and config only: no device data.  (The lm_head and
+    heads packs K7 reads are there wherever the packs are: the talker's
+    ``fused_lm_head``, int8 or bf16 rows, and the chain's ``fused_heads``.)"""
     if mesh is not None or not frame_fused_enabled(cfg) or sp is None or not uniform_fill:
         return False
     if state.last_hidden.shape[0] != 1:
         return False
     tp = params.get("talker", {})
     cp = params.get("code_predictor", {})
-    if cfg.talker.decode_impl != "fused" or "fused_step" not in tp or "fused_lm_head" not in tp:
+    if cfg.talker.decode_impl != "fused" or "fused_step" not in tp:
         return False
-    if "fused_tp" in tp:
-        return False
-    if "fused_step" not in cp or "fused_heads" not in cp:
+    if "fused_step" not in cp or "fused_tp" in tp:
         return False
     if cfg.code_predictor.head_mode != "per_step":
         return False

@@ -7,8 +7,8 @@ directory, pick the continuous pool or the static batcher, warm both up
 every weight precision serves at both presets: an unset ``--quantize`` (the
 default) as bf16 weight units, ``--quantize int8`` and ``int4`` as int8 and
 int4 units, each with or without ``--kv-quant`` (the int8 KV cache) and
-``--spec-k``.  What still refuses (the engine's error, exit 1): a pool past
-32 slots, or slots x ``--spec-k`` past 32 rows (ROADMAP M12b).
+``--spec-k``, at any ``--pool-size`` of 2 or more (past 32 rows the batched
+kernels run as launches of at most 32 rows).
 """
 
 import argparse

@@ -62,7 +62,7 @@ from ..config import SAMPLE_RATE, language_to_codec_id
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.layers import splice_kv_cache
 from ..models.talker import talker_init_cache
-from ..ops.fused_step import MAX_BATCH, kvq_bucket_ok
+from ..ops.fused_step import kvq_bucket_ok
 from ..runtime.generate import GenerateState, make_generate_fns
 from ..runtime.prompt import prompt_length, tts_embeds
 from ..runtime.sampling import SamplingParams
@@ -169,16 +169,9 @@ class ContinuousBatcher:
         self.spec_k = int(spec_k) if spec_k else None
         self.spec_iters = max(1, int(spec_iters))
         self.device = engine.device
-        if self.device.type == "cuda" and not 2 <= int(pool_size) <= MAX_BATCH:
-            raise EngineError(
-                f"pool_size {pool_size}: the batched kernels take 2..{MAX_BATCH} slots "
-                "(ROADMAP M12b)"
-            )
-        if self.device.type == "cuda" and self.spec_k and int(pool_size) * self.spec_k > MAX_BATCH:
-            raise EngineError(
-                f"pool_size {pool_size} with spec_k={self.spec_k}: the verify kernel takes at "
-                f"most {MAX_BATCH} rows (pool_size x spec_k; ROADMAP M12b)"
-            )
+        if self.device.type == "cuda" and int(pool_size) < 2:
+            raise EngineError(f"pool_size {pool_size}: the pool on the card takes 2 or more "
+                              "slots (past 32 rows the batched kernels split into launches)")
         if sync_check and self.device.type != "cuda":
             raise ValueError("sync_check needs a CUDA engine")
         if (self.device.type == "cuda" and engine.cfg.talker.transformer.kv_cache_quant

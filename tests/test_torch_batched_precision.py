@@ -428,12 +428,16 @@ def test_17b_bf16_batched_plans(B, groups):
 
 
 def test_m12b_refusals_name_their_item():
-    """More than 32 rows still refuse on the card, each EngineError naming
-    ROADMAP M12b: a pool past 32 slots and one whose slots x spec_k pass
-    32 rows (the engine's batch past 32: test_torch_int4.py)."""
+    """M12b is done: on the card a pool past 32 slots and one whose slots x
+    spec_k pass 32 rows pass the pool's row checks (the wrappers split the
+    rows into launches; this bare engine stops at the config it lacks), and
+    a pool of one slot still refuses (the engine's batch past 32:
+    test_torch_int4.py)."""
     eng = types.SimpleNamespace(is_ready=lambda: True, get_error=lambda: "",
                                 check_batched=lambda: None, device=torch.device("cuda"))
-    with pytest.raises(EngineError, match="ROADMAP M12b"):
+    with pytest.raises(AttributeError, match="cfg"):
         ContinuousBatcher(eng, pool_size=33)
-    with pytest.raises(EngineError, match="ROADMAP M12b"):
+    with pytest.raises(AttributeError, match="cfg"):
         ContinuousBatcher(eng, pool_size=16, spec_k=3)
+    with pytest.raises(EngineError, match="2 or more slots"):
+        ContinuousBatcher(eng, pool_size=1)

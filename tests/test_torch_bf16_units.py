@@ -348,7 +348,7 @@ def test_engine_quantize_none_packs_bf16(tiny_vocab_files, monkeypatch):
     for m in ("talker", "code_predictor"):
         assert eng.params[m]["fused_step"].wqkv.dtype == torch.bfloat16
     assert eng.params["code_predictor"]["fused_heads"].q.dtype == torch.bfloat16
-    assert "fused_lm_head" not in eng.params["talker"]
+    assert eng.params["talker"]["fused_lm_head"].q.dtype == torch.bfloat16  # K7's raw lm_head
     assert not isinstance(eng.params["talker"]["lm_head"], tquant.QuantizedLinear)
     k1, k3, caches = [], [], []
     real_k1, real_k3, real_k5 = (tfs.fused_decode_step, tcp.fused_mtp_chain_streamed,

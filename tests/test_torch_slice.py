@@ -198,9 +198,10 @@ def test_engine_synthesize_tiny(tiny_model, tiny_vocab_files):
     )
     # construction records its error (the JAX engine's contract) and every
     # synthesis call then raises it
-    bad = TTSEngine(config=cfg, params=params, quantize="int4", frame_fused=True, device="cpu")
-    assert not bad.is_ready() and "K7" in bad.get_error()
-    with pytest.raises(EngineError, match="engine not ready: .*K7"):
+    bad = TTSEngine(config=cfg, params=params, quantize="int8", frame_fused=True, spec_k=4,
+                    device="cpu")
+    assert not bad.is_ready() and "sequential-only" in bad.get_error()
+    with pytest.raises(EngineError, match="engine not ready: .*sequential-only"):
         bad.synthesize("hello world", temperature=0.0)
     # on a CUDA device a config the kernels do not take is refused; it does
     # not run the plain path (checked before anything touches the device)
