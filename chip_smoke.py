@@ -279,13 +279,35 @@ prints the final line:
    requests equal to B=1); ``bf16_17b`` a 1.7B bf16 batch of 34 (two
    launches of 17 rows on the 48 KB plans) equal to the batch in launches
    of at most 8.
-17. The kernel report (each kernel's launches on the main paths, error
+17. ``train_phase``: the training path at the 0.6B preset's full depth
+   (28 talker layers, 6 MTP layers; random bf16 weights from the seed,
+   ``init_params`` on the card).  ``tts_loss`` at step 0 on a batch of 4
+   rows (16 text tokens, 120 frames, 60-119 of them real) against the same
+   function on a float32 copy of the params (the loss within
+   TRAIN_LOSS_REL, the gradients of lm_head, layer 0's wq, the MTP heads and
+   text_embed within TRAIN_GRAD_COS by cosine); with the talker's
+   ``attn_impl="pallas"`` the loss is refused under grad and, under
+   ``torch.no_grad()``, within K8_LOSS_REL of the xla loss with one K8
+   launch per talker layer; ten ``make_train_step`` steps (AdamW, clip 1.0)
+   with the loss finite and falling: ms per step, frames per second, peak
+   memory.  K8 at the draft teacher's shape (B=8, S = T = 136, padded
+   frames masked as keys) against its plain version, timed beside SDPA;
+   twenty ``make_draft_train_step`` steps (d_model 512) with the teacher
+   pass on K8 (28 launches a pass) and the loss falling.  Then
+   ``tools.train_draft`` on a 0.6B checkpoint of the seed's weights,
+   written before the steps (``--frames 32 --temperatures 0.0 --steps
+   20``; rollouts through the
+   engine at bf16 units, one K1 and one K3 a frame): rc 0, the loss
+   falling; a ``spec_k=4`` engine on the checkpoint it wrote drafts with
+   the trained head and decodes the sequential engine's greedy codes.
+18. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
    K1, K4, K6 and K7 once more for the int8 KV cache; K9 per step, K10 per
    chain; K1 int4, K2 / K3 int4 and mixed heads, K6 bf16; K4 / K6 int4,
    K5 int4 and mixed heads, K4 / K5 / K6 bf16 at 1.7B; K7 at each unit
-   mix, on a bf16 and an int8 cache) and the device line; it fails if any
+   mix, on a bf16 and an int8 cache; K8 at the draft teacher's shape) and
+   the device line; it fails if any
    kernel in it never launched.
 """
 
@@ -325,6 +347,7 @@ from leaxer_qwen3_tts_torch.frontend import Tokenizer, write_wav
 from leaxer_qwen3_tts_torch.frontend._bpe_py import byte_to_proxy
 from leaxer_qwen3_tts_torch.models.code_predictor import chain_kernel, chain_pack
 from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
+from leaxer_qwen3_tts_torch.models import draft as draft_module
 from leaxer_qwen3_tts_torch.models.draft import init_draft_params
 from leaxer_qwen3_tts_torch.models.layers import init_transformer_params, quantize_kv
 from leaxer_qwen3_tts_torch.ops import _build
@@ -362,6 +385,16 @@ from leaxer_qwen3_tts_torch.serve import ContinuousBatcher, make_http_server
 from leaxer_qwen3_tts_torch.tools import a8_probe as P1
 from leaxer_qwen3_tts_torch.tools import unit_probe
 from leaxer_qwen3_tts_torch.tools import w8a8_probe as P2
+from leaxer_qwen3_tts_torch.tools.train_draft import main as train_draft_main
+from leaxer_qwen3_tts_torch.training import (
+    LossMetrics,
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+    tts_loss,
+)
+from leaxer_qwen3_tts_torch.training.draft_loss import draft_loss, make_draft_train_step
+from leaxer_qwen3_tts_torch.training.train_step import adam, param_leaves
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -599,7 +632,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 def device_ms(fn, iters: int) -> float:
     """Device milliseconds per call of ``fn`` from ``torch.profiler``: the
     self device time of every device op over ``iters`` calls (after one
-    warm-up), without the host's time between launches."""
+    warm-up), without the host's time between launches; NaN (not measured)
+    where the profiler recorded no device time at all, as it did for K8's
+    teacher-shape check late in a whole smoke run on an H100."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -608,7 +643,8 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / iters
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total / 1e3 / iters if total > 0 else float("nan")
 
 
 def packed_trunk(t, gen):
@@ -2210,7 +2246,10 @@ def k8_case(B, S, T, nq, nk, kind, dtype, gen):
     prefill); "random": queries at T-S..T-1, batch b's keys valid below a
     random length, and batch 0's first row masked everywhere; "dead rows":
     "random" with batch 0's rows 0, 2 and S - 1 masked everywhere; "last
-    tile": every row allows the keys of the last 64-key tile only."""
+    tile": every row allows the keys of the last 64-key tile only;
+    "teacher": the draft trainer's teacher pass, query i at position i
+    (S = T) and batch b's keys valid below a random length in [T/2, T] (its
+    right-padded frames masked as keys)."""
     d = 128
     q = torch.randn((B, S, nq, d), generator=gen, device=DEV).to(dtype)
     k = torch.randn((B, nk, T, d), generator=gen, device=DEV).to(dtype)
@@ -2224,6 +2263,9 @@ def k8_case(B, S, T, nq, nk, kind, dtype, gen):
         return q, k, v, mask.expand(B, S, T).contiguous()
     qpos = torch.arange(S, device=DEV) + (T - S)
     valid = torch.randint(T // 2, T + 1, (B,), generator=gen, device=DEV)
+    if kind == "teacher":
+        mask = (slots[None, None, :] <= qpos[None, :, None]) & (slots < valid[:, None])[:, None]
+        return q, k, v, mask.contiguous()
     mask = (slots[None, None, :] <= qpos[None, :, None]) & (slots[None, None, :] < valid[:, None, None])
     mask[0, 0] = False
     if kind == "dead rows":
@@ -5787,6 +5829,283 @@ B1_REQUESTS = [
 ]
 
 
+# The training slice (phase 17), at the 0.6B preset's full depth with random
+# bf16 weights from the seed: the train step on a batch of TRAIN_B rows of
+# TRAIN_TEXT text tokens and TRAIN_FRAMES frames (10 s of audio), each row
+# with 60-119 real frames so that its EOS target lies inside the batch
+TRAIN_B, TRAIN_TEXT, TRAIN_FRAMES = 4, 16, 120
+TRAIN_STEPS, TRAIN_LR = 10, 1e-3  # the JAX package's hardware smoke's learning rate
+# the step-0 loss in bf16 against the same function on a float32 copy of the
+# params: every product sums in float32 on both sides, so only the bf16
+# rounding of activations between the products differs, and the loss is a
+# mean of ~6k cross-entropies: 1.2e-6 to 4.7e-6 relative over the loss and
+# its two parts (H100); a wrong mask, target or schedule moves it by O(1)
+TRAIN_LOSS_REL = 1e-4
+# the gradients of lm_head, layer 0's wq, the MTP heads and text_embed, bf16
+# against float32, by cosine: 0.99964 to 0.99988 (H100)
+TRAIN_GRAD_COS = 0.995
+# tts_loss under no grad with the talker on K8 against attend_xla's: K8 keeps
+# the softmax weights in float32 where attend_xla rounds them to bf16 before
+# P.V, ~2^-9 relative per output, compounded over 28 layers: 5.1e-5 (H100)
+K8_LOSS_REL = 1e-3
+# the draft trainer with its teacher on K8: TEACHER_B rows of TEACHER_FRAMES
+# frames (S = T = prompt + frames), d_model 512, DRAFT_STEPS Adam steps
+TEACHER_B, TEACHER_FRAMES, DRAFT_STEPS, DRAFT_LR = 8, 128, 20, 3e-3
+# the tool end to end on a 0.6B checkpoint
+TOOL_ARGS = ("--frames", "32", "--temperatures", "0.0", "--steps", "20")
+TOOL_TEXT = "hello world, a draft trained on this checkpoint"
+
+
+def train_batch(B, text, frames, gen):
+    """A seeded right-padded batch on the card: text lengths in [text/2,
+    text], real frames in [frames/2, frames - 1] (the EOS target inside)."""
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEV)
+
+    return {"text_ids": draw(0, 150000, (B, text)), "text_len": draw(text // 2, text + 1, (B,)),
+            "codes": draw(0, 2048, (B, frames, 16)),
+            "num_frames": draw(frames // 2, frames, (B,))}
+
+
+def pallas_talker(cfg):
+    """``cfg`` with the talker's attention on K8."""
+    t = cfg.talker
+    return dataclasses.replace(cfg, talker=dataclasses.replace(
+        t, transformer=dataclasses.replace(t.transformer, attn_impl="pallas")))
+
+
+def float32_model(cfg, params):
+    """A float32 copy of the modules the loss reads, and the config that runs
+    them in float32."""
+    def f32(t):
+        return dataclasses.replace(t, dtype="float32")
+
+    cfg32 = dataclasses.replace(
+        cfg, talker=dataclasses.replace(cfg.talker, transformer=f32(cfg.talker.transformer)),
+        code_predictor=dataclasses.replace(
+            cfg.code_predictor, transformer=f32(cfg.code_predictor.transformer)))
+
+    def copy(node):
+        if isinstance(node, dict):
+            return {k: copy(v) for k, v in node.items()}
+        return node.detach().float().requires_grad_(True)
+
+    return cfg32, {k: copy(params[k]) for k in ("talker", "code_predictor", "embeddings")}
+
+
+GRAD_LEAVES = {  # the leaves whose step-0 gradients are compared
+    "lm_head": lambda p: p["talker"]["lm_head"],
+    "talker wq, layer 0": lambda p: p["talker"]["transformer"]["layers"]["wq"],
+    "MTP heads": lambda p: p["code_predictor"]["heads"],
+    "text_embed": lambda p: p["embeddings"]["text_embed"],
+}
+
+
+def loss_and_grads(cfg, params, batch):
+    """tts_loss and the GRAD_LEAVES' gradients (float32 copies; layer 0 of
+    wq); the leaves' .grad are cleared after."""
+    m = tts_loss(cfg, params, *(batch[k] for k in ("text_ids", "text_len", "codes",
+                                                      "num_frames")))
+    m.loss.backward()
+    grads = {}
+    for name, leaf in GRAD_LEAVES.items():
+        g = leaf(params).grad
+        grads[name] = (g[0] if name.startswith("talker wq") else g).float().clone()
+    for p in param_leaves(params):
+        p.grad = None
+    return LossMetrics(*(float(x.detach()) for x in m)), grads
+
+
+def cosine(a, b) -> float:
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def train_steps(cfg, gen, card_line, d):
+    """Phase 17 (a) and (b): the 0.6B train step, bf16 against float32 at
+    step 0, the talker on K8 refused under grad and equal without it, then
+    TRAIN_STEPS steps.  Writes the seed's weights to the checkpoint
+    directory ``d`` first (ten steps on random codes teach the talker early
+    EOS, and the tool's rollouts would come out too short).  Returns (launch
+    counts, the trained params)."""
+    keys = ("text_ids", "text_len", "codes", "num_frames")
+    L = cfg.talker.transformer.num_layers
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    save_checkpoint(d, cfg, params)
+    byte_level_tokenizer(d)
+    batch = train_batch(TRAIN_B, TRAIN_TEXT, TRAIN_FRAMES, gen)
+    frames = int(batch["num_frames"].sum())
+    tx = make_optimizer(learning_rate=TRAIN_LR)
+    state = init_train_state(params, tx)
+
+    # (a) step 0 in bf16 against a float32 copy of the same params
+    m16, g16 = loss_and_grads(cfg, params, batch)
+    cfg32, p32 = float32_model(cfg, params)
+    m32, g32 = loss_and_grads(cfg32, p32, batch)
+    del p32
+    torch.cuda.empty_cache()
+    rels = {k: abs(a - b) / abs(b) for k, a, b in zip(("loss", "talker", "mtp"), m16, m32)}
+    coss = {k: cosine(g16[k], g32[k]) for k in GRAD_LEAVES}
+    ok = (max(rels.values()) <= TRAIN_LOSS_REL and min(coss.values()) >= TRAIN_GRAD_COS
+          and int(m16.frames) == frames)
+    log(f"train step 0 ({cfg.name}, {L} talker layers, B={TRAIN_B}, {TRAIN_TEXT} text tokens, "
+        f"{TRAIN_FRAMES} frames, {frames} real): {cfg.talker.transformer.dtype} loss "
+        f"{m16.loss:.5f} (talker {m16.talker_loss:.5f}, mtp {m16.mtp_loss:.5f}), float32 "
+        f"{m32.loss:.5f} (talker {m32.talker_loss:.5f}, mtp {m32.mtp_loss:.5f}); relative "
+        "differences " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+        + f" (limit {TRAIN_LOSS_REL}); gradient cosines "
+        + ", ".join(f"{k} {v:.5f}" for k, v in coss.items())
+        + f" (floor {TRAIN_GRAD_COS}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("train step 0: bf16 disagrees with float32")
+
+    # (b) the talker on K8: refused under grad, the xla loss without it
+    pcfg = pallas_talker(cfg)
+    reset_launches()
+    try:
+        tts_loss(pcfg, params, *(batch[k] for k in keys))
+    except RuntimeError as e:
+        if "no gradient" not in str(e):
+            raise
+        log(f"tts_loss with the talker on K8 under grad: refused ({e})")
+    else:
+        raise RuntimeError("tts_loss with the talker on K8 ran under grad")
+    with torch.no_grad():
+        mp = tts_loss(pcfg, params, *(batch[k] for k in keys))
+    counts = check_launches(f"tts_loss with the talker on K8, no grad ({L} K8)",
+                            counts_of(K8=L))
+    rel = abs(float(mp.loss) - m16.loss) / m16.loss
+    log(f"tts_loss, talker on K8, no grad: {float(mp.loss):.5f} against attend_xla's "
+        f"{m16.loss:.5f}: relative {rel:.2e} (limit {K8_LOSS_REL})")
+    if not rel <= K8_LOSS_REL:
+        raise RuntimeError("tts_loss on K8 disagrees with attend_xla")
+
+    # TRAIN_STEPS steps on the batch, the loss falling
+    step = make_train_step(cfg, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m.loss))  # a sync
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = sum(secs[1:]) / (len(secs) - 1) * 1e3
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0] and state.step == TRAIN_STEPS
+    log(f"train steps (AdamW lr {TRAIN_LR}, clip 1.0, {cfg.name} "
+        f"{cfg.talker.transformer.dtype}): losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; {ms:.1f} ms per step over the last {TRAIN_STEPS - 1} (first "
+        f"{secs[0] * 1e3:.1f} ms), {frames / ms * 1e3:.1f} frames/s ({frames} real frames a "
+        f"step), peak {peak:.2f} GiB allocated -> {'ok' if ok else 'FAIL'} [{card_line}]")
+    if not ok:
+        raise RuntimeError("train steps: the loss did not fall")
+    return counts, params
+
+
+def draft_steps(cfg, params, gen, card_line):
+    """Phase 17 (c): K8 at the teacher's shape against its plain version,
+    then DRAFT_STEPS draft steps with the teacher pass on K8 and the loss
+    falling.  Returns (launch counts, the K8 check)."""
+    keys = ("text_ids", "text_len", "codes", "num_frames")
+    t = cfg.talker.transformer
+    S = prompt_length(None) + TEACHER_FRAMES
+    k8 = check_k8("draft teacher", TEACHER_B, S, S, t.num_heads, t.num_kv_heads, "teacher",
+                  gen, iters=20)
+    pcfg = pallas_talker(cfg)
+    dcfg = DraftConfig(hidden_size=t.hidden_size, codec_vocab_size=cfg.talker.codec_vocab_size,
+                       subcode_vocab_size=cfg.code_predictor.subcode_vocab_size, dtype=t.dtype)
+    dp = init_draft_params(dcfg, gen, DEV)
+    batch = train_batch(TEACHER_B, TRAIN_TEXT, TEACHER_FRAMES, gen)
+    tx = adam(DRAFT_LR)
+    opt = tx.init(dp)
+    step = make_draft_train_step(pcfg, dcfg, tx)
+    reset_launches()
+    with torch.no_grad():
+        m0 = draft_loss(pcfg, dcfg, params, dp, *(batch[k] for k in keys))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DRAFT_STEPS):
+        dp, opt, m = step(dp, opt, params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DRAFT_STEPS
+    counts = check_launches(f"draft trainer, teacher on K8 ({DRAFT_STEPS + 1} teacher passes)",
+                            counts_of(K8=(DRAFT_STEPS + 1) * t.num_layers))
+    ok = float(m.loss) < float(m0.loss)
+    log(f"draft trainer (d_model {dcfg.d_model}, Adam lr {DRAFT_LR}, teacher on K8 at B="
+        f"{TEACHER_B}, S=T={S}): loss {float(m0.loss):.4f} -> {float(m.loss):.4f} over "
+        f"{DRAFT_STEPS} steps, {ms:.1f} ms per step (the teacher pass included) "
+        f"-> {'ok' if ok else 'FAIL'} [{card_line}]")
+    if not ok:
+        raise RuntimeError("draft trainer: the loss did not fall")
+    return counts, k8
+
+
+def draft_tool(d):
+    """Phase 17 (d): ``tools.train_draft`` on the checkpoint ``d``, then a
+    spec_k engine on what it wrote drafting with the trained head and
+    decoding the sequential engine's greedy codes.  Returns launch counts."""
+    out = d + "-draft"
+    reset_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_draft_main(["--model", d, "--out", out, *TOOL_ARGS])
+    lines = buf.getvalue().strip().splitlines()
+    report = json.loads(lines[-1]) if rc == 0 and lines else {}
+    log(f"tools.train_draft {' '.join(TOOL_ARGS)}: rc {rc} in {time.perf_counter() - t0:.1f} "
+        f"s: {report}")
+    if rc != 0 or not report["loss_after"] < report["loss_before"]:
+        raise RuntimeError("tools.train_draft failed or its loss did not fall")
+    n = launches()[0]
+    counts = check_launches("train_draft's rollouts (bf16 units: one K1 and one K3 a frame)",
+                            counts_of(K1=n, K3=n))
+    if not n:
+        raise RuntimeError("train_draft's rollouts launched no K1")
+    eng = TTSEngine(out, spec_k=SPEC_K)
+    if not eng.is_ready():
+        raise RuntimeError(f"engine on the trained checkpoint: {eng.get_error()}")
+    if eng.cfg.draft is None or "draft" not in eng.params:
+        raise RuntimeError("the trained checkpoint carries no draft")
+    drafted = []
+    real = draft_module.draft_predict
+    draft_module.draft_predict = lambda *a: (drafted.append(1), real(*a))[1]
+    reset_launches()
+    kw = dict(language="en", temperature=0.0, max_tokens=32)
+    try:
+        b = eng.synthesize(TOOL_TEXT, **kw)
+    finally:
+        draft_module.draft_predict = real
+    eng.spec_k = None  # the same engine, sequential
+    a = eng.synthesize(TOOL_TEXT, **kw)
+    got = launches()
+    c = check_launches(f"spec_k={SPEC_K} and sequential on the trained checkpoint", got)
+    same = np.array_equal(a.codes, b.codes)
+    ok = bool(drafted) and same and got[KERNEL_IDS.index("K6")] and got[KERNEL_IDS.index("K5")]
+    log(f"spec_k={SPEC_K} engine on the trained checkpoint: drafted with the trained head "
+        f"{len(drafted)} times, greedy codes {'equal' if same else 'UNEQUAL'} to the "
+        f"sequential engine's ({len(a.codes)} frames) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("spec engine on the trained checkpoint")
+    return [x + y for x, y in zip(counts, c)]
+
+
+def train_phase(tok, gen, card_line, cfg=QWEN3_TTS_06B):
+    """Phase 17: the training path at the 0.6B preset's full depth.  Returns
+    (launch counts, the K8 teacher-shape check, bounds)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "qwen3-tts-0.6b")
+        counts, params = train_steps(cfg, gen, card_line, d)
+        torch.cuda.empty_cache()
+        c, k8 = draft_steps(cfg, params, gen, card_line)
+        del params
+        torch.cuda.empty_cache()
+        counts = [x + y + z for x, y, z in zip(counts, c, draft_tool(d))]
+    torch.cuda.empty_cache()
+    log(f"train phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
+    return counts, k8, {"K8 teacher": k8[4]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
@@ -6063,6 +6382,16 @@ def main() -> int:
     gen18.manual_seed(SEED + 18)
     mix_counts, mix_checks, mix_bounds = finish_phase(tok, gen18, card_line)
     bounds.update(mix_bounds)
+    # the training slice draws from a generator of its own, as K4's
+    gen19 = torch.Generator(device=DEV)
+    gen19.manual_seed(SEED + 19)
+    train, k8_teacher, train_bounds = train_phase(tok, gen19, card_line)
+    bounds.update(train_bounds)
+    # its engines run bf16 units: K1, K3 and K5 join the bf16 rows, K6 the K6
+    # bf16 row; its K8 launches are the teacher passes
+    k8i = KERNEL_IDS.index("K8")
+    bf16 = [b + (0 if i == k8i else n) for i, (b, n) in enumerate(zip(bf16, train))]
+    precision["K6 bf16"] += train[KERNEL_IDS.index("K6")]
     k7i = KERNEL_IDS.index("K7")
     mixed = {k: c[k7i] + cli_k7.get(k, 0) for k, c in mix_counts.items()}
     total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, past32, entry, voice, probed,
@@ -6072,7 +6401,8 @@ def main() -> int:
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)) + "; int8 KV cache: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, kvq)) + "; precision flags: "
         + ", ".join(f"{k} {n}" for k, n in precision.items()) + "; K7 unit mixes: "
-        + ", ".join(f"{k} {n}" for k, n in mixed.items()))
+        + ", ".join(f"{k} {n}" for k, n in mixed.items()) + "; training: "
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, train)))
 
     def entry(name, source, replaces, launched, checks, bound_key, library_ms=None):
         # library_ms: one PyTorch call computing the same function, where one
@@ -6104,8 +6434,12 @@ def main() -> int:
         entry("fused_verify_step", "fused_verify.cu", "fused_verify.py:473", total[4], k6, "K6"),
         entry("fused_mtp_chain_streamed", "fused_mtp_stream.cu", "fused_mtp_stream.py:372",
               total[5], k3, "K3"),
-        entry("flash_attend", "flash_attention.cu", "flash_attention.py:81", total[6], k8, "K8",
-              library_ms=k8[0][3]),
+        entry("flash_attend", "flash_attention.cu", "flash_attention.py:81",
+              total[6] + train[k8i], k8, "K8", library_ms=k8[0][3]),
+        # the draft trainer's frozen teacher pass: B=8, S = T = prompt + 128
+        # frames, padded frames masked as keys
+        entry("flash_attend (K8 draft teacher)", "flash_attention.cu", "flash_attention.py:81",
+              train[k8i], [k8_teacher], "K8 teacher", library_ms=k8_teacher[3]),
         entry("fused_frame_step", "fused_frame.cu", "fused_frame.py:245", total[7], k7, "K7"),
         entry("a8_probe", "unit_probe.cu", "tools/a8_probe.py:93", total[8], probe_checks["P1"],
               "P1"),

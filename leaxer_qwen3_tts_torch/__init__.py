@@ -6,8 +6,9 @@ acoustic codes -> causal codec vocoder -> 24 kHz audio.  The talker's decode
 step (kernel K1 at B=1, K4 at B >= 2) and the MTP sub-code chain (K2, K5)
 are hand-written CUDA kernels (``csrc/``); everything else is plain PyTorch.
 Batched serving lives in ``serve`` (continuous-batching pool, batching
-server, HTTP facade).  Entry points: ``python -m leaxer_qwen3_tts_torch.cli``
-and ``python -m leaxer_qwen3_tts_torch.serve``.  Importing the package
+server, HTTP facade), fine-tuning in ``training``.  Entry points: ``python -m
+leaxer_qwen3_tts_torch.cli``, ``python -m leaxer_qwen3_tts_torch.serve`` and
+``python -m leaxer_qwen3_tts_torch.tools.train_draft``.  Importing the package
 imports no torch (``--help`` stays fast); its attributes load on first use.
 """
 

@@ -1,19 +1,21 @@
 """Trained draft head for frame-level speculative decoding (EAGLE-style).
 
-Port of ``leaxer_qwen3_tts_tpu/models/draft.py`` (inference side).  It
-predicts the next frames' 16 codec codes from the pending frame's talker
-hidden state and input-embed sum, the two exact quantities
-``runtime/speculative.py`` carries between iterations:
+Port of ``leaxer_qwen3_tts_tpu/models/draft.py``.  It predicts the next
+frames' 16 codec codes from the pending frame's talker hidden state and
+input-embed sum, the two exact quantities ``runtime/speculative.py``
+carries between iterations:
 
     x_0     = gelu(LN([hidden ; embed]) @ W_in)
     codes_j = argmax(x_j @ head0), argmax(x_j @ heads_sub[i])   (16 heads)
     x_{j+1} = gelu(LN([x_j ; frame_embed(codes_j)]) @ W_rec)
 
-``frame_embed`` reuses the main model's codec and MTP embedding tables.  The
-draft never changes what is committed (the verify pass produces every
-committed code), only how many frames an iteration commits.  It is a few
-small products per iteration, so it runs as plain PyTorch, on the card too,
-as the JAX package leaves it to XLA outside any Pallas kernel.  Its products
+``frame_embed`` reuses the main model's codec and MTP embedding tables, and
+:func:`draft_forward_teacher` gives the teacher-forced logits that
+``training/draft_loss.py`` trains it on.  The draft never changes what is
+committed (the verify pass produces every committed code), only how many
+frames an iteration commits.  It is a few small products per iteration, so
+it runs as plain PyTorch, on the card too, as the JAX package leaves it to
+XLA outside any Pallas kernel.  Its products
 take bf16 operands with float32 sums (``preferred_element_type=float32``)
 and its GELU is the tanh approximation (``jax.nn.gelu``'s default).
 """
@@ -102,6 +104,31 @@ def draft_predict(
         out.append(codes.to(torch.int32))
         x = _state_rec(cfg, params, x, _frame_embed_sum(embeddings, codes))
     return torch.stack(out, dim=1)
+
+
+def draft_forward_teacher(
+    cfg: DraftConfig,
+    params: dict,
+    embeddings: dict,
+    hiddens: torch.Tensor,  # [B, F, H] talker hidden at each frame
+    embeds: torch.Tensor,  # [B, F, H] frame-embed sums at each frame
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+    """Teacher-forced logits for training.
+
+    step-1: x from (hidden_f, embed_f)   -> predicts codes_{f+1}
+    step-2: x' from (x, embed_{f+1})     -> predicts codes_{f+2}
+    Returns ((l0_s1, lsub_s1), (l0_s2, lsub_s2)): logits0 [B, n, Vc] and
+    logits_sub [B, n, 15, Vs], float32, with n = F for step 1 and F - 1 for
+    step 2.  ``embeddings`` is unused, as in the JAX package."""
+
+    def logits(x):
+        B, n, D = x.shape
+        l0, ls = _head_logits(params, x.reshape(B * n, D))
+        return l0.reshape(B, n, -1), ls.reshape(B, n, ls.shape[1], ls.shape[2])
+
+    x1 = _state_in(cfg, params, hiddens, embeds)  # [B, F, D]
+    x2 = _state_rec(cfg, params, x1[:, :-1], embeds[:, 1:])  # [B, F-1, D]
+    return logits(x1), logits(x2)
 
 
 def model_draft_fn(cfg: DraftConfig, params: dict, embeddings: dict) -> Callable:

@@ -368,3 +368,46 @@ def transformer_forward(
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, cache._replace(length=length + S), valid_mask
+
+
+def transformer_forward_nocache(
+    cfg: TransformerConfig,
+    params: dict,
+    embeds: torch.Tensor,  # [B, S, H]
+    positions: Optional[torch.Tensor] = None,  # [B, S] int (default: 0..S-1)
+    valid: Optional[torch.Tensor] = None,  # [B, S] bool
+) -> torch.Tensor:
+    """Plain causal forward without a cache (the training and scoring path):
+    query i attends to key t iff t <= i and ``valid[b, t]``.  Differentiable
+    with respect to the stacked layer leaves (separate or fused projections).
+    Returns post-final-norm hidden states [B, S, H]."""
+    B, S, H = embeds.shape
+    device = embeds.device
+    if positions is None:
+        positions = torch.arange(S, device=device).expand(B, S)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    ids = torch.arange(S, device=device)
+    attn_mask = (ids[None, :] <= ids[:, None]).expand(B, S, S)
+    if valid is not None:
+        attn_mask = attn_mask & valid[:, None, :]
+    nq, nk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    x = embeds
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        p = layer_params(layers, i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, p, h, x.dtype)
+        q = q.reshape(B, S, nq, d)
+        k = k.reshape(B, S, nk, d)
+        v = v.reshape(B, S, nk, d)
+        if cfg.use_qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
+            k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        out = attend(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask, impl=cfg.attn_impl)
+        x = x + dense(out.reshape(B, S, nq * d), p["wo"]).to(x.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

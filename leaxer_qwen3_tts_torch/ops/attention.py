@@ -77,7 +77,9 @@ def attend(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention by ``impl`` ("xla" or "pallas", the config's ``attn_impl``);
-    ``k_scale`` / ``v_scale``: the scales of an int8 cache."""
+    ``k_scale`` / ``v_scale``: the scales of an int8 cache.  "pallas" has no
+    gradient: under autograd with q, k or v requiring grad it raises, as
+    ``jax.grad`` through the JAX flash kernel does."""
     if impl == "xla":
         return attend_xla(q, k, v, mask, k_scale=k_scale, v_scale=v_scale)
     if impl == "pallas":

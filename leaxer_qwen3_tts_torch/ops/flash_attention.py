@@ -24,6 +24,12 @@ query positions per block (:func:`query_tile`), each block's key-tile range
 and the rows that allow no key (:func:`key_schedule`), the plain version run
 over only that range (:func:`flash_attend_scheduled`), and its P.V with P
 split into two bf16 terms (:func:`split_pv`).
+
+K8 has no gradient, as the JAX flash kernel has none (``jax.grad`` through
+it fails to linearize).  So :func:`flash_attend` refuses to run where
+autograd records and q, k or v requires grad, on every device: training
+takes ``attn_impl="xla"``, and a frozen pass (the draft trainer's teacher)
+runs K8 under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -181,7 +187,13 @@ def flash_attend(
     v: torch.Tensor,  # [B, Nk, T, D]
     mask: torch.Tensor,  # [B, S, T] bool
 ) -> torch.Tensor:
-    """Flash attention; returns [B, S, Nq, D] in q.dtype."""
+    """Flash attention; returns [B, S, Nq, D] in q.dtype.  Raises where
+    autograd would record it (see the module's docstring)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attend has no gradient: the JAX flash kernel has none, so kernel K8 has "
+            "none; train with attn_impl='xla', or run this pass under torch.no_grad()"
+        )
     if q.device.type == "cpu":
         return flash_attend_reference(q, k, v, mask)
     if q.device.type != "cuda":

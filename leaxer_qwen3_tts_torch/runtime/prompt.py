@@ -27,6 +27,7 @@ from ..config import (
     CODEC_THINK,
     CODEC_THINK_BOS,
     CODEC_THINK_EOS,
+    IM_END,
     IM_START,
     TTS_BOS,
     TTS_EOS,
@@ -69,6 +70,11 @@ def tts_embeds(emb_params: dict, device) -> torch.Tensor:
     the same values (a product's rounding may depend on its shape)."""
     ids = torch.tensor([TTS_BOS, TTS_EOS, TTS_PAD], dtype=torch.long, device=device)
     return text_project(emb_params, ids)
+
+
+def wrap_text_ids(text_tokens: list) -> list:
+    """Full chat wrapping: [IM_START, ASSISTANT, TTS_BOS, *text, TTS_EOS, IM_END]."""
+    return [IM_START, ASSISTANT, TTS_BOS, *text_tokens, TTS_EOS, IM_END]
 
 
 def build_prompt(

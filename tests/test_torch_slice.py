@@ -251,7 +251,11 @@ def test_port_imports_no_jax():
             "leaxer_qwen3_tts_torch.frontend.mel", "leaxer_qwen3_tts_torch.utils.profiling",
             "leaxer_qwen3_tts_torch.utils.logging", "leaxer_qwen3_tts_torch.runtime.weights",
             "leaxer_qwen3_tts_torch.parallel.mesh", "leaxer_qwen3_tts_torch.ops.fused_tp",
-            "leaxer_qwen3_tts_torch.ops.fused_mtp_tp"} <= modules
+            "leaxer_qwen3_tts_torch.ops.fused_mtp_tp", "leaxer_qwen3_tts_torch.training",
+            "leaxer_qwen3_tts_torch.training.loss", "leaxer_qwen3_tts_torch.training.train_step",
+            "leaxer_qwen3_tts_torch.training.draft_loss",
+            "leaxer_qwen3_tts_torch.training.checkpoint",
+            "leaxer_qwen3_tts_torch.tools.train_draft"} <= modules
     # no kernel ran on the CPU
     assert fused_step.fused_decode_step.launches == 0
     assert fused_mtp.fused_mtp_chain.launches == 0
