@@ -156,8 +156,8 @@ prints the final line:
    ``synthesize(instruct=...)`` and ``synthesize_speaker("serena")`` through
    the engine and a fixed 300-frame instruct run: one K1 and one K3 per
    decoded frame, no K2, and 28 K8 launches per prefill.  With
-   ``QTTS_MTP_STREAM=0`` (the streamed chain off) the 1.7B engine is not
-   ready: its error names the per-step chain, which is not ported.
+   ``QTTS_MTP_STREAM=0`` (the streamed chain off) the same engine decodes a
+   request on the per-step chain: one K1 per chain position, no K3.
 12. bf16 weight units (``quantize`` unset, the CLI's and the server's
    default; bits=16 packs: raw weights as bf16 with scales of one).
    Anchors: K1 (0.6B talker at T=256 and 2560, split edges and the last
@@ -300,14 +300,37 @@ prints the final line:
    engine at bf16 units, one K1 and one K3 a frame): rc 0, the loss
    falling; a ``spec_k=4`` engine on the checkpoint it wrote drafts with
    the trained head and decodes the sequential engine's greedy codes.
-18. The kernel report (each kernel's launches on the main paths, error
+18. ``routes_phase``: the JAX package's routes outside its step and chain
+   kernels at the 0.6B widths.  K1 and K4 at the MTP trunk inside the
+   per-step chain (B=1 and 4, greedy), every step against the plain version
+   on a copy of its caches, at 6 layers (K1's deep limits) and one layer
+   (the one-layer limits and tight share); a shared-head checkpoint saved
+   and loaded (one K1 per chain position) and a pool of one slot on it (K4
+   at one row); the iSTFT vocoder at the
+   preset's widths, chunked at its left context against whole decoding and
+   the card against the CPU; K8 at head_dims 17-256 and 1-32 q heads per kv
+   head against its plain version (K8_BF16_REL, K8_BF16_FLIPS), timed
+   beside SDPA, and on a main path (a talker of head_dim 80 and 32 q heads
+   per kv head, its depth cut to REACH_LAYERS); the plain attention's
+   memory at B=32, T=2560.  Beside the build (``beside_build``, while
+   phase 2's compilers run on a thread): the plain talker (``decode_impl=
+   "xla"``) with the cached and with the dense chain (B=1,
+   ``synthesize_batch`` B=4, a pool of 2, spec_k=4; no kernel launched),
+   after the profiler's one-time set-up.  Before it, in phase 6's engines,
+   the 0.6B preset at ``mtp_resident=False`` (B=1, ``synthesize_batch``
+   B=8, spec k=4: one K1 or K4 per chain position, no chain kernel), and in
+   phase 11
+   the 1.7B engine with ``QTTS_MTP_STREAM=0`` (the per-step chain).  Every
+   phase before this one runs with ``QTTS_ASSERT_FUSED=1``.
+19. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
    K1, K4, K6 and K7 once more for the int8 KV cache; K9 per step, K10 per
    chain; K1 int4, K2 / K3 int4 and mixed heads, K6 bf16; K4 / K6 int4,
    K5 int4 and mixed heads, K4 / K5 / K6 bf16 at 1.7B; K7 at each unit
-   mix, on a bf16 and an int8 cache; K8 at the draft teacher's shape) and
-   the device line; it fails if any
+   mix, on a bf16 and an int8 cache; K8 at the draft teacher's shape; K1
+   and K4 at the MTP trunk in the per-step chain; K8 at the head_dims and
+   groups the presets do not use) and the device line; it fails if any
    kernel in it never launched.
 """
 
@@ -345,7 +368,7 @@ from leaxer_qwen3_tts_torch.config import (
 )
 from leaxer_qwen3_tts_torch.frontend import Tokenizer, write_wav
 from leaxer_qwen3_tts_torch.frontend._bpe_py import byte_to_proxy
-from leaxer_qwen3_tts_torch.models.code_predictor import chain_kernel, chain_pack
+from leaxer_qwen3_tts_torch.models.code_predictor import chain_kernel, chain_pack, chain_route
 from leaxer_qwen3_tts_torch.models.codec12hz import vocoder_forward
 from leaxer_qwen3_tts_torch.models import draft as draft_module
 from leaxer_qwen3_tts_torch.models.draft import init_draft_params
@@ -468,6 +491,7 @@ VOICE_INSTRUCT = "a warm and low voice, speaking slowly and clearly"
 # K1 at the 1.7B widths on one layer: a bucket's first split edge and the
 # last slot of the 1024 bucket, float32 and bf16 caches
 K1_17B_SHALLOW_CASES = ((256, 63), (1024, 1023))
+STREAM_OFF_FRAMES = 12  # the 1.7B per-step chain's request (QTTS_MTP_STREAM=0)
 # K3 runs K2's arithmetic with a float32 cache, so on the same inputs the two
 # agree bit for bit; a K3-only fault does not: a bf16 scratch moves the 6-layer
 # trunk's x by ~1e-2 relative and flips a near-tie sub-code in a few percent
@@ -498,6 +522,15 @@ K8_RANDOM_SHAPES = ((2, 37, 301, 16, 8), (1, 5, 23, 8, 2), (3, 17, 130, 16, 2), 
 K8_SCHEDULE_CASES = ((2, 9, 150, 16, 2, "dead rows"), (2, 37, 301, 16, 8, "dead rows"),
                      (1, 57, 256, 16, 8, "last tile"), (2, 9, 150, 4, 4, "last tile"),
                      (1, 1, 150, 8, 1, "last tile"))
+# K8's reach (B, S, T, nq, nk, d, kind): every head_dim the presets do not
+# use (64, 80 and 96 zero-padded to 128 in the kernel's tiles, 256, and two
+# that are no multiple of 8: 100, copied value by value, and the odd 17) and
+# every q-per-kv group 1..32 (32: a kv head's q heads over two blocks)
+K8_REACH_CASES = ((1, 57, 256, 16, 8, 64, "prefill"), (2, 17, 130, 8, 8, 80, "random"),
+                  (1, 33, 200, 16, 4, 96, "dead rows"), (1, 57, 256, 16, 2, 128, "prefill"),
+                  (1, 40, 256, 16, 1, 256, "random"), (2, 9, 150, 32, 1, 128, "dead rows"),
+                  (1, 21, 100, 64, 2, 64, "random"), (1, 13, 90, 6, 2, 100, "random"),
+                  (1, 7, 40, 4, 2, 17, "last tile"))
 # K7 (the whole frame) at the 0.6B widths, (T, pos): the first slot past a
 # 64-slot split edge and the last slot, in the first bucket and in the 2560
 # bucket; greedy and two sampled knob sets; K7_INPUTS seeded inputs each (EOS
@@ -2240,8 +2273,8 @@ def check_k3_equals_k2(cp, fw, heads, tables, fnorm, gen, iters, inputs=K3_EQUAL
     return k3_ms, k2_ms
 
 
-def k8_case(B, S, T, nq, nk, kind, dtype, gen):
-    """Seeded q [B, S, nq, 128], k and v [B, nk, T, 128] and a mask [B, S, T].
+def k8_case(B, S, T, nq, nk, kind, dtype, gen, d=128):
+    """Seeded q [B, S, nq, d], k and v [B, nk, T, d] and a mask [B, S, T].
     kind "prefill": query i at position i over a T-slot bucket (the engine's
     prefill); "random": queries at T-S..T-1, batch b's keys valid below a
     random length, and batch 0's first row masked everywhere; "dead rows":
@@ -2250,7 +2283,6 @@ def k8_case(B, S, T, nq, nk, kind, dtype, gen):
     "teacher": the draft trainer's teacher pass, query i at position i
     (S = T) and batch b's keys valid below a random length in [T/2, T] (its
     right-padded frames masked as keys)."""
-    d = 128
     q = torch.randn((B, S, nq, d), generator=gen, device=DEV).to(dtype)
     k = torch.randn((B, nk, T, d), generator=gen, device=DEV).to(dtype)
     v = torch.randn((B, nk, T, d), generator=gen, device=DEV).to(dtype)
@@ -2283,7 +2315,7 @@ def attn_bound(q, k, mask):
     return bound(moved, 4 * d * nq * int(mask.sum()))
 
 
-def check_k8(name, B, S, T, nq, nk, kind, gen, iters=0):
+def check_k8(name, B, S, T, nq, nk, kind, gen, iters=0, d=128):
     """K8 against its plain version on one seeded case in float32 (within
     K8_F32_ABS) and in bf16 (within K8_BF16_REL of the largest output, and
     at most K8_BF16_FLIPS of the outputs differing at all); the rows that
@@ -2296,7 +2328,7 @@ def check_k8(name, B, S, T, nq, nk, kind, gen, iters=0):
     res = {}
     Tp = K8.padded_keys(T)
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, mask = k8_case(B, S, T, nq, nk, kind, dtype, gen)
+        q, k, v, mask = k8_case(B, S, T, nq, nk, kind, dtype, gen, d)
         out = K8.flash_attend(q, k, v, mask)
         ref = K8.flash_attend_reference(q, k, v, mask)
         dead = ~mask.any(dim=-1)  # [B, S]
@@ -2309,7 +2341,7 @@ def check_k8(name, B, S, T, nq, nk, kind, gen, iters=0):
                       int(dead.sum()))
     (e32, _, fin32, _, c32, n_dead), (e16, m16, fin16, flips, c16, _) = (
         res[torch.float32], res[torch.bfloat16])
-    n_out = B * S * nq * 128
+    n_out = B * S * nq * d
     ok = (fin32 and fin16 and e32 <= K8_F32_ABS and e16 <= K8_BF16_REL * m16
           and flips <= K8_BF16_FLIPS * n_out and c32 <= K8_F32_ABS and c16 <= K8_BF16_REL * m16)
     ms = plain_ms = lib_ms = dev_ms = float("nan")
@@ -2326,7 +2358,8 @@ def check_k8(name, B, S, T, nq, nk, kind, gen, iters=0):
         f"; {n_dead} rows allow no key: max |out - sum v / {Tp}| float32 {c32:.3e}, bf16 "
         f"{c16:.3e}")
     b_ms, b_by = attn_bound(q, k, mask)
-    log(f"K8 {name} ({kind}): B={B} S={S} T={T} nq={nq} nk={nk} float32 max_abs_err={e32:.3e} (tol "
+    log(f"K8 {name} ({kind}): B={B} S={S} T={T} nq={nq} nk={nk} d={d} float32 "
+        f"max_abs_err={e32:.3e} (tol "
         f"{K8_F32_ABS}) bf16 max_abs_err={e16:.3e} (tol {K8_BF16_REL * m16:.3e}), bf16 outputs "
         f"differing {flips}/{n_out} (limit {K8_BF16_FLIPS * n_out:.0f}){masked}; kernel "
         f"{ms:.4f} ms (device {dev_ms * 1e3:.2f} us per call, profiler) plain {plain_ms:.4f} ms "
@@ -2464,18 +2497,13 @@ def cli_phase(d, tmp, card_line):
             bf16_ms, [sum(c) for c in zip(*kvq_counts)], spec_counts)
 
 
-def serve_phase(d, card_line, flag_sets):
+def start_servers(d, flag_sets):
     """``python -m leaxer_qwen3_tts_torch.serve`` as one subprocess per flag
     set (``(quantize, extra)``: ``--quantize quantize``, or none: bf16 units;
     then the ``extra`` flags), all started at once, so that their boots
-    overlap (each one's seconds to serve are then under that contention):
-    each one's warmup, two requests (one streamed), exit 0 on SIGINT.
-    Returns their warmup seconds."""
-    return finish_servers(start_servers(d, flag_sets), card_line)
-
-
-def start_servers(d, flag_sets):
-    """Start serve_phase's subprocesses; finish_servers waits for them."""
+    overlap (each one's seconds to serve are then under that contention);
+    ``finish_servers`` waits for each one's warmup, sends two requests (one
+    streamed) and checks its exit 0 on SIGINT."""
     servers = []
     try:
         for quantize, extra in flag_sets:
@@ -2499,7 +2527,7 @@ def start_servers(d, flag_sets):
 
 
 def finish_servers(servers, card_line, kill=False):
-    """serve_phase on started servers (``kill``: stop them, nothing else);
+    """The requests to started servers (``kill``: stop them, nothing else);
     every server is stopped on the way out, whatever failed.  Returns their
     warmup seconds."""
     try:
@@ -2512,7 +2540,7 @@ def finish_servers(servers, card_line, kill=False):
 
 
 def _serve(quantize, extra, proc, lines, reader, t0, card_line, booted):
-    """One server of serve_phase: wait for its "serving on" line, send its
+    """One started server: wait for its "serving on" line, send its
     requests, stop it.  Returns its warmup seconds."""
     seen, port, warm_s = [], None, None
     deadline = t0 + SERVE_START_S
@@ -2606,61 +2634,77 @@ def entry_phase(tok, card_line):
         save_s = time.perf_counter() - t0
         gb = os.path.getsize(os.path.join(d, "params.npz")) / 1e9
         byte_level_tokenizer(d)
-        t0 = time.perf_counter()
-        lcfg, lparams = load_checkpoint(d)
-        load_s = time.perf_counter() - t0
-        if lcfg != cfg or not same_checkpoint(lparams, params):
-            raise RuntimeError("checkpoint: what was loaded differs from what was saved")
-        del lparams
-        numbers.update(save_s=save_s, load_s=load_s, gb=gb)
-        log(f"checkpoint: 0.6B preset, {param_count(params):,} random bf16 weights (seed "
-            f"{SEED}) with a speaker encoder, {gb:.3f} GB of npz; save {save_s:.2f} s "
-            f"({gb / save_s:.2f} GB/s, from the card), load {load_s:.2f} s "
-            f"({gb / load_s:.2f} GB/s, to the host); equal bit for bit [{card_line}]")
-
-        t0 = time.perf_counter()
-        eng = TTSEngine(d, quantize="int8")
-        if not eng.is_ready():
-            raise RuntimeError(f"engine from the directory: {eng.get_error()}")
-        log(f"engine from the directory: built in {time.perf_counter() - t0:.2f} s (load, int8, "
-            f"packs) [{card_line}]")
-        mem = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
-        del params
-        kw = dict(language="en", temperature=0.0, max_tokens=CLI_FRAMES)
-        a, b = eng.synthesize(ENTRY_TEXT, **kw), mem.synthesize(ENTRY_TEXT, **kw)
-        if not np.array_equal(a.codes, b.codes):
-            raise RuntimeError("the engine from the directory decodes other greedy codes")
-        log(f"engine from the directory: greedy codes equal to the engine on the same params "
-            f"({len(a.codes)} frames)")
-        del mem
-        torch.cuda.empty_cache()
-
-        (counts, numbers["cli_ms_frame"], ref, numbers["bf16_counts"],
-         numbers["cli_bf16_ms_frame"], numbers["kvq_counts"],
-         numbers["spec_counts"]) = cli_phase(d, tmp, card_line)
-
-        e_card = eng.extract_speaker_embedding(ref)
-        t0 = time.perf_counter()
-        for _ in range(5):
-            eng.extract_speaker_embedding(ref)
-        numbers["spk_ms"] = (time.perf_counter() - t0) * 1e3 / 5
-        e_cpu = TTSEngine(d, device="cpu").extract_speaker_embedding(ref)
-        rel = float(np.abs(e_card - e_cpu).max() / np.abs(e_cpu).max())
-        log(f"speaker embedding of a 3 s WAV: {numbers['spk_ms']:.2f} ms per call on the card "
-            f"(read, resample, log-mel, encoder), max|card - cpu| / max|cpu| = {rel:.2e} "
-            f"(limit {SPK_REL}) [{card_line}]")
-        if e_card.shape != (cfg.speaker_encoder.output_dim,) or not rel <= SPK_REL:
-            raise RuntimeError("speaker embedding: the card disagrees with the CPU")
-
         # the server at int8, bf16 (also with --kv-quant) and int4 units,
-        # booting at once
+        # booting at once beside the load, the CLI runs and the speaker
+        # embedding below (their times then share the host and the card with
+        # the boots)
+        servers = start_servers(d, (("int8", ()), (None, ()), (None, ("--kv-quant",)),
+                                    ("int4", ())))
+        try:
+            counts = _entry_checks(cfg, params, d, tmp, tok, numbers, save_s, gb, card_line)
+        except BaseException:
+            finish_servers(servers, None, kill=True)
+            raise
         (numbers["warmup_s"], numbers["warmup_bf16_s"], numbers["warmup_kvq_s"],
-         _) = serve_phase(d, card_line, (("int8", ()), (None, ()), (None, ("--kv-quant",)),
-                                         ("int4", ())))
+         _) = finish_servers(servers, card_line)
+        del params
+        eng = numbers.pop("eng")
         counts = [sum(c) for c in zip(counts, profile_phase(eng, tmp, card_line))]
     del eng
     torch.cuda.empty_cache()
     return counts, numbers
+
+
+def _entry_checks(cfg, params, d, tmp, tok, numbers, save_s, gb, card_line):
+    """entry_phase's checks on the saved checkpoint ``d`` (the load, the
+    engine from the directory, the CLI, the speaker embedding); the engine
+    goes into ``numbers["eng"]``.  Returns the CLI's launch counts."""
+    t0 = time.perf_counter()
+    lcfg, lparams = load_checkpoint(d)
+    load_s = time.perf_counter() - t0
+    if lcfg != cfg or not same_checkpoint(lparams, params):
+        raise RuntimeError("checkpoint: what was loaded differs from what was saved")
+    del lparams
+    numbers.update(save_s=save_s, load_s=load_s, gb=gb)
+    log(f"checkpoint: 0.6B preset, {param_count(params):,} random bf16 weights (seed "
+        f"{SEED}) with a speaker encoder, {gb:.3f} GB of npz; save {save_s:.2f} s "
+        f"({gb / save_s:.2f} GB/s, from the card), load {load_s:.2f} s "
+        f"({gb / load_s:.2f} GB/s, to the host); equal bit for bit [{card_line}]")
+
+    t0 = time.perf_counter()
+    eng = TTSEngine(d, quantize="int8")
+    if not eng.is_ready():
+        raise RuntimeError(f"engine from the directory: {eng.get_error()}")
+    log(f"engine from the directory: built in {time.perf_counter() - t0:.2f} s (load, int8, "
+        f"packs) [{card_line}]")
+    mem = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
+    kw = dict(language="en", temperature=0.0, max_tokens=CLI_FRAMES)
+    a, b = eng.synthesize(ENTRY_TEXT, **kw), mem.synthesize(ENTRY_TEXT, **kw)
+    if not np.array_equal(a.codes, b.codes):
+        raise RuntimeError("the engine from the directory decodes other greedy codes")
+    log(f"engine from the directory: greedy codes equal to the engine on the same params "
+        f"({len(a.codes)} frames)")
+    del mem
+    torch.cuda.empty_cache()
+
+    (counts, numbers["cli_ms_frame"], ref, numbers["bf16_counts"],
+     numbers["cli_bf16_ms_frame"], numbers["kvq_counts"],
+     numbers["spec_counts"]) = cli_phase(d, tmp, card_line)
+
+    e_card = eng.extract_speaker_embedding(ref)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eng.extract_speaker_embedding(ref)
+    numbers["spk_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    e_cpu = TTSEngine(d, device="cpu").extract_speaker_embedding(ref)
+    rel = float(np.abs(e_card - e_cpu).max() / np.abs(e_cpu).max())
+    log(f"speaker embedding of a 3 s WAV: {numbers['spk_ms']:.2f} ms per call on the card "
+        f"(read, resample, log-mel, encoder), max|card - cpu| / max|cpu| = {rel:.2e} "
+        f"(limit {SPK_REL}) [{card_line}]")
+    if e_card.shape != (cfg.speaker_encoder.output_dim,) or not rel <= SPK_REL:
+        raise RuntimeError("speaker embedding: the card disagrees with the CPU")
+    numbers["eng"] = eng
+    return counts
 
 
 def voice_config():
@@ -2680,22 +2724,7 @@ def voice_phase(tok, gen, card_line):
     params["speaker_table"] = (torch.randn((len(PRESET_SPEAKERS), H), generator=gen,
                                            device=DEV) * 0.02).to(torch.bfloat16)
     eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
-    # F4: with the streamed chain off, a trunk past K2's residency gate
-    # selects the per-step chain, which is not ported: the engine refuses it
-    env = os.environ.get("QTTS_MTP_STREAM")
-    os.environ["QTTS_MTP_STREAM"] = "0"
-    try:
-        off = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
-    finally:
-        if env is None:
-            del os.environ["QTTS_MTP_STREAM"]
-        else:
-            os.environ["QTTS_MTP_STREAM"] = env
-    if off.is_ready() or "per-step MTP chain" not in off.get_error():
-        raise RuntimeError(f"1.7B with QTTS_MTP_STREAM=0: the engine must refuse the per-step "
-                           f"chain; ready={off.is_ready()}, error {off.get_error()!r}")
-    log(f"1.7B with QTTS_MTP_STREAM=0: not ready, {off.get_error()}")
-    del params, off
+    del params
     torch.cuda.synchronize()
     log(f"engine: 1.7B preset (talker attn_impl=pallas), random weights (seed {SEED}) made on "
         f"the card, int8, bf16 KV cache, speaker table [{len(PRESET_SPEAKERS)}, {H}], built in "
@@ -2780,9 +2809,44 @@ def voice_phase(tok, gen, card_line):
     figure("1.7B B=1 ms/frame", ms)
     log(f"1.7B fixed run with the instruction: {ms:.3f} ms/frame, RTF {1e3 / 12 / ms:.2f}x "
         f"(decode only; real time is 83.3 ms/frame) [{card_line}]")
+    off = stream_off_run(eng, card_line)  # its own count: the per-step chain's K1 row
     del eng
     torch.cuda.empty_cache()
-    return [sum(c) for c in zip(*counts)], k1, k3, k8, bounds
+    return [sum(c) for c in zip(*counts)], k1, k3, k8, bounds, off
+
+
+def stream_off_run(eng, card_line):
+    """The 1.7B preset with ``QTTS_MTP_STREAM=0``: the trunk is past K2's
+    residency gate and the streamed chain is off, so the B=1 chain is the
+    per-step one (JAX's ``predict_subcodes_fused``): one K1 step per chain
+    position past the prefix and one for the talker, no K3.  Returns the
+    launch counts."""
+    n = eng.cfg.code_predictor.num_steps
+    layers = eng.cfg.talker.transformer.num_layers
+    env = os.environ.get("QTTS_MTP_STREAM")
+    os.environ["QTTS_MTP_STREAM"] = "0"
+    try:
+        if chain_route(eng.cfg.code_predictor, eng.params["code_predictor"], 1) != "per_step":
+            raise RuntimeError("1.7B with QTTS_MTP_STREAM=0: the B=1 chain is not per-step")
+        reset_launches()
+        r = eng.synthesize(VOICE_TEXT, language="en", temperature=0.0, max_tokens=STREAM_OFF_FRAMES,
+                           instruct=VOICE_INSTRUCT)
+    finally:
+        if env is None:
+            del os.environ["QTTS_MTP_STREAM"]
+        else:
+            os.environ["QTTS_MTP_STREAM"] = env
+    m = r.metrics
+    if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+            r.audio).all() or r.codes.shape[1:] != (16,) or not m.decoded_frames:
+        raise RuntimeError("bad 1.7B output with QTTS_MTP_STREAM=0")
+    ms = m.stage_seconds["decode"] * 1e3 / m.decoded_frames
+    log(f"1.7B with QTTS_MTP_STREAM=0: {m.frames} frames ({m.decoded_frames} decoded), "
+        f"{ms:.3f} ms/frame decode on the per-step chain [{card_line}]")
+    d = m.decoded_frames
+    return check_launches(f"1.7B QTTS_MTP_STREAM=0 ({n} K1 per decoded frame: the talker's "
+                          f"and {n - 1} chain positions; {layers} K8 per prefill)",
+                          counts_of(K1=n * d, K8=layers))
 
 
 def unit_pack(t, units, gen):
@@ -6106,6 +6170,338 @@ def train_phase(tok, gen, card_line, cfg=QWEN3_TTS_06B):
     return counts, k8, {"K8 teacher": k8[4]}
 
 
+# Phase 18: the JAX package's routes outside its step and chain kernels.
+# Requests are short: the plain layers run op by op (~0.1 s a frame), and the
+# phase's budget is 45 s of the script's clock.
+OFF_FRAMES = 16  # 0.6B at mtp_resident=False, B=1 (and B=8, spec, at half)
+PLAIN_FRAMES = 4  # the plain talker engines, per request
+REACH_LAYERS = 4  # the K8 reach engine's talker depth (cut from 28)
+ISTFT_FRAMES, ISTFT_CHUNK = 40, 8  # the iSTFT vocoder's whole run and chunk
+ISTFT_REL = 1e-4  # chunked vs whole and card vs CPU, of the largest sample
+
+
+def resident_off_runs(off_eng, off_spec, card_line):
+    """The 0.6B preset at ``mtp_resident=False`` (``--mtp-resident off``):
+    the per-step chain, one step kernel launch per chain position past the
+    prefix (K1 at B=1, K4 at B=8 and over spec's 4 candidate rows), and no
+    chain kernel.  Returns (launch counts, B=1 ms/frame)."""
+    n = off_eng.cfg.code_predictor.num_steps
+    reset_launches()
+    r = off_eng.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=OFF_FRAMES)
+    m = r.metrics
+    if r.audio.shape != (r.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+            r.audio).all() or not m.decoded_frames:
+        raise RuntimeError("0.6B mtp_resident=False: bad B=1 output")
+    ms = m.stage_seconds["decode"] * 1e3 / m.decoded_frames
+    log(f"0.6B mtp_resident=False B=1: {m.frames} frames ({m.decoded_frames} decoded), "
+        f"{ms:.3f} ms/frame decode [{card_line}]")
+    counts = [check_launches(f"0.6B mtp_resident=False B=1 ({n} K1 per decoded frame)",
+                             counts_of(K1=n * m.decoded_frames))]
+    reset_launches()
+    rs = off_eng.synthesize_batch(BATCH_TEXTS, temperature=0.0, max_tokens=OFF_FRAMES // 2)
+    got = launches()
+    k4 = got[KERNEL_IDS.index("K4")]
+    frames = sum(x.metrics.frames for x in rs)
+    if (any(not np.isfinite(x.audio).all() for x in rs) or k4 % n or k4 < n * max(
+            x.metrics.decoded_frames for x in rs) or got != counts_of(K4=k4)):
+        raise RuntimeError(f"0.6B mtp_resident=False B=8: launches {got}, {frames} frames")
+    log(f"0.6B mtp_resident=False synthesize_batch B=8: {frames} frames, K4 {k4} ({n} a "
+        f"batched frame: the talker's and {n - 1} chain positions) [{card_line}]")
+    counts.append(got)
+    reset_launches()
+    r = off_spec.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=OFF_FRAMES // 2)
+    got = launches()
+    k1, k4, k6 = (got[KERNEL_IDS.index(k)] for k in ("K1", "K4", "K6"))
+    if (not np.isfinite(r.audio).all() or not k6 or not k4 or k4 % (n - 1) or k1 % (n - 1)
+            or got != counts_of(K1=k1, K4=k4, K6=k6)):
+        raise RuntimeError(f"0.6B mtp_resident=False spec_k={SPEC_K}: launches {got}")
+    log(f"0.6B mtp_resident=False spec_k={SPEC_K}: {r.metrics.frames} frames, K6 {k6}, chain "
+        f"steps K4 {k4} and K1 {k1} ({n - 1} per chain) [{card_line}]")
+    counts.append(got)
+    return [sum(c) for c in zip(*counts)], ms
+
+
+def trunk_step_checks(cfg, gen, card_line):
+    """K1 and K4 at the MTP trunk's shape inside the per-step chain: every
+    step of a greedy chain (B=1: K1; B=4: K4) against the plain version on a
+    copy of its caches, at the trunk's 6 layers (K1's deep limits) and at
+    one layer (the one-layer limits, and at least K1's share of tight
+    steps).  The plain version runs on the card.  Returns (max abs err,
+    greedy agreement with the chain whose every step is the plain version)."""
+    from leaxer_qwen3_tts_torch.models import code_predictor as CP
+
+    cp = dataclasses.replace(cfg.code_predictor, resident=False)
+    worst, agree = 0.0, []
+    for layers, rel_tol, slot_tol in ((cp.transformer.num_layers, K1_DEEP_X_REL,
+                                       K1_DEEP_SLOT_ABS),
+                                      (K1_SHALLOW_LAYERS, K1_SHALLOW_X_REL, K1_SHALLOW_SLOT_ABS)):
+        c = dataclasses.replace(cp, transformer=dataclasses.replace(cp.transformer,
+                                                                    num_layers=layers))
+        p = CP.init_code_predictor_params(c, gen, DEV)
+        p = quantize_params(fuse_params({"code_predictor": p}))["code_predictor"]
+        p = CP.prepare_fused_step(c, p)
+        H, V, n = c.transformer.hidden_size, c.subcode_vocab_size, c.num_steps
+        tables = (torch.randn((n, V, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+        steps = []
+        kernels = (CP.fused_decode_step, CP.fused_decode_step_batched)
+        plains = (K1.fused_decode_step_reference, K1.fused_decode_step_batched_reference)
+
+        def checked(kernel, plain):
+            def step(t, fw, x, pos, kc, vc):
+                xp, kcp, vcp = plain(t, fw, x, pos, kc.clone(), vc.clone())
+                out = kernel(t, fw, x, pos, kc, vc)
+                err = float((out[0] - xp).abs().max())
+                rel = err / float(xp.abs().max())
+                slot = float((kc[..., pos, :].float() - kcp[..., pos, :].float()).abs().max())
+                steps.append((err, rel, slot))
+                return out
+            return step
+
+        for B in (1, 4):
+            lh = (torch.randn((B, H), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+            c0 = (torch.randn((B, H), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+            runs = []
+            for wrap in (True, False):
+                CP.fused_decode_step, CP.fused_decode_step_batched = (
+                    [checked(k, pl) for k, pl in zip(kernels, plains)] if wrap else plains)
+                try:
+                    runs.append(CP.predict_subcodes(
+                        c, p, tables, lh, c0, lambda lg, j: lg.argmax(-1),
+                        sp=SamplingParams.create(0.0))[0])
+                finally:
+                    CP.fused_decode_step, CP.fused_decode_step_batched = kernels
+            agree.append(float((runs[0] == runs[1]).float().mean()))
+        tight = sum(rel <= K1_TIGHT_REL for _, rel, _ in steps)
+        rel = max(r for _, r, _ in steps)
+        slot = max(x for _, _, x in steps)
+        need = 0 if layers > 1 else len(steps) * K1_TIGHT_MIN // K1_TIGHT_INPUTS
+        ok = rel < rel_tol and slot < slot_tol and tight >= need
+        worst = max(worst, max(e for e, _, _ in steps))
+        log(f"K1 / K4 in the per-step chain, MTP trunk L={layers} T={c.max_seq_len}: "
+            f"{len(steps)} steps at B=1 and 4, x max rel {rel:.3e} (tol {rel_tol}), slot "
+            f"max_abs_err {slot:.3e} (tol {slot_tol}), tight {tight} (need {need}) -> "
+            f"{'ok' if ok else 'FAIL'} [{card_line}]")
+        if not ok:
+            raise RuntimeError(f"K1 / K4 at the MTP trunk (L={layers}) disagree with their plain "
+                               "versions")
+    log(f"per-step chains with the kernels vs with the plain version on every step: greedy "
+        f"sub-code agreement {[round(a, 3) for a in agree]} (data: a near-tie may flip) "
+        f"[{card_line}]")
+    return worst, agree
+
+
+def plain_engine_runs(cfg, params, tok, label, card_line):
+    """An engine whose talker decodes on the plain layers (``decode_impl=
+    "xla"``) beside its chain: B=1, B=4, a pool of 2 and spec_k=4, every
+    output finite and nothing launched.  Returns the B=1 ms/frame."""
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
+    spec = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8", spec_k=SPEC_K,
+                     spec_accept_floor=0.0)
+    if "fused_step" in eng.params["talker"]:
+        raise RuntimeError(f"{label}: the talker was packed")
+    reset_launches()
+    r = eng.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=PLAIN_FRAMES)
+    outs = [r] + eng.synthesize_batch(BATCH_TEXTS[:4], temperature=0.0, max_tokens=PLAIN_FRAMES)
+    pool = ContinuousBatcher(eng, pool_size=2, chunk_len=4, kv_bucket=eng.kv_ladder[0])
+    try:
+        outs += [f.result(timeout=600) for f in (
+            pool.submit(t, temperature=0.0, max_tokens=PLAIN_FRAMES) for t in BATCH_TEXTS[:2])]
+    finally:
+        pool.shutdown()
+    outs.append(spec.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=PLAIN_FRAMES))
+    for x in outs:
+        if (x.audio.shape != (x.codes.shape[0] * SAMPLES_PER_FRAME,) or not np.isfinite(
+                x.audio).all() or not len(x.codes)):
+            raise RuntimeError(f"{label}: bad output")
+    ms = r.metrics.stage_seconds["decode"] * 1e3 / max(r.metrics.decoded_frames, 1)
+    log(f"{label}: B=1 {r.metrics.frames} frames, {ms:.3f} ms/frame decode; B=4, a pool of 2 "
+        f"and spec_k={SPEC_K}: {sum(len(x.codes) for x in outs[1:])} frames, audio finite "
+        f"[{card_line}]")
+    check_launches(f"{label} (the plain layers: no kernel)", counts_of())
+    del eng, spec
+    return ms
+
+
+def istft_checks(cfg, gen, card_line):
+    """The iSTFT vocoder head at the preset's widths (d_model 1024, hop
+    2000, n_fft 8000): whole decoding finite and within ISTFT_REL of the
+    same on the CPU; chunked decoding at ``left_context_frames`` equal to
+    whole decoding within ISTFT_REL.  Returns the whole decoding's ms."""
+    from leaxer_qwen3_tts_torch.models.codec12hz import init_vocoder_params, vocode_chunk
+
+    vc = dataclasses.replace(cfg.vocoder, head="istft")
+    vp = init_vocoder_params(vc, gen, DEV)
+    codes = torch.randint(0, vc.codebook_size, (1, ISTFT_FRAMES, vc.num_codebooks),
+                          generator=gen, device=DEV)
+    whole = vocoder_forward(vc, vp, codes)
+    ms = time_ms(lambda: vocoder_forward(vc, vp, codes), 3, 1)
+    ctx, spf = vc.left_context_frames, vc.samples_per_frame
+    scale = float(whole.abs().max())
+    chunk_err = 0.0
+    for start in range(ctx, ISTFT_FRAMES, ISTFT_CHUNK):
+        part = vocode_chunk(vc, vp, codes[:, start - ctx:start + ISTFT_CHUNK], ctx)
+        chunk_err = max(chunk_err, float((part - whole[:, start * spf:(start + ISTFT_CHUNK) * spf])
+                                         .abs().max()))
+    cpu = vocoder_forward(vc, flatten_cpu(vp), codes.cpu())
+    cpu_err = float((whole.cpu() - cpu).abs().max())
+    ok = (bool(torch.isfinite(whole).all()) and whole.shape == (1, ISTFT_FRAMES * spf)
+          and chunk_err <= ISTFT_REL * scale and cpu_err <= ISTFT_REL * scale)
+    log(f"iSTFT vocoder (d_model {vc.d_model}, hop {spf}, n_fft {vc.istft_overlap * spf}): "
+        f"{ISTFT_FRAMES} frames in {ms:.3f} ms, chunks of {ISTFT_CHUNK} at {ctx} frames of context "
+        f"max_abs_err {chunk_err:.3e}, card vs CPU {cpu_err:.3e} (tol {ISTFT_REL * scale:.3e}) "
+        f"-> {'ok' if ok else 'FAIL'} [{card_line}]")
+    if not ok:
+        raise RuntimeError("the iSTFT vocoder's chunked or card decoding disagrees")
+    return ms
+
+
+def flatten_cpu(tree):
+    """A parameter tree with every tensor copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: flatten_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [flatten_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def reach_engine(cfg, tok):
+    """A talker of head_dim 80 with 32 q heads per kv head (its depth cut to
+    REACH_LAYERS; the step kernels do not take it, so it decodes unpacked,
+    ``decode_impl="xla"``, as JAX leaves it) and ``attn_impl="pallas"``, so
+    that its prefill and every decode step attend through K8."""
+    t = dataclasses.replace(cfg.talker.transformer, num_layers=REACH_LAYERS, num_heads=32,
+                            num_kv_heads=1, head_dim=80, attn_impl="pallas")
+    c = dataclasses.replace(cfg, talker=dataclasses.replace(cfg.talker, transformer=t,
+                                                            decode_impl="xla"))
+    params = init_params(c, seed=SEED, device=DEV, with_speaker_encoder=False)
+    return TTSEngine(config=c, params=params, tokenizer=tok, quantize="int8")
+
+
+def reach_engine_run(eng, card_line):
+    """K8 on a main path at a head_dim and group the presets do not use
+    (``reach_engine``).  Returns the launch counts."""
+    reset_launches()
+    r = eng.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=PLAIN_FRAMES)
+    if not np.isfinite(r.audio).all() or not r.metrics.decoded_frames:
+        raise RuntimeError("K8 reach engine: bad output")
+    d = r.metrics.decoded_frames
+    log(f"K8 reach engine (talker head_dim 80, 32 q heads per kv head, {REACH_LAYERS} layers): "
+        f"{r.metrics.frames} frames [{card_line}]")
+    return check_launches(f"K8 reach engine ({REACH_LAYERS} K8 per prefill and per decode "
+                          f"step; one K2 per decoded frame)",
+                          counts_of(K2=d, K8=REACH_LAYERS * (1 + d)))
+
+
+def plain_attention_memory(card_line):
+    """The plain attention's transient memory at B=32, T=2560 (one decode
+    step's layer: q [32, 1, 16, 128] over a bf16 and an int8 cache of 8 kv
+    heads), read as the allocator's peak over what was allocated before."""
+    from leaxer_qwen3_tts_torch.ops.attention import attend_xla
+
+    B, T, nq, nk, d = 32, 2560, 16, 8, 128
+    out = {}
+    for dtype in (torch.bfloat16, torch.int8):
+        q = torch.randn((B, 1, nq, d), device=DEV).to(torch.bfloat16)
+        if dtype == torch.int8:
+            k = torch.randint(-127, 128, (B, nk, T, d), device=DEV, dtype=torch.int8)
+            scales = torch.rand((B, nk, T), device=DEV)
+        else:
+            k, scales = torch.randn((B, nk, T, d), device=DEV).to(dtype), None
+        mask = torch.ones((B, 1, T), dtype=torch.bool, device=DEV)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        attend_xla(q, k, k, mask, k_scale=scales, v_scale=scales)
+        torch.cuda.synchronize()
+        out[str(dtype)[6:]] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del q, k, scales, mask
+    log("plain attention at B=32 T=2560 (one layer, q [32, 1, 16, 128]): peak over the inputs "
+        + ", ".join(f"{k} cache {v:.1f} MiB" for k, v in out.items()) + f" [{card_line}]")
+    return out
+
+
+def beside_build(tok, card_line, cfg=QWEN3_TTS_06B):
+    """What needs no hand-written kernel, while the kernels build on a
+    thread: the profiler's first start (its one-time set-up, ~10 s), the
+    plain talker (``decode_impl="xla"``) with the cached and with the dense
+    chain (B=1, B=4, a pool of 2, spec_k=4; nothing launched).  The
+    compilers hold the host's cores, so the plain engines' host-bound
+    ms/frame are marked as taken beside the build."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    x = torch.ones((64,), device=DEV)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        float((x * 2).sum())
+    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
+    xla = dataclasses.replace(cfg.talker, decode_impl="xla")
+    for impl in ("cached", "dense"):
+        c = dataclasses.replace(cfg, talker=xla, code_predictor=dataclasses.replace(
+            cfg.code_predictor, impl=impl))
+        plain_engine_runs(c, params, tok, f"decode_impl=xla, impl={impl} (beside the build)",
+                          card_line)
+    del params
+    torch.cuda.empty_cache()
+    log(f"beside the build (profiler start, plain talker engines): "
+        f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+
+
+def routes_phase(tok, gen, card_line, cfg=QWEN3_TTS_06B):
+    """Phase 18: the JAX package's routes outside its step and chain kernels
+    at the 0.6B widths (the plain talker engines ran beside the build:
+    ``beside_build``): K1 / K4 at the MTP trunk in the per-step chain, a
+    shared-head checkpoint (saved and loaded) on the per-step chain and a
+    pool of one slot on it, the iSTFT vocoder, K8 at the head_dims and
+    groups the presets do not use (against its plain version and on the
+    reach engine), and the plain attention's memory.  Returns (the shared
+    engine's launch counts, K8 reach checks, the reach engine's launch
+    counts, max abs err of the trunk steps)."""
+    t0 = time.perf_counter()
+    n = cfg.code_predictor.num_steps
+    trunk_err, _ = trunk_step_checks(cfg, gen, card_line)
+    shared = dataclasses.replace(cfg, code_predictor=dataclasses.replace(
+        cfg.code_predictor, head_mode="shared"))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, shared, init_params(shared, seed=SEED, device=DEV,
+                                                 with_speaker_encoder=False))
+        eng = TTSEngine(tmp, tokenizer=tok, quantize="int8")
+    if eng.cfg.code_predictor.head_mode != "shared" or "head" not in eng.params["code_predictor"]:
+        raise RuntimeError("the shared-head checkpoint did not load its head")
+    reset_launches()
+    r = eng.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=PLAIN_FRAMES)
+    if not np.isfinite(r.audio).all() or not r.metrics.decoded_frames:
+        raise RuntimeError("shared-head engine: bad output")
+    shared_counts = check_launches(f"shared-head 0.6B through save and load ({n} K1 per decoded "
+                                   "frame: the per-step chain)",
+                                   counts_of(K1=n * r.metrics.decoded_frames))
+    # a pool of one slot: the talker step is K4 at one row (K1's arithmetic),
+    # the per-step chain at B=1 K1 per chain position
+    reset_launches()
+    pool = ContinuousBatcher(eng, pool_size=1, chunk_len=4, kv_bucket=eng.kv_ladder[0])
+    try:
+        one = pool.submit(FIXED_TEXT, temperature=0.0, max_tokens=PLAIN_FRAMES).result(timeout=600)
+    finally:
+        pool.shutdown()
+    got = launches()
+    k1, k4 = got[KERNEL_IDS.index("K1")], got[KERNEL_IDS.index("K4")]
+    if (not np.isfinite(one.audio).all() or not len(one.codes) or not k4 or k1 % (n - 1)
+            or got != counts_of(K1=k1, K4=k4)):
+        raise RuntimeError(f"a pool of one slot: launches {got}")
+    log(f"a pool of one slot (shared head): {len(one.codes)} frames, K4 {k4} talker steps, K1 "
+        f"{k1} chain steps; greedy codes equal to B=1 synthesize: "
+        f"{np.array_equal(one.codes, r.codes[:len(one.codes)])} (data) [{card_line}]")
+    del eng
+    torch.cuda.empty_cache()
+    istft_checks(cfg, gen, card_line)
+    k8 = [check_k8("reach", B, S, T, nq, nk, kind, gen, iters=10, d=d)
+          for B, S, T, nq, nk, d, kind in K8_REACH_CASES]
+    reach = reach_engine_run(reach_engine(cfg, tok), card_line)
+    plain_attention_memory(card_line)
+    torch.cuda.empty_cache()
+    log(f"routes phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
+    return shared_counts, k8, reach, trunk_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
@@ -6117,13 +6513,41 @@ def main() -> int:
     log(f"card: {card_line}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a packed talker's step that falls to the plain layers raises (the JAX
+    # package's loud-failure switch): no route of the preset phases moves
+    # off its kernel unseen; the routes phase's plain talkers are unpacked
+    os.environ["QTTS_ASSERT_FUSED"] = "1"
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as workdir:
+        tok = byte_level_tokenizer(workdir)
 
-    t0 = time.perf_counter()
-    path = _build.build()
-    count_entries(_build.load_kernels())
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(path)} [{CARD}]")
+    # the build on a thread, what needs no kernel beside it on this one (the
+    # profiler's set-up must run on the thread that profiles later);
+    # load_kernels builds under its lock, so a kernel wanted beside the
+    # build would wait for it, not start a second one
+    built = {}
+
+    def build_run():
+        t = time.perf_counter()
+        try:
+            count_entries(_build.load_kernels())
+        except BaseException as e:  # raised again on this thread
+            built["error"] = e
+        built["s"] = time.perf_counter() - t
+
+    builder = threading.Thread(target=build_run, daemon=True)
+    builder.start()
+    beside_build(tok, card_line)
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    path = _build.library_path()
+    log(f"build: {built['s']:.1f} s -> {os.path.basename(path)} [{CARD}]")
+    objs = sorted(_build.object_times(path + ".log"), key=lambda o: -o[2])
+    log("build by object (finished at s, compilers' CPU s): "
+        + ", ".join(f"{o} {f:.0f} / {c:.0f}" for o, f, c in objs)
+        + f"; {sum(c for *_, c in objs):.0f} s of CPU in all, {os.cpu_count()} CPUs [{CARD}]")
     with open(path + ".log") as f:
         fn = ""
         for line in f:
@@ -6281,6 +6705,11 @@ def main() -> int:
                      lambda: K2.fused_mtp_chain_batched(*batch_args, cache_dtype=torch.bfloat16))
     del batch_args
     bounds["K2"] = chain_bound(mtp_t, mtp_fw, heads, 1)
+    # K1 and K4 at the MTP trunk (the per-step chain): a step at slot 9 of
+    # 17, and 8 rows at check_k4_deep's positions clamped into the 17 slots
+    bounds["K1 MTP trunk"] = step_bound(mtp_t, mtp_fw, 1, [9], 1, torch.bfloat16)
+    bounds["K4 MTP trunk"] = step_bound(mtp_t, mtp_fw, 8, [min(p, 16) for p in K4_POSITIONS],
+                                        1, torch.bfloat16)
     bounds["K5"] = chain_bound(mtp_t, mtp_fw, heads, 8)
     del mtp_fw, heads, tables
     torch.cuda.empty_cache()
@@ -6291,8 +6720,6 @@ def main() -> int:
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
-    with tempfile.TemporaryDirectory() as workdir:
-        tok = byte_level_tokenizer(workdir)
     eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
     # the same weights with speculative decoding (the fallback off unless a
     # check turns it on), and with a trained-draft head of random weights
@@ -6304,6 +6731,11 @@ def main() -> int:
                           spec_accept_floor=0.0)
     ff_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
                        frame_fused=True)
+    # the resident chain off (--mtp-resident off): the per-step chain
+    off_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
+                        mtp_resident=False)
+    off_spec = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
+                         mtp_resident=False, spec_k=SPEC_K, spec_accept_floor=0.0)
     del params
     torch.cuda.synchronize()
     log(f"engines: 0.6B preset, random weights (seed {SEED}), int8, sequential, spec_k={SPEC_K}, "
@@ -6343,9 +6775,11 @@ def main() -> int:
     past32 = [sum(c) for c in zip(batch_rows_equal(eng, 40, "0.6B int8", card_line),
                                   pool_rows_equal(eng, spec_eng, card_line))]
     del eng, spec_eng, draft_eng
+    off_counts, _ = resident_off_runs(off_eng, off_spec, card_line)
+    del off_eng, off_spec
     torch.cuda.empty_cache()
     entry, numbers = entry_phase(tok, card_line)
-    voice, k1_17b, k3, k8, voice_bounds = voice_phase(tok, gen, card_line)
+    voice, k1_17b, k3, k8, voice_bounds, off17 = voice_phase(tok, gen, card_line)
     k1 += k1_17b
     bounds.update(voice_bounds)
     # the bf16 units' phase draws from a generator of its own, as K4's
@@ -6387,6 +6821,14 @@ def main() -> int:
     gen19.manual_seed(SEED + 19)
     train, k8_teacher, train_bounds = train_phase(tok, gen19, card_line)
     bounds.update(train_bounds)
+    # the routes outside the step and chain kernels draw from a generator of
+    # their own, as K4's
+    gen20 = torch.Generator(device=DEV)
+    gen20.manual_seed(SEED + 20)
+    del os.environ["QTTS_ASSERT_FUSED"]
+    shared_counts, k8_reach, reach_counts, trunk_err = routes_phase(tok, gen20, card_line)
+    bounds["K8 reach"] = k8_reach[0][4]
+    per_step = [sum(c) for c in zip(off_counts, off17, shared_counts)]
     # its engines run bf16 units: K1, K3 and K5 join the bf16 rows, K6 the K6
     # bf16 row; its K8 launches are the teacher passes
     k8i = KERNEL_IDS.index("K8")
@@ -6402,7 +6844,9 @@ def main() -> int:
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, kvq)) + "; precision flags: "
         + ", ".join(f"{k} {n}" for k, n in precision.items()) + "; K7 unit mixes: "
         + ", ".join(f"{k} {n}" for k, n in mixed.items()) + "; training: "
-        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, train)))
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, train)) + "; per-step chains: "
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, per_step)) + "; K8 reach engine: "
+        + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, reach_counts)))
 
     def entry(name, source, replaces, launched, checks, bound_key, library_ms=None):
         # library_ms: one PyTorch call computing the same function, where one
@@ -6525,6 +6969,21 @@ def main() -> int:
               "K6 bf16 1.7B"),
         # K7 at every unit mix the engine builds (int4 units, a bf16 talker
         # beside an int8 or int4 trunk), on a bf16 and an int8 talker cache
+        # the per-step chain (the resident chain off, QTTS_MTP_STREAM=0 at
+        # 1.7B, the shared head): K1 and K4 at the MTP trunk, once per chain
+        # position; errors from the chain's every step against the plain
+        # version, times from the trunk-shape checks of phase 3
+        entry("fused_decode_step (K1 at the MTP trunk: the per-step chain)", "fused_step.cu",
+              "fused_step.py:1290", per_step[0], [(max(trunk_err, k1[2][0]),) + k1[2][1:]],
+              "K1 MTP trunk"),
+        entry("fused_decode_step_batched (K4 at the MTP trunk: the per-step chain)",
+              "fused_step_batched.cu", "fused_step.py:2083", per_step[2],
+              [(max(trunk_err, k4[2][0]),) + k4[2][1:]], "K4 MTP trunk"),
+        # K8 at the head_dims and q-per-kv groups the presets do not use, on a
+        # talker of head_dim 80 and 32 q heads per kv head
+        entry("flash_attend (K8 reach: head_dim 17-256, 1-32 q heads per kv head)",
+              "flash_attention.cu", "flash_attention.py:81", reach_counts[k8i], k8_reach,
+              "K8 reach", library_ms=k8_reach[0][3]),
         *[entry(f"fused_frame_step ({key}{', int8 KV cache' if kv else ''})",
                 "fused_frame.cu" if K7_MIXES[key][:2] == ("bf16", "int8") else "fused_int4.cu",
                 "fused_frame.py:245", mixed[key + kv], mix_checks[key + kv], key + kv)

@@ -26,8 +26,12 @@ instead of raising (no device and no CUDA device, a configuration the kernels
 do not take, ...): ``is_ready()`` and ``get_error()`` report it, and every
 synthesis call then raises ``EngineError("engine not ready: ...")``; only a
 ``spec_k`` outside [2, 8] raises at once.  On the card
-it runs only the kernel path: it requires the fused talker and MTP
-implementations and packs both, as the JAX engine on its accelerator:
+every route the JAX engine takes on one device runs, chosen by its own
+predicates (at build time, before any tensor moves): a fused talker and
+MTP trunk are packed as the JAX engine packs them on its accelerator, and
+an unpacked one (``decode_impl="xla"``, ``impl="cached"`` or ``"dense"``,
+an architecture JAX's unit gate refuses) decodes on the plain layers;
+packs are made with
 ``quantize="int8"`` as int8 units, ``quantize=None`` (the default) as bf16
 units with scales of one (bits=16, no quantization), ``quantize="int4"`` as
 int4 units (group-128 scales, the heads int8), for kernels K1 and K2 or K3
@@ -45,9 +49,14 @@ is K3, the batched chain K5 runs on K3's float32 cache, so that its rows
 equal K3's.  With ``frame_fused`` each B=1 frame whose packs pass JAX's
 frame gate is one K7 launch: a talker of int8, int4 or bf16 units beside an
 int8 or int4 trunk (a bf16 trunk fails the gate and decodes K1 + K3, as in
-JAX), the lm_head and heads bf16 rows beside a bf16 talker.  What still
+JAX), the lm_head and heads bf16 rows beside a bf16 talker.  With the
+resident chain off (``mtp_resident=False``, ``QTTS_MTP_RESIDENT=0``), with
+shared heads (``head_mode="shared"``) or with ``QTTS_MTP_STREAM=0`` past
+K2's gate, the chain is the per-step one: one K1 (B=1) or K4 launch per
+chain position (``models/code_predictor.py::chain_route``).  What still
 refuses, each naming its ROADMAP item: float32 embedding tables in the
-kernels (K2v) and what a mesh does not take (M15).  A talker with
+kernels (K2v), an architecture JAX's fused step takes and the step kernels
+do not (K1a), and what a mesh does not take (M15).  A talker with
 ``attn_impl="pallas"`` runs its prefill attention as
 kernel K8.  ``kv_quant=True`` keeps the
 talker's KV cache in int8 with per-(slot, head) scales (K1, K4, K6 and K7
@@ -64,7 +73,8 @@ int8) and the MTP chain kernel K10 (where ``supports_tp_resident`` holds).
 The prefill, lm_head, code0 draw, embeddings and vocoder run on the mesh's
 first device with the full params (the JAX engine lets GSPMD shard them: a
 standing difference, ROADMAP Queue 3).  On the card a mesh engine
-needs both packs (the plain decode and the cached chain do not run there).
+needs both packs (the plain decode and the cached chain under a mesh are
+M15's).
 Batched decoding (``synthesize_batch`` at B > 1, the pool, the server),
 ``spec_k``, ``frame_fused=True`` and a data axis over 1 are not ported under
 a mesh (ROADMAP M15).  On
@@ -98,17 +108,12 @@ from ..config import (
 from ..frontend.mel import log_mel
 from ..frontend.tokenizer import Tokenizer, find_tokenizer_files
 from ..frontend.wav import read_wav, resample
-from ..models.code_predictor import (
-    attach_heads,
-    chain_kernel,
-    prepare_fused_step,
-    resident_enabled,
-)
+from ..models.code_predictor import attach_heads, prepare_fused_step
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.speaker_encoder import speaker_encoder_forward
 from ..models.talker import attach_lm_head, prepare_fused_talker
 from ..ops.fused_mtp_tp import shard_heads, supports_tp_resident
-from ..ops.fused_step import meta_pack, supports
+from ..ops.fused_step import supports, unit_gate
 from ..ops.fused_tp import check_timeouts, pack_fused_tp, pack_rows, supports_shard, supports_tp
 from ..ops.quant import fuse_params, quantize_params
 from ..parallel import Mesh
@@ -323,27 +328,19 @@ class TTSEngine:
         talker_fused = cfg.talker.decode_impl == "fused"
         mtp_fused = cfg.code_predictor.impl == "fused"
         if self.device.type == "cuda":
+            # every route the JAX package takes on one device runs here, chosen
+            # by its own predicates; what stays refused is where JAX's route is
+            # a kernel that the port's kernel does not take
             problems = []
-            if not (talker_fused and mtp_fused):
-                problems.append("decode_impl and the MTP impl must be 'fused'")
-            if not supports(cfg.talker.transformer) or not supports(
-                cfg.code_predictor.transformer
-            ):
-                problems.append("the kernels do not take this architecture")
-            if cfg.code_predictor.head_mode != "per_step":
-                problems.append("the chain kernel takes per-step heads only")
-            if not resident_enabled(cfg.code_predictor):
-                problems.append("code_predictor.resident=False (or QTTS_MTP_RESIDENT=0) selects "
-                                "the per-step MTP path, which is not ported to the card (the "
-                                "chains K2 and K3 are)")
+            for name, t, fused in (("talker", cfg.talker.transformer, talker_fused),
+                                   ("MTP trunk", cfg.code_predictor.transformer, mtp_fused)):
+                if fused and unit_gate(t) and not supports(t):
+                    problems.append(
+                        f"the JAX package decodes this {name} on its fused step, which the step "
+                        "kernels here take at head_dim 128, at most 8 q heads per kv head and "
+                        "QK-norm only (ROADMAP item K1a)")
             if mesh is not None:
                 problems += self._mesh_problems(cfg, mesh)
-            b1_pack = self._meta_packs(cfg)
-            if not problems and mesh is None and chain_kernel(cfg.code_predictor, b1_pack,
-                                                              1) is None:
-                problems.append("the MTP trunk is past the residency gate of K2 and "
-                                "QTTS_MTP_STREAM=0 turns the streamed chain K3 off: that selects "
-                                "the per-step MTP chain, which is not ported to the card")
             if problems:
                 raise EngineError("CUDA kernel path unavailable: " + "; ".join(problems))
 
@@ -382,16 +379,6 @@ class TTSEngine:
             # quantized, raw ones as bf16 rows), whenever the trunk was packed
             params["code_predictor"] = attach_heads(cp, params["code_predictor"])
         self.params = params
-
-    def _meta_packs(self, cfg: TTSModelConfig) -> dict:
-        """The MTP packs this engine builds (``fused_step``, and under
-        ``mtp_quantize="auto"`` ``fused_step_alt``) on the meta device: what
-        the route gates read, before any tensor moves."""
-        t = cfg.code_predictor.transformer
-        packs = {"fused_step": meta_pack(t, self._mtp_bits or self._bits)}
-        if self._mtp_alt:
-            packs["fused_step_alt"] = meta_pack(t, 4)
-        return packs
 
     @staticmethod
     def _mesh_problems(cfg: TTSModelConfig, mesh) -> List[str]:

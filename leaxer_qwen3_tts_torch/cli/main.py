@@ -18,7 +18,8 @@ int8 KV cache), any --mtp-quantize (an MTP trunk of another precision;
 "auto" adds the int4 trunk the chain takes where the primary one fails the
 residency gate), --spec-k and --frame-fused on (the whole-frame kernel K7
 at every unit mix; an unquantized MTP trunk decodes K1 + K3 per frame, as
-JAX's frame gate refuses bf16 trunks).
+JAX's frame gate refuses bf16 trunks), and --mtp-resident off (the per-step
+chain: one K1 step per chain position).
 """
 
 from __future__ import annotations
@@ -62,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--mtp-resident", choices=["on", "off"],
         help="pin the resident MTP chain kernel (all 15 sub-code steps in one "
-             "launch); default: on; QTTS_MTP_RESIDENT env overrides",
+             "launch; off: one step kernel launch per sub-code); default: on; "
+             "QTTS_MTP_RESIDENT env overrides",
     )
     p.add_argument(
         "--frame-fused", choices=["on", "off"],

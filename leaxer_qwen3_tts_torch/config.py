@@ -167,7 +167,7 @@ class VocoderConfig:
     resblock_dilations: Tuple[int, ...] = (1, 3)
     final_kernel_size: int = 7
     dtype: str = "bfloat16"
-    head: str = "conv"  # "conv" | "istft" (the istft head is not ported yet)
+    head: str = "conv"  # "conv" | "istft"
     istft_overlap: int = 4
 
     @property

@@ -11,15 +11,23 @@ rows as launches of whole streams); under a tensor-parallel mesh with a ``fused_
 B=1 step is kernel K9 on the mesh's model ranks
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_tp.fused_decode_step_tp`, on the
 ranks' kv-head shards of a :class:`~.layers.TPKVCache`, which
-:func:`talker_shard_cache` makes from the prefill's cache); otherwise the
-plain layers path, which runs only on the CPU: on a CUDA device a step or a
-verify pass the kernels cannot take raises.  The final norm
-and the ``lm_head`` stay outside the kernels, in plain PyTorch, as the JAX
-package left them to XLA.
+:func:`talker_shard_cache` makes from the prefill's cache).  Wherever the
+JAX package's predicates send a step or a verify pass to its plain
+``transformer_forward`` the port runs its plain layers, on the card as on
+the CPU: an unpacked talker (``decode_impl="xla"``, JAX's default, or an
+architecture its unit gate refuses), and an int8 cache on a bucket the
+kernels' gate refuses (:func:`~leaxer_qwen3_tts_torch.ops.fused_step.kvq_bucket_ok`:
+128-aligned for K1 and K4, and past 512 slots a multiple of 512 for K6).
+``QTTS_ASSERT_FUSED=1`` makes a packed talker's step that falls to the
+plain layers raise, as the JAX package's does; on the card such a fall is
+logged once per bucket without it.  The final norm and the
+``lm_head`` stay outside the kernels, in plain PyTorch, as the JAX package
+left them to XLA.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
@@ -28,6 +36,7 @@ from ..config import TalkerConfig
 from ..ops.fused_step import (
     fused_decode_step,
     fused_decode_step_batched,
+    kvq_bucket_ok,
     pack_fused_weights,
     supports,
 )
@@ -36,6 +45,9 @@ from ..ops.fused_tp import fused_decode_step_tp
 from ..ops.fused_verify import MAX_S, MIN_S, fused_verify_step
 from ..ops.quant import dense
 from .layers import KVCache, TPKVCache, _normal, init_kv_cache, init_transformer_params, rms_norm, transformer_forward
+from ..utils.logging import get_logger
+
+log = get_logger(__name__)
 
 
 def init_talker_params(cfg: TalkerConfig, gen: torch.Generator, device) -> dict:
@@ -111,6 +123,74 @@ def talker_prefill(
     return last_logits, last_hidden, cache, valid_mask
 
 
+def talker_prefill_all_logits(
+    cfg: TalkerConfig,
+    params: dict,
+    prompt_embeds: torch.Tensor,  # [B, P, H]
+    prompt_len: torch.Tensor,  # [B] int true lengths
+    cache: KVCache,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache, torch.Tensor]:
+    """Like :func:`talker_prefill`, with the logits of every prompt position
+    (the scoring path, JAX ``talker_prefill_all_logits``).  Returns (logits
+    [B, P, V] f32, hidden [B, P, H], cache, valid_mask [B, T])."""
+    B, P, H = prompt_embeds.shape
+    device = prompt_embeds.device
+    positions = torch.arange(P, device=device)[None, :].expand(B, P)
+    query_valid = positions < prompt_len.to(device)[:, None]
+    valid_mask = torch.zeros((B, cache.max_len), dtype=torch.bool, device=device)
+    hidden, cache, valid_mask = transformer_forward(
+        cfg.transformer, params["transformer"], prompt_embeds, positions, cache,
+        valid_mask, query_valid=query_valid,
+    )
+    return dense(hidden, params["lm_head"]), hidden, cache, valid_mask
+
+
+def step_on_kernel(cfg: TalkerConfig, params: dict, cache) -> bool:
+    """Whether a decode step runs on the step kernels (K1 at B=1 with a
+    uniform fill, else K4) rather than the plain layers: a packed talker,
+    and an int8 cache only on a bucket their gate takes (128-aligned, the
+    JAX kernels' ``kvq`` gate).  The JAX package also sends 2-32 rows at a
+    bucket off its batched window, more than 32 rows and B=1 past
+    ``fused_max_cache`` off its 512-slot window to its plain step, which the
+    port's kernels take (ROADMAP Queue 3's standing difference)."""
+    return (cfg.decode_impl == "fused" and "fused_step" in params
+            and (not cache.quantized or kvq_bucket_ok(cache.max_len)))
+
+
+def _assert_fused(cfg: TalkerConfig, B: int, T: int, kv_q: bool, uniform_fill: bool) -> None:
+    """``QTTS_ASSERT_FUSED=1``: a packed talker's step that falls to the
+    plain layers raises, with the JAX package's message (its ``fused_ok``:
+    the bucket at most ``fused_max_cache`` slots or a multiple of 512)."""
+    if os.environ.get("QTTS_ASSERT_FUSED") == "1":
+        fused_ok = T <= cfg.fused_max_cache or T % 512 == 0
+        raise RuntimeError(
+            "QTTS_ASSERT_FUSED: fused decode step ineligible here "
+            f"(B={B}, max_len={T}, kv_quant={kv_q}, "
+            f"uniform_fill={uniform_fill}, fused_ok={fused_ok}) — "
+            "check bucket alignment (kvq needs max_len % 128 == 0; "
+            "windowed needs % 512) and batch <= 32"
+        )
+
+
+_FALLS_LOGGED: set = set()
+
+
+def _log_plain_fall(what: str, T: int, kv_q: bool, on_card: bool) -> None:
+    """On the card a packed talker's step or verify pass that falls to the
+    plain layers is host-bound (~25,000 ops a frame against one launch), so
+    the fall is logged, once per (pass, bucket, cache type): the route is the
+    JAX package's, but never silent (``QTTS_ASSERT_FUSED=1`` makes a step
+    raise instead)."""
+    key = (what, T, kv_q)
+    if on_card and key not in _FALLS_LOGGED:
+        _FALLS_LOGGED.add(key)
+        log.warning(
+            "packed talker: the %s at a %d-slot bucket (kv_quant=%s) runs on the plain layers, "
+            "as the JAX package's does: the kernels take an int8 cache on 128-aligned buckets "
+            "(the verify pass past 512 slots on multiples of 512); QTTS_ASSERT_FUSED=1 makes "
+            "the step raise", what, T, kv_q)
+
+
 def talker_decode_step(
     cfg: TalkerConfig,
     params: dict,
@@ -145,8 +225,8 @@ def talker_decode_step(
         valid_mask = valid_mask.clone()
         valid_mask[:, pos] = True
         return logits, hidden, cache._replace(length=cache.length + 1), valid_mask
-    if cfg.decode_impl == "fused" and "fused_step" in params:
-        T = cache.max_len
+    T = cache.max_len
+    if step_on_kernel(cfg, params, cache):
         if uniform_fill:
             pos = min(int(cache.length), T - 1)
         if B == 1 and uniform_fill:
@@ -168,11 +248,9 @@ def talker_decode_step(
             slots = torch.arange(T, device=embed.device)
             valid_mask = valid_mask | (slots[None, :] == position[:, None])
         return logits, hidden, cache._replace(length=cache.length + 1), valid_mask
-    if embed.device.type == "cuda":
-        raise RuntimeError(
-            f"talker decode step at B={B}: the step kernels take a packed talker; the plain "
-            "layers do not run on the card"
-        )
+    if cfg.decode_impl == "fused" and "fused_step" in params:
+        _assert_fused(cfg, B, T, cache.quantized, uniform_fill)
+        _log_plain_fall("decode step", T, cache.quantized, embed.is_cuda)
     hidden, cache, valid_mask = transformer_forward(
         t, params["transformer"], embed[:, None, :], position[:, None], cache, valid_mask,
         uniform_fill=uniform_fill,
@@ -204,19 +282,17 @@ def talker_verify_step(
     T = cache.max_len
     slots = torch.arange(T, device=embeds.device)
     new = (slots[None, :] >= start[:, None]) & (slots[None, :] < start[:, None] + K)
-    if cfg.decode_impl == "fused" and "fused_step" in params and MIN_S <= K <= MAX_S:
+    if (cfg.decode_impl == "fused" and "fused_step" in params and MIN_S <= K <= MAX_S
+            and (not cache.quantized or kvq_bucket_ok(T, window=True))):
         x_out = fused_verify_step(t, params["fused_step"], embeds, start, cache.k, cache.v,
                                   *cache.scales)[0]
         fn = params["transformer"]["final_norm"]
         hidden = [rms_norm(x_out[:, s].contiguous(), fn, t.rms_norm_eps).to(embeds.dtype)
                   for s in range(K)]
         valid_mask = valid_mask | new
-    elif embeds.device.type == "cuda":
-        raise RuntimeError(
-            f"verify pass of {B} x {K} rows: the verify kernel takes a packed talker and "
-            f"{MIN_S}..{MAX_S} candidates; the plain layers do not run on the card"
-        )
     else:
+        if cfg.decode_impl == "fused" and "fused_step" in params:
+            _log_plain_fall("verify pass", T, cache.quantized, embeds.is_cuda)
         positions = start[:, None] + torch.arange(K, device=embeds.device)[None, :]
         h, cache, valid_mask = transformer_forward(
             t, params["transformer"], embeds, positions, cache._replace(length=start), valid_mask,

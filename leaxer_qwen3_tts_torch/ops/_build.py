@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -243,7 +244,9 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernels if the library for the current sources is missing.
-    Returns its path; the compiler's resource report is in ``<path>.log``."""
+    Returns its path; the compiler's resource report is in ``<path>.log``,
+    with each object's seconds to finish and its compilers' CPU seconds
+    (:func:`object_times` reads them)."""
     path = library_path()
     if os.path.exists(path):
         return path
@@ -259,9 +262,14 @@ def build() -> str:
                  for c in cmds]
         outs = [None] * len(procs)
 
-        def wait(i: int) -> None:  # each source's output, and its seconds to build
-            out = procs[i].communicate()[0]
-            outs[i] = f"{out}built in {time.monotonic() - t0:.1f} s\n"
+        def wait(i: int) -> None:  # each object's output, its seconds to build and of CPU
+            out = procs[i].stdout.read()
+            # the rusage of nvcc's whole tree (cicc, ptxas and the host
+            # compiler are waited for by nvcc, so counted in its own)
+            _, status, ru = os.wait4(procs[i].pid, 0)
+            procs[i].returncode = os.waitstatus_to_exitcode(status)
+            outs[i] = (f"{out}built in {time.monotonic() - t0:.1f} s, "
+                       f"{ru.ru_utime + ru.ru_stime:.1f} s of CPU\n")
 
         waits = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
         for w in waits:
@@ -282,6 +290,16 @@ def build() -> str:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return path
+
+
+def object_times(log_path: str) -> list:
+    """(object, seconds to finish, CPU seconds) of each compiled object, from
+    a build log that :func:`build` wrote, in the log's order."""
+    with open(log_path) as f:
+        text = f.read()
+    return [(os.path.basename(m.group(1)), float(m.group(2)), float(m.group(3)))
+            for m in re.finditer(r" -o (\S+\.o) \S+\n[\s\S]*?built in ([0-9.]+) s, "
+                                 r"([0-9.]+) s of CPU\n", text)]
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -325,7 +343,7 @@ def load_kernels() -> ctypes.CDLL:
             lib.qtts_mtp_chain_streamed_multi.restype = i32
             lib.qtts_mtp_chain_streamed_multi.argtypes = lib.qtts_mtp_chain_multi.argtypes
             lib.qtts_flash_attend.restype = i32
-            lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 8), vp]
+            lib.qtts_flash_attend.argtypes = [vp, vp, vp, vp, vp, *([i32] * 9), vp]
             lib.qtts_norm_head.restype = i32
             lib.qtts_norm_head.argtypes = [vp, vp, ctypes.c_float, vp, vp, vp, vp, i32, i32, i32,
                                            vp]

@@ -16,6 +16,11 @@ cached forward of such a config).  Its arithmetic, which differs from
   output acc / max(l, 1e-30) is the sum of V over Tp, not zeros;
 * the q/kv head of q head h is h // (nq / nk); the output is cast to q.dtype.
 
+The kernel takes every head_dim up to 256 (zero-padded in its tiles to 64,
+128 or 256 values; the scale stays 1/sqrt(d) of the true d) and every number
+of q heads per kv head (past 16 a kv head's q heads spread over several
+blocks), as the JAX kernel takes any; a wider head raises (ROADMAP item K8w).
+
 On a CUDA tensor :func:`flash_attend` launches the hand-written kernel
 (``csrc/flash_attention.cu``; tensor cores for bf16 inputs, CUDA cores for
 float32 ones); on a CPU tensor it runs the plain version
@@ -40,6 +45,7 @@ import torch
 
 NEG_INF = -1e30
 MAX_ROWS = 16  # stacked rows (q heads x query positions) of a kernel block: one m16 tile
+MAX_HEAD_DIM = 256  # the kernel's widest padded head_dim (64, 128 or 256 values a row)
 # keys per tile of the kernel: 64 on the tensor cores (bf16), 32 on the CUDA
 # cores (float32: a lane per key)
 KEY_TILE = {torch.bfloat16: 64, torch.float32: 32}
@@ -58,16 +64,19 @@ def padded_keys(T: int) -> int:
 
 
 def query_tile(g: int, B: int, nk: int, S: int, sms: int) -> int:
-    """Query positions per kernel block, whose g * qt rows are the g q heads
-    of its kv head at qt positions: 16 // g (a full m16 tile) when that gives
-    every one of the ``sms`` SMs a block, else 8 // g (half a tile, twice the
-    blocks).  The 1.7B prefill (B=1, nk=8, g=2, S=57) takes 4: 120 blocks."""
-    if not 1 <= g <= MAX_ROWS:
-        raise ValueError(f"the kernel stacks at most {MAX_ROWS} q heads per kv head, got {g}")
-    full = MAX_ROWS // g
-    if B * nk * -(-S // full) >= sms:
+    """Query positions per kernel block, whose gb * qt rows are gb = min(g,
+    16) q heads of its kv head at qt positions (a kv head of more than 16 q
+    heads spreads them over ceil(g / 16) blocks): 16 // gb (a full m16 tile)
+    when that gives every one of the ``sms`` SMs a block, else 8 // gb (half
+    a tile, twice the blocks).  The 1.7B prefill (B=1, nk=8, g=2, S=57)
+    takes 4: 120 blocks."""
+    if g < 1:
+        raise ValueError(f"q heads per kv head must be positive, got {g}")
+    gb = min(g, MAX_ROWS)
+    full = MAX_ROWS // gb
+    if B * nk * -(-g // gb) * -(-S // full) >= sms:
         return full
-    return max(1, MAX_ROWS // 2 // g)
+    return max(1, MAX_ROWS // 2 // gb)
 
 
 def key_schedule(mask: torch.Tensor, qt: int, key_tile: int
@@ -208,8 +217,11 @@ def flash_attend(
             f"flash_attend takes q, k and v all bf16 or all float32, got {q.dtype}, {k.dtype}, "
             f"{v.dtype}"
         )
-    if d != 128 or nq % nk != 0:
-        raise ValueError(f"flash_attend takes head_dim 128 and nq % nk == 0 (d={d}, {nq}/{nk})")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attend takes head_dim 1..{MAX_HEAD_DIM}, got {d} (wider heads: "
+                         "ROADMAP item K8w)")
+    if nq % nk != 0:
+        raise ValueError(f"flash_attend takes nq % nk == 0 ({nq}/{nk})")
     if k.shape != (B, nk, T, d) or v.shape != k.shape or mask.shape != (B, S, T):
         raise ValueError(f"flash_attend: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} mask {tuple(mask.shape)}")
@@ -218,16 +230,16 @@ def flash_attend(
     for t in (k, v, m8):
         if not t.is_cuda:
             raise ValueError("flash_attend: every tensor must be on CUDA")
-    # the tensor-core kernel copies 16-byte runs of q, k and v
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    # the tensor-core kernel copies 16-byte runs of q, k and v where d % 8 == 0
+    if d % 8 == 0 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attend: q, k and v must be 16-byte aligned")
-    qt = query_tile(nq // nk, B, nk, S, grid_size(q.device))  # raises past 16 q heads per kv head
+    qt = query_tile(nq // nk, B, nk, S, grid_size(q.device))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flash_attend.launches += 1
     err = load_kernels().qtts_flash_attend(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m8.data_ptr(), out.data_ptr(),
-        B, S, nq, nk, T, padded_keys(T), qt, int(q.dtype == torch.bfloat16), stream,
+        B, S, nq, nk, T, padded_keys(T), qt, d, int(q.dtype == torch.bfloat16), stream,
     )
     check(err, "flash_attend")
     return out

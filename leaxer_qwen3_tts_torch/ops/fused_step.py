@@ -118,10 +118,12 @@ def meta_pack(cfg: TransformerConfig, bits: int = 8) -> FusedStepWeights:
     )
 
 
-def supports(cfg: TransformerConfig) -> bool:
-    """Architectures the packed path takes: the JAX package's unit gate
-    (hidden size a multiple of 1024, ...) plus what the CUDA attention
-    kernel needs (head_dim 128, at most 8 q heads per kv head, QK-norm)."""
+def unit_gate(cfg: TransformerConfig) -> bool:
+    """The JAX package's gate of its fused step (``ops/fused_step.py::
+    supports``): hidden size, qkv width and 2 x intermediate size multiples
+    of its 1024-wide units, q_dim and the intermediate size multiples of the
+    hidden size.  Where it fails, the JAX package packs nothing and decodes
+    on its plain layers, and so does the port."""
     H = cfg.hidden_size
     A = cfg.q_dim + 2 * cfg.kv_dim
     return (
@@ -130,6 +132,16 @@ def supports(cfg: TransformerConfig) -> bool:
         and cfg.q_dim % H == 0
         and (2 * cfg.intermediate_size) % 1024 == 0
         and cfg.intermediate_size % H == 0
+    )
+
+
+def supports(cfg: TransformerConfig) -> bool:
+    """Architectures the packed path takes: :func:`unit_gate` plus what the
+    CUDA attention items need (head_dim 128, at most 8 q heads per kv head,
+    QK-norm).  An architecture that passes the first and not the rest is one
+    the JAX package decodes fused and the card refuses (ROADMAP item K1a)."""
+    return (
+        unit_gate(cfg)
         and cfg.head_dim == 128
         and cfg.num_heads % cfg.num_kv_heads == 0
         and cfg.num_heads // cfg.num_kv_heads <= 8

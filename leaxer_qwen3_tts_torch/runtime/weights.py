@@ -23,6 +23,8 @@ under ``|V2``, and the loader here reads ``|V2`` as bf16.
 from __future__ import annotations
 
 import os
+import struct
+import zipfile
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -175,19 +177,50 @@ def load_config(model_dir: str) -> TTSModelConfig:
         return TTSModelConfig.from_json(f.read())
 
 
+def _npz_arrays(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """(key, array) of each member of an npz, in file order, as ``np.load``
+    gives them.  A stored member (``np.savez``'s, both packages' writer) is
+    read straight from the file at its data offset (``np.fromfile``: ~7x
+    ``np.load``'s chunked reads through ``zipfile``, which also check each
+    member's CRC-32; this path does not); a compressed one goes through
+    ``zipfile``.  No pickled member is read."""
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as raw:
+        for info in zf.infolist():
+            key = info.filename[:-4] if info.filename.endswith(".npy") else info.filename
+            if info.compress_type != zipfile.ZIP_STORED:
+                with zf.open(info) as fp:
+                    yield key, np.lib.format.read_array(fp, allow_pickle=False)
+                continue
+            raw.seek(info.header_offset)
+            head = raw.read(30)  # the local file header: its name and extra lengths at 26
+            if len(head) != 30 or head[:4] != b"PK\x03\x04":
+                raise ValueError(f"{path}: member {info.filename!r} has no local header")
+            n_name, n_extra = struct.unpack("<HH", head[26:30])
+            raw.seek(info.header_offset + 30 + n_name + n_extra)
+            version = np.lib.format.read_magic(raw)
+            shape, fortran, dtype = (np.lib.format.read_array_header_1_0(raw) if version == (1, 0)
+                                     else np.lib.format.read_array_header_2_0(raw))
+            if dtype.hasobject:
+                raise ValueError(f"{path}: member {key!r} holds Python objects")
+            count = int(np.prod(shape))
+            a = np.fromfile(raw, dtype=dtype, count=count)
+            if a.size != count:
+                raise ValueError(f"{path}: member {key!r} is truncated")
+            yield key, a.reshape(shape[::-1]).T if fortran else a.reshape(shape)
+
+
 def load_checkpoint(model_dir: str) -> Tuple[TTSModelConfig, dict]:
     """(config, params) from a model directory written by
     :func:`save_checkpoint` or by the JAX package; the tensors lie on the
-    CPU.  The npz members are read and converted one at a time, so the host
-    holds one member twice at most."""
+    CPU.  The npz members are read and converted one at a time
+    (:func:`_npz_arrays`), so the host holds one member twice at most."""
     cfg = load_config(model_dir)
     npz_path = os.path.join(model_dir, WEIGHTS_NPZ)
     st_path = os.path.join(model_dir, WEIGHTS_SAFETENSORS)
     flat = {}
     if os.path.exists(npz_path):
-        with np.load(npz_path) as data:
-            for k in data.files:
-                flat[k] = _to_tensor(data[k], "cpu", k, copy=False)
+        for k, a in _npz_arrays(npz_path):
+            flat[k] = _to_tensor(a, "cpu", k, copy=False)
     elif os.path.exists(st_path):
         from safetensors.torch import load_file  # reads BF16 with no ml_dtypes
 

@@ -7,8 +7,9 @@ directory, pick the continuous pool or the static batcher, warm both up
 every weight precision serves at both presets: an unset ``--quantize`` (the
 default) as bf16 weight units, ``--quantize int8`` and ``int4`` as int8 and
 int4 units, each with or without ``--kv-quant`` (the int8 KV cache) and
-``--spec-k``, at any ``--pool-size`` of 2 or more (past 32 rows the batched
-kernels run as launches of at most 32 rows).
+``--spec-k``, at any ``--pool-size`` (past 32 rows the batched kernels run
+as launches of at most 32 rows), and with ``--mtp-resident off`` (the
+per-step chain: one step kernel launch per chain position).
 """
 
 import argparse

@@ -20,7 +20,9 @@ single-stream state into slot b of the pool state, in place: the cache row
 (``models.layers.splice_kv_cache``), the per-slot position, step, EOS latch,
 text-drip buffer and noise generator.  Pool chunks decode with
 ``uniform_fill=False``: each slot at its own position, read by kernel K4 on
-the device, so a chunk needs no host sync.  Retirement vocodes the stream's
+the device (a pool of one slot too: K4 at one row is K1's arithmetic), so a
+chunk needs no host sync; an unpacked talker, and an int8 cache on a bucket
+the kernels' gate refuses, decode on the plain layers, as the JAX pool does.  Retirement vocodes the stream's
 codes off the decode loop and resolves its future.
 
 ``warmup`` runs tiny greedy requests through the live pool before it
@@ -62,7 +64,6 @@ from ..config import SAMPLE_RATE, language_to_codec_id
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.layers import splice_kv_cache
 from ..models.talker import talker_init_cache
-from ..ops.fused_step import kvq_bucket_ok
 from ..runtime.generate import GenerateState, make_generate_fns
 from ..runtime.prompt import prompt_length, tts_embeds
 from ..runtime.sampling import SamplingParams
@@ -169,16 +170,8 @@ class ContinuousBatcher:
         self.spec_k = int(spec_k) if spec_k else None
         self.spec_iters = max(1, int(spec_iters))
         self.device = engine.device
-        if self.device.type == "cuda" and int(pool_size) < 2:
-            raise EngineError(f"pool_size {pool_size}: the pool on the card takes 2 or more "
-                              "slots (past 32 rows the batched kernels split into launches)")
         if sync_check and self.device.type != "cuda":
             raise ValueError("sync_check needs a CUDA engine")
-        if (self.device.type == "cuda" and engine.cfg.talker.transformer.kv_cache_quant
-                and not kvq_bucket_ok(int(kv_bucket), window=bool(self.spec_k))):
-            raise EngineError(
-                f"kv_bucket {kv_bucket} with the int8 KV cache: the kernels take 128-aligned "
-                "buckets (the verify kernel beyond 512 slots multiples of 512)")
         self.engine = engine
         self.cfg = engine.cfg
         self.pool_size = int(pool_size)

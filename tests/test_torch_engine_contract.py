@@ -168,8 +168,10 @@ def _kernel_width_cfg(**edit):
 def test_environment_routes_the_engine(tiny_vocab_files, monkeypatch):
     """With the config fields None: QTTS_FRAME_FUSED=1 runs every B=1 frame
     through the whole-frame kernel, "0" through K1 / K2; QTTS_MTP_RESIDENT=0
-    sends the chain to the cached plain path, and on the card leaves the
-    engine not ready."""
+    sends the chain to the per-step chain (one K1 step per chain position,
+    as JAX's ``predict_subcodes_fused``), which the card's gate lets pass
+    (the engine then stops only where it moves tensors to a card this
+    machine lacks)."""
     tc, params, tok = _kernel_width(tiny_vocab_files, resident=None)
     assert tc.frame_fused is None and tc.code_predictor.resident is None
     kw = dict(params=params, tokenizer=tok, quantize="int8", device="cpu", max_frames=4,
@@ -183,6 +185,7 @@ def test_environment_routes_the_engine(tiny_vocab_files, monkeypatch):
     monkeypatch.setenv("QTTS_MTP_RESIDENT", "0")
     eng = TTSEngine(config=tc, **kw)
     assert tcp.chain_kernel(tc.code_predictor, eng.params["code_predictor"], 1) is None
+    assert tcp.chain_route(tc.code_predictor, eng.params["code_predictor"], 1) == "per_step"
     assert np.isfinite(eng.synthesize("hello", temperature=0.0, max_tokens=4).audio).all()
     card = TTSEngine(config=tc, params=params, quantize="int8", device="cuda")
-    assert not card.is_ready() and "QTTS_MTP_RESIDENT=0" in card.get_error()
+    assert "CUDA kernel path" not in card.get_error() and "RESIDENT" not in card.get_error()

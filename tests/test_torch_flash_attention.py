@@ -60,6 +60,18 @@ def _both(q, k, v, mask, dtype="f32"):
         (1, 7, 300, 4, 2, 16),  # three 128-key tiles, the last one padded
         (2, 9, 150, 16, 2, 16),  # GQA 8:1, T past a 64-key tile
         (1, 1, 150, 8, 8, 16),  # MHA decode row over a ragged T
+        # K8's reach: the head_dims the kernel pads (64, 80, 96 -> 128, 256)
+        # and the q-per-kv groups past one m16 tile of heads (16, 32), and
+        # head_dims off the 8-value copy run (17, 100)
+        (1, 6, 40, 4, 2, 64),
+        (1, 5, 23, 2, 2, 80),
+        (1, 5, 23, 4, 1, 96),
+        (1, 4, 20, 2, 2, 128),
+        (1, 3, 20, 2, 1, 256),
+        (1, 4, 30, 16, 1, 16),
+        (1, 3, 30, 32, 1, 16),
+        (1, 3, 17, 6, 2, 17),
+        (1, 2, 9, 2, 1, 100),
     ],
 )
 def test_flash_matches_jax(B, S, T, nq, nk, d):
@@ -150,7 +162,7 @@ def _schedule_mask(kind, B, S, T, rng):
     return mask
 
 
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("kind", list(SCHEDULE_MASKS))
 def test_flash_schedule_matches_jax(kind, g):
     """The plain version over only each block's key-tile range (for each key
@@ -192,13 +204,15 @@ def test_key_schedule_ranges():
 def test_query_tile():
     """16 // g positions per block when every SM gets a block, else 8 // g:
     the 1.7B prefill (B=1, nk=8, g=2, S=57) on 132 SMs runs 4 positions per
-    block, 120 blocks."""
+    block, 120 blocks.  Past 16 q heads per kv head a block holds 16 of them
+    at one position (a kv head's heads over ceil(g / 16) blocks)."""
     assert tflash.query_tile(2, 1, 8, 57, 132) == 4
     assert tflash.query_tile(2, 1, 8, 57, 64) == 8
     assert [tflash.query_tile(g, 1, 1, 1, 132) for g in (1, 2, 4, 8, 16)] == [8, 4, 2, 1, 1]
     assert [tflash.query_tile(g, 4, 8, 512, 132) for g in (1, 2, 4, 8, 16)] == [16, 8, 4, 2, 1]
+    assert [tflash.query_tile(g, 1, 1, 1, 132) for g in (17, 32, 48)] == [1, 1, 1]
     with pytest.raises(ValueError):
-        tflash.query_tile(17, 1, 1, 1, 132)
+        tflash.query_tile(0, 1, 1, 1, 132)
 
 
 @pytest.mark.parametrize("seed,rows,keys", [(0, 16, 64), (1, 57, 256), (2, 8, 150)])

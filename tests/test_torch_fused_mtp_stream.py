@@ -196,8 +196,10 @@ def test_stream_switch_routes_b1_like_jax(models_f32, env, monkeypatch):
 def test_stream_switch_default_is_the_accelerators(monkeypatch):
     """Unset, the switch is on: the JAX package's default on its accelerator
     (its ``_stream_enabled`` with the backend read as "tpu"); set, both read
-    it alike.  On the card, "0" with a trunk past the residency gate (the
-    1.7B preset) leaves the engine not ready, naming the per-step chain."""
+    it alike.  "0" with a trunk past the residency gate (the 1.7B preset)
+    routes the B=1 chain to the per-step chain (one K1 step per chain
+    position), as JAX's ``predict_subcodes`` does, on the card too: the
+    engine passes its gate and stops only at the params."""
     import leaxer_qwen3_tts_tpu.models.code_predictor as jcp
     from leaxer_qwen3_tts_torch.api.engine import TTSEngine
 
@@ -212,6 +214,7 @@ def test_stream_switch_default_is_the_accelerators(monkeypatch):
     assert tcp.chain_kernel(cp, {"fused_step": meta_pack(cp.transformer)}, 1) is None
     assert tcp.chain_kernel(cp, {"fused_step": meta_pack(cp.transformer)}, 8) is (
         tfm.fused_mtp_chain_batched)
+    assert tcp.chain_route(cp, {"fused_step": meta_pack(cp.transformer)}, 1) == "per_step"
     eng = TTSEngine(config=tcfg.QWEN3_TTS_17B, params={}, quantize="int8", device="cuda")
-    assert not eng.is_ready() and "per-step MTP chain" in eng.get_error()
-    assert "QTTS_MTP_STREAM=0" in eng.get_error()
+    assert not eng.is_ready() and "CUDA kernel path" not in eng.get_error()
+    assert "code_predictor" in eng.get_error()

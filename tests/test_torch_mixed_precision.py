@@ -305,7 +305,10 @@ def test_engine_packs_and_route_match_jax(jax_packs, preset, monkeypatch):
     for q, m in itertools.product(QUANTIZE, MTP_QUANTIZE):
         eng = TTSEngine(config=cfg, params={}, quantize=q, mtp_quantize=m, device="cuda")
         assert "ROADMAP" not in eng.get_error(), (q, m, eng.get_error())
-        packs = eng._meta_packs(cfg)
+        # the MTP packs the engine builds, on the meta device
+        packs = {"fused_step": tfs.meta_pack(cp.transformer, eng._mtp_bits or eng._bits)}
+        if eng._mtp_alt:
+            packs["fused_step_alt"] = tfs.meta_pack(cp.transformer, 4)
         jp = jax_packs[preset, q, m]
         assert set(packs) == set(jp), (q, m)
         for k in packs:

@@ -203,10 +203,18 @@ def test_engine_synthesize_tiny(tiny_model, tiny_vocab_files):
     assert not bad.is_ready() and "sequential-only" in bad.get_error()
     with pytest.raises(EngineError, match="engine not ready: .*sequential-only"):
         bad.synthesize("hello world", temperature=0.0)
-    # on a CUDA device a config the kernels do not take is refused; it does
-    # not run the plain path (checked before anything touches the device)
-    bad = TTSEngine(config=cfg, params=params, quantize="int8", device="cuda")
-    assert not bad.is_ready() and "do not take this architecture" in bad.get_error()
+    # on a CUDA device a config that JAX's fused step takes and the step
+    # kernels do not (head_dim 64) is refused by name (checked before
+    # anything touches the device); one that JAX's unit gate refuses (this
+    # tiny one) decodes on the plain layers there, as in JAX, and passes
+    kw = _kernel_width_cfg()
+    narrow = dataclasses.replace(kw, talker=dataclasses.replace(kw.talker, transformer=(
+        dataclasses.replace(kw.talker.transformer, num_heads=16, num_kv_heads=8, head_dim=64))))
+    bad = TTSEngine(config=tcfg.TTSModelConfig.from_json(narrow.to_json()), params={},
+                    quantize="int8", device="cuda")
+    assert not bad.is_ready() and "ROADMAP item K1a" in bad.get_error()
+    plain = TTSEngine(config=cfg, params=params, quantize="int8", device="cuda")
+    assert "CUDA kernel path" not in plain.get_error()
 
 
 def test_engine_without_device_needs_cuda(tiny_model):

@@ -231,12 +231,14 @@ def test_k3_route_matches_k2_at_float32(tiny_vocab_files, monkeypatch):
     np.testing.assert_array_equal(k3.codes, k2.codes)
 
 
-def test_untaken_knobs_raise(voiced, tiny_vocab_files):
+def test_untaken_knobs_raise(voiced, tiny_vocab_files, monkeypatch):
     """The argument frame_fused=True (the whole-frame kernel K7) is
     sequential-only: with spec_k the engine is not ready, as the JAX engine
-    is; on the card, code_predictor.resident=False (the per-step MTP path)
-    is refused rather than running a chain (checked before any tensor
-    moves)."""
+    is.  code_predictor.resident=False (the per-step MTP path) is a route
+    now, on the card as on the CPU: the card's gate lets it pass (the
+    engine then stops only where it moves tensors to a card this machine
+    lacks), and on the CPU its chain takes one K1 step per chain position
+    past the prefix."""
     _, _, tc, tp = voiced
     eng = TTSEngine(config=tc, params=tp, device="cpu", frame_fused=True, spec_k=4)
     assert not eng.is_ready() and "sequential-only" in eng.get_error()
@@ -244,4 +246,13 @@ def test_untaken_knobs_raise(voiced, tiny_vocab_files):
         eng.synthesize("hello", temperature=0.0)
     kc, params, tok = _kernel_width(tiny_vocab_files, resident=False)
     eng = TTSEngine(config=kc, params=params, quantize="int8", device="cuda")
-    assert not eng.is_ready() and "resident=False" in eng.get_error()
+    assert "resident" not in eng.get_error() and "CUDA kernel path" not in eng.get_error()
+    eng = TTSEngine(config=kc, params=params, tokenizer=tok, quantize="int8", device="cpu",
+                    max_frames=4, chunk_len=2)
+    calls = []
+    real = tcp.fused_decode_step
+    monkeypatch.setattr(tcp, "fused_decode_step",
+                        lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    r = eng.synthesize("hello", temperature=0.0, max_tokens=4)
+    steps = kc.code_predictor.num_steps - 1
+    assert r.metrics.decoded_frames > 0 and len(calls) == steps * r.metrics.decoded_frames
