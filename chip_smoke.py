@@ -69,17 +69,17 @@ prints the final line:
    its plain version and timed beside one PyTorch call of the unit product,
    both on the ring kernel alone.
 6. Slice: ``TTSEngine.synthesize`` (0.6B preset, random weights from a seed,
-   int8) on three requests, then a fixed 300-frame run through the generate
+   int8) on three requests, then a fixed FIXED_FRAMES-frame run through the generate
    callables and the engine's cache growth (256 -> 512 slots), with any host
    sync inside a decode chunk raising.  Launch counters, reset just before,
    must show one K1 step and one K2 chain per decoded frame.  Then
    ``TTSEngine(frame_fused=True)``: the same three requests and a streamed
-   one, one K7 launch per decoded frame and no K1 or K2; fixed 300-frame
-   runs in turns with the multi-dispatch engine (multi, K7, K7, multi);
+   one, one K7 launch per decoded frame and no K1 or K2; fixed FIXED_FRAMES-
+   frame runs in turns with the multi-dispatch engine (multi, K7, K7, multi);
    greedy agreement with it printed as data; a ``torch.profiler`` trace of
    single frames of both (device busy, idle share).
 7. Batched slice: ``synthesize_batch`` on 8 texts with per-stream seeds, then
-   fixed 300-frame batched runs at B=8 and B=32 (EOS forbidden, cache growth,
+   fixed FIXED_FRAMES-frame batched runs at B=8 and B=32 (EOS forbidden,
    a host sync inside a chunk raising): ms per batched frame, aggregate RTF.
    One K4 step and one K5 chain per decoded frame, no K1 or K2.
 8. Pool: a ``ContinuousBatcher`` of 8 slots serves 12 requests (mixed
@@ -154,7 +154,7 @@ prints the final line:
    K8_BF16_FLIPS of the outputs off the plain version's bf16 value; timed
    beside ``scaled_dot_product_attention``; then
    ``synthesize(instruct=...)`` and ``synthesize_speaker("serena")`` through
-   the engine and a fixed 300-frame instruct run: one K1 and one K3 per
+   the engine and a fixed FIXED_FRAMES-frame instruct run: one K1 and one K3 per
    decoded frame, no K2, and 28 K8 launches per prefill.  With
    ``QTTS_MTP_STREAM=0`` (the streamed chain off) the same engine decodes a
    request on the per-step chain: one K1 per chain position, no K3.
@@ -170,7 +170,7 @@ prints the final line:
    kernels' limits (K1's deep and one-layer limits and tight count, K3's and
    K5's flip rule); one pass on a one-slot ring.  Then ``TTSEngine(config,
    params)`` with ``quantize`` unset at the 0.6B preset: three requests and
-   a fixed 300-frame run (one K1 and one K3 per frame, no K2), the same with
+   a fixed FIXED_FRAMES-frame run (one K1 and one K3 per frame, no K2), the same with
    ``frame_fused=True`` (no K7: JAX's frame gate refuses bf16 trunks),
    phase 7's and phase 8's runs (one K4 and one K5 per frame; the greedy
    pool output equals B=1 ``synthesize``), and the 1.7B preset at B=1 (one
@@ -196,12 +196,12 @@ prints the final line:
    and every K6 row to the K1 / K4 steps it stands for, K7 equal to K2 ->
    float32 x -> K1 -> norm+lm_head, and K1 / K4 on bf16 twins of int8 packs
    equal to the int8 packs, all bit for bit (values and scales), again on a
-   one-slot ring.  Then the 0.6B engines: fixed 300-frame B=1 runs in turns
+   one-slot ring.  Then the 0.6B engines: fixed FIXED_FRAMES-frame B=1 runs in turns
    with a bf16 cache (int8 and bf16 units), greedy B=1 equal to spec_k=4
    greedy, ``frame_fused`` (one K7 per frame), spec_k=4 at full and zero
    acceptance, ``synthesize_batch`` at B=8 and 32 and a pool of 8 (int8 and
    bf16 units, greedy pool output equal to B=1), and the 1.7B preset at B=1
-   (K1 kvq at its widths, an instruct request and a fixed 300-frame run);
+   (K1 kvq at its widths, an instruct request and a fixed FIXED_FRAMES-frame run);
    every run's launch counts, and K1, K4, K6 and K7 launched on them.
 14. ``tp_phase``: the tensor-parallel path on a mesh that lists this card
    ``tp`` times (``make_mesh(1, tp, devices=[cuda:0] * tp)``: tp logical
@@ -226,7 +226,16 @@ prints the final line:
    and K10 again on a one-slot ring.  Then ``TTSEngine(config, params,
    mesh=...)`` with ``quantize`` unset: two 0.6B requests at tp=2 and one 1.7B
    request at tp=4, one K9 and one K10 launch per decoded frame and no other
-   kernel.  With two cards or more the kernel checks and the engines run again
+   kernel.  Then the meshes whose B=1 routes mix a kernel and a plain route
+   (``mesh_route_runs``, MESH_KERNEL_FRAMES frames each, as JAX's gates
+   route them): 0.6B tp=2 with ``kv_quant`` (the plain step on the int8
+   cache beside K10: K10 per decoded frame and device, no K9), 1.7B tp=2 (K9
+   beside the cached chain, the trunk past K10's budget: K9 per decoded
+   frame and device, no K10), 0.6B on ``make_mesh(2, 2)`` at B=1 (K9 and K10
+   on the first data row's ranks once per decoded frame), and 0.6B tp=2
+   with ``spec_k=4`` whose acceptance floor trips after one iteration (the
+   verify pass plain, the candidates' chains cached, then one K9 and one K10
+   per sequential frame).  With two cards or more the kernel checks and the engines run again
    with the ranks on distinct cards; with one, a line says that run was not
    made.  K9 on a narrow one-slot ring (four rows a stage) equals the step
    on the default ring bit for bit: the only setting where a read of the o
@@ -316,9 +325,21 @@ prints the final line:
    phase 2's compilers run on a thread): the plain talker (``decode_impl=
    "xla"``) with the cached and with the dense chain (B=1,
    ``synthesize_batch`` B=4, a pool of 2, spec_k=4; no kernel launched),
-   after the profiler's one-time set-up.  Before it, in phase 6's engines,
+   after the profiler's one-time set-up, and the meshes' plain routes
+   (``mesh_plain_runs``, 0.6B, MESH_FRAMES frames a request, no kernel
+   launched, the data group of each request logged): the witnesses on
+   ``make_mesh(1, 1)`` (B=1, a pool and a spec pool (spec_k=4) of one
+   slot), then ``synthesize_batch`` of 2 on ``make_mesh(2, 1)`` and on
+   ``make_mesh(2, 2)`` a pool of 2 with 3 requests, a spec pool of 2 with 2
+   and a ``BatchingServer`` with 2, one row or slot a data group, each
+   request's greedy codes equal to its witness's), and one
+   data-parallel train step on ``make_mesh(2, 1)`` (this card listed twice:
+   phase 17's batch over two groups) on float32 copies of the params against
+   the one-device step on the same batch: the loss and the updated lm_head
+   within TRAIN_LOSS_REL; its ms per step and peak memory.  Before it, in phase 6's engines,
    the 0.6B preset at ``mtp_resident=False`` (B=1, ``synthesize_batch``
-   B=8, spec k=4: one K1 or K4 per chain position, no chain kernel), and in
+   B=8, spec k=4: one K1 or K4 per chain position, no chain kernel; spec's
+   greedy codes equal to the same engine's sequential decode), and in
    phase 11
    the 1.7B engine with ``QTTS_MTP_STREAM=0`` (the per-step chain).  Every
    phase before this one runs with ``QTTS_ASSERT_FUSED=1``.
@@ -403,8 +424,8 @@ from leaxer_qwen3_tts_torch.runtime.weights import (
     param_count,
     save_checkpoint,
 )
-from leaxer_qwen3_tts_torch.parallel import make_mesh
-from leaxer_qwen3_tts_torch.serve import ContinuousBatcher, make_http_server
+from leaxer_qwen3_tts_torch.parallel import make_mesh, split_rows
+from leaxer_qwen3_tts_torch.serve import BatchingServer, ContinuousBatcher, make_http_server
 from leaxer_qwen3_tts_torch.tools import a8_probe as P1
 from leaxer_qwen3_tts_torch.tools import unit_probe
 from leaxer_qwen3_tts_torch.tools import w8a8_probe as P2
@@ -414,6 +435,7 @@ from leaxer_qwen3_tts_torch.training import (
     init_train_state,
     make_optimizer,
     make_train_step,
+    shard_train_state,
     tts_loss,
 )
 from leaxer_qwen3_tts_torch.training.draft_loss import draft_loss, make_draft_train_step
@@ -543,6 +565,10 @@ K7_CASES = ((256, 64), (256, 255), (2560, 1792), (2560, 2559))
 K7_KNOBS = ((0.0, 50, 0.9), (0.8, 50, 0.95), (1.0, 0, 1.0))
 K7_INPUTS = 16
 FIXED_TEXT = "hello world, this is a fixed length run"
+# frames of every fixed run: the fewest that cross from the 256 bucket into
+# 512 without an instruction (cut from 300 to keep the smoke inside its
+# time limit)
+FIXED_FRAMES = 248
 # The persistent K1 and K2 against the launch-per-op sequences they replaced
 # (qtts_decode_step_multi, qtts_mtp_chain_multi): the same operations in the
 # same order, so x, both caches, the sub-codes and sub_sum equal bit for bit.
@@ -660,6 +686,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_call(fn):
+    """(``fn()``, its milliseconds by CUDA events): one call, timed where a
+    check makes it anyway, so that a slow plain version runs once."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, iters: int) -> float:
@@ -1270,10 +1308,9 @@ def check_chain(label, kernel_fn, plain_fn, knobs, cp, fw, heads, tables, fnorm,
 
     K2.gumbel_topk_topp_sample = record
     try:
-        sp_, sum_p = run(plain_fn)
+        (sp_, sum_p), plain_call_ms = timed_call(lambda: run(plain_fn))
     finally:
         K2.gumbel_topk_topp_sample = real
-    torch.cuda.synchronize()
     kern, plain = sk[0].tolist(), sp_[0].tolist()
     diff = [j for j in range(n) if kern[j] != plain[j]]
     if diff:
@@ -1294,7 +1331,7 @@ def check_chain(label, kernel_fn, plain_fn, knobs, cp, fw, heads, tables, fnorm,
     ms = plain_ms = float("nan")
     if iters:
         ms = time_ms(lambda: run(kernel_fn), iters)
-        plain_ms = time_ms(lambda: run(plain_fn), 2, 1)
+        plain_ms = plain_call_ms  # the checked call (with its sampler inputs recorded)
     log(f"{label} {mode}: subcodes kernel {kern} plain {plain} equal={not diff} sub_sum "
         f"max_abs_err={err:.3e} (tol {K2_SUM_ABS}) kernel {ms:.4f} ms/chain plain "
         f"{plain_ms:.4f} ms/chain -> {'ok' if ok else 'FAIL'} [{CARD}]")
@@ -1487,7 +1524,7 @@ def time_k6(t, fw, B, S, T, starts, gen, iters):
     x, kc, vc, pos_dev = k6_inputs(t, B, S, T, starts, torch.bfloat16, gen)
     kp, vp = kc.clone(), vc.clone()
     ms = time_ms(lambda: K6.fused_verify_step(t, fw, x, pos_dev, kc, vc), iters)
-    plain_ms = time_ms(lambda: K6.fused_verify_step_reference(t, fw, x, pos_dev, kp, vp), 1, 1)
+    plain_ms = time_ms(lambda: K6.fused_verify_step_reference(t, fw, x, pos_dev, kp, vp), 1, 0)
     ctx = [min(p, T - S) for p in starts]  # cache slots read before the new ones
     return ms, plain_ms, step_bound(t, fw, B * S, ctx, S, torch.bfloat16)
 
@@ -1616,7 +1653,8 @@ def check_k5(B, cp, fw, heads, tables, fnorm, gen, iters, cache_dtype=torch.bflo
 
     K2.gumbel_topk_topp_sample = record
     try:
-        sp_, sum_p = run(K2.fused_mtp_chain_batched_reference)
+        # the checked call, timed (its sampler inputs recorded)
+        (sp_, sum_p), plain_ms = timed_call(lambda: run(K2.fused_mtp_chain_batched_reference))
     finally:
         K2.gumbel_topk_topp_sample = real
     rows_k2 = True
@@ -1642,7 +1680,6 @@ def check_k5(B, cp, fw, heads, tables, fnorm, gen, iters, cache_dtype=torch.bflo
     err = float((sum_k[equal_rows] - sum_p[equal_rows]).abs().max()) if equal_rows else 0.0
     ok = ok and err < K2_SUM_ABS and rows_k2 and len(equal_rows) >= K5_MIN_EQUAL * B
     ms = time_ms(lambda: run(K2.fused_mtp_chain_batched), iters)
-    plain_ms = time_ms(lambda: run(K2.fused_mtp_chain_batched_reference), 1, 0)
     log(f"K5 B={B} {str(fw.wqkv.dtype)[6:]} units mixed knobs {K5_KNOBS}: rows equal "
         f"{len(equal_rows)}/{B} (need "
         f"{K5_MIN_EQUAL:.0%}), first mismatches (row, step, flip eps) {flips} (tol "
@@ -1833,8 +1870,9 @@ def batched_phase(eng, card_line):
     for B in (8, 32):
         reset_launches()
         texts = [BATCH_TEXTS[b % len(BATCH_TEXTS)] for b in range(B)]
-        ms[B] = check_fixed_run(eng, 300, texts, card_line)
-        counts.append(check_launches(f"fixed run B={B}", (0, 0, 300, 300, 0)))
+        ms[B] = check_fixed_run(eng, FIXED_FRAMES, texts, card_line)
+        counts.append(check_launches(f"fixed run B={B}",
+                                     (0, 0, FIXED_FRAMES, FIXED_FRAMES, 0)))
     # one K4 and one K5 launch per batched frame: the device ops per frame
     # are the plain ops plus two
     for B in (8, 32):
@@ -1842,20 +1880,20 @@ def batched_phase(eng, card_line):
     return [sum(c) for c in zip(*counts)], ms
 
 
-POOL_REQUESTS = [  # (text, language, knobs, max_tokens)
-    ("hello world", "en", (0.8, 50, 0.95), 40),
-    ("你好，世界", "zh", (0.8, 50, 0.95), 32),
-    ("hello", "auto", (0.0, 50, 0.95), 24),
-    ("hello world, this is a longer pooled request", "en", (0.9, 30, 0.9), 64),
-    ("こんにちは世界", "ja", (0.8, 50, 0.95), 48),
-    ("hello hello", "en", (1.0, 0, 1.0), 24),
-    ("世界", "zh", (0.7, 1, 0.9), 40),
-    ("a short one", "en", (0.8, 50, 0.95), 16),
-    ("hello world again", "auto", (0.0, 50, 0.95), 56),
-    ("the tenth request", "en", (0.8, 50, 0.95), 32),
-    ("one more for the queue", "en", (0.6, 40, 0.8), 48),
+POOL_REQUESTS = [  # (text, language, knobs, max_tokens): lengths halved to keep the smoke
+    ("hello world", "en", (0.8, 50, 0.95), 20),  # inside its time limit
+    ("你好，世界", "zh", (0.8, 50, 0.95), 16),
+    ("hello", "auto", (0.0, 50, 0.95), 12),
+    ("hello world, this is a longer pooled request", "en", (0.9, 30, 0.9), 32),
+    ("こんにちは世界", "ja", (0.8, 50, 0.95), 24),
+    ("hello hello", "en", (1.0, 0, 1.0), 12),
+    ("世界", "zh", (0.7, 1, 0.9), 20),
+    ("a short one", "en", (0.8, 50, 0.95), 8),
+    ("hello world again", "auto", (0.0, 50, 0.95), 28),
+    ("the tenth request", "en", (0.8, 50, 0.95), 16),
+    ("one more for the queue", "en", (0.6, 40, 0.8), 24),
 ]
-STREAMED_REQUEST = ("hello world, streamed through the pool", "en", (0.8, 50, 0.95), 48)
+STREAMED_REQUEST = ("hello world, streamed through the pool", "en", (0.8, 50, 0.95), 24)
 
 
 def pool_phase(eng, card_line):
@@ -1906,9 +1944,9 @@ def pool_phase(eng, card_line):
         if not equal:
             raise RuntimeError("pool greedy output differs from synthesize at B=1")
 
-        kw = dict(language="en", temperature=0.8, top_k=50, top_p=0.95, max_tokens=32, seed=123)
+        kw = dict(language="en", temperature=0.8, top_k=50, top_p=0.95, max_tokens=16, seed=123)
         alone = pool.synthesize("hello world, seeded", **kw)
-        mates = [pool.submit(t, language=lang, temperature=0.9, max_tokens=32)
+        mates = [pool.submit(t, language=lang, temperature=0.9, max_tokens=16)
                  for t, lang, _, _ in POOL_REQUESTS[:6]]
         among = pool.submit("hello world, seeded", **kw)
         for f in mates:
@@ -2113,7 +2151,8 @@ def spec_phase(eng, spec_eng, draft_eng, seq_ms, card_line):
     for label, draft_fn, force in (("full acceptance (force_accept)", repeat_draft, True),
                                    ("repeat draft", repeat_draft, False)):
         reset_launches()
-        _, it, decode_s, decoded = spec_fixed_run(eng, 300, sampled, [SPEC_TEXT], draft_fn, force)
+        _, it, decode_s, decoded = spec_fixed_run(eng, FIXED_FRAMES, sampled, [SPEC_TEXT],
+                                                  draft_fn, force)
         counts.append(check_launches(f"spec fixed run, {label}", (0, 1, 0, it, it)))
         ms[label] = decode_s * 1e3 / decoded
         log(f"spec fixed run B=1 k={SPEC_K}, {label}: {decoded} frames in {it} iterations "
@@ -2154,7 +2193,8 @@ def spec_pool_phase(eng, spec_eng, card_line):
         reset_launches()
         t0 = time.perf_counter()
         handle = pool.submit_stream(STREAMED_REQUEST[0], language=STREAMED_REQUEST[1],
-                                    temperature=STREAMED_REQUEST[2][0], max_tokens=48, seed=SEED)
+                                    temperature=STREAMED_REQUEST[2][0],
+                                    max_tokens=STREAMED_REQUEST[3], seed=SEED)
         futs = [pool.submit(text, language=lang, temperature=k[0], top_k=k[1], top_p=k[2],
                             max_tokens=mt, seed=SEED + i)
                 for i, (text, lang, k, mt) in enumerate(POOL_REQUESTS)]
@@ -2184,9 +2224,9 @@ def spec_pool_phase(eng, spec_eng, card_line):
         log(f"spec pool greedy vs synthesize at B=1: {len(got.codes)} frames, codes equal={equal}")
         if not equal:
             raise RuntimeError("spec pool greedy output differs from synthesize at B=1")
-        kw = dict(language="en", temperature=0.8, top_k=50, top_p=0.95, max_tokens=32, seed=123)
+        kw = dict(language="en", temperature=0.8, top_k=50, top_p=0.95, max_tokens=16, seed=123)
         alone = pool.synthesize("hello world, seeded", **kw)
-        mates = [pool.submit(t, language=lang, temperature=0.9, max_tokens=32)
+        mates = [pool.submit(t, language=lang, temperature=0.9, max_tokens=16)
                  for t, lang, _, _ in POOL_REQUESTS[:6]]
         among = pool.submit("hello world, seeded", **kw)
         for f in mates:
@@ -2804,8 +2844,9 @@ def voice_phase(tok, gen, card_line):
                              f"per decoded frame, {layers} K8 per prefill)",
                              (decoded, 0, 0, 0, 0, decoded, 2 * layers))]
     reset_launches()
-    ms = check_fixed_run(eng, 300, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
-    counts.append(check_launches("1.7B fixed run", (300, 0, 0, 0, 0, 300, layers)))
+    ms = check_fixed_run(eng, FIXED_FRAMES, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
+    counts.append(check_launches("1.7B fixed run", (FIXED_FRAMES, 0, 0, 0, 0, FIXED_FRAMES,
+                                                    layers)))
     figure("1.7B B=1 ms/frame", ms)
     log(f"1.7B fixed run with the instruction: {ms:.3f} ms/frame, RTF {1e3 / 12 / ms:.2f}x "
         f"(decode only; real time is 83.3 ms/frame) [{card_line}]")
@@ -3046,10 +3087,11 @@ def check_k7_plain(packs, T, pos, knobs, gen, iters=0, cache_dtype=torch.bfloat1
 
     K2.gumbel_topk_topp_sample = K7.gumbel_topk_topp_sample = record
     try:
-        want = k7_call(K7.fused_frame_step_reference, packs, inp, knobs, *cp)
+        # the checked call, timed (its sampler inputs recorded)
+        want, plain_call_ms = timed_call(
+            lambda: k7_call(K7.fused_frame_step_reference, packs, inp, knobs, *cp))
     finally:
         K2.gumbel_topk_topp_sample = K7.gumbel_topk_topp_sample = real
-    torch.cuda.synchronize()
     codes_k = got[0].tolist() + got[1][0].tolist()
     codes_p = [int(c) for c in want[0].tolist()] + want[1][0].tolist()
     diff = [j for j in range(len(codes_k)) if codes_k[j] != codes_p[j]]
@@ -3080,8 +3122,7 @@ def check_k7_plain(packs, T, pos, knobs, gen, iters=0, cache_dtype=torch.bfloat1
         ms = time_ms(lambda: k7_call(K7.fused_frame_step, packs, inp, knobs, *ck), iters)
         code0 = got[0]
         comp_ms = time_ms(lambda: k7_composition(packs, inp, knobs, code0, cp), iters)
-        plain_ms = time_ms(
-            lambda: k7_call(K7.fused_frame_step_reference, packs, inp, knobs, *cp), 1, 0)
+        plain_ms = plain_call_ms
     log(f"K7 vs plain: T={T} pos={pos} cache={str(cache_dtype)[6:]} knobs {knobs}: {detail}; "
         f"kernel {ms:.4f} ms/frame, "
         f"K2 + K1 + norm_head {comp_ms:.4f} ms, plain {plain_ms:.4f} ms -> "
@@ -3292,7 +3333,7 @@ def profile_frames(eng, label, card_line, frames=8, B=1):
 def frame_fused_phase(eng, ff_eng, requests, card_line):
     """TTSEngine(frame_fused=True) at the 0.6B preset: ``requests`` through
     ``synthesize`` and one through ``synthesize_stream``, one K7 launch per
-    decoded frame and no K1 or K2; fixed 300-frame runs in turns with the
+    decoded frame and no K1 or K2; fixed FIXED_FRAMES-frame runs in turns with the
     multi-dispatch engine (multi, K7, K7, multi); greedy agreement with it,
     printed as data; a profile of single frames on both.  Returns (launch
     counts, ms/frame by engine)."""
@@ -3326,9 +3367,9 @@ def frame_fused_phase(eng, ff_eng, requests, card_line):
     for label, e in (("multi-dispatch", eng), ("frame_fused", ff_eng), ("frame_fused", ff_eng),
                      ("multi-dispatch", eng)):
         reset_launches()
-        ms[label].append(check_fixed_run(e, 300, [FIXED_TEXT], card_line))
-        counts.append(check_launches(f"fixed run, {label}",
-                                     (300, 300) if e is eng else k7_only + (300,)))
+        ms[label].append(check_fixed_run(e, FIXED_FRAMES, [FIXED_TEXT], card_line))
+        counts.append(check_launches(f"fixed run, {label}", (FIXED_FRAMES, FIXED_FRAMES)
+                                     if e is eng else k7_only + (FIXED_FRAMES,)))
     means = {k: sum(v) / len(v) for k, v in ms.items()}
     log(f"fixed run B=1 in turns (multi, K7, K7, multi): multi-dispatch {ms['multi-dispatch']} "
         f"frame_fused {ms['frame_fused']} ms/frame; means {means['multi-dispatch']:.3f} vs "
@@ -3581,8 +3622,8 @@ def bf16_17b(tok, gen, card_line):
     """The 1.7B preset at B=1 with bf16 units: the anchors at its widths (K1
     and K3 on the wide slots' four 12 KB down rows), K1 and K3 against
     their plain versions on the engine's packs, the engine's instruct and
-    preset-speaker requests and a fixed 300-frame run (one K1 and one K3 per
-    frame, 28 K8 per prefill); then B17: K4, K5 and K6 on the 48 KB batched
+    preset-speaker requests and a fixed FIXED_FRAMES-frame run (one K1 and one K3
+    per frame, 28 K8 per prefill); then B17: K4, K5 and K6 on the 48 KB batched
     plans (bf16_17b_batched_checks), ``synthesize_batch`` and a pool of 8 at
     bf16 and at int8 units, greedy ``spec_k=4`` against sequential decoding,
     and the server without ``--quantize``.  Returns (launch counts, the
@@ -3645,15 +3686,10 @@ def bf16_17b(tok, gen, card_line):
     counts = [check_launches(f"1.7B bf16 requests (one K1 and one K3 per decoded frame, {layers} "
                              "K8 per prefill)", counts_of(K1=decoded, K3=decoded, K8=2 * layers))]
     reset_launches()
-    ms = check_fixed_run(eng, 300, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
-    counts.append(check_launches("1.7B bf16 fixed run", counts_of(K1=300, K3=300, K8=layers)))
+    ms = check_fixed_run(eng, FIXED_FRAMES, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
+    counts.append(check_launches("1.7B bf16 fixed run",
+                                 counts_of(K1=FIXED_FRAMES, K3=FIXED_FRAMES, K8=layers)))
     figure("1.7B B=1 ms/frame", ms)
-    # B17: batches, pools and spec at the 1.7B widths, bf16 units on the
-    # 48 KB batched plans, int8 units beside them (the prefills add K8)
-    launched = {"K4 bf16 1.7B": batched_runs(eng, "1.7B bf16", card_line)}
-    # past 32 rows: two launches of 17 rows on the 48 KB plans, a few frames
-    launched["K4 bf16 1.7B"] = [a + b for a, b in zip(launched["K4 bf16 1.7B"], batch_rows_equal(
-        eng, 34, "1.7B bf16", card_line, frames=6))]
     spec = TTSEngine(config=cfg, params=params, tokenizer=tok, spec_k=SPEC_K,
                      spec_iters=SPEC_ITERS, spec_accept_floor=0.0)
     i8 = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
@@ -3662,10 +3698,18 @@ def bf16_17b(tok, gen, card_line):
         save_checkpoint(d, cfg, params)
         byte_level_tokenizer(d)
         del params
-        # the spec and int8 runs below while it boots (their times then
-        # share the card with its warmup)
+        # B17's runs below while it boots (their times then share the card
+        # with its warmup): batches, pools and spec at the 1.7B widths, bf16
+        # units on the 48 KB batched plans, int8 units beside them (the
+        # prefills add K8)
         server = start_servers(d, ((None, ()),))
         try:
+            label = "1.7B bf16 (beside a booting server)"
+            launched = {"K4 bf16 1.7B": batched_runs(eng, label, card_line)}
+            # past 32 rows: two launches of 17 rows on the 48 KB plans, a few
+            # frames
+            launched["K4 bf16 1.7B"] = [a + b for a, b in zip(
+                launched["K4 bf16 1.7B"], batch_rows_equal(eng, 34, label, card_line, frames=6))]
             for e in (spec, i8):
                 if not e.is_ready():
                     raise RuntimeError(f"1.7B engine: {e.get_error()}")
@@ -3773,7 +3817,7 @@ def bf16_17b_batched_checks(cfg, eng, gen):
 def bf16_phase(tok, gen, card_line):
     """Phase 12: ``quantize`` unset (bf16 units) on the card.  The anchors
     (bf16_anchors), then ``TTSEngine(config, params)`` at the 0.6B preset:
-    three requests and a fixed 300-frame run (one K1 and one K3 per frame),
+    three requests and a fixed FIXED_FRAMES-frame run (one K1 and one K3 per frame),
     ``frame_fused=True`` (the same: JAX's frame gate refuses bf16 trunks),
     ``synthesize_batch`` and fixed runs at B=8 and 32 and a pool of 8 (one K4
     and one K5 per frame, greedy pool output equal to B=1 ``synthesize``),
@@ -3813,8 +3857,8 @@ def bf16_phase(tok, gen, card_line):
             log(f"bf16 {label} synthesize {req['language']} T={req['temperature']}: {m.frames} "
                 f"frames ({m.decoded_frames} decoded), {decode_ms:.3f} ms/frame decode, RTF "
                 f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms [{card_line}]")
-        ms = check_fixed_run(e, 300, [FIXED_TEXT], card_line)
-        decoded += 300
+        ms = check_fixed_run(e, FIXED_FRAMES, [FIXED_TEXT], card_line)
+        decoded += FIXED_FRAMES
         counts.append(check_launches(f"bf16 B=1 slice, {label} (one K1 and one K3 per decoded "
                                      "frame, no K2 or K7)", counts_of(K1=decoded, K3=decoded)))
         if e is eng:
@@ -4058,7 +4102,7 @@ def check_kvq_k4(name, t, fw, B, T, gen, iters):
         ck, cp = clone_all(base), clone_all(base)
         ms = time_ms(lambda: K1.fused_decode_step_batched(t, fw, x, pos_dev, *ck), iters)
         plain_ms = time_ms(lambda: K1.fused_decode_step_batched_reference(t, fw, x, pos_dev, *cp),
-                           1, 1)
+                           1, 0)
         log(f"K4 kvq {name} B={B} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{CARD}]")
     return err, ms, plain_ms
 
@@ -4072,7 +4116,7 @@ def check_kvq_k6(name, t, fw, B, S, T, starts, gen, iters, stall_ns=0):
     if iters:
         ck, cp = clone_all(base), clone_all(base)
         ms = time_ms(lambda: K6.fused_verify_step(t, fw, x, pos_dev, *ck), iters)
-        plain_ms = time_ms(lambda: K6.fused_verify_step_reference(t, fw, x, pos_dev, *cp), 1, 1)
+        plain_ms = time_ms(lambda: K6.fused_verify_step_reference(t, fw, x, pos_dev, *cp), 1, 0)
         log(f"K6 kvq {name} B={B} S={S} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
             f"[{CARD}]")
     return err, ms, plain_ms
@@ -4208,9 +4252,10 @@ def kvq_engine_runs(tok, card_line):
         for label, eng in (("bf16 cache", ref), ("int8 cache", e), ("int8 cache", e),
                            ("bf16 cache", ref)):
             reset_launches()
-            ms.setdefault(label, []).append(check_fixed_run(eng, 300, [FIXED_TEXT], card_line))
+            ms.setdefault(label, []).append(check_fixed_run(eng, FIXED_FRAMES, [FIXED_TEXT],
+                                                            card_line))
             got = check_launches(f"fixed run B=1, {units} units, {label}",
-                                 counts_of(K1=300, **{chain: 300}))
+                                 counts_of(K1=FIXED_FRAMES, **{chain: FIXED_FRAMES}))
             if eng is e:
                 counts.append(got)
         mean = {k: sum(v) / len(v) for k, v in ms.items()}
@@ -4228,14 +4273,14 @@ def kvq_engine_runs(tok, card_line):
         raise RuntimeError("kvq frame_fused: a frame left K7, or bad audio")
     counts.append(check_launches("kvq frame_fused synthesize (one K7 per frame)", counts_of(K7=n)))
     reset_launches()
-    ff_ms = check_fixed_run(ff, 300, [FIXED_TEXT], card_line)
-    counts.append(check_launches("kvq frame_fused fixed run", counts_of(K7=300)))
+    ff_ms = check_fixed_run(ff, FIXED_FRAMES, [FIXED_TEXT], card_line)
+    counts.append(check_launches("kvq frame_fused fixed run", counts_of(K7=FIXED_FRAMES)))
     log(f"kvq frame_fused fixed run: {ff_ms:.3f} ms/frame [{card_line}]")
     sampled = SamplingParams.create(0.8, 50, 0.95, forbid_eos=True)
     for label, force in (("full acceptance (force_accept)", True), ("repeat draft", False)):
         reset_launches()
-        _, it, decode_s, decoded = spec_fixed_run(spec, 300, sampled, [SPEC_TEXT], repeat_draft,
-                                                  force)
+        _, it, decode_s, decoded = spec_fixed_run(spec, FIXED_FRAMES, sampled, [SPEC_TEXT],
+                                                  repeat_draft, force)
         counts.append(check_launches(f"kvq spec fixed run, {label}", (0, 1, 0, it, it)))
         log(f"kvq spec fixed run B=1 k={SPEC_K}, {label}: {decoded} frames in {it} iterations, "
             f"{decode_s * 1e3 / decoded:.3f} ms per committed frame [{card_line}]")
@@ -4261,17 +4306,17 @@ def kvq_engine_runs(tok, card_line):
         try:
             reset_launches()
             c0 = pool.stats["chunks"]
-            futs = [pool.submit(t, language="en", temperature=0.8, max_tokens=32, seed=SEED + i)
+            futs = [pool.submit(t, language="en", temperature=0.8, max_tokens=16, seed=SEED + i)
                     for i, t in enumerate(KVQ_POOL_TEXTS)]
             for f in futs:
                 r = f.result(timeout=600)
-                if not np.isfinite(r.audio).all() or not 0 < len(r.codes) <= 32:
+                if not np.isfinite(r.audio).all() or not 0 < len(r.codes) <= 16:
                     raise RuntimeError("kvq pool: bad result")
             text = "hello world, greedy through the pool"
-            got = pool.synthesize(text, language="en", temperature=0.0, max_tokens=48)
+            got = pool.synthesize(text, language="en", temperature=0.0, max_tokens=32)
             n = 16 * (pool.stats["chunks"] - c0)
             counts.append(check_launches(f"kvq pool of 8, {units} units", counts_of(K4=n, K5=n)))
-            want = e.synthesize(text, language="en", temperature=0.0, max_tokens=48)
+            want = e.synthesize(text, language="en", temperature=0.0, max_tokens=32)
             equal = np.array_equal(got.codes, want.codes)
             log(f"kvq pool of 8, {units} units: {len(KVQ_POOL_TEXTS)} requests, {n} pooled frames; "
                 f"greedy output equal to B=1 synthesize={equal} [{card_line}]")
@@ -4287,7 +4332,7 @@ def kvq_engine_runs(tok, card_line):
 def kvq_17b(tok, gen, card_line):
     """The 1.7B preset at B=1 with kv_quant=True and int8 units: K1 kvq at the
     1.7B talker's widths (T=256) against its plain version, then an instruct
-    request and a fixed 300-frame run (one K1 and one K3 per frame, K8 on the
+    request and a fixed FIXED_FRAMES-frame run (one K1 and one K3 per frame, K8 on the
     dequantized K/V in every prefill).  Returns the launch counts and the K1
     check."""
     cfg = voice_config()
@@ -4307,8 +4352,9 @@ def kvq_17b(tok, gen, card_line):
         raise RuntimeError("1.7B kvq synthesize(instruct): bad output")
     counts = [check_launches("1.7B kvq synthesize(instruct)", counts_of(K1=n, K3=n, K8=layers))]
     reset_launches()
-    check_fixed_run(eng, 300, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
-    counts.append(check_launches("1.7B kvq fixed run", counts_of(K1=300, K3=300, K8=layers)))
+    check_fixed_run(eng, FIXED_FRAMES, [VOICE_TEXT], card_line, instruct=VOICE_INSTRUCT)
+    counts.append(check_launches("1.7B kvq fixed run",
+                                 counts_of(K1=FIXED_FRAMES, K3=FIXED_FRAMES, K8=layers)))
     del eng
     torch.cuda.empty_cache()
     return [sum(c) for c in zip(*counts)], k1
@@ -4482,7 +4528,7 @@ def check_k9_step(name, t, tp, rows, mesh, T, pos, gen, iters=0):
         ms = time_ms(lambda: K9.fused_decode_step_tp(t, rows, x, pos, kk, vk, mesh), iters)
         K9.check_timeouts()
         plain_ms = time_ms(lambda: K9.fused_decode_step_tp_reference(t, rows, x, pos, kp, vp, mesh),
-                           2, 1)
+                           1, 0)
     ok = (rel < K1_DEEP_X_REL and slot_err < K1_DEEP_SLOT_ABS and untouched and ranks_equal
           and not any(status))
     log(f"K9 step {name}: L={t.num_layers} tp={tp} T={T} pos={pos} cache=bfloat16 x "
@@ -4711,14 +4757,16 @@ def check_k10(label, cp, tp, mesh, fw, heads, tables, fnorm, knobs, gen, calls=1
     n, t = cp.num_steps, cp.transformer
     mode = "greedy" if knobs[0] <= 0 else f"sampled {knobs}"
     hs = K10._as_heads(heads, mesh.model_devices())
-    ok, err = True, 0.0
+    ok, err, plain_ms = True, 0.0, float("nan")
     for call in range(calls):
         sp, lh, c0, noise = tp_chain_inputs(cp, gen, knobs)
         args = (fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
         run = K10.launch_chain_tp(t, tp, mesh, fw, *args, stall_ns=stall_ns)
-        ps, psum, px = K10.chain_tp_plain(t, tp, fw, fnorm, hs, tables, lh, c0, noise,
-                                          sp.temperature, sp.top_k, sp.top_p)
-        torch.cuda.synchronize()
+        # the checked call (the plain version and its residual), timed
+        (ps, psum, px), plain_call_ms = timed_call(lambda: K10.chain_tp_plain(
+            t, tp, fw, fnorm, hs, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p))
+        if call == 0 and iters:
+            plain_ms = plain_call_ms
         status = statuses(run)
         kern, plain = run.subcodes[0].tolist(), ps[0].tolist()
         diff = [j for j in range(n) if kern[j] != plain[j]]
@@ -4736,13 +4784,11 @@ def check_k10(label, cp, tp, mesh, fw, heads, tables, fnorm, knobs, gen, calls=1
             f"equal the plain's={x_equal} (max_abs_err={x_err:.3e}), sub_sum "
             f"max_abs_err={e:.3e} (tol 0), status={status} -> {'ok' if good else 'FAIL'} "
             f"[{CARD}]")
-    ms = plain_ms = float("nan")
+    ms = float("nan")
     if iters:
         sp, lh, c0, noise = tp_chain_inputs(cp, gen, knobs)
         args = (fnorm, heads, tables, lh, c0, noise, sp.temperature, sp.top_k, sp.top_p)
         ms = time_ms(lambda: K10.fused_mtp_chain_tp(t, tp, mesh, fw, *args), iters)
-        plain_ms = time_ms(lambda: K10.fused_mtp_chain_tp_reference(t, tp, fw, fnorm, hs,
-                                                                    *args[2:]), 1, 0)
         log(f"{label} {mode}: {ms:.4f} ms/chain, plain {plain_ms:.4f} ms/chain [{CARD}]")
     if not ok:
         raise RuntimeError(f"{label} {mode} disagrees with its plain version")
@@ -4953,12 +4999,83 @@ def tp_engine_runs(tok, card_line, devices_of=None):
     return counts
 
 
+MESH_KERNEL_FRAMES = 8  # the meshes whose B=1 routes mix a kernel and a plain route
+
+
+def mesh_route_runs(tok, card_line):
+    """Phase 14 (c): B=1 requests on the meshes whose routes mix a kernel
+    with a plain route, as JAX's gates route them, each's launch counts
+    derived from those routes and checked, and its seconds logged.
+    Returns the launch counts."""
+    counts = [0] * len(KERNELS)
+    req = dict(text=FIXED_TEXT, language="en", temperature=0.0,
+               max_tokens=MESH_KERNEL_FRAMES)
+    params = init_params(QWEN3_TTS_06B, seed=SEED, device=DEV, with_speaker_encoder=False)
+
+    def run(label, eng, want_of, packs):
+        nonlocal counts
+        t0 = time.perf_counter()
+        if not eng.is_ready():
+            raise RuntimeError(f"{label}: engine not ready: {eng.get_error()}")
+        got = tuple("fused_tp" in eng.params[k] for k in ("talker", "code_predictor"))
+        if got != packs:
+            raise RuntimeError(f"{label}: K9 / K10 packs {got}, JAX's routes give {packs}")
+        reset_launches()
+        r = eng.synthesize(**req)
+        m = r.metrics
+        if (r.codes.shape[1:] != (16,) or not np.isfinite(r.audio).all()
+                or r.audio.shape != (len(r.codes) * SAMPLES_PER_FRAME,)):
+            raise RuntimeError(f"{label}: bad output")
+        n_dev = len(set(eng.mesh.model_devices()))
+        ms = m.stage_seconds["decode"] * 1e3 / max(m.decoded_frames, 1)
+        want, why = want_of(m, n_dev)
+        log(f"{label}: {m.frames} frames ({m.decoded_frames} decoded), {ms:.3f} ms/frame "
+            f"decode, {time.perf_counter() - t0:.1f} s [{card_line}]")
+        counts = [a + b for a, b in zip(counts, check_launches(f"{label} ({why})", want))]
+
+    eng = TTSEngine(config=QWEN3_TTS_06B, params=params, tokenizer=tok, mesh=card_mesh(1, 2),
+                    kv_quant=True)
+    run("0.6B mesh tp=2 kv_quant B=1", eng,
+        lambda m, d: (counts_of(K10=m.decoded_frames * d), "the plain step on the int8 cache, "
+                      "one K10 per frame and device"), (False, True))
+    eng = TTSEngine(config=QWEN3_TTS_06B, params=params, tokenizer=tok, mesh=card_mesh(2, 2))
+    run("0.6B make_mesh(2, 2) B=1", eng,
+        lambda m, d: (counts_of(K9=m.decoded_frames * d, K10=m.decoded_frames * d),
+                      "one K9 and one K10 per frame on the first data row's ranks"),
+        (True, True))
+    # the acceptance floor trips after one iteration: the sequential steps
+    # after the conversion are K9's and the chains K10's
+    eng = TTSEngine(config=QWEN3_TTS_06B, params=params, tokenizer=tok, mesh=card_mesh(1, 2),
+                    spec_k=SPEC_K, spec_iters=1, spec_accept_floor=1.1, spec_adapt_window=1)
+
+    def spec_counts(m, d):
+        seq = m.decoded_frames - 1 - m.spec_iterations * SPEC_K if m.spec_fallback else 0
+        return (counts_of(K9=seq * d, K10=seq * d),
+                f"{m.spec_iterations} verify iteration(s) on the plain layers with cached "
+                f"chains, fallback {m.spec_fallback}, then one K9 and one K10 per sequential "
+                f"frame: {seq}")
+
+    run(f"0.6B mesh tp=2 spec_k={SPEC_K} B=1", eng, spec_counts, (True, True))
+    del eng, params
+    torch.cuda.empty_cache()
+    params = init_params(QWEN3_TTS_17B, seed=SEED, device=DEV, with_speaker_encoder=False)
+    eng = TTSEngine(config=QWEN3_TTS_17B, params=params, tokenizer=tok, mesh=card_mesh(1, 2))
+    del params
+    run("1.7B mesh tp=2 B=1", eng,
+        lambda m, d: (counts_of(K9=m.decoded_frames * d), "one K9 per frame and device "
+                      "beside the cached chain"), (True, False))
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 def tp_phase(tok, gen, card_line):
     """Phase 14: the tensor-parallel decode path.  Returns (launch counts,
     (K9, K10 checks), bounds)."""
     t0 = time.perf_counter()
     k9, k10, bounds = tp_kernel_checks(gen, card_line)
-    counts = tp_engine_runs(tok, card_line)
+    counts = [a + b for a, b in zip(tp_engine_runs(tok, card_line),
+                                    mesh_route_runs(tok, card_line))]
     if torch.cuda.device_count() >= 2:
         # the same kernels with the ranks on distinct cards (peer pointers,
         # the exchange at system scope)
@@ -5331,11 +5448,11 @@ def batched_runs(eng, label, card_line, pool=True):
             reset_launches()
             t0 = time.perf_counter()
             futs = [p.submit(text, language=lang, temperature=k[0], top_k=k[1], top_p=k[2],
-                             max_tokens=min(mt, 24), seed=SEED + i)
+                             max_tokens=min(mt, 16), seed=SEED + i)
                     for i, (text, lang, k, mt) in enumerate(POOL_REQUESTS[:8])]
             pooled = [f.result(timeout=600) for f in futs]
             text = "hello world, greedy through the pool"
-            got = p.synthesize(text, language="en", temperature=0.0, max_tokens=24)
+            got = p.synthesize(text, language="en", temperature=0.0, max_tokens=16)
             wall = time.perf_counter() - t0
             chunks = p.stats["chunks"]
             for r in pooled + [got]:
@@ -5347,7 +5464,7 @@ def batched_runs(eng, label, card_line, pool=True):
                                                                       K5=16 * chunks))))
         finally:
             p.shutdown()
-        want = eng.synthesize(text, language="en", temperature=0.0, max_tokens=24)
+        want = eng.synthesize(text, language="en", temperature=0.0, max_tokens=16)
         equal = np.array_equal(got.codes, want.codes)
         log(f"{label} pool: 9 requests through 8 slots in {wall:.2f} s, {chunks} chunks; greedy "
             f"pool request vs synthesize at B=1: {len(got.codes)} frames, codes equal={equal} "
@@ -5595,6 +5712,7 @@ K7_MIXES = {
 UNIT_DTYPES = {"int8": torch.int8, "int4": torch.uint8, "bf16": torch.bfloat16}
 PAST_32_FRAMES = 16  # frames of each batch past 32 rows
 PAST_32_SMALL = 8  # the rows a launch takes in the batch it is held to
+PAST_32_POOL_FRAMES = 4  # per request in the pools past 32 rows
 
 
 def frame_mix_checks(gen, mixes=tuple(K7_MIXES)):
@@ -5746,7 +5864,7 @@ def pool_rows_equal(eng, spec_eng, card_line):
             reqs = [(f"{BATCH_TEXTS[i % len(BATCH_TEXTS)]}, request {i}",
                      0.0 if i % 4 == 0 else 0.8) for i in range(p.pool_size + 1)]
             futs = [p.submit(text, language="en", temperature=temp, top_k=50, top_p=0.95,
-                             max_tokens=PAST_32_SMALL, seed=SEED + i)
+                             max_tokens=PAST_32_POOL_FRAMES, seed=SEED + i)
                     for i, (text, temp) in enumerate(reqs)]
             got = [f.result(timeout=600) for f in futs]
             wall = time.perf_counter() - t0
@@ -5769,7 +5887,7 @@ def pool_rows_equal(eng, spec_eng, card_line):
             p.shutdown()
         greedy = [(text, r) for (text, temp), r in zip(reqs, got) if temp == 0.0]
         same = [np.array_equal(r.codes, eng.synthesize(text, language="en", temperature=0.0,
-                                                        max_tokens=PAST_32_SMALL).codes)
+                                                        max_tokens=PAST_32_POOL_FRAMES).codes)
                 for text, r in greedy]
         log(f"{label}: {len(reqs)} requests in {wall:.2f} s, {chunks} chunks; greedy requests "
             f"equal to synthesize at B=1: {sum(same)}/{len(same)} -> "
@@ -5984,6 +6102,47 @@ def cosine(a, b) -> float:
     return float((a * b).sum() / (a.norm() * b.norm()))
 
 
+def mesh_train_step(cfg, params, batch, card_line):
+    """Beside the build: one data-parallel step on ``make_mesh(2, 1)`` (the
+    batch's rows over two data groups on this card) against the one-device
+    step on the same batch, both on float32 copies of the params, so that
+    only the groups' summation order differs (in bf16 the groups' gradients
+    accumulate in bf16): the loss and the updated lm_head within
+    TRAIN_LOSS_REL; a second mesh step timed, peak memory over both."""
+    tx = make_optimizer(learning_rate=TRAIN_LR)
+    cfg32, p = float32_model(cfg, params)
+    step = make_train_step(cfg32, tx)
+    one, m1 = step(init_train_state(p, tx), batch)
+    loss1, lm1 = float(m1.loss), one.params["talker"]["lm_head"].detach().clone()
+    del one, p
+    torch.cuda.empty_cache()
+    _, p = float32_model(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = shard_train_state(card_mesh(2, 1), init_train_state(p, tx), tx)
+    state, m2 = step(state, batch)
+    loss2, lm2 = float(m2.loss), state.params["talker"]["lm_head"].detach().clone()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    float(m.loss)  # a sync
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, p
+    torch.cuda.empty_cache()
+    rel_loss = abs(loss2 - loss1) / abs(loss1)
+    rel_lm = float((lm2 - lm1).norm() / lm1.norm())
+    ok = rel_loss <= TRAIN_LOSS_REL and rel_lm <= TRAIN_LOSS_REL
+    frames = int(batch["num_frames"].sum())
+    log(f"data-parallel train step on make_mesh(2, 1) ({cfg.name}, float32 copies, B={TRAIN_B}: "
+        f"2 rows a group; beside the build): loss {loss2:.6f} against the one-device step's "
+        f"{loss1:.6f}, "
+        f"relative {rel_loss:.2e}; updated lm_head relative {rel_lm:.2e} (limit "
+        f"{TRAIN_LOSS_REL}); {ms:.1f} ms per mesh step (the second), {frames / ms * 1e3:.1f} "
+        f"frames/s, peak {peak:.2f} GiB allocated -> {'ok' if ok else 'FAIL'} [{card_line}]")
+    if not ok:
+        raise RuntimeError("data-parallel train step disagrees with the one-device step")
+
+
 def train_steps(cfg, gen, card_line, d):
     """Phase 17 (a) and (b): the 0.6B train step, bf16 against float32 at
     step 0, the talker on K8 refused under grad and equal without it, then
@@ -6184,7 +6343,8 @@ def resident_off_runs(off_eng, off_spec, card_line):
     """The 0.6B preset at ``mtp_resident=False`` (``--mtp-resident off``):
     the per-step chain, one step kernel launch per chain position past the
     prefix (K1 at B=1, K4 at B=8 and over spec's 4 candidate rows), and no
-    chain kernel.  Returns (launch counts, B=1 ms/frame)."""
+    chain kernel; greedy spec's codes equal the same engine's sequential
+    decode.  Returns (launch counts, B=1 ms/frame)."""
     n = off_eng.cfg.code_predictor.num_steps
     reset_launches()
     r = off_eng.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=OFF_FRAMES)
@@ -6215,8 +6375,20 @@ def resident_off_runs(off_eng, off_spec, card_line):
     if (not np.isfinite(r.audio).all() or not k6 or not k4 or k4 % (n - 1) or k1 % (n - 1)
             or got != counts_of(K1=k1, K4=k4, K6=k6)):
         raise RuntimeError(f"0.6B mtp_resident=False spec_k={SPEC_K}: launches {got}")
+    # the same engine decoding the request sequentially (greedy)
+    off_spec.spec_k = None
+    try:
+        seq = off_spec.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=OFF_FRAMES // 2)
+    finally:
+        off_spec.spec_k = SPEC_K
+    agree = int((seq.codes[: len(r.codes)] == r.codes[: len(seq.codes)]).all(axis=1).sum())
+    same = np.array_equal(r.codes, seq.codes)
     log(f"0.6B mtp_resident=False spec_k={SPEC_K}: {r.metrics.frames} frames, K6 {k6}, chain "
-        f"steps K4 {k4} and K1 {k1} ({n - 1} per chain) [{card_line}]")
+        f"steps K4 {k4} and K1 {k1} ({n - 1} per chain); greedy codes "
+        f"{'equal' if same else 'UNEQUAL'} to the same engine's sequential decode ({agree} of "
+        f"{len(seq.codes)} frames agree) [{card_line}]")
+    if not same:
+        raise RuntimeError("greedy spec on the per-step chain parts from sequential decoding")
     counts.append(got)
     return [sum(c) for c in zip(*counts)], ms
 
@@ -6420,13 +6592,152 @@ def plain_attention_memory(card_line):
     return out
 
 
+MESH_FRAMES = 4  # the meshes' plain routes beside the build, per request
+MESH_TEXTS = BATCH_TEXTS[:3]
+
+
+def card_mesh(data, model):
+    """``make_mesh(data, model)`` listing this card data x model times."""
+    return make_mesh(data, model, devices=[DEV] * (data * model))
+
+
+def check_mesh_outputs(label, outs, texts, groups, witness, t0, card_line):
+    """Finite audio of the codes' length and codes [n, 16] for each request
+    (its data group logged), no kernel launched, and, where ``witness`` (by
+    text) is given, greedy codes equal to it: a mismatch fails."""
+    for r in outs:
+        if (r.codes.ndim != 2 or r.codes.shape[1] != 16 or not np.isfinite(r.audio).all()
+                or r.audio.shape != (len(r.codes) * SAMPLES_PER_FRAME,)):
+            raise RuntimeError(f"{label}: bad output (codes {r.codes.shape}, audio "
+                               f"{r.audio.shape})")
+    differ = [t for r, t in zip(outs, texts)
+              if witness is not None and not np.array_equal(r.codes, witness[t])]
+    log(f"{label}: " + "; ".join(f"{t[:20]!r} on data group {g}: {len(r.codes)} frames"
+                                 for r, t, g in zip(outs, texts, groups))
+        + ("" if witness is None else
+           f"; greedy codes equal to make_mesh(1, 1)'s {len(outs) - len(differ)} of {len(outs)}")
+        + f"; {time.perf_counter() - t0:.1f} s [{card_line}]")
+    if differ:
+        raise RuntimeError(f"{label}: greedy codes differ from make_mesh(1, 1)'s for {differ}")
+    check_launches(f"{label} (the plain step and the cached chain: no kernel)", counts_of())
+
+
+def group_log(pool):
+    """Record the data group each admitted request lands in: a list of
+    (text, group) filled as the pool splices its requests."""
+    seen = []
+    real = pool._splice_one
+
+    def splice(slot, req, *a):
+        seen.append((req.text, pool._group_of(slot)[0]))
+        return real(slot, req, *a)
+
+    pool._splice_one = splice
+    return seen
+
+
+def mesh_pool(eng, texts, pool_size, **pool_kw):
+    """Greedy requests of ``MESH_FRAMES`` through a pool on ``eng``: (the
+    results, each request's data group)."""
+    pool = ContinuousBatcher(eng, pool_size=pool_size, chunk_len=MESH_FRAMES,
+                             kv_bucket=eng.kv_ladder[0], **pool_kw)
+    seen = group_log(pool)
+    try:
+        outs = [f.result(timeout=900) for f in
+                [pool.submit(t, temperature=0.0, max_tokens=MESH_FRAMES) for t in texts]]
+    finally:
+        pool.shutdown()
+    where = dict(seen)
+    return outs, [where[t] for t in texts]
+
+
+def mesh_plain_runs(cfg, params, tok, card_line):
+    """Beside the build: the 0.6B meshes' plain routes on this card (the
+    JAX engine's routes at B > 1, in pools and at tp=1: the plain step and
+    the cached chain, no hand-written kernel).  First the witnesses on
+    make_mesh(1, 1), on the same unfused params and plain route, each
+    request in the shape a data group of one row gives it: B=1, a pool of
+    one slot and a spec pool (spec_k=4) of one slot.  Then the data axis,
+    one row or slot a group, each request's greedy codes equal to its
+    witness's: ``synthesize_batch`` of 2 on (2, 1); on (2, 2) a pool of 2
+    with 3 requests, a spec pool of 2 with 2 and a ``BatchingServer`` with
+    2 (one batch).  Each run's seconds logged."""
+    t0 = time.perf_counter()
+    kw = dict(temperature=0.0, max_tokens=MESH_FRAMES)
+    spec = dict(spec_k=SPEC_K, spec_iters=1)
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok, mesh=card_mesh(1, 1))
+    t1 = time.perf_counter()
+    reset_launches()
+    outs = [eng.synthesize(t, **kw) for t in MESH_TEXTS]
+    m = outs[0].metrics
+    ms = m.stage_seconds["decode"] * 1e3 / max(m.decoded_frames, 1)
+    check_mesh_outputs(f"0.6B make_mesh(1, 1) B=1 ({ms:.1f} ms/frame), the B=1 witness", outs,
+                       MESH_TEXTS, [0] * len(outs), None, t1, card_line)
+    alone = {t: r.codes for t, r in zip(MESH_TEXTS, outs)}
+    witness = {}
+    for label, pool_kw, texts in (("a pool of 1", {}, MESH_TEXTS),
+                                  (f"a spec pool (spec_k={SPEC_K}) of 1", spec, MESH_TEXTS[:2])):
+        t1 = time.perf_counter()
+        reset_launches()
+        outs, groups = mesh_pool(eng, texts, 1, **pool_kw)
+        agree = sum(np.array_equal(r.codes, alone[t]) for r, t in zip(outs, texts))
+        check_mesh_outputs(f"0.6B make_mesh(1, 1) {label}, the witness (greedy codes equal to "
+                           f"B=1's {agree} of {len(outs)}: data)", outs, texts, groups, None, t1,
+                           card_line)
+        witness[label] = {t: r.codes for t, r in zip(texts, outs)}
+    del eng
+
+    t1 = time.perf_counter()
+    reset_launches()
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok, mesh=card_mesh(2, 1))
+    texts = MESH_TEXTS[:2]
+    outs = eng.synthesize_batch(texts, **kw)
+    groups = [g for g, rows in enumerate(split_rows(len(texts), 2))
+              for _ in range(rows.stop - rows.start)]
+    m = outs[0].metrics
+    ms = m.stage_seconds["decode"] * 1e3 / max(m.decoded_frames, 1)
+    check_mesh_outputs(f"0.6B make_mesh(2, 1) synthesize_batch B=2 ({ms:.1f} ms per batched "
+                       "frame)", outs, texts, groups, alone, t1, card_line)
+    del eng
+
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok, mesh=card_mesh(2, 2))
+    if "fused_tp" not in eng.params["talker"]:
+        raise RuntimeError("0.6B make_mesh(2, 2): no K9 pack")
+    for label, pool_kw, texts, wit in (
+            ("a pool of 2", {}, MESH_TEXTS, witness["a pool of 1"]),
+            (f"a spec pool (spec_k={SPEC_K}) of 2", spec, MESH_TEXTS[:2],
+             witness[f"a spec pool (spec_k={SPEC_K}) of 1"])):
+        t1 = time.perf_counter()
+        reset_launches()
+        outs, groups = mesh_pool(eng, texts, 2, **pool_kw)
+        check_mesh_outputs(f"0.6B make_mesh(2, 2) {label}", outs, texts, groups, wit, t1,
+                           card_line)
+    t1 = time.perf_counter()
+    reset_launches()
+    server = BatchingServer(eng, max_batch=2, max_wait_ms=2000.0)
+    try:
+        texts = MESH_TEXTS[:2]
+        outs = [f.result(timeout=900) for f in [server.submit(t, **kw) for t in texts]]
+        batches = server.stats["batches"]
+    finally:
+        server.shutdown()
+    if batches != 1:
+        raise RuntimeError(f"0.6B make_mesh(2, 2) server: {batches} batches for 2 requests")
+    check_mesh_outputs("0.6B make_mesh(2, 2) BatchingServer, one batch of 2", outs, texts,
+                       [0, 1], alone, t1, card_line)
+    del eng
+    log(f"mesh plain routes (beside the build): {time.perf_counter() - t0:.1f} s [{card_line}]")
+
+
 def beside_build(tok, card_line, cfg=QWEN3_TTS_06B):
     """What needs no hand-written kernel, while the kernels build on a
     thread: the profiler's first start (its one-time set-up, ~10 s), the
     plain talker (``decode_impl="xla"``) with the cached and with the dense
-    chain (B=1, B=4, a pool of 2, spec_k=4; nothing launched).  The
-    compilers hold the host's cores, so the plain engines' host-bound
-    ms/frame are marked as taken beside the build."""
+    chain (B=1, B=4, a pool of 2, spec_k=4; nothing launched), and the
+    meshes' plain routes (:func:`mesh_plain_runs`) and the data-parallel
+    train step (:func:`mesh_train_step`).  The compilers hold the host's
+    cores, so the plain engines' host-bound ms/frame are marked as taken
+    beside the build."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -6440,9 +6751,17 @@ def beside_build(tok, card_line, cfg=QWEN3_TTS_06B):
             cfg.code_predictor, impl=impl))
         plain_engine_runs(c, params, tok, f"decode_impl=xla, impl={impl} (beside the build)",
                           card_line)
+    mesh_plain_runs(cfg, params, tok, card_line)
+    # the data-parallel train step on phase 17's batch (a generator of its
+    # own, seeded as phase 17's, draws the same batch first)
+    gen19 = torch.Generator(device=DEV)
+    gen19.manual_seed(SEED + 19)
+    mesh_train_step(cfg, params, train_batch(TRAIN_B, TRAIN_TEXT, TRAIN_FRAMES, gen19),
+                    card_line)
     del params
     torch.cuda.empty_cache()
-    log(f"beside the build (profiler start, plain talker engines): "
+    log(f"beside the build (profiler start, plain talker engines, mesh plain routes, "
+        f"data-parallel train step): "
         f"{time.perf_counter() - t0:.1f} s [{card_line}]")
 
 
@@ -6758,10 +7077,10 @@ def main() -> int:
             f"({m.decoded_frames} decoded), {decode_ms:.3f} ms/frame decode, RTF "
             f"{m.rtf:.2f}x, TTFA {m.ttfa_seconds * 1e3:.1f} ms, total "
             f"{m.total_seconds * 1e3:.1f} ms [{card_line}]")
-    seq_ms = check_fixed_run(eng, 300, [FIXED_TEXT], card_line)
+    seq_ms = check_fixed_run(eng, FIXED_FRAMES, [FIXED_TEXT], card_line)
     figure("0.6B B=1 ms/frame", seq_ms)
     figure("0.6B B=1 TTFA ms (3 requests)", [round(x, 1) for x in ttfa])
-    decoded += 300
+    decoded += FIXED_FRAMES
     b1 = check_launches("B=1 slice (one K1 and one K2 per decoded frame)",
                         (decoded, decoded, 0, 0, 0))
     framed, _, _ = frame_fused_phase(eng, ff_eng, requests, card_line)

@@ -55,8 +55,9 @@ shared heads (``head_mode="shared"``) or with ``QTTS_MTP_STREAM=0`` past
 K2's gate, the chain is the per-step one: one K1 (B=1) or K4 launch per
 chain position (``models/code_predictor.py::chain_route``).  What still
 refuses, each naming its ROADMAP item: float32 embedding tables in the
-kernels (K2v), an architecture JAX's fused step takes and the step kernels
-do not (K1a), and what a mesh does not take (M15).  A talker with
+kernels (K2v), and an architecture JAX's fused step (or, under a mesh, its
+tensor-parallel step or chain) takes and the step kernels do not (K1a).  A
+talker with
 ``attn_impl="pallas"`` runs its prefill attention as
 kernel K8.  ``kv_quant=True`` keeps the
 talker's KV cache in int8 with per-(slot, head) scales (K1, K4, K6 and K7
@@ -64,20 +65,29 @@ take it; the top bucket is rounded up to 128 slots).  A configuration the
 kernels do not take leaves the engine not ready; a batch they do not take
 raises ``EngineError``.
 
-With ``mesh`` (``parallel.make_mesh(1, tp, devices=...)``; a device listed
-``tp`` times holds ``tp`` logical shards) the engine decodes tensor-parallel
-at B=1, as the JAX engine's mesh path: ``quantize`` must be None, nothing is
-fused, the talker's step is kernel K9 on per-rank int8 packs
-(``pack_fused_tp``, where ``supports_tp`` holds and the KV cache is not
-int8) and the MTP chain kernel K10 (where ``supports_tp_resident`` holds).
-The prefill, lm_head, code0 draw, embeddings and vocoder run on the mesh's
-first device with the full params (the JAX engine lets GSPMD shard them: a
-standing difference, ROADMAP Queue 3).  On the card a mesh engine
-needs both packs (the plain decode and the cached chain under a mesh are
-M15's).
-Batched decoding (``synthesize_batch`` at B > 1, the pool, the server),
-``spec_k``, ``frame_fused=True`` and a data axis over 1 are not ported under
-a mesh (ROADMAP M15).  On
+With ``mesh`` (``parallel.make_mesh(data, tp, devices=...)``; a device
+listed ``data x tp`` times holds ``tp`` logical shards per data group) the
+engine takes every mesh the JAX engine takes, on the routes JAX's
+predicates give: ``quantize`` must be None and ``frame_fused`` off (JAX
+refuses both), nothing is fused, and the talker's and the MTP trunk's
+per-rank int8 packs (``pack_fused_tp``) are attached where JAX attaches
+them (:meth:`TTSEngine.mesh_routes`: tp > 1, ``supports_tp`` and no int8
+cache for the talker, ``supports_tp_resident`` for the trunk).  A B=1
+request steps on kernel K9 and draws its chain on kernel K10 where those
+packs are, on the first data row's model ranks; everywhere else (B > 1, a
+pool, the verify pass and the candidates' chains of ``spec_k``, an int8
+cache, tp=1, a trunk past K10's budget) the step is the plain layers' and
+the chain the cached one, as in the JAX engine.  A batch is split over the
+data groups where it divides (``parallel.split_rows``, JAX's ``P("data")``)
+and stays on group 0 where it does not (JAX's ``P()``); each group prefills
+and decodes its rows on its lead device, the groups issued one after
+another from the caller's thread.  The prefill, lm_head, code0 draw,
+embeddings and vocoder run on the leads with the full params, one copy per
+distinct lead device (the JAX engine lets GSPMD shard them: a standing
+difference, ROADMAP Queue 3).  With one seed for a batch split over data
+groups, group 0 draws from the seed's generator and group g from a
+generator seeded from (seed, g); per-stream seeds give each stream the
+draws of its one-device run.  On
 the CPU the same code runs the kernels' plain versions.  A decode chunk (a
 dispatch of verify iterations) enqueues its frames on the device and the
 engine syncs once per chunk, when it copies the chunk's codes to the host.
@@ -111,12 +121,12 @@ from ..frontend.wav import read_wav, resample
 from ..models.code_predictor import attach_heads, prepare_fused_step
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.speaker_encoder import speaker_encoder_forward
-from ..models.talker import attach_lm_head, prepare_fused_talker
+from ..models.talker import attach_lm_head, prepare_fused_talker, talker_shard_cache
 from ..ops.fused_mtp_tp import shard_heads, supports_tp_resident
 from ..ops.fused_step import supports, unit_gate
 from ..ops.fused_tp import check_timeouts, pack_fused_tp, pack_rows, supports_shard, supports_tp
 from ..ops.quant import fuse_params, quantize_params
-from ..parallel import Mesh
+from ..parallel import Mesh, row_groups
 from ..runtime.generate import (
     GenerateFns,
     GenerateState,
@@ -168,6 +178,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _Group(NamedTuple):
+    """One data group's share of a batch: its rows, lead device, the plain
+    path's params there, noise generators and inputs on that device."""
+
+    rows: slice
+    device: torch.device
+    params: dict
+    gens: list
+    ids: torch.Tensor
+    lens: torch.Tensor
+    segments: dict
+
+    @property
+    def batch(self) -> int:
+        return int(self.ids.shape[0])
+
+
 class TTSEngine:
     """Qwen3-TTS synthesis engine on PyTorch.
 
@@ -176,7 +203,7 @@ class TTSEngine:
     them) or from ``config`` and ``params``.  Construction records errors
     instead of raising: check ``is_ready()`` / ``get_error()``."""
 
-    mesh = None  # the tensor-parallel mesh (parallel.make_mesh), if any
+    mesh = None  # the mesh (parallel.make_mesh), if any
     params: Optional[dict] = None
     _bits = 8  # the packs' unit bits (16: bf16 units, quantize=None; 4: int4)
     _mtp_bits: Optional[int] = None  # the MTP trunk's, where mtp_quantize sets it
@@ -211,6 +238,7 @@ class TTSEngine:
         self.mesh = mesh
         self.cfg = config
         self.params: Optional[dict] = None
+        self._lead_params = {}  # under a mesh: the plain path's params per lead device
         self.tokenizer = tokenizer
         self.device = torch.device("cpu")
         # speculative decoding: spec_k candidate frames per talker pass,
@@ -257,14 +285,9 @@ class TTSEngine:
             if not isinstance(mesh, Mesh):
                 raise EngineError(f"mesh {mesh!r}: a leaxer_qwen3_tts_torch.parallel.Mesh "
                                   "(make_mesh) is expected")
-            if mesh.shape.get("data", 1) != 1:
-                raise EngineError(f"a mesh with data={mesh.shape['data']}: sharding batches "
-                                  "over the data axis is not ported (ROADMAP M15)")
-            if self.spec_k is not None:
-                raise EngineError("spec_k with a mesh: not ported (ROADMAP M15)")
             if frame_fused:
-                raise EngineError("frame_fused with a mesh: not ported (ROADMAP M15; the JAX "
-                                  "package's frame gate refuses a mesh)")
+                raise EngineError("frame_fused with a mesh is unsupported: the JAX package's "
+                                  "frame gate refuses a mesh (ROADMAP M15)")
         if mtp_quantize not in (None, "int8", "int4", "auto"):
             raise EngineError(f"unknown mtp_quantize mode {mtp_quantize!r}")
 
@@ -334,7 +357,7 @@ class TTSEngine:
             problems = []
             for name, t, fused in (("talker", cfg.talker.transformer, talker_fused),
                                    ("MTP trunk", cfg.code_predictor.transformer, mtp_fused)):
-                if fused and unit_gate(t) and not supports(t):
+                if mesh is None and fused and unit_gate(t) and not supports(t):
                     problems.append(
                         f"the JAX package decodes this {name} on its fused step, which the step "
                         "kernels here take at head_dim 128, at most 8 q heads per kv head and "
@@ -346,6 +369,12 @@ class TTSEngine:
 
         if mesh is not None:
             self.params = self._mesh_params(cfg, _to_device(params, self.device), mesh)
+            # the plain path's params once per distinct lead device (one card
+            # listed d x tp times holds one copy)
+            self._lead_params = {self.device: self.params}
+            for lead in mesh.data_leads():
+                if lead not in self._lead_params:
+                    self._lead_params[lead] = _to_device(self.params, lead)
             return
         # one qkv and one gate/up product per layer (the JAX engine's fuse=True,
         # its default; the port takes no other layout)
@@ -381,42 +410,55 @@ class TTSEngine:
         self.params = params
 
     @staticmethod
-    def _mesh_problems(cfg: TTSModelConfig, mesh) -> List[str]:
-        """Why the card cannot decode ``cfg`` on ``mesh``: the talker step
-        needs K9 and the chain K10 (the plain decode and the cached chain do
-        not run on the card)."""
-        tp = mesh.shape.get("model", 1)
+    def mesh_routes(cfg: TTSModelConfig, tp: int) -> Tuple[bool, bool]:
+        """(K9, K10): whether the JAX engine's mesh build (its
+        ``api/engine.py`` under ``mesh is not None``) attaches the talker's
+        and the MTP trunk's ``fused_tp`` packs at this tp, so that a B=1 step
+        is kernel K9 (with no int8 cache) and a B=1 sampled chain kernel K10.
+        Where it does not, the step is the plain layers' and the chain the
+        cached one."""
         tr, cp = cfg.talker.transformer, cfg.code_predictor
+        k9 = (tp > 1 and cfg.talker.decode_impl == "fused" and supports_tp(tr, tp)
+              and not tr.kv_cache_quant)
+        k10 = (tp > 1 and cp.impl == "fused" and cp.head_mode == "per_step"
+               and supports_tp_resident(cp.transformer, tp, cp.num_steps, cp.subcode_vocab_size))
+        return k9, k10
+
+    @classmethod
+    def _mesh_problems(cls, cfg: TTSModelConfig, mesh) -> List[str]:
+        """Why the card cannot decode ``cfg`` on ``mesh``: a pack the JAX
+        engine attaches whose rank shard the card's kernels K9 / K10 do not
+        take (``supports_shard``: K1's architecture reach and a power-of-two
+        tp).  Every other mesh runs its plain step and cached chain."""
+        tp = mesh.shape.get("model", 1)
         problems = []
-        if not (tp > 1 and supports_tp(tr, tp) and supports_shard(tr, tp)
-                and not tr.kv_cache_quant):
-            problems.append(f"the tensor-parallel step K9 does not take the talker at tp={tp}"
-                            + (" with an int8 KV cache" if tr.kv_cache_quant else ""))
-        if not (tp > 1 and supports_tp_resident(cp.transformer, tp, cp.num_steps,
-                                                cp.subcode_vocab_size)
-                and supports_shard(cp.transformer, tp)):
-            problems.append(f"the sharded chain K10 does not take the MTP trunk at tp={tp} (the "
-                            "JAX package's cached chain under a mesh is not ported to the card, "
-                            "ROADMAP M15)")
+        for name, on, t in zip(("talker's step on K9", "MTP trunk's chain on K10"),
+                               cls.mesh_routes(cfg, tp),
+                               (cfg.talker.transformer, cfg.code_predictor.transformer)):
+            if on and not supports_shard(t, tp):
+                problems.append(
+                    f"the JAX package decodes the {name} at tp={tp}, whose rank shard the card's "
+                    "kernels take at head_dim 128, at most 8 q heads per kv head, K1's row and "
+                    "width grid and a power-of-two tp only (ROADMAP item K1a)")
         return problems
 
-    @staticmethod
-    def _mesh_params(cfg: TTSModelConfig, params: dict, mesh) -> dict:
+    @classmethod
+    def _mesh_params(cls, cfg: TTSModelConfig, params: dict, mesh) -> dict:
         """The JAX engine's mesh build: nothing fused or quantized; per-rank
         int8 packs of the raw layers for K9 (``talker["fused_tp"]``) and K10
         (``code_predictor["fused_tp"]`` with the heads' shards,
-        ``fused_tp_heads``) where their gates hold.  Each pack is JAX's
+        ``fused_tp_heads``) where :meth:`mesh_routes` says JAX attaches them,
+        on the first data row's model ranks.  Each pack is JAX's
         (``pack_fused_tp``) turned into the ranks' rows (``pack_rows``): the
         engine keeps the rows only, the same int8 values and scales."""
         tp = mesh.shape.get("model", 1)
         tr, cp = cfg.talker.transformer, cfg.code_predictor
+        k9, k10 = cls.mesh_routes(cfg, tp)
         params = dict(params)
-        if tp > 1 and cfg.talker.decode_impl == "fused" and supports_tp(tr, tp) and (
-                not tr.kv_cache_quant):
+        if k9:
             params["talker"] = dict(params["talker"], fused_tp=pack_rows(tr, tp, pack_fused_tp(
                 tr, params["talker"]["transformer"]["layers"], tp, mesh=mesh)))
-        if tp > 1 and cp.impl == "fused" and cp.head_mode == "per_step" and supports_tp_resident(
-                cp.transformer, tp, cp.num_steps, cp.subcode_vocab_size):
+        if k10:
             sub = params["code_predictor"]
             params["code_predictor"] = dict(
                 sub, fused_tp=pack_rows(cp.transformer, tp, pack_fused_tp(
@@ -441,14 +483,10 @@ class TTSEngine:
         if not self._ready:
             raise EngineError(f"engine not ready: {self._error}")
 
-    def check_batched(self) -> None:
-        """Raise EngineError where this engine cannot decode batches
-        (``synthesize_batch`` at B > 1, a pool, the server): under a mesh,
-        anywhere (ROADMAP M15).  On the card every unit type, MTP trunk and
-        preset runs the batched kernels K4, K5 and K6."""
-        if self.mesh is not None:
-            raise EngineError("batched decoding under a mesh (synthesize_batch at B > 1, the "
-                              "pool, the server): not ported (ROADMAP M15)")
+    def params_on(self, device) -> dict:
+        """The params of the plain path on ``device``: the engine's, or under
+        a mesh the copy on that data group's lead device."""
+        return self._lead_params.get(torch.device(device), self.params)
 
     # ------------------------------------------------------------------
     # Public synthesis API
@@ -673,11 +711,44 @@ class TTSEngine:
             raise EngineError("empty text")
         return ids
 
-    def _get_fns(self, lang_id, kv_bucket: int, chunk_len: int, batch: int = 1) -> GenerateFns:
+    def _get_fns(self, lang_id, kv_bucket: int, chunk_len: int, batch: int = 1,
+                 route_batch: Optional[int] = None) -> GenerateFns:
+        """The generate callables of ``batch`` rows.  ``route_batch``: the
+        whole batch's rows, which choose the mesh's routes (JAX's K9 and K10
+        gates take B=1 only); a data group's share of a larger batch decodes
+        on the plain step and the cached chain."""
+        routed = (batch if route_batch is None else route_batch) == 1
         return make_generate_fns(
             self.cfg, batch=batch, max_len=kv_bucket, chunk_len=chunk_len, lang_id=lang_id,
-            mesh=self.mesh,
+            mesh=self.mesh if routed else None,
         )
+
+    def _groups(self, ids_t, lens_t, seeds, segments) -> List["_Group"]:
+        """The batch's rows over the mesh's data groups (``row_groups``: the
+        whole batch on the engine's device without a mesh or where the batch
+        does not divide), each with its inputs on its lead device and its
+        noise generators: per-stream seeds sliced; one seed kept by group 0
+        and folded with g for group g."""
+        B = int(ids_t.shape[0])
+        out = []
+        for g, (rows, dev) in enumerate(row_groups(self.mesh, B, self.device)):
+            if len(seeds) > 1:
+                picked = seeds[rows]
+            elif g == 0:
+                picked = seeds
+            else:
+                words = [int(seeds[0]) & 0xFFFF_FFFF_FFFF_FFFF, g]
+                picked = [int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])]
+            gens = []
+            for sd in picked:
+                gens.append(torch.Generator(device=dev))
+                gens[-1].manual_seed(int(sd))
+            whole = rows == slice(0, B)
+            seg = {k: v if whole else v[rows].to(dev) for k, v in segments.items()}
+            out.append(_Group(rows, dev, self.params_on(dev), gens,
+                              ids_t if whole else ids_t[rows].to(dev),
+                              lens_t if whole else lens_t[rows].to(dev), seg))
+        return out
 
     @staticmethod
     def _grow_state(state: GenerateState, new_len: int) -> GenerateState:
@@ -703,8 +774,6 @@ class TTSEngine:
         B = len(id_lists)
         if B < 1:
             raise EngineError("no texts")
-        if B > 1:
-            self.check_batched()
         vocab = cfg.talker.text_vocab_size
         for ids in list(id_lists) + ([instruct_ids] if instruct_ids else []):
             bad = [i for i in ids if not 0 <= int(i) < vocab]
@@ -758,21 +827,24 @@ class TTSEngine:
                 raise EngineError(f"seed sequence length {len(seeds)} != batch {B}")
         else:
             seeds = [seed]
-        gens = []
-        for s in seeds:
-            gens.append(torch.Generator(device=self.device))
-            gens[-1].manual_seed(int(s))
         ids_t = torch.from_numpy(ids_padded).to(dev)
         lens_t = torch.from_numpy(lens).to(dev)
+        groups = self._groups(ids_t, lens_t, seeds, segments)
         if self.spec_k is not None:
             spec = self._spec_stream if B == 1 else self._spec_stream_batched
-            yield from spec(timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp, segments)
+            yield from spec(timer, groups, lang_id, P, max_tokens, sp)
             return
 
+        # per data group: [state, bundle] of its rows on its lead device
+        runs = []
         with timer.stage("prefill"):
-            fns = self._get_fns(lang_id, self.kv_ladder[bidx], self.first_chunk_len, B)
-            state, bundle = fns.prefill(self.params, ids_t, lens_t, gens, **segments)
-            _sync(dev)
+            for grp in groups:
+                fns = self._get_fns(lang_id, self.kv_ladder[bidx], self.first_chunk_len,
+                                    grp.batch, B)
+                runs.append(list(fns.prefill(grp.params, grp.ids, grp.lens, grp.gens,
+                                             **grp.segments)))
+            for d in {grp.device for grp in groups}:
+                _sync(d)
 
         voc_cfg = cfg.vocoder
         spf = voc_cfg.samples_per_frame
@@ -787,20 +859,27 @@ class TTSEngine:
                 and bidx + 1 < len(self.kv_ladder)
             ):
                 bidx += 1
-                state = self._grow_state(state, self.kv_ladder[bidx])
-            fns = self._get_fns(lang_id, self.kv_ladder[bidx], cur_chunk, B)
-            if frame_fused_eligible(cfg, self.params, state, sp, mesh=self.mesh):
+                for run in runs:
+                    run[0] = self._grow_state(run[0], self.kv_ladder[bidx])
+            if frame_fused_eligible(cfg, self.params, runs[0][0], sp, mesh=self.mesh):
                 fused_frames += cur_chunk
             with timer.stage("decode"):
-                state, frames, valid = fns.decode(
-                    self.params, state, bundle.trailing, bundle.trailing_len,
-                    bundle.tts_pad_embed, sp,
-                )
+                outs = []
+                for grp, run in zip(groups, runs):
+                    fns = self._get_fns(lang_id, self.kv_ladder[bidx], cur_chunk, grp.batch, B)
+                    bundle = run[1]
+                    run[0], fr, va = fns.decode(
+                        grp.params, run[0], bundle.trailing, bundle.trailing_len,
+                        bundle.tts_pad_embed, sp.select(grp.rows),
+                    )
+                    outs.append((fr.to(dev), va.to(dev)))
+                frames = torch.cat([o[0] for o in outs]) if len(outs) > 1 else outs[0][0]
+                valid = torch.cat([o[1] for o in outs]) if len(outs) > 1 else outs[0][1]
                 frames_np = frames.cpu().numpy()  # the one sync of the chunk
-                if self.mesh is not None:
+                if self.mesh is not None and B == 1:
                     check_timeouts()  # K9's and K10's status words of the chunk's launches
             valid_np = valid.cpu().numpy()
-            done = bool(state.done.all().cpu())
+            done = all(bool(run[0].done.all().cpu()) for run in runs)
             frames_chunks.append(frames_np)
             valid_chunks.append(valid_np)
             steps += cur_chunk
@@ -860,11 +939,14 @@ class TTSEngine:
     # Speculative decoding
     # ------------------------------------------------------------------
 
-    def _get_spec_fns(self, lang_id, max_len: int, num_iters: int,
-                      batch: int = 1) -> SpecGenerateFns:
+    def _get_spec_fns(self, lang_id, max_len: int, num_iters: int, batch: int = 1,
+                      params: Optional[dict] = None) -> SpecGenerateFns:
+        """Spec callables (JAX's take no mesh: the verify pass is the plain
+        layers' and the candidates' chain the cached one under a mesh);
+        ``params``: the group's, whose draft head drafts."""
         return make_spec_generate_fns(self.cfg, max_len=max_len, k=self.spec_k,
                                       num_iters=num_iters, batch=batch, lang_id=lang_id,
-                                      draft_fn=default_draft(self.cfg, self.params))
+                                      draft_fn=default_draft(self.cfg, params or self.params))
 
     def _spec_prologue(self, P: int, max_tokens: int):
         """Iterations per dispatch shrunk to fit short requests and small
@@ -888,18 +970,20 @@ class TTSEngine:
         )
         return iters, spec_chunk, min(max_tokens, budget), bidx
 
-    def _spec_stream(self, timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp, segments):
-        """Speculative decode of one stream.  Commits per dispatch are data-
-        dependent (between iters and iters * spec_k frames), so committed
-        frames are compacted on the host and vocoded in the sequential
-        path's windows (a small first one for time to first audio)."""
+    def _spec_stream(self, timer, groups, lang_id, P, max_tokens, sp):
+        """Speculative decode of one stream (on group 0).  Commits per
+        dispatch are data-dependent (between iters and iters * spec_k
+        frames), so committed frames are compacted on the host and vocoded
+        in the sequential path's windows (a small first one for time to
+        first audio)."""
+        (grp,) = groups
         iters, spec_chunk, max_tokens, bidx = self._spec_prologue(P, max_tokens)
         # the first dispatch runs one iteration, so first audio follows it
         cur_iters = 1
         with timer.stage("prefill"):
             fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], cur_iters)
-            state, bundle, frame0, valid0 = fns.prefill(self.params, ids_t, lens_t, gens, sp,
-                                                        **segments)
+            state, bundle, frame0, valid0 = fns.prefill(self.params, grp.ids, grp.lens, grp.gens,
+                                                        sp, **grp.segments)
             frame0, valid0 = frame0.cpu().numpy(), valid0.cpu().numpy()
         out = _FrameEmitter(self, timer, max_tokens)
         if valid0[0]:
@@ -964,6 +1048,10 @@ class TTSEngine:
         with out.timer.stage("decode"):
             state = spec_to_seq(self.cfg, self.params, spec_state, bundle.trailing,
                                 bundle.trailing_len, bundle.tts_pad_embed)
+        # on a mesh the sequential steps are K9's where its pack is (the
+        # conversion step itself is the plain one, as JAX's spec_to_seq)
+        state = state._replace(cache=talker_shard_cache(self.cfg.talker, self.params["talker"],
+                                                        state.cache, self.mesh))
         pos += 1
         decoded = 1 + n_iterations * self.spec_k
         while len(out.committed) < out.max_tokens:
@@ -978,6 +1066,8 @@ class TTSEngine:
                 state, frames, valid = fns.decode(self.params, state, bundle.trailing,
                                                   bundle.trailing_len, bundle.tts_pad_embed, sp)
                 frames_np = frames[0].cpu().numpy()
+                if self.mesh is not None:
+                    check_timeouts()
             out.committed.extend(frames_np[valid[0].cpu().numpy()])
             pos += cur
             decoded += cur
@@ -987,20 +1077,27 @@ class TTSEngine:
         yield from out.drain(final=True)
         yield self._spec_result(out, n_iterations, slots, decoded, fallback=True)
 
-    def _spec_stream_batched(self, timer, ids_t, lens_t, gens, lang_id, P, max_tokens, sp,
-                             segments):
+    def _spec_stream_batched(self, timer, groups, lang_id, P, max_tokens, sp):
         """Speculative decode of B > 1 streams (``synthesize_batch``): one
         verify pass covers B x spec_k candidate rows with per-stream
-        acceptance; frames compact per stream on the host and the vocoder
-        runs once at the end on the padded batch."""
-        B = int(ids_t.shape[0])
+        acceptance, per data group; frames compact per stream on the host
+        and the vocoder runs once at the end on the padded batch."""
+        B = sum(grp.batch for grp in groups)
         spf = self.cfg.vocoder.samples_per_frame
         iters, spec_chunk, max_tokens, bidx = self._spec_prologue(P, max_tokens)
+        runs = []  # per data group: [state, bundle]
         with timer.stage("prefill"):
-            fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], iters, B)
-            state, bundle, frame0, valid0 = fns.prefill(self.params, ids_t, lens_t, gens, sp,
-                                                        **segments)
-            f0, v0 = frame0.cpu().numpy(), valid0.cpu().numpy()
+            f0, v0 = [], []
+            for grp in groups:
+                fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], iters, grp.batch,
+                                         grp.params)
+                state, bundle, frame0, valid0 = fns.prefill(grp.params, grp.ids, grp.lens,
+                                                            grp.gens, sp.select(grp.rows),
+                                                            **grp.segments)
+                runs.append([state, bundle])
+                f0.append(frame0.cpu().numpy())
+                v0.append(valid0.cpu().numpy())
+            f0, v0 = np.concatenate(f0), np.concatenate(v0)
         buffers = [[f0[b]] if v0[b] else [] for b in range(B)]
         done = ~v0
         steps = np.ones((B,), np.int64)
@@ -1010,19 +1107,27 @@ class TTSEngine:
             while (P + slots - 1 + spec_chunk + 1 > self.kv_ladder[bidx]
                    and bidx + 1 < len(self.kv_ladder)):
                 bidx += 1
-                state = self._grow_state(state, self.kv_ladder[bidx])
+                for run in runs:
+                    run[0] = self._grow_state(run[0], self.kv_ladder[bidx])
             if P + slots - 1 + spec_chunk + 1 > self.kv_ladder[bidx]:
                 break
-            fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], iters, B)
             with timer.stage("decode"):
-                state, frames, valid = fns.decode(self.params, state, bundle.trailing,
-                                                  bundle.trailing_len, bundle.tts_pad_embed, sp)
-                frames_np = frames.cpu().numpy()  # the one sync of the dispatch
-            valid_np = valid.cpu().numpy()
+                outs = []
+                for grp, run in zip(groups, runs):
+                    fns = self._get_spec_fns(lang_id, self.kv_ladder[bidx], iters, grp.batch,
+                                             grp.params)
+                    bundle = run[1]
+                    run[0], frames, valid = fns.decode(grp.params, run[0], bundle.trailing,
+                                                       bundle.trailing_len, bundle.tts_pad_embed,
+                                                       sp.select(grp.rows))
+                    outs.append((frames, valid))
+                # the one sync of the dispatch
+                frames_np = np.concatenate([fr.cpu().numpy() for fr, _ in outs])
+            valid_np = np.concatenate([va.cpu().numpy() for _, va in outs])
             for b in range(B):
                 buffers[b].extend(frames_np[b][valid_np[b]])
-            done = state.done.cpu().numpy()
-            steps = state.step.cpu().numpy()
+            done = np.concatenate([run[0].done.cpu().numpy() for run in runs])
+            steps = np.concatenate([run[0].step.cpu().numpy() for run in runs])
             n_iterations += iters
         n_valid = [min(len(buf), max_tokens) for buf in buffers]
         F_pad = _round_up(max(max(n_valid), 1), self.chunk_len)  # few vocoder shapes

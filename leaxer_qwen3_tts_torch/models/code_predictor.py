@@ -37,7 +37,10 @@ from the config, the packs and the batch alone:
   the 17-slot cache, the final norm, heads and draws outside the kernels;
 * else the cached plain chain (:func:`predict_subcodes_cached`): an
   unpacked trunk (``impl="cached"``, JAX's default, or an architecture the
-  step kernels do not take), or past 32 rows without the resident chain.
+  step kernels do not take), past 32 rows without the resident chain, and
+  every chain under a mesh but K10's (a mesh packs no ``fused_step``: more
+  than one row, no ``fused_tp`` pack as for the 1.7B trunk at tp=2, or no
+  sampling knobs).
 
 Every route runs on the card and on the CPU; on the CPU the kernel wrappers
 run their plain versions.

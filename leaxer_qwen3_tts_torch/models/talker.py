@@ -8,10 +8,13 @@ per-row positions; past 32 rows as launches of at most 32), and the
 speculative verify pass of K candidates per stream is kernel K6
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_verify.fused_verify_step`; past 32
 rows as launches of whole streams); under a tensor-parallel mesh with a ``fused_tp`` pack a
-B=1 step is kernel K9 on the mesh's model ranks
+B=1 step with a uniform fill and no int8 cache is kernel K9 on the first
+data row's model ranks
 (:func:`~leaxer_qwen3_tts_torch.ops.fused_tp.fused_decode_step_tp`, on the
 ranks' kv-head shards of a :class:`~.layers.TPKVCache`, which
-:func:`talker_shard_cache` makes from the prefill's cache).  Wherever the
+:func:`talker_shard_cache` makes from the prefill's cache, or from a spec
+fallback's converted one); any other step under a mesh (B > 1, a pool's,
+an int8 cache, no pack) is the plain layers', as JAX's gate sends it.  Wherever the
 JAX package's predicates send a step or a verify pass to its plain
 ``transformer_forward`` the port runs its plain layers, on the card as on
 the CPU: an unpacked talker (``decode_impl="xla"``, JAX's default, or an

@@ -1,4 +1,4 @@
-"""Device mesh and tensor-parallel sharding rules."""
+"""Device mesh, the data axis's row split and tensor-parallel sharding rules."""
 
 from .mesh import (
     TP_RULES,
@@ -8,7 +8,9 @@ from .mesh import (
     make_mesh,
     param_pspec,
     param_shardings,
+    row_groups,
     shard_params,
+    split_rows,
 )
 
 __all__ = [
@@ -20,4 +22,6 @@ __all__ = [
     "shard_params",
     "param_pspec",
     "TP_RULES",
+    "split_rows",
+    "row_groups",
 ]

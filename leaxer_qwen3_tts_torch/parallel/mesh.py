@@ -1,4 +1,4 @@
-"""Device mesh and tensor-parallel sharding rules.
+"""Device mesh, the data axis's row split and tensor-parallel sharding rules.
 
 Port of ``leaxer_qwen3_tts_tpu/parallel/mesh.py``.  A :class:`Mesh` is a
 numpy object array of ``torch.device``s shaped ``[data, model]`` with the
@@ -6,23 +6,29 @@ axis names ``("data", "model")`` and a ``shape`` dict, as JAX's mesh has.
 The "model" axis is tensor parallelism: the decode step's per-rank halves
 (kernel K9, ``ops/fused_tp.py``) and the sharded MTP chain (kernel K10,
 ``ops/fused_mtp_tp.py``) run one shard of the attention heads and the MLP
-per model rank, on that rank's device.  The "data" axis is listed for the
-JAX layout's sake; nothing shards a batch over it yet (ROADMAP M15).
+per model rank, on the first data row's devices (:meth:`Mesh.model_devices`).
+The "data" axis splits a batch's rows, a pool's slots and a train batch
+over the data rows (:meth:`Mesh.data_groups`, :func:`split_rows`), as JAX's
+``P("data")`` shards the batch axis: group g holds rows ``[g B/d, (g+1)
+B/d)`` on its lead device (the first device of data row g), and a batch
+that does not divide over the d rows stays whole on group 0, as JAX's
+``P()`` replicates it.
 
 ``make_mesh(data, model)`` takes the visible CUDA devices in order, as JAX's
 takes ``jax.devices()``, and raises when there are too few; it never lists a
 device twice on its own.  A caller may pass ``devices`` that repeat one
-device: ``[torch.device("cpu")] * tp`` on the CPU, ``[torch.device("cuda",
-0)] * tp`` on one card.  The mesh then holds ``tp`` logical shards on that
-device, each rank with its own packed weights, KV heads and exchange
-buffers, so every kernel runs at full width on the one card, as the JAX
-package's tests run its mesh on virtual CPU devices.  Over distinct cards
-the same code takes one device per rank.
+device: ``[torch.device("cpu")] * (d * tp)`` on the CPU, ``[torch.device(
+"cuda", 0)] * (d * tp)`` on one card.  The mesh then holds ``tp`` logical
+shards on that device, each rank with its own packed weights, KV heads and
+exchange buffers, so every kernel runs at full width on the one card, as the
+JAX package's tests run its mesh on virtual CPU devices; its data groups
+share the card and decode one after another.  Over distinct cards the same
+code takes one device per rank and per group.
 
 ``shard_params`` returns each rank's slice of every leaf a rule shards, on
 that rank's device (a list over the model ranks), and every other leaf as
 it is.  The engine does not shard its plain path's weights: prefill, lm_head,
-embeddings and vocoder run on the mesh's first device with the full params
+embeddings and vocoder run on each group's lead device with the full params
 (a standing difference from the JAX engine, which lets GSPMD shard them).
 """
 
@@ -49,8 +55,17 @@ class Mesh:
 
     def model_devices(self) -> List[torch.device]:
         """The model ranks' devices (the first data row): rank r on entry r."""
-        row = self.devices.reshape(-1, self.shape.get("model", 1))[0]
-        return [torch.device(d) for d in row]
+        return self.data_groups()[0]
+
+    def data_groups(self) -> List[List[torch.device]]:
+        """Each data row's model devices: group g's ranks on entry g."""
+        rows = self.devices.reshape(-1, self.shape.get("model", 1))
+        return [[torch.device(d) for d in row] for row in rows]
+
+    def data_leads(self) -> List[torch.device]:
+        """Each data group's lead device (its first model rank's): where the
+        group's rows run the plain path."""
+        return [group[0] for group in self.data_groups()]
 
     @property
     def lead(self) -> torch.device:
@@ -60,6 +75,29 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
+
+
+def split_rows(batch: int, data: int) -> List[slice]:
+    """The rows each data group holds of a batch axis of ``batch`` rows, as
+    JAX's ``P("data")`` shards it: ``data`` slices of ``batch / data`` rows
+    where ``data`` divides ``batch``, else the whole batch as group 0's one
+    slice (JAX's ``P()``: replicated, so every group computes the same rows
+    and the first one's are kept)."""
+    if data > 1 and batch % data == 0:
+        part = batch // data
+        return [slice(g * part, (g + 1) * part) for g in range(data)]
+    return [slice(0, batch)]
+
+
+def row_groups(mesh: Optional["Mesh"], batch: int, default: torch.device
+               ) -> List[Tuple[slice, torch.device]]:
+    """(rows, lead device) of each data group that holds rows of a batch of
+    ``batch`` rows (:func:`split_rows`); without a mesh, the whole batch on
+    ``default``."""
+    if mesh is None:
+        return [(slice(0, batch), torch.device(default))]
+    leads = mesh.data_leads()
+    return [(rows, leads[g]) for g, rows in enumerate(split_rows(batch, len(leads)))]
 
 
 def _visible_devices() -> List[torch.device]:

@@ -21,11 +21,17 @@ False``) and a pool chunk needs no host sync either.  Gumbel noise is drawn
 on the device from the streams' ``torch.Generator``s: one for the batch, or
 one per stream (:class:`~leaxer_qwen3_tts_torch.runtime.sampling.NoiseSource`).
 
-With a tensor-parallel ``mesh`` (the engine's) a B=1 frame's talker step is
-kernel K9 and its chain kernel K10 where the engine attached their packs;
-the prefill, the code0 draw, the embeddings and the lm_head run on the mesh's
-first device.  ``frame_fused`` is ineligible under a mesh, as in the JAX
-package.
+With a ``mesh`` (the engine's, passed for a B=1 request only) a frame's
+talker step is kernel K9 where the engine attached its pack, the prefill
+uniform and the cache not int8 (the JAX package's gate: an int8 cache steps
+on the plain layers, K10's chain beside it), and its chain kernel K10 where
+that pack is; the prefill, the code0 draw, the embeddings and the lm_head
+run on the mesh's first device.  A batch's rows split over the mesh's data
+groups are decoded by each group's own callables on its lead device (the
+engine holds each group's state through the chunks), built without the mesh:
+JAX's K9 and K10 gates take B=1 only, so a group's share of a larger batch,
+a pool and a verify pass step on the plain layers beside the cached chain.
+``frame_fused`` is ineligible under a mesh, as in the JAX package.
 """
 
 from __future__ import annotations

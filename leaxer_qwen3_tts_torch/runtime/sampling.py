@@ -83,6 +83,13 @@ class SamplingParams(NamedTuple):
             tuple(x for x in v for _ in range(slots)) if isinstance(v, tuple) else v for v in self
         ))
 
+    def select(self, rows: slice) -> "SamplingParams":
+        """The knobs of the batch rows ``rows`` (a data group's): per-row
+        knobs sliced, scalars as they are."""
+        if not self.per_row:
+            return self
+        return SamplingParams(*(v[rows] if isinstance(v, tuple) else v for v in self))
+
     @property
     def greedy(self) -> bool:
         """True when every row decodes greedily."""

@@ -1,8 +1,13 @@
 """Continuous batching: a persistent decode pool with per-slot admit/retire.
 
-Port of ``leaxer_qwen3_tts_tpu/serve/pool.py``; the JAX pool's slots over a
-mesh's "data" axis are not ported, and an engine built on a mesh is refused
-here (``TTSEngine.check_batched``; ROADMAP M15):
+Port of ``leaxer_qwen3_tts_tpu/serve/pool.py``.  Over an engine on a mesh
+the slots are split over the mesh's "data" axis as JAX's pool shards them:
+``pool_size`` must divide over the data groups (else ``EngineError``, as
+JAX's), and group g holds slots ``[g P/d, (g+1) P/d)`` on its lead device
+(cache rows, per-slot position, step, EOS latch, text drip and noise
+generator).  Admission prefills a request on its slot's group and splices it
+there; each pool chunk decodes group by group, on the plain step and the
+cached chain (no pool state takes the mesh's K9 or K10, as in JAX):
 
   * B decode SLOTS run one shared chunked decode forever; requests are
     ADMITTED into free slots at chunk boundaries and RETIRED independently on
@@ -54,7 +59,7 @@ import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -64,6 +69,7 @@ from ..config import SAMPLE_RATE, language_to_codec_id
 from ..models.codec12hz import vocode_chunk, vocoder_forward
 from ..models.layers import splice_kv_cache
 from ..models.talker import talker_init_cache
+from ..parallel import row_groups
 from ..runtime.generate import GenerateState, make_generate_fns
 from ..runtime.prompt import prompt_length, tts_embeds
 from ..runtime.sampling import SamplingParams
@@ -119,6 +125,23 @@ class _Active:
     first_audio_at: Optional[float] = None
 
 
+@dataclass
+class _SlotGroup:
+    """One data group's slots ``[g P/d, (g+1) P/d)`` on its lead device:
+    the plain path's params there, the draft of a spec pool, the slots'
+    decode state and text drips (``trailing`` rows, their lengths) and the
+    TTS_PAD embedding."""
+
+    slots: slice
+    device: torch.device
+    params: dict
+    tts_pad: torch.Tensor
+    trailing: torch.Tensor
+    trailing_len: torch.Tensor
+    draft_fn: Optional[Callable] = None
+    state: object = None
+
+
 class PoolStream:
     """Handle for a streaming pool request: iterate to receive np.float32
     audio chunks (24 kHz) as the request decodes inside the shared pool
@@ -166,7 +189,11 @@ class ContinuousBatcher:
             raise ValueError("spec_k must be in [2, 8]")
         if not engine.is_ready():
             raise EngineError(f"engine not ready: {engine.get_error()}")
-        engine.check_batched()
+        if engine.mesh is not None:
+            data = engine.mesh.shape.get("data", 1)
+            if int(pool_size) % max(data, 1) != 0:
+                raise EngineError(f"pool_size ({pool_size}) must divide over the mesh data axis "
+                                  f"({data})")
         self.spec_k = int(spec_k) if spec_k else None
         self.spec_iters = max(1, int(spec_iters))
         self.device = engine.device
@@ -188,17 +215,24 @@ class ContinuousBatcher:
 
         cfg = self.cfg
         B = self.pool_size
+        H = cfg.talker.hidden_size
+        dt = cfg.talker.transformer.torch_dtype
+        # the slots' data groups; one group without a mesh
+        parts = row_groups(engine.mesh, B, self.device)
+        self._per = B // len(parts)
+        self._groups: List[_SlotGroup] = []
+        for slots, dev in parts:
+            params = engine.params_on(dev)
+            self._groups.append(_SlotGroup(
+                slots, dev, params, tts_embeds(params["embeddings"], dev)[2],
+                torch.zeros((self._per, self.text_bucket_max, H), dtype=dt, device=dev),
+                torch.zeros((self._per,), dtype=torch.long, device=dev),
+                default_draft(cfg, params) if self.spec_k else None,
+                self._make_idle_state(dev)))
         if self.spec_k:
-            self._draft_fn = default_draft(cfg, engine.params)
             self._decode = self._spec_decode
         else:
             self._use_sequential_decode()
-        self._state = self._make_idle_state()
-        H = cfg.talker.hidden_size
-        dt = cfg.talker.transformer.torch_dtype
-        self._trailing = torch.zeros((B, self.text_bucket_max, H), dtype=dt, device=self.device)
-        self._trailing_len = torch.zeros((B,), dtype=torch.long, device=self.device)
-        self._tts_pad = tts_embeds(engine.params["embeddings"], self.device)[2]
 
         # host-side per-slot sampling knobs; idle slots decode greedily (no noise)
         self._temps = [0.0] * B
@@ -359,29 +393,36 @@ class ContinuousBatcher:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
 
-    def _generator(self, seed: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
+    @staticmethod
+    def _generator(seed: int, device) -> torch.Generator:
+        gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return gen
 
+    def _group_of(self, slot: int):
+        """(data group index, the slot's row in the group's state)."""
+        return divmod(slot, self._per)
+
     def _use_sequential_decode(self) -> None:
         # uniform_fill=False: pool slots run at DIFFERENT fill levels
-        self._fns = make_generate_fns(self.cfg, batch=self.pool_size, max_len=self.kv_bucket,
-                                      chunk_len=self.chunk_len, uniform_fill=False)
-        self._decode = self._fns.decode
+        fns = make_generate_fns(self.cfg, batch=self._per, max_len=self.kv_bucket,
+                                chunk_len=self.chunk_len, uniform_fill=False)
+        self._decode = lambda grp, sp: fns.decode(grp.params, grp.state, grp.trailing,
+                                                  grp.trailing_len, grp.tts_pad, sp)
 
-    def _spec_decode(self, params, state, trailing, trailing_len, tts_pad, sp):
-        return decode_frames_spec(self.cfg, params, state, trailing, trailing_len, tts_pad, sp,
-                                  self.spec_k, self.spec_iters, self._draft_fn)
+    def _spec_decode(self, grp: _SlotGroup, sp):
+        return decode_frames_spec(self.cfg, grp.params, grp.state, grp.trailing,
+                                  grp.trailing_len, grp.tts_pad, sp, self.spec_k,
+                                  self.spec_iters, grp.draft_fn)
 
-    def _make_idle_state(self):
-        """Fresh all-slots-idle pool state: at construction and to recover
-        after a failed chunk (in-flight requests were failed by the caller)."""
+    def _make_idle_state(self, dev):
+        """Fresh all-slots-idle state of one data group's slots on its lead
+        ``dev``: at construction and to recover after a failed chunk
+        (in-flight requests were failed by the caller)."""
         cfg = self.cfg
-        B, T = self.pool_size, self.kv_bucket
+        B, T = self._per, self.kv_bucket
         H, V = cfg.talker.hidden_size, cfg.talker.codec_vocab_size
         dt = cfg.talker.transformer.torch_dtype
-        dev = self.device
         cache = talker_init_cache(cfg.talker, B, T, dev)
         zeros = torch.zeros((B,), dtype=torch.long, device=dev)
         if self.spec_k:
@@ -394,7 +435,7 @@ class ContinuousBatcher:
                 rope_pos=zeros,
                 step=torch.ones((B,), dtype=torch.long, device=dev),
                 done=torch.ones((B,), dtype=torch.bool, device=dev),  # empty slots idle as done
-                generators=tuple(self._generator(self._seed) for _ in range(B)),
+                generators=tuple(self._generator(self._seed, dev) for _ in range(B)),
             )
         return GenerateState(
             cache=cache._replace(length=zeros.clone()),
@@ -405,7 +446,7 @@ class ContinuousBatcher:
             step=zeros.clone(),
             done=torch.ones((B,), dtype=torch.bool, device=dev),  # empty slots idle as done
             # placeholders: the admission splice puts the request's generator in
-            generators=tuple(self._generator(self._seed) for _ in range(B)),
+            generators=tuple(self._generator(self._seed, dev) for _ in range(B)),
         )
 
     def _get_prefill(self, lang_id, spec: bool):
@@ -562,22 +603,25 @@ class ContinuousBatcher:
             frame0, valid0 = None, False
             sp1 = SamplingParams.create(req.temperature, req.top_k, req.top_p,
                                         forbid_eos=req.forbid_eos)
+            # the request runs on its slot's data group
+            grp = self._groups[self._group_of(slot)[0]]
+            dev, params = grp.device, grp.params
             with self._device_work():
                 # host-to-device copies: never inside a sync-checked chunk
-                ids_t = torch.from_numpy(ids_arr).to(self.device)
-                lens_t = torch.tensor([len(ids)], device=self.device)
+                ids_t = torch.from_numpy(ids_arr).to(dev)
+                lens_t = torch.tensor([len(ids)], device=dev)
                 if spec:
                     # the spec prefill samples frame 0: it is committed at the splice
-                    s1, bundle, f0, v0 = fns.prefill(eng.params, ids_t, lens_t,
-                                                     self._generator(seed), sp1)
+                    s1, bundle, f0, v0 = fns.prefill(params, ids_t, lens_t,
+                                                     self._generator(seed, dev), sp1)
                     frame0, valid0 = f0[0].cpu().numpy(), bool(v0[0].cpu())
                 else:
-                    s1, bundle = fns.prefill(eng.params, ids_t, lens_t, self._generator(seed))
+                    s1, bundle = fns.prefill(params, ids_t, lens_t, self._generator(seed, dev))
                 if req.stream and not spec:
                     # bootstrap frame 0 here: first audio leaves at the
                     # splice, not after the next pooled chunk.  The state
                     # then carries step=1 (drip index) and the EOS latch.
-                    s1, f0, v0 = fns.decode(eng.params, s1, bundle.trailing,
+                    s1, f0, v0 = fns.decode(params, s1, bundle.trailing,
                                             bundle.trailing_len, bundle.tts_pad_embed, sp1)
                     frame0 = f0[0, 0].cpu().numpy()
                     valid0 = bool(v0[0, 0].cpu())
@@ -613,29 +657,31 @@ class ContinuousBatcher:
                 self._reset(e)
 
     def _splice_one(self, slot, req, t_bucket, budget, s1, bundle, frame0, valid0) -> None:
-        st = self._state
-        splice_kv_cache(st.cache, s1.cache, slot)
-        st.valid_mask[slot].copy_(s1.valid_mask[0])
+        g, row = self._group_of(slot)
+        grp = self._groups[g]
+        st = grp.state
+        splice_kv_cache(st.cache, s1.cache, row)
+        st.valid_mask[row].copy_(s1.valid_mask[0])
         if self.spec_k:
             # the spec state after frame 0: pending frame, its embed sum and
             # hidden, RoPE position (= fill level), step 1, the EOS latch
             for name in ("pending", "pending_nodrip", "pending_hidden", "rope_pos", "step",
                          "done"):
-                getattr(st, name)[slot].copy_(getattr(s1, name)[0])
+                getattr(st, name)[row].copy_(getattr(s1, name)[0])
         else:
-            st.last_logits[slot].copy_(s1.last_logits[0])
-            st.last_hidden[slot].copy_(s1.last_hidden[0])
+            st.last_logits[row].copy_(s1.last_logits[0])
+            st.last_hidden[row].copy_(s1.last_hidden[0])
             # pos/step/done from the admission state: after a bootstrap, frame
             # 0 is decoded (step=1; done latched if it hit EOS)
-            st.pos[slot].copy_(s1.pos[0])
-            st.step[slot].copy_(s1.step[0])
-            st.done[slot].copy_(s1.done[0])
+            st.pos[row].copy_(s1.pos[0])
+            st.step[row].copy_(s1.step[0])
+            st.done[row].copy_(s1.done[0])
         gens = list(st.generators)
-        gens[slot] = s1.generators[0]  # the request's own noise stream
-        self._state = st._replace(generators=tuple(gens))
-        self._trailing[slot].zero_()
-        self._trailing[slot, :t_bucket].copy_(bundle.trailing[0])
-        self._trailing_len[slot].copy_(bundle.trailing_len[0])
+        gens[row] = s1.generators[0]  # the request's own noise stream
+        grp.state = st._replace(generators=tuple(gens))
+        grp.trailing[row].zero_()
+        grp.trailing[row, :t_bucket].copy_(bundle.trailing[0])
+        grp.trailing_len[row].copy_(bundle.trailing_len[0])
         active = _Active(req=req, budget=budget)
         if valid0 and budget >= 1:
             active.frames.append(frame0)  # the bootstrap committed frame 0
@@ -652,7 +698,8 @@ class ContinuousBatcher:
         finisher pool so a long utterance's vocode never stalls decoding."""
         active = self._slots[slot]
         self._slots[slot] = None
-        self._state.done[slot] = True
+        g, row = self._group_of(slot)
+        self._groups[g].state.done[row] = True
         self._temps[slot] = 0.0  # idle: greedy, draws no noise
         self._forbid[slot] = False
         self._requests_done += 1
@@ -723,7 +770,8 @@ class ContinuousBatcher:
             self._slots[slot] = None
             self._temps[slot] = 0.0
             self._forbid[slot] = False
-        self._state = self._make_idle_state()
+        for grp in self._groups:
+            grp.state = self._make_idle_state(grp.device)
 
     def _check_acceptance(self, valid_np, done_np) -> None:
         """Pool-wide adaptive spec: one decode covers every slot, so the pool
@@ -750,14 +798,14 @@ class ContinuousBatcher:
         step (``spec_to_seq``; idle slots convert harmlessly, their rows are
         overwritten at the next splice) and the sequential decode takes over."""
         with self._chunk_section():
-            self._state = spec_to_seq(self.cfg, self.engine.params, self._state, self._trailing,
-                                      self._trailing_len, self._tts_pad, uniform_fill=False)
+            for grp in self._groups:
+                grp.state = spec_to_seq(self.cfg, grp.params, grp.state, grp.trailing,
+                                        grp.trailing_len, grp.tts_pad, uniform_fill=False)
         self.spec_k = None
         self._use_sequential_decode()
         self._spec_fallback = True
 
     def _loop(self) -> None:
-        params = self.engine.params
         while not self._stop.is_set():
             self._splice_ready()
             self._try_admissions()
@@ -767,14 +815,16 @@ class ContinuousBatcher:
             sp = SamplingParams.create(tuple(self._temps), tuple(self._top_ks),
                                        tuple(self._top_ps), forbid_eos=tuple(self._forbid))
             try:
+                outs = []
                 with self._chunk_section():
-                    self._state, frames, valid = self._decode(
-                        params, self._state, self._trailing, self._trailing_len,
-                        self._tts_pad, sp,
-                    )
-                frames_np = frames.cpu().numpy()  # the one sync of the chunk
-                valid_np = valid.cpu().numpy()
-                done_np = self._state.done.cpu().numpy()
+                    # one chunk per data group, its slots' knobs, one after another
+                    for grp in self._groups:
+                        grp.state, frames, valid = self._decode(grp, sp.select(grp.slots))
+                        outs.append((frames, valid))
+                # the one sync of the chunk
+                frames_np = np.concatenate([fr.cpu().numpy() for fr, _ in outs])
+                valid_np = np.concatenate([va.cpu().numpy() for _, va in outs])
+                done_np = np.concatenate([grp.state.done.cpu().numpy() for grp in self._groups])
             except Exception as e:
                 log.exception("pool decode failed; failing active requests")
                 self._reset(e)

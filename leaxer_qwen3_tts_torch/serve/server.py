@@ -6,7 +6,9 @@ engine; nothing here touches a tensor):
   * ``BatchingServer`` — a background batcher thread that groups queued
     requests (same language) into one batch, pads the batch up to a size
     bucket with duplicates, runs ``TTSEngine.synthesize_batch`` (kernels K4
-    and K5 on the card), and resolves per-request futures.  Per-request
+    and K5 on the card; under a mesh the batch split over its data groups,
+    on the plain step and the cached chain), and resolves per-request
+    futures.  Per-request
     temperature/top-k/top-p ride as per-row knobs.
   * ``make_http_server`` — a zero-dependency HTTP facade (POST /synthesize ->
     WAV bytes; POST /synthesize_stream through the continuous pool; GET
@@ -64,8 +66,6 @@ class BatchingServer:
     ):
         if max_batch not in BATCH_BUCKETS:
             raise ValueError(f"max_batch must be one of {BATCH_BUCKETS}")
-        if hasattr(engine, "check_batched"):
-            engine.check_batched()  # raises under a mesh (ROADMAP M15)
         self.engine = engine
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3

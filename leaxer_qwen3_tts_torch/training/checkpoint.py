@@ -4,7 +4,11 @@ The JAX package writes Orbax directories; this port writes a torch-native
 file into the same ``base/step_<N>`` directory layout: ``train_state.pt``
 holds the params ('/'-keyed tensors), the optimizer's state dict and the
 step.  Restore copies them into a target state of the same structure (a
-step-0 state from :func:`~.train_step.init_train_state`) on a device.
+step-0 state from :func:`~.train_step.init_train_state`, or one placed on a
+mesh by :func:`~.train_step.shard_train_state`) on a device.  The file does
+not depend on the mesh it was saved on: a data-parallel state keeps its
+params whole, so a checkpoint saved on one mesh restores onto another mesh
+shape or onto none.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from .train_step import TrainState, named_leaves
+from .train_step import TrainState, named_leaves, sync_replicas
 
 STATE_FILE = "train_state.pt"
 
@@ -38,7 +42,7 @@ def save_train_state(path: str, state: TrainState) -> None:
 def restore_train_state(path: str, target: TrainState, device=None) -> TrainState:
     """The state saved at ``path``, copied into ``target``'s params and
     optimizer (same structure) on ``device`` (default: where the target's
-    params lie)."""
+    params lie), and into its copies on a mesh's other leads."""
     leaves = dict(named_leaves(target.params))
     if device is None:
         device = next(iter(leaves.values())).device
@@ -51,7 +55,8 @@ def restore_train_state(path: str, target: TrainState, device=None) -> TrainStat
         for k, p in leaves.items():
             p.copy_(saved["params"][k])
     target.opt_state.load_state_dict(saved["opt_state"])
-    return TrainState(target.params, target.opt_state, saved["step"])
+    sync_replicas(target)
+    return target._replace(step=saved["step"])
 
 
 def latest_step_dir(base: str) -> Optional[str]:

@@ -11,10 +11,12 @@ computes:
     with the per-step heads and per-step embedding tables.
 
 Both are masked means over real frames, so right-padded batches of varying
-length train as the unpadded ones would.  Every product takes float32 sums
-of the operands' exact products, as the JAX package's
-``preferred_element_type=float32`` dots and float32 einsums do: the logits
-are never a bf16 product cast up afterwards.
+length train as the unpadded ones would. :func:`tts_loss_terms` gives each
+mean's masked sum and count, from which a data-parallel step rebuilds the
+whole batch's means out of its groups' terms (:func:`loss_from_terms`).
+Every product takes float32 sums of the operands' exact products, as the
+JAX package's ``preferred_element_type=float32`` dots and float32 einsums
+do: the logits are never a bf16 product cast up afterwards.
 """
 
 from __future__ import annotations
@@ -34,6 +36,16 @@ class LossMetrics(NamedTuple):
     talker_loss: torch.Tensor
     mtp_loss: torch.Tensor
     frames: torch.Tensor  # number of real target frames in the batch
+
+
+class LossTerms(NamedTuple):
+    """The masked sums and counts behind the two means of :func:`tts_loss`."""
+
+    talker_sum: torch.Tensor  # code0 cross-entropy summed over targets (frames and EOS)
+    talker_count: torch.Tensor  # the targets counted
+    mtp_sum: torch.Tensor  # sub-code cross-entropy summed over real frames' steps
+    mtp_count: torch.Tensor  # the (frame, step) pairs counted
+    frames: torch.Tensor  # real target frames
 
 
 def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -114,6 +126,35 @@ def tts_loss(
     lang_id: Optional[int] = None,
     mtp_weight: float = 1.0,
 ) -> LossMetrics:
+    return loss_from_terms([tts_loss_terms(cfg, params, text_ids, text_len, codes, num_frames,
+                                           lang_id)], mtp_weight)
+
+
+def loss_from_terms(terms, mtp_weight: float = 1.0) -> LossMetrics:
+    """The loss over every row of the batches whose :class:`LossTerms` are
+    given (a data-parallel step's groups, on the first one's device): each
+    mean is the summed masked sums over the summed counts, not a mean of
+    the groups' means, which would weigh a group's frames by its share."""
+    dev = terms[0].talker_sum.device
+    total = [sum(getattr(t, f).to(dev) for t in terms) for f in LossTerms._fields]
+    t = LossTerms(*total)
+    talker_loss = t.talker_sum / torch.clamp(t.talker_count, min=1.0)
+    mtp = t.mtp_sum / torch.clamp(t.mtp_count, min=1.0)
+    return LossMetrics(loss=talker_loss + mtp_weight * mtp, talker_loss=talker_loss,
+                       mtp_loss=mtp, frames=t.frames)
+
+
+def tts_loss_terms(
+    cfg: TTSModelConfig,
+    params: dict,
+    text_ids: torch.Tensor,  # [B, T] int (right-padded)
+    text_len: torch.Tensor,  # [B] int
+    codes: torch.Tensor,  # [B, F, 16] int ground-truth codec frames
+    num_frames: torch.Tensor,  # [B] int real frame counts (<= F)
+    lang_id: Optional[int] = None,
+) -> LossTerms:
+    """The masked sums and counts of the talker's and the code predictor's
+    cross-entropies (:func:`tts_loss`'s means before the division)."""
     B, F, _ = codes.shape
     S = cfg.code_predictor.num_steps  # 15 sub-codebooks
     H = cfg.talker.transformer.hidden_size
@@ -129,7 +170,6 @@ def tts_loss(
     targets0 = torch.where(is_eos_pos, CODEC_EOS, code0)
     target_mask = (frame_valid | is_eos_pos).float()
     ce0 = _cross_entropy(logits0, targets0) * target_mask
-    talker_loss = ce0.sum() / torch.clamp(target_mask.sum(), min=1.0)
 
     # the code predictor's loss, teacher forced and batched over frames: each
     # frame's sequence is [talker hidden, codec_embed(code0), sub_e[0..S-2]]
@@ -143,7 +183,6 @@ def tts_loss(
                               params["code_predictor"]["heads"].float())
     ce_sub = _cross_entropy(logits_sub, subs)  # [B, F, S]
     sub_mask = frame_valid[..., None].expand(ce_sub.shape).float()
-    mtp = (ce_sub * sub_mask).sum() / torch.clamp(sub_mask.sum(), min=1.0)
-
-    return LossMetrics(loss=talker_loss + mtp_weight * mtp, talker_loss=talker_loss,
-                       mtp_loss=mtp, frames=frame_valid.sum())
+    return LossTerms(talker_sum=ce0.sum(), talker_count=target_mask.sum(),
+                     mtp_sum=(ce_sub * sub_mask).sum(), mtp_count=sub_mask.sum(),
+                     frames=frame_valid.sum())

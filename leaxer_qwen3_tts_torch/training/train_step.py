@@ -1,9 +1,9 @@
 """Training step: AdamW with global-norm clipping over the TTS loss.
 
-Port of ``leaxer_qwen3_tts_tpu/training/train_step.py`` for one device.  The
-JAX step is a jitted optax update over a mesh; here the parameters are
-updated in place by a ``torch.optim`` optimizer (so JAX's buffer donation
-has no counterpart), with optax's arithmetic where the two differ:
+Port of ``leaxer_qwen3_tts_tpu/training/train_step.py``.  The JAX step is a
+jitted optax update over a mesh; here the parameters are updated in place by
+a ``torch.optim`` optimizer (so JAX's buffer donation has no counterpart),
+with optax's arithmetic where the two differ:
 
 * clipping by the global norm scales every gradient by max_norm / norm when
   norm >= max_norm, with no epsilon (``torch.nn.utils.clip_grad_norm_`` adds
@@ -13,8 +13,16 @@ has no counterpart), with optax's arithmetic where the two differ:
   lr * wd * p, where ``torch.optim`` would skip a leaf whose ``.grad`` is None;
 * Adam's moments are kept in the parameter dtype (optax's ``mu_dtype=None``).
 
-GSPMD placement over a mesh (JAX's ``shard_train_state`` and
-``batch_sharding``) is not ported.
+Over a mesh (:func:`shard_train_state`, :func:`batch_sharding`) the step is
+data-parallel: the batch's rows are split over the data groups as JAX's
+``P("data")`` splits them (``parallel.split_rows``; a batch that does not
+divide stays on group 0), each group computes its loss terms and their
+gradients on its lead device, and the terms are combined into the loss over
+the whole batch (masked sums over counts, ``loss.loss_from_terms``), whose
+gradients are summed onto the first lead's params; the clip and the AdamW
+update then run once there, and the params are copied to each other
+distinct lead.  The params stay whole on every group where JAX shards them
+over "model" by the TP rules: the same values in another placement.
 """
 
 from __future__ import annotations
@@ -24,8 +32,11 @@ from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import TTSModelConfig
+from ..parallel import Mesh, Sharding, split_rows
 from ..runtime.weights import _leaves
-from .loss import LossMetrics, tts_loss
+from .loss import LossMetrics, loss_from_terms, tts_loss, tts_loss_terms
+
+BATCH_KEYS = ("text_ids", "text_len", "codes", "num_frames")
 
 
 def named_leaves(params) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -104,11 +115,62 @@ class TrainState(NamedTuple):
     params: dict
     opt_state: torch.optim.Optimizer
     step: int
+    mesh: Optional[Mesh] = None  # a data-parallel placement (shard_train_state)
+    replicas: Optional[dict] = None  # lead device -> its params (the first lead's: params)
 
 
 def init_train_state(params: dict, tx: Optimizer) -> TrainState:
     """Step 0 over ``params``, which the state then owns (updated in place)."""
     return TrainState(params=params, opt_state=tx.init(params), step=0)
+
+
+def _moved(node, device):
+    """The parameter tree on ``device``: a leaf already there is kept, any
+    other is copied (detached: a new leaf)."""
+    if isinstance(node, dict):
+        return {k: _moved(v, device) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_moved(v, device) for v in node)
+    if isinstance(node, torch.Tensor) and node.device != torch.device(device):
+        return node.detach().to(device)
+    return node
+
+
+def shard_train_state(mesh: Mesh, state: TrainState, tx: Optimizer) -> TrainState:
+    """The state placed on ``mesh`` for the data-parallel step (JAX's
+    ``shard_train_state``): the params whole on the first data group's lead
+    and a copy on each other distinct lead (one card listed d x m times
+    holds one), the optimizer's moments re-initialised on the placed params,
+    as JAX re-initialises them (so only at step 0 or right after a restore,
+    which re-places the state anyway)."""
+    leads = mesh.data_leads()
+    params = _moved(state.params, leads[0])
+    replicas = {leads[0]: params}
+    for lead in leads[1:]:
+        if lead not in replicas:
+            replicas[lead] = _moved(params, lead)
+            for p in param_leaves(replicas[lead]):
+                p.requires_grad_(True)
+    return TrainState(params=params, opt_state=tx.init(params), step=state.step, mesh=mesh,
+                      replicas=replicas)
+
+
+def batch_sharding(mesh: Mesh) -> dict:
+    """Where each batch entry lives on ``mesh`` (JAX's ``batch_sharding``):
+    the batch axis over "data"; the data-parallel step splits the rows so."""
+    return {k: Sharding(mesh, ("data",)) for k in BATCH_KEYS}
+
+
+def sync_replicas(state: TrainState) -> None:
+    """Copy the first lead's params to every other distinct lead."""
+    if not state.replicas:
+        return
+    src = param_leaves(state.params)
+    with torch.no_grad():
+        for params in state.replicas.values():
+            if params is not state.params:
+                for a, b in zip(src, param_leaves(params)):
+                    b.copy_(a)
 
 
 def make_train_step(
@@ -122,16 +184,38 @@ def make_train_step(
     batch: dict(text_ids [B, T] int, text_len [B] int, codes [B, F, 16] int,
     num_frames [B] int), on the params' device."""
 
+    def loss(state: TrainState, batch: dict) -> LossMetrics:
+        if state.mesh is None:
+            return tts_loss(cfg, state.params, *(batch[k] for k in BATCH_KEYS),
+                            lang_id=lang_id, mtp_weight=mtp_weight)
+        # data-parallel: each group's terms on its lead, one loss over all rows
+        leads = state.mesh.data_leads()
+        terms = []
+        for g, rows in enumerate(split_rows(int(batch["text_ids"].shape[0]), len(leads))):
+            part = [batch[k][rows].to(leads[g]) for k in BATCH_KEYS]
+            terms.append(tts_loss_terms(cfg, state.replicas[leads[g]], *part, lang_id=lang_id))
+        return loss_from_terms(terms, mtp_weight)
+
     def step(state: TrainState, batch: dict) -> Tuple[TrainState, LossMetrics]:
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            m = tts_loss(cfg, state.params, batch["text_ids"], batch["text_len"],
-                         batch["codes"], batch["num_frames"], lang_id=lang_id,
-                         mtp_weight=mtp_weight)
+            m = loss(state, batch)
             m.loss.backward()
+        if state.replicas:
+            # the other leads' gradients summed onto the first lead's
+            leaves = param_leaves(state.params)
+            for params in state.replicas.values():
+                if params is state.params:
+                    continue
+                for a, b in zip(leaves, param_leaves(params)):
+                    if b.grad is not None:
+                        g = b.grad.to(a.device)
+                        a.grad = g if a.grad is None else a.grad + g
+                        b.grad = None
         tx.apply(opt)
-        return (TrainState(state.params, opt, state.step + 1),
+        sync_replicas(state)
+        return (state._replace(opt_state=opt, step=state.step + 1),
                 LossMetrics(*(x.detach() for x in m)))
 
     return step

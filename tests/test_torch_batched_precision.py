@@ -435,7 +435,7 @@ def test_m12b_refusals_name_their_item():
     JAX's one-slot pool steps on its B=1 kernel) (the engine's batch past
     32: test_torch_int4.py)."""
     eng = types.SimpleNamespace(is_ready=lambda: True, get_error=lambda: "",
-                                check_batched=lambda: None, device=torch.device("cuda"))
+                                mesh=None, device=torch.device("cuda"))
     with pytest.raises(AttributeError, match="cfg"):
         ContinuousBatcher(eng, pool_size=33)
     with pytest.raises(AttributeError, match="cfg"):

@@ -26,13 +26,14 @@ from leaxer_qwen3_tts_tpu.ops.quant import fuse_params as j_fuse
 from leaxer_qwen3_tts_tpu.ops.quant import quantize_params as j_quant
 from leaxer_qwen3_tts_tpu.runtime.weights import flatten_params
 from leaxer_qwen3_tts_torch import config as tcfg
-from leaxer_qwen3_tts_torch.api.engine import EngineError, TTSEngine
+from leaxer_qwen3_tts_torch.api.engine import TTSEngine
 from leaxer_qwen3_tts_torch.models import code_predictor as tcp
 from leaxer_qwen3_tts_torch.ops import fused_mtp as tfm
 from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as tstream
 from leaxer_qwen3_tts_torch.ops import fused_step as tfs
 from leaxer_qwen3_tts_torch.ops import persistent
 from leaxer_qwen3_tts_torch.ops import quant as tquant
+from leaxer_qwen3_tts_torch.parallel import make_mesh
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
 
 torch.set_num_threads(2)
@@ -380,8 +381,9 @@ def test_quantize_none_refusals_on_the_card(monkeypatch):
     K5), with both, and at the 1.7B widths (B17: the batched plans take 48
     KB slots), and with the streamed chain off (F4: the per-step chain, one
     K1 step per chain position, now runs on the card, so that engine too
-    stops only at the params); what stays refused names its cause: batches
-    under a mesh (M15); on the CPU spec_k runs the plain versions."""
+    stops only at the params), and on a mesh with a data axis (M15 done: its
+    batches take the plain step and the cached chain); on the CPU spec_k
+    runs the plain versions."""
     monkeypatch.delenv("QTTS_MTP_STREAM", raising=False)
     monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
     cfg = tcfg.QWEN3_TTS_06B
@@ -403,15 +405,12 @@ def test_quantize_none_refusals_on_the_card(monkeypatch):
     ready = TTSEngine(config=cfg, params={}, device="cuda")
     assert "K1v" not in ready.get_error() and "int8" not in ready.get_error()
     for preset in (tcfg.QWEN3_TTS_06B, tcfg.QWEN3_TTS_17B):
-        eng = TTSEngine.__new__(TTSEngine)
-        eng.cfg, eng.device, eng._bits = preset, torch.device("cuda"), 16
-        eng.check_batched()
         for t in (preset.talker.transformer, preset.code_predictor.transformer):
             plan = persistent.make_plan(t, 132, batch=32, unit_bytes=2)
             assert plan.n_slots >= persistent.MIN_SLOTS
-        eng.mesh = object()
-        with pytest.raises(EngineError, match="ROADMAP M15"):
-            eng.check_batched()
+        cards = [torch.device("cuda", 0)] * 4
+        meshed = TTSEngine(config=preset, params={}, mesh=make_mesh(2, 2, devices=cards))
+        assert "ROADMAP" not in meshed.get_error() and "talker" in meshed.get_error()
 
 
 def test_cpu_quantize_none_spec_runs(tiny_vocab_files):

@@ -9,8 +9,10 @@ the plain path on the mesh's first device) and on a model at the TP tile
 widths (the talker step is K9's plain version, the chain K10's, against
 JAX's Pallas kernels in interpret mode), through a KV-bucket growth of every
 rank's head shards; the plain path keeps the full unfused params on the
-first device (a standing difference from JAX, which shards them); and what
-is not ported under a mesh raises or leaves the engine not ready."""
+first device (a standing difference from JAX, which shards them); what JAX
+refuses under a mesh (quantize, frame_fused) leaves the engine not ready,
+and everything else a mesh takes runs (``test_torch_mesh_serving.py``
+holds the data axis, spec, kv_quant, pools and the server against JAX)."""
 
 import dataclasses
 
@@ -175,9 +177,11 @@ def test_tiny_engine_on_a_mesh_matches_jax(tiny_model, tiny_vocab_files):
 
 
 def test_mesh_refusals(tp_model, tiny_vocab_files):
-    """quantize with a mesh leaves the engine not ready as JAX's does; what
-    is not ported under a mesh (spec_k, frame_fused, a data axis, batched
-    decoding, the pool, the server) is refused."""
+    """quantize with a mesh leaves the engine not ready as JAX's does, and
+    frame_fused too (JAX's frame gate refuses a mesh), each naming its
+    reason; a device other than the mesh's first and an object that is no
+    mesh are refused.  Everything else a mesh takes is taken: spec_k, a data
+    axis, synthesize_batch, the pool and the server."""
     cfg, params = tp_model
     tc, tparams = _port(cfg, params)
     jm = jmake_mesh(1, 2, devices=jax.devices()[:2])
@@ -186,23 +190,39 @@ def test_mesh_refusals(tp_model, tiny_vocab_files):
         te = TTSEngine(config=tc, params=tparams, mesh=_mesh(), quantize=quantize)
         assert not te.is_ready() and not je.is_ready()
         assert "unsupported" in te.get_error() and "unsupported" in je.get_error()
-    for kw, word in ((dict(spec_k=4), "spec_k"), (dict(frame_fused=True), "frame_fused")):
-        te = TTSEngine(config=tc, params=tparams, mesh=_mesh(), **kw)
-        assert not te.is_ready() and word in te.get_error() and "M15" in te.get_error()
-    te = TTSEngine(config=tc, params=tparams, mesh=make_mesh(2, 2, devices=[CPU] * 4))
-    assert not te.is_ready() and "data axis" in te.get_error()
+    te = TTSEngine(config=tc, params=tparams, mesh=_mesh(), frame_fused=True)
+    assert not te.is_ready() and "frame_fused" in te.get_error()
+    assert "frame gate refuses a mesh" in te.get_error()
     te = TTSEngine(config=tc, params=tparams, mesh=_mesh(), device="cuda")
     assert not te.is_ready() and "first device" in te.get_error()
+    te = TTSEngine(config=tc, params=tparams, mesh=object(), device="cpu")
+    assert not te.is_ready() and "make_mesh" in te.get_error()
     vocab_path, merges_path, _ = tiny_vocab_files
-    eng = TTSEngine(config=tc, params=tparams, mesh=_mesh(),
-                    tokenizer=Tokenizer(vocab_path, merges_path), max_frames=4)
+    tok = Tokenizer(vocab_path, merges_path)
+    spec = TTSEngine(config=tc, params=tparams, mesh=_mesh(), spec_k=4, tokenizer=tok,
+                     max_frames=4)
+    assert spec.is_ready(), spec.get_error()
+    assert len(spec.synthesize("hello", temperature=0.0, max_tokens=2).codes) <= 2
+    data = TTSEngine(config=tc, params=tparams, mesh=make_mesh(2, 2, devices=[CPU] * 4),
+                     tokenizer=tok, max_frames=4)
+    assert data.is_ready(), data.get_error()
+    eng = TTSEngine(config=tc, params=tparams, mesh=_mesh(), tokenizer=tok, max_frames=4)
     assert eng.is_ready(), eng.get_error()
-    with pytest.raises(EngineError, match="under a mesh.*M15"):
-        eng.synthesize_batch(["hello", "hello world"], temperature=0.0)
-    with pytest.raises(EngineError, match="under a mesh"):
-        ContinuousBatcher(eng, pool_size=2)
-    with pytest.raises(EngineError, match="under a mesh"):
-        BatchingServer(eng)
+    width = tc.code_predictor.num_steps + 1  # the frame's codes
+    for e in (eng, data):
+        out = e.synthesize_batch(["hello", "hello world"], temperature=0.0, max_tokens=2)
+        assert len(out) == 2 and all(np.isfinite(r.audio).all() for r in out)
+        pool = ContinuousBatcher(e, pool_size=2, chunk_len=2, kv_bucket=e.kv_ladder[0])
+        try:
+            assert pool.synthesize("hello", temperature=0.0, max_tokens=2).codes.shape[1] == width
+        finally:
+            pool.shutdown()
+        server = BatchingServer(e, max_batch=2)
+        try:
+            assert server.synthesize("hello", temperature=0.0,
+                                     max_tokens=2).codes.shape[1] == width
+        finally:
+            server.shutdown()
     assert len(eng.synthesize_batch(["hello"], temperature=0.0, max_tokens=2)) == 1
 
 
@@ -216,18 +236,21 @@ ROUTES = {
 
 @pytest.mark.parametrize("preset,tp", list(ROUTES))
 def test_card_routing_by_preset(preset, tp):
-    """What the card needs of a mesh engine: K9 where the talker takes it
-    and K10 where the trunk does (shapes only, no weights); the plain decode
-    and the cached chain do not run on the card."""
+    """The route a mesh engine takes at each (preset, tp), shapes only: the
+    talker's B=1 step on K9 or the plain layers, the chain on K10 or the
+    cached one (1.7B at tp=2: K9 beside the cached chain, the trunk past
+    K10's budget), and under kv_quant the plain step beside the same chain;
+    the card takes every one (no problem)."""
     cfg = getattr(tcfg, preset)
-    problems = TTSEngine._mesh_problems(cfg, make_mesh(1, tp, devices=[CPU] * tp))
+    mesh = make_mesh(1, tp, devices=[CPU] * tp)
     k9, k10 = ROUTES[preset, tp]
-    assert any("K9" in p for p in problems) == (not k9)
-    assert any("K10" in p for p in problems) == (not k10)
+    assert TTSEngine.mesh_routes(cfg, tp) == (k9, k10)
+    assert TTSEngine._mesh_problems(cfg, mesh) == []
     kvq = dataclasses.replace(cfg, talker=dataclasses.replace(cfg.talker, transformer=(
         dataclasses.replace(cfg.talker.transformer, kv_cache_quant=True))))
-    assert any("int8 KV" in p for p in TTSEngine._mesh_problems(
-        kvq, make_mesh(1, tp, devices=[CPU] * tp)))
+    assert TTSEngine.mesh_routes(kvq, tp) == (False, k10)
+    assert TTSEngine._mesh_problems(kvq, mesh) == []
+    assert TTSEngine.mesh_routes(cfg, 1) == (False, False)
 
 
 def test_talker_step_routes_by_the_jax_predicate(tp_model):

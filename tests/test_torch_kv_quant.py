@@ -455,7 +455,7 @@ def test_pool_kv_quant_matches_engine(engines):
     _, t = engines
     pool = ContinuousBatcher(t, pool_size=2, chunk_len=2, kv_bucket=64, text_bucket_max=16)
     try:
-        assert pool._state.cache.quantized
+        assert pool._groups[0].state.cache.quantized
         for text in ("hello world", "hello"):
             r = pool.synthesize(text, temperature=0.0, max_tokens=6)
             np.testing.assert_array_equal(

@@ -30,7 +30,7 @@ from leaxer_qwen3_tts_tpu.ops.quant import fuse_params as j_fuse
 from leaxer_qwen3_tts_tpu.ops.quant import quantize_params as j_quant
 from leaxer_qwen3_tts_tpu.runtime.weights import flatten_params
 from leaxer_qwen3_tts_torch import config as tcfg
-from leaxer_qwen3_tts_torch.api.engine import EngineError, TTSEngine
+from leaxer_qwen3_tts_torch.api.engine import TTSEngine
 from leaxer_qwen3_tts_torch.models import code_predictor as tcp
 from leaxer_qwen3_tts_torch.ops import fused_mtp as tfm
 from leaxer_qwen3_tts_torch.ops import fused_mtp_stream as tstream
@@ -38,6 +38,7 @@ from leaxer_qwen3_tts_torch.ops import fused_step as tfs
 from leaxer_qwen3_tts_torch.ops import fused_verify as tfv
 from leaxer_qwen3_tts_torch.ops import persistent
 from leaxer_qwen3_tts_torch.ops import quant as tquant
+from leaxer_qwen3_tts_torch.parallel import make_mesh
 from leaxer_qwen3_tts_torch.runtime.weights import params_from_jax
 
 torch.set_num_threads(2)
@@ -325,7 +326,6 @@ def test_engine_packs_and_route_match_jax(jax_packs, preset, monkeypatch):
             assert chain is tstream.fused_mtp_chain_streamed
             assert tcp.chain_pack(packs, chain) is packs["fused_step"]
         routes[q, m] = (chain.__name__, tcp.chain_pack(packs, chain).wqkv.dtype)
-        eng.check_batched()  # no mesh: every unit type and preset runs batched
         k3_scratch = jres is None  # the B=1 chain is K3, on its float32 scratch
         for rows in (2, 16, 32):
             assert tcp.chain_kernel(cp, packs, rows) is tfm.fused_mtp_chain_batched
@@ -357,7 +357,8 @@ def test_mixed_precision_refusals(monkeypatch):
     """The mixed flags on the card: ``spec_k`` beside every MTP trunk and at
     both presets is ready (decided before any tensor moves: the engine stops
     only at the missing params), bf16 units at the 1.7B widths included
-    (B17 done); a mesh still refuses batches (ROADMAP M15)."""
+    (B17 done); a mesh engine with a data axis stops only at the params too
+    (M15 done)."""
     monkeypatch.delenv("QTTS_MTP_STREAM", raising=False)
     monkeypatch.delenv("QTTS_MTP_RESIDENT", raising=False)
     for cfg in (tcfg.QWEN3_TTS_06B, tcfg.QWEN3_TTS_17B):
@@ -366,7 +367,7 @@ def test_mixed_precision_refusals(monkeypatch):
                              device="cuda")
             assert "ROADMAP" not in spec.get_error(), (q, m, spec.get_error())
             assert "code_predictor" in spec.get_error()
-    eng = TTSEngine.__new__(TTSEngine)
-    eng.mesh, eng.device = object(), torch.device("cuda")
-    with pytest.raises(EngineError, match="ROADMAP M15"):
-        eng.check_batched()
+    cards = [torch.device("cuda", 0)] * 4
+    for cfg in (tcfg.QWEN3_TTS_06B, tcfg.QWEN3_TTS_17B):
+        meshed = TTSEngine(config=cfg, params={}, mesh=make_mesh(2, 2, devices=cards), spec_k=4)
+        assert "ROADMAP" not in meshed.get_error() and "talker" in meshed.get_error()

@@ -277,26 +277,26 @@ def test_wav_bytes_roundtrip(tmp_path):
 
 
 def test_unported_modes_raise(engine, tiny_model):
-    """A pool over a device mesh (its slots on the "data" axis) is a later
-    ROADMAP item: a mesh with a data axis leaves the engine not ready, and a
-    pool refuses an engine on a tensor-parallel mesh (each error names the
-    item), instead of running something else; an object that is no mesh
-    leaves the engine not ready; a spec_k the verify pass does not take
-    raises too."""
+    """What a pool still refuses: a spec_k the verify pass does not take, a
+    pool size that does not divide over a mesh's data axis (JAX's error), and
+    an engine that is not ready (an object that is no mesh); an engine on a
+    mesh with a data axis, or on a tensor-parallel one, gives a pool (its
+    slots over the data groups)."""
     with pytest.raises(ValueError, match="spec_k"):
         ContinuousBatcher(engine, pool_size=2, spec_k=9)
     cfg, params = _port(tiny_model)
     cpu = [torch.device("cpu")] * 4
+    for shape in ((2, 2), (1, 2)):
+        meshed = TTSEngine(config=cfg, params=params, mesh=make_mesh(*shape, devices=cpu))
+        assert meshed.is_ready(), meshed.get_error()
+        ContinuousBatcher(meshed, pool_size=2).shutdown()
     data = TTSEngine(config=cfg, params=params, mesh=make_mesh(2, 2, devices=cpu))
-    assert not data.is_ready() and "M15" in data.get_error()
-    with pytest.raises(EngineError, match="engine not ready: .*M15"):
-        ContinuousBatcher(data, pool_size=2)
-    meshed = TTSEngine(config=cfg, params=params, mesh=make_mesh(1, 2, devices=cpu))
-    assert meshed.is_ready(), meshed.get_error()
-    with pytest.raises(EngineError, match="under a mesh.*M15"):
-        ContinuousBatcher(meshed, pool_size=2)
+    with pytest.raises(EngineError, match="data axis"):
+        ContinuousBatcher(data, pool_size=3)
     bogus = TTSEngine(config=cfg, params=params, mesh=object(), device="cpu")
     assert not bogus.is_ready() and "make_mesh" in bogus.get_error()
+    with pytest.raises(EngineError, match="engine not ready: .*make_mesh"):
+        ContinuousBatcher(bogus, pool_size=2)
 
 
 @pytest.fixture(scope="module")
