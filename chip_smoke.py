@@ -88,6 +88,12 @@ prints the final line:
    alone and among co-tenants; two requests through ``make_http_server``; a
    second pool runs every chunk with host syncs raising.  One K4 and one K5
    per pooled frame; K1 and K2 only for the streamed request's bootstrap.
+   Then a soak (``pool_soak``): the CPU soak's randomized schedule
+   (tests/test_torch_pool_soak.py, SOAK_REQUESTS requests: overlong texts
+   rejected, streams, greedy and sampled, 1-6 frames, three seeds) through
+   8 slots, every repeat of a request's key decoding its codes again
+   whatever shares the pool, streamed chunks equal to the retired audio, the
+   queue drained and every admitted request counted.
 9. Speculative decoding (spec_k=4, 4 iterations per dispatch; K5 is
    also checked and timed at the 4 rows of a B=1 iteration): greedy
    ``synthesize`` with the repeat draft, through the adaptive fallback, and
@@ -343,7 +349,26 @@ prints the final line:
    phase 11
    the 1.7B engine with ``QTTS_MTP_STREAM=0`` (the per-step chain).  Every
    phase before this one runs with ``QTTS_ASSERT_FUSED=1``.
-19. The kernel report (each kernel's launches on the main paths, error
+19. ``tools_phase``: the report tools (``leaxer_qwen3_tts_torch/tools``).
+   ``parity_check.gate_fixture`` holds 0.6B engines at int8 units and at
+   bf16 units, built on the JAX tools' random fill (``quality_report.
+   _random_engine_inputs``, bit for bit the JAX package's), against the
+   fixtures the JAX tools wrote from the same weights on the CPU
+   (tests/fixtures/parity_0p6b_int8.npz and _bf16.npz, 8 frames of "hello
+   world"): token ids equal; prompt embeds, prefill logits and, over the
+   frames before the codes first part, decode logits and waveform within
+   the JAX tool's absolute bounds and ``parity_check.REL_BOUNDS`` (L-inf
+   over the reference's largest value), the logits' correlation at least
+   0.999; the codes' agreement and first part printed as data, a first part
+   at code0 explained by a near tie; one K1 and one K2 (int8) or K3 (bf16
+   units) per decoded frame.  Then ``quality_report`` (int8 against bf16
+   units) and ``spec_report`` (k=4, one text, bf16 units) through their
+   ``main`` at REPORT_FRAMES frames: exit 0 with their JSON line, greedy spec
+   equal to sequential.  Beside the build (no kernel) run the engines of
+   phases 6-9 and of this phase, phase 18's shared-head engine through save
+   and load, and phase 10's checkpoint save and load (``main_engines``,
+   ``parity_engines``, ``shared_head_engine``, ``entry_checkpoint``).
+20. The kernel report (each kernel's launches on the main paths, error
    against its plain version, time, plain time, least-time bound and, for
    K8, the library call's time; K1, K3, K4 and K5 once more for bf16 units;
    K1, K4, K6 and K7 once more for the int8 KV cache; K9 per step, K10 per
@@ -352,7 +377,9 @@ prints the final line:
    mix, on a bf16 and an int8 cache; K8 at the draft teacher's shape; K1
    and K4 at the MTP trunk in the per-step chain; K8 at the head_dims and
    groups the presets do not use) and the device line; it fails if any
-   kernel in it never launched.
+   kernel in it never launched.  The last log line gives the build's
+   seconds, the seconds after it and what they would be on the slowest host
+   seen (a 588.8 s build, every phase 1.235x longer).
 """
 
 from __future__ import annotations
@@ -363,6 +390,7 @@ import io
 import json
 import os
 import queue
+import random
 import re
 import signal
 import subprocess
@@ -427,7 +455,7 @@ from leaxer_qwen3_tts_torch.runtime.weights import (
 from leaxer_qwen3_tts_torch.parallel import make_mesh, split_rows
 from leaxer_qwen3_tts_torch.serve import BatchingServer, ContinuousBatcher, make_http_server
 from leaxer_qwen3_tts_torch.tools import a8_probe as P1
-from leaxer_qwen3_tts_torch.tools import unit_probe
+from leaxer_qwen3_tts_torch.tools import parity_check, quality_report, spec_report, unit_probe
 from leaxer_qwen3_tts_torch.tools import w8a8_probe as P2
 from leaxer_qwen3_tts_torch.tools.train_draft import main as train_draft_main
 from leaxer_qwen3_tts_torch.training import (
@@ -1991,6 +2019,98 @@ def pool_phase(eng, card_line):
     return [sum(c) for c in zip(*counts)]
 
 
+SOAK_REQUESTS = 40  # the CPU soak's schedule (tests/test_torch_pool_soak.py), cut from 200
+SOAK_TEXTS = ["hello", "hello world", "abc", "one two three"]
+SOAK_LANGS = ["auto", "en", "zh", "ja"]
+SOAK_SEEDS = [1, 2, 3]  # few, so that keys repeat
+
+
+def soak_consume(item, first):
+    """One soak request's result: a rejection's error, or finite audio of at
+    most max_tokens frames (a stream's chunks equal to the retired audio
+    within 2e-4) whose codes equal every earlier request's of its key."""
+    key, kind, handle = item
+    if kind == "reject":
+        try:
+            handle.result(timeout=600)
+        except EngineError as e:  # the admission's refusal
+            if "too long" not in str(e):
+                raise
+            return
+        raise RuntimeError("soak: an overlong text was admitted")
+    if kind == "stream":
+        items = list(handle)
+        result = items[-1]
+        streamed = np.concatenate(items[:-1]) if len(items) > 1 else np.zeros(0, np.float32)
+        if (streamed.shape != result.audio.shape
+                or not np.allclose(streamed, result.audio, rtol=0, atol=2e-4)):
+            raise RuntimeError(f"soak: streamed chunks differ from the retired audio for {key}")
+    else:
+        result = handle.result(timeout=600)
+    if result.codes.shape[0] > key[3] or not np.isfinite(result.audio).all():
+        raise RuntimeError(f"soak: bad result for {key}")
+    if key in first and not np.array_equal(result.codes, first[key]):
+        raise RuntimeError(f"soak: occupancy-dependent output for {key}")
+    first.setdefault(key, np.asarray(result.codes))
+
+
+def pool_soak(eng, card_line):
+    """The CPU soak's schedule (the JAX package's tests/test_pool_soak.py) on
+    an 8-slot pool of ``eng``: SOAK_REQUESTS requests from
+    ``random.Random(0xC0FFEE)``, ~6% overlong texts rejected at admission,
+    ~20% streamed, greedy or temperature 0.8, max_tokens 1-6, three seeds,
+    drained as they go at a varying depth.  Every repeat of a key (text,
+    language, temperature, max_tokens, seed) decodes its codes again
+    whatever shares the pool, the queue drains, ``stats`` counts the
+    admitted requests; one K4 and one K5 per pooled frame, one K1 and one K2
+    per streamed request's bootstrap, no launch-per-op entry."""
+    rng = random.Random(0xC0FFEE)
+    first, pending = {}, []
+    rejected = streamed = 0
+    t0 = time.perf_counter()
+    reset_launches()
+    pool = ContinuousBatcher(eng, pool_size=8, chunk_len=2, kv_bucket=eng.kv_ladder[0],
+                             text_bucket_max=16)
+    try:
+        for _ in range(SOAK_REQUESTS):
+            if rng.random() < 0.06:
+                pending.append((None, "reject", pool.submit("hello " * 40, temperature=0.0)))
+                rejected += 1
+            else:
+                text, lang = rng.choice(SOAK_TEXTS), rng.choice(SOAK_LANGS)
+                temp = 0.0 if rng.random() < 0.5 else 0.8
+                mt, seed = rng.randint(1, 6), rng.choice(SOAK_SEEDS)
+                key = (text, lang, temp, mt, seed)
+                kw = dict(language=lang, temperature=temp, max_tokens=mt, seed=seed)
+                if rng.random() < 0.2:
+                    pending.append((key, "stream", pool.submit_stream(text, **kw)))
+                    streamed += 1
+                else:
+                    pending.append((key, "future", pool.submit(text, **kw)))
+            while len(pending) > rng.randint(4, 12):
+                soak_consume(pending.pop(0), first)
+        while pending:
+            soak_consume(pending.pop(0), first)
+        deadline = time.time() + 60
+        while pool.stats["active"] or pool.stats["queued"]:
+            if time.time() > deadline:
+                raise RuntimeError(f"soak: the pool did not drain: {pool.stats}")
+            time.sleep(0.02)
+        st = pool.stats
+    finally:
+        pool.shutdown()
+    if st["requests"] != SOAK_REQUESTS - rejected or not rejected or len(first) < 10:
+        raise RuntimeError(f"soak: {st['requests']} requests done of {SOAK_REQUESTS} with "
+                           f"{rejected} rejected, {len(first)} keys")
+    counts = check_launches(f"soak ({streamed} streamed bootstraps, {st['chunks']} chunks of 2)",
+                            counts_of(K1=streamed, K2=streamed, K4=2 * st["chunks"],
+                                      K5=2 * st["chunks"]))
+    log(f"pool soak: {SOAK_REQUESTS} requests ({rejected} rejected, {streamed} streamed, "
+        f"{len(first)} keys, each repeat equal to its first) through 8 slots in "
+        f"{time.perf_counter() - t0:.1f} s, drained [{card_line}]")
+    return counts
+
+
 SPEC_K, SPEC_ITERS = 4, 4  # the engine's spec phase (B=1 and synthesize_batch at B=4)
 POOL_SPEC_K, POOL_SPEC_ITERS = 3, 2  # the spec pool: 8 slots x 3 candidates = 24 verify rows
 SPEC_TEXT = "hello world, this is a speculative request"
@@ -2660,28 +2780,49 @@ def profile_phase(eng, tmp, card_line):
     return counts
 
 
-def entry_phase(tok, card_line):
-    """Phase 10: the entry points from a checkpoint directory at the 0.6B
-    preset's full width.  Returns (launch counts, numbers)."""
+def entry_checkpoint(card_line):
+    """Phase 10's checkpoint, beside the build (no kernel): the 0.6B preset's
+    random weights from the seed with a speaker encoder, saved from the card
+    into a temporary directory with the byte-level tokenizer, then loaded
+    back and held equal bit for bit.  Returns (the directory object, the
+    checkpoint's path, the params, the save and load figures)."""
     cfg = QWEN3_TTS_06B
     params = init_params(cfg, seed=SEED, device=DEV)
-    numbers = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        d = os.path.join(tmp, "qwen3-tts-0.6b")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        save_checkpoint(d, cfg, params)
-        save_s = time.perf_counter() - t0
-        gb = os.path.getsize(os.path.join(d, "params.npz")) / 1e9
-        byte_level_tokenizer(d)
+    tmp = tempfile.TemporaryDirectory()
+    d = os.path.join(tmp.name, "qwen3-tts-0.6b")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(d, cfg, params)
+    save_s = time.perf_counter() - t0
+    gb = os.path.getsize(os.path.join(d, "params.npz")) / 1e9
+    byte_level_tokenizer(d)
+    t0 = time.perf_counter()
+    lcfg, lparams = load_checkpoint(d)
+    load_s = time.perf_counter() - t0
+    if lcfg != cfg or not same_checkpoint(lparams, params):
+        raise RuntimeError("checkpoint: what was loaded differs from what was saved")
+    del lparams
+    log(f"checkpoint (beside the build): 0.6B preset, {param_count(params):,} random bf16 weights "
+        f"(seed {SEED}) with a speaker encoder, {gb:.3f} GB of npz; save {save_s:.2f} s "
+        f"({gb / save_s:.2f} GB/s, from the card), load {load_s:.2f} s "
+        f"({gb / load_s:.2f} GB/s, to the host); equal bit for bit [{card_line}]")
+    return tmp, d, params, dict(save_s=save_s, load_s=load_s, gb=gb)
+
+
+def entry_phase(tok, card_line, checkpoint):
+    """Phase 10: the entry points from ``checkpoint`` (:func:`entry_checkpoint`)
+    at the 0.6B preset's full width.  Returns (launch counts, numbers)."""
+    cfg = QWEN3_TTS_06B
+    tmp_dir, d, params, numbers = checkpoint
+    with tmp_dir as tmp:
         # the server at int8, bf16 (also with --kv-quant) and int4 units,
-        # booting at once beside the load, the CLI runs and the speaker
-        # embedding below (their times then share the host and the card with
-        # the boots)
+        # booting at once beside the CLI runs and the speaker embedding
+        # below (their times then share the host and the card with the
+        # boots)
         servers = start_servers(d, (("int8", ()), (None, ()), (None, ("--kv-quant",)),
                                     ("int4", ())))
         try:
-            counts = _entry_checks(cfg, params, d, tmp, tok, numbers, save_s, gb, card_line)
+            counts = _entry_checks(cfg, params, d, tmp, tok, numbers, card_line)
         except BaseException:
             finish_servers(servers, None, kill=True)
             raise
@@ -2695,22 +2836,10 @@ def entry_phase(tok, card_line):
     return counts, numbers
 
 
-def _entry_checks(cfg, params, d, tmp, tok, numbers, save_s, gb, card_line):
-    """entry_phase's checks on the saved checkpoint ``d`` (the load, the
-    engine from the directory, the CLI, the speaker embedding); the engine
-    goes into ``numbers["eng"]``.  Returns the CLI's launch counts."""
-    t0 = time.perf_counter()
-    lcfg, lparams = load_checkpoint(d)
-    load_s = time.perf_counter() - t0
-    if lcfg != cfg or not same_checkpoint(lparams, params):
-        raise RuntimeError("checkpoint: what was loaded differs from what was saved")
-    del lparams
-    numbers.update(save_s=save_s, load_s=load_s, gb=gb)
-    log(f"checkpoint: 0.6B preset, {param_count(params):,} random bf16 weights (seed "
-        f"{SEED}) with a speaker encoder, {gb:.3f} GB of npz; save {save_s:.2f} s "
-        f"({gb / save_s:.2f} GB/s, from the card), load {load_s:.2f} s "
-        f"({gb / load_s:.2f} GB/s, to the host); equal bit for bit [{card_line}]")
-
+def _entry_checks(cfg, params, d, tmp, tok, numbers, card_line):
+    """entry_phase's checks on the saved checkpoint ``d`` (the engine from
+    the directory, the CLI, the speaker embedding); the engine goes into
+    ``numbers["eng"]``.  Returns the CLI's launch counts."""
     t0 = time.perf_counter()
     eng = TTSEngine(d, quantize="int8")
     if not eng.is_ready():
@@ -6729,15 +6858,135 @@ def mesh_plain_runs(cfg, params, tok, card_line):
     log(f"mesh plain routes (beside the build): {time.perf_counter() - t0:.1f} s [{card_line}]")
 
 
+PARITY_PRESET = "qwen3-tts-12hz-0.6b-base"
+PARITY_FIXTURES = {"int8": "int8", "bf16": None}  # tests/fixtures/parity_0p6b_<name>.npz: quantize
+REPORT_FRAMES = 16  # the reports' --max-frames
+SPEC_REPORT_TEXT = "hello world"
+
+
+def report_run(label, main, argv, card_line):
+    """``main(argv)`` of a report tool: exit 0 and its one JSON line, which
+    is returned and logged with the launches it made (no launch-per-op
+    entry)."""
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise RuntimeError(f"{label}: exit {rc}, output {out.getvalue()!r}")
+    report = json.loads(lines[-1])
+    got = launches()
+    multi = {k: n for k, n in ENTRY_CALLS.items() if k in MULTI_ENTRIES}
+    if multi:
+        raise RuntimeError(f"{label}: the path ran launch-per-op entries {multi}")
+    log(f"{label}: {lines[-1]} [{card_line}]")
+    log(f"  launches of {label}: " + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, got) if n))
+    return report, got
+
+
+def tools_phase(gate_engines, card_line):
+    """Phase 19: the report tools on the card at the 0.6B widths.
+    ``parity_check.gate_fixture`` holds the int8 and bf16 engines (built
+    beside the build on the JAX tools' fill) against the fixtures the JAX
+    tools wrote from the same weights (tests/fixtures/parity_0p6b_*.npz,
+    8 frames): each stage's error beside its bound, the codes' agreement and
+    first part; one K1 and one K2 (int8) or K3 (bf16 units) per decoded
+    frame.  Then ``quality_report`` (int8 against bf16 units) and
+    ``spec_report`` (k=4, bf16 units, one text) through their ``main`` on
+    the tools' own fill, REPORT_FRAMES frames: exit 0, the JSON line, greedy
+    spec equal to sequential.  Returns the gates' launch counts by fixture
+    name (the K1, K2 and K3 rows of the report)."""
+    t0 = time.perf_counter()
+    counts = {}
+    for name in list(gate_engines):
+        eng = gate_engines.pop(name)
+        chain = b1_chain(eng)
+        fx = os.path.join(REPO_DIR, "tests", "fixtures", f"parity_0p6b_{name}.npz")
+        reset_launches()
+        r = parity_check.gate_fixture(
+            eng, fx, log=lambda line, n=name: log(f"  parity gate {n}: {line} [{card_line}]"))
+        if not r["ok"]:
+            raise RuntimeError(f"parity gate {name}: failed {r['failures']}")
+        n = r["frames_run"]
+        counts[name] = check_launches(f"parity gate {name} (one K1 and one {chain} per decoded "
+                                      "frame)", counts_of(K1=n, **{chain: n}))
+        del eng
+    torch.cuda.empty_cache()
+    base = ["--random-preset", PARITY_PRESET, "--max-frames", str(REPORT_FRAMES)]
+    _, got = report_run("quality_report (int8 against bf16 units)", quality_report.main, base,
+                        card_line)
+    if not all(got[KERNEL_IDS.index(k)] for k in ("K1", "K2", "K3")):
+        raise RuntimeError("quality_report: the int8 (K1, K2) or bf16 (K1, K3) route never ran")
+    with tempfile.TemporaryDirectory() as d:
+        texts = os.path.join(d, "texts.txt")
+        with open(texts, "w") as f:
+            f.write(SPEC_REPORT_TEXT + "\n")
+        spec, got = report_run("spec_report (k=4, bf16 units)", spec_report.main,
+                               base + ["--k", "4", "--texts", texts], card_line)
+    if spec["greedy_parity_vs_sequential"] is not True:
+        raise RuntimeError("spec_report: greedy spec decode differs from sequential")
+    if not got[KERNEL_IDS.index("K6")] or not got[KERNEL_IDS.index("K5")]:
+        raise RuntimeError("spec_report: the verify pass (K6) or its chains (K5) never ran")
+    torch.cuda.empty_cache()
+    log(f"tools phase: {time.perf_counter() - t0:.1f} s [{card_line}]")
+    return counts
+
+
+def main_engines(cfg, params, tok):
+    """The 0.6B engines of phases 6-9 and the resident-off runs, on the
+    seed's weights: int8 sequential, spec_k (the fallback off unless a check
+    turns it on), spec_k with a trained-draft head of random weights (drawn
+    from a generator of its own), frame_fused, and the resident chain off
+    (--mtp-resident off: the per-step chain) sequential and with spec_k.
+    Packing needs no kernel, so they are built beside the build."""
+    gen_draft = torch.Generator(device=DEV)
+    gen_draft.manual_seed(SEED + 7)
+    eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
+    spec_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
+                         spec_k=SPEC_K, spec_iters=SPEC_ITERS, spec_accept_floor=0.0)
+    draft_eng = TTSEngine(config=dataclasses.replace(cfg, draft=DraftConfig()),
+                          params=dict(params, draft=init_draft_params(DraftConfig(), gen_draft,
+                                                                      DEV)),
+                          tokenizer=tok, quantize="int8", spec_k=SPEC_K, spec_iters=SPEC_ITERS,
+                          spec_accept_floor=0.0)
+    ff_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
+                       frame_fused=True)
+    off_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
+                        mtp_resident=False)
+    off_spec = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
+                         mtp_resident=False, spec_k=SPEC_K, spec_accept_floor=0.0)
+    return eng, spec_eng, draft_eng, ff_eng, off_eng, off_spec
+
+
+def parity_engines():
+    """The parity gate's engines (phase 19): the JAX tools' random fill of
+    the 0.6B preset (``tools/quality_report._random_engine_inputs``, bit for
+    bit the fixtures' weights) on the card and its byte-level tokenizer, at
+    int8 units (the main path) and at bf16 units (the CLI's and the server's
+    default), keyed by fixture name."""
+    cfg, params = quality_report._random_engine_inputs(PARITY_PRESET, DEV)
+    tok = quality_report._tiny_tokenizer()
+    out = {}
+    for name, quantize in PARITY_FIXTURES.items():
+        out[name] = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize=quantize)
+        if not out[name].is_ready():
+            raise RuntimeError(f"parity engine {name}: {out[name].get_error()}")
+    return out
+
+
 def beside_build(tok, card_line, cfg=QWEN3_TTS_06B):
     """What needs no hand-written kernel, while the kernels build on a
     thread: the profiler's first start (its one-time set-up, ~10 s), the
     plain talker (``decode_impl="xla"``) with the cached and with the dense
     chain (B=1, B=4, a pool of 2, spec_k=4; nothing launched), and the
     meshes' plain routes (:func:`mesh_plain_runs`) and the data-parallel
-    train step (:func:`mesh_train_step`).  The compilers hold the host's
-    cores, so the plain engines' host-bound ms/frame are marked as taken
-    beside the build."""
+    train step (:func:`mesh_train_step`); then what later phases take, which
+    it returns: their engines (:func:`main_engines`, :func:`parity_engines`,
+    :func:`shared_head_engine`) and phase 10's checkpoint
+    (:func:`entry_checkpoint`).  The compilers hold the host's cores, so the
+    plain engines' host-bound ms/frame and the checkpoint's save and load
+    seconds are marked as taken beside the build."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -6758,14 +7007,39 @@ def beside_build(tok, card_line, cfg=QWEN3_TTS_06B):
     gen19.manual_seed(SEED + 19)
     mesh_train_step(cfg, params, train_batch(TRAIN_B, TRAIN_TEXT, TRAIN_FRAMES, gen19),
                     card_line)
-    del params
-    torch.cuda.empty_cache()
     log(f"beside the build (profiler start, plain talker engines, mesh plain routes, "
         f"data-parallel train step): "
         f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+    t0 = time.perf_counter()
+    engines = main_engines(cfg, params, tok)
+    del params
+    gate_engines = parity_engines()
+    shared_eng = shared_head_engine(tok, cfg)
+    torch.cuda.synchronize()
+    log(f"engines beside the build: 0.6B preset, random weights (seed {SEED}), int8, sequential, "
+        f"spec_k={SPEC_K}, spec_k={SPEC_K} with a draft head, frame_fused, resident chain off "
+        f"(sequential and spec_k={SPEC_K}); the parity gate's int8 and bf16 engines on the JAX "
+        f"tools' fill; the shared-head engine through save and load: built in "
+        f"{time.perf_counter() - t0:.1f} s; KV ladder {engines[0].kv_ladder} [{card_line}]")
+    return engines, gate_engines, shared_eng, entry_checkpoint(card_line)
 
 
-def routes_phase(tok, gen, card_line, cfg=QWEN3_TTS_06B):
+def shared_head_engine(tok, cfg=QWEN3_TTS_06B):
+    """Phase 18's shared-head engine, beside the build (no kernel): a
+    ``head_mode="shared"`` 0.6B checkpoint of the seed's weights saved and
+    loaded back (int8)."""
+    shared = dataclasses.replace(cfg, code_predictor=dataclasses.replace(
+        cfg.code_predictor, head_mode="shared"))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, shared, init_params(shared, seed=SEED, device=DEV,
+                                                 with_speaker_encoder=False))
+        eng = TTSEngine(tmp, tokenizer=tok, quantize="int8")
+    if eng.cfg.code_predictor.head_mode != "shared" or "head" not in eng.params["code_predictor"]:
+        raise RuntimeError("the shared-head checkpoint did not load its head")
+    return eng
+
+
+def routes_phase(tok, gen, card_line, shared_eng, cfg=QWEN3_TTS_06B):
     """Phase 18: the JAX package's routes outside its step and chain kernels
     at the 0.6B widths (the plain talker engines ran beside the build:
     ``beside_build``): K1 / K4 at the MTP trunk in the per-step chain, a
@@ -6778,14 +7052,7 @@ def routes_phase(tok, gen, card_line, cfg=QWEN3_TTS_06B):
     t0 = time.perf_counter()
     n = cfg.code_predictor.num_steps
     trunk_err, _ = trunk_step_checks(cfg, gen, card_line)
-    shared = dataclasses.replace(cfg, code_predictor=dataclasses.replace(
-        cfg.code_predictor, head_mode="shared"))
-    with tempfile.TemporaryDirectory() as tmp:
-        save_checkpoint(tmp, shared, init_params(shared, seed=SEED, device=DEV,
-                                                 with_speaker_encoder=False))
-        eng = TTSEngine(tmp, tokenizer=tok, quantize="int8")
-    if eng.cfg.code_predictor.head_mode != "shared" or "head" not in eng.params["code_predictor"]:
-        raise RuntimeError("the shared-head checkpoint did not load its head")
+    eng = shared_eng
     reset_launches()
     r = eng.synthesize(FIXED_TEXT, temperature=0.0, max_tokens=PLAIN_FRAMES)
     if not np.isfinite(r.audio).all() or not r.metrics.decoded_frames:
@@ -6857,10 +7124,11 @@ def main() -> int:
 
     builder = threading.Thread(target=build_run, daemon=True)
     builder.start()
-    beside_build(tok, card_line)
+    engines, gate_engines, shared_eng, checkpoint = beside_build(tok, card_line)
     builder.join()
     if "error" in built:
         raise built["error"]
+    after_build = time.perf_counter()
     path = _build.library_path()
     log(f"build: {built['s']:.1f} s -> {os.path.basename(path)} [{CARD}]")
     objs = sorted(_build.object_times(path + ".log"), key=lambda o: -o[2])
@@ -7037,29 +7305,7 @@ def main() -> int:
     check_p2_ring(gen6)
     probed, p1, p2 = probe_phase()
 
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED, device=DEV, with_speaker_encoder=False)
-    eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8")
-    # the same weights with speculative decoding (the fallback off unless a
-    # check turns it on), and with a trained-draft head of random weights
-    spec_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
-                         spec_k=SPEC_K, spec_iters=SPEC_ITERS, spec_accept_floor=0.0)
-    draft_eng = TTSEngine(config=dataclasses.replace(cfg, draft=DraftConfig()),
-                          params=dict(params, draft=init_draft_params(DraftConfig(), gen, DEV)),
-                          tokenizer=tok, quantize="int8", spec_k=SPEC_K, spec_iters=SPEC_ITERS,
-                          spec_accept_floor=0.0)
-    ff_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
-                       frame_fused=True)
-    # the resident chain off (--mtp-resident off): the per-step chain
-    off_eng = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
-                        mtp_resident=False)
-    off_spec = TTSEngine(config=cfg, params=params, tokenizer=tok, quantize="int8",
-                         mtp_resident=False, spec_k=SPEC_K, spec_accept_floor=0.0)
-    del params
-    torch.cuda.synchronize()
-    log(f"engines: 0.6B preset, random weights (seed {SEED}), int8, sequential, spec_k={SPEC_K}, "
-        f"spec_k={SPEC_K} with a draft head and frame_fused, built in {time.perf_counter() - t0:.1f} s; KV "
-        f"ladder {eng.kv_ladder} [{CARD}]")
+    eng, spec_eng, draft_eng, ff_eng, off_eng, off_spec = engines
 
     reset_launches()
     requests = B1_REQUESTS
@@ -7088,6 +7334,7 @@ def main() -> int:
     batched, batched_ms = batched_phase(eng, card_line)
     batched_figures(batched_ms)
     pooled = pool_phase(eng, card_line)
+    soaked = pool_soak(eng, card_line)
     spec, _ = spec_phase(eng, spec_eng, draft_eng, seq_ms, card_line)
     # past 32 rows: a batch of 40 (two launches of 20 rows a kernel), a pool
     # of 40 slots and a spec pool of 12 x 4 rows
@@ -7097,7 +7344,8 @@ def main() -> int:
     off_counts, _ = resident_off_runs(off_eng, off_spec, card_line)
     del off_eng, off_spec
     torch.cuda.empty_cache()
-    entry, numbers = entry_phase(tok, card_line)
+    gated = tools_phase(gate_engines, card_line)
+    entry, numbers = entry_phase(tok, card_line, checkpoint)
     voice, k1_17b, k3, k8, voice_bounds, off17 = voice_phase(tok, gen, card_line)
     k1 += k1_17b
     bounds.update(voice_bounds)
@@ -7108,7 +7356,7 @@ def main() -> int:
         tok, gen16, card_line)
     bounds.update({f"{k} bf16": v for k, v in bf16_bounds.items()})
     bounds.update(b17_bounds)
-    bf16 = [sum(c) for c in zip(bf16, numbers["bf16_counts"])]
+    bf16 = [sum(c) for c in zip(bf16, numbers["bf16_counts"], gated["bf16"])]
     # the int8 KV cache's phase draws from a generator of its own, as K4's
     gen8 = torch.Generator(device=DEV)
     gen8.manual_seed(SEED + 8)
@@ -7145,7 +7393,8 @@ def main() -> int:
     gen20 = torch.Generator(device=DEV)
     gen20.manual_seed(SEED + 20)
     del os.environ["QTTS_ASSERT_FUSED"]
-    shared_counts, k8_reach, reach_counts, trunk_err = routes_phase(tok, gen20, card_line)
+    shared_counts, k8_reach, reach_counts, trunk_err = routes_phase(tok, gen20, card_line,
+                                                                    shared_eng)
     bounds["K8 reach"] = k8_reach[0][4]
     per_step = [sum(c) for c in zip(off_counts, off17, shared_counts)]
     # its engines run bf16 units: K1, K3 and K5 join the bf16 rows, K6 the K6
@@ -7155,8 +7404,8 @@ def main() -> int:
     precision["K6 bf16"] += train[KERNEL_IDS.index("K6")]
     k7i = KERNEL_IDS.index("K7")
     mixed = {k: c[k7i] + cli_k7.get(k, 0) for k, c in mix_counts.items()}
-    total = [sum(c) for c in zip(b1, framed, batched, pooled, spec, past32, entry, voice, probed,
-                                 tp_counts, b17["1.7B int8"])]
+    total = [sum(c) for c in zip(b1, framed, batched, pooled, soaked, gated["int8"], spec, past32,
+                                 entry, voice, probed, tp_counts, b17["1.7B int8"])]
     log("launches on the main paths in all, int8 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, total)) + "; bf16 units: "
         + ", ".join(f"{k} {n}" for k, n in zip(KERNEL_IDS, bf16)) + "; int8 KV cache: "
@@ -7311,8 +7560,10 @@ def main() -> int:
     unlaunched = [k["name"] for k in report["kernels"] if not k["launches"]]
     if unlaunched:
         raise RuntimeError(f"kernels never launched on their main paths: {unlaunched}")
-    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the build included "
-        f"[{card_line}]")
+    after = time.perf_counter() - after_build
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all: the build {built['s']:.1f} s, "
+        f"after it {after:.1f} s; on the slowest host seen (a 588.8 s build, every phase 1.235x "
+        f"longer) that would be {588.8 + 1.235 * after:.1f} s [{card_line}]")
     print(json.dumps(report))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -231,15 +231,16 @@ def test_engine_without_device_needs_cuda(tiny_model):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the serving layer and the entry points (the
-    CLI, the server's main) included, imports with neither JAX nor the JAX
-    package."""
+    """Every module of the port, the serving layer, the entry points (the
+    CLI, the server's main) and the report tools included, imports with
+    neither JAX nor the JAX package (nor the root tools, which import it)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import leaxer_qwen3_tts_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'leaxer_qwen3_tts_tpu'))]\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'tools')\n"
+        "       or k.startswith(('jax.', 'leaxer_qwen3_tts_tpu', 'tools.'))]\n"
         "assert not bad, bad\n"
         "print(' '.join(k for k in sys.modules if k.startswith('leaxer_qwen3_tts_torch')))\n"
     )
@@ -263,7 +264,11 @@ def test_port_imports_no_jax():
             "leaxer_qwen3_tts_torch.training.loss", "leaxer_qwen3_tts_torch.training.train_step",
             "leaxer_qwen3_tts_torch.training.draft_loss",
             "leaxer_qwen3_tts_torch.training.checkpoint",
-            "leaxer_qwen3_tts_torch.tools.train_draft"} <= modules
+            "leaxer_qwen3_tts_torch.tools.train_draft",
+            "leaxer_qwen3_tts_torch.tools.parity_check",
+            "leaxer_qwen3_tts_torch.tools.make_parity_fixtures",
+            "leaxer_qwen3_tts_torch.tools.quality_report",
+            "leaxer_qwen3_tts_torch.tools.spec_report"} <= modules
     # no kernel ran on the CPU
     assert fused_step.fused_decode_step.launches == 0
     assert fused_mtp.fused_mtp_chain.launches == 0
